@@ -1,0 +1,117 @@
+"""The port's hand-written CUDA kernels and what they share.
+
+Each kernel's source lives in ``flexflow_tpu_torch/csrc/`` and has a plain
+C interface.  :func:`build` compiles sources with ``nvcc`` for Hopper
+(``sm_90a``) into shared libraries under ``flexflow_tpu_torch/build/``,
+all missing sources at once, each in its own ``nvcc`` process;
+:func:`load` opens one with ``ctypes``.  Nothing is built or loaded when
+a module is imported: the first launch builds.  A library's file name
+carries a digest of its source and flags, so an edited source is rebuilt.
+
+``launches`` counts kernel launches by kernel name.  A wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: launches per kernel name since the last :func:`reset_launches`
+launches: collections.Counter = collections.Counter()
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH) — the CUDA kernels are built at first use")
+    return found
+
+
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    src = CSRC_DIR / source
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
+
+
+def build(sources: Sequence[str]) -> Dict[str, Dict]:
+    """Build every source whose library is missing, one ``nvcc`` each, all
+    started together.  Returns ``{source: {"path", "seconds", "log"}}``;
+    ``log`` holds the compiler's output (ptxas register and shared-memory
+    report) and ``seconds`` is 0 for a library that was already built.
+    Raises when a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, Dict] = {}
+    running = []
+    for source in sources:
+        lib = library_path(source)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            out[source] = {"path": lib, "seconds": 0.0,
+                           "log": log.read_text() if log.exists() else ""}
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((source, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for source, lib, tmp, proc, t0 in running:
+        text, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{source}:\n{text}")
+            continue
+        os.replace(tmp, lib)
+        lib.with_suffix(".log").write_text(text)
+        out[source] = {"path": lib, "seconds": secs, "log": text}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>``, built first if missing."""
+    lib = _loaded.get(source)
+    if lib is None:
+        path = build([source])[source]["path"]
+        lib = ctypes.CDLL(str(path))
+        lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ff_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[source] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a C entry point returned a non-zero CUDA error code."""
+    if code != 0:
+        msg = lib.ff_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

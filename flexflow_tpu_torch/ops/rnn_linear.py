@@ -1,0 +1,40 @@
+"""Per-position linear projection over (batch, len, d) tensors, the
+transformer's FFN and vocab projection (PyTorch port of
+``flexflow_tpu/ops/rnn_linear.py``).  The product is a plain
+``torch.matmul``, as the JAX package leaves it to XLA."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from flexflow_tpu_torch.ops.base import Op, Tensor, glorot_uniform
+from flexflow_tpu_torch.strategy import ParallelConfig
+
+
+class RnnLinear(Op):
+    AXIS_NAMES = ("c", "n")
+
+    def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
+                 out_channels: int, param_key: str = None):
+        super().__init__(name, pc, [input])
+        if input.ndim != 3:
+            raise ValueError("rnn linear input must be (batch, len, d)")
+        n, length, d = input.shape
+        self.in_channels = d
+        self.out_channels = out_channels
+        if param_key:
+            self.param_key = param_key
+        self.output = Tensor((n, length, out_channels), "float32", self, name)
+
+    def init_params(self, gen, device) -> Dict:
+        kernel = glorot_uniform((self.in_channels, self.out_channels), gen,
+                                device)
+        return {"kernel": kernel,
+                "bias": torch.zeros((self.out_channels,), device=device)}
+
+    def forward(self, params, state, xs: List, train: bool):
+        (x,) = xs
+        y = torch.matmul(x, params["kernel"].to(x.dtype))
+        return (y.float() + params["bias"]).to(x.dtype), state
