@@ -1,44 +1,60 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each one
-against its plain PyTorch version on the card, serves the GPT at full
-width through the port's serving entry point, and checks that the main
-path ran through the kernels.
+against its plain PyTorch version on the card, drives each ported path at
+full width through its entry point — the GPT served by ``apps.serve``
+and Inception-v3 trained by ``apps.cnn`` — and checks that each path ran
+through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU)
-    python3 chip_smoke.py --profile    # plus a torch.profiler breakdown of
-                                       # one full-width decode step
+    python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
+                                       # one decode step and one training
+                                       # step
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero):
 
 1. CUDA present, card name and power limit (nvidia-smi);
-2. build every kernel of the path from ``flexflow_tpu_torch/csrc/`` (one
-   nvcc per source, all started together) and print the build seconds;
-3. kernel phase: flash_attention_fwd against flash_attention_fwd_plain on
-   the card at the serving shape (8, 12, 512, 64) causal in float32 and
-   bfloat16, a ragged S = 77, a non-causal case and an empty K; then its
-   time, the plain version's and ``scaled_dot_product_attention``'s (a
-   yardstick the port never calls) at the serving shape;
-4. slice phase: ``apps.serve gpt`` at full width (12 x 768, 12 heads,
+2. build every kernel from ``flexflow_tpu_torch/csrc/`` (one nvcc per
+   source, all started together) and print the build seconds;
+3. flash kernel phase: flash_attention_fwd against its plain version at
+   the serving shape (8, 12, 512, 64) causal in float32 and bfloat16, a
+   ragged S = 77, a non-causal case and an empty K; then its time, the
+   plain version's and ``scaled_dot_product_attention``'s (a yardstick
+   the port never calls) at the serving shape;
+4. pool kernel phase: the max-pool forward and backward (kernel 7) at
+   Inception's four max-pool geometries at N = 256 in bfloat16 and
+   float32, tie-heavy integer inputs, a pad-1 and a 2x2 geometry, and
+   the avg-pool backward (kernel 8) at the 8x8x2048 global tail, against
+   their plain versions; then kernel, plain and library-yardstick times
+   (``max_pool2d_with_indices`` and its backward, ``avg_pool2d_backward``,
+   which the port never calls) at the main path's shapes;
+5. serving slice: ``apps.serve gpt`` at full width (12 x 768, 12 heads,
    d_ff 3072, vocab 32768, seq 512, max_batch 8, float32) serving 16
-   requests of 4 new tokens: every request completes, the kernel ran 12
-   times per decode step, and the first step's log-probs and all replies
-   match the same model run with the plain attention;
-5. (``--profile``) where one decode step's device time goes;
-6. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+   requests of 4 new tokens: every request completes, the flash kernel
+   ran 12 times per decode step, and the first step's log-probs and all
+   replies match the same model run with the plain attention;
+6. training slice: ``apps.cnn inception`` at bench.py's protocol (batch
+   256, 299x299, bfloat16 compute, float32 params, lr 0.01, wd 1e-4,
+   momentum 0, seeded random data) for 3 warm-up and 10 timed steps:
+   finite losses, 4 max-pool and 1 avg-pool kernel launches per step, and
+   the first 3 losses within 2e-2 of the same run with the plain pools;
+   images/s, step ms and peak memory;
+7. (``--profile``) where one decode step's and one training step's
+   device time goes;
+8. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
-Times come from CUDA events over repeated launches after a warm-up, with
-the inputs warm in L2 as they are after the projections that produce
-them.  ``bound_ms`` is the larger of the bytes the call must move (q, k,
-v read once, o and lse written once) at 3.35 TB/s and the FLOPs the
-unmasked scores need (4 d per score) at the peak for the input type:
-67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s bfloat16 — the
-H100 SXM data-sheet rates at 700 W.
+Times come from CUDA events over repeated launches after a warm-up.
+``bound_ms`` is the larger of the bytes a call must move (each input read
+once, each output written once) at 3.35 TB/s and its FLOPs at the peak
+for the input type: 67 TFLOP/s float32 outside the tensor cores, 989
+TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  The pools do
+a few compares or adds per byte, so bytes bound them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,6 +64,19 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SERVING_SHAPE = (8, 12, 512, 64)        # B, H, S, d of the GPT at seq 512
 KERNEL_ATOL = 1e-4   # float32 sums in another order, over up to 512 keys
 LOGPROB_ATOL = 1e-4  # that difference through 12 layers and the vocab head
+# the pool kernels do the plain versions' float32 compares, and their
+# float32 adds in the same order, cast once: they must agree exactly
+POOL_ATOL = 0.0
+# the training losses of the kernel and plain-pool runs: the pools agree
+# exactly, so what is left is cuDNN's run-to-run order of sums in bf16
+LOSS_RTOL = 2e-2
+POOL_N = 256
+# Inception-v3's max-pool inputs (pool1, pool2, incB1_b3_pool,
+# incD1_b3_pool; 3x3 stride 2 pad 0, fused ReLU) and its global avg pool
+INCEPTION_MAX_POOLS = [(147, 147, 64), (73, 73, 192), (36, 36, 288),
+                       (17, 17, 768)]
+INCEPTION_AVG_POOL = (8, 8, 2048)
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CHECKED = 3, 10, 3
 
 
 def _log(msg: str) -> None:
@@ -265,6 +294,307 @@ def slice_phase(torch, fa, kernels) -> dict:
     return {"launches": n, "engine": engine, "requests": requests}
 
 
+def _pool_bytes(*planes) -> int:
+    """Bytes of the given (dtype, element count) planes."""
+    esize = {"float32": 4, "bfloat16": 2, "uint8": 1}
+    return sum(esize[dt] * n for dt, n in planes)
+
+
+def _maxpool_case(torch, mp, gen, shape, k, p, relu, dtype, ties):
+    n, h, w, c = shape
+    if ties:
+        x = torch.randint(-3, 4, shape, generator=gen, device="cuda")
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda")
+    x = x.to(getattr(torch, dtype))
+    y, sel = mp.maxpool_fwd_cuda(x, k, p, relu)
+    y_p, sel_p = mp.maxpool_fwd_plain(x, k, p, relu)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(x.dtype)
+    dx = mp.maxpool_bwd_cuda(dy, sel, h, w, k, p)
+    dx_p = mp.maxpool_bwd_plain(dy, sel, h, w, k, p)
+    torch.cuda.synchronize()
+    err_fwd = float((y.float() - y_p.float()).abs().max())
+    sel_bad = int((sel != sel_p).sum())
+    err_bwd = float((dx.float() - dx_p.float()).abs().max())
+    return x, y, sel, dy, err_fwd, sel_bad, err_bwd
+
+
+def pool_kernel_phase(torch) -> dict:
+    """Kernels 7 (with its forward) and 8 against their plain versions,
+    then their times at the training path's shapes."""
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    cases = [(f"inception {h}x{w}x{c}", (POOL_N, h, w, c), 3, 0, True,
+              dtype, ties)
+             for (h, w, c) in INCEPTION_MAX_POOLS
+             for dtype, ties in (("bfloat16", False), ("float32", False),
+                                 ("bfloat16", True))]
+    cases += [("pad-1 56x56x64", (POOL_N, 56, 56, 64), 3, 1, True,
+               "bfloat16", True),
+              ("pad-1 56x56x64", (POOL_N, 56, 56, 64), 3, 1, False,
+               "float32", False),
+              ("2x2 28x28x128", (POOL_N, 28, 28, 128), 2, 0, False,
+               "bfloat16", True),
+              ("2x2 28x28x128", (POOL_N, 28, 28, 128), 2, 0, True,
+               "float32", False)]
+    worst = {"maxpool_fwd": 0.0, "maxpool_bwd": 0.0, "avgpool_bwd": 0.0}
+    for label, shape, k, p, relu, dtype, ties in cases:
+        _, _, _, _, e_f, bad, e_b = _maxpool_case(
+            torch, mp, gen, shape, k, p, relu, dtype, ties)
+        _log(f"pool check max {label} k{k} p{p} relu={relu} {dtype}"
+             f"{' ties' if ties else ''}: fwd max_abs_err {e_f:.3e}, "
+             f"sel mismatches {bad}, bwd max_abs_err {e_b:.3e} "
+             f"(tolerance {POOL_ATOL:g})")
+        if not (e_f <= POOL_ATOL and bad == 0 and e_b <= POOL_ATOL):
+            raise AssertionError(f"max pool {label} {dtype}: kernels "
+                                 f"disagree with the plain versions")
+        worst["maxpool_fwd"] = max(worst["maxpool_fwd"], e_f)
+        worst["maxpool_bwd"] = max(worst["maxpool_bwd"], e_b)
+    h, w, c = INCEPTION_AVG_POOL
+    for (kh, kw, relu, dtype) in ((h, w, False, "bfloat16"),
+                                  (h, w, False, "float32"),
+                                  (h, w, True, "bfloat16"),
+                                  (2, 2, True, "float32")):
+        x = torch.randn((POOL_N, h, w, c), generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+        y = ap.avgpool_fwd(x, kh, kw, relu)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(x.dtype)
+        mask = y if relu else None
+        dx = ap.avgpool_bwd_cuda(dy, mask, kh, kw)
+        dx_p = ap.avgpool_bwd_plain(dy, mask, kh, kw)
+        torch.cuda.synchronize()
+        err = float((dx.float() - dx_p.float()).abs().max())
+        _log(f"pool check avg {h}x{w}x{c} window {kh}x{kw} relu={relu} "
+             f"{dtype}: bwd max_abs_err {err:.3e} (tolerance {POOL_ATOL:g})")
+        if not err <= POOL_ATOL:
+            raise AssertionError("avg-pool kernel disagrees with its plain "
+                                 "version")
+        worst["avgpool_bwd"] = max(worst["avgpool_bwd"], err)
+
+    # times, bfloat16 (the training path's dtype), at every Inception
+    # geometry; inputs of 10-700 MB, so each launch finds them cold in L2
+    aten = torch.ops.aten
+    per_geometry = []
+    for (h, w, c) in INCEPTION_MAX_POOLS:
+        x, y, sel, dy, *_ = _maxpool_case(torch, mp, gen, (POOL_N, h, w, c),
+                                          3, 0, True, "bfloat16", False)
+        xc = x.permute(0, 3, 1, 2)
+        _, idx = aten.max_pool2d_with_indices(xc, [3, 3], [2, 2])
+        dyc = dy.permute(0, 3, 1, 2)
+        oh, ow = y.shape[1], y.shape[2]
+        nx, ny = POOL_N * h * w * c, POOL_N * oh * ow * c
+        row = {
+            "geometry": (POOL_N, h, w, c),
+            "fwd": dict(
+                ms=_time_ms(torch, lambda: mp.maxpool_fwd_cuda(x, 3, 0,
+                                                               True)),
+                plain_ms=_time_ms(torch, lambda: mp.maxpool_fwd_plain(
+                    x, 3, 0, True), iters=10),
+                library_ms=_time_ms(torch, lambda: aten.max_pool2d_with_indices(
+                    xc, [3, 3], [2, 2])),
+                bound_ms=_pool_bytes(("bfloat16", nx),
+                                     ("bfloat16", ny), ("uint8", ny))
+                / HBM_BYTES_PER_S * 1e3),
+            "bwd": dict(
+                ms=_time_ms(torch, lambda: mp.maxpool_bwd_cuda(dy, sel, h, w,
+                                                               3, 0)),
+                plain_ms=_time_ms(torch, lambda: mp.maxpool_bwd_plain(
+                    dy, sel, h, w, 3, 0), iters=10),
+                library_ms=_time_ms(
+                    torch, lambda: aten.max_pool2d_with_indices_backward(
+                        dyc, xc, [3, 3], [2, 2], [0, 0], [1, 1], False, idx)),
+                bound_ms=_pool_bytes(("bfloat16", ny),
+                                     ("uint8", ny), ("bfloat16", nx))
+                / HBM_BYTES_PER_S * 1e3),
+        }
+        per_geometry.append(row)
+        for part in ("fwd", "bwd"):
+            t = row[part]
+            _log(f"pool time max {part} {POOL_N}x{h}x{w}x{c} bfloat16: "
+                 f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                 f"library {t['library_ms']:.4f} ms, bound "
+                 f"{t['bound_ms']:.4f} ms (bytes)")
+        del x, y, sel, dy, xc, idx, dyc
+    h, w, c = INCEPTION_AVG_POOL
+    x = torch.randn((POOL_N, h, w, c), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dy = torch.randn((POOL_N, 1, 1, c), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    avg = dict(
+        ms=_time_ms(torch, lambda: ap.avgpool_bwd_cuda(dy, None, h, w)),
+        plain_ms=_time_ms(torch, lambda: ap.avgpool_bwd_plain(dy, None, h,
+                                                              w), iters=20),
+        library_ms=_time_ms(torch, lambda: aten.avg_pool2d_backward(
+            dyc, xc, [h, w], [1, 1], [0, 0], False, True, None)),
+        bound_ms=_pool_bytes(("bfloat16", POOL_N * c),
+                             ("bfloat16", POOL_N * h * w * c))
+        / HBM_BYTES_PER_S * 1e3)
+    _log(f"pool time avg bwd {POOL_N}x{h}x{w}x{c} bfloat16: kernel "
+         f"{avg['ms']:.4f} ms, plain {avg['plain_ms']:.4f} ms, library "
+         f"{avg['library_ms']:.4f} ms, bound {avg['bound_ms']:.4f} ms "
+         f"(bytes)")
+    step = {part: {key: sum(r[part][key] for r in per_geometry)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for part in ("fwd", "bwd")}
+    for part in ("fwd", "bwd"):
+        t = step[part]
+        _log(f"pool time max {part}, the 4 launches of one training step: "
+             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+             f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+             f"ms")
+    return {"worst": worst, "max_step": step, "avg": avg}
+
+
+@contextlib.contextmanager
+def _plain_pools():
+    """Route the pool ops to the plain versions for a reference run."""
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    saved = (mp.maxpool_fwd, mp.maxpool_bwd, ap.avgpool_bwd)
+    mp.maxpool_fwd, mp.maxpool_bwd = mp.maxpool_fwd_plain, mp.maxpool_bwd_plain
+    ap.avgpool_bwd = ap.avgpool_bwd_plain
+    try:
+        yield
+    finally:
+        mp.maxpool_fwd, mp.maxpool_bwd, ap.avgpool_bwd = saved
+
+
+def _train_argv(batch: int, iters: int, warmup: int) -> list:
+    return ["inception", "-b", str(batch), "-i", str(iters), "--warmup",
+            str(warmup), "--dtype", "bfloat16", "-p", "0"]
+
+
+def training_phase(torch, kernels, card: str) -> dict:
+    """``apps.cnn inception`` at bench.py's protocol, through the pool
+    kernels, then its first losses against the plain-pool run."""
+    from flexflow_tpu_torch.apps import cnn
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    iters = TRAIN_WARMUP + TRAIN_TIMED
+    batch = 256
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        try:
+            out = cnn.main(_train_argv(batch, iters, TRAIN_WARMUP), log=_log)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 32:
+                raise
+            _log(f"train: batch {batch} does not fit on the card; halving "
+                 f"(a cut of bench.py's batch 256)")
+            batch //= 2
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["loss"]
+    step_ms = out["elapsed_s"] / TRAIN_TIMED * 1e3
+    _log(f"train: inception batch {batch}, {iters} steps "
+         f"({TRAIN_WARMUP} warm-up); launches by kernel {launches}")
+    _log(f"train: losses {losses}")
+    want = {mp.NAME_FWD: 4 * iters, mp.NAME_BWD: 4 * iters,
+            ap.NAME: 1 * iters}
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"pool kernels launched {launches}, expected "
+                             f"{want} (4 max and 1 avg pool per step)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    _log(f"train: {out['images_per_sec']:.2f} images/s, {step_ms:.2f} ms "
+         f"per step, peak memory {peak_gb:.2f} GB "
+         f"(max_memory_allocated), batch {batch} — {card}")
+
+    with _plain_pools():
+        kernels.reset_launches()
+        ref = cnn.main(_train_argv(batch, TRAIN_CHECKED, 0),
+                       log=lambda *a: None)
+        if sum(kernels.launches.values()):
+            raise AssertionError("the plain-pool run launched a kernel")
+    torch.cuda.synchronize()
+    got, want_l = losses[:TRAIN_CHECKED], ref["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want_l))
+    _log(f"train: first {TRAIN_CHECKED} losses {got} vs plain pools "
+         f"{want_l}: max rel diff {rel:.3e} (tolerance {LOSS_RTOL:g})")
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"training losses differ from the plain-pool "
+                             f"run by {rel}")
+    return {"batch": batch, "launches": launches, "step_ms": step_ms,
+            "images_per_sec": out["images_per_sec"], "peak_gb": peak_gb}
+
+
+def train_profile_phase(torch, batch: int) -> None:
+    """One full-width Inception training step: where its device time
+    goes, by kernel and by kind (cuDNN convolutions, the pool kernels,
+    the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.apps import cnn
+    from flexflow_tpu_torch.data import synthetic_batches
+
+    name, cfg, _, _ = cnn.parse(_train_argv(batch, 1, 0))
+    ff = cnn.build(name, cfg, torch.device("cuda"))
+    params, state = ff.init()
+    opt = ff.init_opt_state(params)
+    step = ff.make_train_step()
+    image, labels = next(synthetic_batches(
+        batch, cfg.input_height, cfg.input_width,
+        num_classes=cfg.num_classes, mode="random", seed=cfg.seed,
+        device=ff.device))
+
+    def run():
+        return step(params, state, opt, image, labels)
+
+    step_ms = _time_ms(torch, run, iters=3, warmup=2)
+    _log(f"profile train: one step {step_ms:.3f} ms by CUDA events "
+         f"(batch {batch})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in rows)
+    if not total:
+        _log("profile train: the profiler saw no device time; the step "
+             "time above is from CUDA events")
+        return
+
+    def kind(key: str) -> str:
+        k = key.lower()
+        if "maxpool_" in k or "avgpool_bwd" in k:
+            return "pool kernels (7, 8)"
+        if "avg_pool" in k:
+            return "in-block avg pools (aten)"
+        if any(s in k for s in ("conv", "xmma", "cudnn", "dgrad", "wgrad",
+                                "implicit", "fprop", "nhwc")):
+            return "convolutions (cuDNN)"
+        if "gemm" in k or "cutlass" in k:
+            return "matmul"
+        return "elementwise / other"
+
+    by_kind = {}
+    for e in rows:
+        by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) \
+            + e.self_device_time_total
+    _log(f"profile train: kernel time {total / 2e3:.3f} ms/step of "
+         f"{step_ms:.3f} ms/step")
+    for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        _log(f"profile train:   {us / 2e3:9.4f} ms/step  "
+             f"{100 * us / total:5.1f}%  {k}")
+    for e in rows[:15]:
+        us = e.self_device_time_total
+        _log(f"profile train:   {us / 2e3:9.4f} ms/step  "
+             f"{100 * us / total:5.1f}%  x{e.count // 2:<4d} {e.key[:90]}")
+
+
 def profile_phase(torch, engine) -> None:
     """One full-batch decode step: event-timed, then traced."""
     import numpy as np
@@ -320,16 +650,19 @@ def main(argv) -> int:
         return 2
 
     from flexflow_tpu_torch.ops import kernels
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _log(_card_line())
+    card = _card_line()
+    _log(card)
     _log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
          f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    built = kernels.build([fa.SOURCE])
+    built = kernels.build([fa.SOURCE, mp.SOURCE, ap.SOURCE])
     _log(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} "
          f"kernel source(s) (parallel nvcc)")
     for source, info in built.items():
@@ -339,12 +672,15 @@ def main(argv) -> int:
                 _log(f"build {source}: {line.strip()}")
 
     checked = kernel_phase(torch, fa)
+    pools = pool_kernel_phase(torch)
     sliced = slice_phase(torch, fa, kernels)
+    trained = training_phase(torch, kernels, card)
     if "--profile" in argv:
         profile_phase(torch, sliced["engine"])
+        train_profile_phase(torch, trained["batch"])
 
     f32 = checked["timings"]["float32"]
-    line = {"kernels": [{
+    entries = [{
         "name": fa.NAME, "route": "cuda",
         "source": "flexflow_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "flexflow_tpu/ops/pallas/flash_attention.py:62",
@@ -353,8 +689,27 @@ def main(argv) -> int:
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-    }]}
-    print(json.dumps(line), flush=True)
+    }]
+    # pool times: the sum over one training step's four max-pool
+    # launches, and the one avg-pool launch, bfloat16 at batch 256
+    for name, replaces, timing in (
+            (mp.NAME_BWD, "flexflow_tpu/ops/pallas/maxpool.py:139",
+             pools["max_step"]["bwd"]),
+            (ap.NAME, "flexflow_tpu/ops/pallas/avgpool.py:59", pools["avg"]),
+            (mp.NAME_FWD, "flexflow_tpu/ops/pallas/maxpool.py:249",
+             pools["max_step"]["fwd"])):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "flexflow_tpu_torch/csrc/"
+                      + (ap.SOURCE if name == ap.NAME else mp.SOURCE),
+            "replaces": replaces,
+            "launches": trained["launches"].get(name, 0),
+            "max_abs_err": pools["worst"][name],
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": "bytes",
+            "library_ms": timing["library_ms"],
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,45 @@
+"""Synthetic image batches (PyTorch port of
+``flexflow_tpu/data/synthetic.py``): ``ones`` mode is the reference's
+image = 1.0, label = 1; ``random`` mode draws Gaussian images and uniform
+labels from ``np.random.RandomState(seed)`` in the JAX package's order,
+so both packages see the same arrays."""
+
+from __future__ import annotations
+
+import itertools
+from typing import Iterator, Tuple
+
+import numpy as np
+import torch
+
+from flexflow_tpu_torch.machine import resolve_device
+
+
+def synthetic_batches(batch_size: int, height: int, width: int,
+                      channels: int = 3, num_classes: int = 1000,
+                      mode: str = "ones", seed: int = 0, cycle: int = 2,
+                      device="cuda") -> Iterator[Tuple[torch.Tensor,
+                                                       torch.Tensor]]:
+    """Yield (float32 image NHWC, int32 labels) on ``device`` forever.
+
+    ``cycle`` batches (one in ``ones`` mode) are drawn up front, moved to
+    the device once and yielded round-robin, so the training loop does no
+    host-side data work."""
+    if mode not in ("ones", "random"):
+        raise ValueError(f"mode must be 'ones' or 'random', got {mode!r}")
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+
+    def make():
+        if mode == "ones":
+            img = np.ones((batch_size, height, width, channels), np.float32)
+            lbl = np.ones((batch_size,), np.int32)
+        else:
+            img = rng.randn(batch_size, height, width,
+                            channels).astype(np.float32)
+            lbl = rng.randint(0, num_classes,
+                              size=(batch_size,)).astype(np.int32)
+        return torch.from_numpy(img).to(dev), torch.from_numpy(lbl).to(dev)
+
+    return itertools.cycle([make()
+                            for _ in range(1 if mode == "ones" else cycle)])

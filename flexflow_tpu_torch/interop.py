@@ -2,9 +2,11 @@
 
 ``FFModel.init()`` in the JAX package returns ``{op_name: {leaf: array}}``
 and the port's models name their ops and leaves the same way, with the
-same shapes and layouts (``(d_in, d_out)`` kernels, ``(vocab, d)``
-tables).  :func:`params_from_jax` carries such a tree, converted to numpy
-by the caller, into the port unchanged: no renames, no transposes.
+same shapes and layouts: ``(d_in, d_out)`` linear and projection
+kernels, ``(vocab, d)`` tables, HWIO convolution kernels (the port's
+``Conv2D`` reads them through an OIHW view), ``(d_out,)`` biases.
+:func:`params_from_jax` carries such a tree, converted to numpy by the
+caller, into the port unchanged: no renames, no transposes.
 """
 
 from __future__ import annotations

@@ -1,18 +1,26 @@
-"""FFModel: the layer DAG and its forward (PyTorch port of
-``flexflow_tpu/model.py``).
+"""FFModel: the layer DAG, its forward and its training step (PyTorch
+port of ``flexflow_tpu/model.py``).
 
 The graph-building methods append named ops to ``self.layers`` in
 topological order, each taking its ParallelConfig from
 ``config.strategies`` or the machine's pure-DP default.  ``init`` builds
 the parameter tree ``{param_key: {leaf: tensor}}`` the JAX package
-builds, ``apply`` walks
-the layers in order, and ``make_predict_step`` is the serving path's
-forward-only step.  Placement over several devices, regrids, donation,
-the fused LM-head loss and training arrive with later slices.
+builds, ``apply`` walks the layers in order, ``make_predict_step`` is the
+serving path's forward-only step, and ``make_train_step`` /
+``make_eval_step`` / ``fit`` are the CNN training path: momentum SGD with
+weight decay, float32 or mixed-precision (float32 masters) parameters.
+
+Gradients come from ``torch.autograd``.  A tensor read by several ops
+gets the sum of their gradients from autograd itself; the JAX package's
+``grad_fanout`` tree (``ops/fanout.py``) only fixes where XLA adds them,
+and the parity tests hold without it.  Placement over several devices,
+regrids, the fused LM-head loss, checkpoints and the fault-tolerant
+runtime arrive with later slices.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -21,6 +29,9 @@ from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.machine import MachineModel
 from flexflow_tpu_torch.ops.base import Op, Tensor, torch_dtype
 from flexflow_tpu_torch.strategy import ParallelConfig, validate_strategy
+
+#: suffix of the float32 master leaves in a mixed-precision optimizer state
+MASTER_SUFFIX = "__master"
 
 
 class FFModel:
@@ -58,6 +69,45 @@ class FFModel:
         t = Tensor(shape, dtype, None, name)
         self._inputs.append(t)
         return t
+
+    def conv2d(self, name, input, out_channels, kernel_h, kernel_w,
+               stride_h, stride_w, padding_h, padding_w,
+               relu: bool = False) -> Tensor:
+        from flexflow_tpu_torch.ops.conv import Conv2D
+
+        return self._add(Conv2D(name, self._pc(name, 4), input, out_channels,
+                                kernel_h, kernel_w, stride_h, stride_w,
+                                padding_h, padding_w, relu))
+
+    def pool2d(self, name, input, kernel_h, kernel_w, stride_h, stride_w,
+               padding_h, padding_w, pool_type: str = "max",
+               relu: bool = True) -> Tensor:
+        from flexflow_tpu_torch.ops.pool import Pool2D
+
+        return self._add(Pool2D(name, self._pc(name, 4), input, kernel_h,
+                                kernel_w, stride_h, stride_w, padding_h,
+                                padding_w, pool_type, relu))
+
+    def linear(self, name, input, out_channels, relu: bool = True) -> Tensor:
+        from flexflow_tpu_torch.ops.linear import Linear
+
+        return self._add(Linear(name, self._pc(name, 2), input, out_channels,
+                                relu))
+
+    def concat(self, name, tensors: List[Tensor]) -> Tensor:
+        from flexflow_tpu_torch.ops.concat import Concat
+
+        return self._add(Concat(name, self._pc(name, 4), tensors))
+
+    def flat(self, name, input) -> Tensor:
+        from flexflow_tpu_torch.ops.flat import Flat
+
+        return self._add(Flat(name, self._pc(name, 2), input))
+
+    def softmax(self, name, input) -> Tensor:
+        from flexflow_tpu_torch.ops.softmax import Softmax
+
+        return self._add(Softmax(name, self._pc(name, 1), input))
 
     def embed(self, name, input, vocab_size, embed_size,
               param_key: str = None) -> Tensor:
@@ -175,10 +225,7 @@ class FFModel:
         def predict_step(params, state, *batch):
             with torch.inference_mode():
                 if self._mixed_precision():
-                    params = {
-                        key: {k: v.to(cdtype) if v.is_floating_point()
-                              else v for k, v in leaves.items()}
-                        for key, leaves in params.items()}
+                    params = _cast_floats(params, cdtype)
                 inputs = {}
                 for t, b in zip(self._inputs, batch):
                     b = torch.as_tensor(b, device=device)
@@ -189,3 +236,155 @@ class FFModel:
                 return tuple(values[tid] for tid in tids)
 
         return predict_step
+
+    # ------------------------------------------------------------------
+    # training (the CNN path: model.py:1338-1432, 1551, 1624)
+
+    def loss_fn(self, params, state, image, labels, train: bool = True):
+        """``(loss, new_state)``: the mean NLL of the loss op's log-probs."""
+        loss_op = self._loss_op()
+        values, new_state = self.apply(
+            params, state, {self._inputs[0].tid: image}, train)
+        return loss_op.loss(values[loss_op.output.tid], labels), new_state
+
+    def init_opt_state(self, params):
+        """Zero momentum buffers shaped like ``params``; under mixed
+        precision float32 buffers plus a float32 master of every float
+        leaf under ``<leaf>__master``."""
+        if not self._mixed_precision():
+            return {key: {k: torch.zeros_like(v) for k, v in sub.items()}
+                    for key, sub in params.items()}
+        out = {}
+        for key, sub in params.items():
+            d = {}
+            for k, v in sub.items():
+                if v.is_floating_point():
+                    d[k] = torch.zeros_like(v, dtype=torch.float32)
+                    d[k + MASTER_SUFFIX] = v.float()
+                else:
+                    d[k] = torch.zeros_like(v)
+            out[key] = d
+        return out
+
+    def _batch(self, image, labels):
+        """The batch on the model's device, the image cast to the compute
+        dtype."""
+        image = torch.as_tensor(image, device=self.device).to(
+            torch_dtype(self.config.compute_dtype))
+        return image, torch.as_tensor(labels, device=self.device)
+
+    def make_train_step(self):
+        """``train_step(params, state, opt_state, image, labels) ->
+        (params, state, opt_state, loss)``: forward, backward and the
+        momentum-SGD update ``v = mu*v + g + wd*p; p = p - lr*v`` of
+        ``model.py:1353-1386``.  New trees are returned; the inputs are not
+        modified.  Under mixed precision the update runs in float32
+        against the masters in the optimizer state and the stored params
+        are re-cast from them (``model.py:1388-1432``)."""
+        cfg = self.config
+        lr, wd, mu = cfg.learning_rate, cfg.weight_decay, cfg.momentum
+        cdtype = torch_dtype(cfg.compute_dtype)
+        mixed = self._mixed_precision()
+
+        def train_step(params, state, opt_state, image, labels):
+            image, labels = self._batch(image, labels)
+            tree = {key: {k: v.detach().requires_grad_(v.is_floating_point())
+                          for k, v in sub.items()}
+                    for key, sub in params.items()}
+            keys = [(key, k) for key, sub in tree.items()
+                    for k, v in sub.items() if v.requires_grad]
+            with torch.enable_grad():
+                fwd = _cast_floats(tree, cdtype) if mixed else tree
+                loss, new_state = self.loss_fn(fwd, state, image, labels,
+                                               train=True)
+                grads = torch.autograd.grad(
+                    loss, [tree[key][k] for key, k in keys])
+            new_params = {key: dict(sub) for key, sub in params.items()}
+            new_opt = {key: dict(sub) for key, sub in opt_state.items()}
+            with torch.no_grad():
+                for (key, k), g in zip(keys, grads):
+                    p, v = params[key][k], opt_state[key][k]
+                    if mixed:
+                        m = opt_state[key][k + MASTER_SUFFIX]
+                        v = mu * v + g.float() + wd * m
+                        m = m - lr * v
+                        new_params[key][k] = m.to(p.dtype)
+                        new_opt[key][k + MASTER_SUFFIX] = m
+                    else:
+                        v = mu * v + g + wd * p
+                        new_params[key][k] = p - lr * v
+                    new_opt[key][k] = v
+            return new_params, new_state, new_opt, loss.detach()
+
+        return train_step
+
+    def make_eval_step(self):
+        """``eval_step(params, state, image, labels) -> (loss, accuracy)``
+        without gradients (``model.py:1551``)."""
+        cdtype = torch_dtype(self.config.compute_dtype)
+        loss_op = self._loss_op()
+
+        def eval_step(params, state, image, labels):
+            with torch.inference_mode():
+                image, labels = self._batch(image, labels)
+                if self._mixed_precision():
+                    params = _cast_floats(params, cdtype)
+                values, _ = self.apply(
+                    params, state, {self._inputs[0].tid: image}, False)
+                log_probs = values[loss_op.output.tid]
+                loss = loss_op.loss(log_probs, labels)
+                acc = (log_probs.argmax(dim=-1) == labels.long()) \
+                    .float().mean()
+                return loss, acc
+
+        return eval_step
+
+    def fit(self, data_iter, num_iterations: Optional[int] = None,
+            warmup: int = 1, log=print) -> Dict[str, Any]:
+        """The timed training loop of ``model.py:1624`` (cnn.cc:110-128):
+        ``warmup`` untimed steps, then the timed ones, the device synced
+        once when the timed window opens and once when it closes; the loss
+        every ``config.print_freq`` iterations; then the reference's line
+        ``time = %.4fs, tp = %.2f images/s``.  Starts from ``init()``.
+        Returns
+        ``{"params", "state", "opt_state", "loss" (floats), "elapsed_s",
+        "images_per_sec"}``.  Checkpoints, elastic recovery, the health
+        guard, telemetry and prefetching are not ported yet."""
+        num_iterations = num_iterations or self.config.num_iterations
+        warmup = min(warmup, max(num_iterations - 1, 0))
+        params, state = self.init()
+        opt_state = self.init_opt_state(params)
+        step = self.make_train_step()
+        print_freq = self.config.print_freq
+        losses = []
+        start = time.perf_counter()
+        for it in range(num_iterations):
+            image, labels = next(data_iter)
+            if it == warmup:
+                self._sync()
+                start = time.perf_counter()
+            params, state, opt_state, loss = step(params, state, opt_state,
+                                                  image, labels)
+            losses.append(loss)
+            if print_freq and (it + 1) % print_freq == 0:
+                log(f"iter {it + 1}: loss = {float(loss):.4f}")
+        self._sync()
+        elapsed = time.perf_counter() - start
+        n_timed = num_iterations - warmup
+        throughput = (n_timed * self.config.batch_size / elapsed
+                      if elapsed > 0 and n_timed > 0 else 0.0)
+        log(f"time = {elapsed:.4f}s, tp = {throughput:.2f} images/s")
+        return {"params": params, "state": state, "opt_state": opt_state,
+                "loss": [float(v) for v in losses], "elapsed_s": elapsed,
+                "images_per_sec": throughput}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def _cast_floats(tree, dtype):
+    """``tree`` with every float leaf cast to ``dtype``."""
+    return {key: {k: v.to(dtype) if v.is_floating_point() else v
+                  for k, v in sub.items()}
+            for key, sub in tree.items()}

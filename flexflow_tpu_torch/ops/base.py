@@ -32,11 +32,14 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}") from None
 
 
-def glorot_uniform(shape: Tuple[int, int], gen: torch.Generator,
-                   device) -> torch.Tensor:
-    """``jax.nn.initializers.glorot_uniform`` for a (fan_in, fan_out)
-    matrix: U(-a, a) with a = sqrt(6 / (fan_in + fan_out))."""
-    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+def glorot_uniform(shape: Tuple[int, ...], gen: torch.Generator,
+                   device, fans: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
+    """``jax.nn.initializers.glorot_uniform``: U(-a, a) with
+    a = sqrt(6 / (fan_in + fan_out)); ``fans`` defaults to the two dims
+    of a (fan_in, fan_out) matrix."""
+    fan_in, fan_out = fans if fans is not None else shape
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
     return (u * 2.0 - 1.0) * limit
 

@@ -1,0 +1,29 @@
+"""Concat along the channel axis of NHWC tensors (PyTorch port of
+``flexflow_tpu/ops/concat.py``)."""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from flexflow_tpu_torch.ops.base import Op, Tensor
+from flexflow_tpu_torch.strategy import ParallelConfig
+
+
+class Concat(Op):
+    AXIS_NAMES = ("w", "h", "c", "n")
+
+    def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor]):
+        super().__init__(name, pc, inputs)
+        if len(inputs) < 2:
+            raise ValueError("concat needs at least two inputs")
+        n, h, w, _ = inputs[0].shape
+        for t in inputs:
+            if t.ndim != 4 or t.shape[:3] != (n, h, w):
+                raise ValueError("concat inputs must agree on N, H, W")
+        c_total = sum(t.shape[3] for t in inputs)
+        self.output = Tensor((n, h, w, c_total), inputs[0].dtype, self, name)
+
+    def forward(self, params, state, xs: List, train: bool):
+        return torch.cat(xs, dim=3), state

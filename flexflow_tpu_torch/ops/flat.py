@@ -1,0 +1,28 @@
+"""Flat: (N, H, W, C) -> (N, H*W*C) (PyTorch port of
+``flexflow_tpu/ops/flat.py``).
+
+The features are flattened in NHWC order, (h, w, c) with c fastest, as
+the JAX op does: the next linear's kernel rows follow that order, and an
+NCHW flatten would pair them with the wrong features."""
+
+from __future__ import annotations
+
+from typing import List
+
+from flexflow_tpu_torch.ops.base import Op, Tensor
+from flexflow_tpu_torch.strategy import ParallelConfig
+
+
+class Flat(Op):
+    AXIS_NAMES = ("c", "n")
+
+    def __init__(self, name: str, pc: ParallelConfig, input: Tensor):
+        super().__init__(name, pc, [input])
+        if input.ndim != 4:
+            raise ValueError("flat input must be NHWC")
+        n, h, w, c = input.shape
+        self.output = Tensor((n, h * w * c), input.dtype, self, name)
+
+    def forward(self, params, state, xs: List, train: bool):
+        (x,) = xs
+        return x.reshape(x.shape[0], -1), state

@@ -275,3 +275,13 @@ def test_entry_points_refuse_cpu_fallback(pair):
         params_from_jax(tree)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_serve.main(["gpt", "--tiny"])
+    from flexflow_tpu_torch.apps import cnn as t_cnn
+    from flexflow_tpu_torch.data import synthetic_batches
+    from flexflow_tpu_torch.models.inception import build_inception_v3
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cnn.main(["alexnet", "-b", "2", "-i", "1"], log=lambda *a: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_inception_v3()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthetic_batches(2, 4, 4)
