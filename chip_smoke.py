@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each one
 against its plain PyTorch version on the card, drives each ported path at
-full width through its entry point — the GPT served by ``apps.serve``
-and Inception-v3 trained by ``apps.cnn`` — and checks that each path ran
-through its kernels.
+full width through its entry point — the GPT served by ``apps.serve``,
+the GPT trained by ``apps.lm`` and Inception-v3 trained by ``apps.cnn`` —
+and checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU)
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
-                                       # one decode step and one training
+                                       # one decode step, one LM training
+                                       # step and one Inception training
                                        # step
 
 Phases (any failure exits non-zero):
@@ -20,34 +21,56 @@ Phases (any failure exits non-zero):
    ragged S = 77, a non-causal case and an empty K; then its time, the
    plain version's and ``scaled_dot_product_attention``'s (a yardstick
    the port never calls) at the serving shape;
-4. pool kernel phase: the max-pool forward and backward (kernel 7) at
+4. flash backward phase: kernels 2 (dk, dv) and 3 (dq) against the
+   plain backward at the LM training shape (16, 12, 512, 64) causal in
+   float32 and bfloat16 and a ragged non-causal cross case (Sq 77, Sk
+   300); then their times beside the plain backward's and the backward of
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+5. fused cross-entropy phase: kernels 4 (forward), 5 (dx) and 6 (dw, db)
+   against their plain versions at the LM head's N = 8192, d = 768,
+   V = 32768 in float32 and bfloat16, and at GPT-2's V = 50257, labels
+   with -1 (no target) included; then their times beside the plain
+   versions' and the unfused library pair (``x @ w + b``, then
+   ``F.cross_entropy``, forward and backward);
+6. pool kernel phase: the max-pool forward and backward (kernel 7) at
    Inception's four max-pool geometries at N = 256 in bfloat16 and
    float32, tie-heavy integer inputs, a pad-1 and a 2x2 geometry, and
    the avg-pool backward (kernel 8) at the 8x8x2048 global tail, against
    their plain versions; then kernel, plain and library-yardstick times
    (``max_pool2d_with_indices`` and its backward, ``avg_pool2d_backward``,
    which the port never calls) at the main path's shapes;
-5. serving slice: ``apps.serve gpt`` at full width (12 x 768, 12 heads,
+7. serving slice: ``apps.serve gpt`` at full width (12 x 768, 12 heads,
    d_ff 3072, vocab 32768, seq 512, max_batch 8, float32) serving 16
    requests of 4 new tokens: every request completes, the flash kernel
    ran 12 times per decode step, and the first step's log-probs and all
    replies match the same model run with the plain attention;
-6. training slice: ``apps.cnn inception`` at bench.py's protocol (batch
-   256, 299x299, bfloat16 compute, float32 params, lr 0.01, wd 1e-4,
-   momentum 0, seeded random data) for 3 warm-up and 10 timed steps:
+8. LM training slice: ``apps.lm`` at the JAX app's own example (causal,
+   batch 16, seq 512, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab
+   32768, float32, plain SGD at lr 1e-3) for 3 warm-up and 10 timed steps:
+   finite losses, the first near ln 32768, per step 12 launches each of
+   kernels 1, 2 and 3 and one each of kernels 4, 5 and 6, and the first 3
+   losses within 1e-4 (relative) of the same run with every kernel
+   swapped for its plain version; tokens/s, step ms and peak memory;
+9. Inception training slice: ``apps.cnn inception`` at bench.py's
+   protocol (batch 256, 299x299, bfloat16 compute, float32 params, lr
+   0.01, wd 1e-4, momentum 0, seeded random data) for 3 warm-up and 10
+   timed steps:
    finite losses, 4 max-pool and 1 avg-pool kernel launches per step, and
    the first 3 losses within 2e-2 of the same run with the plain pools;
    images/s, step ms and peak memory;
-7. (``--profile``) where one decode step's and one training step's
-   device time goes;
-8. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+10. (``--profile``) where the device time of one decode step, one LM
+    training step and one Inception training step goes;
+11. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
 Times come from CUDA events over repeated launches after a warm-up.
 ``bound_ms`` is the larger of the bytes a call must move (each input read
 once, each output written once) at 3.35 TB/s and its FLOPs at the peak
 for the input type: 67 TFLOP/s float32 outside the tensor cores, 989
 TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  The pools do
-a few compares or adds per byte, so bytes bound them.
+a few compares or adds per byte, so bytes bound them.  A flash backward
+kernel counts 8 (dk, dv) or 6 (dq) x d FLOPs per unmasked (query, key)
+pair; a fused cross-entropy kernel 2 N d V (forward) or 4 N d V (the
+logits recomputed, then one product).
 """
 
 from __future__ import annotations
@@ -64,6 +87,17 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SERVING_SHAPE = (8, 12, 512, 64)        # B, H, S, d of the GPT at seq 512
 KERNEL_ATOL = 1e-4   # float32 sums in another order, over up to 512 keys
 LOGPROB_ATOL = 1e-4  # that difference through 12 layers and the vocab head
+# the flash backward and fused cross-entropy kernels against their plain
+# versions, as a share of each output's largest magnitude: float32 sums
+# over up to 512 keys or 32768 vocab columns in another order; with
+# bfloat16 operands both versions round p, ds or t to bfloat16 before a
+# product, and a sum taken in another order can tip a rounding one step
+GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+LM_SHAPE = (16, 12, 512, 64)            # B, H, S, d of the LM training step
+CE_SHAPE = (16 * 512, 768, 32768)       # N, d, V of its vocab head
+GPT2_VOCAB = 50257
+LM_LOSS_RTOL = 1e-4  # the kernel vs plain-kernel LM runs' first losses
+LM_WARMUP, LM_TIMED, LM_CHECKED = 3, 10, 3
 # the pool kernels do the plain versions' float32 compares, and their
 # float32 adds in the same order, cast once: they must agree exactly
 POOL_ATOL = 0.0
@@ -105,6 +139,15 @@ def _time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(flops: float, nbytes: float, dtype: str) -> tuple:
+    """(bound_ms, bound_by) of a call doing ``flops`` on ``dtype`` inputs
+    and moving ``nbytes``."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def _bound_ms(shape, sk, causal, dtype) -> tuple:
     """(bound_ms, bound_by) of one flash forward call."""
     b, h, sq, d = shape
@@ -116,10 +159,7 @@ def _bound_ms(shape, sk, causal, dtype) -> tuple:
     flops = 4.0 * d * b * h * scores
     nbytes = (b * h * sq * d + 2 * b * h * sk * d) * esize \
         + b * h * sq * d * 4 + b * h * sq * 4
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes, dtype)
 
 
 def _max_err(torch, got, ref) -> float:
@@ -135,18 +175,24 @@ def _max_err(torch, got, ref) -> float:
 
 
 @contextlib.contextmanager
-def _plain_attention():
-    """Route the attention op to the plain version for a reference run."""
-    from flexflow_tpu_torch.ops import attention
-    from flexflow_tpu_torch.ops.kernels.flash_attention import \
-        flash_attention_fwd_plain
+def _plain_kernels():
+    """Route the sequence models' kernels (flash forward and backward, the
+    fused cross-entropy forward and backward) to their plain versions for
+    a reference run: the autograd functions look them up when called."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
 
-    kernel = attention.flash_attention_fwd
-    attention.flash_attention_fwd = flash_attention_fwd_plain
+    saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+             ce.fused_linear_ce_fwd, ce.fused_linear_ce_bwd)
+    fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+    ce.fused_linear_ce_fwd = ce.fused_linear_ce_fwd_plain
+    ce.fused_linear_ce_bwd = ce.fused_linear_ce_bwd_plain
     try:
         yield
     finally:
-        attention.flash_attention_fwd = kernel
+        (fa.flash_attention_fwd, fa.flash_attention_bwd,
+         ce.fused_linear_ce_fwd, ce.fused_linear_ce_bwd) = saved
 
 
 def kernel_phase(torch, fa) -> dict:
@@ -212,6 +258,194 @@ def kernel_phase(torch, fa) -> dict:
     return {"max_abs_err": worst, "timings": timings}
 
 
+def _rel_err(torch, got, ref) -> tuple:
+    """(max |got - ref|, that over max |ref|)."""
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    return err, err / max(scale, 1e-30)
+
+
+def flash_bwd_phase(torch, fa) -> dict:
+    """Kernels 2 and 3 against the plain backward, then their times."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def inputs(shape, sk, causal, dtype):
+        b, h, sq, d = shape
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda")
+                for _ in range(2))
+        q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+        do = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        return q, k, v, o, lse, do
+
+    b, h, s, d = LM_SHAPE
+    cases = [("LM causal float32", LM_SHAPE, s, True, "float32"),
+             ("LM causal bfloat16", LM_SHAPE, s, True, "bfloat16"),
+             ("non-causal Sq=77 Sk=300 float32", (2, h, 77, d), 300, False,
+              "float32"),
+             ("non-causal Sq=77 Sk=300 bfloat16", (2, h, 77, d), 300, False,
+              "bfloat16")]
+    worst = {fa.NAME_DKV: 0.0, fa.NAME_DQ: 0.0}
+    for label, shape, sk, causal, dtype in cases:
+        q, k, v, o, lse, do = inputs(shape, sk, causal, dtype)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(torch, g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        _log(f"flash bwd check {label}: " + ", ".join(
+            f"{n} max_abs_err {e:.3e} ({r:.2e} of max)"
+            for n, (e, r) in errs.items())
+             + f" (tolerance {GRAD_RTOL[dtype]:g} of max)")
+        if not all(r <= GRAD_RTOL[dtype] for _, r in errs.values()):
+            raise AssertionError(f"{label}: flash backward kernels disagree "
+                                 f"with the plain version: {errs}")
+        worst[fa.NAME_DQ] = max(worst[fa.NAME_DQ], errs["dq"][0])
+        worst[fa.NAME_DKV] = max(worst[fa.NAME_DKV], errs["dk"][0],
+                                 errs["dv"][0])
+
+    # times at the LM training shape in float32, the path's dtype
+    q, k, v, o, lse, do = inputs(LM_SHAPE, s, True, "float32")
+    delta = (do * o).sum(-1)
+    pairs = b * h * sum(min(i + 1, s) for i in range(s))
+    io = b * h * s * d * 4          # one (B, H, S, d) float32 tensor
+    rows = b * h * s * 4            # one (B, H, S) float32 vector
+    dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, True), iters=20)
+    dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, do, lse, delta, True), iters=20)
+    plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), iters=10)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                           is_causal=True)
+    sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), iters=20)
+    timings = {
+        fa.NAME_DKV: dict(ms=dkv_ms, plain_ms=plain_ms, library_ms=sdpa_ms),
+        fa.NAME_DQ: dict(ms=dq_ms, plain_ms=plain_ms, library_ms=sdpa_ms)}
+    timings[fa.NAME_DKV]["bound_ms"], timings[fa.NAME_DKV]["bound_by"] = \
+        _bound(8.0 * d * pairs, 6 * io + 2 * rows, "float32")
+    timings[fa.NAME_DQ]["bound_ms"], timings[fa.NAME_DQ]["bound_by"] = \
+        _bound(6.0 * d * pairs, 5 * io + 2 * rows, "float32")
+    for name, t in timings.items():
+        _log(f"flash bwd time {name} LM causal float32: kernel "
+             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+             f"({t['bound_by']})")
+    _log(f"flash bwd time LM causal float32: kernels 2+3 "
+         f"{dkv_ms + dq_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+         f"sdpa backward {sdpa_ms:.4f} ms (dq, dk and dv each)")
+    return {"worst": worst, "timings": timings}
+
+
+def _ce_inputs(torch, gen, n, d, v, dtype):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    w = torch.randn((d, v), generator=gen, device="cuda") * 0.02
+    b = torch.randn((v,), generator=gen, device="cuda") * 0.02
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[511::512] = -1           # the causal shift's last position
+    g = torch.full((n,), 1.0 / n, device="cuda")
+    dt = getattr(torch, dtype)
+    return x.to(dt), w.to(dt), b, labels, g
+
+
+def fused_ce_phase(torch, ce) -> dict:
+    """Kernels 4, 5 and 6 against their plain versions, then their
+    times."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    n, d, v = CE_SHAPE
+    worst = {ce.NAME_FWD: 0.0, ce.NAME_DX: 0.0, ce.NAME_DW: 0.0}
+    for label, vocab, dtype in (("LM head float32", v, "float32"),
+                                ("LM head bfloat16", v, "bfloat16"),
+                                (f"GPT-2 vocab {GPT2_VOCAB} float32",
+                                 GPT2_VOCAB, "float32")):
+        x, w, b, lab, g = _ce_inputs(torch, gen, n, d, vocab, dtype)
+        nll, lse = ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
+        dx, dw, db = ce.fused_linear_ce_bwd_cuda(x, w, b, lab, lse, g)
+        torch.cuda.synchronize()
+        nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
+        grads_p = ce.fused_linear_ce_bwd_plain(x, w, b, lab, lse_p, g)
+        torch.cuda.synchronize()
+        errs = {"nll": _rel_err(torch, nll, nll_p),
+                "lse": _rel_err(torch, lse, lse_p)}
+        errs.update({k: _rel_err(torch, a, c) for k, a, c in
+                     zip(("dx", "dw", "db"), (dx, dw, db), grads_p)})
+        tol = {"nll": GRAD_RTOL["float32"], "lse": GRAD_RTOL["float32"],
+               "dx": GRAD_RTOL[dtype], "dw": GRAD_RTOL[dtype],
+               "db": GRAD_RTOL[dtype]}
+        _log(f"fused ce check {label} (N {n}, d {d}, V {vocab}, "
+             f"{int((lab < 0).sum())} labels -1): " + ", ".join(
+                 f"{k} max_abs_err {e:.3e} ({r:.2e} of max, tolerance "
+                 f"{tol[k]:g})" for k, (e, r) in errs.items()))
+        if not all(errs[k][1] <= tol[k] for k in errs):
+            raise AssertionError(f"{label}: fused cross-entropy kernels "
+                                 f"disagree with the plain versions: {errs}")
+        worst[ce.NAME_FWD] = max(worst[ce.NAME_FWD], errs["nll"][0],
+                                 errs["lse"][0])
+        worst[ce.NAME_DX] = max(worst[ce.NAME_DX], errs["dx"][0])
+        worst[ce.NAME_DW] = max(worst[ce.NAME_DW], errs["dw"][0],
+                                errs["db"][0])
+        del x, w, b, lab, g, nll, lse, dx, dw, db, nll_p, lse_p, grads_p
+        torch.cuda.empty_cache()
+
+    # times at the LM head's shape in float32, the path's dtype
+    x, w, b, lab, g = _ce_inputs(torch, gen, n, d, v, "float32")
+    nll, lse = ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
+    fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_cuda(
+        x, w, b, lab), iters=5, warmup=1)
+    dx_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_cuda(
+        x, w, b, lab, lse, g), iters=5, warmup=1)
+    dw_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dw_cuda(
+        x, w, b, lab, lse, g), iters=5, warmup=1)
+    plain_fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_plain(
+        x, w, b, lab), iters=5, warmup=1)
+    plain_bwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_plain(
+        x, w, b, lab, lse, g), iters=5, warmup=1)
+    lab64 = lab.long()
+
+    def lib_fwd(xs, ws, bs):
+        return F.cross_entropy(torch.addmm(bs, xs, ws), lab64,
+                               ignore_index=-1, reduction="none")
+
+    lib_fwd_ms = _time_ms(torch, lambda: lib_fwd(x, w, b), iters=5,
+                          warmup=1)
+    xs, ws, bs = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    lib_nll = lib_fwd(xs, ws, bs)
+    lib_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        lib_nll, (xs, ws, bs), g, retain_graph=True), iters=5, warmup=1)
+    inputs = n * d * 4 + d * v * 4 + v * 4 + n * 4
+    flops = 2.0 * n * d * v
+    timings = {
+        ce.NAME_FWD: dict(ms=fwd_ms, plain_ms=plain_fwd_ms,
+                          library_ms=lib_fwd_ms),
+        ce.NAME_DX: dict(ms=dx_ms, plain_ms=plain_bwd_ms,
+                         library_ms=lib_bwd_ms),
+        ce.NAME_DW: dict(ms=dw_ms, plain_ms=plain_bwd_ms,
+                         library_ms=lib_bwd_ms)}
+    for name, fl, nbytes in (
+            (ce.NAME_FWD, flops, inputs + 2 * n * 4),
+            (ce.NAME_DX, 2 * flops, inputs + 2 * n * 4 + n * d * 4),
+            (ce.NAME_DW, 2 * flops, inputs + 2 * n * 4 + d * v * 4 + v * 4)):
+        t = timings[name]
+        t["bound_ms"], t["bound_by"] = _bound(fl, nbytes, "float32")
+        _log(f"fused ce time {name} N {n} d {d} V {v} float32: kernel "
+             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+             f"({t['bound_by']})")
+    _log(f"fused ce time float32: kernels 4+5+6 {fwd_ms + dx_ms + dw_ms:.4f}"
+         f" ms, plain {plain_fwd_ms + plain_bwd_ms:.4f} ms, library pair "
+         f"(addmm + cross_entropy, forward and backward) "
+         f"{lib_fwd_ms + lib_bwd_ms:.4f} ms")
+    return {"worst": worst, "timings": timings}
+
+
 def _first_step_tokens(requests, max_batch, max_len):
     """The token rectangle of the engine's first decode step."""
     from flexflow_tpu_torch.serve.batcher import (ContinuousBatcher,
@@ -265,7 +499,7 @@ def slice_phase(torch, fa, kernels) -> dict:
     labels = np.zeros_like(toks)
     predict = model.make_predict_step()
     lp_k = predict(engine.params, {}, toks, labels)[0]
-    with _plain_attention():
+    with _plain_kernels():
         lp_p = predict(engine.params, {}, toks, labels)[0]
         ref = ServeEngine(model, params=engine.params, log=_log)
         ref_requests = synthetic_requests(
@@ -449,6 +683,144 @@ def pool_kernel_phase(torch) -> dict:
     return {"worst": worst, "max_step": step, "avg": avg}
 
 
+def _lm_argv(iters: int, warmup: int) -> list:
+    return ["--causal", "-b", "16", "-s", "512", "-l", "12", "--d-model",
+            "768", "--heads", "12", "--d-ff", "3072", "--vocab", "32768",
+            "-i", str(iters), "--warmup", str(warmup), "--device", "cuda"]
+
+
+def lm_phase(torch, kernels, card: str) -> dict:
+    """``apps.lm`` at full width through kernels 1-6, then its first
+    losses against the run with every kernel swapped for its plain
+    version."""
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    iters = LM_WARMUP + LM_TIMED
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = lm.main(_lm_argv(iters, LM_WARMUP), log=_log)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["loss"]
+    step_ms = out["elapsed_s"] / LM_TIMED * 1e3
+    _log(f"lm: {iters} steps ({LM_WARMUP} warm-up); launches by kernel "
+         f"{launches}")
+    _log(f"lm: losses {losses}")
+    layers = 12
+    want = {fa.NAME: layers * iters, fa.NAME_DKV: layers * iters,
+            fa.NAME_DQ: layers * iters, ce.NAME_FWD: iters,
+            ce.NAME_DX: iters, ce.NAME_DW: iters}
+    if launches != want:
+        raise AssertionError(f"LM kernels launched {launches}, expected "
+                             f"{want} (12 + 12 + 12 + 1 + 1 + 1 per step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite LM loss: {losses}")
+    if abs(losses[0] - math.log(32768)) > 0.25:
+        raise AssertionError(f"first LM loss {losses[0]} is not near "
+                             f"ln 32768 = {math.log(32768):.4f}")
+    _log(f"lm: {out['tokens_per_sec']:.1f} tokens/s "
+         f"({out['images_per_sec']:.3f} sequences/s), {step_ms:.2f} ms per "
+         f"step, peak memory {peak_gb:.2f} GB (max_memory_allocated) — "
+         f"{card}")
+
+    with _plain_kernels():
+        kernels.reset_launches()
+        ref = lm.main(_lm_argv(LM_CHECKED, 0), log=lambda *a: None)
+        if sum(kernels.launches.values()):
+            raise AssertionError("the plain-kernel LM run launched a kernel")
+    torch.cuda.synchronize()
+    got, want_l = losses[:LM_CHECKED], ref["loss"]
+    rel = max(abs(a - c) / max(abs(c), 1e-30) for a, c in zip(got, want_l))
+    _log(f"lm: first {LM_CHECKED} losses {got} vs plain kernels {want_l}: "
+         f"max rel diff {rel:.3e} (tolerance {LM_LOSS_RTOL:g})")
+    if not rel <= LM_LOSS_RTOL:
+        raise AssertionError(f"LM losses differ from the plain-kernel run "
+                             f"by {rel}")
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+            "tokens_per_sec": out["tokens_per_sec"]}
+
+
+def _kernel_kind(key: str) -> str:
+    """The kind of a device kernel, by its name, for the profiles."""
+    k = key.lower()
+    if "flash_fwd" in k:
+        return "flash forward (kernel 1)"
+    if "flash_bwd" in k:
+        return "flash backward (kernels 2, 3)"
+    if "ce_fwd" in k or "ce_bwd" in k:
+        return "fused cross-entropy (kernels 4-6)"
+    if "maxpool_" in k or "avgpool_bwd" in k:
+        return "pool kernels (7, 8)"
+    if "avg_pool" in k:
+        return "in-block avg pools (aten)"
+    if any(t in k for t in ("conv", "cudnn", "dgrad", "wgrad", "implicit",
+                            "fprop", "nhwc")):
+        return "convolutions (cuDNN)"
+    if any(t in k for t in ("gemm", "cutlass", "xmma", "sgemm")):
+        return "matmul (cuBLAS)"
+    return "elementwise / other"
+
+
+def _profile_by_kind(torch, prof, steps: int, step_ms: float,
+                     tag: str) -> None:
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in rows)
+    if not total:
+        _log(f"profile {tag}: the profiler saw no device time; the step "
+             f"time above is from CUDA events")
+        return
+    by_kind = {}
+    for e in rows:
+        by_kind[_kernel_kind(e.key)] = by_kind.get(_kernel_kind(e.key),
+                                                   0.0) \
+            + e.self_device_time_total
+    per = 1e3 * steps
+    _log(f"profile {tag}: kernel time {total / per:.3f} ms/step of "
+         f"{step_ms:.3f} ms/step")
+    for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        _log(f"profile {tag}:   {us / per:9.4f} ms/step  "
+             f"{100 * us / total:5.1f}%  {k}")
+    for e in rows[:15]:
+        us = e.self_device_time_total
+        _log(f"profile {tag}:   {us / per:9.4f} ms/step  "
+             f"{100 * us / total:5.1f}%  x{e.count // steps:<4d} "
+             f"{e.key[:90]}")
+
+
+def lm_profile_phase(torch) -> None:
+    """One full-width LM training step: where its device time goes, by
+    kind (GEMMs, kernels 1-6, the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.apps import lm
+
+    cfg, _, _ = lm.parse_args(_lm_argv(1, 0))
+    model = lm.TransformerLM(cfg, device="cuda")
+    params, state = model.init()
+    opt = model.init_opt_state(params)
+    step = model.make_train_step()
+    toks, labels = next(lm.synthetic_lm_batches(
+        cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed))
+
+    def run():
+        return step(params, state, opt, toks, labels)
+
+    step_ms = _time_ms(torch, run, iters=3, warmup=2)
+    _log(f"profile lm: one step {step_ms:.3f} ms by CUDA events")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    _profile_by_kind(torch, prof, 2, step_ms, "lm")
+
+
 @contextlib.contextmanager
 def _plain_pools():
     """Route the pool ops to the plain versions for a reference run."""
@@ -558,41 +930,7 @@ def train_profile_phase(torch, batch: int) -> None:
         for _ in range(2):
             run()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    total = sum(e.self_device_time_total for e in rows)
-    if not total:
-        _log("profile train: the profiler saw no device time; the step "
-             "time above is from CUDA events")
-        return
-
-    def kind(key: str) -> str:
-        k = key.lower()
-        if "maxpool_" in k or "avgpool_bwd" in k:
-            return "pool kernels (7, 8)"
-        if "avg_pool" in k:
-            return "in-block avg pools (aten)"
-        if any(s in k for s in ("conv", "xmma", "cudnn", "dgrad", "wgrad",
-                                "implicit", "fprop", "nhwc")):
-            return "convolutions (cuDNN)"
-        if "gemm" in k or "cutlass" in k:
-            return "matmul"
-        return "elementwise / other"
-
-    by_kind = {}
-    for e in rows:
-        by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) \
-            + e.self_device_time_total
-    _log(f"profile train: kernel time {total / 2e3:.3f} ms/step of "
-         f"{step_ms:.3f} ms/step")
-    for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        _log(f"profile train:   {us / 2e3:9.4f} ms/step  "
-             f"{100 * us / total:5.1f}%  {k}")
-    for e in rows[:15]:
-        us = e.self_device_time_total
-        _log(f"profile train:   {us / 2e3:9.4f} ms/step  "
-             f"{100 * us / total:5.1f}%  x{e.count // 2:<4d} {e.key[:90]}")
+    _profile_by_kind(torch, prof, 2, step_ms, "train")
 
 
 def profile_phase(torch, engine) -> None:
@@ -652,6 +990,7 @@ def main(argv) -> int:
     from flexflow_tpu_torch.ops import kernels
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
     from flexflow_tpu_torch.ops.kernels import maxpool as mp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -662,7 +1001,8 @@ def main(argv) -> int:
          f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    built = kernels.build([fa.SOURCE, mp.SOURCE, ap.SOURCE])
+    built = kernels.build([fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE, mp.SOURCE,
+                           ap.SOURCE])
     _log(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} "
          f"kernel source(s) (parallel nvcc)")
     for source, info in built.items():
@@ -672,43 +1012,57 @@ def main(argv) -> int:
                 _log(f"build {source}: {line.strip()}")
 
     checked = kernel_phase(torch, fa)
+    flash_bwd = flash_bwd_phase(torch, fa)
+    fused = fused_ce_phase(torch, ce)
     pools = pool_kernel_phase(torch)
     sliced = slice_phase(torch, fa, kernels)
+    lm_run = lm_phase(torch, kernels, card)
     trained = training_phase(torch, kernels, card)
     if "--profile" in argv:
         profile_phase(torch, sliced["engine"])
+        lm_profile_phase(torch)
         train_profile_phase(torch, trained["batch"])
 
-    f32 = checked["timings"]["float32"]
-    entries = [{
-        "name": fa.NAME, "route": "cuda",
-        "source": "flexflow_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "flexflow_tpu/ops/pallas/flash_attention.py:62",
-        "launches": sliced["launches"],
-        "max_abs_err": checked["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"],
-    }]
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"flexflow_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    # kernels 1-6: launches from the LM training run, times in float32
+    # at the serving shape (kernel 1) and the LM training shapes
+    lm_n = lm_run["launches"]
+    entries = [entry(fa.NAME, fa.SOURCE,
+                     "flexflow_tpu/ops/pallas/flash_attention.py:62",
+                     lm_n[fa.NAME], checked["max_abs_err"],
+                     checked["timings"]["float32"])]
+    for name, line in ((fa.NAME_DKV, 158), (fa.NAME_DQ, 190)):
+        entries.append(entry(
+            name, fa.SOURCE_BWD,
+            f"flexflow_tpu/ops/pallas/flash_attention.py:{line}",
+            lm_n[name], flash_bwd["worst"][name],
+            flash_bwd["timings"][name]))
+    for name, line in ((ce.NAME_FWD, 39), (ce.NAME_DX, 127),
+                       (ce.NAME_DW, 147)):
+        entries.append(entry(name, ce.SOURCE,
+                             f"flexflow_tpu/ops/pallas/fused_ce.py:{line}",
+                             lm_n[name], fused["worst"][name],
+                             fused["timings"][name]))
     # pool times: the sum over one training step's four max-pool
     # launches, and the one avg-pool launch, bfloat16 at batch 256
-    for name, replaces, timing in (
-            (mp.NAME_BWD, "flexflow_tpu/ops/pallas/maxpool.py:139",
+    for name, source, replaces, timing in (
+            (mp.NAME_BWD, mp.SOURCE, "flexflow_tpu/ops/pallas/maxpool.py:139",
              pools["max_step"]["bwd"]),
-            (ap.NAME, "flexflow_tpu/ops/pallas/avgpool.py:59", pools["avg"]),
-            (mp.NAME_FWD, "flexflow_tpu/ops/pallas/maxpool.py:249",
+            (ap.NAME, ap.SOURCE, "flexflow_tpu/ops/pallas/avgpool.py:59",
+             pools["avg"]),
+            (mp.NAME_FWD, mp.SOURCE, "flexflow_tpu/ops/pallas/maxpool.py:249",
              pools["max_step"]["fwd"])):
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "flexflow_tpu_torch/csrc/"
-                      + (ap.SOURCE if name == ap.NAME else mp.SOURCE),
-            "replaces": replaces,
-            "launches": trained["launches"].get(name, 0),
-            "max_abs_err": pools["worst"][name],
-            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-            "bound_ms": timing["bound_ms"], "bound_by": "bytes",
-            "library_ms": timing["library_ms"],
-        })
+        entries.append(entry(name, source, replaces,
+                             trained["launches"].get(name, 0),
+                             pools["worst"][name],
+                             dict(timing, bound_by="bytes")))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Synthetic image batches (PyTorch port of
+"""Synthetic image batches and token streams (PyTorch port of
 ``flexflow_tpu/data/synthetic.py``): ``ones`` mode is the reference's
 image = 1.0, label = 1; ``random`` mode draws Gaussian images and uniform
-labels from ``np.random.RandomState(seed)`` in the JAX package's order,
-so both packages see the same arrays."""
+labels, and the token stream uniform int32 ids, from
+``np.random.RandomState(seed)`` in the JAX package's order, so both
+packages see the same arrays."""
 
 from __future__ import annotations
 
@@ -43,3 +44,21 @@ def synthetic_batches(batch_size: int, height: int, width: int,
 
     return itertools.cycle([make()
                             for _ in range(1 if mode == "ones" else cycle)])
+
+
+def synthetic_token_stream(batch_size: int, seq_length: int,
+                           vocab_size: int, seed: int = 0, streams: int = 2,
+                           cycle: int = 2,
+                           device="cuda") -> Iterator[Tuple[torch.Tensor,
+                                                            ...]]:
+    """Yield tuples of ``streams`` int32 (batch_size, seq_length) token
+    tensors on ``device`` forever (streams=2: (src, dst) pairs; streams=1:
+    (tokens,) for LMs that reuse tokens as labels).  ``cycle`` distinct
+    batches are drawn up front, moved to the device once and cycled."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    ring = [tuple(
+        torch.from_numpy(rng.randint(0, vocab_size, (batch_size, seq_length))
+                         .astype("int32")).to(dev)
+        for _ in range(streams)) for _ in range(cycle)]
+    return itertools.cycle(ring)

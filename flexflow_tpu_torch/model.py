@@ -5,21 +5,26 @@ The graph-building methods append named ops to ``self.layers`` in
 topological order, each taking its ParallelConfig from
 ``config.strategies`` or the machine's pure-DP default.  ``init`` builds
 the parameter tree ``{param_key: {leaf: tensor}}`` the JAX package
-builds, ``apply`` walks the layers in order, ``make_predict_step`` is the
-serving path's forward-only step, and ``make_train_step`` /
-``make_eval_step`` / ``fit`` are the CNN training path: momentum SGD with
-weight decay, float32 or mixed-precision (float32 masters) parameters.
+builds, ``apply`` walks the layers in order (for training with the
+LM-head fusion: a vocab projection whose only consumer is the sequence
+loss runs with it as one fused projection + cross-entropy op),
+``make_predict_step`` is the serving path's forward-only step, and
+``make_train_step`` / ``make_eval_step`` / ``fit`` are the training path:
+momentum SGD with weight decay for the CNNs, plain SGD
+(``make_sgd_step``) for the sequence models, each with float32 or
+mixed-precision (float32 masters) parameters.
 
 Gradients come from ``torch.autograd``.  A tensor read by several ops
 gets the sum of their gradients from autograd itself; the JAX package's
 ``grad_fanout`` tree (``ops/fanout.py``) only fixes where XLA adds them,
 and the parity tests hold without it.  Placement over several devices,
-regrids, the fused LM-head loss, checkpoints and the fault-tolerant
-runtime arrive with later slices.
+regrids, checkpoints and the fault-tolerant runtime arrive with later
+slices.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Any, Dict, List, Optional
 
@@ -197,10 +202,21 @@ class FFModel:
 
     def apply(self, params, state, inputs: Dict[int, Any], train: bool):
         """Run the DAG. ``inputs`` maps input-Tensor tid -> tensor.
-        Returns (tensor-values dict, new_state)."""
+        Returns (tensor-values dict, new_state).  With ``train`` the
+        LM-head fusion runs (``model.py:1022``): a fused loss op's value
+        is the per-token NLL, and its projection has no value."""
         values: Dict[int, Any] = dict(inputs)
         new_state: Dict[str, Dict] = {}
-        for op in self.layers:
+        fusion = self._lm_head_fusion() if train else {}
+        for i, op in enumerate(self.layers):
+            if i in fusion:
+                lin = fusion[i]
+                if lin is not None:
+                    values[op.output.tid] = self._run_fused_lm_head(
+                        params.get(lin.param_key, {}),
+                        values[lin.inputs[0].tid],
+                        values[op.labels_tensor.tid])
+                continue   # the projection is folded into its loss op
             xs = [values[t.tid] for t in op.inputs]
             y, st = op.forward(params.get(op.param_key, {}),
                                state.get(op.name, {}), xs, train)
@@ -208,6 +224,47 @@ class FFModel:
             if st:
                 new_state[op.name] = st
         return values, new_state
+
+    # ------------------------------------------------------------------
+    # the LM-head fusion (model.py:623-728, one device)
+
+    def _lm_head_fusion(self) -> Dict[int, Any]:
+        """``{layer index: None}`` for each vocab projection (``RnnLinear``)
+        whose only consumer is a ``SoftmaxDP``, and ``{loss-op index: that
+        projection}``: the pair runs as one fused projection +
+        cross-entropy op, so the (N, V) logits are never stored.
+
+        The fusion fires on the graph's structure alone.  The JAX gate
+        ``_fusion_ok`` (``model.py:655-665``) also refuses d > 4096, the
+        TPU kernel's VMEM limit, and b*s < 2048 tokens, where XLA's one
+        large GEMM measured faster on the TPU; the card's kernels have
+        neither limit, and where the card's crossover lies is not
+        measured yet (PERF.md, open questions)."""
+        from flexflow_tpu_torch.ops.rnn_linear import RnnLinear
+        from flexflow_tpu_torch.ops.softmax_dp import SoftmaxDP
+
+        consumers = collections.Counter(t.tid for op in self.layers
+                                        for t in op.inputs)
+        index = {id(op): i for i, op in enumerate(self.layers)}
+        plan: Dict[int, Any] = {}
+        for i, op in enumerate(self.layers):
+            prod = op.inputs[0].producer
+            if (isinstance(op, SoftmaxDP) and isinstance(prod, RnnLinear)
+                    and consumers[prod.output.tid] == 1):
+                plan[index[id(prod)]] = None
+                plan[i] = prod
+        return plan
+
+    @staticmethod
+    def _run_fused_lm_head(lin_params, x, labels):
+        """Per-token NLL (b, s) of the projection of x (b, s, d) at
+        labels (b, s) through the fused projection + CE op."""
+        from flexflow_tpu_torch.ops.kernels.fused_ce import fused_linear_ce
+
+        b, s, d = x.shape
+        nll = fused_linear_ce(x.reshape(b * s, d), lin_params["kernel"],
+                              lin_params["bias"], labels.reshape(-1))
+        return nll.reshape(b, s)
 
     def make_predict_step(self, output_tids=None):
         """Forward-only inference step, the serving path.  Returns
@@ -238,10 +295,11 @@ class FFModel:
         return predict_step
 
     # ------------------------------------------------------------------
-    # training (the CNN path: model.py:1338-1432, 1551, 1624)
+    # training (model.py:1338-1500, 1551, 1624)
 
     def loss_fn(self, params, state, image, labels, train: bool = True):
-        """``(loss, new_state)``: the mean NLL of the loss op's log-probs."""
+        """``(loss, new_state)``: the mean NLL of the loss op's log-probs
+        (the CNN path; the sequence models override it)."""
         loss_op = self._loss_op()
         values, new_state = self.apply(
             params, state, {self._inputs[0].tid: image}, train)
@@ -266,15 +324,48 @@ class FFModel:
             out[key] = d
         return out
 
-    def _batch(self, image, labels):
-        """The batch on the model's device, the image cast to the compute
-        dtype."""
-        image = torch.as_tensor(image, device=self.device).to(
-            torch_dtype(self.config.compute_dtype))
-        return image, torch.as_tensor(labels, device=self.device)
+    def master_opt_state(self, params):
+        """The float32 master of every float leaf under
+        ``<leaf>__master`` (``model.py:504-520``), the optimizer state of
+        the plain-SGD models under mixed precision; None in float32."""
+        if not self._mixed_precision():
+            return None
+        return {key: {k + MASTER_SUFFIX: v.float()
+                      for k, v in sub.items() if v.is_floating_point()}
+                for key, sub in params.items()}
+
+    def _batch(self, *batch):
+        """The batch on the model's device: float arrays (images) cast to
+        the compute dtype, integer ones (labels, token ids) kept as they
+        are."""
+        cdtype = torch_dtype(self.config.compute_dtype)
+        out = []
+        for b in batch:
+            t = torch.as_tensor(b, device=self.device)
+            out.append(t.to(cdtype) if t.is_floating_point() else t)
+        return tuple(out)
+
+    def _loss_and_grads(self, params, state, batch):
+        """``(loss, new_state, keys, grads)`` of ``loss_fn`` on the batch:
+        ``grads`` are the gradients of the float leaves ``keys`` (pairs
+        ``(param_key, leaf)``), taken through the compute-dtype cast under
+        mixed precision."""
+        batch = self._batch(*batch)
+        tree = {key: {k: v.detach().requires_grad_(v.is_floating_point())
+                      for k, v in sub.items()}
+                for key, sub in params.items()}
+        keys = [(key, k) for key, sub in tree.items()
+                for k, v in sub.items() if v.requires_grad]
+        with torch.enable_grad():
+            fwd = _cast_floats(tree, torch_dtype(self.config.compute_dtype)) \
+                if self._mixed_precision() else tree
+            loss, new_state = self.loss_fn(fwd, state, *batch, train=True)
+            grads = torch.autograd.grad(loss,
+                                        [tree[key][k] for key, k in keys])
+        return loss.detach(), new_state, keys, grads
 
     def make_train_step(self):
-        """``train_step(params, state, opt_state, image, labels) ->
+        """``train_step(params, state, opt_state, *batch) ->
         (params, state, opt_state, loss)``: forward, backward and the
         momentum-SGD update ``v = mu*v + g + wd*p; p = p - lr*v`` of
         ``model.py:1353-1386``.  New trees are returned; the inputs are not
@@ -283,22 +374,11 @@ class FFModel:
         are re-cast from them (``model.py:1388-1432``)."""
         cfg = self.config
         lr, wd, mu = cfg.learning_rate, cfg.weight_decay, cfg.momentum
-        cdtype = torch_dtype(cfg.compute_dtype)
         mixed = self._mixed_precision()
 
-        def train_step(params, state, opt_state, image, labels):
-            image, labels = self._batch(image, labels)
-            tree = {key: {k: v.detach().requires_grad_(v.is_floating_point())
-                          for k, v in sub.items()}
-                    for key, sub in params.items()}
-            keys = [(key, k) for key, sub in tree.items()
-                    for k, v in sub.items() if v.requires_grad]
-            with torch.enable_grad():
-                fwd = _cast_floats(tree, cdtype) if mixed else tree
-                loss, new_state = self.loss_fn(fwd, state, image, labels,
-                                               train=True)
-                grads = torch.autograd.grad(
-                    loss, [tree[key][k] for key, k in keys])
+        def train_step(params, state, opt_state, *batch):
+            loss, new_state, keys, grads = self._loss_and_grads(
+                params, state, batch)
             new_params = {key: dict(sub) for key, sub in params.items()}
             new_opt = {key: dict(sub) for key, sub in opt_state.items()}
             with torch.no_grad():
@@ -314,7 +394,36 @@ class FFModel:
                         v = mu * v + g + wd * p
                         new_params[key][k] = p - lr * v
                     new_opt[key][k] = v
-            return new_params, new_state, new_opt, loss.detach()
+            return new_params, new_state, new_opt, loss
+
+        return train_step
+
+    def make_sgd_step(self, lr: float):
+        """Plain-SGD ``train_step(params, state, opt_state, *batch)`` over
+        ``self.loss_fn(params, state, *batch)``: ``p = p - lr*g``
+        (``model.py:1434-1457``), the step of the sequence models.  Under
+        mixed precision ``opt_state`` holds the float32 masters
+        (:meth:`master_opt_state`): the update runs against them in float32
+        and the stored params are re-cast from them
+        (``model.py:1459-1500``).  New trees are returned; the inputs are
+        not modified."""
+        def train_step(params, state, opt_state, *batch):
+            loss, new_state, keys, grads = self._loss_and_grads(
+                params, state, batch)
+            new_params = {key: dict(sub) for key, sub in params.items()}
+            new_opt = {key: dict(sub)
+                       for key, sub in (opt_state or {}).items()}
+            with torch.no_grad():
+                for (key, k), g in zip(keys, grads):
+                    p = params[key][k]
+                    mk = k + MASTER_SUFFIX
+                    if mk in new_opt.get(key, {}):
+                        m = new_opt[key][mk] - lr * g.float()
+                        new_params[key][k] = m.to(p.dtype)
+                        new_opt[key][mk] = m
+                    else:
+                        new_params[key][k] = p - lr * g
+            return new_params, new_state, new_opt or opt_state, loss
 
         return train_step
 
@@ -359,12 +468,12 @@ class FFModel:
         losses = []
         start = time.perf_counter()
         for it in range(num_iterations):
-            image, labels = next(data_iter)
+            batch = next(data_iter)
             if it == warmup:
                 self._sync()
                 start = time.perf_counter()
             params, state, opt_state, loss = step(params, state, opt_state,
-                                                  image, labels)
+                                                  *batch)
             losses.append(loss)
             if print_freq and (it + 1) % print_freq == 0:
                 log(f"iter {it + 1}: loss = {float(loss):.4f}")

@@ -1,11 +1,12 @@
 """Multi-head self-attention (PyTorch port of ``flexflow_tpu/ops/attention.py``).
 
 q/k/v/o projections as in the JAX op, heads laid out (B, H, S, d); the
-attention itself is the port's flash-attention forward
-(ops/kernels/flash_attention.py): the CUDA kernel on a GPU, its plain
-version on the CPU.  Its float32 output is cast back to the activation
-dtype.  Ring attention over a sequence-sharded grid comes with the
-multi-GPU slice.
+attention itself is the port's differentiable flash attention
+(ops/kernels/flash_attention.py): the CUDA forward and backward kernels
+on a GPU, their plain versions on the CPU, for serving (under
+``inference_mode`` only the forward runs) and for training alike.  Its
+float32 output is cast back to the activation dtype.  Ring attention
+over a sequence-sharded grid comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ from typing import Dict, List
 import torch
 
 from flexflow_tpu_torch.ops.base import Op, Tensor, glorot_uniform
-from flexflow_tpu_torch.ops.kernels.flash_attention import \
-    flash_attention_fwd
+from flexflow_tpu_torch.ops.kernels.flash_attention import flash_attention
 from flexflow_tpu_torch.strategy import ParallelConfig
 
 
@@ -54,7 +54,7 @@ class MultiHeadAttention(Op):
             return y.view(b, s, h, hd).transpose(1, 2).contiguous()
 
         q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
-        out, _ = flash_attention_fwd(q, k, v, self.causal)
+        out = flash_attention(q, k, v, self.causal)
         out = out.to(x.dtype).transpose(1, 2).reshape(b, s, d)
         y = torch.matmul(out, params["wo"].to(x.dtype))
         return y + params["bo"].to(x.dtype), state

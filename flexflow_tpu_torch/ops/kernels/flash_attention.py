@@ -1,17 +1,26 @@
-"""Flash-attention forward: the hand-written CUDA kernel
-(``csrc/flash_attention_fwd.cu``), its plain PyTorch version and the
-wrapper that picks between them by the tensors' device.
+"""Flash attention: the hand-written CUDA kernels of the forward
+(``csrc/flash_attention_fwd.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``), their plain PyTorch versions, the
+wrappers that pick between them by the tensors' device, and the
+differentiable op built from them.
 
-Port of ``flexflow_tpu/ops/pallas/flash_attention.py``: the kernel replaces
-the Pallas ``_fwd_kernel``.  Both return ``(o, lse)``: o is the float32
-attention output (B, H, Sq, d) and lse the float32 per-row log-sum-exp
-(B, H, Sq) of the scaled scores, ``-inf`` for a fully masked row (whose o
-is 0).  Scores are ``(q . k) / sqrt(d)``; with ``causal`` query row i sees
-keys 0..i.
+Port of ``flexflow_tpu/ops/pallas/flash_attention.py``: the forward kernel
+replaces the Pallas ``_fwd_kernel``, the two backward kernels replace
+``_bwd_dkv_kernel`` (dk, dv) and ``_bwd_dq_kernel`` (dq).  The forward
+returns ``(o, lse)``: o is the float32 attention output (B, H, Sq, d) and
+lse the float32 per-row log-sum-exp (B, H, Sq) of the scaled scores,
+``-inf`` for a fully masked row (whose o is 0).  Scores are
+``(q . k) / sqrt(d)``; with ``causal`` query row i sees keys 0..i.  The
+backward recomputes the probabilities from the saved lse and takes
+``delta = rowsum(do * o)`` in float32 from a PyTorch reduction outside the
+kernels, as the JAX package leaves it to XLA.
 
-:func:`flash_attention_fwd` runs the plain version for tensors on the CPU
-and the kernel for tensors on a CUDA device.  There is no fallback: a CUDA
-tensor the kernel does not take raises.
+:func:`flash_attention_fwd` and :func:`flash_attention_bwd` run the plain
+versions for tensors on the CPU and the kernels for tensors on a CUDA
+device.  There is no fallback: a CUDA tensor the kernels do not take
+raises.  :func:`flash_attention` is the differentiable op (the
+``FlashAttention`` autograd function); it looks both up when called, so a
+caller can swap in the plain versions for a reference run.
 """
 
 from __future__ import annotations
@@ -25,6 +34,9 @@ from flexflow_tpu_torch.ops import kernels
 
 NAME = "flash_attention_fwd"
 SOURCE = "flash_attention_fwd.cu"
+NAME_DKV = "flash_attention_bwd_dkv"
+NAME_DQ = "flash_attention_bwd_dq"
+SOURCE_BWD = "flash_attention_bwd.cu"
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (8, 16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -65,27 +77,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_qkv(name, q, k, v):
+    """Raise unless q (B, H, Sq, d) and k, v (B, H, Sk, d) are contiguous,
+    of one dtype (float32 or bfloat16) and on one CUDA device, with a head
+    dim the kernels are instantiated for."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{name}: q, k, v must be on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k, v must share a dtype in {DTYPES}, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{name}: need q (B,H,Sq,d) and k, v (B,H,Sk,d), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+
+
 def flash_attention_fwd_cuda(q, k, v, causal: bool = False):
     """Launch the CUDA kernel on the current stream.  q (B, H, Sq, d) and
     k, v (B, H, Sk, d), contiguous, one dtype (float32 or bfloat16), on
     one CUDA device."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"{NAME}: q, k, v must be on one CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{NAME}: q, k, v must share a dtype in {DTYPES}, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
-        raise ValueError(f"{NAME}: need q (B,H,Sq,d) and k, v (B,H,Sk,d), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_qkv(NAME, q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {d} not in {HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError(f"{NAME}: q, k, v must be contiguous")
     o = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h == 0 or sq == 0:
@@ -112,3 +131,163 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
     if q.device.type == "cuda":
         return flash_attention_fwd_cuda(q, k, v, causal)
     raise ValueError(f"{NAME}: no implementation for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# backward
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
+    """``(dq, dk, dv)`` in float32, in plain PyTorch with the whole score
+    matrix materialized: p recomputed from the saved lse (a fully masked
+    row, lse = -inf, read as lse = 0), ``delta = rowsum(do * o)`` in
+    float32, and ``do`` cast to q's dtype before the products, as the
+    Pallas backward's caller does (``flash_attention.py:320-325``).  With
+    bfloat16 inputs p and ds are rounded to the operand dtype before the
+    products that read them, as the Pallas kernels cast them."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    sq, sk = q.shape[2], k.shape[2]
+    dof = do.float()
+    delta = (dof * o).sum(dim=-1, keepdim=True)
+    do_k = dof.to(q.dtype).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        valid = qpos >= kpos
+    lse = lse[..., None]
+    safe_lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.where(valid, torch.exp(s - safe_lse), torch.zeros_like(s))
+    dp = torch.matmul(do_k, vf.transpose(-1, -2))
+    ds = p * (dp - delta) * scale
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do_k)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
+    dq = torch.matmul(ds.to(k.dtype).float(), kf)
+    return dq, dk, dv
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = kernels.load(SOURCE_BWD)
+    if lib.ff_flash_attention_bwd_dkv.argtypes is None:
+        lib.ff_flash_attention_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ff_flash_attention_bwd_dkv.restype = ctypes.c_int
+        lib.ff_flash_attention_bwd_dq.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ff_flash_attention_bwd_dq.restype = ctypes.c_int
+    return lib
+
+
+def _check_bwd(name, q, k, v, do_k, lse, delta):
+    _check_qkv(name, q, k, v)
+    rows = q.shape[:3]
+    if do_k.shape != q.shape or do_k.dtype != q.dtype \
+            or do_k.device != q.device or not do_k.is_contiguous():
+        raise ValueError(f"{name}: do must be a contiguous {q.dtype} tensor "
+                         f"of q's shape {tuple(q.shape)} on {q.device}")
+    for what, t in (("lse", lse), ("delta", delta)):
+        if t.shape != rows or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous float32 "
+                             f"{tuple(rows)} tensor on {q.device}")
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta,
+                                 causal: bool = False):
+    """Launch the dk/dv kernel on the current stream: ``(dk, dv)`` float32
+    of k's shape.  ``do_k`` is the output cotangent in q's dtype, lse the
+    forward's, delta ``rowsum(do * o)`` in float32 (B, H, Sq)."""
+    _check_bwd(NAME_DKV, q, k, v, do_k, lse, delta)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    if b * h == 0 or sk == 0:
+        return dk, dv
+    lib = _lib_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.ff_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, sq, sk, d, int(bool(causal)),
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+    kernels.check(lib, code, NAME_DKV)
+    kernels.launches[NAME_DKV] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta,
+                                causal: bool = False):
+    """Launch the dq kernel on the current stream: dq float32 of q's
+    shape; the inputs as for :func:`flash_attention_bwd_dkv_cuda`."""
+    _check_bwd(NAME_DQ, q, k, v, do_k, lse, delta)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if b * h == 0 or sq == 0:
+        return dq
+    lib = _lib_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.ff_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, sq, sk,
+            d, int(bool(causal)), int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(d), stream)
+    kernels.check(lib, code, NAME_DQ)
+    kernels.launches[NAME_DQ] += 1
+    return dq
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = False):
+    """``(dq, dk, dv)`` float32 through the two backward kernels; delta
+    and the cast of ``do`` to q's dtype are PyTorch ops before them."""
+    delta = (do.float() * o).sum(dim=-1)
+    do_k = do.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta, causal)
+    dq = flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta, causal)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
+    """``(dq, dk, dv)`` float32: the plain version for CPU tensors, the
+    CUDA kernels for CUDA tensors, an error for anything else."""
+    if q.device.type == "cpu":
+        if any(t.device.type != "cpu" for t in (k, v, o, lse, do)):
+            raise ValueError(f"{NAME_DKV}: inputs on different devices")
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    if q.device.type == "cuda":
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    raise ValueError(f"{NAME_DKV}: no implementation for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) in float32.  The forward runs
+    :func:`flash_attention_fwd` and saves q, k, v, o and lse; the backward
+    runs :func:`flash_attention_bwd` and returns dq, dk, dv in the input
+    dtypes (``flash_attention.py:332-334``).  Both are looked up when
+    called."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention(q, k, v, causal: bool = False):
+    """softmax(q kᵀ / sqrt(d) [+ causal mask]) v as float32 (B, H, Sq, d),
+    differentiable in q, k and v: the JAX package's ``flash_attention``."""
+    return FlashAttention.apply(q, k, v, bool(causal))

@@ -1,0 +1,251 @@
+"""Fused vocab projection + softmax cross-entropy: the hand-written CUDA
+kernels (``csrc/fused_ce.cu``), their plain PyTorch versions, the wrappers
+that pick between them by the tensors' device, and the differentiable op.
+
+Port of ``flexflow_tpu/ops/pallas/fused_ce.py``: ``fused_ce_fwd`` replaces
+the Pallas ``_fwd_kernel``, ``fused_ce_bwd_dx`` ``_bwd_dx_kernel`` and
+``fused_ce_bwd_dw`` ``_bwd_dw_kernel``.  With ``logits = x @ w + b``
+(x (N, d), w (d, V), b (V,), labels (N,) int32):
+
+* ``fused_linear_ce_fwd(x, w, b, labels) -> (nll, lse)``, both float32
+  (N,): ``lse = logsumexp(logits)`` per row and ``nll = lse -
+  logits[label]``; a label that is negative or >= V matches nothing, so
+  its nll is its lse (the JAX padding contract; the causal shift's -1).
+* ``fused_linear_ce_bwd(x, w, b, labels, lse, g) -> (dx, dw, db)`` in
+  float32 for a cotangent g (N,) of nll: ``t = g (softmax - onehot)``,
+  ``dx = t wᵀ``, ``dw = xᵀ t``, ``db = Σ_rows t``.
+
+The kernels never store the (N, V) logits; the plain versions do.  The
+kernels take x and w in one dtype (float32 or bfloat16), b in float32 and
+int32 labels; :class:`FusedLinearCE` casts to that as the JAX op's
+``prep`` does (``fused_ce.py:250-255``) and casts the gradients back to
+the dtypes of x, w and b (``:275-276``).  CPU tensors take the plain
+versions, CUDA tensors the kernels; there is no fallback: a CUDA tensor
+the kernels do not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from flexflow_tpu_torch.ops import kernels
+
+NAME_FWD = "fused_ce_fwd"
+NAME_DX = "fused_ce_bwd_dx"
+NAME_DW = "fused_ce_bwd_dw"
+SOURCE = "fused_ce.cu"
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _logits(x, w, b):
+    """The (N, V) float32 logits of the plain versions: products of the
+    (possibly bfloat16) operands summed in float32, plus the bias."""
+    return torch.matmul(x.float(), w.float()) + b.float()
+
+
+def fused_linear_ce_fwd_plain(x, w, b, labels):
+    """``(nll, lse)`` in plain PyTorch, the logits materialized."""
+    logits = _logits(x, w, b)
+    v = logits.shape[1]
+    lse = torch.logsumexp(logits, dim=1)
+    labels = labels.long()
+    hit = (labels >= 0) & (labels < v)
+    corr = logits.gather(1, torch.where(hit, labels, 0)[:, None])[:, 0]
+    return lse - torch.where(hit, corr, torch.zeros_like(corr)), lse
+
+
+def fused_linear_ce_bwd_plain(x, w, b, labels, lse, g):
+    """``(dx, dw, db)`` float32 in plain PyTorch: t = g (softmax -
+    onehot), rounded to x's dtype before the two products (as the Pallas
+    kernels cast it to the operand dtype), summed unrounded for db."""
+    logits = _logits(x, w, b)
+    v = logits.shape[1]
+    p = torch.exp(logits - lse[:, None])
+    labels = labels.long()
+    onehot = (labels[:, None] == torch.arange(v, device=x.device)[None, :])
+    g = g.float()[:, None]
+    t = g * p - g * onehot.float()
+    tr = t.to(x.dtype).float()
+    dx = torch.matmul(tr, w.float().t())
+    dw = torch.matmul(x.float().t(), tr)
+    return dx, dw, t.sum(dim=0)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load(SOURCE)
+    if lib.ff_fused_ce_fwd.argtypes is None:
+        lib.ff_fused_ce_fwd.argtypes = [ctypes.c_void_p] * 6 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ff_fused_ce_fwd.restype = ctypes.c_int
+        lib.ff_fused_ce_bwd_dx.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ff_fused_ce_bwd_dx.restype = ctypes.c_int
+        lib.ff_fused_ce_bwd_dw.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ff_fused_ce_bwd_dw.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, x, w, b, labels, *rows):
+    """Raise unless the operands are what the kernels take: contiguous,
+    on one CUDA device, x (N, d) and w (d, V) of one dtype in
+    :data:`DTYPES`, b (V,) float32, labels (N,) int32 and each of
+    ``rows`` a float32 (N,) vector."""
+    ts = (x, w, b, labels) + rows
+    if not (x.is_cuda and all(t.device == x.device for t in ts)):
+        raise ValueError(f"{name}: operands must be on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"{name}: x and w must share a dtype in {DTYPES}, "
+                         f"got {x.dtype}, {w.dtype}")
+    if b.dtype != torch.float32 or labels.dtype != torch.int32 \
+            or any(t.dtype != torch.float32 for t in rows):
+        raise ValueError(f"{name}: need a float32 bias, int32 labels and "
+                         f"float32 row vectors, got {b.dtype}, "
+                         f"{labels.dtype}, {[t.dtype for t in rows]}")
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1] \
+            or b.shape != (w.shape[1],) or w.shape[1] == 0 \
+            or any(t.shape != (x.shape[0],) for t in (labels,) + rows):
+        raise ValueError(f"{name}: need x (N, d), w (d, V), b (V,) and "
+                         f"(N,) rows, got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}, "
+                         f"{[tuple(t.shape) for t in (labels,) + rows]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_linear_ce_fwd_cuda(x, w, b, labels):
+    """Launch the forward kernel on the current stream: ``(nll, lse)``."""
+    _check(NAME_FWD, x, w, b, labels)
+    n, d = x.shape
+    v = w.shape[1]
+    nll = torch.empty((n,), dtype=torch.float32, device=x.device)
+    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return nll, lse
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.ff_fused_ce_fwd(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            nll.data_ptr(), lse.data_ptr(), n, d, v,
+            int(x.dtype == torch.bfloat16), _stream(x))
+    kernels.check(lib, code, NAME_FWD)
+    kernels.launches[NAME_FWD] += 1
+    return nll, lse
+
+
+def fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, g):
+    """Launch the dx kernel on the current stream: dx float32 (N, d)."""
+    _check(NAME_DX, x, w, b, labels, lse, g)
+    n, d = x.shape
+    dx = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    if n == 0 or d == 0:
+        return dx
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.ff_fused_ce_bwd_dx(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dx.data_ptr(), n, d, w.shape[1],
+            int(x.dtype == torch.bfloat16), _stream(x))
+    kernels.check(lib, code, NAME_DX)
+    kernels.launches[NAME_DX] += 1
+    return dx
+
+
+def fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g):
+    """Launch the dw/db kernel on the current stream: ``(dw, db)``
+    float32 (d, V) and (V,)."""
+    _check(NAME_DW, x, w, b, labels, lse, g)
+    n, d = x.shape
+    v = w.shape[1]
+    if n == 0:   # no rows: nothing to launch, the sums are empty
+        return (torch.zeros((d, v), dtype=torch.float32, device=x.device),
+                torch.zeros((v,), dtype=torch.float32, device=x.device))
+    dw = torch.empty((d, v), dtype=torch.float32, device=x.device)
+    db = torch.empty((v,), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.ff_fused_ce_bwd_dw(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(), n,
+            d, v, int(x.dtype == torch.bfloat16), _stream(x))
+    kernels.check(lib, code, NAME_DW)
+    kernels.launches[NAME_DW] += 1
+    return dw, db
+
+
+def fused_linear_ce_bwd_cuda(x, w, b, labels, lse, g):
+    """``(dx, dw, db)`` float32 through the two backward kernels."""
+    dx = fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, g)
+    dw, db = fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g)
+    return dx, dw, db
+
+
+def _on_cpu(*ts) -> bool:
+    """True when every operand is on the CPU; raises when only some are."""
+    if ts[0].device.type != "cpu":
+        return False
+    if any(t.device.type != "cpu" for t in ts):
+        raise ValueError("fused cross-entropy: operands on different "
+                         "devices")
+    return True
+
+
+def fused_linear_ce_fwd(x, w, b, labels):
+    """``(nll, lse)``: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors, an error for anything else."""
+    if _on_cpu(x, w, b, labels):
+        return fused_linear_ce_fwd_plain(x, w, b, labels)
+    if x.device.type == "cuda":
+        return fused_linear_ce_fwd_cuda(x, w, b, labels)
+    raise ValueError(f"{NAME_FWD}: no implementation for device {x.device}")
+
+
+def fused_linear_ce_bwd(x, w, b, labels, lse, g):
+    """``(dx, dw, db)`` float32: the plain version for CPU tensors, the
+    CUDA kernels for CUDA tensors, an error for anything else."""
+    if _on_cpu(x, w, b, labels, lse, g):
+        return fused_linear_ce_bwd_plain(x, w, b, labels, lse, g)
+    if x.device.type == "cuda":
+        return fused_linear_ce_bwd_cuda(x, w, b, labels, lse, g)
+    raise ValueError(f"{NAME_DX}: no implementation for device {x.device}")
+
+
+class FusedLinearCE(torch.autograd.Function):
+    """nll (N,) float32 of ``softmax(x @ w + b)`` at ``labels``,
+    differentiable in x, w and b (``fused_ce.py:311-319``).  w is cast to
+    x's dtype, b to float32 and labels to int32 before the kernels; the
+    gradients come back in the dtypes of x, w and b.  The forward and
+    backward functions are looked up when called."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels):
+        xk = x.contiguous()
+        wk = w.to(x.dtype).contiguous()
+        bk = b.float().contiguous()
+        lab = labels.to(torch.int32).contiguous()
+        nll, lse = fused_linear_ce_fwd(xk, wk, bk, lab)
+        ctx.save_for_backward(xk, wk, bk, lab, lse)
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, labels, lse = ctx.saved_tensors
+        dx, dw, db = fused_linear_ce_bwd(x, w, b, labels, lse,
+                                         g.float().contiguous())
+        xdt, wdt, bdt = ctx.dtypes
+        return dx.to(xdt), dw.to(wdt), db.to(bdt), None
+
+
+def fused_linear_ce(x, w, b, labels):
+    """Per-token NLL of ``softmax(x @ w + b)`` at ``labels`` without the
+    kernels storing the (N, V) logits.  x (N, d), w (d, V), b (V,), labels
+    (N,) integer; returns float32 (N,), differentiable in x, w and b."""
+    return FusedLinearCE.apply(x, w, b, labels)

@@ -1,6 +1,8 @@
-"""Log-softmax head of the sequence models (PyTorch port of
+"""Log-softmax head and loss of the sequence models (PyTorch port of
 ``flexflow_tpu/ops/softmax_dp.py``).  The forward is what serving reads;
-the loss comes with the training slice."""
+``loss`` is the training loss, over the log-probs or, when the model's
+LM-head fusion ran the projection and the loss together
+(``FFModel._lm_head_fusion``), over the fused op's per-token NLL."""
 
 from __future__ import annotations
 
@@ -29,3 +31,16 @@ class SoftmaxDP(Op):
     def forward(self, params, state, xs: List, train: bool):
         logits, _ = xs
         return torch.log_softmax(logits.float(), dim=-1), state
+
+    def loss(self, log_probs, labels):
+        """Sum of the NLL over the tokens whose label is not negative
+        (label -1 = no target, e.g. the final position of a causal
+        next-token shift).  ``log_probs`` (n, s, V) are log-probs; an
+        (n, s) value is already the per-token NLL of the fused head."""
+        valid = labels >= 0
+        if log_probs.dim() == labels.dim():
+            return torch.where(valid, log_probs,
+                               torch.zeros_like(log_probs)).sum()
+        safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+        nll = -log_probs.gather(-1, safe[..., None])[..., 0]
+        return torch.where(valid, nll, torch.zeros_like(nll)).sum()

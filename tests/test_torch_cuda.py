@@ -1,17 +1,22 @@
 """The port's CUDA kernels on the card: each held against its plain
-PyTorch version on the same inputs, and the serving and CNN training
-paths counted through them.  Every test carries the ``cuda`` marker and
-skips, with the reason, where no GPU is present (kernels have no CPU
-mode).  This file imports neither JAX nor the JAX package, so it also
-runs where JAX is absent:
+PyTorch version on the same inputs, and the serving, CNN training and LM
+training paths counted through them.  Every test carries the ``cuda``
+marker and skips, with the reason, where no GPU is present (kernels have
+no CPU mode).  This file imports neither JAX nor the JAX package, so it
+also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: flash attention 1e-4 absolute, float32 sums over up to 512
-keys in another order (the kernel accumulates bf16 inputs in float32, as
-the plain version does).  The pool kernels equal their plain versions:
-the same float32 compares, and the same float32 adds in the same order,
-cast once.
+Tolerances: flash attention forward 1e-4 absolute, float32 sums over up
+to 512 keys in another order (the kernel accumulates bf16 inputs in
+float32, as the plain version does).  The flash backward and the fused
+cross-entropy kernels are held to a share of the largest magnitude of
+each output: 1e-4 in float32 (sums over up to 512 keys or 1000 vocab
+columns in another order), 1e-2 with bfloat16 operands (both versions
+round p, ds or t to bfloat16 before a product, and a float32 sum taken in
+another order can tip a rounding by one bfloat16 step).  The pool kernels
+equal their plain versions: the same float32 compares, and the same
+float32 adds in the same order, cast once.
 """
 
 import contextlib
@@ -20,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from flexflow_tpu_torch.ops import attention, kernels
+from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.kernels import avgpool, maxpool
+from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+from flexflow_tpu_torch.ops.kernels import fused_ce as ce
 from flexflow_tpu_torch.ops.kernels.flash_attention import (
     NAME, flash_attention_fwd, flash_attention_fwd_cuda,
     flash_attention_fwd_plain)
@@ -89,13 +96,20 @@ def test_flash_kernel_refuses_what_it_does_not_take(gpu):
 
 
 @contextlib.contextmanager
-def _plain_attention():
-    kernel = attention.flash_attention_fwd
-    attention.flash_attention_fwd = flash_attention_fwd_plain
+def _plain_kernels():
+    """Every kernel of the sequence models swapped for its plain version
+    (the autograd functions look them up when called)."""
+    saved = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+             ce.fused_linear_ce_fwd, ce.fused_linear_ce_bwd)
+    fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+    ce.fused_linear_ce_fwd = ce.fused_linear_ce_fwd_plain
+    ce.fused_linear_ce_bwd = ce.fused_linear_ce_bwd_plain
     try:
         yield
     finally:
-        attention.flash_attention_fwd = kernel
+        (fa.flash_attention_fwd, fa.flash_attention_bwd,
+         ce.fused_linear_ce_fwd, ce.fused_linear_ce_bwd) = saved
 
 
 def test_tiny_gpt_serves_through_the_kernel(gpu):
@@ -114,7 +128,7 @@ def test_tiny_gpt_serves_through_the_kernel(gpu):
     summary = engine.run(reqs)
     assert summary["completed"] == 10
     assert kernels.launches[NAME] == model.t.num_layers * summary["steps"]
-    with _plain_attention():
+    with _plain_kernels():
         ref = requests()
         ServeEngine(model, params=engine.params,
                     log=lambda *a: None).run(ref)
@@ -228,3 +242,188 @@ def test_tiny_cnn_trains_through_the_pool_kernels(gpu):
     assert dict(kernels.launches) == {maxpool.NAME_FWD: 1,
                                       maxpool.NAME_BWD: 1, avgpool.NAME: 1}
     assert bool(torch.isfinite(loss))
+
+
+def _close(got, want, dtype, what):
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    got, want = got.detach(), want.detach()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, f"{what}: max err {err:.3e} > {tol} x " \
+                               f"{scale:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,sk,causal", [
+    ((16, 12, 512, 64), 512, True),    # the LM training shape
+    ((2, 3, 77, 64), 77, True),        # ragged S
+    ((2, 3, 77, 64), 77, False),
+    ((1, 2, 40, 16), 100, False),      # Sq != Sk, small head dim
+    ((1, 2, 100, 32), 40, True),       # Sq > Sk, causal
+    ((2, 2, 33, 8), 33, True),
+])
+def test_flash_bwd_kernels_match_plain(gpu, dtype, shape, sk, causal):
+    q, k, v = _qkv(4, shape, sk, dtype, gpu)
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    do = torch.from_numpy(np.random.RandomState(5).randn(*shape).astype(
+        "float32")).to(gpu)
+    kernels.reset_launches()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {fa.NAME_DKV: 1, fa.NAME_DQ: 1}
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w, dtype, name)
+
+
+def test_flash_bwd_kernels_refuse_what_they_do_not_take(gpu):
+    q, k, v = _qkv(6, (1, 2, 16, 64), 16, torch.float32, gpu)
+    o, lse = flash_attention_fwd_cuda(q, k, v, True)
+    delta = o.sum(-1)
+    with pytest.raises(ValueError, match="do must be"):
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, o.bfloat16(), lse, delta)
+    with pytest.raises(ValueError, match="do must be"):
+        fa.flash_attention_bwd_dq_cuda(q, k, v, o.transpose(2, 3)
+                                       .contiguous().transpose(2, 3), lse,
+                                       delta)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_dq_cuda(q, k, v, o, lse.cpu(), delta)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_bwd_dkv_cuda(q.half(), k.half(), v.half(),
+                                        o.half(), lse, delta)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attention_bwd_dkv_cuda(q, k.cpu(), v, o, lse, delta)
+
+
+def _ce_inputs(seed, n, d, v, dtype, device):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(n, d).astype("float32")).to(device, dtype)
+    w = torch.from_numpy((rng.randn(d, v) * 0.05).astype("float32")).to(
+        device, dtype)
+    b = torch.from_numpy((rng.randn(v) * 0.1).astype("float32")).to(device)
+    lab = rng.randint(0, v, (n,)).astype("int32")
+    lab[::5] = -1
+    lab[1] = v + 2
+    g = torch.from_numpy(rng.rand(n).astype("float32")).to(device)
+    return x, w, b, torch.from_numpy(lab).to(device), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,v", [
+    (8192, 768, 32768),    # the LM training shape
+    (300, 100, 1000),      # ragged rows, depth and vocab
+    (64, 32, 64),
+    (5, 8, 3),
+])
+def test_fused_ce_kernels_match_plain(gpu, dtype, n, d, v):
+    x, w, b, lab, g = _ce_inputs(7, n, d, v, dtype, gpu)
+    kernels.reset_launches()
+    nll, lse = ce.fused_linear_ce_fwd(x, w, b, lab)
+    dx, dw, db = ce.fused_linear_ce_bwd(x, w, b, lab, lse, g)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {ce.NAME_FWD: 1, ce.NAME_DX: 1,
+                                      ce.NAME_DW: 1}
+    nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
+    _close(nll, nll_p, torch.float32, "nll")
+    _close(lse, lse_p, torch.float32, "lse")
+    for got, want, name in zip((dx, dw, db), ce.fused_linear_ce_bwd_plain(
+            x, w, b, lab, lse_p, g), ("dx", "dw", "db")):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _close(got, want, dtype, name)
+
+
+def test_fused_ce_kernels_refuse_what_they_do_not_take(gpu):
+    x, w, b, lab, g = _ce_inputs(8, 64, 32, 100, torch.float32, gpu)
+    nll, lse = ce.fused_linear_ce_fwd(x, w, b, lab)
+    with pytest.raises(ValueError, match="dtype"):
+        ce.fused_linear_ce_fwd(x.half(), w.half(), b, lab)
+    with pytest.raises(ValueError, match="dtype"):
+        ce.fused_linear_ce_fwd(x, w.bfloat16(), b, lab)
+    with pytest.raises(ValueError, match="int32 labels"):
+        ce.fused_linear_ce_fwd(x, w, b, lab.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.fused_linear_ce_fwd(x, w.t().contiguous().t(), b, lab)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ce.fused_linear_ce_bwd_dx_cuda(x, w, b, lab, lse, g.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ce.fused_linear_ce_bwd(x, w, b.cpu(), lab, lse, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_match_autograd(gpu, dtype):
+    """``FlashAttention`` (kernels 1-3) against autograd through the plain
+    forward."""
+    q, k, v = _qkv(9, (2, 4, 70, 64), 70, dtype, gpu)
+    do = torch.randn(2, 4, 70, 64, device=gpu)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*ts, True)
+    grads = torch.autograd.grad(o, ts, do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_p, _ = flash_attention_fwd_plain(*ref, True)
+    want = torch.autograd.grad(o_p, ref, do)
+    _close(o, o_p, torch.float32, "o")
+    for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype
+        _close(g.float(), w.float(), dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_gradients_match_autograd(gpu, dtype):
+    """``FusedLinearCE`` (kernels 4-6) against autograd through the
+    unfused log-softmax."""
+    x, w, b, lab, g = _ce_inputs(10, 200, 64, 500, dtype, gpu)
+    ts = [t.clone().requires_grad_() for t in (x, w, b)]
+    nll = ce.fused_linear_ce(*ts, lab)
+    grads = torch.autograd.grad(nll, ts, g)
+    ref = [t.clone().float().requires_grad_() for t in (x, w, b)]
+    lp = torch.log_softmax(ref[0] @ ref[1] + ref[2], dim=-1)
+    hit = (lab >= 0) & (lab < 500)
+    picked = lp.gather(1, torch.where(hit, lab, 0).long()[:, None])[:, 0]
+    lse = torch.logsumexp(ref[0] @ ref[1] + ref[2], dim=1)
+    nll_ref = torch.where(hit, -picked, lse)   # no target: nll = lse
+    want = torch.autograd.grad(nll_ref, ref, g)
+    _close(nll, nll_ref.detach(), torch.float32, "nll")
+    for got, w_, name in zip(grads, want, ("dx", "dw", "db")):
+        _close(got.float(), w_, dtype, name)
+
+
+def _tiny_lm(gpu, dtype="float32"):
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+
+    return TransformerLM(TransformerConfig(
+        batch_size=4, seq_length=64, num_layers=2, d_model=64, num_heads=4,
+        d_ff=128, vocab_size=300, causal=True, learning_rate=0.1,
+        compute_dtype=dtype), device=gpu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_lm_trains_through_the_kernels(gpu, dtype):
+    model = _tiny_lm(gpu, dtype)
+    toks = np.random.RandomState(11).randint(0, 300, (4, 64)).astype("int32")
+
+    def run():
+        params, state = model.init()
+        opt = model.init_opt_state(params)
+        step = model.make_train_step()
+        losses = []
+        for _ in range(3):
+            params, state, opt, loss = step(params, state, opt, toks, toks)
+            losses.append(float(loss))
+        return losses
+
+    kernels.reset_launches()
+    losses = run()
+    torch.cuda.synchronize()
+    layers = model.t.num_layers
+    assert dict(kernels.launches) == {
+        fa.NAME: 3 * layers, fa.NAME_DKV: 3 * layers, fa.NAME_DQ: 3 * layers,
+        ce.NAME_FWD: 3, ce.NAME_DX: 3, ce.NAME_DW: 3}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    with _plain_kernels():
+        kernels.reset_launches()
+        ref = run()
+        assert sum(kernels.launches.values()) == 0
+    np.testing.assert_allclose(losses, ref,
+                               rtol=1e-4 if dtype == "float32" else 2e-2)

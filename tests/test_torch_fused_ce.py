@@ -1,0 +1,140 @@
+"""The port's fused vocab projection + cross-entropy against the Pallas
+kernels.
+
+``fused_linear_ce_fwd_plain`` / ``fused_linear_ce_bwd_plain`` and the
+``FusedLinearCE`` autograd function (the plain versions on CPU tensors)
+are held against ``flexflow_tpu.ops.pallas.fused_ce.fused_linear_ce``
+with 16-row and 16-column blocks in interpret mode, at
+tests/test_pallas.py's n 40, d 24, V 100 (V not a multiple of the block,
+so the padded vocab tail is masked): the per-token NLL at 1e-5 and the
+gradients of a weighted sum of it (the weights exercise the cotangent's
+scaling) at 1e-4, that test's bars; labels include -1 and V + 3, which
+match nothing.  bfloat16 operands at 2e-2 (the two packages round the
+same values to bfloat16 but sum in another order).  The CUDA kernels run
+only on a GPU: tests/test_torch_cuda.py holds them against the plain
+versions on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flexflow_tpu.ops.pallas.fused_ce import fused_linear_ce as j_fused
+from flexflow_tpu_torch.ops import kernels
+from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+torch.set_num_threads(2)
+
+N, D, V = 40, 24, 100
+TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+def _inputs(seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(N, D).astype("float32")
+    w = (rng.randn(D, V) * 0.1).astype("float32")
+    b = (rng.randn(V) * 0.1).astype("float32")
+    lab = rng.randint(0, V, (N,)).astype("int32")
+    lab[::7] = -1        # the causal shift's "no target"
+    lab[3] = V + 3       # past the vocab: matches nothing either
+    wgt = (np.arange(1.0, N + 1) / N).astype("float32")
+    return x, w, b, lab, wgt
+
+
+def _jax(x, w, b, lab, wgt, dtype):
+    xs = [jnp.asarray(a, dtype) for a in (x, w, b)]
+    labj = jnp.asarray(lab)
+
+    def f(x, w, b):
+        return j_fused(x, w, b, labj, block_n=16, block_v=16, interpret=True)
+
+    nll = f(*xs)
+    grads = jax.grad(lambda x, w, b: (f(x, w, b) * wgt).sum(),
+                     argnums=(0, 1, 2))(*xs)
+    return np.asarray(nll), [np.asarray(g.astype(jnp.float32))
+                             for g in grads]
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_pallas(dtype):
+    x, w, b, lab, wgt = _inputs(7)
+    nll_j, grads_j = _jax(x, w, b, lab, wgt, dtype)
+    xt, wt = _torch(x, dtype), _torch(w, dtype)
+    bt = _torch(b, dtype).float()
+    labt = torch.from_numpy(lab)
+    nll, lse = ce.fused_linear_ce_fwd_plain(xt, wt, bt, labt)
+    tol_v, tol_g = TOL[dtype]
+    np.testing.assert_allclose(nll.numpy(), nll_j, rtol=tol_v, atol=tol_v)
+    # a label that matches nothing leaves nll = lse
+    miss = (lab < 0) | (lab >= V)
+    np.testing.assert_array_equal(nll.numpy()[miss], lse.numpy()[miss])
+    got = ce.fused_linear_ce_bwd_plain(xt, wt, bt, labt, lse,
+                                       torch.from_numpy(wgt))
+    for t, want, name in zip(got, grads_j, ("dx", "dw", "db")):
+        assert t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(), want, rtol=tol_g, atol=tol_g,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_function_matches_pallas(dtype):
+    x, w, b, lab, wgt = _inputs(8)
+    nll_j, grads_j = _jax(x, w, b, lab, wgt, dtype)
+    ts = [_torch(a, dtype).requires_grad_() for a in (x, w, b)]
+    kernels.reset_launches()
+    nll = ce.fused_linear_ce(*ts, torch.from_numpy(lab))
+    assert nll.dtype == torch.float32 and tuple(nll.shape) == (N,)
+    (nll * torch.from_numpy(wgt)).sum().backward()
+    assert sum(kernels.launches.values()) == 0   # CPU: the plain versions
+    tol_v, tol_g = TOL[dtype]
+    np.testing.assert_allclose(nll.detach().numpy(), nll_j, rtol=tol_v,
+                               atol=tol_v)
+    for t, want, name in zip(ts, grads_j, ("dx", "dw", "db")):
+        assert t.grad.dtype == getattr(torch, dtype), name
+        np.testing.assert_allclose(t.grad.float().numpy(), want, rtol=tol_g,
+                                   atol=tol_g, err_msg=name)
+
+
+def test_mixed_dtypes_cast_like_the_jax_op():
+    # bf16 activations with float32 weights: w is cast to x's dtype, the
+    # bias to float32, and each gradient returns in its input's dtype
+    x, w, b, lab, wgt = _inputs(9)
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_()
+    nll = ce.fused_linear_ce(xt, wt, bt, torch.from_numpy(lab).long())
+    (nll * torch.from_numpy(wgt)).sum().backward()
+    assert (xt.grad.dtype, wt.grad.dtype, bt.grad.dtype) == \
+        (torch.bfloat16, torch.float32, torch.float32)
+    nll_j = j_fused(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                    jnp.asarray(b), jnp.asarray(lab), block_n=16,
+                    block_v=16, interpret=True)
+    np.testing.assert_allclose(nll.detach().numpy(), np.asarray(nll_j),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_dispatch_and_refusals():
+    x, w, b, lab, wgt = (torch.from_numpy(a) for a in _inputs(10))
+    kernels.reset_launches()
+    nll, lse = ce.fused_linear_ce_fwd(x, w, b, lab)
+    nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
+    torch.testing.assert_close(nll, nll_p, rtol=0, atol=0)
+    grads = ce.fused_linear_ce_bwd(x, w, b, lab, lse, wgt)
+    for a, c in zip(grads, ce.fused_linear_ce_bwd_plain(x, w, b, lab, lse,
+                                                        wgt)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    assert sum(kernels.launches.values()) == 0
+    with pytest.raises(ValueError, match="no implementation"):
+        ce.fused_linear_ce_fwd(*(t.to("meta") for t in (x, w, b, lab)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ce.fused_linear_ce_bwd_dx_cuda(x, w, b, lab, lse, wgt)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ce.fused_linear_ce_bwd_dw_cuda(x, w, b, lab, lse, wgt)

@@ -285,3 +285,14 @@ def test_entry_points_refuse_cpu_fallback(pair):
         build_inception_v3()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         synthetic_batches(2, 4, 4)
+    from flexflow_tpu_torch.apps import lm as t_lm
+    from flexflow_tpu_torch.data import synthetic_token_stream
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_lm.main(["--causal", "-b", "2", "-s", "4", "-l", "1", "--d-model",
+                   "8", "--heads", "2", "--d-ff", "16", "--vocab", "16",
+                   "-i", "1"], log=lambda *a: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthetic_token_stream(2, 4, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(t_lm.synthetic_lm_batches(2, 4, 16))
