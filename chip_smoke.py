@@ -2,14 +2,14 @@
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each one
 against its plain PyTorch version on the card, drives each ported path at
 full width through its entry point — the GPT served by ``apps.serve``,
-the GPT trained by ``apps.lm`` and Inception-v3 trained by ``apps.cnn`` —
-and checks that each path ran through its kernels.
+the GPT trained by ``apps.lm``, and Inception-v3 and DenseNet-121 trained
+by ``apps.cnn`` — and checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU)
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
                                        # one decode step, one LM training
-                                       # step and one Inception training
-                                       # step
+                                       # step, one Inception and one
+                                       # DenseNet training step
 
 Phases (any failure exits non-zero):
 
@@ -39,38 +39,59 @@ Phases (any failure exits non-zero):
    their plain versions; then kernel, plain and library-yardstick times
    (``max_pool2d_with_indices`` and its backward, ``avg_pool2d_backward``,
    which the port never calls) at the main path's shapes;
-7. serving slice: ``apps.serve gpt`` at full width (12 x 768, 12 heads,
+7. BN kernel phase: kernels 9 (fused BN normalize + ReLU forward) and 10
+   (its backward: dx and a partial-sum pass, then the finishing sum)
+   against their plain versions in float32 and bfloat16, ReLU on and off,
+   at DenseNet-121's stem (802816 x 64), dense1 (200704 x 256) and
+   dense3 (12544 x 1024) geometries, a ragged C = 130 and a small C = 7;
+   then, summed over one DenseNet-121 training step's 117 BNs at batch
+   64 in bfloat16, the kernels', the plain versions' and a library
+   yardstick's times (``F.batch_norm(training=False)`` on the
+   channels_last NCHW view with weight inv, bias shift, running mean 0
+   and running var 1 - eps — the same affine — then ``F.relu``; and
+   ``torch.autograd.grad`` of that to x, weight and bias; the port never
+   calls it);
+8. serving slice: ``apps.serve gpt`` at full width (12 x 768, 12 heads,
    d_ff 3072, vocab 32768, seq 512, max_batch 8, float32) serving 16
    requests of 4 new tokens: every request completes, the flash kernel
    ran 12 times per decode step, and the first step's log-probs and all
    replies match the same model run with the plain attention;
-8. LM training slice: ``apps.lm`` at the JAX app's own example (causal,
+9. LM training slice: ``apps.lm`` at the JAX app's own example (causal,
    batch 16, seq 512, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    32768, float32, plain SGD at lr 1e-3) for 3 warm-up and 10 timed steps:
    finite losses, the first near ln 32768, per step 12 launches each of
    kernels 1, 2 and 3 and one each of kernels 4, 5 and 6, and the first 3
    losses within 1e-4 (relative) of the same run with every kernel
    swapped for its plain version; tokens/s, step ms and peak memory;
-9. Inception training slice: ``apps.cnn inception`` at bench.py's
-   protocol (batch 256, 299x299, bfloat16 compute, float32 params, lr
-   0.01, wd 1e-4, momentum 0, seeded random data) for 3 warm-up and 10
-   timed steps:
-   finite losses, 4 max-pool and 1 avg-pool kernel launches per step, and
-   the first 3 losses within 2e-2 of the same run with the plain pools;
-   images/s, step ms and peak memory;
-10. (``--profile``) where the device time of one decode step, one LM
-    training step and one Inception training step goes;
-11. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+10. Inception training slice: ``apps.cnn inception`` at bench.py's
+    protocol (batch 256, 299x299, bfloat16 compute, float32 params, lr
+    0.01, wd 1e-4, momentum 0, seeded random data) for 3 warm-up and 10
+    timed steps: finite losses, 4 max-pool and 1 avg-pool kernel launches
+    per step, and the first 3 losses within 2e-2 of the same run with the
+    plain pools; images/s, step ms and peak memory;
+11. DenseNet training slice: ``apps.cnn densenet`` at full width and
+    depth (batch 64, 224x224, bfloat16 compute, float32 params, the same
+    protocol) for 3 warm-up and 10 timed steps: finite losses, per step
+    117 launches each of kernel 9, kernel 10 and its finishing sum, one
+    max-pool forward and backward and 4 avg-pool backward launches; the
+    first loss equal to the run with kernels 7-10 swapped for their plain
+    versions and the next two within 1e-3 (relative) of it; images/s,
+    step ms and peak memory;
+12. (``--profile``) where the device time of one decode step, one LM
+    training step, one Inception and one DenseNet training step goes;
+13. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
-Times come from CUDA events over repeated launches after a warm-up.
-``bound_ms`` is the larger of the bytes a call must move (each input read
+Times come from CUDA events over repeated launches after a warm-up; a
+kernel's launches are enqueued behind a sleep kernel, so its time is the
+device's even where launching it costs the host more (steps are timed
+without the sleep, at the host's pace).  ``bound_ms`` is the larger of the bytes a call must move (each input read
 once, each output written once) at 3.35 TB/s and its FLOPs at the peak
 for the input type: 67 TFLOP/s float32 outside the tensor cores, 989
-TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  The pools do
-a few compares or adds per byte, so bytes bound them.  A flash backward
-kernel counts 8 (dk, dv) or 6 (dq) x d FLOPs per unmasked (query, key)
-pair; a fused cross-entropy kernel 2 N d V (forward) or 4 N d V (the
-logits recomputed, then one product).
+TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  The pools
+and the BN kernels do a few compares, multiplies or adds per byte, so
+bytes bound them.  A flash backward kernel counts 8 (dk, dv) or 6 (dq) x
+d FLOPs per unmasked (query, key) pair; a fused cross-entropy kernel
+2 N d V (forward) or 4 N d V (the logits recomputed, then one product).
 """
 
 from __future__ import annotations
@@ -83,6 +104,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
+# cycles per second the timing's sleep kernel is sized with: at least the
+# H100 SXM's top SM clock (1.98 GHz), so the sleep lasts as long as asked
+SLEEP_HZ = 2.0e9
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SERVING_SHAPE = (8, 12, 512, 64)        # B, H, S, d of the GPT at seq 512
 KERNEL_ATOL = 1e-4   # float32 sums in another order, over up to 512 keys
@@ -111,6 +135,24 @@ INCEPTION_MAX_POOLS = [(147, 147, 64), (73, 73, 192), (36, 36, 288),
                        (17, 17, 768)]
 INCEPTION_AVG_POOL = (8, 8, 2048)
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CHECKED = 3, 10, 3
+# kernels 9 and 10 against their plain versions: y and dx agree exactly
+# (the same float32 mul, add and compare, unfused, then one cast); d_inv
+# and d_shift within this share of sum |g x| and sum |g| (float32 sums of
+# up to 802816 rows in another order, which the values themselves, able
+# to cancel, cannot scale)
+BN_SUM_RTOL = 1e-5
+BN_GEOMETRIES = [("stem", 802816, 64), ("dense1", 200704, 256),
+                 ("dense3", 12544, 1024), ("ragged C", 4096, 130),
+                 ("small C", 512, 7)]
+# DenseNet-121 BN shapes whose times are logged one by one: bn1, a
+# dense1 bn2, dense3's widest bn1
+BN_LOGGED_SHAPES = ((802816, 64), (200704, 128), (12544, 992))
+DENSENET_BATCH = 64
+DENSENET_BNS = 117             # bn1 + 2 x (6 + 12 + 24 + 16) dense layers
+# the kernel and plain-kernel DenseNet runs: the forward kernels equal
+# their plain versions, so the first loss is equal; after a step the
+# sums of kernel 10 (and cuDNN's backward) add in another order
+DENSENET_LOSS_RTOL = 1e-3
 
 
 def _log(msg: str) -> None:
@@ -125,12 +167,26 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+def _time_ms(torch, fn, iters: int = 50, warmup: int = 5,
+             hold: bool = True) -> float:
+    """Milliseconds per call of ``fn`` by CUDA events around ``iters``
+    calls.  With ``hold`` (kernel timings) a sleep kernel holds the stream
+    until the host has enqueued every call, so a call whose launch costs
+    the host more than its kernels cost the device is still timed on the
+    device; without it (step timings) the host's pace shows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if hold:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(int(SLEEP_HZ * (2.0 * host_s + 1e-3)))
     start.record()
     for _ in range(iters):
         fn()
@@ -683,6 +739,157 @@ def pool_kernel_phase(torch) -> dict:
     return {"worst": worst, "max_step": step, "avg": avg}
 
 
+def _densenet_bn_shapes() -> dict:
+    """``{(n, h, w, c): count}`` of DenseNet-121's BN inputs at batch 64,
+    read from the port's own graph."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.models.densenet import build_densenet121
+    from flexflow_tpu_torch.ops.norm import BatchNorm
+
+    ff = build_densenet121(FFConfig(batch_size=DENSENET_BATCH))
+    shapes = {}
+    for op in ff.layers:
+        if isinstance(op, BatchNorm):
+            shape = op.inputs[0].shape
+            shapes[shape] = shapes.get(shape, 0) + 1
+    if sum(shapes.values()) != DENSENET_BNS:
+        raise AssertionError(f"DenseNet-121 has {sum(shapes.values())} BNs")
+    return shapes
+
+
+def _bn_inputs(torch, gen, m, c, dtype):
+    x = torch.randn((m, c), generator=gen, device="cuda")
+    inv = 1.0 + 0.5 * torch.randn((c,), generator=gen, device="cuda")
+    shift = 0.3 * torch.randn((c,), generator=gen, device="cuda")
+    g = torch.randn((m, c), generator=gen, device="cuda")
+    dt = getattr(torch, dtype)
+    return x.to(dt), inv, shift, g.to(dt)
+
+
+def bn_kernel_phase(torch) -> dict:
+    """Kernels 9 and 10 against their plain versions, then their times
+    summed over one DenseNet-121 training step's BNs."""
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ops.kernels import bn_act as bn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    worst = {bn.NAME_FWD: 0.0, bn.NAME_BWD: 0.0, bn.NAME_SUM: 0.0}
+    for label, m, c in BN_GEOMETRIES:
+        for dtype in ("float32", "bfloat16"):
+            for relu in (True, False):
+                x, inv, shift, g = _bn_inputs(torch, gen, m, c, dtype)
+                y = bn.bn_act_fwd_cuda(x, inv, shift, relu)
+                dx, part_inv, part_shift = bn.bn_act_bwd_partial_cuda(
+                    x, inv, shift, g, relu)
+                d_inv, d_shift = bn.bn_act_bwd_sum_cuda(part_inv, part_shift)
+                torch.cuda.synchronize()
+                y_p = bn.bn_act_fwd_plain(x, inv, shift, relu)
+                dx_p, d_inv_p, d_shift_p = bn.bn_act_bwd_plain(
+                    x, inv, shift, g, relu)
+                gm = g.float()
+                if relu:
+                    gm = torch.where(x.float() * inv + shift > 0, gm, 0.0)
+                mag_inv = (gm * x.float()).abs().sum(0).clamp_min(1e-30)
+                mag_shift = gm.abs().sum(0).clamp_min(1e-30)
+                err_y = float((y.float() - y_p.float()).abs().max())
+                err_dx = float((dx.float() - dx_p.float()).abs().max())
+                rel = max(float(((d_inv - d_inv_p).abs() / mag_inv).max()),
+                          float(((d_shift - d_shift_p).abs() / mag_shift)
+                                .max()))
+                err_sum = max(float((d_inv - d_inv_p).abs().max()),
+                              float((d_shift - d_shift_p).abs().max()))
+                _log(f"bn check {label} {m}x{c} {dtype} relu={relu} "
+                     f"({part_inv.shape[0]} row blocks): y max_abs_err "
+                     f"{err_y:.3e}, dx max_abs_err {err_dx:.3e} (tolerance "
+                     f"0); d_inv, d_shift max_abs_err {err_sum:.3e}, "
+                     f"{rel:.2e} of sum |g x|, sum |g| (tolerance "
+                     f"{BN_SUM_RTOL:g})")
+                if not (err_y == 0 and err_dx == 0 and rel <= BN_SUM_RTOL):
+                    raise AssertionError(f"bn {label} {dtype} relu={relu}: "
+                                         f"kernels 9-10 disagree with the "
+                                         f"plain versions")
+                worst[bn.NAME_FWD] = max(worst[bn.NAME_FWD], err_y)
+                worst[bn.NAME_BWD] = max(worst[bn.NAME_BWD], err_dx)
+                worst[bn.NAME_SUM] = max(worst[bn.NAME_SUM], err_sum)
+                del x, g, y, dx, y_p, dx_p, gm, part_inv, part_shift
+        torch.cuda.empty_cache()
+
+    # times, bfloat16 with the ReLU (the training path's BNs), at every
+    # distinct BN shape of one DenseNet-121 step, times its count
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    step = {name: dict.fromkeys(keys, 0.0) for name in worst}
+    eps = 1e-5
+    geometry = {}
+    for (n, h, w, c), count in _densenet_bn_shapes().items():
+        m = n * h * w
+        x, inv, shift, g = _bn_inputs(torch, gen, m, c, "bfloat16")
+        _, part_inv, part_shift = bn.bn_act_bwd_partial_cuda(x, inv, shift,
+                                                             g, True)
+        xs, ws, bs = (t.detach().clone().requires_grad_()
+                      for t in (x, inv, shift))
+        zero, one = torch.zeros_like(inv), torch.full_like(inv, 1.0 - eps)
+
+        def lib(xs, ws, bs, n=n, h=h, w=w, c=c, zero=zero, one=one):
+            xc = xs.view(n, h, w, c).permute(0, 3, 1, 2)
+            return F.relu(F.batch_norm(xc, zero, one, ws, bs, False, 0.0,
+                                       eps))
+
+        out = lib(xs, ws, bs)
+        gc = g.view(n, h, w, c).permute(0, 3, 1, 2)
+        plain_fwd = _time_ms(torch, lambda: bn.bn_act_fwd_plain(
+            x, inv, shift, True), iters=5, warmup=1)
+        plain_bwd = _time_ms(torch, lambda: bn.bn_act_bwd_plain(
+            x, inv, shift, g, True), iters=5, warmup=1)
+        lib_fwd = _time_ms(torch, lambda: lib(x, inv, shift), iters=20)
+        lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (xs, ws, bs), gc, retain_graph=True), iters=20)
+        t = {bn.NAME_FWD: dict(
+                 ms=_time_ms(torch, lambda: bn.bn_act_fwd_cuda(
+                     x, inv, shift, True), iters=20),
+                 plain_ms=plain_fwd, library_ms=lib_fwd,
+                 bound_ms=_pool_bytes(("bfloat16", 2 * m * c),
+                                      ("float32", 2 * c))
+                 / HBM_BYTES_PER_S * 1e3),
+             bn.NAME_BWD: dict(
+                 ms=_time_ms(torch, lambda: bn.bn_act_bwd_partial_cuda(
+                     x, inv, shift, g, True), iters=20),
+                 plain_ms=plain_bwd, library_ms=lib_bwd,
+                 bound_ms=_pool_bytes(("bfloat16", 3 * m * c),
+                                      ("float32", 4 * c))
+                 / HBM_BYTES_PER_S * 1e3),
+             bn.NAME_SUM: dict(
+                 ms=_time_ms(torch, lambda: bn.bn_act_bwd_sum_cuda(
+                     part_inv, part_shift), iters=20),
+                 plain_ms=plain_bwd, library_ms=lib_bwd,
+                 bound_ms=_pool_bytes(("float32", 2 * part_inv.numel()),
+                                      ("float32", 2 * c))
+                 / HBM_BYTES_PER_S * 1e3)}
+        for name in worst:
+            for key in keys:
+                step[name][key] += count * t[name][key]
+        if (m, c) in BN_LOGGED_SHAPES:
+            geometry[(m, c)] = t
+        del x, g, xs, out, gc, part_inv, part_shift
+    for (m, c), t in sorted(geometry.items()):
+        for name, r in t.items():
+            _log(f"bn time {name} {m}x{c} bfloat16 relu: kernel "
+                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"(bytes)")
+    for name, r in step.items():
+        _log(f"bn time {name}, the {DENSENET_BNS} launches of one DenseNet "
+             f"step (batch {DENSENET_BATCH}, bfloat16): kernel "
+             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+             f"(bytes)")
+    _log("bn time: plain and library times of kernel 10's two launches are "
+         "each the whole plain backward and the whole library backward "
+         "(relu backward + batch_norm backward to x, weight and bias)")
+    return {"worst": worst, "step": step}
+
+
 def _lm_argv(iters: int, warmup: int) -> list:
     return ["--causal", "-b", "16", "-s", "512", "-l", "12", "--d-model",
             "768", "--heads", "12", "--d-ff", "3072", "--vocab", "32768",
@@ -755,6 +962,10 @@ def _kernel_kind(key: str) -> str:
         return "fused cross-entropy (kernels 4-6)"
     if "maxpool_" in k or "avgpool_bwd" in k:
         return "pool kernels (7, 8)"
+    if "bn_act" in k:
+        return "BN + ReLU kernels (9, 10)"
+    if "catarray" in k:
+        return "concat copies (aten)"
     if "avg_pool" in k:
         return "in-block avg pools (aten)"
     if any(t in k for t in ("conv", "cudnn", "dgrad", "wgrad", "implicit",
@@ -811,7 +1022,7 @@ def lm_profile_phase(torch) -> None:
     def run():
         return step(params, state, opt, toks, labels)
 
-    step_ms = _time_ms(torch, run, iters=3, warmup=2)
+    step_ms = _time_ms(torch, run, iters=3, warmup=2, hold=False)
     _log(f"profile lm: one step {step_ms:.3f} ms by CUDA events")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -822,22 +1033,28 @@ def lm_profile_phase(torch) -> None:
 
 
 @contextlib.contextmanager
-def _plain_pools():
-    """Route the pool ops to the plain versions for a reference run."""
+def _plain_cnn_kernels():
+    """Route the CNN kernels (7-10: the pools and the fused BN) to their
+    plain versions for a reference run."""
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import bn_act as bn
     from flexflow_tpu_torch.ops.kernels import maxpool as mp
 
-    saved = (mp.maxpool_fwd, mp.maxpool_bwd, ap.avgpool_bwd)
+    saved = (mp.maxpool_fwd, mp.maxpool_bwd, ap.avgpool_bwd, bn.bn_act_fwd,
+             bn.bn_act_bwd)
     mp.maxpool_fwd, mp.maxpool_bwd = mp.maxpool_fwd_plain, mp.maxpool_bwd_plain
     ap.avgpool_bwd = ap.avgpool_bwd_plain
+    bn.bn_act_fwd, bn.bn_act_bwd = bn.bn_act_fwd_plain, bn.bn_act_bwd_plain
     try:
         yield
     finally:
-        mp.maxpool_fwd, mp.maxpool_bwd, ap.avgpool_bwd = saved
+        (mp.maxpool_fwd, mp.maxpool_bwd, ap.avgpool_bwd, bn.bn_act_fwd,
+         bn.bn_act_bwd) = saved
 
 
-def _train_argv(batch: int, iters: int, warmup: int) -> list:
-    return ["inception", "-b", str(batch), "-i", str(iters), "--warmup",
+def _train_argv(batch: int, iters: int, warmup: int,
+                model: str = "inception") -> list:
+    return [model, "-b", str(batch), "-i", str(iters), "--warmup",
             str(warmup), "--dtype", "bfloat16", "-p", "0"]
 
 
@@ -882,7 +1099,7 @@ def training_phase(torch, kernels, card: str) -> dict:
          f"per step, peak memory {peak_gb:.2f} GB "
          f"(max_memory_allocated), batch {batch} — {card}")
 
-    with _plain_pools():
+    with _plain_cnn_kernels():
         kernels.reset_launches()
         ref = cnn.main(_train_argv(batch, TRAIN_CHECKED, 0),
                        log=lambda *a: None)
@@ -900,16 +1117,81 @@ def training_phase(torch, kernels, card: str) -> dict:
             "images_per_sec": out["images_per_sec"], "peak_gb": peak_gb}
 
 
-def train_profile_phase(torch, batch: int) -> None:
-    """One full-width Inception training step: where its device time
-    goes, by kernel and by kind (cuDNN convolutions, the pool kernels,
-    the rest)."""
+def densenet_phase(torch, kernels, card: str) -> dict:
+    """``apps.cnn densenet`` at full width and depth through kernels 7-10,
+    then its first losses against the run with those kernels swapped for
+    their plain versions."""
+    from flexflow_tpu_torch.apps import cnn
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import bn_act as bn
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    iters = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = cnn.main(_train_argv(DENSENET_BATCH, iters, TRAIN_WARMUP,
+                               "densenet"), log=_log)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["loss"]
+    step_ms = out["elapsed_s"] / TRAIN_TIMED * 1e3
+    _log(f"densenet: batch {DENSENET_BATCH}, {iters} steps ({TRAIN_WARMUP} "
+         f"warm-up); launches by kernel {launches}")
+    _log(f"densenet: losses {losses}")
+    want = {bn.NAME_FWD: DENSENET_BNS * iters, bn.NAME_BWD: DENSENET_BNS *
+            iters, bn.NAME_SUM: DENSENET_BNS * iters, mp.NAME_FWD: iters,
+            mp.NAME_BWD: iters, ap.NAME: 4 * iters}
+    if launches != want:
+        raise AssertionError(f"DenseNet kernels launched {launches}, "
+                             f"expected {want} (117 + 117 + 117 BN, 1 + 1 "
+                             f"max-pool and 4 avg-pool launches per step)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite DenseNet loss: {losses}")
+    _log(f"densenet: {out['images_per_sec']:.2f} images/s, {step_ms:.2f} ms "
+         f"per step, peak memory {peak_gb:.2f} GB (max_memory_allocated), "
+         f"batch {DENSENET_BATCH} — {card}")
+
+    with _plain_cnn_kernels():
+        kernels.reset_launches()
+        ref = cnn.main(_train_argv(DENSENET_BATCH, TRAIN_CHECKED, 0,
+                                   "densenet"), log=lambda *a: None)
+        if sum(kernels.launches.values()):
+            raise AssertionError("the plain-kernel DenseNet run launched a "
+                                 "kernel")
+    torch.cuda.synchronize()
+    got, want_l = losses[:TRAIN_CHECKED], ref["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want_l))
+    _log(f"densenet: first {TRAIN_CHECKED} losses {got} vs plain kernels "
+         f"{want_l}: first equal {got[0] == want_l[0]}, max rel diff "
+         f"{rel:.3e} (tolerance {DENSENET_LOSS_RTOL:g})")
+    if got[0] != want_l[0]:
+        raise AssertionError(f"the first DenseNet loss {got[0]} differs from "
+                             f"the plain-kernel run's {want_l[0]}")
+    if not rel <= DENSENET_LOSS_RTOL:
+        raise AssertionError(f"DenseNet losses differ from the plain-kernel "
+                             f"run by {rel}")
+    # kernel 10 adds without atomics: a second kernel run repeats the
+    # first where cuDNN's algorithms are deterministic too (logged only)
+    again = cnn.main(_train_argv(DENSENET_BATCH, TRAIN_CHECKED, 0,
+                                 "densenet"), log=lambda *a: None)["loss"]
+    _log(f"densenet: a second kernel run's first {TRAIN_CHECKED} losses "
+         f"{again}: identical to the first run's {again == got}")
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+            "images_per_sec": out["images_per_sec"]}
+
+
+def train_profile_phase(torch, model: str, batch: int) -> None:
+    """One full-width CNN training step: where its device time goes, by
+    kernel and by kind (cuDNN convolutions, the pool and BN kernels, the
+    rest)."""
     from torch.profiler import ProfilerActivity, profile
 
     from flexflow_tpu_torch.apps import cnn
     from flexflow_tpu_torch.data import synthetic_batches
 
-    name, cfg, _, _ = cnn.parse(_train_argv(batch, 1, 0))
+    name, cfg, _, _ = cnn.parse(_train_argv(batch, 1, 0, model))
     ff = cnn.build(name, cfg, torch.device("cuda"))
     params, state = ff.init()
     opt = ff.init_opt_state(params)
@@ -922,15 +1204,15 @@ def train_profile_phase(torch, batch: int) -> None:
     def run():
         return step(params, state, opt, image, labels)
 
-    step_ms = _time_ms(torch, run, iters=3, warmup=2)
-    _log(f"profile train: one step {step_ms:.3f} ms by CUDA events "
+    step_ms = _time_ms(torch, run, iters=3, warmup=2, hold=False)
+    _log(f"profile {model}: one step {step_ms:.3f} ms by CUDA events "
          f"(batch {batch})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             run()
         torch.cuda.synchronize()
-    _profile_by_kind(torch, prof, 2, step_ms, "train")
+    _profile_by_kind(torch, prof, 2, step_ms, model)
 
 
 def profile_phase(torch, engine) -> None:
@@ -958,7 +1240,7 @@ def profile_phase(torch, engine) -> None:
         outs = engine._predict(engine.params, engine.state, tokens, *extra)
         engine._last_rows(outs[0], active)
 
-    step_ms = _time_ms(torch, step, iters=10, warmup=2)
+    step_ms = _time_ms(torch, step, iters=10, warmup=2, hold=False)
     _log(f"profile: one decode step (8 active slots, host copy included) "
          f"{step_ms:.3f} ms by CUDA events")
     with profile(activities=[ProfilerActivity.CPU,
@@ -989,6 +1271,7 @@ def main(argv) -> int:
 
     from flexflow_tpu_torch.ops import kernels
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import bn_act as bn
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.ops.kernels import fused_ce as ce
     from flexflow_tpu_torch.ops.kernels import maxpool as mp
@@ -1002,7 +1285,7 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     built = kernels.build([fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE, mp.SOURCE,
-                           ap.SOURCE])
+                           ap.SOURCE, bn.SOURCE])
     _log(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} "
          f"kernel source(s) (parallel nvcc)")
     for source, info in built.items():
@@ -1015,13 +1298,16 @@ def main(argv) -> int:
     flash_bwd = flash_bwd_phase(torch, fa)
     fused = fused_ce_phase(torch, ce)
     pools = pool_kernel_phase(torch)
+    bns = bn_kernel_phase(torch)
     sliced = slice_phase(torch, fa, kernels)
     lm_run = lm_phase(torch, kernels, card)
     trained = training_phase(torch, kernels, card)
+    dense = densenet_phase(torch, kernels, card)
     if "--profile" in argv:
         profile_phase(torch, sliced["engine"])
         lm_profile_phase(torch)
-        train_profile_phase(torch, trained["batch"])
+        train_profile_phase(torch, "inception", trained["batch"])
+        train_profile_phase(torch, "densenet", DENSENET_BATCH)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -1063,6 +1349,14 @@ def main(argv) -> int:
                              trained["launches"].get(name, 0),
                              pools["worst"][name],
                              dict(timing, bound_by="bytes")))
+    # kernels 9-10: launches from the DenseNet run, times summed over one
+    # DenseNet step's 117 BNs, bfloat16 at batch 64
+    for name in (bn.NAME_FWD, bn.NAME_BWD, bn.NAME_SUM):
+        line = 60 if name == bn.NAME_FWD else 67
+        entries.append(entry(name, bn.SOURCE,
+                             f"flexflow_tpu/ops/pallas/bn_act.py:{line}",
+                             dense["launches"][name], bns["worst"][name],
+                             dict(bns["step"][name], bound_by="bytes")))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

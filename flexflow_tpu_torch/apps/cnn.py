@@ -2,6 +2,8 @@
 
     python -m flexflow_tpu_torch.apps.cnn inception -b 256 -i 10 \\
         --dtype bfloat16 [--device cuda|cpu] [--warmup N]
+    python -m flexflow_tpu_torch.apps.cnn densenet -b 64 -i 13 \\
+        --warmup 3 --dtype bfloat16
     python -m flexflow_tpu_torch.apps.cnn alexnet -b 2 -i 3 --height 67 \\
         --width 67 --device cpu
 
@@ -9,8 +11,10 @@ Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
 --width, --classes), plus ``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given) and ``--warmup``
-(untimed steps before the timed window, default 1 as in ``fit``).  The
-input is seeded random synthetic data (``data/synthetic.py``,
+(untimed steps before the timed window, default 1 as in ``fit``).  Models:
+``alexnet`` and ``densenet``/``densenet121`` at 224x224 unless
+--height/--width are given, ``inception``/``inception_v3`` at 299x299.
+The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
 ``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
 strategies, checkpoints, elastic and health features raise
@@ -25,7 +29,7 @@ import torch
 
 from flexflow_tpu_torch.config import FFConfig
 
-MODELS = ("alexnet", "inception", "inception_v3")
+MODELS = ("alexnet", "inception", "inception_v3", "densenet", "densenet121")
 
 
 def _flag_value(argv, name, default):
@@ -46,10 +50,13 @@ def build(model_name: str, cfg: FFConfig, device):
     """The model named ``model_name`` on ``device`` (299x299 input for
     Inception unless --height/--width were given)."""
     from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.models.densenet import build_densenet121
     from flexflow_tpu_torch.models.inception import build_inception_v3
 
     if model_name == "alexnet":
         return build_alexnet(cfg, device=device)
+    if model_name.startswith("densenet"):
+        return build_densenet121(cfg, device=device)
     return build_inception_v3(cfg, device=device)
 
 

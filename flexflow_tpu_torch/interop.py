@@ -1,12 +1,15 @@
-"""Parameter trees across the two packages.
+"""Parameter and state trees across the two packages.
 
-``FFModel.init()`` in the JAX package returns ``{op_name: {leaf: array}}``
-and the port's models name their ops and leaves the same way, with the
-same shapes and layouts: ``(d_in, d_out)`` linear and projection
-kernels, ``(vocab, d)`` tables, HWIO convolution kernels (the port's
-``Conv2D`` reads them through an OIHW view), ``(d_out,)`` biases.
-:func:`params_from_jax` carries such a tree, converted to numpy by the
-caller, into the port unchanged: no renames, no transposes.
+``FFModel.init()`` in the JAX package returns two trees, the params
+``{param_key: {leaf: array}}`` and the per-op state ``{op_name: {leaf:
+array}}`` (BatchNorm's running ``mean`` and ``var``).  The port's models
+name their ops and leaves the same way, with the same shapes and
+layouts: ``(d_in, d_out)`` linear and projection kernels, ``(vocab, d)``
+tables, HWIO convolution kernels (the port's ``Conv2D`` reads them
+through an OIHW view), ``(d_out,)`` biases, ``(C,)`` BatchNorm vectors.
+:func:`params_from_jax` and :func:`state_from_jax` carry such a tree,
+converted to numpy by the caller, into the port unchanged: no renames,
+no transposes.
 """
 
 from __future__ import annotations
@@ -31,8 +34,15 @@ def _to_tensor(arr, device) -> torch.Tensor:
 
 def params_from_jax(tree: Mapping[str, Mapping[str, object]],
                     device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """The port's params from a JAX ``FFModel.init()`` tree of numpy
-    arrays: same keys, same shapes, same dtypes, on ``device``."""
+    """The port's params from a JAX ``FFModel.init()`` params tree of
+    numpy arrays: same keys, same shapes, same dtypes, on ``device``."""
     dev = resolve_device(device)
     return {key: {leaf: _to_tensor(v, dev) for leaf, v in leaves.items()}
             for key, leaves in tree.items()}
+
+
+def state_from_jax(tree: Mapping[str, Mapping[str, object]],
+                   device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's state from a JAX ``FFModel.init()`` state tree of numpy
+    arrays (``{op_name: {"mean", "var"}}``), carried as the params are."""
+    return params_from_jax(tree, device)

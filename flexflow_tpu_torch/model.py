@@ -4,8 +4,9 @@ port of ``flexflow_tpu/model.py``).
 The graph-building methods append named ops to ``self.layers`` in
 topological order, each taking its ParallelConfig from
 ``config.strategies`` or the machine's pure-DP default.  ``init`` builds
-the parameter tree ``{param_key: {leaf: tensor}}`` the JAX package
-builds, ``apply`` walks the layers in order (for training with the
+the parameter tree ``{param_key: {leaf: tensor}}`` and the per-op state
+tree (BatchNorm's running statistics) the JAX package builds, ``apply``
+walks the layers in order (for training with the
 LM-head fusion: a vocab projection whose only consumer is the sequence
 loss runs with it as one fused projection + cross-entropy op),
 ``make_predict_step`` is the serving path's forward-only step, and
@@ -93,6 +94,11 @@ class FFModel:
                                 kernel_w, stride_h, stride_w, padding_h,
                                 padding_w, pool_type, relu))
 
+    def batch_norm(self, name, input, relu: bool = True) -> Tensor:
+        from flexflow_tpu_torch.ops.norm import BatchNorm
+
+        return self._add(BatchNorm(name, self._pc(name, 4), input, relu))
+
     def linear(self, name, input, out_channels, relu: bool = True) -> Tensor:
         from flexflow_tpu_torch.ops.linear import Linear
 
@@ -173,18 +179,23 @@ class FFModel:
     def init(self, seed: Optional[int] = None):
         """(params, state) on the model's device, drawn in layer order from
         one ``torch.Generator`` seeded with ``seed`` (default
-        ``config.seed``).  Shared ``param_key``s initialize once."""
+        ``config.seed``).  Shared ``param_key``s initialize once; state is
+        per op (``model.py:428``) and stays float32 under mixed
+        precision."""
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         params: Dict[str, Dict] = {}
+        state: Dict[str, Dict] = {}
         for op in self.layers:
-            if op.param_key in params:
-                continue
-            p = op.init_params(gen, self.device)
-            if p:
-                params[op.param_key] = self._cast_param_tree(p)
-        return params, {}
+            if op.param_key not in params:
+                p = op.init_params(gen, self.device)
+                if p:
+                    params[op.param_key] = self._cast_param_tree(p)
+            s = op.init_state(self.device)
+            if s:
+                state[op.name] = s
+        return params, state
 
     def _mixed_precision(self) -> bool:
         return (self.config.param_dtype or "float32") != "float32"

@@ -5,7 +5,8 @@ Concrete values flow through each op's ``forward(params, state, xs,
 train)``, a plain function of tensors that returns ``(output,
 new_state)``.  Parameters live outside the ops in one tree,
 ``{param_key: {leaf: tensor}}``, the same tree the JAX package's
-``FFModel.init`` builds, so that one tree serves both packages.
+``FFModel.init`` builds, so that one tree serves both packages; so does
+per-op state, ``{op_name: {leaf: tensor}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +88,11 @@ class Op:
 
     def init_params(self, gen: torch.Generator, device) -> Dict:
         """Trainable params drawn from ``gen``; {} for parameterless ops."""
+        return {}
+
+    def init_state(self, device) -> Dict:
+        """Per-op state on ``device`` (BatchNorm's running statistics); {}
+        for stateless ops."""
         return {}
 
     def forward(self, params: Dict, state: Dict, xs: List, train: bool):

@@ -16,7 +16,11 @@ columns in another order), 1e-2 with bfloat16 operands (both versions
 round p, ds or t to bfloat16 before a product, and a float32 sum taken in
 another order can tip a rounding by one bfloat16 step).  The pool kernels
 equal their plain versions: the same float32 compares, and the same
-float32 adds in the same order, cast once.
+float32 adds in the same order, cast once.  So do the BN kernels' y and
+dx (the same unfused float32 multiply, add and compare, cast once);
+their per-channel sums are held to 1e-5 of sum |g x| and sum |g| (float32
+sums over the rows in another order, which the sums themselves, able to
+cancel, cannot scale).
 """
 
 import contextlib
@@ -427,3 +431,171 @@ def test_tiny_lm_trains_through_the_kernels(gpu, dtype):
         assert sum(kernels.launches.values()) == 0
     np.testing.assert_allclose(losses, ref,
                                rtol=1e-4 if dtype == "float32" else 2e-2)
+
+
+def _bn_inputs(seed, m, c, dtype, device):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, c).astype("float32")).to(device, dtype)
+    inv = torch.from_numpy((1 + 0.5 * rng.randn(c)).astype("float32")).to(
+        device)
+    shift = torch.from_numpy((0.3 * rng.randn(c)).astype("float32")).to(
+        device)
+    g = torch.from_numpy(rng.randn(m, c).astype("float32")).to(device, dtype)
+    return x, inv, shift, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("m,c", [
+    (64 * 56 * 56, 256),   # dense1's widest BN at batch 8 x 8
+    (8 * 7 * 7, 992),      # dense4's widest at batch 8
+    (4096, 130),           # ragged C: the scalar path
+    (64, 7),               # tiny C
+    (50, 64),              # ragged M (the JAX gate refuses it; the kernels
+                           # take it)
+])
+def test_bn_act_kernels_match_plain(gpu, dtype, relu, m, c):
+    """Kernels 9 and 10: y and dx equal the plain versions (the same
+    float32 mul, add, compare and product, cast once); d_inv and d_shift
+    within 1e-5 of sum |g x| and sum |g| (float32 sums in another
+    order)."""
+    from flexflow_tpu_torch.ops.kernels import bn_act
+
+    x, inv, shift, g = _bn_inputs(12, m, c, dtype, gpu)
+    kernels.reset_launches()
+    y = bn_act.bn_act_fwd(x, inv, shift, relu)
+    dx, d_inv, d_shift = bn_act.bn_act_bwd(x, inv, shift, g, relu)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {bn_act.NAME_FWD: 1, bn_act.NAME_BWD: 1,
+                                      bn_act.NAME_SUM: 1}
+    assert torch.equal(y, bn_act.bn_act_fwd_plain(x, inv, shift, relu))
+    dx_p, d_inv_p, d_shift_p = bn_act.bn_act_bwd_plain(x, inv, shift, g,
+                                                       relu)
+    assert torch.equal(dx, dx_p)
+    gm = g.float()
+    if relu:
+        gm = torch.where(x.float() * inv + shift > 0, gm, 0.0)
+    for got, want, mag in ((d_inv, d_inv_p, (gm * x.float()).abs().sum(0)),
+                           (d_shift, d_shift_p, gm.abs().sum(0))):
+        assert got.dtype == torch.float32 and got.shape == (c,)
+        assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+def test_bn_act_sums_are_the_same_in_every_run(gpu):
+    from flexflow_tpu_torch.ops.kernels import bn_act
+
+    x, inv, shift, g = _bn_inputs(13, 64 * 28 * 28, 128, torch.bfloat16, gpu)
+    first = bn_act.bn_act_bwd(x, inv, shift, g, True)
+    for _ in range(3):
+        again = bn_act.bn_act_bwd(x, inv, shift, g, True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bn_act_kernels_take_unaligned_rows(gpu):
+    """A row slice whose address is not 16-byte aligned takes the scalar
+    path and still agrees."""
+    from flexflow_tpu_torch.ops.kernels import bn_act
+
+    x, inv, shift, g = _bn_inputs(14, 257, 64, torch.bfloat16, gpu)
+    xs = x.reshape(-1)[1:1 + 200 * 64].reshape(200, 64)
+    gs = g.reshape(-1)[3:3 + 200 * 64].reshape(200, 64)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    y = bn_act.bn_act_fwd(xs, inv, shift, True)
+    dx, _, _ = bn_act.bn_act_bwd(xs, inv, shift, gs, True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, bn_act.bn_act_fwd_plain(xs, inv, shift, True))
+    assert torch.equal(dx, bn_act.bn_act_bwd_plain(xs, inv, shift, gs,
+                                                   True)[0])
+
+
+def test_bn_act_kernels_refuse_what_they_do_not_take(gpu):
+    from flexflow_tpu_torch.ops.kernels import bn_act
+
+    x, inv, shift, g = _bn_inputs(15, 64, 16, torch.float32, gpu)
+    with pytest.raises(ValueError, match="dtype"):
+        bn_act.bn_act_fwd(x.half(), inv, shift, True)
+    with pytest.raises(ValueError, match="dtype"):
+        bn_act.bn_act_bwd(x, inv, shift, g.bfloat16(), True)
+    with pytest.raises(ValueError, match="float32"):
+        bn_act.bn_act_fwd(x, inv.bfloat16(), shift, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_act.bn_act_fwd(x.t().contiguous().t(), inv, shift, True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bn_act.bn_act_fwd(x, inv.cpu(), shift, True)
+    with pytest.raises(ValueError, match=r"\(M, C\)"):
+        bn_act.bn_act_fwd(x, inv[:8], shift[:8], True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_densenet_trains_through_the_kernels(gpu, dtype):
+    """A downsized DenseNet (batch 8, 32x32) through kernels 7-10: one max
+    pool, one transition and the global pool, seven BNs; three steps, the
+    first loss equal to the run with every CNN kernel swapped for its
+    plain version and the next two within 1e-4 (float32) / 2e-2 (bf16)."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models.densenet import dense_block, transition
+    from flexflow_tpu_torch.ops.kernels import bn_act
+
+    torch.backends.cudnn.allow_tf32 = False
+    ff = FFModel(FFConfig(batch_size=8, compute_dtype=dtype, seed=1,
+                          momentum=0.9), device=gpu)
+    t = ff.create_input((8, 32, 32, 3), name="image")
+    t = ff.conv2d("conv1", t, 16, 3, 3, 1, 1, 1, 1, relu=False)
+    t = ff.batch_norm("bn1", t, relu=True)
+    t = ff.pool2d("pool1", t, 3, 3, 2, 2, 1, 1)
+    t = dense_block(ff, "d1", t, 3, 8)
+    t = transition(ff, "t1", t, 20)
+    t = ff.pool2d("gap", t, 8, 8, 1, 1, 0, 0, pool_type="avg", relu=False)
+    t = ff.flat("flat", t)
+    t = ff.linear("fc", t, 10, relu=False)
+    ff.softmax("softmax", t)
+    rng = np.random.RandomState(4)
+    image = rng.randn(8, 32, 32, 3).astype("float32")
+    labels = rng.randint(0, 10, 8).astype("int32")
+
+    def run():
+        params, state = ff.init()
+        opt = ff.init_opt_state(params)
+        step = ff.make_train_step()
+        losses = []
+        for _ in range(3):
+            params, state, opt, loss = step(params, state, opt, image,
+                                            labels)
+            losses.append(float(loss))
+        return losses, state
+
+    kernels.reset_launches()
+    losses, state = run()
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {
+        bn_act.NAME_FWD: 21, bn_act.NAME_BWD: 21, bn_act.NAME_SUM: 21,
+        maxpool.NAME_FWD: 3, maxpool.NAME_BWD: 3, avgpool.NAME: 6}
+    assert all(np.isfinite(losses))
+    assert state["bn1"]["mean"].dtype == torch.float32
+    with _plain_cnn_kernels():
+        kernels.reset_launches()
+        ref, _ = run()
+        assert sum(kernels.launches.values()) == 0
+    assert losses[0] == ref[0]
+    np.testing.assert_allclose(losses, ref,
+                               rtol=1e-4 if dtype == "float32" else 2e-2)
+
+
+@contextlib.contextmanager
+def _plain_cnn_kernels():
+    """Kernels 7-10 swapped for their plain versions."""
+    from flexflow_tpu_torch.ops.kernels import bn_act
+
+    saved = (maxpool.maxpool_fwd, maxpool.maxpool_bwd, avgpool.avgpool_bwd,
+             bn_act.bn_act_fwd, bn_act.bn_act_bwd)
+    maxpool.maxpool_fwd = maxpool.maxpool_fwd_plain
+    maxpool.maxpool_bwd = maxpool.maxpool_bwd_plain
+    avgpool.avgpool_bwd = avgpool.avgpool_bwd_plain
+    bn_act.bn_act_fwd = bn_act.bn_act_fwd_plain
+    bn_act.bn_act_bwd = bn_act.bn_act_bwd_plain
+    try:
+        yield
+    finally:
+        (maxpool.maxpool_fwd, maxpool.maxpool_bwd, avgpool.avgpool_bwd,
+         bn_act.bn_act_fwd, bn_act.bn_act_bwd) = saved

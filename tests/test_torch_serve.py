@@ -296,3 +296,12 @@ def test_entry_points_refuse_cpu_fallback(pair):
         synthetic_token_stream(2, 4, 16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         next(t_lm.synthetic_lm_batches(2, 4, 16))
+    from flexflow_tpu_torch.interop import state_from_jax
+    from flexflow_tpu_torch.models.densenet import build_densenet121
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_densenet121()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cnn.main(["densenet", "-b", "2", "-i", "1"], log=lambda *a: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state_from_jax({"bn1": {"mean": np.zeros(4, "float32")}})
