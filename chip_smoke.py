@@ -26,12 +26,13 @@ Phases (any failure exits non-zero):
    float32 and bfloat16 and a ragged non-causal cross case (Sq 77, Sk
    300); then their times beside the plain backward's and the backward of
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
-5. fused cross-entropy phase: kernels 4 (forward), 5 (dx) and 6 (dw, db)
-   against their plain versions at the LM head's N = 8192, d = 768,
-   V = 32768 in float32 and bfloat16, and at GPT-2's V = 50257, labels
-   with -1 (no target) included; then their times beside the plain
-   versions' and the unfused library pair (``x @ w + b``, then
-   ``F.cross_entropy``, forward and backward);
+5. fused cross-entropy phase: kernels 4 (forward), 5 (dx, then its
+   finishing sum over the vocab slices) and 6 (dw, db) against their
+   plain versions at the LM head's N = 8192, d = 768, V = 32768 in
+   float32 and bfloat16, and at GPT-2's V = 50257, labels with -1 (no
+   target) included; then, at those three, their times and achieved
+   TFLOP/s beside the plain versions' and the unfused library pair's
+   (``x @ w + b``, then ``F.cross_entropy``, forward and backward);
 6. pool kernel phase: the max-pool forward and backward (kernel 7) at
    Inception's four max-pool geometries at N = 256 in bfloat16 and
    float32, tie-heavy integer inputs, a pad-1 and a 2x2 geometry, and
@@ -60,7 +61,8 @@ Phases (any failure exits non-zero):
    batch 16, seq 512, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    32768, float32, plain SGD at lr 1e-3) for 3 warm-up and 10 timed steps:
    finite losses, the first near ln 32768, per step 12 launches each of
-   kernels 1, 2 and 3 and one each of kernels 4, 5 and 6, and the first 3
+   kernels 1, 2 and 3 and one each of kernels 4, 5, 5's sum and 6, and
+   the first 3
    losses within 1e-4 (relative) of the same run with every kernel
    swapped for its plain version; tokens/s, step ms and peak memory;
 10. Inception training slice: ``apps.cnn inception`` at bench.py's
@@ -87,7 +89,11 @@ device's even where launching it costs the host more (steps are timed
 without the sleep, at the host's pace).  ``bound_ms`` is the larger of the bytes a call must move (each input read
 once, each output written once) at 3.35 TB/s and its FLOPs at the peak
 for the input type: 67 TFLOP/s float32 outside the tensor cores, 989
-TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  The pools
+TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  Kernels 5
+and 6 run a float32 product as three TF32 tensor-core products
+(3xTF32, float32's accuracy from TF32's rate), so their float32 bound is
+three times the FLOPs at 495 TFLOP/s: a rate they can reach, where 67
+TFLOP/s would understate what the card can do for them.  The pools
 and the BN kernels do a few compares, multiplies or adds per byte, so
 bytes bound them.  A flash backward kernel counts 8 (dk, dv) or 6 (dq) x
 d FLOPs per unmasked (query, key) pair; a fused cross-entropy kernel
@@ -107,7 +113,9 @@ HBM_BYTES_PER_S = 3.35e12
 # cycles per second the timing's sleep kernel is sized with: at least the
 # H100 SXM's top SM clock (1.98 GHz), so the sleep lasts as long as asked
 SLEEP_HZ = 2.0e9
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32 outside the tensor cores, bfloat16 on them, and float32
+# products run as three TF32 products (3xTF32) at 495 TFLOP/s
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
 SERVING_SHAPE = (8, 12, 512, 64)        # B, H, S, d of the GPT at seq 512
 KERNEL_ATOL = 1e-4   # float32 sums in another order, over up to 512 keys
 LOGPROB_ATOL = 1e-4  # that difference through 12 layers and the vocab head
@@ -417,7 +425,8 @@ def fused_ce_phase(torch, ce) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     n, d, v = CE_SHAPE
-    worst = {ce.NAME_FWD: 0.0, ce.NAME_DX: 0.0, ce.NAME_DW: 0.0}
+    worst = {ce.NAME_FWD: 0.0, ce.NAME_DX: 0.0, ce.NAME_DX_SUM: 0.0,
+             ce.NAME_DW: 0.0}
     for label, vocab, dtype in (("LM head float32", v, "float32"),
                                 ("LM head bfloat16", v, "bfloat16"),
                                 (f"GPT-2 vocab {GPT2_VOCAB} float32",
@@ -446,18 +455,52 @@ def fused_ce_phase(torch, ce) -> dict:
         worst[ce.NAME_FWD] = max(worst[ce.NAME_FWD], errs["nll"][0],
                                  errs["lse"][0])
         worst[ce.NAME_DX] = max(worst[ce.NAME_DX], errs["dx"][0])
+        worst[ce.NAME_DX_SUM] = worst[ce.NAME_DX]
         worst[ce.NAME_DW] = max(worst[ce.NAME_DW], errs["dw"][0],
                                 errs["db"][0])
         del x, w, b, lab, g, nll, lse, dx, dw, db, nll_p, lse_p, grads_p
         torch.cuda.empty_cache()
 
-    # times at the LM head's shape in float32, the path's dtype
-    x, w, b, lab, g = _ce_inputs(torch, gen, n, d, v, "float32")
+    # times: the LM head in float32 (the path's dtype) and bfloat16, and
+    # GPT-2's vocab in float32; the kernels line takes the first
+    timings = {}
+    for label, vocab, dtype in (("float32", v, "float32"),
+                                ("bfloat16", v, "bfloat16"),
+                                (f"V {GPT2_VOCAB} float32", GPT2_VOCAB,
+                                 "float32")):
+        t = _fused_ce_times(torch, F, ce, gen, n, d, vocab, dtype)
+        timings.setdefault("lm", t)
+        for name, r in t.items():
+            _log(f"fused ce time {name} N {n} d {d} V {vocab} {dtype}: "
+                 f"kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), "
+                 f"plain {r['plain_ms']:.4f} ms, library "
+                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it)")
+        pair = t[ce.NAME_DX]["ms"] + t[ce.NAME_DX_SUM]["ms"] \
+            + t[ce.NAME_DW]["ms"]
+        _log(f"fused ce time {label} V {vocab}: backward kernels 5 + its "
+             f"sum + 6 {pair:.4f} ms, bounds 5 + 6 "
+             f"{t[ce.NAME_DX]['bound_ms'] + t[ce.NAME_DW]['bound_ms']:.4f} "
+             f"ms, plain backward {t[ce.NAME_DX]['plain_ms']:.4f} ms, "
+             f"library pair backward {t[ce.NAME_DX]['library_ms']:.4f} ms; "
+             f"kernels 4-6 {pair + t[ce.NAME_FWD]['ms']:.4f} ms, library "
+             f"pair forward + backward {t[ce.NAME_DX]['library_ms'] + t[ce.NAME_FWD]['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    return {"worst": worst, "timings": timings["lm"]}
+
+
+def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype) -> dict:
+    """Kernels 4, 5 (with its finishing sum) and 6 at one shape: times,
+    plain and library times, bounds and achieved TFLOP/s."""
+    x, w, b, lab, g = _ce_inputs(torch, gen, n, d, v, dtype)
     nll, lse = ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
+    work = ce.fused_linear_ce_bwd_dx_partial_cuda(x, w, b, lab, lse, g)
     fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_cuda(
         x, w, b, lab), iters=5, warmup=1)
-    dx_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_cuda(
+    dx_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_partial_cuda(
         x, w, b, lab, lse, g), iters=5, warmup=1)
+    sum_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_sum_cuda(
+        work, n, d), iters=20)
     dw_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dw_cuda(
         x, w, b, lab, lse, g), iters=5, warmup=1)
     plain_fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_plain(
@@ -467,7 +510,7 @@ def fused_ce_phase(torch, ce) -> dict:
     lab64 = lab.long()
 
     def lib_fwd(xs, ws, bs):
-        return F.cross_entropy(torch.addmm(bs, xs, ws), lab64,
+        return F.cross_entropy(torch.addmm(bs.to(xs.dtype), xs, ws), lab64,
                                ignore_index=-1, reduction="none")
 
     lib_fwd_ms = _time_ms(torch, lambda: lib_fwd(x, w, b), iters=5,
@@ -475,31 +518,33 @@ def fused_ce_phase(torch, ce) -> dict:
     xs, ws, bs = (t.detach().clone().requires_grad_() for t in (x, w, b))
     lib_nll = lib_fwd(xs, ws, bs)
     lib_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
-        lib_nll, (xs, ws, bs), g, retain_graph=True), iters=5, warmup=1)
-    inputs = n * d * 4 + d * v * 4 + v * 4 + n * 4
+        lib_nll, (xs, ws, bs), g.to(lib_nll.dtype), retain_graph=True),
+        iters=5, warmup=1)
+    esize = x.element_size()
+    inputs = n * d * esize + d * v * esize + v * 4 + n * 4
     flops = 2.0 * n * d * v
-    timings = {
-        ce.NAME_FWD: dict(ms=fwd_ms, plain_ms=plain_fwd_ms,
-                          library_ms=lib_fwd_ms),
-        ce.NAME_DX: dict(ms=dx_ms, plain_ms=plain_bwd_ms,
-                         library_ms=lib_bwd_ms),
-        ce.NAME_DW: dict(ms=dw_ms, plain_ms=plain_bwd_ms,
-                         library_ms=lib_bwd_ms)}
-    for name, fl, nbytes in (
-            (ce.NAME_FWD, flops, inputs + 2 * n * 4),
-            (ce.NAME_DX, 2 * flops, inputs + 2 * n * 4 + n * d * 4),
-            (ce.NAME_DW, 2 * flops, inputs + 2 * n * 4 + d * v * 4 + v * 4)):
-        t = timings[name]
-        t["bound_ms"], t["bound_by"] = _bound(fl, nbytes, "float32")
-        _log(f"fused ce time {name} N {n} d {d} V {v} float32: kernel "
-             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-             f"({t['bound_by']})")
-    _log(f"fused ce time float32: kernels 4+5+6 {fwd_ms + dx_ms + dw_ms:.4f}"
-         f" ms, plain {plain_fwd_ms + plain_bwd_ms:.4f} ms, library pair "
-         f"(addmm + cross_entropy, forward and backward) "
-         f"{lib_fwd_ms + lib_bwd_ms:.4f} ms")
-    return {"worst": worst, "timings": timings}
+    # float32 products of kernels 5-6 run as three TF32 products each
+    bwd_rate = "3xtf32" if dtype == "float32" else dtype
+    out = {}
+    for name, ms, fl, nbytes, rate, plain, lib in (
+            (ce.NAME_FWD, fwd_ms, flops, inputs + 2 * n * 4, dtype,
+             plain_fwd_ms, lib_fwd_ms),
+            (ce.NAME_DX, dx_ms, 2 * flops,
+             inputs + 2 * n * 4 + work.numel() * 4, bwd_rate, plain_bwd_ms,
+             lib_bwd_ms),
+            (ce.NAME_DX_SUM, sum_ms, (work.shape[0] - 1.0) * n * d,
+             work.numel() * 4 + n * d * 4, "float32", plain_bwd_ms,
+             lib_bwd_ms),
+            (ce.NAME_DW, dw_ms, 2 * flops,
+             inputs + 2 * n * 4 + d * v * 4 + v * 4, bwd_rate, plain_bwd_ms,
+             lib_bwd_ms)):
+        bound_ms, bound_by = _bound(fl, nbytes, rate)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         tflops=fl / ms / 1e9)
+    _log(f"fused ce time N {n} d {d} V {v} {dtype}: dx over "
+         f"{work.shape[0]} vocab slices, workspace {tuple(work.shape)}")
+    return out
 
 
 def _first_step_tokens(requests, max_batch, max_len):
@@ -920,10 +965,11 @@ def lm_phase(torch, kernels, card: str) -> dict:
     layers = 12
     want = {fa.NAME: layers * iters, fa.NAME_DKV: layers * iters,
             fa.NAME_DQ: layers * iters, ce.NAME_FWD: iters,
-            ce.NAME_DX: iters, ce.NAME_DW: iters}
+            ce.NAME_DX: iters, ce.NAME_DX_SUM: iters, ce.NAME_DW: iters}
     if launches != want:
         raise AssertionError(f"LM kernels launched {launches}, expected "
-                             f"{want} (12 + 12 + 12 + 1 + 1 + 1 per step)")
+                             f"{want} (12 + 12 + 12 + 1 + 1 + 1 per step, "
+                             f"and kernel 5's finishing sum)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite LM loss: {losses}")
     if abs(losses[0] - math.log(32768)) > 0.25:
@@ -1284,8 +1330,8 @@ def main(argv) -> int:
          f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    built = kernels.build([fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE, mp.SOURCE,
-                           ap.SOURCE, bn.SOURCE])
+    built = kernels.build([fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE,
+                           ce.SOURCE_BWD, mp.SOURCE, ap.SOURCE, bn.SOURCE])
     _log(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} "
          f"kernel source(s) (parallel nvcc)")
     for source, info in built.items():
@@ -1330,9 +1376,11 @@ def main(argv) -> int:
             f"flexflow_tpu/ops/pallas/flash_attention.py:{line}",
             lm_n[name], flash_bwd["worst"][name],
             flash_bwd["timings"][name]))
-    for name, line in ((ce.NAME_FWD, 39), (ce.NAME_DX, 127),
-                       (ce.NAME_DW, 147)):
-        entries.append(entry(name, ce.SOURCE,
+    for name, source, line in ((ce.NAME_FWD, ce.SOURCE, 39),
+                               (ce.NAME_DX, ce.SOURCE_BWD, 127),
+                               (ce.NAME_DX_SUM, ce.SOURCE_BWD, 127),
+                               (ce.NAME_DW, ce.SOURCE_BWD, 147)):
+        entries.append(entry(name, source,
                              f"flexflow_tpu/ops/pallas/fused_ce.py:{line}",
                              lm_n[name], fused["worst"][name],
                              fused["timings"][name]))

@@ -1,0 +1,998 @@
+// Backward of the fused vocab projection + softmax cross-entropy for Hopper
+// (sm_90a) on the tensor cores, plain CUDA C++ with a C interface (loaded
+// with ctypes by flexflow_tpu_torch/ops/kernels/fused_ce.py).
+//
+// Replaces the Pallas TPU kernels _bwd_dx_kernel and _bwd_dw_kernel of
+// flexflow_tpu/ops/pallas/fused_ce.py.  With logits = x w + b (x (N, d),
+// w (d, V), b (V,) float32, labels (N,) int32), lse (N,) from the forward
+// and a cotangent g (N,) of the per-token nll:
+//     t_nv = g_n * (exp(logits_nv - lse_n) - [v == label_n])
+//     dx = t w^T,   dw = x^T t,   db = sum_n t_nv
+// (a label < 0 or >= V matches nothing).  Each kernel recomputes its
+// logits tiles from x and w, as the Pallas kernels do; the (N, V) logits
+// never reach device memory.  With bfloat16 operands t is rounded to
+// bfloat16 before the dx and dw products; db sums it unrounded.
+//
+// What bounds it on an H100: each kernel does 4 N d V FLOPs (the logits,
+// then one product), 1.65 TFLOP for the pair at the LM head's N 8192,
+// d 768, V 32768.  Float32 FMAs outside the tensor cores (67 TFLOP/s)
+// cannot come near the unfused cuBLAS pair, so every product runs on the
+// tensor cores with mma.sync:
+//   * float32 operands: 3xTF32.  Each operand a is split into
+//     big = cvt.rna.tf32(a) and small = cvt.rna.tf32(a - big), and the
+//     product is small*big + big*small + big*big in float32 accumulators
+//     (m16n8k8 TF32), which keeps close to a float32 FMA's error; three
+//     TF32 products at 495 TFLOP/s bound a kernel at 5.0 ms at the LM
+//     shape.  The tiles land in shared memory raw, by cp.async; each
+//     fragment is split when it is loaded, in integer ops that give
+//     cvt.rna.tf32.f32's bits.
+//   * bfloat16 operands: m16n8k16 bf16 products, float32 accumulators.
+// TF32 wgmma takes only K-major operands from shared memory, and w (d, V)
+// is V-major in the logits product, so mma.sync with this file's own
+// shared-memory layouts is the route; wgmma for bf16 is later work.
+//
+// Design:
+//   * a block of 8 warps owns a product tile of 64 token rows x 256
+//     vocab columns (dx) or 256 token rows x 64 vocab columns (dw), each
+//     warp a 16-mma sub-tile (2 x 8 or 4 x 4 mma tiles of 16 x 8);
+//   * one ring of 3 shared-memory stages is fed by cp.async (16 bytes a
+//     copy where the row length and base allow, else 4-byte copies for
+//     float32 and plain loads for bfloat16; interior tiles skip the
+//     masks) and walks a flat sequence of steps: per vocab tile (dx) or
+//     token block (dw) first the logits' 32-deep slices of x and w, then
+//     the second product's 32-deep slices of w (dx) or x (dw).  Loads run
+//     two steps ahead, across phase and tile boundaries; one barrier per
+//     step;
+//   * after the last logits step t is formed in registers and stored to a
+//     shared tile, the second product's A (dx) or B (dw) operand; its
+//     row statistics (lse, g, label) and the bias are read there;
+//   * the second product's output has the logits tile's shape: 64 rows x
+//     256 dx columns per chunk over the tile's 256 vocab columns (dx), or
+//     256 dw rows x 64 vocab columns per chunk over its 256 token rows
+//     (dw), so both phases share one accumulator layout;
+//   * dx: block (row block r, split s) walks the vocab tiles s, s + S,
+//     ... and adds each chunk's sum to a float32 workspace (S, Npad,
+//     Dpad) with 16-byte accesses (stored on its first tile);
+//     ce_bwd_dx_sum_kernel then adds the S partials in a fixed order.  S
+//     is chosen by the caller so that about two blocks fall on each SM;
+//   * dw: block v walks the 256-row token blocks and adds each chunk's sum
+//     into dw (16-byte accesses where V % 4 == 0, else each warp stages 8
+//     rows at a time in shared memory and adds them a row of 32 columns
+//     per access); db: per-thread column sums, added in a fixed order at
+//     the end;
+//   * no float atomics anywhere: every output element has one owner and a
+//     fixed order of sums, so two calls give the same bits.
+// The accumulator goes through device memory once per 256 vocab columns
+// (dx) or token rows (dw): 6.45 GB of read-modify-write per call at the
+// LM shape, from a live set of one 196 KB slice per resident block (~26
+// MB) that fits in the 50 MB L2.  Each chunk's targets are prefetched
+// into L2 when the chunk starts, and each thread starts all its reads of
+// a chunk before its stores.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBK = 32;        // depth of one pipeline step
+constexpr int kStages = 3;
+// dw rows that 16-byte accesses cannot reach go through an 8 x 32 float
+// tile per warp (row stride 33)
+constexpr int kStageLd = 33;
+constexpr size_t kDwStageBytes = (kThreads / 32) * 8 * kStageLd * 4;
+
+// A product tile of BM x BN over 8 warps, WARPS_M along its rows: each
+// warp owns WM x WN, MT x NT mma tiles of 16 x 8
+template <int BM_, int BN_, int WARPS_M_>
+struct Geo {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WARPS_M = WARPS_M_, WARPS_N = 8 / WARPS_M_;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static_assert(MT * NT == 16 && NT % 2 == 0, "16 mma tiles per warp");
+};
+using DxGeo = Geo<64, 256, 2>;   // warps 32 x 64: 2 x 8 mma tiles
+using DwGeo = Geo<256, 64, 4>;   // warps 64 x 32: 4 x 4 mma tiles
+
+// Shared memory of a kernel in elements of T: a ring of kStages stages,
+// each the larger of a logits step (x [BM][LDK], w [kBK][LDW]) and a
+// second-product step (dx: w [BN][LDK]; dw: x [kBK][LDX]), then the t
+// tile [BM][LDT].  Row strides are padded so that a warp's fragment loads
+// fall in 32 distinct banks: [m][k] tiles (depth contiguous) at 4 words
+// mod 32, [k][n] tiles (width contiguous) at 8.
+template <typename T, typename G, bool DX>
+struct Smem {
+  static constexpr int LDK = kBK + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int LDW = G::BN + 8;
+  static constexpr int LDX = G::BM + 8;
+  static constexpr int LOGITS = G::BM * LDK + kBK * LDW;
+  static constexpr int SECOND = DX ? G::BN * LDK : kBK * LDX;
+  static constexpr int STAGE = LOGITS > SECOND ? LOGITS : SECOND;
+  // t is A ([m][k]) in dx, B ([k][n]) in dw
+  static constexpr int LDT = DX && sizeof(T) == 4 ? G::BN + 4 : G::BN + 8;
+  static constexpr size_t bytes() {
+    return (static_cast<size_t>(kStages) * STAGE + G::BM * LDT) * sizeof(T) +
+           (DX ? 0 : kDwStageBytes);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One element of a tile that takes no 16-byte copy: float32 by a 4-byte
+// cp.async, bfloat16 by a plain load (cp.async has no 2-byte form).
+__device__ __forceinline__ void copy_one(float* dst, const float* src,
+                                         bool ok) {
+  cp_async4(dst, src, ok);
+}
+__device__ __forceinline__ void copy_one(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src, bool ok) {
+  *reinterpret_cast<uint16_t*>(dst) =
+      ok ? *reinterpret_cast<const uint16_t*>(src) : uint16_t(0);
+}
+
+// dst[r][c] = src[r0 + r][c0 + c] for a ROWS x COLS tile, 0 outside
+// rlim x clim.  ``vec``: 16-byte copies (the caller checked that clim and
+// the row stride are multiples of 16 bytes and the base is aligned).
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(T* dst, int ldd,
+                                          const T* __restrict__ src,
+                                          int lds, int r0, int c0, int rlim,
+                                          int clim, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = COLS / E;
+  constexpr int CHUNKS = ROWS * CPR;
+  static_assert(CHUNKS % kThreads == 0, "tile does not split evenly");
+  if (vec && r0 + ROWS <= rlim && c0 + COLS <= clim) {  // inside: no masks
+#pragma unroll
+    for (int i = 0; i < CHUNKS / kThreads; ++i) {
+      const int q = static_cast<int>(threadIdx.x) + i * kThreads;
+      const int r = q / CPR;
+      const int c = (q % CPR) * E;
+      cp_async16(dst + r * ldd + c,
+                 src + static_cast<size_t>(r0 + r) * lds + c0 + c, true);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < CHUNKS / kThreads; ++i) {
+    const int q = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int r = q / CPR;
+    const int c = (q % CPR) * E;
+    const int gr = r0 + r;
+    const int gc = c0 + c;
+    T* d = dst + r * ldd + c;
+    const T* s = src + static_cast<size_t>(gr) * lds + gc;
+    if (vec) {
+      const bool ok = gr < rlim && gc < clim;
+      cp_async16(d, ok ? s : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const bool ok = gr < rlim && gc + e < clim;
+        copy_one(d + e, ok ? s + e : src, ok);
+      }
+    }
+  }
+}
+
+// big = cvt.rna.tf32.f32(a), small = cvt.rna.tf32.f32(a - big), written
+// as the integer ops that give cvt.rna's bits (keep 10 mantissa bits,
+// round to nearest, ties away from zero: add half of the 13 dropped bits'
+// range to the magnitude, then cut them); on sm_90 cvt.rna.tf32 lowers to
+// a longer sequence, and these ops share the instruction slots with the
+// mma
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  big = rna_tf32(a);
+  small = rna_tf32(a - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 matrices of 16-bit elements (8 rows of 16 bytes each, row
+// addresses from lanes 8q..8q+7 for matrix q) into r[q]: lane l gets row
+// l / 4, 32-bit word l % 4 of each, or with TRANS the 16-bit elements
+// (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4).  For float32 tiles a
+// 32-bit word is one element, so the plain form loads TF32 fragments of
+// tiles that are contiguous along k.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix4(uint32_t r[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  if (TRANS) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  }
+}
+
+template <typename G>
+struct Warp {
+  int wm, wn, g, t;  // warp row / column, lane row group, lane column
+  __device__ Warp()
+      : wm(static_cast<int>(threadIdx.x) / (32 * G::WARPS_N)),
+        wn((static_cast<int>(threadIdx.x) / 32) % G::WARPS_N),
+        g((static_cast<int>(threadIdx.x) % 32) / 4),
+        t(static_cast<int>(threadIdx.x) % 4) {}
+};
+
+// A(m, k) of a tile stored [m][k] (A_MK) or [k][m]; B(k, n) stored [k][n]
+// (B_KN) or [n][k].
+template <bool A_MK, typename E>
+__device__ __forceinline__ E a_at(const E* s, int ld, int m, int k) {
+  return A_MK ? s[m * ld + k] : s[k * ld + m];
+}
+template <bool B_KN, typename E>
+__device__ __forceinline__ E b_at(const E* s, int ld, int k, int n) {
+  return B_KN ? s[k * ld + n] : s[n * ld + k];
+}
+
+// acc += A (this warp's WM rows, kBK deep) . B (kBK deep, its WN columns)
+// in 3xTF32: small*big, big*small, then big*big.
+template <typename G, bool A_MK, bool B_KN>
+__device__ __forceinline__ void step_mma(const float* As, int lda,
+                                         const float* Bs, int ldb,
+                                         const Warp<G>& w,
+                                         float acc[G::MT][G::NT][4]) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int q = lane / 8;  // the ldmatrix matrix this lane addresses
+#pragma unroll
+  for (int k = 0; k < kBK; k += 8) {
+    uint32_t ab[G::MT][4], as[G::MT][4], bb[G::NT][2], bs[G::NT][2];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+      const int m0 = w.wm * G::WM + mt * 16;
+      if (A_MK) {
+        // matrices (rows +0 / +8) x (k +0 / +4): a0..a3
+        uint32_t raw[4];
+        ldmatrix4<false>(raw, As + (m0 + lane % 8 + 8 * (q % 2)) * lda + k +
+                                  4 * (q / 2));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(__uint_as_float(raw[e]), ab[mt][e], as[mt][e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(a_at<A_MK>(As, lda, m0 + w.g + 8 * (e % 2),
+                                k + w.t + 4 * (e / 2)),
+                     ab[mt][e], as[mt][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < G::NT; nt += 2) {
+      const int n0 = w.wn * G::WN + nt * 8;
+      if (!B_KN) {
+        // matrices (k +0 / +4) x (columns +0 / +8): b0, b1 of nt, nt + 1
+        uint32_t raw[4];
+        ldmatrix4<false>(raw, Bs + (n0 + lane % 8 + 8 * (q / 2)) * ldb + k +
+                                  4 * (q % 2));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(__uint_as_float(raw[e]), bb[nt + e / 2][e % 2],
+                     bs[nt + e / 2][e % 2]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(b_at<B_KN>(Bs, ldb, k + w.t + 4 * (e % 2),
+                                n0 + 8 * (e / 2) + w.g),
+                     bb[nt + e / 2][e % 2], bs[nt + e / 2][e % 2]);
+        }
+      }
+    }
+    // three passes over the 16 tiles, so that 16 independent products
+    // stand between two that add into one accumulator
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        mma_tf32(acc[mt][nt], as[mt], bb[nt]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
+      }
+    }
+  }
+}
+
+template <typename G, bool A_MK, bool B_KN>
+__device__ __forceinline__ void step_mma(const __nv_bfloat16* As, int lda,
+                                         const __nv_bfloat16* Bs, int ldb,
+                                         const Warp<G>& w,
+                                         float acc[G::MT][G::NT][4]) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int q = lane / 8;  // the ldmatrix matrix this lane addresses
+#pragma unroll
+  for (int k = 0; k < kBK; k += 16) {
+    uint32_t a[G::MT][4], b[G::NT][2];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+      // matrices (rows +0 / +8) x (k +0 / +8): a0..a3; stored [k][m] the
+      // transposed load gathers the k pairs
+      const int m0 = w.wm * G::WM + mt * 16 + 8 * (q % 2);
+      const int k0 = k + 8 * (q / 2);
+      if (A_MK) {
+        ldmatrix4<false>(a[mt], As + (m0 + lane % 8) * lda + k0);
+      } else {
+        ldmatrix4<true>(a[mt], As + (k0 + lane % 8) * lda + m0);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < G::NT; nt += 2) {
+      // matrices (k +0 / +8) x (columns +0 / +8): b0, b1 of nt, nt + 1
+      const int n0 = w.wn * G::WN + nt * 8 + 8 * (q / 2);
+      const int k0 = k + 8 * (q % 2);
+      uint32_t r[4];
+      if (B_KN) {
+        ldmatrix4<true>(r, Bs + (k0 + lane % 8) * ldb + n0);
+      } else {
+        ldmatrix4<false>(r, Bs + (n0 + lane % 8) * ldb + k0);
+      }
+      b[nt][0] = r[0];
+      b[nt][1] = r[1];
+      b[nt + 1][0] = r[2];
+      b[nt + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+}
+
+template <typename G>
+__device__ __forceinline__ void zero(float acc[G::MT][G::NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_t(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_t(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// lse, g and label of this thread's 2 MT rows (n0 + wm*WM + mt*16 + g +
+// 8h at index 2 mt + h); rows >= n get g = 0 and no label
+template <typename G>
+struct RowStats {
+  float lse[2 * G::MT], g[2 * G::MT];
+  int lab[2 * G::MT];
+  __device__ void load(const Warp<G>& w, int n0, int n,
+                       const float* __restrict__ lse_p,
+                       const float* __restrict__ g_p,
+                       const int32_t* __restrict__ lab_p) {
+#pragma unroll
+    for (int r = 0; r < 2 * G::MT; ++r) {
+      const int row = n0 + w.wm * G::WM + (r / 2) * 16 + w.g + (r % 2) * 8;
+      const bool in = row < n;
+      lse[r] = in ? lse_p[row] : 0.f;
+      g[r] = in ? g_p[row] : 0.f;
+      lab[r] = in ? lab_p[row] : -1;
+    }
+  }
+};
+
+// acc holds logits - b of the tile (rows n0.., vocab columns v0..): store
+// t = g (softmax - onehot), rounded to T, to ts[row][col]; 0 outside the
+// matrix.  db (if given) gets this thread's unrounded column sums.
+template <typename T, typename G, int LDT>
+__device__ __forceinline__ void write_t(const float acc[G::MT][G::NT][4],
+                                        T* ts, const Warp<G>& w,
+                                        const RowStats<G>& rs, int n0,
+                                        int v0, int n, int V,
+                                        const float* __restrict__ bias,
+                                        float db[G::NT][2]) {
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = w.wn * G::WN + nt * 8 + 2 * w.t + j;
+      const int gc = v0 + col;
+      const float bc = gc < V ? bias[gc] : 0.f;
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 2 * mt + h;
+          const int row = w.wm * G::WM + mt * 16 + w.g + 8 * h;
+          const bool valid = n0 + row < n && gc < V;
+          const float p =
+              valid ? expf(acc[mt][nt][2 * h + j] + bc - rs.lse[r]) : 0.f;
+          const float onehot = (valid && gc == rs.lab[r]) ? 1.f : 0.f;
+          const float tv = rs.g[r] * p - rs.g[r] * onehot;
+          if (db != nullptr) db[nt][j] += tv;
+          store_t(ts + row * LDT + col, tv);
+        }
+      }
+    }
+  }
+}
+
+// The 16-byte access of this lane: lanes t and t ^ 1 trade halves so
+// that the even lane holds row g, columns 4(t/2)..+3 of the 8-column mma
+// tile and the odd lane the same columns of row g + 8.
+__device__ __forceinline__ float4 pair_lanes(const float c[4], int t,
+                                             int* row_off) {
+  const bool odd = t & 1;
+  const float s0 = odd ? c[0] : c[2];
+  const float s1 = odd ? c[1] : c[3];
+  const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+  const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  *row_off = odd ? 8 : 0;
+  return odd ? make_float4(r0, r1, c[2], c[3])
+             : make_float4(c[0], c[1], r0, r1);
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// out (+)= this lane's float4s of the warp's sum: p[mt][nt] (null:
+// outside the matrix) and v[mt][nt] from pair_lanes.  Every old value is
+// loaded before the first store, so the reads are in flight together
+// rather than one round trip after another.
+template <typename G>
+__device__ __forceinline__ void add_tile(float4* p[G::MT][G::NT],
+                                         float4 v[G::MT][G::NT], bool first) {
+  if (!first) {
+    float4 o[G::MT][G::NT];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        o[mt][nt] = p[mt][nt] ? __ldcg(p[mt][nt]) : make_float4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        v[mt][nt].x = o[mt][nt].x + v[mt][nt].x;
+        v[mt][nt].y = o[mt][nt].y + v[mt][nt].y;
+        v[mt][nt].z = o[mt][nt].z + v[mt][nt].z;
+        v[mt][nt].w = o[mt][nt].w + v[mt][nt].w;
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+      if (p[mt][nt]) *p[mt][nt] = v[mt][nt];
+    }
+  }
+}
+
+// (tile, step within the tile) of a flat step index, advanced one step at
+// a time, so the loop divides nothing
+struct StepPos {
+  int tile = 0, step = 0;
+  __device__ void next(int per) {
+    if (++step == per) {
+      step = 0;
+      ++tile;
+    }
+  }
+};
+
+template <typename T, typename G, typename S>
+__device__ __forceinline__ void load_logits_step(T* buf, const T* x,
+                                                 const T* w, int n0, int v0,
+                                                 int k0, int n, int d, int V,
+                                                 bool xvec, bool wvec) {
+  load_tile<T, G::BM, kBK>(buf, S::LDK, x, d, n0, k0, n, d, xvec);
+  load_tile<T, kBK, G::BN>(buf + G::BM * S::LDK, S::LDW, w, V, k0, v0, d, V,
+                           wvec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    ce_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const float* __restrict__ bias,
+                     const int32_t* __restrict__ labels,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ g, float* __restrict__ part,
+                     int n, int d, int V, int splits, int npad, int dpad,
+                     bool xvec, bool wvec) {
+  using G = DxGeo;
+  using S = Smem<T, G, true>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  T* ts = ring + kStages * S::STAGE;
+  const Warp<G> wp;
+  const int n0 = blockIdx.x * G::BM;
+  const int s = blockIdx.y;
+  RowStats<G> rs;
+  rs.load(wp, n0, n, lse, g, labels);
+
+  const int vt = (V + G::BN - 1) / G::BN;
+  const int ntile = (vt - s + splits - 1) / splits;
+  const int kt = d > 0 ? (d + kBK - 1) / kBK : 1;
+  constexpr int VS = G::BN / kBK;              // steps per dx column chunk
+  const int per = kt + (dpad / G::BN) * VS;    // steps per vocab tile
+  const int total = ntile * per;
+  float* out = part + static_cast<size_t>(s) * npad * dpad;
+
+  // load step i, at position (tile j, step st), into its ring slot
+  auto load_step = [&](int i, StepPos at) {
+    const int v0 = (s + at.tile * splits) * G::BN;
+    const int st = at.step;
+    T* buf = ring + (i % kStages) * S::STAGE;
+    if (st < kt) {
+      load_logits_step<T, G, S>(buf, x, w, n0, v0, st * kBK, n, d, V, xvec,
+                                wvec);
+    } else {
+      const int q = st - kt;
+      // w[c0 + c][v0 + kk + k], stored [c][k]
+      load_tile<T, G::BN, kBK>(buf, S::LDK, w, V, (q / VS) * G::BN,
+                               v0 + (q % VS) * kBK, d, V, wvec);
+    }
+  };
+  StepPos load_at;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) load_step(i, load_at);
+    load_at.next(per);
+    cp_async_commit();
+  }
+
+  float acc[G::MT][G::NT][4];
+  zero<G>(acc);
+  StepPos at;
+  for (int i = 0; i < total; ++i, at.next(per)) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (i + kStages - 1 < total) load_step(i + kStages - 1, load_at);
+    load_at.next(per);
+    cp_async_commit();
+    const int j = at.tile;
+    const int st = at.step;
+    const T* buf = ring + (i % kStages) * S::STAGE;
+    if (st < kt) {
+      step_mma<G, true, true>(buf, S::LDK, buf + G::BM * S::LDK, S::LDW, wp,
+                              acc);
+      if (st == kt - 1) {
+        write_t<T, G, S::LDT>(acc, ts, wp, rs, n0, (s + j * splits) * G::BN,
+                              n, V, bias, nullptr);
+        zero<G>(acc);
+      }
+    } else {
+      const int q = st - kt;
+      const int sub = q % VS;
+      const int c0 = (q / VS) * G::BN;
+      if (sub == 0 && j > 0) {
+        // bring the partial sums this chunk adds to into L2 now, the
+        // chunk's steps before they are read
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt) {
+            const int row =
+                n0 + wp.wm * G::WM + mt * 16 + wp.g + 8 * (wp.t & 1);
+            const int col = c0 + wp.wn * G::WN + nt * 8 + 4 * (wp.t / 2);
+            prefetch_l2(out + static_cast<size_t>(row) * dpad + col);
+          }
+        }
+      }
+      // acc += t[:, sub*kBK..] . w[c0.., v0 + sub*kBK..]^T
+      step_mma<G, true, false>(ts + sub * kBK, S::LDT, buf, S::LDK, wp, acc);
+      if (sub == VS - 1) {
+        float4* p[G::MT][G::NT];
+        float4 v[G::MT][G::NT];
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt) {
+            int ro;
+            v[mt][nt] = pair_lanes(acc[mt][nt], wp.t, &ro);
+            const int row = n0 + wp.wm * G::WM + mt * 16 + wp.g + ro;
+            const int col = c0 + wp.wn * G::WN + nt * 8 + 4 * (wp.t / 2);
+            p[mt][nt] = reinterpret_cast<float4*>(
+                out + static_cast<size_t>(row) * dpad + col);
+          }
+        }
+        add_tile<G>(p, v, j == 0);
+        zero<G>(acc);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// dx[row][c] = sum over s = 0..splits-1, in that order, of part[s][row][c]
+__global__ void ce_bwd_dx_sum_kernel(const float* __restrict__ part,
+                                     float* __restrict__ dx, int n, int d,
+                                     int splits, int npad, int dpad) {
+  const size_t total = static_cast<size_t>(n) * d;
+  const size_t plane = static_cast<size_t>(npad) * dpad;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t row = e / d;
+    const size_t c = e - row * d;
+    const float* p = part + row * dpad + c;
+    float acc = p[0];
+    for (int s = 1; s < splits; ++s) acc += p[s * plane];
+    dx[e] = acc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    ce_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const float* __restrict__ bias,
+                     const int32_t* __restrict__ labels,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ g, float* __restrict__ dw,
+                     float* __restrict__ db, int n, int d, int V, bool xvec,
+                     bool wvec, bool dwvec) {
+  using G = DwGeo;
+  using S = Smem<T, G, false>;
+  static_assert(G::WN == 32, "the staging path adds 32 columns a warp");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  T* ts = ring + kStages * S::STAGE;
+  float* stage = reinterpret_cast<float*>(ts + G::BM * S::LDT) +
+                 (threadIdx.x / 32) * 8 * kStageLd;
+  const Warp<G> wp;
+  const int v0 = blockIdx.x * G::BN;
+
+  const int nb = (n + G::BM - 1) / G::BM;
+  const int kt = d > 0 ? (d + kBK - 1) / kBK : 1;
+  constexpr int RS = G::BM / kBK;                       // steps per chunk
+  const int per = kt + ((d + G::BM - 1) / G::BM) * RS;  // per row block
+  const int total = nb * per;
+
+  // load step i, at position (row block r, step st), into its ring slot
+  auto load_step = [&](int i, StepPos at) {
+    const int n0 = at.tile * G::BM;
+    const int st = at.step;
+    T* buf = ring + (i % kStages) * S::STAGE;
+    if (st < kt) {
+      load_logits_step<T, G, S>(buf, x, w, n0, v0, st * kBK, n, d, V, xvec,
+                                wvec);
+    } else {
+      const int q = st - kt;
+      // x[n0 + kk + k][c0 + c], stored [k][c]
+      load_tile<T, kBK, G::BM>(buf, S::LDX, x, d, n0 + (q % RS) * kBK,
+                               (q / RS) * G::BM, n, d, xvec);
+    }
+  };
+  StepPos load_at;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) load_step(i, load_at);
+    load_at.next(per);
+    cp_async_commit();
+  }
+
+  float acc[G::MT][G::NT][4];
+  float dbp[G::NT][2] = {};
+  RowStats<G> rs;
+  zero<G>(acc);
+  StepPos at;
+  for (int i = 0; i < total; ++i, at.next(per)) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (i + kStages - 1 < total) load_step(i + kStages - 1, load_at);
+    load_at.next(per);
+    cp_async_commit();
+    const int r = at.tile;
+    const int st = at.step;
+    const int n0 = r * G::BM;
+    const T* buf = ring + (i % kStages) * S::STAGE;
+    if (st < kt) {
+      step_mma<G, true, true>(buf, S::LDK, buf + G::BM * S::LDK, S::LDW, wp,
+                              acc);
+      if (st == kt - 1) {
+        rs.load(wp, n0, n, lse, g, labels);
+        write_t<T, G, S::LDT>(acc, ts, wp, rs, n0, v0, n, V, bias, dbp);
+        zero<G>(acc);
+      }
+    } else {
+      const int q = st - kt;
+      const int sub = q % RS;
+      const int c0 = (q / RS) * G::BM;
+      if (sub == 0 && r > 0) {
+        // bring the dw rows this chunk adds to into L2 now, the chunk's
+        // steps before they are read
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt) {
+            const int c =
+                c0 + wp.wm * G::WM + mt * 16 + wp.g + 8 * (wp.t & 1);
+            const int col = v0 + wp.wn * G::WN + nt * 8 + 4 * (wp.t / 2);
+            if (c < d && col < V) {
+              prefetch_l2(dw + static_cast<size_t>(c) * V + col);
+            }
+          }
+        }
+      }
+      // acc += x[n0 + sub*kBK.., c0..]^T . t[sub*kBK.., :]
+      step_mma<G, false, true>(buf, S::LDX, ts + sub * kBK * S::LDT, S::LDT,
+                               wp, acc);
+      if (sub == RS - 1) {
+        if (dwvec) {
+          float4* p[G::MT][G::NT];
+          float4 v[G::MT][G::NT];
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+            for (int nt = 0; nt < G::NT; ++nt) {
+              int ro;
+              v[mt][nt] = pair_lanes(acc[mt][nt], wp.t, &ro);
+              const int c = c0 + wp.wm * G::WM + mt * 16 + wp.g + ro;
+              const int col = v0 + wp.wn * G::WN + nt * 8 + 4 * (wp.t / 2);
+              p[mt][nt] = c < d && col < V
+                              ? reinterpret_cast<float4*>(
+                                    dw + static_cast<size_t>(c) * V + col)
+                              : nullptr;
+            }
+          }
+          add_tile<G>(p, v, r == 0);
+        } else {
+          // rows of dw that 16-byte accesses cannot reach: the warp
+          // stages 8 x 32 of its tile at a time and adds it a row at a
+          // time, lane = column, so each access covers 128 contiguous
+          // bytes
+          const int lane = static_cast<int>(threadIdx.x) % 32;
+          const int col = v0 + wp.wn * G::WN + lane;
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              __syncwarp();
+#pragma unroll
+              for (int nt = 0; nt < G::NT; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  stage[wp.g * kStageLd + nt * 8 + 2 * wp.t + e] =
+                      acc[mt][nt][2 * h + e];
+                }
+              }
+              __syncwarp();
+              const int c1 = c0 + wp.wm * G::WM + mt * 16 + 8 * h;
+              float* p = dw + static_cast<size_t>(c1) * V + col;
+              float o[8];
+#pragma unroll
+              for (int k = 0; k < 8; ++k) {
+                o[k] = (r > 0 && c1 + k < d && col < V)
+                           ? __ldcg(p + static_cast<size_t>(k) * V)
+                           : 0.f;
+              }
+#pragma unroll
+              for (int k = 0; k < 8; ++k) {
+                if (c1 + k < d && col < V) {
+                  p[static_cast<size_t>(k) * V] =
+                      o[k] + stage[k * kStageLd + lane];
+                }
+              }
+            }
+          }
+        }
+        zero<G>(acc);
+      }
+    }
+  }
+
+  // db: the WARPS_M * 8 partial sums of each column (8 row lanes x the
+  // warp rows), added in a fixed order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [WARPS_M * 8][BN]
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      red[(wp.wm * 8 + wp.g) * G::BN + wp.wn * G::WN + nt * 8 + 2 * wp.t +
+          j] = dbp[nt][j];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < G::BN) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < G::WARPS_M * 8; ++k) {
+      sum += red[k * G::BN + threadIdx.x];
+    }
+    const int col = v0 + static_cast<int>(threadIdx.x);
+    if (col < V) db[col] = sum;
+  }
+}
+
+bool bad_dims(int n, int d, int V) { return n < 0 || d < 0 || V <= 0; }
+
+int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// cudaFuncSetAttribute for the dynamic shared memory, once per instance
+template <typename K>
+int smem_attr(K kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+template <typename T>
+int dx_attr() {
+  static const int code =
+      smem_attr(ce_bwd_dx_kernel<T>, Smem<T, DxGeo, true>::bytes());
+  return code;
+}
+template <typename T>
+int dw_attr() {
+  static const int code =
+      smem_attr(ce_bwd_dw_kernel<T>, Smem<T, DwGeo, false>::bytes());
+  return code;
+}
+
+template <typename T>
+int launch_dx(const void* x, const void* w, const float* b,
+              const int32_t* lab, const float* l, const float* gg,
+              float* part, int n, int d, int V, int splits,
+              cudaStream_t st) {
+  const int attr = dx_attr<T>();
+  if (attr != 0) return attr;
+  constexpr int E = 16 / sizeof(T);
+  const bool xvec = d % E == 0 && aligned16(x);
+  const bool wvec = V % E == 0 && aligned16(w);
+  const dim3 grid((n + DxGeo::BM - 1) / DxGeo::BM, splits);
+  ce_bwd_dx_kernel<T><<<grid, kThreads, Smem<T, DxGeo, true>::bytes(), st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), b, lab, l, gg,
+      part, n, d, V, splits, round_up(n, DxGeo::BM), round_up(d, DxGeo::BN),
+      xvec, wvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw(const void* x, const void* w, const float* b,
+              const int32_t* lab, const float* l, const float* gg,
+              float* dw, float* db, int n, int d, int V, cudaStream_t st) {
+  const int attr = dw_attr<T>();
+  if (attr != 0) return attr;
+  constexpr int E = 16 / sizeof(T);
+  const bool xvec = d % E == 0 && aligned16(x);
+  const bool wvec = V % E == 0 && aligned16(w);
+  const bool dwvec = V % 4 == 0 && aligned16(dw);
+  const dim3 grid((V + DwGeo::BN - 1) / DwGeo::BN);
+  ce_bwd_dw_kernel<T><<<grid, kThreads, Smem<T, DwGeo, false>::bytes(), st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), b, lab, l, gg, dw,
+      db, n, d, V, xvec, wvec, dwvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Partial dx sums into ``work`` float32 (splits, round_up(n, 64),
+// round_up(d, 256)), every element written; ``splits`` in
+// 1..ceil(V/256).  Launches on ``stream`` and returns the CUDA error code
+// (0 on success).
+extern "C" int ff_fused_ce_bwd_dx(const void* x, const void* w,
+                                  const void* bias, const void* labels,
+                                  const void* lse, const void* g, void* work,
+                                  int n, int d, int V, int splits,
+                                  int is_bf16, void* stream) {
+  if (bad_dims(n, d, V) || splits < 1 ||
+      splits > (V + DxGeo::BN - 1) / DxGeo::BN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || d == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const int32_t* lab = static_cast<const int32_t*>(labels);
+  const float* l = static_cast<const float*>(lse);
+  const float* gg = static_cast<const float*>(g);
+  float* part = static_cast<float*>(work);
+  return is_bf16 ? launch_dx<__nv_bfloat16>(x, w, b, lab, l, gg, part, n, d,
+                                            V, splits, st)
+                 : launch_dx<float>(x, w, b, lab, l, gg, part, n, d, V,
+                                    splits, st);
+}
+
+// dx (n, d) float32 = the sum of the ``splits`` partials in ``work``, in
+// split order.  Launches on ``stream`` and returns the CUDA error code.
+extern "C" int ff_fused_ce_bwd_dx_sum(const void* work, void* dx, int n,
+                                      int d, int splits, void* stream) {
+  if (n < 0 || d < 0 || splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0 || d == 0) return 0;
+  const size_t total = static_cast<size_t>(n) * d;
+  const unsigned blocks =
+      static_cast<unsigned>(total / 256 + 1 < 8192 ? total / 256 + 1 : 8192);
+  ce_bwd_dx_sum_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(work), static_cast<float*>(dx), n, d, splits,
+      round_up(n, DxGeo::BM), round_up(d, DxGeo::BN));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dw (d, V) and db (V,) float32, every element written (the caller passes
+// n > 0).  Launches on ``stream`` and returns the CUDA error code.
+extern "C" int ff_fused_ce_bwd_dw(const void* x, const void* w,
+                                  const void* bias, const void* labels,
+                                  const void* lse, const void* g, void* dw,
+                                  void* db, int n, int d, int V, int is_bf16,
+                                  void* stream) {
+  if (bad_dims(n, d, V) || n == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const int32_t* lab = static_cast<const int32_t*>(labels);
+  const float* l = static_cast<const float*>(lse);
+  const float* gg = static_cast<const float*>(g);
+  float* dwp = static_cast<float*>(dw);
+  float* dbp = static_cast<float*>(db);
+  return is_bf16 ? launch_dw<__nv_bfloat16>(x, w, b, lab, l, gg, dwp, dbp, n,
+                                            d, V, st)
+                 : launch_dw<float>(x, w, b, lab, l, gg, dwp, dbp, n, d, V,
+                                    st);
+}
+
+extern "C" const char* ff_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,6 +41,15 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 def reset_launches() -> None:
     launches.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the kernels'
+    grids are sized to fill them."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _nvcc() -> str:

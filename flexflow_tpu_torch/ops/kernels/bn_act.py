@@ -27,7 +27,6 @@ fallback: a CUDA tensor the kernels do not take raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -96,11 +95,6 @@ def tiling(m: int, c: int, vec: int, sms: int):
     return tx, ty, rows, -(-m // rows)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _vec(c: int, dtype, *tensors) -> int:
     """Channels per column thread: 16 bytes of them where C and every
     tensor's address allow, else 1."""
@@ -153,7 +147,8 @@ def _check(what: str, x2, inv, shift, g2=None) -> None:
 def _grid(x2, *tensors):
     m, c = x2.shape
     vec = _vec(c, x2.dtype, x2, *tensors)
-    tx, ty, rows, row_blocks = tiling(m, c, vec, _sm_count(x2.device.index))
+    tx, ty, rows, row_blocks = tiling(m, c, vec,
+                                      kernels.sm_count(x2.device.index))
     return m, c, vec, tx, ty, rows, row_blocks
 
 

@@ -1,10 +1,14 @@
 """Fused vocab projection + softmax cross-entropy: the hand-written CUDA
-kernels (``csrc/fused_ce.cu``), their plain PyTorch versions, the wrappers
+kernels (``csrc/fused_ce.cu``, the forward; ``csrc/fused_ce_bwd.cu``, the
+backward on the tensor cores), their plain PyTorch versions, the wrappers
 that pick between them by the tensors' device, and the differentiable op.
 
 Port of ``flexflow_tpu/ops/pallas/fused_ce.py``: ``fused_ce_fwd`` replaces
 the Pallas ``_fwd_kernel``, ``fused_ce_bwd_dx`` ``_bwd_dx_kernel`` and
-``fused_ce_bwd_dw`` ``_bwd_dw_kernel``.  With ``logits = x @ w + b``
+``fused_ce_bwd_dw`` ``_bwd_dw_kernel``.  ``fused_ce_bwd_dx`` writes
+partial dx sums for :func:`dx_splits` slices of the vocab into a float32
+workspace, and ``fused_ce_bwd_dx_sum``, a launch of its own, adds them in
+a fixed order.  With ``logits = x @ w + b``
 (x (N, d), w (d, V), b (V,), labels (N,) int32):
 
 * ``fused_linear_ce_fwd(x, w, b, labels) -> (nll, lse)``, both float32
@@ -35,7 +39,12 @@ from flexflow_tpu_torch.ops import kernels
 NAME_FWD = "fused_ce_fwd"
 NAME_DX = "fused_ce_bwd_dx"
 NAME_DW = "fused_ce_bwd_dw"
+NAME_DX_SUM = "fused_ce_bwd_dx_sum"
 SOURCE = "fused_ce.cu"
+SOURCE_BWD = "fused_ce_bwd.cu"
+#: token rows and vocab columns of the dx kernel's tile; its workspace
+#: pads N to DX_ROWS and d to DX_COLS (``csrc/fused_ce_bwd.cu``, DxGeo)
+DX_ROWS, DX_COLS = 64, 256
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -79,13 +88,40 @@ def _lib() -> ctypes.CDLL:
         lib.ff_fused_ce_fwd.argtypes = [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ff_fused_ce_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = kernels.load(SOURCE_BWD)
+    if lib.ff_fused_ce_bwd_dx.argtypes is None:
         lib.ff_fused_ce_bwd_dx.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ff_fused_ce_bwd_dx.restype = ctypes.c_int
+        lib.ff_fused_ce_bwd_dx_sum.argtypes = [ctypes.c_void_p] * 2 \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ff_fused_ce_bwd_dx_sum.restype = ctypes.c_int
         lib.ff_fused_ce_bwd_dw.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ff_fused_ce_bwd_dw.restype = ctypes.c_int
     return lib
+
+
+def dx_splits(n: int, v: int, sms: int) -> int:
+    """Vocab slices S of the dx kernel for N rows, V columns and ``sms``
+    SMs: the kernel runs ceil(N/64) x S blocks of one per SM, each over
+    ceil(V/256)/S vocab tiles.  S minimizes the tiles of the busiest SM
+    (rounds of blocks x tiles per block); among equals it takes the
+    largest S up to about two blocks per SM, so short rows fill the card
+    and the (S, N, d) workspace stays small."""
+    rows = -(-n // DX_ROWS)
+    tiles = -(-v // DX_COLS)
+    cap = max(1, min(tiles, -(-2 * sms // rows)))
+
+    def busiest(s):
+        return -(-rows * s // sms) * -(-tiles // s)
+
+    best = min(busiest(s) for s in range(1, cap + 1))
+    return max(s for s in range(1, cap + 1) if busiest(s) == best)
 
 
 def _check(name, x, w, b, labels, *rows):
@@ -140,22 +176,60 @@ def fused_linear_ce_fwd_cuda(x, w, b, labels):
     return nll, lse
 
 
-def fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, g):
-    """Launch the dx kernel on the current stream: dx float32 (N, d)."""
+def _work_shape(splits: int, n: int, d: int) -> tuple:
+    return (splits, -(-n // DX_ROWS) * DX_ROWS, -(-d // DX_COLS) * DX_COLS)
+
+
+def fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, g):
+    """Launch the dx kernel on the current stream: its float32 workspace
+    (S, N rounded up to 64, d rounded up to 256), one partial dx per
+    vocab slice, S = :func:`dx_splits`.  N and d must be positive."""
     _check(NAME_DX, x, w, b, labels, lse, g)
     n, d = x.shape
-    dx = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    v = w.shape[1]
     if n == 0 or d == 0:
-        return dx
-    lib = _lib()
+        raise ValueError(f"{NAME_DX}: need N, d > 0, got {(n, d)}")
+    splits = dx_splits(n, v, kernels.sm_count(x.device.index))
+    work = torch.empty(_work_shape(splits, n, d), dtype=torch.float32,
+                       device=x.device)
+    lib = _lib_bwd()
     with torch.cuda.device(x.device):
         code = lib.ff_fused_ce_bwd_dx(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), g.data_ptr(), dx.data_ptr(), n, d, w.shape[1],
+            lse.data_ptr(), g.data_ptr(), work.data_ptr(), n, d, v, splits,
             int(x.dtype == torch.bfloat16), _stream(x))
     kernels.check(lib, code, NAME_DX)
     kernels.launches[NAME_DX] += 1
+    return work
+
+
+def fused_linear_ce_bwd_dx_sum_cuda(work, n: int, d: int):
+    """Launch the dx kernel's finishing pass: dx float32 (N, d), the sum
+    of the workspace's S partials, added in split order."""
+    want = _work_shape(work.shape[0] if work.dim() == 3 else 1, n, d)
+    if not work.is_cuda or work.dtype != torch.float32 \
+            or not work.is_contiguous() or tuple(work.shape) != want:
+        raise ValueError(f"{NAME_DX_SUM}: need a contiguous float32 CUDA "
+                         f"workspace (S, {want[1]}, {want[2]}), got "
+                         f"{tuple(work.shape)}")
+    dx = torch.empty((n, d), dtype=torch.float32, device=work.device)
+    lib = _lib_bwd()
+    with torch.cuda.device(work.device):
+        code = lib.ff_fused_ce_bwd_dx_sum(work.data_ptr(), dx.data_ptr(), n,
+                                          d, work.shape[0], _stream(work))
+    kernels.check(lib, code, NAME_DX_SUM)
+    kernels.launches[NAME_DX_SUM] += 1
     return dx
+
+
+def fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, g):
+    """dx float32 (N, d) through the dx kernel and its finishing sum."""
+    _check(NAME_DX, x, w, b, labels, lse, g)
+    n, d = x.shape
+    if n == 0 or d == 0:
+        return torch.empty((n, d), dtype=torch.float32, device=x.device)
+    work = fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, g)
+    return fused_linear_ce_bwd_dx_sum_cuda(work, n, d)
 
 
 def fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g):
@@ -169,7 +243,7 @@ def fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g):
                 torch.zeros((v,), dtype=torch.float32, device=x.device))
     dw = torch.empty((d, v), dtype=torch.float32, device=x.device)
     db = torch.empty((v,), dtype=torch.float32, device=x.device)
-    lib = _lib()
+    lib = _lib_bwd()
     with torch.cuda.device(x.device):
         code = lib.ff_fused_ce_bwd_dw(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),

@@ -13,6 +13,11 @@ match nothing.  bfloat16 operands at 2e-2 (the two packages round the
 same values to bfloat16 but sum in another order).  The CUDA kernels run
 only on a GPU: tests/test_torch_cuda.py holds them against the plain
 versions on the card.
+
+The backward kernels' float32 products are 3xTF32 on the tensor cores;
+a numpy emulation of ``cvt.rna.tf32.f32`` here shows, on LM-head-like
+operands against a float64 product, why three TF32 products meet the
+float32 gates where one does not.
 """
 
 import jax
@@ -138,3 +143,66 @@ def test_dispatch_and_refusals():
         ce.fused_linear_ce_bwd_dx_cuda(x, w, b, lab, lse, wgt)
     with pytest.raises(ValueError, match="CUDA device"):
         ce.fused_linear_ce_bwd_dw_cuda(x, w, b, lab, lse, wgt)
+
+
+def _tf32(a):
+    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest with
+    ties away from zero (add half of the dropped 13 bits' range to the
+    magnitude's bits, then cut them)."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    half = np.float32(1 + 2 ** -11)        # halfway between two TF32 values
+    assert _tf32(half) == np.float32(1 + 2 ** -10)
+    assert _tf32(-half) == np.float32(-(1 + 2 ** -10))
+    assert _tf32(np.float32(1 + 2 ** -11 - 2 ** -23)) == np.float32(1)
+    assert _tf32(np.float32(3.0)) == np.float32(3.0)
+
+
+def _lm_head_operands(case):
+    """Seeded LM-head-like operands of one of the backward's products:
+    x ~ N(0, 1) (64, 768), w ~ 0.02 N(0, 1) (768, 256), t = g (softmax -
+    onehot) of their logits with g = 1/N."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 768).astype("float32")
+    w = (0.02 * rng.randn(768, 256)).astype("float32")
+    logits = x.astype("float64") @ w
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    onehot = np.eye(256)[rng.randint(0, 256, 64)]
+    t = ((p - onehot) / 64).astype("float32")
+    return {"logits x w": (x, w), "dx t wT": (t, np.ascontiguousarray(w.T)),
+            "dw xT t": (np.ascontiguousarray(x.T), t)}[case]
+
+
+@pytest.mark.parametrize("case", ["logits x w", "dx t wT", "dw xT t"])
+def test_three_tf32_products_keep_float32_accuracy(case):
+    a, b = _lm_head_operands(case)
+    ref = a.astype("float64") @ b.astype("float64")
+    big_a, big_b = _tf32(a), _tf32(b)
+    small_a, small_b = _tf32(a - big_a), _tf32(b - big_b)
+    f64 = [m.astype("float64") for m in (big_a, small_a, big_b, small_b)]
+    big_a, small_a, big_b, small_b = f64
+    three = small_a @ big_b + big_a @ small_b + big_a @ big_b
+    one = big_a @ big_b
+    scale = np.abs(ref).max()
+    # the kernels' order: small*big, big*small, then big*big
+    assert np.abs(three - ref).max() <= 1e-6 * scale
+    # one TF32 pass keeps ~3 digits: above the 1e-4 float32 gate's reach
+    assert np.abs(one - ref).max() > 1e-5 * scale
+
+
+def test_dx_splits_fill_the_card():
+    # the LM head: 128 row blocks x 2 vocab slices = 256 blocks, two
+    # rounds on 132 SMs, 64 vocab tiles each
+    assert ce.dx_splits(8192, 32768, 132) == 2
+    for n, v in ((8192, 50257), (1000, 50257), (130, 4099), (5, 3),
+                 (256, 300)):
+        s = ce.dx_splits(n, v, 132)
+        rows = -(-n // ce.DX_ROWS)
+        assert 1 <= s <= -(-v // ce.DX_COLS)
+        assert rows * s <= 2 * 132 + rows
+    assert ce.dx_splits(1000, 50257, 132) > 1
+    assert ce.dx_splits(5, 3, 132) == 1
