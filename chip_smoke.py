@@ -15,20 +15,23 @@ Phases (any failure exits non-zero):
 
 1. CUDA present, card name and power limit (nvidia-smi);
 2. build every kernel from ``flexflow_tpu_torch/csrc/`` (one nvcc per
-   source, all started together) and print the build seconds;
+   source, all started together) and print the build seconds, then each
+   kernel's registers and spills from ptxas (kernels 1 and 4 must spill
+   nothing) and the dynamic shared memory of kernels 1 and 4;
 3. flash kernel phase: flash_attention_fwd against its plain version at
    the serving shape (8, 12, 512, 64) causal in float32 and bfloat16, a
-   ragged S = 77, a non-causal case and an empty K; then its time, the
-   plain version's and ``scaled_dot_product_attention``'s (a yardstick
-   the port never calls) at the serving shape;
+   ragged S = 77, a non-causal case, head dim 128 (causal and ragged, in
+   both dtypes) and an empty K; then its time, the plain version's and
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
+   at the serving shape, and its time at head dim 128;
 4. flash backward phase: kernels 2 (dk, dv) and 3 (dq) against the
    plain backward at the LM training shape (16, 12, 512, 64) causal in
    float32 and bfloat16 and a ragged non-causal cross case (Sq 77, Sk
    300); then their times beside the plain backward's and the backward of
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
-5. fused cross-entropy phase: kernels 4 (forward), 5 (dx, then its
-   finishing sum over the vocab slices) and 6 (dw, db) against their
-   plain versions at the LM head's N = 8192, d = 768, V = 32768 in
+5. fused cross-entropy phase: kernels 4 (forward, then its finishing
+   combine over the vocab slices), 5 (dx, then its finishing sum over
+   the vocab slices) and 6 (dw, db) against their plain versions at the LM head's N = 8192, d = 768, V = 32768 in
    float32 and bfloat16, and at GPT-2's V = 50257, labels with -1 (no
    target) included; then, at those three, their times and achieved
    TFLOP/s beside the plain versions' and the unfused library pair's
@@ -61,8 +64,8 @@ Phases (any failure exits non-zero):
    batch 16, seq 512, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    32768, float32, plain SGD at lr 1e-3) for 3 warm-up and 10 timed steps:
    finite losses, the first near ln 32768, per step 12 launches each of
-   kernels 1, 2 and 3 and one each of kernels 4, 5, 5's sum and 6, and
-   the first 3
+   kernels 1, 2 and 3 and one each of kernels 4, 4's combine, 5, 5's sum
+   and 6, and the first 3
    losses within 1e-4 (relative) of the same run with every kernel
    swapped for its plain version; tokens/s, step ms and peak memory;
 10. Inception training slice: ``apps.cnn inception`` at bench.py's
@@ -89,11 +92,12 @@ device's even where launching it costs the host more (steps are timed
 without the sleep, at the host's pace).  ``bound_ms`` is the larger of the bytes a call must move (each input read
 once, each output written once) at 3.35 TB/s and its FLOPs at the peak
 for the input type: 67 TFLOP/s float32 outside the tensor cores, 989
-TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  Kernels 5
-and 6 run a float32 product as three TF32 tensor-core products
+TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  Kernels 1
+and 4-6 run a float32 product as three TF32 tensor-core products
 (3xTF32, float32's accuracy from TF32's rate), so their float32 bound is
 three times the FLOPs at 495 TFLOP/s: a rate they can reach, where 67
-TFLOP/s would understate what the card can do for them.  The pools
+TFLOP/s would understate what the card can do for them.  The finishing
+passes of kernels 4 and 5 are bound by bytes.  The pools
 and the BN kernels do a few compares, multiplies or adds per byte, so
 bytes bound them.  A flash backward kernel counts 8 (dk, dv) or 6 (dq) x
 d FLOPs per unmasked (query, key) pair; a fused cross-entropy kernel
@@ -105,6 +109,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -213,7 +218,8 @@ def _bound(flops: float, nbytes: float, dtype: str) -> tuple:
 
 
 def _bound_ms(shape, sk, causal, dtype) -> tuple:
-    """(bound_ms, bound_by) of one flash forward call."""
+    """(bound_ms, bound_by) of one flash forward call; float32 products
+    at the 3xTF32 rate the kernel runs them at."""
     b, h, sq, d = shape
     esize = 2 if dtype == "bfloat16" else 4
     if causal:
@@ -223,7 +229,45 @@ def _bound_ms(shape, sk, causal, dtype) -> tuple:
     flops = 4.0 * d * b * h * scores
     nbytes = (b * h * sq * d + 2 * b * h * sk * d) * esize \
         + b * h * sq * d * 4 + b * h * sq * 4
-    return _bound(flops, nbytes, dtype)
+    return _bound(flops, nbytes, "3xtf32" if dtype == "float32" else dtype)
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's function name and template arguments from its mangled
+    name (the ``<length><name>`` run that ends in ``_kernel``)."""
+    # every digit run, and every tail of it: a length may follow digits
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[i:m.end()])]
+            if not name.endswith("_kernel"):
+                continue
+            targs = re.match(r"I(\w*?)E", mangled[m.end() + len(name):])
+            if not targs:
+                return name
+            t = targs.group(1).replace("13__nv_bfloat16", "bfloat16 ")
+            t = re.sub(r"^f", "float32 ", t).replace("Li", "d=")
+            return f"{name}<{t.strip()}>"
+    return mangled
+
+
+def _ptxas_report(log: str) -> list:
+    """``(kernel, registers, "stores/loads")`` per kernel of an
+    ``nvcc -Xptxas -v`` log, spills in bytes."""
+    out, kernel, spills = [], None, "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = _kernel_name(entry.group(1))
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            spills = f"{spill.group(1)}/{spill.group(2)}"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and kernel:
+            out.append((kernel, int(regs.group(1)), spills))
+            kernel, spills = None, "?"
+    return out
 
 
 def _max_err(torch, got, ref) -> float:
@@ -278,6 +322,12 @@ def kernel_phase(torch, fa) -> dict:
         ("non-causal S=77 float32", (2, h, 77, d), 77, False, "float32"),
         ("non-causal Sq=77 Sk=300 bfloat16", (2, h, 77, d), 300, False,
          "bfloat16"),
+        ("d=128 causal float32", (2, h, s, 128), s, True, "float32"),
+        ("d=128 causal bfloat16", (2, h, s, 128), s, True, "bfloat16"),
+        ("d=128 ragged S=77 causal float32", (2, h, 77, 128), 77, True,
+         "float32"),
+        ("d=128 ragged S=77 causal bfloat16", (2, h, 77, 128), 77, True,
+         "bfloat16"),
     ]
     worst = 0.0
     for label, shape, sk, causal, dtype in cases:
@@ -319,6 +369,16 @@ def kernel_phase(torch, fa) -> dict:
         _log(f"kernel time serving causal {dtype}: kernel {ms:.4f} ms, "
              f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
              f"{bound_ms:.4f} ms ({bound_by})")
+        wide = (2, h, s, 128)
+        q, k, v = qkv(wide, s, dtype)
+        ms = _time_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v,
+                                                                 True))
+        sdpa_ms = _time_ms(torch, lambda: torch.nn.functional
+                           .scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+        bound_ms, bound_by = _bound_ms(wide, s, True, dtype)
+        _log(f"kernel time {wide} causal {dtype}: kernel {ms:.4f} ms, sdpa "
+             f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -425,8 +485,8 @@ def fused_ce_phase(torch, ce) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     n, d, v = CE_SHAPE
-    worst = {ce.NAME_FWD: 0.0, ce.NAME_DX: 0.0, ce.NAME_DX_SUM: 0.0,
-             ce.NAME_DW: 0.0}
+    worst = {ce.NAME_FWD: 0.0, ce.NAME_FWD_COMBINE: 0.0, ce.NAME_DX: 0.0,
+             ce.NAME_DX_SUM: 0.0, ce.NAME_DW: 0.0}
     for label, vocab, dtype in (("LM head float32", v, "float32"),
                                 ("LM head bfloat16", v, "bfloat16"),
                                 (f"GPT-2 vocab {GPT2_VOCAB} float32",
@@ -454,6 +514,7 @@ def fused_ce_phase(torch, ce) -> dict:
                                  f"disagree with the plain versions: {errs}")
         worst[ce.NAME_FWD] = max(worst[ce.NAME_FWD], errs["nll"][0],
                                  errs["lse"][0])
+        worst[ce.NAME_FWD_COMBINE] = worst[ce.NAME_FWD]
         worst[ce.NAME_DX] = max(worst[ce.NAME_DX], errs["dx"][0])
         worst[ce.NAME_DX_SUM] = worst[ce.NAME_DX]
         worst[ce.NAME_DW] = max(worst[ce.NAME_DW], errs["dw"][0],
@@ -478,25 +539,31 @@ def fused_ce_phase(torch, ce) -> dict:
                  f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it)")
         pair = t[ce.NAME_DX]["ms"] + t[ce.NAME_DX_SUM]["ms"] \
             + t[ce.NAME_DW]["ms"]
+        fwd = t[ce.NAME_FWD]["ms"] + t[ce.NAME_FWD_COMBINE]["ms"]
         _log(f"fused ce time {label} V {vocab}: backward kernels 5 + its "
              f"sum + 6 {pair:.4f} ms, bounds 5 + 6 "
              f"{t[ce.NAME_DX]['bound_ms'] + t[ce.NAME_DW]['bound_ms']:.4f} "
              f"ms, plain backward {t[ce.NAME_DX]['plain_ms']:.4f} ms, "
              f"library pair backward {t[ce.NAME_DX]['library_ms']:.4f} ms; "
-             f"kernels 4-6 {pair + t[ce.NAME_FWD]['ms']:.4f} ms, library "
+             f"kernel 4 + its combine {fwd:.4f} ms; kernels 4-6 "
+             f"{pair + fwd:.4f} ms, library "
              f"pair forward + backward {t[ce.NAME_DX]['library_ms'] + t[ce.NAME_FWD]['library_ms']:.4f} ms")
         torch.cuda.empty_cache()
     return {"worst": worst, "timings": timings["lm"]}
 
 
 def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype) -> dict:
-    """Kernels 4, 5 (with its finishing sum) and 6 at one shape: times,
-    plain and library times, bounds and achieved TFLOP/s."""
+    """Kernels 4 (with its combine), 5 (with its finishing sum) and 6 at
+    one shape: times, plain and library times, bounds and achieved
+    TFLOP/s."""
     x, w, b, lab, g = _ce_inputs(torch, gen, n, d, v, dtype)
-    nll, lse = ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
+    fwd_work = ce.fused_linear_ce_fwd_partial_cuda(x, w, b, lab)
+    nll, lse = ce.fused_linear_ce_fwd_combine_cuda(fwd_work)
     work = ce.fused_linear_ce_bwd_dx_partial_cuda(x, w, b, lab, lse, g)
-    fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_cuda(
+    fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_partial_cuda(
         x, w, b, lab), iters=5, warmup=1)
+    combine_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_combine_cuda(
+        fwd_work), iters=20)
     dx_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_partial_cuda(
         x, w, b, lab, lse, g), iters=5, warmup=1)
     sum_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_sum_cuda(
@@ -523,27 +590,32 @@ def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype) -> dict:
     esize = x.element_size()
     inputs = n * d * esize + d * v * esize + v * 4 + n * 4
     flops = 2.0 * n * d * v
-    # float32 products of kernels 5-6 run as three TF32 products each
-    bwd_rate = "3xtf32" if dtype == "float32" else dtype
+    # float32 products of kernels 4-6 run as three TF32 products each
+    mma_rate = "3xtf32" if dtype == "float32" else dtype
     out = {}
     for name, ms, fl, nbytes, rate, plain, lib in (
-            (ce.NAME_FWD, fwd_ms, flops, inputs + 2 * n * 4, dtype,
-             plain_fwd_ms, lib_fwd_ms),
+            (ce.NAME_FWD, fwd_ms, flops, inputs + fwd_work.numel() * 4,
+             mma_rate, plain_fwd_ms, lib_fwd_ms),
+            (ce.NAME_FWD_COMBINE, combine_ms, 4.0 * fwd_work.numel(),
+             fwd_work.numel() * 4 + 2 * n * 4, "float32", plain_fwd_ms,
+             lib_fwd_ms),
             (ce.NAME_DX, dx_ms, 2 * flops,
-             inputs + 2 * n * 4 + work.numel() * 4, bwd_rate, plain_bwd_ms,
+             inputs + 2 * n * 4 + work.numel() * 4, mma_rate, plain_bwd_ms,
              lib_bwd_ms),
             (ce.NAME_DX_SUM, sum_ms, (work.shape[0] - 1.0) * n * d,
              work.numel() * 4 + n * d * 4, "float32", plain_bwd_ms,
              lib_bwd_ms),
             (ce.NAME_DW, dw_ms, 2 * flops,
-             inputs + 2 * n * 4 + d * v * 4 + v * 4, bwd_rate, plain_bwd_ms,
+             inputs + 2 * n * 4 + d * v * 4 + v * 4, mma_rate, plain_bwd_ms,
              lib_bwd_ms)):
         bound_ms, bound_by = _bound(fl, nbytes, rate)
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=bound_ms, bound_by=bound_by,
                          tflops=fl / ms / 1e9)
-    _log(f"fused ce time N {n} d {d} V {v} {dtype}: dx over "
-         f"{work.shape[0]} vocab slices, workspace {tuple(work.shape)}")
+    _log(f"fused ce time N {n} d {d} V {v} {dtype}: forward over "
+         f"{fwd_work.shape[0]} vocab slices (S = fwd_splits), workspace "
+         f"{tuple(fwd_work.shape)}; dx over {work.shape[0]} vocab slices, "
+         f"workspace {tuple(work.shape)}")
     return out
 
 
@@ -965,11 +1037,12 @@ def lm_phase(torch, kernels, card: str) -> dict:
     layers = 12
     want = {fa.NAME: layers * iters, fa.NAME_DKV: layers * iters,
             fa.NAME_DQ: layers * iters, ce.NAME_FWD: iters,
-            ce.NAME_DX: iters, ce.NAME_DX_SUM: iters, ce.NAME_DW: iters}
+            ce.NAME_FWD_COMBINE: iters, ce.NAME_DX: iters,
+            ce.NAME_DX_SUM: iters, ce.NAME_DW: iters}
     if launches != want:
         raise AssertionError(f"LM kernels launched {launches}, expected "
                              f"{want} (12 + 12 + 12 + 1 + 1 + 1 per step, "
-                             f"and kernel 5's finishing sum)")
+                             f"and the finishing passes of kernels 4 and 5)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite LM loss: {losses}")
     if abs(losses[0] - math.log(32768)) > 0.25:
@@ -1336,9 +1409,21 @@ def main(argv) -> int:
          f"kernel source(s) (parallel nvcc)")
     for source, info in built.items():
         _log(f"build {source}: {info['seconds']:.2f} s -> {info['path']}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"build {source}: {line.strip()}")
+        for kernel, regs, spills in _ptxas_report(info["log"]):
+            _log(f"build {source}: {kernel}: {regs} registers, spill "
+                 f"stores/loads {spills} bytes")
+            # kernels 1 and 4 keep their accumulators in registers
+            if source in (fa.SOURCE, ce.SOURCE) and spills != "0/0":
+                raise AssertionError(f"{source}: {kernel} spills registers "
+                                     f"({spills} bytes)")
+    flash_lib, ce_lib = fa._lib(), ce._lib()
+    _log("build smem flash_fwd_kernel (dynamic, bytes): " + ", ".join(
+        f"d {d} float32 {flash_lib.ff_flash_attention_fwd_smem(d, 0)} "
+        f"bfloat16 {flash_lib.ff_flash_attention_fwd_smem(d, 1)}"
+        for d in fa.HEAD_DIMS_FWD))
+    _log(f"build smem ce_fwd_kernel (dynamic, bytes): float32 "
+         f"{ce_lib.ff_fused_ce_fwd_smem(0)}, bfloat16 "
+         f"{ce_lib.ff_fused_ce_fwd_smem(1)}")
 
     checked = kernel_phase(torch, fa)
     flash_bwd = flash_bwd_phase(torch, fa)
@@ -1377,6 +1462,7 @@ def main(argv) -> int:
             lm_n[name], flash_bwd["worst"][name],
             flash_bwd["timings"][name]))
     for name, source, line in ((ce.NAME_FWD, ce.SOURCE, 39),
+                               (ce.NAME_FWD_COMBINE, ce.SOURCE, 39),
                                (ce.NAME_DX, ce.SOURCE_BWD, 127),
                                (ce.NAME_DX_SUM, ce.SOURCE_BWD, 127),
                                (ce.NAME_DW, ce.SOURCE_BWD, 147)):

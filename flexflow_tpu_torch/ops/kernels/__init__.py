@@ -6,7 +6,8 @@ C interface.  :func:`build` compiles sources with ``nvcc`` for Hopper
 all missing sources at once, each in its own ``nvcc`` process;
 :func:`load` opens one with ``ctypes``.  Nothing is built or loaded when
 a module is imported: the first launch builds.  A library's file name
-carries a digest of its source and flags, so an edited source is rebuilt.
+carries a digest of its source, of every header in ``csrc/`` and of the
+flags, so an edited source or header is rebuilt.
 
 ``launches`` counts kernel launches by kernel name.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -64,10 +65,15 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = CSRC_DIR / source
+def library_path(source: str, csrc: Path = CSRC_DIR) -> Path:
+    """Where the library built from ``<csrc>/<source>`` lives: the name
+    carries a digest of the source, of every ``*.cuh`` header beside it
+    (by name and content) and of the flags."""
+    src = csrc / source
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 

@@ -37,8 +37,10 @@ SOURCE = "flash_attention_fwd.cu"
 NAME_DKV = "flash_attention_bwd_dkv"
 NAME_DQ = "flash_attention_bwd_dq"
 SOURCE_BWD = "flash_attention_bwd.cu"
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (8, 16, 32, 64)
+#: head dims the forward kernel and the backward kernels are instantiated
+#: for
+HEAD_DIMS_FWD = (8, 16, 32, 64, 128)
+HEAD_DIMS_BWD = (8, 16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -74,13 +76,15 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.ff_flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 2
+        lib.ff_flash_attention_fwd_smem.restype = ctypes.c_int
     return lib
 
 
-def _check_qkv(name, q, k, v):
+def _check_qkv(name, q, k, v, head_dims):
     """Raise unless q (B, H, Sq, d) and k, v (B, H, Sk, d) are contiguous,
-    of one dtype (float32 or bfloat16) and on one CUDA device, with a head
-    dim the kernels are instantiated for."""
+    16-byte aligned, of one dtype (float32 or bfloat16) and on one CUDA
+    device, with a head dim in ``head_dims``."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name}: q, k, v must be on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -92,17 +96,19 @@ def _check_qkv(name, q, k, v):
         raise ValueError(f"{name}: need q (B,H,Sq,d) and k, v (B,H,Sk,d), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if q.shape[3] not in head_dims:
+        raise ValueError(f"{name}: head dim {q.shape[3]} not in {head_dims}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must be 16-byte aligned")
 
 
 def flash_attention_fwd_cuda(q, k, v, causal: bool = False):
     """Launch the CUDA kernel on the current stream.  q (B, H, Sq, d) and
     k, v (B, H, Sk, d), contiguous, one dtype (float32 or bfloat16), on
-    one CUDA device."""
-    _check_qkv(NAME, q, k, v)
+    one CUDA device, head dim in :data:`HEAD_DIMS_FWD`."""
+    _check_qkv(NAME, q, k, v, HEAD_DIMS_FWD)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -182,7 +188,7 @@ def _lib_bwd() -> ctypes.CDLL:
 
 
 def _check_bwd(name, q, k, v, do_k, lse, delta):
-    _check_qkv(name, q, k, v)
+    _check_qkv(name, q, k, v, HEAD_DIMS_BWD)
     rows = q.shape[:3]
     if do_k.shape != q.shape or do_k.dtype != q.dtype \
             or do_k.device != q.device or not do_k.is_contiguous():

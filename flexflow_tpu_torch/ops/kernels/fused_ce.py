@@ -1,14 +1,18 @@
 """Fused vocab projection + softmax cross-entropy: the hand-written CUDA
 kernels (``csrc/fused_ce.cu``, the forward; ``csrc/fused_ce_bwd.cu``, the
-backward on the tensor cores), their plain PyTorch versions, the wrappers
-that pick between them by the tensors' device, and the differentiable op.
+backward; both on the tensor cores, sharing ``csrc/fused_ce_mma.cuh``),
+their plain PyTorch versions, the wrappers that pick between them by the
+tensors' device, and the differentiable op.
 
 Port of ``flexflow_tpu/ops/pallas/fused_ce.py``: ``fused_ce_fwd`` replaces
 the Pallas ``_fwd_kernel``, ``fused_ce_bwd_dx`` ``_bwd_dx_kernel`` and
-``fused_ce_bwd_dw`` ``_bwd_dw_kernel``.  ``fused_ce_bwd_dx`` writes
-partial dx sums for :func:`dx_splits` slices of the vocab into a float32
-workspace, and ``fused_ce_bwd_dx_sum``, a launch of its own, adds them in
-a fixed order.  With ``logits = x @ w + b``
+``fused_ce_bwd_dw`` ``_bwd_dw_kernel``.  ``fused_ce_fwd`` writes partial
+softmax states (max, rescaled sum, label logit) for :func:`fwd_splits`
+slices of the vocab into a float32 workspace, and
+``fused_ce_fwd_combine``, a launch of its own, merges them in a fixed
+order.  ``fused_ce_bwd_dx`` writes partial dx sums for :func:`dx_splits`
+slices of the vocab into a float32 workspace, and ``fused_ce_bwd_dx_sum``
+adds them in a fixed order.  With ``logits = x @ w + b``
 (x (N, d), w (d, V), b (V,), labels (N,) int32):
 
 * ``fused_linear_ce_fwd(x, w, b, labels) -> (nll, lse)``, both float32
@@ -37,13 +41,15 @@ import torch
 from flexflow_tpu_torch.ops import kernels
 
 NAME_FWD = "fused_ce_fwd"
+NAME_FWD_COMBINE = "fused_ce_fwd_combine"
 NAME_DX = "fused_ce_bwd_dx"
 NAME_DW = "fused_ce_bwd_dw"
 NAME_DX_SUM = "fused_ce_bwd_dx_sum"
 SOURCE = "fused_ce.cu"
 SOURCE_BWD = "fused_ce_bwd.cu"
-#: token rows and vocab columns of the dx kernel's tile; its workspace
-#: pads N to DX_ROWS and d to DX_COLS (``csrc/fused_ce_bwd.cu``, DxGeo)
+#: token rows and vocab columns of the forward's and the dx kernel's tile;
+#: the dx workspace pads N to DX_ROWS and d to DX_COLS
+#: (``csrc/fused_ce_mma.cuh``, DxGeo)
 DX_ROWS, DX_COLS = 64, 256
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -85,9 +91,14 @@ def fused_linear_ce_bwd_plain(x, w, b, labels, lse, g):
 def _lib() -> ctypes.CDLL:
     lib = kernels.load(SOURCE)
     if lib.ff_fused_ce_fwd.argtypes is None:
-        lib.ff_fused_ce_fwd.argtypes = [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.ff_fused_ce_fwd.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ff_fused_ce_fwd.restype = ctypes.c_int
+        lib.ff_fused_ce_fwd_combine.argtypes = [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.ff_fused_ce_fwd_combine.restype = ctypes.c_int
+        lib.ff_fused_ce_fwd_smem.argtypes = [ctypes.c_int]
+        lib.ff_fused_ce_fwd_smem.restype = ctypes.c_int
     return lib
 
 
@@ -106,13 +117,13 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
-def dx_splits(n: int, v: int, sms: int) -> int:
-    """Vocab slices S of the dx kernel for N rows, V columns and ``sms``
-    SMs: the kernel runs ceil(N/64) x S blocks of one per SM, each over
-    ceil(V/256)/S vocab tiles.  S minimizes the tiles of the busiest SM
-    (rounds of blocks x tiles per block); among equals it takes the
+def _vocab_splits(n: int, v: int, sms: int) -> int:
+    """Vocab slices S for a kernel of one 64 x 256 tile per block and one
+    block per SM, over N rows and V columns: ceil(N/64) x S blocks, each
+    over ceil(V/256)/S vocab tiles.  S minimizes the tiles of the busiest
+    SM (rounds of blocks x tiles per block); among equals it takes the
     largest S up to about two blocks per SM, so short rows fill the card
-    and the (S, N, d) workspace stays small."""
+    and the workspace stays small."""
     rows = -(-n // DX_ROWS)
     tiles = -(-v // DX_COLS)
     cap = max(1, min(tiles, -(-2 * sms // rows)))
@@ -122,6 +133,18 @@ def dx_splits(n: int, v: int, sms: int) -> int:
 
     best = min(busiest(s) for s in range(1, cap + 1))
     return max(s for s in range(1, cap + 1) if busiest(s) == best)
+
+
+def fwd_splits(n: int, v: int, sms: int) -> int:
+    """Vocab slices S of the forward kernel for N rows, V columns and
+    ``sms`` SMs (its (S, N, 3) workspace holds one partial per slice)."""
+    return _vocab_splits(n, v, sms)
+
+
+def dx_splits(n: int, v: int, sms: int) -> int:
+    """Vocab slices S of the dx kernel for N rows, V columns and ``sms``
+    SMs (its (S, N, d) workspace holds one partial dx per slice)."""
+    return _vocab_splits(n, v, sms)
 
 
 def _check(name, x, w, b, labels, *rows):
@@ -156,24 +179,60 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fused_linear_ce_fwd_cuda(x, w, b, labels):
-    """Launch the forward kernel on the current stream: ``(nll, lse)``."""
+def fused_linear_ce_fwd_partial_cuda(x, w, b, labels):
+    """Launch the forward kernel on the current stream: its float32
+    workspace (S, N, 3), per vocab slice and row the max logit, the sum
+    of exp(logit - max) and the label's logit, S = :func:`fwd_splits`.
+    N must be positive."""
     _check(NAME_FWD, x, w, b, labels)
     n, d = x.shape
     v = w.shape[1]
-    nll = torch.empty((n,), dtype=torch.float32, device=x.device)
-    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:
-        return nll, lse
+        raise ValueError(f"{NAME_FWD}: need N > 0")
+    splits = fwd_splits(n, v, kernels.sm_count(x.device.index))
+    work = torch.empty((splits, n, 3), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         code = lib.ff_fused_ce_fwd(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            nll.data_ptr(), lse.data_ptr(), n, d, v,
+            work.data_ptr(), n, d, v, splits,
             int(x.dtype == torch.bfloat16), _stream(x))
     kernels.check(lib, code, NAME_FWD)
     kernels.launches[NAME_FWD] += 1
+    return work
+
+
+def fused_linear_ce_fwd_combine_cuda(work):
+    """Launch the forward's finishing pass: ``(nll, lse)`` float32 (N,)
+    from the workspace's S partials, merged in slice order."""
+    if not work.is_cuda or work.dtype != torch.float32 \
+            or not work.is_contiguous() or work.dim() != 3 \
+            or work.shape[2] != 3 or work.shape[0] < 1:
+        raise ValueError(f"{NAME_FWD_COMBINE}: need a contiguous float32 "
+                         f"CUDA workspace (S, N, 3), got "
+                         f"{tuple(work.shape)}")
+    splits, n, _ = work.shape
+    nll = torch.empty((n,), dtype=torch.float32, device=work.device)
+    lse = torch.empty((n,), dtype=torch.float32, device=work.device)
+    lib = _lib()
+    with torch.cuda.device(work.device):
+        code = lib.ff_fused_ce_fwd_combine(work.data_ptr(), nll.data_ptr(),
+                                           lse.data_ptr(), n, splits,
+                                           _stream(work))
+    kernels.check(lib, code, NAME_FWD_COMBINE)
+    kernels.launches[NAME_FWD_COMBINE] += 1
     return nll, lse
+
+
+def fused_linear_ce_fwd_cuda(x, w, b, labels):
+    """``(nll, lse)`` through the forward kernel and its finishing
+    pass."""
+    _check(NAME_FWD, x, w, b, labels)
+    if x.shape[0] == 0:
+        empty = torch.empty((0,), dtype=torch.float32, device=x.device)
+        return empty, empty.clone()
+    return fused_linear_ce_fwd_combine_cuda(
+        fused_linear_ce_fwd_partial_cuda(x, w, b, labels))
 
 
 def _work_shape(splits: int, n: int, d: int) -> tuple:

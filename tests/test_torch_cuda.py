@@ -8,8 +8,9 @@ also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: flash attention forward 1e-4 absolute, float32 sums over up
-to 512 keys in another order (the kernel accumulates bf16 inputs in
-float32, as the plain version does).  The flash backward and the fused
+to 512 keys in another order (the kernel's float32 products are 3xTF32
+on the tensor cores, its bf16 products exact with float32 sums and P
+split into two bf16 parts, so both keep close to float32's error).  The flash backward and the fused
 cross-entropy kernels are held to a share of the largest magnitude of
 each output: 1e-4 in float32 (sums over up to 512 keys or 50257 vocab
 columns in another order; the cross-entropy backward's 3xTF32 products
@@ -66,6 +67,9 @@ def _qkv(seed, shape, sk, dtype, device):
     ((2, 3, 77, 64), 77, False),
     ((1, 2, 40, 16), 100, False),      # Sq != Sk, small head dim
     ((2, 2, 33, 8), 33, True),
+    ((2, 4, 256, 128), 256, True),     # head dim 128, forward only
+    ((2, 3, 77, 128), 77, True),
+    ((2, 3, 77, 128), 300, False),
 ])
 def test_flash_kernel_matches_plain(gpu, dtype, shape, sk, causal):
     q, k, v = _qkv(0, shape, sk, dtype, gpu)
@@ -98,6 +102,16 @@ def test_flash_kernel_refuses_what_it_does_not_take(gpu):
         flash_attention_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_fwd(q, k.bfloat16(), v)
+    flat = torch.empty(q.numel() + 1, device=gpu)
+    q_odd = flat[1:].view(q.shape)
+    q_odd.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(q_odd, k, v)
+    # head dim 128: the forward takes it
+    q, k, v = _qkv(3, (1, 2, 16, 128), 16, torch.float32, gpu)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert tuple(o.shape) == (1, 2, 16, 128) and bool(torch.isfinite(o).all())
 
 
 @contextlib.contextmanager
@@ -299,6 +313,11 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(gpu):
                                         o.half(), lse, delta)
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.flash_attention_bwd_dkv_cuda(q, k.cpu(), v, o, lse, delta)
+    # head dim 128: the forward runs, the backward kernels refuse it
+    q, k, v = _qkv(6, (1, 2, 16, 128), 16, torch.float32, gpu)
+    o, lse = flash_attention_fwd_cuda(q, k, v, True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o), True)
 
 
 def _ce_inputs(seed, n, d, v, dtype, device):
@@ -330,8 +349,9 @@ def test_fused_ce_kernels_match_plain(gpu, dtype, n, d, v):
     nll, lse = ce.fused_linear_ce_fwd(x, w, b, lab)
     dx, dw, db = ce.fused_linear_ce_bwd(x, w, b, lab, lse, g)
     torch.cuda.synchronize()
-    assert dict(kernels.launches) == {ce.NAME_FWD: 1, ce.NAME_DX: 1,
-                                      ce.NAME_DX_SUM: 1, ce.NAME_DW: 1}
+    assert dict(kernels.launches) == {ce.NAME_FWD: 1, ce.NAME_FWD_COMBINE: 1,
+                                      ce.NAME_DX: 1, ce.NAME_DX_SUM: 1,
+                                      ce.NAME_DW: 1}
     nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
     _close(nll, nll_p, torch.float32, "nll")
     _close(lse, lse_p, torch.float32, "lse")
@@ -339,6 +359,42 @@ def test_fused_ce_kernels_match_plain(gpu, dtype, n, d, v):
             x, w, b, lab, lse_p, g), ("dx", "dw", "db")):
         assert got.dtype == torch.float32 and got.shape == want.shape
         _close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,v", [
+    (1000, 768, 50257),    # 8 vocab slices, w rows not 16-byte aligned
+    (130, 1024, 4099),     # 17 slices, the last of 3 columns
+    (77, 768, 50257),
+])
+def test_fused_ce_forward_over_vocab_slices_matches_plain(gpu, dtype, n, d,
+                                                          v):
+    """Kernel 4 at ragged N and V with S > 1 vocab slices, -1 and >= V
+    labels, against its plain version."""
+    assert ce.fwd_splits(n, v, torch.cuda.get_device_properties(
+        gpu).multi_processor_count) > 1
+    x, w, b, lab, _ = _ce_inputs(17, n, d, v, dtype, gpu)
+    kernels.reset_launches()
+    nll, lse = ce.fused_linear_ce_fwd(x, w, b, lab)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {ce.NAME_FWD: 1, ce.NAME_FWD_COMBINE: 1}
+    nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
+    assert bool(torch.isfinite(nll).all() and torch.isfinite(lse).all())
+    _close(nll, nll_p, torch.float32, "nll")
+    _close(lse, lse_p, torch.float32, "lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_forward_gives_the_same_bits_in_every_call(gpu, dtype):
+    """No atomics and a fixed order of merges: a second call of kernel 4
+    and its combine over several vocab slices repeats the first bit for
+    bit."""
+    x, w, b, lab, _ = _ce_inputs(18, 1000, 768, 50257, dtype, gpu)
+    first = ce.fused_linear_ce_fwd(x, w, b, lab)
+    again = ce.fused_linear_ce_fwd(x, w, b, lab)
+    torch.cuda.synchronize()
+    for a, c, name in zip(first, again, ("nll", "lse")):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -375,6 +431,9 @@ def test_fused_ce_kernels_refuse_what_they_do_not_take(gpu):
     with pytest.raises(ValueError, match="workspace"):
         ce.fused_linear_ce_bwd_dx_sum_cuda(
             torch.zeros((2, 64, 128), device=gpu), 64, 32)
+    with pytest.raises(ValueError, match="workspace"):
+        ce.fused_linear_ce_fwd_combine_cuda(torch.zeros((2, 64, 2),
+                                                        device=gpu))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -446,7 +505,8 @@ def test_tiny_lm_trains_through_the_kernels(gpu, dtype):
     layers = model.t.num_layers
     assert dict(kernels.launches) == {
         fa.NAME: 3 * layers, fa.NAME_DKV: 3 * layers, fa.NAME_DQ: 3 * layers,
-        ce.NAME_FWD: 3, ce.NAME_DX: 3, ce.NAME_DX_SUM: 3, ce.NAME_DW: 3}
+        ce.NAME_FWD: 3, ce.NAME_FWD_COMBINE: 3, ce.NAME_DX: 3,
+        ce.NAME_DX_SUM: 3, ce.NAME_DW: 3}
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     with _plain_kernels():
         kernels.reset_launches()

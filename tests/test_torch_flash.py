@@ -6,8 +6,11 @@ interpret mode, on the shapes tests/test_pallas.py pins, causal and not,
 comparing both outputs (o and the per-row lse) at rtol/atol 1e-5 in
 float32: the same math in another summation order.  The CUDA kernel
 itself runs only on a GPU: tests/test_torch_cuda.py holds it against the
-plain version on the card.
+plain version on the card.  A numpy model of the kernel's bf16 P V
+product shows why it splits P into two bf16 parts.
 """
+
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +45,8 @@ def _pallas(q, k, v, causal, **blocks):
     (1, 2, 40, 16, {}),
     # S=20 with 16-blocks: the Pallas zero-pad + key-mask path
     (1, 2, 20, 8, {"block_q": 16, "block_k": 16}),
+    # the largest head dim the forward kernel takes
+    (1, 2, 24, 128, {}),
 ])
 def test_plain_matches_pallas(causal, b, h, s, d, blocks):
     q, k, v = _qkv(0, b, h, s, d)
@@ -103,6 +108,54 @@ def test_library_name_follows_source_and_flags():
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libflash_attention_fwd_")
     assert path.suffix == ".so"
+
+
+def test_library_name_follows_the_shared_headers(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    names = {s: kernels.library_path(s, csrc)
+             for s in ("fused_ce.cu", "fused_ce_bwd.cu",
+                       "flash_attention_fwd.cu")}
+    # the same sources and headers: the same names as the package's
+    assert names == {s: kernels.library_path(s) for s in names}
+    with open(csrc / "fused_ce_mma.cuh", "a") as f:
+        f.write("// edited\n")
+    for s, before in names.items():
+        assert kernels.library_path(s, csrc) != before, s
+    edited = {s: kernels.library_path(s, csrc) for s in names}
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    for s, before in edited.items():
+        assert kernels.library_path(s, csrc) != before, s
+
+
+def _bf16(a):
+    """float32 to bfloat16 and back, rounded to nearest even (cvt.rn)."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def test_bf16_hi_lo_split_of_p_keeps_float32_accuracy():
+    # the kernel's bf16 P V: p (float32 in meaning) = hi + lo, both bf16,
+    # each multiplied with V (bf16, exact); against float64 at the serving
+    # geometry (S 512, d 64, causal)
+    rng = np.random.RandomState(0)
+    s_len, d = 512, 64
+    q, k = (rng.randn(s_len, d).astype("float32") for _ in range(2))
+    v = _bf16(rng.randn(s_len, d)).astype("float64")
+    s = q.astype("float64") @ k.T.astype("float64") / np.sqrt(d)
+    s = np.where(np.tril(np.ones((s_len, s_len), bool)), s, -np.inf)
+    p = np.exp(s - s.max(1, keepdims=True)).astype("float32")
+    l = p.astype("float64").sum(1, keepdims=True)
+    ref = p.astype("float64") @ v / l
+    hi = _bf16(p)
+    lo = _bf16(p - hi)
+    two = (hi.astype("float64") @ v + lo.astype("float64") @ v) / l
+    one = hi.astype("float64") @ v / l
+    assert np.abs(two - ref).max() <= 1e-5
+    # one bf16 rounding of p misses the kernels' 1e-4 gate
+    assert np.abs(one - ref).max() > 1e-4
 
 
 def test_plain_empty_keys_mask_every_row():

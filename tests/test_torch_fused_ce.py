@@ -14,10 +14,12 @@ same values to bfloat16 but sum in another order).  The CUDA kernels run
 only on a GPU: tests/test_torch_cuda.py holds them against the plain
 versions on the card.
 
-The backward kernels' float32 products are 3xTF32 on the tensor cores;
-a numpy emulation of ``cvt.rna.tf32.f32`` here shows, on LM-head-like
-operands against a float64 product, why three TF32 products meet the
-float32 gates where one does not.
+The kernels' float32 products are 3xTF32 on the tensor cores; a numpy
+emulation of ``cvt.rna.tf32.f32`` here shows, on LM-head-like operands
+against a float64 product, why three TF32 products meet the float32 gates
+where one does not.  A numpy model of the forward kernel's merge (per
+thread, quad, warp and vocab slice, then the fixed-order combine) is held
+against the Pallas forward at 1e-6.
 """
 
 import jax
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from flexflow_tpu.ops.pallas.fused_ce import fused_linear_ce as j_fused
+from flexflow_tpu.ops.pallas.fused_ce import fused_linear_ce_partial
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.kernels import fused_ce as ce
 
@@ -206,3 +209,116 @@ def test_dx_splits_fill_the_card():
         assert rows * s <= 2 * 132 + rows
     assert ce.dx_splits(1000, 50257, 132) > 1
     assert ce.dx_splits(5, 3, 132) == 1
+
+
+def test_fwd_splits_fill_the_card():
+    # the LM head: 128 row blocks x 2 vocab slices = 256 blocks on 132 SMs
+    s = ce.fwd_splits(8192, 32768, 132)
+    assert s == 2 and -(-8192 // ce.DX_ROWS) * s >= 132
+    for n, v in ((8192, 50257), (1000, 50257), (130, 4099), (77, 300),
+                 (5, 3), (256, 300)):
+        s = ce.fwd_splits(n, v, 132)
+        rows = -(-n // ce.DX_ROWS)
+        assert 1 <= s <= -(-v // ce.DX_COLS)
+        assert rows * s <= 2 * 132 + rows
+    # short rows: one slice per vocab tile, the ragged last one included
+    assert ce.fwd_splits(130, 4099, 132) == 17
+    assert ce.fwd_splits(1000, 50257, 132) > 1
+    assert ce.fwd_splits(5, 3, 132) == 1
+    assert ce.fwd_splits(64, 256, 132) == 1
+
+
+_NEG_INF = np.float32(-np.inf)
+
+
+def _run_fold(state, s, cols, lab):
+    """One thread's fold of its tile columns ``cols`` (scores ``s``, -inf
+    past V) into its running (max, sum, label logit) per row."""
+    m, l, c = state
+    c = c + np.where(cols[None, :] == lab[:, None], s, 0).sum(1)
+    mn = np.maximum(m, s.max(1))
+    live = mn > _NEG_INF          # a row with no column < V yet: unchanged
+    safe = np.where(live, mn, np.float32(0))
+    add = np.exp(s - safe[:, None]).sum(1, dtype=np.float32)
+    l = np.where(live, l * np.exp(m - safe) + add, l)
+    return np.where(live, mn, m), l.astype(np.float32), c
+
+
+def _run_merge(a, b):
+    m = np.maximum(a[0], b[0])
+    safe = np.where(m > _NEG_INF, m, np.float32(0))
+    la = np.where(a[0] > _NEG_INF, a[1] * np.exp(a[0] - safe), 0)
+    lb = np.where(b[0] > _NEG_INF, b[1] * np.exp(b[0] - safe), 0)
+    return m, (la + lb).astype(np.float32), a[2] + b[2]
+
+
+def _forward_model(x, w, b, lab, splits):
+    """The forward kernel's arithmetic in numpy float32: each slice s
+    walks the 256-column tiles s, s + S, ...; in a tile, warp wn holds 64
+    columns and its quad lane t the 16 columns 8 nt + 2 t + (0, 1); each
+    lane folds its columns into running states, the quad merges by the
+    xor butterfly, the warps merge in order, then the slices' partials
+    (and an all-padded one, m = -inf, l = 0) merge in slice order."""
+    n = x.shape[0]
+    v = w.shape[1]
+    tiles = -(-v // ce.DX_COLS)
+    logits = (x @ w + b).astype(np.float32)
+    lab = np.where((lab >= 0) & (lab < v), lab, -1)
+    nt8 = np.arange(8) * 8
+    parts = []
+    for s in range(splits):
+        warps = []
+        for wn in range(ce.DX_COLS // 64):
+            lanes = []
+            for t in range(4):
+                st = (np.full(n, _NEG_INF), np.zeros(n, np.float32),
+                      np.zeros(n, np.float32))
+                for j in range(s, tiles, splits):
+                    base = j * ce.DX_COLS + wn * 64 + 2 * t
+                    cols = np.sort(np.concatenate([base + nt8,
+                                                   base + nt8 + 1]))
+                    sc = np.full((n, cols.size), _NEG_INF)
+                    ok = cols < v
+                    sc[:, ok] = logits[:, cols[ok]]
+                    st = _run_fold(st, sc, cols, lab)
+                lanes.append(st)
+            for off in (1, 2):
+                lanes = [_run_merge(lanes[t], lanes[t ^ off])
+                         for t in range(4)]
+            warps.append(lanes[0])
+        part = warps[0]
+        for other in warps[1:]:
+            part = _run_merge(part, other)
+        parts.append(part)
+    parts.append((np.full(n, _NEG_INF), np.zeros(n, np.float32),
+                  np.zeros(n, np.float32)))
+    m = np.max([p[0] for p in parts], axis=0)
+    l = np.zeros(n, np.float32)
+    c = np.zeros(n, np.float32)
+    for pm, pl_, pc in parts:
+        safe = np.where(pm > _NEG_INF, pm - m, np.float32(0))
+        l = l + np.where(pm > _NEG_INF, pl_ * np.exp(safe), 0)
+        c = c + pc
+    lse = m + np.log(np.maximum(l, np.float32(1e-30)))
+    return (lse - c).astype(np.float32), lse.astype(np.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 4, 17])
+def test_forward_slice_merge_model_matches_pallas(splits):
+    rng = np.random.RandomState(11)
+    n, d, v = 40, 24, 4099       # 17 vocab tiles, the last with 3 columns
+    x = rng.randn(n, d).astype("float32")
+    w = (rng.randn(d, v) * 0.3).astype("float32")
+    b = (rng.randn(v) * 0.3).astype("float32")
+    lab = rng.randint(0, v, (n,)).astype("int32")
+    lab[::5] = -1
+    lab[2] = v + 1
+    lab[3] = v - 1                # the ragged tile's last column
+    nll_j, lse_j = fused_linear_ce_partial(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(lab),
+        block_n=16, block_v=512, interpret=True)
+    with np.errstate(invalid="ignore", over="ignore"):
+        nll, lse = _forward_model(x, w, b, lab, splits)
+    assert np.isfinite(nll).all() and np.isfinite(lse).all()
+    np.testing.assert_allclose(lse, np.asarray(lse_j), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(nll, np.asarray(nll_j), rtol=1e-6, atol=1e-6)
