@@ -16,8 +16,10 @@ Phases (any failure exits non-zero):
 1. CUDA present, card name and power limit (nvidia-smi);
 2. build every kernel from ``flexflow_tpu_torch/csrc/`` (one nvcc per
    source, all started together) and print the build seconds, then each
-   kernel's registers and spills from ptxas (kernels 1 and 4 must spill
-   nothing) and the dynamic shared memory of kernels 1 and 4;
+   kernel's registers and spills from ptxas (kernels 1-4 must spill
+   nothing), the dynamic shared memory of kernels 1-4, and the tensor-core
+   (HMMA) instructions of each instance of kernels 2-3 in
+   ``cuobjdump -sass`` of their library (each must have some);
 3. flash kernel phase: flash_attention_fwd against its plain version at
    the serving shape (8, 12, 512, 64) causal in float32 and bfloat16, a
    ragged S = 77, a non-causal case, head dim 128 (causal and ragged, in
@@ -25,10 +27,13 @@ Phases (any failure exits non-zero):
    ``scaled_dot_product_attention``'s (a yardstick the port never calls)
    at the serving shape, and its time at head dim 128;
 4. flash backward phase: kernels 2 (dk, dv) and 3 (dq) against the
-   plain backward at the LM training shape (16, 12, 512, 64) causal in
-   float32 and bfloat16 and a ragged non-causal cross case (Sq 77, Sk
-   300); then their times beside the plain backward's and the backward of
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   plain backward at the LM training shape (16, 12, 512, 64) causal, a
+   ragged non-causal cross case (Sq 77, Sk 300), head dim 128 causal at
+   (4, 16, 512, 128) and ragged (Sq 77 causal; Sq 77, Sk 300), each in
+   float32 and bfloat16; that two calls give the same bits; then their
+   times at the LM shape and at (4, 16, 512, 128) beside the plain
+   backward's and the backward of ``scaled_dot_product_attention`` (a
+   yardstick the port never calls);
 5. fused cross-entropy phase: kernels 4 (forward, then its finishing
    combine over the vocab slices), 5 (dx, then its finishing sum over
    the vocab slices) and 6 (dw, db) against their plain versions at the LM head's N = 8192, d = 768, V = 32768 in
@@ -68,13 +73,21 @@ Phases (any failure exits non-zero):
    and 6, and the first 3
    losses within 1e-4 (relative) of the same run with every kernel
    swapped for its plain version; tokens/s, step ms and peak memory;
-10. Inception training slice: ``apps.cnn inception`` at bench.py's
+10. LM training slice at the widths of the JAX package's ``gpt-1.3b``
+    preset (``flexflow_tpu/models/gpt.py``: 24 layers, d_model 2048, 16
+    heads of 128, d_ff 8192, vocab 32768, batch 16, seq 512; 1.34 B
+    parameters), float32, plain SGD at lr 1e-3, 1 warm-up and 2 timed
+    steps: finite losses, per step 24 launches each of kernels 1, 2 and 3
+    and one each of kernels 4-6 and their finishing passes, and the first
+    2 losses within 1e-4 (relative) of the same run with every kernel
+    swapped for its plain version; tokens/s, step ms and peak memory;
+11. Inception training slice: ``apps.cnn inception`` at bench.py's
     protocol (batch 256, 299x299, bfloat16 compute, float32 params, lr
     0.01, wd 1e-4, momentum 0, seeded random data) for 3 warm-up and 10
     timed steps: finite losses, 4 max-pool and 1 avg-pool kernel launches
     per step, and the first 3 losses within 2e-2 of the same run with the
     plain pools; images/s, step ms and peak memory;
-11. DenseNet training slice: ``apps.cnn densenet`` at full width and
+12. DenseNet training slice: ``apps.cnn densenet`` at full width and
     depth (batch 64, 224x224, bfloat16 compute, float32 params, the same
     protocol) for 3 warm-up and 10 timed steps: finite losses, per step
     117 launches each of kernel 9, kernel 10 and its finishing sum, one
@@ -82,9 +95,9 @@ Phases (any failure exits non-zero):
     first loss equal to the run with kernels 7-10 swapped for their plain
     versions and the next two within 1e-3 (relative) of it; images/s,
     step ms and peak memory;
-12. (``--profile``) where the device time of one decode step, one LM
+13. (``--profile``) where the device time of one decode step, one LM
     training step, one Inception and one DenseNet training step goes;
-13. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+14. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
 Times come from CUDA events over repeated launches after a warm-up; a
 kernel's launches are enqueued behind a sleep kernel, so its time is the
@@ -92,8 +105,8 @@ device's even where launching it costs the host more (steps are timed
 without the sleep, at the host's pace).  ``bound_ms`` is the larger of the bytes a call must move (each input read
 once, each output written once) at 3.35 TB/s and its FLOPs at the peak
 for the input type: 67 TFLOP/s float32 outside the tensor cores, 989
-TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  Kernels 1
-and 4-6 run a float32 product as three TF32 tensor-core products
+TFLOP/s bfloat16 — the H100 SXM data-sheet rates at 700 W.  Kernels 1-6
+run a float32 product as three TF32 tensor-core products
 (3xTF32, float32's accuracy from TF32's rate), so their float32 bound is
 three times the FLOPs at 495 TFLOP/s: a rate they can reach, where 67
 TFLOP/s would understate what the card can do for them.  The finishing
@@ -113,6 +126,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 # cycles per second the timing's sleep kernel is sized with: at least the
@@ -135,6 +149,11 @@ CE_SHAPE = (16 * 512, 768, 32768)       # N, d, V of its vocab head
 GPT2_VOCAB = 50257
 LM_LOSS_RTOL = 1e-4  # the kernel vs plain-kernel LM runs' first losses
 LM_WARMUP, LM_TIMED, LM_CHECKED = 3, 10, 3
+# the GPT-1.3B widths (flexflow_tpu/models/gpt.py "1.3b"): layers,
+# d_model, heads, d_ff; its steps take about a second each
+LM13_WIDTHS = (24, 2048, 16, 8192)
+LM13_WARMUP, LM13_TIMED, LM13_CHECKED = 1, 2, 2
+BWD_WIDE_SHAPE = (4, 16, 512, 128)      # kernels 2-3 at its head dim
 # the pool kernels do the plain versions' float32 compares, and their
 # float32 adds in the same order, cast once: they must agree exactly
 POOL_ATOL = 0.0
@@ -270,6 +289,25 @@ def _ptxas_report(log: str) -> list:
     return out
 
 
+def _sass_hmma(path) -> dict:
+    """Tensor-core (HMMA) instructions per kernel of a built library, from
+    ``cuobjdump -sass``."""
+    from flexflow_tpu_torch.ops import kernels
+
+    tool = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            kernel = _kernel_name(fn.group(1))
+            counts[kernel] = 0
+        elif kernel and re.search(r"\bHMMA\b", line):
+            counts[kernel] += 1
+    return counts
+
+
 def _max_err(torch, got, ref) -> float:
     """Max |got - ref| where both are finite; raises if the -inf pattern
     (fully masked rows) differs."""
@@ -389,6 +427,21 @@ def _rel_err(torch, got, ref) -> tuple:
     return err, err / max(scale, 1e-30)
 
 
+def _bwd_bounds(shape, dtype) -> dict:
+    """(bound_ms, bound_by) of kernels 2 (dk, dv: 8 d FLOPs per unmasked
+    pair) and 3 (dq: 6 d) on one causal (B, H, S, S) self-attention call;
+    float32 products at the 3xTF32 rate the kernels run them at."""
+    b, h, s, d = shape
+    pairs = b * h * s * (s + 1) // 2
+    io = b * h * s * d * (2 if dtype == "bfloat16" else 4)  # one input
+    out = b * h * s * d * 4         # one float32 gradient
+    rows = b * h * s * 4            # lse or delta
+    rate = "3xtf32" if dtype == "float32" else dtype
+    return {"dkv": _bound(8.0 * d * pairs, 4 * io + 2 * out + 2 * rows,
+                          rate),
+            "dq": _bound(6.0 * d * pairs, 4 * io + out + 2 * rows, rate)}
+
+
 def flash_bwd_phase(torch, fa) -> dict:
     """Kernels 2 and 3 against the plain backward, then their times."""
     gen = torch.Generator(device="cuda")
@@ -405,17 +458,26 @@ def flash_bwd_phase(torch, fa) -> dict:
         return q, k, v, o, lse, do
 
     b, h, s, d = LM_SHAPE
-    cases = [("LM causal float32", LM_SHAPE, s, True, "float32"),
-             ("LM causal bfloat16", LM_SHAPE, s, True, "bfloat16"),
-             ("non-causal Sq=77 Sk=300 float32", (2, h, 77, d), 300, False,
-              "float32"),
-             ("non-causal Sq=77 Sk=300 bfloat16", (2, h, 77, d), 300, False,
-              "bfloat16")]
+    wide = BWD_WIDE_SHAPE
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        cases += [(f"LM causal {dtype}", LM_SHAPE, s, True, dtype),
+                  (f"non-causal Sq=77 Sk=300 {dtype}", (2, h, 77, d), 300,
+                   False, dtype),
+                  (f"d=128 {wide} causal {dtype}", wide, s, True, dtype),
+                  (f"d=128 ragged S=77 causal {dtype}", (2, 16, 77, 128), 77,
+                   True, dtype),
+                  (f"d=128 non-causal Sq=77 Sk=300 {dtype}",
+                   (2, 16, 77, 128), 300, False, dtype)]
     worst = {fa.NAME_DKV: 0.0, fa.NAME_DQ: 0.0}
     for label, shape, sk, causal, dtype in cases:
         q, k, v, o, lse, do = inputs(shape, sk, causal, dtype)
         got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"{label}: two calls of the flash backward "
+                                 f"kernels gave different bits")
         want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
         errs = {n: _rel_err(torch, g, w)
@@ -423,7 +485,8 @@ def flash_bwd_phase(torch, fa) -> dict:
         _log(f"flash bwd check {label}: " + ", ".join(
             f"{n} max_abs_err {e:.3e} ({r:.2e} of max)"
             for n, (e, r) in errs.items())
-             + f" (tolerance {GRAD_RTOL[dtype]:g} of max)")
+             + f" (tolerance {GRAD_RTOL[dtype]:g} of max; two calls give "
+               f"the same bits)")
         if not all(r <= GRAD_RTOL[dtype] for _, r in errs.values()):
             raise AssertionError(f"{label}: flash backward kernels disagree "
                                  f"with the plain version: {errs}")
@@ -431,37 +494,40 @@ def flash_bwd_phase(torch, fa) -> dict:
         worst[fa.NAME_DKV] = max(worst[fa.NAME_DKV], errs["dk"][0],
                                  errs["dv"][0])
 
-    # times at the LM training shape in float32, the path's dtype
-    q, k, v, o, lse, do = inputs(LM_SHAPE, s, True, "float32")
-    delta = (do * o).sum(-1)
-    pairs = b * h * sum(min(i + 1, s) for i in range(s))
-    io = b * h * s * d * 4          # one (B, H, S, d) float32 tensor
-    rows = b * h * s * 4            # one (B, H, S) float32 vector
-    dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(
-        q, k, v, do, lse, delta, True), iters=20)
-    dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(
-        q, k, v, do, lse, delta, True), iters=20)
-    plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
-        q, k, v, o, lse, do, True), iters=10)
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
-                                                           is_causal=True)
-    sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
-        out, (qs, ks, vs), do, retain_graph=True), iters=20)
-    timings = {
-        fa.NAME_DKV: dict(ms=dkv_ms, plain_ms=plain_ms, library_ms=sdpa_ms),
-        fa.NAME_DQ: dict(ms=dq_ms, plain_ms=plain_ms, library_ms=sdpa_ms)}
-    timings[fa.NAME_DKV]["bound_ms"], timings[fa.NAME_DKV]["bound_by"] = \
-        _bound(8.0 * d * pairs, 6 * io + 2 * rows, "float32")
-    timings[fa.NAME_DQ]["bound_ms"], timings[fa.NAME_DQ]["bound_by"] = \
-        _bound(6.0 * d * pairs, 5 * io + 2 * rows, "float32")
-    for name, t in timings.items():
-        _log(f"flash bwd time {name} LM causal float32: kernel "
-             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-             f"({t['bound_by']})")
-    _log(f"flash bwd time LM causal float32: kernels 2+3 "
-         f"{dkv_ms + dq_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
-         f"sdpa backward {sdpa_ms:.4f} ms (dq, dk and dv each)")
+    # times at the LM training shape in float32, the path's dtype, then at
+    # head dim 128 in both dtypes
+    timings = {}
+    for shape, dtype in ((LM_SHAPE, "float32"), (wide, "float32"),
+                         (wide, "bfloat16")):
+        q, k, v, o, lse, do = inputs(shape, shape[2], True, dtype)
+        delta = (do * o).sum(-1)
+        do_k = do.to(q.dtype)
+        dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, do_k, lse, delta, True), iters=20)
+        dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, v, do_k, lse, delta, True), iters=20)
+        plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, True), iters=10)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do_k, retain_graph=True), iters=20)
+        bounds = _bwd_bounds(shape, dtype)
+        t = {fa.NAME_DKV: dict(ms=dkv_ms, plain_ms=plain_ms,
+                               library_ms=sdpa_ms),
+             fa.NAME_DQ: dict(ms=dq_ms, plain_ms=plain_ms,
+                              library_ms=sdpa_ms)}
+        for name, key in ((fa.NAME_DKV, "dkv"), (fa.NAME_DQ, "dq")):
+            t[name]["bound_ms"], t[name]["bound_by"] = bounds[key]
+            _log(f"flash bwd time {name} {shape} causal {dtype}: kernel "
+                 f"{t[name]['ms']:.4f} ms, bound {t[name]['bound_ms']:.4f} "
+                 f"ms ({t[name]['bound_by']})")
+        _log(f"flash bwd time {shape} causal {dtype}: kernels 2+3 "
+             f"{dkv_ms + dq_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+             f"sdpa backward {sdpa_ms:.4f} ms (dq, dk and dv each)")
+        if shape == LM_SHAPE:
+            timings = t
     return {"worst": worst, "timings": timings}
 
 
@@ -1007,67 +1073,84 @@ def bn_kernel_phase(torch) -> dict:
     return {"worst": worst, "step": step}
 
 
-def _lm_argv(iters: int, warmup: int) -> list:
-    return ["--causal", "-b", "16", "-s", "512", "-l", "12", "--d-model",
-            "768", "--heads", "12", "--d-ff", "3072", "--vocab", "32768",
-            "-i", str(iters), "--warmup", str(warmup), "--device", "cuda"]
+def _lm_argv(iters: int, warmup: int, widths=(12, 768, 12, 3072)) -> list:
+    layers, d_model, heads, d_ff = widths
+    return ["--causal", "-b", "16", "-s", "512", "-l", str(layers),
+            "--d-model", str(d_model), "--heads", str(heads), "--d-ff",
+            str(d_ff), "--vocab", "32768", "-i", str(iters), "--warmup",
+            str(warmup), "--device", "cuda"]
 
 
-def lm_phase(torch, kernels, card: str) -> dict:
+def lm_phase(torch, kernels, card: str, widths=(12, 768, 12, 3072),
+             steps=(LM_WARMUP, LM_TIMED, LM_CHECKED), tag="lm") -> dict:
     """``apps.lm`` at full width through kernels 1-6, then its first
     losses against the run with every kernel swapped for its plain
-    version."""
+    version.  ``widths`` (layers, d_model, heads, d_ff) default to the
+    JAX app's example; ``steps`` are (warm-up, timed, checked)."""
+    import gc
+
     from flexflow_tpu_torch.apps import lm
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.ops.kernels import fused_ce as ce
 
-    iters = LM_WARMUP + LM_TIMED
+    warmup, timed, checked = steps
+    iters = warmup + timed
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    out = lm.main(_lm_argv(iters, LM_WARMUP), log=_log)
+    out = lm.main(_lm_argv(iters, warmup, widths), log=_log)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = out["loss"]
-    step_ms = out["elapsed_s"] / LM_TIMED * 1e3
-    _log(f"lm: {iters} steps ({LM_WARMUP} warm-up); launches by kernel "
+    step_ms = out["elapsed_s"] / timed * 1e3
+    _log(f"{tag}: {iters} steps ({warmup} warm-up); launches by kernel "
          f"{launches}")
-    _log(f"lm: losses {losses}")
-    layers = 12
+    _log(f"{tag}: losses {losses}")
+    layers = widths[0]
     want = {fa.NAME: layers * iters, fa.NAME_DKV: layers * iters,
             fa.NAME_DQ: layers * iters, ce.NAME_FWD: iters,
             ce.NAME_FWD_COMBINE: iters, ce.NAME_DX: iters,
             ce.NAME_DX_SUM: iters, ce.NAME_DW: iters}
     if launches != want:
-        raise AssertionError(f"LM kernels launched {launches}, expected "
-                             f"{want} (12 + 12 + 12 + 1 + 1 + 1 per step, "
-                             f"and the finishing passes of kernels 4 and 5)")
+        raise AssertionError(f"{tag} kernels launched {launches}, expected "
+                             f"{want} ({layers} + {layers} + {layers} + 1 + "
+                             f"1 + 1 per step, and the finishing passes of "
+                             f"kernels 4 and 5)")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite LM loss: {losses}")
+        raise AssertionError(f"non-finite {tag} loss: {losses}")
     if abs(losses[0] - math.log(32768)) > 0.25:
         raise AssertionError(f"first LM loss {losses[0]} is not near "
                              f"ln 32768 = {math.log(32768):.4f}")
-    _log(f"lm: {out['tokens_per_sec']:.1f} tokens/s "
+    _log(f"{tag}: {out['tokens_per_sec']:.1f} tokens/s "
          f"({out['images_per_sec']:.3f} sequences/s), {step_ms:.2f} ms per "
          f"step, peak memory {peak_gb:.2f} GB (max_memory_allocated) — "
          f"{card}")
+    tokens_per_sec = out["tokens_per_sec"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
 
     with _plain_kernels():
         kernels.reset_launches()
-        ref = lm.main(_lm_argv(LM_CHECKED, 0), log=lambda *a: None)
+        ref = lm.main(_lm_argv(checked, 0, widths), log=lambda *a: None)
         if sum(kernels.launches.values()):
-            raise AssertionError("the plain-kernel LM run launched a kernel")
+            raise AssertionError(f"the plain-kernel {tag} run launched a "
+                                 f"kernel")
     torch.cuda.synchronize()
-    got, want_l = losses[:LM_CHECKED], ref["loss"]
+    got, want_l = losses[:checked], ref["loss"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
     rel = max(abs(a - c) / max(abs(c), 1e-30) for a, c in zip(got, want_l))
-    _log(f"lm: first {LM_CHECKED} losses {got} vs plain kernels {want_l}: "
+    _log(f"{tag}: first {checked} losses {got} vs plain kernels {want_l}: "
          f"max rel diff {rel:.3e} (tolerance {LM_LOSS_RTOL:g})")
     if not rel <= LM_LOSS_RTOL:
-        raise AssertionError(f"LM losses differ from the plain-kernel run "
+        raise AssertionError(f"{tag} losses differ from the plain-kernel run "
                              f"by {rel}")
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
-            "tokens_per_sec": out["tokens_per_sec"]}
+            "tokens_per_sec": tokens_per_sec}
 
 
 def _kernel_kind(key: str) -> str:
@@ -1412,15 +1495,29 @@ def main(argv) -> int:
         for kernel, regs, spills in _ptxas_report(info["log"]):
             _log(f"build {source}: {kernel}: {regs} registers, spill "
                  f"stores/loads {spills} bytes")
-            # kernels 1 and 4 keep their accumulators in registers
-            if source in (fa.SOURCE, ce.SOURCE) and spills != "0/0":
+            # kernels 1-4 keep their accumulators in registers
+            if source in (fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE) \
+                    and spills != "0/0":
                 raise AssertionError(f"{source}: {kernel} spills registers "
                                      f"({spills} bytes)")
-    flash_lib, ce_lib = fa._lib(), ce._lib()
+    flash_lib, bwd_lib, ce_lib = fa._lib(), fa._lib_bwd(), ce._lib()
     _log("build smem flash_fwd_kernel (dynamic, bytes): " + ", ".join(
         f"d {d} float32 {flash_lib.ff_flash_attention_fwd_smem(d, 0)} "
         f"bfloat16 {flash_lib.ff_flash_attention_fwd_smem(d, 1)}"
         for d in fa.HEAD_DIMS_FWD))
+    for which, kernel in enumerate(("flash_bwd_dkv_kernel",
+                                    "flash_bwd_dq_kernel")):
+        _log(f"build smem {kernel} (dynamic, bytes): " + ", ".join(
+            f"d {d} float32 {bwd_lib.ff_flash_attention_bwd_smem(which, d, 0)}"
+            f" bfloat16 {bwd_lib.ff_flash_attention_bwd_smem(which, d, 1)}"
+            for d in fa.HEAD_DIMS_BWD))
+    hmma = {k: n for k, n in _sass_hmma(built[fa.SOURCE_BWD]["path"])
+            .items() if k.startswith("flash_bwd_")}
+    _log(f"build sass {fa.SOURCE_BWD}: HMMA instructions per kernel {hmma}")
+    if len(hmma) != 4 * len(fa.HEAD_DIMS_BWD) or not all(hmma.values()):
+        raise AssertionError(f"{fa.SOURCE_BWD}: every instance of kernels "
+                             f"2-3 must run its products on the tensor "
+                             f"cores (HMMA): {hmma}")
     _log(f"build smem ce_fwd_kernel (dynamic, bytes): float32 "
          f"{ce_lib.ff_fused_ce_fwd_smem(0)}, bfloat16 "
          f"{ce_lib.ff_fused_ce_fwd_smem(1)}")
@@ -1432,6 +1529,8 @@ def main(argv) -> int:
     bns = bn_kernel_phase(torch)
     sliced = slice_phase(torch, fa, kernels)
     lm_run = lm_phase(torch, kernels, card)
+    lm_phase(torch, kernels, card, LM13_WIDTHS,
+             (LM13_WARMUP, LM13_TIMED, LM13_CHECKED), "lm 1.3b")
     trained = training_phase(torch, kernels, card)
     dense = densenet_phase(torch, kernels, card)
     if "--profile" in argv:

@@ -117,18 +117,6 @@ struct QFrags {
   uint32_t big[D / 8][4], small[D / 8][4];
 };
 
-// A fragment (16 rows x 8 deep) of a float32 [m][k] tile, split
-__device__ __forceinline__ void a_frag_tf32(const float* s, int ld,
-                                            uint32_t big[4],
-                                            uint32_t small[4]) {
-  const int lane = static_cast<int>(threadIdx.x) % 32;
-  const int q = lane / 8;
-  uint32_t raw[4];
-  ldmatrix4<false>(raw, s + (lane % 8 + 8 * (q % 2)) * ld + 4 * (q / 2));
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), big[e], small[e]);
-}
-
 // S = Q K^T of one K tile, float32 operands in 3xTF32
 template <int D>
 __device__ __forceinline__ void scores_tf32(const float* qs, const float* ks,
@@ -234,13 +222,6 @@ __device__ __forceinline__ void pv_tf32(const float* vs, const Scores p,
       for (int j = 0; j < GROUP; ++j) mma_tf32(o[n0 + j], ab, bb[j]);
     }
   }
-}
-
-// (bf16(a) in the low half, bf16(b) in the high half), rounded to nearest
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(b), "f"(a));
-  return r;
 }
 
 // O += P V of one V tile with bf16 V: P split into bf16 hi and lo parts,

@@ -1,7 +1,9 @@
 // Warp-level building blocks of the port's tensor-core kernels for Hopper
 // (sm_90a): cp.async copies into shared memory, the 3xTF32 split,
-// mma.sync products (m16n8k8 TF32, m16n8k16 bf16) and ldmatrix.  Included
-// by fused_ce_mma.cuh (kernels 4-6) and flash_attention_fwd.cu (kernel 1).
+// mma.sync products (m16n8k8 TF32, m16n8k16 bf16), ldmatrix, a split TF32
+// A fragment and the bf16 pair packing.  Included by fused_ce_mma.cuh
+// (kernels 4-6) and flash_attention_fwd.cu / flash_attention_bwd.cu
+// (kernels 1-3).
 
 #pragma once
 
@@ -82,6 +84,25 @@ __device__ __forceinline__ void ldmatrix4(uint32_t r[4], const void* row) {
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(a));
   }
+}
+
+// A fragment (16 rows x 8 deep) of a float32 [m][k] tile, split
+__device__ __forceinline__ void a_frag_tf32(const float* s, int ld,
+                                            uint32_t big[4],
+                                            uint32_t small[4]) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int q = lane / 8;
+  uint32_t raw[4];
+  ldmatrix4<false>(raw, s + (lane % 8 + 8 * (q % 2)) * ld + 4 * (q / 2));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), big[e], small[e]);
+}
+
+// (bf16(a) in the low half, bf16(b) in the high half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(b), "f"(a));
+  return r;
 }
 
 }  // namespace

@@ -40,7 +40,7 @@ SOURCE_BWD = "flash_attention_bwd.cu"
 #: head dims the forward kernel and the backward kernels are instantiated
 #: for
 HEAD_DIMS_FWD = (8, 16, 32, 64, 128)
-HEAD_DIMS_BWD = (8, 16, 32, 64)
+HEAD_DIMS_BWD = HEAD_DIMS_FWD
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -184,6 +184,8 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.ff_flash_attention_bwd_dq.argtypes = [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         lib.ff_flash_attention_bwd_dq.restype = ctypes.c_int
+        lib.ff_flash_attention_bwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.ff_flash_attention_bwd_smem.restype = ctypes.c_int
     return lib
 
 

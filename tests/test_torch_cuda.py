@@ -280,6 +280,9 @@ def _close(got, want, dtype, what):
     ((1, 2, 40, 16), 100, False),      # Sq != Sk, small head dim
     ((1, 2, 100, 32), 40, True),       # Sq > Sk, causal
     ((2, 2, 33, 8), 33, True),
+    ((2, 16, 512, 128), 512, True),    # the GPT-1.3B widths' head dim
+    ((2, 3, 77, 128), 77, True),       # ragged, head dim 128
+    ((2, 3, 77, 128), 300, False),
 ])
 def test_flash_bwd_kernels_match_plain(gpu, dtype, shape, sk, causal):
     q, k, v = _qkv(4, shape, sk, dtype, gpu)
@@ -313,11 +316,30 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(gpu):
                                         o.half(), lse, delta)
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.flash_attention_bwd_dkv_cuda(q, k.cpu(), v, o, lse, delta)
-    # head dim 128: the forward runs, the backward kernels refuse it
-    q, k, v = _qkv(6, (1, 2, 16, 128), 16, torch.float32, gpu)
-    o, lse = flash_attention_fwd_cuda(q, k, v, True)
+    # head dim 96, which no kernel is built for: the backward refuses it
+    q, k, v = _qkv(6, (1, 2, 16, 96), 16, torch.float32, gpu)
+    o, lse = flash_attention_fwd_plain(q, k, v, True)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o), True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,sk,causal", [
+    ((4, 12, 512, 64), 512, True),
+    ((2, 4, 77, 128), 300, False),
+])
+def test_flash_bwd_kernels_give_the_same_bits_in_every_call(gpu, dtype,
+                                                           shape, sk,
+                                                           causal):
+    q, k, v = _qkv(7, shape, sk, dtype, gpu)
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    do = torch.from_numpy(np.random.RandomState(8).randn(*shape).astype(
+        "float32")).to(gpu)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 def _ce_inputs(seed, n, d, v, dtype, device):

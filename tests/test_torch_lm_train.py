@@ -137,6 +137,33 @@ def test_three_sgd_steps_match_jax(machine1, pallas_on, dtype):
             assert err <= tol * scale, f"{key}.{leaf}: {err:.3e}"
 
 
+def test_three_sgd_steps_match_jax_at_head_dim_128(machine1, pallas_on):
+    # the GPT-1.3B preset's head dim (2048 / 16) at a small size: both
+    # sides run the flash backward at d 128
+    small = dict(CFG, seq_length=16, d_model=256, num_heads=2, d_ff=64)
+    jm = JLM(JTConfig(**small, pallas="on"), machine1)
+    tm = TLM(TTConfig(**small), device="cpu")
+    assert {op.name: op for op in tm.layers}["blk0_attn"].head_dim == 128
+    jp, _ = jm.init(0)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jstep, tstep = jm.make_train_step(), tm.make_train_step()
+    jopt, topt, js, ts = None, None, {}, {}
+    toks = np.random.RandomState(11).randint(0, 64, (8, 16)).astype("int32")
+    j_losses, t_losses = [], []
+    for _ in range(STEPS):
+        jp, js, jopt, jl = jstep(jp, js, jopt, toks, toks)
+        tp, ts, topt, tl = tstep(tp, ts, topt, toks, toks)
+        j_losses.append(float(jl))
+        t_losses.append(float(tl))
+    np.testing.assert_allclose(t_losses, j_losses, rtol=TOL["float32"])
+    assert t_losses[-1] < t_losses[0]
+    for key, leaves in jax.tree.map(np.asarray, jp).items():
+        scale = max(float(np.abs(v).max()) for v in leaves.values())
+        for leaf, want in leaves.items():
+            err = float(np.abs(tp[key][leaf].numpy() - want).max())
+            assert err <= TOL["float32"] * scale, f"{key}.{leaf}: {err:.3e}"
+
+
 def test_mixed_precision_step_keeps_float32_masters():
     tm = TLM(TTConfig(**CFG, compute_dtype="bfloat16",
                       param_dtype="bfloat16"), device="cpu")
