@@ -16,10 +16,11 @@ Phases (any failure exits non-zero):
 1. CUDA present, card name and power limit (nvidia-smi);
 2. build every kernel from ``flexflow_tpu_torch/csrc/`` (one nvcc per
    source, all started together) and print the build seconds, then each
-   kernel's registers and spills from ptxas (kernels 1-4 must spill
-   nothing), the dynamic shared memory of kernels 1-4, and the tensor-core
-   (HMMA) instructions of each instance of kernels 2-3 in
-   ``cuobjdump -sass`` of their library (each must have some);
+   kernel's registers and spills from ptxas (kernels 1-4 and the pool
+   kernels 7-8 must spill nothing), the dynamic shared memory of kernels
+   1-4, and the tensor-core (HMMA) instructions of each instance of
+   kernels 2-3 in ``cuobjdump -sass`` of their library (each must have
+   some);
 3. flash kernel phase: flash_attention_fwd against its plain version at
    the serving shape (8, 12, 512, 64) causal in float32 and bfloat16, a
    ragged S = 77, a non-causal case, head dim 128 (causal and ragged, in
@@ -42,12 +43,18 @@ Phases (any failure exits non-zero):
    TFLOP/s beside the plain versions' and the unfused library pair's
    (``x @ w + b``, then ``F.cross_entropy``, forward and backward);
 6. pool kernel phase: the max-pool forward and backward (kernel 7) at
-   Inception's four max-pool geometries at N = 256 in bfloat16 and
-   float32, tie-heavy integer inputs, a pad-1 and a 2x2 geometry, and
-   the avg-pool backward (kernel 8) at the 8x8x2048 global tail, against
-   their plain versions; then kernel, plain and library-yardstick times
-   (``max_pool2d_with_indices`` and its backward, ``avg_pool2d_backward``,
-   which the port never calls) at the main path's shapes;
+   Inception's four max-pool geometries at N = 256 and DenseNet's pool1
+   (64 x 112 x 112 x 64, pad 1) in bfloat16 and float32, tie-heavy
+   integer inputs, a pad-1 and a 2x2 geometry; the avg-pool backward
+   (kernel 8) at the 8x8x2048 global tail and DenseNet's three 2x2/2
+   transitions and 7x7 global pool; each kernel's scalar instance (C = 5,
+   and dy a channel slice at an odd offset, which admits no 16-byte
+   access) beside its 16-byte one; all against their plain versions,
+   exactly, and each called twice for the same bits; then, at every
+   geometry of the two training paths in bfloat16, kernel, plain and
+   library-yardstick times (``max_pool2d_with_indices`` and its
+   backward, ``avg_pool2d_backward``, which the port never calls) beside
+   the byte bound;
 7. BN kernel phase: kernels 9 (fused BN normalize + ReLU forward) and 10
    (its backward: dx and a partial-sum pass, then the finishing sum)
    against their plain versions in float32 and bfloat16, ReLU on and off,
@@ -166,6 +173,12 @@ POOL_N = 256
 INCEPTION_MAX_POOLS = [(147, 147, 64), (73, 73, 192), (36, 36, 288),
                        (17, 17, 768)]
 INCEPTION_AVG_POOL = (8, 8, 2048)
+# DenseNet-121's pool inputs at batch 64: pool1 (3x3 stride 2 pad 1,
+# fused ReLU), and the avg pools (h, w, c, window: the 2x2/2 transitions
+# and the 7x7 global pool, no ReLU)
+DENSENET_MAX_POOL = (112, 112, 64)
+DENSENET_AVG_POOLS = [(56, 56, 128, 2), (28, 28, 256, 2), (14, 14, 512, 2),
+                      (7, 7, 1024, 7)]
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CHECKED = 3, 10, 3
 # kernels 9 and 10 against their plain versions: y and dx agree exactly
 # (the same float32 mul, add and compare, unfused, then one cast); d_inv
@@ -251,6 +264,27 @@ def _bound_ms(shape, sk, causal, dtype) -> tuple:
     return _bound(flops, nbytes, "3xtf32" if dtype == "float32" else dtype)
 
 
+def _template_args(mangled: str) -> list:
+    """The template arguments mangled at the start of ``mangled``
+    (``I...E``): type names, and the values of integer literals."""
+    builtin = {"f": "float32", "h": "uint8", "i": "int", "b": "bool"}
+    args, j = [], 1
+    while j < len(mangled) and mangled[j] != "E":
+        lit = re.match(r"L[a-z](n?\d+)E", mangled[j:])
+        named = re.match(r"\d+", mangled[j:])
+        if lit:
+            args.append(lit.group(1).replace("n", "-"))
+            j += lit.end()
+        elif named:
+            start = j + named.end()
+            args.append(mangled[start:start + int(named.group())])
+            j = start + int(named.group())
+        else:
+            args.append(builtin.get(mangled[j], mangled[j]))
+            j += 1
+    return [a.replace("__nv_bfloat16", "bfloat16") for a in args]
+
+
 def _kernel_name(mangled: str) -> str:
     """A kernel's function name and template arguments from its mangled
     name (the ``<length><name>`` run that ends in ``_kernel``)."""
@@ -260,12 +294,10 @@ def _kernel_name(mangled: str) -> str:
             name = mangled[m.end():m.end() + int(mangled[i:m.end()])]
             if not name.endswith("_kernel"):
                 continue
-            targs = re.match(r"I(\w*?)E", mangled[m.end() + len(name):])
-            if not targs:
+            rest = mangled[m.end() + len(name):]
+            if not rest.startswith("I"):
                 return name
-            t = targs.group(1).replace("13__nv_bfloat16", "bfloat16 ")
-            t = re.sub(r"^f", "float32 ", t).replace("Li", "d=")
-            return f"{name}<{t.strip()}>"
+            return f"{name}<{', '.join(_template_args(rest))}>"
     return mangled
 
 
@@ -773,7 +805,32 @@ def _pool_bytes(*planes) -> int:
     return sum(esize[dt] * n for dt, n in planes)
 
 
-def _maxpool_case(torch, mp, gen, shape, k, p, relu, dtype, ties):
+def _vec_of(kernels, t) -> int:
+    """The channels a pool kernel's thread takes for NHWC ``t``, as the
+    wrappers pick them (every other plane they touch is a fresh
+    allocation, so ``t`` decides)."""
+    isz = t.element_size()
+    return kernels.vec_width(t.shape[3], isz, t.stride()[:3],
+                             [(t.data_ptr(), isz)])
+
+
+def _pool_dy(torch, gen, shape, dtype, offset):
+    """dy of ``shape``: contiguous, or (``offset`` not None) the channel
+    slice at ``offset`` of a tensor 8 channels wider, as a concat's
+    backward hands it over."""
+    if offset is None:
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    n, oh, ow, c = shape
+    wide = torch.randn((n, oh, ow, c + 8), generator=gen,
+                       device="cuda").to(dtype)
+    return wide[..., offset:offset + c]
+
+
+def _maxpool_case(torch, mp, gen, shape, k, p, relu, dtype, ties,
+                  offset=None):
+    """Kernel 7 and its forward against the plain versions, each called
+    twice: (x, y, sel, dy, fwd error, sel mismatches, bwd error, whether
+    the second calls gave the same bits)."""
     n, h, w, c = shape
     if ties:
         x = torch.randint(-3, 4, shape, generator=gen, device="cuda")
@@ -781,144 +838,223 @@ def _maxpool_case(torch, mp, gen, shape, k, p, relu, dtype, ties):
         x = torch.randn(shape, generator=gen, device="cuda")
     x = x.to(getattr(torch, dtype))
     y, sel = mp.maxpool_fwd_cuda(x, k, p, relu)
+    y2, sel2 = mp.maxpool_fwd_cuda(x, k, p, relu)
     y_p, sel_p = mp.maxpool_fwd_plain(x, k, p, relu)
-    dy = torch.randn(y.shape, generator=gen, device="cuda").to(x.dtype)
+    dy = _pool_dy(torch, gen, y.shape, x.dtype, offset)
     dx = mp.maxpool_bwd_cuda(dy, sel, h, w, k, p)
-    dx_p = mp.maxpool_bwd_plain(dy, sel, h, w, k, p)
+    dx2 = mp.maxpool_bwd_cuda(dy, sel, h, w, k, p)
+    dx_p = mp.maxpool_bwd_plain(dy.contiguous(), sel, h, w, k, p)
     torch.cuda.synchronize()
     err_fwd = float((y.float() - y_p.float()).abs().max())
     sel_bad = int((sel != sel_p).sum())
     err_bwd = float((dx.float() - dx_p.float()).abs().max())
-    return x, y, sel, dy, err_fwd, sel_bad, err_bwd
+    same = (torch.equal(y, y2) and torch.equal(sel, sel2)
+            and torch.equal(dx, dx2))
+    return x, y, sel, dy, err_fwd, sel_bad, err_bwd, same
 
 
-def pool_kernel_phase(torch) -> dict:
+def _avgpool_case(torch, ap, gen, shape, kh, relu, dtype, offset=None):
+    """Kernel 8 against its plain version, called twice: (x, dy, error,
+    whether the second call gave the same bits)."""
+    x = torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    y = ap.avgpool_fwd(x, kh, kh, relu)
+    dy = _pool_dy(torch, gen, y.shape, x.dtype, offset)
+    mask = y if relu else None
+    dx = ap.avgpool_bwd_cuda(dy, mask, kh, kh)
+    dx2 = ap.avgpool_bwd_cuda(dy, mask, kh, kh)
+    dx_p = ap.avgpool_bwd_plain(dy.contiguous(), mask, kh, kh)
+    torch.cuda.synchronize()
+    err = float((dx.float() - dx_p.float()).abs().max())
+    return x, dy, err, torch.equal(dx, dx2)
+
+
+def _maxpool_times(torch, mp, x, y, sel, dy, k, p) -> dict:
+    """Forward and backward times at one geometry: the kernels, the plain
+    versions, the library yardstick (``max_pool2d_with_indices`` and its
+    backward on the channels-last NCHW views) and the byte bounds."""
+    aten = torch.ops.aten
+    n, h, w, c = x.shape
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    _, idx = aten.max_pool2d_with_indices(xc, [k, k], [2, 2], [p, p])
+    nx, ny = x.numel(), y.numel()
+    dt = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    bound = _pool_bytes((dt, nx), (dt, ny), ("uint8", ny)) \
+        / HBM_BYTES_PER_S * 1e3
+    return {
+        "fwd": dict(
+            ms=_time_ms(torch, lambda: mp.maxpool_fwd_cuda(x, k, p, True)),
+            plain_ms=_time_ms(torch, lambda: mp.maxpool_fwd_plain(
+                x, k, p, True), iters=10),
+            library_ms=_time_ms(torch, lambda: aten.max_pool2d_with_indices(
+                xc, [k, k], [2, 2], [p, p])),
+            bound_ms=bound),
+        "bwd": dict(
+            ms=_time_ms(torch, lambda: mp.maxpool_bwd_cuda(dy, sel, h, w, k,
+                                                           p)),
+            plain_ms=_time_ms(torch, lambda: mp.maxpool_bwd_plain(
+                dy, sel, h, w, k, p), iters=10),
+            library_ms=_time_ms(
+                torch, lambda: aten.max_pool2d_with_indices_backward(
+                    dyc, xc, [k, k], [2, 2], [p, p], [1, 1], False, idx)),
+            bound_ms=bound),
+    }
+
+
+def _avgpool_times(torch, ap, x, dy, kh) -> dict:
+    """The kernel's, the plain version's and ``avg_pool2d_backward``'s
+    times at one geometry, and the byte bound (dy + dx)."""
+    aten = torch.ops.aten
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    dt = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    return dict(
+        ms=_time_ms(torch, lambda: ap.avgpool_bwd_cuda(dy, None, kh, kh)),
+        plain_ms=_time_ms(torch, lambda: ap.avgpool_bwd_plain(dy, None, kh,
+                                                              kh), iters=20),
+        library_ms=_time_ms(torch, lambda: aten.avg_pool2d_backward(
+            dyc, xc, [kh, kh], [kh, kh], [0, 0], False, True, None)),
+        bound_ms=_pool_bytes((dt, dy.numel()), (dt, x.numel()))
+        / HBM_BYTES_PER_S * 1e3)
+
+
+def _log_times(what: str, t: dict) -> None:
+    _log(f"pool time {what}: kernel {t['ms']:.4f} ms, plain "
+         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+         f"{t['bound_ms']:.4f} ms (bytes, {t['bound_ms'] / t['ms']:.0%} of "
+         f"it reached)")
+
+
+def pool_kernel_phase(torch, kernels) -> dict:
     """Kernels 7 (with its forward) and 8 against their plain versions,
-    then their times at the training path's shapes."""
+    both instances of each (16-byte vectors and one channel a thread),
+    then their times at every geometry of the training paths."""
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
     from flexflow_tpu_torch.ops.kernels import maxpool as mp
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    h, w, c = DENSENET_MAX_POOL
+    dense = (DENSENET_BATCH, h, w, c)
+    # (label, shape, k, p, relu, dtype, ties, dy offset, thread's channels)
     cases = [(f"inception {h}x{w}x{c}", (POOL_N, h, w, c), 3, 0, True,
-              dtype, ties)
+              dtype, ties, None, "vector")
              for (h, w, c) in INCEPTION_MAX_POOLS
              for dtype, ties in (("bfloat16", False), ("float32", False),
                                  ("bfloat16", True))]
+    cases += [("densenet pool1", dense, 3, 1, True, dtype, ties, None,
+               "vector")
+              for dtype, ties in (("bfloat16", False), ("float32", False),
+                                  ("bfloat16", True))]
     cases += [("pad-1 56x56x64", (POOL_N, 56, 56, 64), 3, 1, True,
-               "bfloat16", True),
+               "bfloat16", True, None, "vector"),
               ("pad-1 56x56x64", (POOL_N, 56, 56, 64), 3, 1, False,
-               "float32", False),
+               "float32", False, None, "vector"),
               ("2x2 28x28x128", (POOL_N, 28, 28, 128), 2, 0, False,
-               "bfloat16", True),
+               "bfloat16", True, None, "vector"),
               ("2x2 28x28x128", (POOL_N, 28, 28, 128), 2, 0, True,
-               "float32", False)]
+               "float32", False, None, "vector"),
+              ("dy slice at channel 8", (32, 37, 37, 64), 3, 0, True,
+               "bfloat16", True, 8, "vector"),
+              ("C 5", (32, 33, 35, 5), 3, 0, True, "bfloat16", True, None,
+               "scalar"),
+              ("C 5", (32, 33, 35, 5), 3, 1, False, "float32", False, None,
+               "scalar"),
+              ("C 5", (32, 20, 21, 5), 2, 0, True, "bfloat16", True, None,
+               "scalar"),
+              ("dy slice at channel 1", (32, 37, 37, 64), 3, 0, True,
+               "bfloat16", True, 1, "scalar"),
+              ("dy slice at channel 1", (32, 36, 36, 64), 3, 1, True,
+               "float32", False, 1, "scalar")]
     worst = {"maxpool_fwd": 0.0, "maxpool_bwd": 0.0, "avgpool_bwd": 0.0}
-    for label, shape, k, p, relu, dtype, ties in cases:
-        _, _, _, _, e_f, bad, e_b = _maxpool_case(
-            torch, mp, gen, shape, k, p, relu, dtype, ties)
-        _log(f"pool check max {label} k{k} p{p} relu={relu} {dtype}"
-             f"{' ties' if ties else ''}: fwd max_abs_err {e_f:.3e}, "
-             f"sel mismatches {bad}, bwd max_abs_err {e_b:.3e} "
-             f"(tolerance {POOL_ATOL:g})")
-        if not (e_f <= POOL_ATOL and bad == 0 and e_b <= POOL_ATOL):
+    for label, shape, k, p, relu, dtype, ties, offset, inst in cases:
+        x, _, _, dy, e_f, bad, e_b, same = _maxpool_case(
+            torch, mp, gen, shape, k, p, relu, dtype, ties, offset)
+        vecs = (_vec_of(kernels, x), _vec_of(kernels, dy))
+        _log(f"pool check max {label} {tuple(shape)} k{k} p{p} relu={relu} "
+             f"{dtype}{' ties' if ties else ''}: channels per thread "
+             f"fwd {vecs[0]} bwd {vecs[1]}; fwd max_abs_err {e_f:.3e}, sel "
+             f"mismatches {bad}, bwd max_abs_err {e_b:.3e} (tolerance "
+             f"{POOL_ATOL:g}); second calls same bits {same}")
+        if not (e_f <= POOL_ATOL and bad == 0 and e_b <= POOL_ATOL
+                and same):
             raise AssertionError(f"max pool {label} {dtype}: kernels "
-                                 f"disagree with the plain versions")
+                                 f"disagree with the plain versions or with "
+                                 f"themselves")
+        if (vecs[1] == 1) != (inst == "scalar"):
+            raise AssertionError(f"max pool {label}: expected the {inst} "
+                                 f"instance, the wrappers pick {vecs}")
         worst["maxpool_fwd"] = max(worst["maxpool_fwd"], e_f)
         worst["maxpool_bwd"] = max(worst["maxpool_bwd"], e_b)
+        del x, dy
     h, w, c = INCEPTION_AVG_POOL
-    for (kh, kw, relu, dtype) in ((h, w, False, "bfloat16"),
-                                  (h, w, False, "float32"),
-                                  (h, w, True, "bfloat16"),
-                                  (2, 2, True, "float32")):
-        x = torch.randn((POOL_N, h, w, c), generator=gen, device="cuda").to(
-            getattr(torch, dtype))
-        y = ap.avgpool_fwd(x, kh, kw, relu)
-        dy = torch.randn(y.shape, generator=gen, device="cuda").to(x.dtype)
-        mask = y if relu else None
-        dx = ap.avgpool_bwd_cuda(dy, mask, kh, kw)
-        dx_p = ap.avgpool_bwd_plain(dy, mask, kh, kw)
-        torch.cuda.synchronize()
-        err = float((dx.float() - dx_p.float()).abs().max())
-        _log(f"pool check avg {h}x{w}x{c} window {kh}x{kw} relu={relu} "
-             f"{dtype}: bwd max_abs_err {err:.3e} (tolerance {POOL_ATOL:g})")
-        if not err <= POOL_ATOL:
-            raise AssertionError("avg-pool kernel disagrees with its plain "
-                                 "version")
+    avg_cases = [("inception tail", (POOL_N, h, w, c), h, relu, dtype, None,
+                  "vector")
+                 for relu, dtype in ((False, "bfloat16"), (False, "float32"),
+                                     (True, "bfloat16"))]
+    avg_cases += [(f"densenet {h}x{w}x{c}", (DENSENET_BATCH, h, w, c), kh,
+                   False, "bfloat16", None, "vector")
+                  for (h, w, c, kh) in DENSENET_AVG_POOLS]
+    avg_cases += [("2x2 relu", (POOL_N, 8, 8, 2048), 2, True, "float32",
+                   None, "vector"),
+                  ("C 5", (32, 14, 14, 5), 2, True, "bfloat16", None,
+                   "scalar"),
+                  ("dy slice at channel 1", (POOL_N, 8, 8, 2048), 8, False,
+                   "bfloat16", 1, "scalar"),
+                  ("dy slice at channel 1", (32, 14, 14, 64), 7, True,
+                   "float32", 1, "scalar")]
+    for label, shape, kh, relu, dtype, offset, inst in avg_cases:
+        _, dy, err, same = _avgpool_case(torch, ap, gen, shape, kh, relu,
+                                         dtype, offset)
+        vec = _vec_of(kernels, dy)
+        _log(f"pool check avg {label} {tuple(shape)} window {kh}x{kh} "
+             f"relu={relu} {dtype}: channels per thread {vec}; bwd "
+             f"max_abs_err {err:.3e} (tolerance {POOL_ATOL:g}); second call "
+             f"same bits {same}")
+        if not (err <= POOL_ATOL and same):
+            raise AssertionError(f"avg-pool kernel {label}: disagrees with "
+                                 f"its plain version or with itself")
+        if (vec == 1) != (inst == "scalar"):
+            raise AssertionError(f"avg pool {label}: expected the {inst} "
+                                 f"instance, the wrapper picks {vec}")
         worst["avgpool_bwd"] = max(worst["avgpool_bwd"], err)
 
-    # times, bfloat16 (the training path's dtype), at every Inception
-    # geometry; inputs of 10-700 MB, so each launch finds them cold in L2
-    aten = torch.ops.aten
-    per_geometry = []
+    # times in bfloat16 (the training paths' dtype) at every geometry they
+    # launch; inputs of 7-700 MB, so most launches find them cold in L2
+    inception = []
     for (h, w, c) in INCEPTION_MAX_POOLS:
         x, y, sel, dy, *_ = _maxpool_case(torch, mp, gen, (POOL_N, h, w, c),
                                           3, 0, True, "bfloat16", False)
-        xc = x.permute(0, 3, 1, 2)
-        _, idx = aten.max_pool2d_with_indices(xc, [3, 3], [2, 2])
-        dyc = dy.permute(0, 3, 1, 2)
-        oh, ow = y.shape[1], y.shape[2]
-        nx, ny = POOL_N * h * w * c, POOL_N * oh * ow * c
-        row = {
-            "geometry": (POOL_N, h, w, c),
-            "fwd": dict(
-                ms=_time_ms(torch, lambda: mp.maxpool_fwd_cuda(x, 3, 0,
-                                                               True)),
-                plain_ms=_time_ms(torch, lambda: mp.maxpool_fwd_plain(
-                    x, 3, 0, True), iters=10),
-                library_ms=_time_ms(torch, lambda: aten.max_pool2d_with_indices(
-                    xc, [3, 3], [2, 2])),
-                bound_ms=_pool_bytes(("bfloat16", nx),
-                                     ("bfloat16", ny), ("uint8", ny))
-                / HBM_BYTES_PER_S * 1e3),
-            "bwd": dict(
-                ms=_time_ms(torch, lambda: mp.maxpool_bwd_cuda(dy, sel, h, w,
-                                                               3, 0)),
-                plain_ms=_time_ms(torch, lambda: mp.maxpool_bwd_plain(
-                    dy, sel, h, w, 3, 0), iters=10),
-                library_ms=_time_ms(
-                    torch, lambda: aten.max_pool2d_with_indices_backward(
-                        dyc, xc, [3, 3], [2, 2], [0, 0], [1, 1], False, idx)),
-                bound_ms=_pool_bytes(("bfloat16", ny),
-                                     ("uint8", ny), ("bfloat16", nx))
-                / HBM_BYTES_PER_S * 1e3),
-        }
-        per_geometry.append(row)
+        row = _maxpool_times(torch, mp, x, y, sel, dy, 3, 0)
+        inception.append(row)
         for part in ("fwd", "bwd"):
-            t = row[part]
-            _log(f"pool time max {part} {POOL_N}x{h}x{w}x{c} bfloat16: "
-                 f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                 f"library {t['library_ms']:.4f} ms, bound "
-                 f"{t['bound_ms']:.4f} ms (bytes)")
-        del x, y, sel, dy, xc, idx, dyc
-    h, w, c = INCEPTION_AVG_POOL
-    x = torch.randn((POOL_N, h, w, c), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    dy = torch.randn((POOL_N, 1, 1, c), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-    avg = dict(
-        ms=_time_ms(torch, lambda: ap.avgpool_bwd_cuda(dy, None, h, w)),
-        plain_ms=_time_ms(torch, lambda: ap.avgpool_bwd_plain(dy, None, h,
-                                                              w), iters=20),
-        library_ms=_time_ms(torch, lambda: aten.avg_pool2d_backward(
-            dyc, xc, [h, w], [1, 1], [0, 0], False, True, None)),
-        bound_ms=_pool_bytes(("bfloat16", POOL_N * c),
-                             ("bfloat16", POOL_N * h * w * c))
-        / HBM_BYTES_PER_S * 1e3)
-    _log(f"pool time avg bwd {POOL_N}x{h}x{w}x{c} bfloat16: kernel "
-         f"{avg['ms']:.4f} ms, plain {avg['plain_ms']:.4f} ms, library "
-         f"{avg['library_ms']:.4f} ms, bound {avg['bound_ms']:.4f} ms "
-         f"(bytes)")
-    step = {part: {key: sum(r[part][key] for r in per_geometry)
+            _log_times(f"max {part} inception {POOL_N}x{h}x{w}x{c} 3x3/2 "
+                       f"bfloat16", row[part])
+        del x, y, sel, dy
+    step = {part: {key: sum(r[part][key] for r in inception)
                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
             for part in ("fwd", "bwd")}
     for part in ("fwd", "bwd"):
-        t = step[part]
-        _log(f"pool time max {part}, the 4 launches of one training step: "
-             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-             f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-             f"ms")
+        _log_times(f"max {part}, the 4 launches of one Inception step",
+                   step[part])
+    x, y, sel, dy, *_ = _maxpool_case(torch, mp, gen, dense, 3, 1, True,
+                                      "bfloat16", False)
+    row = _maxpool_times(torch, mp, x, y, sel, dy, 3, 1)
+    for part in ("fwd", "bwd"):
+        _log_times(f"max {part} densenet pool1 "
+                   f"{'x'.join(map(str, dense))} 3x3/2 pad 1 bfloat16",
+                   row[part])
+    del x, y, sel, dy
+    h, w, c = INCEPTION_AVG_POOL
+    x, dy, *_ = _avgpool_case(torch, ap, gen, (POOL_N, h, w, c), h, False,
+                              "bfloat16")
+    avg = _avgpool_times(torch, ap, x, dy, h)
+    _log_times(f"avg bwd inception tail {POOL_N}x{h}x{w}x{c} bfloat16", avg)
+    for (h, w, c, kh) in DENSENET_AVG_POOLS:
+        x, dy, *_ = _avgpool_case(torch, ap, gen, (DENSENET_BATCH, h, w, c),
+                                  kh, False, "bfloat16")
+        _log_times(f"avg bwd densenet {DENSENET_BATCH}x{h}x{w}x{c} "
+                   f"{kh}x{kh}/{kh} bfloat16",
+                   _avgpool_times(torch, ap, x, dy, kh))
     return {"worst": worst, "max_step": step, "avg": avg}
 
 
@@ -1495,9 +1631,10 @@ def main(argv) -> int:
         for kernel, regs, spills in _ptxas_report(info["log"]):
             _log(f"build {source}: {kernel}: {regs} registers, spill "
                  f"stores/loads {spills} bytes")
-            # kernels 1-4 keep their accumulators in registers
-            if source in (fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE) \
-                    and spills != "0/0":
+            # kernels 1-4 keep their accumulators in registers, the pool
+            # kernels their window vectors
+            if source in (fa.SOURCE, fa.SOURCE_BWD, ce.SOURCE, mp.SOURCE,
+                          ap.SOURCE) and spills != "0/0":
                 raise AssertionError(f"{source}: {kernel} spills registers "
                                      f"({spills} bytes)")
     flash_lib, bwd_lib, ce_lib = fa._lib(), fa._lib_bwd(), ce._lib()
@@ -1525,7 +1662,7 @@ def main(argv) -> int:
     checked = kernel_phase(torch, fa)
     flash_bwd = flash_bwd_phase(torch, fa)
     fused = fused_ce_phase(torch, ce)
-    pools = pool_kernel_phase(torch)
+    pools = pool_kernel_phase(torch, kernels)
     bns = bn_kernel_phase(torch)
     sliced = slice_phase(torch, fa, kernels)
     lm_run = lm_phase(torch, kernels, card)

@@ -53,6 +53,20 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def vec_width(c: int, itemsize: int, strides: Sequence[int] = (),
+              pointers: Sequence[tuple] = ()) -> int:
+    """Channels a pool kernel's thread reads and writes as one access:
+    16 bytes of them (8 bf16, 4 float32) where C, every stride (in
+    elements) and every ``(address, itemsize)`` pointer allow it, else 1.
+    A pointer allows it where its address is a multiple of the vector's
+    bytes in its own type (16 for the data, 8 or 4 for a uint8 plane)."""
+    vec = 16 // itemsize
+    if c % vec == 0 and all(s % vec == 0 for s in strides) \
+            and all(a % (vec * size) == 0 for a, size in pointers):
+        return vec
+    return 1
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = os.path.join(home, "bin", "nvcc")

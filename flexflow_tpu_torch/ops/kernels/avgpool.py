@@ -16,7 +16,9 @@ sum over each window times 1/(kh*kw), cast to x's dtype.
 :func:`avgpool2d` is the differentiable op (a ``torch.autograd.Function``
 that saves only the pooled output, and only when the ReLU is fused).
 CPU tensors take the plain version, CUDA tensors the kernel; there is no
-fallback: a CUDA tensor the kernel does not take raises.
+fallback: a CUDA tensor the kernel does not take raises.  A kernel thread
+takes 16 bytes of channels where C, dy's strides and every pointer allow
+it, else one channel (:func:`kernels.vec_width` picks).
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     if lib.ff_avgpool_bwd.argtypes is None:
         lib.ff_avgpool_bwd.argtypes = [ctypes.c_void_p] * 3 \
             + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3 \
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.ff_avgpool_bwd.restype = ctypes.c_int
     return lib
 
@@ -95,13 +97,17 @@ def avgpool_bwd_cuda(dy, y, kh: int, kw: int):
         raise ValueError(f"{NAME}: unsupported shape {tuple(dy.shape)} with "
                          f"window {kh}x{kw}")
     dx = torch.empty((n, h, w, c), dtype=dy.dtype, device=dy.device)
+    isz = dy.element_size()
+    planes = (dy, dx) if y is None else (dy, y, dx)
+    vec = kernels.vec_width(c, isz, dy.stride()[:3],
+                            [(t.data_ptr(), isz) for t in planes])
     lib = _lib()
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream(dy.device).cuda_stream
         code = lib.ff_avgpool_bwd(
             dy.data_ptr(), None if y is None else y.data_ptr(),
             dx.data_ptr(), n, h, w, c, oh, ow, kh, kw, dy.stride(0),
-            dy.stride(1), dy.stride(2), int(dy.dtype == torch.bfloat16),
+            dy.stride(1), dy.stride(2), int(dy.dtype == torch.bfloat16), vec,
             stream)
     kernels.check(lib, code, NAME)
     kernels.launches[NAME] += 1

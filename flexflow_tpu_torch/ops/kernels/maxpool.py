@@ -19,7 +19,9 @@ fused ReLU (:func:`supported`, the JAX gate).
 :func:`maxpool2d` is the differentiable op (a ``torch.autograd.Function``
 that saves only sel).  CPU tensors take the plain versions, CUDA tensors
 the kernels; there is no fallback: a CUDA tensor the kernel does not take
-raises.
+raises.  A kernel thread takes 16 bytes of channels where C, dy's strides
+and every pointer allow it, else one channel (:func:`kernels.vec_width`
+picks; both are instances of one template).
 """
 
 from __future__ import annotations
@@ -100,11 +102,11 @@ def _lib() -> ctypes.CDLL:
     lib = kernels.load(SOURCE)
     if lib.ff_maxpool_fwd.argtypes is None:
         lib.ff_maxpool_fwd.argtypes = [ctypes.c_void_p] * 3 \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.ff_maxpool_fwd.restype = ctypes.c_int
         lib.ff_maxpool_bwd.argtypes = [ctypes.c_void_p] * 3 \
             + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3 \
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.ff_maxpool_bwd.restype = ctypes.c_int
     return lib
 
@@ -137,12 +139,17 @@ def maxpool_fwd_cuda(x, k: int, p: int, relu: bool):
     oh, ow = out_dim(h, k, p), out_dim(w, k, p)
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
     sel = torch.empty((n, oh, ow, c), dtype=torch.uint8, device=x.device)
+    isz = x.element_size()
+    vec = kernels.vec_width(c, isz, (), ((x.data_ptr(), isz),
+                                         (y.data_ptr(), isz),
+                                         (sel.data_ptr(), 1)))
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ff_maxpool_fwd(
             x.data_ptr(), y.data_ptr(), sel.data_ptr(), n, h, w, c, oh, ow,
-            k, p, int(bool(relu)), int(x.dtype == torch.bfloat16), stream)
+            k, p, int(bool(relu)), int(x.dtype == torch.bfloat16), vec,
+            stream)
     kernels.check(lib, code, NAME_FWD)
     kernels.launches[NAME_FWD] += 1
     return y, sel
@@ -172,13 +179,16 @@ def maxpool_bwd_cuda(dy, sel, h: int, w: int, k: int, p: int):
                          f"output of a {k}x{k}/2 pad {p} pool over "
                          f"{h}x{w}")
     dx = torch.empty((n, h, w, c), dtype=dy.dtype, device=dy.device)
+    isz = dy.element_size()
+    vec = kernels.vec_width(c, isz, dy.stride()[:3], (
+        (dy.data_ptr(), isz), (sel.data_ptr(), 1), (dx.data_ptr(), isz)))
     lib = _lib()
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream(dy.device).cuda_stream
         code = lib.ff_maxpool_bwd(
             dy.data_ptr(), sel.data_ptr(), dx.data_ptr(), n, h, w, c, oh,
             ow, k, p, dy.stride(0), dy.stride(1), dy.stride(2),
-            int(dy.dtype == torch.bfloat16), stream)
+            int(dy.dtype == torch.bfloat16), vec, stream)
     kernels.check(lib, code, NAME_BWD)
     kernels.launches[NAME_BWD] += 1
     return dx

@@ -159,6 +159,7 @@ def test_tiny_gpt_serves_through_the_kernel(gpu):
     ((8, 147, 147, 64), 3, 0, True, False),   # Inception pool1 at N=8
     ((8, 73, 73, 192), 3, 0, True, True),
     ((4, 17, 17, 768), 3, 0, True, True),
+    ((4, 112, 112, 64), 3, 1, True, True),    # DenseNet pool1 at N=4
     ((3, 15, 17, 4), 3, 1, True, True),       # pad 1, h != w
     ((2, 12, 12, 3), 2, 0, False, True),      # 2x2
     ((2, 23, 19, 6), 3, 0, False, False),
@@ -194,9 +195,70 @@ def test_maxpool_bwd_reads_a_channel_slice(gpu):
                                                      9, 9, 3, 0))
 
 
+# channels and the channel offset of dy in a wider tensor: 16-byte
+# vectors, C = 5 (one channel a thread), and a slice whose odd offset
+# admits no 16-byte access (the scalar instance of the same kernel)
+POOL_INSTANCES = [(64, 0), (5, 0), (16, 1)]
+
+
+def _pool_dy(rng, shape, channels, offset, dtype, gpu):
+    """dy of ``shape`` as the channel slice [offset, offset + channels) of
+    a wider tensor, and the width the wrappers pick for it."""
+    n, oh, ow, _ = shape
+    wide = rng.randn(n, oh, ow, channels + 8).astype("float32")
+    dy = torch.from_numpy(wide).to(gpu, dtype)[..., offset:offset + channels]
+    isz = dy.element_size()
+    vec = kernels.vec_width(channels, isz, dy.stride()[:3],
+                            [(dy.data_ptr(), isz)])
+    assert vec == (1 if channels == 5 or offset else 16 // isz)
+    return dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,p", [(3, 0), (3, 1), (2, 0)])
+@pytest.mark.parametrize("channels,offset", POOL_INSTANCES)
+def test_maxpool_kernels_vector_and_scalar_instances(gpu, dtype, k, p,
+                                                     channels, offset):
+    rng = np.random.RandomState(4)
+    shape = (3, 14, 11, channels)
+    x = torch.from_numpy(rng.randint(-3, 4, size=shape).astype(
+        "float32")).to(gpu, dtype)
+    y, sel = maxpool.maxpool_fwd(x, k, p, True)
+    y_p, sel_p = maxpool.maxpool_fwd_plain(x, k, p, True)
+    assert torch.equal(y, y_p) and torch.equal(sel, sel_p)
+    dy = _pool_dy(rng, y.shape, channels, offset, dtype, gpu)
+    dx = maxpool.maxpool_bwd(dy, sel, 14, 11, k, p)
+    again = maxpool.maxpool_bwd(dy, sel, 14, 11, k, p)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, maxpool.maxpool_bwd_plain(dy.contiguous(), sel,
+                                                     14, 11, k, p))
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kh,relu", [(2, True), (7, False)])
+@pytest.mark.parametrize("channels,offset", POOL_INSTANCES)
+def test_avgpool_kernel_vector_and_scalar_instances(gpu, dtype, kh, relu,
+                                                    channels, offset):
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(3, 14, 14, channels).astype(
+        "float32")).to(gpu, dtype)
+    y = avgpool.avgpool_fwd(x, kh, kh, relu)
+    dy = _pool_dy(rng, y.shape, channels, offset, dtype, gpu)
+    mask = y if relu else None
+    dx = avgpool.avgpool_bwd(dy, mask, kh, kh)
+    again = avgpool.avgpool_bwd(dy, mask, kh, kh)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, avgpool.avgpool_bwd_plain(dy.contiguous(), mask,
+                                                     kh, kh))
+    assert torch.equal(dx, again)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,kh,kw,relu", [
     ((16, 8, 8, 2048), 8, 8, False),   # Inception pool3 at N=16
+    ((4, 56, 56, 128), 2, 2, False),   # DenseNet trans1 at N=4
+    ((4, 7, 7, 1024), 7, 7, False),    # DenseNet pool2 at N=4
     ((4, 8, 8, 3), 2, 2, True),
     ((2, 12, 9, 24), 3, 3, True),
 ])
