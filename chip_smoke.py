@@ -2,14 +2,14 @@
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each one
 against its plain PyTorch version on the card, drives each ported path at
 full width through its entry point — the GPT served by ``apps.serve``,
-the GPT trained by ``apps.lm``, and Inception-v3 and DenseNet-121 trained
-by ``apps.cnn`` — and checks that each path ran through its kernels.
+the GPT trained by ``apps.lm``, Inception-v3, DenseNet-121, ResNet-101
+and VGG-16 trained by ``apps.cnn``, and the NMT seq2seq model trained by
+``apps.nmt`` — and checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU)
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
-                                       # one decode step, one LM training
-                                       # step, one Inception and one
-                                       # DenseNet training step
+                                       # one decode step and one training
+                                       # step of each trained model
 
 Phases (any failure exits non-zero):
 
@@ -38,16 +38,21 @@ Phases (any failure exits non-zero):
 5. fused cross-entropy phase: kernels 4 (forward, then its finishing
    combine over the vocab slices), 5 (dx, then its finishing sum over
    the vocab slices) and 6 (dw, db) against their plain versions at the LM head's N = 8192, d = 768, V = 32768 in
-   float32 and bfloat16, and at GPT-2's V = 50257, labels with -1 (no
-   target) included; then, at those three, their times and achieved
-   TFLOP/s beside the plain versions' and the unfused library pair's
-   (``x @ w + b``, then ``F.cross_entropy``, forward and backward);
+   float32 and bfloat16, at GPT-2's V = 50257, labels with -1 (no
+   target) included, and at the NMT head's N = 640, d = 2048, V = 20480
+   in float32; then, at the first three and at the NMT head's d and V
+   for N = 640 to 10240 tokens, their times and achieved TFLOP/s beside
+   the plain versions' and the unfused library pair's (``x @ w + b``,
+   then ``F.cross_entropy``, forward and backward), and at the NMT
+   head's the ratio of the two: where the fused head's crossover lies;
 6. pool kernel phase: the max-pool forward and backward (kernel 7) at
-   Inception's four max-pool geometries at N = 256 and DenseNet's pool1
-   (64 x 112 x 112 x 64, pad 1) in bfloat16 and float32, tie-heavy
-   integer inputs, a pad-1 and a 2x2 geometry; the avg-pool backward
-   (kernel 8) at the 8x8x2048 global tail and DenseNet's three 2x2/2
-   transitions and 7x7 global pool; each kernel's scalar instance (C = 5,
+   Inception's four max-pool geometries at N = 256, DenseNet's and
+   ResNet-101's pool1 (64 x 112 x 112 x 64, pad 1) and VGG-16's five
+   2x2/2 pools at N = 64 in bfloat16 and float32, tie-heavy integer
+   inputs, a pad-1 and a 2x2 geometry; the avg-pool backward (kernel 8)
+   at the 8x8x2048 global tail, DenseNet's three 2x2/2 transitions and
+   7x7 global pool and ResNet-101's 7x7x2048 global pool; each kernel's
+   scalar instance (C = 5,
    and dy a channel slice at an odd offset, which admits no 16-byte
    access) beside its 16-byte one; all against their plain versions,
    exactly, and each called twice for the same bits; then, at every
@@ -102,9 +107,32 @@ Phases (any failure exits non-zero):
     first loss equal to the run with kernels 7-10 swapped for their plain
     versions and the next two within 1e-3 (relative) of it; images/s,
     step ms and peak memory;
-13. (``--profile``) where the device time of one decode step, one LM
-    training step, one Inception and one DenseNet training step goes;
-14. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+13. ResNet-101 training slice: ``apps.cnn resnet101`` (the reference's
+    topology: no BN, no residual add) at DenseNet's protocol (batch 64,
+    224x224, bfloat16 compute, float32 params) for 3 warm-up and 10 timed
+    steps: finite losses, per step one launch each of the max-pool
+    forward, its backward and the avg-pool backward; the first 3 losses,
+    and the ``linear1`` kernel and bias after 3 steps, within 2e-2 of the
+    run with kernels 7-10 swapped for their plain versions; images/s,
+    step ms and peak memory;
+14. VGG-16 training slice: ``apps.cnn vgg16``, the same protocol: per
+    step 5 max-pool forward and 5 backward launches and no other kernel;
+    the first 3 losses and the ``linear3`` leaves as for ResNet-101;
+15. NMT training slice: ``apps.nmt`` at the JAX app's defaults (batch
+    64, 2 layers, seq 20 in chunks of 10, hidden and embed 2048, vocab
+    20480, float32, plain SGD at lr 0.1) for 3 warm-up and 10 timed
+    steps: finite losses, the first within 3 % of ln 20480, per step 2
+    launches (one per decoder chunk) each of kernels 4, 4's combine, 5,
+    5's sum and 6, and the first 3 losses within 1e-4 (relative) of the
+    same run with every kernel swapped for its plain version;
+    sentences/s, step ms and peak memory;
+16. (``--profile``) where the device time of one decode step and of one
+    training step of each trained model goes, and the device's idle
+    share of each step, from the profiler's kernel rows and, without the
+    profiler, from the step's time held behind a sleep kernel;
+17. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+
+Each phase logs its seconds, and the script its total.
 
 Times come from CUDA events over repeated launches after a warm-up; a
 kernel's launches are enqueued behind a sleep kernel, so its time is the
@@ -180,6 +208,23 @@ DENSENET_MAX_POOL = (112, 112, 64)
 DENSENET_AVG_POOLS = [(56, 56, 128, 2), (28, 28, 256, 2), (14, 14, 512, 2),
                       (7, 7, 1024, 7)]
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CHECKED = 3, 10, 3
+# ResNet-101 and VGG-16 train at batch 64 (the JAX FFConfig default),
+# 224x224; ResNet's pool1 input is DenseNet's (112x112x64, 3x3/2 pad 1)
+RESNET_VGG_BATCH = 64
+RESNET_AVG_POOL = (7, 7, 2048)
+# VGG-16's five 2x2/2 max-pool inputs (fused ReLU)
+VGG_MAX_POOLS = [(224, 224, 64), (112, 112, 128), (56, 56, 256),
+                 (28, 28, 512), (14, 14, 512)]
+# the classifier whose leaves the kernel and plain-pool runs compare
+CNN_HEAD = {"resnet101": "linear1", "vgg16": "linear3"}
+# the NMT run: the JAX app's defaults (batch 64, 2 layers, seq 20 in
+# chunks of 10, hidden and embed 2048, vocab 20480, float32, SGD lr 0.1)
+NMT_WIDTHS = (64, 2, 20, 2048, 2048)   # batch, layers, seq, hidden, embed
+NMT_VOCAB = 20480
+NMT_CHUNKS = 2                          # decoder chunks: vocab heads a step
+NMT_HEAD = (64 * 10, 2048, NMT_VOCAB)   # N, d, V of one chunk's vocab head
+# token counts of the fused head's crossover sweep at the NMT head's d, V
+CE_CROSSOVER_TOKENS = (640, 1280, 2560, 5120, 10240)
 # kernels 9 and 10 against their plain versions: y and dx agree exactly
 # (the same float32 mul, add and compare, unfused, then one cast); d_inv
 # and d_shift within this share of sum |g x| and sum |g| (float32 sums of
@@ -582,13 +627,14 @@ def fused_ce_phase(torch, ce) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    n, d, v = CE_SHAPE
+    gpt2 = CE_SHAPE[:2] + (GPT2_VOCAB,)
     worst = {ce.NAME_FWD: 0.0, ce.NAME_FWD_COMBINE: 0.0, ce.NAME_DX: 0.0,
              ce.NAME_DX_SUM: 0.0, ce.NAME_DW: 0.0}
-    for label, vocab, dtype in (("LM head float32", v, "float32"),
-                                ("LM head bfloat16", v, "bfloat16"),
-                                (f"GPT-2 vocab {GPT2_VOCAB} float32",
-                                 GPT2_VOCAB, "float32")):
+    for label, (n, d, vocab), dtype in (
+            ("LM head float32", CE_SHAPE, "float32"),
+            ("LM head bfloat16", CE_SHAPE, "bfloat16"),
+            (f"GPT-2 vocab {GPT2_VOCAB} float32", gpt2, "float32"),
+            ("NMT head float32", NMT_HEAD, "float32")):
         x, w, b, lab, g = _ce_inputs(torch, gen, n, d, vocab, dtype)
         nll, lse = ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
         dx, dw, db = ce.fused_linear_ce_bwd_cuda(x, w, b, lab, lse, g)
@@ -620,13 +666,19 @@ def fused_ce_phase(torch, ce) -> dict:
         del x, w, b, lab, g, nll, lse, dx, dw, db, nll_p, lse_p, grads_p
         torch.cuda.empty_cache()
 
-    # times: the LM head in float32 (the path's dtype) and bfloat16, and
-    # GPT-2's vocab in float32; the kernels line takes the first
+    # times: the LM head in float32 (the path's dtype) and bfloat16,
+    # GPT-2's vocab in float32, and the NMT head's d and V in float32 at
+    # the NMT's 640 tokens a chunk and more, against the unfused library
+    # pair: where the fused head stops losing, if it loses at 640.  The
+    # kernels line takes the first
     timings = {}
-    for label, vocab, dtype in (("float32", v, "float32"),
-                                ("bfloat16", v, "bfloat16"),
-                                (f"V {GPT2_VOCAB} float32", GPT2_VOCAB,
-                                 "float32")):
+    _, d_nmt, v_nmt = NMT_HEAD
+    for label, (n, d, vocab), dtype in (
+            ("float32", CE_SHAPE, "float32"),
+            ("bfloat16", CE_SHAPE, "bfloat16"),
+            (f"V {GPT2_VOCAB} float32", gpt2, "float32"),
+            *((f"NMT head at N {n} float32", (n, d_nmt, v_nmt), "float32")
+              for n in CE_CROSSOVER_TOKENS)):
         t = _fused_ce_times(torch, F, ce, gen, n, d, vocab, dtype)
         timings.setdefault("lm", t)
         for name, r in t.items():
@@ -646,6 +698,10 @@ def fused_ce_phase(torch, ce) -> dict:
              f"kernel 4 + its combine {fwd:.4f} ms; kernels 4-6 "
              f"{pair + fwd:.4f} ms, library "
              f"pair forward + backward {t[ce.NAME_DX]['library_ms'] + t[ce.NAME_FWD]['library_ms']:.4f} ms")
+        if label.startswith("NMT"):
+            lib = t[ce.NAME_DX]["library_ms"] + t[ce.NAME_FWD]["library_ms"]
+            _log(f"fused ce crossover N {n} d {d} V {vocab} float32: "
+                 f"kernels 4-6 / library pair = {(pair + fwd) / lib:.3f}")
         torch.cuda.empty_cache()
     return {"worst": worst, "timings": timings["lm"]}
 
@@ -941,8 +997,13 @@ def pool_kernel_phase(torch, kernels) -> dict:
              for (h, w, c) in INCEPTION_MAX_POOLS
              for dtype, ties in (("bfloat16", False), ("float32", False),
                                  ("bfloat16", True))]
-    cases += [("densenet pool1", dense, 3, 1, True, dtype, ties, None,
-               "vector")
+    cases += [("densenet and resnet pool1", dense, 3, 1, True, dtype, ties,
+               None, "vector")
+              for dtype, ties in (("bfloat16", False), ("float32", False),
+                                  ("bfloat16", True))]
+    cases += [(f"vgg {h}x{w}x{c}", (RESNET_VGG_BATCH, h, w, c), 2, 0, True,
+               dtype, ties, None, "vector")
+              for (h, w, c) in VGG_MAX_POOLS
               for dtype, ties in (("bfloat16", False), ("float32", False),
                                   ("bfloat16", True))]
     cases += [("pad-1 56x56x64", (POOL_N, 56, 56, 64), 3, 1, True,
@@ -994,6 +1055,10 @@ def pool_kernel_phase(torch, kernels) -> dict:
     avg_cases += [(f"densenet {h}x{w}x{c}", (DENSENET_BATCH, h, w, c), kh,
                    False, "bfloat16", None, "vector")
                   for (h, w, c, kh) in DENSENET_AVG_POOLS]
+    h, w, c = RESNET_AVG_POOL
+    avg_cases += [("resnet pool2", (RESNET_VGG_BATCH, h, w, c), h, False,
+                   dtype, None, "vector")
+                  for dtype in ("bfloat16", "float32")]
     avg_cases += [("2x2 relu", (POOL_N, 8, 8, 2048), 2, True, "float32",
                    None, "vector"),
                   ("C 5", (32, 14, 14, 5), 2, True, "bfloat16", None,
@@ -1040,10 +1105,25 @@ def pool_kernel_phase(torch, kernels) -> dict:
                                       "bfloat16", False)
     row = _maxpool_times(torch, mp, x, y, sel, dy, 3, 1)
     for part in ("fwd", "bwd"):
-        _log_times(f"max {part} densenet pool1 "
+        _log_times(f"max {part} densenet and resnet pool1 "
                    f"{'x'.join(map(str, dense))} 3x3/2 pad 1 bfloat16",
                    row[part])
     del x, y, sel, dy
+    vgg = []
+    for (h, w, c) in VGG_MAX_POOLS:
+        x, y, sel, dy, *_ = _maxpool_case(
+            torch, mp, gen, (RESNET_VGG_BATCH, h, w, c), 2, 0, True,
+            "bfloat16", False)
+        row = _maxpool_times(torch, mp, x, y, sel, dy, 2, 0)
+        vgg.append(row)
+        for part in ("fwd", "bwd"):
+            _log_times(f"max {part} vgg {RESNET_VGG_BATCH}x{h}x{w}x{c} "
+                       f"2x2/2 bfloat16", row[part])
+        del x, y, sel, dy
+    for part in ("fwd", "bwd"):
+        _log_times(f"max {part}, the 5 launches of one VGG-16 step",
+                   {key: sum(r[part][key] for r in vgg)
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
     h, w, c = INCEPTION_AVG_POOL
     x, dy, *_ = _avgpool_case(torch, ap, gen, (POOL_N, h, w, c), h, False,
                               "bfloat16")
@@ -1055,6 +1135,11 @@ def pool_kernel_phase(torch, kernels) -> dict:
         _log_times(f"avg bwd densenet {DENSENET_BATCH}x{h}x{w}x{c} "
                    f"{kh}x{kh}/{kh} bfloat16",
                    _avgpool_times(torch, ap, x, dy, kh))
+    h, w, c = RESNET_AVG_POOL
+    x, dy, *_ = _avgpool_case(torch, ap, gen, (RESNET_VGG_BATCH, h, w, c), h,
+                              False, "bfloat16")
+    _log_times(f"avg bwd resnet pool2 {RESNET_VGG_BATCH}x{h}x{w}x{c} "
+               f"{h}x{w} global bfloat16", _avgpool_times(torch, ap, x, dy, h))
     return {"worst": worst, "max_step": step, "avg": avg}
 
 
@@ -1314,6 +1399,18 @@ def _kernel_kind(key: str) -> str:
     return "elementwise / other"
 
 
+def _held_step(torch, run, step_ms: float, tag: str) -> None:
+    """A training step's device time without the profiler: two steps
+    enqueued behind a sleep kernel run back to back, so their time is
+    the device's (an upper bound where the launch queue fills before the
+    sleep ends).  Against the step time by CUDA events it gives the
+    device's idle share a second way, to hold the profiler's against."""
+    held = _time_ms(torch, run, iters=2, warmup=0, hold=True)
+    _log(f"profile {tag}: one step held behind a sleep {held:.3f} ms of "
+         f"{step_ms:.3f} ms (device idle {1 - held / step_ms:.1%} by this "
+         f"measure)")
+
+
 def _profile_by_kind(torch, prof, steps: int, step_ms: float,
                      tag: str) -> None:
     rows = [e for e in prof.key_averages()
@@ -1331,7 +1428,8 @@ def _profile_by_kind(torch, prof, steps: int, step_ms: float,
             + e.self_device_time_total
     per = 1e3 * steps
     _log(f"profile {tag}: kernel time {total / per:.3f} ms/step of "
-         f"{step_ms:.3f} ms/step")
+         f"{step_ms:.3f} ms/step (device idle "
+         f"{1 - total / per / step_ms:.1%})")
     for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         _log(f"profile {tag}:   {us / per:9.4f} ms/step  "
              f"{100 * us / total:5.1f}%  {k}")
@@ -1362,6 +1460,7 @@ def lm_profile_phase(torch) -> None:
 
     step_ms = _time_ms(torch, run, iters=3, warmup=2, hold=False)
     _log(f"profile lm: one step {step_ms:.3f} ms by CUDA events")
+    _held_step(torch, run, step_ms, "lm")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -1520,24 +1619,218 @@ def densenet_phase(torch, kernels, card: str) -> dict:
             "images_per_sec": out["images_per_sec"]}
 
 
+def _cnn_model(torch, model: str, batch: int, iters: int) -> tuple:
+    """``(ff, data)``: the model and the synthetic batches ``cnn.main``
+    builds for ``apps.cnn <model>`` at ``batch`` and ``iters``."""
+    from flexflow_tpu_torch.apps import cnn
+    from flexflow_tpu_torch.data import synthetic_batches
+
+    name, cfg, _, _ = cnn.parse(_train_argv(batch, iters, 0, model))
+    ff = cnn.build(name, cfg, torch.device("cuda"))
+    return ff, synthetic_batches(
+        cfg.batch_size, cfg.input_height, cfg.input_width,
+        num_classes=cfg.num_classes, mode="random", seed=cfg.seed,
+        device=ff.device)
+
+
+def _cnn_steps(torch, model: str, steps: int) -> tuple:
+    """``steps`` training steps of ``apps.cnn <model>`` as ``cnn.main``
+    runs them (the same flags, model, data and ``fit``), at batch
+    ``RESNET_VGG_BATCH``: ``(losses, params)``."""
+    ff, data = _cnn_model(torch, model, RESNET_VGG_BATCH, steps)
+    out = ff.fit(data, warmup=0, log=lambda *a: None)
+    return out["loss"], out["params"]
+
+
+def resnet_vgg_phase(torch, kernels, card: str, model: str) -> dict:
+    """``apps.cnn resnet101`` or ``vgg16`` at DenseNet's protocol (batch
+    64, 224x224, bfloat16) through kernels 7 and 8, then its first
+    losses, and its classifier's leaves after those steps, against the
+    run with the CNN kernels swapped for their plain versions."""
+    import gc
+
+    from flexflow_tpu_torch.apps import cnn
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    iters = TRAIN_WARMUP + TRAIN_TIMED
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = cnn.main(_train_argv(RESNET_VGG_BATCH, iters, TRAIN_WARMUP, model),
+                   log=_log)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["loss"]
+    step_ms = out["elapsed_s"] / TRAIN_TIMED * 1e3
+    _log(f"{model}: batch {RESNET_VGG_BATCH}, {iters} steps ({TRAIN_WARMUP} "
+         f"warm-up); launches by kernel {launches}")
+    _log(f"{model}: losses {losses}")
+    # ResNet: pool1 (max) and pool2 (global avg); VGG: five 2x2/2 max pools
+    per_step = ({mp.NAME_FWD: 1, mp.NAME_BWD: 1, ap.NAME: 1}
+                if model == "resnet101" else {mp.NAME_FWD: 5, mp.NAME_BWD: 5})
+    want = {k: n * iters for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{model} kernels launched {launches}, expected "
+                             f"{want} ({per_step} per step)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite {model} loss: {losses}")
+    _log(f"{model}: {out['images_per_sec']:.2f} images/s, {step_ms:.2f} ms "
+         f"per step, peak memory {peak_gb:.2f} GB (max_memory_allocated), "
+         f"batch {RESNET_VGG_BATCH} — {card}")
+    images_per_sec = out["images_per_sec"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    head = CNN_HEAD[model]
+    got_l, got_p = _cnn_steps(torch, model, TRAIN_CHECKED)
+    got_p = got_p[head]
+    with _plain_cnn_kernels():
+        kernels.reset_launches()
+        want_l, want_p = _cnn_steps(torch, model, TRAIN_CHECKED)
+        want_p = want_p[head]
+        if sum(kernels.launches.values()):
+            raise AssertionError(f"the plain-pool {model} run launched a "
+                                 f"kernel")
+    torch.cuda.synchronize()
+    first = losses[:TRAIN_CHECKED]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(first, want_l))
+    _log(f"{model}: first {TRAIN_CHECKED} losses {first} vs plain pools "
+         f"{want_l}: max rel diff {rel:.3e} (tolerance {LOSS_RTOL:g}); a "
+         f"second kernel run's {got_l}: identical to the first run's "
+         f"{got_l == first}")
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"{model} losses differ from the plain-pool run "
+                             f"by {rel}")
+    for leaf in ("kernel", "bias"):
+        a, b = got_p[leaf], want_p[leaf]
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        _log(f"{model}: {head}.{leaf} after {TRAIN_CHECKED} steps vs plain "
+             f"pools: max_abs_err {err:.3e}, {err / scale:.3e} of its max "
+             f"{scale:.3e} (tolerance {LOSS_RTOL:g})")
+        if not (scale > 0 and err <= LOSS_RTOL * scale):
+            raise AssertionError(f"{model} {head}.{leaf} differs from the "
+                                 f"plain-pool run by {err} (max {scale})")
+    del got_p, want_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+            "images_per_sec": images_per_sec}
+
+
+def _nmt_argv(iters: int, warmup: int) -> list:
+    batch, layers, seq, hidden, embed = NMT_WIDTHS
+    return ["-b", str(batch), "-l", str(layers), "-s", str(seq), "-h",
+            str(hidden), "-e", str(embed), "--vocab", str(NMT_VOCAB), "-i",
+            str(iters), "--warmup", str(warmup), "--device", "cuda"]
+
+
+def nmt_phase(torch, kernels, card: str) -> dict:
+    """``apps.nmt`` at the JAX app's defaults through kernels 4-6 (one
+    fused vocab head per decoder chunk), then its first losses against
+    the run with every kernel swapped for its plain version."""
+    import gc
+
+    from flexflow_tpu_torch.apps import nmt
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    iters = LM_WARMUP + LM_TIMED
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = nmt.main(_nmt_argv(iters, LM_WARMUP), log=_log)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["loss"]
+    step_ms = out["elapsed_s"] / LM_TIMED * 1e3
+    _log(f"nmt: {iters} steps ({LM_WARMUP} warm-up); launches by kernel "
+         f"{launches}")
+    _log(f"nmt: losses {losses}")
+    want = {name: NMT_CHUNKS * iters
+            for name in (ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX,
+                         ce.NAME_DX_SUM, ce.NAME_DW)}
+    if launches != want:
+        raise AssertionError(f"nmt kernels launched {launches}, expected "
+                             f"{want} (kernels 4-6 and their finishing "
+                             f"passes once per decoder chunk)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite nmt loss: {losses}")
+    ln_v = math.log(NMT_VOCAB)
+    if abs(losses[0] - ln_v) > 0.03 * ln_v:
+        raise AssertionError(f"first NMT loss {losses[0]} is not within 3 % "
+                             f"of ln {NMT_VOCAB} = {ln_v:.4f}")
+    _log(f"nmt: {out['sentences_per_sec']:.2f} sentences/s, {step_ms:.2f} ms "
+         f"per step, peak memory {peak_gb:.2f} GB (max_memory_allocated) — "
+         f"{card}")
+    sentences_per_sec = out["sentences_per_sec"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with _plain_kernels():
+        kernels.reset_launches()
+        ref = nmt.main(_nmt_argv(LM_CHECKED, 0), log=lambda *a: None)
+        if sum(kernels.launches.values()):
+            raise AssertionError("the plain-kernel nmt run launched a kernel")
+    torch.cuda.synchronize()
+    got, want_l = losses[:LM_CHECKED], ref["loss"]
+    rel = max(abs(a - c) / max(abs(c), 1e-30) for a, c in zip(got, want_l))
+    _log(f"nmt: first {LM_CHECKED} losses {got} vs plain kernels {want_l}: "
+         f"max rel diff {rel:.3e} (tolerance {LM_LOSS_RTOL:g})")
+    if not rel <= LM_LOSS_RTOL:
+        raise AssertionError(f"nmt losses differ from the plain-kernel run "
+                             f"by {rel}")
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+            "sentences_per_sec": sentences_per_sec}
+
+
+def nmt_profile_phase(torch) -> None:
+    """One NMT training step at the JAX app's defaults: where its
+    device time goes, by kind (GEMMs, kernels 4-6, the LSTM's and the
+    optimizer's elementwise passes), and how long the device idles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.apps import nmt
+
+    cfg, _, _ = nmt.parse_args(_nmt_argv(1, 0))
+    model = nmt.RnnModel(cfg, device="cuda")
+    params, state = model.init()
+    opt = model.init_opt_state(params)
+    step = model.make_train_step()
+    src, dst = next(nmt.synthetic_token_batches(
+        cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed))
+
+    def run():
+        return step(params, state, opt, src, dst)
+
+    step_ms = _time_ms(torch, run, iters=3, warmup=2, hold=False)
+    _log(f"profile nmt: one step {step_ms:.3f} ms by CUDA events")
+    _held_step(torch, run, step_ms, "nmt")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    _profile_by_kind(torch, prof, 2, step_ms, "nmt")
+
+
 def train_profile_phase(torch, model: str, batch: int) -> None:
     """One full-width CNN training step: where its device time goes, by
     kernel and by kind (cuDNN convolutions, the pool and BN kernels, the
     rest)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from flexflow_tpu_torch.apps import cnn
-    from flexflow_tpu_torch.data import synthetic_batches
-
-    name, cfg, _, _ = cnn.parse(_train_argv(batch, 1, 0, model))
-    ff = cnn.build(name, cfg, torch.device("cuda"))
+    ff, data = _cnn_model(torch, model, batch, 1)
     params, state = ff.init()
     opt = ff.init_opt_state(params)
     step = ff.make_train_step()
-    image, labels = next(synthetic_batches(
-        batch, cfg.input_height, cfg.input_width,
-        num_classes=cfg.num_classes, mode="random", seed=cfg.seed,
-        device=ff.device))
+    image, labels = next(data)
 
     def run():
         return step(params, state, opt, image, labels)
@@ -1545,6 +1838,7 @@ def train_profile_phase(torch, model: str, batch: int) -> None:
     step_ms = _time_ms(torch, run, iters=3, warmup=2, hold=False)
     _log(f"profile {model}: one step {step_ms:.3f} ms by CUDA events "
          f"(batch {batch})")
+    _held_step(torch, run, step_ms, model)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -1659,22 +1953,36 @@ def main(argv) -> int:
          f"{ce_lib.ff_fused_ce_fwd_smem(0)}, bfloat16 "
          f"{ce_lib.ff_fused_ce_fwd_smem(1)}")
 
-    checked = kernel_phase(torch, fa)
-    flash_bwd = flash_bwd_phase(torch, fa)
-    fused = fused_ce_phase(torch, ce)
-    pools = pool_kernel_phase(torch, kernels)
-    bns = bn_kernel_phase(torch)
-    sliced = slice_phase(torch, fa, kernels)
-    lm_run = lm_phase(torch, kernels, card)
-    lm_phase(torch, kernels, card, LM13_WIDTHS,
-             (LM13_WARMUP, LM13_TIMED, LM13_CHECKED), "lm 1.3b")
-    trained = training_phase(torch, kernels, card)
-    dense = densenet_phase(torch, kernels, card)
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        _log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    checked = phase("flash forward", kernel_phase, torch, fa)
+    flash_bwd = phase("flash backward", flash_bwd_phase, torch, fa)
+    fused = phase("fused ce", fused_ce_phase, torch, ce)
+    pools = phase("pools", pool_kernel_phase, torch, kernels)
+    bns = phase("bn", bn_kernel_phase, torch)
+    sliced = phase("serving", slice_phase, torch, fa, kernels)
+    lm_run = phase("lm", lm_phase, torch, kernels, card)
+    phase("lm 1.3b", lm_phase, torch, kernels, card, LM13_WIDTHS,
+          (LM13_WARMUP, LM13_TIMED, LM13_CHECKED), "lm 1.3b")
+    trained = phase("inception", training_phase, torch, kernels, card)
+    dense = phase("densenet", densenet_phase, torch, kernels, card)
+    phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
+    phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
+    phase("nmt", nmt_phase, torch, kernels, card)
     if "--profile" in argv:
-        profile_phase(torch, sliced["engine"])
-        lm_profile_phase(torch)
-        train_profile_phase(torch, "inception", trained["batch"])
-        train_profile_phase(torch, "densenet", DENSENET_BATCH)
+        phase("profile serving", profile_phase, torch, sliced["engine"])
+        phase("profile lm", lm_profile_phase, torch)
+        for model, batch in (("inception", trained["batch"]),
+                             ("densenet", DENSENET_BATCH),
+                             ("resnet101", RESNET_VGG_BATCH),
+                             ("vgg16", RESNET_VGG_BATCH)):
+            phase(f"profile {model}", train_profile_phase, torch, model,
+                  batch)
+        phase("profile nmt", nmt_profile_phase, torch)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -1727,6 +2035,7 @@ def main(argv) -> int:
                              f"flexflow_tpu/ops/pallas/bn_act.py:{line}",
                              dense["launches"][name], bns["worst"][name],
                              dict(bns["step"][name], bound_by="bytes")))
+    _log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,10 @@
         --dtype bfloat16 [--device cuda|cpu] [--warmup N]
     python -m flexflow_tpu_torch.apps.cnn densenet -b 64 -i 13 \\
         --warmup 3 --dtype bfloat16
+    python -m flexflow_tpu_torch.apps.cnn resnet101 -b 64 -i 13 \\
+        --warmup 3 --dtype bfloat16
+    python -m flexflow_tpu_torch.apps.cnn vgg16 -b 64 -i 13 \\
+        --warmup 3 --dtype bfloat16
     python -m flexflow_tpu_torch.apps.cnn alexnet -b 2 -i 3 --height 67 \\
         --width 67 --device cpu
 
@@ -11,9 +15,11 @@ Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
 --width, --classes), plus ``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given) and ``--warmup``
-(untimed steps before the timed window, default 1 as in ``fit``).  Models:
-``alexnet`` and ``densenet``/``densenet121`` at 224x224 unless
---height/--width are given, ``inception``/``inception_v3`` at 299x299.
+(untimed steps before the timed window, default 1 as in ``fit``).  Models
+(the JAX app's names): ``alexnet``, ``vgg16``/``vgg``,
+``resnet101``/``resnet`` (the reference's topology: no BN, no residual
+add) and ``densenet``/``densenet121`` at 224x224 unless --height/--width
+are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
 ``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
@@ -29,7 +35,8 @@ import torch
 
 from flexflow_tpu_torch.config import FFConfig
 
-MODELS = ("alexnet", "inception", "inception_v3", "densenet", "densenet121")
+MODELS = ("alexnet", "vgg16", "vgg", "inception", "inception_v3",
+          "resnet101", "resnet", "densenet", "densenet121")
 
 
 def _flag_value(argv, name, default):
@@ -52,9 +59,15 @@ def build(model_name: str, cfg: FFConfig, device):
     from flexflow_tpu_torch.models.alexnet import build_alexnet
     from flexflow_tpu_torch.models.densenet import build_densenet121
     from flexflow_tpu_torch.models.inception import build_inception_v3
+    from flexflow_tpu_torch.models.resnet import build_resnet101
+    from flexflow_tpu_torch.models.vgg import build_vgg16
 
     if model_name == "alexnet":
         return build_alexnet(cfg, device=device)
+    if model_name.startswith("vgg"):
+        return build_vgg16(cfg, device=device)
+    if model_name.startswith("resnet"):
+        return build_resnet101(cfg, device=device)
     if model_name.startswith("densenet"):
         return build_densenet121(cfg, device=device)
     return build_inception_v3(cfg, device=device)

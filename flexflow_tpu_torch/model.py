@@ -64,9 +64,10 @@ class FFModel:
         return pc
 
     def _add(self, op: Op) -> Tensor:
-        if any(s <= 0 for s in op.output.shape):
-            raise ValueError(f"op {op.name!r} produces an empty tensor "
-                             f"{op.output.shape}")
+        for t in op.all_outputs():
+            if any(s <= 0 for s in t.shape):
+                raise ValueError(f"op {op.name!r} produces an empty tensor "
+                                 f"{t.shape}")
         self.layers.append(op)
         return op.output
 
@@ -109,6 +110,11 @@ class FFModel:
         from flexflow_tpu_torch.ops.concat import Concat
 
         return self._add(Concat(name, self._pc(name, 4), tensors))
+
+    def add(self, name, x: Tensor, y: Tensor, relu: bool = False) -> Tensor:
+        from flexflow_tpu_torch.ops.elementwise import Add
+
+        return self._add(Add(name, self._pc(name, 4), [x, y], relu))
 
     def flat(self, name, input) -> Tensor:
         from flexflow_tpu_torch.ops.flat import Flat
@@ -213,9 +219,11 @@ class FFModel:
 
     def apply(self, params, state, inputs: Dict[int, Any], train: bool):
         """Run the DAG. ``inputs`` maps input-Tensor tid -> tensor.
-        Returns (tensor-values dict, new_state).  With ``train`` the
-        LM-head fusion runs (``model.py:1022``): a fused loss op's value
-        is the per-token NLL, and its projection has no value."""
+        Returns (tensor-values dict, new_state); an op with several
+        outputs stores each value under its tensor's tid
+        (``model.py:1182``).  With ``train`` the LM-head fusion runs
+        (``model.py:1022``): a fused loss op's value is the per-token NLL,
+        and its projection has no value."""
         values: Dict[int, Any] = dict(inputs)
         new_state: Dict[str, Dict] = {}
         fusion = self._lm_head_fusion() if train else {}
@@ -231,7 +239,9 @@ class FFModel:
             xs = [values[t.tid] for t in op.inputs]
             y, st = op.forward(params.get(op.param_key, {}),
                                state.get(op.name, {}), xs, train)
-            values[op.output.tid] = y
+            ys = y if isinstance(y, tuple) else (y,)
+            for t, v in zip(op.all_outputs(), ys, strict=True):
+                values[t.tid] = v
             if st:
                 new_state[op.name] = st
         return values, new_state

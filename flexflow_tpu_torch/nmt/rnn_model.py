@@ -1,0 +1,174 @@
+"""RnnModel: the seq2seq NMT trainer (PyTorch port of
+``flexflow_tpu/nmt/rnn_model.py``; the reference's nmt/rnn.cu).
+
+The source and target sequences are cut into chunks of
+``lstm_per_node_length`` steps (``src_chunk{i}``, ``dst_chunk{i}``).
+Each chunk is embedded (``embed{i}``, sharing ``srcEmbed`` or
+``dstEmbed``) and runs through one LSTM op per layer (``lstm{l}_{j}``,
+sharing ``encoder{l}`` or ``decoder{l}``): the hidden state flows chunk
+to chunk, the outputs layer to layer, and the first decoder chunk starts
+from the last encoder chunk's state.  Each decoder chunk's top output
+goes through the vocab projection (``linear{j}``, one shared ``linear``)
+and the per-token softmax loss against the same chunk's target tokens
+(``softmax{j}``).  In training each projection and its loss run as the
+fused projection + cross-entropy op (kernels 4-6), so autograd sums the
+chunks' gradients into the one ``linear`` leaf.
+
+The loss is the NLL summed over the decoder chunks and divided by
+``batch * seq_length``; the update is plain SGD at the model's learning
+rate on those summed gradients (the reference applies ``w += -0.1 *
+grad_sum``).  On one device every op takes the default config; the JAX
+package's strategies (``default_global_config``,
+``pipeline_stage_strategy``) come with the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+from flexflow_tpu_torch.config import FFConfig
+from flexflow_tpu_torch.machine import MachineModel
+from flexflow_tpu_torch.model import FFModel
+from flexflow_tpu_torch.ops.base import Tensor
+from flexflow_tpu_torch.ops.embed import Embed
+from flexflow_tpu_torch.ops.lstm import LSTMChunk
+from flexflow_tpu_torch.ops.rnn_linear import RnnLinear
+from flexflow_tpu_torch.ops.seq import SliceSeq
+from flexflow_tpu_torch.ops.softmax_dp import SoftmaxDP
+from flexflow_tpu_torch.strategy import Strategy
+
+
+@dataclasses.dataclass
+class RnnConfig:
+    """The JAX package's defaults (the reference's nmt/nmt.cc:34-44)."""
+
+    batch_size: int = 64
+    num_layers: int = 2
+    seq_length: int = 20
+    hidden_size: int = 2048
+    embed_size: int = 2048
+    vocab_size: int = 20 * 1024
+    lstm_per_node_length: int = 10   # LSTM_PER_NODE_LENGTH, nmt/rnn.h:23
+    learning_rate: float = 0.1
+    num_iterations: int = 10
+    compute_dtype: str = "float32"
+    # parameter storage dtype ("bfloat16" = mixed precision with float32
+    # masters in the optimizer state)
+    param_dtype: str = "float32"
+    seed: int = 0
+
+    @property
+    def chunks_per_seq(self) -> int:
+        return (self.seq_length + self.lstm_per_node_length - 1) \
+            // self.lstm_per_node_length
+
+
+class RnnModel(FFModel):
+    def __init__(self, rnn_config: RnnConfig = None,
+                 machine: Optional[MachineModel] = None,
+                 strategies: Optional[Strategy] = None, device="cuda"):
+        self.rnn = rnn_config or RnnConfig()
+        ff_cfg = FFConfig(
+            batch_size=self.rnn.batch_size,
+            learning_rate=self.rnn.learning_rate,
+            weight_decay=0.0,
+            num_iterations=self.rnn.num_iterations,
+            compute_dtype=self.rnn.compute_dtype,
+            param_dtype=self.rnn.param_dtype,
+            seed=self.rnn.seed,
+            strategies=strategies or Strategy(),
+        )
+        super().__init__(ff_cfg, machine, device)
+        self._build()
+
+    def _build(self):
+        cfg = self.rnn
+        npc = cfg.chunks_per_seq
+        chunk = cfg.lstm_per_node_length
+        batch = cfg.batch_size
+        self.src_tokens = self.create_input((batch, cfg.seq_length),
+                                            "int32", "src_tokens")
+        self.dst_tokens = self.create_input((batch, cfg.seq_length),
+                                            "int32", "dst_tokens")
+
+        srcs, dsts = [], []
+        for i in range(npc):
+            start = i * chunk
+            length = min(chunk, cfg.seq_length - start)
+            srcs.append(self._add(SliceSeq(
+                f"src_chunk{i}", self._pc(f"src_chunk{i}", 1),
+                self.src_tokens, start, length)))
+            dsts.append(self._add(SliceSeq(
+                f"dst_chunk{i}", self._pc(f"dst_chunk{i}", 1),
+                self.dst_tokens, start, length)))
+
+        embeds: List[Tensor] = []
+        for i in range(2 * npc):
+            embeds.append(self.embed(
+                f"embed{i}", srcs[i] if i < npc else dsts[i - npc],
+                cfg.vocab_size, cfg.embed_size,
+                param_key="srcEmbed" if i < npc else "dstEmbed"))
+
+        # lstm{layer}_{chunk}: encoder chunks, then decoder chunks
+        out = embeds
+        for i in range(cfg.num_layers):
+            prev, layer_out = None, []
+            for j in range(2 * npc):
+                op = LSTMChunk(f"lstm{i}_{j}", self._pc(f"lstm{i}_{j}", 1),
+                               out[j], prev.hy if prev else None,
+                               prev.cy if prev else None, cfg.hidden_size,
+                               param_key=f"encoder{i}" if j < npc
+                               else f"decoder{i}")
+                layer_out.append(self._add(op))
+                prev = op
+            out = layer_out
+
+        self.loss_ops = []
+        for j in range(npc):
+            logits = self.seq_linear(f"linear{j}", out[npc + j],
+                                     cfg.vocab_size, param_key="linear")
+            self.softmax_seq(f"softmax{j}", logits, dsts[j])
+            self.loss_ops.append(self.layers[-1])
+
+    # ------------------------------------------------------------------
+
+    def loss_fn(self, params, state, src, dst, train: bool = True):
+        """``(loss, new_state)``: the NLL summed over every decoder chunk,
+        divided by ``batch * seq_length`` (``rnn_model.py:286-295``)."""
+        inputs = {self.src_tokens.tid: src, self.dst_tokens.tid: dst}
+        values, new_state = self.apply(params, state, inputs, train)
+        total = 0.0
+        for op in self.loss_ops:
+            total = total + op.loss(values[op.output.tid],
+                                    values[op.labels_tensor.tid])
+        return total / (self.rnn.batch_size * self.rnn.seq_length), \
+            new_state
+
+    def make_train_step(self):
+        return self.make_sgd_step(self.rnn.learning_rate)
+
+    def init_opt_state(self, params):
+        # plain SGD carries no momentum buffers; mixed precision still
+        # needs the float32 masters (None in float32)
+        return self.master_opt_state(params)
+
+    def fit(self, data_iter, num_iterations: Optional[int] = None,
+            warmup: int = 1, log=print):
+        """``FFModel.fit`` over (src, dst) batches, plus
+        ``sentences_per_sec``."""
+        out = super().fit(data_iter,
+                          num_iterations or self.rnn.num_iterations,
+                          warmup, log)
+        out["sentences_per_sec"] = out["images_per_sec"]
+        return out
+
+
+def synthetic_token_batches(batch_size: int, seq_length: int,
+                            vocab_size: int, seed: int = 0, device="cuda"):
+    """Random (src, dst) int32 token pairs on ``device``, the JAX
+    package's arrays for the same seed."""
+    from flexflow_tpu_torch.data import synthetic_token_stream
+
+    return synthetic_token_stream(batch_size, seq_length, vocab_size, seed,
+                                  streams=2, device=device)

@@ -3,10 +3,11 @@
 A ``Tensor`` is symbolic: static shape, dtype name and producing op.
 Concrete values flow through each op's ``forward(params, state, xs,
 train)``, a plain function of tensors that returns ``(output,
-new_state)``.  Parameters live outside the ops in one tree,
-``{param_key: {leaf: tensor}}``, the same tree the JAX package's
-``FFModel.init`` builds, so that one tree serves both packages; so does
-per-op state, ``{op_name: {leaf: tensor}}``.
+new_state)``, or ``((output, ...), new_state)`` for an op with several
+outputs (``outputs``, the LSTM chunk's y, hy and cy).  Parameters live
+outside the ops in one tree, ``{param_key: {leaf: tensor}}``, the same
+tree the JAX package's ``FFModel.init`` builds, so that one tree serves
+both packages; so does per-op state, ``{op_name: {leaf: tensor}}``.
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ class Tensor:
 
 
 class Op:
-    """Base operator: named, with inputs, one output, a ParallelConfig and
-    a functional forward."""
+    """Base operator: named, with inputs, one output (or several, in
+    ``outputs``), a ParallelConfig and a functional forward."""
 
     #: grid axis names, innermost (grid dim 0) first
     AXIS_NAMES: Tuple[str, ...] = ("n",)
@@ -83,8 +84,16 @@ class Op:
         self.pc = pc
         self.inputs: List[Tensor] = list(inputs)
         self.output: Tensor = None  # set by subclass
+        #: every output of a multi-output op, ``output`` first; empty for
+        #: the single-output ops
+        self.outputs: List[Tensor] = []
         #: params-tree key; ops sharing a key share weights
         self.param_key: str = name
+
+    def all_outputs(self) -> List[Tensor]:
+        """Every output tensor (the single ``output`` unless the op sets
+        ``outputs``)."""
+        return self.outputs if self.outputs else [self.output]
 
     def init_params(self, gen: torch.Generator, device) -> Dict:
         """Trainable params drawn from ``gen``; {} for parameterless ops."""
@@ -96,7 +105,8 @@ class Op:
         return {}
 
     def forward(self, params: Dict, state: Dict, xs: List, train: bool):
-        """Returns (output, new_state)."""
+        """Returns (output, new_state); a multi-output op returns a tuple
+        of its outputs' values in the order of ``outputs``."""
         raise NotImplementedError
 
     def __repr__(self):

@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: each held against its plain
-PyTorch version on the same inputs, and the serving, CNN training and LM
-training paths counted through them.  Every test carries the ``cuda``
-marker and skips, with the reason, where no GPU is present (kernels have
-no CPU mode).  This file imports neither JAX nor the JAX package, so it
-also runs where JAX is absent:
+PyTorch version on the same inputs, and the serving, CNN training, LM
+training and NMT training paths counted through them.  Every test
+carries the ``cuda`` marker and skips, with the reason, where no GPU is
+present (kernels have no CPU mode).  This file imports neither JAX nor
+the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -162,6 +162,7 @@ def test_tiny_gpt_serves_through_the_kernel(gpu):
     ((4, 112, 112, 64), 3, 1, True, True),    # DenseNet pool1 at N=4
     ((3, 15, 17, 4), 3, 1, True, True),       # pad 1, h != w
     ((2, 12, 12, 3), 2, 0, False, True),      # 2x2
+    ((8, 112, 112, 128), 2, 0, True, True),   # VGG-16 pool2 at N=8
     ((2, 23, 19, 6), 3, 0, False, False),
 ])
 def test_maxpool_kernels_match_plain(gpu, dtype, shape, k, p, relu, ties):
@@ -598,6 +599,45 @@ def test_tiny_lm_trains_through_the_kernels(gpu, dtype):
         assert sum(kernels.launches.values()) == 0
     np.testing.assert_allclose(losses, ref,
                                rtol=1e-4 if dtype == "float32" else 2e-2)
+
+
+def test_tiny_nmt_trains_through_the_kernels(gpu):
+    """A small NMT model (2 layers, 2 decoder chunks of 8 tokens x batch
+    4, vocab 300) for three float32 SGD steps: each decoder chunk's vocab
+    head runs kernels 4-6 once a step, over the one shared ``linear``
+    leaf; the losses within 1e-4 of the run with the plain kernels."""
+    from flexflow_tpu_torch.nmt.rnn_model import RnnConfig, RnnModel
+
+    model = RnnModel(RnnConfig(batch_size=4, num_layers=2, seq_length=16,
+                               hidden_size=64, embed_size=32,
+                               vocab_size=300, lstm_per_node_length=8,
+                               learning_rate=0.5, seed=2), device=gpu)
+    rng = np.random.RandomState(12)
+    src, dst = (rng.randint(0, 300, (4, 16)).astype("int32")
+                for _ in range(2))
+
+    def run():
+        params, state = model.init()
+        opt = model.init_opt_state(params)
+        step = model.make_train_step()
+        losses = []
+        for _ in range(3):
+            params, state, opt, loss = step(params, state, opt, src, dst)
+            losses.append(float(loss))
+        return losses
+
+    kernels.reset_launches()
+    losses = run()
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {
+        ce.NAME_FWD: 6, ce.NAME_FWD_COMBINE: 6, ce.NAME_DX: 6,
+        ce.NAME_DX_SUM: 6, ce.NAME_DW: 6}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    with _plain_kernels():
+        kernels.reset_launches()
+        ref = run()
+        assert sum(kernels.launches.values()) == 0
+    np.testing.assert_allclose(losses, ref, rtol=1e-4)
 
 
 def _bn_inputs(seed, m, c, dtype, device):
