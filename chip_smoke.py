@@ -2,9 +2,10 @@
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each one
 against its plain PyTorch version on the card, drives each ported path at
 full width through its entry point — the GPT served by ``apps.serve``,
-the GPT trained by ``apps.lm``, Inception-v3, DenseNet-121, ResNet-101
-and VGG-16 trained by ``apps.cnn``, and the NMT seq2seq model trained by
-``apps.nmt`` — and checks that each path ran through its kernels.
+the GPT and its mixture-of-experts form trained by ``apps.lm``,
+Inception-v3, DenseNet-121, ResNet-101 and VGG-16 trained by
+``apps.cnn``, and the NMT seq2seq model trained by ``apps.nmt`` — and
+checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU)
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
@@ -126,11 +127,25 @@ Phases (any failure exits non-zero):
     5's sum and 6, and the first 3 losses within 1e-4 (relative) of the
     same run with every kernel swapped for its plain version;
     sentences/s, step ms and peak memory;
-16. (``--profile``) where the device time of one decode step and of one
+16. MoE training slice and the training runtime: ``apps.lm --experts 8``
+    at the LM run's widths (8 experts in every block, top-2, capacity
+    factor 2.0, aux weight 1e-2, float32, plain SGD at lr 1e-3) with
+    ``--ckpt-dir --ckpt-freq 5 --on-divergence rollback``, 3 warm-up and
+    10 timed steps: finite losses, the first near ln 32768 + 0.12, the
+    launches of the LM run (the experts' products are cuBLAS's), the
+    first 3 losses within 1e-4 (relative) of the plain-kernel run;
+    tokens/s, the checkpoint seconds, peak memory; 10 steps timed one by
+    one by CUDA events, each with the aux loss and the share of (token,
+    choice) pairs dropped at capacity; then a run resumed from the
+    step-5 checkpoint, its batches through the prefetcher (depth 2),
+    repeats steps 6-13 within 1e-6; ``--fault-spec loss_nan@7,
+    ckpt_corrupt@3`` rolls back from step 10 to step 5 and finishes 13
+    steps, and the restore falls back past the corrupted step 13 to 10;
+17. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
     share of each step, from the profiler's kernel rows and, without the
     profiler, from the step's time held behind a sleep kernel;
-17. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+18. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -225,6 +240,21 @@ NMT_CHUNKS = 2                          # decoder chunks: vocab heads a step
 NMT_HEAD = (64 * 10, 2048, NMT_VOCAB)   # N, d, V of one chunk's vocab head
 # token counts of the fused head's crossover sweep at the NMT head's d, V
 CE_CROSSOVER_TOKENS = (640, 1280, 2560, 5120, 10240)
+# the MoE run: the JAX app's MoE example (flexflow_tpu/apps/lm.py:10) at
+# the LM run's GPT-2-small widths, 8 experts in every block, top-2,
+# capacity factor 2.0 (256 slots per expert and sequence), aux weight
+# 1e-2, checkpoints every 5 steps, rollback on divergence
+MOE_EXPERTS = 8
+MOE_CKPT_FREQ = 5
+# the resumed run's losses against the uninterrupted run's: the same
+# kernels on the same restored leaves and batches
+MOE_RESUME_RTOL = 1e-6
+# the divergence run: a NaN loss at step 7 rolls back to step 5 at the
+# step-10 boundary; the third save (step 13, the last) is corrupted
+MOE_FAULTS = "loss_nan@7,ckpt_corrupt@3"
+# checkpoints of the MoE phase (2.1 GB a step), inside the checkout and
+# removed when the phase ends
+MOE_CKPT_ROOT = Path(__file__).resolve().parent / ".chip_ckpt"
 # kernels 9 and 10 against their plain versions: y and dx agree exactly
 # (the same float32 mul, add and compare, unfused, then one cast); d_inv
 # and d_shift within this share of sum |g x| and sum |g| (float32 sums of
@@ -1389,6 +1419,8 @@ def _kernel_kind(key: str) -> str:
         return "BN + ReLU kernels (9, 10)"
     if "catarray" in k:
         return "concat copies (aten)"
+    if any(t in k for t in ("index", "sort", "scan", "gather", "radix")):
+        return "indexing, sort, scan (aten; the MoE routing and gathers)"
     if "avg_pool" in k:
         return "in-block avg pools (aten)"
     if any(t in k for t in ("conv", "cudnn", "dgrad", "wgrad", "implicit",
@@ -1467,6 +1499,36 @@ def lm_profile_phase(torch) -> None:
             run()
         torch.cuda.synchronize()
     _profile_by_kind(torch, prof, 2, step_ms, "lm")
+
+
+def moe_profile_phase(torch) -> None:
+    """One full-width MoE training step: where its device time goes, by
+    kind (GEMMs and the experts' batched products, kernels 1-6, the
+    routing and gathers, the rest), and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.apps import lm
+
+    cfg, _, _ = lm.parse_args(_moe_argv(1, 0))
+    model = lm.TransformerLM(cfg, device="cuda")
+    params, state = model.init()
+    opt = model.init_opt_state(params)
+    step = model.make_train_step()
+    toks, labels = next(lm.synthetic_lm_batches(
+        cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed))
+
+    def run():
+        return step(params, state, opt, toks, labels)
+
+    step_ms = _time_ms(torch, run, iters=3, warmup=2, hold=False)
+    _log(f"profile moe: one step {step_ms:.3f} ms by CUDA events")
+    _held_step(torch, run, step_ms, "moe")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    _profile_by_kind(torch, prof, 2, step_ms, "moe")
 
 
 @contextlib.contextmanager
@@ -1790,6 +1852,245 @@ def nmt_phase(torch, kernels, card: str) -> dict:
             "sentences_per_sec": sentences_per_sec}
 
 
+def _moe_argv(iters: int, warmup: int, ckpt_dir=None, *extra) -> list:
+    argv = _lm_argv(iters, warmup) + ["--experts", str(MOE_EXPERTS)]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-freq",
+                 str(MOE_CKPT_FREQ), "--on-divergence", "rollback"]
+    return argv + list(extra)
+
+
+def _moe_steps(torch, timed: int) -> dict:
+    """``timed`` steps of the MoE model, each timed by CUDA events, with
+    each step's aux loss and dropped share (mean over the 12 blocks) from
+    a forward pass after it."""
+    from flexflow_tpu_torch.apps import lm
+
+    cfg, _, _ = lm.parse_args(_moe_argv(1, 0))
+    model = lm.TransformerLM(cfg, device="cuda")
+    params, state = model.init()
+    opt = model.init_opt_state(params)
+    step = model.make_train_step()
+    toks, labels = next(lm.synthetic_lm_batches(
+        cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed))
+    ms, aux, dropped = [], [], []
+    for i in range(LM_WARMUP + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, opt, _ = step(params, state, opt, toks, labels)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= LM_WARMUP:
+            ms.append(start.elapsed_time(end))
+            stats = model.moe_stats(params, state, toks)
+            aux.append(sum(stats["aux"]) / len(stats["aux"]))
+            dropped.append(sum(stats["dropped"]) / len(stats["dropped"]))
+    _moe_routing_log(torch, model, params, state, toks)
+    return {"ms": ms, "aux": aux, "dropped": dropped}
+
+
+def _moe_routing_log(torch, model, params, state, toks) -> None:
+    """Where the drops come from, in the first and the last MoE block:
+    the share of top-1 choices on the most chosen expert (1/8 when
+    balanced) and the dropped share in the first and last quarter of the
+    positions."""
+    from flexflow_tpu_torch.ops.moe import MixtureOfExperts
+
+    moes = [op for op in model.layers if isinstance(op, MixtureOfExperts)]
+    with torch.inference_mode():
+        values, _ = model.apply(params, state, {model.tokens.tid: toks,
+                                                model.labels.tid: toks},
+                                train=False)
+        for op in (moes[0], moes[-1]):
+            x = values[op.inputs[0].tid]
+            wg = params[op.param_key]["wg"]
+            top1 = torch.matmul(x.float(), wg.float()).argmax(-1)
+            busiest = float(torch.bincount(top1.flatten(),
+                                           minlength=op.num_experts).max()
+                            / top1.numel())
+            drop = op.route(params[op.param_key], x)[2] \
+                == op.num_experts * op.capacity
+            q = drop.shape[1] // 4
+            _log(f"moe routing {op.name}: {busiest:.1%} of top-1 choices on "
+                 f"the most chosen expert; dropped "
+                 f"{float(drop[:, :q].float().mean()):.1%} of positions "
+                 f"0-{q - 1}, {float(drop[:, -q:].float().mean()):.1%} of "
+                 f"the last {q}")
+
+
+def moe_phase(torch, kernels, card: str) -> dict:
+    """``apps.lm --experts 8`` at full width with checkpoints every 5
+    steps and rollback on divergence, through kernels 1-6; its first
+    losses against the plain-kernel run; its steps by CUDA events with
+    the aux loss and the dropped share; then the runtime: a resume from
+    the step-5 checkpoint (with the prefetcher) repeats the run's losses,
+    a NaN loss at step 7 rolls back to step 5 and the run finishes, and
+    a corrupted last checkpoint makes the restore fall back."""
+    import gc
+    import shutil
+    import warnings
+
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+    from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+    iters = LM_WARMUP + LM_TIMED
+    shutil.rmtree(MOE_CKPT_ROOT, ignore_errors=True)
+    MOE_CKPT_ROOT.mkdir()
+    _log(f"moe: checkpoints under {MOE_CKPT_ROOT}, "
+         f"{shutil.disk_usage(MOE_CKPT_ROOT).free / 1e9:.1f} GB free")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        out = lm.main(_moe_argv(iters, LM_WARMUP, MOE_CKPT_ROOT / "run"),
+                      log=_log)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = out["loss"]
+        step_ms = out["elapsed_s"] / LM_TIMED * 1e3
+        _log(f"moe: {iters} steps ({LM_WARMUP} warm-up); launches by kernel "
+             f"{launches}")
+        _log(f"moe: losses {losses}")
+        layers = lm.parse_args(_moe_argv(1, 0))[0].num_layers
+        want = {fa.NAME: layers * iters, fa.NAME_DKV: layers * iters,
+                fa.NAME_DQ: layers * iters, ce.NAME_FWD: iters,
+                ce.NAME_FWD_COMBINE: iters, ce.NAME_DX: iters,
+                ce.NAME_DX_SUM: iters, ce.NAME_DW: iters}
+        if launches != want:
+            raise AssertionError(f"moe kernels launched {launches}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite moe loss: {losses}")
+        # the first loss: ln V plus 12 blocks' aux (about 1 for a router
+        # near uniform) at weight 1e-2
+        first = math.log(32768) + layers * 1e-2
+        if abs(losses[0] - first) > 0.25:
+            raise AssertionError(f"first MoE loss {losses[0]} is not near "
+                                 f"ln 32768 + 0.12 = {first:.4f}")
+        ckpt_s = out["checkpoint_s"]
+        _log(f"moe: {out['tokens_per_sec']:.1f} tokens/s, {step_ms:.2f} ms "
+             f"per step, of which {ckpt_s * 1e3 / LM_TIMED:.2f} ms the 2 "
+             f"checkpoint saves in the timed window ({ckpt_s:.2f} s); "
+             f"peak memory {peak_gb:.2f} GB (max_memory_allocated) — {card}")
+        tokens_per_sec = out["tokens_per_sec"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        with _plain_kernels():
+            kernels.reset_launches()
+            ref = lm.main(_moe_argv(LM_CHECKED, 0), log=lambda *a: None)
+            if sum(kernels.launches.values()):
+                raise AssertionError("the plain-kernel moe run launched a "
+                                     "kernel")
+        torch.cuda.synchronize()
+        got, want_l = losses[:LM_CHECKED], ref["loss"]
+        del ref
+        rel = max(abs(a - c) / max(abs(c), 1e-30)
+                  for a, c in zip(got, want_l))
+        _log(f"moe: first {LM_CHECKED} losses {got} vs plain kernels "
+             f"{want_l}: max rel diff {rel:.3e} (tolerance "
+             f"{LM_LOSS_RTOL:g})")
+        if not rel <= LM_LOSS_RTOL:
+            raise AssertionError(f"moe losses differ from the plain-kernel "
+                                 f"run by {rel}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        steps = _moe_steps(torch, LM_TIMED)
+        ms = sorted(steps["ms"])
+        _log(f"moe: step by CUDA events {ms[len(ms) // 2]:.3f} ms median "
+             f"({ms[0]:.3f}–{ms[-1]:.3f}) over {LM_TIMED} steps, "
+             f"{16 * 512 / ms[len(ms) // 2] * 1e3:.1f} tokens/s — {card}")
+        _log(f"moe: aux loss per step (mean of the {layers} blocks) "
+             f"{[round(a, 5) for a in steps['aux']]}")
+        _log(f"moe: share of (token, choice) pairs dropped at capacity per "
+             f"step {[round(d, 5) for d in steps['dropped']]}")
+        # Switch's aux is at least 1/E (every token's top choice has at
+        # least 1/E of its probability) and 1 for a balanced router
+        if not all(math.isfinite(a) and a >= 1.0 / MOE_EXPERTS
+                   for a in steps["aux"]):
+            raise AssertionError(f"moe aux losses {steps['aux']}")
+        if not all(0.0 <= d < 1.0 for d in steps["dropped"]):
+            raise AssertionError(f"moe dropped shares {steps['dropped']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume: a fresh run from the step-5 checkpoint, batches through
+        # the prefetcher, repeats steps 6-13
+        resume_dir = MOE_CKPT_ROOT / "resume"
+        resume_dir.mkdir()
+        step5 = f"step_{MOE_CKPT_FREQ:08d}"
+        (MOE_CKPT_ROOT / "run" / step5).rename(resume_dir / step5)
+        shutil.rmtree(MOE_CKPT_ROOT / "run")
+        lines = []
+        res = lm.main(_moe_argv(iters, LM_WARMUP, resume_dir,
+                                "--prefetch-depth", "2"), log=lines.append)
+        if f"resumed from {resume_dir} at iteration {MOE_CKPT_FREQ}" \
+                not in lines:
+            raise AssertionError(f"moe resume did not resume: {lines}")
+        got, want_l = res["loss"], losses[MOE_CKPT_FREQ:]
+        rel = max(abs(a - c) / max(abs(c), 1e-30)
+                  for a, c in zip(got, want_l))
+        _log(f"moe resume: steps {MOE_CKPT_FREQ + 1}-{iters} from the "
+             f"step-{MOE_CKPT_FREQ} checkpoint (prefetch depth 2) {got} vs "
+             f"the uninterrupted run: max rel diff {rel:.3e} (tolerance "
+             f"{MOE_RESUME_RTOL:g}); input stall "
+             f"{res['input_stall_s']:.4f} s")
+        if len(got) != iters - MOE_CKPT_FREQ or not rel <= MOE_RESUME_RTOL:
+            raise AssertionError(f"the resumed moe run differs: {got} vs "
+                                 f"{want_l}")
+        del res
+        shutil.rmtree(resume_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # divergence: loss_nan at step 7 rolls back to step 5 at the
+        # step-10 boundary; the last save is corrupted
+        div_dir = MOE_CKPT_ROOT / "divergence"
+        lines = []
+        div = lm.main(_moe_argv(iters, 0, div_dir, "--fault-spec",
+                                MOE_FAULTS), log=lines.append)
+        rolled = (f"health guard: rolled back from iteration "
+                  f"{2 * MOE_CKPT_FREQ} to checkpoint step {MOE_CKPT_FREQ}")
+        _log(f"moe divergence ({MOE_FAULTS}): {div['rollbacks']} rollback, "
+             f"{div['completed_steps']} steps, losses {div['loss']}")
+        if rolled not in lines or div["rollbacks"] != 1 \
+                or div["completed_steps"] != iters \
+                or len(div["loss"]) != iters \
+                or not all(math.isfinite(x) for x in div["loss"]):
+            raise AssertionError(f"moe rollback run: {lines}")
+        rel = max(abs(a - c) / max(abs(c), 1e-30) for a, c in
+                  zip(div["loss"][:MOE_CKPT_FREQ], losses[:MOE_CKPT_FREQ]))
+        if not rel <= MOE_RESUME_RTOL:
+            raise AssertionError(f"the rollback run's first steps differ "
+                                 f"from the main run's by {rel}")
+        del div
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step, params, _, _ = ckpt.restore_checkpoint(str(div_dir),
+                                                         device="cuda")
+        fell = [str(w.message) for w in caught
+                if "checkpoint fallback" in str(w.message)]
+        _log(f"moe corruption: restore gave step {step}; {fell}")
+        if step != 2 * MOE_CKPT_FREQ or len(fell) != 1 \
+                or f"step {iters} -> {step}" not in fell[0]:
+            raise AssertionError(f"restore past the corrupt step {iters} "
+                                 f"gave step {step}: {fell}")
+        del params
+    finally:
+        shutil.rmtree(MOE_CKPT_ROOT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+            "tokens_per_sec": tokens_per_sec}
+
+
 def nmt_profile_phase(torch) -> None:
     """One NMT training step at the JAX app's defaults: where its
     device time goes, by kind (GEMMs, kernels 4-6, the LSTM's and the
@@ -1973,6 +2274,7 @@ def main(argv) -> int:
     phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     phase("nmt", nmt_phase, torch, kernels, card)
+    phase("moe", moe_phase, torch, kernels, card)
     if "--profile" in argv:
         phase("profile serving", profile_phase, torch, sliced["engine"])
         phase("profile lm", lm_profile_phase, torch)
@@ -1983,6 +2285,7 @@ def main(argv) -> int:
             phase(f"profile {model}", train_profile_phase, torch, model,
                   batch)
         phase("profile nmt", nmt_profile_phase, torch)
+        phase("profile moe", moe_profile_phase, torch)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",

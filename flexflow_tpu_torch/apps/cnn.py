@@ -13,7 +13,9 @@
 
 Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
---width, --classes), plus ``--device`` (default ``cuda``: the run raises
+--width, --classes, and ``fit``'s runtime flags --ckpt-dir, --ckpt-freq,
+--prefetch-depth, --on-divergence, --max-rollbacks, --fault-spec), plus
+``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given) and ``--warmup``
 (untimed steps before the timed window, default 1 as in ``fit``).  Models
 (the JAX app's names): ``alexnet``, ``vgg16``/``vgg``,
@@ -23,7 +25,7 @@ are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
 ``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
-strategies, checkpoints, elastic and health features raise
+strategies, elastic and telemetry features raise
 ``NotImplementedError`` when asked for (``config.UNPORTED_FLAGS``).
 """
 

@@ -27,7 +27,8 @@ import sys
 
 import torch
 
-from flexflow_tpu_torch.config import UNPORTED_FLAGS, flag_stream
+from flexflow_tpu_torch.config import (RUNTIME_FLAGS, UNPORTED_FLAGS,
+                                       flag_stream)
 from flexflow_tpu_torch.nmt.rnn_model import (RnnConfig, RnnModel,
                                               synthetic_token_batches)
 
@@ -42,8 +43,10 @@ _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
                "--param-dtype": "param_dtype"}
 #: flags of ``flexflow_tpu/apps/nmt.py:parse_args`` whose features the
 #: port does not have yet (``-s`` and ``-e`` are the sequence length and
-#: the embed size here, so they are parsed first)
-NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | {"--pipeline-stages"}
+#: the embed size here, so they are parsed first); ``fit``'s runtime
+#: flags are not carried through ``RnnConfig`` yet
+NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS) \
+    | {"--pipeline-stages"}
 
 
 def parse_args(argv):

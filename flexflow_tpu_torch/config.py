@@ -1,20 +1,25 @@
 """Run configuration (PyTorch port): the ``FFConfig`` fields the ported
-paths read — serving, and training through ``FFModel.fit`` — with the
-JAX package's defaults (``flexflow_tpu/config.py``).
+paths read — serving, and training through ``FFModel.fit`` with its
+checkpoints, health guard, prefetch and fault injection — with the JAX
+package's defaults (``flexflow_tpu/config.py``), but for
+``prefetch_depth``: 0 here, where the JAX default is 2 (the port's
+synthetic sources already yield tensors on the card).
 
 :meth:`FFConfig.from_args` parses the JAX parser's flag names for these
 fields and ignores unknown flags like the reference parser.  A flag of
-the JAX parser whose feature is not ported yet (checkpoints, elastic
-training, datasets, strategies over several devices, telemetry, ...)
-raises ``NotImplementedError`` instead of being dropped silently.
+the JAX parser whose feature is not ported yet (elastic training,
+datasets, strategies over several devices, telemetry, ...) raises
+``NotImplementedError`` instead of being dropped silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 from flexflow_tpu_torch.strategy import Strategy
+from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
+                                                  parse_fault_spec)
 
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
@@ -24,28 +29,58 @@ UNPORTED_FLAGS = frozenset((
     "-run-id", "--run-id", "--obs-max-bytes", "-op-time-every",
     "--op-time-every", "-metrics-path", "--metrics-path", "-chains",
     "--chains", "-delta", "--delta", "-regrid-planner", "--regrid-planner",
-    "-placed-overlap", "--placed-overlap", "-prefetch-depth",
-    "--prefetch-depth", "-on-divergence", "--on-divergence",
-    "-max-rollbacks", "--max-rollbacks", "-fault-spec", "--fault-spec",
-    "--data-retry-attempts", "--data-skip-budget", "--elastic",
-    "--min-devices", "--research-budget-s", "--elastic-search-iters",
-    "--decompose", "--block-budget-s", "--boundary-refine-iters",
-    "--max-regrows", "--regrow-probes", "--drain-budget-s", "--hang-factor",
-    "--hang-min-s", "--transient-reset-steps", "--ckpt-async", "--max-batch",
+    "-placed-overlap", "--placed-overlap", "--data-retry-attempts",
+    "--data-skip-budget", "--elastic", "--min-devices",
+    "--research-budget-s", "--elastic-search-iters", "--decompose",
+    "--block-budget-s", "--boundary-refine-iters", "--max-regrows",
+    "--regrow-probes", "--drain-budget-s", "--hang-factor", "--hang-min-s",
+    "--transient-reset-steps", "--ckpt-async", "--max-batch",
     "--serve-queue-hi", "--serve-idle-boundaries", "--serve-prefill-devices",
     "--serve-prefill-replicas", "--serve-decode-replicas",
     "--fleet-quantum", "--fleet-search-budget-s", "--allow-degraded",
-    "-pallas", "--pallas", "--ckpt-dir", "--ckpt-freq", "--params-ones",
-    "--print-intermediates", "--dry-compile",
+    "-pallas", "--pallas", "--params-ones", "--print-intermediates",
+    "--dry-compile",
 ))
 
 #: flags of ``flexflow_tpu/apps/lm.py:parse_args`` beyond the ones above
-#: whose features the port does not have yet (mixture of experts and the
-#: pipelined path)
+#: whose features the port does not have yet (the pipelined path)
 LM_UNPORTED_FLAGS = frozenset((
-    "--experts", "--moe-every", "--moe-top-k", "--pipeline-stages",
-    "--microbatches", "--pipeline-tp",
+    "--pipeline-stages", "--microbatches", "--pipeline-tp",
 ))
+
+
+def _checked_policy(v: str) -> str:
+    """An ``--on-divergence`` value, checked when parsed."""
+    if v not in ("halt", "warn", "rollback"):
+        raise SystemExit(
+            f"--on-divergence must be halt|warn|rollback, got {v!r}")
+    return v
+
+
+def _checked_fault_spec(v: str) -> str:
+    """A ``--fault-spec`` string, checked when parsed, so that a
+    misspelt kind fails at once instead of never firing."""
+    try:
+        parse_fault_spec(v)
+    except FaultSpecError as e:
+        raise SystemExit(f"--fault-spec: {e}")
+    return v
+
+
+#: the training runtime's flags (``FFModel.fit``: checkpoints, the health
+#: guard, prefetch, fault injection): flag -> (field, parse)
+RUNTIME_FLAGS: Dict[str, Tuple[str, Callable]] = {
+    "--ckpt-dir": ("ckpt_dir", str),
+    "--ckpt-freq": ("ckpt_freq", int),
+    "-prefetch-depth": ("prefetch_depth", int),
+    "--prefetch-depth": ("prefetch_depth", int),
+    "-on-divergence": ("on_divergence", _checked_policy),
+    "--on-divergence": ("on_divergence", _checked_policy),
+    "-max-rollbacks": ("max_rollbacks", int),
+    "--max-rollbacks": ("max_rollbacks", int),
+    "-fault-spec": ("fault_spec", _checked_fault_spec),
+    "--fault-spec": ("fault_spec", _checked_fault_spec),
+}
 
 
 def flag_stream(argv: Sequence[str]) -> Iterator[Tuple[str, Callable]]:
@@ -87,13 +122,28 @@ class FFConfig:
     seed: int = 0
     num_classes: int = 1000
     strategies: Strategy = dataclasses.field(default_factory=Strategy)
+    # checkpoint/resume directory ("" = none) and the save interval (0 =
+    # after the last step only)
+    ckpt_dir: str = ""
+    ckpt_freq: int = 0
+    # batches staged on the device ahead of the loop (0 = the synchronous
+    # pull in the loop)
+    prefetch_depth: int = 0
+    # what the step health guard does on a non-finite loss: "halt"
+    # (raise TrainingDiverged), "warn", or "rollback" (restore the newest
+    # verified checkpoint, at most max_rollbacks times)
+    on_divergence: str = "halt"
+    max_rollbacks: int = 3
+    # deterministic fault injection (utils/faultinject.py), e.g.
+    # "loss_nan@120,data_io@50x3,ckpt_truncate@2"; "" = off
+    fault_spec: str = ""
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":
         """Parse the JAX parser's flags for the fields above: -b/--batch-size,
         --lr/--learning-rate, --wd/--weight-decay, -p/--print-freq,
         -i/--iters/--iterations, --dtype, -param-dtype/--param-dtype,
-        --seed, --height, --width, --classes."""
+        --seed, --height, --width, --classes, and ``RUNTIME_FLAGS``."""
         cfg = cls()
         for a, val in flag_stream(argv):
             if a in UNPORTED_FLAGS:
@@ -122,5 +172,8 @@ class FFConfig:
                 cfg.input_width = int(val())
             elif a == "--classes":
                 cfg.num_classes = int(val())
+            elif a in RUNTIME_FLAGS:
+                field, parse = RUNTIME_FLAGS[a]
+                setattr(cfg, field, parse(val()))
             # unknown flags are ignored, like the reference parser
         return cfg

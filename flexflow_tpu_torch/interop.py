@@ -33,12 +33,34 @@ def _to_tensor(arr, device) -> torch.Tensor:
 
 
 def params_from_jax(tree: Mapping[str, Mapping[str, object]],
-                    device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+                    device="cuda", model=None
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The port's params from a JAX ``FFModel.init()`` params tree of
-    numpy arrays: same keys, same shapes, same dtypes, on ``device``."""
+    numpy arrays: same keys, same shapes, same dtypes, on ``device``.
+    With ``model`` (a port ``FFModel``) every key, leaf and shape must
+    be the ones the model's ``init`` makes (``check_param_shapes``)."""
     dev = resolve_device(device)
-    return {key: {leaf: _to_tensor(v, dev) for leaf, v in leaves.items()}
-            for key, leaves in tree.items()}
+    out = {key: {leaf: _to_tensor(v, dev) for leaf, v in leaves.items()}
+           for key, leaves in tree.items()}
+    if model is not None:
+        check_param_shapes(out, model.param_shapes())
+    return out
+
+
+def check_param_shapes(params: Mapping, want: Mapping) -> None:
+    """Raise ValueError unless ``params`` has exactly the keys, leaves and
+    shapes of ``want`` (``{param_key: {leaf: shape}}``)."""
+    got = {key: {leaf: tuple(v.shape) for leaf, v in sub.items()}
+           for key, sub in params.items()}
+    if got != want:
+        diff = sorted(
+            f"{key}.{leaf}: {got.get(key, {}).get(leaf)} != "
+            f"{want.get(key, {}).get(leaf)}"
+            for key in set(got) | set(want)
+            for leaf in set(got.get(key, {})) | set(want.get(key, {}))
+            if got.get(key, {}).get(leaf) != want.get(key, {}).get(leaf))
+        raise ValueError(f"parameter tree does not match the model "
+                         f"({len(diff)} leaves, e.g. {diff[:3]})")
 
 
 def state_from_jax(tree: Mapping[str, Mapping[str, object]],

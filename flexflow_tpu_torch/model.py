@@ -18,9 +18,11 @@ mixed-precision (float32 masters) parameters.
 Gradients come from ``torch.autograd``.  A tensor read by several ops
 gets the sum of their gradients from autograd itself; the JAX package's
 ``grad_fanout`` tree (``ops/fanout.py``) only fixes where XLA adds them,
-and the parity tests hold without it.  Placement over several devices,
-regrids, checkpoints and the fault-tolerant runtime arrive with later
-slices.
+and the parity tests hold without it.  ``fit`` carries the one-device
+part of the JAX training runtime: checkpoints and resume, the step
+health guard with rollback, device prefetch and fault injection.
+Placement over several devices, regrids, elastic training and telemetry
+arrive with later slices.
 """
 
 from __future__ import annotations
@@ -161,6 +163,14 @@ class FFModel:
         return self._add(MultiHeadAttention(
             name, self._pc(name, 3), input, num_heads, causal))
 
+    def moe(self, name, input, num_experts, d_ff, top_k: int = 2,
+            capacity_factor: float = 2.0) -> Tensor:
+        from flexflow_tpu_torch.ops.moe import MixtureOfExperts
+
+        return self._add(MixtureOfExperts(
+            name, self._pc(name, 3), input, num_experts, d_ff, top_k,
+            capacity_factor))
+
     def seq_linear(self, name, input, out_channels,
                    param_key: str = None) -> Tensor:
         from flexflow_tpu_torch.ops.rnn_linear import RnnLinear
@@ -202,6 +212,19 @@ class FFModel:
             if s:
                 state[op.name] = s
         return params, state
+
+    def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
+        """``{param_key: {leaf: shape}}`` of the tree :meth:`init` makes,
+        drawn on the meta device: nothing is allocated."""
+        meta = torch.device("meta")
+        out: Dict[str, Dict[str, tuple]] = {}
+        for op in self.layers:
+            if op.param_key not in out:
+                p = op.init_params(None, meta)
+                if p:
+                    out[op.param_key] = {k: tuple(v.shape)
+                                         for k, v in p.items()}
+        return out
 
     def _mixed_precision(self) -> bool:
         return (self.config.param_dtype or "float32") != "float32"
@@ -471,42 +494,201 @@ class FFModel:
 
     def fit(self, data_iter, num_iterations: Optional[int] = None,
             warmup: int = 1, log=print) -> Dict[str, Any]:
-        """The timed training loop of ``model.py:1624`` (cnn.cc:110-128):
-        ``warmup`` untimed steps, then the timed ones, the device synced
-        once when the timed window opens and once when it closes; the loss
-        every ``config.print_freq`` iterations; then the reference's line
-        ``time = %.4fs, tp = %.2f images/s``.  Starts from ``init()``.
-        Returns
-        ``{"params", "state", "opt_state", "loss" (floats), "elapsed_s",
-        "images_per_sec"}``.  Checkpoints, elastic recovery, the health
-        guard, telemetry and prefetching are not ported yet."""
+        """The training loop of ``model.py:1624`` (cnn.cc:110-128), one
+        device: ``warmup`` untimed steps, then the timed ones, the device
+        synced once when the timed window opens and once when it closes;
+        the loss every ``config.print_freq`` iterations; then the
+        reference's line ``time = %.4fs, tp = %.2f images/s``.
+
+        The one-device part of the JAX runtime (``_fit``,
+        ``model.py:1755-2160``), each piece off unless configured:
+
+          * ``ckpt_dir``: resume from its newest verified checkpoint
+            (refusing one trained under another strategy; the data
+            stream is advanced past the restored steps), save every
+            ``ckpt_freq`` steps and after the last;
+          * the step health guard (``on_divergence``, ``max_rollbacks``)
+            checks the losses at print, checkpoint and final boundaries;
+            ``rollback`` restores the newest verified checkpoint and
+            re-runs from it on fresh batches;
+          * ``prefetch_depth`` > 0 pulls batches through a
+            ``DevicePrefetcher`` (0, the default, pulls them in the loop);
+          * ``fault_spec`` installs the fault injector for the run: its
+            ``loss_nan`` site is here, ``data_io`` in the batch pull
+            (``utils/retry.py:retrying_iter``), ``ckpt_truncate`` and
+            ``ckpt_corrupt`` in ``save_checkpoint``.
+
+        Returns ``{"params", "state", "opt_state", "loss" (floats, from
+        the first step run), "elapsed_s", "images_per_sec", "rollbacks",
+        "completed_steps", "checkpoint_s" (saves inside the loop),
+        "input_stall_s"}``."""
+        from flexflow_tpu_torch.utils import faultinject
+
         num_iterations = num_iterations or self.config.num_iterations
-        warmup = min(warmup, max(num_iterations - 1, 0))
-        params, state = self.init()
-        opt_state = self.init_opt_state(params)
+        inj = faultinject.from_config(self.config)
+        restore_inj = faultinject.install_scoped(inj) if inj.enabled \
+            else None
+        try:
+            return self._fit(data_iter, num_iterations, warmup, log, inj)
+        finally:
+            if restore_inj is not None:
+                restore_inj()
+
+    def _resume(self, data_iter, num_iterations, log):
+        """``(start_iter, params, state, opt_state)`` from the newest
+        verified checkpoint under ``config.ckpt_dir``, the data stream
+        advanced past its steps; None when there is none."""
+        from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt_dir = self.config.ckpt_dir
+        if not ckpt_dir or ckpt.latest_step(ckpt_dir) is None:
+            return None
+        start_iter, params, state, opt_state = \
+            ckpt.restore_checkpoint(ckpt_dir, self)
+        saved = ckpt.load_strategy(ckpt_dir, step=start_iter)
+        if dict(saved or {}) != dict(self.config.strategies):
+            raise ValueError(
+                f"checkpoint step {start_iter} under {ckpt_dir!r} was "
+                f"trained under another strategy; resume it under that "
+                f"strategy or point ckpt_dir elsewhere")
+        log(f"resumed from {ckpt_dir} at iteration {start_iter}")
+        # re-align a seeded stream with the restored position, so that the
+        # resumed run matches the uninterrupted one
+        skip = min(start_iter, num_iterations)
+        try:
+            for _ in range(skip):
+                next(data_iter)
+        except StopIteration:
+            raise RuntimeError(
+                f"checkpoint at step {start_iter} is ahead of the data "
+                f"stream: it ended before the {skip} batches that re-align "
+                f"the resume") from None
+        return (start_iter, params, state,
+                opt_state or self.init_opt_state(params))
+
+    def _fit(self, data_iter, num_iterations, warmup, log, inj):
+        from flexflow_tpu_torch.utils import checkpoint as ckpt
+        from flexflow_tpu_torch.utils.health import StepHealthGuard
+        from flexflow_tpu_torch.utils.retry import retrying_iter
+
+        cfg = self.config
+        resumed = self._resume(data_iter, num_iterations, log)
+        if resumed is not None:
+            start_iter, params, state, opt_state = resumed
+        else:
+            start_iter = 0
+            params, state = self.init()
+            opt_state = self.init_opt_state(params)
+        data_iter = retrying_iter(data_iter, log=log)
+        prefetcher = None
+        if cfg.prefetch_depth > 0:
+            from flexflow_tpu_torch.data.prefetch import DevicePrefetcher
+
+            prefetcher = DevicePrefetcher(data_iter, self.device,
+                                          cfg.prefetch_depth)
+            data_iter = prefetcher
         step = self.make_train_step()
-        print_freq = self.config.print_freq
+        warmup = start_iter + min(warmup,
+                                  max(num_iterations - start_iter - 1, 0))
+        guard = StepHealthGuard(cfg.on_divergence, cfg.max_rollbacks,
+                                log=log)
+        print_freq, ckpt_dir, ckpt_freq = (cfg.print_freq, cfg.ckpt_dir,
+                                           cfg.ckpt_freq)
+        # losses stay device scalars until a boundary reads them; loss_base
+        # is the step of losses[0] (a rollback may go back past the resume
+        # point), window_start the first step the guard has not checked
         losses = []
+        loss_base = window_start = it = start_iter
+        checkpoint_s = 0.0
         start = time.perf_counter()
-        for it in range(num_iterations):
-            batch = next(data_iter)
-            if it == warmup:
-                self._sync()
-                start = time.perf_counter()
-            params, state, opt_state, loss = step(params, state, opt_state,
-                                                  *batch)
-            losses.append(loss)
-            if print_freq and (it + 1) % print_freq == 0:
-                log(f"iter {it + 1}: loss = {float(loss):.4f}")
-        self._sync()
-        elapsed = time.perf_counter() - start
-        n_timed = num_iterations - warmup
-        throughput = (n_timed * self.config.batch_size / elapsed
+        try:
+            while it < num_iterations:
+                batch = next(data_iter)
+                if it == warmup:
+                    self._sync()
+                    start = time.perf_counter()
+                params, state, opt_state, loss = step(params, state,
+                                                      opt_state, *batch)
+                if inj.enabled and inj.fire("loss_nan", site="fit"):
+                    # poison the recorded loss on the device; the guard
+                    # sees it at the next boundary
+                    loss = loss * float("nan")
+                losses.append(loss)
+                it1 = it + 1
+                at_print = bool(print_freq) and it1 % print_freq == 0
+                at_ckpt = bool(ckpt_dir) and bool(ckpt_freq) \
+                    and it1 % ckpt_freq == 0 and it1 < num_iterations
+                if at_print or at_ckpt or it1 == num_iterations:
+                    action = guard.check(losses[window_start - loss_base:],
+                                         first_step=window_start + 1)
+                    if action == "rollback":
+                        it, params, state, opt_state = \
+                            self._rollback_restore(ckpt_dir, log, it1)
+                        del losses[max(it - loss_base, 0):]
+                        loss_base = min(loss_base, it)
+                        window_start = it
+                        # the stream is not rewound: the re-run steps take
+                        # fresh batches, past the bad window
+                        continue
+                    window_start = it1
+                if at_print:
+                    log(f"iter {it1}: loss = {float(loss):.4f}")
+                if at_ckpt:
+                    t0 = time.perf_counter()
+                    self._save(ckpt, it1, params, state, opt_state, log)
+                    checkpoint_s += time.perf_counter() - t0
+                it = it1
+            self._sync()
+            elapsed = time.perf_counter() - start
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if ckpt_dir and start_iter < num_iterations:
+            self._save(ckpt, num_iterations, params, state, opt_state, log)
+        n_timed = it - warmup
+        throughput = (n_timed * cfg.batch_size / elapsed
                       if elapsed > 0 and n_timed > 0 else 0.0)
         log(f"time = {elapsed:.4f}s, tp = {throughput:.2f} images/s")
         return {"params": params, "state": state, "opt_state": opt_state,
-                "loss": [float(v) for v in losses], "elapsed_s": elapsed,
-                "images_per_sec": throughput}
+                "loss": torch.stack(losses).tolist() if losses else [],
+                "elapsed_s": elapsed, "images_per_sec": throughput,
+                "rollbacks": guard.rollbacks, "completed_steps": it,
+                "checkpoint_s": checkpoint_s,
+                "input_stall_s": prefetcher.stall_s if prefetcher else 0.0}
+
+    def _save(self, ckpt, step, params, state, opt_state, log) -> None:
+        """One checkpoint save; non-finite state is refused and logged,
+        never committed over good checkpoints (the guard decides the
+        run's fate)."""
+        try:
+            ckpt.save_checkpoint(self.config.ckpt_dir, step, params, state,
+                                 opt_state, self.config.strategies)
+        except ckpt.NonFiniteCheckpointError as e:
+            log(f"warning: skipped checkpoint at iteration {step}: {e}")
+
+    def _rollback_restore(self, ckpt_dir, log, from_step):
+        """The guard's rollback: ``(step, params, state, opt_state)`` of
+        the newest verified checkpoint (falling back past corrupt steps),
+        or of a fresh ``init()`` at step 0 when there is none
+        (``model.py:2439``)."""
+        from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+        rstep, params, state, opt_state = 0, None, None, None
+        if ckpt_dir:
+            try:
+                rstep, params, state, opt_state = \
+                    ckpt.restore_checkpoint(ckpt_dir, self)
+            except (FileNotFoundError, ckpt.CheckpointError) as e:
+                log(f"rollback: no usable checkpoint under {ckpt_dir!r} "
+                    f"({e}); reinitializing from step 0")
+        if params is None:
+            rstep = 0
+            params, state = self.init()
+            opt_state = None
+        opt_state = opt_state or self.init_opt_state(params)
+        log(f"health guard: rolled back from iteration {from_step} to "
+            f"checkpoint step {rstep}")
+        return rstep, params, state, opt_state
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

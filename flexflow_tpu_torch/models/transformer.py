@@ -3,9 +3,11 @@
 the vocab projection and a log-softmax head, with the JAX package's op
 names (``embed``, ``pos_embed``, ``blk{i}_attn``, ..., ``lm_head``,
 ``softmax``) so that one strategy file and one parameter tree serve both
-packages.  Training is plain SGD on the next-token loss (causal) or the
-identity-label loss, through the fused LM head; mixture-of-experts blocks
-come with a later slice and raise ``NotImplementedError``."""
+packages.  With ``num_experts`` > 0 every ``moe_every``-th block's FFN is
+a top-k mixture of experts (``blk{i}_moe``, ``ops/moe.py``) whose
+load-balancing loss joins the training objective.  Training is plain SGD
+on the next-token loss (causal) or the identity-label loss, through the
+fused LM head."""
 
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ class TransformerConfig:
     d_ff: int = 3072
     vocab_size: int = 32768
     causal: bool = False           # True = GPT-style next-token LM
-    # Mixture-of-Experts (flexflow_tpu/ops/moe.py): not ported yet, any
-    # num_experts > 0 raises NotImplementedError
+    # mixture of experts (ops/moe.py): num_experts > 0 replaces the dense
+    # FFN of every moe_every-th block with a top-k-routed MoE
     num_experts: int = 0
     moe_every: int = 1
     moe_top_k: int = 2
@@ -46,6 +48,13 @@ class TransformerConfig:
     seed: int = 0
     # "default" only: the JAX package's "ones" init is not ported yet
     params_init: str = "default"
+    # the training runtime (forwarded to FFConfig; FFModel.fit)
+    prefetch_depth: int = 0
+    ckpt_dir: str = ""
+    ckpt_freq: int = 0
+    on_divergence: str = "halt"
+    max_rollbacks: int = 3
+    fault_spec: str = ""
 
 
 class TransformerLM(FFModel):
@@ -56,10 +65,6 @@ class TransformerLM(FFModel):
                  machine: Optional[MachineModel] = None,
                  strategies: Optional[Strategy] = None, device="cuda"):
         self.t = t_config or TransformerConfig()
-        if self.t.num_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts blocks (num_experts > 0) are not ported "
-                "to flexflow_tpu_torch yet (flexflow_tpu/ops/moe.py)")
         if self.t.params_init != "default":
             raise NotImplementedError(
                 f"params_init={self.t.params_init!r} is not ported to "
@@ -73,6 +78,12 @@ class TransformerLM(FFModel):
             param_dtype=self.t.param_dtype,
             seed=self.t.seed,
             strategies=strategies or Strategy(),
+            prefetch_depth=self.t.prefetch_depth,
+            ckpt_dir=self.t.ckpt_dir,
+            ckpt_freq=self.t.ckpt_freq,
+            on_divergence=self.t.on_divergence,
+            max_rollbacks=self.t.max_rollbacks,
+            fault_spec=self.t.fault_spec,
         )
         super().__init__(ff_cfg, machine, device)
         self._build()
@@ -85,15 +96,21 @@ class TransformerLM(FFModel):
                                         "int32", "labels")
         x = self.embed("embed", self.tokens, t.vocab_size, t.d_model)
         x = self.pos_embed("pos_embed", x)
+        self._moe_aux_tids = []
         for i in range(t.num_layers):
             h = self.layer_norm(f"blk{i}_ln1", x)
             h = self.attention(f"blk{i}_attn", h, t.num_heads,
                                causal=t.causal)
             x = self.add_seq(f"blk{i}_res1", x, h)
             h = self.layer_norm(f"blk{i}_ln2", x)
-            h = self.seq_linear(f"blk{i}_ff1", h, t.d_ff)
-            h = self.gelu_seq(f"blk{i}_gelu", h)
-            h = self.seq_linear(f"blk{i}_ff2", h, t.d_model)
+            if t.num_experts > 0 and i % t.moe_every == 0:
+                h = self.moe(f"blk{i}_moe", h, t.num_experts, t.d_ff,
+                             t.moe_top_k, t.moe_capacity_factor)
+                self._moe_aux_tids.append(self.layers[-1].aux.tid)
+            else:
+                h = self.seq_linear(f"blk{i}_ff1", h, t.d_ff)
+                h = self.gelu_seq(f"blk{i}_gelu", h)
+                h = self.seq_linear(f"blk{i}_ff2", h, t.d_model)
             x = self.add_seq(f"blk{i}_res2", x, h)
         x = self.layer_norm("final_ln", x)
         logits = self.seq_linear("lm_head", x, t.vocab_size)
@@ -106,7 +123,9 @@ class TransformerLM(FFModel):
         """``(loss, new_state)``: the NLL summed over the targets and
         divided by their count (``transformer.py:178-201``).  A causal
         model predicts the next token: labels shift left by one and the
-        last position gets -1, no target."""
+        last position gets -1, no target.  In training each MoE block's
+        load-balancing loss joins, weighted by ``moe_aux_weight``; the
+        eval loss stays the plain NLL."""
         if self.t.causal:
             labels = torch.cat(
                 [labels[:, 1:],
@@ -119,7 +138,30 @@ class TransformerLM(FFModel):
         n_targets = self.t.batch_size * (self.t.seq_length - 1
                                          if self.t.causal
                                          else self.t.seq_length)
-        return total / n_targets, new_state
+        loss = total / n_targets
+        if train:
+            for tid in self._moe_aux_tids:
+                loss = loss + self.t.moe_aux_weight * values[tid]
+        return loss, new_state
+
+    def moe_stats(self, params, state, tokens) -> dict:
+        """``{"aux": [...], "dropped": [...]}``, one entry per MoE block:
+        its load-balancing loss and the share of its (token, choice)
+        pairs dropped at capacity, from one forward pass of ``tokens``
+        (float32 params)."""
+        from flexflow_tpu_torch.ops.moe import MixtureOfExperts
+
+        with torch.inference_mode():
+            (toks,) = self._batch(tokens)
+            values, _ = self.apply(
+                params, state, {self.tokens.tid: toks,
+                                self.labels.tid: toks}, train=False)
+            ops = [op for op in self.layers
+                   if isinstance(op, MixtureOfExperts)]
+            return {"aux": [float(values[op.aux.tid]) for op in ops],
+                    "dropped": [op.dropped_share(params[op.param_key],
+                                                 values[op.inputs[0].tid])
+                                for op in ops]}
 
     def make_train_step(self):
         return self.make_sgd_step(self.t.learning_rate)

@@ -1,9 +1,13 @@
 """Deterministic fault injection — the port's own copy of
 ``flexflow_tpu/utils/faultinject.py`` (that module imports no JAX, but the
 port imports nothing of the JAX package).  The same spec string drives
-both packages.  The sites named below are the JAX package's.  No site of
-this package fires yet: the serving engine's one site (``slow_replica``)
-belongs to the decode phase of disaggregated serving, a later slice.
+both packages.  The sites named below are the JAX package's.  This
+package fires four: ``loss_nan`` in ``FFModel.fit``, ``data_io`` before
+each attempt of ``fit``'s batch pull (``utils/retry.py:retrying_iter``;
+the port has no HDF5 or ImageNet reader yet), ``ckpt_truncate`` and
+``ckpt_corrupt`` in ``utils/checkpoint.py:save_checkpoint``.  The
+others belong to slices not ported yet (elastic training, the serving
+router, disaggregated serving).
 
 ``FFConfig.fault_spec`` names faults to fire at EXACT occurrence indices,
 so every recovery path in the runtime — step health guard rollback

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain
 PyTorch version on the same inputs, and the serving, CNN training, LM
-training and NMT training paths counted through them.  Every test
+training (dense and mixture of experts) and NMT training paths counted
+through them.  Every test
 carries the ``cuda`` marker and skips, with the reason, where no GPU is
 present (kernels have no CPU mode).  This file imports neither JAX nor
 the JAX package, so it also runs where JAX is absent:
@@ -599,6 +600,52 @@ def test_tiny_lm_trains_through_the_kernels(gpu, dtype):
         assert sum(kernels.launches.values()) == 0
     np.testing.assert_allclose(losses, ref,
                                rtol=1e-4 if dtype == "float32" else 2e-2)
+
+
+def test_tiny_moe_lm_trains_through_the_kernels(gpu):
+    """A small MoE LM (2 layers, 4 experts in every block, top-2) for
+    three float32 SGD steps: kernels 1-6 launch as in the dense LM (the
+    experts have no kernel of their own), the losses within 1e-4 of the
+    run with the plain kernels, and two runs give the same bits (the
+    dispatch and combine backward has no atomics)."""
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+
+    model = TransformerLM(TransformerConfig(
+        batch_size=4, seq_length=64, num_layers=2, d_model=64, num_heads=4,
+        d_ff=128, vocab_size=300, causal=True, learning_rate=0.1,
+        num_experts=4, moe_capacity_factor=1.0), device=gpu)
+    toks = np.random.RandomState(13).randint(0, 300, (4, 64)).astype("int32")
+
+    def run():
+        params, state = model.init()
+        opt = model.init_opt_state(params)
+        step = model.make_train_step()
+        losses = []
+        for _ in range(3):
+            params, state, opt, loss = step(params, state, opt, toks, toks)
+            losses.append(float(loss))
+        return losses, params
+
+    kernels.reset_launches()
+    losses, params = run()
+    torch.cuda.synchronize()
+    layers = model.t.num_layers
+    assert dict(kernels.launches) == {
+        fa.NAME: 3 * layers, fa.NAME_DKV: 3 * layers, fa.NAME_DQ: 3 * layers,
+        ce.NAME_FWD: 3, ce.NAME_FWD_COMBINE: 3, ce.NAME_DX: 3,
+        ce.NAME_DX_SUM: 3, ce.NAME_DW: 3}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    again, params2 = run()
+    assert again == losses
+    for key, sub in params.items():
+        for leaf, v in sub.items():
+            assert torch.equal(v, params2[key][leaf]), f"{key}.{leaf}"
+    with _plain_kernels():
+        kernels.reset_launches()
+        ref, _ = run()
+        assert sum(kernels.launches.values()) == 0
+    np.testing.assert_allclose(losses, ref, rtol=1e-4)
 
 
 def test_tiny_nmt_trains_through_the_kernels(gpu):

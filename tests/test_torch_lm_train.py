@@ -229,12 +229,17 @@ def test_every_jax_lm_flag_is_parsed_or_refused():
     refused = UNPORTED_FLAGS | LM_UNPORTED_FLAGS
     assert LM_UNPORTED_FLAGS <= flags
     default = t_lm.parse_args([])
+    # a value for the flags checked when parsed, and one off the default
+    values = {"-on-divergence": "rollback", "--on-divergence": "rollback",
+              "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2",
+              "--moe-top-k": "1"}
     for flag in sorted(flags):
         if flag in refused and flag != "-s":
             with pytest.raises(NotImplementedError, match="not ported"):
                 t_lm.parse_args([flag, "2"])
         else:
-            assert t_lm.parse_args([flag, "2"]) != default, flag
+            value = values.get(flag, "2")
+            assert t_lm.parse_args([flag, value]) != default, flag
     cfg, device, warmup = t_lm.parse_args(
         ["--causal", "-s", "64", "--device", "cpu", "--warmup", "2",
          "--no-such-flag"])
@@ -243,5 +248,10 @@ def test_every_jax_lm_flag_is_parsed_or_refused():
 
 
 def test_experts_refused():
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TLM(TTConfig(**CFG, num_experts=4), device="cpu")
+    # mixture of experts is ported: num_experts > 0 builds MoE blocks, and
+    # what is refused is a top-k above the expert count
+    tm = TLM(TTConfig(**CFG, num_experts=4), device="cpu")
+    assert [op.name for op in tm.layers if op.name.endswith("_moe")] == \
+        ["blk0_moe"]
+    with pytest.raises(ValueError, match="top_k 5"):
+        TLM(TTConfig(**CFG, num_experts=4, moe_top_k=5), device="cpu")

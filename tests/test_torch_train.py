@@ -221,9 +221,17 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("--ckpt-dir", "-s", "--elastic", "-d", "--pallas"):
+    for flag in ("--ckpt-async", "-s", "--elastic", "-d", "--pallas"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cnn.parse(["alexnet", flag, "x"])
+    # fit's runtime flags are ported: parsed, not refused
+    _, cfg, _, _ = t_cnn.parse(["alexnet", "--ckpt-dir", "x"])
+    assert cfg.ckpt_dir == "x"
+
+
+#: a value for the flags checked when parsed (any other takes "2")
+FLAG_VALUES = {"-on-divergence": "rollback", "--on-divergence": "rollback",
+               "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2"}
 
 
 def test_every_jax_cnn_flag_is_parsed_or_refused():
@@ -236,7 +244,8 @@ def test_every_jax_cnn_flag_is_parsed_or_refused():
     flags = set(re.findall(r'"(-[-\w:]+)"', src))
     assert len(flags) > 60 and UNPORTED_FLAGS <= flags
     for flag in sorted(flags - UNPORTED_FLAGS):
-        assert TConfig.from_args([flag, "2"]) != TConfig(), flag
+        value = FLAG_VALUES.get(flag, "2")
+        assert TConfig.from_args([flag, value]) != TConfig(), flag
 
 
 def test_inception_v3_graph_matches_jax(machine1, pallas_on):
