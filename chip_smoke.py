@@ -4,13 +4,18 @@ against its plain PyTorch version on the card, drives each ported path at
 full width through its entry point — the GPT served by ``apps.serve``,
 the GPT and its mixture-of-experts form trained by ``apps.lm``,
 Inception-v3, DenseNet-121, ResNet-101 and VGG-16 trained by
-``apps.cnn``, and the NMT seq2seq model trained by ``apps.nmt`` — and
-checks that each path ran through its kernels.
+``apps.cnn``, the NMT seq2seq model trained by ``apps.nmt``, and AlexNet
+trained by ``torchrun ... apps.cnn`` under a strategy file — and checks
+that each path ran through its kernels.
 
-    python3 chip_smoke.py              # the smoke (one GPU)
+    python3 chip_smoke.py              # the smoke (one GPU; on four,
+                                       # phase 18 too)
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
                                        # one decode step and one training
                                        # step of each trained model
+
+(Phase 17 starts the script again, as two torchrun workers, with
+``--gloo-cuda-probe``: its probe of gloo on CUDA tensors.)
 
 Phases (any failure exits non-zero):
 
@@ -25,17 +30,20 @@ Phases (any failure exits non-zero):
 3. flash kernel phase: flash_attention_fwd against its plain version at
    the serving shape (8, 12, 512, 64) causal in float32 and bfloat16, a
    ragged S = 77, a non-causal case, head dim 128 (causal and ragged, in
-   both dtypes) and an empty K; then its time, the plain version's and
-   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
-   at the serving shape, and its time at head dim 128;
+   both dtypes), head dim 96 through the wrapper's zero-padding to 128
+   (causal, ragged, cross, in both dtypes) and an empty K; then its time,
+   the plain version's and ``scaled_dot_product_attention``'s (a
+   yardstick the port never calls) at the serving shape, and its time at
+   head dims 128 and 96;
 4. flash backward phase: kernels 2 (dk, dv) and 3 (dq) against the
    plain backward at the LM training shape (16, 12, 512, 64) causal, a
    ragged non-causal cross case (Sq 77, Sk 300), head dim 128 causal at
-   (4, 16, 512, 128) and ragged (Sq 77 causal; Sq 77, Sk 300), each in
+   (4, 16, 512, 128) and ragged (Sq 77 causal; Sq 77, Sk 300), head dim
+   96 (zero-padded to 128) at (16, 8, 512, 96) causal and ragged, each in
    float32 and bfloat16; that two calls give the same bits; then their
-   times at the LM shape and at (4, 16, 512, 128) beside the plain
-   backward's and the backward of ``scaled_dot_product_attention`` (a
-   yardstick the port never calls);
+   times at the LM shape, at (4, 16, 512, 128) and at (16, 8, 512, 96)
+   beside the plain backward's and the backward of
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
 5. fused cross-entropy phase: kernels 4 (forward, then its finishing
    combine over the vocab slices), 5 (dx, then its finishing sum over
    the vocab slices) and 6 (dw, db) against their plain versions at the LM head's N = 8192, d = 768, V = 32768 in
@@ -50,7 +58,9 @@ Phases (any failure exits non-zero):
    Inception's four max-pool geometries at N = 256, DenseNet's and
    ResNet-101's pool1 (64 x 112 x 112 x 64, pad 1) and VGG-16's five
    2x2/2 pools at N = 64 in bfloat16 and float32, tie-heavy integer
-   inputs, a pad-1 and a 2x2 geometry; the avg-pool backward (kernel 8)
+   inputs, a pad-1 and a 2x2 geometry, AlexNet's three 3x3/2 pools at N
+   = 64 and at the blocks a rank pools under the strategy phase's two-
+   and four-rank strategies, in float32; the avg-pool backward (kernel 8)
    at the 8x8x2048 global tail, DenseNet's three 2x2/2 transitions and
    7x7 global pool and ResNet-101's 7x7x2048 global pool; each kernel's
    scalar instance (C = 5,
@@ -141,11 +151,30 @@ Phases (any failure exits non-zero):
     repeats steps 6-13 within 1e-6; ``--fault-spec loss_nan@7,
     ckpt_corrupt@3`` rolls back from step 10 to step 5 and finishes 13
     steps, and the restore falls back past the corrupted step 13 to 10;
-17. (``--profile``) where the device time of one decode step and of one
+17. strategy slice: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m flexflow_tpu_torch.apps.cnn alexnet -b 64
+    --height 224 --width 224 --lr 0.001 -s <file> -ll:gpu 1`` (the JAX
+    app's example at lr 1e-3, float32, 3 warm-up and 10 timed steps)
+    under a one-rank strategy this phase writes: NCCL, the strategy
+    loader, the block machinery and the gradient all-reduce, 3 launches
+    each of kernel 7 and its forward a step, the first 3 losses within
+    1e-4 (relative) of the same run without ``-s`` in this process (no
+    process group); images/s, step ms and peak memory; then which
+    collectives gloo carries on CUDA tensors (two processes on cuda:0),
+    and where it carries all the path needs (its moves gather where
+    gloo has no all-to-all), a two-rank run on cuda:0 over gloo with
+    conv2 and lienar1 split over channels and the rest over the batch,
+    its first 3 losses held to the same bar and rank 0's pool launches
+    counted as above;
+18. on a machine with four cards (``torch.cuda.device_count() >= 4``):
+    AlexNet over four ranks through ``torchrun --nproc-per-node 4``
+    (NCCL, a card a rank), data parallel and a hybrid strategy, each
+    held as the two-rank run is; one card runs without this phase;
+19. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
     share of each step, from the profiler's kernel rows and, without the
     profiler, from the step's time held behind a sleep kernel;
-18. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+20. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -172,7 +201,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -204,9 +235,20 @@ LM_WARMUP, LM_TIMED, LM_CHECKED = 3, 10, 3
 LM13_WIDTHS = (24, 2048, 16, 8192)
 LM13_WARMUP, LM13_TIMED, LM13_CHECKED = 1, 2, 2
 BWD_WIDE_SHAPE = (4, 16, 512, 128)      # kernels 2-3 at its head dim
+# apps.lm --d-model 768 --heads 8 at the LM step's batch and sequence:
+# head dim 96, which kernels 1-3 take zero-padded to 128
+LM96_SHAPE = (16, 8, 512, 96)
 # the pool kernels do the plain versions' float32 compares, and their
 # float32 adds in the same order, cast once: they must agree exactly
 POOL_ATOL = 0.0
+# AlexNet's max-pool inputs at 224x224 (pool1-pool3; 3x3 stride 2 pad 0,
+# fused ReLU), and the (n, h, w, c) blocks a rank pools under the strategy
+# phase's strategies: the two-rank one splits them over the batch, the
+# four-rank one pool1 and pool3 over the batch, pool2 over c and batch
+ALEXNET_MAX_POOLS = [(55, 55, 64), (27, 27, 192), (13, 13, 256)]
+ALEXNET_RANK_BLOCKS = [(32, 55, 55, 64), (32, 27, 27, 192),
+                       (32, 13, 13, 256), (16, 55, 55, 64),
+                       (32, 27, 27, 96), (16, 13, 13, 256)]
 # the training losses of the kernel and plain-pool runs: the pools agree
 # exactly, so what is left is cuDNN's run-to-run order of sums in bf16
 LOSS_RTOL = 2e-2
@@ -449,6 +491,8 @@ def _plain_kernels():
 
 
 def kernel_phase(torch, fa) -> dict:
+    from flexflow_tpu_torch.ops import kernels
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -473,11 +517,21 @@ def kernel_phase(torch, fa) -> dict:
          "float32"),
         ("d=128 ragged S=77 causal bfloat16", (2, h, 77, 128), 77, True,
          "bfloat16"),
+        # head dim 96, zero-padded to 128 by the wrapper
+        ("d=96 causal float32", (2, h, s, 96), s, True, "float32"),
+        ("d=96 causal bfloat16", (2, h, s, 96), s, True, "bfloat16"),
+        ("d=96 ragged S=77 causal float32", (2, h, 77, 96), 77, True,
+         "float32"),
+        ("d=96 ragged Sq=77 Sk=300 bfloat16", (2, h, 77, 96), 300, False,
+         "bfloat16"),
     ]
     worst = 0.0
     for label, shape, sk, causal, dtype in cases:
         q, k, v = qkv(shape, sk, dtype)
-        o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+        kernels_before = kernels.launches[fa.NAME]
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        if kernels.launches[fa.NAME] != kernels_before + 1:
+            raise AssertionError(f"{label}: the kernel did not launch")
         torch.cuda.synchronize()
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal)
         torch.cuda.synchronize()
@@ -514,16 +568,17 @@ def kernel_phase(torch, fa) -> dict:
         _log(f"kernel time serving causal {dtype}: kernel {ms:.4f} ms, "
              f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
              f"{bound_ms:.4f} ms ({bound_by})")
-        wide = (2, h, s, 128)
-        q, k, v = qkv(wide, s, dtype)
-        ms = _time_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v,
-                                                                 True))
-        sdpa_ms = _time_ms(torch, lambda: torch.nn.functional
-                           .scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True))
-        bound_ms, bound_by = _bound_ms(wide, s, True, dtype)
-        _log(f"kernel time {wide} causal {dtype}: kernel {ms:.4f} ms, sdpa "
-             f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        for wide in ((2, h, s, 128), (2, h, s, 96)):
+            q, k, v = qkv(wide, s, dtype)
+            ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                                True))
+            sdpa_ms = _time_ms(torch, lambda: torch.nn.functional
+                               .scaled_dot_product_attention(q, k, v,
+                                                             is_causal=True))
+            bound_ms, bound_by = _bound_ms(wide, s, True, dtype)
+            _log(f"kernel time {wide} causal {dtype}: kernel {ms:.4f} ms "
+                 f"(with the wrapper's head-dim padding), sdpa "
+                 f"{sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -560,7 +615,7 @@ def flash_bwd_phase(torch, fa) -> dict:
         k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda")
                 for _ in range(2))
         q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
-        o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
         do = torch.randn((b, h, sq, d), generator=gen, device="cuda")
         return q, k, v, o, lse, do
 
@@ -575,12 +630,17 @@ def flash_bwd_phase(torch, fa) -> dict:
                   (f"d=128 ragged S=77 causal {dtype}", (2, 16, 77, 128), 77,
                    True, dtype),
                   (f"d=128 non-causal Sq=77 Sk=300 {dtype}",
-                   (2, 16, 77, 128), 300, False, dtype)]
+                   (2, 16, 77, 128), 300, False, dtype),
+                  # head dim 96, zero-padded to 128 by the wrapper
+                  (f"d=96 {LM96_SHAPE} causal {dtype}", LM96_SHAPE, s, True,
+                   dtype),
+                  (f"d=96 non-causal Sq=77 Sk=300 {dtype}", (2, h, 77, 96),
+                   300, False, dtype)]
     worst = {fa.NAME_DKV: 0.0, fa.NAME_DQ: 0.0}
     for label, shape, sk, causal, dtype in cases:
         q, k, v, o, lse, do = inputs(shape, sk, causal, dtype)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
-        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
         if not all(torch.equal(a, c) for a, c in zip(got, again)):
             raise AssertionError(f"{label}: two calls of the flash backward "
@@ -635,6 +695,21 @@ def flash_bwd_phase(torch, fa) -> dict:
              f"sdpa backward {sdpa_ms:.4f} ms (dq, dk and dv each)")
         if shape == LM_SHAPE:
             timings = t
+    # head dim 96 through the padding wrapper, both kernels together
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, o, lse, do = inputs(LM96_SHAPE, s, True, dtype)
+        ms = _time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True), iters=20)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do.to(q.dtype), retain_graph=True), iters=20)
+        bounds = _bwd_bounds(LM96_SHAPE, dtype)
+        _log(f"flash bwd time {LM96_SHAPE} causal {dtype}: kernels 2+3 with "
+             f"the wrapper's head-dim padding {ms:.4f} ms, bound "
+             f"{bounds['dkv'][0] + bounds['dq'][0]:.4f} ms, sdpa backward "
+             f"{sdpa_ms:.4f} ms")
     return {"worst": worst, "timings": timings}
 
 
@@ -1056,6 +1131,15 @@ def pool_kernel_phase(torch, kernels) -> dict:
                "bfloat16", True, 1, "scalar"),
               ("dy slice at channel 1", (32, 36, 36, 64), 3, 1, True,
                "float32", False, 1, "scalar")]
+    # AlexNet (the strategy phase trains it in float32)
+    cases += [(f"alexnet {h}x{w}x{c}", (64, h, w, c), 3, 0, True, dtype, ties,
+               None, "vector")
+              for (h, w, c) in ALEXNET_MAX_POOLS
+              for dtype, ties in (("float32", False), ("float32", True),
+                                  ("bfloat16", False))]
+    cases += [("alexnet rank block", block, 3, 0, True, "float32", ties, None,
+               "vector")
+              for block in ALEXNET_RANK_BLOCKS for ties in (False, True)]
     worst = {"maxpool_fwd": 0.0, "maxpool_bwd": 0.0, "avgpool_bwd": 0.0}
     for label, shape, k, p, relu, dtype, ties, offset, inst in cases:
         x, _, _, dy, e_f, bad, e_b, same = _maxpool_case(
@@ -2194,6 +2278,244 @@ def profile_phase(torch, engine) -> None:
              f"x{e.count // 3:<4d} {e.key[:90]}")
 
 
+# the strategy phase: AlexNet trained through torchrun at the JAX
+# driver's example (flexflow_tpu/apps/cnn.py:4: batch 64, 224x224),
+# float32, under strategy files this phase writes; the first losses
+# against the run without a strategy (no process group)
+STRATEGY_ROOT = Path(__file__).resolve().parent / ".chip_strategy"
+STRATEGY_WARMUP, STRATEGY_TIMED, STRATEGY_CHECKED = 3, 10, 3
+# the example's lr 0.01 takes the reference AlexNet (no ReLU after its
+# convolutions) to a non-finite loss by step 8 on random data; 1e-3 does
+# not (the CPU parity tests' rate)
+STRATEGY_LR = 1e-3
+STRATEGY_LOSS_RTOL = 1e-4
+# AlexNet's ops and their grid ranks (flexflow_tpu_torch/models/alexnet.py)
+ALEXNET_OPS = (("conv1", 4), ("pool1", 4), ("conv2", 4), ("pool2", 4),
+               ("conv3", 4), ("conv4", 4), ("conv5", 4), ("pool3", 4),
+               ("flat", 2), ("lienar1", 2), ("linear2", 2), ("linear3", 2),
+               ("softmax", 1))
+# the two-rank strategy: conv2 and lienar1 split their output channels
+# over both ranks, every other op the batch (the pure-DP default)
+TWO_RANK_SPLITS = {"conv2": [1, 1, 2, 1], "lienar1": [2, 1]}
+# the four-rank strategy (a machine with four cards): conv2
+# and pool2 over channels and batch, conv3-conv5 over w (13 columns: 7,
+# 6) and batch, the linears over channels, the rest over the batch
+FOUR_RANK_SPLITS = {"conv2": [1, 1, 2, 2], "pool2": [1, 1, 2, 2],
+                    "conv3": [2, 1, 1, 2], "conv4": [2, 1, 1, 2],
+                    "conv5": [2, 1, 1, 2], "lienar1": [4, 1],
+                    "linear2": [4, 1], "linear3": [2, 2]}
+# the collectives the two-rank strategy's regrids and gradients use
+GLOO_CUDA_COLLECTIVES = ("all_gather", "reduce_scatter", "all_to_all",
+                         "all_reduce")
+GLOO_CUDA_NEEDED = ("all_gather", "reduce_scatter", "all_reduce")
+
+
+def _alexnet_argv(extra) -> list:
+    iters = STRATEGY_WARMUP + STRATEGY_TIMED
+    return ["alexnet", "-b", "64", "--height", "224", "--width", "224",
+            "--lr", str(STRATEGY_LR), "-i", str(iters), "--warmup",
+            str(STRATEGY_WARMUP), "-p", "0"] + list(extra)
+
+
+def _torchrun(nproc: int, args, timeout: float = 600) -> str:
+    """Run ``args`` (a module and its argv) under torchrun with ``nproc``
+    processes on this host; its stdout, raising on failure."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc)] + list(args)
+    # a session of its own, so that a run past its time is stopped with
+    # every worker torchrun started
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=str(Path(__file__).resolve().parent))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"torchrun {' '.join(args[:3])} took more "
+                             f"than {timeout} s and was stopped") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(args[:3])} failed "
+                             f"({proc.returncode}):\n{err[-3000:]}")
+    return out
+
+
+def _gloo_cuda_probe() -> int:
+    """Run under torchrun: which collectives gloo carries on CUDA tensors
+    (every rank on cuda:0); rank 0 prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4, 8), float(rank + 1), device="cuda:0")
+    calls = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty_like(x), [x.clone() for _ in range(world)]),
+        "all_to_all": lambda: dist.all_to_all(
+            [torch.empty_like(x) for _ in range(world)],
+            [x.clone() for _ in range(world)]),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+    }
+    ok = {}
+    for name in GLOO_CUDA_COLLECTIVES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            ok[name] = "ok"
+        except Exception as e:     # the probe reports, it decides nothing
+            ok[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if rank == 0:
+        print("GLOO_CUDA " + json.dumps(ok), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _strategy_file(path: Path, splits: dict, ranks: int) -> None:
+    obj = {name: {"dims": splits.get(name, [1] * (nd - 1) + [ranks]),
+                  "devices": list(range(ranks))}
+           for name, nd in ALEXNET_OPS}
+    path.write_text(json.dumps(obj, indent=1))
+
+
+def _check_run(label: str, res: dict, want) -> float:
+    """Hold a strategy run's result (rank 0's ``--result-json``) to the
+    bars: 3 launches each of kernel 7 and its forward a step, and the
+    first losses within the tolerance of ``want``."""
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    iters = STRATEGY_WARMUP + STRATEGY_TIMED
+    pools = {mp.NAME_FWD: 3 * iters, mp.NAME_BWD: 3 * iters}
+    if {k: res["launches"].get(k, 0) for k in pools} != pools:
+        raise AssertionError(f"strategy {label}: kernel 7/7f launches "
+                             f"{res['launches']}, want {pools}")
+    n = STRATEGY_CHECKED
+    got = res["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(got[:n], want[:n]))
+    _log(f"strategy {label}: first losses {got[:n]} vs {want[:n]} without a "
+         f"strategy: max relative difference {rel:.3e} (tolerance "
+         f"{STRATEGY_LOSS_RTOL:g})")
+    if not (all(math.isfinite(v) for v in got) and rel <= STRATEGY_LOSS_RTOL):
+        raise AssertionError(f"strategy {label}: losses {got[:n]} differ "
+                             f"from {want[:n]}")
+    return rel
+
+
+def strategy_phase(torch, kernels, card: str) -> dict:
+    """AlexNet through ``torchrun ... apps.cnn -s <file> -ll:gpu 1`` (NCCL,
+    the strategy loader, the block machinery, the gradient all-reduce,
+    kernels 7/7f) against the same run without ``-s`` in this process,
+    then, where gloo carries CUDA tensors for every collective the path
+    uses, a two-rank run on cuda:0 over gloo."""
+    import shutil
+
+    from flexflow_tpu_torch.apps import cnn
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        ref = cnn.main(_alexnet_argv([]), log=lambda *a: None)
+        ref_launches = dict(kernels.launches)
+        ref_step_ms = ref["elapsed_s"] / STRATEGY_TIMED * 1e3
+        _log(f"strategy reference (no -s, no process group): "
+             f"{ref['images_per_sec']:.2f} images/s, {ref_step_ms:.3f} ms "
+             f"a step, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+             f"GB; launches {ref_launches}; {card}")
+        one = root / "alexnet_1rank.json"
+        _strategy_file(one, {}, 1)
+        t = time.perf_counter()
+        _torchrun(1, ["-m", "flexflow_tpu_torch.apps.cnn"] + _alexnet_argv(
+            ["-s", str(one), "-ll:gpu", "1", "--result-json",
+             str(root / "one.json")]))
+        res = json.loads((root / "one.json").read_text())
+        step_ms = res["elapsed_s"] / STRATEGY_TIMED * 1e3
+        _log(f"strategy torchrun 1 rank (NCCL): {res['images_per_sec']:.2f} "
+             f"images/s, {step_ms:.3f} ms a step, peak "
+             f"{res['peak_memory_bytes'] / 1e9:.3f} GB, "
+             f"{time.perf_counter() - t:.1f} s with torchrun's start; "
+             f"launches {res['launches']}; {card}")
+        _check_run("1 rank", res, ref["loss"])
+        out = {"launches": res["launches"], "images_per_sec":
+               res["images_per_sec"], "step_ms": step_ms}
+
+        probe = _torchrun(2, [str(Path(__file__).resolve()),
+                              "--gloo-cuda-probe"], timeout=300)
+        line = next(ln for ln in probe.splitlines()
+                    if ln.startswith("GLOO_CUDA "))
+        carried = json.loads(line[len("GLOO_CUDA "):])
+        _log(f"strategy gloo on CUDA tensors: {carried}")
+        # a regrid's move needs no all-to-all: over gloo on CUDA tensors
+        # the machine moves an axis by all-gather and slice
+        if all(carried[c] == "ok" for c in GLOO_CUDA_NEEDED):
+            two = root / "alexnet_2rank.json"
+            _strategy_file(two, TWO_RANK_SPLITS, 2)
+            _torchrun(2, ["-m", "flexflow_tpu_torch.apps.cnn"]
+                      + _alexnet_argv(["-s", str(two), "-ll:gpu", "2",
+                                       "--device", "cuda:0",
+                                       "--dist-backend", "gloo",
+                                       "--result-json",
+                                       str(root / "two.json")]))
+            res2 = json.loads((root / "two.json").read_text())
+            _log(f"strategy torchrun 2 ranks on cuda:0 (gloo, regrid moves "
+                 f"as all-gather and slice): "
+                 f"{res2['images_per_sec']:.2f} images/s, "
+                 f"{res2['elapsed_s'] / STRATEGY_TIMED * 1e3:.3f} ms a step; "
+                 f"launches on rank 0 {res2['launches']}")
+            _check_run("2 ranks", res2, ref["loss"])
+        else:
+            _log("strategy: the two-rank gloo run is left out: gloo does "
+                 "not carry CUDA tensors for every collective the path "
+                 "uses (above)")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def strategy4_phase(torch, kernels, card: str) -> dict:
+    """AlexNet over four cards through ``torchrun --nproc-per-node 4``
+    (NCCL): pure data parallelism (no ``-s``) and the four-rank hybrid
+    strategy, each against the one-card run without a strategy."""
+    import shutil
+
+    from flexflow_tpu_torch.apps import cnn
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        ref = cnn.main(_alexnet_argv([]), log=lambda *a: None)
+        _log(f"strategy 4 reference (one card, no -s): "
+             f"{ref['images_per_sec']:.2f} images/s, "
+             f"{ref['elapsed_s'] / STRATEGY_TIMED * 1e3:.3f} ms a step; "
+             f"{card}")
+        hybrid = root / "alexnet_4rank.json"
+        _strategy_file(hybrid, FOUR_RANK_SPLITS, 4)
+        out = {}
+        for label, extra in (("dp", []), ("hybrid", ["-s", str(hybrid)])):
+            t = time.perf_counter()
+            _torchrun(4, ["-m", "flexflow_tpu_torch.apps.cnn"]
+                      + _alexnet_argv(extra + [
+                          "-ll:gpu", "4", "--result-json",
+                          str(root / f"{label}.json")]))
+            res = json.loads((root / f"{label}.json").read_text())
+            _log(f"strategy 4 {label} (NCCL, 4 ranks): "
+                 f"{res['images_per_sec']:.2f} images/s, "
+                 f"{res['elapsed_s'] / STRATEGY_TIMED * 1e3:.3f} ms a step, "
+                 f"peak on rank 0 {res['peak_memory_bytes'] / 1e9:.3f} GB, "
+                 f"{time.perf_counter() - t:.1f} s with torchrun's start; "
+                 f"launches on rank 0 {res['launches']}")
+            _check_run(f"4 ranks {label}", res, ref["loss"])
+            out[label] = res["images_per_sec"]
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -2201,6 +2523,8 @@ def main(argv) -> int:
         print("chip_smoke: CUDA is not available — this smoke runs on an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    if "--gloo-cuda-probe" in argv:
+        return _gloo_cuda_probe()
 
     from flexflow_tpu_torch.ops import kernels
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
@@ -2275,6 +2599,9 @@ def main(argv) -> int:
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     phase("nmt", nmt_phase, torch, kernels, card)
     phase("moe", moe_phase, torch, kernels, card)
+    phase("strategy", strategy_phase, torch, kernels, card)
+    if torch.cuda.device_count() >= 4:
+        phase("strategy 4", strategy4_phase, torch, kernels, card)
     if "--profile" in argv:
         phase("profile serving", profile_phase, torch, sliced["engine"])
         phase("profile lm", lm_profile_phase, torch)

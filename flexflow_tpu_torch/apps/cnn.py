@@ -10,14 +10,21 @@
         --warmup 3 --dtype bfloat16
     python -m flexflow_tpu_torch.apps.cnn alexnet -b 2 -i 3 --height 67 \\
         --width 67 --device cpu
+    torchrun --nproc-per-node 4 -m flexflow_tpu_torch.apps.cnn alexnet \\
+        -b 64 -s strategy.json -ll:gpu 4
 
 Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
---width, --classes, and ``fit``'s runtime flags --ckpt-dir, --ckpt-freq,
---prefetch-depth, --on-divergence, --max-rollbacks, --fault-spec), plus
+--width, --classes, -s/--strategy, -ll:gpu, and ``fit``'s runtime flags
+--ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
+--max-rollbacks, --fault-spec), plus
 ``--device`` (default ``cuda``: the run raises
-when CUDA is absent unless ``--device cpu`` is given) and ``--warmup``
-(untimed steps before the timed window, default 1 as in ``fit``).  Models
+when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
+(untimed steps before the timed window, default 1 as in ``fit``) and
+``--result-json PATH`` (rank 0 writes ``fit``'s result there: the
+losses, the rate, the peak device memory, the kernel launches) and
+``--dist-backend NAME`` (the process group's backend under torchrun:
+NCCL on CUDA and gloo on the CPU unless named).  Models
 (the JAX app's names): ``alexnet``, ``vgg16``/``vgg``,
 ``resnet101``/``resnet`` (the reference's topology: no BN, no residual
 add) and ``densenet``/``densenet121`` at 224x224 unless --height/--width
@@ -25,12 +32,21 @@ are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
 ``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
-strategies, elastic and telemetry features raise
-``NotImplementedError`` when asked for (``config.UNPORTED_FLAGS``).
+elastic and telemetry features raise ``NotImplementedError`` when asked
+for (``config.UNPORTED_FLAGS``).
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) every rank joins
+one process group (``distributed.initialize``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``), each op runs on the
+grid the strategy file gives it, ``-b`` is the global batch and every
+rank draws it and keeps its rows.  ``-ll:gpu N`` must equal the world
+size (1 without torchrun).  Rank 0 alone logs and returns ``fit``'s
+result.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
@@ -56,23 +72,27 @@ def _flag_value(argv, name, default):
 
 
 def build(model_name: str, cfg: FFConfig, device):
-    """The model named ``model_name`` on ``device`` (299x299 input for
-    Inception unless --height/--width were given)."""
+    """The model named ``model_name`` on ``device``, a device or a
+    ``MachineModel`` (299x299 input for Inception unless --height/--width
+    were given)."""
+    from flexflow_tpu_torch.machine import MachineModel
     from flexflow_tpu_torch.models.alexnet import build_alexnet
     from flexflow_tpu_torch.models.densenet import build_densenet121
     from flexflow_tpu_torch.models.inception import build_inception_v3
     from flexflow_tpu_torch.models.resnet import build_resnet101
     from flexflow_tpu_torch.models.vgg import build_vgg16
 
+    machine = device if isinstance(device, MachineModel) \
+        else MachineModel(device)
     if model_name == "alexnet":
-        return build_alexnet(cfg, device=device)
+        return build_alexnet(cfg, machine)
     if model_name.startswith("vgg"):
-        return build_vgg16(cfg, device=device)
+        return build_vgg16(cfg, machine)
     if model_name.startswith("resnet"):
-        return build_resnet101(cfg, device=device)
+        return build_resnet101(cfg, machine)
     if model_name.startswith("densenet"):
-        return build_densenet121(cfg, device=device)
-    return build_inception_v3(cfg, device=device)
+        return build_densenet121(cfg, machine)
+    return build_inception_v3(cfg, machine)
 
 
 def parse(argv):
@@ -92,31 +112,70 @@ def parse(argv):
     return model_name, cfg, device, int(warmup)
 
 
-def main(argv=None, log=print) -> dict:
-    """One training run; returns ``fit``'s result without the trees."""
-    from flexflow_tpu_torch.data import synthetic_batches
-    from flexflow_tpu_torch.machine import resolve_device
+def _write_result(path: str, out: dict, dev) -> None:
+    import json
 
-    model_name, cfg, device, warmup = parse(
-        sys.argv[1:] if argv is None else argv)
-    dev = resolve_device(device)
+    from flexflow_tpu_torch.ops import kernels
+
+    res = dict(out, launches=dict(kernels.launches))
+    if dev.type == "cuda":
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    with open(path, "w") as f:
+        json.dump(res, f)
+
+
+def machine_for(device, backend=None):
+    """The run's machine: the world of ranks under ``torchrun``
+    (``WORLD_SIZE`` set), else this one process on ``device`` (the model
+    checks ``-ll:gpu`` against its size)."""
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.machine import MachineModel
+
+    if "WORLD_SIZE" in os.environ:
+        return distributed.initialize(device, backend=backend)
+    return MachineModel(device)
+
+
+def main(argv=None, log=print) -> dict:
+    """One training run; returns ``fit``'s result without the trees (on
+    rank 0; None on the other ranks)."""
+    from flexflow_tpu_torch.data import synthetic_batches
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    result_json, argv = _flag_value(argv, "--result-json", "")
+    backend, argv = _flag_value(argv, "--dist-backend", None)
+    model_name, cfg, device, warmup = parse(argv)
+    machine = machine_for(device, backend)
+    dev = machine.device
+    if machine.rank != 0:
+        def log(*args, **kwargs):
+            pass
     if dev.type == "cuda":
         # float32 references run their products in float32, not TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    ff = build(model_name, cfg, dev)
+    ff = build(model_name, cfg, machine)
     log(f"{model_name}: {len(ff.layers)} layers, batch {cfg.batch_size}, "
         f"{cfg.input_height}x{cfg.input_width}, {cfg.compute_dtype} compute, "
-        f"{cfg.param_dtype} params, on {dev}")
+        f"{cfg.param_dtype} params, on {dev}"
+        + (f", {machine.num_devices} ranks, strategy {cfg.strategy_file}"
+           if machine.distributed else ""))
     data = synthetic_batches(cfg.batch_size, cfg.input_height,
                              cfg.input_width, num_classes=cfg.num_classes,
-                             mode="random", seed=cfg.seed, device=dev)
+                             mode="random", seed=cfg.seed, machine=machine)
     out = ff.fit(data, warmup=warmup, log=log)
     for key in ("params", "state", "opt_state"):
         out.pop(key)
+    if machine.rank != 0:
+        return None
+    if result_json:
+        _write_result(result_json, out, dev)
     return out
 
 
 if __name__ == "__main__":
+    from flexflow_tpu_torch import distributed as _dist
+
     main()
+    _dist.shutdown()
     sys.exit(0)

@@ -46,7 +46,7 @@ _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
 #: the embed size here, so they are parsed first); ``fit``'s runtime
 #: flags are not carried through ``RnnConfig`` yet
 NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS) \
-    | {"--pipeline-stages"}
+    | {"--pipeline-stages", "--strategy"}
 
 
 def parse_args(argv):

@@ -6,10 +6,12 @@ package's defaults (``flexflow_tpu/config.py``), but for
 synthetic sources already yield tensors on the card).
 
 :meth:`FFConfig.from_args` parses the JAX parser's flag names for these
-fields and ignores unknown flags like the reference parser.  A flag of
-the JAX parser whose feature is not ported yet (elastic training,
-datasets, strategies over several devices, telemetry, ...) raises
-``NotImplementedError`` instead of being dropped silently.
+fields and ignores unknown flags like the reference parser, including
+``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
+number of GPUs, which must equal the world size; checked by the app).  A
+flag of the JAX parser whose feature is not ported yet (elastic
+training, datasets, telemetry, ...) raises ``NotImplementedError``
+instead of being dropped silently.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
 UNPORTED_FLAGS = frozenset((
-    "-e", "--epochs", "-d", "--dataset", "-s", "--strategy", "-ll:gpu",
-    "-ll:cpu", "--profiling", "--trace-dir", "-obs-dir", "--obs-dir",
+    "-e", "--epochs", "-d", "--dataset", "-ll:cpu", "--profiling",
+    "--trace-dir", "-obs-dir", "--obs-dir",
     "-run-id", "--run-id", "--obs-max-bytes", "-op-time-every",
     "--op-time-every", "-metrics-path", "--metrics-path", "-chains",
     "--chains", "-delta", "--delta", "-regrid-planner", "--regrid-planner",
@@ -43,9 +45,11 @@ UNPORTED_FLAGS = frozenset((
 ))
 
 #: flags of ``flexflow_tpu/apps/lm.py:parse_args`` beyond the ones above
-#: whose features the port does not have yet (the pipelined path)
+#: whose features the port does not have yet: the pipelined path, and
+#: strategies, whose LM ops have no grid over several ranks yet (ROADMAP
+#: Queue A 3b-3d)
 LM_UNPORTED_FLAGS = frozenset((
-    "--pipeline-stages", "--microbatches", "--pipeline-tp",
+    "--pipeline-stages", "--microbatches", "--pipeline-tp", "--strategy",
 ))
 
 
@@ -122,6 +126,10 @@ class FFConfig:
     seed: int = 0
     num_classes: int = 1000
     strategies: Strategy = dataclasses.field(default_factory=Strategy)
+    # the strategy file -s/--strategy loaded ("" = none)
+    strategy_file: str = ""
+    # -ll:gpu: the number of GPUs the run expects (0 = the world's)
+    workers_per_node: int = 0
     # checkpoint/resume directory ("" = none) and the save interval (0 =
     # after the last step only)
     ckpt_dir: str = ""
@@ -143,14 +151,20 @@ class FFConfig:
         """Parse the JAX parser's flags for the fields above: -b/--batch-size,
         --lr/--learning-rate, --wd/--weight-decay, -p/--print-freq,
         -i/--iters/--iterations, --dtype, -param-dtype/--param-dtype,
-        --seed, --height, --width, --classes, and ``RUNTIME_FLAGS``."""
+        --seed, --height, --width, --classes, -s/--strategy, -ll:gpu,
+        and ``RUNTIME_FLAGS``."""
         cfg = cls()
         for a, val in flag_stream(argv):
             if a in UNPORTED_FLAGS:
                 raise NotImplementedError(
                     f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
                     f"package's flexflow_tpu/config.py has it)")
-            if a in ("-b", "--batch-size"):
+            if a in ("-s", "--strategy"):
+                cfg.strategy_file = val()
+                cfg.strategies = Strategy.load(cfg.strategy_file)
+            elif a == "-ll:gpu":
+                cfg.workers_per_node = int(val())
+            elif a in ("-b", "--batch-size"):
                 cfg.batch_size = int(val())
             elif a in ("--lr", "--learning-rate"):
                 cfg.learning_rate = float(val())

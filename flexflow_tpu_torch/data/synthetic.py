@@ -3,7 +3,9 @@
 image = 1.0, label = 1; ``random`` mode draws Gaussian images and uniform
 labels, and the token stream uniform int32 ids, from
 ``np.random.RandomState(seed)`` in the JAX package's order, so both
-packages see the same arrays."""
+packages see the same arrays.  Given a machine of several ranks, every
+rank draws the same global batches and keeps its own rows of each
+(``MachineModel.batch_block``)."""
 
 from __future__ import annotations
 
@@ -19,16 +21,20 @@ from flexflow_tpu_torch.machine import resolve_device
 def synthetic_batches(batch_size: int, height: int, width: int,
                       channels: int = 3, num_classes: int = 1000,
                       mode: str = "ones", seed: int = 0, cycle: int = 2,
-                      device="cuda") -> Iterator[Tuple[torch.Tensor,
-                                                       torch.Tensor]]:
-    """Yield (float32 image NHWC, int32 labels) on ``device`` forever.
+                      device="cuda", machine=None
+                      ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Yield (float32 image NHWC, int32 labels) on ``device`` (the
+    machine's device when ``machine`` is given) forever; with ``machine``
+    each is this rank's block of the global batch.
 
     ``cycle`` batches (one in ``ones`` mode) are drawn up front, moved to
     the device once and yielded round-robin, so the training loop does no
     host-side data work."""
     if mode not in ("ones", "random"):
         raise ValueError(f"mode must be 'ones' or 'random', got {mode!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if machine is None else machine.device
+    lo, hi = (0, batch_size) if machine is None \
+        else machine.batch_block(batch_size)
     rng = np.random.RandomState(seed)
 
     def make():
@@ -40,7 +46,8 @@ def synthetic_batches(batch_size: int, height: int, width: int,
                             channels).astype(np.float32)
             lbl = rng.randint(0, num_classes,
                               size=(batch_size,)).astype(np.int32)
-        return torch.from_numpy(img).to(dev), torch.from_numpy(lbl).to(dev)
+        return (torch.from_numpy(img[lo:hi]).to(dev),
+                torch.from_numpy(lbl[lo:hi]).to(dev))
 
     return itertools.cycle([make()
                             for _ in range(1 if mode == "ones" else cycle)])

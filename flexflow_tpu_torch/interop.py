@@ -9,7 +9,8 @@ tables, HWIO convolution kernels (the port's ``Conv2D`` reads them
 through an OIHW view), ``(d_out,)`` biases, ``(C,)`` BatchNorm vectors.
 :func:`params_from_jax` and :func:`state_from_jax` carry such a tree,
 converted to numpy by the caller, into the port unchanged: no renames,
-no transposes.
+no transposes.  On several ranks :func:`shard_params` and
+:func:`shard_state` then give each rank its blocks of the full trees.
 """
 
 from __future__ import annotations
@@ -45,6 +46,22 @@ def params_from_jax(tree: Mapping[str, Mapping[str, object]],
     if model is not None:
         check_param_shapes(out, model.param_shapes())
     return out
+
+
+def shard_params(params, model, rank=None):
+    """The blocks of a full params tree (``params_from_jax``'s result) that
+    ``rank`` (default the model machine's own) holds under the model's
+    strategy, so that every rank starts from the JAX package's weights."""
+    m = model.machine
+    return model.shard_params(params, m.view.index(
+        m.rank if rank is None else rank))
+
+
+def shard_state(state, model, rank=None):
+    """The blocks of a full state tree that ``rank`` holds."""
+    m = model.machine
+    return model.shard_state(state, m.view.index(
+        m.rank if rank is None else rank))
 
 
 def check_param_shapes(params: Mapping, want: Mapping) -> None:

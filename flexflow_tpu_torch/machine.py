@@ -1,16 +1,40 @@
 """The machine a model runs on (PyTorch port of ``flexflow_tpu/machine.py``).
 
-This slice runs on one GPU: ``num_devices`` is 1 and every op's default
-config is the trivial one-point grid.  Placement over several GPUs comes
-with the multi-GPU slice.
+A :class:`MachineModel` is a world of ranks, one process and one device
+each: ``num_devices`` is the world size and ``rank`` this process's
+rank.  One process on one device (the default) is a world of 1; a world
+of several comes from :func:`flexflow_tpu_torch.distributed.initialize`
+under ``torchrun``.
 
-Every entry point of the package resolves its ``device`` argument here.
-It defaults to ``"cuda"``, and asking for CUDA on a machine without it
-raises: the package never falls back to the CPU unless the caller passed
-``device="cpu"``.
+Every op runs on the partition grid and device list of its
+``ParallelConfig``.  The grid point with multi-index ``(i0, i1, ...)``
+over ``pc.dims`` runs on rank ``pc.devices[i0 + d0*(i1 + d1*(...))]``
+(dim 0 fastest, ``mesh_for``'s map in the JAX package).  As there, the
+machine is prime-factored once into global mesh axes ``_g0, _g1, ...``
+(ascending sizes, the last axis fastest over the ranks) and each grid
+dim is realized by a tuple of those axes (:meth:`global_assign`), so
+that a producer->consumer grid change decomposes into single-axis hops
+(:meth:`regrid_steps`, ``parallel/regrid.py``) and the shard->rank map
+equals the per-op map above.  A strategy whose full-machine device lists
+all name one permutation of the ranks is honored by relabelling the
+machine (:meth:`permuted`, ``flexflow_tpu/model.py:152-221``): rank
+``perm[i]`` then plays position ``i``.
+
+Collectives run over process groups of the ranks along a set of global
+axes; :meth:`create_groups` makes every group of such a partition, in
+one order on every rank (``torch.distributed.new_group`` must be called
+by every rank, members or not).
+
+Every entry point of the package resolves its ``device`` argument here
+(:func:`resolve_device`).  It defaults to ``"cuda"``, and asking for CUDA
+on a machine without it raises: the package never falls back to the CPU
+unless the caller passed ``device="cpu"``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,16 +54,330 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-class MachineModel:
-    """One device.  ``default_pc`` is the pure-DP fallback an op takes when
-    the strategy has no entry for it."""
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Two-tier interconnect model that prices regrid hops
+    (``flexflow_tpu/machine.py:34``): ranks ``r // devices_per_ici_group``
+    share the fast tier.  The bandwidths and latencies are the JAX
+    package's modeled defaults, kept so that the regrid planner picks the
+    same hop chains as the JAX planner; they are not measurements of any
+    GPU interconnect."""
 
-    def __init__(self, device="cuda"):
+    devices_per_ici_group: int = 8
+    ici_bandwidth: float = 9.0e10
+    dcn_bandwidth: float = 2.5e10
+    ici_latency: float = 1.0e-6
+    dcn_latency: float = 1.0e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """The ranks along some global axes that hold this rank's position on
+    every other axis: ``positions`` in mixed-radix order of those axes
+    (the first axis slowest), ``ranks`` the same as ranks, ``handle`` the
+    process group (None for one member of a larger world, and when the
+    machine is not distributed)."""
+
+    positions: Tuple[int, ...]
+    ranks: Tuple[int, ...]
+    handle: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.positions)
+
+
+class MachineModel:
+    """A world of ``world_size`` ranks, this process being ``rank`` on
+    ``device``.  ``default_pc`` is the pure-DP config an op takes when the
+    strategy has no entry for it.  ``distributed`` says whether
+    collectives go through ``torch.distributed`` (set by
+    ``distributed.initialize``, also for a world of one); a machine of
+    several ranks without it plans (the regrid planner, strategy checks)
+    but cannot run a collective.  ``all_to_all`` says whether the process
+    group's backend has an all-to-all for the device's tensors (gloo has
+    none for CUDA tensors); without it a regrid's move is an all-gather
+    and a slice."""
+
+    def __init__(self, device="cuda", world_size: int = 1, rank: int = 0,
+                 topology: Optional[Topology] = None,
+                 distributed: bool = False,
+                 view: Optional[Sequence[int]] = None,
+                 all_to_all: bool = True):
+        if world_size < 1 or not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} of world size {world_size}")
         self.device = resolve_device(device)
+        self.world_size = int(world_size)
+        self.rank = int(rank)
+        self.distributed = bool(distributed)
+        self.all_to_all = bool(all_to_all)
+        self.topology = topology or Topology(
+            devices_per_ici_group=max(self.world_size, 1))
+        self.view = tuple(view) if view is not None \
+            else tuple(range(self.world_size))
+        if sorted(self.view) != list(range(self.world_size)):
+            raise ValueError(f"view {self.view} is not a permutation of "
+                             f"the {self.world_size} ranks")
+        self.position = self.view.index(self.rank)
+        self._gfactors = None
+        # process groups by rank set; partitions by axis set
+        self._handles: Dict[Tuple[int, ...], object] = {}
+        self._groups: Dict[Tuple[str, ...], Group] = {}
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return self.world_size
 
     def default_pc(self, ndims: int) -> ParallelConfig:
+        """Pure-DP default, the reference's fallback when an op has no
+        strategy entry (cnn.cc:76-86)."""
         return ParallelConfig.data_parallel(ndims, self.num_devices)
+
+    def permuted(self, perm: Sequence[int]) -> "MachineModel":
+        """The same world with position ``i`` played by the rank at this
+        view's position ``perm[i]`` (``flexflow_tpu/model.py:152-221``)."""
+        return MachineModel(self.device, self.world_size, self.rank,
+                            self.topology, self.distributed,
+                            [self.view[d] for d in perm], self.all_to_all)
+
+    # ------------------------------------------------------------------
+    # the per-op grid map (mesh_for, flexflow_tpu/machine.py:240-265)
+
+    @staticmethod
+    def grid_index(pc: ParallelConfig, position: int) -> Optional[tuple]:
+        """Multi-index over ``pc.dims`` of the grid point that runs at
+        ``position`` (``pc.devices`` linearized with dim 0 fastest), or
+        None when the grid has no point there."""
+        if position not in pc.devices:
+            return None
+        lin = pc.devices.index(position)
+        idx = []
+        for d in pc.dims:
+            idx.append(lin % d)
+            lin //= d
+        return tuple(idx)
+
+    # ------------------------------------------------------------------
+    # the global factored mesh (flexflow_tpu/machine.py:386-475)
+
+    def global_factors(self) -> List[Tuple[str, int]]:
+        """``[(axis_name, prime_size), ...]``: the ascending prime
+        factorization of the world size."""
+        if self._gfactors is None:
+            n = self.num_devices
+            sizes = []
+            f = 2
+            while f * f <= n:
+                while n % f == 0:
+                    sizes.append(f)
+                    n //= f
+                f += 1
+            if n > 1:
+                sizes.append(n)
+            self._gfactors = [(f"_g{i}", s) for i, s in enumerate(sizes)]
+        return list(self._gfactors)
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return dict(self.global_factors())
+
+    def coords(self, position: Optional[int] = None) -> Dict[str, int]:
+        """Coordinates of ``position`` (default this rank's) on the global
+        axes: the row-major unflattening, the last axis fastest."""
+        pos = self.position if position is None else position
+        out = {}
+        for name, size in reversed(self.global_factors()):
+            out[name] = pos % size
+            pos //= size
+        return out
+
+    def global_assign(self, pc: ParallelConfig,
+                      axis_names: Tuple[str, ...]) -> Optional[Dict]:
+        """{op axis name -> tuple of global axes realizing that grid dim},
+        or None when the grid does not decompose over the factors.  Grid
+        dim 0 consumes factors from the fast end backwards; within one
+        grid dim the axes are ordered slow-first.  The induced shard ->
+        position map equals :meth:`grid_index`'s for a canonical pc."""
+        fac = self.global_factors()
+        idx = len(fac)
+        assign: Dict[str, Tuple[str, ...]] = {}
+        for name, g in zip(axis_names, pc.dims):
+            take = []
+            while g > 1:
+                if idx == 0:
+                    return None
+                aname, size = fac[idx - 1]
+                if g % size:
+                    return None
+                idx -= 1
+                take.append(aname)
+                g //= size
+            assign[name] = tuple(reversed(take))
+        return assign
+
+    def global_entries(self, pc: ParallelConfig, axis_names: Tuple[str, ...],
+                       spec, rank: Optional[int] = None) -> Optional[Tuple]:
+        """``spec`` (per tensor dim: None, an op axis name or a tuple of
+        them) as per-dim tuples of global axes, padded to ``rank`` dims;
+        None on a machine of one rank or when the grid does not
+        decompose."""
+        if self.num_devices <= 1:
+            return None
+        assign = self.global_assign(pc, axis_names)
+        if assign is None:
+            return None
+        entries = []
+        for entry in spec:
+            if entry is None:
+                entries.append(())
+                continue
+            names = entry if isinstance(entry, tuple) else (entry,)
+            axes = []
+            for nm in names:
+                axes.extend(assign.get(nm, ()))
+            entries.append(tuple(axes))
+        if rank is not None:
+            entries.extend(() for _ in range(rank - len(entries)))
+        return tuple(entries)
+
+    def regrid_steps(self, src: Tuple, dst: Tuple) -> Optional[list]:
+        """The greedy decomposition of the regrid ``src -> dst`` into hops
+        that each change one axis (drops first, then moves and splits in
+        destination order), excluding ``dst``; None when the greedy order
+        cannot reach ``dst`` (``flexflow_tpu/machine.py:483``)."""
+        if len(src) != len(dst):
+            return None
+        if src == dst:
+            return []
+        steps = []
+        cur = [list(t) for t in src]
+        dst_axes = {a for t in dst for a in t}
+        if any(a not in dst_axes for t in cur for a in t):
+            cur = [[a for a in t if a in dst_axes] for t in cur]
+            steps.append(tuple(tuple(t) for t in cur))
+        loc = {a: j for j, t in enumerate(cur) for a in t}
+        order = [(j, p, a) for j, t in enumerate(dst)
+                 for p, a in enumerate(t)]
+
+        def done():
+            return all(tuple(t) == d for t, d in zip(cur, dst))
+
+        progress = True
+        while progress and not done():
+            progress = False
+            for j, p, a in order:
+                if p < len(cur[j]) and cur[j][p] == a:
+                    continue
+                if len(cur[j]) != p or tuple(cur[j]) != dst[j][:p]:
+                    continue
+                if a in loc:
+                    cur[loc[a]].remove(a)
+                cur[j].append(a)
+                loc[a] = j
+                steps.append(tuple(tuple(t) for t in cur))
+                progress = True
+        if not done():
+            return None
+        if steps and steps[-1] == tuple(tuple(t) for t in dst):
+            steps.pop()
+        return steps
+
+    # ------------------------------------------------------------------
+    # blocks of a sharded tensor
+
+    def block(self, entries: Tuple, shape: Tuple[int, ...],
+              position: Optional[int] = None) -> Tuple[Tuple[int, int], ...]:
+        """``((lo, hi), ...)`` per dim: the block of a ``shape`` tensor laid
+        out as ``entries`` held at ``position``.  A dim split over axes
+        ``(a, b, ...)`` has ``P = |a|*|b|*...`` ceil-divided blocks, the
+        block index the mixed radix of the coordinates (``a`` slowest);
+        the last blocks are short or empty, as XLA's padded sharding."""
+        c = self.coords(position)
+        sizes = self.axis_sizes()
+        out = []
+        for n, axes in zip(shape, entries):
+            parts, idx = 1, 0
+            for a in axes:
+                parts *= sizes[a]
+                idx = idx * sizes[a] + c[a]
+            b = -(-n // parts)
+            out.append((min(idx * b, n), min((idx + 1) * b, n)))
+        out.extend((0, n) for n in shape[len(entries):])
+        return tuple(out)
+
+    def batch_block(self, batch: int) -> Tuple[int, int]:
+        """``(lo, hi)``: the rows of a global batch this rank holds when
+        the batch splits over every rank (the layout model inputs arrive
+        in, ``MachineModel.input_sharding`` in the JAX package)."""
+        axes = tuple(a for a, _ in self.global_factors())
+        return self.block((axes,), (int(batch),))[0]
+
+    # ------------------------------------------------------------------
+    # process groups
+
+    def group(self, axes: Sequence[str]) -> Group:
+        """This rank's :class:`Group` along global ``axes`` (made by
+        :meth:`create_groups`)."""
+        key = tuple(axes)
+        if key not in self._groups:
+            raise RuntimeError(
+                f"no process group along {key}: create_groups must make it "
+                f"on every rank first")
+        return self._groups[key]
+
+    def create_groups(self, axes_list: Sequence[Sequence[str]]) -> None:
+        """Make the groups along each axis tuple of ``axes_list`` that are
+        not made yet: every group of the partition, in one order, so that
+        every rank calls ``new_group`` for each rank set in the same
+        sequence."""
+        sizes = self.axis_sizes()
+        for axes in axes_list:
+            key = tuple(axes)
+            if key in self._groups:
+                continue
+            for pos in range(self.num_devices):
+                members = self._members(key, pos, sizes)
+                if members[0] != pos:
+                    continue   # each group once, from its first position
+                ranks = tuple(self.view[p] for p in members)
+                handle = self._handle(ranks)
+                if self.position in members:
+                    self._groups[key] = Group(members, ranks, handle)
+
+    def _members(self, axes, pos, sizes) -> Tuple[int, ...]:
+        """Positions sharing ``pos``'s coordinates off ``axes``, in mixed
+        radix order of ``axes`` (the first slowest)."""
+        c = self.coords(pos)
+        strides = {}
+        stride = 1
+        for name, size in reversed(self.global_factors()):
+            strides[name] = stride
+            stride *= size
+        base = pos - sum(c[a] * strides[a] for a in axes)
+        members = [base]
+        for a in axes:
+            members = [m + i * strides[a] for m in members
+                       for i in range(sizes[a])]
+        return tuple(members)
+
+    def _handle(self, ranks: Tuple[int, ...]):
+        """The process group of ``ranks`` (one per rank set; called on
+        every rank for every set)."""
+        key = tuple(sorted(ranks))
+        if key in self._handles or not self.distributed:
+            return self._handles.get(key)
+        import torch.distributed as dist
+
+        if len(key) == self.num_devices:
+            handle = dist.group.WORLD   # also a world of one rank
+        elif len(key) == 1:
+            return None
+        else:
+            handle = dist.new_group(list(key))
+        self._handles[key] = handle
+        return handle
+
+    def world_group(self) -> Group:
+        """Every rank, in position order."""
+        axes = tuple(name for name, _ in self.global_factors())
+        self.create_groups([axes])
+        return self._groups[axes]

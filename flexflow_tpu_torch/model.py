@@ -21,8 +21,19 @@ gets the sum of their gradients from autograd itself; the JAX package's
 and the parity tests hold without it.  ``fit`` carries the one-device
 part of the JAX training runtime: checkpoints and resume, the step
 health guard with rollback, device prefetch and fault injection.
-Placement over several devices, regrids, elastic training and telemetry
-arrive with later slices.
+
+On a machine of several ranks (``distributed.initialize``) every op runs
+on its own strategy grid.  At build time (:meth:`_setup_sharded`, on
+every rank in one order) the model checks that each op has a ported
+grid, plans every producer->consumer regrid (``parallel/regrid.py``) and
+makes the process groups.  ``init`` draws the full parameters from the
+seed on every rank and keeps the rank's blocks (``param_specs``);
+``apply`` reshards each input to the layout its op wants and runs the
+op on the blocks; the loss is each rank's partial NLL sum over the
+global batch, added up over the ranks; gradients are all-reduced over
+the ranks that hold the same block.  The step functions take this
+rank's batch block (:meth:`local_batch`).  Placement on device subsets,
+elastic training and telemetry arrive with later slices.
 """
 
 from __future__ import annotations
@@ -35,8 +46,10 @@ import torch
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.machine import MachineModel
-from flexflow_tpu_torch.ops.base import Op, Tensor, torch_dtype
-from flexflow_tpu_torch.strategy import ParallelConfig, validate_strategy
+from flexflow_tpu_torch.ops.base import Op, OpGrid, Tensor, torch_dtype
+from flexflow_tpu_torch.parallel import collectives
+from flexflow_tpu_torch.strategy import (ParallelConfig, Strategy,
+                                         validate_strategy)
 
 #: suffix of the float32 master leaves in a mixed-precision optimizer state
 MASTER_SUFFIX = "__master"
@@ -49,12 +62,60 @@ class FFModel:
         self.machine = machine if machine is not None \
             else MachineModel(device)
         validate_strategy(self.config.strategies, self.machine.num_devices)
+        gpus = getattr(self.config, "workers_per_node", 0)
+        if gpus and gpus != self.machine.num_devices:
+            raise ValueError(
+                f"-ll:gpu {gpus} but the world has "
+                f"{self.machine.num_devices} rank(s): launch one process "
+                f"per GPU (torchrun --nproc-per-node {gpus})")
+        self.machine = self._permuted_machine_view(self.machine)
         self.layers: List[Op] = []
         self._inputs: List[Tensor] = []
+        # the multi-rank plan, made by _setup_sharded
+        self._plan = None
 
     @property
     def device(self) -> torch.device:
         return self.machine.device
+
+    @property
+    def sharded(self) -> bool:
+        """True when the model runs through ``torch.distributed``: on a
+        machine of several ranks, or of one under ``torchrun``."""
+        return self.machine.distributed or self.machine.num_devices > 1
+
+    def _permuted_machine_view(self, machine: MachineModel) -> MachineModel:
+        """Honor a whole-machine device permutation that every
+        non-canonical full-machine entry of the strategy names, by
+        relabelling the machine so those entries become canonical
+        (``flexflow_tpu/model.py:152-221``); entries on device subsets are
+        remapped onto the same ranks.  The strategy is rewritten in a
+        private copy of the config."""
+        import copy
+
+        n = machine.num_devices
+        canon = tuple(range(n))
+        if n <= 1 or not self.config.strategies:
+            return machine
+        perms = {pc.devices for pc in self.config.strategies.values()
+                 if tuple(sorted(pc.devices)) == canon
+                 and pc.devices != canon}
+        if len(perms) != 1:
+            return machine
+        perm = next(iter(perms))
+        inv = [0] * n
+        for i, d in enumerate(perm):
+            inv[d] = i
+        remapped = Strategy()
+        remapped.pipeline = self.config.strategies.pipeline
+        remapped.predicted = self.config.strategies.predicted
+        for name, pc in self.config.strategies.items():
+            devices = canon if tuple(sorted(pc.devices)) == canon \
+                else tuple(inv[d] for d in pc.devices)
+            remapped[name] = ParallelConfig(pc.dims, devices)
+        self.config = copy.copy(self.config)
+        self.config.strategies = remapped
+        return machine.permuted(perm)
 
     # ------------------------------------------------------------------
     # graph building
@@ -197,7 +258,14 @@ class FFModel:
         one ``torch.Generator`` seeded with ``seed`` (default
         ``config.seed``).  Shared ``param_key``s initialize once; state is
         per op (``model.py:428``) and stays float32 under mixed
-        precision."""
+        precision.  On several ranks every rank draws the full trees and
+        keeps its blocks (:meth:`shard_params`)."""
+        params, state = self._init_full(seed)
+        if self.sharded:
+            return self.shard_params(params), self.shard_state(state)
+        return params, state
+
+    def _init_full(self, seed):
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -226,6 +294,132 @@ class FFModel:
                                          for k, v in p.items()}
         return out
 
+    # ------------------------------------------------------------------
+    # grids over several ranks
+
+    def _setup_sharded(self) -> None:
+        """Check that every op can run on its grid, plan the regrids and
+        make every process group, once; every rank runs this in the same
+        order (``new_group`` needs all ranks)."""
+        if self._plan is not None:
+            return
+        from flexflow_tpu_torch.parallel.regrid import build_regrid_plan
+
+        m = self.machine
+        n = m.num_devices
+        self._grids = {}
+        for op in self.layers:
+            if n > 1:
+                if not op.SHARDED:
+                    raise NotImplementedError(
+                        f"op {op.name!r} ({type(op).__name__}) has no grid "
+                        f"over several ranks yet (ROADMAP Queue A 3b-3d)")
+                if op.pc.num_parts > 1 \
+                        and op.pc.devices != tuple(range(n)):
+                    raise NotImplementedError(
+                        f"op {op.name!r}: devices {op.pc.devices} are not "
+                        f"the whole machine in one order; placement on "
+                        f"device subsets is ROADMAP Queue A 3b")
+            self._grids[op.name] = OpGrid(m, op)
+            if n > 1:
+                op.validate_partitioning()
+        self._plan = build_regrid_plan(self)
+        for op in self.layers:
+            self._grids[op.name].prepare(op.grid_collectives())
+        # gradients are summed over the ranks holding the same block: the
+        # axes a leaf's layout does not use
+        self._leaf_layouts = {"params": {}, "state": {}}
+        self._grad_axes: Dict = {}
+        all_axes = [a for a, _ in m.global_factors()]
+        meta = torch.device("meta")
+        for op in self.layers:
+            shapes = {k: tuple(v.shape)
+                      for k, v in op.init_params(None, meta).items()}
+            if shapes and op.param_key not in self._leaf_layouts["params"]:
+                lay = self._layouts(op, op.param_specs(), shapes)
+                self._leaf_layouts["params"][op.param_key] = lay
+                for leaf, entries in lay.items():
+                    used = {a for t in entries or () for a in t}
+                    axes = tuple(a for a in all_axes if a not in used)
+                    self._grad_axes[(op.param_key, leaf)] = axes
+                    m.create_groups([axes])
+            st = {k: tuple(v.shape) for k, v in op.init_state(meta).items()}
+            if st:
+                self._leaf_layouts["state"][op.name] = self._layouts(
+                    op, op.state_specs(), st)
+        m.world_group()
+        loss = next((op for op in self.layers
+                     if getattr(op, "is_loss", False)), None)
+        lay = self._plan.layouts.get(loss.output.tid) if loss else None
+        used = {a for t in lay or () for a in t}
+        coords = m.coords()
+        self._loss_primary = all(coords[a] == 0 for a in all_axes
+                                 if a not in used)
+
+    def _layouts(self, op, specs, shapes) -> Dict:
+        return {leaf: self.machine.global_entries(
+                    op.pc, op.AXIS_NAMES, specs.get(leaf, ()),
+                    rank=len(shape))
+                for leaf, shape in shapes.items()}
+
+    def _shard(self, tree, kind: str, position: Optional[int]):
+        self._setup_sharded()
+        layouts = self._leaf_layouts[kind]
+        out = {}
+        for key, sub in tree.items():
+            lay = layouts.get(key, {})
+            out[key] = {}
+            for leaf, v in sub.items():
+                entries = lay.get(leaf)
+                if entries is None:
+                    out[key][leaf] = v
+                    continue
+                box = self.machine.block(entries, tuple(v.shape), position)
+                out[key][leaf] = v[tuple(slice(lo, hi)
+                                         for lo, hi in box)].contiguous()
+        return out
+
+    def shard_params(self, params, position: Optional[int] = None):
+        """The blocks of the full ``params`` tree that the rank at
+        ``position`` (default this rank's) holds under the strategy."""
+        return self._shard(params, "params", position)
+
+    def shard_state(self, state, position: Optional[int] = None):
+        """The blocks of the full state tree (BatchNorm's running
+        statistics) held at ``position``."""
+        return self._shard(state, "state", position)
+
+    def param_boxes(self) -> Dict[str, Dict[str, tuple]]:
+        """``{param_key: {leaf: ((lo, hi), ...)}}``: where this rank's block
+        of each leaf lies in the full leaf (the whole leaf on one
+        device)."""
+        return self._boxes("params", self.param_shapes())
+
+    def state_boxes(self) -> Dict[str, Dict[str, tuple]]:
+        """The same for the state tree (``{op_name: {leaf: box}}``)."""
+        meta = torch.device("meta")
+        shapes = {op.name: {k: tuple(v.shape)
+                            for k, v in op.init_state(meta).items()}
+                  for op in self.layers}
+        return self._boxes("state", {k: v for k, v in shapes.items() if v})
+
+    def _boxes(self, kind, shapes):
+        layouts = {}
+        if self.sharded:
+            self._setup_sharded()
+            layouts = self._leaf_layouts[kind]
+        return {key: {leaf: self.machine.block(
+                          layouts.get(key, {}).get(leaf) or (), shape)
+                      for leaf, shape in leaves.items()}
+                for key, leaves in shapes.items()}
+
+    def local_batch(self, *batch):
+        """This rank's blocks of global batch arrays: each rank holds the
+        batch rows of its position in a split over every rank, the
+        layout the model's inputs arrive in."""
+        lo, hi = self.machine.batch_block(self.config.batch_size)
+        return tuple(b[lo:hi] for b in batch)
+
     def _mixed_precision(self) -> bool:
         return (self.config.param_dtype or "float32") != "float32"
 
@@ -250,6 +444,9 @@ class FFModel:
         values: Dict[int, Any] = dict(inputs)
         new_state: Dict[str, Dict] = {}
         fusion = self._lm_head_fusion() if train else {}
+        if self.sharded:
+            self._setup_sharded()
+        reshards: Dict = {}
         for i, op in enumerate(self.layers):
             if i in fusion:
                 lin = fusion[i]
@@ -260,8 +457,14 @@ class FFModel:
                         values[op.labels_tensor.tid])
                 continue   # the projection is folded into its loss op
             xs = [values[t.tid] for t in op.inputs]
-            y, st = op.forward(params.get(op.param_key, {}),
-                               state.get(op.name, {}), xs, train)
+            p, s = params.get(op.param_key, {}), state.get(op.name, {})
+            if self.sharded:
+                xs = [self._plan.apply(op.name, j, x, reshards)
+                      for j, x in enumerate(xs)]
+                y, st = op.sharded_forward(p, s, xs, train,
+                                           self._grids[op.name])
+            else:
+                y, st = op.forward(p, s, xs, train)
             ys = y if isinstance(y, tuple) else (y,)
             for t, v in zip(op.all_outputs(), ys, strict=True):
                 values[t.tid] = v
@@ -347,7 +550,31 @@ class FFModel:
         loss_op = self._loss_op()
         values, new_state = self.apply(
             params, state, {self._inputs[0].tid: image}, train)
-        return loss_op.loss(values[loss_op.output.tid], labels), new_state
+        log_probs = values[loss_op.output.tid]
+        if not self.sharded:
+            return loss_op.loss(log_probs, labels), new_state
+        labels = self._plan.apply(loss_op.name, "labels", labels, {})
+        partial = loss_op.nll_sum(log_probs, labels) \
+            / loss_op.output.shape[0]
+        if not self._loss_primary:
+            partial = partial * 0   # a replica's block counts once
+        return collectives.global_sum(partial, self.machine.world_group()), \
+            new_state
+
+    def _sync_grads(self, keys, grads):
+        """Sum each gradient over the ranks that hold its leaf's block,
+        one all-reduce per (group axes, dtype) bucket in leaf order."""
+        buckets: Dict = {}
+        for i, (key, g) in enumerate(zip(keys, grads)):
+            buckets.setdefault((self._grad_axes[key], g.dtype), []).append(i)
+        out = list(grads)
+        for (axes, _), idx in buckets.items():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            collectives.all_reduce_(flat, self.machine.group(axes))
+            for i, part in zip(idx, flat.split([grads[i].numel()
+                                                for i in idx])):
+                out[i] = part.view_as(grads[i])
+        return out
 
     def init_opt_state(self, params):
         """Zero momentum buffers shaped like ``params``; under mixed
@@ -406,6 +633,8 @@ class FFModel:
             loss, new_state = self.loss_fn(fwd, state, *batch, train=True)
             grads = torch.autograd.grad(loss,
                                         [tree[key][k] for key, k in keys])
+        if self.sharded:
+            grads = self._sync_grads(keys, grads)
         return loss.detach(), new_state, keys, grads
 
     def make_train_step(self):
@@ -485,10 +714,20 @@ class FFModel:
                 values, _ = self.apply(
                     params, state, {self._inputs[0].tid: image}, False)
                 log_probs = values[loss_op.output.tid]
-                loss = loss_op.loss(log_probs, labels)
-                acc = (log_probs.argmax(dim=-1) == labels.long()) \
-                    .float().mean()
-                return loss, acc
+                if not self.sharded:
+                    loss = loss_op.loss(log_probs, labels)
+                    acc = (log_probs.argmax(dim=-1) == labels.long()) \
+                        .float().mean()
+                    return loss, acc
+                labels = self._plan.apply(loss_op.name, "labels", labels,
+                                          {})
+                sums = torch.stack([
+                    loss_op.nll_sum(log_probs, labels),
+                    (log_probs.argmax(dim=-1) == labels.long()).sum()
+                    .float()]) * float(self._loss_primary)
+                collectives.all_reduce_(sums, self.machine.world_group())
+                sums = sums / loss_op.output.shape[0]
+                return sums[0], sums[1]
 
         return eval_step
 
@@ -524,6 +763,10 @@ class FFModel:
         "input_stall_s"}``."""
         from flexflow_tpu_torch.utils import faultinject
 
+        if self.config.ckpt_dir and self.machine.num_devices > 1:
+            raise NotImplementedError(
+                "--ckpt-dir over several ranks: gathering sharded "
+                "checkpoints is ROADMAP Queue A 3e")
         num_iterations = num_iterations or self.config.num_iterations
         inj = faultinject.from_config(self.config)
         restore_inj = faultinject.install_scoped(inj) if inj.enabled \

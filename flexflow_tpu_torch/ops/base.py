@@ -8,6 +8,18 @@ outputs (``outputs``, the LSTM chunk's y, hy and cy).  Parameters live
 outside the ops in one tree, ``{param_key: {leaf: tensor}}``, the same
 tree the JAX package's ``FFModel.init`` builds, so that one tree serves
 both packages; so does per-op state, ``{op_name: {leaf: tensor}}``.
+
+Over several ranks (``flexflow_tpu/ops/base.py``'s sharding hooks) an op
+with ``SHARDED`` says how its grid splits each tensor: ``output_specs``
+the outputs, ``regrid_input_specs`` the layout it wants its inputs in,
+``param_specs`` and ``state_specs`` its leaves.  A spec names, per
+tensor dim, the grid axes (``AXIS_NAMES``) that split it, or None.  The
+model reshards each input to the wanted layout (``parallel/regrid.py``)
+and calls ``sharded_forward`` on this rank's blocks with an
+:class:`OpGrid`; the default is the plain ``forward``, right for every
+op whose block of output depends on its blocks of input alone.  Blocks
+are ceil-divided, so a spatial extent may split unevenly (27 columns
+over 4: 7, 7, 7, 6), and the ops compute exactly the global function.
 """
 
 from __future__ import annotations
@@ -18,7 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from flexflow_tpu_torch.strategy import ParallelConfig
+from flexflow_tpu_torch.strategy import ParallelConfig, uneven_spatial_ok
 
 _tensor_ids = itertools.count()
 
@@ -109,6 +121,155 @@ class Op:
         of its outputs' values in the order of ``outputs``."""
         raise NotImplementedError
 
+    # ---- grids over several ranks -----------------------------------
+
+    #: True for the ops whose grids run over several ranks
+    SHARDED = False
+
+    def output_spec(self):
+        """Spec of the output over ``AXIS_NAMES``."""
+        raise NotImplementedError(
+            f"op {self.name!r} ({type(self).__name__}) has no grid over "
+            f"several ranks yet (ROADMAP Queue A 3b-3d)")
+
+    def output_specs(self) -> List:
+        return [self.output_spec()]
+
+    def regrid_input_specs(self):
+        """Spec per input of the layout the op computes from; None: no
+        preference (the input is taken as it comes)."""
+        return None
+
+    def param_specs(self) -> Dict:
+        """Spec per param leaf; a leaf not named is replicated."""
+        return {}
+
+    def state_specs(self) -> Dict:
+        """Spec per state leaf; a leaf not named is replicated."""
+        return {}
+
+    def grid_collectives(self) -> List[Tuple[str, ...]]:
+        """Tuples of grid axes over whose ranks ``sharded_forward`` runs a
+        collective (their process groups are made at build time)."""
+        return []
+
+    def sharded_forward(self, params: Dict, state: Dict, xs: List,
+                        train: bool, grid: "OpGrid"):
+        """The forward on this rank's blocks: inputs in the layouts of
+        ``regrid_input_specs``, params and state as their specs split
+        them; returns the output blocks of ``output_specs``."""
+        return self.forward(params, state, xs, train)
+
+    def validate_partitioning(self) -> None:
+        """Each grid dim must divide the tensor dims it splits; spatial
+        (h, w) dims may split unevenly when every ceil-sized block is
+        non-empty (``flexflow_tpu/ops/base.py:252``)."""
+        sizes = dict(zip(self.AXIS_NAMES, self.pc.dims))
+        for t, spec in zip(self.all_outputs(), self.output_specs()):
+            for d, entry in enumerate(spec or ()):
+                if entry is None:
+                    continue
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                parts = math.prod(sizes.get(a, 1) for a in axes)
+                if t.shape[d] % parts == 0:
+                    continue
+                if all(a in ("h", "w") for a in axes) \
+                        and uneven_spatial_ok(t.shape[d], parts):
+                    continue
+                raise ValueError(
+                    f"op {self.name!r}: output dim {d} of size "
+                    f"{t.shape[d]} not divisible by its partition count "
+                    f"{parts} (grid {self.pc.dims})")
+
     def __repr__(self):
         return (f"{type(self).__name__}(name={self.name!r}, grid={self.pc.dims}, "
                 f"out={self.output.shape if self.output else None})")
+
+
+class OpGrid:
+    """One op's grid as this rank runs it: each grid axis is realized by
+    a tuple of the machine's global axes (``MachineModel.global_assign``),
+    this rank's index along it is the mixed radix of its coordinates on
+    them, and a tensor dim of extent ``n`` split ``P`` ways has ceil-sized
+    blocks."""
+
+    def __init__(self, machine, op: Op):
+        self.machine = machine
+        if machine.num_devices > 1:
+            self.assign = machine.global_assign(op.pc, op.AXIS_NAMES)
+        else:
+            self.assign = {a: () for a in op.AXIS_NAMES}
+        if self.assign is None:
+            raise NotImplementedError(
+                f"op {op.name!r}: grid {op.pc.dims} does not factor over "
+                f"the prime axes of a world of {machine.num_devices} "
+                f"(ROADMAP Queue A 3e)")
+        self._sizes = machine.axis_sizes()
+        self._coords = machine.coords()
+
+    def axes(self, *names: str) -> Tuple[str, ...]:
+        """The global axes realizing the grid axes ``names``, in the
+        machine's axis order."""
+        want = {a for nm in names for a in self.assign.get(nm, ())}
+        return tuple(a for a, _ in self.machine.global_factors()
+                     if a in want)
+
+    def parts(self, name: str) -> int:
+        return math.prod(self._sizes[a] for a in self.assign.get(name, ()))
+
+    def index(self, name: str) -> int:
+        idx = 0
+        for a in self.assign.get(name, ()):
+            idx = idx * self._sizes[a] + self._coords[a]
+        return idx
+
+    def block(self, name: str, extent: int, index: int = None
+              ) -> Tuple[int, int]:
+        """``(lo, hi)`` of block ``index`` (default this rank's) of a dim
+        of ``extent`` split along grid axis ``name``."""
+        b = -(-extent // self.parts(name))
+        i = self.index(name) if index is None else index
+        return min(i * b, extent), min((i + 1) * b, extent)
+
+    def _group_axes(self, names) -> Tuple[str, ...]:
+        """The global axes of a collective along grid axes ``names``: one
+        grid axis's in its own order (its members then come in block
+        order), several in the machine's."""
+        if len(names) == 1:
+            return self.assign.get(names[0], ())
+        return self.axes(*names)
+
+    def prepare(self, names_list) -> None:
+        """Make the process groups of :meth:`gather` / :meth:`all_reduce`
+        along each tuple of grid axes in ``names_list``."""
+        self.machine.create_groups([self._group_axes(names)
+                                    for names in names_list])
+
+    def gather(self, x, name: str, dim: int, extent: int):
+        """The whole ``extent`` of ``x`` along tensor ``dim`` from the
+        blocks of the ranks along grid axis ``name`` (an autograd
+        all-gather; its backward reduce-scatters)."""
+        from flexflow_tpu_torch.parallel.collectives import GatherCopy
+
+        parts = self.parts(name)
+        if parts == 1:
+            return x
+        group = self.machine.group(self._group_axes((name,)))
+
+        def box(lo_hi):
+            return tuple(lo_hi if d == dim else (0, x.shape[d])
+                         for d in range(x.dim()))
+
+        src = tuple(box(self.block(name, extent, i)) for i in range(parts))
+        return GatherCopy.apply(x, group, src, tuple(range(parts)),
+                                box((0, extent)), self.index(name))
+
+    def all_reduce(self, x, names: Tuple[str, ...]):
+        """The sum of ``x`` over the ranks along grid axes ``names`` (an
+        autograd all-reduce; its backward all-reduces)."""
+        from flexflow_tpu_torch.parallel.collectives import all_reduce_sum
+
+        axes = self._group_axes(names)
+        if not axes:
+            return x
+        return all_reduce_sum(x, self.machine.group(axes))

@@ -1,5 +1,8 @@
 """Concat along the channel axis of NHWC tensors (PyTorch port of
-``flexflow_tpu/ops/concat.py``)."""
+``flexflow_tpu/ops/concat.py``).  Over several ranks the inputs arrive
+whole over channels (their channel counts need not divide the grid's
+``c``), split over n, h and w; a ``c`` split slices the rank's block of
+the concatenation."""
 
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Concat(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor]):
         super().__init__(name, pc, inputs)
@@ -25,5 +29,18 @@ class Concat(Op):
         c_total = sum(t.shape[3] for t in inputs)
         self.output = Tensor((n, h, w, c_total), inputs[0].dtype, self, name)
 
+    def output_spec(self):
+        return ("n", "h", "w", "c")
+
+    def regrid_input_specs(self):
+        return [("n", "h", "w", None)] * len(self.inputs)
+
     def forward(self, params, state, xs: List, train: bool):
         return torch.cat(xs, dim=3), state
+
+    def sharded_forward(self, params, state, xs: List, train: bool, grid):
+        y = torch.cat(xs, dim=3)
+        if grid.parts("c") == 1:
+            return y, state
+        lo, hi = grid.block("c", self.output.shape[3])
+        return y[..., lo:hi].contiguous(), state

@@ -7,8 +7,15 @@ leaves it to XLA.  The NHWC activation enters as its NCHW view
 its NHWC kernels and returns a channels_last result whose NHWC view is
 contiguous again: activations are never copied between layouts.  The
 HWIO kernel is cast to the activation dtype as ``conv.py:206`` does, in
-the same copy that lays it out as channels_last OIHW.  Spatial and
-channel grids over several devices come with the multi-GPU slice.
+the same copy that lays it out as channels_last OIHW.
+
+Over several ranks the grid is (w, h, c, n) (``conv.py:1-17, 170-210``):
+``c`` splits the output channels, with kernel and bias stored as the
+rank's c-block; input channels stay whole.  An h or w split needs the
+input rows or columns the block's windows reach past the block (the
+halo): the rank all-gathers the input along that axis and slices its
+windows' span, zero-padded at the image border.  JAX's neighbour
+exchange (``exchange_halo``) is the tighter form, for later.
 """
 
 from __future__ import annotations
@@ -26,8 +33,42 @@ def out_dim(size: int, k: int, s: int, p: int) -> int:
     return 1 + (size + 2 * p - k) // s
 
 
+def window_span(out_block, size: int, k: int, s: int, p: int):
+    """``(lo, hi, pad_lo, pad_hi)``: the input rows ``[lo, hi)`` that the
+    windows of output rows ``out_block`` read, and the zero (or -inf)
+    rows to add before and after them for the image border."""
+    olo, ohi = out_block
+    start, stop = olo * s - p, (ohi - 1) * s - p + k
+    lo, hi = max(start, 0), min(stop, size)
+    return lo, hi, lo - start, stop - hi
+
+
+def window_blocks(op, x, grid):
+    """``(x, (pad_h, pad_w))`` for a windowed op (kernel, stride and
+    padding per spatial dim) on this rank's NHWC block ``x``: along an
+    h or w split, the input gathered over the split and cut to the span
+    of the rank's output windows, with its ``(lo, hi)`` border padding;
+    along an unsplit dim, ``x`` and the op's own padding."""
+    _, in_h, in_w, _ = op.inputs[0].shape
+    _, out_h, out_w, _ = op.output.shape
+    pads = []
+    for name, dim, size, osize, k, s, p in (
+            ("h", 1, in_h, out_h, op.kernel_h, op.stride_h, op.padding_h),
+            ("w", 2, in_w, out_w, op.kernel_w, op.stride_w, op.padding_w)):
+        if grid.parts(name) == 1:
+            pads.append((p, p))
+            continue
+        x = grid.gather(x, name, dim, size)
+        lo, hi, plo, phi = window_span(grid.block(name, osize), size, k, s,
+                                       p)
+        x = x.narrow(dim, lo, hi - lo)
+        pads.append((plo, phi))
+    return x, pads
+
+
 class Conv2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  out_channels: int, kernel_h: int, kernel_w: int,
@@ -57,14 +98,40 @@ class Conv2D(Op):
         return {"kernel": kernel,
                 "bias": torch.zeros((cout,), device=device)}
 
-    def forward(self, params, state, xs: List, train: bool):
-        (x,) = xs
+    def output_spec(self):
+        return ("n", "h", "w", "c")
+
+    def regrid_input_specs(self):
+        return [("n", "h", "w", None)]
+
+    def param_specs(self):
+        return {"kernel": (None, None, None, "c"), "bias": ("c",)}
+
+    def grid_collectives(self):
+        w, h, _, _ = self.pc.dims
+        return [(a,) for a, parts in (("h", h), ("w", w)) if parts > 1]
+
+    def _conv(self, params, x, pad_h, pad_w):
+        """The convolution of NHWC ``x`` with ``(lo, hi)`` zero padding of
+        each spatial dim."""
+        if pad_h[0] != pad_h[1] or pad_w[0] != pad_w[1]:
+            x = F.pad(x, (0, 0) + tuple(pad_w) + tuple(pad_h))
+            pad_h = pad_w = (0, 0)
         weight = params["kernel"].permute(3, 2, 0, 1).to(
             dtype=x.dtype, memory_format=torch.channels_last)
         y = F.conv2d(x.permute(0, 3, 1, 2), weight,
                      stride=(self.stride_h, self.stride_w),
-                     padding=(self.padding_h, self.padding_w))
+                     padding=(pad_h[0], pad_w[0]))
         y = y.permute(0, 2, 3, 1) + params["bias"].to(x.dtype)
         if self.relu:
             y = F.relu(y)
-        return y, state
+        return y
+
+    def forward(self, params, state, xs: List, train: bool):
+        (x,) = xs
+        return self._conv(params, x, (self.padding_h,) * 2,
+                          (self.padding_w,) * 2), state
+
+    def sharded_forward(self, params, state, xs: List, train: bool, grid):
+        x, pads = window_blocks(self, xs[0], grid)
+        return self._conv(params, x, *pads), state

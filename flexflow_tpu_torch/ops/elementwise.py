@@ -2,7 +2,8 @@
 ReLU: the residual connection (PyTorch port of
 ``flexflow_tpu/ops/elementwise.py``).  The reference's ResNet-101 has no
 residual add; this op lets ``build_resnet101(residual=True)`` build the
-real one."""
+real one.  Over several ranks both inputs arrive in the output's layout
+and the add is local."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Add(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor],
                  relu: bool = False):
@@ -25,6 +27,19 @@ class Add(Op):
                              f"{[t.shape for t in inputs]}")
         self.relu = relu
         self.output = Tensor(inputs[0].shape, inputs[0].dtype, self, name)
+
+    def output_spec(self):
+        """NHWC activations split over (n, h, w, c); another rank's batch
+        and minor feature dims over n and c (``elementwise.py:29-40``)."""
+        nd = self.output.ndim
+        if nd == 4:
+            return ("n", "h", "w", "c")
+        if nd == 1:
+            return ("n",)
+        return ("n",) + (None,) * (nd - 2) + ("c",)
+
+    def regrid_input_specs(self):
+        return [self.output_spec()] * len(self.inputs)
 
     def forward(self, params, state, xs: List, train: bool):
         y = xs[0] + xs[1]

@@ -3,7 +3,9 @@
 
 The features are flattened in NHWC order, (h, w, c) with c fastest, as
 the JAX op does: the next linear's kernel rows follow that order, and an
-NCHW flatten would pair them with the wrong features."""
+NCHW flatten would pair them with the wrong features.  Over several
+ranks each rank flattens its batch block (the grid's ``c`` splits
+nothing)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Flat(Op):
     AXIS_NAMES = ("c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor):
         super().__init__(name, pc, [input])
@@ -22,6 +25,12 @@ class Flat(Op):
             raise ValueError("flat input must be NHWC")
         n, h, w, c = input.shape
         self.output = Tensor((n, h * w * c), input.dtype, self, name)
+
+    def output_spec(self):
+        return ("n", None)
+
+    def regrid_input_specs(self):
+        return [("n", None, None, None)]
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs

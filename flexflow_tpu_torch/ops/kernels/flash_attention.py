@@ -18,7 +18,13 @@ kernels, as the JAX package leaves it to XLA.
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` run the plain
 versions for tensors on the CPU and the kernels for tensors on a CUDA
 device.  There is no fallback: a CUDA tensor the kernels do not take
-raises.  :func:`flash_attention` is the differentiable op (the
+raises.  Any head dim up to 128 is taken: q, k and v are zero-padded
+along d to the smallest head dim the kernels are built for
+(:func:`padded_head_dim`), the kernels scale the scores by the true
+``1/sqrt(d)``, and o, dq, dk and dv are sliced back to d; zero columns
+change no score, as in the JAX package's ``_make_flash``.  The plain
+versions take the same padded path on the CPU.  :func:`flash_attention`
+is the differentiable op (the
 ``FlashAttention`` autograd function); it looks both up when called, so a
 caller can swap in the plain versions for a reference run.
 """
@@ -29,6 +35,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from flexflow_tpu_torch.ops import kernels
 
@@ -44,16 +51,37 @@ HEAD_DIMS_BWD = HEAD_DIMS_FWD
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention_fwd_plain(q, k, v, causal: bool = False):
+def padded_head_dim(d: int) -> int:
+    """The smallest head dim in :data:`HEAD_DIMS_FWD` that is >= ``d``;
+    ValueError above the largest."""
+    for hd in HEAD_DIMS_FWD:
+        if d <= hd:
+            return hd
+    raise ValueError(f"head dim {d} is above {HEAD_DIMS_FWD[-1]}, the "
+                     f"largest the flash kernels are built for")
+
+
+def _pad_head_dim(dp, *ts):
+    """Each of ``ts`` zero-padded along its last dim to ``dp``."""
+    return [t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+            for t in ts]
+
+
+def _scale(d, scale):
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool = False, scale=None):
     """The same function in plain PyTorch, computed in float32 with the
-    whole score matrix materialized."""
+    whole score matrix materialized; ``scale`` defaults to
+    ``1/sqrt(d)``."""
     d = q.shape[-1]
     sq, sk = q.shape[2], k.shape[2]
     if sk == 0:  # no keys: every row fully masked
         return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
                 torch.full(q.shape[:3], float("-inf"), device=q.device))
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-        * (1.0 / math.sqrt(d))
+        * _scale(d, scale)
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
@@ -104,10 +132,11 @@ def _check_qkv(name, q, k, v, head_dims):
         raise ValueError(f"{name}: q, k, v must be 16-byte aligned")
 
 
-def flash_attention_fwd_cuda(q, k, v, causal: bool = False):
+def flash_attention_fwd_cuda(q, k, v, causal: bool = False, scale=None):
     """Launch the CUDA kernel on the current stream.  q (B, H, Sq, d) and
     k, v (B, H, Sk, d), contiguous, one dtype (float32 or bfloat16), on
-    one CUDA device, head dim in :data:`HEAD_DIMS_FWD`."""
+    one CUDA device, head dim in :data:`HEAD_DIMS_FWD`; the scores are
+    scaled by ``scale`` (default ``1/sqrt(d)``)."""
     _check_qkv(NAME, q, k, v, HEAD_DIMS_FWD)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -121,38 +150,46 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = False):
         code = lib.ff_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b * h, sq, sk, d, int(bool(causal)),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+            int(q.dtype == torch.bfloat16), _scale(d, scale), stream)
     kernels.check(lib, code, NAME)
     kernels.launches[NAME] += 1
     return o, lse
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False):
-    """``(o, lse)`` of attention: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors, an error for anything else."""
+    """``(o, lse)`` of attention at any head dim up to 128, through the
+    head-dim padding: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors, an error for anything else."""
     if q.device.type == "cpu":
         if k.device.type != "cpu" or v.device.type != "cpu":
             raise ValueError(f"{NAME}: q, k, v on different devices")
-        return flash_attention_fwd_plain(q, k, v, causal)
-    if q.device.type == "cuda":
-        return flash_attention_fwd_cuda(q, k, v, causal)
-    raise ValueError(f"{NAME}: no implementation for device {q.device}")
+        run = flash_attention_fwd_plain
+    elif q.device.type == "cuda":
+        run = flash_attention_fwd_cuda
+    else:
+        raise ValueError(f"{NAME}: no implementation for device {q.device}")
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    o, lse = run(*_pad_head_dim(dp, q, k, v), causal, 1.0 / math.sqrt(d))
+    return (o if dp == d else o[..., :d].contiguous()), lse
 
 
 # ---------------------------------------------------------------------------
 # backward
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
+                              scale=None):
     """``(dq, dk, dv)`` in float32, in plain PyTorch with the whole score
     matrix materialized: p recomputed from the saved lse (a fully masked
     row, lse = -inf, read as lse = 0), ``delta = rowsum(do * o)`` in
     float32, and ``do`` cast to q's dtype before the products, as the
     Pallas backward's caller does (``flash_attention.py:320-325``).  With
     bfloat16 inputs p and ds are rounded to the operand dtype before the
-    products that read them, as the Pallas kernels cast them."""
+    products that read them, as the Pallas kernels cast them.  ``scale``
+    defaults to ``1/sqrt(d)``."""
     d = q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     sq, sk = q.shape[2], k.shape[2]
     dof = do.float()
     delta = (dof * o).sum(dim=-1, keepdim=True)
@@ -204,10 +241,11 @@ def _check_bwd(name, q, k, v, do_k, lse, delta):
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta,
-                                 causal: bool = False):
+                                 causal: bool = False, scale=None):
     """Launch the dk/dv kernel on the current stream: ``(dk, dv)`` float32
     of k's shape.  ``do_k`` is the output cotangent in q's dtype, lse the
-    forward's, delta ``rowsum(do * o)`` in float32 (B, H, Sq)."""
+    forward's, delta ``rowsum(do * o)`` in float32 (B, H, Sq); ``scale``
+    as the forward's."""
     _check_bwd(NAME_DKV, q, k, v, do_k, lse, delta)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -222,14 +260,14 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b * h, sq, sk, d, int(bool(causal)),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+            int(q.dtype == torch.bfloat16), _scale(d, scale), stream)
     kernels.check(lib, code, NAME_DKV)
     kernels.launches[NAME_DKV] += 1
     return dk, dv
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta,
-                                causal: bool = False):
+                                causal: bool = False, scale=None):
     """Launch the dq kernel on the current stream: dq float32 of q's
     shape; the inputs as for :func:`flash_attention_bwd_dkv_cuda`."""
     _check_bwd(NAME_DQ, q, k, v, do_k, lse, delta)
@@ -245,33 +283,44 @@ def flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do_k.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, sq, sk,
             d, int(bool(causal)), int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(d), stream)
+            _scale(d, scale), stream)
     kernels.check(lib, code, NAME_DQ)
     kernels.launches[NAME_DQ] += 1
     return dq
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = False):
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = False,
+                             scale=None):
     """``(dq, dk, dv)`` float32 through the two backward kernels; delta
     and the cast of ``do`` to q's dtype are PyTorch ops before them."""
     delta = (do.float() * o).sum(dim=-1)
     do_k = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
-    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta, causal)
-    dq = flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta, causal,
+                                          scale)
+    dq = flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta, causal,
+                                     scale)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
-    """``(dq, dk, dv)`` float32: the plain version for CPU tensors, the
-    CUDA kernels for CUDA tensors, an error for anything else."""
+    """``(dq, dk, dv)`` float32 at any head dim up to 128, through the
+    head-dim padding: the plain version for CPU tensors, the CUDA kernels
+    for CUDA tensors, an error for anything else."""
     if q.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (k, v, o, lse, do)):
             raise ValueError(f"{NAME_DKV}: inputs on different devices")
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    if q.device.type == "cuda":
-        return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
-    raise ValueError(f"{NAME_DKV}: no implementation for device {q.device}")
+        run = flash_attention_bwd_plain
+    elif q.device.type == "cuda":
+        run = flash_attention_bwd_cuda
+    else:
+        raise ValueError(
+            f"{NAME_DKV}: no implementation for device {q.device}")
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    q, k, v, o, do = _pad_head_dim(dp, q, k, v, o, do)
+    grads = run(q, k, v, o, lse, do, causal, 1.0 / math.sqrt(d))
+    return tuple(g if dp == d else g[..., :d].contiguous() for g in grads)
 
 
 class FlashAttention(torch.autograd.Function):

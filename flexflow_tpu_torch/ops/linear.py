@@ -6,7 +6,11 @@ product accumulates in float32 and the bias is added in float32 before
 one cast back to the activation dtype.  The product is ``torch.matmul``
 on float32 views of the cast operands (the JAX op leaves it to XLA with
 ``preferred_element_type=float32``); it is exact for bf16 operands and
-small beside the convolutions it follows."""
+small beside the convolutions it follows.
+
+Over several ranks the grid is (c, n) (``linear.py:40-82``): output
+channels split over ``c``, with kernel and bias stored as the rank's
+c-block, and the input batch-split over ``n`` and whole over ``c``."""
 
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Linear(Op):
     AXIS_NAMES = ("c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  out_channels: int, relu: bool = True):
@@ -38,6 +43,15 @@ class Linear(Op):
                                 device)
         return {"kernel": kernel,
                 "bias": torch.zeros((self.out_channels,), device=device)}
+
+    def param_specs(self):
+        return {"kernel": (None, "c"), "bias": ("c",)}
+
+    def output_spec(self):
+        return ("n", "c")
+
+    def regrid_input_specs(self):
+        return [("n", None)]
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs

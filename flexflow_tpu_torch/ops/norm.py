@@ -1,5 +1,5 @@
 """BatchNorm over NHWC activations with the fused ReLU the reference
-defaults to (PyTorch port of ``flexflow_tpu/ops/norm.py``, one device).
+defaults to (PyTorch port of ``flexflow_tpu/ops/norm.py``).
 
 Training normalizes with the batch statistics (float32 mean and biased
 variance over N, H and W) and updates the running statistics
@@ -17,7 +17,20 @@ normalize (+ReLU) is :func:`~flexflow_tpu_torch.ops.kernels.bn_act.bn_act`
 (kernels 9 and 10 on CUDA tensors, their plain versions on CPU tensors);
 otherwise it is the JAX op's XLA form, ``x * inv + shift`` with inv and
 shift rounded to x's dtype first.  The two forms round differently in
-bfloat16.  The placed and point forms come with the multi-GPU slice.
+bfloat16.
+
+Over several ranks (grid (w, h, c, n)) the statistics stay global: each
+rank sums its block's x over N, H and W, the sums are added up over the
+ranks of the n, h and w axes by an autograd all-reduce (whose backward
+all-reduces too, so the statistics' gradient is global as well; JAX's
+``placed_prelude`` and canonical GSPMD form, ``norm.py:125-144,
+180-206``), then ``(x - mean)^2`` the same way.  ``c`` splits channels:
+scale, bias and the running statistics are stored as the rank's c-block,
+equal on every rank that holds it.  The normalize (kernels 9 and 10
+where the block's shape passes the gate) runs on the block with the
+global (inv, shift); kernel 10's per-channel sums are the rank's
+partials, which autograd adds up across ranks.  The placed and point
+forms (``point_forward``) wait for ROADMAP Queue A 3b.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class BatchNorm(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  relu: bool = True, eps: float = 1e-5, momentum: float = 0.9):
@@ -59,6 +73,51 @@ class BatchNorm(Op):
         ``""`` (the XLA form in plain PyTorch)."""
         return "bn_act" if bn_act.supported(*self.inputs[0].shape) else ""
 
+    def output_spec(self):
+        return ("n", "h", "w", "c")
+
+    def regrid_input_specs(self):
+        return [("n", "h", "w", "c")]
+
+    def param_specs(self):
+        return {"scale": ("c",), "bias": ("c",)}
+
+    def state_specs(self):
+        return {"mean": ("c",), "var": ("c",)}
+
+    def grid_collectives(self):
+        w, h, _, n = self.pc.dims
+        return [("w", "h", "n")] if w * h * n > 1 else []
+
+    def sharded_forward(self, params, state, xs: List, train: bool, grid):
+        (x,) = xs
+        if not train:
+            return self._normalize(params, x, state["mean"], state["var"]),\
+                state
+        n, h, w, _ = self.inputs[0].shape
+        count = n * h * w
+        xf = x.float()
+        axes = ("w", "h", "n")
+        mean = grid.all_reduce(xf.sum(dim=(0, 1, 2)), axes) / count
+        var = grid.all_reduce(((xf - mean) ** 2).sum(dim=(0, 1, 2)),
+                              axes) / count
+        m = self.momentum
+        state = {"mean": m * state["mean"] + (1 - m) * mean.detach(),
+                 "var": m * state["var"] + (1 - m) * var.detach()}
+        return self._normalize(params, x, mean, var), state
+
+    def _normalize(self, params, x, mean, var):
+        """y of x under (mean, var): kernels 9-10 where the gate takes
+        x's shape, else the XLA form."""
+        inv = torch.rsqrt(var + self.eps) * params["scale"]
+        shift = params["bias"] - mean * inv
+        if bn_act.supported(*x.shape):
+            return bn_act.bn_act(x, inv, shift, relu=self.relu)
+        y = x * inv.to(x.dtype) + shift.to(x.dtype)
+        if self.relu:
+            y = F.relu(y)
+        return y
+
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
         if train:
@@ -70,11 +129,4 @@ class BatchNorm(Op):
                      "var": m * state["var"] + (1 - m) * var.detach()}
         else:
             mean, var = state["mean"], state["var"]
-        inv = torch.rsqrt(var + self.eps) * params["scale"]
-        shift = params["bias"] - mean * inv
-        if self.kernel_route():
-            return bn_act.bn_act(x, inv, shift, relu=self.relu), state
-        y = x * inv.to(x.dtype) + shift.to(x.dtype)
-        if self.relu:
-            y = F.relu(y)
-        return y, state
+        return self._normalize(params, x, mean, var), state

@@ -15,6 +15,13 @@ and no policy switch:
 
 Both kernel routes launch their CUDA kernels on CUDA tensors and run
 their plain versions on CPU tensors.
+
+Over several ranks the grid is (w, h, c, n) as the convolution's; ``c``
+splits channels (pooling is per channel).  An h or w split gathers the
+input along that axis and pools the block's windows' span, padded
+explicitly at the image border (-inf for a max pool; an average pool
+divides by the count of valid positions), so the kernels see a pad-0
+geometry on a contiguous block.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import List
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.ops.base import Op, Tensor
+from flexflow_tpu_torch.ops.conv import window_blocks
 from flexflow_tpu_torch.ops.kernels import avgpool, maxpool
 from flexflow_tpu_torch.strategy import ParallelConfig
 
@@ -33,6 +41,7 @@ POOL_AVG = "avg"
 
 class Pool2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
@@ -54,38 +63,77 @@ class Pool2D(Op):
         out_w = 1 + (w + 2 * padding_w - kernel_w) // stride_w
         self.output = Tensor((n, out_h, out_w, c), input.dtype, self, name)
 
-    def kernel_route(self) -> str:
+    def kernel_route(self, pads=None, h=None, w=None) -> str:
         """``"maxpool"`` or ``"avgpool"`` where a kernel takes this
-        geometry, else ``""`` (plain PyTorch)."""
+        geometry (with padding ``pads``, default the op's, over an
+        ``h`` x ``w`` input, default the op's), else ``""`` (plain
+        PyTorch)."""
+        ph, pw = pads or (self.padding_h, self.padding_w)
         geom = (self.kernel_h, self.kernel_w, self.stride_h, self.stride_w,
-                self.padding_h, self.padding_w)
+                ph, pw)
         if self.pool_type == POOL_MAX:
             return "maxpool" if maxpool.supported(*geom) else ""
-        _, h, w, _ = self.inputs[0].shape
-        return "avgpool" if avgpool.supported(*geom, h, w) else ""
+        _, in_h, in_w, _ = self.inputs[0].shape
+        return "avgpool" if avgpool.supported(*geom, h or in_h,
+                                              w or in_w) else ""
+
+    def output_spec(self):
+        return ("n", "h", "w", "c")
+
+    def regrid_input_specs(self):
+        return [("n", "h", "w", "c")]
+
+    def grid_collectives(self):
+        w, h, _, _ = self.pc.dims
+        return [(a,) for a, parts in (("h", h), ("w", w)) if parts > 1]
+
+    def _pool(self, x, ph: int, pw: int):
+        """The pool of NHWC ``x`` with padding (ph, pw) on both sides."""
+        route = self.kernel_route((ph, pw), x.shape[1], x.shape[2])
+        if route == "maxpool":
+            return maxpool.maxpool2d(x, self.kernel_h, self.kernel_w, ph, pw,
+                                     relu=self.relu)
+        if route == "avgpool":
+            return avgpool.avgpool2d(x, self.kernel_h, self.kernel_w,
+                                     self.stride_h, self.stride_w, ph, pw,
+                                     relu=self.relu)
+        window = (self.kernel_h, self.kernel_w)
+        strides = (self.stride_h, self.stride_w)
+        xc = x.permute(0, 3, 1, 2)
+        if self.pool_type == POOL_MAX:
+            y = F.max_pool2d(xc, window, strides, (ph, pw))
+        else:
+            y = F.avg_pool2d(xc, window, strides, (ph, pw),
+                             count_include_pad=False)
+        y = y.permute(0, 2, 3, 1)
+        if self.relu:
+            y = F.relu(y)
+        return y
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
-        route = self.kernel_route()
-        if route == "maxpool":
-            return maxpool.maxpool2d(x, self.kernel_h, self.kernel_w,
-                                     self.padding_h, self.padding_w,
-                                     relu=self.relu), state
-        if route == "avgpool":
-            return avgpool.avgpool2d(x, self.kernel_h, self.kernel_w,
-                                     self.stride_h, self.stride_w,
-                                     self.padding_h, self.padding_w,
-                                     relu=self.relu), state
+        return self._pool(x, self.padding_h, self.padding_w), state
+
+    def sharded_forward(self, params, state, xs: List, train: bool, grid):
+        w, h, _, _ = self.pc.dims
+        if (h, w) == (1, 1):
+            return self.forward(params, state, xs, train)
+        x, ((hlo, hhi), (wlo, whi)) = window_blocks(self, xs[0], grid)
+        border = (0, 0, wlo, whi, hlo, hhi)
+        if not any(border):
+            return self._pool(x.contiguous(), 0, 0), state
+        if self.pool_type == POOL_MAX:
+            return self._pool(F.pad(x, border, value=float("-inf")), 0,
+                              0), state
+        # an average over the valid positions of each padded window
         window = (self.kernel_h, self.kernel_w)
         strides = (self.stride_h, self.stride_w)
-        pads = (self.padding_h, self.padding_w)
-        xc = x.permute(0, 3, 1, 2)
-        if self.pool_type == POOL_MAX:
-            y = F.max_pool2d(xc, window, strides, pads)
-        else:
-            y = F.avg_pool2d(xc, window, strides, pads,
-                             count_include_pad=False)
-        y = y.permute(0, 2, 3, 1)
+        xc = F.pad(x, border).permute(0, 3, 1, 2)
+        ones = F.pad(x.new_ones((1, x.shape[1], x.shape[2], 1)),
+                     border).permute(0, 3, 1, 2)
+        total = F.avg_pool2d(xc, window, strides, divisor_override=1)
+        count = F.avg_pool2d(ones, window, strides, divisor_override=1)
+        y = (total / count).permute(0, 2, 3, 1)
         if self.relu:
             y = F.relu(y)
         return y, state

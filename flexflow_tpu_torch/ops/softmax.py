@@ -1,6 +1,8 @@
 """Softmax + cross-entropy loss over (batch, classes) (PyTorch port of
 ``flexflow_tpu/ops/softmax.py``): float32 log-softmax forward, and the
-mean NLL over the global batch as the loss."""
+mean NLL over the global batch as the loss.  Over several ranks each
+rank holds a batch block: the model sums its NLL (:meth:`Softmax.nll_sum`)
+and adds the ranks' partial sums up (``FFModel.loss_fn``)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Softmax(Op):
     AXIS_NAMES = ("n",)
+    SHARDED = True
     is_loss = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor):
@@ -22,6 +25,12 @@ class Softmax(Op):
             raise ValueError("softmax input must be (batch, classes)")
         self.num_classes = input.shape[1]
         self.output = Tensor(input.shape, "float32", self, name)
+
+    def output_spec(self):
+        return ("n", None)
+
+    def regrid_input_specs(self):
+        return [("n", None)]
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
@@ -32,3 +41,7 @@ class Softmax(Op):
         labels are widened for the gather)."""
         nll = -log_probs.gather(1, labels.long()[:, None])
         return nll.mean()
+
+    def nll_sum(self, log_probs, labels):
+        """The summed NLL of a block of rows."""
+        return -log_probs.gather(1, labels.long()[:, None]).sum()

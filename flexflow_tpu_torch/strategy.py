@@ -62,6 +62,12 @@ class ParallelConfig:
         return ParallelConfig(dims=dims, devices=devs)
 
 
+def uneven_spatial_ok(extent: int, parts: int) -> bool:
+    """May a spatial extent split ``parts`` ways unevenly?  Every
+    ceil-sized block must be non-empty (``flexflow_tpu/strategy.py:85``)."""
+    return parts <= extent and (parts - 1) * -(-extent // parts) < extent
+
+
 class Strategy(dict):
     """Mapping of op name -> ParallelConfig for a whole model, with the
     JSON and proto2 file formats of the JAX package."""
@@ -233,7 +239,8 @@ def _parse_op(data: bytes):
 
 def validate_strategy(strategy: Mapping[str, ParallelConfig],
                       num_devices: int) -> None:
-    """Every named device ordinal must exist on the machine."""
+    """Every named device ordinal must exist on the machine: a rank of the
+    world (``flexflow_tpu/strategy.py:288``)."""
     for name, pc in strategy.items():
         for dev in pc.devices:
             if not 0 <= dev < num_devices:

@@ -71,6 +71,8 @@ def _qkv(seed, shape, sk, dtype, device):
     ((2, 4, 256, 128), 256, True),     # head dim 128, forward only
     ((2, 3, 77, 128), 77, True),
     ((2, 3, 77, 128), 300, False),
+    ((2, 3, 77, 96), 77, True),        # head dim 96, zero-padded to 128
+    ((2, 3, 77, 96), 300, False),
 ])
 def test_flash_kernel_matches_plain(gpu, dtype, shape, sk, causal):
     q, k, v = _qkv(0, shape, sk, dtype, gpu)
@@ -95,10 +97,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(gpu):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
                             k, v)
+    # head dim 160, above the largest the kernels are built for (128); a
+    # head dim under 128 is zero-padded, not refused
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_fwd(q[..., :48].contiguous(),
-                            k[..., :48].contiguous(),
-                            v[..., :48].contiguous())
+        flash_attention_fwd(*_qkv(2, (1, 2, 16, 160), 16, torch.float32,
+                                  gpu))
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="dtype"):
@@ -347,10 +350,12 @@ def _close(got, want, dtype, what):
     ((2, 16, 512, 128), 512, True),    # the GPT-1.3B widths' head dim
     ((2, 3, 77, 128), 77, True),       # ragged, head dim 128
     ((2, 3, 77, 128), 300, False),
+    ((2, 12, 512, 96), 512, True),     # head dim 96, zero-padded to 128
+    ((2, 3, 77, 96), 300, False),
 ])
 def test_flash_bwd_kernels_match_plain(gpu, dtype, shape, sk, causal):
     q, k, v = _qkv(4, shape, sk, dtype, gpu)
-    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    o, lse = flash_attention_fwd(q, k, v, causal)
     do = torch.from_numpy(np.random.RandomState(5).randn(*shape).astype(
         "float32")).to(gpu)
     kernels.reset_launches()
@@ -380,8 +385,9 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(gpu):
                                         o.half(), lse, delta)
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.flash_attention_bwd_dkv_cuda(q, k.cpu(), v, o, lse, delta)
-    # head dim 96, which no kernel is built for: the backward refuses it
-    q, k, v = _qkv(6, (1, 2, 16, 96), 16, torch.float32, gpu)
+    # head dim 160, above the largest the kernels are built for (128): the
+    # backward refuses it (a head dim under 128 is padded, not refused)
+    q, k, v = _qkv(6, (1, 2, 16, 160), 16, torch.float32, gpu)
     o, lse = flash_attention_fwd_plain(q, k, v, True)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o), True)

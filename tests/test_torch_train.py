@@ -22,6 +22,8 @@ within 2e-2 on both, the bar of tests/test_mixed_precision.py (the two
 packages round to bf16 at other places).
 """
 
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -42,6 +44,8 @@ torch.set_num_threads(2)
 
 STEPS = 3
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+STRATEGY_FILE = (Path(__file__).resolve().parents[1] / "examples"
+                 / "strategies" / "alexnet_2x4.json")
 
 
 def mini_inception(ff, image):
@@ -221,7 +225,8 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("--ckpt-async", "-s", "--elastic", "-d", "--pallas"):
+    for flag in ("--ckpt-async", "-regrid-planner", "--elastic", "-d",
+                 "--pallas"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cnn.parse(["alexnet", flag, "x"])
     # fit's runtime flags are ported: parsed, not refused
@@ -231,7 +236,8 @@ def test_cnn_app_flags():
 
 #: a value for the flags checked when parsed (any other takes "2")
 FLAG_VALUES = {"-on-divergence": "rollback", "--on-divergence": "rollback",
-               "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2"}
+               "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2",
+               "-s": str(STRATEGY_FILE), "--strategy": str(STRATEGY_FILE)}
 
 
 def test_every_jax_cnn_flag_is_parsed_or_refused():

@@ -1,0 +1,386 @@
+"""Run the port on several CPU ranks for the strategy tests.
+
+``run_ranks(body, world, *args)`` spawns ``world`` processes (the
+``spawn`` start method: the test process has JAX initialized), joins
+them in one gloo process group, and calls ``body(machine, *args)`` in
+each, returning the bodies' results in rank order.  A run that does not
+end within ``timeout`` seconds is killed and fails its test alone.  The
+bodies live here, a module whose import pulls in neither torch nor JAX,
+so that each child starts quickly; :func:`jax_train`, the reference run
+on the JAX package's virtual CPU mesh, imports JAX when the test process
+calls it.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import queue
+import socket
+import traceback
+
+import numpy as np
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank, world, port, body, args, out):
+    import torch
+
+    from flexflow_tpu_torch import distributed
+
+    torch.set_num_threads(1)
+    try:
+        machine = distributed.initialize(
+            "cpu", rank=rank, world_size=world,
+            init_method=f"tcp://127.0.0.1:{port}")
+        out.put((rank, "ok", body(machine, *args)))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        distributed.shutdown()
+
+
+def run_ranks(body, world: int, *args, timeout: float = 120.0):
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_entry,
+                         args=(r, world, port, body, args, out), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in range(world):
+            try:
+                rank, status, value = out.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"{world} ranks did not finish within {timeout} s") \
+                    from None
+            if status == "ok":
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=5 if not errors else 0.1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# rank bodies
+
+
+def build(machine, layers, cfg_kwargs, strategy_json=None):
+    """A port FFModel on ``machine`` with ``layers(ff, image)`` (a function
+    of ``tests/torch_ranks_models.py``'s kind, named by string)."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.strategy import Strategy
+
+    cfg = FFConfig(**cfg_kwargs)
+    if strategy_json:
+        cfg.strategies = Strategy.from_json(strategy_json)
+    ff = FFModel(cfg, machine)
+    image = ff.create_input((cfg.batch_size, cfg.input_height,
+                             cfg.input_width, 3), name="image")
+    MODELS[layers](ff, image)
+    return ff
+
+
+def save_trees(path, params, state) -> None:
+    """Write numpy param and state trees to one ``.npz`` (a file, not the
+    spawn pipe, carries them to the ranks)."""
+    np.savez(path, **{f"{kind}/{key}/{leaf}": np.asarray(v, np.float32)
+                      for kind, tree in (("params", params),
+                                         ("state", state))
+                      for key, sub in tree.items()
+                      for leaf, v in sub.items()})
+
+
+def load_trees(path):
+    trees = {"params": {}, "state": {}}
+    with np.load(path) as z:
+        for name in z.files:
+            kind, key, leaf = name.split("/")
+            trees[kind].setdefault(key, {})[leaf] = z[name]
+    return trees["params"], trees["state"]
+
+
+def train(machine, layers, cfg_kwargs, strategy_json, trees_path, batches,
+          all_to_all=True):
+    """Momentum-SGD steps of the model from the full trees in
+    ``trees_path`` on the global numpy ``batches``: ``(losses, params,
+    state)``, the losses followed by the eval step's loss and accuracy
+    on the last batch, the trees as ``{key: {leaf: (box, block)}}``, each
+    final block beside its box in the full leaf.  ``all_to_all`` False moves
+    axes as a backend without an all-to-all does."""
+    machine.all_to_all = all_to_all
+    import torch
+
+    from flexflow_tpu_torch.interop import (params_from_jax, shard_params,
+                                            shard_state, state_from_jax)
+
+    ff = build(machine, layers, cfg_kwargs, strategy_json)
+    params, state = load_trees(trees_path)
+    p = shard_params(params_from_jax(params, "cpu", model=ff), ff)
+    s = shard_state(state_from_jax(state, "cpu"), ff)
+    opt = ff.init_opt_state(p)
+    step = ff.make_train_step()
+    losses = []
+    for image, labels in batches:
+        img, lbl = ff.local_batch(torch.from_numpy(image),
+                                  torch.from_numpy(labels))
+        p, s, opt, loss = step(p, s, opt, img, lbl)
+        losses.append(float(loss))
+    evaluated = [float(v) for v in ff.make_eval_step()(p, s, img, lbl)]
+    return (losses + evaluated, _blocks(ff.param_boxes(), p),
+            _blocks(ff.state_boxes(), s))
+
+
+def _blocks(boxes, tree):
+    return {key: {leaf: (boxes[key][leaf], v.float().numpy())
+                  for leaf, v in sub.items()} for key, sub in tree.items()}
+
+
+def app_main(machine, argv):
+    """``apps.cnn.main(argv)`` as one rank of a torchrun world (the
+    environment torchrun would set, the process group already made)."""
+    import os
+
+    from flexflow_tpu_torch.apps import cnn
+
+    os.environ.update(RANK=str(machine.rank),
+                      WORLD_SIZE=str(machine.num_devices),
+                      LOCAL_RANK=str(machine.rank))
+    out = cnn.main(argv, log=lambda *a: None)
+    return out if out is None else out["loss"]
+
+
+def assemble(full_shapes, rank_blocks):
+    """Full numpy leaves from every rank's (box, block) pairs: every
+    element must be written by some rank, and the ranks that hold one
+    block must hold the same bits."""
+    out = {}
+    for key, leaves in full_shapes.items():
+        out[key] = {}
+        for leaf, shape in leaves.items():
+            a = np.full(shape, np.nan, np.float32)
+            for blocks in rank_blocks:
+                box, v = blocks[key][leaf]
+                sl = tuple(slice(lo, hi) for lo, hi in box)
+                held = ~np.isnan(a[sl])
+                assert np.array_equal(a[sl][held], v[held]), \
+                    f"{key}.{leaf}: replicas differ"
+                a[sl] = v
+            assert not np.isnan(a).any(), f"{key}.{leaf} not covered"
+            out[key][leaf] = a
+    return out
+
+
+def local_train(layers, cfg_kwargs, trees_path, batches):
+    """The same steps in this process on one device, no process group:
+    ``(losses and eval, {key: {leaf: full final leaf}})``."""
+    import torch
+
+    from flexflow_tpu_torch.interop import params_from_jax, state_from_jax
+    from flexflow_tpu_torch.machine import MachineModel
+
+    ff = build(MachineModel("cpu"), layers, cfg_kwargs)
+    params, state = load_trees(trees_path)
+    p = params_from_jax(params, "cpu", model=ff)
+    s = state_from_jax(state, "cpu")
+    opt = ff.init_opt_state(p)
+    step = ff.make_train_step()
+    losses = []
+    for image, labels in batches:
+        image, labels = torch.from_numpy(image), torch.from_numpy(labels)
+        p, s, opt, loss = step(p, s, opt, image, labels)
+        losses.append(float(loss))
+    evaluated = [float(v) for v in ff.make_eval_step()(p, s, image, labels)]
+    return losses + evaluated, {key: {leaf: v.numpy()
+                                      for leaf, v in sub.items()}
+                                for key, sub in p.items()}
+
+
+def jax_train(layers, cfg_kwargs, strategy_json, devices, batches):
+    """The reference: the JAX package's model under the same strategy on
+    ``devices`` of its virtual CPU mesh.  Returns ``(params, state,
+    losses, final params, final state)`` as numpy trees; a param key
+    that the JAX model keeps as stacked per-device rows (a one-point
+    grid on one device, ``FFModel._block_params``) is read from its live
+    row."""
+    import jax
+
+    from flexflow_tpu.config import FFConfig
+    from flexflow_tpu.machine import MachineModel
+    from flexflow_tpu.model import FFModel
+    from flexflow_tpu.strategy import Strategy
+
+    cfg = FFConfig(**cfg_kwargs)
+    if strategy_json:
+        cfg.strategies = Strategy.from_json(strategy_json)
+    ff = FFModel(cfg, MachineModel(devices))
+    image = ff.create_input((cfg.batch_size, cfg.input_height,
+                             cfg.input_width, 3), name="image")
+    MODELS[layers](ff, image)
+    params, state = ff.init(0)
+
+    def logical(tree):
+        tree = jax.tree.map(np.asarray, tree)
+        for key, reg in getattr(ff, "_block_params", {}).items():
+            row = reg["slot"] if reg.get("family") == "block" \
+                else reg["row"][0]
+            tree[key] = {leaf: v[row] for leaf, v in tree[key].items()}
+        return tree
+
+    full, full_state = logical(params), jax.tree.map(np.asarray, state)
+    opt = ff.init_opt_state(params)
+    step = ff.make_train_step()
+    losses = []
+    for image, labels in batches:
+        params, state, opt, loss = step(params, state, opt, image, labels)
+        losses.append(float(loss))
+    return (full, full_state, losses, logical(params),
+            jax.tree.map(np.asarray, state))
+
+
+#: losses against the JAX run and the port's one-rank run
+LOSS_RTOL, LOSS_ATOL = 2e-4, 2e-5
+#: final leaves, as a share of the largest magnitude among an op's leaves
+LEAF_RTOL = 1e-4
+
+
+def close_trees(got, want, what):
+    for key, leaves in want.items():
+        scale = max(float(np.abs(v).max()) for v in leaves.values()) or 1.0
+        for leaf, w in leaves.items():
+            err = float(np.abs(np.asarray(got[key][leaf]) - w).max())
+            assert err <= LEAF_RTOL * scale, \
+                f"{what} {key}.{leaf}: max err {err:.3e} > " \
+                f"{LEAF_RTOL} x {scale:.3e}"
+
+
+def check_strategy(tmp_path, layers, cfg_kwargs, strategy_json, ranks,
+                   batches, timeout=150.0, all_to_all=True):
+    """Train ``layers`` under the strategy on ``ranks`` gloo ranks and on
+    the JAX package's ``ranks`` virtual devices from one parameter tree;
+    hold the losses, the final params and the final state against JAX's
+    and against the port's run in one process; returns the losses."""
+    import jax
+
+    full, state, j_losses, j_params, j_state = jax_train(
+        layers, cfg_kwargs, strategy_json, jax.devices()[:ranks], batches)
+    path = str(tmp_path / "trees.npz")
+    save_trees(path, full, state)
+    res = run_ranks(train, ranks, layers, cfg_kwargs, strategy_json, path,
+                    batches, all_to_all, timeout=timeout)
+    losses = res[0][0]
+    # the loss (and the eval step's loss and accuracy) is the global
+    # batch's on every rank
+    assert all(r[0] == losses for r in res)
+    np.testing.assert_allclose(losses[:-2], j_losses, rtol=LOSS_RTOL,
+                               atol=LOSS_ATOL)
+    shapes = {k: {leaf: v.shape for leaf, v in d.items()}
+              for k, d in j_params.items()}
+    params = assemble(shapes, [r[1] for r in res])
+    close_trees(params, j_params, "params vs JAX")
+    if j_state:
+        got = assemble({k: {leaf: v.shape for leaf, v in d.items()}
+                        for k, d in j_state.items()}, [r[2] for r in res])
+        close_trees(got, j_state, "state vs JAX")
+    one_losses, one_params = local_train(layers, cfg_kwargs, path, batches)
+    np.testing.assert_allclose(losses, one_losses, rtol=LOSS_RTOL,
+                               atol=LOSS_ATOL)
+    close_trees(params, one_params, "params vs one rank")
+    return losses[:-2]
+
+
+def random_batches(steps, batch, size, classes, seed=13):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(batch, size, size, 3).astype("float32"),
+             rng.randint(0, classes, size=batch).astype("int32"))
+            for _ in range(steps)]
+
+
+def strategy_json(grids, ranks) -> str:
+    """A strategy file's text: ``{op: dims}`` over all ``ranks``."""
+    import json
+
+    return json.dumps({name: {"dims": list(dims),
+                              "devices": list(range(ranks))}
+                       for name, dims in grids.items()})
+
+
+# ---------------------------------------------------------------------------
+# the models, built alike in both packages
+
+
+def tiny(ff, image):
+    """tests/test_model.py's tiny net."""
+    t = ff.conv2d("conv1", image, 8, 3, 3, 1, 1, 1, 1, relu=True)
+    t = ff.pool2d("pool1", t, 2, 2, 2, 2, 0, 0)
+    t = ff.conv2d("conv2", t, 16, 3, 3, 2, 2, 1, 1, relu=True)
+    t = ff.flat("flat", t)
+    t = ff.linear("linear1", t, 32)
+    t = ff.linear("linear2", t, 10, relu=False)
+    return ff.softmax("softmax", t)
+
+
+def alexnet(ff, image):
+    from flexflow_tpu_torch.models.alexnet import add_alexnet_layers
+
+    return add_alexnet_layers(ff, image)
+
+
+def vgg_style(ff, image):
+    """Convolutions with BatchNorm, a 2x2 max pool, a pad-1 3x3/2 max pool
+    and a channel concat."""
+    t = ff.conv2d("conv1", image, 8, 3, 3, 1, 1, 1, 1)
+    t = ff.batch_norm("bn1", t)
+    t = ff.pool2d("pool1", t, 2, 2, 2, 2, 0, 0)
+    a = ff.conv2d("conv2a", t, 8, 3, 3, 1, 1, 1, 1, relu=True)
+    b = ff.conv2d("conv2b", t, 4, 1, 1, 1, 1, 0, 0, relu=True)
+    t = ff.concat("cat", [a, b])
+    t = ff.batch_norm("bn2", t)
+    t = ff.pool2d("pool2", t, 3, 3, 2, 2, 1, 1)
+    t = ff.flat("flat", t)
+    t = ff.linear("linear1", t, 16)
+    t = ff.linear("linear2", t, 10, relu=False)
+    return ff.softmax("softmax", t)
+
+
+def resnet_style(ff, image):
+    """A residual block (BatchNorm, Add with ReLU), an in-block 3x3/1
+    pad-1 average pool and the global average pool."""
+    t = ff.conv2d("conv1", image, 8, 3, 3, 1, 1, 1, 1)
+    t = ff.batch_norm("bn1", t)
+    r = ff.conv2d("res_conv1", t, 8, 3, 3, 1, 1, 1, 1)
+    r = ff.batch_norm("res_bn1", r)
+    r = ff.conv2d("res_conv2", r, 8, 3, 3, 1, 1, 1, 1)
+    r = ff.batch_norm("res_bn2", r, relu=False)
+    t = ff.add("res_add", t, r, relu=True)
+    t = ff.pool2d("pool1", t, 3, 3, 1, 1, 1, 1, pool_type="avg",
+                  relu=False)
+    t = ff.conv2d("conv2", t, 16, 3, 3, 2, 2, 1, 1, relu=True)
+    _, h, w, _ = t.shape
+    t = ff.pool2d("gpool", t, h, w, 1, 1, 0, 0, pool_type="avg",
+                  relu=False)
+    t = ff.flat("flat", t)
+    t = ff.linear("linear1", t, 10, relu=False)
+    return ff.softmax("softmax", t)
+
+
+MODELS = {"tiny": tiny, "alexnet": alexnet, "vgg_style": vgg_style,
+          "resnet_style": resnet_style}
