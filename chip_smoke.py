@@ -4,12 +4,13 @@ against its plain PyTorch version on the card, drives each ported path at
 full width through its entry point — the GPT served by ``apps.serve``,
 the GPT and its mixture-of-experts form trained by ``apps.lm``,
 Inception-v3, DenseNet-121, ResNet-101 and VGG-16 trained by
-``apps.cnn``, the NMT seq2seq model trained by ``apps.nmt``, and AlexNet
-trained by ``torchrun ... apps.cnn`` under a strategy file — and checks
-that each path ran through its kernels.
+``apps.cnn``, the NMT seq2seq model trained by ``apps.nmt``, AlexNet
+trained by ``torchrun ... apps.cnn`` under a strategy file, and the NMT
+and AlexNet with ops placed on device subsets through ``torchrun`` — and
+checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU; on four,
-                                       # phase 18 too)
+                                       # phase 19 too)
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
                                        # one decode step and one training
                                        # step of each trained model
@@ -48,9 +49,10 @@ Phases (any failure exits non-zero):
    combine over the vocab slices), 5 (dx, then its finishing sum over
    the vocab slices) and 6 (dw, db) against their plain versions at the LM head's N = 8192, d = 768, V = 32768 in
    float32 and bfloat16, at GPT-2's V = 50257, labels with -1 (no
-   target) included, and at the NMT head's N = 640, d = 2048, V = 20480
-   in float32; then, at the first three and at the NMT head's d and V
-   for N = 640 to 10240 tokens, their times and achieved TFLOP/s beside
+   target) included, at the NMT head's N = 640, d = 2048, V = 20480
+   in float32 and at the rows of it a rank holds under placement (N =
+   320 on two ranks, 160 on four); then, at the first three and at the
+   NMT head's d and V for N = 160 to 10240 tokens, their times and achieved TFLOP/s beside
    the plain versions' and the unfused library pair's (``x @ w + b``,
    then ``F.cross_entropy``, forward and backward), and at the NMT
    head's the ratio of the two: where the fused head's crossover lies;
@@ -166,15 +168,35 @@ Phases (any failure exits non-zero):
     conv2 and lienar1 split over channels and the rest over the batch,
     its first 3 losses held to the same bar and rank 0's pool launches
     counted as above;
-18. on a machine with four cards (``torch.cuda.device_count() >= 4``):
+18. placement slice (ROADMAP Queue A 3b): ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1 -m
+    flexflow_tpu_torch.apps.nmt`` at the JAX app's defaults (float32, 3
+    warm-up and 10 timed steps) with ``--strategy`` the reference's
+    ``default_global_config`` written for one device (NCCL): per step 2
+    launches each of kernels 4, 4's combine, 5, 5's sum and 6, the first
+    3 losses within 1e-4 (relative) of phase 15's run without a strategy
+    in this process; sentences/s, step ms and peak memory; then, where
+    gloo carries CUDA tensors for the moves (phase 17's probe), two gloo
+    ranks on cuda:0, each run 1 warm-up and 3 steps with its first 3
+    losses held to the same bar against its one-rank run and rank 0's
+    launches counted: the NMT under the two-device
+    ``default_global_config`` (``srcEmbed`` on rank 0 alone, ``dstEmbed``
+    on rank 1, the LSTMs and heads over the batch: kernels 4-6 on 320
+    rows a chunk) and under ``--pipeline-stages 2`` (LSTM layer l on rank
+    l), and AlexNet (batch 64, 224x224) with linear2 and linear3 on rank 1
+    alone and the rest data parallel (3 + 3 pool launches a step); each
+    rank's param keys are logged (residency);
+19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
-    (NCCL, a card a rank), data parallel and a hybrid strategy, each
-    held as the two-rank run is; one card runs without this phase;
-19. (``--profile``) where the device time of one decode step and of one
+    (NCCL, a card a rank), data parallel and a hybrid strategy, then the
+    placement slice's three runs over four ranks (kernels 4-6 on 160
+    rows), each held as the two-rank runs are, with sentences/s and
+    images/s beside the one-card runs; one card runs without this phase;
+20. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
     share of each step, from the profiler's kernel rows and, without the
     profiler, from the step's time held behind a sleep kernel;
-20. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+21. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -281,7 +303,10 @@ NMT_VOCAB = 20480
 NMT_CHUNKS = 2                          # decoder chunks: vocab heads a step
 NMT_HEAD = (64 * 10, 2048, NMT_VOCAB)   # N, d, V of one chunk's vocab head
 # token counts of the fused head's crossover sweep at the NMT head's d, V
-CE_CROSSOVER_TOKENS = (640, 1280, 2560, 5120, 10240)
+CE_CROSSOVER_TOKENS = (160, 320, 640, 1280, 2560, 5120, 10240)
+# the rows of one chunk's vocab head a rank holds when the NMT's batch
+# splits over 2 and 4 ranks (the placement phases)
+NMT_RANK_ROWS = (320, 160)
 # the MoE run: the JAX app's MoE example (flexflow_tpu/apps/lm.py:10) at
 # the LM run's GPT-2-small widths, 8 experts in every block, top-2,
 # capacity factor 2.0 (256 slots per expert and sequence), aux weight
@@ -739,7 +764,9 @@ def fused_ce_phase(torch, ce) -> dict:
             ("LM head float32", CE_SHAPE, "float32"),
             ("LM head bfloat16", CE_SHAPE, "bfloat16"),
             (f"GPT-2 vocab {GPT2_VOCAB} float32", gpt2, "float32"),
-            ("NMT head float32", NMT_HEAD, "float32")):
+            ("NMT head float32", NMT_HEAD, "float32"),
+            *(("NMT head of a rank float32", (n,) + NMT_HEAD[1:],
+               "float32") for n in NMT_RANK_ROWS)):
         x, w, b, lab, g = _ce_inputs(torch, gen, n, d, vocab, dtype)
         nll, lse = ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
         dx, dw, db = ce.fused_linear_ce_bwd_cuda(x, w, b, lab, lse, g)
@@ -773,9 +800,10 @@ def fused_ce_phase(torch, ce) -> dict:
 
     # times: the LM head in float32 (the path's dtype) and bfloat16,
     # GPT-2's vocab in float32, and the NMT head's d and V in float32 at
-    # the NMT's 640 tokens a chunk and more, against the unfused library
-    # pair: where the fused head stops losing, if it loses at 640.  The
-    # kernels line takes the first
+    # the rows a rank holds under placement (160, 320), the NMT's 640
+    # tokens a chunk and more, against the unfused library pair: where the
+    # fused head stops losing, if it loses at 640.  The kernels line takes
+    # the first
     timings = {}
     _, d_nmt, v_nmt = NMT_HEAD
     for label, (n, d, vocab), dtype in (
@@ -1868,11 +1896,12 @@ def resnet_vgg_phase(torch, kernels, card: str, model: str) -> dict:
             "images_per_sec": images_per_sec}
 
 
-def _nmt_argv(iters: int, warmup: int) -> list:
+def _nmt_argv(iters: int, warmup: int, device: str = "cuda") -> list:
     batch, layers, seq, hidden, embed = NMT_WIDTHS
     return ["-b", str(batch), "-l", str(layers), "-s", str(seq), "-h",
             str(hidden), "-e", str(embed), "--vocab", str(NMT_VOCAB), "-i",
-            str(iters), "--warmup", str(warmup), "--device", "cuda"]
+            str(iters), "--warmup", str(warmup)] \
+        + (["--device", device] if device else [])
 
 
 def nmt_phase(torch, kernels, card: str) -> dict:
@@ -1933,7 +1962,7 @@ def nmt_phase(torch, kernels, card: str) -> dict:
         raise AssertionError(f"nmt losses differ from the plain-kernel run "
                              f"by {rel}")
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
-            "sentences_per_sec": sentences_per_sec}
+            "sentences_per_sec": sentences_per_sec, "loss": losses}
 
 
 def _moe_argv(iters: int, warmup: int, ckpt_dir=None, *extra) -> list:
@@ -2183,7 +2212,7 @@ def nmt_profile_phase(torch) -> None:
 
     from flexflow_tpu_torch.apps import nmt
 
-    cfg, _, _ = nmt.parse_args(_nmt_argv(1, 0))
+    cfg = nmt.parse_args(_nmt_argv(1, 0))[0]
     model = nmt.RnnModel(cfg, device="cuda")
     params, state = model.init()
     opt = model.init_opt_state(params)
@@ -2310,11 +2339,11 @@ GLOO_CUDA_COLLECTIVES = ("all_gather", "reduce_scatter", "all_to_all",
 GLOO_CUDA_NEEDED = ("all_gather", "reduce_scatter", "all_reduce")
 
 
-def _alexnet_argv(extra) -> list:
-    iters = STRATEGY_WARMUP + STRATEGY_TIMED
+def _alexnet_argv(extra, warmup: int = STRATEGY_WARMUP,
+                  timed: int = STRATEGY_TIMED) -> list:
     return ["alexnet", "-b", "64", "--height", "224", "--width", "224",
-            "--lr", str(STRATEGY_LR), "-i", str(iters), "--warmup",
-            str(STRATEGY_WARMUP), "-p", "0"] + list(extra)
+            "--lr", str(STRATEGY_LR), "-i", str(warmup + timed), "--warmup",
+            str(warmup), "-p", "0"] + list(extra)
 
 
 def _torchrun(nproc: int, args, timeout: float = 600) -> str:
@@ -2442,13 +2471,15 @@ def strategy_phase(torch, kernels, card: str) -> dict:
              f"launches {res['launches']}; {card}")
         _check_run("1 rank", res, ref["loss"])
         out = {"launches": res["launches"], "images_per_sec":
-               res["images_per_sec"], "step_ms": step_ms}
+               res["images_per_sec"], "step_ms": step_ms,
+               "ref": ref, "ref_step_ms": ref_step_ms}
 
         probe = _torchrun(2, [str(Path(__file__).resolve()),
                               "--gloo-cuda-probe"], timeout=300)
         line = next(ln for ln in probe.splitlines()
                     if ln.startswith("GLOO_CUDA "))
         carried = json.loads(line[len("GLOO_CUDA "):])
+        out["gloo_cuda"] = carried
         _log(f"strategy gloo on CUDA tensors: {carried}")
         # a regrid's move needs no all-to-all: over gloo on CUDA tensors
         # the machine moves an axis by all-gather and slice
@@ -2511,6 +2542,196 @@ def strategy4_phase(torch, kernels, card: str) -> dict:
                  f"launches on rank 0 {res['launches']}")
             _check_run(f"4 ranks {label}", res, ref["loss"])
             out[label] = res["images_per_sec"]
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# the placement phases (ROADMAP Queue A 3b): 1 warm-up and 3 steps a run
+# over several ranks, its first 3 losses within the bar of the one-rank
+# run's
+PLACED_WARMUP, PLACED_STEPS = 1, 3
+PLACED_LOSS_RTOL = 1e-4
+# AlexNet with linear2 and linear3 on device 1 alone, the rest data
+# parallel
+PLACED_ALEXNET = {"linear2": ([1, 1], [1]), "linear3": ([1, 1], [1])}
+
+
+def _nmt_strategy(path: Path, ranks: int) -> None:
+    """``default_global_config`` at the NMT phase's widths, written for
+    ``ranks`` devices (a planning machine: no process group)."""
+    from flexflow_tpu_torch.apps import nmt
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.nmt.rnn_model import default_global_config
+
+    cfg = nmt.parse_args(_nmt_argv(1, 0))[0]
+    default_global_config(
+        cfg, MachineModel("cpu", world_size=ranks)).save(str(path))
+
+
+def _placed_alexnet(path: Path, ranks: int) -> None:
+    obj = {name: {"dims": [1] * (nd - 1) + [ranks],
+                  "devices": list(range(ranks))} for name, nd in ALEXNET_OPS}
+    for name, (dims, devices) in PLACED_ALEXNET.items():
+        obj[name] = {"dims": dims, "devices": devices}
+    path.write_text(json.dumps(obj, indent=1))
+
+
+def _rank_results(path: Path, ranks: int) -> list:
+    """Every rank's ``--result-json`` (rank 0's file, then ``.rank<r>``)."""
+    return [json.loads(Path(str(path) + (f".rank{r}" if r else ""))
+                       .read_text()) for r in range(ranks)]
+
+
+def _check_placed(label: str, results: list, want_loss, launches: dict,
+                  steps: int) -> float:
+    """Hold a placed run to its bars: rank 0's launches of the path's
+    kernels, its first 3 losses against ``want_loss``; log each rank's
+    leaves (residency)."""
+    res = results[0]
+    got_launches = {k: res["launches"].get(k, 0) for k in launches}
+    if got_launches != launches:
+        raise AssertionError(f"placement {label}: launches on rank 0 "
+                             f"{res['launches']}, want {launches}")
+    n = STRATEGY_CHECKED
+    got = res["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(got[:n], want_loss[:n]))
+    for r, rr in enumerate(results):
+        _log(f"placement {label}: rank {r} holds params {rr['leaves']}")
+    _log(f"placement {label}: first losses {got[:n]} vs one rank "
+         f"{want_loss[:n]}: max relative difference {rel:.3e} (tolerance "
+         f"{PLACED_LOSS_RTOL:g}); launches on rank 0 {res['launches']}")
+    if not (all(math.isfinite(v) for v in got) and rel <= PLACED_LOSS_RTOL
+            and len(got) == steps):
+        raise AssertionError(f"placement {label}: losses {got[:n]} differ "
+                             f"from {want_loss[:n]}")
+    return rel
+
+
+def _ce_launches(per_step: int, steps: int) -> dict:
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    return {name: per_step * steps
+            for name in (ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX,
+                         ce.NAME_DX_SUM, ce.NAME_DW)}
+
+
+def _pool_launches(steps: int) -> dict:
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    return {mp.NAME_FWD: 3 * steps, mp.NAME_BWD: 3 * steps}
+
+
+def _placed_runs(ranks: int, root: Path, card: str, nmt_loss, alexnet_loss,
+                 extra) -> dict:
+    """The NMT under ``default_global_config`` and ``--pipeline-stages 2``
+    and the placed AlexNet over ``ranks`` ranks through torchrun (``extra``
+    names the device and backend), each held to its bars; their rates."""
+    steps = PLACED_WARMUP + PLACED_STEPS
+    nmt_argv = _nmt_argv(steps, PLACED_WARMUP, "") + extra
+    strategy = root / f"nmt_{ranks}.json"
+    _nmt_strategy(strategy, ranks)
+    alexnet = root / f"alexnet_placed_{ranks}.json"
+    _placed_alexnet(alexnet, ranks)
+    out = {}
+    for label, module, args, want, launches in (
+            ("nmt default_global_config", "nmt",
+             nmt_argv + ["--strategy", str(strategy)], nmt_loss,
+             _ce_launches(NMT_CHUNKS, steps)),
+            ("nmt --pipeline-stages 2", "nmt",
+             nmt_argv + ["--pipeline-stages", "2"], nmt_loss,
+             _ce_launches(NMT_CHUNKS, steps)),
+            ("alexnet linear2-3 on rank 1", "cnn",
+             _alexnet_argv(extra + ["-s", str(alexnet), "-ll:gpu",
+                                    str(ranks)], PLACED_WARMUP,
+                           PLACED_STEPS),
+             alexnet_loss, _pool_launches(steps))):
+        path = root / f"{module}_{ranks}.json"
+        t = time.perf_counter()
+        _torchrun(ranks, ["-m", f"flexflow_tpu_torch.apps.{module}"] + args
+                  + ["--result-json", str(path)], timeout=300)
+        results = _rank_results(path, ranks)
+        res = results[0]
+        step_ms = res["elapsed_s"] / PLACED_STEPS * 1e3
+        rate = res["images_per_sec"]
+        _log(f"placement {label} ({ranks} ranks, {' '.join(extra)}): "
+             f"{rate:.2f} {'sentences' if module == 'nmt' else 'images'}/s, "
+             f"{step_ms:.3f} ms a step, peak on rank 0 "
+             f"{res['peak_memory_bytes'] / 1e9:.3f} GB, "
+             f"{time.perf_counter() - t:.1f} s with torchrun's start; {card}")
+        _check_placed(label, results, want, launches, steps)
+        out[label] = {"rate": rate, "step_ms": step_ms}
+    return out
+
+
+def placement_phase(torch, kernels, card: str, nmt_run: dict,
+                    strategy_run: dict) -> dict:
+    """The NMT through ``torchrun --nproc-per-node 1 ... apps.nmt --strategy
+    <default_global_config for one device>`` (NCCL) at the JAX app's
+    defaults against ``apps.nmt`` without a strategy in this process (the
+    nmt phase's run); then, where gloo carries CUDA tensors for the moves,
+    two gloo ranks on cuda:0: the NMT under the two-device
+    ``default_global_config`` (``srcEmbed`` on rank 0 alone, ``dstEmbed``
+    on rank 1) and under ``--pipeline-stages 2`` (LSTM layer l on rank l),
+    and AlexNet with linear2 and linear3 on rank 1 alone."""
+    import shutil
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        iters = LM_WARMUP + LM_TIMED
+        one = root / "nmt_1.json"
+        _nmt_strategy(one, 1)
+        t = time.perf_counter()
+        _torchrun(1, ["-m", "flexflow_tpu_torch.apps.nmt"]
+                  + _nmt_argv(iters, LM_WARMUP)
+                  + ["--strategy", str(one), "--result-json",
+                     str(root / "nmt_one.json")])
+        res = json.loads((root / "nmt_one.json").read_text())
+        step_ms = res["elapsed_s"] / LM_TIMED * 1e3
+        _log(f"placement nmt torchrun 1 rank (NCCL, default_global_config): "
+             f"{res['sentences_per_sec']:.2f} sentences/s, {step_ms:.3f} ms "
+             f"a step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB, "
+             f"{time.perf_counter() - t:.1f} s with torchrun's start; "
+             f"without a strategy in this process "
+             f"{nmt_run['sentences_per_sec']:.2f} sentences/s, "
+             f"{nmt_run['step_ms']:.3f} ms; {card}")
+        _check_placed("nmt 1 rank", [res], nmt_run["loss"],
+                      _ce_launches(NMT_CHUNKS, iters), iters)
+        out = {"nmt 1 rank": {"rate": res["sentences_per_sec"],
+                              "step_ms": step_ms}}
+        carried = strategy_run.get("gloo_cuda", {})
+        if all(carried.get(c) == "ok" for c in GLOO_CUDA_NEEDED):
+            out.update(_placed_runs(
+                2, root, card, nmt_run["loss"], strategy_run["ref"]["loss"],
+                ["--device", "cuda:0", "--dist-backend", "gloo"]))
+        else:
+            _log("placement: the two-rank gloo runs are left out: gloo does "
+                 "not carry CUDA tensors for every collective the moves "
+                 "use")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def placement4_phase(torch, kernels, card: str, nmt_run: dict,
+                     strategy_run: dict) -> dict:
+    """The placement phase's runs over four cards (NCCL, a card a rank):
+    the NMT under ``default_global_config`` and ``--pipeline-stages 2``
+    and the placed AlexNet, each against its one-card run."""
+    import shutil
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        out = _placed_runs(4, root, card, nmt_run["loss"],
+                           strategy_run["ref"]["loss"], [])
+        _log(f"placement 4: one card without a strategy "
+             f"{nmt_run['sentences_per_sec']:.2f} sentences/s "
+             f"({nmt_run['step_ms']:.3f} ms a step), "
+             f"{strategy_run['ref']['images_per_sec']:.2f} images/s "
+             f"({strategy_run['ref_step_ms']:.3f} ms a step)")
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2597,11 +2818,15 @@ def main(argv) -> int:
     dense = phase("densenet", densenet_phase, torch, kernels, card)
     phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
-    phase("nmt", nmt_phase, torch, kernels, card)
+    nmt_run = phase("nmt", nmt_phase, torch, kernels, card)
     phase("moe", moe_phase, torch, kernels, card)
-    phase("strategy", strategy_phase, torch, kernels, card)
+    strategy_run = phase("strategy", strategy_phase, torch, kernels, card)
+    phase("placement", placement_phase, torch, kernels, card, nmt_run,
+          strategy_run)
     if torch.cuda.device_count() >= 4:
         phase("strategy 4", strategy4_phase, torch, kernels, card)
+        phase("placement 4", placement4_phase, torch, kernels, card,
+              nmt_run, strategy_run)
     if "--profile" in argv:
         phase("profile serving", profile_phase, torch, sliced["engine"])
         phase("profile lm", lm_profile_phase, torch)

@@ -22,7 +22,9 @@ fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
 when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
 (untimed steps before the timed window, default 1 as in ``fit``) and
 ``--result-json PATH`` (rank 0 writes ``fit``'s result there: the
-losses, the rate, the peak device memory, the kernel launches) and
+losses, the rate, the peak device memory, the kernel launches, the param
+keys and state entries it holds; rank r > 0 writes its own to
+``PATH.rank<r>``) and
 ``--dist-backend NAME`` (the process group's backend under torchrun:
 NCCL on CUDA and gloo on the CPU unless named).  Models
 (the JAX app's names): ``alexnet``, ``vgg16``/``vgg``,
@@ -112,14 +114,24 @@ def parse(argv):
     return model_name, cfg, device, int(warmup)
 
 
-def _write_result(path: str, out: dict, dev) -> None:
+def _write_result(path: str, out: dict, machine) -> None:
+    """``fit``'s result (its trees replaced by the keys this rank holds)
+    with the launches and the peak memory, to ``path`` on rank 0 and
+    ``path.rank<r>`` on rank r."""
     import json
 
     from flexflow_tpu_torch.ops import kernels
 
-    res = dict(out, launches=dict(kernels.launches))
-    if dev.type == "cuda":
-        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    res = {k: v for k, v in out.items()
+           if k not in ("params", "state", "opt_state")}
+    res.update(launches=dict(kernels.launches),
+               leaves={"params": sorted(out["params"]),
+                       "state": sorted(out["state"])})
+    if machine.device.type == "cuda":
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+            machine.device)
+    if machine.rank:
+        path = f"{path}.rank{machine.rank}"
     with open(path, "w") as f:
         json.dump(res, f)
 
@@ -164,13 +176,11 @@ def main(argv=None, log=print) -> dict:
                              cfg.input_width, num_classes=cfg.num_classes,
                              mode="random", seed=cfg.seed, machine=machine)
     out = ff.fit(data, warmup=warmup, log=log)
+    if result_json:
+        _write_result(result_json, out, machine)
     for key in ("params", "state", "opt_state"):
         out.pop(key)
-    if machine.rank != 0:
-        return None
-    if result_json:
-        _write_result(result_json, out, dev)
-    return out
+    return out if machine.rank == 0 else None
 
 
 if __name__ == "__main__":

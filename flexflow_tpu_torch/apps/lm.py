@@ -37,8 +37,9 @@ import sys
 
 import torch
 
-from flexflow_tpu_torch.config import (LM_UNPORTED_FLAGS, RUNTIME_FLAGS,
-                                       UNPORTED_FLAGS, flag_stream)
+from flexflow_tpu_torch.config import (LM_UNPORTED_FLAGS, LM_UNPORTED_ITEMS,
+                                       RUNTIME_FLAGS, UNPORTED_FLAGS,
+                                       flag_stream)
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 
@@ -76,9 +77,11 @@ def parse_args(argv):
             field, parse = RUNTIME_FLAGS[a]
             setattr(cfg, field, parse(val()))
         elif a in UNPORTED_FLAGS or a in LM_UNPORTED_FLAGS:
+            item = LM_UNPORTED_ITEMS.get(a)
             raise NotImplementedError(
                 f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
-                f"package's flexflow_tpu/apps/lm.py has it)")
+                f"package's flexflow_tpu/apps/lm.py has it)"
+                + (f"; ROADMAP Queue A {item}" if item else ""))
         # unknown flags are ignored, like the reference parser
     return cfg, device, warmup
 

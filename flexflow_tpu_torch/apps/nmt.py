@@ -4,17 +4,31 @@
     python -m flexflow_tpu_torch.apps.nmt -b 64 -l 2 -s 20 -h 2048 -e 2048
     python -m flexflow_tpu_torch.apps.nmt -b 4 -l 2 -s 6 -h 16 -e 12 \\
         --vocab 64 --chunk 3 -i 3 --device cpu
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.apps.nmt \\
+        --strategy strategy.json
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.apps.nmt \\
+        --pipeline-stages 2
 
 Flags are the reference's (-b batch, -l layers, -s sequence length, -h
 hidden size, -e embed size) and the JAX app's extras for the ported
 fields (--vocab, -i/--iters/--iterations, --chunk: LSTM steps per chunk
-op, --lr, --dtype, --param-dtype, --seed), plus ``--device`` (default
-``cuda``: the run raises when CUDA is absent unless ``--device cpu`` is
-given) and ``--warmup`` (untimed steps before the timed window, default 1
-as in ``fit``).  Unknown flags are ignored, like the reference parser;
-flags of features the port does not have yet (strategies, the pipelined
-placement, telemetry, checkpoints, elastic training, the kernel policy,
-...) raise ``NotImplementedError``.
+op, --lr, --dtype, --param-dtype, --seed, --strategy <file>,
+--pipeline-stages S), plus ``--device`` (default ``cuda``: the run raises
+when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
+(untimed steps before the timed window, default 1 as in ``fit``),
+``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
+Unknown flags are ignored, like the reference parser; flags of features
+the port does not have yet (telemetry, checkpoints, elastic training,
+the kernel policy, ...) raise ``NotImplementedError``.
+
+The strategy is the reference's default (``nmt.rnn_model.
+default_global_config``: embeds pinned to devices 0 and 1, the rest data
+parallel) unless ``--strategy`` names a file or ``--pipeline-stages S``
+asks for ``pipeline_stage_strategy`` (LSTM layer l on device block
+l % S).  The world is ``torchrun``'s (``WORLD_SIZE``; one process
+without it), each op running on the ranks its device list names; as in
+the JAX driver there is no ``-ll:gpu``.  ``-b`` is the global batch and
+every rank keeps its rows.  Rank 0 alone logs and returns the result.
 
 The data are seeded random (src, dst) token pairs
 (``nmt.rnn_model.synthetic_token_batches``).  Prints the reference's
@@ -27,9 +41,12 @@ import sys
 
 import torch
 
+from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
+    machine_for
 from flexflow_tpu_torch.config import (RUNTIME_FLAGS, UNPORTED_FLAGS,
                                        flag_stream)
 from flexflow_tpu_torch.nmt.rnn_model import (RnnConfig, RnnModel,
+                                              pipeline_stage_strategy,
                                               synthetic_token_batches)
 
 _INT_FIELDS = {
@@ -45,14 +62,15 @@ _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
 #: port does not have yet (``-s`` and ``-e`` are the sequence length and
 #: the embed size here, so they are parsed first); ``fit``'s runtime
 #: flags are not carried through ``RnnConfig`` yet
-NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS) \
-    | {"--pipeline-stages", "--strategy"}
+NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS)
 
 
 def parse_args(argv):
-    """``(RnnConfig, device, warmup)`` from the command line."""
+    """``(RnnConfig, device, warmup, placement)`` from the command line;
+    ``placement`` is ``{"strategy": file or "", "stages": S or 0}``."""
     cfg = RnnConfig()
     device, warmup = "cuda", 1
+    placement = {"strategy": "", "stages": 0}
     for a, val in flag_stream(argv):
         if a in _INT_FIELDS:
             setattr(cfg, _INT_FIELDS[a], int(val()))
@@ -64,39 +82,66 @@ def parse_args(argv):
             device = val()
         elif a == "--warmup":
             warmup = int(val())
+        elif a == "--strategy":
+            placement["strategy"] = val()
+        elif a == "--pipeline-stages":
+            placement["stages"] = int(val())
         elif a in NMT_UNPORTED_FLAGS:
             raise NotImplementedError(
                 f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
                 f"package's flexflow_tpu/apps/nmt.py has it)")
         # unknown flags are ignored, like the reference parser
-    return cfg, device, warmup
+    return cfg, device, warmup, placement
 
 
 def main(argv=None, log=print) -> dict:
     """One training run; returns ``fit``'s result without the trees, with
-    ``sentences_per_sec``."""
-    from flexflow_tpu_torch.machine import resolve_device
+    ``sentences_per_sec`` (on rank 0; None on the other ranks)."""
+    from flexflow_tpu_torch.strategy import Strategy
 
-    cfg, device, warmup = parse_args(sys.argv[1:] if argv is None else argv)
-    dev = resolve_device(device)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    result_json, argv = _flag_value(argv, "--result-json", "")
+    backend, argv = _flag_value(argv, "--dist-backend", None)
+    cfg, device, warmup, placement = parse_args(argv)
+    machine = machine_for(device, backend)
+    dev = machine.device
+    if machine.rank != 0:
+        def log(*args, **kwargs):
+            pass
     if dev.type == "cuda":
         # float32 runs its products in float32, not TF32
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = RnnModel(cfg, device=dev)
+    strategies, label = None, "default_global_config"
+    if placement["strategy"]:
+        strategies = Strategy.load(placement["strategy"])
+        label = placement["strategy"]
+    elif placement["stages"]:
+        strategies = pipeline_stage_strategy(cfg, machine,
+                                             placement["stages"])
+        label = f"pipeline_stage_strategy({placement['stages']})"
+    model = RnnModel(cfg, machine, strategies)
     log(f"NMT: {cfg.num_layers} layers, seq {cfg.seq_length} (chunks of "
         f"{cfg.lstm_per_node_length}), hidden {cfg.hidden_size}, embed "
         f"{cfg.embed_size}, vocab {cfg.vocab_size}, batch {cfg.batch_size}, "
-        f"{cfg.compute_dtype} compute, {cfg.param_dtype} params, on {dev}")
+        f"{cfg.compute_dtype} compute, {cfg.param_dtype} params, on {dev}"
+        + (f", {machine.num_devices} ranks, strategy {label}"
+           if machine.distributed else ""))
     data = synthetic_token_batches(cfg.batch_size, cfg.seq_length,
-                                   cfg.vocab_size, seed=cfg.seed, device=dev)
+                                   cfg.vocab_size, seed=cfg.seed,
+                                   machine=machine)
     out = model.fit(data, warmup=warmup, log=log)
     if out["sentences_per_sec"]:
         log(f"sentences/s = {out['sentences_per_sec']:.2f}")
+    if result_json:
+        _write_result(result_json, out, machine)
     for key in ("params", "state", "opt_state"):
         out.pop(key)
-    return out
+    return out if machine.rank == 0 else None
 
 
 if __name__ == "__main__":
+    from flexflow_tpu_torch import distributed as _dist
+
     main()
+    _dist.shutdown()
     sys.exit(0)

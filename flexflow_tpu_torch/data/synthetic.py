@@ -55,17 +55,19 @@ def synthetic_batches(batch_size: int, height: int, width: int,
 
 def synthetic_token_stream(batch_size: int, seq_length: int,
                            vocab_size: int, seed: int = 0, streams: int = 2,
-                           cycle: int = 2,
-                           device="cuda") -> Iterator[Tuple[torch.Tensor,
-                                                            ...]]:
+                           cycle: int = 2, device="cuda", machine=None
+                           ) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Yield tuples of ``streams`` int32 (batch_size, seq_length) token
     tensors on ``device`` forever (streams=2: (src, dst) pairs; streams=1:
     (tokens,) for LMs that reuse tokens as labels).  ``cycle`` distinct
-    batches are drawn up front, moved to the device once and cycled."""
-    dev = resolve_device(device)
+    batches are drawn up front, moved to the device once and cycled; with
+    ``machine`` each is this rank's rows, on its device."""
+    dev = resolve_device(device) if machine is None else machine.device
+    lo, hi = (0, batch_size) if machine is None \
+        else machine.batch_block(batch_size)
     rng = np.random.RandomState(seed)
     ring = [tuple(
         torch.from_numpy(rng.randint(0, vocab_size, (batch_size, seq_length))
-                         .astype("int32")).to(dev)
+                         .astype("int32")[lo:hi]).to(dev)
         for _ in range(streams)) for _ in range(cycle)]
     return itertools.cycle(ring)

@@ -25,6 +25,14 @@ axes; :meth:`create_groups` makes every group of such a partition, in
 one order on every rank (``torch.distributed.new_group`` must be called
 by every rank, members or not).
 
+An op whose device list is a strict subset of the machine (or a second,
+conflicting permutation of it) runs on those ranks alone
+(``parallel/placement.py``): its grid map is the JAX package's for the
+block, stride and set families (``placement_mesh``, ``flat_mesh``:
+``placement.point_positions``), and its collectives run over explicit
+rank sets (:meth:`group_of`), made at build time on every rank in one
+order.
+
 Every entry point of the package resolves its ``device`` argument here
 (:func:`resolve_device`).  It defaults to ``"cuda"``, and asking for CUDA
 on a machine without it raises: the package never falls back to the CPU
@@ -34,11 +42,14 @@ unless the caller passed ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from flexflow_tpu_torch.strategy import ParallelConfig
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -123,10 +134,18 @@ class MachineModel:
         # process groups by rank set; partitions by axis set
         self._handles: Dict[Tuple[int, ...], object] = {}
         self._groups: Dict[Tuple[str, ...], Group] = {}
+        self._warned: set = set()
 
     @property
     def num_devices(self) -> int:
         return self.world_size
+
+    def warn_once(self, key, msg: str) -> None:
+        """Log ``msg`` as a warning the first time ``key`` is seen on this
+        machine (``flexflow_tpu/machine.py`` ``_warn_once``)."""
+        if key not in self._warned:
+            self._warned.add(key)
+            logger.warning(msg)
 
     def default_pc(self, ndims: int) -> ParallelConfig:
         """Pure-DP default, the reference's fallback when an op has no
@@ -375,6 +394,16 @@ class MachineModel:
             handle = dist.new_group(list(key))
         self._handles[key] = handle
         return handle
+
+    def group_of(self, positions: Sequence[int]) -> Group:
+        """The :class:`Group` of the ranks at ``positions``, in that order
+        (a placed op's ranks along some grid axes, the union of a move's
+        sources and destinations).  Every rank calls this for every such
+        set, members or not, in one order (``new_group`` needs them
+        all)."""
+        positions = tuple(positions)
+        ranks = tuple(self.view[p] for p in positions)
+        return Group(positions, ranks, self._handle(ranks))
 
     def world_group(self) -> Group:
         """Every rank, in position order."""

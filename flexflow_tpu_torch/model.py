@@ -23,22 +23,29 @@ part of the JAX training runtime: checkpoints and resume, the step
 health guard with rollback, device prefetch and fault injection.
 
 On a machine of several ranks (``distributed.initialize``) every op runs
-on its own strategy grid.  At build time (:meth:`_setup_sharded`, on
-every rank in one order) the model checks that each op has a ported
-grid, plans every producer->consumer regrid (``parallel/regrid.py``) and
-makes the process groups.  ``init`` draws the full parameters from the
-seed on every rank and keeps the rank's blocks (``param_specs``);
-``apply`` reshards each input to the layout its op wants and runs the
-op on the blocks; the loss is each rank's partial NLL sum over the
-global batch, added up over the ranks; gradients are all-reduced over
-the ranks that hold the same block.  The step functions take this
-rank's batch block (:meth:`local_batch`).  Placement on device subsets,
-elastic training and telemetry arrive with later slices.
+on its own strategy grid and device list.  At build time
+(:meth:`_setup_sharded`, on every rank in one order) the model checks
+that each op has a ported grid, places the ops whose device lists are
+subsets of the machine (``parallel/placement.py``), plans every
+producer->consumer regrid (``parallel/regrid.py``) and makes the process
+groups.  ``init`` draws the full parameters from the seed on every rank
+and keeps the blocks of the ops the rank runs (``param_specs``; a key
+shared by several ops, whole on each of their ranks); ``apply`` walks
+every op in one order on every rank, moves each input to the layout its
+op wants where the rank takes part in the move, and runs the op on the
+rank's blocks where the op is placed on it; the loss is each rank's
+partial NLL sum over the global batch, added up over the ranks (0 on a
+rank that counts no loss block); gradients are all-reduced over the
+ranks that hold the same block of a leaf, and the backward collectives
+run in one order on every rank (``collectives.token_chain``).  The step
+functions take this rank's batch block (:meth:`local_batch`).  Elastic
+training and telemetry arrive with later slices.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Any, Dict, List, Optional
 
@@ -298,90 +305,145 @@ class FFModel:
     # grids over several ranks
 
     def _setup_sharded(self) -> None:
-        """Check that every op can run on its grid, plan the regrids and
-        make every process group, once; every rank runs this in the same
-        order (``new_group`` needs all ranks)."""
+        """Check that every op can run on its grid, place the ops whose
+        device lists are subsets (``parallel/placement.py``), plan the
+        regrids and make every process group, once; every rank runs this
+        in the same order (``new_group`` needs all ranks)."""
         if self._plan is not None:
             return
+        from flexflow_tpu_torch.parallel.placement import placed
         from flexflow_tpu_torch.parallel.regrid import build_regrid_plan
 
         m = self.machine
         n = m.num_devices
         self._grids = {}
         for op in self.layers:
+            positions = None
             if n > 1:
                 if not op.SHARDED:
                     raise NotImplementedError(
                         f"op {op.name!r} ({type(op).__name__}) has no grid "
-                        f"over several ranks yet (ROADMAP Queue A 3b-3d)")
-                if op.pc.num_parts > 1 \
-                        and op.pc.devices != tuple(range(n)):
-                    raise NotImplementedError(
-                        f"op {op.name!r}: devices {op.pc.devices} are not "
-                        f"the whole machine in one order; placement on "
-                        f"device subsets is ROADMAP Queue A 3b")
-            self._grids[op.name] = OpGrid(m, op)
+                        f"over several ranks yet (ROADMAP Queue A 3c-3d)")
+                positions = placed(op, m)
+            self._grids[op.name] = OpGrid(m, op, positions)
             if n > 1:
                 op.validate_partitioning()
         self._plan = build_regrid_plan(self)
         for op in self.layers:
             self._grids[op.name].prepare(op.grid_collectives())
-        # gradients are summed over the ranks holding the same block: the
-        # axes a leaf's layout does not use
-        self._leaf_layouts = {"params": {}, "state": {}}
-        self._grad_axes: Dict = {}
-        all_axes = [a for a, _ in m.global_factors()]
+        self._setup_leaves()
+        m.world_group()
+        # each loss op's value counts once: on the first position holding
+        # each of its blocks
+        self._loss_primary = {}
+        for op in self.layers:
+            if getattr(op, "is_loss", False):
+                boxes = self._boxes_of(op, op.output_spec(),
+                                       op.output.shape)
+                mine = boxes[m.position]
+                self._loss_primary[op.name] = mine is not None \
+                    and boxes.index(mine) == m.position
+
+    def _boxes_of(self, op, spec, shape) -> tuple:
+        """Every position's box (None: not held) of a ``shape`` tensor
+        laid out as ``spec`` over ``op``'s grid."""
+        from flexflow_tpu_torch.parallel.regrid import (layout_boxes,
+                                                        placed_layout)
+
+        m = self.machine
+        positions = self._grids[op.name].positions
+        if positions is not None:
+            return placed_layout(m, op, positions, spec, shape).boxes
+        return layout_boxes(m, m.global_entries(
+            op.pc, op.AXIS_NAMES, spec or (), rank=len(shape)), shape)
+
+    def _setup_leaves(self) -> None:
+        """Where each leaf lives and which ranks sum its gradient.
+
+        An op's parameters and state live on the ranks that run it, each
+        rank holding the block its point computes with
+        (``param_specs``, ``state_specs``).  A key shared by several ops
+        (the NMT's ``srcEmbed``, ``encoder{l}``, ``linear``: the
+        reference's SharedVariable) is held whole on every rank that runs
+        any of them, each op slicing its block there.  A leaf's gradient is
+        summed over the ranks that hold the same block: each (op, grid
+        point) contribution is computed on exactly one of them, so every
+        contribution counts once."""
+        m = self.machine
         meta = torch.device("meta")
+        users = collections.Counter(
+            op.param_key for op in self.layers
+            if op.init_params(None, meta))
+        store: Dict[str, Dict[str, list]] = {}
+        self._op_param_slices: Dict[str, Dict] = {}
+        needs = {}
         for op in self.layers:
             shapes = {k: tuple(v.shape)
                       for k, v in op.init_params(None, meta).items()}
-            if shapes and op.param_key not in self._leaf_layouts["params"]:
-                lay = self._layouts(op, op.param_specs(), shapes)
-                self._leaf_layouts["params"][op.param_key] = lay
-                for leaf, entries in lay.items():
-                    used = {a for t in entries or () for a in t}
-                    axes = tuple(a for a in all_axes if a not in used)
-                    self._grad_axes[(op.param_key, leaf)] = axes
-                    m.create_groups([axes])
+            if not shapes:
+                continue
+            specs = op.param_specs()
+            need = {leaf: self._boxes_of(op, specs.get(leaf), shape)
+                    for leaf, shape in shapes.items()}
+            needs[op.name] = need
+            key = op.param_key
+            if users[key] == 1:
+                store[key] = {leaf: list(b) for leaf, b in need.items()}
+                continue
+            sub = store.setdefault(key, {leaf: [None] * m.num_devices
+                                         for leaf in shapes})
+            for leaf, shape in shapes.items():
+                for p, b in enumerate(need[leaf]):
+                    if b is not None:
+                        sub[leaf][p] = tuple((0, d) for d in shape)
+        for op in self.layers:
+            if op.name not in needs:
+                continue
+            held = store[op.param_key]
+            self._op_param_slices[op.name] = {
+                leaf: None if b[m.position] in (None,
+                                                held[leaf][m.position])
+                else tuple(slice(lo - hlo, hi - hlo) for (lo, hi), (hlo, _)
+                           in zip(b[m.position], held[leaf][m.position]))
+                for leaf, b in needs[op.name].items()}
+        self._store = {"params": store, "state": {}}
+        for op in self.layers:
             st = {k: tuple(v.shape) for k, v in op.init_state(meta).items()}
             if st:
-                self._leaf_layouts["state"][op.name] = self._layouts(
-                    op, op.state_specs(), st)
-        m.world_group()
-        loss = next((op for op in self.layers
-                     if getattr(op, "is_loss", False)), None)
-        lay = self._plan.layouts.get(loss.output.tid) if loss else None
-        used = {a for t in lay or () for a in t}
-        coords = m.coords()
-        self._loss_primary = all(coords[a] == 0 for a in all_axes
-                                 if a not in used)
-
-    def _layouts(self, op, specs, shapes) -> Dict:
-        return {leaf: self.machine.global_entries(
-                    op.pc, op.AXIS_NAMES, specs.get(leaf, ()),
-                    rank=len(shape))
-                for leaf, shape in shapes.items()}
+                specs = op.state_specs()
+                self._store["state"][op.name] = {
+                    leaf: self._boxes_of(op, specs.get(leaf), shape)
+                    for leaf, shape in st.items()}
+        self._grad_groups: Dict = {}
+        for key, sub in store.items():
+            for leaf, boxes in sub.items():
+                for box in dict.fromkeys(b for b in boxes if b is not None):
+                    group = m.group_of(p for p, b in enumerate(boxes)
+                                       if b == box)
+                    if box == boxes[m.position]:
+                        self._grad_groups[(key, leaf)] = group
 
     def _shard(self, tree, kind: str, position: Optional[int]):
         self._setup_sharded()
-        layouts = self._leaf_layouts[kind]
+        pos = self.machine.position if position is None else position
+        store = self._store[kind]
         out = {}
         for key, sub in tree.items():
-            lay = layouts.get(key, {})
-            out[key] = {}
-            for leaf, v in sub.items():
-                entries = lay.get(leaf)
-                if entries is None:
-                    out[key][leaf] = v
-                    continue
-                box = self.machine.block(entries, tuple(v.shape), position)
-                out[key][leaf] = v[tuple(slice(lo, hi)
-                                         for lo, hi in box)].contiguous()
+            boxes = store.get(key)
+            if boxes is None:
+                out[key] = sub
+                continue
+            if any(boxes[leaf][pos] is None for leaf in sub):
+                continue   # held only on the ranks that run its ops
+            out[key] = {leaf: v[tuple(slice(lo, hi) for lo, hi
+                                      in boxes[leaf][pos])].contiguous()
+                        for leaf, v in sub.items()}
         return out
 
     def shard_params(self, params, position: Optional[int] = None):
         """The blocks of the full ``params`` tree that the rank at
-        ``position`` (default this rank's) holds under the strategy."""
+        ``position`` (default this rank's) holds under the strategy: none
+        of a key whose ops do not run there."""
         return self._shard(params, "params", position)
 
     def shard_state(self, state, position: Optional[int] = None):
@@ -391,7 +453,7 @@ class FFModel:
 
     def param_boxes(self) -> Dict[str, Dict[str, tuple]]:
         """``{param_key: {leaf: ((lo, hi), ...)}}``: where this rank's block
-        of each leaf lies in the full leaf (the whole leaf on one
+        of each leaf it holds lies in the full leaf (the whole leaf on one
         device)."""
         return self._boxes("params", self.param_shapes())
 
@@ -404,14 +466,27 @@ class FFModel:
         return self._boxes("state", {k: v for k, v in shapes.items() if v})
 
     def _boxes(self, kind, shapes):
-        layouts = {}
-        if self.sharded:
-            self._setup_sharded()
-            layouts = self._leaf_layouts[kind]
-        return {key: {leaf: self.machine.block(
-                          layouts.get(key, {}).get(leaf) or (), shape)
-                      for leaf, shape in leaves.items()}
-                for key, leaves in shapes.items()}
+        if not self.sharded:
+            return {key: {leaf: tuple((0, n) for n in shape)
+                          for leaf, shape in leaves.items()}
+                    for key, leaves in shapes.items()}
+        self._setup_sharded()
+        pos = self.machine.position
+        store = self._store[kind]
+        return {key: {leaf: store[key][leaf][pos] for leaf in leaves}
+                for key, leaves in shapes.items()
+                if all(store[key][leaf][pos] is not None for leaf in leaves)}
+
+    def _op_params(self, op, params):
+        """``op``'s parameter blocks from this rank's tree: a shared key is
+        held whole and sliced to the op's block here (an autograd slice,
+        so the gradient lands in the held leaf)."""
+        p = params.get(op.param_key, {})
+        cuts = self._op_param_slices.get(op.name)
+        if not cuts or not any(cuts.values()):
+            return p
+        return {leaf: v if cuts.get(leaf) is None
+                else v[cuts[leaf]].contiguous() for leaf, v in p.items()}
 
     def local_batch(self, *batch):
         """This rank's blocks of global batch arrays: each rank holds the
@@ -440,31 +515,50 @@ class FFModel:
         outputs stores each value under its tensor's tid
         (``model.py:1182``).  With ``train`` the LM-head fusion runs
         (``model.py:1022``): a fused loss op's value is the per-token NLL,
-        and its projection has no value."""
-        values: Dict[int, Any] = dict(inputs)
+        and its projection has no value.  Over several ranks ``values``
+        holds what this rank holds, and a sequence loss op's labels, moved
+        to its layout, under ``("labels", op name)``."""
+        values: Dict[Any, Any] = dict(inputs)
         new_state: Dict[str, Dict] = {}
-        fusion = self._lm_head_fusion() if train else {}
         if self.sharded:
             self._setup_sharded()
+        fusion = self._lm_head_fusion() if train else {}
         reshards: Dict = {}
         for i, op in enumerate(self.layers):
             if i in fusion:
                 lin = fusion[i]
                 if lin is not None:
+                    x = values.get(lin.inputs[0].tid)
+                    labels = values.get(op.labels_tensor.tid)
+                    p = params.get(lin.param_key, {})
+                    if self.sharded:
+                        x = self._plan.apply(lin.name, 0, x, reshards)
+                        labels = self._plan.apply(op.name, 1, labels,
+                                                  reshards)
+                        p = self._op_params(lin, params)
+                        values[("labels", op.name)] = labels
                     values[op.output.tid] = self._run_fused_lm_head(
-                        params.get(lin.param_key, {}),
-                        values[lin.inputs[0].tid],
-                        values[op.labels_tensor.tid])
+                        p, x, labels)
                 continue   # the projection is folded into its loss op
-            xs = [values[t.tid] for t in op.inputs]
-            p, s = params.get(op.param_key, {}), state.get(op.name, {})
             if self.sharded:
-                xs = [self._plan.apply(op.name, j, x, reshards)
-                      for j, x in enumerate(xs)]
-                y, st = op.sharded_forward(p, s, xs, train,
-                                           self._grids[op.name])
+                # every rank walks every op in one order; a move runs on
+                # the ranks of its group, the op on the ranks it is
+                # placed on
+                xs = [self._plan.apply(op.name, j, values.get(t.tid),
+                                       reshards)
+                      for j, t in enumerate(op.inputs)]
+                grid = self._grids[op.name]
+                if not grid.runs:
+                    continue
+                y, st = op.sharded_forward(self._op_params(op, params),
+                                           state.get(op.name, {}), xs,
+                                           train, grid)
+                if getattr(op, "labels_tensor", None) is not None:
+                    values[("labels", op.name)] = xs[1]
             else:
-                y, st = op.forward(p, s, xs, train)
+                xs = [values[t.tid] for t in op.inputs]
+                y, st = op.forward(params.get(op.param_key, {}),
+                                   state.get(op.name, {}), xs, train)
             ys = y if isinstance(y, tuple) else (y,)
             for t, v in zip(op.all_outputs(), ys, strict=True):
                 values[t.tid] = v
@@ -486,7 +580,18 @@ class FFModel:
         TPU kernel's VMEM limit, and b*s < 2048 tokens, where XLA's one
         large GEMM measured faster on the TPU; the card's kernels have
         neither limit, and where the card's crossover lies is not
-        measured yet (PERF.md, open questions)."""
+        measured yet (PERF.md, open questions).
+
+        Over several ranks the pair fuses where the projection splits only
+        the batch (c = 1, JAX's ``pc_c == 1`` branch,
+        ``flexflow_tpu/model.py:692-697``) on the whole machine and its
+        logits already lie as the loss wants them: each rank then runs
+        kernels 4-6 on its rows, and ``w``'s gradient is summed over its
+        holders.  A vocab split (c > 1) runs unfused, the projection's c
+        blocks regridded to the loss's batch blocks: the same function,
+        and what JAX itself runs at the NMT's 640-token chunks, which its
+        ``_fusion_ok`` refuses (b*s < 2048).  The fused vocab-parallel
+        head (kernels 5-6's two-cotangent form) is ROADMAP Queue A 3c."""
         from flexflow_tpu_torch.ops.rnn_linear import RnnLinear
         from flexflow_tpu_torch.ops.softmax_dp import SoftmaxDP
 
@@ -497,10 +602,21 @@ class FFModel:
         for i, op in enumerate(self.layers):
             prod = op.inputs[0].producer
             if (isinstance(op, SoftmaxDP) and isinstance(prod, RnnLinear)
-                    and consumers[prod.output.tid] == 1):
+                    and consumers[prod.output.tid] == 1
+                    and (not self.sharded or self._fusable(prod, op))):
                 plan[index[id(prod)]] = None
                 plan[i] = prod
         return plan
+
+    def _fusable(self, lin, loss) -> bool:
+        """Whether ``lin`` -> ``loss`` fuses over several ranks: the
+        projection batch-split on the whole machine, its logits moved to
+        the loss by no hop."""
+        edge = self._plan.edges.get((loss.name, 0))
+        return (lin.pc.dims[0] == 1
+                and self._grids[lin.name].positions is None
+                and self._grids[loss.name].positions is None
+                and (edge is None or not edge.chain))
 
     @staticmethod
     def _run_fused_lm_head(lin_params, x, labels):
@@ -556,21 +672,25 @@ class FFModel:
         labels = self._plan.apply(loss_op.name, "labels", labels, {})
         partial = loss_op.nll_sum(log_probs, labels) \
             / loss_op.output.shape[0]
-        if not self._loss_primary:
+        if not self._loss_primary[loss_op.name]:
             partial = partial * 0   # a replica's block counts once
         return collectives.global_sum(partial, self.machine.world_group()), \
             new_state
 
     def _sync_grads(self, keys, grads):
-        """Sum each gradient over the ranks that hold its leaf's block,
-        one all-reduce per (group axes, dtype) bucket in leaf order."""
+        """Sum each gradient over the ranks that hold its leaf's block
+        (``_setup_leaves``), one all-reduce per (group, dtype) bucket in
+        leaf order; the buckets go in one order on every rank (sorted by
+        their ranks), whatever leaves a rank holds."""
         buckets: Dict = {}
         for i, (key, g) in enumerate(zip(keys, grads)):
-            buckets.setdefault((self._grad_axes[key], g.dtype), []).append(i)
+            group = self._grad_groups[key]
+            buckets.setdefault((group.positions, str(g.dtype)),
+                               (group, []))[1].append(i)
         out = list(grads)
-        for (axes, _), idx in buckets.items():
+        for _, (group, idx) in sorted(buckets.items()):
             flat = torch.cat([grads[i].reshape(-1) for i in idx])
-            collectives.all_reduce_(flat, self.machine.group(axes))
+            collectives.all_reduce_(flat, group)
             for i, part in zip(idx, flat.split([grads[i].numel()
                                                 for i in idx])):
                 out[i] = part.view_as(grads[i])
@@ -627,12 +747,21 @@ class FFModel:
                 for key, sub in params.items()}
         keys = [(key, k) for key, sub in tree.items()
                 for k, v in sub.items() if v.requires_grad]
-        with torch.enable_grad():
+        leaves = [tree[key][k] for key, k in keys]
+        with torch.enable_grad(), contextlib.ExitStack() as stack:
+            chain = stack.enter_context(collectives.token_chain(
+                self.device)) if self.sharded else None
             fwd = _cast_floats(tree, torch_dtype(self.config.compute_dtype)) \
                 if self._mixed_precision() else tree
             loss, new_state = self.loss_fn(fwd, state, *batch, train=True)
-            grads = torch.autograd.grad(loss,
-                                        [tree[key][k] for key, k in keys])
+            if chain is None:
+                grads = torch.autograd.grad(loss, leaves)
+            else:
+                # the chain's last token (zero) joins the loss, and its
+                # first is asked for: every rank runs each of its backward
+                # collectives, in the reverse of its forward order
+                grads = torch.autograd.grad(loss + chain.token,
+                                            leaves + [chain.first])[:-1]
         if self.sharded:
             grads = self._sync_grads(keys, grads)
         return loss.detach(), new_state, keys, grads
@@ -724,7 +853,7 @@ class FFModel:
                 sums = torch.stack([
                     loss_op.nll_sum(log_probs, labels),
                     (log_probs.argmax(dim=-1) == labels.long()).sum()
-                    .float()]) * float(self._loss_primary)
+                    .float()]) * float(self._loss_primary[loss_op.name])
                 collectives.all_reduce_(sums, self.machine.world_group())
                 sums = sums / loss_op.output.shape[0]
                 return sums[0], sums[1]

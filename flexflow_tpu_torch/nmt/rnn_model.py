@@ -17,15 +17,27 @@ chunks' gradients into the one ``linear`` leaf.
 The loss is the NLL summed over the decoder chunks and divided by
 ``batch * seq_length``; the update is plain SGD at the model's learning
 rate on those summed gradients (the reference applies ``w += -0.1 *
-grad_sum``).  On one device every op takes the default config; the JAX
-package's strategies (``default_global_config``,
-``pipeline_stage_strategy``) come with the multi-GPU slice.
+grad_sum``).
+
+The strategy defaults to the reference's own (:func:`default_global_config`,
+``nmt/nmt.cc:269-308``): the LSTMs, projections and losses data parallel
+over the machine, the source embeds pinned to device 0 and the target
+embeds to device 1.  :func:`pipeline_stage_strategy` places LSTM layer l
+on device block ``l % S``.  Over several ranks each op runs on the ranks
+its device list names (``parallel/placement.py``); the chunk ops sharing
+``srcEmbed``, ``encoder{l}`` and the rest may sit on different ranks,
+each holding the whole shared leaf, and the leaf's gradient is the sum
+of every op's contribution, each counted once (the reference's
+SharedVariable).  The loss is the sum over the ranks of their partial
+NLLs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional
+
+import torch
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.machine import MachineModel
@@ -36,7 +48,7 @@ from flexflow_tpu_torch.ops.lstm import LSTMChunk
 from flexflow_tpu_torch.ops.rnn_linear import RnnLinear
 from flexflow_tpu_torch.ops.seq import SliceSeq
 from flexflow_tpu_torch.ops.softmax_dp import SoftmaxDP
-from flexflow_tpu_torch.strategy import Strategy
+from flexflow_tpu_torch.strategy import ParallelConfig, Strategy
 
 
 @dataclasses.dataclass
@@ -64,11 +76,65 @@ class RnnConfig:
             // self.lstm_per_node_length
 
 
+def default_global_config(cfg: RnnConfig, machine: MachineModel) -> Strategy:
+    """The reference's ``set_global_config`` (``nmt/nmt.cc:269-308``;
+    ``flexflow_tpu/nmt/rnn_model.py:106``): LSTMs, projections and losses
+    data parallel over all devices; source embeds pinned to device 0,
+    target embeds to device 1."""
+    s = Strategy()
+    n = machine.num_devices
+    devs = tuple(range(n))
+    npc = cfg.chunks_per_seq
+    for i in range(2 * npc):
+        pinned = 0 if i < npc else min(1, n - 1)
+        s[f"embed{i}"] = ParallelConfig((1,), (pinned,))
+    for layer in range(cfg.num_layers):
+        for j in range(2 * npc):
+            s[f"lstm{layer}_{j}"] = ParallelConfig((n,), devs)
+    for j in range(npc):
+        s[f"linear{j}"] = ParallelConfig((1, n), devs)
+        s[f"softmax{j}"] = ParallelConfig((n,), devs)
+    return s
+
+
+def pipeline_stage_strategy(cfg: RnnConfig, machine: MachineModel,
+                            num_stages: int) -> Strategy:
+    """LSTM layer ``l`` on device block ``l % num_stages``, the embeds on
+    stage 0's block, the projections and losses data parallel over the
+    machine (``flexflow_tpu/nmt/rnn_model.py:126``): the reference's
+    pipeline, written as per-op device lists (``nmt/nmt.cc:269-308``).
+    Chunk ops of adjacent layers on different blocks run at the same
+    time, layer l on chunk j while layer l+1 is on chunk j-1."""
+    n = machine.num_devices
+    if num_stages < 1 or n % num_stages:
+        raise ValueError(
+            f"{num_stages} stages do not divide the {n}-device machine")
+    per = n // num_stages
+    blocks = [tuple(range(g * per, (g + 1) * per))
+              for g in range(num_stages)]
+    devs = tuple(range(n))
+    npc = cfg.chunks_per_seq
+    s = Strategy()
+    for i in range(2 * npc):
+        s[f"embed{i}"] = ParallelConfig((per,), blocks[0])
+    for layer in range(cfg.num_layers):
+        blk = blocks[layer % num_stages]
+        for j in range(2 * npc):
+            s[f"lstm{layer}_{j}"] = ParallelConfig((per,), blk)
+    for j in range(npc):
+        s[f"linear{j}"] = ParallelConfig((1, n), devs)
+        s[f"softmax{j}"] = ParallelConfig((n,), devs)
+    return s
+
+
 class RnnModel(FFModel):
     def __init__(self, rnn_config: RnnConfig = None,
                  machine: Optional[MachineModel] = None,
                  strategies: Optional[Strategy] = None, device="cuda"):
         self.rnn = rnn_config or RnnConfig()
+        machine = machine if machine is not None else MachineModel(device)
+        if strategies is None:
+            strategies = default_global_config(self.rnn, machine)
         ff_cfg = FFConfig(
             batch_size=self.rnn.batch_size,
             learning_rate=self.rnn.learning_rate,
@@ -77,7 +143,7 @@ class RnnModel(FFModel):
             compute_dtype=self.rnn.compute_dtype,
             param_dtype=self.rnn.param_dtype,
             seed=self.rnn.seed,
-            strategies=strategies or Strategy(),
+            strategies=strategies,
         )
         super().__init__(ff_cfg, machine, device)
         self._build()
@@ -135,15 +201,26 @@ class RnnModel(FFModel):
 
     def loss_fn(self, params, state, src, dst, train: bool = True):
         """``(loss, new_state)``: the NLL summed over every decoder chunk,
-        divided by ``batch * seq_length`` (``rnn_model.py:286-295``)."""
+        divided by ``batch * seq_length`` (``rnn_model.py:286-295``).  Over
+        several ranks each rank sums the blocks of each chunk's NLL that
+        it counts (its batch rows; none where it holds a replica) and the
+        partial sums are added up over the ranks."""
+        from flexflow_tpu_torch.parallel import collectives
+
         inputs = {self.src_tokens.tid: src, self.dst_tokens.tid: dst}
         values, new_state = self.apply(params, state, inputs, train)
-        total = 0.0
+        total = torch.zeros((), device=self.device)
         for op in self.loss_ops:
-            total = total + op.loss(values[op.output.tid],
-                                    values[op.labels_tensor.tid])
-        return total / (self.rnn.batch_size * self.rnn.seq_length), \
-            new_state
+            if self.sharded and not self._loss_primary[op.name]:
+                continue
+            labels = values.get(("labels", op.name),
+                                values.get(op.labels_tensor.tid))
+            total = total + op.loss(values[op.output.tid], labels)
+        total = total / (self.rnn.batch_size * self.rnn.seq_length)
+        if self.sharded:
+            total = collectives.global_sum(total,
+                                           self.machine.world_group())
+        return total, new_state
 
     def make_train_step(self):
         return self.make_sgd_step(self.rnn.learning_rate)
@@ -165,10 +242,12 @@ class RnnModel(FFModel):
 
 
 def synthetic_token_batches(batch_size: int, seq_length: int,
-                            vocab_size: int, seed: int = 0, device="cuda"):
+                            vocab_size: int, seed: int = 0, device="cuda",
+                            machine=None):
     """Random (src, dst) int32 token pairs on ``device``, the JAX
-    package's arrays for the same seed."""
+    package's arrays for the same seed; with ``machine``, this rank's
+    rows of each on its device."""
     from flexflow_tpu_torch.data import synthetic_token_stream
 
     return synthetic_token_stream(batch_size, seq_length, vocab_size, seed,
-                                  streams=2, device=device)
+                                  streams=2, device=device, machine=machine)

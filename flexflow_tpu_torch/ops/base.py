@@ -12,7 +12,11 @@ both packages; so does per-op state, ``{op_name: {leaf: tensor}}``.
 Over several ranks (``flexflow_tpu/ops/base.py``'s sharding hooks) an op
 with ``SHARDED`` says how its grid splits each tensor: ``output_specs``
 the outputs, ``regrid_input_specs`` the layout it wants its inputs in,
-``param_specs`` and ``state_specs`` its leaves.  A spec names, per
+``param_specs`` and ``state_specs`` its leaves.  An op with
+``PLACEABLE`` also runs on a device subset (``parallel/placement.py``):
+``block_placeable`` and ``point_placeable`` are the JAX op's rules for
+which placement family takes which grid, and :class:`OpGrid` then maps
+the grid onto the ranks its device list names.  A spec names, per
 tensor dim, the grid axes (``AXIS_NAMES``) that split it, or None.  The
 model reshards each input to the wanted layout (``parallel/regrid.py``)
 and calls ``sharded_forward`` on this rank's blocks with an
@@ -130,7 +134,7 @@ class Op:
         """Spec of the output over ``AXIS_NAMES``."""
         raise NotImplementedError(
             f"op {self.name!r} ({type(self).__name__}) has no grid over "
-            f"several ranks yet (ROADMAP Queue A 3b-3d)")
+            f"several ranks yet (ROADMAP Queue A 3c-3d)")
 
     def output_specs(self) -> List:
         return [self.output_spec()]
@@ -147,6 +151,29 @@ class Op:
     def state_specs(self) -> Dict:
         """Spec per state leaf; a leaf not named is replicated."""
         return {}
+
+    # ---- placement on device subsets (parallel/placement.py) ----------
+
+    #: True for the ops that can run on a device subset (the JAX op has a
+    #: ``placement_signature``); the others normalize onto the whole
+    #: machine
+    PLACEABLE = False
+
+    #: True for the ops whose JAX ``point_forward`` computes a point from
+    #: whole inputs (windows, global statistics): the set family takes
+    #: them without sliceable input specs
+    POINT_WINDOWS = False
+
+    def block_placeable(self, pc: ParallelConfig) -> bool:
+        """Whether the JAX op runs under ``pc`` as a block or stride
+        placement (its ``input_specs(pc)`` is not None); where not, a
+        subset is honored as a set, or normalized."""
+        return True
+
+    def point_placeable(self) -> bool:
+        """Whether the JAX op runs as set-family points (``point_placeable``,
+        ``flexflow_tpu/ops/base.py:206``)."""
+        return True
 
     def grid_collectives(self) -> List[Tuple[str, ...]]:
         """Tuples of grid axes over whose ranks ``sharded_forward`` runs a
@@ -187,14 +214,34 @@ class Op:
 
 
 class OpGrid:
-    """One op's grid as this rank runs it: each grid axis is realized by
-    a tuple of the machine's global axes (``MachineModel.global_assign``),
-    this rank's index along it is the mixed radix of its coordinates on
-    them, and a tensor dim of extent ``n`` split ``P`` ways has ceil-sized
+    """One op's grid as this rank runs it.
+
+    On the whole machine each grid axis is realized by a tuple of the
+    machine's global axes (``MachineModel.global_assign``) and this rank's
+    index along it is the mixed radix of its coordinates on them.  A placed
+    op (``positions``: the machine position of each grid point, dim 0
+    fastest, from ``placement.point_positions``) runs only on those
+    positions (``runs``), its index is that of its point, and its
+    collectives run over the positions of the points along the named grid
+    axes.  A tensor dim of extent ``n`` split ``P`` ways has ceil-sized
     blocks."""
 
-    def __init__(self, machine, op: Op):
+    def __init__(self, machine, op: Op,
+                 positions: Optional[Tuple[int, ...]] = None):
         self.machine = machine
+        self.positions = positions
+        self.dims = dict(zip(op.AXIS_NAMES, op.pc.dims))
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        if positions is not None:
+            from flexflow_tpu_torch.parallel.placement import grid_index
+
+            self.axis_names = op.AXIS_NAMES
+            self.runs = machine.position in positions
+            self.point = grid_index(positions.index(machine.position),
+                                    op.pc.dims, op.AXIS_NAMES) \
+                if self.runs else None
+            return
+        self.runs = True
         if machine.num_devices > 1:
             self.assign = machine.global_assign(op.pc, op.AXIS_NAMES)
         else:
@@ -209,15 +256,19 @@ class OpGrid:
 
     def axes(self, *names: str) -> Tuple[str, ...]:
         """The global axes realizing the grid axes ``names``, in the
-        machine's axis order."""
+        machine's axis order (whole-machine grids)."""
         want = {a for nm in names for a in self.assign.get(nm, ())}
         return tuple(a for a, _ in self.machine.global_factors()
                      if a in want)
 
     def parts(self, name: str) -> int:
+        if self.positions is not None:
+            return self.dims.get(name, 1)
         return math.prod(self._sizes[a] for a in self.assign.get(name, ()))
 
     def index(self, name: str) -> int:
+        if self.positions is not None:
+            return self.point.get(name, 0)
         idx = 0
         for a in self.assign.get(name, ()):
             idx = idx * self._sizes[a] + self._coords[a]
@@ -239,37 +290,68 @@ class OpGrid:
             return self.assign.get(names[0], ())
         return self.axes(*names)
 
+    def _placed_groups(self, names) -> None:
+        """The groups of a placed grid's points along ``names``: one per
+        setting of the other axes, members in mixed-radix order of
+        ``names`` (the first slowest), made on every rank."""
+        from flexflow_tpu_torch.parallel.placement import grid_index
+
+        pts = [grid_index(j, [self.dims[a] for a in self.axis_names],
+                          self.axis_names)
+               for j in range(len(self.positions))]
+        classes: Dict[tuple, list] = {}
+        for j, idx in enumerate(pts):
+            other = tuple(idx[a] for a in self.axis_names if a not in names)
+            order = 0
+            for a in names:
+                order = order * self.dims[a] + idx[a]
+            classes.setdefault(other, []).append((order, j))
+        for members in classes.values():
+            group = self.machine.group_of(
+                self.positions[j] for _, j in sorted(members))
+            if self.machine.position in group.positions:
+                self._groups[tuple(names)] = group
+
     def prepare(self, names_list) -> None:
         """Make the process groups of :meth:`gather` / :meth:`all_reduce`
-        along each tuple of grid axes in ``names_list``."""
+        along each tuple of grid axes in ``names_list`` (on every rank,
+        in one order)."""
+        if self.positions is not None:
+            for names in names_list:
+                self._placed_groups(tuple(names))
+            return
         self.machine.create_groups([self._group_axes(names)
                                     for names in names_list])
+
+    def _group(self, names):
+        if self.positions is not None:
+            return self._groups[tuple(names)]
+        return self.machine.group(self._group_axes(names))
 
     def gather(self, x, name: str, dim: int, extent: int):
         """The whole ``extent`` of ``x`` along tensor ``dim`` from the
         blocks of the ranks along grid axis ``name`` (an autograd
         all-gather; its backward reduce-scatters)."""
-        from flexflow_tpu_torch.parallel.collectives import GatherCopy
+        from flexflow_tpu_torch.parallel.collectives import gather_copy
 
         parts = self.parts(name)
         if parts == 1:
             return x
-        group = self.machine.group(self._group_axes((name,)))
+        group = self._group((name,))
 
         def box(lo_hi):
             return tuple(lo_hi if d == dim else (0, x.shape[d])
                          for d in range(x.dim()))
 
         src = tuple(box(self.block(name, extent, i)) for i in range(parts))
-        return GatherCopy.apply(x, group, src, tuple(range(parts)),
-                                box((0, extent)), self.index(name))
+        return gather_copy(x, group, src, tuple(range(parts)),
+                           box((0, extent)), self.index(name))
 
     def all_reduce(self, x, names: Tuple[str, ...]):
         """The sum of ``x`` over the ranks along grid axes ``names`` (an
         autograd all-reduce; its backward all-reduces)."""
         from flexflow_tpu_torch.parallel.collectives import all_reduce_sum
 
-        axes = self._group_axes(names)
-        if not axes:
+        if math.prod(self.parts(a) for a in names) == 1:
             return x
-        return all_reduce_sum(x, self.machine.group(axes))
+        return all_reduce_sum(x, self._group(names))

@@ -17,6 +17,11 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 class Concat(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
     SHARDED = True
+    PLACEABLE = True
+
+    def block_placeable(self, pc):
+        # a channel split would break the local concat (concat.py:33-39)
+        return pc.dims[2] == 1
 
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor]):
         super().__init__(name, pc, inputs)

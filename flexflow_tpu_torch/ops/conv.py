@@ -43,6 +43,30 @@ def window_span(out_block, size: int, k: int, s: int, p: int):
     return lo, hi, lo - start, stop - hi
 
 
+def spatial_placeable(op, pc) -> bool:
+    """The JAX ops' ``_spatial_placeable`` (``conv.py:49``, ``pool.py:43``):
+    every split spatial dim of a stride-1, odd-kernel, SAME-padded window
+    divides evenly; a conv's channel split divides its output channels,
+    and only an average pool takes a spatial split."""
+    pw, ph, pcc, _ = pc.dims
+    pooling = hasattr(op, "pool_type")
+    if pooling and op.pool_type != "avg":
+        return False
+    if not pooling and pcc > 1 and op.out_channels % pcc:
+        return False
+    _, h, w, _ = op.inputs[0].shape
+    for parts, extent, k, s, p in (
+            (ph, h, op.kernel_h, op.stride_h, op.padding_h),
+            (pw, w, op.kernel_w, op.stride_w, op.padding_w)):
+        if parts == 1:
+            continue
+        if s != 1 or k % 2 == 0 or p != (k - 1) // 2 or extent % parts:
+            return False
+        if pooling and (k - 1) // 2 > extent // parts:
+            return False
+    return True
+
+
 def window_blocks(op, x, grid):
     """``(x, (pad_h, pad_w))`` for a windowed op (kernel, stride and
     padding per spatial dim) on this rank's NHWC block ``x``: along an
@@ -69,6 +93,8 @@ def window_blocks(op, x, grid):
 class Conv2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
     SHARDED = True
+    PLACEABLE = True
+    POINT_WINDOWS = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  out_channels: int, kernel_h: int, kernel_w: int,
@@ -106,6 +132,11 @@ class Conv2D(Op):
 
     def param_specs(self):
         return {"kernel": (None, None, None, "c"), "bias": ("c",)}
+
+    def block_placeable(self, pc):
+        """Batch-only grids, and channel or spatial grids of SAME-padded
+        stride-1 convolutions (``conv.py:49-92``)."""
+        return pc.dims[:3] == (1, 1, 1) or spatial_placeable(self, pc)
 
     def grid_collectives(self):
         w, h, _, _ = self.pc.dims

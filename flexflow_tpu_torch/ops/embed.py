@@ -1,4 +1,9 @@
-"""Token embedding (PyTorch port of ``flexflow_tpu/ops/embed.py``)."""
+"""Token embedding (PyTorch port of ``flexflow_tpu/ops/embed.py``).
+
+Over several ranks the grid is (n,): each rank embeds its batch block of
+ids with the whole table.  A one-point grid on one device (the NMT
+strategies' pinned embeds) runs there alone, and only that rank holds
+the table (``parallel/placement.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +17,8 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Embed(Op):
     AXIS_NAMES = ("n",)
+    SHARDED = True
+    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  vocab_size: int, embed_size: int,
@@ -34,6 +41,12 @@ class Embed(Op):
         table = torch.randn((self.vocab_size, self.embed_size),
                             generator=gen, device=device) * 0.05
         return {"table": table}
+
+    def output_spec(self):
+        return ("n", None, None)
+
+    def regrid_input_specs(self):
+        return [("n", None)]
 
     def forward(self, params, state, xs: List, train: bool):
         (ids,) = xs

@@ -18,6 +18,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 class Flat(Op):
     AXIS_NAMES = ("c", "n")
     SHARDED = True
+    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor):
         super().__init__(name, pc, [input])

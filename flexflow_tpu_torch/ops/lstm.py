@@ -13,6 +13,12 @@ step's pre-activation gate gradient and ``dh_prev = dpre @ w_hh^T``, and
 ``dW_hh`` is one float32 product over all steps afterwards, not a
 per-step accumulation.  The products are ``torch.matmul`` (cuBLAS), as
 the JAX package leaves them to XLA.
+
+Over several ranks the grid is (n,): each rank runs the recurrence on
+its batch block with the layer's whole weights, and the chunk's ``hy``
+and ``cy`` reach the next chunk's ranks along their own edges, moved
+like any other value when the next chunk lives elsewhere
+(``parallel/regrid.py``).  ``LSTMCore``'s backward is unchanged.
 """
 
 from __future__ import annotations
@@ -102,6 +108,8 @@ class LSTMCore(torch.autograd.Function):
 
 class LSTMChunk(Op):
     AXIS_NAMES = ("n",)
+    SHARDED = True
+    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, x: Tensor,
                  hx: Tensor, cx: Tensor, hidden_size: int,
@@ -132,6 +140,12 @@ class LSTMChunk(Op):
         b = torch.zeros((4 * h,), device=device)
         b[h:2 * h] = 1.0
         return {"w_ih": w_ih, "w_hh": w_hh, "b": b}
+
+    def output_specs(self):
+        return [("n", None, None), ("n", None), ("n", None)]
+
+    def regrid_input_specs(self):
+        return [("n", None, None)] + [("n", None)] * (len(self.inputs) - 1)
 
     def forward(self, params, state, xs: List, train: bool):
         x = xs[0]

@@ -29,8 +29,16 @@ scale, bias and the running statistics are stored as the rank's c-block,
 equal on every rank that holds it.  The normalize (kernels 9 and 10
 where the block's shape passes the gate) runs on the block with the
 global (inv, shift); kernel 10's per-channel sums are the rank's
-partials, which autograd adds up across ranks.  The placed and point
-forms (``point_forward``) wait for ROADMAP Queue A 3b.
+partials, which autograd adds up across ranks.
+
+Placed on a device subset (``parallel/placement.py``: c unsplit, as
+JAX's ``point_placeable`` and ``input_specs`` require,
+``norm.py:62-146``) the same forward runs on the subset's ranks alone:
+the statistics are summed over the ranks of the subset's n, h and w
+axes, and scale, bias and the running statistics live on those ranks
+only.  JAX's ``placed_prelude`` and ``point_forward`` (its statistics
+over replicated operands) have no counterpart: a rank per process
+computes them from its own blocks.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 class BatchNorm(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
     SHARDED = True
+    PLACEABLE = True
+    POINT_WINDOWS = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  relu: bool = True, eps: float = 1e-5, momentum: float = 0.9):
@@ -84,6 +94,16 @@ class BatchNorm(Op):
 
     def state_specs(self):
         return {"mean": ("c",), "var": ("c",)}
+
+    def block_placeable(self, pc):
+        """Placed grids never split c (the running statistics would
+        split with it) and divide n, h and w (``norm.py:62-72``)."""
+        pw, ph, pcc, pn = pc.dims
+        n, h, w, _ = self.inputs[0].shape
+        return pcc == 1 and not (n % pn or h % ph or w % pw)
+
+    def point_placeable(self):
+        return self.pc.dims[2] == 1
 
     def grid_collectives(self):
         w, h, _, n = self.pc.dims

@@ -31,7 +31,7 @@ from typing import List
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.ops.base import Op, Tensor
-from flexflow_tpu_torch.ops.conv import window_blocks
+from flexflow_tpu_torch.ops.conv import spatial_placeable, window_blocks
 from flexflow_tpu_torch.ops.kernels import avgpool, maxpool
 from flexflow_tpu_torch.strategy import ParallelConfig
 
@@ -42,6 +42,8 @@ POOL_AVG = "avg"
 class Pool2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
     SHARDED = True
+    PLACEABLE = True
+    POINT_WINDOWS = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
@@ -82,6 +84,15 @@ class Pool2D(Op):
 
     def regrid_input_specs(self):
         return [("n", "h", "w", "c")]
+
+    def block_placeable(self, pc):
+        """Batch and channel grids that divide, and the spatial grids of
+        SAME stride-1 average pools (``pool.py:65-79``)."""
+        pw, ph, pcc, pn = pc.dims
+        n, _, _, c = self.inputs[0].shape
+        if (pcc > 1 and c % pcc) or n % pn:
+            return False
+        return (pw, ph) == (1, 1) or spatial_placeable(self, pc)
 
     def grid_collectives(self):
         w, h, _, _ = self.pc.dims

@@ -1,7 +1,12 @@
 """Per-position linear projection over (batch, len, d) tensors, the
 transformer's FFN and vocab projection (PyTorch port of
 ``flexflow_tpu/ops/rnn_linear.py``).  The product is a plain
-``torch.matmul``, as the JAX package leaves it to XLA."""
+``torch.matmul``, as the JAX package leaves it to XLA.
+
+Over several ranks the grid is (c, n) (``rnn_linear.py:40-58``): the
+output's vocab (or feature) dim splits over ``c``, with kernel and bias
+stored as the rank's c-block, and the input is batch-split over ``n``
+and whole over ``c``."""
 
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class RnnLinear(Op):
     AXIS_NAMES = ("c", "n")
+    SHARDED = True
+    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  out_channels: int, param_key: str = None):
@@ -33,6 +40,15 @@ class RnnLinear(Op):
                                 device)
         return {"kernel": kernel,
                 "bias": torch.zeros((self.out_channels,), device=device)}
+
+    def param_specs(self):
+        return {"kernel": (None, "c"), "bias": ("c",)}
+
+    def output_spec(self):
+        return ("n", None, "c")
+
+    def regrid_input_specs(self):
+        return [("n", None, None)]
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs

@@ -2,7 +2,8 @@
 along the sequence axis (PyTorch port of ``flexflow_tpu/ops/seq.py``).
 The NMT model cuts its source and target tokens into chunks of
 ``lstm_per_node_length`` steps, one op each, so that each chunk is a
-tensor of its own."""
+tensor of its own.  Over several ranks the grid is (n,): each rank
+slices its batch block."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class SliceSeq(Op):
     AXIS_NAMES = ("n",)
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  start: int, length: int):
@@ -27,6 +29,12 @@ class SliceSeq(Op):
         self.start = start
         self.length = length
         self.output = Tensor((n, length), input.dtype, self, name)
+
+    def output_spec(self):
+        return ("n", None)
+
+    def regrid_input_specs(self):
+        return [("n", None)]
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs

@@ -2,7 +2,11 @@
 ``flexflow_tpu/ops/softmax_dp.py``).  The forward is what serving reads;
 ``loss`` is the training loss, over the log-probs or, when the model's
 LM-head fusion ran the projection and the loss together
-(``FFModel._lm_head_fusion``), over the fused op's per-token NLL."""
+(``FFModel._lm_head_fusion``), over the fused op's per-token NLL.
+Over several ranks the grid is (n,): each rank holds a batch block of
+the log-probs and of the labels, whole over the vocab, and the model
+adds the ranks' partial sums up (``FFModel.loss_fn``).  The JAX op has
+no placed form, so a device subset normalizes."""
 
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class SoftmaxDP(Op):
     AXIS_NAMES = ("n",)
+    SHARDED = True
     is_loss = True
 
     def __init__(self, name: str, pc: ParallelConfig, logits: Tensor,
@@ -27,6 +32,12 @@ class SoftmaxDP(Op):
                              "labels")
         self.labels_tensor = labels
         self.output = Tensor(logits.shape, "float32", self, name)
+
+    def output_spec(self):
+        return ("n", None, None)
+
+    def regrid_input_specs(self):
+        return [("n", None, None), ("n", None)]
 
     def forward(self, params, state, xs: List, train: bool):
         logits, _ = xs

@@ -21,10 +21,27 @@ gradient is the sum of the partials over the replicas.  So
 
 Pieces of uneven blocks are zero-padded to one shape for the collective
 and trimmed after it.  A group of one member runs no collective.
+
+**The order of the backward collectives.**  Under placement the ranks
+run different ops, so their autograd graphs differ, and autograd alone
+would issue the backward collectives of two groups that share ranks in
+different orders on different ranks (a hang).  A training step
+therefore threads a *token* through every collective it records
+(:class:`TokenChain`): each autograd function takes the token as an
+input and returns a new one, so a rank's backward collectives run in
+exactly the reverse of its forward order.  Every rank walks the graph in
+one topological order and calls a collective only where it is a member,
+so the forward orders, and with them the backward orders, agree across
+the members of every group.  The step adds the last token (zero) to its
+loss and asks autograd for the first token's gradient as well, which
+makes every collective node reachable on every rank, whatever its data
+input.  Integer tensors (token ids, labels) move outside autograd.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import List, Sequence, Tuple
 
 import torch
@@ -114,6 +131,49 @@ def _overlap(a: Box, b: Box):
     return tuple(sa), tuple(sb)
 
 
+class TokenChain:
+    """The token threaded through one recorded step's collectives:
+    ``first`` is the leaf autograd is asked about, ``token`` the newest
+    (both zero)."""
+
+    def __init__(self, device):
+        self.first = torch.zeros((), device=device, requires_grad=True)
+        self.token = self.first
+
+
+#: the chain of the step being recorded, None outside one
+_chain: contextvars.ContextVar = contextvars.ContextVar("token_chain",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def token_chain(device):
+    """Record the collectives run inside the block on one new chain."""
+    chain = TokenChain(device)
+    reset = _chain.set(chain)
+    try:
+        yield chain
+    finally:
+        _chain.reset(reset)
+
+
+def _chained(fn, x, *args):
+    """``fn`` on ``x`` as an autograd function with the recording chain's
+    token threaded through it; an integer ``x`` moves by ``fn.run``,
+    outside autograd."""
+    if x is not None and not x.is_floating_point():
+        return fn.run(x, *args)
+    chain = _chain.get()
+    if chain is None or not torch.is_grad_enabled():
+        return fn.apply(x, None, *args)[0]
+    y, chain.token = fn.apply(x, chain.token, *args)
+    return y
+
+
+def _next_token(token):
+    return None if token is None else token.clone()
+
+
 class GatherCopy(torch.autograd.Function):
     """All-gather every member's block (``src[m]``, global boxes) and copy
     the parts of ``dst`` (this rank's wanted box) that the source members
@@ -121,7 +181,7 @@ class GatherCopy(torch.autograd.Function):
     gradient to its owner."""
 
     @staticmethod
-    def forward(ctx, x, group, src, sources, dst, me):
+    def run(x, group, src, sources, dst, me):
         pad = tuple(max(hi - lo for lo, hi in dims)
                     for dims in zip(*src))
         pieces = all_gather_list(_pad_to(x, pad), group)
@@ -130,12 +190,18 @@ class GatherCopy(torch.autograd.Function):
             ov = _overlap(src[m], dst)
             if ov is not None:
                 out[ov[1]] = pieces[m][ov[0]]
-        ctx.meta = (group, src, sources, dst, me, pad)
         return out
 
     @staticmethod
-    def backward(ctx, g):
-        group, src, sources, dst, me, pad = ctx.meta
+    def forward(ctx, x, token, group, src, sources, dst, me):
+        ctx.meta = (group, src, sources, dst, me)
+        return GatherCopy.run(x, group, src, sources, dst, me), \
+            _next_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        group, src, sources, dst, me = ctx.meta
+        pad = tuple(max(hi - lo for lo, hi in dims) for dims in zip(*src))
         bufs = [g.new_zeros(pad) for _ in range(group.size)]
         for m in sources:
             ov = _overlap(src[m], dst)
@@ -143,7 +209,11 @@ class GatherCopy(torch.autograd.Function):
                 bufs[m][ov[0]] = g[ov[1]]
         mine = reduce_scatter_list(bufs, group)
         return (mine[tuple(slice(0, n) for n in _extent(src[me]))],
-                None, None, None, None, None)
+                g_token, None, None, None, None, None)
+
+
+def gather_copy(x, group, src, sources, dst, me):
+    return _chained(GatherCopy, x, group, src, sources, dst, me)
 
 
 class AllToAllMove(torch.autograd.Function):
@@ -153,14 +223,22 @@ class AllToAllMove(torch.autograd.Function):
     in member order.  The backward is the move from ``k`` back to ``j``."""
 
     @staticmethod
-    def forward(ctx, x, group, j, k):
-        ctx.meta = (group, j, k)
+    def run(x, group, j, k):
         return _all_to_all(x, group, j, k)
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(ctx, x, token, group, j, k):
+        ctx.meta = (group, j, k)
+        return _all_to_all(x, group, j, k), _next_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
         group, j, k = ctx.meta
-        return _all_to_all(g, group, k, j), None, None, None
+        return _all_to_all(g, group, k, j), g_token, None, None, None
+
+
+def all_to_all_move(x, group, j, k):
+    return _chained(AllToAllMove, x, group, j, k)
 
 
 def _all_to_all(x, group: Group, j: int, k: int) -> torch.Tensor:
@@ -181,13 +259,13 @@ class AllReduceSum(torch.autograd.Function):
     sums the members' partial gradients (an all-reduce too)."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, token, group):
         ctx.group = group
-        return all_reduce_(x.clone(), group)
+        return all_reduce_(x.clone(), group), _next_token(token)
 
     @staticmethod
-    def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.group), None
+    def backward(ctx, g, g_token):
+        return all_reduce_(g.clone(), ctx.group), g_token, None
 
 
 class GlobalSum(torch.autograd.Function):
@@ -205,8 +283,63 @@ class GlobalSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x, group: Group):
-    return AllReduceSum.apply(x, group)
+    return _chained(AllReduceSum, x, group)
 
 
 def global_sum(x, group: Group):
     return GlobalSum.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# moves by box overlap (placed producers and consumers)
+
+
+class BoxMove(torch.autograd.Function):
+    """A value from the boxes its source members hold to the boxes its
+    destination members want, over the group of both.  ``plan`` is a
+    :class:`~flexflow_tpu_torch.parallel.regrid.BoxPlan` as this rank
+    runs it: ``send`` the box this rank contributes (None: it contributes
+    zeros), ``pad`` the shape every member pads to, ``cells`` the
+    ``(member, slices into that member's piece, slices into the output)``
+    this rank copies, ``out`` its output shape (None: it wants nothing
+    and returns an empty tensor).  The backward sends each copied cell's
+    gradient back to its source member by a reduce-scatter."""
+
+    @staticmethod
+    def run(x, plan):
+        dtype, dev = plan.dtype, plan.device
+        buf = _pad_to(x.to(dtype), plan.pad) if plan.send is not None \
+            else torch.zeros(plan.pad, dtype=dtype, device=dev)
+        pieces = all_gather_list(buf, plan.group)
+        if plan.out is None:
+            return torch.empty((0,), dtype=dtype, device=dev)
+        out = torch.empty(plan.out, dtype=dtype, device=dev)
+        for m, src_sl, dst_sl in plan.cells:
+            out[dst_sl] = pieces[m][src_sl]
+        return out
+
+    @staticmethod
+    def forward(ctx, x, token, plan):
+        ctx.plan = plan
+        return BoxMove.run(x, plan), _next_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        plan = ctx.plan
+        bufs = [torch.zeros(plan.pad, dtype=plan.dtype, device=plan.device)
+                for _ in range(plan.group.size)]
+        if plan.out is not None:
+            for m, src_sl, dst_sl in plan.cells:
+                bufs[m][src_sl] += g[dst_sl]
+        mine = reduce_scatter_list(bufs, plan.group)
+        if plan.send is None or not ctx.needs_input_grad[0]:
+            return None, g_token, None
+        return (mine[tuple(slice(0, hi - lo) for lo, hi in plan.send)],
+                g_token, None)
+
+
+def box_move(x, plan):
+    """``x`` (None where this rank holds no source) moved by ``plan``."""
+    if not plan.dtype.is_floating_point:
+        return BoxMove.run(x, plan)
+    return _chained(BoxMove, x, plan)

@@ -23,6 +23,18 @@ ranks along the hop's axes (:func:`make_hop`):
 Each is an autograd function with the adjoint collective as its backward
 (``parallel/collectives.py``).  A value that several consumers want in
 one layout is resharded once (the plan's share keys).
+
+An edge whose producer or consumer is placed on a device subset
+(``parallel/placement.py``) has no layout on the global mesh: the value
+is held in a box on each of some positions (:class:`Placed`).  Such an
+edge is one move by box overlap (:func:`plan_box_move`): every rank
+knows every position's source and destination box from the grid maps,
+each destination's box is cut into cells by the source boxes' edges and
+each cell copied from one holder (itself where it can), over the group
+of the destinations that need another rank's data and the sources they
+read.  The move is an all-gather of the sources' blocks within that
+group (gloo carries it on CUDA tensors, as the backward's
+reduce-scatter), and its backward is the reverse move.
 ``plan_state_migration`` (elastic resize) waits for Queue A item 5.
 """
 
@@ -310,10 +322,9 @@ class Hop:
             # contiguous, as the kernels' wrappers take their operands
             return x[self.slices].contiguous()
         if self.kind == "alltoall":
-            return collectives.AllToAllMove.apply(x, self.group,
-                                                  *self.dims)
-        return collectives.GatherCopy.apply(x, self.group, self.src,
-                                            self.sources, self.dst, self.me)
+            return collectives.all_to_all_move(x, self.group, *self.dims)
+        return collectives.gather_copy(x, self.group, self.src,
+                                       self.sources, self.dst, self.me)
 
 
 def _inside(inner, outer) -> bool:
@@ -412,6 +423,178 @@ def _covers(machine, axes, used, bp, bn) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# moves by box overlap
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A value held by some positions only: ``boxes[p]`` is the global
+    box held at position ``p``, None where it holds none."""
+
+    boxes: Tuple
+
+
+def spec_box(spec, shape, index: Dict[str, int],
+             sizes: Dict[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """The global box of grid point ``index`` (``{axis: index}``) of a
+    ``shape`` tensor split as ``spec``: a dim split over axes ``(a, b,
+    ...)`` has ceil-sized blocks, the block index the mixed radix of the
+    point's indices (``a`` slowest)."""
+    out = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if spec is not None and d < len(spec) else None
+        if entry is None:
+            out.append((0, n))
+            continue
+        parts, idx = 1, 0
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            parts *= sizes.get(name, 1)
+            idx = idx * sizes.get(name, 1) + index.get(name, 0)
+        b = -(-n // parts)
+        out.append((min(idx * b, n), min((idx + 1) * b, n)))
+    return tuple(out)
+
+
+def placed_layout(machine: MachineModel, op, positions, spec,
+                  shape) -> Placed:
+    """The boxes a placed op's points hold (or want) of a ``shape`` tensor
+    laid out as ``spec`` over its grid."""
+    from flexflow_tpu_torch.parallel.placement import grid_index
+
+    sizes = dict(zip(op.AXIS_NAMES, op.pc.dims))
+    boxes: List = [None] * machine.num_devices
+    for j, pos in enumerate(positions):
+        boxes[pos] = spec_box(spec, shape,
+                              grid_index(j, op.pc.dims, op.AXIS_NAMES),
+                              sizes)
+    return Placed(tuple(boxes))
+
+
+def layout_boxes(machine: MachineModel, layout, shape) -> Tuple:
+    """Every position's box of a value in ``layout`` (global entries or
+    :class:`Placed`)."""
+    if isinstance(layout, Placed):
+        return layout.boxes
+    if layout is None:
+        return tuple((tuple((0, n) for n in shape),)
+                     * machine.num_devices)
+    return tuple(machine.block(layout, shape, p)
+                 for p in range(machine.num_devices))
+
+
+def _cells(box, holders):
+    """``box`` cut into cells by the edges of the boxes in ``holders``
+    inside it, each cell as a box."""
+    cuts = []
+    for d, (lo, hi) in enumerate(box):
+        edges = {lo, hi}
+        for h in holders:
+            for e in h[d]:
+                if lo < e < hi:
+                    edges.add(e)
+        e = sorted(edges)
+        cuts.append(list(zip(e[:-1], e[1:])))
+    cells = [()]
+    for iv in cuts:
+        cells = [c + (i,) for c in cells for i in iv]
+    return cells
+
+
+def _rel(inner, outer):
+    return tuple(slice(lo - olo, hi - olo)
+                 for (lo, hi), (olo, _) in zip(inner, outer))
+
+
+@dataclasses.dataclass
+class BoxPlan:
+    """This rank's part of a move by box overlap (``collectives.BoxMove``):
+    the group of the move's members, the box it sends (None: zeros), the
+    padded piece shape, the cells it copies and its output shape (None:
+    it receives nothing)."""
+
+    group: object
+    send: Optional[Tuple]
+    pad: Tuple[int, ...]
+    cells: List
+    out: Optional[Tuple[int, ...]]
+    dtype: object
+    device: object
+
+
+@dataclasses.dataclass
+class BoxEdge:
+    """One edge moved by box overlap, as this rank runs it: ``move`` when
+    it is a member of the move's group, ``local`` (slices of its own
+    block) when it wants a box that it holds."""
+
+    move: Optional[BoxPlan] = None
+    local: Optional[Tuple] = None
+
+    def __call__(self, x):
+        from flexflow_tpu_torch.parallel import collectives
+
+        y = None
+        if self.move is not None:
+            y = collectives.box_move(x, self.move)
+        if self.local is not None:
+            y = x[self.local].contiguous()
+        return y
+
+
+def plan_box_move(machine: MachineModel, src: Tuple, dst: Tuple,
+                  dtype) -> Optional[BoxEdge]:
+    """The move of a value held in boxes ``src`` (per position, None where
+    not held) to boxes ``dst``: each cell of a destination box is read
+    from the destination itself when it holds it, else from the first
+    position that does.  None when no destination wants anything another
+    rank holds and none wants a box it does not hold whole (a no-op);
+    the group is made here, on every rank in one order."""
+    n = machine.num_devices
+    holders = [b for b in src if b is not None]
+    reads: Dict[int, List] = {}
+    for q, box in enumerate(dst):
+        if box is None:
+            continue
+        cells = []
+        for cell in _cells(box, holders):
+            if src[q] is not None and _inside(cell, src[q]):
+                cells.append((q, cell))
+                continue
+            p = next((p for p in range(n) if src[p] is not None
+                      and _inside(cell, src[p])), None)
+            if p is None:
+                raise AssertionError(f"no position holds {cell} of {box}")
+            cells.append((p, cell))
+        reads[q] = cells
+    remote = [q for q, cells in reads.items()
+              if any(p != q for p, _ in cells)]
+    me = machine.position
+    local = None
+    if me in reads and me not in remote:
+        local = _rel(dst[me], src[me])
+    if not remote:
+        if all(dst[q] == src[q] for q in reads):
+            return None
+        return BoxEdge(local=local)
+    sources = sorted({p for q in remote for p, _ in reads[q]})
+    members = tuple(sorted(set(remote) | set(sources)))
+    group = machine.group_of(members)
+    if me not in members:
+        return BoxEdge(local=local)
+    pad = tuple(max(src[p][d][1] - src[p][d][0] for p in sources)
+                for d in range(len(dst[remote[0]])))
+    cells, out = [], None
+    if me in remote:
+        out = tuple(hi - lo for lo, hi in dst[me])
+        cells = [(members.index(p), _rel(cell, src[p]),
+                  _rel(cell, dst[me])) for p, cell in reads[me]]
+    return BoxEdge(
+        move=BoxPlan(group, src[me] if me in sources else None, pad, cells,
+                     out, dtype, machine.device),
+        local=local)
+
+
+# ---------------------------------------------------------------------------
 # the plan
 
 
@@ -420,11 +603,14 @@ class EdgePlan:
     """One consumer input's resharding: ``chain`` the layouts it passes
     through (ending at the destination; empty = no-op edge), ``hops`` the
     hop each step runs, ``share_key`` the (produced value, source,
-    destination) that consumers wanting the same layout share."""
+    destination) that consumers wanting the same layout share; an edge
+    with a placed end has ``box`` instead of hops."""
 
     chain: List
     hops: List[Hop] = dataclasses.field(default_factory=list)
     share_key: Optional[Tuple] = None
+    #: the move of an edge with a placed end (no hop chain)
+    box: Optional[BoxEdge] = None
 
 
 class RegridPlan:
@@ -439,12 +625,21 @@ class RegridPlan:
 
     def add_edge(self, op_name: str, input_idx: int, src, dst, shape,
                  itemsize: int = 4, costs: Optional[_MeshCosts] = None,
-                 tid: Optional[int] = None) -> None:
+                 tid: Optional[int] = None, dtype=None) -> None:
         key = (op_name, input_idx)
         if dst is None:
             return
         if src == dst:
             self.edges[key] = EdgePlan(chain=[])
+            return
+        if isinstance(src, Placed) or isinstance(dst, Placed):
+            dst_boxes = layout_boxes(self.machine, dst, shape)
+            edge = plan_box_move(self.machine,
+                                 layout_boxes(self.machine, src, shape),
+                                 dst_boxes, dtype)
+            self.edges[key] = EdgePlan(
+                chain=[] if edge is None else [dst],
+                box=edge, share_key=(tid, dst_boxes))
             return
         chain, _, _ = plan_hops(self.machine, src, dst, shape, itemsize,
                                 costs)
@@ -460,11 +655,13 @@ class RegridPlan:
         """Run the planned hops of one edge on ``x``; consumers sharing a
         (produced value, destination) reuse the first reshard."""
         ep = self.edges.get((op_name, input_idx))
-        if ep is None or not ep.hops:
+        if ep is None or not (ep.hops or ep.box):
             return x
         ck = ep.share_key
         if ck in cache:
             return cache[ck]
+        if ep.box is not None:
+            x = ep.box(x)
         for hop in ep.hops:
             x = hop(x)
         cache[ck] = x
@@ -476,10 +673,16 @@ def build_regrid_plan(model) -> RegridPlan:
     reshard edge once: model inputs arrive batch-split over the whole
     machine (the data loaders' convention), each op wants its inputs in
     its ``regrid_input_specs`` and leaves its outputs in its
-    ``output_specs`` (``flexflow_tpu/parallel/regrid.py:449``).  The loss
-    op's labels follow the batch split of its output (edge
+    ``output_specs`` (``flexflow_tpu/parallel/regrid.py:449``), on the
+    global mesh or, for an op placed on a device subset
+    (``model._grids[name].positions``), in the boxes of its points: a move
+    by box overlap, unless the producer's layout is global and the whole-
+    machine hop chain to the consumer's normalized layout delivers its
+    points' boxes (every rank then runs that chain).  The loss op's
+    labels follow the batch split of its output (edge
     ``(loss op, "labels")``).  A world of one rank holds every value
     whole: its plan is empty."""
+    from flexflow_tpu_torch.parallel.placement import placed
     from flexflow_tpu_torch.strategy import ParallelConfig
 
     machine = model.machine
@@ -492,27 +695,68 @@ def build_regrid_plan(model) -> RegridPlan:
     for t in model._inputs:
         layouts[t.tid] = machine.global_entries(dp, ("n",), ("n",),
                                                 rank=t.ndim)
+
+    grids = getattr(model, "_grids", None)
+
+    def positions_of(op):
+        if grids is not None:
+            return grids[op.name].positions
+        return placed(op, machine)
+
+    def layout(op, spec, t):
+        positions = positions_of(op)
+        if positions is not None:
+            return placed_layout(machine, op, positions, spec, t.shape)
+        return machine.global_entries(op.pc, op.AXIS_NAMES, spec,
+                                      rank=t.ndim)
+
+    def covered(src, dst, op, spec, t):
+        """The normalized layout of a placed consumer when the whole-
+        machine hop chain from ``src`` delivers each of its points' boxes
+        there (then every rank runs the chain, as JAX does)."""
+        if not isinstance(src, tuple) or not isinstance(dst, Placed):
+            return None
+        norm = machine.global_entries(op.pc, op.AXIS_NAMES, spec,
+                                      rank=t.ndim)
+        if norm is None:
+            return None
+        boxes = layout_boxes(machine, norm, t.shape)
+        if any(b is not None and b != boxes[p]
+               for p, b in enumerate(dst.boxes)):
+            return None
+        return norm
+
     for op in model.layers:
         want = op.regrid_input_specs()
         if want is not None:
             for j, (t, spec) in enumerate(zip(op.inputs, want)):
                 if spec is None:
                     continue
-                dst = machine.global_entries(op.pc, op.AXIS_NAMES, spec,
-                                             rank=t.ndim)
-                plan.add_edge(op.name, j, layouts.get(t.tid), dst, t.shape,
-                              _ITEMSIZE.get(t.dtype, 4), costs, t.tid)
+                src, dst = layouts.get(t.tid), layout(op, spec, t)
+                dst = covered(src, dst, op, spec, t) or dst
+                plan.add_edge(op.name, j, src, dst, t.shape,
+                              _ITEMSIZE.get(t.dtype, 4), costs, t.tid,
+                              _dtype_of(model, t))
         for t, spec in zip(op.all_outputs(), op.output_specs()):
             if spec is not None:
-                layouts[t.tid] = machine.global_entries(
-                    op.pc, op.AXIS_NAMES, spec, rank=t.ndim)
+                layouts[t.tid] = layout(op, spec, t)
         out = layouts.get(op.output.tid)
-        if getattr(op, "is_loss", False) and out is not None:
+        if getattr(op, "is_loss", False) and len(op.inputs) == 1 \
+                and isinstance(out, tuple):
             plan.add_edge(op.name, "labels",
                           machine.global_entries(dp, ("n",), ("n",),
                                                  rank=1),
                           out[:1], (model._inputs[0].shape[0],), 4, costs)
     return plan
+
+
+def _dtype_of(model, t):
+    """The torch dtype a value of graph tensor ``t`` has at run time: ids
+    and labels int32, float values in the compute dtype."""
+    from flexflow_tpu_torch.ops.base import torch_dtype
+
+    return torch_dtype("int32" if t.dtype == "int32"
+                       else model.config.compute_dtype)
 
 
 def plan_state_migration(*args, **kwargs):

@@ -307,8 +307,9 @@ def test_nmt_app_prints_the_metric_lines():
 
 
 def test_nmt_app_defaults_and_device():
-    cfg, device, warmup = t_nmt.parse_args([])
+    cfg, device, warmup, placement = t_nmt.parse_args([])
     assert (device, warmup) == ("cuda", 1)
+    assert placement == {"strategy": "", "stages": 0}
     assert cfg == TRnnConfig()
     assert (cfg.batch_size, cfg.num_layers, cfg.seq_length, cfg.hidden_size,
             cfg.embed_size, cfg.vocab_size, cfg.lstm_per_node_length,
@@ -329,7 +330,7 @@ def test_every_jax_nmt_flag_is_parsed_or_refused():
     assert len(flags) > 40
     ported = {"-b", "-l", "-s", "-h", "-e", "--vocab", "-i", "--iters",
               "--iterations", "--chunk", "--lr", "--dtype", "-param-dtype",
-              "--param-dtype", "--seed"}
+              "--param-dtype", "--seed", "--strategy", "--pipeline-stages"}
     assert ported <= flags
     default = t_nmt.parse_args([])
     for flag in sorted(flags):
@@ -340,7 +341,7 @@ def test_every_jax_nmt_flag_is_parsed_or_refused():
             assert flag in t_nmt.NMT_UNPORTED_FLAGS, flag
             with pytest.raises(NotImplementedError, match="not ported"):
                 t_nmt.parse_args([flag, "2"])
-    cfg, device, warmup = t_nmt.parse_args(
+    cfg, device, warmup, _ = t_nmt.parse_args(
         ["-s", "8", "-e", "32", "--device", "cpu", "--warmup", "2",
          "--no-such-flag"])
     assert (cfg.seq_length, cfg.embed_size, device, warmup) == \

@@ -6,10 +6,14 @@ and layouts, the regrid planner, the checks and the flags.
   ``global_entries``); a block of an unevenly split dim is ceil-sized, as
   XLA pads the short shard, and the blocks tile the tensor.
 * The regrid plans of ``examples/strategies/alexnet_2x4.json`` and
-  ``vgg_2x4.json`` equal the JAX planner's hop chains edge by edge.
-* The refusals: a device subset, an op without a ported grid, a grid
-  that does not factor over the world, ``-ll:gpu`` other than the world
-  size, ``--ckpt-dir`` over several ranks.
+  ``vgg_2x4.json`` equal the JAX planner's hop chains edge by edge, the
+  inputs of their placed linears included; the edges out of a placed op
+  are moves by box overlap instead.
+* A device subset is placed, its blocks only on its ranks; the refusals
+  that remain name their ROADMAP items: an op without a ported grid and
+  the LM driver's ``--strategy`` (3c), its pipeline flags (3d), a grid
+  that does not factor over the world and ``--ckpt-dir`` over several
+  ranks (3e); ``-ll:gpu`` other than the world size.
 * ``-s``/``--strategy`` and ``-ll:gpu`` parse; a strategy that names one
   permutation of the machine relabels it as the JAX model does.
 
@@ -150,13 +154,22 @@ def test_regrid_plans_equal_jax_edge_by_edge(machine8, name, j_build,
     tplan = regrid.build_regrid_plan(tm)
     ops = {op.name: op for op in tm.layers}
     assert len(jplan.edges) == len(ops)
-    hops = 0
+    hops = moves = 0
     for key, ep in jplan.edges.items():
-        rank = ops[key[0]].inputs[key[1]].ndim
-        want = _chain_entries(ep, rank)
+        t = ops[key[0]].inputs[key[1]]
+        if isinstance(tplan.layouts[t.tid], regrid.Placed):
+            # a placed producer's value lives on its ranks alone: the port
+            # moves it by box overlap where JAX reshards its replicas
+            assert tplan.edges[key].box is not None, key
+            moves += 1
+            continue
+        want = _chain_entries(ep, t.ndim)
         assert tplan.edges[key].chain == want, key
         hops += len(want)
     assert hops > 10
+    # vgg_2x4 places linear2 on (6, 7) and linear3 on (4,), alexnet_2x4
+    # linear3 on (6,): the edges out of them are moves
+    assert moves == {"alexnet_2x4": 1, "vgg_2x4": 2}[name]
     # the port plans one more edge: the loss op's labels
     assert set(tplan.edges) - set(jplan.edges) == {("softmax", "labels")}
 
@@ -230,21 +243,36 @@ def _tiny_cnn(machine, strategy=None, batch=8, **kw):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    # a device subset of several points: placement, 3b
+    # a device subset of several points runs placed (3b, done): only its
+    # ranks hold the op's blocks (the run: tests/test_torch_placement*.py)
     sub = Strategy()
     sub["linear1"] = ParallelConfig((2, 1), (4, 5))
-    with pytest.raises(NotImplementedError, match="Queue A 3b"):
-        _tiny_cnn(_port_machine(), sub).init()
-    # a one-point grid on one device is replicated over every rank
+    ff = _tiny_cnn(_port_machine(), sub)
+    full, _ = ff._init_full(0)
+    assert "linear1" not in ff.shard_params(full, 0)
+    kernel = ff.shard_params(full, 5)["linear1"]["kernel"]
+    assert torch.equal(kernel, full["linear1"]["kernel"][:, 5:])
+    # a one-point grid on one device runs on that rank alone
     one = Strategy()
     one["linear1"] = ParallelConfig((1, 1), (6,))
-    _tiny_cnn(_port_machine(), one)._setup_sharded()
-    # an op without a ported grid over several ranks: 3b-3d
+    ff = _tiny_cnn(_port_machine(), one)
+    full, _ = ff._init_full(0)
+    assert [p for p in range(8) if "linear1" in ff.shard_params(full, p)] \
+        == [6]
+    # an op without a ported grid over several ranks: 3c-3d
     lm = TransformerLM(TransformerConfig(
         batch_size=2, seq_length=8, num_layers=1, d_model=16, num_heads=2,
         d_ff=32, vocab_size=32), machine=_port_machine(2))
-    with pytest.raises(NotImplementedError, match="Queue A 3b-3d"):
+    with pytest.raises(NotImplementedError, match="Queue A 3c-3d"):
         lm.init()
+    # the LM driver's strategies (3c) and pipelines (3d)
+    from flexflow_tpu_torch.apps import lm as t_lm
+
+    with pytest.raises(NotImplementedError, match="Queue A 3c"):
+        t_lm.parse_args(["--strategy", "s.json"])
+    for flag in ("--pipeline-stages", "--microbatches", "--pipeline-tp"):
+        with pytest.raises(NotImplementedError, match="Queue A 3d"):
+            t_lm.parse_args([flag, "2"])
     # a grid that does not factor over the world's prime axes: 3e
     odd = Strategy()
     odd["linear1"] = ParallelConfig((2, 3), tuple(range(6)))

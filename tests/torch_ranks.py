@@ -83,8 +83,8 @@ def run_ranks(body, world: int, *args, timeout: float = 120.0):
 
 
 def build(machine, layers, cfg_kwargs, strategy_json=None):
-    """A port FFModel on ``machine`` with ``layers(ff, image)`` (a function
-    of ``tests/torch_ranks_models.py``'s kind, named by string)."""
+    """A port FFModel on ``machine`` with ``layers(ff, image)`` (one of
+    :data:`MODELS`, named by string)."""
     from flexflow_tpu_torch.config import FFConfig
     from flexflow_tpu_torch.model import FFModel
     from flexflow_tpu_torch.strategy import Strategy
@@ -94,7 +94,8 @@ def build(machine, layers, cfg_kwargs, strategy_json=None):
         cfg.strategies = Strategy.from_json(strategy_json)
     ff = FFModel(cfg, machine)
     image = ff.create_input((cfg.batch_size, cfg.input_height,
-                             cfg.input_width, 3), name="image")
+                             cfg.input_width, CHANNELS.get(layers, 3)),
+                            name="image")
     MODELS[layers](ff, image)
     return ff
 
@@ -149,35 +150,45 @@ def train(machine, layers, cfg_kwargs, strategy_json, trees_path, batches,
             _blocks(ff.state_boxes(), s))
 
 
+def run_cases(machine, cases):
+    """Several bodies of this module in one world: each case is
+    ``(body name, args)``; a list of their results in case order."""
+    return [globals()[name](machine, *args) for name, args in cases]
+
+
 def _blocks(boxes, tree):
     return {key: {leaf: (boxes[key][leaf], v.float().numpy())
                   for leaf, v in sub.items()} for key, sub in tree.items()}
 
 
-def app_main(machine, argv):
-    """``apps.cnn.main(argv)`` as one rank of a torchrun world (the
-    environment torchrun would set, the process group already made)."""
+def app_main(machine, argv, app="cnn"):
+    """``apps.<app>.main(argv)`` (``cnn`` or ``nmt``) as one rank of a
+    torchrun world (the environment torchrun would set, the process group
+    already made)."""
+    import importlib
     import os
-
-    from flexflow_tpu_torch.apps import cnn
 
     os.environ.update(RANK=str(machine.rank),
                       WORLD_SIZE=str(machine.num_devices),
                       LOCAL_RANK=str(machine.rank))
-    out = cnn.main(argv, log=lambda *a: None)
+    main = importlib.import_module(f"flexflow_tpu_torch.apps.{app}").main
+    out = main(argv, log=lambda *a: None)
     return out if out is None else out["loss"]
 
 
 def assemble(full_shapes, rank_blocks):
     """Full numpy leaves from every rank's (box, block) pairs: every
     element must be written by some rank, and the ranks that hold one
-    block must hold the same bits."""
+    block must hold the same bits (a rank that runs no op of a key holds
+    none of it)."""
     out = {}
     for key, leaves in full_shapes.items():
         out[key] = {}
         for leaf, shape in leaves.items():
             a = np.full(shape, np.nan, np.float32)
             for blocks in rank_blocks:
+                if key not in blocks:
+                    continue
                 box, v = blocks[key][leaf]
                 sl = tuple(slice(lo, hi) for lo, hi in box)
                 held = ~np.isnan(a[sl])
@@ -233,27 +244,31 @@ def jax_train(layers, cfg_kwargs, strategy_json, devices, batches):
         cfg.strategies = Strategy.from_json(strategy_json)
     ff = FFModel(cfg, MachineModel(devices))
     image = ff.create_input((cfg.batch_size, cfg.input_height,
-                             cfg.input_width, 3), name="image")
+                             cfg.input_width, CHANNELS.get(layers, 3)),
+                            name="image")
     MODELS[layers](ff, image)
     params, state = ff.init(0)
-
-    def logical(tree):
-        tree = jax.tree.map(np.asarray, tree)
-        for key, reg in getattr(ff, "_block_params", {}).items():
-            row = reg["slot"] if reg.get("family") == "block" \
-                else reg["row"][0]
-            tree[key] = {leaf: v[row] for leaf, v in tree[key].items()}
-        return tree
-
-    full, full_state = logical(params), jax.tree.map(np.asarray, state)
+    full, full_state = jax_logical(ff, params, state)
     opt = ff.init_opt_state(params)
     step = ff.make_train_step()
     losses = []
     for image, labels in batches:
         params, state, opt, loss = step(params, state, opt, image, labels)
         losses.append(float(loss))
-    return (full, full_state, losses, logical(params),
-            jax.tree.map(np.asarray, state))
+    return (full, full_state, losses) + jax_logical(ff, params, state)
+
+
+def jax_logical(ff, params, state):
+    """The JAX model's param and state trees as each op's code sees them,
+    numpy: a key it stores block-resident (stacked per block or per
+    device, ``FFModel._block_params``) reassembled by its member view."""
+    import jax
+
+    by_key = {op.param_key: op for op in ff.layers}
+    by_name = {op.name: op for op in ff.layers}
+    p = {key: ff._member_params(params, by_key[key]) for key in params}
+    s = {name: ff._member_state(state, by_name[name]) for name in state}
+    return jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, s)
 
 
 #: losses against the JAX run and the port's one-rank run
@@ -278,14 +293,31 @@ def check_strategy(tmp_path, layers, cfg_kwargs, strategy_json, ranks,
     the JAX package's ``ranks`` virtual devices from one parameter tree;
     hold the losses, the final params and the final state against JAX's
     and against the port's run in one process; returns the losses."""
+    case, want = jax_case(tmp_path, layers, cfg_kwargs, strategy_json,
+                          ranks, batches, all_to_all)
+    res = run_ranks(train, ranks, *case, timeout=timeout)
+    return check_case(case, want, res)
+
+
+def jax_case(tmp_path, layers, cfg_kwargs, strategy_json, ranks, batches,
+             all_to_all=True, tag="trees"):
+    """The JAX run of one case and the arguments of its port run:
+    ``(case, (j_losses, j_params, j_state))``."""
     import jax
 
     full, state, j_losses, j_params, j_state = jax_train(
         layers, cfg_kwargs, strategy_json, jax.devices()[:ranks], batches)
-    path = str(tmp_path / "trees.npz")
+    path = str(tmp_path / f"{tag}.npz")
     save_trees(path, full, state)
-    res = run_ranks(train, ranks, layers, cfg_kwargs, strategy_json, path,
-                    batches, all_to_all, timeout=timeout)
+    return ((layers, cfg_kwargs, strategy_json, path, batches, all_to_all),
+            (j_losses, j_params, j_state))
+
+
+def check_case(case, want, res, one_rank=True):
+    """Hold one case's rank results against the JAX run and, with
+    ``one_rank``, the port's run in one process; returns the losses."""
+    layers, cfg_kwargs, strategy_json, path, batches, _ = case
+    j_losses, j_params, j_state = want
     losses = res[0][0]
     # the loss (and the eval step's loss and accuracy) is the global
     # batch's on every rank
@@ -300,11 +332,23 @@ def check_strategy(tmp_path, layers, cfg_kwargs, strategy_json, ranks,
         got = assemble({k: {leaf: v.shape for leaf, v in d.items()}
                         for k, d in j_state.items()}, [r[2] for r in res])
         close_trees(got, j_state, "state vs JAX")
-    one_losses, one_params = local_train(layers, cfg_kwargs, path, batches)
-    np.testing.assert_allclose(losses, one_losses, rtol=LOSS_RTOL,
-                               atol=LOSS_ATOL)
-    close_trees(params, one_params, "params vs one rank")
+    if one_rank:
+        one_losses, one_params = local_train(layers, cfg_kwargs, path,
+                                             batches)
+        np.testing.assert_allclose(losses, one_losses, rtol=LOSS_RTOL,
+                                   atol=LOSS_ATOL)
+        close_trees(params, one_params, "params vs one rank")
     return losses[:-2]
+
+
+def holders(res, kind=1):
+    """``{key: (rank, ...)}``: the ranks whose final tree (``kind`` 1:
+    params, 2: state) holds each key."""
+    out = {}
+    for rank, r in enumerate(res):
+        for key in r[kind]:
+            out.setdefault(key, []).append(rank)
+    return {key: tuple(v) for key, v in out.items()}
 
 
 def random_batches(steps, batch, size, classes, seed=13):
@@ -321,6 +365,91 @@ def strategy_json(grids, ranks) -> str:
     return json.dumps({name: {"dims": list(dims),
                               "devices": list(range(ranks))}
                        for name, dims in grids.items()})
+
+
+# ---------------------------------------------------------------------------
+# the NMT trainer
+
+
+def nmt_model(machine, cfg_kwargs, strategy_json):
+    """The port's RnnModel on ``machine``: its default strategy unless
+    ``strategy_json`` gives one."""
+    from flexflow_tpu_torch.nmt.rnn_model import RnnConfig, RnnModel
+    from flexflow_tpu_torch.strategy import Strategy
+
+    strategies = Strategy.from_json(strategy_json) if strategy_json \
+        else None
+    return RnnModel(RnnConfig(**cfg_kwargs), machine, strategies)
+
+
+def nmt_train(machine, cfg_kwargs, strategy_json, trees_path, batches):
+    """SGD steps of the NMT from the full params in ``trees_path`` on the
+    global (src, dst) ``batches``: ``(losses, params, {})``, the params as
+    :func:`train` returns them."""
+    import torch
+
+    from flexflow_tpu_torch.interop import params_from_jax, shard_params
+
+    model = nmt_model(machine, cfg_kwargs, strategy_json)
+    params, _ = load_trees(trees_path)
+    p = shard_params(params_from_jax(params, "cpu", model=model), model)
+    opt = model.init_opt_state(p)
+    step = model.make_train_step()
+    losses = []
+    for src, dst in batches:
+        s, d = model.local_batch(torch.from_numpy(src), torch.from_numpy(dst))
+        p, _, opt, loss = step(p, {}, opt, s, d)
+        losses.append(float(loss))
+    return losses, _blocks(model.param_boxes(), p), {}
+
+
+def jax_nmt(cfg_kwargs, strategy_json, devices, batches):
+    """The reference NMT run on ``devices`` of the JAX virtual mesh:
+    ``(params, losses, final params)`` as numpy trees (member views)."""
+    from flexflow_tpu.machine import MachineModel
+    from flexflow_tpu.nmt.rnn_model import RnnConfig, RnnModel
+    from flexflow_tpu.strategy import Strategy
+
+    strategies = Strategy.from_json(strategy_json) if strategy_json \
+        else None
+    model = RnnModel(RnnConfig(**cfg_kwargs), MachineModel(devices),
+                     strategies)
+    params, state = model.init(seed=0)
+    full, _ = jax_logical(model, params, state)
+    step = model.make_train_step()
+    losses = []
+    for src, dst in batches:
+        params, state, _, loss = step(params, state, None, src, dst)
+        losses.append(float(loss))
+    return full, losses, jax_logical(model, params, state)[0]
+
+
+def nmt_local(cfg_kwargs, trees_path, batches):
+    """The port's NMT in this process on one device, no process group:
+    ``(losses, final params)``."""
+    import torch
+
+    from flexflow_tpu_torch.interop import params_from_jax
+    from flexflow_tpu_torch.machine import MachineModel
+
+    model = nmt_model(MachineModel("cpu"), cfg_kwargs, None)
+    params, _ = load_trees(trees_path)
+    p = params_from_jax(params, "cpu", model=model)
+    opt = model.init_opt_state(p)
+    step = model.make_train_step()
+    losses = []
+    for src, dst in batches:
+        p, _, opt, loss = step(p, {}, opt, torch.from_numpy(src),
+                               torch.from_numpy(dst))
+        losses.append(float(loss))
+    return losses, {key: {leaf: v.numpy() for leaf, v in sub.items()}
+                    for key, sub in p.items()}
+
+
+def token_batches(steps, batch, seq, vocab, seed=5):
+    rng = np.random.RandomState(seed)
+    return [tuple(rng.randint(0, vocab, (batch, seq)).astype("int32")
+                  for _ in range(2)) for _ in range(steps)]
 
 
 # ---------------------------------------------------------------------------
@@ -382,5 +511,32 @@ def resnet_style(ff, image):
     return ff.softmax("softmax", t)
 
 
+def vgg16(ff, image):
+    from flexflow_tpu_torch.models.vgg import add_vgg16_layers
+
+    return add_vgg16_layers(ff, image)
+
+
+def placed_bn(ff, image):
+    """tests/test_placement.py's placed-BatchNorm net (8 input channels)."""
+    t = ff.conv2d("conv1", image, 16, 3, 3, 1, 1, 1, 1, relu=False)
+    t = ff.batch_norm("bn1", t, relu=True)
+    t = ff.flat("flat", t)
+    return ff.softmax("softmax", ff.linear("fc1", t, 32, relu=False))
+
+
+def set_family(ff, image):
+    """tests/test_set_family.py's spatial conv and max pool (8 input
+    channels), one net."""
+    t = ff.conv2d("conv1", image, 16, 3, 3, 1, 1, 1, 1, relu=True)
+    t = ff.pool2d("pool1", t, 3, 3, 1, 1, 1, 1)
+    t = ff.flat("flat", t)
+    return ff.softmax("softmax", ff.linear("fc1", t, 64, relu=False))
+
+
 MODELS = {"tiny": tiny, "alexnet": alexnet, "vgg_style": vgg_style,
-          "resnet_style": resnet_style}
+          "resnet_style": resnet_style, "vgg16": vgg16,
+          "placed_bn": placed_bn, "set_family": set_family}
+
+#: input channels of the models that do not take RGB images
+CHANNELS = {"placed_bn": 8, "set_family": 8}
