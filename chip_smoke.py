@@ -5,8 +5,10 @@ full width through its entry point — the GPT served by ``apps.serve``,
 the GPT and its mixture-of-experts form trained by ``apps.lm``,
 Inception-v3, DenseNet-121, ResNet-101 and VGG-16 trained by
 ``apps.cnn``, the NMT seq2seq model trained by ``apps.nmt``, AlexNet
-trained by ``torchrun ... apps.cnn`` under a strategy file, and the NMT
-and AlexNet with ops placed on device subsets through ``torchrun`` — and
+trained by ``torchrun ... apps.cnn`` under a strategy file, the NMT
+and AlexNet with ops placed on device subsets through ``torchrun``, and
+the GPT trained by ``torchrun ... apps.lm`` under per-op strategies
+(ring and head-parallel attention, the fused vocab-parallel head) — and
 checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU; on four,
@@ -16,7 +18,9 @@ checks that each path ran through its kernels.
                                        # step of each trained model
 
 (Phase 17 starts the script again, as two torchrun workers, with
-``--gloo-cuda-probe``: its probe of gloo on CUDA tensors.)
+``--gloo-cuda-probe``, then with ``--gloo-p2p-probe``: its probes of
+gloo on CUDA tensors, the point-to-point one in processes of its own,
+since gloo may abort a process whose send of a CUDA tensor fails.)
 
 Phases (any failure exits non-zero):
 
@@ -56,6 +60,18 @@ Phases (any failure exits non-zero):
    the plain versions' and the unfused library pair's (``x @ w + b``,
    then ``F.cross_entropy``, forward and backward), and at the NMT
    head's the ratio of the two: where the fused head's crossover lies;
+5b. partial forms phase (ring attention's and the vocab-parallel head's
+   step): ``flash_attention_partial`` (kernel 1's (o, lse); kernels 2-3
+   with the lse cotangent folded into delta) at a rank's ring chunk (16,
+   12, 256, 64) against a 256-key chunk, non-causal and causal, and
+   ``fused_linear_ce_partial`` (kernels 4-6, 5-6 taking two cotangent
+   rows gp and goh) at a rank's vocab slice (N 8192, d 768, V_local
+   16384, labels inside, below and above the slice and -1), each
+   through its autograd function against the plain versions; then their
+   times beside the plain versions', the efficient-attention call that
+   also returns the lse (kernel 1; no library call takes the lse
+   cotangent) and ``addmm`` + ``logsumexp`` + the label gather with its
+   autograd (kernels 4-6);
 6. pool kernel phase: the max-pool forward and backward (kernel 7) at
    Inception's four max-pool geometries at N = 256, DenseNet's and
    ResNet-101's pool1 (64 x 112 x 112 x 64, pad 1) and VGG-16's five
@@ -186,17 +202,37 @@ Phases (any failure exits non-zero):
     l), and AlexNet (batch 64, 224x224) with linear2 and linear3 on rank 1
     alone and the rest data parallel (3 + 3 pool launches a step); each
     rank's param keys are logged (residency);
+18b. LM strategy slice (ROADMAP Queue A 3c): ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1 -m
+    flexflow_tpu_torch.apps.lm`` at phase 9's widths and steps with
+    ``--strategy`` a one-device file this phase writes (NCCL): phase 9's
+    launches, the first 3 losses within 1e-4 (relative) of phase 9's
+    run; tokens/s, step ms and peak memory; then two gloo ranks on
+    cuda:0, 1 warm-up and 3 steps, under a strategy that puts every new
+    mechanism on the path: ring attention (s = 2) in the even blocks,
+    the heads split in the odd ones, ``ff1`` (2, 1), ``ff2`` (1, 2), the
+    norms and residuals alternately (2, 1) and (1, 2), ``embed`` on rank
+    1 alone and ``lm_head`` (2, 1), the fused vocab-parallel head (gloo
+    carries no point-to-point for CUDA tensors, phase 17's probe, so the
+    ring's rotations all-gather); the first 3 losses within 1e-4 of the
+    one-rank run, rank 0's launches of kernels 1-6 and their partial
+    forms counted, each rank's param keys logged;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
     placement slice's three runs over four ranks (kernels 4-6 on 160
     rows), each held as the two-rank runs are, with sentences/s and
-    images/s beside the one-card runs; one card runs without this phase;
+    images/s beside the one-card runs; then the LM under phase 18b's
+    strategy over four ranks (ring x data parallel attention, the heads
+    split four ways, the head (4, 1)), its tokens/s beside the one-card
+    run; one card runs without this phase;
 20. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
     share of each step, from the profiler's kernel rows and, without the
     profiler, from the step's time held behind a sleep kernel;
-21. a ``kernels`` JSON line, then, last, the ``ok`` JSON line.
+21. a ``kernels`` JSON line (the partial forms of kernels 1-6 under
+    ``<name>.partial``, with rank 0's launches in phase 18b's two-rank
+    run), then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -839,43 +875,80 @@ def fused_ce_phase(torch, ce) -> dict:
     return {"worst": worst, "timings": timings["lm"]}
 
 
-def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype) -> dict:
+def _ce_partial_inputs(torch, gen, n, d, v):
+    """The vocab-parallel head's operands on rank 0 of two, float32: x,
+    w, b of its V_local = ``v`` columns, labels drawn over both slices
+    (every 512th -1, the causal shift's last position), so that about
+    half lie above the slice, and the two cotangent rows: goh = g_nll =
+    1/N, gp = g_nll + g_lse with g_lse = g_nll (exp(lse_c - lse) - 1),
+    the combine's own form."""
+    x, w, b, _, g = _ce_inputs(torch, gen, n, d, v, "float32")
+    lab = torch.randint(0, 2 * v, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lab[511::512] = -1
+    share = torch.rand((n,), generator=gen, device="cuda")
+    return x, w, b, lab, g * share, g
+
+
+def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype,
+                    partial: bool = False) -> dict:
     """Kernels 4 (with its combine), 5 (with its finishing sum) and 6 at
     one shape: times, plain and library times, bounds and achieved
-    TFLOP/s."""
-    x, w, b, lab, g = _ce_inputs(torch, gen, n, d, v, dtype)
+    TFLOP/s.  With ``partial``, the vocab-slice form at V_local = ``v``
+    (float32): kernels 5-6 take gp and goh (``_ce_partial_inputs``), and
+    the library calls are ``addmm`` + ``logsumexp`` + the label gather,
+    and their autograd under both cotangents."""
+    if partial:
+        x, w, b, lab, gp, goh = _ce_partial_inputs(torch, gen, n, d, v)
+    else:
+        x, w, b, lab, gp = _ce_inputs(torch, gen, n, d, v, dtype)
+        goh = gp
     fwd_work = ce.fused_linear_ce_fwd_partial_cuda(x, w, b, lab)
     nll, lse = ce.fused_linear_ce_fwd_combine_cuda(fwd_work)
-    work = ce.fused_linear_ce_bwd_dx_partial_cuda(x, w, b, lab, lse, g)
+    work = ce.fused_linear_ce_bwd_dx_partial_cuda(x, w, b, lab, lse, gp,
+                                                  goh)
     fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_partial_cuda(
         x, w, b, lab), iters=5, warmup=1)
     combine_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_combine_cuda(
         fwd_work), iters=20)
     dx_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_partial_cuda(
-        x, w, b, lab, lse, g), iters=5, warmup=1)
+        x, w, b, lab, lse, gp, goh), iters=5, warmup=1)
     sum_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dx_sum_cuda(
         work, n, d), iters=20)
     dw_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_dw_cuda(
-        x, w, b, lab, lse, g), iters=5, warmup=1)
+        x, w, b, lab, lse, gp, goh), iters=5, warmup=1)
     plain_fwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_fwd_plain(
         x, w, b, lab), iters=5, warmup=1)
     plain_bwd_ms = _time_ms(torch, lambda: ce.fused_linear_ce_bwd_plain(
-        x, w, b, lab, lse, g), iters=5, warmup=1)
+        x, w, b, lab, lse, gp, goh), iters=5, warmup=1)
     lab64 = lab.long()
+    hit = (lab64 >= 0) & (lab64 < v)
+    safe = torch.where(hit, lab64, 0)[:, None]
 
     def lib_fwd(xs, ws, bs):
-        return F.cross_entropy(torch.addmm(bs.to(xs.dtype), xs, ws), lab64,
-                               ignore_index=-1, reduction="none")
+        logits = torch.addmm(bs.to(xs.dtype), xs, ws)
+        if not partial:
+            return F.cross_entropy(logits, lab64, ignore_index=-1,
+                                   reduction="none")
+        lse = torch.logsumexp(logits, dim=1)
+        corr = logits.gather(1, safe)[:, 0]
+        return lse - torch.where(hit, corr, 0.0), lse
 
     lib_fwd_ms = _time_ms(torch, lambda: lib_fwd(x, w, b), iters=5,
                           warmup=1)
     xs, ws, bs = (t.detach().clone().requires_grad_() for t in (x, w, b))
-    lib_nll = lib_fwd(xs, ws, bs)
+    lib_out = lib_fwd(xs, ws, bs)
+    if partial:
+        # nll's cotangent goh, lse's gp - goh: t = gp softmax - goh onehot
+        lib_outs, lib_gs = lib_out, (goh, gp - goh)
+    else:
+        lib_outs, lib_gs = (lib_out,), (gp.to(lib_out.dtype),)
     lib_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
-        lib_nll, (xs, ws, bs), g.to(lib_nll.dtype), retain_graph=True),
+        lib_outs, (xs, ws, bs), lib_gs, retain_graph=True),
         iters=5, warmup=1)
     esize = x.element_size()
     inputs = n * d * esize + d * v * esize + v * 4 + n * 4
+    rows = (3 if partial else 2) * n * 4    # lse and the cotangent rows
     flops = 2.0 * n * d * v
     # float32 products of kernels 4-6 run as three TF32 products each
     mma_rate = "3xtf32" if dtype == "float32" else dtype
@@ -887,13 +960,13 @@ def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype) -> dict:
              fwd_work.numel() * 4 + 2 * n * 4, "float32", plain_fwd_ms,
              lib_fwd_ms),
             (ce.NAME_DX, dx_ms, 2 * flops,
-             inputs + 2 * n * 4 + work.numel() * 4, mma_rate, plain_bwd_ms,
+             inputs + rows + work.numel() * 4, mma_rate, plain_bwd_ms,
              lib_bwd_ms),
             (ce.NAME_DX_SUM, sum_ms, (work.shape[0] - 1.0) * n * d,
              work.numel() * 4 + n * d * 4, "float32", plain_bwd_ms,
              lib_bwd_ms),
             (ce.NAME_DW, dw_ms, 2 * flops,
-             inputs + 2 * n * 4 + d * v * 4 + v * 4, mma_rate, plain_bwd_ms,
+             inputs + rows + d * v * 4 + v * 4, mma_rate, plain_bwd_ms,
              lib_bwd_ms)):
         bound_ms, bound_by = _bound(fl, nbytes, rate)
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -904,6 +977,161 @@ def _fused_ce_times(torch, F, ce, gen, n, d, v, dtype) -> dict:
          f"{tuple(fwd_work.shape)}; dx over {work.shape[0]} vocab slices, "
          f"workspace {tuple(work.shape)}")
     return out
+
+
+# the partial forms of kernels 1-6 (ROADMAP Queue A 3c) at the shapes a
+# rank of the LM phase's two-rank strategy gives them: one ring chunk of
+# the attention (512 positions over 2 ranks) and one vocab slice of the
+# head (32768 over 2 ranks)
+RING_CHUNK = (16, 12, 256, 64)
+CE_PARTIAL = (16 * 512, 768, 16384)
+
+
+def _chunk_bwd_bounds(shape, sk, causal) -> dict:
+    """(bound_ms, bound_by) of kernels 2 (8 d FLOPs per visible pair) and
+    3 (6 d) on one float32 (B, H, Sq, d) x (B, H, Sk, d) call, at the
+    3xTF32 rate."""
+    b, h, sq, d = shape
+    pairs = b * h * (sum(min(i + 1, sk) for i in range(sq)) if causal
+                     else sq * sk)
+    q_io, kv_io, rows = b * h * sq * d * 4, b * h * sk * d * 4, b * h * sq * 4
+    ins = 2 * q_io + 2 * kv_io + 2 * rows       # q, do, k, v, lse, delta
+    return {"dkv": _bound(8.0 * d * pairs, ins + 2 * kv_io, "3xtf32"),
+            "dq": _bound(6.0 * d * pairs, ins + q_io, "3xtf32")}
+
+
+def partial_phase(torch, fa, ce) -> dict:
+    """The partial forms: ``flash_attention_partial`` (kernel 1's (o,
+    lse), kernels 2-3 with the lse cotangent folded into delta) at a ring
+    chunk, non-causal (a chunk before the queries') and causal (the
+    diagonal), and ``fused_linear_ce_partial`` (kernels 4-6, 5-6 with two
+    cotangent rows) at a vocab slice, each through its autograd function
+    against the plain versions; then their times."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    worst = {}
+    for causal in (False, True):
+        label = f"ring chunk {RING_CHUNK} x {RING_CHUNK[2]} keys " \
+            f"{'causal' if causal else 'non-causal'} float32"
+        q, k, vv = (torch.randn(RING_CHUNK, generator=gen, device="cuda")
+                    .requires_grad_() for _ in range(3))
+        o, lse = fa.flash_attention_partial(q, k, vv, causal)
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+        grads = torch.autograd.grad((o, lse), (q, k, vv), (do, g_lse))
+        o, lse = o.detach(), lse.detach()
+        torch.cuda.synchronize()
+        qd, kd, vd = (t.detach() for t in (q, k, vv))
+        o_p, lse_p = fa.flash_attention_fwd_plain(qd, kd, vd, causal)
+        grads_p = fa.flash_attention_bwd_plain(qd, kd, vd, o_p, lse_p, do,
+                                               causal, g_lse=g_lse)
+        torch.cuda.synchronize()
+        fwd_err = max(_max_err(torch, o, o_p), _max_err(torch, lse, lse_p))
+        errs = {n: _rel_err(torch, g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), grads, grads_p)}
+        _log(f"partial check {label}: o, lse max_abs_err {fwd_err:.3e} "
+             f"(tolerance {KERNEL_ATOL:g}); g_lse nonzero: " + ", ".join(
+                 f"{n} max_abs_err {e:.3e} ({r:.2e} of max)"
+                 for n, (e, r) in errs.items())
+             + f" (tolerance {GRAD_RTOL['float32']:g} of max)")
+        if not (fwd_err <= KERNEL_ATOL and all(
+                r <= GRAD_RTOL["float32"] for _, r in errs.values())):
+            raise AssertionError(f"{label}: the partial form's kernels "
+                                 f"disagree with the plain versions")
+        for name, err in ((fa.NAME, fwd_err), (fa.NAME_DKV, max(
+                errs["dk"][0], errs["dv"][0])), (fa.NAME_DQ, errs["dq"][0])):
+            worst[name] = max(worst.get(name, 0.0), err)
+        del q, k, vv, o, lse, grads, o_p, lse_p, grads_p
+
+    n, d, v = CE_PARTIAL
+    x, w, b, lab, gp, goh = _ce_partial_inputs(torch, gen, n, d, v)
+    ts = [t.clone().requires_grad_() for t in (x, w, b)]
+    nll, lse = ce.fused_linear_ce_partial(*ts, lab)
+    grads = torch.autograd.grad((nll, lse), ts, (goh, gp - goh))
+    nll, lse = nll.detach(), lse.detach()
+    torch.cuda.synchronize()
+    nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
+    grads_p = ce.fused_linear_ce_bwd_plain(x, w, b, lab, lse_p, gp, goh)
+    torch.cuda.synchronize()
+    errs = {"nll": _rel_err(torch, nll, nll_p),
+            "lse": _rel_err(torch, lse, lse_p)}
+    errs.update({k: _rel_err(torch, a, c) for k, a, c in
+                 zip(("dx", "dw", "db"), grads, grads_p)})
+    out_of_slice = int(((lab < 0) | (lab >= v)).sum())
+    _log(f"partial check vocab slice N {n}, d {d}, V_local {v} float32 "
+         f"({out_of_slice} labels outside the slice, "
+         f"{int((lab == -1).sum())} of them -1; gp != goh): " + ", ".join(
+             f"{k} max_abs_err {e:.3e} ({r:.2e} of max)"
+             for k, (e, r) in errs.items())
+         + f" (tolerance {GRAD_RTOL['float32']:g} of max)")
+    if not all(r <= GRAD_RTOL["float32"] for _, r in errs.values()):
+        raise AssertionError(f"vocab slice: the partial form's kernels "
+                             f"disagree with the plain versions: {errs}")
+    for name in (ce.NAME_FWD, ce.NAME_FWD_COMBINE):
+        worst[name] = max(errs["nll"][0], errs["lse"][0])
+    for name in (ce.NAME_DX, ce.NAME_DX_SUM):
+        worst[name] = errs["dx"][0]
+    worst[ce.NAME_DW] = max(errs["dw"][0], errs["db"][0])
+    del x, w, b, ts, nll, lse, grads, nll_p, lse_p, grads_p
+    torch.cuda.empty_cache()
+
+    # times: kernel 1 and kernels 2-3 (delta less g_lse) at the chunk,
+    # both masks; the library forward is the efficient-attention call
+    # that returns the lse too; no library call takes the lse cotangent
+    timings = {}
+    for causal in (False, True):
+        q, k, vv = (torch.randn(RING_CHUNK, generator=gen, device="cuda")
+                   for _ in range(3))
+        o, lse = fa.flash_attention_fwd_cuda(q, k, vv, causal)
+        do = torch.randn(o.shape, generator=gen, device="cuda")
+        g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+        delta = (do * o).sum(-1) - g_lse
+        ms = _time_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, vv,
+                                                                 causal))
+        plain_ms = _time_ms(torch, lambda: fa.flash_attention_fwd_plain(
+            q, k, vv, causal), iters=20)
+        lib_ms = _time_ms(torch, lambda: torch.ops.aten
+                          ._scaled_dot_product_efficient_attention(
+                              q, k, vv, None, True, 0.0, causal))
+        bound_ms, bound_by = _bound_ms(RING_CHUNK, RING_CHUNK[2], causal,
+                                       "float32")
+        t = {fa.NAME: dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)}
+        dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, vv, do, lse, delta, causal), iters=20)
+        dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, vv, do, lse, delta, causal), iters=20)
+        plain_bwd_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, vv, o, lse, do, causal, g_lse=g_lse), iters=10)
+        bounds = _chunk_bwd_bounds(RING_CHUNK, RING_CHUNK[2], causal)
+        for name, key, kms in ((fa.NAME_DKV, "dkv", dkv_ms),
+                               (fa.NAME_DQ, "dq", dq_ms)):
+            t[name] = dict(ms=kms, plain_ms=plain_bwd_ms, library_ms=None,
+                           bound_ms=bounds[key][0], bound_by=bounds[key][1])
+        mask = "causal" if causal else "non-causal"
+        for name, r in t.items():
+            lib = "none" if r["library_ms"] is None \
+                else f"{r['library_ms']:.4f} ms"
+            _log(f"partial time {name} ring chunk {RING_CHUNK} {mask} "
+                 f"float32: kernel {r['ms']:.4f} ms, plain "
+                 f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                 f"{r['bound_ms'] / r['ms']:.1%} of it)")
+        if not causal:
+            timings.update(t)
+        del q, k, vv, o, lse, do, g_lse, delta
+    t = _fused_ce_times(torch, F, ce, gen, n, d, v, "float32", partial=True)
+    for name, r in t.items():
+        _log(f"partial time {name} vocab slice N {n} d {d} V_local {v} "
+             f"float32: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} "
+             f"TFLOP/s), plain {r['plain_ms']:.4f} ms, library "
+             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+             f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it)")
+    timings.update(t)
+    torch.cuda.empty_cache()
+    return {"worst": worst, "timings": timings}
 
 
 def _first_step_tokens(requests, max_batch, max_len):
@@ -1513,7 +1741,7 @@ def lm_phase(torch, kernels, card: str, widths=(12, 768, 12, 3072),
         raise AssertionError(f"{tag} losses differ from the plain-kernel run "
                              f"by {rel}")
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
-            "tokens_per_sec": tokens_per_sec}
+            "tokens_per_sec": tokens_per_sec, "loss": losses}
 
 
 def _kernel_kind(key: str) -> str:
@@ -2201,7 +2429,7 @@ def moe_phase(torch, kernels, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
-            "tokens_per_sec": tokens_per_sec}
+            "tokens_per_sec": tokens_per_sec, "loss": losses}
 
 
 def nmt_profile_phase(torch) -> None:
@@ -2333,9 +2561,13 @@ FOUR_RANK_SPLITS = {"conv2": [1, 1, 2, 2], "pool2": [1, 1, 2, 2],
                     "conv3": [2, 1, 1, 2], "conv4": [2, 1, 1, 2],
                     "conv5": [2, 1, 1, 2], "lienar1": [4, 1],
                     "linear2": [4, 1], "linear3": [2, 2]}
-# the collectives the two-rank strategy's regrids and gradients use
+# the collectives the two-rank strategy's regrids and gradients use; the
+# LM's fused vocab-parallel head also takes an all-reduce max.  A ring
+# rotation is a point-to-point exchange where the backend carries one:
+# gloo's send of a CUDA tensor fails in its transport thread, which may
+# abort the process, so send_recv is probed in processes of its own
 GLOO_CUDA_COLLECTIVES = ("all_gather", "reduce_scatter", "all_to_all",
-                         "all_reduce")
+                         "all_reduce", "all_reduce_max", "send_recv")
 GLOO_CUDA_NEEDED = ("all_gather", "reduce_scatter", "all_reduce")
 
 
@@ -2346,9 +2578,11 @@ def _alexnet_argv(extra, warmup: int = STRATEGY_WARMUP,
             str(warmup), "-p", "0"] + list(extra)
 
 
-def _torchrun(nproc: int, args, timeout: float = 600) -> str:
+def _torchrun(nproc: int, args, timeout: float = 600,
+              check: bool = True):
     """Run ``args`` (a module and its argv) under torchrun with ``nproc``
-    processes on this host; its stdout, raising on failure."""
+    processes on this host; its stdout, raising on failure; without
+    ``check``, ``(returncode, stdout, stderr)`` whatever the outcome."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc)] + list(args)
     # a session of its own, so that a run past its time is stopped with
@@ -2364,15 +2598,18 @@ def _torchrun(nproc: int, args, timeout: float = 600) -> str:
         proc.communicate()
         raise AssertionError(f"torchrun {' '.join(args[:3])} took more "
                              f"than {timeout} s and was stopped") from None
+    if not check:
+        return proc.returncode, out, err
     if proc.returncode != 0:
         raise AssertionError(f"torchrun {' '.join(args[:3])} failed "
                              f"({proc.returncode}):\n{err[-3000:]}")
     return out
 
 
-def _gloo_cuda_probe() -> int:
-    """Run under torchrun: which collectives gloo carries on CUDA tensors
-    (every rank on cuda:0); rank 0 prints one JSON line."""
+def _gloo_cuda_probe(names) -> int:
+    """Run under torchrun: which of the collectives ``names`` gloo carries
+    on CUDA tensors (every rank on cuda:0); rank 0 prints one JSON
+    line."""
     import torch
     import torch.distributed as dist
 
@@ -2388,9 +2625,15 @@ def _gloo_cuda_probe() -> int:
             [torch.empty_like(x) for _ in range(world)],
             [x.clone() for _ in range(world)]),
         "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX),
+        "send_recv": lambda: [req.wait() for req in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, x, (rank + 1) % world),
+             dist.P2POp(dist.irecv, torch.empty_like(x),
+                        (rank - 1) % world)])],
     }
     ok = {}
-    for name in GLOO_CUDA_COLLECTIVES:
+    for name in names:
         try:
             calls[name]()
             torch.cuda.synchronize()
@@ -2479,6 +2722,18 @@ def strategy_phase(torch, kernels, card: str) -> dict:
         line = next(ln for ln in probe.splitlines()
                     if ln.startswith("GLOO_CUDA "))
         carried = json.loads(line[len("GLOO_CUDA "):])
+        code, p2p_out, p2p_err = _torchrun(
+            2, [str(Path(__file__).resolve()), "--gloo-p2p-probe"],
+            timeout=120, check=False)
+        line = next((ln for ln in p2p_out.splitlines()
+                     if ln.startswith("GLOO_CUDA ")), None)
+        if line is not None and code == 0:
+            carried.update(json.loads(line[len("GLOO_CUDA "):]))
+        else:
+            why = next((ln for ln in reversed(p2p_err.splitlines())
+                        if "what()" in ln or "Error" in ln), "")
+            carried["send_recv"] = f"the probe's processes ended with " \
+                f"{code}: {why.strip()[:160]}"
         out["gloo_cuda"] = carried
         _log(f"strategy gloo on CUDA tensors: {carried}")
         # a regrid's move needs no all-to-all: over gloo on CUDA tensors
@@ -2737,6 +2992,193 @@ def placement4_phase(torch, kernels, card: str, nmt_run: dict,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the GPT trainer under per-op strategies (ROADMAP Queue A 3c): one rank
+# through torchrun (NCCL, the LM phase's 3 + 10 steps), then two gloo
+# ranks on cuda:0 and, on four cards, four NCCL ranks, 1 + 3 steps each;
+# the first 3 losses of each within 1e-4 (relative) of the one-rank
+# run's
+LM_RANKS_WARMUP, LM_RANKS_STEPS = 1, 3
+LM_LAYERS = 12
+
+
+def _lm_strategy_file(path: Path, ranks: int) -> None:
+    """The LM phase's strategy over ``ranks`` devices: ring attention
+    (s = 2, the rest of the ranks over the batch) in the even blocks and
+    the heads split over every rank in the odd ones, ``ff1`` split over
+    its output channels and ``ff2`` over the batch, the norms and
+    residuals alternately over the sequence and the batch, ``embed`` on
+    rank 1 alone and the head split over the vocab (fused over the
+    ranks).  One rank: every grid a single point on device 0."""
+    obj = {}
+
+    def put(name, dims, devices=None):
+        obj[name] = {"dims": list(dims),
+                     "devices": list(devices or range(ranks))}
+
+    put("embed", [1], [0] if ranks == 1 else [1])
+    put("pos_embed", [1, ranks])
+    put("final_ln", [ranks, 1])
+    put("lm_head", [ranks, 1])
+    put("softmax", [ranks])
+    for i in range(LM_LAYERS):
+        put(f"blk{i}_attn", (1, ranks, 1) if i % 2 or ranks == 1
+            else (2, 1, ranks // 2))
+        put(f"blk{i}_ff1", (ranks, 1))
+        put(f"blk{i}_ff2", (1, ranks))
+        for j, op in enumerate(("ln1", "res1", "ln2", "gelu", "res2")):
+            put(f"blk{i}_{op}", (ranks, 1) if (i + j) % 2 == 0
+                else (1, ranks))
+    path.write_text(json.dumps(obj, indent=1))
+
+
+def _lm_rank_launches(steps: int) -> dict:
+    """Rank 0's launches of kernels 1-6 under ``_lm_strategy_file`` over 2
+    or 4 ranks: in each even block its ring chunk is the first, so it
+    attends only its own (the diagonal: one partial form of kernels
+    1-3); each odd block runs kernels 1-3 on its heads; the head runs the
+    partial form of kernels 4-6."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    half = LM_LAYERS // 2
+    out = {}
+    for name in (fa.NAME, fa.NAME_DKV, fa.NAME_DQ):
+        out[name] = half * steps
+        out[f"{name}.partial"] = half * steps
+    for name in (ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX,
+                 ce.NAME_DX_SUM, ce.NAME_DW):
+        out[f"{name}.partial"] = steps
+    return out
+
+
+def _check_lm_run(label: str, res: dict, want_loss, launches: dict):
+    """Hold an LM run under a strategy to its bars: rank 0's launches of
+    kernels 1-6 exactly ``launches``, its first 3 losses within 1e-4 of
+    ``want_loss``."""
+    if {k: v for k, v in res["launches"].items() if v} != launches:
+        raise AssertionError(f"lm strategy {label}: launches on rank 0 "
+                             f"{res['launches']}, want {launches}")
+    n = LM_CHECKED
+    got = res["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(got[:n], want_loss[:n]))
+    _log(f"lm strategy {label}: first losses {got[:n]} vs {want_loss[:n]}: "
+         f"max relative difference {rel:.3e} (tolerance "
+         f"{LM_LOSS_RTOL:g}); launches on rank 0 {res['launches']}")
+    if not (all(math.isfinite(v) for v in got) and rel <= LM_LOSS_RTOL):
+        raise AssertionError(f"lm strategy {label}: losses {got[:n]} "
+                             f"differ from {want_loss[:n]}")
+    return rel
+
+
+def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
+                  extra) -> dict:
+    """The LM over ``ranks`` ranks through torchrun under
+    ``_lm_strategy_file`` (``extra`` names the device and backend), held
+    to its bars; each rank's leaves logged."""
+    steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
+    path = root / f"lm_{ranks}.json"
+    _lm_strategy_file(path, ranks)
+    out_json = root / f"lm_{ranks}_result.json"
+    t = time.perf_counter()
+    _torchrun(ranks, ["-m", "flexflow_tpu_torch.apps.lm"]
+              + _lm_argv(steps, LM_RANKS_WARMUP) + extra
+              + ["--strategy", str(path), "--result-json", str(out_json)],
+              timeout=420)
+    results = _rank_results(out_json, ranks)
+    res = results[0]
+    step_ms = res["elapsed_s"] / LM_RANKS_STEPS * 1e3
+    label = f"{ranks} ranks ({' '.join(extra) or 'NCCL, a card a rank'})"
+    _log(f"lm strategy {label}: {res['tokens_per_sec']:.1f} tokens/s, "
+         f"{step_ms:.3f} ms a step, peak on rank 0 "
+         f"{res['peak_memory_bytes'] / 1e9:.3f} GB, "
+         f"{time.perf_counter() - t:.1f} s with torchrun's start; {card}")
+    for r, rr in enumerate(results):
+        _log(f"lm strategy {label}: rank {r} holds params "
+             f"{rr['leaves']['params']}")
+    _check_lm_run(label, res, want_loss, _lm_rank_launches(steps))
+    return {"tokens_per_sec": res["tokens_per_sec"], "step_ms": step_ms,
+            "launches": res["launches"]}
+
+
+def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
+                      strategy_run: dict) -> dict:
+    """The GPT trainer through ``torchrun --nproc-per-node 1 ... apps.lm
+    --strategy <one-device file>`` (NCCL) at the LM phase's widths and
+    steps against the LM phase's run without a strategy in this process;
+    then two gloo ranks on cuda:0 under ``_lm_strategy_file``: ring and
+    head-parallel attention, channel-split MLPs, sequence-split norms, the
+    embedding on rank 1 and the fused vocab-parallel head."""
+    import shutil
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        iters = LM_WARMUP + LM_TIMED
+        one = root / "lm_1.json"
+        _lm_strategy_file(one, 1)
+        t = time.perf_counter()
+        _torchrun(1, ["-m", "flexflow_tpu_torch.apps.lm"]
+                  + _lm_argv(iters, LM_WARMUP)
+                  + ["--strategy", str(one), "--result-json",
+                     str(root / "lm_one.json")])
+        res = json.loads((root / "lm_one.json").read_text())
+        step_ms = res["elapsed_s"] / LM_TIMED * 1e3
+        _log(f"lm strategy 1 rank (NCCL, every op one point on device 0): "
+             f"{res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms a "
+             f"step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB, "
+             f"{time.perf_counter() - t:.1f} s with torchrun's start; "
+             f"without a strategy in this process "
+             f"{lm_run['tokens_per_sec']:.1f} tokens/s, "
+             f"{lm_run['step_ms']:.3f} ms; {card}")
+        want = {name: LM_LAYERS * iters
+                for name in (fa.NAME, fa.NAME_DKV, fa.NAME_DQ)}
+        want.update({name: iters for name in (
+            ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM,
+            ce.NAME_DW)})
+        _check_lm_run("1 rank", res, lm_run["loss"], want)
+        out = {"one": {"tokens_per_sec": res["tokens_per_sec"],
+                       "step_ms": step_ms, "loss": res["loss"]}}
+        carried = strategy_run["gloo_cuda"]
+        needed = GLOO_CUDA_NEEDED + ("all_reduce_max",)
+        if not all(carried[c] == "ok" for c in needed):
+            raise AssertionError(f"lm strategy: gloo does not carry CUDA "
+                                 f"tensors for {needed}: {carried}")
+        _log(f"lm strategy: ring rotations over gloo on CUDA tensors move "
+             f"by all-gather (gloo's send_recv on CUDA tensors: "
+             f"{carried['send_recv']})")
+        out["two"] = _lm_ranks_run(
+            2, root, card, res["loss"],
+            ["--device", "cuda:0", "--dist-backend", "gloo"])
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def lm_strategy4_phase(torch, kernels, card: str, lm_strategy: dict) -> dict:
+    """The LM phase's strategy over four cards (NCCL, a card a rank): ring
+    x data parallel attention (s = 2, n = 2) in the even blocks, h = 4
+    in the odd, the head split four ways over the vocab, against the
+    one-rank run."""
+    import shutil
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        one = lm_strategy["one"]
+        out = _lm_ranks_run(4, root, card, one["loss"], [])
+        _log(f"lm strategy 4: one card {one['tokens_per_sec']:.1f} tokens/s "
+             f"({one['step_ms']:.3f} ms a step), four cards "
+             f"{out['tokens_per_sec']:.1f} tokens/s ({out['step_ms']:.3f} "
+             f"ms a step)")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -2745,7 +3187,10 @@ def main(argv) -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     if "--gloo-cuda-probe" in argv:
-        return _gloo_cuda_probe()
+        return _gloo_cuda_probe([c for c in GLOO_CUDA_COLLECTIVES
+                                 if c != "send_recv"])
+    if "--gloo-p2p-probe" in argv:
+        return _gloo_cuda_probe(["send_recv"])
 
     from flexflow_tpu_torch.ops import kernels
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
@@ -2808,6 +3253,7 @@ def main(argv) -> int:
     checked = phase("flash forward", kernel_phase, torch, fa)
     flash_bwd = phase("flash backward", flash_bwd_phase, torch, fa)
     fused = phase("fused ce", fused_ce_phase, torch, ce)
+    partials = phase("partial forms", partial_phase, torch, fa, ce)
     pools = phase("pools", pool_kernel_phase, torch, kernels)
     bns = phase("bn", bn_kernel_phase, torch)
     sliced = phase("serving", slice_phase, torch, fa, kernels)
@@ -2823,10 +3269,14 @@ def main(argv) -> int:
     strategy_run = phase("strategy", strategy_phase, torch, kernels, card)
     phase("placement", placement_phase, torch, kernels, card, nmt_run,
           strategy_run)
+    lm_strategy = phase("lm strategy", lm_strategy_phase, torch, kernels,
+                        card, lm_run, strategy_run)
     if torch.cuda.device_count() >= 4:
         phase("strategy 4", strategy4_phase, torch, kernels, card)
         phase("placement 4", placement4_phase, torch, kernels, card,
               nmt_run, strategy_run)
+        phase("lm strategy 4", lm_strategy4_phase, torch, kernels, card,
+              lm_strategy)
     if "--profile" in argv:
         phase("profile serving", profile_phase, torch, sliced["engine"])
         phase("profile lm", lm_profile_phase, torch)
@@ -2869,6 +3319,24 @@ def main(argv) -> int:
                              f"flexflow_tpu/ops/pallas/fused_ce.py:{line}",
                              lm_n[name], fused["worst"][name],
                              fused["timings"][name]))
+    # the partial forms of kernels 1-6: launches on rank 0 of the LM's
+    # two-rank strategy run, times in float32 at a rank's ring chunk
+    # (non-causal) and vocab slice
+    two_n = lm_strategy["two"]["launches"]
+    for name, source, replaces in (
+            (fa.NAME, fa.SOURCE, "flash_attention.py:385"),
+            (fa.NAME_DKV, fa.SOURCE_BWD, "flash_attention.py:385"),
+            (fa.NAME_DQ, fa.SOURCE_BWD, "flash_attention.py:385"),
+            (ce.NAME_FWD, ce.SOURCE, "fused_ce.py:322"),
+            (ce.NAME_FWD_COMBINE, ce.SOURCE, "fused_ce.py:322"),
+            (ce.NAME_DX, ce.SOURCE_BWD, "fused_ce.py:322"),
+            (ce.NAME_DX_SUM, ce.SOURCE_BWD, "fused_ce.py:322"),
+            (ce.NAME_DW, ce.SOURCE_BWD, "fused_ce.py:322")):
+        entries.append(entry(f"{name}.partial", source,
+                             f"flexflow_tpu/ops/pallas/{replaces}",
+                             two_n[f"{name}.partial"],
+                             partials["worst"][name],
+                             partials["timings"][name]))
     # pool times: the sum over one training step's four max-pool
     # launches, and the one avg-pool launch, bfloat16 at batch 256
     for name, source, replaces, timing in (

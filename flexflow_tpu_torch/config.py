@@ -46,10 +46,9 @@ UNPORTED_FLAGS = frozenset((
 
 #: flags of ``flexflow_tpu/apps/lm.py:parse_args`` beyond the ones above
 #: whose features the port does not have yet, with the ROADMAP Queue A
-#: item that brings each: strategies, whose LM ops have no grid over
-#: several ranks yet (3c), and the pipelined path (3d)
-LM_UNPORTED_ITEMS = {"--strategy": "3c", "--pipeline-stages": "3d",
-                     "--microbatches": "3d", "--pipeline-tp": "3d"}
+#: item that brings each: the pipelined path (3d)
+LM_UNPORTED_ITEMS = {"--pipeline-stages": "3d", "--microbatches": "3d",
+                     "--pipeline-tp": "3d"}
 LM_UNPORTED_FLAGS = frozenset(LM_UNPORTED_ITEMS)
 
 

@@ -5,10 +5,12 @@
 // Replaces the Pallas TPU kernels _bwd_dx_kernel and _bwd_dw_kernel of
 // flexflow_tpu/ops/pallas/fused_ce.py.  With logits = x w + b (x (N, d),
 // w (d, V), b (V,) float32, labels (N,) int32), lse (N,) from the forward
-// and a cotangent g (N,) of the per-token nll:
-//     t_nv = g_n * (exp(logits_nv - lse_n) - [v == label_n])
+// and two cotangent rows gp, goh (N,) (_tile_dlogits, fused_ce.py:112-124):
+//     t_nv = gp_n * exp(logits_nv - lse_n) - goh_n * [v == label_n]
 //     dx = t w^T,   dw = x^T t,   db = sum_n t_nv
-// (a label < 0 or >= V matches nothing).  Each kernel recomputes its
+// (a label < 0 or >= V matches nothing).  For a cotangent g of the
+// per-token nll gp = goh = g; the vocab-slice form, whose lse is an output
+// too, has gp = g_nll + g_lse and goh = g_nll.  Each kernel recomputes its
 // logits tiles from x and w, as the Pallas kernels do; the (N, V) logits
 // never reach device memory.  With bfloat16 operands t is rounded to
 // bfloat16 before the dx and dw products; db sums it unrounded.
@@ -45,7 +47,7 @@
 //     step;
 //   * after the last logits step t is formed in registers and stored to a
 //     shared tile, the second product's A (dx) or B (dw) operand; its
-//     row statistics (lse, g, label) and the bias are read there;
+//     row statistics (lse, gp, goh, label) and the bias are read there;
 //   * the second product's output has the logits tile's shape: 64 rows x
 //     256 dx columns per chunk over the tile's 256 vocab columns (dx), or
 //     256 dw rows x 64 vocab columns per chunk over its 256 token rows
@@ -82,7 +84,7 @@ __device__ __forceinline__ void store_t(__nv_bfloat16* p, float v) {
 }
 
 // acc holds logits - b of the tile (rows n0.., vocab columns v0..): store
-// t = g (softmax - onehot), rounded to T, to ts[row][col]; 0 outside the
+// t = gp softmax - goh onehot, rounded to T, to ts[row][col]; 0 outside the
 // matrix.  db (if given) gets this thread's unrounded column sums.
 template <typename T, typename G, int LDT>
 __device__ __forceinline__ void write_t(const float acc[G::MT][G::NT][4],
@@ -108,7 +110,7 @@ __device__ __forceinline__ void write_t(const float acc[G::MT][G::NT][4],
           const float p =
               valid ? expf(acc[mt][nt][2 * h + j] + bc - rs.lse[r]) : 0.f;
           const float onehot = (valid && gc == rs.lab[r]) ? 1.f : 0.f;
-          const float tv = rs.g[r] * p - rs.g[r] * onehot;
+          const float tv = rs.gp[r] * p - rs.goh[r] * onehot;
           if (db != nullptr) db[nt][j] += tv;
           store_t(ts + row * LDT + col, tv);
         }
@@ -178,7 +180,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ bias,
                      const int32_t* __restrict__ labels,
                      const float* __restrict__ lse,
-                     const float* __restrict__ g, float* __restrict__ part,
+                     const float* __restrict__ gp,
+                     const float* __restrict__ goh, float* __restrict__ part,
                      int n, int d, int V, int splits, int npad, int dpad,
                      bool xvec, bool wvec) {
   using G = DxGeo;
@@ -190,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n0 = blockIdx.x * G::BM;
   const int s = blockIdx.y;
   RowStats<G> rs;
-  rs.load(wp, n0, n, lse, g, labels);
+  rs.load(wp, n0, n, lse, gp, goh, labels);
 
   const int vt = (V + G::BN - 1) / G::BN;
   const int ntile = (vt - s + splits - 1) / splits;
@@ -309,7 +312,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ bias,
                      const int32_t* __restrict__ labels,
                      const float* __restrict__ lse,
-                     const float* __restrict__ g, float* __restrict__ dw,
+                     const float* __restrict__ gp,
+                     const float* __restrict__ goh, float* __restrict__ dw,
                      float* __restrict__ db, int n, int d, int V, bool xvec,
                      bool wvec, bool dwvec) {
   using G = DwGeo;
@@ -371,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       step_mma<G, true, true>(buf, S::LDK, buf + G::BM * S::LDK, S::LDW, wp,
                               acc);
       if (st == kt - 1) {
-        rs.load(wp, n0, n, lse, g, labels);
+        rs.load(wp, n0, n, lse, gp, goh, labels);
         write_t<T, G, S::LDT>(acc, ts, wp, rs, n0, v0, n, V, bias, dbp);
         zero<G>(acc);
       }
@@ -517,8 +521,8 @@ int dw_attr() {
 
 template <typename T>
 int launch_dx(const void* x, const void* w, const float* b,
-              const int32_t* lab, const float* l, const float* gg,
-              float* part, int n, int d, int V, int splits,
+              const int32_t* lab, const float* l, const float* gp,
+              const float* goh, float* part, int n, int d, int V, int splits,
               cudaStream_t st) {
   const int attr = dx_attr<T>();
   if (attr != 0) return attr;
@@ -527,7 +531,7 @@ int launch_dx(const void* x, const void* w, const float* b,
   const bool wvec = V % E == 0 && aligned16(w);
   const dim3 grid((n + DxGeo::BM - 1) / DxGeo::BM, splits);
   ce_bwd_dx_kernel<T><<<grid, kThreads, Smem<T, DxGeo, true>::bytes(), st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), b, lab, l, gg,
+      static_cast<const T*>(x), static_cast<const T*>(w), b, lab, l, gp, goh,
       part, n, d, V, splits, round_up(n, DxGeo::BM), round_up(d, DxGeo::BN),
       xvec, wvec);
   return static_cast<int>(cudaGetLastError());
@@ -535,8 +539,9 @@ int launch_dx(const void* x, const void* w, const float* b,
 
 template <typename T>
 int launch_dw(const void* x, const void* w, const float* b,
-              const int32_t* lab, const float* l, const float* gg,
-              float* dw, float* db, int n, int d, int V, cudaStream_t st) {
+              const int32_t* lab, const float* l, const float* gp,
+              const float* goh, float* dw, float* db, int n, int d, int V,
+              cudaStream_t st) {
   const int attr = dw_attr<T>();
   if (attr != 0) return attr;
   constexpr int E = 16 / sizeof(T);
@@ -545,8 +550,8 @@ int launch_dw(const void* x, const void* w, const float* b,
   const bool dwvec = V % 4 == 0 && aligned16(dw);
   const dim3 grid((V + DwGeo::BN - 1) / DwGeo::BN);
   ce_bwd_dw_kernel<T><<<grid, kThreads, Smem<T, DwGeo, false>::bytes(), st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), b, lab, l, gg, dw,
-      db, n, d, V, xvec, wvec, dwvec);
+      static_cast<const T*>(x), static_cast<const T*>(w), b, lab, l, gp, goh,
+      dw, db, n, d, V, xvec, wvec, dwvec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -558,8 +563,9 @@ int launch_dw(const void* x, const void* w, const float* b,
 // (0 on success).
 extern "C" int ff_fused_ce_bwd_dx(const void* x, const void* w,
                                   const void* bias, const void* labels,
-                                  const void* lse, const void* g, void* work,
-                                  int n, int d, int V, int splits,
+                                  const void* lse, const void* gp,
+                                  const void* goh, void* work, int n, int d,
+                                  int V, int splits,
                                   int is_bf16, void* stream) {
   if (bad_dims(n, d, V) || splits < 1 ||
       splits > (V + DxGeo::BN - 1) / DxGeo::BN) {
@@ -570,12 +576,13 @@ extern "C" int ff_fused_ce_bwd_dx(const void* x, const void* w,
   const float* b = static_cast<const float*>(bias);
   const int32_t* lab = static_cast<const int32_t*>(labels);
   const float* l = static_cast<const float*>(lse);
-  const float* gg = static_cast<const float*>(g);
+  const float* gpp = static_cast<const float*>(gp);
+  const float* gohp = static_cast<const float*>(goh);
   float* part = static_cast<float*>(work);
-  return is_bf16 ? launch_dx<__nv_bfloat16>(x, w, b, lab, l, gg, part, n, d,
-                                            V, splits, st)
-                 : launch_dx<float>(x, w, b, lab, l, gg, part, n, d, V,
-                                    splits, st);
+  return is_bf16 ? launch_dx<__nv_bfloat16>(x, w, b, lab, l, gpp, gohp, part,
+                                            n, d, V, splits, st)
+                 : launch_dx<float>(x, w, b, lab, l, gpp, gohp, part, n, d,
+                                    V, splits, st);
 }
 
 // dx (n, d) float32 = the sum of the ``splits`` partials in ``work``, in
@@ -599,9 +606,9 @@ extern "C" int ff_fused_ce_bwd_dx_sum(const void* work, void* dx, int n,
 // n > 0).  Launches on ``stream`` and returns the CUDA error code.
 extern "C" int ff_fused_ce_bwd_dw(const void* x, const void* w,
                                   const void* bias, const void* labels,
-                                  const void* lse, const void* g, void* dw,
-                                  void* db, int n, int d, int V, int is_bf16,
-                                  void* stream) {
+                                  const void* lse, const void* gp,
+                                  const void* goh, void* dw, void* db, int n,
+                                  int d, int V, int is_bf16, void* stream) {
   if (bad_dims(n, d, V) || n == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -609,13 +616,14 @@ extern "C" int ff_fused_ce_bwd_dw(const void* x, const void* w,
   const float* b = static_cast<const float*>(bias);
   const int32_t* lab = static_cast<const int32_t*>(labels);
   const float* l = static_cast<const float*>(lse);
-  const float* gg = static_cast<const float*>(g);
+  const float* gpp = static_cast<const float*>(gp);
+  const float* gohp = static_cast<const float*>(goh);
   float* dwp = static_cast<float*>(dw);
   float* dbp = static_cast<float*>(db);
-  return is_bf16 ? launch_dw<__nv_bfloat16>(x, w, b, lab, l, gg, dwp, dbp, n,
-                                            d, V, st)
-                 : launch_dw<float>(x, w, b, lab, l, gg, dwp, dbp, n, d, V,
-                                    st);
+  return is_bf16 ? launch_dw<__nv_bfloat16>(x, w, b, lab, l, gpp, gohp, dwp,
+                                            dbp, n, d, V, st)
+                 : launch_dw<float>(x, w, b, lab, l, gpp, gohp, dwp, dbp, n, d,
+                                    V, st);
 }
 
 extern "C" const char* ff_cuda_error_string(int code) {

@@ -273,22 +273,25 @@ __device__ __forceinline__ void zero(float acc[G::MT][G::NT][4]) {
   }
 }
 
-// lse, g and label of this thread's 2 MT rows (n0 + wm*WM + mt*16 + g +
-// 8h at index 2 mt + h); rows >= n get g = 0 and no label
+// lse, the two cotangent rows gp (softmax term) and goh (one-hot term)
+// and the label of this thread's 2 MT rows (n0 + wm*WM + mt*16 + g + 8h
+// at index 2 mt + h); rows >= n get gp = goh = 0 and no label
 template <typename G>
 struct RowStats {
-  float lse[2 * G::MT], g[2 * G::MT];
+  float lse[2 * G::MT], gp[2 * G::MT], goh[2 * G::MT];
   int lab[2 * G::MT];
   __device__ void load(const Warp<G>& w, int n0, int n,
                        const float* __restrict__ lse_p,
-                       const float* __restrict__ g_p,
+                       const float* __restrict__ gp_p,
+                       const float* __restrict__ goh_p,
                        const int32_t* __restrict__ lab_p) {
 #pragma unroll
     for (int r = 0; r < 2 * G::MT; ++r) {
       const int row = n0 + w.wm * G::WM + (r / 2) * 16 + w.g + (r % 2) * 8;
       const bool in = row < n;
       lse[r] = in ? lse_p[row] : 0.f;
-      g[r] = in ? g_p[row] : 0.f;
+      gp[r] = in ? gp_p[row] : 0.f;
+      goh[r] = in ? goh_p[row] : 0.f;
       lab[r] = in ? lab_p[row] : -1;
     }
   }

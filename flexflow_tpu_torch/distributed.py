@@ -71,10 +71,12 @@ def initialize(device="cuda", backend: Optional[str] = None,
             f"a process group of rank {dist.get_rank()} in "
             f"{dist.get_world_size()} exists; asked for rank {rank} in "
             f"{world_size}")
-    # gloo has no all-to-all for CUDA tensors: regrid moves then gather
-    gloo = str(dist.get_backend()) == "gloo"
+    # gloo has no all-to-all and no point-to-point for CUDA tensors (its
+    # send of one fails with "writev ... Bad address" and closes the
+    # pair): regrid moves and ring rotations then gather
+    gloo_cuda = str(dist.get_backend()) == "gloo" and dev.type == "cuda"
     return MachineModel(dev, world_size, rank, topology, distributed=True,
-                        all_to_all=not (gloo and dev.type == "cuda"))
+                        all_to_all=not gloo_cuda, send_recv=not gloo_cuda)
 
 
 def shutdown() -> None:

@@ -108,13 +108,15 @@ class MachineModel:
     but cannot run a collective.  ``all_to_all`` says whether the process
     group's backend has an all-to-all for the device's tensors (gloo has
     none for CUDA tensors); without it a regrid's move is an all-gather
-    and a slice."""
+    and a slice.  ``send_recv`` says whether it has point-to-point sends
+    for them; without it a ring's rotation is an all-gather
+    (``collectives.rotate``)."""
 
     def __init__(self, device="cuda", world_size: int = 1, rank: int = 0,
                  topology: Optional[Topology] = None,
                  distributed: bool = False,
                  view: Optional[Sequence[int]] = None,
-                 all_to_all: bool = True):
+                 all_to_all: bool = True, send_recv: bool = True):
         if world_size < 1 or not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} of world size {world_size}")
         self.device = resolve_device(device)
@@ -122,6 +124,7 @@ class MachineModel:
         self.rank = int(rank)
         self.distributed = bool(distributed)
         self.all_to_all = bool(all_to_all)
+        self.send_recv = bool(send_recv)
         self.topology = topology or Topology(
             devices_per_ici_group=max(self.world_size, 1))
         self.view = tuple(view) if view is not None \
@@ -157,7 +160,8 @@ class MachineModel:
         view's position ``perm[i]`` (``flexflow_tpu/model.py:152-221``)."""
         return MachineModel(self.device, self.world_size, self.rank,
                             self.topology, self.distributed,
-                            [self.view[d] for d in perm], self.all_to_all)
+                            [self.view[d] for d in perm], self.all_to_all,
+                            self.send_recv)
 
     # ------------------------------------------------------------------
     # the per-op grid map (mesh_for, flexflow_tpu/machine.py:240-265)

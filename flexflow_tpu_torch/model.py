@@ -323,7 +323,7 @@ class FFModel:
                 if not op.SHARDED:
                     raise NotImplementedError(
                         f"op {op.name!r} ({type(op).__name__}) has no grid "
-                        f"over several ranks yet (ROADMAP Queue A 3c-3d)")
+                        f"over several ranks yet (ROADMAP Queue A 3c-ii)")
                 positions = placed(op, m)
             self._grids[op.name] = OpGrid(m, op, positions)
             if n > 1:
@@ -334,15 +334,46 @@ class FFModel:
         self._setup_leaves()
         m.world_group()
         # each loss op's value counts once: on the first position holding
-        # each of its blocks
+        # each of its blocks; a fused head's per-token NLL lies in the
+        # rows of its projection's grid, where its labels are moved
         self._loss_primary = {}
+        self._fused_primary = {}
         for op in self.layers:
             if getattr(op, "is_loss", False):
-                boxes = self._boxes_of(op, op.output_spec(),
-                                       op.output.shape)
-                mine = boxes[m.position]
-                self._loss_primary[op.name] = mine is not None \
-                    and boxes.index(mine) == m.position
+                self._loss_primary[op.name] = self._first_holder(
+                    op, op.output_spec(), op.output.shape)
+        for i, lin in self._lm_head_fusion().items():
+            if lin is None:
+                continue
+            loss = self.layers[i]
+            labels = loss.labels_tensor
+            self._plan.add_edge(
+                lin.name, "labels", self._plan.layouts.get(labels.tid),
+                m.global_entries(lin.pc, lin.AXIS_NAMES, ("n", None),
+                                 rank=2),
+                labels.shape, 4, tid=labels.tid, dtype=torch.int32)
+            if lin.pc.dims[0] > 1:
+                self._grids[lin.name].prepare([("c",)])
+            self._fused_primary[loss.name] = self._first_holder(
+                lin, ("n", None), labels.shape)
+
+    def _first_holder(self, op, spec, shape) -> bool:
+        """Whether this rank is the first position holding its block of a
+        ``shape`` value laid out as ``spec`` over ``op``'s grid."""
+        boxes = self._boxes_of(op, spec, shape)
+        mine = boxes[self.machine.position]
+        return mine is not None and boxes.index(mine) == \
+            self.machine.position
+
+    def loss_counted(self, op, train: bool) -> bool:
+        """Whether this rank counts its block of loss op ``op``'s value
+        (always on one rank; over several, the first holder of each
+        block): the fused head's rows when ``train`` fuses ``op``."""
+        if not self.sharded:
+            return True
+        if train and op.name in self._fused_primary:
+            return self._fused_primary[op.name]
+        return self._loss_primary[op.name]
 
     def _boxes_of(self, op, spec, shape) -> tuple:
         """Every position's box (None: not held) of a ``shape`` tensor
@@ -533,12 +564,12 @@ class FFModel:
                     p = params.get(lin.param_key, {})
                     if self.sharded:
                         x = self._plan.apply(lin.name, 0, x, reshards)
-                        labels = self._plan.apply(op.name, 1, labels,
-                                                  reshards)
+                        labels = self._plan.apply(lin.name, "labels",
+                                                  labels, reshards)
                         p = self._op_params(lin, params)
                         values[("labels", op.name)] = labels
                     values[op.output.tid] = self._run_fused_lm_head(
-                        p, x, labels)
+                        lin, p, x, labels)
                 continue   # the projection is folded into its loss op
             if self.sharded:
                 # every rank walks every op in one order; a move runs on
@@ -582,16 +613,16 @@ class FFModel:
         neither limit, and where the card's crossover lies is not
         measured yet (PERF.md, open questions).
 
-        Over several ranks the pair fuses where the projection splits only
-        the batch (c = 1, JAX's ``pc_c == 1`` branch,
-        ``flexflow_tpu/model.py:692-697``) on the whole machine and its
-        logits already lie as the loss wants them: each rank then runs
-        kernels 4-6 on its rows, and ``w``'s gradient is summed over its
-        holders.  A vocab split (c > 1) runs unfused, the projection's c
-        blocks regridded to the loss's batch blocks: the same function,
-        and what JAX itself runs at the NMT's 640-token chunks, which its
-        ``_fusion_ok`` refuses (b*s < 2048).  The fused vocab-parallel
-        head (kernels 5-6's two-cotangent form) is ROADMAP Queue A 3c."""
+        Over several ranks the pair fuses where JAX's ``_fusion_ok`` lets it
+        (``flexflow_tpu/model.py:655-672``, less its TPU size gates): the
+        projection on the whole machine in order, its vocab split c
+        dividing V and its batch split n the batch.  Each rank then runs
+        kernels 4-6 on the rows of its n block against its c block of the
+        vocab, its labels moved to those rows (edge ``(projection,
+        "labels")``), and the c blocks combine as
+        :meth:`_run_fused_lm_head` says.  Other heads run unfused, the
+        projection's blocks regridded to the loss's: the same function.
+        """
         from flexflow_tpu_torch.ops.rnn_linear import RnnLinear
         from flexflow_tpu_torch.ops.softmax_dp import SoftmaxDP
 
@@ -610,23 +641,43 @@ class FFModel:
 
     def _fusable(self, lin, loss) -> bool:
         """Whether ``lin`` -> ``loss`` fuses over several ranks: the
-        projection batch-split on the whole machine, its logits moved to
-        the loss by no hop."""
-        edge = self._plan.edges.get((loss.name, 0))
-        return (lin.pc.dims[0] == 1
-                and self._grids[lin.name].positions is None
-                and self._grids[loss.name].positions is None
-                and (edge is None or not edge.chain))
+        projection on the whole machine in order, V % c == 0 and b % n ==
+        0 (``flexflow_tpu/model.py:666-672``)."""
+        c, n = lin.pc.dims
+        return (self._grids[lin.name].positions is None
+                and lin.pc.devices == tuple(range(self.machine.num_devices))
+                and lin.out_channels % c == 0
+                and lin.inputs[0].shape[0] % n == 0)
 
-    @staticmethod
-    def _run_fused_lm_head(lin_params, x, labels):
+    def _run_fused_lm_head(self, lin, lin_params, x, labels):
         """Per-token NLL (b, s) of the projection of x (b, s, d) at
-        labels (b, s) through the fused projection + CE op."""
-        from flexflow_tpu_torch.ops.kernels.fused_ce import fused_linear_ce
+        labels (b, s) through the fused projection + CE op.
+
+        Where the projection splits the vocab (c > 1) each c rank runs the
+        partial form over its V/c columns with its labels localized by
+        ``- c_index * V/c`` (``flexflow_tpu/model.py:698-723``): a label
+        lives in one slice, and elsewhere nll_c = lse_c.  With m the max
+        of the detached lse_c over the c group (a stability shift, no
+        gradient), one all-reduce sum of ``[exp(lse_c - m), lse_c -
+        nll_c]`` gives nll = m + log(sum_0) - sum_1 on every c rank.  The
+        sum's backward all-reduces, so each c rank receives the row's
+        whole cotangent from the one rank that counts it."""
+        from flexflow_tpu_torch.ops.kernels.fused_ce import (
+            fused_linear_ce, fused_linear_ce_partial)
 
         b, s, d = x.shape
-        nll = fused_linear_ce(x.reshape(b * s, d), lin_params["kernel"],
-                              lin_params["bias"], labels.reshape(-1))
+        xf, lab = x.reshape(b * s, d), labels.reshape(-1)
+        w, bias = lin_params["kernel"], lin_params["bias"]
+        grid = self._grids[lin.name] if self.sharded else None
+        if grid is None or grid.parts("c") == 1:
+            return fused_linear_ce(xf, w, bias, lab).reshape(b, s)
+        v_local = lin.out_channels // grid.parts("c")
+        nll_c, lse_c = fused_linear_ce_partial(
+            xf, w, bias, lab - grid.index("c") * v_local)
+        m = collectives.all_reduce_max(lse_c, grid.group(("c",)))
+        sums = grid.all_reduce(torch.stack([torch.exp(lse_c - m),
+                                            lse_c - nll_c]), ("c",))
+        nll = m + torch.log(torch.clamp(sums[0], min=1e-30)) - sums[1]
         return nll.reshape(b, s)
 
     def make_predict_step(self, output_tids=None):

@@ -1,9 +1,9 @@
 """GPT size presets (PyTorch port of ``flexflow_tpu/models/gpt.py``):
 the same ``GPT_SIZES``, :func:`gpt_config` and the analytic
 :func:`gpt_param_count`, so that the port's parameter trees are checked
-against the JAX package's formula.  The JAX module's search-only shadow
-graphs (``build_gpt`` on a virtual machine) come with the cost model and
-search.
+against the JAX package's formula, and :func:`build_gpt`, a preset's
+``TransformerLM`` on a machine under a strategy (``gpt.py:62``).  The
+JAX module's search over these graphs comes with the cost model.
 
     0.1b       12 x  768, ff  3072, vocab 32768  -> ~0.14 B params
     0.4b       24 x 1024, ff  4096, vocab 32768  -> ~0.37 B params
@@ -18,7 +18,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from flexflow_tpu_torch.models.transformer import TransformerConfig
+from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                   TransformerLM)
 
 # name -> TransformerConfig field overrides (always causal)
 GPT_SIZES: Dict[str, dict] = {
@@ -43,6 +44,14 @@ def gpt_config(size: str, **overrides) -> TransformerConfig:
     kw.setdefault("causal", True)
     kw.update(overrides)
     return TransformerConfig(**kw)
+
+
+def build_gpt(size: str, machine=None, strategies=None, device="cuda",
+              **overrides) -> TransformerLM:
+    """The preset's LM on ``machine`` (default one device) with every op
+    on the grid and device list ``strategies`` names."""
+    return TransformerLM(gpt_config(size, **overrides), machine, strategies,
+                         device)
 
 
 def gpt_param_count(cfg: TransformerConfig) -> int:

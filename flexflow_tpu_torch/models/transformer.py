@@ -7,7 +7,15 @@ packages.  With ``num_experts`` > 0 every ``moe_every``-th block's FFN is
 a top-k mixture of experts (``blk{i}_moe``, ``ops/moe.py``) whose
 load-balancing loss joins the training objective.  Training is plain SGD
 on the next-token loss (causal) or the identity-label loss, through the
-fused LM head."""
+fused LM head.
+
+On a machine of several ranks every op runs on the grid and device list
+its strategy entry names (``FFModel``): the sequence ops split the
+sequence, the attention heads or the sequence in a ring, the MLP and
+vocab projections the channels, and a vocab-split head runs fused
+(``FFModel._run_fused_lm_head``).  Each rank takes its batch rows
+(``FFModel.local_batch``); the loss is the global batch's on every rank.
+The MoE op has no grid over several ranks yet (ROADMAP Queue A 3c-ii)."""
 
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ class TransformerConfig:
     seed: int = 0
     # "default" only: the JAX package's "ones" init is not ported yet
     params_init: str = "default"
+    # the strategy file --strategy names ("" = none; apps.lm loads it)
+    strategy_file: str = ""
     # the training runtime (forwarded to FFConfig; FFModel.fit)
     prefetch_depth: int = 0
     ckpt_dir: str = ""
@@ -131,10 +141,19 @@ class TransformerLM(FFModel):
                 [labels[:, 1:],
                  torch.full((labels.shape[0], 1), -1, dtype=labels.dtype,
                             device=labels.device)], dim=1)
+        from flexflow_tpu_torch.parallel import collectives
+
         inputs = {self.tokens.tid: tokens, self.labels.tid: labels}
         values, new_state = self.apply(params, state, inputs, train)
         op = self.loss_op
-        total = op.loss(values[op.output.tid], values[op.labels_tensor.tid])
+        total = op.loss(values[op.output.tid],
+                        values.get(("labels", op.name),
+                                   values[op.labels_tensor.tid]))
+        if self.sharded:
+            if not self.loss_counted(op, train):
+                total = total * 0   # a replica's block counts once
+            total = collectives.global_sum(total,
+                                           self.machine.world_group())
         n_targets = self.t.batch_size * (self.t.seq_length - 1
                                          if self.t.causal
                                          else self.t.seq_length)

@@ -211,7 +211,7 @@ class RnnModel(FFModel):
         values, new_state = self.apply(params, state, inputs, train)
         total = torch.zeros((), device=self.device)
         for op in self.loss_ops:
-            if self.sharded and not self._loss_primary[op.name]:
+            if not self.loss_counted(op, train):
                 continue
             labels = values.get(("labels", op.name),
                                 values.get(op.labels_tensor.tid))

@@ -5,8 +5,20 @@ attention itself is the port's differentiable flash attention
 (ops/kernels/flash_attention.py): the CUDA forward and backward kernels
 on a GPU, their plain versions on the CPU, for serving (under
 ``inference_mode`` only the forward runs) and for training alike.  Its
-float32 output is cast back to the activation dtype.  Ring attention
-over a sequence-sharded grid comes with the multi-GPU slice.
+float32 output is cast back to the activation dtype.
+
+Over several ranks the grid is (s, h, n) (``attention.py:30``): the
+input arrives batch-split over ``n`` and sequence-split over ``s``,
+whole over the features; ``wq``, ``wk`` and ``wv`` are column-sharded by
+``h`` and ``wo`` row-sharded (``attention.py:60-65``), so each rank
+projects its block of heads.  Where ``s`` is 1 each rank runs the flash
+kernels on its (B/n, H/h, S, d) block; where it is above 1 it runs
+``parallel/ring_attention.py`` over its ``s`` group.  The ``wo``
+products are partial sums over the head blocks, all-reduced over the
+``h`` group, and ``bo`` is added once, after the sum.  JAX rings only
+over the whole machine in natural order (``_use_ring``, ``:79-82``) and
+otherwise runs GSPMD's blockwise attention, the same function; the port
+rings over the ``s`` group of any grid.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class MultiHeadAttention(Op):
     AXIS_NAMES = ("s", "h", "n")
+    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  num_heads: int, causal: bool = False):
@@ -44,17 +57,65 @@ class MultiHeadAttention(Op):
         p["bo"] = torch.zeros((d,), device=device)
         return p
 
-    def forward(self, params, state, xs: List, train: bool):
-        (x,) = xs
-        b, s, d = x.shape
-        h, hd = self.num_heads, self.head_dim
+    def param_specs(self):
+        return {"wq": (None, "h"), "wk": (None, "h"), "wv": (None, "h"),
+                "wo": ("h", None)}
+
+    def output_spec(self):
+        return ("n", "s", None)
+
+    def regrid_input_specs(self):
+        return [("n", "s", None)]
+
+    def validate_partitioning(self) -> None:
+        super().validate_partitioning()
+        ph = self.pc.dims[1]
+        if self.num_heads % ph:
+            raise ValueError(
+                f"op {self.name!r}: {self.num_heads} heads not divisible by "
+                f"its head partition count {ph} (grid {self.pc.dims})")
+
+    def grid_collectives(self):
+        ps, ph, _ = self.pc.dims
+        return [(a,) for a, parts in (("s", ps), ("h", ph)) if parts > 1]
+
+    def _heads(self, params, x):
+        """q, k, v (B, H', S', hd) of x (B, S', d) for the head columns of
+        the projections in ``params``."""
+        b, s, _ = x.shape
 
         def proj(w):
             y = torch.matmul(x, w.to(x.dtype))
-            return y.view(b, s, h, hd).transpose(1, 2).contiguous()
+            return y.view(b, s, -1, self.head_dim).transpose(1, 2) \
+                .contiguous()
 
-        q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+        return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+
+    def _out(self, params, out, x):
+        """The wo product of the (B, H', S', hd) attention output."""
+        b, s, _ = x.shape
+        out = out.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
+        return torch.matmul(out, params["wo"].to(x.dtype))
+
+    def forward(self, params, state, xs: List, train: bool):
+        (x,) = xs
+        q, k, v = self._heads(params, x)
         out = flash_attention(q, k, v, self.causal)
-        out = out.to(x.dtype).transpose(1, 2).reshape(b, s, d)
-        y = torch.matmul(out, params["wo"].to(x.dtype))
+        y = self._out(params, out, x)
+        return y + params["bo"].to(x.dtype), state
+
+    def sharded_forward(self, params, state, xs: List, train: bool, grid):
+        from flexflow_tpu_torch.parallel.ring_attention import \
+            ring_attention
+
+        (x,) = xs
+        q, k, v = self._heads(params, x)
+        if grid.parts("s") > 1:
+            out = ring_attention(
+                q, k, v, grid.group(("s",)), grid.index("s"), self.causal,
+                "p2p" if grid.machine.send_recv else "gather")
+        else:
+            out = flash_attention(q, k, v, self.causal)
+        # each head block's wo product is a partial sum over the heads
+        y = grid.all_reduce(self._out(params, out, x), ("h",))
         return y + params["bo"].to(x.dtype), state

@@ -134,7 +134,7 @@ class Op:
         """Spec of the output over ``AXIS_NAMES``."""
         raise NotImplementedError(
             f"op {self.name!r} ({type(self).__name__}) has no grid over "
-            f"several ranks yet (ROADMAP Queue A 3c-3d)")
+            f"several ranks yet (ROADMAP Queue A 3c-ii)")
 
     def output_specs(self) -> List:
         return [self.output_spec()]
@@ -323,7 +323,9 @@ class OpGrid:
         self.machine.create_groups([self._group_axes(names)
                                     for names in names_list])
 
-    def _group(self, names):
+    def group(self, names):
+        """The process group of this rank's points along grid axes
+        ``names`` (made by :meth:`prepare`), members in block order."""
         if self.positions is not None:
             return self._groups[tuple(names)]
         return self.machine.group(self._group_axes(names))
@@ -337,7 +339,7 @@ class OpGrid:
         parts = self.parts(name)
         if parts == 1:
             return x
-        group = self._group((name,))
+        group = self.group((name,))
 
         def box(lo_hi):
             return tuple(lo_hi if d == dim else (0, x.shape[d])
@@ -354,4 +356,4 @@ class OpGrid:
 
         if math.prod(self.parts(a) for a in names) == 1:
             return x
-        return all_reduce_sum(x, self._group(names))
+        return all_reduce_sum(x, self.group(names))

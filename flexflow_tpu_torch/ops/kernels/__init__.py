@@ -11,12 +11,16 @@ flags, so an edited source or header is rebuilt.
 
 ``launches`` counts kernel launches by kernel name.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels.
+path went through the kernels.  A launch made for a partial form
+(``flash_attention_partial``, ``fused_linear_ce_partial``: inside
+:func:`counted_as`) counts under ``<name>.partial`` instead.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -40,8 +44,29 @@ launches: collections.Counter = collections.Counter()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+#: the suffix of the form whose launches are being counted ("" or
+#: ".partial")
+_form: contextvars.ContextVar = contextvars.ContextVar("kernel_form",
+                                                      default="")
+
+
 def reset_launches() -> None:
     launches.clear()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``, under the form being counted."""
+    launches[name + _form.get()] += 1
+
+
+@contextlib.contextmanager
+def counted_as(form: str):
+    """Count the launches made inside the block as ``<name>.<form>``."""
+    reset = _form.set(f".{form}")
+    try:
+        yield
+    finally:
+        _form.reset(reset)
 
 
 @functools.lru_cache(maxsize=None)

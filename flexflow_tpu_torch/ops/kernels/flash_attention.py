@@ -27,6 +27,10 @@ versions take the same padded path on the CPU.  :func:`flash_attention`
 is the differentiable op (the
 ``FlashAttention`` autograd function); it looks both up when called, so a
 caller can swap in the plain versions for a reference run.
+:func:`flash_attention_partial` is its partial form, the step of ring
+attention (``flash_attention.py:385``): ``(o, lse)`` over one K/V chunk,
+differentiable in both (the lse cotangent folds into delta, kernels 2-3
+unchanged), and :func:`combine_partials` merges two such partials.
 """
 
 from __future__ import annotations
@@ -152,7 +156,7 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = False, scale=None):
             lse.data_ptr(), b * h, sq, sk, d, int(bool(causal)),
             int(q.dtype == torch.bfloat16), _scale(d, scale), stream)
     kernels.check(lib, code, NAME)
-    kernels.launches[NAME] += 1
+    kernels.count(NAME)
     return o, lse
 
 
@@ -178,13 +182,22 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
 # backward
 
 
+def _delta(do, o, g_lse):
+    """``rowsum(do * o)`` in float32 (B, H, Sq), less the lse cotangent
+    ``g_lse`` of the partial form (``flash_attention.py:326-331``): then
+    ds = p (dp - delta + g_lse)."""
+    delta = (do.float() * o).sum(dim=-1)
+    return delta if g_lse is None else delta - g_lse.float()
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
-                              scale=None):
+                              scale=None, g_lse=None):
     """``(dq, dk, dv)`` in float32, in plain PyTorch with the whole score
     matrix materialized: p recomputed from the saved lse (a fully masked
     row, lse = -inf, read as lse = 0), ``delta = rowsum(do * o)`` in
-    float32, and ``do`` cast to q's dtype before the products, as the
-    Pallas backward's caller does (``flash_attention.py:320-325``).  With
+    float32 (less ``g_lse``, the cotangent of lse, where given), and
+    ``do`` cast to q's dtype before the products, as the Pallas
+    backward's caller does (``flash_attention.py:320-331``).  With
     bfloat16 inputs p and ds are rounded to the operand dtype before the
     products that read them, as the Pallas kernels cast them.  ``scale``
     defaults to ``1/sqrt(d)``."""
@@ -192,7 +205,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
     scale = _scale(d, scale)
     sq, sk = q.shape[2], k.shape[2]
     dof = do.float()
-    delta = (dof * o).sum(dim=-1, keepdim=True)
+    delta = _delta(do, o, g_lse)[..., None]
     do_k = dof.to(q.dtype).float()
     qf, kf, vf = q.float(), k.float(), v.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -262,7 +275,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta,
             b * h, sq, sk, d, int(bool(causal)),
             int(q.dtype == torch.bfloat16), _scale(d, scale), stream)
     kernels.check(lib, code, NAME_DKV)
-    kernels.launches[NAME_DKV] += 1
+    kernels.count(NAME_DKV)
     return dk, dv
 
 
@@ -285,15 +298,16 @@ def flash_attention_bwd_dq_cuda(q, k, v, do_k, lse, delta,
             d, int(bool(causal)), int(q.dtype == torch.bfloat16),
             _scale(d, scale), stream)
     kernels.check(lib, code, NAME_DQ)
-    kernels.launches[NAME_DQ] += 1
+    kernels.count(NAME_DQ)
     return dq
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = False,
-                             scale=None):
+                             scale=None, g_lse=None):
     """``(dq, dk, dv)`` float32 through the two backward kernels; delta
-    and the cast of ``do`` to q's dtype are PyTorch ops before them."""
-    delta = (do.float() * o).sum(dim=-1)
+    (less ``g_lse`` where given) and the cast of ``do`` to q's dtype are
+    PyTorch ops before them."""
+    delta = _delta(do, o, g_lse).contiguous()
     do_k = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do_k, lse, delta, causal,
@@ -303,10 +317,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        g_lse=None):
     """``(dq, dk, dv)`` float32 at any head dim up to 128, through the
     head-dim padding: the plain version for CPU tensors, the CUDA kernels
-    for CUDA tensors, an error for anything else."""
+    for CUDA tensors, an error for anything else.  ``g_lse`` (B, H, Sq),
+    the cotangent of the forward's lse, is the partial form's
+    (:func:`flash_attention_partial`); None is zero."""
     if q.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (k, v, o, lse, do)):
             raise ValueError(f"{NAME_DKV}: inputs on different devices")
@@ -319,7 +336,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
     d = q.shape[-1]
     dp = padded_head_dim(d)
     q, k, v, o, do = _pad_head_dim(dp, q, k, v, o, do)
-    grads = run(q, k, v, o, lse, do, causal, 1.0 / math.sqrt(d))
+    extra = {} if g_lse is None else {"g_lse": g_lse}
+    grads = run(q, k, v, o, lse, do, causal, 1.0 / math.sqrt(d), **extra)
     return tuple(g if dp == d else g[..., :d].contiguous() for g in grads)
 
 
@@ -348,3 +366,65 @@ def flash_attention(q, k, v, causal: bool = False):
     """softmax(q kᵀ / sqrt(d) [+ causal mask]) v as float32 (B, H, Sq, d),
     differentiable in q, k and v: the JAX package's ``flash_attention``."""
     return FlashAttention.apply(q, k, v, bool(causal))
+
+
+# ---------------------------------------------------------------------------
+# the partial form (ring attention's step)
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """``(o, lse)`` of attention over one K/V chunk, differentiable in
+    both outputs (``flash_attention.py:385``): the forward is
+    :func:`flash_attention_fwd`; the backward folds the lse cotangent
+    into delta and runs :func:`flash_attention_bwd`, kernels 2-3
+    unchanged (``flash_attention.py:318-331``).  Their launches count as
+    ``<name>.partial`` (``kernels.counted_as``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        with kernels.counted_as("partial"):
+            o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        with kernels.counted_as("partial"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                             ctx.causal, g_lse=g_lse)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention_partial(q, k, v, causal: bool = False):
+    """Attention of q (B, H, Sq, d) over one K/V chunk (B, H, Sk, d), Sq
+    and Sk free: ``(o, lse)``, o the chunk-normalized float32 output and
+    lse (B, H, Sq) the float32 log-sum-exp of its scaled scores (-inf, o
+    = 0, for a row with no visible key).  Partials over disjoint key sets
+    merge exactly by :func:`combine_partials`."""
+    return FlashAttentionPartial.apply(q, k, v, bool(causal))
+
+
+def combine_partials(o1, lse1, o2, lse2):
+    """Merge two chunk-normalized partial attentions by log-sum-exp weight
+    into the softmax over the union of their key sets
+    (``flash_attention.py:401-414``).  A fully masked partial (lse = -inf,
+    o = 0) drops out; two give o = 0, lse = -inf.  Every ``exp`` and
+    ``log`` reads a finite argument (the max is made safe first), so no
+    gradient through a masked branch is NaN."""
+    m = torch.maximum(lse1, lse2)
+    safe_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    zero = torch.zeros_like(m)
+    w1 = torch.where(torch.isfinite(lse1),
+                     torch.exp(torch.where(torch.isfinite(lse1), lse1,
+                                           safe_m) - safe_m), zero)
+    w2 = torch.where(torch.isfinite(lse2),
+                     torch.exp(torch.where(torch.isfinite(lse2), lse2,
+                                           safe_m) - safe_m), zero)
+    tot = w1 + w2
+    denom = torch.clamp(tot, min=1e-30)
+    lse = torch.where(tot > 0, safe_m + torch.log(denom),
+                      torch.full_like(m, float("-inf")))
+    o = (o1 * w1[..., None] + o2 * w2[..., None]) / denom[..., None]
+    return o, lse

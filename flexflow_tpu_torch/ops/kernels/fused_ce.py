@@ -19,9 +19,13 @@ adds them in a fixed order.  With ``logits = x @ w + b``
   (N,): ``lse = logsumexp(logits)`` per row and ``nll = lse -
   logits[label]``; a label that is negative or >= V matches nothing, so
   its nll is its lse (the JAX padding contract; the causal shift's -1).
-* ``fused_linear_ce_bwd(x, w, b, labels, lse, g) -> (dx, dw, db)`` in
-  float32 for a cotangent g (N,) of nll: ``t = g (softmax - onehot)``,
-  ``dx = t wᵀ``, ``dw = xᵀ t``, ``db = Σ_rows t``.
+* ``fused_linear_ce_bwd(x, w, b, labels, lse, gp, goh) -> (dx, dw,
+  db)`` in float32 for two row vectors gp, goh (N,): ``t = gp softmax -
+  goh onehot``, ``dx = t wᵀ``, ``dw = xᵀ t``, ``db = Σ_rows t``
+  (``fused_ce.py:112-124``).  For a cotangent g of nll alone gp = goh =
+  g (goh defaults to gp); the partial form
+  :func:`fused_linear_ce_partial`, whose lse is an output too, passes gp
+  = g_nll + g_lse and goh = g_nll (``fused_ce.py:262-277``).
 
 The kernels never store the (N, V) logits; the plain versions do.  The
 kernels take x and w in one dtype (float32 or bfloat16), b in float32 and
@@ -71,17 +75,19 @@ def fused_linear_ce_fwd_plain(x, w, b, labels):
     return lse - torch.where(hit, corr, torch.zeros_like(corr)), lse
 
 
-def fused_linear_ce_bwd_plain(x, w, b, labels, lse, g):
-    """``(dx, dw, db)`` float32 in plain PyTorch: t = g (softmax -
-    onehot), rounded to x's dtype before the two products (as the Pallas
-    kernels cast it to the operand dtype), summed unrounded for db."""
+def fused_linear_ce_bwd_plain(x, w, b, labels, lse, gp, goh=None):
+    """``(dx, dw, db)`` float32 in plain PyTorch: t = gp softmax - goh
+    onehot (goh defaults to gp), rounded to x's dtype before the two
+    products (as the Pallas kernels cast it to the operand dtype), summed
+    unrounded for db."""
     logits = _logits(x, w, b)
     v = logits.shape[1]
     p = torch.exp(logits - lse[:, None])
     labels = labels.long()
     onehot = (labels[:, None] == torch.arange(v, device=x.device)[None, :])
-    g = g.float()[:, None]
-    t = g * p - g * onehot.float()
+    gp = gp.float()[:, None]
+    goh = gp if goh is None else goh.float()[:, None]
+    t = gp * p - goh * onehot.float()
     tr = t.to(x.dtype).float()
     dx = torch.matmul(tr, w.float().t())
     dw = torch.matmul(x.float().t(), tr)
@@ -105,13 +111,13 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = kernels.load(SOURCE_BWD)
     if lib.ff_fused_ce_bwd_dx.argtypes is None:
-        lib.ff_fused_ce_bwd_dx.argtypes = [ctypes.c_void_p] * 7 \
+        lib.ff_fused_ce_bwd_dx.argtypes = [ctypes.c_void_p] * 8 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ff_fused_ce_bwd_dx.restype = ctypes.c_int
         lib.ff_fused_ce_bwd_dx_sum.argtypes = [ctypes.c_void_p] * 2 \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.ff_fused_ce_bwd_dx_sum.restype = ctypes.c_int
-        lib.ff_fused_ce_bwd_dw.argtypes = [ctypes.c_void_p] * 8 \
+        lib.ff_fused_ce_bwd_dw.argtypes = [ctypes.c_void_p] * 9 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.ff_fused_ce_bwd_dw.restype = ctypes.c_int
     return lib
@@ -198,7 +204,7 @@ def fused_linear_ce_fwd_partial_cuda(x, w, b, labels):
             work.data_ptr(), n, d, v, splits,
             int(x.dtype == torch.bfloat16), _stream(x))
     kernels.check(lib, code, NAME_FWD)
-    kernels.launches[NAME_FWD] += 1
+    kernels.count(NAME_FWD)
     return work
 
 
@@ -220,7 +226,7 @@ def fused_linear_ce_fwd_combine_cuda(work):
                                            lse.data_ptr(), n, splits,
                                            _stream(work))
     kernels.check(lib, code, NAME_FWD_COMBINE)
-    kernels.launches[NAME_FWD_COMBINE] += 1
+    kernels.count(NAME_FWD_COMBINE)
     return nll, lse
 
 
@@ -239,11 +245,14 @@ def _work_shape(splits: int, n: int, d: int) -> tuple:
     return (splits, -(-n // DX_ROWS) * DX_ROWS, -(-d // DX_COLS) * DX_COLS)
 
 
-def fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, g):
+def fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, gp,
+                                        goh=None):
     """Launch the dx kernel on the current stream: its float32 workspace
     (S, N rounded up to 64, d rounded up to 256), one partial dx per
-    vocab slice, S = :func:`dx_splits`.  N and d must be positive."""
-    _check(NAME_DX, x, w, b, labels, lse, g)
+    vocab slice, S = :func:`dx_splits`.  N and d must be positive; goh
+    defaults to gp."""
+    goh = gp if goh is None else goh
+    _check(NAME_DX, x, w, b, labels, lse, gp, goh)
     n, d = x.shape
     v = w.shape[1]
     if n == 0 or d == 0:
@@ -255,10 +264,11 @@ def fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, g):
     with torch.cuda.device(x.device):
         code = lib.ff_fused_ce_bwd_dx(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), g.data_ptr(), work.data_ptr(), n, d, v, splits,
+            lse.data_ptr(), gp.data_ptr(), goh.data_ptr(), work.data_ptr(),
+            n, d, v, splits,
             int(x.dtype == torch.bfloat16), _stream(x))
     kernels.check(lib, code, NAME_DX)
-    kernels.launches[NAME_DX] += 1
+    kernels.count(NAME_DX)
     return work
 
 
@@ -277,24 +287,27 @@ def fused_linear_ce_bwd_dx_sum_cuda(work, n: int, d: int):
         code = lib.ff_fused_ce_bwd_dx_sum(work.data_ptr(), dx.data_ptr(), n,
                                           d, work.shape[0], _stream(work))
     kernels.check(lib, code, NAME_DX_SUM)
-    kernels.launches[NAME_DX_SUM] += 1
+    kernels.count(NAME_DX_SUM)
     return dx
 
 
-def fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, g):
+def fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, gp, goh=None):
     """dx float32 (N, d) through the dx kernel and its finishing sum."""
-    _check(NAME_DX, x, w, b, labels, lse, g)
+    goh = gp if goh is None else goh
+    _check(NAME_DX, x, w, b, labels, lse, gp, goh)
     n, d = x.shape
     if n == 0 or d == 0:
         return torch.empty((n, d), dtype=torch.float32, device=x.device)
-    work = fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, g)
+    work = fused_linear_ce_bwd_dx_partial_cuda(x, w, b, labels, lse, gp,
+                                               goh)
     return fused_linear_ce_bwd_dx_sum_cuda(work, n, d)
 
 
-def fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g):
+def fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, gp, goh=None):
     """Launch the dw/db kernel on the current stream: ``(dw, db)``
-    float32 (d, V) and (V,)."""
-    _check(NAME_DW, x, w, b, labels, lse, g)
+    float32 (d, V) and (V,); goh defaults to gp."""
+    goh = gp if goh is None else goh
+    _check(NAME_DW, x, w, b, labels, lse, gp, goh)
     n, d = x.shape
     v = w.shape[1]
     if n == 0:   # no rows: nothing to launch, the sums are empty
@@ -306,17 +319,18 @@ def fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g):
     with torch.cuda.device(x.device):
         code = lib.ff_fused_ce_bwd_dw(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(), n,
-            d, v, int(x.dtype == torch.bfloat16), _stream(x))
+            lse.data_ptr(), gp.data_ptr(), goh.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), n, d, v, int(x.dtype == torch.bfloat16),
+            _stream(x))
     kernels.check(lib, code, NAME_DW)
-    kernels.launches[NAME_DW] += 1
+    kernels.count(NAME_DW)
     return dw, db
 
 
-def fused_linear_ce_bwd_cuda(x, w, b, labels, lse, g):
+def fused_linear_ce_bwd_cuda(x, w, b, labels, lse, gp, goh=None):
     """``(dx, dw, db)`` float32 through the two backward kernels."""
-    dx = fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, g)
-    dw, db = fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, g)
+    dx = fused_linear_ce_bwd_dx_cuda(x, w, b, labels, lse, gp, goh)
+    dw, db = fused_linear_ce_bwd_dw_cuda(x, w, b, labels, lse, gp, goh)
     return dx, dw, db
 
 
@@ -340,13 +354,15 @@ def fused_linear_ce_fwd(x, w, b, labels):
     raise ValueError(f"{NAME_FWD}: no implementation for device {x.device}")
 
 
-def fused_linear_ce_bwd(x, w, b, labels, lse, g):
-    """``(dx, dw, db)`` float32: the plain version for CPU tensors, the
-    CUDA kernels for CUDA tensors, an error for anything else."""
-    if _on_cpu(x, w, b, labels, lse, g):
-        return fused_linear_ce_bwd_plain(x, w, b, labels, lse, g)
+def fused_linear_ce_bwd(x, w, b, labels, lse, gp, goh=None):
+    """``(dx, dw, db)`` float32 for t = gp softmax - goh onehot (goh
+    defaults to gp): the plain version for CPU tensors, the CUDA kernels
+    for CUDA tensors, an error for anything else."""
+    rows = (gp,) if goh is None else (gp, goh)
+    if _on_cpu(x, w, b, labels, lse, *rows):
+        return fused_linear_ce_bwd_plain(x, w, b, labels, lse, gp, goh)
     if x.device.type == "cuda":
-        return fused_linear_ce_bwd_cuda(x, w, b, labels, lse, g)
+        return fused_linear_ce_bwd_cuda(x, w, b, labels, lse, gp, goh)
     raise ValueError(f"{NAME_DX}: no implementation for device {x.device}")
 
 
@@ -382,3 +398,43 @@ def fused_linear_ce(x, w, b, labels):
     kernels storing the (N, V) logits.  x (N, d), w (d, V), b (V,), labels
     (N,) integer; returns float32 (N,), differentiable in x, w and b."""
     return FusedLinearCE.apply(x, w, b, labels)
+
+
+class FusedLinearCEPartial(torch.autograd.Function):
+    """``(nll_local, lse_local)`` (N,) float32 over this vocab slice
+    (``fused_ce.py:322``), differentiable in both outputs: the backward
+    runs kernels 5-6 with gp = g_nll + g_lse and goh = g_nll, since nll =
+    lse - logit[label] and d lse / d logits = softmax
+    (``fused_ce.py:262-277``).  Casts as :class:`FusedLinearCE`; the
+    launches count as ``<name>.partial`` (``kernels.counted_as``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels):
+        xk = x.contiguous()
+        wk = w.to(x.dtype).contiguous()
+        bk = b.float().contiguous()
+        lab = labels.to(torch.int32).contiguous()
+        with kernels.counted_as("partial"):
+            nll, lse = fused_linear_ce_fwd(xk, wk, bk, lab)
+        ctx.save_for_backward(xk, wk, bk, lab, lse)
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+        return nll, lse
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse):
+        x, w, b, labels, lse = ctx.saved_tensors
+        goh = g_nll.float().contiguous()
+        gp = (goh + g_lse.float()).contiguous()
+        with kernels.counted_as("partial"):
+            dx, dw, db = fused_linear_ce_bwd(x, w, b, labels, lse, gp, goh)
+        xdt, wdt, bdt = ctx.dtypes
+        return dx.to(xdt), dw.to(wdt), db.to(bdt), None
+
+
+def fused_linear_ce_partial(x, w, b, labels):
+    """The vocab-slice form of :func:`fused_linear_ce`: ``(nll_local,
+    lse_local)`` over w's V_local columns, labels already localized to
+    the slice (a label outside ``[0, V_local)`` matches nothing, so its
+    nll_local is its lse_local).  Slices combine exactly: lse = logsumexp
+    of the lse_c, the label's logit = the sum of (lse_c - nll_c)."""
+    return FusedLinearCEPartial.apply(x, w, b, labels)

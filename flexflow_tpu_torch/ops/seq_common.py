@@ -1,6 +1,14 @@
 """Sequence-model elementwise ops on (batch, seq, d) tensors: LayerNorm,
 residual add, GELU and the learned positional embedding (PyTorch port of
-``flexflow_tpu/ops/seq_common.py``)."""
+``flexflow_tpu/ops/seq_common.py``).
+
+Over several ranks the grid is (s, n) (``seq_common.py:15-29``): every
+tensor is batch-split over ``n`` and sequence-split over ``s``, whole
+over the features, and each rank computes its block alone.
+LayerNorm's scale and bias are replicated; ``PosEmbed``'s table is
+split by ``s``, each ``s`` block holding its rows.  A gradient is summed
+over the ranks that hold the same block (``FFModel._setup_leaves``).
+The JAX ops have no placed form, so a device subset normalizes."""
 
 from __future__ import annotations
 
@@ -15,6 +23,13 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class _SeqElementwise(Op):
     AXIS_NAMES = ("s", "n")
+    SHARDED = True
+
+    def output_spec(self):
+        return ("n", "s", None)
+
+    def regrid_input_specs(self):
+        return [("n", "s", None)] * len(self.inputs)
 
 
 class LayerNormSeq(_SeqElementwise):
@@ -79,6 +94,9 @@ class PosEmbed(_SeqElementwise):
     def init_params(self, gen, device) -> Dict:
         return {"table": torch.randn((self.seq_len, self.d), generator=gen,
                                      device=device) * 0.02}
+
+    def param_specs(self):
+        return {"table": ("s", None)}
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs

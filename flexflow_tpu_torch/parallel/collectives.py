@@ -17,7 +17,20 @@ gradient is the sum of the partials over the replicas.  So
   all-reduce as its backward: the summed value is a replica;
 * the loss, every rank's partial sum added up by :func:`global_sum`, is
   differentiated from each rank's own partial: its backward is the
-  identity, and a term must be counted on one rank only.
+  identity, and a term must be counted on one rank only;
+* a rotation of the ring (:func:`rotate`: each member sends its block
+  to the next member and receives the previous one's) has the reverse
+  rotation as its backward;
+* the all-reduce max of :func:`all_reduce_max` (a stability shift)
+  carries no gradient, as ``lax.pmax`` of a detached value.
+
+A rotation moves by the transport the machine fixed at start from the
+backend (``MachineModel.send_recv``): paired ``isend``/``irecv``
+batched by ``batch_isend_irecv`` ("p2p", NCCL and gloo with CPU
+tensors), or, on gloo with CUDA tensors, which gloo carries no
+point-to-point for, an all-gather within the group from which each
+member keeps its predecessor's block ("gather").  The transport is
+never switched because a call failed.
 
 Pieces of uneven blocks are zero-padded to one shape for the collective
 and trimmed after it.  A group of one member runs no collective.
@@ -343,3 +356,70 @@ def box_move(x, plan):
     if not plan.dtype.is_floating_point:
         return BoxMove.run(x, plan)
     return _chained(BoxMove, x, plan)
+
+
+# ---------------------------------------------------------------------------
+# the ring's moves (parallel/ring_attention.py)
+
+
+def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group, with no gradient
+    (``lax.pmax`` of a detached value)."""
+    import torch.distributed as dist
+
+    x = x.detach().clone()
+    if group.size == 1 and group.handle is None:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_handle(group))
+    return x
+
+
+def _rotate(x: torch.Tensor, group: Group, shift: int,
+            transport: str) -> torch.Tensor:
+    """Member ``m``'s ``x`` lands on member ``(m + shift) % size``: every
+    member returns the block of member ``(m - shift) % size``."""
+    import torch.distributed as dist
+
+    size = group.size
+    x = x.contiguous()
+    me = group.ranks.index(dist.get_rank())
+    if transport == "gather":
+        return all_gather_list(x, group)[(me - shift) % size].clone()
+    dst = group.ranks[(me + shift) % size]
+    src = group.ranks[(me - shift) % size]
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dst, _handle(group)),
+           dist.P2POp(dist.irecv, out, src, _handle(group))]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class Rotate(torch.autograd.Function):
+    """One step of the ring: each member's block moves to the member
+    ``shift`` places on (members in ``group.positions`` order, cyclic);
+    the backward moves the gradients ``shift`` places back."""
+
+    @staticmethod
+    def run(x, group, shift, transport):
+        return _rotate(x, group, shift, transport)
+
+    @staticmethod
+    def forward(ctx, x, token, group, shift, transport):
+        ctx.meta = (group, shift, transport)
+        return _rotate(x, group, shift, transport), _next_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        group, shift, transport = ctx.meta
+        return _rotate(g, group, -shift, transport), g_token, None, None, \
+            None
+
+
+def rotate(x, group: Group, transport: str, shift: int = 1):
+    """``x`` of the member ``shift`` places before this one in
+    ``group.positions`` (cyclic), as an autograd function on the
+    recording step's token chain; ``transport`` "p2p" or "gather"."""
+    if group.size == 1:
+        return x
+    return _chained(Rotate, x, group, shift, transport)

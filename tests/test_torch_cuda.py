@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each held against its plain
-PyTorch version on the same inputs, and the serving, CNN training, LM
-training (dense and mixture of experts) and NMT training paths counted
-through them.  Every test
-carries the ``cuda`` marker and skips, with the reason, where no GPU is
+PyTorch version on the same inputs (the partial forms of kernels 1-6,
+ring attention's and the vocab-parallel head's, too), and the serving,
+CNN training, LM training (dense and mixture of experts) and NMT
+training paths counted through them.  Every test carries the ``cuda``
+marker and skips, with the reason, where no GPU is
 present (kernels have no CPU mode).  This file imports neither JAX nor
 the JAX package, so it also runs where JAX is absent:
 
@@ -574,6 +575,68 @@ def _tiny_lm(gpu, dtype="float32"):
         batch_size=4, seq_length=64, num_layers=2, d_model=64, num_heads=4,
         d_ff=128, vocab_size=300, causal=True, learning_rate=0.1,
         compute_dtype=dtype), device=gpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,sk,causal", [
+    ((4, 12, 256, 64), 256, False),    # a ring chunk before the queries'
+    ((4, 12, 256, 64), 256, True),     # the ring's diagonal chunk
+    ((2, 3, 77, 64), 130, False),      # ragged, Sq != Sk
+    ((1, 2, 40, 96), 17, True),        # padded head dim, Sq > Sk
+])
+def test_flash_partial_form_matches_plain(gpu, dtype, shape, sk, causal):
+    """``flash_attention_partial``: (o, lse) through kernel 1 and both
+    cotangents through kernels 2-3 (g_lse folded into delta), counted as
+    the partial form, against the plain versions."""
+    q, k, v = (t.requires_grad_() for t in _qkv(13, shape, sk, dtype, gpu))
+    kernels.reset_launches()
+    o, lse = fa.flash_attention_partial(q, k, v, causal)
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(5)
+    do = torch.randn(o.shape, generator=gen, device=gpu)
+    g_lse = torch.randn(lse.shape, generator=gen, device=gpu)
+    grads = torch.autograd.grad((o, lse), (q, k, v), (do, g_lse))
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {f"{NAME}.partial": 1,
+                                      f"{fa.NAME_DKV}.partial": 1,
+                                      f"{fa.NAME_DQ}.partial": 1}
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o_p, lse_p = flash_attention_fwd_plain(qd, kd, vd, causal)
+    assert float((o.detach() - o_p).abs().max()) <= ATOL
+    assert float((lse.detach() - lse_p).abs().max()) <= ATOL
+    for got, want, name in zip(grads, fa.flash_attention_bwd_plain(
+            qd, kd, vd, o_p, lse_p, do, causal, g_lse=g_lse),
+            ("dq", "dk", "dv")):
+        _close(got.float(), want, dtype, name)
+
+
+@pytest.mark.parametrize("n,d,v", [
+    (8192, 768, 16384),    # a rank's slice of the LM head (two ranks)
+    (300, 100, 1000),      # ragged rows, depth and vocab
+])
+def test_fused_ce_partial_form_matches_plain(gpu, n, d, v):
+    """``fused_linear_ce_partial``: (nll, lse) through kernel 4 and
+    kernels 5-6 with two cotangent rows (gp = g_nll + g_lse, goh =
+    g_nll), counted as the partial form, against the plain versions;
+    labels below, inside and above the slice, and -1."""
+    x, w, b, lab, g = _ce_inputs(17, n, d, v, torch.float32, gpu)
+    lab = lab - v // 2
+    ts = [t.clone().requires_grad_() for t in (x, w, b)]
+    g_lse = torch.flip(g, (0,)) - 0.5
+    kernels.reset_launches()
+    nll, lse = ce.fused_linear_ce_partial(*ts, lab)
+    grads = torch.autograd.grad((nll, lse), ts, (g, g_lse))
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {
+        f"{name}.partial": 1 for name in (
+            ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM,
+            ce.NAME_DW)}
+    nll_p, lse_p = ce.fused_linear_ce_fwd_plain(x, w, b, lab)
+    _close(nll, nll_p, torch.float32, "nll")
+    _close(lse, lse_p, torch.float32, "lse")
+    for got, want, name in zip(grads, ce.fused_linear_ce_bwd_plain(
+            x, w, b, lab, lse_p, g + g_lse, g), ("dx", "dw", "db")):
+        _close(got, want, torch.float32, name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -10,8 +10,9 @@ and layouts, the regrid planner, the checks and the flags.
   inputs of their placed linears included; the edges out of a placed op
   are moves by box overlap instead.
 * A device subset is placed, its blocks only on its ranks; the refusals
-  that remain name their ROADMAP items: an op without a ported grid and
-  the LM driver's ``--strategy`` (3c), its pipeline flags (3d), a grid
+  that remain name their ROADMAP items: an op without a ported grid (the
+  MoE op, 3c-ii), the LM driver's pipeline flags and a strategy file's
+  ``__pipeline__`` block (3d), a grid
   that does not factor over the world and ``--ckpt-dir`` over several
   ranks (3e); ``-ll:gpu`` other than the world size.
 * ``-s``/``--strategy`` and ``-ll:gpu`` parse; a strategy that names one
@@ -259,17 +260,18 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     full, _ = ff._init_full(0)
     assert [p for p in range(8) if "linear1" in ff.shard_params(full, p)] \
         == [6]
-    # an op without a ported grid over several ranks: 3c-3d
+    # an op without a ported grid over several ranks (the MoE op): 3c-ii
     lm = TransformerLM(TransformerConfig(
         batch_size=2, seq_length=8, num_layers=1, d_model=16, num_heads=2,
-        d_ff=32, vocab_size=32), machine=_port_machine(2))
-    with pytest.raises(NotImplementedError, match="Queue A 3c-3d"):
+        d_ff=32, vocab_size=32, num_experts=2), machine=_port_machine(2))
+    with pytest.raises(NotImplementedError, match="Queue A 3c-ii"):
         lm.init()
-    # the LM driver's strategies (3c) and pipelines (3d)
+    # the LM driver's pipelines (3d): its flags and a strategy file's
+    # __pipeline__ block
     from flexflow_tpu_torch.apps import lm as t_lm
 
-    with pytest.raises(NotImplementedError, match="Queue A 3c"):
-        t_lm.parse_args(["--strategy", "s.json"])
+    with pytest.raises(NotImplementedError, match="Queue A 3d"):
+        t_lm.load_strategy(str(STRATEGIES / "transformer_2x4.json"))
     for flag in ("--pipeline-stages", "--microbatches", "--pipeline-tp"):
         with pytest.raises(NotImplementedError, match="Queue A 3d"):
             t_lm.parse_args([flag, "2"])

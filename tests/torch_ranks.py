@@ -453,6 +453,141 @@ def token_batches(steps, batch, seq, vocab, seed=5):
 
 
 # ---------------------------------------------------------------------------
+# the transformer LM trainer
+
+
+def lm_model(machine, cfg_kwargs, strategy_json):
+    """The port's TransformerLM on ``machine`` under ``strategy_json``
+    (data parallel where None)."""
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+    from flexflow_tpu_torch.strategy import Strategy
+
+    strategies = Strategy.from_json(strategy_json) if strategy_json \
+        else None
+    return TransformerLM(TransformerConfig(**cfg_kwargs), machine,
+                         strategies)
+
+
+def lm_train(machine, cfg_kwargs, strategy_json, trees_path, batches):
+    """SGD steps of the LM from the full params in ``trees_path`` on the
+    global token ``batches`` (each its own labels, as ``apps.lm`` feeds
+    them): ``(losses, params, {})``, the params as :func:`train` returns
+    them."""
+    import torch
+
+    from flexflow_tpu_torch.interop import params_from_jax, shard_params
+
+    model = lm_model(machine, cfg_kwargs, strategy_json)
+    params, _ = load_trees(trees_path)
+    p = shard_params(params_from_jax(params, "cpu", model=model), model)
+    opt = model.init_opt_state(p)
+    step = model.make_train_step()
+    losses = []
+    for toks in batches:
+        (t,) = model.local_batch(torch.from_numpy(toks))
+        p, _, opt, loss = step(p, {}, opt, t, t)
+        losses.append(float(loss))
+    return losses, _blocks(model.param_boxes(), p), {}
+
+
+def jax_lm(cfg_kwargs, strategy_json, devices, batches):
+    """The reference LM run on ``devices`` of the JAX virtual mesh:
+    ``(params, losses, final params)`` as numpy trees (member views)."""
+    from flexflow_tpu.machine import MachineModel
+    from flexflow_tpu.models.transformer import (TransformerConfig,
+                                                 TransformerLM)
+    from flexflow_tpu.strategy import Strategy
+
+    strategies = Strategy.from_json(strategy_json) if strategy_json \
+        else None
+    model = TransformerLM(TransformerConfig(**cfg_kwargs),
+                          MachineModel(devices), strategies)
+    params, state = model.init(seed=0)
+    full, _ = jax_logical(model, params, state)
+    step = model.make_train_step()
+    losses = []
+    for toks in batches:
+        params, state, _, loss = step(params, state, None, toks, toks)
+        losses.append(float(loss))
+    return full, losses, jax_logical(model, params, state)[0]
+
+
+def lm_local(cfg_kwargs, trees_path, batches):
+    """The port's LM in this process on one device, no process group:
+    ``(losses, final params)``."""
+    import torch
+
+    from flexflow_tpu_torch.interop import params_from_jax
+    from flexflow_tpu_torch.machine import MachineModel
+
+    model = lm_model(MachineModel("cpu"), cfg_kwargs, None)
+    params, _ = load_trees(trees_path)
+    p = params_from_jax(params, "cpu", model=model)
+    opt = model.init_opt_state(p)
+    step = model.make_train_step()
+    losses = []
+    for toks in batches:
+        t = torch.from_numpy(toks)
+        p, _, opt, loss = step(p, {}, opt, t, t)
+        losses.append(float(loss))
+    return losses, {key: {leaf: v.numpy() for leaf, v in sub.items()}
+                    for key, sub in p.items()}
+
+
+def check_lm(want, per_rank, cfg_kwargs, batches):
+    """Hold one LM case's rank results (``lm_train``'s, rank order) to the
+    JAX run ``want`` (``(losses, final params, trees path)``) and to the
+    port's run in one process: losses within rtol 2e-4 / atol 2e-5,
+    every final leaf within 1e-4 of its key's largest magnitude, the
+    ranks holding one block holding the same bits.  Returns the losses."""
+    j_losses, j_params, path = want
+    losses = per_rank[0][0]
+    assert all(r[0] == losses for r in per_rank)
+    np.testing.assert_allclose(losses, j_losses, rtol=LOSS_RTOL,
+                               atol=LOSS_ATOL)
+    shapes = {k: {leaf: v.shape for leaf, v in d.items()}
+              for k, d in j_params.items()}
+    params = assemble(shapes, [r[1] for r in per_rank])
+    close_trees(params, j_params, "params vs JAX")
+    one_losses, one_params = lm_local(cfg_kwargs, path, batches)
+    np.testing.assert_allclose(losses, one_losses, rtol=LOSS_RTOL,
+                               atol=LOSS_ATOL)
+    close_trees(params, one_params, "params vs one rank")
+    return losses
+
+
+def ring_case(machine, shape, s_axes, causal, transport, seed=1):
+    """``ring_attention`` of seeded global q, k, v (B, H, S, d) over the
+    groups along global axes ``s_axes`` (the sequence split over them,
+    batch over the rest): this rank's ``(box, o, dq, dk, dv)`` for a
+    weighted sum of o, the box its (batch, sequence) block."""
+    import torch
+
+    from flexflow_tpu_torch.parallel import collectives
+    from flexflow_tpu_torch.parallel.ring_attention import ring_attention
+
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype("float32"))
+               for _ in range(3))
+    axes = tuple(a for a, _ in machine.global_factors())
+    n_axes = tuple(a for a in axes if a not in s_axes)
+    entries = (n_axes, (), tuple(s_axes), ())
+    box = machine.block(entries, shape)
+    sl = tuple(slice(lo, hi) for lo, hi in box)
+    ql, kl, vl = (t[sl].clone().requires_grad_(True) for t in (q, k, v))
+    machine.create_groups([tuple(s_axes)])
+    group = machine.group(tuple(s_axes))
+    index = group.positions.index(machine.position)
+    weight = torch.from_numpy(rng.randn(*shape).astype("float32"))[sl]
+    with collectives.token_chain("cpu") as chain:
+        o = ring_attention(ql, kl, vl, group, index, causal, transport)
+        grads = torch.autograd.grad((o * weight).sum() + chain.token,
+                                    [ql, kl, vl, chain.first])[:-1]
+    return box, o.detach().numpy(), [g.numpy() for g in grads]
+
+
+# ---------------------------------------------------------------------------
 # the models, built alike in both packages
 
 
