@@ -6,9 +6,10 @@ the GPT and its mixture-of-experts form trained by ``apps.lm``,
 Inception-v3, DenseNet-121, ResNet-101 and VGG-16 trained by
 ``apps.cnn``, the NMT seq2seq model trained by ``apps.nmt``, AlexNet
 trained by ``torchrun ... apps.cnn`` under a strategy file, the NMT
-and AlexNet with ops placed on device subsets through ``torchrun``, and
+and AlexNet with ops placed on device subsets through ``torchrun``,
 the GPT trained by ``torchrun ... apps.lm`` under per-op strategies
-(ring and head-parallel attention, the fused vocab-parallel head) — and
+(ring and head-parallel attention, the fused vocab-parallel head), its
+MoE form under expert-parallel grids and its GPipe pipelined form — and
 checks that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU; on four,
@@ -20,7 +21,10 @@ checks that each path ran through its kernels.
 (Phase 17 starts the script again, as two torchrun workers, with
 ``--gloo-cuda-probe``, then with ``--gloo-p2p-probe``: its probes of
 gloo on CUDA tensors, the point-to-point one in processes of its own,
-since gloo may abort a process whose send of a CUDA tensor fails.)
+since gloo may abort a process whose send of a CUDA tensor fails.
+Phases 18c-18d and 19 start it as torchrun workers with ``--lm-ranks
+SPEC``: several ``apps.lm`` runs, and the MoE op probe, in one torchrun
+world.)
 
 Phases (any failure exits non-zero):
 
@@ -217,6 +221,34 @@ Phases (any failure exits non-zero):
     ring's rotations all-gather); the first 3 losses within 1e-4 of the
     one-rank run, rank 0's launches of kernels 1-6 and their partial
     forms counted, each rank's param keys logged;
+18c. MoE strategy slice (ROADMAP Queue A 3c-ii): ``apps.lm --experts 8``
+    at phase 16's widths through ``torchrun --nproc-per-node 1`` (NCCL),
+    1 warm-up and 3 steps, under a one-device strategy file: the losses
+    equal phase 16's first 4 bit for bit, and phase 9's per-step
+    launches of kernels 1-6; then two gloo ranks on cuda:0 under phase
+    18b's placements with the even MoE blocks (2, 1, 1) (experts split)
+    and the odd (1, 2, 1) (expert hidden channels split): the first 3
+    losses within 1e-4 of the one-rank run, rank 0's launches as 18b's,
+    each rank's param keys logged; in the same torchrun world, the MoE
+    op alone at full width (B 16, S 512, D 768, 8 experts, d_ff 3072)
+    under (2, 1, 1), (1, 2, 1) and (1, 1, 2) against the op on one
+    device in the same process: each rank's routing of its rows equal
+    bit for bit, y and the gradients within 1e-4 of their largest
+    magnitude, aux within 1e-6; the dropped share and each rank's w1
+    block logged;
+18d. pipeline slice (ROADMAP Queue A 3d): ``PipelinedLM``'s sequential
+    reference trained in this process on the card (phase 9's widths, 1
+    warm-up and 3 steps, SGD at lr 0.1: the zero head of JAX's
+    ``PipelinedLM.init`` keeps the losses at lr 1e-3 within ~1e-5 of ln
+    V), then, in one torchrun world of
+    two gloo ranks on cuda:0, ``apps.lm --pipeline-stages 2
+    --microbatches 4`` (its first 3 losses within 1e-4 of the
+    reference), ``--strategy examples/strategies/transformer_2x4.json``
+    as written (2 stages x 8 microbatches) against ``--pipeline-stages 2
+    --microbatches 8`` within 1e-6, and that run against the reference;
+    every rank launches each of kernels 1-3 (L/S)(M + S - 1) times a
+    step (the head is the plain float32 one of JAX's pipelined LM); each
+    rank's (stage, n, tp) and w1 block logged;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
@@ -225,7 +257,11 @@ Phases (any failure exits non-zero):
     images/s beside the one-card runs; then the LM under phase 18b's
     strategy over four ranks (ring x data parallel attention, the heads
     split four ways, the head (4, 1)), its tokens/s beside the one-card
-    run; one card runs without this phase;
+    run; the MoE LM with its blocks cycling (4, 1, 1), (2, 1, 2), (1, 2,
+    2) and the op probe under those grids, against phase 18c's one-rank
+    run; the pipelined LM at 2 stages x 2 tp and at 4 stages, against
+    phase 18d's reference; one card runs without this phase, and the
+    log says so;
 20. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
     share of each step, from the profiler's kernel rows and, without the
@@ -2429,7 +2465,8 @@ def moe_phase(torch, kernels, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
-            "tokens_per_sec": tokens_per_sec, "loss": losses}
+            "tokens_per_sec": tokens_per_sec, "loss": losses,
+            "event_ms": ms[len(ms) // 2]}
 
 
 def nmt_profile_phase(torch) -> None:
@@ -3179,6 +3216,482 @@ def lm_strategy4_phase(torch, kernels, card: str, lm_strategy: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the MoE LM under expert grids (ROADMAP Queue A 3c-ii) and the GPipe
+# pipelined LM (3d), through torchrun; several apps.lm runs of one world
+# share one torchrun (``--lm-ranks``, ``_ranks_worker``)
+
+# the MoE blocks' grids over 2 and 4 ranks, cycled over the 12 blocks:
+# expert parallel and TP inside the experts; over four, EP x DP and TP x
+# DP too
+MOE_GRIDS = {2: [(2, 1, 1), (1, 2, 1)], 4: [(4, 1, 1), (2, 1, 2), (1, 2, 2)]}
+# the op probe's grids: those, and over 2 ranks the batch split too,
+# which sums the aux loss's statistics over the n group
+MOE_PROBE_GRIDS = {2: [(2, 1, 1), (1, 2, 1), (1, 1, 2)],
+                   4: [(4, 1, 1), (2, 1, 2), (1, 2, 2)]}
+MOE_D_FF, MOE_TOP_K, MOE_CAPACITY = 3072, 2, 2.0
+MOE_PROBE_SHAPE = (LM_SHAPE[0], LM_SHAPE[2], 768)     # B, S, D
+PIPE_STAGES, PIPE_MICROBATCHES = 2, 4
+# the pipelined LM's head starts at zero (JAX's PipelinedLM.init), so at
+# lr 1e-3 its first losses move by ~1e-5 of ln V and a 1e-4 bar could
+# not see its blocks; at 0.1 they move a hundredfold more
+PIPE_LR = 0.1
+PIPE_FILE = (Path(__file__).resolve().parent / "examples" / "strategies"
+             / "transformer_2x4.json")
+# the file's run against the flags' run of the same (S, M): the same
+# code on the same inputs
+PIPE_FILE_RTOL = 1e-6
+
+
+def _moe_strategy_file(path: Path, ranks: int) -> None:
+    """``_lm_strategy_file``'s placements of the attention, norms,
+    residuals, embedding and head over ``ranks``, with ``blk{i}_moe``
+    cycling through ``MOE_GRIDS[ranks]`` (one rank: every grid a point on
+    device 0)."""
+    _lm_strategy_file(path, ranks)
+    obj = json.loads(path.read_text())
+    grids = MOE_GRIDS.get(ranks, [(1, 1, 1)])
+    for i in range(LM_LAYERS):
+        for op in ("ff1", "ff2", "gelu"):
+            del obj[f"blk{i}_{op}"]
+        obj[f"blk{i}_moe"] = {"dims": list(grids[i % len(grids)]),
+                              "devices": list(range(ranks))}
+    path.write_text(json.dumps(obj, indent=1))
+
+
+def _moe_probe(torch, machine, grids) -> dict:
+    """The MoE op at the MoE LM's widths (B 16, S 512, D 768, 8 experts,
+    d_ff 3072, top-2, capacity 2.0, float32) under each grid of
+    ``grids`` over this world, from seeded params, x and cotangent g,
+    through ``FFModel.apply`` on the rank's blocks with the gradients of
+    sum(y * g) + 0.5 aux summed as a step sums them; against the op on
+    one device on the whole x in this process.  Per grid: the rank's
+    rows, whether its routing of them equals the one-device routing of
+    those rows bit for bit, their dropped share, the largest differences
+    of y, aux and the gradients (each leaf's and x's relative to its
+    largest magnitude) and the rank's block of ``w1``."""
+    import math
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.parallel import collectives
+    from flexflow_tpu_torch.strategy import ParallelConfig, Strategy
+
+    dev = machine.device
+    b, s, d = MOE_PROBE_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    g = torch.randn((b, s, d), generator=gen, device=dev)
+    out, one = {}, None
+
+    def rel(got, want):
+        return float((got - want).abs().max()) \
+            / max(float(want.abs().max()), 1e-30)
+
+    for dims in grids:
+        cfg = FFConfig(batch_size=b)
+        cfg.strategies = Strategy()
+        cfg.strategies["moe"] = ParallelConfig(
+            tuple(dims), tuple(range(math.prod(dims))))
+        ff = FFModel(cfg, machine)
+        t = ff.create_input((b, s, d), name="x")
+        ff.moe("moe", t, MOE_EXPERTS, MOE_D_FF, MOE_TOP_K, MOE_CAPACITY)
+        op = ff.layers[-1]
+        full = ff._init_full(0)[0]["moe"]
+        if one is None:
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in full.items()}
+            xx = x.clone().requires_grad_(True)
+            (y1, aux1), _ = op.forward(leaves, {}, [xx], True)
+            grads = torch.autograd.grad((y1 * g).sum() + 0.5 * aux1,
+                                        list(leaves.values()) + [xx])
+            one = (op.route(full, x)[2], y1.detach(), float(aux1),
+                   dict(zip(leaves, grads[:-1])), grads[-1])
+        ff._setup_sharded()
+        p = {k: v.clone().requires_grad_(True)
+             for k, v in ff.shard_params({"moe": full})["moe"].items()}
+        (xl,) = ff.local_batch(x)
+        xl = xl.clone().requires_grad_(True)
+        lo, hi = ff._boxes_of(op, op.output_spec(), x.shape)[
+            machine.position][0]
+        first = ff._first_holder(op, op.output_spec(), x.shape)
+        with collectives.token_chain(dev) as chain:
+            values, _ = ff.apply({"moe": p}, {}, {t.tid: xl}, True)
+            y, aux = values[op.output.tid], values[op.aux.tid]
+            loss = collectives.global_sum(
+                (y * g[lo:hi]).sum() * float(first), machine.world_group()) \
+                + 0.5 * (aux if ff.aux_counted(op) else aux.detach())
+            keys = sorted(p)
+            grads = torch.autograd.grad(loss + chain.token,
+                                        [p[k] for k in keys]
+                                        + [xl, chain.first])[:-1]
+        synced = ff._sync_grads([("moe", k) for k in keys],
+                                list(grads[:-1]))
+        boxes = ff.param_boxes()["moe"]
+        slots = op.route(p, x[lo:hi])[2]
+        blo, bhi = machine.batch_block(b)
+        grad_err = max(
+            [rel(gg, one[3][k][tuple(slice(a, c) for a, c in boxes[k])])
+             for k, gg in zip(keys, synced)]
+            + [rel(grads[-1], one[4][blo:bhi])])
+        out["x".join(map(str, dims))] = {
+            "rows": [lo, hi],
+            "routing_equal": bool(torch.equal(slots, one[0][lo:hi])),
+            "dropped": float((slots == MOE_EXPERTS * op.capacity)
+                             .float().mean()),
+            "y_err": rel(y.detach(), one[1][lo:hi]),
+            "aux_err": abs(float(aux) - one[2]), "grad_err": grad_err,
+            "w1_box": boxes["w1"]}
+        del ff, p, values, y, grads, synced
+    return out
+
+
+def _ranks_worker(spec_path: str) -> int:
+    """Run under torchrun (``--lm-ranks SPEC``): each ``apps.lm`` argv
+    of the spec's ``runs`` in turn on this world, the launch counts and
+    the peak memory reset before each (its results in its
+    ``--result-json``); then, with ``moe_probe`` (a list of grids),
+    :func:`_moe_probe`, whose result rank r writes to ``probe_json``
+    (``.rank<r>`` on rank r > 0)."""
+    import torch
+
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.ops import kernels
+
+    spec = json.loads(Path(spec_path).read_text())
+    try:
+        for argv in spec["runs"]:
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            lm.main(argv, log=_log)
+        if spec.get("moe_probe"):
+            torch.backends.cuda.matmul.allow_tf32 = False
+            machine = distributed.initialize(spec["device"],
+                                             backend=spec["backend"])
+            res = _moe_probe(torch, machine, spec["moe_probe"])
+            path = spec["probe_json"] + (f".rank{machine.rank}"
+                                         if machine.rank else "")
+            Path(path).write_text(json.dumps(res))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _lm_ranks(ranks: int, root: Path, tag: str, runs, probe=None,
+              extra=()) -> tuple:
+    """``runs`` (apps.lm argv lists, ``extra`` appended to each) as one
+    torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
+    a ``--result-json`` of its own: ``(every rank's results per run,
+    every rank's probe result or None, seconds with torchrun's
+    start)``."""
+    outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
+    spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
+                     for a, o in zip(runs, outs)]}
+    if probe is not None:
+        device = "cuda:0" if "--device" in extra else "cuda"
+        spec.update(moe_probe=probe, device=device,
+                    backend="gloo" if "gloo" in extra else None,
+                    probe_json=str(root / f"{tag}_probe.json"))
+    path = root / f"{tag}_spec.json"
+    path.write_text(json.dumps(spec))
+    t = time.perf_counter()
+    _torchrun(ranks, [str(Path(__file__).resolve()), "--lm-ranks",
+                      str(path)], timeout=600)
+    seconds = time.perf_counter() - t
+    results = [_rank_results(o, ranks) for o in outs]
+    probes = _rank_results(Path(spec["probe_json"]), ranks) \
+        if probe is not None else None
+    return results, probes, seconds
+
+
+def _check_probe(label: str, probes: list) -> None:
+    """Hold the MoE op probe of every rank to its bars: its routing of its
+    rows bit-equal to one device's, y and the gradients within 1e-4 of
+    the largest magnitude, aux within 1e-6."""
+    for r, per_grid in enumerate(probes):
+        for grid, res in per_grid.items():
+            _log(f"{label}: rank {r} grid {grid} rows {res['rows']}: "
+                 f"routing equal to one device's {res['routing_equal']}, "
+                 f"dropped {res['dropped']:.4f} of its (token, choice) "
+                 f"pairs, y {res['y_err']:.3e}, aux {res['aux_err']:.3e}, "
+                 f"gradients {res['grad_err']:.3e} (relative), w1 block "
+                 f"{res['w1_box']}")
+            if not (res["routing_equal"] and res["y_err"] <= GRAD_RTOL[
+                    "float32"] and res["grad_err"] <= GRAD_RTOL["float32"]
+                    and res["aux_err"] <= 1e-6):
+                raise AssertionError(f"{label}: MoE probe on rank {r} "
+                                     f"under {grid}: {res}")
+
+
+def _log_ranks_run(label: str, results: list, seconds: float,
+                   card: str) -> float:
+    """Log a multi-rank run's rate, step ms, rank 0's peak and each rank's
+    params; its step ms."""
+    res = results[0]
+    step_ms = res["elapsed_s"] / LM_RANKS_STEPS * 1e3
+    _log(f"{label}: {res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms "
+         f"a step, peak on rank 0 {res['peak_memory_bytes'] / 1e9:.3f} GB, "
+         f"{seconds:.1f} s for the torchrun world; {card}")
+    for r, rr in enumerate(results):
+        where = rr.get("pipeline")
+        _log(f"{label}: rank {r} holds params {rr['leaves']['params']}"
+             + (f", at (stage, n, tp) {where['coords']}, w1 block "
+                f"{where['blocks']['w1']}" if where else ""))
+    return step_ms
+
+
+def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
+                       strategy_run: dict) -> dict:
+    """The MoE LM through ``torchrun --nproc-per-node 1 ... apps.lm
+    --experts 8 --strategy <one-device file>`` (NCCL) at the MoE phase's
+    widths, 1 + 3 steps, against the MoE phase's run without a strategy
+    in this process (the same losses, the launches of kernels 1-6
+    exact); then two gloo ranks on cuda:0 under
+    ``_moe_strategy_file`` (the even MoE blocks (2, 1, 1), the odd (1,
+    2, 1), the rest as the LM strategy phase places them) against the
+    one-rank run, and the MoE op probe over the same world."""
+    import shutil
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
+    argv = _moe_argv(steps, LM_RANKS_WARMUP)
+    try:
+        one = root / "moe_1.json"
+        _moe_strategy_file(one, 1)
+        (res,), _, seconds = _lm_ranks(1, root, "moe_one", [argv], extra=[
+            "--strategy", str(one)])
+        res = res[0]
+        step_ms = _log_ranks_run("moe strategy 1 rank (NCCL, every op one "
+                                 "point on device 0)", [res], seconds, card)
+        _log(f"moe strategy: without a strategy in this process "
+             f"{moe_run['event_ms']:.3f} ms a step by CUDA events (the MoE "
+             f"phase's median; its fit rate also counts two checkpoint "
+             f"saves)")
+        want = {name: LM_LAYERS * steps
+                for name in (fa.NAME, fa.NAME_DKV, fa.NAME_DQ)}
+        want.update({name: steps for name in (
+            ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM,
+            ce.NAME_DW)})
+        got = {k: v for k, v in res["launches"].items() if v}
+        base = moe_run["loss"][:steps]
+        _log(f"moe strategy 1 rank: losses {res['loss']} vs {base} without "
+             f"a strategy; launches {got}")
+        if got != want or res["loss"] != base:
+            raise AssertionError(f"moe strategy 1 rank: losses "
+                                 f"{res['loss']} (want {base} bit for "
+                                 f"bit), launches {got} (want {want})")
+        out = {"one": {"tokens_per_sec": res["tokens_per_sec"],
+                       "step_ms": step_ms, "loss": res["loss"]}}
+        carried = strategy_run["gloo_cuda"]
+        if not all(carried[c] == "ok" for c in GLOO_CUDA_NEEDED):
+            raise AssertionError(f"moe strategy: gloo does not carry CUDA "
+                                 f"tensors for {GLOO_CUDA_NEEDED}: "
+                                 f"{carried}")
+        out["two"] = _moe_ranks_run(2, root, card, res["loss"], argv,
+                                    ["--device", "cuda:0", "--dist-backend",
+                                     "gloo"])
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _moe_ranks_run(ranks: int, root: Path, card: str, want_loss, argv,
+                   extra) -> dict:
+    """The MoE LM over ``ranks`` under ``_moe_strategy_file`` and the MoE
+    op probe, in one torchrun world, held to their bars."""
+    path = root / f"moe_{ranks}.json"
+    _moe_strategy_file(path, ranks)
+    (results,), probes, seconds = _lm_ranks(
+        ranks, root, f"moe_{ranks}", [argv], MOE_PROBE_GRIDS[ranks],
+        list(extra) + ["--strategy", str(path)])
+    label = f"moe strategy {ranks} ranks ({' '.join(extra) or 'NCCL'})"
+    step_ms = _log_ranks_run(label, results, seconds, card)
+    _check_lm_run(label, results[0], want_loss,
+                  _lm_rank_launches(LM_RANKS_WARMUP + LM_RANKS_STEPS))
+    _check_probe(f"{label} probe", probes)
+    return {"tokens_per_sec": results[0]["tokens_per_sec"],
+            "step_ms": step_ms, "launches": results[0]["launches"]}
+
+
+def moe_strategy4_phase(torch, kernels, card: str, moe_ranks: dict) -> dict:
+    """The MoE LM over four cards (NCCL, a card a rank) with its blocks
+    cycling (4, 1, 1), (2, 1, 2), (1, 2, 2), the op probe under those
+    grids, against the one-rank run."""
+    import shutil
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        one = moe_ranks["one"]
+        out = _moe_ranks_run(4, root, card, one["loss"], _moe_argv(
+            LM_RANKS_WARMUP + LM_RANKS_STEPS, LM_RANKS_WARMUP), [])
+        _log(f"moe strategy 4: one card {one['tokens_per_sec']:.1f} tokens/s "
+             f"({one['step_ms']:.3f} ms a step), four cards "
+             f"{out['tokens_per_sec']:.1f} tokens/s ({out['step_ms']:.3f} "
+             f"ms a step)")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _pipe_argv(*extra) -> list:
+    return _lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS, LM_RANKS_WARMUP) + [
+        "--lr", str(PIPE_LR)] + list(extra)
+
+
+def _pipe_flags(stages: int, microbatches: int, tp: int = 1) -> list:
+    return _pipe_argv("--pipeline-stages", str(stages), "--microbatches",
+                      str(microbatches), "--pipeline-tp", str(tp))
+
+
+def _pipe_launches(stages: int, microbatches: int) -> dict:
+    """Each rank's launches of kernels 1-3 in the pipelined run: its
+    L/S blocks at each of the M + S - 1 ticks, every step; the vocab
+    head is the plain one of JAX's pipelined LM."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    n = LM_LAYERS // stages * (microbatches + stages - 1) \
+        * (LM_RANKS_WARMUP + LM_RANKS_STEPS)
+    return {fa.NAME: n, fa.NAME_DKV: n, fa.NAME_DQ: n}
+
+
+def _check_pipe_run(label: str, results: list, want_loss, launches: dict,
+                    rtol: float = LM_LOSS_RTOL) -> float:
+    """Every rank's launches of kernels 1-3 exactly ``launches``, the first
+    3 losses within ``rtol`` of ``want_loss``."""
+    for r, res in enumerate(results):
+        got = {k: v for k, v in res["launches"].items() if v}
+        if got != launches:
+            raise AssertionError(f"{label}: rank {r} launched {got}, want "
+                                 f"{launches}")
+    n = LM_CHECKED
+    got = results[0]["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(got[:n], want_loss[:n]))
+    _log(f"{label}: first losses {got[:n]} vs {want_loss[:n]}: max relative "
+         f"difference {rel:.3e} (tolerance {rtol:g}); launches on every "
+         f"rank {launches}")
+    if not (all(math.isfinite(v) for v in got) and rel <= rtol):
+        raise AssertionError(f"{label}: losses {got[:n]} differ from "
+                             f"{want_loss[:n]}")
+    return rel
+
+
+def _pipe_reference(torch, card: str) -> list:
+    """``PipelinedLM.loss_reference`` (the stages in order, no ring)
+    trained in this process on the card for 1 + 3 SGD steps at the LM
+    phase's widths and ``PIPE_LR``, from the seed the pipelined runs
+    take: its losses."""
+    import gc
+
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.parallel.pipeline import PipelinedLM
+
+    cfg = lm.parse_args(_pipe_flags(PIPE_STAGES, PIPE_MICROBATCHES))[0]
+    model = PipelinedLM(
+        MachineModel("cuda", world_size=PIPE_STAGES), PIPE_STAGES,
+        PIPE_MICROBATCHES, num_layers=cfg.num_layers, d_model=cfg.d_model,
+        num_heads=cfg.num_heads, d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
+        seq_length=cfg.seq_length, batch_size=cfg.batch_size,
+        causal=cfg.causal, learning_rate=cfg.learning_rate)
+    full = model.init_full(cfg.seed)
+    step = model.make_reference_step()
+    data = lm.synthetic_lm_batches(cfg.batch_size, cfg.seq_length,
+                                   cfg.vocab_size, seed=cfg.seed)
+    ref, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LM_RANKS_WARMUP + LM_RANKS_STEPS):
+        toks, labels = next(data)
+        t = time.perf_counter()
+        full, loss = step(full, toks, labels)
+        ref.append(float(loss))
+        ms.append((time.perf_counter() - t) * 1e3)
+    _log(f"pipeline reference (sequential stages in this process): losses "
+         f"{ref}, {sorted(ms[LM_RANKS_WARMUP:])[LM_RANKS_STEPS // 2]:.3f} ms "
+         f"a step (median of {LM_RANKS_STEPS}), peak "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {card}")
+    del full, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
+    """The GPipe pipelined LM: the sequential reference in this process
+    (:func:`_pipe_reference`); then two gloo ranks on cuda:0 in one
+    torchrun world: ``apps.lm --pipeline-stages 2 --microbatches 4``
+    against the reference, ``--strategy transformer_2x4.json`` as
+    written (2 stages x 8 microbatches) against ``--pipeline-stages 2
+    --microbatches 8``, each rank's launches of kernels 1-3 exact."""
+    import shutil
+
+    ref = _pipe_reference(torch, card)
+    carried = strategy_run["gloo_cuda"]
+    if not all(carried[c] == "ok" for c in GLOO_CUDA_NEEDED):
+        raise AssertionError(f"pipeline: gloo does not carry CUDA tensors "
+                             f"for {GLOO_CUDA_NEEDED}: {carried}")
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        file_m = json.loads(PIPE_FILE.read_text())["__pipeline__"][
+            "microbatches"]
+        runs, _, seconds = _lm_ranks(
+            2, root, "pipe_2", [
+                _pipe_flags(PIPE_STAGES, PIPE_MICROBATCHES),
+                _pipe_argv("--strategy", str(PIPE_FILE)),
+                _pipe_flags(PIPE_STAGES, file_m)],
+            extra=["--device", "cuda:0", "--dist-backend", "gloo"])
+        _log(f"pipeline: 3 runs in {seconds:.1f} s with torchrun's start")
+        label = "pipeline 2 stages x 4 microbatches (2 gloo ranks on cuda:0)"
+        step_ms = _log_ranks_run(label, runs[0], seconds, card)
+        _check_pipe_run(label, runs[0], ref,
+                        _pipe_launches(PIPE_STAGES, PIPE_MICROBATCHES))
+        file_label = f"pipeline {PIPE_FILE.name} (2 x {file_m})"
+        _log_ranks_run(file_label, runs[1], seconds, card)
+        _check_pipe_run(file_label, runs[1], runs[2][0]["loss"],
+                        _pipe_launches(PIPE_STAGES, file_m), PIPE_FILE_RTOL)
+        _check_pipe_run(f"pipeline flags 2 x {file_m}", runs[2], ref,
+                        _pipe_launches(PIPE_STAGES, file_m))
+        return {"ref": ref, "step_ms": step_ms,
+                "tokens_per_sec": runs[0][0]["tokens_per_sec"],
+                "launches": runs[0][0]["launches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def pipeline4_phase(torch, kernels, card: str, pipe: dict) -> dict:
+    """The pipelined LM over four cards (NCCL, a card a rank): 2 stages x
+    2 tp and 4 stages, each against the sequential reference."""
+    import shutil
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        runs, _, seconds = _lm_ranks(4, root, "pipe_4", [
+            _pipe_flags(2, PIPE_MICROBATCHES, 2),
+            _pipe_flags(4, PIPE_MICROBATCHES)])
+        out = {}
+        for res, (stages, tp) in zip(runs, ((2, 2), (4, 1))):
+            label = (f"pipeline 4 cards: {stages} stages x {tp} tp x "
+                     f"{PIPE_MICROBATCHES} microbatches")
+            step_ms = _log_ranks_run(label, res, seconds, card)
+            _check_pipe_run(label, res, pipe["ref"],
+                            _pipe_launches(stages, PIPE_MICROBATCHES))
+            out[(stages, tp)] = step_ms
+        _log(f"pipeline 4 cards: 2 gloo ranks on one card "
+             f"{pipe['step_ms']:.3f} ms a step; four cards {out}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -3191,6 +3704,8 @@ def main(argv) -> int:
                                  if c != "send_recv"])
     if "--gloo-p2p-probe" in argv:
         return _gloo_cuda_probe(["send_recv"])
+    if "--lm-ranks" in argv:
+        return _ranks_worker(argv[argv.index("--lm-ranks") + 1])
 
     from flexflow_tpu_torch.ops import kernels
     from flexflow_tpu_torch.ops.kernels import avgpool as ap
@@ -3265,18 +3780,28 @@ def main(argv) -> int:
     phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     nmt_run = phase("nmt", nmt_phase, torch, kernels, card)
-    phase("moe", moe_phase, torch, kernels, card)
+    moe_run = phase("moe", moe_phase, torch, kernels, card)
     strategy_run = phase("strategy", strategy_phase, torch, kernels, card)
     phase("placement", placement_phase, torch, kernels, card, nmt_run,
           strategy_run)
     lm_strategy = phase("lm strategy", lm_strategy_phase, torch, kernels,
                         card, lm_run, strategy_run)
+    moe_ranks = phase("moe strategy", moe_strategy_phase, torch, kernels,
+                      card, moe_run, strategy_run)
+    pipe = phase("pipeline", pipeline_phase, torch, kernels, card,
+                 strategy_run)
     if torch.cuda.device_count() >= 4:
         phase("strategy 4", strategy4_phase, torch, kernels, card)
         phase("placement 4", placement4_phase, torch, kernels, card,
               nmt_run, strategy_run)
         phase("lm strategy 4", lm_strategy4_phase, torch, kernels, card,
               lm_strategy)
+        phase("moe strategy 4", moe_strategy4_phase, torch, kernels, card,
+              moe_ranks)
+        phase("pipeline 4", pipeline4_phase, torch, kernels, card, pipe)
+    else:
+        _log(f"four-card phases skipped: {torch.cuda.device_count()} "
+             f"card(s) on this machine")
     if "--profile" in argv:
         phase("profile serving", profile_phase, torch, sliced["engine"])
         phase("profile lm", lm_profile_phase, torch)

@@ -14,19 +14,16 @@
 Flags are the JAX app's names for the ported fields (-b, -s/--seq,
 -l/--layers, --d-model, --heads, --d-ff, --vocab, --causal, --experts,
 --moe-every, --moe-top-k, -i/--iters/--iterations, --lr, --dtype,
---param-dtype, --seed, --strategy <file>) and ``fit``'s runtime
-(--ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
---max-rollbacks, --fault-spec), plus ``--device`` (default ``cuda``: the
-run raises when CUDA is absent unless ``--device cpu`` is given),
-``--warmup`` (untimed steps before the timed window, default 1 as in
-``fit``), ``--result-json PATH`` and ``--dist-backend NAME`` (as
-``apps.cnn``'s).  Unknown flags are ignored, like the reference parser;
-flags of features the port does not have yet (the pipelined path,
-elastic training, telemetry, ...) raise ``NotImplementedError``
-(``config.UNPORTED_FLAGS``, ``config.LM_UNPORTED_FLAGS``), and so does a
-strategy file with a ``__pipeline__`` block, which the JAX driver runs
-as its pipeline (``flexflow_tpu/apps/lm.py:237-269``; ROADMAP Queue A
-3d).
+--param-dtype, --seed, --strategy <file>, --pipeline-stages,
+--microbatches, --pipeline-tp) and ``fit``'s runtime (--ckpt-dir,
+--ckpt-freq, --prefetch-depth, --on-divergence, --max-rollbacks,
+--fault-spec), plus ``--device`` (default ``cuda``: the run raises when
+CUDA is absent unless ``--device cpu`` is given), ``--warmup`` (untimed
+steps before the timed window, default 1 as in ``fit``),
+``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
+Unknown flags are ignored, like the reference parser; flags of features
+the port does not have yet (elastic training, telemetry, ...) raise
+``NotImplementedError`` (``config.UNPORTED_FLAGS``).
 
 With ``--strategy`` every op runs on the grid and device list the file
 names, over the world ``torchrun`` makes (``WORLD_SIZE``; one process
@@ -34,13 +31,32 @@ without it); as in the JAX driver there is no ``-ll:gpu``.  ``-b`` is
 the global batch and every rank keeps its rows.  Rank 0 alone logs and
 returns the result.
 
+``--pipeline-stages S`` (> 1) trains the GPipe pipelined form of the
+dense stack instead (``parallel/pipeline.py``'s ``PipelinedLM``): S
+stages x (world / (S * tp)) data-parallel rows x ``--pipeline-tp``
+Megatron columns, ``--microbatches`` M (default S) microbatches a step.
+A strategy file's ``__pipeline__`` block with more than one stage takes
+the same path when neither ``--pipeline-stages`` nor ``--microbatches``
+is given, its tp the block's or else the head split of the file's
+attention entries (:func:`_per_op_tp`); as in the JAX driver
+(``flexflow_tpu/apps/lm.py:236-283``) the pipelined path refuses
+``--strategy`` (a file that does not drive it) and ``--experts`` with a
+``SystemExit``.  Every rank draws the global batch and takes its rows.
+
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.apps.lm --causal \\
+        -b 16 -s 512 -l 12 --pipeline-stages 2 --microbatches 4
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.apps.lm --causal \\
+        -b 16 -s 512 -l 12 --strategy examples/strategies/transformer_2x4.json
+
 The data are seeded random tokens (``data.synthetic_token_stream``) and
 the labels the tokens themselves: a causal model shifts them into
 next-token targets (``TransformerLM.loss_fn``).  They are made on the
 device, or on the host when ``--prefetch-depth`` is above 0, so that the
 prefetcher copies them.  Training is plain SGD through the
-flash-attention and fused LM-head kernels.  Prints the reference's
-``time = %.4fs, tp = %.2f images/s`` line, then ``tokens/s = ...``.
+flash-attention and fused LM-head kernels (the pipelined path: the
+flash kernels in its stages, the plain head of JAX's pipelined LM).
+Prints the reference's ``time = %.4fs, tp = %.2f images/s`` line, then
+``tokens/s = ...``.
 """
 
 from __future__ import annotations
@@ -51,8 +67,7 @@ import torch
 
 from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
     machine_for
-from flexflow_tpu_torch.config import (LM_UNPORTED_FLAGS, LM_UNPORTED_ITEMS,
-                                       RUNTIME_FLAGS, UNPORTED_FLAGS,
+from flexflow_tpu_torch.config import (RUNTIME_FLAGS, UNPORTED_FLAGS,
                                        flag_stream)
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
@@ -64,7 +79,8 @@ _INT_FIELDS = {
     "-i": "num_iterations", "--iters": "num_iterations",
     "--iterations": "num_iterations", "--seed": "seed",
     "--experts": "num_experts", "--moe-every": "moe_every",
-    "--moe-top-k": "moe_top_k",
+    "--moe-top-k": "moe_top_k", "--pipeline-stages": "pipeline_stages",
+    "--microbatches": "microbatches", "--pipeline-tp": "pipeline_tp",
 }
 _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
                "--param-dtype": "param_dtype"}
@@ -92,12 +108,10 @@ def parse_args(argv):
         elif a in RUNTIME_FLAGS:
             field, parse = RUNTIME_FLAGS[a]
             setattr(cfg, field, parse(val()))
-        elif a in UNPORTED_FLAGS or a in LM_UNPORTED_FLAGS:
-            item = LM_UNPORTED_ITEMS.get(a)
+        elif a in UNPORTED_FLAGS:
             raise NotImplementedError(
                 f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
-                f"package's flexflow_tpu/apps/lm.py has it)"
-                + (f"; ROADMAP Queue A {item}" if item else ""))
+                f"package's flexflow_tpu/apps/lm.py has it)")
         # unknown flags are ignored, like the reference parser
     return cfg, device, warmup
 
@@ -115,29 +129,109 @@ def synthetic_lm_batches(batch_size: int, seq_length: int, vocab_size: int,
         yield toks, toks
 
 
-def load_strategy(path: str):
-    """The strategy file at ``path``; NotImplementedError for one with a
-    ``__pipeline__`` block, which the JAX driver turns into its pipeline
-    (ROADMAP Queue A 3d)."""
-    from flexflow_tpu_torch.strategy import Strategy
+def _per_op_tp(strategies, cfg) -> int:
+    """The stage-internal tp a strategy file's per-op entries imply for a
+    pipeline block without one (``flexflow_tpu/apps/lm.py:152``): the
+    head split of the rank-3 entries of ops named ``*attn*`` (MoE grids
+    are rank 3 too), when every such entry agrees and it divides the
+    heads and d_ff; else 1."""
+    splits = {pc.dims[1] for name, pc in strategies.items()
+              if "attn" in name and len(pc.dims) == 3}
+    if len(splits) != 1:
+        return 1
+    tp = splits.pop()
+    if tp <= 1 or cfg.num_heads % tp or cfg.d_ff % tp:
+        return 1
+    return tp
 
-    strategies = Strategy.load(path)
-    if strategies.pipeline is not None:
-        raise NotImplementedError(
-            f"{path}: a __pipeline__ block ({strategies.pipeline}) drives "
-            f"the JAX driver's pipeline (flexflow_tpu/apps/lm.py:237-269), "
-            f"not ported to flexflow_tpu_torch yet; ROADMAP Queue A 3d")
-    return strategies
+
+def _pipeline_from_file(cfg, strategies, log) -> None:
+    """A ``__pipeline__`` block of more than one stage takes the GPipe
+    path when no pipeline flag was given (the flags disable the block
+    wholesale), the file's per-op entries then only voting on tp; a block
+    of one stage is ignored, the per-op entries kept
+    (``flexflow_tpu/apps/lm.py:236-269``)."""
+    pp = strategies.pipeline
+    if cfg.pipeline_stages or cfg.microbatches or not pp:
+        return
+    if pp["stages"] <= 1:
+        log(f"warning: __pipeline__ block in {cfg.strategy_file} has "
+            f"stages={pp['stages']} <= 1 — ignored; per-op entries kept")
+        return
+    cfg.pipeline_stages = pp["stages"]
+    cfg.microbatches = pp["microbatches"]
+    tp = int(pp.get("tp", 1) or 1)
+    if tp == 1:
+        tp = _per_op_tp(strategies, cfg)
+    cfg.pipeline_tp = tp
+    log(f"pipeline block from {cfg.strategy_file}: {pp['stages']} stages x "
+        f"{pp['microbatches']} microbatches"
+        + (f" x tp={tp} (stage-internal TP from the strategy file)"
+           if tp > 1 else "") + " (file-driven GPipe)")
+    cfg.strategy_file = ""
+
+
+def _main_pipelined(cfg, machine, warmup: int, log) -> dict:
+    """The GPipe path (``flexflow_tpu/apps/lm.py:175``): ``PipelinedLM``
+    over the world, every rank drawing the global batch; ``warmup``
+    untimed steps, then the timed ones.  Returns ``fit``'s keys (the
+    params this rank holds, ``state`` empty) and where the rank sits."""
+    import time
+
+    from flexflow_tpu_torch.parallel.pipeline import PipelinedLM
+
+    dev = machine.device
+    model = PipelinedLM(
+        machine, cfg.pipeline_stages,
+        cfg.microbatches or cfg.pipeline_stages,
+        num_layers=cfg.num_layers, d_model=cfg.d_model,
+        num_heads=cfg.num_heads, d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
+        seq_length=cfg.seq_length, batch_size=cfg.batch_size,
+        causal=cfg.causal, learning_rate=cfg.learning_rate,
+        compute_dtype=cfg.compute_dtype, tp=cfg.pipeline_tp or 1)
+    log(f"LM pipeline: {cfg.num_layers} layers over {model.S} stages x "
+        f"{model.dp} dp x {model.tp} tp, {model.M} microbatches, batch "
+        f"{cfg.batch_size}, seq {cfg.seq_length}, {cfg.compute_dtype} "
+        f"compute, on {dev}")
+    params = model.init(cfg.seed)
+    step = model.make_train_step()
+    data = synthetic_lm_batches(cfg.batch_size, cfg.seq_length,
+                                cfg.vocab_size, seed=cfg.seed, device=dev)
+    warmup = min(warmup, max(cfg.num_iterations - 1, 0))
+    losses = []
+    start = time.perf_counter()
+    for it in range(cfg.num_iterations):
+        if it == warmup:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            start = time.perf_counter()
+        toks, labels = next(data)
+        params, loss = step(params, toks, labels)
+        losses.append(loss)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - start
+    n_timed = cfg.num_iterations - warmup
+    tput = n_timed * cfg.batch_size / elapsed \
+        if n_timed > 0 and elapsed > 0 else 0.0
+    log(f"time = {elapsed:.4f}s, tp = {tput:.2f} images/s")
+    return {"params": params, "state": {}, "opt_state": None,
+            "loss": [float(v) for v in losses], "elapsed_s": elapsed,
+            "images_per_sec": tput, "completed_steps": cfg.num_iterations,
+            "pipeline": {"coords": model.coords(),
+                         "blocks": model.param_boxes()["blocks"]}}
 
 
 def main(argv=None, log=print) -> dict:
     """One training run; returns ``fit``'s result without the trees, plus
     ``tokens_per_sec`` (on rank 0; None on the other ranks)."""
+    from flexflow_tpu_torch.strategy import Strategy
+
     argv = list(sys.argv[1:] if argv is None else argv)
     result_json, argv = _flag_value(argv, "--result-json", "")
     backend, argv = _flag_value(argv, "--dist-backend", None)
     cfg, device, warmup = parse_args(argv)
-    strategies = load_strategy(cfg.strategy_file) if cfg.strategy_file \
+    strategies = Strategy.load(cfg.strategy_file) if cfg.strategy_file \
         else None
     machine = machine_for(device, backend)
     dev = machine.device
@@ -147,6 +241,33 @@ def main(argv=None, log=print) -> dict:
     if dev.type == "cuda":
         # float32 runs its products in float32, not TF32
         torch.backends.cuda.matmul.allow_tf32 = False
+    if strategies is not None:
+        _pipeline_from_file(cfg, strategies, log)
+    if cfg.pipeline_stages > 1:
+        unsupported = [flag for flag, on in (
+            ("--strategy", bool(cfg.strategy_file)),
+            ("--experts", cfg.num_experts > 0)) if on]
+        if unsupported:
+            raise SystemExit(
+                f"--pipeline-stages does not support: "
+                f"{', '.join(unsupported)} (the pipelined path trains a "
+                f"homogeneous dense block stack outside the op DAG)")
+        out = _main_pipelined(cfg, machine, warmup, log)
+    else:
+        out = _main_dag(cfg, strategies, machine, warmup, log)
+    out["tokens_per_sec"] = out["images_per_sec"] * cfg.seq_length
+    if out["tokens_per_sec"]:
+        log(f"tokens/s = {out['tokens_per_sec']:.0f}")
+    if result_json:
+        _write_result(result_json, out, machine)
+    for key in ("params", "state", "opt_state"):
+        out.pop(key)
+    return out if machine.rank == 0 else None
+
+
+def _main_dag(cfg, strategies, machine, warmup: int, log) -> dict:
+    """The op-DAG path: ``TransformerLM.fit`` under the strategy."""
+    dev = machine.device
     model = TransformerLM(cfg, machine, strategies)
     moe = (f", {cfg.num_experts} experts/{cfg.moe_every} blocks"
            if cfg.num_experts else "")
@@ -166,15 +287,7 @@ def main(argv=None, log=print) -> dict:
         data = synthetic_lm_batches(
             cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed,
             device="cpu" if cfg.prefetch_depth > 0 else dev)
-    out = model.fit(data, warmup=warmup, log=log)
-    out["tokens_per_sec"] = out["images_per_sec"] * cfg.seq_length
-    if out["tokens_per_sec"]:
-        log(f"tokens/s = {out['tokens_per_sec']:.0f}")
-    if result_json:
-        _write_result(result_json, out, machine)
-    for key in ("params", "state", "opt_state"):
-        out.pop(key)
-    return out if machine.rank == 0 else None
+    return model.fit(data, warmup=warmup, log=log)
 
 
 if __name__ == "__main__":

@@ -44,14 +44,6 @@ UNPORTED_FLAGS = frozenset((
     "--dry-compile",
 ))
 
-#: flags of ``flexflow_tpu/apps/lm.py:parse_args`` beyond the ones above
-#: whose features the port does not have yet, with the ROADMAP Queue A
-#: item that brings each: the pipelined path (3d)
-LM_UNPORTED_ITEMS = {"--pipeline-stages": "3d", "--microbatches": "3d",
-                     "--pipeline-tp": "3d"}
-LM_UNPORTED_FLAGS = frozenset(LM_UNPORTED_ITEMS)
-
-
 def _checked_policy(v: str) -> str:
     """An ``--on-divergence`` value, checked when parsed."""
     if v not in ("halt", "warn", "rollback"):

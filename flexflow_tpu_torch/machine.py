@@ -25,6 +25,11 @@ axes; :meth:`create_groups` makes every group of such a partition, in
 one order on every rank (``torch.distributed.new_group`` must be called
 by every rank, members or not).
 
+The GPipe pipelined LM (``parallel/pipeline.py``) runs on a mesh of its
+own instead, ``(stage, n, tp)`` with tp fastest
+(:meth:`MachineModel.pipeline_mesh`, the JAX package's
+``dev.reshape(num_stages, dp, tp)``): rank ``s*dp*tp + n*tp + t``.
+
 An op whose device list is a strict subset of the machine (or a second,
 conflicting permutation of it) runs on those ranks alone
 (``parallel/placement.py``): its grid map is the JAX package's for the
@@ -42,6 +47,7 @@ unless the caller passed ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -96,6 +102,26 @@ class Group:
     @property
     def size(self) -> int:
         return len(self.positions)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineMesh:
+    """This rank's place on a ``(stage, n, tp)`` mesh and its groups:
+    ``stage`` along the stages (one per (n, t), members in stage order),
+    ``data`` along n (the ranks holding the same tp block of a stage's
+    leaves), ``tp`` along tp (one stage's Megatron group), ``block``
+    along (n, tp) (the ranks holding a stage's replicated leaves) and
+    ``world``."""
+
+    stages: int
+    dp: int
+    tp: int
+    coords: Tuple[int, int, int]
+    stage: Group
+    data: Group
+    tp_group: Group
+    block: Group
+    world: Group
 
 
 class MachineModel:
@@ -408,6 +434,44 @@ class MachineModel:
         positions = tuple(positions)
         ranks = tuple(self.view[p] for p in positions)
         return Group(positions, ranks, self._handle(ranks))
+
+    def pipeline_mesh(self, stages: int, dp: int, tp: int) -> PipelineMesh:
+        """The ``(stage, n, tp)`` mesh of ``stages * dp * tp`` ranks, tp
+        fastest: position ``s*dp*tp + n*tp + t`` (``pipeline.py:331``'s
+        ``dev.reshape(num_stages, dp, tp)``).  Every group of each of its
+        partitions is made on every rank, in one order."""
+        if stages * dp * tp != self.num_devices:
+            raise ValueError(f"a {stages} x {dp} x {tp} pipeline mesh needs "
+                             f"{stages * dp * tp} ranks, the world has "
+                             f"{self.num_devices}")
+        shape = (stages, dp, tp)
+
+        def pos(c):
+            return (c[0] * dp + c[1]) * tp + c[2]
+
+        me = self.position
+        coords = (me // (dp * tp), me // tp % dp, me % tp)
+        mine = {}
+        for name, axes in (("stage", (0,)), ("data", (1,)), ("tp", (2,)),
+                           ("block", (1, 2))):
+            others = [a for a in range(3) if a not in axes]
+            for fixed in itertools.product(*(range(shape[a])
+                                             for a in others)):
+                members = []
+                for along in itertools.product(*(range(shape[a])
+                                                 for a in axes)):
+                    c = [0, 0, 0]
+                    for a, v in zip(others, fixed):
+                        c[a] = v
+                    for a, v in zip(axes, along):
+                        c[a] = v
+                    members.append(pos(c))
+                group = self.group_of(members)
+                if me in group.positions:
+                    mine[name] = group
+        return PipelineMesh(stages, dp, tp, coords, mine["stage"],
+                            mine["data"], mine["tp"], mine["block"],
+                            self.world_group())
 
     def world_group(self) -> Group:
         """Every rank, in position order."""

@@ -25,19 +25,21 @@ health guard with rollback, device prefetch and fault injection.
 On a machine of several ranks (``distributed.initialize``) every op runs
 on its own strategy grid and device list.  At build time
 (:meth:`_setup_sharded`, on every rank in one order) the model checks
-that each op has a ported grid, places the ops whose device lists are
-subsets of the machine (``parallel/placement.py``), plans every
-producer->consumer regrid (``parallel/regrid.py``) and makes the process
-groups.  ``init`` draws the full parameters from the seed on every rank
+that each op's grid divides its tensors, places the ops whose device
+lists are subsets of the machine (``parallel/placement.py``), plans
+every producer->consumer regrid (``parallel/regrid.py``) and makes the
+process groups.  ``init`` draws the full parameters from the seed on every rank
 and keeps the blocks of the ops the rank runs (``param_specs``; a key
 shared by several ops, whole on each of their ranks); ``apply`` walks
 every op in one order on every rank, moves each input to the layout its
 op wants where the rank takes part in the move, and runs the op on the
 rank's blocks where the op is placed on it; the loss is each rank's
 partial NLL sum over the global batch, added up over the ranks (0 on a
-rank that counts no loss block); gradients are all-reduced over the
-ranks that hold the same block of a leaf, and the backward collectives
-run in one order on every rank (``collectives.token_chain``).  The step
+rank that counts no loss block), and an op's auxiliary loss (the MoE's)
+counts on one rank per block of its rows (:meth:`aux_counted`);
+gradients are all-reduced over the ranks that hold the same block of a
+leaf, and the backward collectives run in one order on every rank
+(``collectives.token_chain``).  The step
 functions take this rank's batch block (:meth:`local_batch`).  Elastic
 training and telemetry arrive with later slices.
 """
@@ -305,10 +307,10 @@ class FFModel:
     # grids over several ranks
 
     def _setup_sharded(self) -> None:
-        """Check that every op can run on its grid, place the ops whose
-        device lists are subsets (``parallel/placement.py``), plan the
-        regrids and make every process group, once; every rank runs this
-        in the same order (``new_group`` needs all ranks)."""
+        """Check that every op's grid divides its tensors, place the ops
+        whose device lists are subsets (``parallel/placement.py``), plan
+        the regrids and make every process group, once; every rank runs
+        this in the same order (``new_group`` needs all ranks)."""
         if self._plan is not None:
             return
         from flexflow_tpu_torch.parallel.placement import placed
@@ -318,13 +320,7 @@ class FFModel:
         n = m.num_devices
         self._grids = {}
         for op in self.layers:
-            positions = None
-            if n > 1:
-                if not op.SHARDED:
-                    raise NotImplementedError(
-                        f"op {op.name!r} ({type(op).__name__}) has no grid "
-                        f"over several ranks yet (ROADMAP Queue A 3c-ii)")
-                positions = placed(op, m)
+            positions = placed(op, m) if n > 1 else None
             self._grids[op.name] = OpGrid(m, op, positions)
             if n > 1:
                 op.validate_partitioning()
@@ -342,6 +338,12 @@ class FFModel:
             if getattr(op, "is_loss", False):
                 self._loss_primary[op.name] = self._first_holder(
                     op, op.output_spec(), op.output.shape)
+        # an op's auxiliary loss (the MoE's, a global mean on every rank
+        # of its grid) counts once per block of its output's rows
+        self._aux_primary = {
+            op.name: self._first_holder(op, op.output_spec(),
+                                        op.output.shape)
+            for op in self.layers if getattr(op, "aux", None) is not None}
         for i, lin in self._lm_head_fusion().items():
             if lin is None:
                 continue
@@ -374,6 +376,13 @@ class FFModel:
         if train and op.name in self._fused_primary:
             return self._fused_primary[op.name]
         return self._loss_primary[op.name]
+
+    def aux_counted(self, op) -> bool:
+        """Whether this rank counts op ``op``'s auxiliary loss in the
+        objective: always on one rank; over several, on the first holder
+        of each block of its output's rows, whose n group sums the aux's
+        statistics with a backward that hands each member its own."""
+        return not self.sharded or self._aux_primary[op.name]
 
     def _boxes_of(self, op, spec, shape) -> tuple:
         """Every position's box (None: not held) of a ``shape`` tensor

@@ -15,7 +15,11 @@ sequence, the attention heads or the sequence in a ring, the MLP and
 vocab projections the channels, and a vocab-split head runs fused
 (``FFModel._run_fused_lm_head``).  Each rank takes its batch rows
 (``FFModel.local_batch``); the loss is the global batch's on every rank.
-The MoE op has no grid over several ranks yet (ROADMAP Queue A 3c-ii)."""
+A MoE block runs on its (e, c, n) grid (``ops/moe.py``): experts split
+over e, their hidden channels over c, the batch over n; its aux loss,
+a global mean on every rank, counts once per n block
+(``FFModel.aux_counted``).  The GPipe pipelined form of the dense stack
+is ``parallel/pipeline.py``'s ``PipelinedLM``."""
 
 from __future__ import annotations
 
@@ -58,6 +62,12 @@ class TransformerConfig:
     params_init: str = "default"
     # the strategy file --strategy names ("" = none; apps.lm loads it)
     strategy_file: str = ""
+    # the GPipe pipelined path (apps.lm, parallel/pipeline.py): stages
+    # (> 1 takes it), microbatches (0 = as many as stages) and the
+    # stage-internal tensor-parallel degree (0 = 1)
+    pipeline_stages: int = 0
+    microbatches: int = 0
+    pipeline_tp: int = 0
     # the training runtime (forwarded to FFConfig; FFModel.fit)
     prefetch_depth: int = 0
     ckpt_dir: str = ""
@@ -106,7 +116,7 @@ class TransformerLM(FFModel):
                                         "int32", "labels")
         x = self.embed("embed", self.tokens, t.vocab_size, t.d_model)
         x = self.pos_embed("pos_embed", x)
-        self._moe_aux_tids = []
+        self._moe_ops = []
         for i in range(t.num_layers):
             h = self.layer_norm(f"blk{i}_ln1", x)
             h = self.attention(f"blk{i}_attn", h, t.num_heads,
@@ -116,7 +126,7 @@ class TransformerLM(FFModel):
             if t.num_experts > 0 and i % t.moe_every == 0:
                 h = self.moe(f"blk{i}_moe", h, t.num_experts, t.d_ff,
                              t.moe_top_k, t.moe_capacity_factor)
-                self._moe_aux_tids.append(self.layers[-1].aux.tid)
+                self._moe_ops.append(self.layers[-1])
             else:
                 h = self.seq_linear(f"blk{i}_ff1", h, t.d_ff)
                 h = self.gelu_seq(f"blk{i}_gelu", h)
@@ -159,8 +169,11 @@ class TransformerLM(FFModel):
                                          else self.t.seq_length)
         loss = total / n_targets
         if train:
-            for tid in self._moe_aux_tids:
-                loss = loss + self.t.moe_aux_weight * values[tid]
+            for op in self._moe_ops:
+                aux = values[op.aux.tid]
+                if not self.aux_counted(op):
+                    aux = aux.detach()   # the same value, counted once
+                loss = loss + self.t.moe_aux_weight * aux
         return loss, new_state
 
     def moe_stats(self, params, state, tokens) -> dict:

@@ -34,7 +34,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class MultiHeadAttention(Op):
     AXIS_NAMES = ("s", "h", "n")
-    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  num_heads: int, causal: bool = False):

@@ -9,8 +9,8 @@ outside the ops in one tree, ``{param_key: {leaf: tensor}}``, the same
 tree the JAX package's ``FFModel.init`` builds, so that one tree serves
 both packages; so does per-op state, ``{op_name: {leaf: tensor}}``.
 
-Over several ranks (``flexflow_tpu/ops/base.py``'s sharding hooks) an op
-with ``SHARDED`` says how its grid splits each tensor: ``output_specs``
+Over several ranks (``flexflow_tpu/ops/base.py``'s sharding hooks) every
+op says how its grid splits each tensor: ``output_specs``
 the outputs, ``regrid_input_specs`` the layout it wants its inputs in,
 ``param_specs`` and ``state_specs`` its leaves.  An op with
 ``PLACEABLE`` also runs on a device subset (``parallel/placement.py``):
@@ -127,14 +127,9 @@ class Op:
 
     # ---- grids over several ranks -----------------------------------
 
-    #: True for the ops whose grids run over several ranks
-    SHARDED = False
-
     def output_spec(self):
         """Spec of the output over ``AXIS_NAMES``."""
-        raise NotImplementedError(
-            f"op {self.name!r} ({type(self).__name__}) has no grid over "
-            f"several ranks yet (ROADMAP Queue A 3c-ii)")
+        raise NotImplementedError
 
     def output_specs(self) -> List:
         return [self.output_spec()]

@@ -16,7 +16,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Concat(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    SHARDED = True
     PLACEABLE = True
 
     def block_placeable(self, pc):

@@ -92,7 +92,6 @@ def window_blocks(op, x, grid):
 
 class Conv2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    SHARDED = True
     PLACEABLE = True
     POINT_WINDOWS = True
 

@@ -17,7 +17,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Add(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    SHARDED = True
     PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor],

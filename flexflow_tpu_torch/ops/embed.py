@@ -17,7 +17,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Embed(Op):
     AXIS_NAMES = ("n",)
-    SHARDED = True
     PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,

@@ -108,7 +108,6 @@ class LSTMCore(torch.autograd.Function):
 
 class LSTMChunk(Op):
     AXIS_NAMES = ("n",)
-    SHARDED = True
     PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, x: Tensor,

@@ -1,5 +1,5 @@
 """Token-routed top-k mixture-of-experts FFN (PyTorch port of
-``flexflow_tpu/ops/moe.py``), on one device.
+``flexflow_tpu/ops/moe.py``).
 
 GShard/Switch semantics with index-based dispatch, as in the JAX op:
 
@@ -19,8 +19,25 @@ GShard/Switch semantics with index-based dispatch, as in the JAX op:
     the JAX package leaves them to XLA; no Pallas kernel exists for them;
   * the Switch auxiliary load-balancing loss is the op's second output.
 
-The expert all-to-all over several devices comes with the multi-GPU
-slice.
+Over several ranks the grid is (e, c, n) (``moe.py:88-122``): tokens
+arrive batch-split over ``n`` and whole over (e, c); ``w1`` and ``b1``
+split by ``e`` and ``c``, ``w2`` by ``e`` and ``c`` (rows), ``b2`` by
+``e``; the router ``wg`` is replicated.  Each rank routes its batch
+rows (routing is per row, so the indices equal the one-device routing
+of those rows), gathers the slots of its own experts, runs the two
+products on its (E/pe, D, F/pc) and (E/pe, F/pc, D) blocks and
+all-reduces the c-partial expert outputs over its c group before
+``b2`` is added once.  The combine all-gathers the expert outputs over
+the e group and mixes them as one device does, in the same k order
+(GSPMD's all-gather of ``yo`` under ``P(e, n)``); the other route, each
+rank mixing its own experts and an all-reduce of the partial y, moves
+about a quarter of the bytes but sums in the backend's order.  Only
+all-gathers and all-reduces run, which every backend carries for
+every tensor, so no transport is chosen.  The aux loss takes global
+means over (B, S): the rank's sums of the top-1 one-hots and of the
+probabilities are summed over the n group (:func:`global_sum`, each
+rank differentiating its own rows) before the product, and the model
+counts the aux once per n block (``FFModel.aux_counted``).
 """
 
 from __future__ import annotations
@@ -35,8 +52,8 @@ from flexflow_tpu_torch.ops.base import Op, Tensor, glorot_uniform
 from flexflow_tpu_torch.strategy import ParallelConfig
 
 
-def route_indices(probs: torch.Tensor, capacity: int, top_k: int
-                  ) -> Tuple[torch.Tensor, ...]:
+def route_indices(probs: torch.Tensor, capacity: int, top_k: int,
+                  means=None) -> Tuple[torch.Tensor, ...]:
     """Top-k routing of float32 ``probs`` (B, S, E) as index maps
     (``moe.py:_route_indices``).  Returns ``(src, src_k, slots, weights,
     aux)``:
@@ -52,7 +69,10 @@ def route_indices(probs: torch.Tensor, capacity: int, top_k: int
       * ``aux``, the Switch load-balancing loss.
 
     Choices of a higher rank are placed first; within a rank, tokens in
-    sequence order; a choice that finds its expert full is dropped."""
+    sequence order; a choice that finds its expert full is dropped.
+    ``means(top1_one_hot, probs)``, when given, returns the two per-expert
+    means over the tokens of the whole batch that the aux loss takes
+    (the default: the means over ``probs``' own tokens)."""
     b, s, e = probs.shape
     c, k = capacity, top_k
     # jax.lax.top_k puts the lower expert first on ties; torch.topk
@@ -95,8 +115,10 @@ def route_indices(probs: torch.Tensor, capacity: int, top_k: int
     src_k = src_k[:, :e * c]
     src = src_k // k                              # the sentinel S*k -> S
     # Switch aux loss: E * sum_e f_e * P_e, f from the top-1 choices
-    f = F.one_hot(top_i[:, :, 0], e).float().mean((0, 1))
-    aux = e * torch.sum(f * probs.mean((0, 1)))
+    top1 = F.one_hot(top_i[:, :, 0], e).float()
+    f, p = (top1.mean((0, 1)), probs.mean((0, 1))) if means is None \
+        else means(top1, probs)
+    aux = e * torch.sum(f * p)
     return src, src_k, slots, weights, aux
 
 
@@ -192,21 +214,90 @@ class MixtureOfExperts(Op):
             "b2": torch.zeros((e, d), device=device),
         }
 
-    def route(self, params, x):
+    # ---- grids over several ranks (moe.py:88-122) ---------------------
+
+    def param_specs(self):
+        return {"w1": ("e", None, "c"), "b1": ("e", "c"),
+                "w2": ("e", "c", None), "b2": ("e", None)}
+
+    def regrid_input_specs(self):
+        return [("n", None, None)]
+
+    def output_specs(self) -> List:
+        return [("n", None, None), None]
+
+    def output_spec(self):
+        return self.output_specs()[0]
+
+    def validate_partitioning(self) -> None:
+        super().validate_partitioning()
+        pe, pc_, _ = self.pc.dims
+        if self.num_experts % pe:
+            raise ValueError(
+                f"op {self.name!r}: {self.num_experts} experts not "
+                f"divisible by expert-grid {pe}")
+        if self.d_ff % pc_:
+            raise ValueError(
+                f"op {self.name!r}: d_ff={self.d_ff} not divisible by "
+                f"channel-grid {pc_}")
+
+    def grid_collectives(self):
+        return [(a,) for a, parts in zip(self.AXIS_NAMES, self.pc.dims)
+                if parts > 1]
+
+    # ---- compute ------------------------------------------------------
+
+    def route(self, params, x, means=None):
         """:func:`route_indices` of the router's float32 softmax on x."""
         logits = torch.matmul(x.float(), params["wg"].float())
         return route_indices(torch.softmax(logits, dim=-1), self.capacity,
-                             self.top_k)
+                             self.top_k, means)
+
+    def _batch_means(self, grid):
+        """The aux loss's means over the whole batch from this rank's n
+        block: the per-expert sums, summed over the n group (each rank
+        differentiates its own rows' sums), over B * S tokens."""
+        from flexflow_tpu_torch.parallel.collectives import global_sum
+
+        b, s, _ = self.inputs[0].shape
+
+        def means(top1, probs):
+            sums = torch.stack([top1.sum((0, 1)), probs.sum((0, 1))])
+            sums = global_sum(sums, grid.group(("n",))) / (b * s)
+            return sums[0], sums[1]
+
+        return means
 
     def forward(self, params, state, xs: List, train: bool):
-        (x,) = xs
+        return self._forward(params, xs[0], None), state
+
+    def sharded_forward(self, params, state, xs: List, train: bool, grid):
+        return self._forward(params, xs[0], grid), state
+
+    def _forward(self, params, x, grid):
+        """``(y, aux)`` of this rank's rows x (B', S, D) on its expert and
+        channel blocks of the params (all of them where ``grid`` is
+        None)."""
         b, s, d = x.shape
-        e, c = self.num_experts, self.capacity
-        src, src_k, slots, weights, aux = self.route(params, x)
+        e, c, k = self.num_experts, self.capacity, self.top_k
+        split = grid is not None and grid.parts("n") > 1
+        src, src_k, slots, weights, aux = self.route(
+            params, x, self._batch_means(grid) if split else None)
+        e_lo, e_hi = (0, e) if grid is None else grid.block("e", e)
+        el = e_hi - e_lo
+        if el < e:
+            # this rank's experts: their slot columns, and each choice's
+            # slot among them (the sentinel el*C where it lies elsewhere)
+            src = src[:, e_lo * c:e_hi * c]
+            local = slots - e_lo * c
+            inverse = torch.where((local >= 0) & (local < el * c), local,
+                                  torch.full_like(local, el * c))
+        else:
+            inverse = slots
         # token -> expert slot: raw activations; the gate weight
         # multiplies at combine only (GShard)
-        xin = SlotGather.apply(x, src, slots)                 # (B, E*C, D)
-        xin = xin.view(b, e, c, d).transpose(0, 1).reshape(e, b * c, d)
+        xin = SlotGather.apply(x, src, inverse)               # (B, el*C, D)
+        xin = xin.view(b, el, c, d).transpose(0, 1).reshape(el, b * c, d)
         # the products accumulate in float32 on x's dtype's operands, and
         # the result rounds to that dtype after the bias and GELU (JAX:
         # preferred_element_type=float32); jax.nn.gelu is the tanh form
@@ -214,15 +305,20 @@ class MixtureOfExperts(Op):
         h = F.gelu(h + params["b1"].float()[:, None, :],
                    approximate="tanh").to(x.dtype)
         yo = torch.bmm(h.float(), params["w2"].to(x.dtype).float())
+        if grid is not None:
+            # each channel block's product is a partial sum over F
+            yo = grid.all_reduce(yo, ("c",))
         yo = (yo + params["b2"].float()[:, None, :]).to(x.dtype)
+        yo = yo.view(el, b, c, d).transpose(0, 1).reshape(b, el * c, d)
+        if el < e:
+            # every expert's outputs on every rank of the e group
+            yo = grid.gather(yo, "e", 1, e * c)
         # expert slot -> token: each token's k slot outputs, mixed by the
         # gate weights in float32
-        yo = yo.view(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
-        yg = SlotGather.apply(yo, slots.view(b, s * self.top_k),
-                              src_k[..., None])
-        yg = yg.view(b, s, self.top_k, d)
+        yg = SlotGather.apply(yo, slots.view(b, s * k), src_k[..., None])
+        yg = yg.view(b, s, k, d)
         y = (weights[..., None] * yg.float()).sum(2)
-        return (y.to(x.dtype), aux), state
+        return y.to(x.dtype), aux
 
     def dropped_share(self, params, x) -> float:
         """The share of (token, choice) pairs dropped at capacity on x."""

@@ -55,7 +55,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class BatchNorm(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    SHARDED = True
     PLACEABLE = True
     POINT_WINDOWS = True
 

@@ -41,7 +41,6 @@ POOL_AVG = "avg"
 
 class Pool2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    SHARDED = True
     PLACEABLE = True
     POINT_WINDOWS = True
 

@@ -20,7 +20,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class RnnLinear(Op):
     AXIS_NAMES = ("c", "n")
-    SHARDED = True
     PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,

@@ -15,7 +15,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class SliceSeq(Op):
     AXIS_NAMES = ("n",)
-    SHARDED = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  start: int, length: int):

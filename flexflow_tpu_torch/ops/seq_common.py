@@ -23,7 +23,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class _SeqElementwise(Op):
     AXIS_NAMES = ("s", "n")
-    SHARDED = True
 
     def output_spec(self):
         return ("n", "s", None)

@@ -16,7 +16,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Softmax(Op):
     AXIS_NAMES = ("n",)
-    SHARDED = True
     is_loss = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor):

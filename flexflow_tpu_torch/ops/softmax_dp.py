@@ -20,7 +20,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class SoftmaxDP(Op):
     AXIS_NAMES = ("n",)
-    SHARDED = True
     is_loss = True
 
     def __init__(self, name: str, pc: ParallelConfig, logits: Tensor,

@@ -221,13 +221,14 @@ def test_lm_app_prints_the_metric_lines():
 
 
 def test_every_jax_lm_flag_is_parsed_or_refused():
-    from flexflow_tpu_torch.config import LM_UNPORTED_FLAGS, UNPORTED_FLAGS
+    from flexflow_tpu_torch.config import UNPORTED_FLAGS
 
     src = inspect.getsource(j_lm.parse_args)
     flags = set(re.findall(r'"(-[-\w:]+)"', src))
     assert len(flags) > 50
-    refused = UNPORTED_FLAGS | LM_UNPORTED_FLAGS
-    assert LM_UNPORTED_FLAGS <= flags
+    refused = UNPORTED_FLAGS
+    # the pipelined path's flags are parsed
+    assert {"--pipeline-stages", "--microbatches", "--pipeline-tp"} <= flags
     default = t_lm.parse_args([])
     # a value for the flags checked when parsed, and one off the default
     values = {"-on-divergence": "rollback", "--on-divergence": "rollback",

@@ -9,12 +9,12 @@ and layouts, the regrid planner, the checks and the flags.
   ``vgg_2x4.json`` equal the JAX planner's hop chains edge by edge, the
   inputs of their placed linears included; the edges out of a placed op
   are moves by box overlap instead.
-* A device subset is placed, its blocks only on its ranks; the refusals
-  that remain name their ROADMAP items: an op without a ported grid (the
-  MoE op, 3c-ii), the LM driver's pipeline flags and a strategy file's
-  ``__pipeline__`` block (3d), a grid
-  that does not factor over the world and ``--ckpt-dir`` over several
-  ranks (3e); ``-ll:gpu`` other than the world size.
+* A device subset is placed, its blocks only on its ranks; the MoE op
+  has its (e, c, n) grid (3c-ii) and the LM driver takes its pipeline
+  flags and a strategy file's ``__pipeline__`` block (3d); the
+  refusals that remain name their ROADMAP items: a grid that does not
+  factor over the world and ``--ckpt-dir`` over several ranks (3e);
+  ``-ll:gpu`` other than the world size.
 * ``-s``/``--strategy`` and ``-ll:gpu`` parse; a strategy that names one
   permutation of the machine relabels it as the JAX model does.
 
@@ -260,21 +260,28 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     full, _ = ff._init_full(0)
     assert [p for p in range(8) if "linear1" in ff.shard_params(full, p)] \
         == [6]
-    # an op without a ported grid over several ranks (the MoE op): 3c-ii
+    # the MoE op over several ranks (3c-ii, done): each rank holds its
+    # expert and channel blocks, the router whole
     lm = TransformerLM(TransformerConfig(
         batch_size=2, seq_length=8, num_layers=1, d_model=16, num_heads=2,
-        d_ff=32, vocab_size=32, num_experts=2), machine=_port_machine(2))
-    with pytest.raises(NotImplementedError, match="Queue A 3c-ii"):
-        lm.init()
-    # the LM driver's pipelines (3d): its flags and a strategy file's
-    # __pipeline__ block
+        d_ff=32, vocab_size=32, num_experts=2), machine=_port_machine(2),
+        strategies=Strategy.from_json(json.dumps(
+            {"blk0_moe": {"dims": [2, 1, 1], "devices": [0, 1]}})))
+    full, _ = lm._init_full(0)
+    for pos in (0, 1):
+        moe = lm.shard_params(full, pos)["blk0_moe"]
+        assert torch.equal(moe["w1"], full["blk0_moe"]["w1"][pos:pos + 1])
+        assert torch.equal(moe["wg"], full["blk0_moe"]["wg"])
+    # the LM driver's pipelines (3d, done): its flags parse and a
+    # strategy file's __pipeline__ block loads
     from flexflow_tpu_torch.apps import lm as t_lm
 
-    with pytest.raises(NotImplementedError, match="Queue A 3d"):
-        t_lm.load_strategy(str(STRATEGIES / "transformer_2x4.json"))
-    for flag in ("--pipeline-stages", "--microbatches", "--pipeline-tp"):
-        with pytest.raises(NotImplementedError, match="Queue A 3d"):
-            t_lm.parse_args([flag, "2"])
+    block = Strategy.load(str(STRATEGIES / "transformer_2x4.json"))
+    assert block.pipeline == {"stages": 2, "microbatches": 8, "tp": 1}
+    for flag, field in (("--pipeline-stages", "pipeline_stages"),
+                        ("--microbatches", "microbatches"),
+                        ("--pipeline-tp", "pipeline_tp")):
+        assert getattr(t_lm.parse_args([flag, "2"])[0], field) == 2
     # a grid that does not factor over the world's prime axes: 3e
     odd = Strategy()
     odd["linear1"] = ParallelConfig((2, 3), tuple(range(6)))

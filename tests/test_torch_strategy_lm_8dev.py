@@ -151,15 +151,24 @@ def test_lm_refusals_name_their_roadmap_items():
     from flexflow_tpu_torch.apps import lm
     from flexflow_tpu_torch.machine import MachineModel
 
-    # a strategy file with a __pipeline__ block: the JAX driver's
-    # pipeline, 3d
+    # a strategy file with a __pipeline__ block takes the pipelined path
+    # (3d, done): on one process its 2 stages do not fit, as in JAX, and
+    # with --experts it is refused as JAX refuses it
     for name in ("transformer_2x4.json", "moe_2x4_measured.json"):
         path = STRATEGIES / name
         assert "__pipeline__" in json.loads(path.read_text())
-        with pytest.raises(NotImplementedError, match="Queue A 3d"):
+        with pytest.raises(ValueError, match="1 devices not divisible "
+                                             "into 2 stages"):
             lm.main(APP + ["--strategy", str(path)], log=lambda *a: None)
-    # the MoE op over several ranks: 3c-ii
+        with pytest.raises(SystemExit, match="--pipeline-stages does not "
+                                             "support: --experts"):
+            lm.main(APP + ["--strategy", str(path), "--experts", "4"],
+                    log=lambda *a: None)
+    # the MoE op over several ranks (3c-ii, done): the MoE LM inits on
+    # every position of a data-parallel world
     moe = tr.lm_model(MachineModel("cpu", world_size=2),
                       dict(CFG, num_layers=1, num_experts=4), None)
-    with pytest.raises(NotImplementedError, match="Queue A 3c-ii"):
-        moe.init()
+    full, _ = moe._init_full(0)
+    for pos in (0, 1):
+        assert moe.shard_params(full, pos)["blk0_moe"]["w1"].shape == \
+            full["blk0_moe"]["w1"].shape

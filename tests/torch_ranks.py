@@ -161,10 +161,11 @@ def _blocks(boxes, tree):
                   for leaf, v in sub.items()} for key, sub in tree.items()}
 
 
-def app_main(machine, argv, app="cnn"):
-    """``apps.<app>.main(argv)`` (``cnn`` or ``nmt``) as one rank of a
-    torchrun world (the environment torchrun would set, the process group
-    already made)."""
+def app_main(machine, argv, app="cnn", keep_log=False):
+    """``apps.<app>.main(argv)`` (``cnn``, ``nmt`` or ``lm``) as one rank
+    of a torchrun world (the environment torchrun would set, the process
+    group already made): the losses (None on ranks other than 0), with
+    ``keep_log`` beside the lines it logged."""
     import importlib
     import os
 
@@ -172,8 +173,10 @@ def app_main(machine, argv, app="cnn"):
                       WORLD_SIZE=str(machine.num_devices),
                       LOCAL_RANK=str(machine.rank))
     main = importlib.import_module(f"flexflow_tpu_torch.apps.{app}").main
-    out = main(argv, log=lambda *a: None)
-    return out if out is None else out["loss"]
+    lines = []
+    out = main(argv, log=lambda *a: lines.append(" ".join(map(str, a))))
+    loss = out if out is None else out["loss"]
+    return (loss, lines) if keep_log else loss
 
 
 def assemble(full_shapes, rank_blocks):
@@ -555,6 +558,158 @@ def check_lm(want, per_rank, cfg_kwargs, batches):
                                atol=LOSS_ATOL)
     close_trees(params, one_params, "params vs one rank")
     return losses
+
+
+def moe_op(machine, dims, path, k, cap):
+    """The MoE op alone on ``machine`` under grid ``dims`` (its first
+    ``prod(dims)`` devices) from the JAX op's params and the global x
+    and cotangent g in the ``.npz`` at ``path``: this rank's ``(rows,
+    slots, src, y, aux, leaf gradients {leaf: (box, block)}, x rows, x
+    gradient)`` for ``sum(y * g) + 0.5 aux``, the gradients summed over
+    each leaf's holders as a training step sums them."""
+    import math
+
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.parallel import collectives
+    from flexflow_tpu_torch.strategy import ParallelConfig, Strategy
+
+    with np.load(path) as z:
+        x, g = torch.from_numpy(z["x"]), torch.from_numpy(z["g"])
+        full = {leaf: torch.from_numpy(z[f"p/{leaf}"])
+                for leaf in ("wg", "w1", "b1", "w2", "b2")}
+    b, s, d = x.shape
+    e, f = full["w1"].shape[0], full["w1"].shape[2]
+    cfg = FFConfig(batch_size=b)
+    cfg.strategies = Strategy()
+    cfg.strategies["moe"] = ParallelConfig(
+        tuple(dims), tuple(range(math.prod(dims))))
+    ff = FFModel(cfg, machine)
+    t = ff.create_input((b, s, d), name="x")
+    ff.moe("moe", t, e, f, k, cap)
+    op = ff.layers[-1]
+    ff._setup_sharded()
+    p = {leaf: v.clone().requires_grad_(True)
+         for leaf, v in ff.shard_params({"moe": full})["moe"].items()}
+    (xl,) = ff.local_batch(x)
+    xl = xl.clone().requires_grad_(True)
+    lo, hi = ff._boxes_of(op, op.output_spec(), x.shape)[
+        machine.position][0]
+    first = ff._first_holder(op, op.output_spec(), x.shape)
+    with collectives.token_chain("cpu") as chain:
+        values, _ = ff.apply({"moe": p}, {}, {t.tid: xl}, True)
+        y, aux = values[op.output.tid], values[op.aux.tid]
+        part = (y * g[lo:hi]).sum() * float(first)
+        loss = collectives.global_sum(part, machine.world_group()) \
+            + 0.5 * (aux if ff.aux_counted(op) else aux.detach())
+        keys = sorted(p)
+        grads = torch.autograd.grad(loss + chain.token,
+                                    [p[kk] for kk in keys]
+                                    + [xl, chain.first])[:-1]
+    synced = ff._sync_grads([("moe", kk) for kk in keys], list(grads[:-1]))
+    boxes = ff.param_boxes()["moe"]
+    src, _, slots, _, _ = op.route(p, x[lo:hi])
+    return ((lo, hi), slots.numpy(), src.numpy(), y.detach().numpy(),
+            float(aux), {kk: (boxes[kk], gg.numpy())
+                         for kk, gg in zip(keys, synced)},
+            machine.batch_block(b), grads[-1].numpy())
+
+
+# ---------------------------------------------------------------------------
+# the GPipe pipeline
+
+
+def save_pipelined(path, tree) -> None:
+    """A ``PipelinedLM`` params tree of numpy arrays to one ``.npz``."""
+    flat = {f"blocks/{k}": np.asarray(v, np.float32)
+            for k, v in tree["blocks"].items()}
+    flat.update({k: np.asarray(v, np.float32) for k, v in tree.items()
+                 if k != "blocks"})
+    np.savez(path, **flat)
+
+
+def load_pipelined(path):
+    out = {"blocks": {}}
+    with np.load(path) as z:
+        for name in z.files:
+            if name.startswith("blocks/"):
+                out["blocks"][name[len("blocks/"):]] = z[name]
+            else:
+                out[name] = z[name]
+    return out
+
+
+def pipe_stage(machine, stages, path, transport="p2p"):
+    """``spmd_pipeline`` of the stage ``tanh(x @ w + b)`` over a (stages,
+    world / stages) mesh, each n rank taking its rows of every
+    microbatch, from the stacked params, microbatches and output
+    cotangent in the ``.npz`` at ``path``, rotating by ``transport``:
+    this rank's ``((stage, n), rows, outputs, dw, db, dx)`` for
+    ``sum(out * gy)`` (counted on the last stage), dw and db summed over
+    the stage's n ranks and dx the first stage's (zeros elsewhere)."""
+    import torch
+
+    from flexflow_tpu_torch.parallel import collectives
+    from flexflow_tpu_torch.parallel.pipeline import spmd_pipeline
+
+    with np.load(path) as z:
+        w, b, xs, gy = (torch.from_numpy(z[k]) for k in ("w", "b", "xs",
+                                                         "gy"))
+    dp = machine.num_devices // stages
+    mesh = machine.pipeline_mesh(stages, dp, 1)
+    s, n, _ = mesh.coords
+    mbl = xs.shape[1] // dp
+    rows = (n * mbl, (n + 1) * mbl)
+    p = {"w": w[s].clone().requires_grad_(True),
+         "b": b[s].clone().requires_grad_(True)}
+    x = xs[:, rows[0]:rows[1]].clone().requires_grad_(True)
+
+    def stage(q, v):
+        return torch.tanh(v @ q["w"] + q["b"])
+
+    with collectives.token_chain("cpu") as chain:
+        out = spmd_pipeline(stage, p, x, mesh.stage, s, transport)
+        part = (out * gy[:, rows[0]:rows[1]]).sum() \
+            * float(s == stages - 1)
+        loss = collectives.global_sum(part, mesh.world)
+        dw, db, dx = torch.autograd.grad(
+            loss + chain.token, [p["w"], p["b"], x, chain.first],
+            allow_unused=True)[:-1]
+    dx = torch.zeros_like(x) if dx is None else dx
+    grads = torch.cat([dw.reshape(-1), db.reshape(-1)])
+    collectives.all_reduce_(grads, mesh.data)
+    dw, db = grads.split([dw.numel(), db.numel()])
+    return ((s, n), rows, out.detach().numpy(), dw.view_as(w[s]).numpy(),
+            db.numpy(), dx.numpy())
+
+
+def pipe_lm(machine, kwargs, path, batches):
+    """``PipelinedLM`` on ``machine`` from the full tree at ``path``:
+    ``(first loss by loss_fn, losses of SGD steps on the global
+    ``batches``, {"blocks": {leaf: (box, block)}, leaf: (box, value)})``."""
+    import torch
+
+    from flexflow_tpu_torch.interop import params_from_jax, shard_params
+    from flexflow_tpu_torch.parallel.pipeline import PipelinedLM
+
+    model = PipelinedLM(machine, **kwargs)
+    p = shard_params(params_from_jax(load_pipelined(path), "cpu",
+                                     model=model), model)
+    with torch.no_grad():
+        first = float(model.loss_fn(p, batches[0], batches[0]))
+    step = model.make_train_step()
+    losses = []
+    for toks in batches:
+        p, loss = step(p, torch.from_numpy(toks), torch.from_numpy(toks))
+        losses.append(float(loss))
+    boxes = model.param_boxes()
+    held = {"blocks": {k: (boxes["blocks"][k], v.numpy())
+                       for k, v in p["blocks"].items()}}
+    held.update({k: (boxes[k], v.numpy()) for k, v in p.items()
+                 if k != "blocks"})
+    return first, losses, held
 
 
 def ring_case(machine, shape, s_axes, causal, transport, seed=1):
