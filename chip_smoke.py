@@ -22,9 +22,9 @@ checks that each path ran through its kernels.
 ``--gloo-cuda-probe``, then with ``--gloo-p2p-probe``: its probes of
 gloo on CUDA tensors, the point-to-point one in processes of its own,
 since gloo may abort a process whose send of a CUDA tensor fails.
-Phases 18c-18d and 19 start it as torchrun workers with ``--lm-ranks
-SPEC``: several ``apps.lm`` runs, and the MoE op probe, in one torchrun
-world.)
+Phases 18b-18d and 19's LM runs start it as torchrun workers with
+``--lm-ranks SPEC``: several ``apps.lm`` runs, then the MoE op probe or
+the pipeline probe, in one torchrun world.)
 
 Phases (any failure exits non-zero):
 
@@ -206,9 +206,8 @@ Phases (any failure exits non-zero):
     l), and AlexNet (batch 64, 224x224) with linear2 and linear3 on rank 1
     alone and the rest data parallel (3 + 3 pool launches a step); each
     rank's param keys are logged (residency);
-18b. LM strategy slice (ROADMAP Queue A 3c): ``python -m
-    torch.distributed.run --standalone --nproc-per-node 1 -m
-    flexflow_tpu_torch.apps.lm`` at phase 9's widths and steps with
+18b. LM strategy slice (ROADMAP Queue A 3c): ``apps.lm`` through
+    ``torchrun --nproc-per-node 1`` at phase 9's widths and steps with
     ``--strategy`` a one-device file this phase writes (NCCL): phase 9's
     launches, the first 3 losses within 1e-4 (relative) of phase 9's
     run; tokens/s, step ms and peak memory; then two gloo ranks on
@@ -231,24 +230,28 @@ Phases (any failure exits non-zero):
     losses within 1e-4 of the one-rank run, rank 0's launches as 18b's,
     each rank's param keys logged; in the same torchrun world, the MoE
     op alone at full width (B 16, S 512, D 768, 8 experts, d_ff 3072)
-    under (2, 1, 1), (1, 2, 1) and (1, 1, 2) against the op on one
-    device in the same process: each rank's routing of its rows equal
-    bit for bit, y and the gradients within 1e-4 of their largest
-    magnitude, aux within 1e-6; the dropped share and each rank's w1
-    block logged;
+    under (2, 1, 1), (1, 2, 1) and (1, 1, 2) at capacity 2.0 and 1.0
+    against the op on one device in the same process: each rank's
+    routing of its rows equal bit for bit, y and the gradients within
+    1e-4 of their largest magnitude, aux within 1e-6, at capacity 1.0
+    some choices dropped on every rank; the dropped share and each
+    rank's w1 block logged;
 18d. pipeline slice (ROADMAP Queue A 3d): ``PipelinedLM``'s sequential
     reference trained in this process on the card (phase 9's widths, 1
-    warm-up and 3 steps, SGD at lr 0.1: the zero head of JAX's
-    ``PipelinedLM.init`` keeps the losses at lr 1e-3 within ~1e-5 of ln
-    V), then, in one torchrun world of
-    two gloo ranks on cuda:0, ``apps.lm --pipeline-stages 2
+    warm-up and 3 steps, SGD at lr 1e-3), then, in one torchrun world
+    of two gloo ranks on cuda:0, ``apps.lm --pipeline-stages 2
     --microbatches 4`` (its first 3 losses within 1e-4 of the
     reference), ``--strategy examples/strategies/transformer_2x4.json``
     as written (2 stages x 8 microbatches) against ``--pipeline-stages 2
     --microbatches 8`` within 1e-6, and that run against the reference;
     every rank launches each of kernels 1-3 (L/S)(M + S - 1) times a
     step (the head is the plain float32 one of JAX's pipelined LM); each
-    rank's (stage, n, tp) and w1 block logged;
+    rank's (stage, n, tp) and w1 block logged.  JAX's
+    ``PipelinedLM.init`` gives a zero head, so those losses stay near
+    ln V whatever the blocks compute: in the same world the pipeline
+    probe draws a seeded head and holds the ring's loss within 1e-4 and
+    every leaf's gradient on every rank within 1e-4 of its largest
+    magnitude against the sequential reference on the same tree;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
@@ -260,7 +263,7 @@ Phases (any failure exits non-zero):
     run; the MoE LM with its blocks cycling (4, 1, 1), (2, 1, 2), (1, 2,
     2) and the op probe under those grids, against phase 18c's one-rank
     run; the pipelined LM at 2 stages x 2 tp and at 4 stages, against
-    phase 18d's reference; one card runs without this phase, and the
+    phase 18d's reference, and the pipeline probe at both; one card runs without this phase, and the
     log says so;
 20. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
@@ -3093,59 +3096,142 @@ def _check_lm_run(label: str, res: dict, want_loss, launches: dict):
     kernels 1-6 exactly ``launches``, its first 3 losses within 1e-4 of
     ``want_loss``."""
     if {k: v for k, v in res["launches"].items() if v} != launches:
-        raise AssertionError(f"lm strategy {label}: launches on rank 0 "
+        raise AssertionError(f"{label}: launches on rank 0 "
                              f"{res['launches']}, want {launches}")
     n = LM_CHECKED
     got = res["loss"]
     rel = max(abs(a - b) / max(abs(b), 1e-30)
               for a, b in zip(got[:n], want_loss[:n]))
-    _log(f"lm strategy {label}: first losses {got[:n]} vs {want_loss[:n]}: "
+    _log(f"{label}: first losses {got[:n]} vs {want_loss[:n]}: "
          f"max relative difference {rel:.3e} (tolerance "
          f"{LM_LOSS_RTOL:g}); launches on rank 0 {res['launches']}")
     if not (all(math.isfinite(v) for v in got) and rel <= LM_LOSS_RTOL):
-        raise AssertionError(f"lm strategy {label}: losses {got[:n]} "
-                             f"differ from {want_loss[:n]}")
+        raise AssertionError(f"{label}: losses {got[:n]} differ from "
+                             f"{want_loss[:n]}")
     return rel
+
+
+# ---------------------------------------------------------------------------
+# several apps.lm runs of one world share one torchrun (``--lm-ranks``):
+# the LM under per-op strategies (ROADMAP Queue A 3c), the MoE LM under
+# expert grids (3c-ii) and the GPipe pipelined LM (3d), with the probes
+# that hold the MoE op and the pipeline against one device's run
+
+
+def _flag(argv, name: str, default=None):
+    return argv[argv.index(name) + 1] if name in argv else default
+
+
+def _ranks_worker(spec_path: str) -> int:
+    """Run under torchrun (``--lm-ranks SPEC``): each ``apps.lm`` argv
+    of the spec's ``runs`` in turn on this world, the launch counts and
+    the peak memory reset before each (its results in its
+    ``--result-json``); then the probes the spec names on this world:
+    ``moe_probe`` (a list of grids, :func:`_moe_probe`) and
+    ``pipe_probe`` (:func:`_pipe_probe`'s keywords), whose results rank
+    r writes to ``probe_json`` (``.rank<r>`` on rank r > 0)."""
+    import torch
+
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.ops import kernels
+
+    spec = json.loads(Path(spec_path).read_text())
+    try:
+        for argv in spec["runs"]:
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            lm.main(argv, log=_log)
+        if spec.get("moe_probe") or spec.get("pipe_probe"):
+            torch.backends.cuda.matmul.allow_tf32 = False
+            machine = distributed.initialize(spec["device"],
+                                             backend=spec["backend"])
+            res = {}
+            if spec.get("moe_probe"):
+                res["moe"] = _moe_probe(torch, machine, spec["moe_probe"])
+            if spec.get("pipe_probe"):
+                res["pipe"] = _pipe_probe(torch, machine,
+                                          **spec["pipe_probe"])
+            path = spec["probe_json"] + (f".rank{machine.rank}"
+                                         if machine.rank else "")
+            Path(path).write_text(json.dumps(res))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
+              moe_probe=None, pipe_probe=None) -> tuple:
+    """``runs`` (apps.lm argv lists, ``extra`` appended to each) as one
+    torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
+    a ``--result-json`` of its own, then the probes on the device and
+    backend ``extra`` names: ``(every rank's results per run, every
+    rank's probe results or None, seconds with torchrun's start)``."""
+    outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
+    spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
+                     for a, o in zip(runs, outs)]}
+    probed = moe_probe is not None or pipe_probe is not None
+    if probed:
+        spec.update(moe_probe=moe_probe, pipe_probe=pipe_probe,
+                    device=_flag(extra, "--device", "cuda"),
+                    backend=_flag(extra, "--dist-backend"),
+                    probe_json=str(root / f"{tag}_probe.json"))
+    path = root / f"{tag}_spec.json"
+    path.write_text(json.dumps(spec))
+    t = time.perf_counter()
+    _torchrun(ranks, [str(Path(__file__).resolve()), "--lm-ranks",
+                      str(path)], timeout=600)
+    seconds = time.perf_counter() - t
+    results = [_rank_results(o, ranks) for o in outs]
+    probes = _rank_results(Path(spec["probe_json"]), ranks) \
+        if probed else None
+    return results, probes, seconds
+
+
+def _log_ranks_run(label: str, results: list, seconds: float,
+                   card: str) -> float:
+    """Log a multi-rank run's rate, step ms, rank 0's peak and each rank's
+    params; its step ms."""
+    res = results[0]
+    step_ms = res["elapsed_s"] / LM_RANKS_STEPS * 1e3
+    _log(f"{label}: {res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms "
+         f"a step, peak on rank 0 {res['peak_memory_bytes'] / 1e9:.3f} GB, "
+         f"{seconds:.1f} s for the torchrun world; {card}")
+    for r, rr in enumerate(results):
+        where = rr.get("pipeline")
+        _log(f"{label}: rank {r} holds params {rr['leaves']['params']}"
+             + (f", at (stage, n, tp) {where['coords']}, w1 block "
+                f"{where['blocks']['w1']}" if where else ""))
+    return step_ms
 
 
 def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
                   extra) -> dict:
-    """The LM over ``ranks`` ranks through torchrun under
-    ``_lm_strategy_file`` (``extra`` names the device and backend), held
-    to its bars; each rank's leaves logged."""
+    """The LM over ``ranks`` ranks under ``_lm_strategy_file`` (``extra``
+    names the device and backend), held to its bars; each rank's leaves
+    logged."""
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
     path = root / f"lm_{ranks}.json"
     _lm_strategy_file(path, ranks)
-    out_json = root / f"lm_{ranks}_result.json"
-    t = time.perf_counter()
-    _torchrun(ranks, ["-m", "flexflow_tpu_torch.apps.lm"]
-              + _lm_argv(steps, LM_RANKS_WARMUP) + extra
-              + ["--strategy", str(path), "--result-json", str(out_json)],
-              timeout=420)
-    results = _rank_results(out_json, ranks)
-    res = results[0]
-    step_ms = res["elapsed_s"] / LM_RANKS_STEPS * 1e3
-    label = f"{ranks} ranks ({' '.join(extra) or 'NCCL, a card a rank'})"
-    _log(f"lm strategy {label}: {res['tokens_per_sec']:.1f} tokens/s, "
-         f"{step_ms:.3f} ms a step, peak on rank 0 "
-         f"{res['peak_memory_bytes'] / 1e9:.3f} GB, "
-         f"{time.perf_counter() - t:.1f} s with torchrun's start; {card}")
-    for r, rr in enumerate(results):
-        _log(f"lm strategy {label}: rank {r} holds params "
-             f"{rr['leaves']['params']}")
-    _check_lm_run(label, res, want_loss, _lm_rank_launches(steps))
-    return {"tokens_per_sec": res["tokens_per_sec"], "step_ms": step_ms,
-            "launches": res["launches"]}
+    (results,), _, seconds = _lm_ranks(
+        ranks, root, f"lm_{ranks}", [_lm_argv(steps, LM_RANKS_WARMUP)],
+        list(extra) + ["--strategy", str(path)])
+    label = (f"lm strategy {ranks} ranks "
+             f"({' '.join(extra) or 'NCCL, a card a rank'})")
+    step_ms = _log_ranks_run(label, results, seconds, card)
+    _check_lm_run(label, results[0], want_loss, _lm_rank_launches(steps))
+    return {"tokens_per_sec": results[0]["tokens_per_sec"],
+            "step_ms": step_ms, "launches": results[0]["launches"]}
 
 
 def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
                       strategy_run: dict) -> dict:
-    """The GPT trainer through ``torchrun --nproc-per-node 1 ... apps.lm
-    --strategy <one-device file>`` (NCCL) at the LM phase's widths and
-    steps against the LM phase's run without a strategy in this process;
-    then two gloo ranks on cuda:0 under ``_lm_strategy_file``: ring and
-    head-parallel attention, channel-split MLPs, sequence-split norms, the
-    embedding on rank 1 and the fused vocab-parallel head."""
+    """The GPT trainer through torchrun on one rank (NCCL) under a
+    one-device strategy file at the LM phase's widths and steps against
+    the LM phase's run without a strategy in this process; then two gloo
+    ranks on cuda:0 under ``_lm_strategy_file``: ring and head-parallel
+    attention, channel-split MLPs, sequence-split norms, the embedding on
+    rank 1 and the fused vocab-parallel head."""
     import shutil
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
@@ -3157,17 +3243,14 @@ def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
         iters = LM_WARMUP + LM_TIMED
         one = root / "lm_1.json"
         _lm_strategy_file(one, 1)
-        t = time.perf_counter()
-        _torchrun(1, ["-m", "flexflow_tpu_torch.apps.lm"]
-                  + _lm_argv(iters, LM_WARMUP)
-                  + ["--strategy", str(one), "--result-json",
-                     str(root / "lm_one.json")])
-        res = json.loads((root / "lm_one.json").read_text())
+        (res,), _, seconds = _lm_ranks(1, root, "lm_one", [
+            _lm_argv(iters, LM_WARMUP)], ["--strategy", str(one)])
+        res = res[0]
         step_ms = res["elapsed_s"] / LM_TIMED * 1e3
         _log(f"lm strategy 1 rank (NCCL, every op one point on device 0): "
              f"{res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms a "
              f"step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB, "
-             f"{time.perf_counter() - t:.1f} s with torchrun's start; "
+             f"{seconds:.1f} s for the torchrun world; "
              f"without a strategy in this process "
              f"{lm_run['tokens_per_sec']:.1f} tokens/s, "
              f"{lm_run['step_ms']:.3f} ms; {card}")
@@ -3176,7 +3259,7 @@ def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
         want.update({name: iters for name in (
             ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM,
             ce.NAME_DW)})
-        _check_lm_run("1 rank", res, lm_run["loss"], want)
+        _check_lm_run("lm strategy 1 rank", res, lm_run["loss"], want)
         out = {"one": {"tokens_per_sec": res["tokens_per_sec"],
                        "step_ms": step_ms, "loss": res["loss"]}}
         carried = strategy_run["gloo_cuda"]
@@ -3216,11 +3299,6 @@ def lm_strategy4_phase(torch, kernels, card: str, lm_strategy: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# ---------------------------------------------------------------------------
-# the MoE LM under expert grids (ROADMAP Queue A 3c-ii) and the GPipe
-# pipelined LM (3d), through torchrun; several apps.lm runs of one world
-# share one torchrun (``--lm-ranks``, ``_ranks_worker``)
-
 # the MoE blocks' grids over 2 and 4 ranks, cycled over the 12 blocks:
 # expert parallel and TP inside the experts; over four, EP x DP and TP x
 # DP too
@@ -3231,11 +3309,14 @@ MOE_PROBE_GRIDS = {2: [(2, 1, 1), (1, 2, 1), (1, 1, 2)],
                    4: [(4, 1, 1), (2, 1, 2), (1, 2, 2)]}
 MOE_D_FF, MOE_TOP_K, MOE_CAPACITY = 3072, 2, 2.0
 MOE_PROBE_SHAPE = (LM_SHAPE[0], LM_SHAPE[2], 768)     # B, S, D
+# the probe's capacity factors: the LM's, at which its seeded x drops
+# nothing, and 1.0, at which every rank's rows drop choices, so the
+# local inverse's sentinel for a dropped choice runs under each grid
+MOE_PROBE_CAPACITIES = (MOE_CAPACITY, 1.0)
 PIPE_STAGES, PIPE_MICROBATCHES = 2, 4
-# the pipelined LM's head starts at zero (JAX's PipelinedLM.init), so at
-# lr 1e-3 its first losses move by ~1e-5 of ln V and a 1e-4 bar could
-# not see its blocks; at 0.1 they move a hundredfold more
-PIPE_LR = 0.1
+# the pipeline probe's head, drawn in place of init's zero head: with a
+# zero head the first loss is ln V whatever the blocks compute
+PIPE_PROBE_SEED = 11
 PIPE_FILE = (Path(__file__).resolve().parent / "examples" / "strategies"
              / "transformer_2x4.json")
 # the file's run against the flags' run of the same (S, M): the same
@@ -3259,19 +3340,25 @@ def _moe_strategy_file(path: Path, ranks: int) -> None:
     path.write_text(json.dumps(obj, indent=1))
 
 
+def _rel(got, want) -> float:
+    """The largest difference of ``got`` from ``want`` relative to
+    ``want``'s largest magnitude."""
+    return float((got - want).abs().max()) \
+        / max(float(want.abs().max()), 1e-30)
+
+
 def _moe_probe(torch, machine, grids) -> dict:
     """The MoE op at the MoE LM's widths (B 16, S 512, D 768, 8 experts,
-    d_ff 3072, top-2, capacity 2.0, float32) under each grid of
-    ``grids`` over this world, from seeded params, x and cotangent g,
-    through ``FFModel.apply`` on the rank's blocks with the gradients of
+    d_ff 3072, top-2, float32) at each capacity factor of
+    ``MOE_PROBE_CAPACITIES`` under each grid of ``grids`` over this
+    world, from seeded params, x and cotangent g, through
+    ``FFModel.apply`` on the rank's blocks with the gradients of
     sum(y * g) + 0.5 aux summed as a step sums them; against the op on
-    one device on the whole x in this process.  Per grid: the rank's
-    rows, whether its routing of them equals the one-device routing of
-    those rows bit for bit, their dropped share, the largest differences
-    of y, aux and the gradients (each leaf's and x's relative to its
-    largest magnitude) and the rank's block of ``w1``."""
-    import math
-
+    one device on the whole x in this process.  Per grid and capacity:
+    the rank's rows, whether its routing of them equals the one-device
+    routing of those rows bit for bit, their dropped share, the largest
+    differences of y, aux and the gradients (each leaf's and x's
+    relative to its largest magnitude) and the rank's block of ``w1``."""
     from flexflow_tpu_torch.config import FFConfig
     from flexflow_tpu_torch.model import FFModel
     from flexflow_tpu_torch.parallel import collectives
@@ -3283,135 +3370,139 @@ def _moe_probe(torch, machine, grids) -> dict:
     gen.manual_seed(7)
     x = torch.randn((b, s, d), generator=gen, device=dev)
     g = torch.randn((b, s, d), generator=gen, device=dev)
-    out, one = {}, None
-
-    def rel(got, want):
-        return float((got - want).abs().max()) \
-            / max(float(want.abs().max()), 1e-30)
-
-    for dims in grids:
-        cfg = FFConfig(batch_size=b)
-        cfg.strategies = Strategy()
-        cfg.strategies["moe"] = ParallelConfig(
-            tuple(dims), tuple(range(math.prod(dims))))
-        ff = FFModel(cfg, machine)
-        t = ff.create_input((b, s, d), name="x")
-        ff.moe("moe", t, MOE_EXPERTS, MOE_D_FF, MOE_TOP_K, MOE_CAPACITY)
-        op = ff.layers[-1]
-        full = ff._init_full(0)[0]["moe"]
-        if one is None:
-            leaves = {k: v.clone().requires_grad_(True)
-                      for k, v in full.items()}
-            xx = x.clone().requires_grad_(True)
-            (y1, aux1), _ = op.forward(leaves, {}, [xx], True)
-            grads = torch.autograd.grad((y1 * g).sum() + 0.5 * aux1,
-                                        list(leaves.values()) + [xx])
-            one = (op.route(full, x)[2], y1.detach(), float(aux1),
-                   dict(zip(leaves, grads[:-1])), grads[-1])
-        ff._setup_sharded()
-        p = {k: v.clone().requires_grad_(True)
-             for k, v in ff.shard_params({"moe": full})["moe"].items()}
-        (xl,) = ff.local_batch(x)
-        xl = xl.clone().requires_grad_(True)
-        lo, hi = ff._boxes_of(op, op.output_spec(), x.shape)[
-            machine.position][0]
-        first = ff._first_holder(op, op.output_spec(), x.shape)
-        with collectives.token_chain(dev) as chain:
-            values, _ = ff.apply({"moe": p}, {}, {t.tid: xl}, True)
-            y, aux = values[op.output.tid], values[op.aux.tid]
-            loss = collectives.global_sum(
-                (y * g[lo:hi]).sum() * float(first), machine.world_group()) \
-                + 0.5 * (aux if ff.aux_counted(op) else aux.detach())
-            keys = sorted(p)
-            grads = torch.autograd.grad(loss + chain.token,
-                                        [p[k] for k in keys]
-                                        + [xl, chain.first])[:-1]
-        synced = ff._sync_grads([("moe", k) for k in keys],
-                                list(grads[:-1]))
-        boxes = ff.param_boxes()["moe"]
-        slots = op.route(p, x[lo:hi])[2]
-        blo, bhi = machine.batch_block(b)
-        grad_err = max(
-            [rel(gg, one[3][k][tuple(slice(a, c) for a, c in boxes[k])])
-             for k, gg in zip(keys, synced)]
-            + [rel(grads[-1], one[4][blo:bhi])])
-        out["x".join(map(str, dims))] = {
-            "rows": [lo, hi],
-            "routing_equal": bool(torch.equal(slots, one[0][lo:hi])),
-            "dropped": float((slots == MOE_EXPERTS * op.capacity)
-                             .float().mean()),
-            "y_err": rel(y.detach(), one[1][lo:hi]),
-            "aux_err": abs(float(aux) - one[2]), "grad_err": grad_err,
-            "w1_box": boxes["w1"]}
-        del ff, p, values, y, grads, synced
+    out, ones = {}, {}
+    for capacity in MOE_PROBE_CAPACITIES:
+        for dims in grids:
+            cfg = FFConfig(batch_size=b)
+            cfg.strategies = Strategy()
+            cfg.strategies["moe"] = ParallelConfig(
+                tuple(dims), tuple(range(math.prod(dims))))
+            ff = FFModel(cfg, machine)
+            t = ff.create_input((b, s, d), name="x")
+            ff.moe("moe", t, MOE_EXPERTS, MOE_D_FF, MOE_TOP_K, capacity)
+            op = ff.layers[-1]
+            full = ff._init_full(0)[0]["moe"]
+            if capacity not in ones:
+                leaves = {k: v.clone().requires_grad_(True)
+                          for k, v in full.items()}
+                xx = x.clone().requires_grad_(True)
+                (y1, aux1), _ = op.forward(leaves, {}, [xx], True)
+                grads = torch.autograd.grad(
+                    (y1 * g).sum() + 0.5 * aux1,
+                    list(leaves.values()) + [xx])
+                ones[capacity] = (op.route(full, x)[2], y1.detach(),
+                                  float(aux1.detach()),
+                                  dict(zip(leaves, grads[:-1])),
+                                  grads[-1])
+            one = ones[capacity]
+            ff._setup_sharded()
+            p = {k: v.clone().requires_grad_(True)
+                 for k, v in ff.shard_params({"moe": full})["moe"].items()}
+            (xl,) = ff.local_batch(x)
+            xl = xl.clone().requires_grad_(True)
+            lo, hi = ff._boxes_of(op, op.output_spec(), x.shape)[
+                machine.position][0]
+            first = ff._first_holder(op, op.output_spec(), x.shape)
+            with collectives.token_chain(dev) as chain:
+                values, _ = ff.apply({"moe": p}, {}, {t.tid: xl}, True)
+                y, aux = values[op.output.tid], values[op.aux.tid]
+                loss = collectives.global_sum(
+                    (y * g[lo:hi]).sum() * float(first),
+                    machine.world_group()) \
+                    + 0.5 * (aux if ff.aux_counted(op) else aux.detach())
+                keys = sorted(p)
+                grads = torch.autograd.grad(loss + chain.token,
+                                            [p[k] for k in keys]
+                                            + [xl, chain.first])[:-1]
+            synced = ff._sync_grads([("moe", k) for k in keys],
+                                    list(grads[:-1]))
+            boxes = ff.param_boxes()["moe"]
+            slots = op.route(p, x[lo:hi])[2]
+            blo, bhi = machine.batch_block(b)
+            grad_err = max(
+                [_rel(gg, one[3][k][tuple(slice(a, c) for a, c in boxes[k])])
+                 for k, gg in zip(keys, synced)]
+                + [_rel(grads[-1], one[4][blo:bhi])])
+            out[f"{'x'.join(map(str, dims))} capacity {capacity:g}"] = {
+                "capacity": capacity, "rows": [lo, hi],
+                "routing_equal": bool(torch.equal(slots, one[0][lo:hi])),
+                "dropped": float((slots == MOE_EXPERTS * op.capacity)
+                                 .float().mean()),
+                "y_err": _rel(y.detach(), one[1][lo:hi]),
+                "aux_err": abs(float(aux.detach()) - one[2]),
+                "grad_err": grad_err,
+                "w1_box": boxes["w1"]}
+            del ff, p, values, y, grads, synced
     return out
 
 
-def _ranks_worker(spec_path: str) -> int:
-    """Run under torchrun (``--lm-ranks SPEC``): each ``apps.lm`` argv
-    of the spec's ``runs`` in turn on this world, the launch counts and
-    the peak memory reset before each (its results in its
-    ``--result-json``); then, with ``moe_probe`` (a list of grids),
-    :func:`_moe_probe`, whose result rank r writes to ``probe_json``
-    (``.rank<r>`` on rank r > 0)."""
-    import torch
-
-    from flexflow_tpu_torch import distributed
+def _pipe_probe(torch, machine, configs, argv) -> dict:
+    """The pipelined LM at the widths ``argv`` gives ``apps.lm``, for each
+    ``(stages, microbatches, tp)`` of ``configs`` over this world: the
+    loss and every leaf's gradient through the GPipe ring
+    (``PipelinedLM.loss_fn``, summed over each leaf's holders) against
+    the sequential reference (``loss_reference``) on the whole tree in
+    this process, on the run's first batch, from ``init_full`` with its
+    zero head replaced by a seeded normal one so that the blocks reach
+    the loss.  Per config: the rank's (stage, n, tp), both losses and
+    their relative difference, the largest gradient difference (each
+    leaf's block relative to the reference's largest magnitude there)
+    with its leaf, and the smallest of the block leaves' largest
+    reference gradients."""
     from flexflow_tpu_torch.apps import lm
-    from flexflow_tpu_torch.ops import kernels
+    from flexflow_tpu_torch.parallel.pipeline import PipelinedLM
 
-    spec = json.loads(Path(spec_path).read_text())
-    try:
-        for argv in spec["runs"]:
-            kernels.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            lm.main(argv, log=_log)
-        if spec.get("moe_probe"):
-            torch.backends.cuda.matmul.allow_tf32 = False
-            machine = distributed.initialize(spec["device"],
-                                             backend=spec["backend"])
-            res = _moe_probe(torch, machine, spec["moe_probe"])
-            path = spec["probe_json"] + (f".rank{machine.rank}"
-                                         if machine.rank else "")
-            Path(path).write_text(json.dumps(res))
-    finally:
-        distributed.shutdown()
-    return 0
-
-
-def _lm_ranks(ranks: int, root: Path, tag: str, runs, probe=None,
-              extra=()) -> tuple:
-    """``runs`` (apps.lm argv lists, ``extra`` appended to each) as one
-    torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
-    a ``--result-json`` of its own: ``(every rank's results per run,
-    every rank's probe result or None, seconds with torchrun's
-    start)``."""
-    outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
-    spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
-                     for a, o in zip(runs, outs)]}
-    if probe is not None:
-        device = "cuda:0" if "--device" in extra else "cuda"
-        spec.update(moe_probe=probe, device=device,
-                    backend="gloo" if "gloo" in extra else None,
-                    probe_json=str(root / f"{tag}_probe.json"))
-    path = root / f"{tag}_spec.json"
-    path.write_text(json.dumps(spec))
-    t = time.perf_counter()
-    _torchrun(ranks, [str(Path(__file__).resolve()), "--lm-ranks",
-                      str(path)], timeout=600)
-    seconds = time.perf_counter() - t
-    results = [_rank_results(o, ranks) for o in outs]
-    probes = _rank_results(Path(spec["probe_json"]), ranks) \
-        if probe is not None else None
-    return results, probes, seconds
+    dev = machine.device
+    out = {}
+    for stages, mb, tp in configs:
+        cfg = lm.parse_args(list(argv) + [
+            "--pipeline-stages", str(stages), "--microbatches", str(mb),
+            "--pipeline-tp", str(tp)])[0]
+        model = PipelinedLM(
+            machine, stages, mb, num_layers=cfg.num_layers,
+            d_model=cfg.d_model, num_heads=cfg.num_heads, d_ff=cfg.d_ff,
+            vocab_size=cfg.vocab_size, seq_length=cfg.seq_length,
+            batch_size=cfg.batch_size, causal=cfg.causal,
+            learning_rate=cfg.learning_rate, tp=tp)
+        full = model.init_full(cfg.seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(PIPE_PROBE_SEED)
+        full["head_w"] = torch.randn(full["head_w"].shape, generator=gen,
+                                     device=dev) / cfg.d_model ** 0.5
+        toks, labels = next(lm.synthetic_lm_batches(
+            cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed,
+            device=dev))
+        loss, keys, grads = model.loss_and_grads(
+            model.loss_fn, model.shard_params(full), toks, labels, True)
+        ref, ref_keys, ref_grads = model.loss_and_grads(
+            model.loss_reference, full, toks, labels, False)
+        ref_grads = dict(zip(ref_keys, ref_grads))
+        boxes = model.param_boxes()
+        errs, scales = {}, []
+        for (a, b), gg in zip(keys, grads):
+            box = boxes[a][b] if b is not None else boxes[a]
+            want = ref_grads[(a, b)][tuple(slice(lo, hi) for lo, hi in box)]
+            errs[b or a] = _rel(gg, want)
+            if b is not None:
+                scales.append(float(want.abs().max()))
+        worst = max(errs, key=errs.get)
+        out[f"{stages}x{mb}x{tp}"] = {
+            "coords": list(model.coords()), "loss": float(loss),
+            "ref_loss": float(ref),
+            "loss_rel": abs(float(loss) - float(ref)) / abs(float(ref)),
+            "grad_err": errs[worst], "worst": worst,
+            "block_grad_min": min(scales)}
+        del model, full, grads, ref_grads
+    return out
 
 
 def _check_probe(label: str, probes: list) -> None:
     """Hold the MoE op probe of every rank to its bars: its routing of its
     rows bit-equal to one device's, y and the gradients within 1e-4 of
-    the largest magnitude, aux within 1e-6."""
+    the largest magnitude, aux within 1e-6, and at capacity 1.0 some
+    choices dropped."""
     for r, per_grid in enumerate(probes):
-        for grid, res in per_grid.items():
+        for grid, res in per_grid["moe"].items():
             _log(f"{label}: rank {r} grid {grid} rows {res['rows']}: "
                  f"routing equal to one device's {res['routing_equal']}, "
                  f"dropped {res['dropped']:.4f} of its (token, choice) "
@@ -3420,26 +3511,30 @@ def _check_probe(label: str, probes: list) -> None:
                  f"{res['w1_box']}")
             if not (res["routing_equal"] and res["y_err"] <= GRAD_RTOL[
                     "float32"] and res["grad_err"] <= GRAD_RTOL["float32"]
-                    and res["aux_err"] <= 1e-6):
+                    and res["aux_err"] <= 1e-6
+                    and (res["capacity"] != 1.0 or res["dropped"] > 0)):
                 raise AssertionError(f"{label}: MoE probe on rank {r} "
                                      f"under {grid}: {res}")
 
 
-def _log_ranks_run(label: str, results: list, seconds: float,
-                   card: str) -> float:
-    """Log a multi-rank run's rate, step ms, rank 0's peak and each rank's
-    params; its step ms."""
-    res = results[0]
-    step_ms = res["elapsed_s"] / LM_RANKS_STEPS * 1e3
-    _log(f"{label}: {res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms "
-         f"a step, peak on rank 0 {res['peak_memory_bytes'] / 1e9:.3f} GB, "
-         f"{seconds:.1f} s for the torchrun world; {card}")
-    for r, rr in enumerate(results):
-        where = rr.get("pipeline")
-        _log(f"{label}: rank {r} holds params {rr['leaves']['params']}"
-             + (f", at (stage, n, tp) {where['coords']}, w1 block "
-                f"{where['blocks']['w1']}" if where else ""))
-    return step_ms
+def _check_pipe_probe(label: str, probes: list) -> None:
+    """Hold the pipeline probe of every rank to its bars: the loss within
+    1e-4 of the sequential reference's, every gradient within 1e-4 of
+    the reference's largest magnitude, no block leaf's gradient zero."""
+    for r, per_config in enumerate(probes):
+        for config, res in per_config["pipe"].items():
+            _log(f"{label}: rank {r} (stages x microbatches x tp {config}) "
+                 f"at (stage, n, tp) {res['coords']}: loss {res['loss']} vs "
+                 f"the sequential reference's {res['ref_loss']} (relative "
+                 f"{res['loss_rel']:.3e}); gradients within "
+                 f"{res['grad_err']:.3e} of the reference's largest "
+                 f"magnitude (worst {res['worst']}), block gradients "
+                 f"reach at least {res['block_grad_min']:.3e}")
+            if not (res["loss_rel"] <= LM_LOSS_RTOL
+                    and res["grad_err"] <= GRAD_RTOL["float32"]
+                    and res["block_grad_min"] > 0):
+                raise AssertionError(f"{label}: pipeline probe on rank {r} "
+                                     f"under {config}: {res}")
 
 
 def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
@@ -3464,8 +3559,8 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
     try:
         one = root / "moe_1.json"
         _moe_strategy_file(one, 1)
-        (res,), _, seconds = _lm_ranks(1, root, "moe_one", [argv], extra=[
-            "--strategy", str(one)])
+        (res,), _, seconds = _lm_ranks(1, root, "moe_one", [argv],
+                                       ["--strategy", str(one)])
         res = res[0]
         step_ms = _log_ranks_run("moe strategy 1 rank (NCCL, every op one "
                                  "point on device 0)", [res], seconds, card)
@@ -3508,8 +3603,9 @@ def _moe_ranks_run(ranks: int, root: Path, card: str, want_loss, argv,
     path = root / f"moe_{ranks}.json"
     _moe_strategy_file(path, ranks)
     (results,), probes, seconds = _lm_ranks(
-        ranks, root, f"moe_{ranks}", [argv], MOE_PROBE_GRIDS[ranks],
-        list(extra) + ["--strategy", str(path)])
+        ranks, root, f"moe_{ranks}", [argv],
+        list(extra) + ["--strategy", str(path)],
+        moe_probe=MOE_PROBE_GRIDS[ranks])
     label = f"moe strategy {ranks} ranks ({' '.join(extra) or 'NCCL'})"
     step_ms = _log_ranks_run(label, results, seconds, card)
     _check_lm_run(label, results[0], want_loss,
@@ -3541,8 +3637,8 @@ def moe_strategy4_phase(torch, kernels, card: str, moe_ranks: dict) -> dict:
 
 
 def _pipe_argv(*extra) -> list:
-    return _lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS, LM_RANKS_WARMUP) + [
-        "--lr", str(PIPE_LR)] + list(extra)
+    return _lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS, LM_RANKS_WARMUP) \
+        + list(extra)
 
 
 def _pipe_flags(stages: int, microbatches: int, tp: int = 1) -> list:
@@ -3564,7 +3660,9 @@ def _pipe_launches(stages: int, microbatches: int) -> dict:
 def _check_pipe_run(label: str, results: list, want_loss, launches: dict,
                     rtol: float = LM_LOSS_RTOL) -> float:
     """Every rank's launches of kernels 1-3 exactly ``launches``, the first
-    3 losses within ``rtol`` of ``want_loss``."""
+    3 losses within ``rtol`` of ``want_loss``.  These losses see the
+    blocks only through the zero-initialised head's small first
+    updates: the pipeline probe holds the blocks."""
     for r, res in enumerate(results):
         got = {k: v for k, v in res["launches"].items() if v}
         if got != launches:
@@ -3586,8 +3684,7 @@ def _check_pipe_run(label: str, results: list, want_loss, launches: dict,
 def _pipe_reference(torch, card: str) -> list:
     """``PipelinedLM.loss_reference`` (the stages in order, no ring)
     trained in this process on the card for 1 + 3 SGD steps at the LM
-    phase's widths and ``PIPE_LR``, from the seed the pipelined runs
-    take: its losses."""
+    phase's widths, from the seed the pipelined runs take: its losses."""
     import gc
 
     from flexflow_tpu_torch.apps import lm
@@ -3629,7 +3726,8 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     torchrun world: ``apps.lm --pipeline-stages 2 --microbatches 4``
     against the reference, ``--strategy transformer_2x4.json`` as
     written (2 stages x 8 microbatches) against ``--pipeline-stages 2
-    --microbatches 8``, each rank's launches of kernels 1-3 exact."""
+    --microbatches 8``, each rank's launches of kernels 1-3 exact; and
+    the pipeline probe at 2 x 4 (:func:`_pipe_probe`)."""
     import shutil
 
     ref = _pipe_reference(torch, card)
@@ -3642,13 +3740,16 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     try:
         file_m = json.loads(PIPE_FILE.read_text())["__pipeline__"][
             "microbatches"]
-        runs, _, seconds = _lm_ranks(
+        runs, probes, seconds = _lm_ranks(
             2, root, "pipe_2", [
                 _pipe_flags(PIPE_STAGES, PIPE_MICROBATCHES),
                 _pipe_argv("--strategy", str(PIPE_FILE)),
                 _pipe_flags(PIPE_STAGES, file_m)],
-            extra=["--device", "cuda:0", "--dist-backend", "gloo"])
-        _log(f"pipeline: 3 runs in {seconds:.1f} s with torchrun's start")
+            ["--device", "cuda:0", "--dist-backend", "gloo"],
+            pipe_probe={"configs": [(PIPE_STAGES, PIPE_MICROBATCHES, 1)],
+                        "argv": _pipe_argv()})
+        _log(f"pipeline: 3 runs and the probe in {seconds:.1f} s with "
+             f"torchrun's start")
         label = "pipeline 2 stages x 4 microbatches (2 gloo ranks on cuda:0)"
         step_ms = _log_ranks_run(label, runs[0], seconds, card)
         _check_pipe_run(label, runs[0], ref,
@@ -3659,6 +3760,7 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
                         _pipe_launches(PIPE_STAGES, file_m), PIPE_FILE_RTOL)
         _check_pipe_run(f"pipeline flags 2 x {file_m}", runs[2], ref,
                         _pipe_launches(PIPE_STAGES, file_m))
+        _check_pipe_probe("pipeline probe (2 gloo ranks on cuda:0)", probes)
         return {"ref": ref, "step_ms": step_ms,
                 "tokens_per_sec": runs[0][0]["tokens_per_sec"],
                 "launches": runs[0][0]["launches"]}
@@ -3668,23 +3770,26 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
 
 def pipeline4_phase(torch, kernels, card: str, pipe: dict) -> dict:
     """The pipelined LM over four cards (NCCL, a card a rank): 2 stages x
-    2 tp and 4 stages, each against the sequential reference."""
+    2 tp and 4 stages, each against the sequential reference, and the
+    pipeline probe at both."""
     import shutil
 
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
+    configs = ((2, PIPE_MICROBATCHES, 2), (4, PIPE_MICROBATCHES, 1))
     try:
-        runs, _, seconds = _lm_ranks(4, root, "pipe_4", [
-            _pipe_flags(2, PIPE_MICROBATCHES, 2),
-            _pipe_flags(4, PIPE_MICROBATCHES)])
+        runs, probes, seconds = _lm_ranks(
+            4, root, "pipe_4", [_pipe_flags(*c) for c in configs],
+            pipe_probe={"configs": configs, "argv": _pipe_argv()})
         out = {}
-        for res, (stages, tp) in zip(runs, ((2, 2), (4, 1))):
+        for res, (stages, mb, tp) in zip(runs, configs):
             label = (f"pipeline 4 cards: {stages} stages x {tp} tp x "
-                     f"{PIPE_MICROBATCHES} microbatches")
+                     f"{mb} microbatches")
             step_ms = _log_ranks_run(label, res, seconds, card)
             _check_pipe_run(label, res, pipe["ref"],
-                            _pipe_launches(stages, PIPE_MICROBATCHES))
+                            _pipe_launches(stages, mb))
             out[(stages, tp)] = step_ms
+        _check_pipe_probe("pipeline probe (4 cards)", probes)
         _log(f"pipeline 4 cards: 2 gloo ranks on one card "
              f"{pipe['step_ms']:.3f} ms a step; four cards {out}")
         return out

@@ -749,11 +749,10 @@ class FFModel:
                                (group, []))[1].append(i)
         out = list(grads)
         for _, (group, idx) in sorted(buckets.items()):
-            flat = torch.cat([grads[i].reshape(-1) for i in idx])
-            collectives.all_reduce_(flat, group)
-            for i, part in zip(idx, flat.split([grads[i].numel()
-                                                for i in idx])):
-                out[i] = part.view_as(grads[i])
+            summed = collectives.all_reduce_flat([grads[i] for i in idx],
+                                                 group)
+            for i, g in zip(idx, summed):
+                out[i] = g
         return out
 
     def init_opt_state(self, params):

@@ -119,6 +119,15 @@ def all_reduce_(x: torch.Tensor, group: Group) -> torch.Tensor:
     return x
 
 
+def all_reduce_flat(xs: Sequence[torch.Tensor],
+                    group: Group) -> List[torch.Tensor]:
+    """Sum each of ``xs`` (one dtype) over the group by one all-reduce of
+    their concatenation; the sums in ``xs``' order and shapes."""
+    flat = all_reduce_(torch.cat([x.reshape(-1) for x in xs]), group)
+    return [part.view_as(x)
+            for x, part in zip(xs, flat.split([x.numel() for x in xs]))]
+
+
 def _extent(box: Box) -> Tuple[int, ...]:
     return tuple(hi - lo for lo, hi in box)
 

@@ -409,30 +409,27 @@ class PipelinedLM:
                    if self._grad_kind(k) == kind]
             if not idx:
                 continue
-            flat = torch.cat([grads[i].reshape(-1) for i in idx])
-            collectives.all_reduce_(flat, groups[kind])
-            for i, part in zip(idx, flat.split([grads[i].numel()
-                                                for i in idx])):
-                out[i] = part.view_as(grads[i])
+            summed = collectives.all_reduce_flat([grads[i] for i in idx],
+                                                 groups[kind])
+            for i, g in zip(idx, summed):
+                out[i] = g
         return out
 
-    def _sgd(self, loss_of, params, tokens, labels, sync):
-        """``(new params, loss)``: one plain-SGD step ``p - lr * g`` on
-        the gradients of ``loss_of(params, tokens, labels)``."""
+    def loss_and_grads(self, loss_of, params, tokens, labels, sync):
+        """``(loss, keys, grads)``: ``loss_of(params, tokens, labels)`` and
+        its gradient in each leaf, keyed ``("blocks", leaf)`` or ``(leaf,
+        None)``; with ``sync`` through the step's token chain and summed
+        over each leaf's holders (:meth:`_sync_grads`)."""
         keys = [("blocks", k) for k in params["blocks"]] \
             + [(k, None) for k in params if k != "blocks"]
-
-        def get(tree, key):
-            return tree[key[0]] if key[1] is None else tree[key[0]][key[1]]
-
-        leaves = [get(params, key).detach().requires_grad_(True)
-                  for key in keys]
+        leaves = [(params[a] if b is None else params[a][b])
+                  .detach().requires_grad_(True) for a, b in keys]
         tree = {"blocks": {}}
-        for key, v in zip(keys, leaves):
-            if key[1] is None:
-                tree[key[0]] = v
+        for (a, b), v in zip(keys, leaves):
+            if b is None:
+                tree[a] = v
             else:
-                tree["blocks"][key[1]] = v
+                tree["blocks"][b] = v
         with torch.enable_grad(), contextlib.ExitStack() as stack:
             chain = stack.enter_context(collectives.token_chain(
                 self.device)) if sync else None
@@ -450,15 +447,21 @@ class PipelinedLM:
                  for v, g in zip(leaves, grads)]
         if sync:
             grads = self._sync_grads(keys, grads)
+        return loss.detach(), keys, grads
+
+    def _sgd(self, loss_of, params, tokens, labels, sync):
+        """``(new params, loss)``: one plain-SGD step ``p - lr * g`` on
+        :meth:`loss_and_grads`."""
+        loss, keys, grads = self.loss_and_grads(loss_of, params, tokens,
+                                                labels, sync)
         new = {"blocks": {}}
         with torch.no_grad():
-            for key, v, g in zip(keys, leaves, grads):
-                p = v.detach() - self.lr * g
-                if key[1] is None:
-                    new[key[0]] = p
+            for (a, b), g in zip(keys, grads):
+                if b is None:
+                    new[a] = params[a].detach() - self.lr * g
                 else:
-                    new["blocks"][key[1]] = p
-        return new, loss.detach()
+                    new["blocks"][b] = params[a][b].detach() - self.lr * g
+        return new, loss
 
     def make_train_step(self):
         """``step(params, tokens, labels) -> (params, loss)``: plain SGD
