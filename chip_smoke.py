@@ -9,8 +9,10 @@ trained by ``torchrun ... apps.cnn`` under a strategy file, the NMT
 and AlexNet with ops placed on device subsets through ``torchrun``,
 the GPT trained by ``torchrun ... apps.lm`` under per-op strategies
 (ring and head-parallel attention, the fused vocab-parallel head), its
-MoE form under expert-parallel grids and its GPipe pipelined form — and
-checks that each path ran through its kernels.
+MoE form under expert-parallel grids and its GPipe pipelined form, and
+the strategy search (``apps.search --measured``, shard times from this
+card) with the AlexNet strategy it finds trained over ranks — and checks
+that each path ran through its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU; on four,
                                        # phase 19 too)
@@ -252,6 +254,21 @@ Phases (any failure exits non-zero):
     probe draws a seeded head and holds the ring's loss within 1e-4 and
     every leaf's gradient on every rank within 1e-4 of its largest
     magnitude against the sequential reference on the same tree;
+18e. search slice (ROADMAP Queue A item 4): ``apps.search alexnet
+    --devices 2 --measured`` and ``apps.search transformer --devices 2
+    --measured`` at full width (AlexNet batch 64 at 224x224; the
+    transformer's batch 64, seq 512, 12 x 768, vocab 32768), one grid
+    point's forward and gradient of each candidate timed on this card
+    with CUDA events through the port's ops: the shards timed, the
+    measurement's seconds, the launches of kernels 7 and 7f (AlexNet)
+    and 1-3 (the transformer) while timing (each at least once), the
+    lookups estimated for want of a clone, the kind anchors (measured
+    over analytic time), ``dp_time_s``, ``best_time_s`` and
+    ``speedup_vs_dp``; every timed shard finite and positive, every
+    searched entry among its op's candidates; then, where gloo carries
+    CUDA tensors for the moves, the searched AlexNet strategy through
+    torchrun on two gloo ranks on cuda:0, 1 warm-up and 3 steps, its
+    first 3 losses within 1e-4 (relative) of phase 17's one-rank run;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
@@ -263,8 +280,13 @@ Phases (any failure exits non-zero):
     run; the MoE LM with its blocks cycling (4, 1, 1), (2, 1, 2), (1, 2,
     2) and the op probe under those grids, against phase 18c's one-rank
     run; the pipelined LM at 2 stages x 2 tp and at 4 stages, against
-    phase 18d's reference, and the pipeline probe at both; one card runs without this phase, and the
-    log says so;
+    phase 18d's reference, and the pipeline probe at both; then AlexNet
+    searched for four cards by ``apps.search --measured`` (shard times
+    from this card) and trained through ``torchrun --nproc-per-node 4``
+    under the searched strategy and data parallel, 1 + 3 steps each, the
+    first 3 losses within 1e-4 of phase 17's one-rank run: the measured
+    steps beside the simulated ones; one card runs without this phase,
+    and the log says so;
 20. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
     share of each step, from the profiler's kernel rows and, without the
@@ -3797,6 +3819,171 @@ def pipeline4_phase(torch, kernels, card: str, pipe: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the search phases (ROADMAP Queue A item 4): apps.search with --measured
+# at full width, then the searched AlexNet strategy trained over ranks,
+# 1 warm-up and 3 steps, its first 3 losses within 1e-4 of one rank's
+SEARCH_ITERS = 20000
+SEARCH_LOSS_RTOL = 1e-4
+
+
+def _measured_search(torch, kernels, card: str, argv, want) -> dict:
+    """``apps.search <argv> --measured`` in this process: the shards it
+    timed, the measurement's seconds, the kernels launched while timing
+    (each of ``want`` at least once), the kind anchors and the simulated
+    steps; every timed shard finite and positive, every searched entry
+    among its op's candidates.  ``argv`` names a ``--cache`` file."""
+    from flexflow_tpu_torch.apps import search
+
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out = search.main(argv + ["--measured"], log=lambda *a: None)
+    seconds = time.perf_counter() - t
+    launched = {k: kernels.launches.get(k, 0) for k in want}
+    m = out["measurement"]
+    cache = json.loads(Path(argv[argv.index("--cache") + 1]).read_text())
+    timed = [v for k, v in cache.items() if k.startswith(m["protocol"])]
+    _log(f"search {argv[0]} --devices {out['devices']} --measured: "
+         f"{m['shards_timed']} shards timed in {m['timed_s']:.2f} s "
+         f"({m['build_s']:.1f} s to build and time, {seconds:.1f} s in "
+         f"all), {m['estimated']} lookups estimated (no clone), "
+         f"{m['cache_hits']} cache hits; kernel launches while timing "
+         f"{launched}; kind anchors (measured / analytic) {m['anchors']}; "
+         f"dp_time_s {out['dp_time_s']:.6e}, best_time_s "
+         f"{out['best_time_s']:.6e}, speedup_vs_dp "
+         f"{out['speedup_vs_dp']:.4f}; {card}")
+    if not all(v > 0 for v in launched.values()):
+        raise AssertionError(f"search {argv[0]}: the measurement launched "
+                             f"{launched}, want each at least once")
+    if not timed or not all(math.isfinite(v) and v > 0 for v in timed):
+        raise AssertionError(f"search {argv[0]}: timed shards {timed}")
+    # raises KeyError for an entry outside its op's candidate list
+    out["search"].assignment_for(out["strategy"])
+    n = out["devices"]
+    grids = {name: (pc.dims, pc.devices)
+             for name, pc in out["strategy"].items()
+             if pc.dims[:-1] != (1,) * (len(pc.dims) - 1)
+             or len(pc.devices) < n}
+    _log(f"search {argv[0]}: {len(grids)} of {len(out['strategy'])} ops off "
+         f"data parallelism (grid, devices): {grids}")
+    return out
+
+
+def _searched_alexnet_run(label: str, ranks: int, path: Path, extra, want,
+                          root: Path) -> dict:
+    """AlexNet through torchrun on ``ranks`` ranks under the searched
+    strategy ``path``, 1 warm-up and 3 steps, its first 3 losses within
+    the bar of ``want``; rank 0's result."""
+    steps = PLACED_WARMUP + PLACED_STEPS
+    result = root / f"searched_{ranks}.json"
+    t = time.perf_counter()
+    _torchrun(ranks, ["-m", "flexflow_tpu_torch.apps.cnn"] + _alexnet_argv(
+        extra + ["-s", str(path), "-ll:gpu", str(ranks), "--result-json",
+                 str(result)], PLACED_WARMUP, PLACED_STEPS), timeout=300)
+    res = json.loads(result.read_text())
+    n = STRATEGY_CHECKED
+    got = res["loss"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(got[:n], want[:n]))
+    step_ms = res["elapsed_s"] / PLACED_STEPS * 1e3
+    _log(f"search {label}: {res['images_per_sec']:.2f} images/s, "
+         f"{step_ms:.3f} ms a step, {time.perf_counter() - t:.1f} s with "
+         f"torchrun's start; first losses {got[:n]} vs one rank {want[:n]}: "
+         f"max relative difference {rel:.3e} (tolerance "
+         f"{SEARCH_LOSS_RTOL:g}); launches on rank 0 {res['launches']}")
+    if not (all(math.isfinite(v) for v in got) and len(got) == steps
+            and rel <= SEARCH_LOSS_RTOL):
+        raise AssertionError(f"search {label}: losses {got[:n]} differ from "
+                             f"{want[:n]}")
+    return dict(res, step_ms=step_ms)
+
+
+def search_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
+    """``apps.search`` on the card: AlexNet and the transformer at full
+    width searched for two cards with shard times measured here (kernels
+    7 and 7f, then 1-3, launched while timing), then, where gloo carries
+    CUDA tensors for the moves, the AlexNet strategy trained on two gloo
+    ranks on cuda:0 against the strategy phase's one-rank run."""
+    import shutil
+
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        path = root / "alexnet_searched_2.json"
+        alexnet = _measured_search(
+            torch, kernels, card,
+            ["alexnet", "--devices", "2", "-i", str(SEARCH_ITERS), "--cache",
+             str(root / "cache.json"), "-o", str(path)],
+            (mp.NAME_FWD, mp.NAME_BWD))
+        lm = _measured_search(
+            torch, kernels, card,
+            ["transformer", "--devices", "2", "-i", str(SEARCH_ITERS),
+             "--cache", str(root / "cache.json")],
+            (fa.NAME, fa.NAME_DKV, fa.NAME_DQ))
+        out = {"alexnet": alexnet["measurement"], "lm": lm["measurement"]}
+        carried = strategy_run.get("gloo_cuda", {})
+        if all(carried.get(c) == "ok" for c in GLOO_CUDA_NEEDED):
+            res = _searched_alexnet_run(
+                "alexnet 2 gloo ranks on cuda:0", 2, path,
+                ["--device", "cuda:0", "--dist-backend", "gloo"],
+                strategy_run["ref"]["loss"], root)
+            _log(f"search alexnet 2 ranks: simulated best_time_s "
+                 f"{alexnet['best_time_s']:.6e} (dp {alexnet['dp_time_s']:.6e})"
+                 f" for two cards; two ranks on one card measured "
+                 f"{res['step_ms'] / 1e3:.6e} s a step (gloo's host copies: "
+                 f"not the simulated machine); one rank without a strategy "
+                 f"{strategy_run['ref_step_ms'] / 1e3:.6e} s")
+        else:
+            _log("search: the two-rank gloo run is left out: gloo does not "
+                 "carry CUDA tensors for every collective the moves use")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def search4_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
+    """AlexNet searched for four cards with shard times measured here,
+    trained through ``torchrun --nproc-per-node 4`` (NCCL) under the
+    searched strategy and without one (data parallel): the measured
+    steps beside the simulator's, the simulator's drift on this card."""
+    import shutil
+
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    root = STRATEGY_ROOT
+    root.mkdir(exist_ok=True)
+    try:
+        path = root / "alexnet_searched_4.json"
+        found = _measured_search(
+            torch, kernels, card,
+            ["alexnet", "--devices", "4", "-i", str(SEARCH_ITERS), "--cache",
+             str(root / "cache.json"), "-o", str(path)],
+            (mp.NAME_FWD, mp.NAME_BWD))
+        want = strategy_run["ref"]["loss"]
+        searched = _searched_alexnet_run("alexnet 4 cards (NCCL)", 4, path,
+                                         [], want, root)
+        dp_file = root / "alexnet_dp_4.json"
+        _strategy_file(dp_file, {}, 4)
+        dp = _searched_alexnet_run("alexnet 4 cards data parallel (NCCL)",
+                                   4, dp_file, [], want, root)
+        drift = searched["step_ms"] / 1e3 / found["best_time_s"]
+        _log(f"search 4 cards: simulated step {found['best_time_s']:.6e} s "
+             f"searched, {found['dp_time_s']:.6e} s data parallel; measured "
+             f"{searched['step_ms'] / 1e3:.6e} s searched, "
+             f"{dp['step_ms'] / 1e3:.6e} s data parallel; measured / "
+             f"simulated {drift:.4f} searched, "
+             f"{dp['step_ms'] / 1e3 / found['dp_time_s']:.4f} data "
+             f"parallel; {card}")
+        return {"simulated": found["best_time_s"],
+                "measured": searched["step_ms"] / 1e3,
+                "dp_simulated": found["dp_time_s"],
+                "dp_measured": dp["step_ms"] / 1e3}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -3895,6 +4082,7 @@ def main(argv) -> int:
                       card, moe_run, strategy_run)
     pipe = phase("pipeline", pipeline_phase, torch, kernels, card,
                  strategy_run)
+    phase("search", search_phase, torch, kernels, card, strategy_run)
     if torch.cuda.device_count() >= 4:
         phase("strategy 4", strategy4_phase, torch, kernels, card)
         phase("placement 4", placement4_phase, torch, kernels, card,
@@ -3904,6 +4092,7 @@ def main(argv) -> int:
         phase("moe strategy 4", moe_strategy4_phase, torch, kernels, card,
               moe_ranks)
         phase("pipeline 4", pipeline4_phase, torch, kernels, card, pipe)
+        phase("search 4", search4_phase, torch, kernels, card, strategy_run)
     else:
         _log(f"four-card phases skipped: {torch.cuda.device_count()} "
              f"card(s) on this machine")

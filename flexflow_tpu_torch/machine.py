@@ -71,20 +71,72 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+#: NVLink 4 between the eight H100 SXM cards of one node: 900 GB/s per
+#: card in both directions together, 450 GB/s each way (NVIDIA's H100
+#: data sheet)
+NVLINK4_BANDWIDTH = 4.5e11
+
+#: between nodes, one 400 Gb/s NDR InfiniBand port per card (NVIDIA's
+#: DGX H100 data sheet: eight ConnectX-7 ports per node): 50 GB/s each way
+NDR_BANDWIDTH = 5.0e10
+
+
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Two-tier interconnect model that prices regrid hops
+    """Two-tier interconnect model that prices regrid hops and the
+    strategy search's transfers and collectives
     (``flexflow_tpu/machine.py:34``): ranks ``r // devices_per_ici_group``
-    share the fast tier.  The bandwidths and latencies are the JAX
-    package's modeled defaults, kept so that the regrid planner picks the
-    same hop chains as the JAX planner; they are not measurements of any
-    GPU interconnect."""
+    share the fast tier ("ici"), the rest talk over the slow one ("dcn").
+    Bandwidths are per direction, in bytes/s.  The defaults are the JAX
+    package's modeled constants, kept so that the regrid planner and the
+    search pick what the JAX package picks; they are not measurements of
+    any GPU interconnect.  :meth:`hopper` is the card's."""
 
     devices_per_ici_group: int = 8
     ici_bandwidth: float = 9.0e10
     dcn_bandwidth: float = 2.5e10
     ici_latency: float = 1.0e-6
     dcn_latency: float = 1.0e-5
+
+    @classmethod
+    def hopper(cls, devices_per_ici_group: int = 8) -> "Topology":
+        """H100 SXM nodes: an NVLink tier of ``devices_per_ici_group``
+        cards (8 in a node) and an InfiniBand tier between nodes, at the
+        published per-direction bandwidths.  The latencies stay the
+        model's defaults: neither is published nor measured here."""
+        return cls(devices_per_ici_group=devices_per_ici_group,
+                   ici_bandwidth=NVLINK4_BANDWIDTH,
+                   dcn_bandwidth=NDR_BANDWIDTH)
+
+    def with_calibration(self, path: str) -> "Topology":
+        """This topology with the slow tier's bandwidth and latency read
+        from a calibration file (``dcn_bandwidth``, ``dcn_latency``)."""
+        import json
+
+        with open(path) as f:
+            cal = json.load(f)
+        return dataclasses.replace(self,
+                                   dcn_bandwidth=float(cal["dcn_bandwidth"]),
+                                   dcn_latency=float(cal["dcn_latency"]))
+
+    @classmethod
+    def from_calibration(cls, path: str,
+                         devices_per_ici_group: int = 8) -> "Topology":
+        """The default topology with the slow tier from a calibration file
+        (``flexflow_tpu/machine.py:50``)."""
+        return cls(devices_per_ici_group=devices_per_ici_group
+                   ).with_calibration(path)
+
+    def bandwidth(self, dev_a: int, dev_b: int) -> float:
+        """Point-to-point bandwidth between two device ordinals: infinite
+        on one device, the fast tier inside a group, else the slow one
+        (``flexflow_tpu/machine.py:63``)."""
+        if dev_a == dev_b:
+            return float("inf")
+        g = self.devices_per_ici_group
+        if dev_a // g == dev_b // g:
+            return self.ici_bandwidth
+        return self.dcn_bandwidth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,9 +217,33 @@ class MachineModel:
         self._groups: Dict[Tuple[str, ...], Group] = {}
         self._warned: set = set()
 
+    @classmethod
+    def virtual(cls, num_devices: int,
+                topology: Optional[Topology] = None) -> "MachineModel":
+        """A machine of ``num_devices`` for an offline strategy search
+        (``flexflow_tpu/machine.py:127``): graphs build on it for any
+        size, but it opens no process group and touches no device (its
+        device is ``meta``), so nothing can run on it."""
+        m = cls.__new__(cls)
+        m.device = torch.device("meta")
+        m.world_size = int(num_devices)
+        m.rank = m.position = 0
+        m.distributed = False
+        m.all_to_all = m.send_recv = True
+        m.topology = topology or Topology(
+            devices_per_ici_group=max(m.world_size, 1))
+        m.view = tuple(range(m.world_size))
+        m._gfactors = None
+        m._handles, m._groups, m._warned = {}, {}, set()
+        return m
+
     @property
     def num_devices(self) -> int:
         return self.world_size
+
+    def is_canonical(self, pc: ParallelConfig) -> bool:
+        """Whether ``pc`` names the whole machine in natural order."""
+        return pc.devices == tuple(range(self.num_devices))
 
     def warn_once(self, key, msg: str) -> None:
         """Log ``msg`` as a warning the first time ``key`` is seen on this

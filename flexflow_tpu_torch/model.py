@@ -293,14 +293,10 @@ class FFModel:
     def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
         """``{param_key: {leaf: shape}}`` of the tree :meth:`init` makes,
         drawn on the meta device: nothing is allocated."""
-        meta = torch.device("meta")
         out: Dict[str, Dict[str, tuple]] = {}
         for op in self.layers:
-            if op.param_key not in out:
-                p = op.init_params(None, meta)
-                if p:
-                    out[op.param_key] = {k: tuple(v.shape)
-                                         for k, v in p.items()}
+            if op.param_key not in out and op.leaf_shapes:
+                out[op.param_key] = dict(op.leaf_shapes)
         return out
 
     # ------------------------------------------------------------------
@@ -410,16 +406,13 @@ class FFModel:
         point) contribution is computed on exactly one of them, so every
         contribution counts once."""
         m = self.machine
-        meta = torch.device("meta")
         users = collections.Counter(
-            op.param_key for op in self.layers
-            if op.init_params(None, meta))
+            op.param_key for op in self.layers if op.leaf_shapes)
         store: Dict[str, Dict[str, list]] = {}
         self._op_param_slices: Dict[str, Dict] = {}
         needs = {}
         for op in self.layers:
-            shapes = {k: tuple(v.shape)
-                      for k, v in op.init_params(None, meta).items()}
+            shapes = op.leaf_shapes
             if not shapes:
                 continue
             specs = op.param_specs()
@@ -447,6 +440,7 @@ class FFModel:
                            in zip(b[m.position], held[leaf][m.position]))
                 for leaf, b in needs[op.name].items()}
         self._store = {"params": store, "state": {}}
+        meta = torch.device("meta")
         for op in self.layers:
             st = {k: tuple(v.shape) for k, v in op.init_state(meta).items()}
             if st:

@@ -118,3 +118,24 @@ class MultiHeadAttention(Op):
         # each head block's wo product is a partial sum over the heads
         y = grid.all_reduce(self._out(params, out, x), ("h",))
         return y + params["bo"].to(x.dtype), state
+
+    # ---- cost model (attention.py:154-175) ----------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        ps, ph, pn = pc.dims
+        n, s, d = self.inputs[0].shape
+        # a shard-shaped clone cannot represent the ring's (S/ps) x S
+        # scores nor the head split's d x d/ph projections: those grids
+        # take the analytic cost, whose flops / num_parts is exact there
+        if ps > 1 or ph > 1 or n % pn:
+            return None
+        t = Tensor((n // pn, s, d))
+        return MultiHeadAttention(self.name, ParallelConfig((1, 1, 1), (0,)),
+                                  t, self.num_heads, self.causal)
+
+    def flops_per_sample(self) -> float:
+        s, d = self.output.shape[1], self.d_model
+        return 8.0 * s * d * d + 4.0 * s * s * d
+
+    def param_bytes(self) -> int:
+        return 4 * (4 * self.d_model * self.d_model + self.d_model)

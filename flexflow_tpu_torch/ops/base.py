@@ -12,11 +12,12 @@ both packages; so does per-op state, ``{op_name: {leaf: tensor}}``.
 Over several ranks (``flexflow_tpu/ops/base.py``'s sharding hooks) every
 op says how its grid splits each tensor: ``output_specs``
 the outputs, ``regrid_input_specs`` the layout it wants its inputs in,
-``param_specs`` and ``state_specs`` its leaves.  An op with
-``PLACEABLE`` also runs on a device subset (``parallel/placement.py``):
-``block_placeable`` and ``point_placeable`` are the JAX op's rules for
-which placement family takes which grid, and :class:`OpGrid` then maps
-the grid onto the ranks its device list names.  A spec names, per
+``param_specs`` and ``state_specs`` its leaves.  An op with a
+``placement_signature`` also runs on a device subset
+(``parallel/placement.py``): ``input_specs`` and ``point_placeable`` are
+the JAX op's rules for which placement family takes which grid, and
+:class:`OpGrid` then maps the grid onto the ranks its device list
+names.  A spec names, per
 tensor dim, the grid axes (``AXIS_NAMES``) that split it, or None.  The
 model reshards each input to the wanted layout (``parallel/regrid.py``)
 and calls ``sharded_forward`` on this rank's blocks with an
@@ -24,10 +25,16 @@ and calls ``sharded_forward`` on this rank's blocks with an
 op whose block of output depends on its blocks of input alone.  Blocks
 are ceil-divided, so a spatial extent may split unevenly (27 columns
 over 4: 7, 7, 7, 6), and the ops compute exactly the global function.
+
+The strategy search (``sim/``) reads the JAX op's cost hooks:
+``local_clone`` (the op at one grid point's shapes, which the measured
+cost model times on the card), ``flops_per_sample``, ``shard_flops_fwd``,
+``param_bytes`` and ``cost_signature``.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -77,6 +84,9 @@ class Tensor:
     def ndim(self) -> int:
         return len(self.shape)
 
+    def size(self) -> int:
+        return math.prod(self.shape)
+
     def __repr__(self):
         p = self.producer.name if self.producer else "input"
         return f"Tensor(name={self.name!r}, shape={self.shape}, from={p})"
@@ -115,6 +125,13 @@ class Op:
         """Trainable params drawn from ``gen``; {} for parameterless ops."""
         return {}
 
+    @functools.cached_property
+    def leaf_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """``{leaf: shape}`` of :meth:`init_params`, drawn once on the meta
+        device (nothing is allocated)."""
+        return {k: tuple(v.shape) for k, v in
+                self.init_params(None, torch.device("meta")).items()}
+
     def init_state(self, device) -> Dict:
         """Per-op state on ``device`` (BatchNorm's running statistics); {}
         for stateless ops."""
@@ -149,21 +166,25 @@ class Op:
 
     # ---- placement on device subsets (parallel/placement.py) ----------
 
-    #: True for the ops that can run on a device subset (the JAX op has a
-    #: ``placement_signature``); the others normalize onto the whole
-    #: machine
-    PLACEABLE = False
-
     #: True for the ops whose JAX ``point_forward`` computes a point from
     #: whole inputs (windows, global statistics): the set family takes
     #: them without sliceable input specs
     POINT_WINDOWS = False
 
-    def block_placeable(self, pc: ParallelConfig) -> bool:
-        """Whether the JAX op runs under ``pc`` as a block or stride
-        placement (its ``input_specs(pc)`` is not None); where not, a
-        subset is honored as a set, or normalized."""
-        return True
+    def placement_signature(self):
+        """The hyperparameters that determine the op's computation beyond
+        its shapes (``flexflow_tpu/ops/base.py:169``); None for an op
+        without placed execution, which normalizes onto the whole machine
+        (and which the search gives no device-subset candidates)."""
+        return None
+
+    def input_specs(self, pc: Optional[ParallelConfig] = None):
+        """Spec per input under ``pc`` (default the op's own) when the op
+        runs it as a block or stride placement, else None
+        (``flexflow_tpu/ops/base.py:161``): where None, a device subset is
+        honored as a set, or normalized, and the search emits no
+        sub-machine candidate of that grid."""
+        return None
 
     def point_placeable(self) -> bool:
         """Whether the JAX op runs as set-family points (``point_placeable``,
@@ -202,6 +223,34 @@ class Op:
                     f"op {self.name!r}: output dim {d} of size "
                     f"{t.shape[d]} not divisible by its partition count "
                     f"{parts} (grid {self.pc.dims})")
+
+    # ---- cost model hooks (sim/, flexflow_tpu/ops/base.py:290-317) -----
+
+    def local_clone(self, pc: ParallelConfig):
+        """A new op at the shard-local shapes of one grid point under
+        ``pc``: what one device computes, which ``MeasuredCostModel``
+        times on the card.  None: the analytic cost prices the shard."""
+        return None
+
+    def cost_signature(self) -> tuple:
+        """Compute-determining hyperparameters absent from the shapes
+        (the MoE's expert count and width), folded into the measured
+        cost cache's key."""
+        return ()
+
+    def flops_per_sample(self) -> float:
+        """Forward FLOPs per sample (the simulator models fwd+bwd as 3x)."""
+        return 0.0
+
+    def shard_flops_fwd(self, pc: ParallelConfig):
+        """Forward FLOPs of one shard under ``pc`` for ops whose work does
+        not divide evenly over the grid; None: flops_per_sample * batch /
+        num_parts."""
+        return None
+
+    def param_bytes(self) -> int:
+        """Parameter bytes in the float32 convention."""
+        return 0
 
     def __repr__(self):
         return (f"{type(self).__name__}(name={self.name!r}, grid={self.pc.dims}, "

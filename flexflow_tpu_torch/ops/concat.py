@@ -16,11 +16,16 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Concat(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    PLACEABLE = True
 
-    def block_placeable(self, pc):
+    def placement_signature(self):
+        return ("concat", len(self.inputs))
+
+    def input_specs(self, pc=None):
         # a channel split would break the local concat (concat.py:33-39)
-        return pc.dims[2] == 1
+        pc = pc or self.pc
+        if pc.dims[2] != 1:
+            return None
+        return [("n", "h", "w", None)] * len(self.inputs)
 
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor]):
         super().__init__(name, pc, inputs)

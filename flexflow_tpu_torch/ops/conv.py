@@ -92,7 +92,6 @@ def window_blocks(op, x, grid):
 
 class Conv2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    PLACEABLE = True
     POINT_WINDOWS = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
@@ -132,10 +131,20 @@ class Conv2D(Op):
     def param_specs(self):
         return {"kernel": (None, None, None, "c"), "bias": ("c",)}
 
-    def block_placeable(self, pc):
+    def placement_signature(self):
+        return (self.in_channels, self.out_channels, self.kernel_h,
+                self.kernel_w, self.stride_h, self.stride_w,
+                self.padding_h, self.padding_w, self.relu)
+
+    def input_specs(self, pc=None):
         """Batch-only grids, and channel or spatial grids of SAME-padded
-        stride-1 convolutions (``conv.py:49-92``)."""
-        return pc.dims[:3] == (1, 1, 1) or spatial_placeable(self, pc)
+        stride-1 convolutions (``conv.py:80-93``)."""
+        pc = pc or self.pc
+        if pc.dims[:3] == (1, 1, 1):
+            return [("n", None, None, None)]
+        if spatial_placeable(self, pc):
+            return [("n", "h", "w", None)]
+        return None
 
     def grid_collectives(self):
         w, h, _, _ = self.pc.dims
@@ -165,3 +174,25 @@ class Conv2D(Op):
     def sharded_forward(self, params, state, xs: List, train: bool, grid):
         x, pads = window_blocks(self, xs[0], grid)
         return self._conv(params, x, *pads), state
+
+    # ---- cost model (conv.py:225-242) ---------------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        pw, ph, pc_, pn = pc.dims
+        n, h, w, cin = self.inputs[0].shape
+        if n % pn or h % ph or w % pw or self.out_channels % pc_:
+            return None
+        t = Tensor((n // pn, h // ph, w // pw, cin))
+        return Conv2D(self.name, ParallelConfig((1, 1, 1, 1), (0,)), t,
+                      self.out_channels // pc_, self.kernel_h, self.kernel_w,
+                      self.stride_h, self.stride_w, self.padding_h,
+                      self.padding_w, self.relu)
+
+    def flops_per_sample(self) -> float:
+        _, oh, ow, oc = self.output.shape
+        return 2.0 * oh * ow * oc * self.kernel_h * self.kernel_w \
+            * self.in_channels
+
+    def param_bytes(self) -> int:
+        return 4 * (self.kernel_h * self.kernel_w * self.in_channels
+                    * self.out_channels + self.out_channels)

@@ -7,6 +7,7 @@ and the add is local."""
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import torch.nn.functional as F
@@ -17,7 +18,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Add(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor],
                  relu: bool = False):
@@ -40,6 +40,16 @@ class Add(Op):
 
     def regrid_input_specs(self):
         return [self.output_spec()] * len(self.inputs)
+
+    def placement_signature(self):
+        return (self.relu,)
+
+    def input_specs(self, pc=None):
+        # any grid is local when both inputs share it
+        return [self.output_spec()] * len(self.inputs)
+
+    def flops_per_sample(self) -> float:
+        return float(math.prod(self.output.shape[1:]))
 
     def forward(self, params, state, xs: List, train: bool):
         y = xs[0] + xs[1]

@@ -17,7 +17,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Embed(Op):
     AXIS_NAMES = ("n",)
-    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  vocab_size: int, embed_size: int,
@@ -46,6 +45,15 @@ class Embed(Op):
 
     def regrid_input_specs(self):
         return [("n", None)]
+
+    def placement_signature(self):
+        return (self.vocab_size, self.embed_size, self.compute_dtype)
+
+    def input_specs(self, pc=None):
+        return [("n", None)]
+
+    def param_bytes(self) -> int:
+        return 4 * self.vocab_size * self.embed_size
 
     def forward(self, params, state, xs: List, train: bool):
         (ids,) = xs

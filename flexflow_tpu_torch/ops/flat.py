@@ -17,7 +17,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Flat(Op):
     AXIS_NAMES = ("c", "n")
-    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor):
         super().__init__(name, pc, [input])
@@ -31,6 +30,12 @@ class Flat(Op):
 
     def regrid_input_specs(self):
         return [("n", None, None, None)]
+
+    def placement_signature(self):
+        return ("flat",)
+
+    def input_specs(self, pc=None):
+        return [("n", None, None, None)]   # a local reshape per batch block
 
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs

@@ -25,7 +25,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class Linear(Op):
     AXIS_NAMES = ("c", "n")
-    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  out_channels: int, relu: bool = True):
@@ -53,6 +52,13 @@ class Linear(Op):
     def regrid_input_specs(self):
         return [("n", None)]
 
+    def placement_signature(self):
+        return (self.in_channels, self.out_channels, self.relu)
+
+    def input_specs(self, pc=None):
+        # each c-shard reads the whole input rows (linear.py:55-61)
+        return [("n", None)]
+
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
         w = params["kernel"].to(x.dtype)
@@ -61,3 +67,20 @@ class Linear(Op):
         if self.relu:
             y = F.relu(y)
         return y, state
+
+    # ---- cost model (linear.py:83-96) ---------------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        pc_, pn = pc.dims
+        n, d = self.inputs[0].shape
+        if n % pn or self.out_channels % pc_:
+            return None
+        t = Tensor((n // pn, d))
+        return Linear(self.name, ParallelConfig((1, 1), (0,)), t,
+                      self.out_channels // pc_, self.relu)
+
+    def flops_per_sample(self) -> float:
+        return 2.0 * self.in_channels * self.out_channels
+
+    def param_bytes(self) -> int:
+        return 4 * (self.in_channels * self.out_channels + self.out_channels)

@@ -108,7 +108,6 @@ class LSTMCore(torch.autograd.Function):
 
 class LSTMChunk(Op):
     AXIS_NAMES = ("n",)
-    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, x: Tensor,
                  hx: Tensor, cx: Tensor, hidden_size: int,
@@ -146,6 +145,12 @@ class LSTMChunk(Op):
     def regrid_input_specs(self):
         return [("n", None, None)] + [("n", None)] * (len(self.inputs) - 1)
 
+    def placement_signature(self):
+        return (self.input_size, self.hidden_size, self.has_initial_state)
+
+    def input_specs(self, pc=None):
+        return self.regrid_input_specs()
+
     def forward(self, params, state, xs: List, train: bool):
         x = xs[0]
         dt = x.dtype
@@ -160,3 +165,27 @@ class LSTMChunk(Op):
         y, hy, cy = LSTMCore.apply(xg, params["w_hh"].to(dt),
                                    params["b"].to(dt), hx, cx)
         return (y, hy, cy), state
+
+    # ---- cost model (lstm.py:203-224) ---------------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        (pn,) = pc.dims
+        n, length, e = self.inputs[0].shape
+        if n % pn:
+            return None
+        x = Tensor((n // pn, length, e))
+        hx = cx = None
+        if self.has_initial_state:
+            hx = Tensor((n // pn, self.hidden_size))
+            cx = Tensor((n // pn, self.hidden_size))
+        return LSTMChunk(self.name, ParallelConfig((1,), (0,)), x, hx, cx,
+                         self.hidden_size)
+
+    def flops_per_sample(self) -> float:
+        length = self.output.shape[1]
+        return 2.0 * length * 4 * self.hidden_size * (
+            self.input_size + self.hidden_size)
+
+    def param_bytes(self) -> int:
+        h = self.hidden_size
+        return 4 * (self.input_size * 4 * h + h * 4 * h + 4 * h)

@@ -325,3 +325,42 @@ class MixtureOfExperts(Op):
         slots = self.route(params, x)[2]
         e, c = self.num_experts, self.capacity
         return float((slots == e * c).float().mean())
+
+    # ---- cost model (moe.py:240-277) ----------------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        pe, pc_, pn = pc.dims
+        b, s, d = self.inputs[0].shape
+        if pe > 1 or pc_ > 1 or b % pn:
+            return None   # flops / parts is exact over e and c
+        t = Tensor((b // pn, s, d))
+        return MixtureOfExperts(self.name, ParallelConfig((1, 1, 1), (0,)),
+                                t, self.num_experts, self.d_ff, self.top_k,
+                                self.capacity_factor)
+
+    def flops_per_sample(self) -> float:
+        s, d, f = self.output.shape[1], self.d_model, self.d_ff
+        e, c = self.num_experts, self.capacity
+        # router, combine mix and the expert FFNs over E*C slots (the
+        # dispatch and combine gathers move bytes, not FLOPs)
+        return (2.0 * s * d * e + 2.0 * s * self.top_k * d
+                + 4.0 * e * c * d * f)
+
+    def shard_flops_fwd(self, pc: ParallelConfig):
+        # the router and the combine are replicated over (e, c), the
+        # expert FFNs split over all of (e, c, n)
+        pe, pcc, pn = pc.dims
+        b, s, d = self.inputs[0].shape
+        f, e, c = self.d_ff, self.num_experts, self.capacity
+        local_b = b / pn
+        router = (2.0 * s * d * e + 2.0 * s * self.top_k * d) * local_b
+        ffn = 4.0 * e * c * d * f * local_b / (pe * pcc)
+        return router + ffn
+
+    def cost_signature(self) -> tuple:
+        # the experts' work is invisible in the (B, S, D) shapes
+        return (self.num_experts, self.d_ff, self.top_k, self.capacity)
+
+    def param_bytes(self) -> int:
+        e, d, f = self.num_experts, self.d_model, self.d_ff
+        return 4 * (d * e + 2 * e * d * f + e * f + e * d)

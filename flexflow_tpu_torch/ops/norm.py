@@ -55,7 +55,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class BatchNorm(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    PLACEABLE = True
     POINT_WINDOWS = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
@@ -94,12 +93,18 @@ class BatchNorm(Op):
     def state_specs(self):
         return {"mean": ("c",), "var": ("c",)}
 
-    def block_placeable(self, pc):
+    def placement_signature(self):
+        return (self.channels, self.relu, self.eps, self.momentum)
+
+    def input_specs(self, pc=None):
         """Placed grids never split c (the running statistics would
         split with it) and divide n, h and w (``norm.py:62-72``)."""
+        pc = pc or self.pc
         pw, ph, pcc, pn = pc.dims
         n, h, w, _ = self.inputs[0].shape
-        return pcc == 1 and not (n % pn or h % ph or w % pw)
+        if pcc != 1 or n % pn or h % ph or w % pw:
+            return None
+        return [("n", "h", "w", None)]
 
     def point_placeable(self):
         return self.pc.dims[2] == 1
@@ -149,3 +154,21 @@ class BatchNorm(Op):
         else:
             mean, var = state["mean"], state["var"]
         return self._normalize(params, x, mean, var), state
+
+    # ---- cost model (norm.py:212-226) ---------------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        pw, ph, pc_, pn = pc.dims
+        n, h, w, c = self.inputs[0].shape
+        if n % pn or h % ph or w % pw or c % pc_:
+            return None
+        t = Tensor((n // pn, h // ph, w // pw, c // pc_))
+        return BatchNorm(self.name, ParallelConfig((1, 1, 1, 1), (0,)), t,
+                         self.relu, self.eps, self.momentum)
+
+    def flops_per_sample(self) -> float:
+        _, h, w, c = self.output.shape
+        return 8.0 * h * w * c
+
+    def param_bytes(self) -> int:
+        return 4 * 2 * self.channels

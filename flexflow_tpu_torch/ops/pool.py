@@ -41,7 +41,6 @@ POOL_AVG = "avg"
 
 class Pool2D(Op):
     AXIS_NAMES = ("w", "h", "c", "n")
-    PLACEABLE = True
     POINT_WINDOWS = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
@@ -84,14 +83,24 @@ class Pool2D(Op):
     def regrid_input_specs(self):
         return [("n", "h", "w", "c")]
 
-    def block_placeable(self, pc):
+    def placement_signature(self):
+        return (self.kernel_h, self.kernel_w, self.stride_h, self.stride_w,
+                self.padding_h, self.padding_w, self.pool_type, self.relu)
+
+    def input_specs(self, pc=None):
         """Batch and channel grids that divide, and the spatial grids of
         SAME stride-1 average pools (``pool.py:65-79``)."""
+        pc = pc or self.pc
         pw, ph, pcc, pn = pc.dims
         n, _, _, c = self.inputs[0].shape
+        cs = "c" if pcc > 1 else None
         if (pcc > 1 and c % pcc) or n % pn:
-            return False
-        return (pw, ph) == (1, 1) or spatial_placeable(self, pc)
+            return None
+        if (pw, ph) == (1, 1):
+            return [("n", None, None, cs)]
+        if spatial_placeable(self, pc):
+            return [("n", "h", "w", cs)]
+        return None
 
     def grid_collectives(self):
         w, h, _, _ = self.pc.dims
@@ -147,3 +156,20 @@ class Pool2D(Op):
         if self.relu:
             y = F.relu(y)
         return y, state
+
+    # ---- cost model (pool.py:286-299) ---------------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        pw, ph, pc_, pn = pc.dims
+        n, h, w, c = self.inputs[0].shape
+        if n % pn or h % ph or w % pw or c % pc_:
+            return None
+        t = Tensor((n // pn, h // ph, w // pw, c // pc_))
+        return Pool2D(self.name, ParallelConfig((1, 1, 1, 1), (0,)), t,
+                      self.kernel_h, self.kernel_w, self.stride_h,
+                      self.stride_w, self.padding_h, self.padding_w,
+                      self.pool_type, self.relu)
+
+    def flops_per_sample(self) -> float:
+        _, oh, ow, c = self.output.shape
+        return float(oh * ow * c * self.kernel_h * self.kernel_w)

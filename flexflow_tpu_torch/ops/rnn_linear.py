@@ -20,7 +20,6 @@ from flexflow_tpu_torch.strategy import ParallelConfig
 
 class RnnLinear(Op):
     AXIS_NAMES = ("c", "n")
-    PLACEABLE = True
 
     def __init__(self, name: str, pc: ParallelConfig, input: Tensor,
                  out_channels: int, param_key: str = None):
@@ -49,7 +48,31 @@ class RnnLinear(Op):
     def regrid_input_specs(self):
         return [("n", None, None)]
 
+    def placement_signature(self):
+        return (self.in_channels, self.out_channels)
+
+    def input_specs(self, pc=None):
+        return [("n", None, None)]
+
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
         y = torch.matmul(x, params["kernel"].to(x.dtype))
         return (y.float() + params["bias"]).to(x.dtype), state
+
+    # ---- cost model (rnn_linear.py:71-84) -----------------------------
+
+    def local_clone(self, pc: ParallelConfig):
+        pc_, pn = pc.dims
+        n, length, d = self.inputs[0].shape
+        if n % pn or self.out_channels % pc_:
+            return None
+        t = Tensor((n // pn, length, d))
+        return RnnLinear(self.name, ParallelConfig((1, 1), (0,)), t,
+                         self.out_channels // pc_)
+
+    def flops_per_sample(self) -> float:
+        return 2.0 * self.output.shape[1] * self.in_channels \
+            * self.out_channels
+
+    def param_bytes(self) -> int:
+        return 4 * (self.in_channels * self.out_channels + self.out_channels)

@@ -12,6 +12,7 @@ The JAX ops have no placed form, so a device subset normalizes."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List
 
 import torch
@@ -55,6 +56,12 @@ class LayerNormSeq(_SeqElementwise):
         y = y * params["scale"] + params["bias"]
         return y.to(x.dtype), state
 
+    def flops_per_sample(self) -> float:
+        return 8.0 * self.output.shape[1] * self.d
+
+    def param_bytes(self) -> int:
+        return 8 * self.d
+
 
 class AddSeq(_SeqElementwise):
     def __init__(self, name: str, pc: ParallelConfig, inputs: List[Tensor]):
@@ -65,6 +72,9 @@ class AddSeq(_SeqElementwise):
 
     def forward(self, params, state, xs: List, train: bool):
         return xs[0] + xs[1], state
+
+    def flops_per_sample(self) -> float:
+        return float(math.prod(self.output.shape[1:]))
 
 
 class GeluSeq(_SeqElementwise):
@@ -77,6 +87,9 @@ class GeluSeq(_SeqElementwise):
     def forward(self, params, state, xs: List, train: bool):
         # jax.nn.gelu defaults to the tanh approximation
         return F.gelu(xs[0], approximate="tanh"), state
+
+    def flops_per_sample(self) -> float:
+        return 8.0 * float(math.prod(self.output.shape[1:]))
 
 
 class PosEmbed(_SeqElementwise):
@@ -100,3 +113,6 @@ class PosEmbed(_SeqElementwise):
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
         return x + params["table"].to(x.dtype), state
+
+    def param_bytes(self) -> int:
+        return 4 * self.seq_len * self.d

@@ -31,6 +31,9 @@ class Softmax(Op):
     def regrid_input_specs(self):
         return [("n", None)]
 
+    def flops_per_sample(self) -> float:
+        return 5.0 * self.num_classes
+
     def forward(self, params, state, xs: List, train: bool):
         (x,) = xs
         return torch.log_softmax(x.float(), dim=-1), state

@@ -60,7 +60,7 @@ def placement_slot(op, num_devices: int,
     p = pc.num_parts
     if num_devices <= 1 or p > num_devices:
         return None
-    if not op.PLACEABLE:
+    if op.placement_signature() is None:
         return None
     if len(set(pc.devices)) != p or \
             any(d < 0 or d >= num_devices for d in pc.devices):
@@ -68,7 +68,7 @@ def placement_slot(op, num_devices: int,
     if p == num_devices and pc.devices == tuple(range(num_devices)):
         return None
     as_set = ("set", tuple(pc.devices)) if _set_eligible(op, pc) else None
-    if not op.block_placeable(pc) or num_devices % p or p == num_devices:
+    if op.input_specs(pc) is None or num_devices % p or p == num_devices:
         return as_set
     devs = tuple(sorted(pc.devices))
     d0 = devs[0]
@@ -117,13 +117,12 @@ def _set_eligible(op, pc: Optional[ParallelConfig] = None) -> bool:
         return False
     specs = op.param_specs()
     if specs:
-        shapes = {k: tuple(v.shape)
-                  for k, v in op.init_params(None, meta).items()}
+        shapes = op.leaf_shapes
         if not all(ok(specs[k], shapes[k]) for k in specs):
             return False
     if not op.POINT_WINDOWS:
         want = op.regrid_input_specs()
-        if not op.block_placeable(pc) or want is None or not all(
+        if op.input_specs(pc) is None or want is None or not all(
                 ok(s, t.shape) for s, t in zip(want, op.inputs)):
             return False
     return True

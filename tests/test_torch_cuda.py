@@ -922,3 +922,37 @@ def _plain_cnn_kernels():
     finally:
         (maxpool.maxpool_fwd, maxpool.maxpool_bwd, avgpool.avgpool_bwd,
          bn_act.bn_act_fwd, bn_act.bn_act_bwd) = saved
+
+
+def test_measured_search_times_shards_through_the_kernels(gpu, tmp_path,
+                                                          monkeypatch):
+    """``apps.search --measured`` on the card: a small AlexNet's shards
+    timed with CUDA events through the pool kernels (kernels 7 and 7f
+    launched while timing), every time positive and cached under the
+    card's tag, every searched entry among its op's candidates."""
+    import json
+
+    from flexflow_tpu_torch.apps import search
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+
+    def narrow(name, machine, batch, dtype="float32", experts=0):
+        return build_alexnet(FFConfig(batch_size=batch, input_height=99,
+                                      input_width=99), machine)
+
+    cache = tmp_path / "cache.json"
+    monkeypatch.setattr(search, "build_model", narrow)
+    kernels.reset_launches()
+    out = search.main(["alexnet", "--devices", "2", "-b", "8", "-i", "2000",
+                       "--measured", "--cache", str(cache)],
+                      log=lambda *a: None)
+    m = out["measurement"]
+    assert m["protocol"] == \
+        f"torch1|{torch.cuda.get_device_name(gpu)}|"
+    assert kernels.launches[maxpool.NAME_FWD] > 0
+    assert kernels.launches[maxpool.NAME_BWD] > 0
+    times = {k: v for k, v in json.loads(cache.read_text()).items()
+             if k.startswith(m["protocol"])}
+    assert len(times) == m["shards_timed"] > 10
+    assert all(0 < v < 1 for v in times.values())
+    out["search"].assignment_for(out["strategy"])
