@@ -259,10 +259,11 @@ Phases (any failure exits non-zero):
     --measured`` at full width (AlexNet batch 64 at 224x224; the
     transformer's batch 64, seq 512, 12 x 768, vocab 32768), one grid
     point's forward and gradient of each candidate timed on this card
-    with CUDA events through the port's ops: the shards timed, the
+    through the port's ops (a chain of 8 captured in one CUDA graph,
+    replays between CUDA events): the shards timed, the
     measurement's seconds, the launches of kernels 7 and 7f (AlexNet)
     and 1-3 (the transformer) while timing (each at least once), the
-    lookups estimated for want of a clone, the kind anchors (measured
+    shards estimated for want of a clone, the kind anchors (measured
     over analytic time), ``dp_time_s``, ``best_time_s`` and
     ``speedup_vs_dp``; every timed shard finite and positive, every
     searched entry among its op's candidates; then, where gloo carries
@@ -3845,7 +3846,7 @@ def _measured_search(torch, kernels, card: str, argv, want) -> dict:
     _log(f"search {argv[0]} --devices {out['devices']} --measured: "
          f"{m['shards_timed']} shards timed in {m['timed_s']:.2f} s "
          f"({m['build_s']:.1f} s to build and time, {seconds:.1f} s in "
-         f"all), {m['estimated']} lookups estimated (no clone), "
+         f"all), {m['estimated']} shards estimated (no clone), "
          f"{m['cache_hits']} cache hits; kernel launches while timing "
          f"{launched}; kind anchors (measured / analytic) {m['anchors']}; "
          f"dp_time_s {out['dp_time_s']:.6e}, best_time_s "

@@ -197,6 +197,15 @@ def _machine(opts) -> MachineModel:
     return MachineModel.virtual(n, topo)
 
 
+#: what a measured search says of its plan: the simulator's drift from
+#: the executor on the cards is not closed yet
+MEASURED_UNCHECKED = (
+    "warning: a plan searched on measured shard times is not checked "
+    "against a data-parallel run on the cards; the simulator can rank "
+    "the two backwards there (ROADMAP Queue A item 4, the drift): train "
+    "both and keep the faster before relying on the plan")
+
+
 def _cost_model(opts):
     """None (the search's analytic default) or the measured model on
     ``--device``, whose analytic fallback carries the card's memory."""
@@ -310,6 +319,8 @@ def main(argv=None, log=print) -> dict:
             f"compiled program before writing it; the audit is not "
             f"ported (ROADMAP Queue A item 7): pass --no-audit to write "
             f"the simulated plan as it is")
+    if opts["measured"]:
+        log(MEASURED_UNCHECKED)
     if opts["model"] in ("transformer", "gpt", "bert") \
             and opts["objective"] == "makespan":
         log("pipeline proposal not ported (ROADMAP Queue A item 4): the "

@@ -37,10 +37,9 @@ class HopperChipPerf:
     placeholders, not measurements (the measured model's kind anchors
     replace them per op kind)."""
 
-    # bf16 and fp16 on the tensor cores, dense: 989 TFLOP/s
+    # bf16 and fp16 on the tensor cores, dense: 989 TFLOP/s (TF32 there:
+    # 495 TFLOP/s, not priced: the port's drivers turn TF32 off)
     peak_flops: float = 9.89e14
-    # TF32 on the tensor cores, dense: 495 TFLOP/s
-    tf32_flops: float = 4.95e14
     # float32 outside the tensor cores: 67 TFLOP/s
     fp32_flops: float = 6.7e13
     # HBM3: 3.35 TB/s
@@ -181,10 +180,13 @@ class MeasuredCostModel:
     the op's ``local_clone`` at shard-local shapes, its parameters drawn
     from a fixed seed, inputs of ones in ``dtype``.  Each application
     runs the forward (training mode), the loss sum(y^2) and the gradient
-    of every parameter and float input; the protocol is ``warmup``
-    untimed applications, then ``repeats`` runs of ``chain`` applications
-    between two CUDA events, and the median of the runs over ``chain``.
-    On a CPU device the events are the host clock (the tests).
+    of every parameter and float input.  On a CUDA device two untimed
+    applications run first, then ``chain`` applications are captured in
+    one CUDA graph, and the time is the median over ``repeats`` replays,
+    each between two CUDA events, over ``chain``: a replay puts the
+    card's work back to back with no host between launches, so a small
+    shard is timed at the card's pace and not at the host's.  On a CPU
+    device the chain runs eagerly under the host clock (the tests).
 
     Times are cached in memory and, with ``cache_path``, in a JSON file
     whose keys carry :attr:`protocol`, a tag of this package's and of the
@@ -197,17 +199,20 @@ class MeasuredCostModel:
     without one) takes the analytic cost scaled by its kind's anchor:
     the median ratio of measured to analytic time over its kind's
     measured shards (``anchors`` / ``anchors_path`` seed them).  Such
-    estimates are counted in :attr:`estimated` and never cached under a
-    lookup key.  A measurement that fails raises."""
+    estimates are never cached under a lookup key; :attr:`estimated`
+    counts the distinct shards estimated.  A measurement that fails
+    raises."""
 
     #: the protocol's version: bumped when the timing protocol changes
-    PROTOCOL = 1
+    #: (2: the chain is one CUDA graph's replay)
+    PROTOCOL = 2
+    #: untimed applications before the chain is captured
+    WARMUP = 2
 
     def __init__(self, cache_path: Optional[str] = None,
                  fallback: Optional[AnalyticCostModel] = None,
-                 repeats: int = 5, chain: int = 8, warmup: int = 2,
-                 save_every: int = 32, dtype: str = "float32",
-                 device="cuda",
+                 repeats: int = 5, chain: int = 8, save_every: int = 32,
+                 dtype: str = "float32", device="cuda",
                  anchors: Optional[Dict[str, float]] = None,
                  anchors_path: Optional[str] = None):
         import torch
@@ -218,7 +223,6 @@ class MeasuredCostModel:
         self.cache_path = cache_path
         self.repeats = max(1, repeats)
         self.chain = max(1, chain)
-        self.warmup = max(1, warmup)
         self.dtype = dtype
         self.fallback = fallback or AnalyticCostModel(dtype=dtype)
         self.save_every = save_every
@@ -241,17 +245,23 @@ class MeasuredCostModel:
         self._foreign: Dict[str, float] = {}
         self.cache_hits = 0
         self.cache_misses = 0
-        #: shards timed on the device, their seconds in all, and the
-        #: lookups answered by an analytic estimate
+        #: shards timed on the device and their seconds in all
         self.measured = 0
         self.measure_s = 0.0
-        self.estimated = 0
+        # the keys of shards answered by an analytic estimate (the
+        # search's second pass asks for each again)
+        self._estimated_keys: set = set()
         if cache_path and os.path.exists(cache_path):
             with open(cache_path) as f:
                 loaded = json.load(f)
             for k, v in loaded.items():
                 (self._cache if k.startswith(self.protocol)
                  else self._foreign)[k] = v
+
+    @property
+    def estimated(self) -> int:
+        """The distinct shards answered by an analytic estimate."""
+        return len(self._estimated_keys)
 
     def anchors(self) -> Dict[str, float]:
         """The median measured / analytic ratio per op kind."""
@@ -310,7 +320,7 @@ class MeasuredCostModel:
             if ratios:
                 t *= sorted(ratios)[len(ratios) // 2]
             self._foreign[f"estimate|{key}"] = t
-            self.estimated += 1
+            self._estimated_keys.add(key)
             return t
         t = self._measure(local)
         if not t > 0.0:
@@ -358,23 +368,39 @@ class MeasuredCostModel:
             if wrt:
                 torch.autograd.grad(loss, wrt)
 
-        for _ in range(self.warmup):
-            apply()
+        def chain():
+            for _ in range(self.chain):
+                apply()
+
+        if dev.type == "cuda":
+            # warm-up on a side stream, then the chain captured once
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    apply()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                chain()
+            run = graph.replay
+        else:
+            for _ in range(self.WARMUP):
+                apply()
+            run = chain
         times = []
         for _ in range(self.repeats):
             if dev.type == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
-                for _ in range(self.chain):
-                    apply()
+                run()
                 stop.record()
                 stop.synchronize()
                 times.append(start.elapsed_time(stop) * 1e-3 / self.chain)
             else:
                 t0 = time.perf_counter()
-                for _ in range(self.chain):
-                    apply()
+                run()
                 times.append((time.perf_counter() - t0) / self.chain)
         times.sort()
         self.measured += 1

@@ -948,7 +948,7 @@ def test_measured_search_times_shards_through_the_kernels(gpu, tmp_path,
                       log=lambda *a: None)
     m = out["measurement"]
     assert m["protocol"] == \
-        f"torch1|{torch.cuda.get_device_name(gpu)}|"
+        f"torch2|{torch.cuda.get_device_name(gpu)}|"
     assert kernels.launches[maxpool.NAME_FWD] > 0
     assert kernels.launches[maxpool.NAME_BWD] > 0
     times = {k: v for k, v in json.loads(cache.read_text()).items()

@@ -129,18 +129,23 @@ def test_measured_search_needs_cuda_or_the_cpu(tmp_path, monkeypatch):
                     log=lambda *a: None)
     monkeypatch.setattr(search, "build_model", _narrow_alexnet)
     cache = tmp_path / "cache.json"
+    lines = []
     out = search.main(["alexnet", "--devices", "2", "-b", "4", "-i", "500",
                        "--measured", "--device", "cpu", "--cache",
-                       str(cache)], log=lambda *a: None)
+                       str(cache)], log=lines.append)
     m = out["measurement"]
-    # conv, pool and linear shards are timed; flat and softmax estimated
+    # conv, pool and linear shards are timed; flat and softmax estimated,
+    # each shard counted once though the search asks for it twice
     assert m["shards_timed"] > 10 and m["estimated"] > 0
-    assert m["protocol"] == "torch1|cpu|" and m["device"] == "cpu"
+    assert m["estimated"] == sum(k.startswith("estimate|") for k in
+                                 json.loads(cache.read_text()))
+    assert search.MEASURED_UNCHECKED in lines
+    assert m["protocol"] == "torch2|cpu|" and m["device"] == "cpu"
     assert set(m["anchors"]) == {"Conv2D", "Pool2D", "Linear"}
     times = {k: v for k, v in json.loads(cache.read_text()).items()
              if not k.startswith("estimate|")}
     assert len(times) == m["shards_timed"]
-    assert all(k.startswith("torch1|cpu|") and v > 0
+    assert all(k.startswith("torch2|cpu|") and v > 0
                for k, v in times.items())
     assert out["strategy"].predicted["cost_model"] == "measured"
     # a second run serves every time from the cache

@@ -267,7 +267,7 @@ def test_measured_model_times_on_the_cpu_and_caches(tmp_path):
     path.write_text(json.dumps({"v3|Linear|x|(1, 4)": 1.0}))
     cm = MeasuredCostModel(cache_path=str(path), device="cpu", repeats=3,
                            chain=2, save_every=1)
-    assert cm.protocol == "torch1|cpu|"
+    assert cm.protocol == "torch2|cpu|"
     op = _linear()
     pc = ParallelConfig((2, 2), (0, 1, 2, 3))
     t = cm.op_cost(op, pc)
@@ -275,7 +275,7 @@ def test_measured_model_times_on_the_cpu_and_caches(tmp_path):
     assert cm.op_cost(op, pc) == t and cm.cache_hits == 1
     saved = json.loads(path.read_text())
     assert saved["v3|Linear|x|(1, 4)"] == 1.0    # another protocol's, kept
-    key = "torch1|cpu|Linear|[(32, 48), (32, 64)]|(2, 2)"
+    key = "torch2|cpu|Linear|[(32, 48), (32, 64)]|(2, 2)"
     assert saved[key] == t
     ratio = cm.anchors()["Linear"]
     assert ratio == pytest.approx(t / cm.fallback.op_cost(op, pc))
@@ -287,6 +287,8 @@ def test_measured_model_times_on_the_cpu_and_caches(tmp_path):
     sm = Softmax("sm", ParallelConfig((4,), (0, 1, 2, 3)), op.output)
     est = cm.op_cost(sm, sm.pc)
     assert est == cm.fallback.op_cost(sm, sm.pc) and cm.estimated == 1
+    # a shard asked for again is still one estimate
+    assert cm.op_cost(sm, sm.pc) == est and cm.estimated == 1
     seeded = MeasuredCostModel(device="cpu", anchors={"Softmax": 2.0})
     assert seeded.op_cost(sm, sm.pc) == 2.0 * est
 

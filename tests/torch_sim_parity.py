@@ -25,8 +25,7 @@ def jax_perf():
     from flexflow_tpu_torch.sim.cost_model import HopperChipPerf
 
     tp = dataclasses.asdict(TpuChipPerf())
-    return HopperChipPerf(tf32_flops=tp["peak_flops"],
-                          fp32_flops=tp["peak_flops"], **tp)
+    return HopperChipPerf(fp32_flops=tp["peak_flops"], **tp)
 
 
 def machines(n: int, ici: int = None):
