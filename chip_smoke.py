@@ -19,6 +19,13 @@ that each path ran through its kernels.
     python3 chip_smoke.py --profile    # plus torch.profiler breakdowns of
                                        # one decode step and one training
                                        # step of each trained model
+    python3 chip_smoke.py --only search4,lm-obs
+                                       # the kernel build and the named
+                                       # phases (lm-obs, pipeline, search,
+                                       # search4) with the phases they
+                                       # read; no kernels line, a last
+                                       # line {"ok": false, "partial":
+                                       # [...]}, exit status 4
 
 (Phase 17 starts the script again, as two torchrun workers, with
 ``--gloo-cuda-probe``, then with ``--gloo-p2p-probe``: its probes of
@@ -120,6 +127,15 @@ Phases (any failure exits non-zero):
    and 6, and the first 3
    losses within 1e-4 (relative) of the same run with every kernel
    swapped for its plain version; tokens/s, step ms and peak memory;
+9b. the drift loop's LM run (ROADMAP Queue A item 4 (i)): the same
+   ``apps.lm`` for 1 warm-up and 4 steps with ``-obs-dir`` and
+   ``--op-time-every 2``: its fit records, the forward, backward,
+   optimizer and step sections of steps 2 and 4, one shard of every op
+   timed alone (``utils/profiling.py:time_op_shard``); the op records
+   name every op of the model, kernels 1-3 launch while the shards are
+   timed, the losses equal phase 9's unsampled ones within 1e-6
+   (relative), and ``sim_drift_unavailable`` says no strategy was
+   loaded;
 10. LM training slice at the widths of the JAX package's ``gpt-1.3b``
     preset (``flexflow_tpu/models/gpt.py``: 24 layers, d_model 2048, 16
     heads of 128, d_ff 8192, vocab 32768, batch 16, seq 512; 1.34 B
@@ -243,17 +259,21 @@ Phases (any failure exits non-zero):
     warm-up and 3 steps, SGD at lr 1e-3), then, in one torchrun world
     of two gloo ranks on cuda:0, ``apps.lm --pipeline-stages 2
     --microbatches 4`` (its first 3 losses within 1e-4 of the
-    reference), ``--strategy examples/strategies/transformer_2x4.json``
-    as written (2 stages x 8 microbatches) against ``--pipeline-stages 2
-    --microbatches 8`` within 1e-6, and that run against the reference;
-    every rank launches each of kernels 1-3 (L/S)(M + S - 1) times a
-    step (the head is the plain float32 one of JAX's pipelined LM); each
-    rank's (stage, n, tp) and w1 block logged.  JAX's
-    ``PipelinedLM.init`` gives a zero head, so those losses stay near
-    ln V whatever the blocks compute: in the same world the pipeline
-    probe draws a seeded head and holds the ring's loss within 1e-4 and
-    every leaf's gradient on every rank within 1e-4 of its largest
-    magnitude against the sequential reference on the same tree;
+    reference; every rank launches each of kernels 1-3 (L/S)(M + S - 1)
+    times a step, the head being the plain float32 one of JAX's
+    pipelined LM; each rank's (stage, n, tp) and w1 block logged),
+    ``--strategy examples/strategies/transformer_2x4.json`` as written,
+    which the static plan check refuses on two ranks as the JAX driver
+    does (its per-op entries name eight devices): exit status 2 on both
+    ranks, and a file of that strategy's ``__pipeline__`` block alone
+    (2 stages x 8 microbatches) against ``--pipeline-stages 2
+    --microbatches 8`` within 1e-6 and that run against the reference,
+    with the same launch counts.  JAX's ``PipelinedLM.init`` gives a zero head, so those
+    losses stay near ln V whatever the blocks compute: in the same world
+    the pipeline probe draws a seeded head and holds the ring's loss
+    within 1e-4 and every leaf's gradient on every rank within 1e-4 of
+    its largest magnitude against the sequential reference on the same
+    tree;
 18e. search slice (ROADMAP Queue A item 4): ``apps.search alexnet
     --devices 2 --measured`` and ``apps.search transformer --devices 2
     --measured`` at full width (AlexNet batch 64 at 224x224; the
@@ -266,10 +286,20 @@ Phases (any failure exits non-zero):
     shards estimated for want of a clone, the kind anchors (measured
     over analytic time), ``dp_time_s``, ``best_time_s`` and
     ``speedup_vs_dp``; every timed shard finite and positive, every
-    searched entry among its op's candidates; then, where gloo carries
-    CUDA tensors for the moves, the searched AlexNet strategy through
-    torchrun on two gloo ranks on cuda:0, 1 warm-up and 3 steps, its
-    first 3 losses within 1e-4 (relative) of phase 17's one-rank run;
+    searched entry among its op's candidates; the AlexNet search with
+    ``-obs-dir`` and ``-trace``, its simulated timelines validated
+    (``obs/trace.py:validate_trace``); then the searched AlexNet
+    strategy through torchrun on two gloo ranks on cuda:0, 1 warm-up and
+    8 steps, its first 3 losses within 1e-4 (relative) of phase 17's
+    one-rank run, with ``-obs-dir`` and ``--op-time-every 9`` (the last
+    step sampled, so 7 of the 8 steps ``sim_drift`` divides by run
+    unsampled); then the
+    drift loop over the two runs' records: ``sim_drift`` (the measured
+    step over the file's ``__predicted__`` one) finite and positive,
+    each op's simulated and measured seconds and share of the drift
+    logged (gloo's host copies are not the simulated machine, so no bar
+    is held on them), and ``apps.calibrate --from-obs``'s refit joining
+    ops and giving anchors for Conv2D, Pool2D and Linear;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
@@ -284,9 +314,14 @@ Phases (any failure exits non-zero):
     phase 18d's reference, and the pipeline probe at both; then AlexNet
     searched for four cards by ``apps.search --measured`` (shard times
     from this card) and trained through ``torchrun --nproc-per-node 4``
-    under the searched strategy and data parallel, 1 + 3 steps each, the
-    first 3 losses within 1e-4 of phase 17's one-rank run: the measured
-    steps beside the simulated ones; one card runs without this phase,
+    under the searched strategy and data parallel (a file of its
+    entries whose ``__predicted__`` step is the search's
+    ``dp_time_s``), 1 + 8 steps each with ``-obs-dir`` and
+    ``--op-time-every 9``, the first 3 losses within 1e-4 of phase 17's
+    one-rank run: the measured steps beside the simulated ones, each
+    plan's drift loop as in 18e (no anchor kind is required: a grid
+    without a clone times no shard of its kind), and the simulator's
+    ranking logged beside the cards'; one card runs without this phase,
     and the log says so;
 20. (``--profile``) where the device time of one decode step and of one
     training step of each trained model goes, and the device's idle
@@ -1806,6 +1841,118 @@ def lm_phase(torch, kernels, card: str, widths=(12, 768, 12, 3072),
             "tokens_per_sec": tokens_per_sec, "loss": losses}
 
 
+# the drift loop's LM run (ROADMAP Queue A item 4 (i)): apps.lm at the LM
+# phase's widths, 1 warm-up and 4 steps, with the run telemetry and every
+# second step sampled; its losses against the LM phase's (unsampled)
+LM_OBS_WARMUP, LM_OBS_STEPS, LM_OBS_EVERY = 1, 4, 2
+LM_OBS_RTOL = 1e-6
+OBS_ROOT = Path(__file__).resolve().parent / ".chip_obs"
+
+
+def _obs_records(path) -> list:
+    from flexflow_tpu_torch import obs
+
+    return list(obs.read_run(str(path)))
+
+
+def _op_records(records) -> list:
+    return [r for r in records if r["kind"] == "op_time"
+            and r["scope"] == "op"]
+
+
+def _log_sections(label: str, records) -> None:
+    for r in records:
+        if r["kind"] == "op_time" and r["scope"] == "section":
+            _log(f"{label}: step {r['step']} {r['section']} "
+                 f"{r['seconds'] * 1e3:.3f} ms")
+
+
+def lm_obs_phase(torch, kernels, card: str, lm_run: dict) -> dict:
+    """``apps.lm`` at the LM phase's widths with ``-obs-dir`` and
+    ``--op-time-every 2`` (1 warm-up and 4 steps): the fit records, each
+    sampled step's sections, one shard of every op timed alone; the
+    op-scope records name every op of the model, kernels 1-3 launch
+    while the shards are timed (the attention's), the losses equal the
+    LM phase's unsampled run's within 1e-6 relative, and the run without
+    a strategy says why it has no sim_drift."""
+    import gc
+    import shutil
+
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.models.transformer import TransformerLM
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    shutil.rmtree(OBS_ROOT, ignore_errors=True)
+    iters = LM_OBS_WARMUP + LM_OBS_STEPS
+    argv = _lm_argv(iters, LM_OBS_WARMUP) + [
+        "-obs-dir", str(OBS_ROOT), "-run-id", "lm", "--op-time-every",
+        str(LM_OBS_EVERY)]
+    emit = FFModel._emit_op_times
+    timed = {}
+
+    def counted(self, olog, samples):
+        before = dict(kernels.launches)
+        t = time.perf_counter()
+        emit(self, olog, samples)
+        torch.cuda.synchronize()
+        timed["seconds"] = time.perf_counter() - t
+        timed["launches"] = {k: v - before.get(k, 0)
+                             for k, v in kernels.launches.items()
+                             if v - before.get(k, 0)}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    FFModel._emit_op_times = counted
+    try:
+        t = time.perf_counter()
+        out = lm.main(argv, log=_log)
+        seconds = time.perf_counter() - t
+        records = _obs_records(out["obs_path"])
+        ops = _op_records(records)
+        names = [op.name for op in TransformerLM(
+            lm.parse_args(argv)[0], MachineModel.virtual(1)).layers]
+        measured = [r for r in ops if r["measured"]]
+        _log(f"lm obs: {iters} steps in {seconds:.1f} s, {len(records)} "
+             f"records to {out['obs_path']}; {len(ops)} ops timed alone in "
+             f"{timed['seconds']:.2f} s ({len(measured)} measured, the rest "
+             f"the analytic stand-in), launches while timing them "
+             f"{timed['launches']}; {card}")
+        _log_sections("lm obs", records)
+        for r in sorted(measured, key=lambda r: -r["seconds"])[:6]:
+            _log(f"lm obs: {r['op']} ({r['op_kind']}, grid {r['grid']}) "
+                 f"{r['seconds'] * 1e3:.3f} ms forward + gradient alone")
+        if [r["op"] for r in ops] != names:
+            raise AssertionError(f"lm obs: op records {[r['op'] for r in ops]}"
+                                 f" do not name the model's ops {names}")
+        want = (fa.NAME, fa.NAME_DKV, fa.NAME_DQ)
+        if not all(timed["launches"].get(k, 0) > 0 for k in want):
+            raise AssertionError(f"lm obs: timing the shards launched "
+                                 f"{timed['launches']}, want each of {want}")
+        steps = sorted({r["step"] for r in records
+                        if r["kind"] == "op_time"
+                        and r["scope"] == "section"})
+        if steps != list(range(LM_OBS_EVERY, iters + 1, LM_OBS_EVERY)):
+            raise AssertionError(f"lm obs: sampled steps {steps}")
+        (un,) = [r for r in records if r["kind"] == "sim_drift_unavailable"]
+        if "no strategy" not in un["reason"]:
+            raise AssertionError(f"lm obs: {un}")
+        got, ref = out["loss"], lm_run["loss"][:iters]
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, ref))
+        _log(f"lm obs: losses {got} vs the LM phase's unsampled {ref}: max "
+             f"relative difference {rel:.3e} (tolerance {LM_OBS_RTOL:g})")
+        if not (len(got) == iters and rel <= LM_OBS_RTOL):
+            raise AssertionError(f"lm obs: sampled losses {got} differ from "
+                                 f"{ref}")
+        return {"ops": len(ops), "launches": timed["launches"]}
+    finally:
+        FFModel._emit_op_times = emit
+        shutil.rmtree(OBS_ROOT, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _kernel_kind(key: str) -> str:
     """The kind of a device kernel, by its name, for the profiles."""
     k = key.lower()
@@ -3149,7 +3296,8 @@ def _ranks_worker(spec_path: str) -> int:
     """Run under torchrun (``--lm-ranks SPEC``): each ``apps.lm`` argv
     of the spec's ``runs`` in turn on this world, the launch counts and
     the peak memory reset before each (its results in its
-    ``--result-json``); then the probes the spec names on this world:
+    ``--result-json``; a run its plan check refuses writes ``{"exit":
+    code}`` there instead); then the probes the spec names on this world:
     ``moe_probe`` (a list of grids, :func:`_moe_probe`) and
     ``pipe_probe`` (:func:`_pipe_probe`'s keywords), whose results rank
     r writes to ``probe_json`` (``.rank<r>`` on rank r > 0)."""
@@ -3164,7 +3312,13 @@ def _ranks_worker(spec_path: str) -> int:
         for argv in spec["runs"]:
             kernels.reset_launches()
             torch.cuda.reset_peak_memory_stats()
-            lm.main(argv, log=_log)
+            try:
+                lm.main(argv, log=_log)
+            except SystemExit as e:
+                rank = int(os.environ.get("RANK", "0"))
+                path = _flag(argv, "--result-json") + (
+                    f".rank{rank}" if rank else "")
+                Path(path).write_text(json.dumps({"exit": e.code}))
         if spec.get("moe_probe") or spec.get("pipe_probe"):
             torch.backends.cuda.matmul.allow_tf32 = False
             machine = distributed.initialize(spec["device"],
@@ -3342,7 +3496,7 @@ PIPE_STAGES, PIPE_MICROBATCHES = 2, 4
 PIPE_PROBE_SEED = 11
 PIPE_FILE = (Path(__file__).resolve().parent / "examples" / "strategies"
              / "transformer_2x4.json")
-# the file's run against the flags' run of the same (S, M): the same
+# the file's block run against the flags' run of the same (S, M): the same
 # code on the same inputs
 PIPE_FILE_RTOL = 1e-6
 
@@ -3747,10 +3901,14 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     """The GPipe pipelined LM: the sequential reference in this process
     (:func:`_pipe_reference`); then two gloo ranks on cuda:0 in one
     torchrun world: ``apps.lm --pipeline-stages 2 --microbatches 4``
-    against the reference, ``--strategy transformer_2x4.json`` as
-    written (2 stages x 8 microbatches) against ``--pipeline-stages 2
-    --microbatches 8``, each rank's launches of kernels 1-3 exact; and
-    the pipeline probe at 2 x 4 (:func:`_pipe_probe`)."""
+    against the reference; ``--strategy transformer_2x4.json`` as
+    written, which the static plan check refuses on two ranks as the JAX
+    driver does (its entries name eight devices): exit status 2 on every
+    rank; a file of that strategy's ``__pipeline__`` block alone (2
+    stages x 8 microbatches) against ``--pipeline-stages 2
+    --microbatches 8`` and that run against the reference; each rank's
+    launches of kernels 1-3 exact; and the pipeline probe at 2 x 4
+    (:func:`_pipe_probe`)."""
     import shutil
 
     ref = _pipe_reference(torch, card)
@@ -3761,27 +3919,38 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
     try:
-        file_m = json.loads(PIPE_FILE.read_text())["__pipeline__"][
-            "microbatches"]
+        block = json.loads(PIPE_FILE.read_text())["__pipeline__"]
+        block_file = root / f"{PIPE_FILE.stem}_pipeline.json"
+        block_file.write_text(json.dumps({"__pipeline__": block}))
+        file_m = block["microbatches"]
         runs, probes, seconds = _lm_ranks(
             2, root, "pipe_2", [
                 _pipe_flags(PIPE_STAGES, PIPE_MICROBATCHES),
                 _pipe_argv("--strategy", str(PIPE_FILE)),
+                _pipe_argv("--strategy", str(block_file)),
                 _pipe_flags(PIPE_STAGES, file_m)],
             ["--device", "cuda:0", "--dist-backend", "gloo"],
             pipe_probe={"configs": [(PIPE_STAGES, PIPE_MICROBATCHES, 1)],
                         "argv": _pipe_argv()})
-        _log(f"pipeline: 3 runs and the probe in {seconds:.1f} s with "
+        _log(f"pipeline: 4 runs and the probe in {seconds:.1f} s with "
              f"torchrun's start")
         label = "pipeline 2 stages x 4 microbatches (2 gloo ranks on cuda:0)"
         step_ms = _log_ranks_run(label, runs[0], seconds, card)
         _check_pipe_run(label, runs[0], ref,
                         _pipe_launches(PIPE_STAGES, PIPE_MICROBATCHES))
-        file_label = f"pipeline {PIPE_FILE.name} (2 x {file_m})"
-        _log_ranks_run(file_label, runs[1], seconds, card)
-        _check_pipe_run(file_label, runs[1], runs[2][0]["loss"],
+        if runs[1] != [{"exit": 2}] * 2:
+            raise AssertionError(f"pipeline {PIPE_FILE.name} on two ranks: "
+                                 f"{runs[1]}, want the plan check's exit 2 "
+                                 f"on both")
+        _log(f"pipeline {PIPE_FILE.name} as written on two ranks: the plan "
+             f"check refuses it (exit 2 on both ranks), as the JAX driver "
+             f"does")
+        file_label = (f"pipeline {PIPE_FILE.name}'s __pipeline__ block "
+                      f"(2 x {file_m})")
+        _log_ranks_run(file_label, runs[2], seconds, card)
+        _check_pipe_run(file_label, runs[2], runs[3][0]["loss"],
                         _pipe_launches(PIPE_STAGES, file_m), PIPE_FILE_RTOL)
-        _check_pipe_run(f"pipeline flags 2 x {file_m}", runs[2], ref,
+        _check_pipe_run(f"pipeline flags 2 x {file_m}", runs[3], ref,
                         _pipe_launches(PIPE_STAGES, file_m))
         _check_pipe_probe("pipeline probe (2 gloo ranks on cuda:0)", probes)
         return {"ref": ref, "step_ms": step_ms,
@@ -3870,22 +4039,22 @@ def _measured_search(torch, kernels, card: str, argv, want) -> dict:
 
 
 def _searched_alexnet_run(label: str, ranks: int, path: Path, extra, want,
-                          root: Path) -> dict:
+                          root: Path, timed: int = PLACED_STEPS) -> dict:
     """AlexNet through torchrun on ``ranks`` ranks under the searched
-    strategy ``path``, 1 warm-up and 3 steps, its first 3 losses within
-    the bar of ``want``; rank 0's result."""
-    steps = PLACED_WARMUP + PLACED_STEPS
+    strategy ``path``, 1 warm-up and ``timed`` steps, its first 3 losses
+    within the bar of ``want``; rank 0's result."""
+    steps = PLACED_WARMUP + timed
     result = root / f"searched_{ranks}.json"
     t = time.perf_counter()
     _torchrun(ranks, ["-m", "flexflow_tpu_torch.apps.cnn"] + _alexnet_argv(
         extra + ["-s", str(path), "-ll:gpu", str(ranks), "--result-json",
-                 str(result)], PLACED_WARMUP, PLACED_STEPS), timeout=300)
+                 str(result)], PLACED_WARMUP, timed), timeout=300)
     res = json.loads(result.read_text())
     n = STRATEGY_CHECKED
     got = res["loss"]
     rel = max(abs(a - b) / max(abs(b), 1e-30)
               for a, b in zip(got[:n], want[:n]))
-    step_ms = res["elapsed_s"] / PLACED_STEPS * 1e3
+    step_ms = res["elapsed_s"] / timed * 1e3
     _log(f"search {label}: {res['images_per_sec']:.2f} images/s, "
          f"{step_ms:.3f} ms a step, {time.perf_counter() - t:.1f} s with "
          f"torchrun's start; first losses {got[:n]} vs one rank {want[:n]}: "
@@ -3898,12 +4067,89 @@ def _searched_alexnet_run(label: str, ranks: int, path: Path, extra, want,
     return dict(res, step_ms=step_ms)
 
 
+# the training runs of the drift loop: 1 warm-up and 8 timed steps, only
+# the last sampled, so that 7 of the 8 steps `sim_drift` divides by run
+# unsampled
+OBS_TIMED = 8
+
+
+def _obs_flags(obs_dir: Path, run_id: str) -> list:
+    """A training run's telemetry flags: its records under ``obs_dir``,
+    the last of its ``PLACED_WARMUP + OBS_TIMED`` steps sampled."""
+    return ["-obs-dir", str(obs_dir), "-run-id", run_id, "--op-time-every",
+            str(PLACED_WARMUP + OBS_TIMED)]
+
+
+def _check_trace(path: Path) -> int:
+    """The search's ``-trace`` file validated (``obs/trace.py``); its
+    event count."""
+    from flexflow_tpu_torch.obs import trace as obstrace
+
+    trace = json.loads(path.read_text())
+    errors = obstrace.validate_trace(trace)
+    if errors:
+        raise AssertionError(f"{path.name}: {len(errors)} violations, "
+                             f"first {errors[:3]}")
+    return len(trace["traceEvents"])
+
+
+def _drift_loop(label: str, obs_dir: Path, out: Path, card: str,
+                kinds=()) -> dict:
+    """One trained plan's drift loop from the records under ``obs_dir``
+    (the search's ``search_breakdown`` and ``sim_trace``, the training
+    run's ``op_time`` and ``sim_drift``): the step's drift (the search's
+    prediction from the file, finite and positive), every op's simulated
+    and measured seconds and its share of the drift, and
+    ``apps.calibrate --from-obs``'s refit written to ``out`` (ops
+    joined, an anchor for each of ``kinds``)."""
+    from flexflow_tpu_torch.apps import calibrate
+    from flexflow_tpu_torch.obs import read_events
+    from flexflow_tpu_torch.obs import trace as obstrace
+
+    events = []
+    for f in sorted(obs_dir.iterdir()):
+        if ".jsonl" in f.name:
+            events.extend(read_events(str(f)))
+    drifts = [e for e in events if e["kind"].startswith("sim_drift")]
+    if len(drifts) != 1 or drifts[0]["kind"] != "sim_drift" \
+            or drifts[0]["source"] != "artifact" \
+            or not (math.isfinite(drifts[0]["value"])
+                    and drifts[0]["value"] > 0):
+        raise AssertionError(f"{label}: drift records {drifts}")
+    drift = drifts[0]
+    att = obstrace.drift_attribution(
+        obstrace.sim_op_seconds(events), obstrace.real_op_seconds(events),
+        {"ratio": drift["value"], "predicted_s": drift["predicted_s"],
+         "measured_s": drift["measured_s"]})
+    _log(f"{label}: sim_drift {drift['value']:.4f} (measured "
+         f"{drift['measured_s']:.6e} s a step / simulated "
+         f"{drift['predicted_s']:.6e} s); per op, simulated vs measured "
+         f"alone (forward + gradient of one shard), ranked by drift; {card}")
+    for r in att["ops"]:
+        _log(f"{label}: {r['op']} ({r['op_kind']}) sim {r['sim_s']:.6e} s, "
+             f"real {r['real_s']:.6e} s, drift {r['drift_s']:+.6e} s, share "
+             f"{r['share']:.4f}, measured {r['measured']}")
+    _log(f"{label}: totals {att['totals']}; simulated only "
+         f"{att['sim_only']}, measured only {att['real_only']}")
+    payload = calibrate.main(["--from-obs", str(obs_dir), "-o", str(out)],
+                             log=lambda m: _log(f"{label}: calibrate: {m}"))
+    anchors = payload["kind_anchors"]
+    _log(f"{label}: refit joined {payload['joined_ops']} ops, kind anchors "
+         f"{anchors}, collective scale {payload['collective_scale']}")
+    if not (payload["joined_ops"] > 0 and set(kinds) <= set(anchors)):
+        raise AssertionError(f"{label}: refit {payload}")
+    return {"drift": drift, "attribution": att, "refit": payload}
+
+
 def search_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     """``apps.search`` on the card: AlexNet and the transformer at full
     width searched for two cards with shard times measured here (kernels
-    7 and 7f, then 1-3, launched while timing), then, where gloo carries
-    CUDA tensors for the moves, the AlexNet strategy trained on two gloo
-    ranks on cuda:0 against the strategy phase's one-rank run."""
+    7 and 7f, then 1-3, launched while timing), the AlexNet search with
+    ``-obs-dir`` and ``-trace`` (its trace validated); then the AlexNet
+    strategy trained on two gloo ranks on cuda:0 against the strategy
+    phase's one-rank run, with its telemetry and its last step
+    sampled, and the drift loop over both runs' records
+    (:func:`_drift_loop`)."""
     import shutil
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
@@ -3911,13 +4157,18 @@ def search_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
 
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
+    obs_dir = root / "obs"
     try:
         path = root / "alexnet_searched_2.json"
         alexnet = _measured_search(
             torch, kernels, card,
             ["alexnet", "--devices", "2", "-i", str(SEARCH_ITERS), "--cache",
-             str(root / "cache.json"), "-o", str(path)],
+             str(root / "cache.json"), "-o", str(path), "-obs-dir",
+             str(obs_dir), "-run-id", "search", "-trace"],
             (mp.NAME_FWD, mp.NAME_BWD))
+        _log(f"search alexnet: -trace wrote {alexnet['trace_path']}, "
+             f"{_check_trace(Path(alexnet['trace_path']))} events, no "
+             f"violation")
         lm = _measured_search(
             torch, kernels, card,
             ["transformer", "--devices", "2", "-i", str(SEARCH_ITERS),
@@ -3925,64 +4176,119 @@ def search_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
             (fa.NAME, fa.NAME_DKV, fa.NAME_DQ))
         out = {"alexnet": alexnet["measurement"], "lm": lm["measurement"]}
         carried = strategy_run.get("gloo_cuda", {})
-        if all(carried.get(c) == "ok" for c in GLOO_CUDA_NEEDED):
-            res = _searched_alexnet_run(
-                "alexnet 2 gloo ranks on cuda:0", 2, path,
-                ["--device", "cuda:0", "--dist-backend", "gloo"],
-                strategy_run["ref"]["loss"], root)
-            _log(f"search alexnet 2 ranks: simulated best_time_s "
-                 f"{alexnet['best_time_s']:.6e} (dp {alexnet['dp_time_s']:.6e})"
-                 f" for two cards; two ranks on one card measured "
-                 f"{res['step_ms'] / 1e3:.6e} s a step (gloo's host copies: "
-                 f"not the simulated machine); one rank without a strategy "
-                 f"{strategy_run['ref_step_ms'] / 1e3:.6e} s")
-        else:
-            _log("search: the two-rank gloo run is left out: gloo does not "
-                 "carry CUDA tensors for every collective the moves use")
+        if not all(carried.get(c) == "ok" for c in GLOO_CUDA_NEEDED):
+            raise AssertionError(f"search: gloo does not carry CUDA tensors "
+                                 f"for {GLOO_CUDA_NEEDED}: {carried}")
+        res = _searched_alexnet_run(
+            "alexnet 2 gloo ranks on cuda:0", 2, path,
+            ["--device", "cuda:0", "--dist-backend", "gloo"]
+            + _obs_flags(obs_dir, "fit"), strategy_run["ref"]["loss"], root,
+            OBS_TIMED)
+        _log(f"search alexnet 2 ranks: simulated best_time_s "
+             f"{alexnet['best_time_s']:.6e} (dp {alexnet['dp_time_s']:.6e})"
+             f" for two cards; two ranks on one card measured "
+             f"{res['step_ms'] / 1e3:.6e} s a step (gloo's host copies: "
+             f"not the simulated machine, so the drift below is logged, "
+             f"not held to a bar); one rank without a strategy "
+             f"{strategy_run['ref_step_ms'] / 1e3:.6e} s")
+        out["drift"] = _drift_loop("search alexnet 2 gloo ranks", obs_dir,
+                                   root / "recal.json", card,
+                                   ("Conv2D", "Pool2D", "Linear"))
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 def search4_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
-    """AlexNet searched for four cards with shard times measured here,
-    trained through ``torchrun --nproc-per-node 4`` (NCCL) under the
-    searched strategy and without one (data parallel): the measured
-    steps beside the simulator's, the simulator's drift on this card."""
+    """AlexNet searched for four cards with shard times measured here
+    (``-obs-dir``, ``-trace``), trained through ``torchrun
+    --nproc-per-node 4`` (NCCL) under the searched strategy and under
+    data parallelism (a file of data-parallel entries whose
+    ``__predicted__`` step is the search's ``dp_time_s``), each with its
+    telemetry and its last step sampled: each plan's drift loop
+    (:func:`_drift_loop`; the data-parallel records hold the search's
+    breakdown and simulated per-op seconds of the data-parallel
+    assignment), the simulator's ranking logged beside the cards'.  The
+    refits are logged, not simulated again: every shard with a clone is
+    read from the search's cache, a refit's anchor only joins its kind's
+    median for the shards without one, and the slow tier's constants do
+    not touch one NVLink tier."""
     import shutil
 
+    from flexflow_tpu_torch.obs import RunLog
     from flexflow_tpu_torch.ops.kernels import maxpool as mp
 
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
+    obs_s, obs_dp = root / "obs_searched", root / "obs_dp"
     try:
         path = root / "alexnet_searched_4.json"
         found = _measured_search(
             torch, kernels, card,
             ["alexnet", "--devices", "4", "-i", str(SEARCH_ITERS), "--cache",
-             str(root / "cache.json"), "-o", str(path)],
+             str(root / "cache.json"), "-o", str(path), "-obs-dir",
+             str(obs_s), "-run-id", "search", "-trace"],
             (mp.NAME_FWD, mp.NAME_BWD))
-        want = strategy_run["ref"]["loss"]
-        searched = _searched_alexnet_run("alexnet 4 cards (NCCL)", 4, path,
-                                         [], want, root)
+        _check_trace(Path(found["trace_path"]))
+        ss = found["search"]
+        dp = ss.dp_assignment()
+        dp_strategy = ss.assignment_to_strategy(dp)
+        dp_strategy.predicted = dict(found["strategy"].predicted,
+                                     best_time_s=found["dp_time_s"],
+                                     speedup_vs_dp=1.0)
         dp_file = root / "alexnet_dp_4.json"
-        _strategy_file(dp_file, {}, 4)
-        dp = _searched_alexnet_run("alexnet 4 cards data parallel (NCCL)",
-                                   4, dp_file, [], want, root)
+        dp_strategy.save(str(dp_file))
+        dp_trace = ss.simulate_trace(dp)
+        with RunLog(str(obs_dp / "search.jsonl"), run_id="search",
+                    surface="search") as olog:
+            olog.event("search_breakdown", ops=ss.cost_breakdown(dp),
+                       opt_stream_s=dp_trace["opt_stream_s"])
+            olog.event("sim_trace", path="", op_s=dp_trace["op_s"],
+                       total_s=dp_trace["total_s"],
+                       dp_total_s=dp_trace["total_s"],
+                       opt_stream_s=dp_trace["opt_stream_s"])
+        want = strategy_run["ref"]["loss"]
+        searched = _searched_alexnet_run(
+            "alexnet 4 cards (NCCL)", 4, path, _obs_flags(obs_s, "fit"),
+            want, root, OBS_TIMED)
+        dp_run = _searched_alexnet_run(
+            "alexnet 4 cards data parallel (NCCL)", 4, dp_file,
+            _obs_flags(obs_dp, "fit"), want, root, OBS_TIMED)
         drift = searched["step_ms"] / 1e3 / found["best_time_s"]
         _log(f"search 4 cards: simulated step {found['best_time_s']:.6e} s "
              f"searched, {found['dp_time_s']:.6e} s data parallel; measured "
              f"{searched['step_ms'] / 1e3:.6e} s searched, "
-             f"{dp['step_ms'] / 1e3:.6e} s data parallel; measured / "
+             f"{dp_run['step_ms'] / 1e3:.6e} s data parallel; measured / "
              f"simulated {drift:.4f} searched, "
-             f"{dp['step_ms'] / 1e3 / found['dp_time_s']:.4f} data "
+             f"{dp_run['step_ms'] / 1e3 / found['dp_time_s']:.4f} data "
              f"parallel; {card}")
-        return {"simulated": found["best_time_s"],
-                "measured": searched["step_ms"] / 1e3,
-                "dp_simulated": found["dp_time_s"],
-                "dp_measured": dp["step_ms"] / 1e3}
+        out = {"simulated": found["best_time_s"],
+               "measured": searched["step_ms"] / 1e3,
+               "dp_simulated": found["dp_time_s"],
+               "dp_measured": dp_run["step_ms"] / 1e3}
+        for name, obs_dir in (("searched", obs_s), ("dp", obs_dp)):
+            out[f"drift_{name}"] = _drift_loop(
+                f"search 4 cards {name}", obs_dir, root / f"recal_{name}.json",
+                card)
+        first = {who: "the searched plan" if searched_first
+                 else "data parallelism" for who, searched_first in (
+                     ("simulator", found["best_time_s"] < found["dp_time_s"]),
+                     ("cards", searched["step_ms"] < dp_run["step_ms"]))}
+        _log(f"search 4 cards: ranked first by the simulator: "
+             f"{first['simulator']}; by the cards: {first['cards']}")
+        return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+#: ``--only`` names -> phases, and the phases whose results each reads
+ONLY_PHASES = {"lm-obs": "lm obs", "pipeline": "pipeline",
+               "search": "search", "search4": "search 4"}
+PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
+               "search": ("strategy",), "search 4": ("strategy",)}
+#: the exit status of an ``--only`` run whose phases passed: never 0, so
+#: that a partial run is not read as the smoke's pass
+PARTIAL_EXIT = 4
 
 
 def main(argv) -> int:
@@ -4052,7 +4358,14 @@ def main(argv) -> int:
          f"{ce_lib.ff_fused_ce_fwd_smem(0)}, bfloat16 "
          f"{ce_lib.ff_fused_ce_fwd_smem(1)}")
 
+    # --only: the named phases and the phases whose results they read
+    only = {ONLY_PHASES[k] for k in (_flag(argv, "--only") or "").split(",")
+            if k}
+    only |= {n for name in only for n in PHASE_NEEDS.get(name, ())}
+
     def phase(name, fn, *args):
+        if only and name not in only:
+            return None
         t = time.perf_counter()
         out = fn(*args)
         _log(f"phase {name}: {time.perf_counter() - t:.1f} s")
@@ -4066,6 +4379,7 @@ def main(argv) -> int:
     bns = phase("bn", bn_kernel_phase, torch)
     sliced = phase("serving", slice_phase, torch, fa, kernels)
     lm_run = phase("lm", lm_phase, torch, kernels, card)
+    phase("lm obs", lm_obs_phase, torch, kernels, card, lm_run)
     phase("lm 1.3b", lm_phase, torch, kernels, card, LM13_WIDTHS,
           (LM13_WARMUP, LM13_TIMED, LM13_CHECKED), "lm 1.3b")
     trained = phase("inception", training_phase, torch, kernels, card)
@@ -4108,6 +4422,10 @@ def main(argv) -> int:
                   batch)
         phase("profile nmt", nmt_profile_phase, torch)
         phase("profile moe", moe_profile_phase, torch)
+    if only:
+        _log(f"chip_smoke --only: {time.perf_counter() - t0:.1f} s in all")
+        print(json.dumps({"ok": False, "partial": sorted(only)}), flush=True)
+        return PARTIAL_EXIT
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",

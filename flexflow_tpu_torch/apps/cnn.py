@@ -15,9 +15,10 @@
 
 Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
---width, --classes, -s/--strategy, -ll:gpu, and ``fit``'s runtime flags
---ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
---max-rollbacks, --fault-spec), plus
+--width, --classes, -s/--strategy, -ll:gpu, --allow-degraded, ``fit``'s
+runtime flags --ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
+--max-rollbacks, --fault-spec, and its telemetry flags -obs-dir,
+-run-id, --obs-max-bytes, -op-time-every), plus
 ``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
 (untimed steps before the timed window, default 1 as in ``fit``) and
@@ -34,8 +35,20 @@ are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
 ``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
-elastic and telemetry features raise ``NotImplementedError`` when asked
-for (``config.UNPORTED_FLAGS``).
+elastic training and metrics export raise ``NotImplementedError`` when
+asked for (``config.UNPORTED_FLAGS``).
+
+A strategy file is checked before the model is built, as in the JAX
+app (``flexflow_tpu/apps/cnn.py:100-116``): :func:`check_strategy` runs
+``verify.plan.check_plan`` on a shadow of the model built without the
+strategy on a virtual machine of the world's size, and the run exits
+with status 2 and the findings when one is an error;
+``--allow-degraded`` demotes the degradation findings (a device list
+the executor would normalize, a grid it would replicate) to warnings.
+
+With ``-obs-dir D`` rank 0 writes ``fit``'s records to
+``D/<run-id>.jsonl``, and with ``-op-time-every N`` as well its sampled
+op timing (``FFModel.fit``).
 
 Under ``torchrun`` (``WORLD_SIZE`` in the environment) every rank joins
 one process group (``distributed.initialize``: NCCL on
@@ -148,6 +161,21 @@ def machine_for(device, backend=None):
     return MachineModel(device)
 
 
+def check_strategy(build_shadow, strategies, machine, allow_degraded: bool,
+                   label: str) -> list:
+    """The drivers' static plan check: ``verify.plan.check_plan`` of
+    ``strategies`` against ``build_shadow(virtual)``, a model built
+    without them on a virtual machine of ``machine``'s size and links
+    (it opens no process group and draws no parameters).  Exits with
+    status 2 when a finding is an error; returns the findings."""
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.verify.plan import check_plan
+
+    virtual = MachineModel.virtual(machine.num_devices, machine.topology)
+    return check_plan(build_shadow(virtual), strategies, virtual,
+                      allow_degraded=allow_degraded, label=label)
+
+
 def main(argv=None, log=print) -> dict:
     """One training run; returns ``fit``'s result without the trees (on
     rank 0; None on the other ranks)."""
@@ -166,6 +194,16 @@ def main(argv=None, log=print) -> dict:
         # float32 references run their products in float32, not TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if cfg.strategies:
+        import dataclasses
+
+        from flexflow_tpu_torch.strategy import Strategy
+
+        shadow = dataclasses.replace(cfg, strategies=Strategy(),
+                                     strategy_file="")
+        check_strategy(lambda m: build(model_name, shadow, m),
+                       cfg.strategies, machine, cfg.allow_degraded,
+                       cfg.strategy_file or "strategies")
     ff = build(model_name, cfg, machine)
     log(f"{model_name}: {len(ff.layers)} layers, batch {cfg.batch_size}, "
         f"{cfg.input_height}x{cfg.input_width}, {cfg.compute_dtype} compute, "

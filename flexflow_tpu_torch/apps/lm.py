@@ -15,15 +15,21 @@ Flags are the JAX app's names for the ported fields (-b, -s/--seq,
 -l/--layers, --d-model, --heads, --d-ff, --vocab, --causal, --experts,
 --moe-every, --moe-top-k, -i/--iters/--iterations, --lr, --dtype,
 --param-dtype, --seed, --strategy <file>, --pipeline-stages,
---microbatches, --pipeline-tp) and ``fit``'s runtime (--ckpt-dir,
---ckpt-freq, --prefetch-depth, --on-divergence, --max-rollbacks,
---fault-spec), plus ``--device`` (default ``cuda``: the run raises when
-CUDA is absent unless ``--device cpu`` is given), ``--warmup`` (untimed
-steps before the timed window, default 1 as in ``fit``),
+--microbatches, --pipeline-tp, --allow-degraded), ``fit``'s runtime
+(--ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
+--max-rollbacks, --fault-spec) and its telemetry (-obs-dir, -run-id,
+--obs-max-bytes, -op-time-every: ``FFModel.fit``), plus ``--device``
+(default ``cuda``: the run raises when CUDA is absent unless ``--device
+cpu`` is given), ``--warmup`` (untimed steps before the timed window,
+default 1 as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (elastic training, telemetry, ...) raise
-``NotImplementedError`` (``config.UNPORTED_FLAGS``).
+the port does not have yet (elastic training, metrics export, ...)
+raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A
+``--strategy`` file is checked first, as in the JAX app
+(``flexflow_tpu/apps/lm.py:225-235``, ``apps.cnn.check_strategy``): the
+run exits with status 2 on an error finding, ``--allow-degraded``
+demoting the degradations to warnings.
 
 With ``--strategy`` every op runs on the grid and device list the file
 names, over the world ``torchrun`` makes (``WORLD_SIZE``; one process
@@ -66,9 +72,9 @@ import sys
 import torch
 
 from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
-    machine_for
-from flexflow_tpu_torch.config import (RUNTIME_FLAGS, UNPORTED_FLAGS,
-                                       flag_stream)
+    check_strategy, machine_for
+from flexflow_tpu_torch.config import (OBS_FLAGS, RUNTIME_FLAGS,
+                                       UNPORTED_FLAGS, flag_stream, unported)
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 
@@ -105,13 +111,13 @@ def parse_args(argv):
             warmup = int(val())
         elif a == "--strategy":
             cfg.strategy_file = val()
-        elif a in RUNTIME_FLAGS:
-            field, parse = RUNTIME_FLAGS[a]
+        elif a == "--allow-degraded":
+            cfg.allow_degraded = True
+        elif a in RUNTIME_FLAGS or a in OBS_FLAGS:
+            field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS}[a]
             setattr(cfg, field, parse(val()))
         elif a in UNPORTED_FLAGS:
-            raise NotImplementedError(
-                f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
-                f"package's flexflow_tpu/apps/lm.py has it)")
+            raise unported(a, "flexflow_tpu/apps/lm.py")
         # unknown flags are ignored, like the reference parser
     return cfg, device, warmup
 
@@ -242,6 +248,9 @@ def main(argv=None, log=print) -> dict:
         # float32 runs its products in float32, not TF32
         torch.backends.cuda.matmul.allow_tf32 = False
     if strategies is not None:
+        # the static plan check, on a shadow LM built without the file
+        check_strategy(lambda m: TransformerLM(cfg, m, None), strategies,
+                       machine, cfg.allow_degraded, cfg.strategy_file)
         _pipeline_from_file(cfg, strategies, log)
     if cfg.pipeline_stages > 1:
         unsupported = [flag for flag, on in (

@@ -13,13 +13,18 @@ Flags are the reference's (-b batch, -l layers, -s sequence length, -h
 hidden size, -e embed size) and the JAX app's extras for the ported
 fields (--vocab, -i/--iters/--iterations, --chunk: LSTM steps per chunk
 op, --lr, --dtype, --param-dtype, --seed, --strategy <file>,
---pipeline-stages S), plus ``--device`` (default ``cuda``: the run raises
-when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
-(untimed steps before the timed window, default 1 as in ``fit``),
+--pipeline-stages S, --allow-degraded), plus ``--device`` (default
+``cuda``: the run raises when CUDA is absent unless ``--device cpu`` is
+given), ``--warmup`` (untimed steps before the timed window, default 1
+as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (telemetry, checkpoints, elastic training,
-the kernel policy, ...) raise ``NotImplementedError``.
+the port does not have yet here (telemetry, checkpoints, elastic
+training, the kernel policy, ...) raise ``NotImplementedError``.  A
+``--strategy`` file is checked first, as in the JAX app
+(``flexflow_tpu/apps/nmt.py:146-148``, ``apps.cnn.check_strategy``): the
+run exits with status 2 on an error finding, ``--allow-degraded``
+demoting the degradations to warnings.
 
 The strategy is the reference's default (``nmt.rnn_model.
 default_global_config``: embeds pinned to devices 0 and 1, the rest data
@@ -42,9 +47,9 @@ import sys
 import torch
 
 from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
-    machine_for
-from flexflow_tpu_torch.config import (RUNTIME_FLAGS, UNPORTED_FLAGS,
-                                       flag_stream)
+    check_strategy, machine_for
+from flexflow_tpu_torch.config import (OBS_FLAGS, RUNTIME_FLAGS,
+                                       UNPORTED_FLAGS, flag_stream, unported)
 from flexflow_tpu_torch.nmt.rnn_model import (RnnConfig, RnnModel,
                                               pipeline_stage_strategy,
                                               synthetic_token_batches)
@@ -60,9 +65,9 @@ _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
                "--param-dtype": "param_dtype"}
 #: flags of ``flexflow_tpu/apps/nmt.py:parse_args`` whose features the
 #: port does not have yet (``-s`` and ``-e`` are the sequence length and
-#: the embed size here, so they are parsed first); ``fit``'s runtime
-#: flags are not carried through ``RnnConfig`` yet
-NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS)
+#: the embed size here, so they are parsed first); ``fit``'s runtime and
+#: telemetry flags are not carried through ``RnnConfig`` yet
+NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS) | set(OBS_FLAGS)
 
 
 def parse_args(argv):
@@ -86,10 +91,10 @@ def parse_args(argv):
             placement["strategy"] = val()
         elif a == "--pipeline-stages":
             placement["stages"] = int(val())
+        elif a == "--allow-degraded":
+            cfg.allow_degraded = True
         elif a in NMT_UNPORTED_FLAGS:
-            raise NotImplementedError(
-                f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
-                f"package's flexflow_tpu/apps/nmt.py has it)")
+            raise unported(a, "flexflow_tpu/apps/nmt.py")
         # unknown flags are ignored, like the reference parser
     return cfg, device, warmup, placement
 
@@ -115,6 +120,10 @@ def main(argv=None, log=print) -> dict:
     if placement["strategy"]:
         strategies = Strategy.load(placement["strategy"])
         label = placement["strategy"]
+        # the static plan check, on a shadow built under the default
+        # strategy (its pinned embeds are placements, not degradations)
+        check_strategy(lambda m: RnnModel(cfg, m, None), strategies,
+                       machine, cfg.allow_degraded, label)
     elif placement["stages"]:
         strategies = pipeline_stage_strategy(cfg, machine,
                                              placement["stages"])

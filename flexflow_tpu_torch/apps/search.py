@@ -25,16 +25,24 @@ any other extension the reference's proto2 wire format.
 The JAX driver's flags: ``-i/--iters``, ``-b``, ``--seed``, ``--dtype``,
 ``--experts``, ``-obs-dir``, ``-run-id``, ``-chains``, ``-delta
 on|off|check``, ``--objective makespan|latency``, ``--decompose``,
-``--block-budget-s``, ``--boundary-refine-iters``, ``--no-audit``.  The
-flags of modules not ported raise ``NotImplementedError``: ``--serve``,
-``--disagg`` and ``--objective decode`` (serving search, ROADMAP Queue
-A item 6), ``-trace`` (the simulated timeline export) and ``--audit``
-(the compiled program's audit, item 7).  So does the JAX driver's
+``--block-budget-s``, ``--boundary-refine-iters``, ``--no-audit``,
+``-trace``.  The flags of modules not ported raise
+``NotImplementedError``: ``--serve``, ``--disagg`` and ``--objective
+decode`` (serving search, ROADMAP Queue A item 6) and ``--audit`` (the
+compiled program's audit, item 7).  So does the JAX driver's
 default audit, which runs where a saved strategy (``-o``) on a machine
 of several tiers claims a win over 1.05x: there the port stops unless
 ``--no-audit`` is given.  The transformer's GPipe proposal is not
 ported either (item 4): its strategy carries no ``__pipeline__`` block,
 and the run says so.
+
+``-trace`` writes the simulated per-op timelines of the plan found and
+of data parallelism as one Chrome/Perfetto ``trace_event`` file
+(``<out-stem>.trace.json`` beside ``-o``, else
+``<obs-dir>/<run-id>.trace.json``, else ``<model>.trace.json``) and a
+``sim_trace`` record with each op's simulated seconds, the join keys
+``obs/trace.py`` and ``apps.calibrate --from-obs`` match against the
+``op_time`` records of a training run under the plan.
 
 One JSON line on stdout carries the model, objective, devices,
 ``dp_time_s``, ``best_time_s`` and ``speedup_vs_dp`` (plus the
@@ -55,8 +63,6 @@ from flexflow_tpu_torch.machine import MachineModel, Topology
 UNPORTED_FLAGS = {
     "--serve": "serving search (ROADMAP Queue A item 6)",
     "--disagg": "serving search (ROADMAP Queue A item 6)",
-    "-trace": "the simulated timeline export (ROADMAP Queue A item 4)",
-    "--trace": "the simulated timeline export (ROADMAP Queue A item 4)",
     "--audit": "the compiled program's collective audit (ROADMAP Queue A "
                "item 7)",
 }
@@ -74,7 +80,7 @@ def parse_args(argv):
         "obs_dir": "", "run_id": "", "chains": 1, "delta": "on",
         "objective": "makespan", "decompose": False,
         "block_budget_s": 0.0, "boundary_refine_iters": 0,
-        "device": "cuda",
+        "device": "cuda", "trace": False,
     }
     args = list(argv)
     if args and not args[0].startswith("-"):
@@ -126,6 +132,8 @@ def parse_args(argv):
             opts["boundary_refine_iters"] = int(val())
         elif a == "--device":
             opts["device"] = val()
+        elif a in ("-trace", "--trace"):
+            opts["trace"] = True
     if opts["delta"] not in ("on", "off", "check"):
         raise SystemExit(f"-delta must be on|off|check, got "
                          f"{opts['delta']!r}")
@@ -228,6 +236,34 @@ def _cost_model(opts):
     return MeasuredCostModel(cache_path=opts["cache"] or None,
                              fallback=AnalyticCostModel(perf=perf),
                              device=dev)
+
+
+def _write_sim_trace(opts, search, info, olog, log) -> str:
+    """The ``-trace`` export (``flexflow_tpu/apps/search.py:259``): the
+    simulated timelines of the plan found and of data parallelism as two
+    process lanes of one trace file, and a ``sim_trace`` record with
+    each op's simulated seconds; the file's path."""
+    from flexflow_tpu_torch.obs import trace as obstrace
+
+    best = search.simulate_trace(info["assignment"])
+    dp = search.simulate_trace(search.dp_assignment())
+    if opts["out"]:
+        path = os.path.splitext(opts["out"])[0] + ".trace.json"
+    elif opts["obs_dir"] and olog.enabled:
+        path = os.path.join(opts["obs_dir"], f"{olog.run_id}.trace.json")
+    else:
+        path = f"{opts['model']}.trace.json"
+    obstrace.write_trace(path, obstrace.chrome_trace(
+        obstrace.sim_trace_events(best, pid=obstrace.PID_SIM_BEST,
+                                  label="sim:best"),
+        obstrace.sim_trace_events(dp, pid=obstrace.PID_SIM_DP,
+                                  label="sim:dp")))
+    olog.event("sim_trace", path=path, op_s=best["op_s"],
+               total_s=best["total_s"], dp_total_s=dp["total_s"],
+               opt_stream_s=best["opt_stream_s"])
+    log(f"sim trace written to {path} (sim:best + sim:dp lanes; open in "
+        f"ui.perfetto.dev)")
+    return path
 
 
 def main(argv=None, log=print) -> dict:
@@ -334,6 +370,9 @@ def main(argv=None, log=print) -> dict:
         "batch_size": opts["batch_size"],
         "objective": opts["objective"],
     }
+    if opts["trace"]:
+        result["trace_path"] = _write_sim_trace(opts, search, info, olog,
+                                                log)
     if olog.enabled:
         result["run_id"] = olog.run_id
         result["obs_path"] = olog.path

@@ -1,6 +1,7 @@
 """Run configuration (PyTorch port): the ``FFConfig`` fields the ported
 paths read — serving, and training through ``FFModel.fit`` with its
-checkpoints, health guard, prefetch and fault injection — with the JAX
+checkpoints, health guard, prefetch, fault injection, run telemetry and
+sampled op timing, and the drivers' static plan check — with the JAX
 package's defaults (``flexflow_tpu/config.py``), but for
 ``prefetch_depth``: 0 here, where the JAX default is 2 (the port's
 synthetic sources already yield tensors on the card).
@@ -10,7 +11,7 @@ fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
 number of GPUs, which must equal the world size; checked by the app).  A
 flag of the JAX parser whose feature is not ported yet (elastic
-training, datasets, telemetry, ...) raises ``NotImplementedError``
+training, datasets, metrics export, ...) raises ``NotImplementedError``
 instead of being dropped silently.
 """
 
@@ -27,9 +28,7 @@ from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
 #: the port does not have yet
 UNPORTED_FLAGS = frozenset((
     "-e", "--epochs", "-d", "--dataset", "-ll:cpu", "--profiling",
-    "--trace-dir", "-obs-dir", "--obs-dir",
-    "-run-id", "--run-id", "--obs-max-bytes", "-op-time-every",
-    "--op-time-every", "-metrics-path", "--metrics-path", "-chains",
+    "--trace-dir", "-metrics-path", "--metrics-path", "-chains",
     "--chains", "-delta", "--delta", "-regrid-planner", "--regrid-planner",
     "-placed-overlap", "--placed-overlap", "--data-retry-attempts",
     "--data-skip-budget", "--elastic", "--min-devices",
@@ -39,10 +38,25 @@ UNPORTED_FLAGS = frozenset((
     "--transient-reset-steps", "--ckpt-async", "--max-batch",
     "--serve-queue-hi", "--serve-idle-boundaries", "--serve-prefill-devices",
     "--serve-prefill-replicas", "--serve-decode-replicas",
-    "--fleet-quantum", "--fleet-search-budget-s", "--allow-degraded",
-    "-pallas", "--pallas", "--params-ones", "--print-intermediates",
-    "--dry-compile",
+    "--fleet-quantum", "--fleet-search-budget-s", "-pallas", "--pallas",
+    "--params-ones", "--print-intermediates", "--dry-compile",
 ))
+
+#: where the ROADMAP takes up some of those flags
+UNPORTED_WHERE = {
+    flag: "ROADMAP Queue A item 5, the rest of the training runtime"
+    for flag in ("--profiling", "--trace-dir", "-metrics-path",
+                 "--metrics-path")}
+
+
+def unported(flag: str, where: str) -> NotImplementedError:
+    """The refusal of a flag in ``UNPORTED_FLAGS``; ``where`` names the
+    JAX module that has it."""
+    extra = f"; {UNPORTED_WHERE[flag]}" if flag in UNPORTED_WHERE else ""
+    return NotImplementedError(
+        f"{flag}: not ported to flexflow_tpu_torch yet (the JAX package's "
+        f"{where} has it{extra})")
+
 
 def _checked_policy(v: str) -> str:
     """An ``--on-divergence`` value, checked when parsed."""
@@ -61,6 +75,18 @@ def _checked_fault_spec(v: str) -> str:
         raise SystemExit(f"--fault-spec: {e}")
     return v
 
+
+#: the run telemetry's flags (``FFModel.fit``'s obs records and sampled
+#: op timing): flag -> (field, parse)
+OBS_FLAGS: Dict[str, Tuple[str, Callable]] = {
+    "-obs-dir": ("obs_dir", str),
+    "--obs-dir": ("obs_dir", str),
+    "-run-id": ("run_id", str),
+    "--run-id": ("run_id", str),
+    "--obs-max-bytes": ("obs_max_bytes", int),
+    "-op-time-every": ("op_time_every", int),
+    "--op-time-every": ("op_time_every", int),
+}
 
 #: the training runtime's flags (``FFModel.fit``: checkpoints, the health
 #: guard, prefetch, fault injection): flag -> (field, parse)
@@ -136,6 +162,20 @@ class FFConfig:
     # deterministic fault injection (utils/faultinject.py), e.g.
     # "loss_nan@120,data_io@50x3,ckpt_truncate@2"; "" = off
     fault_spec: str = ""
+    # run telemetry (obs/): with obs_dir set, fit() appends its records
+    # to <obs_dir>/<run_id>.jsonl (run_id "" = a fresh one), rolling over
+    # to a numbered sibling at obs_max_bytes (0 = never)
+    obs_dir: str = ""
+    run_id: str = ""
+    obs_max_bytes: int = 64 * 1024 * 1024
+    # sampled per-op timing in fit(): every Nth step is synced and its
+    # forward / backward / optimizer sections timed, and one shard of
+    # every op is timed after the loop, all as op_time records (0 = off;
+    # needs obs_dir to be written)
+    op_time_every: int = 0
+    # the drivers' static plan check (verify/plan.py) demotes the
+    # degradation findings to warnings instead of refusing the run
+    allow_degraded: bool = False
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":
@@ -143,13 +183,11 @@ class FFConfig:
         --lr/--learning-rate, --wd/--weight-decay, -p/--print-freq,
         -i/--iters/--iterations, --dtype, -param-dtype/--param-dtype,
         --seed, --height, --width, --classes, -s/--strategy, -ll:gpu,
-        and ``RUNTIME_FLAGS``."""
+        --allow-degraded, ``RUNTIME_FLAGS`` and ``OBS_FLAGS``."""
         cfg = cls()
         for a, val in flag_stream(argv):
             if a in UNPORTED_FLAGS:
-                raise NotImplementedError(
-                    f"{a}: not ported to flexflow_tpu_torch yet (the JAX "
-                    f"package's flexflow_tpu/config.py has it)")
+                raise unported(a, "flexflow_tpu/config.py")
             if a in ("-s", "--strategy"):
                 cfg.strategy_file = val()
                 cfg.strategies = Strategy.load(cfg.strategy_file)
@@ -177,8 +215,10 @@ class FFConfig:
                 cfg.input_width = int(val())
             elif a == "--classes":
                 cfg.num_classes = int(val())
-            elif a in RUNTIME_FLAGS:
-                field, parse = RUNTIME_FLAGS[a]
+            elif a == "--allow-degraded":
+                cfg.allow_degraded = True
+            elif a in RUNTIME_FLAGS or a in OBS_FLAGS:
+                field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS}[a]
                 setattr(cfg, field, parse(val()))
             # unknown flags are ignored, like the reference parser
         return cfg

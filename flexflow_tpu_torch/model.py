@@ -40,8 +40,9 @@ counts on one rank per block of its rows (:meth:`aux_counted`);
 gradients are all-reduced over the ranks that hold the same block of a
 leaf, and the backward collectives run in one order on every rank
 (``collectives.token_chain``).  The step
-functions take this rank's batch block (:meth:`local_batch`).  Elastic
-training and telemetry arrive with later slices.
+functions take this rank's batch block (:meth:`local_batch`).  ``fit``
+writes the JAX package's run telemetry (``obs/``) from rank 0, with its
+sampled op timing; elastic training arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -939,10 +940,25 @@ class FFModel:
             (``utils/retry.py:retrying_iter``), ``ckpt_truncate`` and
             ``ckpt_corrupt`` in ``save_checkpoint``.
 
+        Run telemetry (``flexflow_tpu/model.py:1639``, ``:1925-1940``,
+        ``:2467-2860``): with ``obs_dir`` set, rank 0 writes the run's
+        records to ``<obs_dir>/<run_id>.jsonl`` after the loop —
+        ``compile`` (the first step's wall seconds), one ``step`` per
+        step from a host clock that syncs nothing, ``summary``, and
+        ``sim_drift`` (the timed step over the strategy's simulated one)
+        or ``sim_drift_unavailable`` with the reason.  With
+        ``op_time_every`` N as well, every Nth step runs sampled
+        (:meth:`_sampled_step`) on every rank, and rank 0 writes
+        ``op_time`` records: each sampled step's sections, then one
+        shard of every op timed alone (:meth:`_emit_op_times`).  The
+        other ranks write nothing.
+
         Returns ``{"params", "state", "opt_state", "loss" (floats, from
         the first step run), "elapsed_s", "images_per_sec", "rollbacks",
         "completed_steps", "checkpoint_s" (saves inside the loop),
-        "input_stall_s"}``."""
+        "input_stall_s", "run_id", "obs_path"}`` (the last two None
+        without a sink)."""
+        from flexflow_tpu_torch import obs
         from flexflow_tpu_torch.utils import faultinject
 
         if self.config.ckpt_dir and self.machine.num_devices > 1:
@@ -950,14 +966,25 @@ class FFModel:
                 "--ckpt-dir over several ranks: gathering sharded "
                 "checkpoints is ROADMAP Queue A 3e")
         num_iterations = num_iterations or self.config.num_iterations
+        olog = obs.NULL if self.machine.rank else obs.from_config(
+            self.config, surface="fit",
+            meta={"model": type(self).__name__,
+                  "layers": len(self.layers),
+                  "devices": self.machine.num_devices,
+                  "batch_size": self.config.batch_size,
+                  "iterations": num_iterations,
+                  "compute_dtype": self.config.compute_dtype,
+                  "strategy_ops": len(self.config.strategies)})
         inj = faultinject.from_config(self.config)
         restore_inj = faultinject.install_scoped(inj) if inj.enabled \
             else None
         try:
-            return self._fit(data_iter, num_iterations, warmup, log, inj)
+            return self._fit(data_iter, num_iterations, warmup, log, inj,
+                             olog)
         finally:
             if restore_inj is not None:
                 restore_inj()
+            olog.close()
 
     def _resume(self, data_iter, num_iterations, log):
         """``(start_iter, params, state, opt_state)`` from the newest
@@ -991,7 +1018,7 @@ class FFModel:
         return (start_iter, params, state,
                 opt_state or self.init_opt_state(params))
 
-    def _fit(self, data_iter, num_iterations, warmup, log, inj):
+    def _fit(self, data_iter, num_iterations, warmup, log, inj, olog):
         from flexflow_tpu_torch.utils import checkpoint as ckpt
         from flexflow_tpu_torch.utils.health import StepHealthGuard
         from flexflow_tpu_torch.utils.retry import retrying_iter
@@ -1025,6 +1052,18 @@ class FFModel:
         losses = []
         loss_base = window_start = it = start_iter
         checkpoint_s = 0.0
+        # the obs sink's per-step host clock (no sync), and the sampled op
+        # timing: decided from the config alone, so that every rank takes
+        # the sampled sections' collectives at the same step
+        clock = None
+        if olog.enabled:
+            from flexflow_tpu_torch.utils.profiling import StepClock
+
+            clock = StepClock()
+        sample_every = max(int(cfg.op_time_every or 0), 0) \
+            if cfg.obs_dir else 0
+        sections = self._make_section_fns() if sample_every else None
+        op_samples = []
         start = time.perf_counter()
         try:
             while it < num_iterations:
@@ -1032,13 +1071,20 @@ class FFModel:
                 if it == warmup:
                     self._sync()
                     start = time.perf_counter()
-                params, state, opt_state, loss = step(params, state,
-                                                      opt_state, *batch)
+                if sample_every and (it + 1) % sample_every == 0:
+                    params, state, opt_state, loss = self._sampled_step(
+                        step, sections, op_samples, it, params, state,
+                        opt_state, batch)
+                else:
+                    params, state, opt_state, loss = step(
+                        params, state, opt_state, *batch)
                 if inj.enabled and inj.fire("loss_nan", site="fit"):
                     # poison the recorded loss on the device; the guard
                     # sees it at the next boundary
                     loss = loss * float("nan")
                 losses.append(loss)
+                if clock is not None:
+                    clock.tick()
                 it1 = it + 1
                 at_print = bool(print_freq) and it1 % print_freq == 0
                 at_ckpt = bool(ckpt_dir) and bool(ckpt_freq) \
@@ -1074,12 +1120,172 @@ class FFModel:
         throughput = (n_timed * cfg.batch_size / elapsed
                       if elapsed > 0 and n_timed > 0 else 0.0)
         log(f"time = {elapsed:.4f}s, tp = {throughput:.2f} images/s")
+        losses = torch.stack(losses).tolist() if losses else []
+        if olog.enabled:
+            self._emit_fit_records(olog, clock, losses, start_iter, warmup,
+                                   it, elapsed, throughput, op_samples)
         return {"params": params, "state": state, "opt_state": opt_state,
-                "loss": torch.stack(losses).tolist() if losses else [],
+                "loss": losses,
                 "elapsed_s": elapsed, "images_per_sec": throughput,
                 "rollbacks": guard.rollbacks, "completed_steps": it,
                 "checkpoint_s": checkpoint_s,
-                "input_stall_s": prefetcher.stall_s if prefetcher else 0.0}
+                "input_stall_s": prefetcher.stall_s if prefetcher else 0.0,
+                "run_id": olog.run_id, "obs_path": olog.path}
+
+    # ------------------------------------------------------------------
+    # run telemetry (model.py:2467-2860)
+
+    def _make_section_fns(self):
+        """``(forward, forward_backward)`` of the training step for the
+        sampled op timing: the loss in training mode without gradients,
+        and the loss with the gradients of every float leaf
+        (``torch.autograd.grad``, the ranks' gradient sums included).
+        Neither touches a ``.grad``, and the new BatchNorm state each
+        computes is dropped, so timing them leaves training as it was."""
+        cdtype = torch_dtype(self.config.compute_dtype)
+
+        def forward(params, state, *batch):
+            with torch.no_grad():
+                if self._mixed_precision():
+                    params = _cast_floats(params, cdtype)
+                loss, _ = self.loss_fn(params, state, *self._batch(*batch),
+                                       train=True)
+            return loss
+
+        def forward_backward(params, state, *batch):
+            loss, _, _, grads = self._loss_and_grads(params, state, batch)
+            return loss, grads
+
+        return forward, forward_backward
+
+    def _sampled_step(self, step, sections, op_samples, it, params, state,
+                      opt_state, batch):
+        """One step of the sampled op timing (``model.py:2497``): drain
+        the device, time the forward and the forward + backward sections,
+        then run the real step once, each ended by a device sync and
+        marked for ``torch.profiler`` as ``op_time:<section>``; the
+        backward and optimizer times follow by subtraction.  Returns the
+        real step's result."""
+        from torch.profiler import record_function
+
+        forward, forward_backward = sections
+        self._sync()
+        rec = {"step": it + 1}
+        t0 = time.perf_counter()
+        with record_function("op_time:forward"):
+            forward(params, state, *batch)
+            self._sync()
+        rec["forward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with record_function("op_time:forward_backward"):
+            forward_backward(params, state, *batch)
+            self._sync()
+        rec["forward_backward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with record_function("op_time:step"):
+            out = step(params, state, opt_state, *batch)
+            self._sync()
+        rec["step_s"] = time.perf_counter() - t0
+        op_samples.append(rec)
+        return out
+
+    def _emit_op_times(self, olog, op_samples) -> None:
+        """The ``op_time`` records of a sampled run (``model.py:2531``):
+        each sample's sections (backward and optimizer by subtraction,
+        clamped at 0), then one shard of every op under its config timed
+        alone (:func:`~flexflow_tpu_torch.utils.profiling.time_op_shard`),
+        the analytic cost standing in where the op has no clone
+        (``measured`` false)."""
+        from flexflow_tpu_torch.sim.cost_model import AnalyticCostModel
+        from flexflow_tpu_torch.utils.profiling import time_op_shard
+
+        for s in op_samples:
+            fw = s.get("forward", 0.0)
+            fb = s.get("forward_backward", 0.0)
+            st = s.get("step_s", 0.0)
+            for name, secs in (("forward", fw),
+                               ("backward", max(fb - fw, 0.0)),
+                               ("optimizer", max(st - fb, 0.0)),
+                               ("step", st)):
+                olog.event("op_time", scope="section", section=name,
+                           step=s["step"], seconds=secs)
+        analytic = AnalyticCostModel()
+        for op in self.layers:
+            t = time_op_shard(op, op.pc, dtype=self.config.compute_dtype,
+                              device=self.device)
+            measured = t is not None
+            if not measured:
+                t = analytic.op_cost(op, op.pc)
+            olog.event("op_time", scope="op", op=op.name,
+                       op_kind=type(op).__name__, grid=list(op.pc.dims),
+                       seconds=t, measured=measured)
+
+    def _emit_fit_records(self, olog, clock, losses, start_iter, warmup,
+                          num_iterations, elapsed, throughput,
+                          op_samples) -> None:
+        """The fit surface's records after the loop (``model.py:2767``):
+        ``compile`` (the first step's wall seconds: there is no compiled
+        program to analyse), ``step`` per step, ``summary``, the
+        ``op_time`` records of a sampled run, then ``sim_drift`` or
+        ``sim_drift_unavailable``."""
+        bsz = self.config.batch_size
+        olog.event("compile",
+                   seconds=clock.deltas[0] if clock.deltas else 0.0)
+        for i, dt in enumerate(clock.deltas):
+            it = start_iter + i
+            olog.event("step", step=it + 1, wall_ms=dt * 1e3,
+                       loss=losses[i] if i < len(losses) else None,
+                       images_per_sec=bsz / dt if dt > 0 else 0.0,
+                       timed=it >= warmup)
+        olog.event("summary", iterations=num_iterations - start_iter,
+                   warmup=warmup - start_iter, elapsed_s=elapsed,
+                   images_per_sec=throughput,
+                   final_loss=losses[-1] if losses else None)
+        if op_samples:
+            self._emit_op_times(olog, op_samples)
+        n_timed = num_iterations - warmup
+        if not self.config.strategies:
+            olog.event("sim_drift_unavailable",
+                       reason="no strategy loaded (pure-DP default run; "
+                              "no simulator prediction to compare)")
+        elif n_timed <= 0 or elapsed <= 0:
+            olog.event("sim_drift_unavailable",
+                       reason="no timed steps (every iteration was "
+                              "warmup)")
+        else:
+            self._emit_sim_drift(olog, elapsed / n_timed)
+
+    def _emit_sim_drift(self, olog, measured_step_s: float) -> None:
+        """The measured step over the simulator's prediction for the
+        loaded strategy (``model.py:2826``): the ``__predicted__`` block
+        of the search's file first, else the analytic simulation of this
+        model's strategy; >1 means the simulator is optimistic."""
+        pred = getattr(self.config.strategies, "predicted", None)
+        predicted_s, source = None, None
+        if pred and pred.get("best_time_s"):
+            predicted_s, source = float(pred["best_time_s"]), "artifact"
+        else:
+            try:
+                from flexflow_tpu_torch.sim.search import StrategySearch
+
+                ss = StrategySearch(self, machine=self.machine)
+                predicted_s = ss.simulate(
+                    ss.assignment_for(self.config.strategies))
+                source = "analytic"
+            except Exception as e:
+                olog.event("sim_drift_unavailable", error=str(e),
+                           reason=f"simulating the loaded strategy "
+                                  f"failed: {e}")
+                return
+        if predicted_s and predicted_s > 0:
+            olog.event("sim_drift", name="sim_drift",
+                       value=measured_step_s / predicted_s,
+                       predicted_s=predicted_s,
+                       measured_s=measured_step_s, source=source)
+        else:
+            olog.event("sim_drift_unavailable",
+                       reason="artifact carries a non-positive "
+                              "prediction")
 
     def _save(self, ckpt, step, params, state, opt_state, log) -> None:
         """One checkpoint save; non-finite state is refused and logged,

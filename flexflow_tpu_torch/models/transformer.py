@@ -75,6 +75,13 @@ class TransformerConfig:
     on_divergence: str = "halt"
     max_rollbacks: int = 3
     fault_spec: str = ""
+    # run telemetry and sampled op timing (forwarded to FFConfig)
+    obs_dir: str = ""
+    run_id: str = ""
+    obs_max_bytes: int = 64 * 1024 * 1024
+    op_time_every: int = 0
+    # the driver's static plan check demotes degradations to warnings
+    allow_degraded: bool = False
 
 
 class TransformerLM(FFModel):
@@ -104,6 +111,11 @@ class TransformerLM(FFModel):
             on_divergence=self.t.on_divergence,
             max_rollbacks=self.t.max_rollbacks,
             fault_spec=self.t.fault_spec,
+            obs_dir=self.t.obs_dir,
+            run_id=self.t.run_id,
+            obs_max_bytes=self.t.obs_max_bytes,
+            op_time_every=self.t.op_time_every,
+            allow_degraded=self.t.allow_degraded,
         )
         super().__init__(ff_cfg, machine, device)
         self._build()

@@ -69,6 +69,8 @@ class RnnConfig:
     # masters in the optimizer state)
     param_dtype: str = "float32"
     seed: int = 0
+    # the driver's static plan check demotes degradations to warnings
+    allow_degraded: bool = False
 
     @property
     def chunks_per_seq(self) -> int:

@@ -158,3 +158,18 @@ def read_events(path: str) -> Iterator[Dict[str, Any]]:
                 continue
             if isinstance(rec, dict):
                 yield rec
+
+
+def from_config(config, surface: str = "",
+                meta: Optional[Dict[str, Any]] = None):
+    """A live :class:`RunLog` when ``config.obs_dir`` is set (file
+    ``<obs_dir>/<run_id>.jsonl``, ``config.run_id`` or a fresh id), else
+    the shared ``NULL`` sink (``flexflow_tpu/obs/__init__.py:217``)."""
+    obs_dir = getattr(config, "obs_dir", "") or ""
+    if not obs_dir:
+        return NULL
+    run_id = getattr(config, "run_id", "") or new_run_id()
+    return RunLog(os.path.join(obs_dir, f"{run_id}.jsonl"),
+                  run_id=run_id, surface=surface, meta=meta,
+                  max_bytes=getattr(config, "obs_max_bytes",
+                                    DEFAULT_MAX_BYTES))

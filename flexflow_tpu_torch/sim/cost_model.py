@@ -190,7 +190,7 @@ class MeasuredCostModel:
 
     Times are cached in memory and, with ``cache_path``, in a JSON file
     whose keys carry :attr:`protocol`, a tag of this package's and of the
-    card (``torch1|<device name>|``), so that no time taken on another
+    card (``torch2|<device name>|``), so that no time taken on another
     card or by the JAX package's protocol is read as this card's.
     Entries under other tags are kept on save and never read.
 

@@ -330,7 +330,8 @@ def test_every_jax_nmt_flag_is_parsed_or_refused():
     assert len(flags) > 40
     ported = {"-b", "-l", "-s", "-h", "-e", "--vocab", "-i", "--iters",
               "--iterations", "--chunk", "--lr", "--dtype", "-param-dtype",
-              "--param-dtype", "--seed", "--strategy", "--pipeline-stages"}
+              "--param-dtype", "--seed", "--strategy", "--pipeline-stages",
+              "--allow-degraded"}
     assert ported <= flags
     default = t_nmt.parse_args([])
     for flag in sorted(flags):

@@ -21,8 +21,9 @@ on 8 gloo ranks against the JAX package's ``parallel/pipeline.py``.
   beside per-op attention entries that split the heads 2 ways
   (``test_pipeline_block_tp_from_file``): the same losses within 1e-6.
 * The ``(stage, n, tp)`` rank map equals JAX's mesh, and the pipelined
-  path refuses ``--experts`` (by flag, and ``moe_2x4_measured.json`` as
-  written) with JAX's ``SystemExit``.
+  path refuses ``--experts`` (by flag on one rank, and
+  ``moe_2x4_measured.json`` as written on the 8 ranks its entries name,
+  past the static plan check) with JAX's ``SystemExit``.
 
 One spawn of 8 processes (``tests/torch_ranks.py``) runs every case.
 """
@@ -103,6 +104,13 @@ def _lm_case(tmp, tp, batches):
     return path, first, losses, jax.tree.map(np.asarray, params)
 
 
+#: the pipelined path from ``moe_2x4_measured.json``'s block, with experts
+EXPERTS_FROM_FILE = [
+    "-b", "32", "-s", "16", "-l", "12", "--d-model", "32", "--heads", "4",
+    "--d-ff", "64", "--vocab", "64", "-i", "1", "--experts", "4",
+    "--strategy", str(STRATEGIES / "moe_2x4_measured.json")]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline")
@@ -123,7 +131,9 @@ def runs(tmp_path_factory):
              ("pipe_lm", (dict(LM, tp=2), lms[2][0], batches)),
              ("app_main", (APP_FLAGS, "lm", True)),
              ("app_main", (APP + ["--strategy", str(block)], "lm", True)),
-             ("app_main", (APP + ["--strategy", str(per_op)], "lm", True))]
+             ("app_main", (APP + ["--strategy", str(per_op)], "lm", True)),
+             ("app_checked", (EXPERTS_FROM_FILE + ["--device", "cpu"],
+                              "lm"))]
     res = tr.run_ranks(tr.run_cases, 8, cases, timeout=300)
     return stage, lms, batches, res
 
@@ -252,21 +262,27 @@ def test_pipeline_rank_map_equals_jax_mesh():
     ["-b", "8", "-s", "16", "-l", "2", "--d-model", "32", "--heads", "4",
      "--d-ff", "64", "--vocab", "64", "-i", "1", "--experts", "4",
      "--pipeline-stages", "2"],
-    ["-b", "32", "-s", "16", "-l", "12", "--d-model", "32", "--heads", "4",
-     "--d-ff", "64", "--vocab", "64", "-i", "1", "--experts", "4",
-     "--strategy", str(STRATEGIES / "moe_2x4_measured.json")],
+    EXPERTS_FROM_FILE,
 ], ids=["flags", "moe_2x4_measured"])
-def test_pipelined_path_refuses_experts_as_jax(argv):
+def test_pipelined_path_refuses_experts_as_jax(argv, request):
     from flexflow_tpu.apps import lm as j_lm
     from flexflow_tpu_torch.apps import lm as t_lm
 
     with pytest.raises(SystemExit) as want:
         j_lm.main(argv, log=lambda *a: None)
-    with pytest.raises(SystemExit) as got:
-        t_lm.main(argv + ["--device", "cpu"], log=lambda *a: None)
-    assert str(got.value) == str(want.value)
-    assert str(got.value).startswith("--pipeline-stages does not support: "
-                                     "--experts")
+    if "--strategy" in argv:
+        # the file names eight devices: the static plan check passes it
+        # on JAX's 8-device mesh and on the port's world of 8 ranks (the
+        # module's spawn), and on one rank exits 2 as JAX's on one device
+        got = {r[6][0] for r in request.getfixturevalue("runs")[3]}
+        assert got == {str(want.value)}
+        got = got.pop()
+    else:
+        with pytest.raises(SystemExit) as exited:
+            t_lm.main(argv + ["--device", "cpu"], log=lambda *a: None)
+        got = str(exited.value)
+        assert got == str(want.value)
+    assert got.startswith("--pipeline-stages does not support: --experts")
 
 
 def test_pipelined_tree_shapes_are_checked():

@@ -7,9 +7,9 @@
   ``gpt-1.3b --devices 8 --decompose`` its decomposed strategy, with the
   same keys and values in the stdout line;
 * each flag of a module not ported raises ``NotImplementedError``
-  (``--serve``, ``--disagg``, ``--objective decode``, ``-trace``,
-  ``--audit``, and the JAX driver's default audit of a saved plan's win
-  on two tiers unless ``--no-audit``);
+  (``--serve``, ``--disagg``, ``--objective decode``, ``--audit``, and
+  the JAX driver's default audit of a saved plan's win on two tiers
+  unless ``--no-audit``);
 * ``--measured`` raises without CUDA, and with ``--device cpu`` times
   every shard a clone exists for (a narrow AlexNet), caches the times
   and anchors the rest;
@@ -72,7 +72,7 @@ def test_app_writes_the_jax_drivers_file(tmp_path, jax_constants, argv,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--serve"], ["--disagg", "2"], ["--objective", "decode"], ["-trace"],
+    ["--serve"], ["--disagg", "2"], ["--objective", "decode"],
     ["--audit"]], ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
     from flexflow_tpu_torch.apps import search

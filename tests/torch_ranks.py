@@ -179,6 +179,43 @@ def app_main(machine, argv, app="cnn", keep_log=False):
     return (loss, lines) if keep_log else loss
 
 
+def app_checked(machine, argv, app):
+    """``apps.<app>.main(argv)`` as one rank of a torchrun world, with the
+    findings of its static plan check: ``(exit code, [finding dicts],
+    losses)``, the exit code 0 and the losses rank 0's when the run went
+    on (None on other ranks), else the code it exited with and None."""
+    from flexflow_tpu_torch.verify import plan
+
+    found = []
+    plan_findings = plan.plan_findings
+
+    def recorded(*args, **kwargs):
+        findings, summary = plan_findings(*args, **kwargs)
+        found.extend(f.to_dict() for f in findings)
+        return findings, summary
+
+    plan.plan_findings = recorded
+    try:
+        return 0, found, app_main(machine, argv, app)
+    except SystemExit as e:
+        return e.code, found, None
+    finally:
+        plan.plan_findings = plan_findings
+
+
+def fit_obs(machine, layers, cfg_kwargs, batches):
+    """``FFModel.fit`` of ``layers`` on this rank's rows of the global
+    numpy ``batches``: ``(losses, obs_path)``, the path None on a rank
+    that writes no records."""
+    import torch
+
+    ff = build(machine, layers, cfg_kwargs)
+    data = (ff.local_batch(torch.from_numpy(image), torch.from_numpy(lbl))
+            for image, lbl in batches)
+    out = ff.fit(data, num_iterations=len(batches), log=lambda *a: None)
+    return out["loss"], out["obs_path"]
+
+
 def assemble(full_shapes, rank_blocks):
     """Full numpy leaves from every rank's (box, block) pairs: every
     element must be written by some rank, and the ranks that hold one
@@ -824,9 +861,18 @@ def set_family(ff, image):
     return ff.softmax("softmax", ff.linear("fc1", t, 64, relu=False))
 
 
+def trace_cnn(ff, image):
+    """tests/test_trace.py's op-timing net."""
+    t = ff.conv2d("conv1", image, 8, 3, 3, 1, 1, 1, 1, relu=True)
+    t = ff.flat("flat", t)
+    t = ff.linear("fc", t, 8, relu=False)
+    return ff.softmax("softmax", t)
+
+
 MODELS = {"tiny": tiny, "alexnet": alexnet, "vgg_style": vgg_style,
           "resnet_style": resnet_style, "vgg16": vgg16,
-          "placed_bn": placed_bn, "set_family": set_family}
+          "placed_bn": placed_bn, "set_family": set_family,
+          "trace_cnn": trace_cnn}
 
 #: input channels of the models that do not take RGB images
 CHANNELS = {"placed_bn": 8, "set_family": 8}
