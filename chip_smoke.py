@@ -11,8 +11,11 @@ the GPT trained by ``torchrun ... apps.lm`` under per-op strategies
 (ring and head-parallel attention, the fused vocab-parallel head), its
 MoE form under expert-parallel grids and its GPipe pipelined form, and
 the strategy search (``apps.search --measured``, shard times from this
-card) with the AlexNet strategy it finds trained over ranks — and checks
-that each path ran through its kernels.
+card) with the AlexNet strategy it finds trained over ranks and the
+GPipe block it proposes for the GPT trained pipelined, the halo
+exchange of spatially split convolutions and pools, and the LM's
+checkpoints over ranks resumed — and checks that each path ran through
+its kernels.
 
     python3 chip_smoke.py              # the smoke (one GPU; on four,
                                        # phase 19 too)
@@ -21,8 +24,11 @@ that each path ran through its kernels.
                                        # step of each trained model
     python3 chip_smoke.py --only search4,lm-obs
                                        # the kernel build and the named
-                                       # phases (lm-obs, pipeline, search,
-                                       # search4) with the phases they
+                                       # phases (lm-obs, strategy,
+                                       # lm-strategy, pipeline, search and
+                                       # strategy4, lm-strategy4,
+                                       # pipeline4, search4) with the
+                                       # phases they
                                        # read; no kernels line, a last
                                        # line {"ok": false, "partial":
                                        # [...]}, exit status 4
@@ -203,9 +209,12 @@ Phases (any failure exits non-zero):
     collectives gloo carries on CUDA tensors (two processes on cuda:0),
     and where it carries all the path needs (its moves gather where
     gloo has no all-to-all), a two-rank run on cuda:0 over gloo with
-    conv2 and lienar1 split over channels and the rest over the batch,
-    its first 3 losses held to the same bar and rank 0's pool launches
-    counted as above;
+    conv1 and pool1 split over h (their halos exchanged through host
+    copies, gloo carrying no point-to-point for CUDA tensors), conv2 and
+    lienar1 over channels and the rest over the batch, its first 3
+    losses held to the same bar and rank 0's pool launches counted as
+    above, and its halo bytes a step logged beside what the all-gather
+    of the whole extent moved before the exchange;
 18. placement slice (ROADMAP Queue A 3b): ``python -m
     torch.distributed.run --standalone --nproc-per-node 1 -m
     flexflow_tpu_torch.apps.nmt`` at the JAX app's defaults (float32, 3
@@ -237,7 +246,12 @@ Phases (any failure exits non-zero):
     carries no point-to-point for CUDA tensors, phase 17's probe, so the
     ring's rotations all-gather); the first 3 losses within 1e-4 of the
     one-rank run, rank 0's launches of kernels 1-6 and their partial
-    forms counted, each rank's param keys logged;
+    forms counted, each rank's param keys logged; that run checkpoints
+    every 2 steps (rank 0 writes the leaves gathered whole), and in the
+    same world a run resumed from its step-2 checkpoint repeats steps 3-4:
+    its losses and the step-4 checkpoint's leaves equal the uninterrupted
+    run's bit for bit (or within 1e-6, logged), its launches those of 2
+    steps, the save and restore seconds logged;
 18c. MoE strategy slice (ROADMAP Queue A 3c-ii): ``apps.lm --experts 8``
     at phase 16's widths through ``torchrun --nproc-per-node 1`` (NCCL),
     1 warm-up and 3 steps, under a one-device strategy file: the losses
@@ -254,9 +268,14 @@ Phases (any failure exits non-zero):
     1e-4 of their largest magnitude, aux within 1e-6, at capacity 1.0
     some choices dropped on every rank; the dropped share and each
     rank's w1 block logged;
-18d. pipeline slice (ROADMAP Queue A 3d): ``PipelinedLM``'s sequential
-    reference trained in this process on the card (phase 9's widths, 1
-    warm-up and 3 steps, SGD at lr 1e-3), then, in one torchrun world
+18d. pipeline slice (ROADMAP Queue A 3d, item 4 (iii)): ``PipelinedLM``'s
+    sequential reference trained in this process on the card (phase 9's
+    widths, 1 warm-up and 3 steps, SGD at lr 1e-3); ``apps.search
+    transformer --devices 4 --measured`` at that batch (its shards timed
+    on this card, kernels 1-3 launched while timing; on two devices
+    JAX's rule S < n leaves no GPipe candidate): every candidate with its
+    terms and the decision logged, the best tp-1 candidate written as a
+    block-only strategy file; then, in one torchrun world
     of two gloo ranks on cuda:0, ``apps.lm --pipeline-stages 2
     --microbatches 4`` (its first 3 losses within 1e-4 of the
     reference; every rank launches each of kernels 1-3 (L/S)(M + S - 1)
@@ -268,7 +287,9 @@ Phases (any failure exits non-zero):
     ranks, and a file of that strategy's ``__pipeline__`` block alone
     (2 stages x 8 microbatches) against ``--pipeline-stages 2
     --microbatches 8`` within 1e-6 and that run against the reference,
-    with the same launch counts.  JAX's ``PipelinedLM.init`` gives a zero head, so those
+    with the same launch counts, and the proposed block's file against
+    the reference, (L/S)(M + S - 1) launches of kernels 1-3 a step, its
+    measured step logged beside the candidate's simulated one.  JAX's ``PipelinedLM.init`` gives a zero head, so those
     losses stay near ln V whatever the blocks compute: in the same world
     the pipeline probe draws a seeded head and holds the ring's loss
     within 1e-4 and every leaf's gradient on every rank within 1e-4 of
@@ -305,13 +326,17 @@ Phases (any failure exits non-zero):
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
     placement slice's three runs over four ranks (kernels 4-6 on 160
     rows), each held as the two-rank runs are, with sentences/s and
-    images/s beside the one-card runs; then the LM under phase 18b's
-    strategy over four ranks (ring x data parallel attention, the heads
-    split four ways, the head (4, 1)), its tokens/s beside the one-card
-    run; the MoE LM with its blocks cycling (4, 1, 1), (2, 1, 2), (1, 2,
-    2) and the op probe under those grids, against phase 18c's one-rank
-    run; the pipelined LM at 2 stages x 2 tp and at 4 stages, against
-    phase 18d's reference, and the pipeline probe at both; then AlexNet
+    images/s beside the one-card runs (the hybrid's halos of conv3-conv5,
+    split over w, by NCCL point-to-point, their bytes logged); then the
+    LM under phase 18b's strategy over four ranks (ring x data parallel
+    attention, the heads split four ways, the head (4, 1)), its tokens/s
+    beside the one-card run, and its checkpoint resume as 18b's; the MoE
+    LM with its blocks cycling (4, 1, 1), (2, 1, 2), (1, 2, 2) and the op
+    probe under those grids, against phase 18c's one-rank run; the
+    pipelined LM at 2 stages x 2 tp, at 4 stages and at phase 18d's
+    proposed block (its best candidate, at the tp it chose), against
+    phase 18d's reference, the pipeline probe at the first two, and the
+    proposal's simulated steps logged beside the measured ones; then AlexNet
     searched for four cards by ``apps.search --measured`` (shard times
     from this card) and trained through ``torchrun --nproc-per-node 4``
     under the searched strategy and data parallel (a file of its
@@ -332,6 +357,12 @@ Phases (any failure exits non-zero):
     run), then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
+
+Not run on the card: ``apps.searchscale`` (it touches no device; the
+CPU tests hold it to the JAX sweep), and grids that do not factor over
+the world's prime axes (every world this machine has, of 1, 2 or 4
+ranks, factors every grid that fits it; the CPU tests train a (2, 3)
+grid on 6 gloo ranks against JAX's run).
 
 Times come from CUDA events over repeated launches after a warm-up; a
 kernel's launches are enqueued behind a sleep kernel, so its time is the
@@ -2761,12 +2792,16 @@ ALEXNET_OPS = (("conv1", 4), ("pool1", 4), ("conv2", 4), ("pool2", 4),
                ("conv3", 4), ("conv4", 4), ("conv5", 4), ("pool3", 4),
                ("flat", 2), ("lienar1", 2), ("linear2", 2), ("linear3", 2),
                ("softmax", 1))
-# the two-rank strategy: conv2 and lienar1 split their output channels
-# over both ranks, every other op the batch (the pure-DP default)
-TWO_RANK_SPLITS = {"conv2": [1, 1, 2, 1], "lienar1": [2, 1]}
+# the two-rank strategy: conv1 (11x11 stride 4, 224 rows: 112 a rank)
+# and pool1 (3x3 stride 2, 55 rows: 28 and 27) split over h, their
+# halos exchanged; conv2 and lienar1 split their output channels over
+# both ranks, every other op the batch (the pure-DP default)
+TWO_RANK_SPLITS = {"conv1": [1, 2, 1, 1], "pool1": [1, 2, 1, 1],
+                   "conv2": [1, 1, 2, 1], "lienar1": [2, 1]}
 # the four-rank strategy (a machine with four cards): conv2
 # and pool2 over channels and batch, conv3-conv5 over w (13 columns: 7,
-# 6) and batch, the linears over channels, the rest over the batch
+# 6; halos exchanged) and batch, the linears over channels, the rest
+# over the batch
 FOUR_RANK_SPLITS = {"conv2": [1, 1, 2, 2], "pool2": [1, 1, 2, 2],
                     "conv3": [2, 1, 1, 2], "conv4": [2, 1, 1, 2],
                     "conv5": [2, 1, 1, 2], "lienar1": [4, 1],
@@ -2861,6 +2896,43 @@ def _strategy_file(path: Path, splits: dict, ranks: int) -> None:
                   "devices": list(range(ranks))}
            for name, nd in ALEXNET_OPS}
     path.write_text(json.dumps(obj, indent=1))
+
+
+def _halo_log(label: str, res: dict, splits: dict, ranks: int,
+              iters: int, card: str) -> dict:
+    """Log the halo bytes each rank received a step (forward rows and
+    backward gradients; ``--result-json``'s counter) beside what the
+    all-gather of the whole h or w extent received before the exchange
+    (forward, and as much again by its reduce-scatter): AlexNet at
+    batch 64, 224x224, under ``splits``."""
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+    from flexflow_tpu_torch.strategy import Strategy
+
+    path = STRATEGY_ROOT / f"halo_{ranks}.json"
+    _strategy_file(path, splits, ranks)
+    ff = build_alexnet(FFConfig(batch_size=64, input_height=224,
+                                input_width=224,
+                                strategies=Strategy.load(str(path))),
+                       MachineModel.virtual(ranks))
+    whole = 0
+    for op in ff.layers:
+        if not hasattr(op, "kernel_h"):
+            continue
+        pw, ph, _, pn = op.pc.dims
+        n, h, w, c = op.inputs[0].shape
+        for parts, extent, across in ((ph, h, w // pw), (pw, w, h)):
+            if parts > 1:
+                own = -(-extent // parts)
+                whole += 2 * (extent - own) * across * c * (n // pn) * 4
+    got = res["halo_bytes"]["received"] / iters
+    _log(f"strategy {label}: halo bytes received a step on rank 0 "
+         f"{got:.0f} (forward rows and backward gradients of the "
+         f"windows' spans), against {whole} by the whole-extent "
+         f"all-gather before the exchange (rank 0's block, forward and "
+         f"backward); {card}")
+    return {"halo": got, "whole": whole}
 
 
 def _check_run(label: str, res: dict, want) -> float:
@@ -2959,11 +3031,16 @@ def strategy_phase(torch, kernels, card: str) -> dict:
                                        str(root / "two.json")]))
             res2 = json.loads((root / "two.json").read_text())
             _log(f"strategy torchrun 2 ranks on cuda:0 (gloo, regrid moves "
-                 f"as all-gather and slice): "
+                 f"as all-gather and slice, halos through host copies): "
                  f"{res2['images_per_sec']:.2f} images/s, "
                  f"{res2['elapsed_s'] / STRATEGY_TIMED * 1e3:.3f} ms a step; "
-                 f"launches on rank 0 {res2['launches']}")
+                 f"launches on rank 0 {res2['launches']}; {card}")
             _check_run("2 ranks", res2, ref["loss"])
+            out["halo"] = _halo_log("2 ranks", res2, TWO_RANK_SPLITS, 2,
+                                    STRATEGY_WARMUP + STRATEGY_TIMED, card)
+            if not 0 < out["halo"]["halo"] < out["halo"]["whole"]:
+                raise AssertionError(f"strategy 2 ranks: halo bytes "
+                                     f"{out['halo']}")
         else:
             _log("strategy: the two-rank gloo run is left out: gloo does "
                  "not carry CUDA tensors for every collective the path "
@@ -3007,6 +3084,11 @@ def strategy4_phase(torch, kernels, card: str) -> dict:
                  f"launches on rank 0 {res['launches']}")
             _check_run(f"4 ranks {label}", res, ref["loss"])
             out[label] = res["images_per_sec"]
+            if label == "hybrid":
+                out["halo"] = _halo_log(
+                    "4 ranks hybrid (NCCL point-to-point)", res,
+                    FOUR_RANK_SPLITS, 4, STRATEGY_WARMUP + STRATEGY_TIMED,
+                    card)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3209,6 +3291,10 @@ def placement4_phase(torch, kernels, card: str, nmt_run: dict,
 # run's
 LM_RANKS_WARMUP, LM_RANKS_STEPS = 1, 3
 LM_LAYERS = 12
+# the multi-rank LM runs save every 2 steps; a run resumed from step 2
+# repeats the rest of the uninterrupted run bit for bit, or within 1e-6
+LM_CKPT_FREQ = 2
+LM_RESUME_RTOL = 1e-6
 
 
 def _lm_strategy_file(path: Path, ranks: int) -> None:
@@ -3309,7 +3395,18 @@ def _ranks_worker(spec_path: str) -> int:
 
     spec = json.loads(Path(spec_path).read_text())
     try:
-        for argv in spec["runs"]:
+        for i, argv in enumerate(spec["runs"]):
+            copy = spec.get("copies", {}).get(str(i))
+            if copy:
+                # a checkpoint step the run resumes from: copied by rank
+                # 0, every rank waiting for it
+                import shutil
+
+                import torch.distributed as dist
+
+                if int(os.environ.get("RANK", "0")) == 0:
+                    shutil.copytree(copy[0], copy[1])
+                dist.barrier()
             kernels.reset_launches()
             torch.cuda.reset_peak_memory_stats()
             try:
@@ -3338,15 +3435,19 @@ def _ranks_worker(spec_path: str) -> int:
 
 
 def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
-              moe_probe=None, pipe_probe=None) -> tuple:
+              moe_probe=None, pipe_probe=None, copies=None) -> tuple:
     """``runs`` (apps.lm argv lists, ``extra`` appended to each) as one
     torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
-    a ``--result-json`` of its own, then the probes on the device and
-    backend ``extra`` names: ``(every rank's results per run, every
-    rank's probe results or None, seconds with torchrun's start)``."""
+    a ``--result-json`` of its own (``copies``: ``{run index: (source,
+    destination)}`` directories rank 0 copies before that run), then the
+    probes on the device and backend ``extra`` names: ``(every rank's
+    results per run, every rank's probe results or None, seconds with
+    torchrun's start)``."""
     outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
     spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
-                     for a, o in zip(runs, outs)]}
+                     for a, o in zip(runs, outs)],
+            "copies": {str(i): [str(a), str(b)]
+                       for i, (a, b) in (copies or {}).items()}}
     probed = moe_probe is not None or pipe_probe is not None
     if probed:
         spec.update(moe_probe=moe_probe, pipe_probe=pipe_probe,
@@ -3370,7 +3471,9 @@ def _log_ranks_run(label: str, results: list, seconds: float,
     """Log a multi-rank run's rate, step ms, rank 0's peak and each rank's
     params; its step ms."""
     res = results[0]
-    step_ms = res["elapsed_s"] / LM_RANKS_STEPS * 1e3
+    # a save inside the timed window is not a step's time
+    step_ms = (res["elapsed_s"] - res.get("checkpoint_s", 0.0)) \
+        / LM_RANKS_STEPS * 1e3
     _log(f"{label}: {res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms "
          f"a step, peak on rank 0 {res['peak_memory_bytes'] / 1e9:.3f} GB, "
          f"{seconds:.1f} s for the torchrun world; {card}")
@@ -3385,20 +3488,73 @@ def _log_ranks_run(label: str, results: list, seconds: float,
 def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
                   extra) -> dict:
     """The LM over ``ranks`` ranks under ``_lm_strategy_file`` (``extra``
-    names the device and backend), held to its bars; each rank's leaves
-    logged."""
+    names the device and backend), held to its bars, checkpointed every
+    ``LM_CKPT_FREQ`` steps; each rank's leaves logged.  In the same world
+    a run resumed from its step-``LM_CKPT_FREQ`` checkpoint
+    (:func:`_check_resume`)."""
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
     path = root / f"lm_{ranks}.json"
     _lm_strategy_file(path, ranks)
-    (results,), _, seconds = _lm_ranks(
-        ranks, root, f"lm_{ranks}", [_lm_argv(steps, LM_RANKS_WARMUP)],
-        list(extra) + ["--strategy", str(path)])
+    whole, cut = root / f"ckpt_{ranks}", root / f"ckpt_{ranks}_resumed"
+    ckpt = ["--ckpt-freq", str(LM_CKPT_FREQ), "--ckpt-dir"]
+    (results, resumed), _, seconds = _lm_ranks(
+        ranks, root, f"lm_{ranks}",
+        [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(whole)],
+         _lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(cut)]],
+        list(extra) + ["--strategy", str(path)],
+        copies={1: (whole / f"step_{LM_CKPT_FREQ:08d}",
+                    cut / f"step_{LM_CKPT_FREQ:08d}")})
     label = (f"lm strategy {ranks} ranks "
              f"({' '.join(extra) or 'NCCL, a card a rank'})")
     step_ms = _log_ranks_run(label, results, seconds, card)
     _check_lm_run(label, results[0], want_loss, _lm_rank_launches(steps))
+    _check_resume(label, results, resumed, whole, cut, steps, card)
     return {"tokens_per_sec": results[0]["tokens_per_sec"],
             "step_ms": step_ms, "launches": results[0]["launches"]}
+
+
+def _check_resume(label: str, results, resumed, whole: Path, cut: Path,
+                  steps: int, card: str) -> None:
+    """The run resumed from the step-``LM_CKPT_FREQ`` checkpoint of the
+    uninterrupted one (``results``) against it: its losses, and the
+    leaves of both runs' last checkpoints (rank 0 writes the leaves
+    gathered whole), bit for bit or within ``LM_RESUME_RTOL`` (relative)
+    with the difference logged; rank 0's launches those of its steps;
+    the save and restore seconds logged."""
+    import numpy as np
+
+    res, again = results[0], resumed[0]
+    tail = res["loss"][LM_CKPT_FREQ:]
+    want = _lm_rank_launches(steps - LM_CKPT_FREQ)
+    if {k: v for k, v in again["launches"].items() if v} != want:
+        raise AssertionError(f"{label} resumed: launches on rank 0 "
+                             f"{again['launches']}, want {want}")
+    last = f"step_{steps:08d}"
+    with np.load(whole / last / "arrays.npz") as a, \
+            np.load(cut / last / "arrays.npz") as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f"{label} resumed: leaves {b.files} vs "
+                                 f"{a.files}")
+        worst = max(float(np.max(np.abs(a[k].astype(np.float64)
+                                        - b[k].astype(np.float64))
+                                 / np.maximum(np.abs(a[k].astype(
+                                     np.float64)), 1e-30), initial=0.0))
+                    for k in a.files)
+        equal = all(np.array_equal(a[k], b[k]) for k in a.files)
+        n = len(a.files)
+    losses_rel = max(abs(x - y) / max(abs(y), 1e-30)
+                     for x, y in zip(again["loss"], tail))
+    _log(f"{label} resumed from step {LM_CKPT_FREQ}: losses "
+         f"{again['loss']} vs {tail} (max relative difference "
+         f"{losses_rel:.3e}), {n} leaves of the step-{steps} checkpoints "
+         f"{'equal bit for bit' if equal else f'within {worst:.3e}'}; "
+         f"saves inside the loop {res['checkpoint_s']:.2f} s (the "
+         f"uninterrupted run), restore {again['restore_s']:.2f} s; {card}")
+    if not (equal or worst <= LM_RESUME_RTOL) \
+            or losses_rel > LM_RESUME_RTOL:
+        raise AssertionError(f"{label} resumed: leaves within {worst:.3e}, "
+                             f"losses within {losses_rel:.3e} of the "
+                             f"uninterrupted run's")
 
 
 def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
@@ -3499,6 +3655,9 @@ PIPE_FILE = (Path(__file__).resolve().parent / "examples" / "strategies"
 # the file's block run against the flags' run of the same (S, M): the same
 # code on the same inputs
 PIPE_FILE_RTOL = 1e-6
+# the GPipe proposal is searched for four cards: on two, JAX's rule (S <
+# n) leaves no candidate
+PROPOSAL_DEVICES = 4
 
 
 def _moe_strategy_file(path: Path, ranks: int) -> None:
@@ -3897,6 +4056,49 @@ def _pipe_reference(torch, card: str) -> list:
     return ref
 
 
+def _proposal(torch, kernels, card: str, root: Path, devices: int) -> dict:
+    """``apps.search transformer --devices <devices> --measured`` at the
+    pipelined runs' batch, its transformer shards timed on this card
+    (kernels 1-3 launched while timing): its GPipe candidates and
+    decision logged, and the best candidate and the best of tp 1, each
+    as ``{stages, microbatches, tp}`` with its simulated ``time_s``."""
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+
+    lines = []
+    found = _measured_search(
+        torch, kernels, card,
+        ["transformer", "--devices", str(devices), "-b", str(LM_SHAPE[0]),
+         "-i", str(SEARCH_ITERS), "--cache", str(root / "cache.json")],
+        (fa.NAME, fa.NAME_DKV, fa.NAME_DQ), log=lines.append)
+    for line in lines:
+        if line.startswith("pipeline "):
+            _log(f"proposal {devices} cards: {line}")
+    pp = found["proposal"]
+
+    def block(c):
+        return {"stages": c["stages"], "microbatches": c["microbatches"],
+                "tp": c["tp"], "time_s": c["time_s"]}
+
+    cands = pp["candidates"]
+    out = {"best": block(min(cands, key=lambda c: c["time_s"])),
+           "tp1": block(min((c for c in cands if c["tp"] == 1),
+                            key=lambda c: c["time_s"])),
+           "accepted": pp["accepted"], "dp_time_s": found["dp_time_s"],
+           "reference_time_s": pp["reference_time_s"]}
+    _log(f"proposal {devices} cards: {len(cands)} candidates, "
+         f"{'accepted' if pp['accepted'] else 'rejected'}; best {out['best']},"
+         f" best of tp 1 {out['tp1']}; non-pipelined "
+         f"{pp['reference_time_s']:.6e} s (data parallel "
+         f"{found['dp_time_s']:.6e} s); {card}")
+    return out
+
+
+def _block_file(path: Path, block: dict) -> Path:
+    path.write_text(json.dumps({"__pipeline__": {
+        k: block[k] for k in ("stages", "microbatches", "tp")}}))
+    return path
+
+
 def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     """The GPipe pipelined LM: the sequential reference in this process
     (:func:`_pipe_reference`); then two gloo ranks on cuda:0 in one
@@ -3919,20 +4121,24 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
     try:
+        proposal = _proposal(torch, kernels, card, root, PROPOSAL_DEVICES)
+        proposed = proposal["tp1"]
         block = json.loads(PIPE_FILE.read_text())["__pipeline__"]
-        block_file = root / f"{PIPE_FILE.stem}_pipeline.json"
-        block_file.write_text(json.dumps({"__pipeline__": block}))
+        block_file = _block_file(root / f"{PIPE_FILE.stem}_pipeline.json",
+                                 block)
         file_m = block["microbatches"]
         runs, probes, seconds = _lm_ranks(
             2, root, "pipe_2", [
                 _pipe_flags(PIPE_STAGES, PIPE_MICROBATCHES),
                 _pipe_argv("--strategy", str(PIPE_FILE)),
                 _pipe_argv("--strategy", str(block_file)),
-                _pipe_flags(PIPE_STAGES, file_m)],
+                _pipe_flags(PIPE_STAGES, file_m),
+                _pipe_argv("--strategy", str(_block_file(
+                    root / "proposed.json", proposed)))],
             ["--device", "cuda:0", "--dist-backend", "gloo"],
             pipe_probe={"configs": [(PIPE_STAGES, PIPE_MICROBATCHES, 1)],
                         "argv": _pipe_argv()})
-        _log(f"pipeline: 4 runs and the probe in {seconds:.1f} s with "
+        _log(f"pipeline: 5 runs and the probe in {seconds:.1f} s with "
              f"torchrun's start")
         label = "pipeline 2 stages x 4 microbatches (2 gloo ranks on cuda:0)"
         step_ms = _log_ranks_run(label, runs[0], seconds, card)
@@ -3952,35 +4158,60 @@ def pipeline_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
                         _pipe_launches(PIPE_STAGES, file_m), PIPE_FILE_RTOL)
         _check_pipe_run(f"pipeline flags 2 x {file_m}", runs[3], ref,
                         _pipe_launches(PIPE_STAGES, file_m))
+        prop_label = (f"pipeline proposed block {proposed['stages']} x "
+                      f"{proposed['microbatches']} (tp 1)")
+        prop_ms = _log_ranks_run(prop_label, runs[4], seconds, card)
+        _check_pipe_run(prop_label, runs[4], ref,
+                        _pipe_launches(proposed["stages"],
+                                       proposed["microbatches"]))
+        _log(f"{prop_label}: measured {prop_ms / 1e3:.6e} s a step on two "
+             f"gloo ranks of one card, simulated {proposed['time_s']:.6e} s "
+             f"for {PROPOSAL_DEVICES} cards (non-pipelined "
+             f"{proposal['reference_time_s']:.6e} s); {card}")
         _check_pipe_probe("pipeline probe (2 gloo ranks on cuda:0)", probes)
         return {"ref": ref, "step_ms": step_ms,
                 "tokens_per_sec": runs[0][0]["tokens_per_sec"],
-                "launches": runs[0][0]["launches"]}
+                "launches": runs[0][0]["launches"],
+                "proposal": proposal, "proposed_ms": prop_ms}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def pipeline4_phase(torch, kernels, card: str, pipe: dict) -> dict:
+def pipeline4_phase(torch, kernels, card: str, pipe: dict,
+                    lm4: dict) -> dict:
     """The pipelined LM over four cards (NCCL, a card a rank): 2 stages x
-    2 tp and 4 stages, each against the sequential reference, and the
-    pipeline probe at both."""
+    2 tp, 4 stages and the pipeline phase's proposed block for four cards
+    at the tp it chose, each against the sequential reference, and the
+    pipeline probe at the first two; the proposal's simulated pipelined
+    and non-pipelined steps logged beside the measured pipelined step and
+    the LM's four-card strategy step (``lm4``), for the record."""
     import shutil
 
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
     configs = ((2, PIPE_MICROBATCHES, 2), (4, PIPE_MICROBATCHES, 1))
+    best = pipe["proposal"]["best"]
+    proposed = (best["stages"], best["microbatches"], best["tp"])
     try:
         runs, probes, seconds = _lm_ranks(
-            4, root, "pipe_4", [_pipe_flags(*c) for c in configs],
+            4, root, "pipe_4", [_pipe_flags(*c) for c in configs]
+            + [_pipe_argv("--strategy", str(_block_file(
+                root / "proposed.json", best)))],
             pipe_probe={"configs": configs, "argv": _pipe_argv()})
         out = {}
-        for res, (stages, mb, tp) in zip(runs, configs):
+        for res, (stages, mb, tp) in zip(runs, configs + (proposed,)):
             label = (f"pipeline 4 cards: {stages} stages x {tp} tp x "
                      f"{mb} microbatches")
             step_ms = _log_ranks_run(label, res, seconds, card)
             _check_pipe_run(label, res, pipe["ref"],
                             _pipe_launches(stages, mb))
             out[(stages, tp)] = step_ms
+        _log(f"pipeline 4 cards, the proposed block {proposed}: simulated "
+             f"{best['time_s']:.6e} s pipelined, "
+             f"{pipe['proposal']['reference_time_s']:.6e} s non-pipelined; "
+             f"measured {step_ms / 1e3:.6e} s pipelined, "
+             f"{lm4['step_ms'] / 1e3:.6e} s the LM under its four-card "
+             f"strategy; {card}")
         _check_pipe_probe("pipeline probe (4 cards)", probes)
         _log(f"pipeline 4 cards: 2 gloo ranks on one card "
              f"{pipe['step_ms']:.3f} ms a step; four cards {out}")
@@ -3996,8 +4227,10 @@ SEARCH_ITERS = 20000
 SEARCH_LOSS_RTOL = 1e-4
 
 
-def _measured_search(torch, kernels, card: str, argv, want) -> dict:
-    """``apps.search <argv> --measured`` in this process: the shards it
+def _measured_search(torch, kernels, card: str, argv, want,
+                     log=lambda *a: None) -> dict:
+    """``apps.search <argv> --measured`` in this process (its lines to
+    ``log``): the shards it
     timed, the measurement's seconds, the kernels launched while timing
     (each of ``want`` at least once), the kind anchors and the simulated
     steps; every timed shard finite and positive, every searched entry
@@ -4006,7 +4239,7 @@ def _measured_search(torch, kernels, card: str, argv, want) -> dict:
 
     kernels.reset_launches()
     t = time.perf_counter()
-    out = search.main(argv + ["--measured"], log=lambda *a: None)
+    out = search.main(argv + ["--measured"], log=log)
     seconds = time.perf_counter() - t
     launched = {k: kernels.launches.get(k, 0) for k in want}
     m = out["measurement"]
@@ -4283,9 +4516,16 @@ def search4_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
 
 #: ``--only`` names -> phases, and the phases whose results each reads
 ONLY_PHASES = {"lm-obs": "lm obs", "pipeline": "pipeline",
-               "search": "search", "search4": "search 4"}
+               "search": "search", "search4": "search 4",
+               "strategy": "strategy", "lm-strategy": "lm strategy",
+               "strategy4": "strategy 4", "lm-strategy4": "lm strategy 4",
+               "pipeline4": "pipeline 4"}
 PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
-               "search": ("strategy",), "search 4": ("strategy",)}
+               "search": ("strategy",), "search 4": ("strategy",),
+               "lm strategy": ("lm", "strategy"),
+               "lm strategy 4": ("lm", "strategy", "lm strategy"),
+               "pipeline 4": ("strategy", "pipeline", "lm", "lm strategy",
+                              "lm strategy 4")}
 #: the exit status of an ``--only`` run whose phases passed: never 0, so
 #: that a partial run is not read as the smoke's pass
 PARTIAL_EXIT = 4
@@ -4402,11 +4642,12 @@ def main(argv) -> int:
         phase("strategy 4", strategy4_phase, torch, kernels, card)
         phase("placement 4", placement4_phase, torch, kernels, card,
               nmt_run, strategy_run)
-        phase("lm strategy 4", lm_strategy4_phase, torch, kernels, card,
-              lm_strategy)
+        lm4 = phase("lm strategy 4", lm_strategy4_phase, torch, kernels,
+                    card, lm_strategy)
         phase("moe strategy 4", moe_strategy4_phase, torch, kernels, card,
               moe_ranks)
-        phase("pipeline 4", pipeline4_phase, torch, kernels, card, pipe)
+        phase("pipeline 4", pipeline4_phase, torch, kernels, card, pipe,
+              lm4)
         phase("search 4", search4_phase, torch, kernels, card, strategy_run)
     else:
         _log(f"four-card phases skipped: {torch.cuda.device_count()} "

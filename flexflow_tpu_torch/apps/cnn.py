@@ -23,7 +23,8 @@ runtime flags --ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
 when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
 (untimed steps before the timed window, default 1 as in ``fit``) and
 ``--result-json PATH`` (rank 0 writes ``fit``'s result there: the
-losses, the rate, the peak device memory, the kernel launches, the param
+losses, the rate, the peak device memory, the kernel launches, the bytes
+its halo exchanges moved, the param
 keys and state entries it holds; rank r > 0 writes its own to
 ``PATH.rank<r>``) and
 ``--dist-backend NAME`` (the process group's backend under torchrun:
@@ -129,15 +130,17 @@ def parse(argv):
 
 def _write_result(path: str, out: dict, machine) -> None:
     """``fit``'s result (its trees replaced by the keys this rank holds)
-    with the launches and the peak memory, to ``path`` on rank 0 and
-    ``path.rank<r>`` on rank r."""
+    with the launches, the bytes its halo exchanges moved and the peak
+    memory, to ``path`` on rank 0 and ``path.rank<r>`` on rank r."""
     import json
 
     from flexflow_tpu_torch.ops import kernels
+    from flexflow_tpu_torch.parallel import collectives
 
     res = {k: v for k, v in out.items()
            if k not in ("params", "state", "opt_state")}
     res.update(launches=dict(kernels.launches),
+               halo_bytes=collectives.halo_bytes(),
                leaves={"params": sorted(out["params"]),
                        "state": sorted(out["state"])})
     if machine.device.type == "cuda":

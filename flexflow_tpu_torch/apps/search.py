@@ -31,10 +31,19 @@ on|off|check``, ``--objective makespan|latency``, ``--decompose``,
 decode`` (serving search, ROADMAP Queue A item 6) and ``--audit`` (the
 compiled program's audit, item 7).  So does the JAX driver's
 default audit, which runs where a saved strategy (``-o``) on a machine
-of several tiers claims a win over 1.05x: there the port stops unless
-``--no-audit`` is given.  The transformer's GPipe proposal is not
-ported either (item 4): its strategy carries no ``__pipeline__`` block,
-and the run says so.
+of several tiers claims a win over 1.05x, or carries an accepted
+``__pipeline__`` block: there the port stops unless ``--no-audit`` is
+given.
+
+The transformer (``transformer``, ``gpt``, ``bert``) under ``--objective
+makespan`` also gets the GPipe proposal
+(``StrategySearch.propose_pipeline``): every (stages, microbatches, tp)
+candidate is logged with its bubble, boundary, tp and sync terms, and
+the best one becomes the strategy's ``__pipeline__`` block when it beats
+the searched plan (``result["pipeline"]`` says which).  ``apps.lm
+--strategy`` trains such a block.  A proto ``-o`` cannot carry the
+block, so the whole plan also goes to the JSON sidecar
+``<out>.pipeline.json``.
 
 ``-trace`` writes the simulated per-op timelines of the plan found and
 of data parallelism as one Chrome/Perfetto ``trace_event`` file
@@ -53,6 +62,7 @@ under ``--measured``).
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 
@@ -266,6 +276,38 @@ def _write_sim_trace(opts, search, info, olog, log) -> str:
     return path
 
 
+def _propose_pipeline(opts, machine, model, search, strategy, info,
+                      result, multi_tier, log) -> dict:
+    """The GPipe block (``flexflow_tpu/apps/search.py:595-640``):
+    propose or reject it against the searched plan, with every
+    candidate logged; ``result["pipeline"]``, and ``strategy.pipeline``
+    when accepted.  NMT is left out (no NMT driver consumes the block)
+    and so is the latency objective (GPipe schedules a training step).
+    JAX audits an accepted block's compiled program before it writes
+    it to a machine of several tiers; that audit is not ported.
+    Returns the proposal with every candidate."""
+    pp = search.propose_pipeline(
+        log=log, reference_s=info["best_time"],
+        stage_divisor=model.t.num_layers, batch=model.t.batch_size,
+        tp_divisor=math.gcd(model.t.num_heads, model.t.d_ff))
+    result["pipeline"] = {
+        "accepted": pp["accepted"], "best": pp["best"],
+        "reference_time_s": pp["reference_time_s"]}
+    if not pp["accepted"]:
+        return pp
+    strategy.pipeline = pp["best"]
+    audit = opts["audit"] if opts["audit"] is not None \
+        else (bool(opts["out"]) and multi_tier)
+    if audit:
+        raise NotImplementedError(
+            "an accepted __pipeline__ block on a machine of several "
+            "tiers, where the JAX driver audits the pipelined program's "
+            "collectives before writing it; the audit is not ported "
+            "(ROADMAP Queue A item 7): pass --no-audit to write the "
+            "simulated block as it is")
+    return pp
+
+
 def main(argv=None, log=print) -> dict:
     import time
 
@@ -357,10 +399,12 @@ def main(argv=None, log=print) -> dict:
             f"the simulated plan as it is")
     if opts["measured"]:
         log(MEASURED_UNCHECKED)
+    proposal = None   # the GPipe candidates, where they are priced
     if opts["model"] in ("transformer", "gpt", "bert") \
             and opts["objective"] == "makespan":
-        log("pipeline proposal not ported (ROADMAP Queue A item 4): the "
-            "strategy carries no __pipeline__ block")
+        proposal = _propose_pipeline(opts, machine, model, search,
+                                     strategy, info, result, multi_tier,
+                                     log)
     # the artifact carries its simulated prediction
     strategy.predicted = {
         "model": opts["model"], "devices": machine.num_devices,
@@ -378,10 +422,19 @@ def main(argv=None, log=print) -> dict:
         result["obs_path"] = olog.path
     log(json.dumps(result))
     if opts["out"]:
+        if strategy.pipeline and not opts["out"].endswith(".json"):
+            # the proto2 wire format cannot carry the block: a JSON
+            # sidecar carries the whole plan
+            sidecar = opts["out"] + ".pipeline.json"
+            strategy.save(sidecar)
+            log(f"warning: {opts['out']} is proto format, which cannot "
+                f"carry the accepted __pipeline__ block — full plan "
+                f"written to {sidecar}")
         strategy.save(opts["out"])
         log(f"strategy written to {opts['out']}")
     olog.close()
-    return {"strategy": strategy, "search": search, **result}
+    return {"strategy": strategy, "search": search, "proposal": proposal,
+            **result}
 
 
 if __name__ == "__main__":

@@ -18,9 +18,10 @@ mixed-precision (float32 masters) parameters.
 Gradients come from ``torch.autograd``.  A tensor read by several ops
 gets the sum of their gradients from autograd itself; the JAX package's
 ``grad_fanout`` tree (``ops/fanout.py``) only fixes where XLA adds them,
-and the parity tests hold without it.  ``fit`` carries the one-device
-part of the JAX training runtime: checkpoints and resume, the step
-health guard with rollback, device prefetch and fault injection.
+and the parity tests hold without it.  ``fit`` carries the JAX training
+runtime: checkpoints and resume (over several ranks, gathered whole on
+rank 0), the step health guard with rollback, device prefetch and fault
+injection.
 
 On a machine of several ranks (``distributed.initialize``) every op runs
 on its own strategy grid and device list.  At build time
@@ -922,13 +923,15 @@ class FFModel:
         the loss every ``config.print_freq`` iterations; then the
         reference's line ``time = %.4fs, tp = %.2f images/s``.
 
-        The one-device part of the JAX runtime (``_fit``,
+        The JAX runtime (``_fit``,
         ``model.py:1755-2160``), each piece off unless configured:
 
           * ``ckpt_dir``: resume from its newest verified checkpoint
             (refusing one trained under another strategy; the data
             stream is advanced past the restored steps), save every
-            ``ckpt_freq`` steps and after the last;
+            ``ckpt_freq`` steps and after the last; over several ranks
+            rank 0 writes the leaves gathered whole, in the format of a
+            one-device save, and every rank restores its own blocks;
           * the step health guard (``on_divergence``, ``max_rollbacks``)
             checks the losses at print, checkpoint and final boundaries;
             ``rollback`` restores the newest verified checkpoint and
@@ -956,15 +959,12 @@ class FFModel:
         Returns ``{"params", "state", "opt_state", "loss" (floats, from
         the first step run), "elapsed_s", "images_per_sec", "rollbacks",
         "completed_steps", "checkpoint_s" (saves inside the loop),
+        "restore_s" (the resume's and the rollbacks' restores),
         "input_stall_s", "run_id", "obs_path"}`` (the last two None
         without a sink)."""
         from flexflow_tpu_torch import obs
         from flexflow_tpu_torch.utils import faultinject
 
-        if self.config.ckpt_dir and self.machine.num_devices > 1:
-            raise NotImplementedError(
-                "--ckpt-dir over several ranks: gathering sharded "
-                "checkpoints is ROADMAP Queue A 3e")
         num_iterations = num_iterations or self.config.num_iterations
         olog = obs.NULL if self.machine.rank else obs.from_config(
             self.config, surface="fit",
@@ -995,8 +995,7 @@ class FFModel:
         ckpt_dir = self.config.ckpt_dir
         if not ckpt_dir or ckpt.latest_step(ckpt_dir) is None:
             return None
-        start_iter, params, state, opt_state = \
-            ckpt.restore_checkpoint(ckpt_dir, self)
+        start_iter, params, state, opt_state = self._restore(ckpt_dir)
         saved = ckpt.load_strategy(ckpt_dir, step=start_iter)
         if dict(saved or {}) != dict(self.config.strategies):
             raise ValueError(
@@ -1024,7 +1023,9 @@ class FFModel:
         from flexflow_tpu_torch.utils.retry import retrying_iter
 
         cfg = self.config
+        t0 = time.perf_counter()
         resumed = self._resume(data_iter, num_iterations, log)
+        restore_s = time.perf_counter() - t0 if resumed is not None else 0.0
         if resumed is not None:
             start_iter, params, state, opt_state = resumed
         else:
@@ -1093,8 +1094,10 @@ class FFModel:
                     action = guard.check(losses[window_start - loss_base:],
                                          first_step=window_start + 1)
                     if action == "rollback":
+                        t0 = time.perf_counter()
                         it, params, state, opt_state = \
                             self._rollback_restore(ckpt_dir, log, it1)
+                        restore_s += time.perf_counter() - t0
                         del losses[max(it - loss_base, 0):]
                         loss_base = min(loss_base, it)
                         window_start = it
@@ -1128,7 +1131,7 @@ class FFModel:
                 "loss": losses,
                 "elapsed_s": elapsed, "images_per_sec": throughput,
                 "rollbacks": guard.rollbacks, "completed_steps": it,
-                "checkpoint_s": checkpoint_s,
+                "checkpoint_s": checkpoint_s, "restore_s": restore_s,
                 "input_stall_s": prefetcher.stall_s if prefetcher else 0.0,
                 "run_id": olog.run_id, "obs_path": olog.path}
 
@@ -1290,12 +1293,110 @@ class FFModel:
     def _save(self, ckpt, step, params, state, opt_state, log) -> None:
         """One checkpoint save; non-finite state is refused and logged,
         never committed over good checkpoints (the guard decides the
-        run's fate)."""
+        run's fate).  Over several ranks every rank's blocks are gathered
+        into whole leaves (:meth:`gather_trees`), rank 0 writes them, and
+        every rank then waits at one barrier."""
+        multi = self.machine.num_devices > 1
+        trees = self.gather_trees(params, state, opt_state) if multi \
+            else (params, state, opt_state)
         try:
-            ckpt.save_checkpoint(self.config.ckpt_dir, step, params, state,
-                                 opt_state, self.config.strategies)
+            if trees is not None:
+                ckpt.save_checkpoint(self.config.ckpt_dir, step, *trees,
+                                     self.config.strategies)
         except ckpt.NonFiniteCheckpointError as e:
             log(f"warning: skipped checkpoint at iteration {step}: {e}")
+        finally:
+            if multi:
+                import torch.distributed as dist
+
+                dist.barrier(group=self.machine.world_group().handle)
+
+    def _restore(self, ckpt_dir):
+        """``(step, params, state, opt_state)`` of the newest verified
+        checkpoint under ``ckpt_dir`` (falling back past corrupt steps);
+        over several ranks every rank reads the whole leaves and keeps
+        the blocks it holds under the strategy (:meth:`shard_params`,
+        :meth:`shard_state`, and each optimizer leaf as its param)."""
+        from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+        step, params, state, opt_state = \
+            ckpt.restore_checkpoint(ckpt_dir, self)
+        if self.machine.num_devices > 1:
+            params = self.shard_params(params)
+            state = self.shard_state(state)
+            opt_state = self._shard_opt(opt_state or {})
+        return step, params, state, opt_state
+
+    @staticmethod
+    def _param_leaf(opt_leaf: str) -> str:
+        """The param leaf an optimizer leaf mirrors (its momentum, or
+        its float32 master)."""
+        return opt_leaf[:-len(MASTER_SUFFIX)] \
+            if opt_leaf.endswith(MASTER_SUFFIX) else opt_leaf
+
+    def _shard_opt(self, opt_state, position: Optional[int] = None):
+        """The blocks of a whole optimizer tree held at ``position``
+        (default this rank's): each leaf as the param leaf it mirrors."""
+        self._setup_sharded()
+        pos = self.machine.position if position is None else position
+        boxes = self._store["params"]
+        out = {}
+        for key, sub in opt_state.items():
+            held = {leaf: boxes[key][self._param_leaf(leaf)][pos]
+                    for leaf in sub}
+            if any(b is None for b in held.values()):
+                continue   # held only on the ranks that run its ops
+            out[key] = {leaf: v[tuple(slice(lo, hi) for lo, hi
+                                      in held[leaf])].contiguous()
+                        for leaf, v in sub.items()}
+        return out
+
+    def gather_trees(self, params, state, opt_state):
+        """Whole ``(params, state, opt_state)`` trees (host tensors) from
+        every rank's blocks, on rank 0; None on the others.  Every rank
+        calls it: each sends the blocks of which it is the first holder
+        (the position whose box it is first), so that each element
+        arrives once, and rank 0 lays them into their leaves."""
+        import torch.distributed as dist
+
+        self._setup_sharded()
+        pos = self.machine.position
+        store = self._store
+
+        def first(boxes):
+            mine = boxes[pos]
+            return mine is not None and boxes.index(mine) == pos
+
+        mine = []
+        for tree, sub_trees, where in (
+                ("params", params, lambda k, leaf: store["params"][k][leaf]),
+                ("state", state, lambda k, leaf: store["state"][k][leaf]),
+                ("opt", opt_state or {},
+                 lambda k, leaf: store["params"][k][self._param_leaf(leaf)])):
+            for key, sub in sub_trees.items():
+                for leaf, v in sub.items():
+                    boxes = where(key, leaf)
+                    if first(boxes):
+                        mine.append((tree, key, leaf, boxes[pos],
+                                     v.detach().cpu()))
+        every = [None] * self.machine.num_devices
+        dist.all_gather_object(every, mine,
+                               group=self.machine.world_group().handle)
+        if self.machine.rank != 0:
+            return None
+        pieces: Dict = {}
+        for blocks in every:
+            for tree, key, leaf, box, v in blocks:
+                pieces.setdefault((tree, key, leaf), []).append((box, v))
+        out = {"params": {}, "state": {}, "opt": {}}
+        for (tree, key, leaf), parts in pieces.items():
+            shape = tuple(max(box[d][1] for box, _ in parts)
+                          for d in range(len(parts[0][0])))
+            whole = torch.empty(shape, dtype=parts[0][1].dtype)
+            for box, v in parts:
+                whole[tuple(slice(lo, hi) for lo, hi in box)] = v
+            out[tree].setdefault(key, {})[leaf] = whole
+        return out["params"], out["state"], out["opt"]
 
     def _rollback_restore(self, ckpt_dir, log, from_step):
         """The guard's rollback: ``(step, params, state, opt_state)`` of
@@ -1307,8 +1408,7 @@ class FFModel:
         rstep, params, state, opt_state = 0, None, None, None
         if ckpt_dir:
             try:
-                rstep, params, state, opt_state = \
-                    ckpt.restore_checkpoint(ckpt_dir, self)
+                rstep, params, state, opt_state = self._restore(ckpt_dir)
             except (FileNotFoundError, ckpt.CheckpointError) as e:
                 log(f"rollback: no usable checkpoint under {ckpt_dir!r} "
                     f"({e}); reinitializing from step 0")

@@ -263,8 +263,9 @@ class OpGrid:
     On the whole machine each grid axis is realized by a tuple of the
     machine's global axes (``MachineModel.global_assign``) and this rank's
     index along it is the mixed radix of its coordinates on them.  A placed
-    op (``positions``: the machine position of each grid point, dim 0
-    fastest, from ``placement.point_positions``) runs only on those
+    op, or one whose grid does not factor over those axes (``positions``:
+    the machine position of each grid point, dim 0 fastest, from
+    ``placement.placed``) runs only on those
     positions (``runs``), its index is that of its point, and its
     collectives run over the positions of the points along the named grid
     axes.  A tensor dim of extent ``n`` split ``P`` ways has ceil-sized
@@ -290,11 +291,6 @@ class OpGrid:
             self.assign = machine.global_assign(op.pc, op.AXIS_NAMES)
         else:
             self.assign = {a: () for a in op.AXIS_NAMES}
-        if self.assign is None:
-            raise NotImplementedError(
-                f"op {op.name!r}: grid {op.pc.dims} does not factor over "
-                f"the prime axes of a world of {machine.num_devices} "
-                f"(ROADMAP Queue A 3e)")
         self._sizes = machine.axis_sizes()
         self._coords = machine.coords()
 
@@ -392,6 +388,23 @@ class OpGrid:
         src = tuple(box(self.block(name, extent, i)) for i in range(parts))
         return gather_copy(x, group, src, tuple(range(parts)),
                            box((0, extent)), self.index(name))
+
+    def halo(self, x, name: str, dim: int, extent: int, spans):
+        """Rows ``spans[i]`` (``(lo, hi)``, one per block along grid axis
+        ``name``, split over several ranks) of a dim of ``extent``: this
+        rank's span, from its own block ``x`` and the rows of it that other
+        ranks' blocks hold, each sent by its owner alone (the neighbour
+        exchange, ``collectives.halo_exchange``; its backward sends the
+        gradients back).  The transport follows the backend: point-to-
+        point on the device where it carries one, else through host
+        copies."""
+        from flexflow_tpu_torch.parallel.collectives import halo_exchange
+
+        blocks = [self.block(name, extent, i)
+                  for i in range(self.parts(name))]
+        return halo_exchange(x, self.group((name,)), dim, blocks, spans,
+                             self.index(name),
+                             "p2p" if self.machine.send_recv else "host")
 
     def all_reduce(self, x, names: Tuple[str, ...]):
         """The sum of ``x`` over the ranks along grid axes ``names`` (an

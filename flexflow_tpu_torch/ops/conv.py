@@ -13,9 +13,10 @@ Over several ranks the grid is (w, h, c, n) (``conv.py:1-17, 170-210``):
 ``c`` splits the output channels, with kernel and bias stored as the
 rank's c-block; input channels stay whole.  An h or w split needs the
 input rows or columns the block's windows reach past the block (the
-halo): the rank all-gathers the input along that axis and slices its
-windows' span, zero-padded at the image border.  JAX's neighbour
-exchange (``exchange_halo``) is the tighter form, for later.
+halo): each rank receives only those rows of its windows' span from the
+ranks whose blocks hold them (its neighbours, for every geometry of the
+repo's models) and sends them theirs, as JAX's ``exchange_halo``
+(``ops/base.py:72``) does; the span is zero-padded at the image border.
 """
 
 from __future__ import annotations
@@ -70,23 +71,24 @@ def spatial_placeable(op, pc) -> bool:
 def window_blocks(op, x, grid):
     """``(x, (pad_h, pad_w))`` for a windowed op (kernel, stride and
     padding per spatial dim) on this rank's NHWC block ``x``: along an
-    h or w split, the input gathered over the split and cut to the span
-    of the rank's output windows, with its ``(lo, hi)`` border padding;
-    along an unsplit dim, ``x`` and the op's own padding."""
+    h or w split, the input rows (columns) of the span of the rank's
+    output windows, its own and those its neighbours send
+    (``OpGrid.halo``), with its ``(lo, hi)`` border padding; along an
+    unsplit dim, ``x`` and the op's own padding."""
     _, in_h, in_w, _ = op.inputs[0].shape
     _, out_h, out_w, _ = op.output.shape
     pads = []
     for name, dim, size, osize, k, s, p in (
             ("h", 1, in_h, out_h, op.kernel_h, op.stride_h, op.padding_h),
             ("w", 2, in_w, out_w, op.kernel_w, op.stride_w, op.padding_w)):
-        if grid.parts(name) == 1:
+        parts = grid.parts(name)
+        if parts == 1:
             pads.append((p, p))
             continue
-        x = grid.gather(x, name, dim, size)
-        lo, hi, plo, phi = window_span(grid.block(name, osize), size, k, s,
-                                       p)
-        x = x.narrow(dim, lo, hi - lo)
-        pads.append((plo, phi))
+        spans = [window_span(grid.block(name, osize, i), size, k, s, p)
+                 for i in range(parts)]
+        x = grid.halo(x, name, dim, size, [sp[:2] for sp in spans])
+        pads.append(spans[grid.index(name)][2:])
     return x, pads
 
 

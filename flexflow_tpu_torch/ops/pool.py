@@ -17,8 +17,9 @@ Both kernel routes launch their CUDA kernels on CUDA tensors and run
 their plain versions on CPU tensors.
 
 Over several ranks the grid is (w, h, c, n) as the convolution's; ``c``
-splits channels (pooling is per channel).  An h or w split gathers the
-input along that axis and pools the block's windows' span, padded
+splits channels (pooling is per channel).  An h or w split takes the
+rows of the block's windows' span from its neighbours by the halo
+exchange (``conv.window_blocks``) and pools that span, padded
 explicitly at the image border (-inf for a max pool; an average pool
 divides by the count of valid positions), so the kernels see a pad-0
 geometry on a contiguous block.

@@ -22,15 +22,21 @@ gradient is the sum of the partials over the replicas.  So
   to the next member and receives the previous one's) has the reverse
   rotation as its backward;
 * the all-reduce max of :func:`all_reduce_max` (a stability shift)
-  carries no gradient, as ``lax.pmax`` of a detached value.
+  carries no gradient, as ``lax.pmax`` of a detached value;
+* a halo exchange (:func:`halo_exchange`: each member receives the rows
+  of its span that other members' blocks hold) has as its backward the
+  reverse exchange, each owner adding the gradients of the rows it sent
+  into its own block's.
 
 A rotation moves by the transport the machine fixed at start from the
 backend (``MachineModel.send_recv``): paired ``isend``/``irecv``
 batched by ``batch_isend_irecv`` ("p2p", NCCL and gloo with CPU
 tensors), or, on gloo with CUDA tensors, which gloo carries no
 point-to-point for, an all-gather within the group from which each
-member keeps its predecessor's block ("gather").  The transport is
-never switched because a call failed.
+member keeps its predecessor's block ("gather").  A halo exchange takes
+"p2p" likewise, and there "host": the same point-to-point on host
+copies of its few rows.  The transport is never switched because a call
+failed.
 
 Pieces of uneven blocks are zero-padded to one shape for the collective
 and trimmed after it.  A group of one member runs no collective.
@@ -432,3 +438,139 @@ def rotate(x, group: Group, transport: str, shift: int = 1):
     if group.size == 1:
         return x
     return _chained(Rotate, x, group, shift, transport)
+
+
+# ---------------------------------------------------------------------------
+# the neighbour halo exchange (ops/conv.py window_blocks)
+
+#: bytes this process has moved by halo exchanges, forward and backward
+#: (:func:`halo_bytes`, :func:`reset_halo_bytes`)
+_halo = {"sent": 0, "received": 0}
+
+
+def halo_bytes() -> dict:
+    """``{"sent", "received"}``: the bytes this rank's halo exchanges have
+    sent and received since the last :func:`reset_halo_bytes`."""
+    return dict(_halo)
+
+
+def reset_halo_bytes() -> None:
+    _halo["sent"] = _halo["received"] = 0
+
+
+def _send_recv(sends, recvs, group: Group, transport: str, like):
+    """Point-to-point pieces over ``group``: ``sends`` ``(member,
+    tensor)``, ``recvs`` ``(member, shape)``; the received tensors in
+    ``recvs`` order, on ``like``'s device and dtype.  ``transport``
+    "p2p" posts every send and receive in one ``batch_isend_irecv``;
+    "host" does so on host copies (gloo carries no point-to-point for
+    CUDA tensors) and moves what it received back to the device."""
+    import torch.distributed as dist
+
+    host = transport == "host"
+    buf_dev = torch.device("cpu") if host else like.device
+    ops, outs = [], []
+    for m, t in sends:
+        t = t.contiguous()
+        _halo["sent"] += t.numel() * t.element_size()
+        if host:
+            t = t.cpu()
+        ops.append(dist.P2POp(dist.isend, t, group.ranks[m],
+                              _handle(group)))
+    for m, shape in recvs:
+        buf = torch.empty(shape, dtype=like.dtype, device=buf_dev)
+        _halo["received"] += buf.numel() * buf.element_size()
+        outs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, group.ranks[m],
+                              _handle(group)))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if host:
+        outs = [o.to(like.device) for o in outs]
+    return outs
+
+
+class HaloExchange(torch.autograd.Function):
+    """The rows ``[lo, hi)`` of a dim split into ``blocks`` over the
+    members of ``group`` (in block order): this rank's block ``x``
+    supplies its own rows, each other member the rows of its block in
+    the span, by point-to-point from that member alone; this rank sends
+    each member the rows of its block in that member's span.  ``spans``
+    holds every member's ``(lo, hi)``, so that every rank knows what to
+    send.  The backward sends each received piece's gradient back to
+    its owner and adds the gradients of the pieces it sent into its own
+    block's."""
+
+    @staticmethod
+    def _plan(blocks, spans, me):
+        """``(sends, recvs)``: per other member, the ``(lo, hi)`` of the
+        rows this rank sends it and receives from it (global rows)."""
+        def ov(a, b):
+            lo, hi = max(a[0], b[0]), min(a[1], b[1])
+            return (lo, hi) if lo < hi else None
+
+        sends = [(m, ov(blocks[me], spans[m])) for m in range(len(blocks))
+                 if m != me]
+        recvs = [(m, ov(blocks[m], spans[me])) for m in range(len(blocks))]
+        return ([(m, r) for m, r in sends if r is not None],
+                [(m, r) for m, r in recvs if r is not None])
+
+    @staticmethod
+    def run(x, group, dim, blocks, spans, me, transport):
+        sends, recvs = HaloExchange._plan(blocks, spans, me)
+        base = blocks[me][0]
+
+        def rows(shape, lo, hi):
+            s = list(shape)
+            s[dim] = hi - lo
+            return tuple(s)
+
+        got = iter(_send_recv(
+            [(m, x.narrow(dim, lo - base, hi - lo)) for m, (lo, hi) in sends],
+            [(m, rows(x.shape, lo, hi)) for m, (lo, hi) in recvs
+             if m != me],
+            group, transport, x))
+        pieces = [x.narrow(dim, lo - base, hi - lo) if m == me else next(got)
+                  for m, (lo, hi) in recvs]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+    @staticmethod
+    def forward(ctx, x, token, group, dim, blocks, spans, me, transport):
+        ctx.meta = (group, dim, blocks, spans, me, transport, x.shape)
+        return HaloExchange.run(x, group, dim, blocks, spans, me,
+                                transport), _next_token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        group, dim, blocks, spans, me, transport, shape = ctx.meta
+        sends, recvs = HaloExchange._plan(blocks, spans, me)
+        base, lo0 = blocks[me][0], spans[me][0]
+        # the reverse exchange: the gradient of each received piece goes
+        # back to its owner; those of the pieces sent come back here
+        back = [(m, g.narrow(dim, lo - lo0, hi - lo))
+                for m, (lo, hi) in recvs if m != me]
+        shapes = []
+        for m, (lo, hi) in sends:
+            s = list(shape)
+            s[dim] = hi - lo
+            shapes.append((m, tuple(s)))
+        got = _send_recv(back, shapes, group, transport, g)
+        dx = g.new_zeros(shape)
+        for m, (lo, hi) in recvs:
+            if m == me:
+                dx.narrow(dim, lo - base, hi - lo).add_(
+                    g.narrow(dim, lo - lo0, hi - lo))
+        for (m, (lo, hi)), piece in zip(sends, got):
+            dx.narrow(dim, lo - base, hi - lo).add_(piece)
+        return dx, g_token, None, None, None, None, None, None
+
+
+def halo_exchange(x, group: Group, dim: int, blocks, spans, me: int,
+                  transport: str):
+    """Rows ``spans[me]`` of tensor ``dim`` from this rank's block ``x``
+    (block ``me`` of ``blocks``) and its neighbours', as an autograd
+    function on the recording step's token chain; ``transport`` "p2p"
+    or "host" (:func:`_send_recv`)."""
+    return _chained(HaloExchange, x, group, dim, tuple(blocks),
+                    tuple(spans), me, transport)

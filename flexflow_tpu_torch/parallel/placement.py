@@ -30,9 +30,13 @@ needs none of it:
 * a rank holds an op's parameters and state only when it runs the op
   (``FFModel.shard_params``), so the stacked storage, the ravel vectors
   and the owner-grid translation have no counterpart;
+* a grid that does not factor over the machine's prime axes (a (2, 3)
+  grid on 6 ranks) runs the same way, on the ranks of its device list
+  (:func:`unfactored_positions`), as JAX runs it on a mesh of its own
+  (``MachineModel.mesh_for``);
 * a value crosses from a producer's ranks to a consumer's by a move by
   box overlap over the union of both (``parallel/regrid.py`` ``BoxPlan``,
-  ``collectives.box_move``), and an op's own collectives (a halo gather,
+  ``collectives.box_move``), and an op's own collectives (a halo exchange,
   BatchNorm's statistics) run over the process group of its points along
   the grid axes (``OpGrid``), so the set family needs no replicated
   operands either.
@@ -178,8 +182,26 @@ def point_positions(op, num_devices: int) -> Optional[Tuple[int, ...]]:
     return slot_positions(slot, op.pc.num_parts, num_devices)
 
 
+def unfactored_positions(op, num_devices: int) -> Tuple[int, ...]:
+    """The positions of a grid that does not factor over the machine's
+    prime axes (a (2, 3) grid on 6 ranks): grid point j on
+    ``pc.devices[j]``, dim 0 fastest, the per-op mesh of JAX's
+    ``MachineModel.mesh_for`` (``flexflow_tpu/machine.py:240``).  The op
+    then runs as a placed one: its moves by box overlap, its
+    collectives over the groups of its points."""
+    devices = tuple(op.pc.devices)
+    if len(set(devices)) != len(devices) or \
+            any(d < 0 or d >= num_devices for d in devices):
+        raise ValueError(
+            f"op {op.name!r}: grid {op.pc.dims} does not factor over the "
+            f"machine's prime axes and its devices {devices} are not "
+            f"{op.pc.num_parts} distinct ranks of {num_devices}")
+    return devices
+
+
 def placed(op, machine) -> Optional[Tuple[int, ...]]:
-    """:func:`point_positions` on ``machine``, which warns once per
+    """:func:`point_positions` on ``machine``, or for a grid that does
+    not factor over its prime axes :func:`unfactored_positions`; warns once per
     (grid, devices) when a list that is not the whole machine in order is
     normalized instead: the op then runs on the global mesh, its grid on
     the fastest axes and replicated along the rest, as JAX's
@@ -187,6 +209,9 @@ def placed(op, machine) -> Optional[Tuple[int, ...]]:
     n = machine.num_devices
     positions = point_positions(op, n)
     pc = op.pc
+    if positions is None and n > 1 \
+            and machine.global_assign(pc, op.AXIS_NAMES) is None:
+        return unfactored_positions(op, n)
     if positions is None and n > 1 and pc.devices != tuple(range(n)):
         machine.warn_once(
             ("norm", pc.dims, pc.devices),

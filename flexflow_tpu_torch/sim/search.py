@@ -12,9 +12,9 @@ derives from region trees and the reference's simulator recomputes
 producer tiles with consumer footprints to derive the communication.
 
 Everything here prices what the JAX search prices, so that the same cost
-tables and seed give the same strategy in both packages.  Left out, each
-named in ROADMAP Queue A item 4: the GPipe proposal (``propose_pipeline``)
-and the serving ``decode`` objective.
+tables and seed give the same strategy in both packages, and the GPipe
+proposal (:meth:`StrategySearch.propose_pipeline`) the same candidates.
+Left out: the serving ``decode`` objective (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -1070,6 +1070,178 @@ class StrategySearch(StrategySearchDecomposedMixin):
                 "opt_stream_s": self._opt_stream_s,
                 "total_s": raw + self._opt_stream_s,
                 "devices": self.machine.num_devices}
+
+    def propose_pipeline(self, stage_options=None,
+                         micro_options=(2, 4, 8), log=None,
+                         reference_s=None, stage_divisor=None,
+                         batch=None, tp_divisor=None,
+                         tp_options=(1, 2, 4)) -> dict:
+        """Price GPipe candidates (S stages x M microbatches x tp-way
+        Megatron inside each stage) against the best non-pipelined plan
+        and propose or reject a ``__pipeline__`` block
+        (``flexflow_tpu/sim/search.py:1178-1388``, in its order of sums).
+
+        Candidates: S in (2, 4, 8) dividing the machine, below it, at
+        most the layer count and dividing ``stage_divisor``; tp in
+        (1, 2, 4) dividing ``tp_divisor`` and the stage width (tp = 1
+        alone without a divisor); M in (2, 4, 8) with ``batch % M == 0``
+        and ``(batch / M) % dp == 0``, the microbatches the GPipe
+        executor (``parallel/pipeline.py``) admits.  The data-parallel
+        shard costs, scaled by S, split into greedy contiguous stages;
+        a candidate costs (M + S - 1) x the largest stage load / M, plus
+        each cut's boundary bytes in the compute dtype at the tier of
+        the +stage_width peer (2 M link latencies a cut), 4 M Megatron
+        all-reduces per parameterized layer when tp > 1, the worst
+        stage's gradient all-reduce over its dp peers and the optimizer
+        stream.  Accepted only below min(data parallel,
+        ``reference_s``).  Every candidate is logged with its terms and
+        recorded (``pipeline_candidate``), and so is the decision
+        (``pipeline_decision``)."""
+        from flexflow_tpu_torch.sim.collectives import _allreduce
+        from flexflow_tpu_torch.sim.cost_model import dtype_bytes
+
+        logger_fn = log or logger.info
+        n = self.machine.num_devices
+        topo = self.machine.topology
+        dp = self.dp_assignment()
+        # the bar is the best non-pipelined plan known: an accepted block
+        # replaces the per-op plan in the consuming driver
+        t_ref = self.simulate(dp)
+        if reference_s is not None:
+            t_ref = min(t_ref, float(reference_s))
+        layer_ops, layer_costs = [], []
+        for op, cands, idx in zip(self.ops, self.candidates, dp):
+            if isinstance(op, _InputSource):
+                continue
+            layer_ops.append(op)
+            layer_costs.append(self.cost_model.op_cost(op, cands[idx]))
+        total_param_bytes = sum(
+            float(op.param_bytes()) for op in layer_ops) \
+            * self._param_scale
+        if stage_options is None:
+            stage_options = [s for s in (2, 4, 8)
+                             if n % s == 0 and s < n
+                             and s <= len(layer_ops)
+                             and (stage_divisor is None
+                                  or stage_divisor % s == 0)]
+        # without a divisor the executor's divisibility (heads, d_ff) is
+        # unknown: tp = 1 alone
+        tp_opts = [1] if tp_divisor is None else \
+            [t for t in tp_options if tp_divisor % t == 0]
+        feasible_micro = {}
+        for S in stage_options:
+            for t in tp_opts:
+                if (n // S) % t:
+                    continue
+                dp_width = max(n // (S * t), 1)
+                feasible_micro[(S, t)] = [
+                    m for m in micro_options
+                    if batch is None or (batch % m == 0
+                                         and (batch // m) % dp_width == 0)]
+        cdtype = getattr(getattr(self.model, "config", None),
+                         "compute_dtype", "float32")
+        dt_bytes = float(dtype_bytes(cdtype))
+        group = topo.devices_per_ici_group
+        candidates = []
+        for S in stage_options:
+            # greedy contiguous balance of the (M-independent) stage load
+            base = [c * float(S) for c in layer_costs]
+            target = sum(base) / S
+            cuts, acc, left = [], 0.0, S
+            for i, ti in enumerate(base):
+                acc += ti
+                rest = len(base) - i - 1
+                if left > 1 and (acc >= target or rest < left):
+                    cuts.append(i)
+                    acc, left = 0.0, left - 1
+            stage_sums, s_acc, ci = [], 0.0, 0
+            for i, ti in enumerate(base):
+                s_acc += ti
+                if ci < len(cuts) and i == cuts[ci]:
+                    stage_sums.append(s_acc)
+                    s_acc, ci = 0.0, ci + 1
+            stage_sums.append(s_acc)
+            # stages lie on contiguous rank blocks ((stage, n, tp) mesh,
+            # MachineModel.pipeline_mesh), so a cut whose +stage_width
+            # peer sits in another fast-tier group crosses the slow tier
+            stage_width = max(n // S, 1)
+            for tp in tp_opts:
+                if (S, tp) not in feasible_micro:
+                    continue
+                dp_width = max(stage_width // tp, 1)
+                # each stage syncs 1/(S tp) of the params over its dp
+                # peers (stride tp in its block); the worst prices it
+                sync = max((_allreduce(
+                    total_param_bytes / (S * tp),
+                    tuple(s * stage_width + j * tp
+                          for j in range(dp_width)),
+                    topo) for s in range(S)), default=0.0)
+                cut_links = []  # (per-device bytes, bandwidth, latency)
+                for k, i in enumerate(cuts):
+                    bytes_cut = dt_bytes * math.prod(
+                        layer_ops[i].output.shape)
+                    crosses = any(
+                        d // group != (d + stage_width) // group
+                        for d in range(k * stage_width,
+                                       (k + 1) * stage_width))
+                    cut_links.append((
+                        bytes_cut / dp_width,
+                        topo.dcn_bandwidth if crosses
+                        else topo.ici_bandwidth,
+                        topo.dcn_latency if crosses
+                        else topo.ici_latency))
+                # ~4 Megatron all-reduces per parameterized layer and
+                # microbatch over the tp ranks (fastest, contiguous)
+                tp_acts = []
+                if tp > 1:
+                    tp_acts = [dt_bytes * math.prod(op_l.output.shape)
+                               / dp_width
+                               for op_l in layer_ops
+                               if op_l.param_bytes() > 0]
+                tp_devs = tuple(range(tp))
+                for M in feasible_micro[(S, tp)]:
+                    L = max(stage_sums) / M
+                    comm = sum(2.0 * (per_dev / bw + M * lat)
+                               for per_dev, bw, lat in cut_links)
+                    tp_comm = sum(4.0 * M * _allreduce(a / M, tp_devs,
+                                                       topo)
+                                  for a in tp_acts)
+                    t = (M + S - 1) * L + comm + tp_comm + sync \
+                        + self._opt_stream_s
+                    candidates.append({
+                        "stages": S, "microbatches": M, "tp": tp,
+                        "time_s": t, "stage_makespan_s": L,
+                        "bubble_factor": (M + S - 1) / M,
+                        "comm_s": comm, "tp_comm_s": tp_comm,
+                        "param_sync_s": sync})
+                    self.obs.event("pipeline_candidate",
+                                   reference_time_s=t_ref,
+                                   **candidates[-1])
+                    logger_fn(
+                        "pipeline candidate S=%d M=%d tp=%d: %.4fs "
+                        "(makespan %.4fs x %.2f bubble + %.4fs comm + "
+                        "%.4fs tp + %.4fs sync) vs %.4fs non-pipelined"
+                        % (S, M, tp, t, L, (M + S - 1) / M, comm,
+                           tp_comm, sync, t_ref))
+        best = min(candidates, key=lambda c: c["time_s"], default=None)
+        accepted = bool(best and best["time_s"] < t_ref)
+        logger_fn("pipeline decision: %s (best %s vs non-pipelined %.4fs)"
+                  % ("ACCEPT" if accepted else "REJECT",
+                     f"S={best['stages']} M={best['microbatches']} "
+                     f"tp={best['tp']} {best['time_s']:.4f}s"
+                     if best else "none", t_ref))
+        self.obs.event(
+            "pipeline_decision", accepted=accepted,
+            reference_time_s=t_ref,
+            best=({"stages": best["stages"],
+                   "microbatches": best["microbatches"], "tp": best["tp"],
+                   "time_s": best["time_s"]} if best else None))
+        return {"candidates": candidates, "reference_time_s": t_ref,
+                "accepted": accepted,
+                "best": ({"stages": best["stages"],
+                          "microbatches": best["microbatches"],
+                          "tp": best["tp"]}
+                         if accepted else None)}
 
     def assignment_for(self, strategy) -> List[int]:
         """Candidate index per op matching ``strategy``'s entries (ops the

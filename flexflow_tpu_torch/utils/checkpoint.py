@@ -24,8 +24,11 @@ as ``ml_dtypes.bfloat16`` (``_restore_dtype``), and it writes bfloat16 as
 2-byte void records, which this module views as ``torch.bfloat16``.
 Neither direction needs ``ml_dtypes`` here.
 
-The JAX module's asynchronous writer and its sharded, multi-host
-placement are not ported.
+Over several ranks ``FFModel`` gathers the leaves whole to rank 0,
+which writes them here, and shards what it restores (``gather_trees``,
+``_restore``), where the JAX module places each restored leaf on its
+op's sharding.  The JAX module's asynchronous writer is not ported
+(ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations

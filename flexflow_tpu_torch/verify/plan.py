@@ -48,8 +48,8 @@ The checks back the search's feasibility gate (:func:`candidate_findings`:
 ``sim/search.py`` filters candidates before any simulator table exists
 and reports the tally in its ``plan_gate`` record) and the decomposed
 search's boundary pricing (:func:`regrid_edge_cost`).  :func:`check_plan`
-is the drivers' fail-fast on a loaded strategy; the port's drivers do
-not call it yet (ROADMAP Queue A item 4).
+is the drivers' fail-fast on a loaded strategy: ``apps.cnn``,
+``apps.nmt`` and ``apps.lm`` run it before they build.
 """
 
 from __future__ import annotations

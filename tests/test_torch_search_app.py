@@ -10,6 +10,8 @@
   (``--serve``, ``--disagg``, ``--objective decode``, ``--audit``, and
   the JAX driver's default audit of a saved plan's win on two tiers
   unless ``--no-audit``);
+* the transformer's search logs its GPipe candidates and decision and
+  carries the block exactly when it is accepted;
 * ``--measured`` raises without CUDA, and with ``--device cpu`` times
   every shard a clone exists for (a narrow AlexNet), caches the times
   and anchors the rest;
@@ -96,14 +98,23 @@ def test_default_audit_raises_and_no_audit_writes(tmp_path):
     assert saved["__predicted__"]["devices"] == 8
 
 
-def test_transformer_search_says_it_proposes_no_pipeline():
+def test_transformer_search_proposes_a_pipeline_block():
     from flexflow_tpu_torch.apps import search
 
     lines = []
     out = search.main(["transformer", "--devices", "4", "-b", "8", "-i",
                        "500"], log=lines.append)
-    assert any("pipeline proposal not ported" in s for s in lines)
-    assert out["strategy"].pipeline is None
+    # every candidate logged with its terms, then the decision; the
+    # block is set exactly when it is accepted
+    cands = [s for s in lines if s.startswith("pipeline candidate")]
+    assert cands and all("bubble" in s and "sync" in s for s in cands)
+    assert sum(s.startswith("pipeline decision:") for s in lines) == 1
+    pp = out["pipeline"]
+    assert pp["reference_time_s"] <= out["best_time_s"]
+    assert len(out["proposal"]["candidates"]) == len(cands)
+    assert out["proposal"]["best"] == pp["best"]
+    assert out["strategy"].pipeline == (pp["best"] if pp["accepted"]
+                                        else None)
     assert set(out["strategy"]) == {op.name for op in search.build_model(
         "transformer", search._machine({"devices": 4, "ici_group": None,
                                         "dcn_calibration": ""}), 8).layers}

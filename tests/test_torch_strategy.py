@@ -282,15 +282,32 @@ def test_refusals_name_their_roadmap_items(tmp_path):
                         ("--microbatches", "microbatches"),
                         ("--pipeline-tp", "pipeline_tp")):
         assert getattr(t_lm.parse_args([flag, "2"])[0], field) == 2
-    # a grid that does not factor over the world's prime axes: 3e
+    # a grid that does not factor over the world's prime axes (3e,
+    # done): grid point j runs on devices[j], dim 0 fastest (mesh_for;
+    # the run: tests/test_torch_unfactored_grid.py)
     odd = Strategy()
     odd["linear1"] = ParallelConfig((2, 3), tuple(range(6)))
-    with pytest.raises(NotImplementedError, match="Queue A 3e"):
-        _tiny_cnn(_port_machine(6), odd, batch=12).init()
-    # --ckpt-dir over several ranks: sharded checkpoints, 3e
-    ff = _tiny_cnn(_port_machine(2), ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue A 3e"):
-        ff.fit(iter(()), 1)
+    ff = _tiny_cnn(_port_machine(6), odd, batch=12)
+    full, _ = ff._init_full(0)
+    for j in range(6):
+        c = j % 2
+        assert torch.equal(ff.shard_params(full, j)["linear1"]["kernel"],
+                           full["linear1"]["kernel"][:, c * 5:(c + 1) * 5])
+    # --ckpt-dir over several ranks (3e, done): a restore keeps each
+    # optimizer leaf's block as its param's (the run:
+    # tests/test_torch_ckpt_ranks.py)
+    split = Strategy()
+    split["linear1"] = ParallelConfig((2, 1), (0, 1))
+    ff = _tiny_cnn(_port_machine(2), split, ckpt_dir=str(tmp_path))
+    full, _ = ff._init_full(0)
+    opt = ff.init_opt_state(full)
+    for pos in (0, 1):
+        mine = ff._shard_opt(opt, pos)
+        assert {k: {leaf: v.shape for leaf, v in sub.items()}
+                for k, sub in mine.items()} == \
+            {k: {leaf: v.shape for leaf, v in sub.items()}
+             for k, sub in ff.shard_params(full, pos).items()}
+        assert mine["linear1"]["kernel"].shape == (16 * 16 * 8, 5)
     # -ll:gpu other than the world size
     _, cfg, _, _ = t_cnn.parse(["alexnet", "-ll:gpu", "2", "--device",
                                 "cpu"])

@@ -16,8 +16,9 @@ run in one process, and the CNN app on 2 and 4 ranks.
   pool;
 * ``apps.cnn alexnet -s <file> -ll:gpu N`` as the ranks of a torchrun
   world, its losses against the app's run without a strategy: two
-  ranks with conv2 and lienar1 over channels and the rest over the
-  batch, and four with chip_smoke.py's four-card hybrid (conv2 and pool2
+  ranks with chip_smoke.py's two-card strategy (conv1 and pool1 over h,
+  their halos exchanged, conv2 and lienar1 over channels, the rest over
+  the batch), and four with its four-card hybrid (conv2 and pool2
   over channels and batch, conv3-conv5 over w and batch, the linears
   over channels).
 
@@ -68,9 +69,10 @@ def test_resnet_style_on_4_ranks_matches_jax_and_one_rank(tmp_path):
 
 
 #: ``apps.cnn alexnet`` strategies: (ranks, input size, grids beyond the
-#: batch split); the second is chip_smoke.py's four-card one
+#: batch split): chip_smoke.py's two- and four-card ones
 APP_RUNS = [
-    (2, 67, {"conv2": (1, 1, 2, 1), "lienar1": (2, 1)}),
+    (2, 67, {"conv1": (1, 2, 1, 1), "pool1": (1, 2, 1, 1),
+             "conv2": (1, 1, 2, 1), "lienar1": (2, 1)}),
     (4, 99, {"conv2": (1, 1, 2, 2), "pool2": (1, 1, 2, 2),
              "conv3": (2, 1, 1, 2), "conv4": (2, 1, 1, 2),
              "conv5": (2, 1, 1, 2), "lienar1": (4, 1), "linear2": (4, 1),

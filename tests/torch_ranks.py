@@ -150,6 +150,22 @@ def train(machine, layers, cfg_kwargs, strategy_json, trees_path, batches,
             _blocks(ff.state_boxes(), s))
 
 
+def train_halo(machine, *args):
+    """:func:`train`, with the bytes this rank's halo exchanges moved."""
+    from flexflow_tpu_torch.parallel import collectives
+
+    collectives.reset_halo_bytes()
+    return train(machine, *args) + (collectives.halo_bytes(),)
+
+
+def train_halo_host(machine, *args):
+    """:func:`train_halo` with the halo staged through host copies, the
+    transport of a backend without point-to-point for the device's
+    tensors."""
+    machine.send_recv = False
+    return train_halo(machine, *args)
+
+
 def run_cases(machine, cases):
     """Several bodies of this module in one world: each case is
     ``(body name, args)``; a list of their results in case order."""
@@ -214,6 +230,37 @@ def fit_obs(machine, layers, cfg_kwargs, batches):
             for image, lbl in batches)
     out = ff.fit(data, num_iterations=len(batches), log=lambda *a: None)
     return out["loss"], out["obs_path"]
+
+
+def fit_ckpt(machine, layers, cfg_kwargs, strategy_json, batches,
+             iters):
+    """``FFModel.fit`` of ``layers`` under the strategy for ``iters``
+    steps on this rank's rows of the global numpy ``batches`` (a resumed
+    run skips the steps its checkpoint holds): ``(losses, params, state,
+    opt_state, rollbacks)``, the trees as :func:`train` returns them."""
+    import torch
+
+    ff = build(machine, layers, cfg_kwargs, strategy_json)
+    data = (ff.local_batch(torch.from_numpy(image), torch.from_numpy(lbl))
+            for image, lbl in batches)
+    out = ff.fit(data, num_iterations=iters, log=lambda *a: None)
+    boxes = ff.param_boxes()
+    opt_boxes = {key: {leaf: boxes[key][ff._param_leaf(leaf)]
+                       for leaf in sub}
+                 for key, sub in out["opt_state"].items()}
+    return (out["loss"], _blocks(boxes, out["params"]),
+            _blocks(ff.state_boxes(), out["state"]),
+            _blocks(opt_boxes, out["opt_state"]), out["rollbacks"])
+
+
+def restored_blocks(machine, layers, cfg_kwargs, strategy_json, ckpt_dir):
+    """The blocks this rank keeps of the newest checkpoint under
+    ``ckpt_dir``: ``(step, params, state)`` as :func:`train` returns
+    them."""
+    ff = build(machine, layers, cfg_kwargs, strategy_json)
+    step, params, state, _ = ff._restore(ckpt_dir)
+    return (step, _blocks(ff.param_boxes(), params),
+            _blocks(ff.state_boxes(), state))
 
 
 def assemble(full_shapes, rank_blocks):
@@ -869,10 +916,26 @@ def trace_cnn(ff, image):
     return ff.softmax("softmax", t)
 
 
+def halo_net(ff, image):
+    """Windows whose halos the h and w splits exchange: a 3x3/1 pad-1
+    convolution, a 3x3/2 max pool, a 5x5/2 pad-2 convolution (a halo of
+    two rows on one side, one or none on the other) and a 3x3/1 pad-1
+    average pool, over a 17x17 image (blocks of 9 and 8 on two ranks,
+    5, 5, 5 and 2 on four)."""
+    t = ff.conv2d("conv1", image, 8, 3, 3, 1, 1, 1, 1, relu=True)
+    t = ff.pool2d("pool1", t, 3, 3, 2, 2, 0, 0)
+    t = ff.conv2d("conv2", t, 8, 5, 5, 2, 2, 2, 2, relu=True)
+    t = ff.pool2d("pool2", t, 3, 3, 1, 1, 1, 1, pool_type="avg",
+                  relu=False)
+    t = ff.flat("flat", t)
+    t = ff.linear("linear1", t, 10, relu=False)
+    return ff.softmax("softmax", t)
+
+
 MODELS = {"tiny": tiny, "alexnet": alexnet, "vgg_style": vgg_style,
           "resnet_style": resnet_style, "vgg16": vgg16,
           "placed_bn": placed_bn, "set_family": set_family,
-          "trace_cnn": trace_cnn}
+          "trace_cnn": trace_cnn, "halo_net": halo_net}
 
 #: input channels of the models that do not take RGB images
 CHANNELS = {"placed_bn": 8, "set_family": 8}
