@@ -24,8 +24,9 @@ its kernels.
                                        # step of each trained model
     python3 chip_smoke.py --only search4,lm-obs
                                        # the kernel build and the named
-                                       # phases (lm-obs, strategy,
-                                       # lm-strategy, pipeline, search and
+                                       # phases (lm-obs, moe, runtime,
+                                       # strategy, lm-strategy,
+                                       # moe-strategy, pipeline, search and
                                        # strategy4, lm-strategy4,
                                        # pipeline4, search4) with the
                                        # phases they
@@ -192,11 +193,32 @@ Phases (any failure exits non-zero):
     first 3 losses within 1e-4 (relative) of the plain-kernel run;
     tokens/s, the checkpoint seconds, peak memory; 10 steps timed one by
     one by CUDA events, each with the aux loss and the share of (token,
-    choice) pairs dropped at capacity; then a run resumed from the
-    step-5 checkpoint, its batches through the prefetcher (depth 2),
-    repeats steps 6-13 within 1e-6; ``--fault-spec loss_nan@7,
-    ckpt_corrupt@3`` rolls back from step 10 to step 5 and finishes 13
-    steps, and the restore falls back past the corrupted step 13 to 10;
+    choice) pairs dropped at capacity; a run resumed from the step-5
+    checkpoint, its batches through the prefetcher (depth 2), repeats
+    steps 6-13 within 1e-6; the same run with the training
+    runtime's supervision (``--ckpt-async``, ``-metrics-path``,
+    ``-obs-dir``, ``--hang-factor 20 --hang-min-s 60``): losses within
+    1e-6 of the synchronous run's (bit-equal or not, logged), its step-5,
+    -10 and -13 checkpoints verified and byte-equal to the synchronous
+    ones (SHA-256) where the losses are bit-equal, kernels 1-6 launched
+    as in the synchronous run, the boundaries' checkpoint seconds and
+    tokens/s beside the synchronous run's (in the timed window, and
+    through the final save's commit), the writer's submit-to-commit
+    seconds, host step times during a write and outside one, the
+    metrics finite (mfu, peak memory), the ``step_budget`` sound, the
+    fit trace's counter lanes valid; ``apps.lm`` in a subprocess with
+    ``--ckpt-async --fault-spec preempt@7 --drain-budget-s 60`` exits 0
+    with one ``preempt_drain`` record (mode async, the step-10 boundary,
+    within the budget), and a run resumed from its checkpoint, its
+    batches through the prefetcher (depth 2), repeats steps 11-13 within
+    1e-6; ``--fault-spec loss_nan@7, ckpt_corrupt@3`` rolls back from
+    step 10 to step 5 and finishes 13 steps, and the restore falls back
+    past the corrupted step 13 to 10;
+16b. the runtime's watchdog and smokes: ``apps.lm`` at phase 9's
+    widths, 1 + 4 steps, ``--hang-factor 3 --hang-min-s 1 --fault-spec
+    step_hang@2``, raises ``DeviceLostError`` naming the deadline, with
+    one ``step_hang`` record; ``apps.preempt_smoke`` and
+    ``apps.budget_smoke`` on the card;
 17. strategy slice: ``python -m torch.distributed.run --standalone
     --nproc-per-node 1 -m flexflow_tpu_torch.apps.cnn alexnet -b 64
     --height 224 --width 224 --lr 0.001 -s <file> -ll:gpu 1`` (the JAX
@@ -224,7 +246,8 @@ Phases (any failure exits non-zero):
     3 losses within 1e-4 (relative) of phase 15's run without a strategy
     in this process; sentences/s, step ms and peak memory; then, where
     gloo carries CUDA tensors for the moves (phase 17's probe), two gloo
-    ranks on cuda:0, each run 1 warm-up and 3 steps with its first 3
+    ranks on cuda:0, the three runs in one torchrun world (``--lm-ranks``
+    with each run's app), each 1 warm-up and 3 steps with its first 3
     losses held to the same bar against its one-rank run and rank 0's
     launches counted: the NMT under the two-device
     ``default_global_config`` (``srcEmbed`` on rank 0 alone, ``dstEmbed``
@@ -251,7 +274,11 @@ Phases (any failure exits non-zero):
     same world a run resumed from its step-2 checkpoint repeats steps 3-4:
     its losses and the step-4 checkpoint's leaves equal the uninterrupted
     run's bit for bit (or within 1e-6, logged), its launches those of 2
-    steps, the save and restore seconds logged;
+    steps, the save and restore seconds logged; that resumed run writes
+    through the async writer, its step-4 bytes the synchronous run's;
+    last in the world, a run asked to drain on rank 0 alone (``preempt@1``
+    there) stops both ranks at the step-2 boundary (mode async, the
+    synchronous step-2 bytes), leaving the world;
 18c. MoE strategy slice (ROADMAP Queue A 3c-ii): ``apps.lm --experts 8``
     at phase 16's widths through ``torchrun --nproc-per-node 1`` (NCCL),
     1 warm-up and 3 steps, under a one-device strategy file: the losses
@@ -267,7 +294,8 @@ Phases (any failure exits non-zero):
     routing of its rows equal bit for bit, y and the gradients within
     1e-4 of their largest magnitude, aux within 1e-6, at capacity 1.0
     some choices dropped on every rank; the dropped share and each
-    rank's w1 block logged;
+    rank's w1 block logged; in the same world, 18b's drained LM resumed
+    from its step-2 checkpoint repeats steps 3-4 within 1e-6;
 18d. pipeline slice (ROADMAP Queue A 3d, item 4 (iii)): ``PipelinedLM``'s
     sequential reference trained in this process on the card (phase 9's
     widths, 1 warm-up and 3 steps, SGD at lr 1e-3); ``apps.search
@@ -389,6 +417,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -486,6 +515,21 @@ MOE_FAULTS = "loss_nan@7,ckpt_corrupt@3"
 # checkpoints of the MoE phase (2.1 GB a step), inside the checkout and
 # removed when the phase ends
 MOE_CKPT_ROOT = Path(__file__).resolve().parent / ".chip_ckpt"
+# the training runtime's supervision at the MoE widths: the async writer's
+# run beside the synchronous one, and a drained run: a SIGTERM injected
+# in step 7 drains at the step-10 boundary (print_freq 10, ckpt_freq 5)
+# within the budget
+MOE_DRAIN_FAULT = "preempt@7"
+MOE_DRAIN_STEP = 10
+DRAIN_BUDGET_S = 60.0
+# the two-rank LM world's drained checkpoint, resumed by the next
+# two-rank world (the MoE strategy phase's), removed there
+DRAIN_ROOT = Path(__file__).resolve().parent / ".chip_drain"
+# the step watchdog: the LM phase's widths, 1 + 4 steps, step 2 wedging
+# the step-5 boundary past max(3 x the step estimate, 1 s)
+WATCHDOG_STEPS = (1, 4)
+WATCHDOG_FLAGS = ["--hang-factor", "3", "--hang-min-s", "1",
+                  "--fault-spec", "step_hang@2"]
 # kernels 9 and 10 against their plain versions: y and dx agree exactly
 # (the same float32 mul, add and compare, unfused, then one cast); d_inv
 # and d_shift within this share of sum |g x| and sum |g| (float32 sums of
@@ -2500,6 +2544,240 @@ def _moe_routing_log(torch, model, params, state, toks) -> None:
                  f"the last {q}")
 
 
+def _ckpt_digests(d: Path, step: int) -> dict:
+    """The SHA-256 of each file of a committed step, from its
+    ``meta.json``: two saves of the same state write the same bytes
+    (``np.savez`` stamps every member with one fixed date)."""
+    return json.loads((d / f"step_{step:08d}" / "meta.json").read_text()
+                      )["digests"]
+
+
+def _through_commit(out: dict) -> float:
+    """An ``apps.lm`` run's tokens/s over its timed window and the final
+    save after it, the wait for the last commit included: the rate that
+    counts every write of the run."""
+    tokens = out["tokens_per_sec"] * out["elapsed_s"]
+    return tokens / (out["elapsed_s"] + out["final_save_s"])
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def _moe_async_run(torch, kernels, card: str, sync: dict) -> dict:
+    """The MoE run again with the training runtime's supervision on
+    (``--ckpt-async``, the live metrics, the obs stream, the watchdog at
+    20 x the step, at least 60 s): its losses within ``MOE_RESUME_RTOL``
+    of the synchronous run's (bit-equal or not, logged), its step-5, -10
+    and final checkpoints verified and, where the losses are bit-equal,
+    byte-equal to the synchronous run's (SHA-256), its launches of kernels 1-6
+    the synchronous run's, its boundary seconds and rate beside the
+    synchronous run's, the writer's submit-to-commit seconds, the host
+    step times during a write and outside one; the metrics finite (mfu
+    and the peak memory among them), the ``step_budget`` sound, the fit
+    trace's counter lanes valid."""
+    import gc
+    import shutil
+
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.obs.budget import check_budget
+    from flexflow_tpu_torch.obs.metrics import read_textfile
+    from flexflow_tpu_torch.obs.trace import (chrome_trace, fit_trace_events,
+                                              validate_trace)
+    from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+    iters = LM_WARMUP + LM_TIMED
+    d = MOE_CKPT_ROOT / "async"
+    prom = MOE_CKPT_ROOT / "metrics" / "metrics.prom"
+    obs_dir = MOE_CKPT_ROOT / "obs"
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    out = lm.main(_moe_argv(iters, LM_WARMUP, d, "--ckpt-async",
+                            "-metrics-path", str(prom), "-obs-dir",
+                            str(obs_dir), "-run-id", "moe-async",
+                            "--hang-factor", "20", "--hang-min-s", "60"),
+                  log=_log)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if launches != sync["launches"]:
+        raise AssertionError(f"moe async: launches {launches}, the "
+                             f"synchronous run's {sync['launches']}")
+    losses = out["loss"]
+    rel = max(abs(a - c) / max(abs(c), 1e-30)
+              for a, c in zip(losses, sync["loss"]))
+    how = "bit-equal to" if losses == sync["loss"] \
+        else f"within {rel:.3e} of"
+    _log(f"moe async: losses {how} the synchronous run's (tolerance "
+         f"{MOE_RESUME_RTOL:g})")
+    if len(losses) != iters or not rel <= MOE_RESUME_RTOL:
+        raise AssertionError(f"moe async losses {losses} vs "
+                             f"{sync['loss']}")
+    for step in (MOE_CKPT_FREQ, 2 * MOE_CKPT_FREQ, iters):
+        ok, why = ckpt.verify_checkpoint(str(d), step)
+        got, want = _ckpt_digests(d, step), sync["digests"][step]
+        _log(f"moe async: step {step} checkpoint verifies ({why}); SHA-256 "
+             f"{'equal to' if got == want else 'differs from'} the "
+             f"synchronous save's (arrays.npz {got['arrays.npz'][:12]} vs "
+             f"{want['arrays.npz'][:12]})")
+        if not ok or (losses == sync["loss"] and got != want):
+            raise AssertionError(f"moe async: step {step} checkpoint: "
+                                 f"{why}, digests {got} vs {want}")
+    info = out["ckpt_async"]
+    commits = [(step, round(sec, 3)) for step, sec in info["commits"]]
+    # the host's step times (no sync): a step that ended while a write ran
+    # against one that did not, each without the warm-up and the steps
+    # right after a boundary (whose time holds the boundary's)
+    after = {1} | {b + 1 for b in (MOE_CKPT_FREQ, 2 * MOE_CKPT_FREQ)}
+    timed = range(LM_WARMUP + 1, iters + 1)
+    busy = [info["step_s"][s - 1] * 1e3 for s in timed
+            if s in info["busy_steps"] and s not in after]
+    idle = [info["step_s"][s - 1] * 1e3 for s in timed
+            if s not in info["busy_steps"] and s not in after]
+    commit_tps = _through_commit(out)
+    _log(f"moe async: {out['tokens_per_sec']:.1f} tokens/s in the timed "
+         f"window (synchronous {sync['tokens_per_sec']:.1f}: "
+         f"{out['tokens_per_sec'] / sync['tokens_per_sec']:.3f}x); "
+         f"{commit_tps:.1f} through the final save's commit, "
+         f"{out['final_save_s']:.3f} s after the loop (synchronous "
+         f"{sync['commit_tps']:.1f}, {sync['final_save_s']:.3f} s: "
+         f"{commit_tps / sync['commit_tps']:.3f}x) — {card}")
+    _log(f"moe async: the boundaries' checkpoint "
+         f"seconds in the timed window {out['checkpoint_s']:.3f} s "
+         f"(synchronous {sync['checkpoint_s']:.3f} s); submit-to-commit "
+         f"(step, s) {commits}; steps ending during a write "
+         f"{info['busy_steps']}: host step {_median(busy):.2f} ms median "
+         f"of {len(busy)}, outside one {_median(idle):.2f} ms of "
+         f"{len(idle)} — {card}")
+    gauges = read_textfile(str(prom))
+    for key in ("mfu", "hbm_peak_bytes", "hbm_live_bytes",
+                "throughput_items_per_sec", "steps_total"):
+        if not math.isfinite(gauges.get(key, math.nan)):
+            raise AssertionError(f"moe async: gauge {key} missing or not "
+                                 f"finite: {gauges}")
+    _log(f"moe async: metrics mfu {gauges['mfu']:.4f} (the H100's float32 "
+         f"peak, 67 TFLOP/s), peak memory "
+         f"{gauges['hbm_peak_bytes'] / 1e9:.2f} GB, steps "
+         f"{gauges['steps_total']:.0f}, faults {gauges['faults_total']:.0f}")
+    records = _obs_records(out["obs_path"])
+    (budget,) = [r for r in records if r["kind"] == "step_budget"]
+    if check_budget(budget):
+        raise AssertionError(f"moe async: step_budget {check_budget(budget)}")
+    _log(f"moe async: step_budget of a {budget['step_wall_s'] * 1e3:.2f} ms "
+         f"step (ms): " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
+                                    budget["buckets"].items()))
+    trace = chrome_trace(fit_trace_events(records))
+    lanes = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "C"}
+    if validate_trace(trace) or not {"imgs/s", "MFU", "HBM bytes"} <= lanes:
+        raise AssertionError(f"moe async: trace {validate_trace(trace)}, "
+                             f"counter lanes {lanes}")
+    res = {"loss": losses, "tokens_per_sec": out["tokens_per_sec"],
+           "commit_tps": commit_tps,
+           "checkpoint_s": out["checkpoint_s"], "commits": commits,
+           "busy_ms": _median(busy), "idle_ms": _median(idle),
+           "launches": launches, "mfu": gauges["mfu"]}
+    del out
+    shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def _moe_drain_start(torch) -> dict:
+    """Start ``apps.lm`` at the MoE widths as a subprocess (a session of
+    its own) with ``--ckpt-async --fault-spec preempt@7``; it runs beside
+    the phase's divergence run, whose time is not measured.
+    :func:`_moe_drain_finish` reads it."""
+    import gc
+
+    iters = LM_WARMUP + LM_TIMED
+    d = MOE_CKPT_ROOT / "drain"
+    obs_dir = MOE_CKPT_ROOT / "drain_obs"
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = _moe_argv(iters, LM_WARMUP, d, "--ckpt-async", "--fault-spec",
+                     MOE_DRAIN_FAULT, "--drain-budget-s",
+                     str(DRAIN_BUDGET_S), "-obs-dir", str(obs_dir),
+                     "-run-id", "moe-drain")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.apps.lm"] + argv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, cwd=str(Path(__file__).resolve().parent))
+    return {"proc": proc, "dir": d, "obs": obs_dir,
+            "t": time.perf_counter()}
+
+
+def _moe_drain_finish(drain: dict, card: str) -> Path:
+    """The drained subprocess: it exits 0 with one ``preempt_drain``
+    record (mode ``async``, step 10, within the budget) and the step-10
+    checkpoint verified; returns the checkpoint directory."""
+    from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+    proc, d = drain["proc"], drain["dir"]
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("moe drain: apps.lm ran past 600 s and was "
+                             "stopped") from None
+    seconds = time.perf_counter() - drain["t"]
+    lines = out.splitlines()
+    if proc.returncode != 0:
+        raise AssertionError(f"moe drain: apps.lm exited "
+                             f"{proc.returncode}:\n{err[-3000:]}")
+    drains = [r for r in _obs_records(drain["obs"] / "moe-drain.jsonl")
+              if r["kind"] == "preempt_drain"]
+    told = [line for line in lines if line.startswith(("drain:",
+                                                       "drained at"))]
+    _log(f"moe drain: {MOE_DRAIN_FAULT}, exit 0 after {seconds:.1f} s "
+         f"(the process's start included, beside the resume and the "
+         f"divergence run); "
+         f"{told}; records {drains} — {card}")
+    if len(drains) != 1:
+        raise AssertionError(f"moe drain: {len(drains)} preempt_drain "
+                             f"records")
+    (rec,) = drains
+    if (rec["step"], rec["ckpt_step"], rec["mode"]) != \
+            (MOE_DRAIN_STEP, MOE_DRAIN_STEP, "async") \
+            or not rec["seconds"] <= rec["budget_s"] == DRAIN_BUDGET_S \
+            or f"drained at iteration {MOE_DRAIN_STEP}; exiting 0 (resume " \
+               f"from --ckpt-dir to continue)" not in lines:
+        raise AssertionError(f"moe drain: {rec}, {told}")
+    ok, why = ckpt.verify_checkpoint(str(d), MOE_DRAIN_STEP)
+    if not ok or ckpt.latest_step(str(d)) != MOE_DRAIN_STEP:
+        raise AssertionError(f"moe drain: checkpoint "
+                             f"{ckpt._list_steps(str(d))}: {why}")
+    return d
+
+
+def _moe_resume(torch, d: Path, step: int, losses: list, label: str):
+    """A fresh run from the step-``step`` checkpoint under ``d``, batches
+    through the prefetcher, repeats the uninterrupted run's steps after
+    it within ``MOE_RESUME_RTOL``."""
+    import gc
+
+    from flexflow_tpu_torch.apps import lm
+
+    iters = LM_WARMUP + LM_TIMED
+    lines = []
+    res = lm.main(_moe_argv(iters, LM_WARMUP, d, "--prefetch-depth", "2"),
+                  log=lines.append)
+    if f"resumed from {d} at iteration {step}" not in lines:
+        raise AssertionError(f"{label} did not resume: {lines}")
+    got, want_l = res["loss"], losses[step:]
+    rel = max(abs(a - c) / max(abs(c), 1e-30) for a, c in zip(got, want_l))
+    _log(f"{label}: steps {step + 1}-{iters} from the step-{step} "
+         f"checkpoint (prefetch depth 2) {got} vs the uninterrupted run: "
+         f"max rel diff {rel:.3e} (tolerance {MOE_RESUME_RTOL:g}); input "
+         f"stall {res['input_stall_s']:.4f} s; restore "
+         f"{res['restore_s']:.2f} s")
+    if len(got) != iters - step or not rel <= MOE_RESUME_RTOL:
+        raise AssertionError(f"the {label} run differs: {got} vs {want_l}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def moe_phase(torch, kernels, card: str) -> dict:
     """``apps.lm --experts 8`` at full width with checkpoints every 5
     steps and rollback on divergence, through kernels 1-6; its first
@@ -2507,7 +2785,11 @@ def moe_phase(torch, kernels, card: str) -> dict:
     the aux loss and the dropped share; then the runtime: a resume from
     the step-5 checkpoint (with the prefetcher) repeats the run's losses,
     a NaN loss at step 7 rolls back to step 5 and the run finishes, and
-    a corrupted last checkpoint makes the restore fall back."""
+    a corrupted last checkpoint makes the restore fall back.  Then the
+    supervision: the run again with the async writer and the live
+    metrics (:func:`_moe_async_run`), and a drained subprocess
+    (:func:`_moe_drain_start`, run beside the resume and the divergence
+    run) resumed from its step-10 checkpoint."""
     import gc
     import shutil
     import warnings
@@ -2518,6 +2800,7 @@ def moe_phase(torch, kernels, card: str) -> dict:
     from flexflow_tpu_torch.utils import checkpoint as ckpt
 
     iters = LM_WARMUP + LM_TIMED
+    drain = None
     shutil.rmtree(MOE_CKPT_ROOT, ignore_errors=True)
     MOE_CKPT_ROOT.mkdir()
     _log(f"moe: checkpoints under {MOE_CKPT_ROOT}, "
@@ -2559,7 +2842,26 @@ def moe_phase(torch, kernels, card: str) -> dict:
              f"checkpoint saves in the timed window ({ckpt_s:.2f} s); "
              f"peak memory {peak_gb:.2f} GB (max_memory_allocated) — {card}")
         tokens_per_sec = out["tokens_per_sec"]
+        commit_tps = _through_commit(out)
+        _log(f"moe: {commit_tps:.1f} tokens/s through the final save's "
+             f"commit ({out['final_save_s']:.3f} s after the loop) — {card}")
+        run_dir = MOE_CKPT_ROOT / "run"
+        sync = {"launches": launches, "loss": losses,
+                "tokens_per_sec": tokens_per_sec, "checkpoint_s": ckpt_s,
+                "commit_tps": commit_tps,
+                "final_save_s": out["final_save_s"],
+                "digests": {s: _ckpt_digests(run_dir, s) for s in (
+                    MOE_CKPT_FREQ, 2 * MOE_CKPT_FREQ, iters)}}
         del out
+        # the step-5 checkpoint, for the resume below
+        resume_dir = MOE_CKPT_ROOT / "resume"
+        resume_dir.mkdir()
+        step5 = f"step_{MOE_CKPT_FREQ:08d}"
+        (run_dir / step5).rename(resume_dir / step5)
+        shutil.rmtree(run_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        supervised = _moe_async_run(torch, kernels, card, sync)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2602,34 +2904,15 @@ def moe_phase(torch, kernels, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # resume: a fresh run from the step-5 checkpoint, batches through
-        # the prefetcher, repeats steps 6-13
-        resume_dir = MOE_CKPT_ROOT / "resume"
-        resume_dir.mkdir()
-        step5 = f"step_{MOE_CKPT_FREQ:08d}"
-        (MOE_CKPT_ROOT / "run" / step5).rename(resume_dir / step5)
-        shutil.rmtree(MOE_CKPT_ROOT / "run")
-        lines = []
-        res = lm.main(_moe_argv(iters, LM_WARMUP, resume_dir,
-                                "--prefetch-depth", "2"), log=lines.append)
-        if f"resumed from {resume_dir} at iteration {MOE_CKPT_FREQ}" \
-                not in lines:
-            raise AssertionError(f"moe resume did not resume: {lines}")
-        got, want_l = res["loss"], losses[MOE_CKPT_FREQ:]
-        rel = max(abs(a - c) / max(abs(c), 1e-30)
-                  for a, c in zip(got, want_l))
-        _log(f"moe resume: steps {MOE_CKPT_FREQ + 1}-{iters} from the "
-             f"step-{MOE_CKPT_FREQ} checkpoint (prefetch depth 2) {got} vs "
-             f"the uninterrupted run: max rel diff {rel:.3e} (tolerance "
-             f"{MOE_RESUME_RTOL:g}); input stall "
-             f"{res['input_stall_s']:.4f} s")
-        if len(got) != iters - MOE_CKPT_FREQ or not rel <= MOE_RESUME_RTOL:
-            raise AssertionError(f"the resumed moe run differs: {got} vs "
-                                 f"{want_l}")
-        del res
+        # the drain: a subprocess, drained at the step-10 boundary while
+        # the resume and the divergence run below train, exits 0
+        drain = _moe_drain_start(torch)
+
+        # resume: a fresh run from the synchronous run's step-5
+        # checkpoint, batches through the prefetcher, repeats steps 6-13
+        # (across the step-10 boundary's save)
+        _moe_resume(torch, resume_dir, MOE_CKPT_FREQ, losses, "moe resume")
         shutil.rmtree(resume_dir)
-        gc.collect()
-        torch.cuda.empty_cache()
 
         # divergence: loss_nan at step 7 rolls back to step 5 at the
         # step-10 boundary; the last save is corrupted
@@ -2664,13 +2947,68 @@ def moe_phase(torch, kernels, card: str) -> dict:
             raise AssertionError(f"restore past the corrupt step {iters} "
                                  f"gave step {step}: {fell}")
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a fresh run from the drained checkpoint, batches through the
+        # prefetcher, repeats steps 11-13
+        drained = _moe_drain_finish(drain, card)
+        _moe_resume(torch, drained, MOE_DRAIN_STEP, losses,
+                    "moe drained resume")
     finally:
+        if drain is not None and drain["proc"].poll() is None:
+            os.killpg(drain["proc"].pid, signal.SIGKILL)
+            drain["proc"].communicate()
         shutil.rmtree(MOE_CKPT_ROOT, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
             "tokens_per_sec": tokens_per_sec, "loss": losses,
-            "event_ms": ms[len(ms) // 2]}
+            "event_ms": ms[len(ms) // 2], "supervised": supervised}
+
+
+def runtime_phase(torch, kernels, card: str) -> None:
+    """The step watchdog and the runtime's two smokes on the card:
+    ``apps.lm`` at the LM phase's widths, 1 + 4 steps, with step 2
+    wedging the step-5 boundary past its deadline, raises
+    ``DeviceLostError`` naming the deadline with one ``step_hang``
+    record; then ``apps.preempt_smoke`` and ``apps.budget_smoke``."""
+    import gc
+    import shutil
+
+    from flexflow_tpu_torch.apps import budget_smoke, lm, preempt_smoke
+    from flexflow_tpu_torch.utils.elastic import DeviceLostError
+
+    obs_dir = OBS_ROOT / "watchdog"
+    shutil.rmtree(obs_dir, ignore_errors=True)
+    warmup, steps = WATCHDOG_STEPS
+    t = time.perf_counter()
+    try:
+        lm.main(_lm_argv(warmup + steps, warmup) + WATCHDOG_FLAGS
+                + ["-obs-dir", str(obs_dir), "-run-id", "watchdog"],
+                log=_log)
+    except DeviceLostError as e:
+        error = str(e)
+    else:
+        raise AssertionError("watchdog: the wedged boundary raised nothing")
+    try:
+        hangs = [r for r in _obs_records(obs_dir / "watchdog.jsonl")
+                 if r["kind"] == "step_hang"]
+    finally:
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    _log(f"watchdog: DeviceLostError after {time.perf_counter() - t:.1f} s: "
+         f"{error}; step_hang records {hangs}")
+    if "exceeded the step watchdog deadline" not in error \
+            or len(hangs) != 1 or hangs[0]["step"] != warmup + steps:
+        raise AssertionError(f"watchdog: {error}, {hangs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for smoke in (preempt_smoke, budget_smoke):
+        t = time.perf_counter()
+        if smoke.main([], log=_log) != 0:
+            raise AssertionError(f"{smoke.__name__} failed")
+        _log(f"{smoke.__name__}: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def nmt_profile_phase(torch) -> None:
@@ -3173,17 +3511,16 @@ def _pool_launches(steps: int) -> dict:
 def _placed_runs(ranks: int, root: Path, card: str, nmt_loss, alexnet_loss,
                  extra) -> dict:
     """The NMT under ``default_global_config`` and ``--pipeline-stages 2``
-    and the placed AlexNet over ``ranks`` ranks through torchrun (``extra``
-    names the device and backend), each held to its bars; their rates."""
+    and the placed AlexNet over ``ranks`` ranks, the three in one torchrun
+    world (:func:`_lm_ranks`; ``extra`` names the device and backend),
+    each held to its bars; their rates."""
     steps = PLACED_WARMUP + PLACED_STEPS
     nmt_argv = _nmt_argv(steps, PLACED_WARMUP, "") + extra
     strategy = root / f"nmt_{ranks}.json"
     _nmt_strategy(strategy, ranks)
     alexnet = root / f"alexnet_placed_{ranks}.json"
     _placed_alexnet(alexnet, ranks)
-    out = {}
-    for label, module, args, want, launches in (
-            ("nmt default_global_config", "nmt",
+    runs = (("nmt default_global_config", "nmt",
              nmt_argv + ["--strategy", str(strategy)], nmt_loss,
              _ce_launches(NMT_CHUNKS, steps)),
             ("nmt --pipeline-stages 2", "nmt",
@@ -3193,20 +3530,21 @@ def _placed_runs(ranks: int, root: Path, card: str, nmt_loss, alexnet_loss,
              _alexnet_argv(extra + ["-s", str(alexnet), "-ll:gpu",
                                     str(ranks)], PLACED_WARMUP,
                            PLACED_STEPS),
-             alexnet_loss, _pool_launches(steps))):
-        path = root / f"{module}_{ranks}.json"
-        t = time.perf_counter()
-        _torchrun(ranks, ["-m", f"flexflow_tpu_torch.apps.{module}"] + args
-                  + ["--result-json", str(path)], timeout=300)
-        results = _rank_results(path, ranks)
+             alexnet_loss, _pool_launches(steps)))
+    every, _, seconds = _lm_ranks(
+        ranks, root, f"placed_{ranks}", [run[2] for run in runs],
+        apps={i: run[1] for i, run in enumerate(runs)})
+    _log(f"placement: {len(runs)} runs over {ranks} ranks in one torchrun "
+         f"world, {seconds:.1f} s with its start")
+    out = {}
+    for (label, module, _, want, launches), results in zip(runs, every):
         res = results[0]
         step_ms = res["elapsed_s"] / PLACED_STEPS * 1e3
         rate = res["images_per_sec"]
         _log(f"placement {label} ({ranks} ranks, {' '.join(extra)}): "
              f"{rate:.2f} {'sentences' if module == 'nmt' else 'images'}/s, "
              f"{step_ms:.3f} ms a step, peak on rank 0 "
-             f"{res['peak_memory_bytes'] / 1e9:.3f} GB, "
-             f"{time.perf_counter() - t:.1f} s with torchrun's start; {card}")
+             f"{res['peak_memory_bytes'] / 1e9:.3f} GB; {card}")
         _check_placed(label, results, want, launches, steps)
         out[label] = {"rate": rate, "step_ms": step_ms}
     return out
@@ -3379,18 +3717,21 @@ def _flag(argv, name: str, default=None):
 
 
 def _ranks_worker(spec_path: str) -> int:
-    """Run under torchrun (``--lm-ranks SPEC``): each ``apps.lm`` argv
-    of the spec's ``runs`` in turn on this world, the launch counts and
+    """Run under torchrun (``--lm-ranks SPEC``): each argv of the spec's
+    ``runs`` in turn on this world, through ``apps.lm`` or the app the
+    spec's ``apps`` names for it (``cnn``, ``nmt``), the launch counts and
     the peak memory reset before each (its results in its
     ``--result-json``; a run its plan check refuses writes ``{"exit":
-    code}`` there instead); then the probes the spec names on this world:
+    code}`` there instead; ``rank0`` names arguments a run takes on rank
+    0 alone); then the probes the spec names on this world:
     ``moe_probe`` (a list of grids, :func:`_moe_probe`) and
     ``pipe_probe`` (:func:`_pipe_probe`'s keywords), whose results rank
     r writes to ``probe_json`` (``.rank<r>`` on rank r > 0)."""
+    import importlib
+
     import torch
 
     from flexflow_tpu_torch import distributed
-    from flexflow_tpu_torch.apps import lm
     from flexflow_tpu_torch.ops import kernels
 
     spec = json.loads(Path(spec_path).read_text())
@@ -3409,8 +3750,12 @@ def _ranks_worker(spec_path: str) -> int:
                 dist.barrier()
             kernels.reset_launches()
             torch.cuda.reset_peak_memory_stats()
+            if int(os.environ.get("RANK", "0")) == 0:
+                argv = argv + spec.get("rank0", {}).get(str(i), [])
+            app = spec.get("apps", {}).get(str(i), "lm")
             try:
-                lm.main(argv, log=_log)
+                importlib.import_module(
+                    f"flexflow_tpu_torch.apps.{app}").main(argv, log=_log)
             except SystemExit as e:
                 rank = int(os.environ.get("RANK", "0"))
                 path = _flag(argv, "--result-json") + (
@@ -3435,11 +3780,14 @@ def _ranks_worker(spec_path: str) -> int:
 
 
 def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
-              moe_probe=None, pipe_probe=None, copies=None) -> tuple:
-    """``runs`` (apps.lm argv lists, ``extra`` appended to each) as one
+              moe_probe=None, pipe_probe=None, copies=None,
+              rank0=None, apps=None) -> tuple:
+    """``runs`` (apps.lm argv lists, ``extra`` appended to each; ``apps``:
+    ``{run index: "cnn" or "nmt"}`` for another app's) as one
     torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
     a ``--result-json`` of its own (``copies``: ``{run index: (source,
-    destination)}`` directories rank 0 copies before that run), then the
+    destination)}`` directories rank 0 copies before that run;
+    ``rank0``: ``{run index: argv}`` rank 0 alone appends), then the
     probes on the device and backend ``extra`` names: ``(every rank's
     results per run, every rank's probe results or None, seconds with
     torchrun's start)``."""
@@ -3447,7 +3795,9 @@ def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
     spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
                      for a, o in zip(runs, outs)],
             "copies": {str(i): [str(a), str(b)]
-                       for i, (a, b) in (copies or {}).items()}}
+                       for i, (a, b) in (copies or {}).items()},
+            "rank0": {str(i): list(a) for i, a in (rank0 or {}).items()},
+            "apps": {str(i): a for i, a in (apps or {}).items()}}
     probed = moe_probe is not None or pipe_probe is not None
     if probed:
         spec.update(moe_probe=moe_probe, pipe_probe=pipe_probe,
@@ -3486,31 +3836,80 @@ def _log_ranks_run(label: str, results: list, seconds: float,
 
 
 def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
-                  extra) -> dict:
+                  extra, supervised: bool = False) -> dict:
     """The LM over ``ranks`` ranks under ``_lm_strategy_file`` (``extra``
     names the device and backend), held to its bars, checkpointed every
     ``LM_CKPT_FREQ`` steps; each rank's leaves logged.  In the same world
     a run resumed from its step-``LM_CKPT_FREQ`` checkpoint
-    (:func:`_check_resume`)."""
+    (:func:`_check_resume`); with ``supervised``, the resumed run writes
+    through the async writer and, the world's last, a run drains
+    (:func:`_check_ranks_supervised`)."""
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
     path = root / f"lm_{ranks}.json"
     _lm_strategy_file(path, ranks)
     whole, cut = root / f"ckpt_{ranks}", root / f"ckpt_{ranks}_resumed"
+    drained = DRAIN_ROOT / f"lm_{ranks}"
     ckpt = ["--ckpt-freq", str(LM_CKPT_FREQ), "--ckpt-dir"]
-    (results, resumed), _, seconds = _lm_ranks(
-        ranks, root, f"lm_{ranks}",
-        [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(whole)],
-         _lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(cut)]],
+    runs = [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(whole)],
+            _lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(cut)]]
+    if supervised:
+        shutil.rmtree(drained, ignore_errors=True)
+        runs[1] += ["--ckpt-async"]
+        runs += [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(drained)]
+                 + ["--ckpt-async", "--drain-budget-s", str(DRAIN_BUDGET_S)]]
+    results, _, seconds = _lm_ranks(
+        ranks, root, f"lm_{ranks}", runs,
         list(extra) + ["--strategy", str(path)],
         copies={1: (whole / f"step_{LM_CKPT_FREQ:08d}",
-                    cut / f"step_{LM_CKPT_FREQ:08d}")})
+                    cut / f"step_{LM_CKPT_FREQ:08d}")},
+        rank0={2: ["--fault-spec", "preempt@1"]} if supervised else None)
     label = (f"lm strategy {ranks} ranks "
              f"({' '.join(extra) or 'NCCL, a card a rank'})")
-    step_ms = _log_ranks_run(label, results, seconds, card)
-    _check_lm_run(label, results[0], want_loss, _lm_rank_launches(steps))
-    _check_resume(label, results, resumed, whole, cut, steps, card)
-    return {"tokens_per_sec": results[0]["tokens_per_sec"],
-            "step_ms": step_ms, "launches": results[0]["launches"]}
+    step_ms = _log_ranks_run(label, results[0], seconds, card)
+    _check_lm_run(label, results[0][0], want_loss, _lm_rank_launches(steps))
+    _check_resume(label, results[0], results[1], whole, cut, steps, card)
+    out = {"tokens_per_sec": results[0][0]["tokens_per_sec"],
+           "step_ms": step_ms, "launches": results[0][0]["launches"]}
+    if supervised:
+        _check_ranks_supervised(label, results[0], results[1], results[2],
+                                whole, cut, drained, steps)
+        out["drained"] = {"dir": str(drained),
+                          "tail": results[0][0]["loss"][LM_CKPT_FREQ:]}
+    return out
+
+
+def _check_ranks_supervised(label: str, results, asyn_res, drained_res,
+                            whole: Path, asyn: Path, drained: Path,
+                            steps: int) -> None:
+    """The two-rank LM's supervision: the resumed run, written through
+    the async writer, commits the synchronous run's step-``steps`` bytes
+    (SHA-256; :func:`_check_resume` holds its losses); the run asked to
+    drain on rank 0 alone (``preempt@1``) stops on every rank at the
+    step-``LM_CKPT_FREQ`` boundary with one record, mode ``async``, and
+    the synchronous step's bytes."""
+    from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+    ok, why = ckpt.verify_checkpoint(str(asyn), steps)
+    if not ok or _ckpt_digests(asyn, steps) != _ckpt_digests(whole, steps):
+        raise AssertionError(f"{label} async: step {steps}: {why}, bytes "
+                             f"differ from the synchronous save's")
+    _log(f"{label} async (the resumed run): the step-{steps} checkpoint's "
+         f"bytes equal the synchronous run's; rank 0's submit-to-commit "
+         f"{asyn_res[0]['ckpt_async']['commits']}")
+    records = [r.get("drain") for r in drained_res]
+    stops = [r["completed_steps"] for r in drained_res]
+    _log(f"{label} drain (preempt@1 on rank 0 alone): ranks stopped at "
+         f"{stops}; records {records}")
+    keep = ("step", "ckpt_step", "mode", "signal")
+    if stops != [LM_CKPT_FREQ] * len(drained_res) \
+            or any(r is None for r in records) \
+            or {tuple(r[k] for k in keep) for r in records} \
+            != {(LM_CKPT_FREQ, LM_CKPT_FREQ, "async",
+                 int(signal.SIGTERM))} \
+            or ckpt.latest_step(str(drained)) != LM_CKPT_FREQ \
+            or _ckpt_digests(drained, LM_CKPT_FREQ) \
+            != _ckpt_digests(whole, LM_CKPT_FREQ):
+        raise AssertionError(f"{label} drain: {stops}, {records}")
 
 
 def _check_resume(label: str, results, resumed, whole: Path, cut: Path,
@@ -3565,8 +3964,6 @@ def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
     ranks on cuda:0 under ``_lm_strategy_file``: ring and head-parallel
     attention, channel-split MLPs, sequence-split norms, the embedding on
     rank 1 and the fused vocab-parallel head."""
-    import shutil
-
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.ops.kernels import fused_ce as ce
 
@@ -3605,7 +4002,8 @@ def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
              f"{carried['send_recv']})")
         out["two"] = _lm_ranks_run(
             2, root, card, res["loss"],
-            ["--device", "cuda:0", "--dist-backend", "gloo"])
+            ["--device", "cuda:0", "--dist-backend", "gloo"],
+            supervised=True)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3874,7 +4272,7 @@ def _check_pipe_probe(label: str, probes: list) -> None:
 
 
 def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
-                       strategy_run: dict) -> dict:
+                       strategy_run: dict, lm_strategy=None) -> dict:
     """The MoE LM through ``torchrun --nproc-per-node 1 ... apps.lm
     --experts 8 --strategy <one-device file>`` (NCCL) at the MoE phase's
     widths, 1 + 3 steps, against the MoE phase's run without a strategy
@@ -3882,7 +4280,9 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
     exact); then two gloo ranks on cuda:0 under
     ``_moe_strategy_file`` (the even MoE blocks (2, 1, 1), the odd (1,
     2, 1), the rest as the LM strategy phase places them) against the
-    one-rank run, and the MoE op probe over the same world."""
+    one-rank run, and the MoE op probe over the same world; the same
+    world also resumes the LM strategy phase's drained two-rank run
+    (``lm_strategy["two"]["drained"]``)."""
     import shutil
 
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
@@ -3924,24 +4324,49 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
             raise AssertionError(f"moe strategy: gloo does not carry CUDA "
                                  f"tensors for {GLOO_CUDA_NEEDED}: "
                                  f"{carried}")
+        ride = (lm_strategy or {}).get("two", {}).get("drained")
         out["two"] = _moe_ranks_run(2, root, card, res["loss"], argv,
                                     ["--device", "cuda:0", "--dist-backend",
-                                     "gloo"])
+                                     "gloo"], ride=ride)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(DRAIN_ROOT, ignore_errors=True)
 
 
 def _moe_ranks_run(ranks: int, root: Path, card: str, want_loss, argv,
-                   extra) -> dict:
+                   extra, ride=None) -> dict:
     """The MoE LM over ``ranks`` under ``_moe_strategy_file`` and the MoE
-    op probe, in one torchrun world, held to their bars."""
+    op probe, in one torchrun world, held to their bars; with ``ride``
+    (the LM's drained two-rank checkpoint and the uninterrupted run's
+    losses after it), the LM resumed from it in the same world
+    repeats those losses within ``LM_RESUME_RTOL``."""
     path = root / f"moe_{ranks}.json"
     _moe_strategy_file(path, ranks)
-    (results,), probes, seconds = _lm_ranks(
-        ranks, root, f"moe_{ranks}", [argv],
-        list(extra) + ["--strategy", str(path)],
+    runs = [argv + ["--strategy", str(path)]]
+    if ride:
+        lm_path = root / f"lm_{ranks}.json"
+        _lm_strategy_file(lm_path, ranks)
+        runs.append(_lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS,
+                             LM_RANKS_WARMUP)
+                    + ["--ckpt-freq", str(LM_CKPT_FREQ), "--ckpt-dir",
+                       ride["dir"], "--strategy", str(lm_path)])
+    results, probes, seconds = _lm_ranks(
+        ranks, root, f"moe_{ranks}", runs, list(extra),
         moe_probe=MOE_PROBE_GRIDS[ranks])
+    if ride:
+        again = results[1][0]
+        rel = max(abs(x - y) / max(abs(y), 1e-30)
+                  for x, y in zip(again["loss"], ride["tail"]))
+        _log(f"lm strategy {ranks} ranks drained resume (in the MoE "
+             f"world): losses {again['loss']} vs {ride['tail']} (max "
+             f"relative difference {rel:.3e}, tolerance "
+             f"{LM_RESUME_RTOL:g}); restore {again['restore_s']:.2f} s")
+        if len(again["loss"]) != len(ride["tail"]) \
+                or not rel <= LM_RESUME_RTOL:
+            raise AssertionError(f"the drained two-rank LM resumed: "
+                                 f"{again['loss']} vs {ride['tail']}")
+    results = results[0]
     label = f"moe strategy {ranks} ranks ({' '.join(extra) or 'NCCL'})"
     step_ms = _log_ranks_run(label, results, seconds, card)
     _check_lm_run(label, results[0], want_loss,
@@ -4515,7 +4940,8 @@ def search4_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
 
 
 #: ``--only`` names -> phases, and the phases whose results each reads
-ONLY_PHASES = {"lm-obs": "lm obs", "pipeline": "pipeline",
+ONLY_PHASES = {"lm-obs": "lm obs", "pipeline": "pipeline", "moe": "moe",
+               "runtime": "runtime", "moe-strategy": "moe strategy",
                "search": "search", "search4": "search 4",
                "strategy": "strategy", "lm-strategy": "lm strategy",
                "strategy4": "strategy 4", "lm-strategy4": "lm strategy 4",
@@ -4523,6 +4949,7 @@ ONLY_PHASES = {"lm-obs": "lm obs", "pipeline": "pipeline",
 PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
                "search": ("strategy",), "search 4": ("strategy",),
                "lm strategy": ("lm", "strategy"),
+               "moe strategy": ("moe", "strategy", "lm", "lm strategy"),
                "lm strategy 4": ("lm", "strategy", "lm strategy"),
                "pipeline 4": ("strategy", "pipeline", "lm", "lm strategy",
                               "lm strategy 4")}
@@ -4628,13 +5055,14 @@ def main(argv) -> int:
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     nmt_run = phase("nmt", nmt_phase, torch, kernels, card)
     moe_run = phase("moe", moe_phase, torch, kernels, card)
+    phase("runtime", runtime_phase, torch, kernels, card)
     strategy_run = phase("strategy", strategy_phase, torch, kernels, card)
     phase("placement", placement_phase, torch, kernels, card, nmt_run,
           strategy_run)
     lm_strategy = phase("lm strategy", lm_strategy_phase, torch, kernels,
                         card, lm_run, strategy_run)
     moe_ranks = phase("moe strategy", moe_strategy_phase, torch, kernels,
-                      card, moe_run, strategy_run)
+                      card, moe_run, strategy_run, lm_strategy)
     pipe = phase("pipeline", pipeline_phase, torch, kernels, card,
                  strategy_run)
     phase("search", search_phase, torch, kernels, card, strategy_run)

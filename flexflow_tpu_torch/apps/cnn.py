@@ -17,8 +17,10 @@ Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
 --width, --classes, -s/--strategy, -ll:gpu, --allow-degraded, ``fit``'s
 runtime flags --ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
---max-rollbacks, --fault-spec, and its telemetry flags -obs-dir,
--run-id, --obs-max-bytes, -op-time-every), plus
+--max-rollbacks, --fault-spec, its supervision flags --ckpt-async,
+--hang-factor, --hang-min-s, --drain-budget-s, -metrics-path, and its
+telemetry flags -obs-dir, -run-id, --obs-max-bytes, -op-time-every),
+plus
 ``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
 (untimed steps before the timed window, default 1 as in ``fit``) and
@@ -36,8 +38,9 @@ are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
 ``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
-elastic training and metrics export raise ``NotImplementedError`` when
-asked for (``config.UNPORTED_FLAGS``).
+elastic training and profiling raise ``NotImplementedError`` when asked
+for (``config.UNPORTED_FLAGS``).  A drained run (SIGTERM, SIGINT, an
+injected ``preempt``) logs ``drained at iteration N`` and exits 0.
 
 A strategy file is checked before the model is built, as in the JAX
 app (``flexflow_tpu/apps/cnn.py:100-116``): :func:`check_strategy` runs
@@ -217,6 +220,10 @@ def main(argv=None, log=print) -> dict:
                              cfg.input_width, num_classes=cfg.num_classes,
                              mode="random", seed=cfg.seed, machine=machine)
     out = ff.fit(data, warmup=warmup, log=log)
+    if out.get("drained"):
+        # a graceful drain: exit 0 is the scheduler's contract
+        log(f"drained at iteration {out.get('completed_steps')}; "
+            f"exiting 0 (resume from --ckpt-dir to continue)")
     if result_json:
         _write_result(result_json, out, machine)
     for key in ("params", "state", "opt_state"):

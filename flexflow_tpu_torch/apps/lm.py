@@ -5,7 +5,9 @@
         --d-model 768 --heads 12 --d-ff 3072 --vocab 32768
     python -m flexflow_tpu_torch.apps.lm --causal -b 16 -s 512 -l 12 \\
         --d-model 768 --heads 12 --d-ff 3072 --vocab 32768 --experts 8 \\
-        --ckpt-dir D --ckpt-freq 5 --on-divergence rollback
+        --ckpt-dir D --ckpt-freq 5 --ckpt-async --on-divergence rollback \\
+        --hang-factor 20 --hang-min-s 60 --drain-budget-s 60 \\
+        -metrics-path M/metrics.prom -obs-dir O
     python -m flexflow_tpu_torch.apps.lm --causal -b 2 -s 16 -l 1 \\
         --d-model 16 --heads 2 --d-ff 32 --vocab 64 -i 3 --device cpu
     torchrun --nproc-per-node 8 -m flexflow_tpu_torch.apps.lm --causal \\
@@ -17,15 +19,19 @@ Flags are the JAX app's names for the ported fields (-b, -s/--seq,
 --param-dtype, --seed, --strategy <file>, --pipeline-stages,
 --microbatches, --pipeline-tp, --allow-degraded), ``fit``'s runtime
 (--ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
---max-rollbacks, --fault-spec) and its telemetry (-obs-dir, -run-id,
---obs-max-bytes, -op-time-every: ``FFModel.fit``), plus ``--device``
+--max-rollbacks, --fault-spec), its supervision (--ckpt-async,
+--hang-factor, --hang-min-s, --drain-budget-s, -metrics-path) and its
+telemetry (-obs-dir, -run-id, --obs-max-bytes, -op-time-every:
+``FFModel.fit``), plus ``--device``
 (default ``cuda``: the run raises when CUDA is absent unless ``--device
 cpu`` is given), ``--warmup`` (untimed steps before the timed window,
 default 1 as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (elastic training, metrics export, ...)
-raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A
+the port does not have yet (elastic training, profiling, ...)
+raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A run that
+SIGTERM, SIGINT or an injected ``preempt`` drains logs ``drained at
+iteration N`` and exits 0.  A
 ``--strategy`` file is checked first, as in the JAX app
 (``flexflow_tpu/apps/lm.py:225-235``, ``apps.cnn.check_strategy``): the
 run exits with status 2 on an error finding, ``--allow-degraded``
@@ -74,7 +80,8 @@ import torch
 from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
     check_strategy, machine_for
 from flexflow_tpu_torch.config import (OBS_FLAGS, RUNTIME_FLAGS,
-                                       UNPORTED_FLAGS, flag_stream, unported)
+                                       SWITCH_FLAGS, UNPORTED_FLAGS,
+                                       flag_stream, unported)
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 
@@ -115,7 +122,7 @@ def parse_args(argv):
             cfg.allow_degraded = True
         elif a in RUNTIME_FLAGS or a in OBS_FLAGS:
             field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS}[a]
-            setattr(cfg, field, parse(val()))
+            setattr(cfg, field, True if a in SWITCH_FLAGS else parse(val()))
         elif a in UNPORTED_FLAGS:
             raise unported(a, "flexflow_tpu/apps/lm.py")
         # unknown flags are ignored, like the reference parser
@@ -296,7 +303,14 @@ def _main_dag(cfg, strategies, machine, warmup: int, log) -> dict:
         data = synthetic_lm_batches(
             cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed,
             device="cpu" if cfg.prefetch_depth > 0 else dev)
-    return model.fit(data, warmup=warmup, log=log)
+    out = model.fit(data, warmup=warmup, log=log)
+    if out.get("drained"):
+        # a graceful drain stopped the run with a verified checkpoint:
+        # exit 0 is the scheduler's contract (a non-zero exit would be
+        # retried as a failure)
+        log(f"drained at iteration {out.get('completed_steps')}; "
+            f"exiting 0 (resume from --ckpt-dir to continue)")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Run configuration (PyTorch port): the ``FFConfig`` fields the ported
 paths read — serving, and training through ``FFModel.fit`` with its
-checkpoints, health guard, prefetch, fault injection, run telemetry and
-sampled op timing, and the drivers' static plan check — with the JAX
+checkpoints (synchronous or asynchronous), health guard, step watchdog,
+preemption drain, live metrics, prefetch, fault injection, run telemetry
+and sampled op timing, and the drivers' static plan check — with the JAX
 package's defaults (``flexflow_tpu/config.py``), but for
 ``prefetch_depth``: 0 here, where the JAX default is 2 (the port's
 synthetic sources already yield tensors on the card).
@@ -11,7 +12,7 @@ fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
 number of GPUs, which must equal the world size; checked by the app).  A
 flag of the JAX parser whose feature is not ported yet (elastic
-training, datasets, metrics export, ...) raises ``NotImplementedError``
+training, datasets, profiling, ...) raises ``NotImplementedError``
 instead of being dropped silently.
 """
 
@@ -24,29 +25,34 @@ from flexflow_tpu_torch.strategy import Strategy
 from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
                                                   parse_fault_spec)
 
+#: the elastic runtime's flags (``flexflow_tpu/utils/elastic.py``), not
+#: ported yet
+ELASTIC_FLAGS = frozenset((
+    "--elastic", "--min-devices", "--research-budget-s",
+    "--elastic-search-iters", "--max-regrows", "--regrow-probes",
+    "--transient-reset-steps"))
+
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
 UNPORTED_FLAGS = frozenset((
     "-e", "--epochs", "-d", "--dataset", "-ll:cpu", "--profiling",
-    "--trace-dir", "-metrics-path", "--metrics-path", "-chains",
+    "--trace-dir", "-chains",
     "--chains", "-delta", "--delta", "-regrid-planner", "--regrid-planner",
     "-placed-overlap", "--placed-overlap", "--data-retry-attempts",
-    "--data-skip-budget", "--elastic", "--min-devices",
-    "--research-budget-s", "--elastic-search-iters", "--decompose",
-    "--block-budget-s", "--boundary-refine-iters", "--max-regrows",
-    "--regrow-probes", "--drain-budget-s", "--hang-factor", "--hang-min-s",
-    "--transient-reset-steps", "--ckpt-async", "--max-batch",
+    "--data-skip-budget", "--decompose", "--block-budget-s",
+    "--boundary-refine-iters", "--max-batch",
     "--serve-queue-hi", "--serve-idle-boundaries", "--serve-prefill-devices",
     "--serve-prefill-replicas", "--serve-decode-replicas",
     "--fleet-quantum", "--fleet-search-budget-s", "-pallas", "--pallas",
     "--params-ones", "--print-intermediates", "--dry-compile",
-))
+)) | ELASTIC_FLAGS
 
 #: where the ROADMAP takes up some of those flags
 UNPORTED_WHERE = {
-    flag: "ROADMAP Queue A item 5, the rest of the training runtime"
-    for flag in ("--profiling", "--trace-dir", "-metrics-path",
-                 "--metrics-path")}
+    **{flag: "ROADMAP Queue A item 5, the rest of the training runtime"
+       for flag in ("--profiling", "--trace-dir")},
+    **{flag: "ROADMAP Queue A item 5, elastic training"
+       for flag in ELASTIC_FLAGS}}
 
 
 def unported(flag: str, where: str) -> NotImplementedError:
@@ -88,8 +94,11 @@ OBS_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "--op-time-every": ("op_time_every", int),
 }
 
-#: the training runtime's flags (``FFModel.fit``: checkpoints, the health
-#: guard, prefetch, fault injection): flag -> (field, parse)
+#: the training runtime's flags (``FFModel.fit``: checkpoints, the
+#: asynchronous checkpoint writer, the health guard, the step watchdog,
+#: the preemption drain's budget, live metrics, prefetch, fault
+#: injection): flag -> (field, parse); a flag of ``SWITCH_FLAGS`` takes
+#: no value and sets its field True
 RUNTIME_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "--ckpt-dir": ("ckpt_dir", str),
     "--ckpt-freq": ("ckpt_freq", int),
@@ -101,7 +110,14 @@ RUNTIME_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "--max-rollbacks": ("max_rollbacks", int),
     "-fault-spec": ("fault_spec", _checked_fault_spec),
     "--fault-spec": ("fault_spec", _checked_fault_spec),
+    "--ckpt-async": ("ckpt_async", bool),
+    "--hang-factor": ("hang_factor", float),
+    "--hang-min-s": ("hang_min_s", float),
+    "--drain-budget-s": ("drain_budget_s", float),
+    "-metrics-path": ("metrics_path", str),
+    "--metrics-path": ("metrics_path", str),
 }
+SWITCH_FLAGS = frozenset(("--ckpt-async",))
 
 
 def flag_stream(argv: Sequence[str]) -> Iterator[Tuple[str, Callable]]:
@@ -168,6 +184,22 @@ class FFConfig:
     obs_dir: str = ""
     run_id: str = ""
     obs_max_bytes: int = 64 * 1024 * 1024
+    # the asynchronous checkpoint writer (utils/checkpoint.py): the
+    # serialization, digests and commit on a worker thread, at most one
+    # save in flight; fit waits for it at the final save and before a
+    # rollback's restore
+    ckpt_async: bool = False
+    # the step watchdog (utils/health.StepWatchdog): a boundary's deadline
+    # is hang_factor x the median per-step wall time, at least hang_min_s
+    # (0 = off, no timer threads)
+    hang_factor: float = 0.0
+    hang_min_s: float = 60.0
+    # the preemption drain (utils/elastic.py): wall budget for committing
+    # the last checkpoint after SIGTERM/SIGINT
+    drain_budget_s: float = 60.0
+    # live metrics (obs/metrics.py): a Prometheus textfile rewritten at
+    # this path (and <path>.json) at fit's boundaries; "" = off
+    metrics_path: str = ""
     # sampled per-op timing in fit(): every Nth step is synced and its
     # forward / backward / optimizer sections timed, and one shard of
     # every op is timed after the loop, all as op_time records (0 = off;
@@ -219,6 +251,7 @@ class FFConfig:
                 cfg.allow_degraded = True
             elif a in RUNTIME_FLAGS or a in OBS_FLAGS:
                 field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS}[a]
-                setattr(cfg, field, parse(val()))
+                setattr(cfg, field,
+                        True if a in SWITCH_FLAGS else parse(val()))
             # unknown flags are ignored, like the reference parser
         return cfg

@@ -174,6 +174,11 @@ class DevicePrefetcher:
         self.close()
         return False
 
+    def summary(self) -> dict:
+        """The ``prefetch`` obs record's body."""
+        return {"depth": self.depth, "batches": self.batches,
+                "input_stall_s": self.stall_s, "leaked": self.leaked}
+
     def __del__(self):
         try:
             self.close()

@@ -21,11 +21,17 @@ run time because something failed.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import torch
 
 from flexflow_tpu_torch.machine import MachineModel, Topology
+
+# whether this process's group was brought up by initialize(): release()
+# tears down only such a group
+_STATE = {"initialized": False}
+_RELEASE_LOCK = threading.Lock()
 
 
 def is_initialized() -> bool:
@@ -66,6 +72,8 @@ def initialize(device="cuda", backend: Optional[str] = None,
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 rank=rank, world_size=world_size)
+        with _RELEASE_LOCK:
+            _STATE["initialized"] = True
     elif (dist.get_rank(), dist.get_world_size()) != (rank, world_size):
         raise RuntimeError(
             f"a process group of rank {dist.get_rank()} in "
@@ -83,21 +91,32 @@ def shutdown() -> None:
     """Leave the process group (a no-op when there is none)."""
     import torch.distributed as dist
 
+    with _RELEASE_LOCK:
+        _STATE["initialized"] = False
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
 def release() -> bool:
-    """Releasing a host from a running world (elastic training) waits for
-    ROADMAP Queue A item 5."""
-    raise NotImplementedError(
-        "distributed.release: elastic training is not ported yet (ROADMAP "
-        "Queue A item 5)")
+    """Leave the world on the way out of ``fit`` (its error exit and the
+    end of a graceful drain, ``flexflow_tpu/distributed.py:166``): tear
+    down the process group IF :func:`initialize` brought it up, else do
+    nothing.  Idempotent and re-entrant: both paths may call it, in any
+    order, and only the first tears down.  True when this call did."""
+    import torch.distributed as dist
+
+    with _RELEASE_LOCK:
+        if not _STATE["initialized"]:
+            return False
+        _STATE["initialized"] = False
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    return True
 
 
 def elastic_rejoin(*args, **kwargs):
-    """Rejoining a running world (elastic training) waits for ROADMAP
-    Queue A item 5."""
+    """Rejoining a running world waits for ROADMAP Queue A item 5,
+    elastic training."""
     raise NotImplementedError(
         "distributed.elastic_rejoin: elastic training is not ported yet "
-        "(ROADMAP Queue A item 5)")
+        "(ROADMAP Queue A item 5, elastic training)")

@@ -917,14 +917,14 @@ class FFModel:
 
     def fit(self, data_iter, num_iterations: Optional[int] = None,
             warmup: int = 1, log=print) -> Dict[str, Any]:
-        """The training loop of ``model.py:1624`` (cnn.cc:110-128), one
-        device: ``warmup`` untimed steps, then the timed ones, the device
-        synced once when the timed window opens and once when it closes;
-        the loss every ``config.print_freq`` iterations; then the
-        reference's line ``time = %.4fs, tp = %.2f images/s``.
+        """The training loop of ``model.py:1624`` (cnn.cc:110-128): ``warmup``
+        untimed steps, then the timed ones, the device synced once when
+        the timed window opens and once when it closes; the loss every
+        ``config.print_freq`` iterations; then the reference's line
+        ``time = %.4fs, tp = %.2f images/s``.
 
-        The JAX runtime (``_fit``,
-        ``model.py:1755-2160``), each piece off unless configured:
+        The JAX runtime (``_fit``, ``model.py:1755-2298``), each piece off
+        unless configured:
 
           * ``ckpt_dir``: resume from its newest verified checkpoint
             (refusing one trained under another strategy; the data
@@ -932,38 +932,65 @@ class FFModel:
             ``ckpt_freq`` steps and after the last; over several ranks
             rank 0 writes the leaves gathered whole, in the format of a
             one-device save, and every rank restores its own blocks;
+            ``ckpt_async`` hands each write to an
+            :class:`~flexflow_tpu_torch.utils.checkpoint.
+            AsyncCheckpointWriter`, so that only the host snapshot stays
+            on the boundary; a rollback and the final save wait for it;
           * the step health guard (``on_divergence``, ``max_rollbacks``)
             checks the losses at print, checkpoint and final boundaries;
             ``rollback`` restores the newest verified checkpoint and
             re-runs from it on fresh batches;
+          * ``hang_factor`` > 0 arms the step watchdog around each
+            boundary's blocking syncs; a boundary past its deadline
+            raises ``DeviceLostError`` (there is no elastic training);
+          * SIGTERM and SIGINT (or an injected ``preempt``) drain the
+            run: at the next boundary it commits a checkpoint within
+            ``drain_budget_s``, writes one ``preempt_drain`` record,
+            leaves the process group and returns with ``drained``; over
+            several ranks the ranks agree on the flag at every boundary,
+            so that all stop at the same one;
+          * ``metrics_path``: rank 0 rewrites the live metrics there at
+            its print and checkpoint boundaries and after the loop;
           * ``prefetch_depth`` > 0 pulls batches through a
             ``DevicePrefetcher`` (0, the default, pulls them in the loop);
           * ``fault_spec`` installs the fault injector for the run: its
-            ``loss_nan`` site is here, ``data_io`` in the batch pull
-            (``utils/retry.py:retrying_iter``), ``ckpt_truncate`` and
-            ``ckpt_corrupt`` in ``save_checkpoint``.
+            ``loss_nan``, ``host_crash``, ``device_loss``, ``preempt``
+            and ``step_hang`` sites are here, ``data_io`` in the batch
+            pull (``utils/retry.py:retrying_iter``), ``ckpt_truncate``
+            and ``ckpt_corrupt`` in ``save_checkpoint``.
+
+        Any error leaves through one exit: the prefetcher closed, the
+        async writer abandoned (``close(timeout=5)``), the watchdog
+        closed, the process group released (``distributed.release``).
 
         Run telemetry (``flexflow_tpu/model.py:1639``, ``:1925-1940``,
         ``:2467-2860``): with ``obs_dir`` set, rank 0 writes the run's
-        records to ``<obs_dir>/<run_id>.jsonl`` after the loop —
-        ``compile`` (the first step's wall seconds), one ``step`` per
-        step from a host clock that syncs nothing, ``summary``, and
-        ``sim_drift`` (the timed step over the strategy's simulated one)
-        or ``sim_drift_unavailable`` with the reason.  With
-        ``op_time_every`` N as well, every Nth step runs sampled
-        (:meth:`_sampled_step`) on every rank, and rank 0 writes
-        ``op_time`` records: each sampled step's sections, then one
-        shard of every op timed alone (:meth:`_emit_op_times`).  The
-        other ranks write nothing.
+        records to ``<obs_dir>/<run_id>.jsonl`` — the guard's, the
+        checkpoints' and the drain's as they happen, and after the loop
+        ``compile`` (the first step's wall seconds and the step's FLOP
+        count, :meth:`step_flops`), one ``step`` per step from a host
+        clock that syncs nothing, ``summary``, the sampled ``op_time``
+        records, ``step_budget``, ``sim_drift`` (the timed step over the
+        strategy's simulated one) or ``sim_drift_unavailable`` with the
+        reason, and ``prefetch``.  With ``op_time_every`` N as well,
+        every Nth step runs sampled (:meth:`_sampled_step`) on every
+        rank.  The other ranks write nothing.
 
         Returns ``{"params", "state", "opt_state", "loss" (floats, from
         the first step run), "elapsed_s", "images_per_sec", "rollbacks",
         "completed_steps", "checkpoint_s" (saves inside the loop),
+        "final_save_s" (the final save after the loop, its wait for the
+        writer's last commit included; 0.0 without one),
         "restore_s" (the resume's and the rollbacks' restores),
-        "input_stall_s", "run_id", "obs_path"}`` (the last two None
-        without a sink)."""
-        from flexflow_tpu_torch import obs
-        from flexflow_tpu_torch.utils import faultinject
+        "input_stall_s", "ckpt_async_saves", "ckpt_async" (the writer's
+        commits as (step, submit-to-commit seconds), the steps that
+        ended while a write ran and every step's host seconds; None
+        without the writer), "run_id", "obs_path", "metrics_path"}``
+        (the last three None or "" without a sink), and after a drain
+        ``"drained": True`` and ``"drain"`` (the ``preempt_drain``
+        record)."""
+        from flexflow_tpu_torch import distributed, obs
+        from flexflow_tpu_torch.utils import elastic, faultinject
 
         num_iterations = num_iterations or self.config.num_iterations
         olog = obs.NULL if self.machine.rank else obs.from_config(
@@ -975,18 +1002,28 @@ class FFModel:
                   "iterations": num_iterations,
                   "compute_dtype": self.config.compute_dtype,
                   "strategy_ops": len(self.config.strategies)})
-        inj = faultinject.from_config(self.config)
+        inj = faultinject.from_config(self.config, olog=olog)
         restore_inj = faultinject.install_scoped(inj) if inj.enabled \
             else None
+        # the drain's handlers live only inside fit and are restored on
+        # every way out
+        drain = {"requested": False, "signum": None}
+        restore_sig = elastic.install_drain_handler(drain, log)
         try:
             return self._fit(data_iter, num_iterations, warmup, log, inj,
-                             olog)
+                             olog, drain)
+        except BaseException:
+            # an error exit leaves the world at once: the other ranks'
+            # collectives fail instead of waiting for their timeout
+            distributed.release()
+            raise
         finally:
+            restore_sig()
             if restore_inj is not None:
                 restore_inj()
             olog.close()
 
-    def _resume(self, data_iter, num_iterations, log):
+    def _resume(self, data_iter, num_iterations, log, olog):
         """``(start_iter, params, state, opt_state)`` from the newest
         verified checkpoint under ``config.ckpt_dir``, the data stream
         advanced past its steps; None when there is none."""
@@ -995,7 +1032,10 @@ class FFModel:
         ckpt_dir = self.config.ckpt_dir
         if not ckpt_dir or ckpt.latest_step(ckpt_dir) is None:
             return None
-        start_iter, params, state, opt_state = self._restore(ckpt_dir)
+        t0 = time.perf_counter()
+        start_iter, params, state, opt_state = self._restore(ckpt_dir, olog)
+        olog.event("checkpoint_restore", step=start_iter,
+                   seconds=time.perf_counter() - t0, dir=ckpt_dir)
         saved = ckpt.load_strategy(ckpt_dir, step=start_iter)
         if dict(saved or {}) != dict(self.config.strategies):
             raise ValueError(
@@ -1017,14 +1057,18 @@ class FFModel:
         return (start_iter, params, state,
                 opt_state or self.init_opt_state(params))
 
-    def _fit(self, data_iter, num_iterations, warmup, log, inj, olog):
+    def _fit(self, data_iter, num_iterations, warmup, log, inj, olog,
+             drain):
+        from flexflow_tpu_torch.obs import metrics as obs_metrics
         from flexflow_tpu_torch.utils import checkpoint as ckpt
-        from flexflow_tpu_torch.utils.health import StepHealthGuard
+        from flexflow_tpu_torch.utils import elastic
+        from flexflow_tpu_torch.utils.health import (StepHealthGuard,
+                                                     StepWatchdog)
         from flexflow_tpu_torch.utils.retry import retrying_iter
 
         cfg = self.config
         t0 = time.perf_counter()
-        resumed = self._resume(data_iter, num_iterations, log)
+        resumed = self._resume(data_iter, num_iterations, log, olog)
         restore_s = time.perf_counter() - t0 if resumed is not None else 0.0
         if resumed is not None:
             start_iter, params, state, opt_state = resumed
@@ -1032,6 +1076,18 @@ class FFModel:
             start_iter = 0
             params, state = self.init()
             opt_state = self.init_opt_state(params)
+        print_freq, ckpt_dir, ckpt_freq = (cfg.print_freq, cfg.ckpt_dir,
+                                           cfg.ckpt_freq)
+        # the writer exists on every rank, so that every rank takes the
+        # same collectives; only rank 0 is handed trees to write
+        awriter = ckpt.AsyncCheckpointWriter(olog=olog, log=log) \
+            if ckpt_dir and cfg.ckpt_async else None
+        # injected device losses are marked here and acted on at the next
+        # boundary
+        dead: List[int] = []
+        wd = StepWatchdog(cfg.hang_factor, min_deadline_s=cfg.hang_min_s,
+                          olog=olog, log=log) if cfg.hang_factor > 0 else None
+        hang_pending = False
         data_iter = retrying_iter(data_iter, log=log)
         prefetcher = None
         if cfg.prefetch_depth > 0:
@@ -1044,28 +1100,37 @@ class FFModel:
         warmup = start_iter + min(warmup,
                                   max(num_iterations - start_iter - 1, 0))
         guard = StepHealthGuard(cfg.on_divergence, cfg.max_rollbacks,
-                                log=log)
-        print_freq, ckpt_dir, ckpt_freq = (cfg.print_freq, cfg.ckpt_dir,
-                                           cfg.ckpt_freq)
+                                olog=olog, log=log)
+        # the live metrics, rank 0's alone
+        metrics = None if self.machine.rank else obs_metrics.from_config(
+            cfg, meta={"model": type(self).__name__,
+                       "run": olog.run_id or ""})
+        # the step budget's host buckets: the boundaries' syncs and the
+        # checkpoints' time on the boundary
+        host_sync_s = checkpoint_s = 0.0
+        fault_count = 0
         # losses stay device scalars until a boundary reads them; loss_base
         # is the step of losses[0] (a rollback may go back past the resume
         # point), window_start the first step the guard has not checked
         losses = []
         loss_base = window_start = it = start_iter
-        checkpoint_s = 0.0
-        # the obs sink's per-step host clock (no sync), and the sampled op
-        # timing: decided from the config alone, so that every rank takes
-        # the sampled sections' collectives at the same step
+        # the per-step host clock (no sync) of the obs sink, the metrics
+        # and the async writer's busy steps
         clock = None
-        if olog.enabled:
+        if olog.enabled or metrics is not None or awriter is not None:
             from flexflow_tpu_torch.utils.profiling import StepClock
 
             clock = StepClock()
+        busy_steps = []
+        # the sampled op timing: decided from the config alone, so that
+        # every rank takes the sampled sections' collectives at one step
         sample_every = max(int(cfg.op_time_every or 0), 0) \
             if cfg.obs_dir else 0
         sections = self._make_section_fns() if sample_every else None
         op_samples = []
         start = time.perf_counter()
+        last_boundary_t, last_boundary_it = start, start_iter
+        drained = None
         try:
             while it < num_iterations:
                 batch = next(data_iter)
@@ -1079,24 +1144,61 @@ class FFModel:
                 else:
                     params, state, opt_state, loss = step(
                         params, state, opt_state, *batch)
-                if inj.enabled and inj.fire("loss_nan", site="fit"):
-                    # poison the recorded loss on the device; the guard
-                    # sees it at the next boundary
-                    loss = loss * float("nan")
+                if inj.enabled:
+                    if inj.fire("loss_nan", site="fit"):
+                        # poison the recorded loss on the device; the
+                        # guard sees it at the next boundary
+                        loss = loss * float("nan")
+                    if inj.fire("host_crash", site="fit"):
+                        raise elastic.HostCrashError(
+                            f"injected host crash at iteration {it + 1}")
+                    if inj.fire("device_loss", site="fit"):
+                        # the highest live ordinal is lost for good
+                        alive = [i for i in range(self.machine.num_devices)
+                                 if i not in dead]
+                        if alive:
+                            dead.append(alive[-1])
+                    if inj.fire("preempt", site="fit"):
+                        elastic.request_drain(drain)
+                    if inj.fire("step_hang", site="fit"):
+                        # wedge the next boundary past the deadline
+                        hang_pending = True
                 losses.append(loss)
                 if clock is not None:
                     clock.tick()
+                    if awriter is not None and awriter.inflight:
+                        busy_steps.append(it + 1)
                 it1 = it + 1
                 at_print = bool(print_freq) and it1 % print_freq == 0
                 at_ckpt = bool(ckpt_dir) and bool(ckpt_freq) \
                     and it1 % ckpt_freq == 0 and it1 < num_iterations
-                if at_print or at_ckpt or it1 == num_iterations:
+                at_boundary = at_print or at_ckpt or it1 == num_iterations
+                if at_boundary:
+                    if wd is not None:
+                        # armed around the boundary's blocking syncs, the
+                        # estimate fed by the wall time between boundaries
+                        now = time.perf_counter()
+                        wd.observe(now - last_boundary_t,
+                                   it1 - last_boundary_it)
+                        last_boundary_t, last_boundary_it = now, it1
+                        wd.arm(it1)
+                        if hang_pending:
+                            hang_pending = False
+                            wd.stall()
+                    if dead:
+                        self._raise_device_loss(dead, it1)
+                    tb0 = time.perf_counter()
                     action = guard.check(losses[window_start - loss_base:],
                                          first_step=window_start + 1)
                     if action == "rollback":
+                        host_sync_s += time.perf_counter() - tb0
+                        if wd is not None:
+                            wd.disarm()
                         t0 = time.perf_counter()
+                        # the restore must see the newest commit
+                        self._writer_wait(awriter)
                         it, params, state, opt_state = \
-                            self._rollback_restore(ckpt_dir, log, it1)
+                            self._rollback_restore(ckpt_dir, olog, log, it1)
                         restore_s += time.perf_counter() - t0
                         del losses[max(it - loss_base, 0):]
                         loss_base = min(loss_base, it)
@@ -1105,35 +1207,396 @@ class FFModel:
                         # fresh batches, past the bad window
                         continue
                     window_start = it1
+                    host_sync_s += time.perf_counter() - tb0
                 if at_print:
+                    tb0 = time.perf_counter()
                     log(f"iter {it1}: loss = {float(loss):.4f}")
+                    host_sync_s += time.perf_counter() - tb0
                 if at_ckpt:
                     t0 = time.perf_counter()
-                    self._save(ckpt, it1, params, state, opt_state, log)
+                    if not self._save(ckpt, it1, params, state, opt_state,
+                                      log, olog, awriter):
+                        fault_count += 1
                     checkpoint_s += time.perf_counter() - t0
+                if wd is not None and at_boundary:
+                    hang = wd.disarm()
+                    if hang is not None:
+                        self._handle_step_hang(hang, it1)
+                if at_boundary and it1 < num_iterations:
+                    drain["requested"] = self._drain_agreed(drain)
+                if metrics is not None and (at_print or at_ckpt):
+                    self._metrics_update(
+                        metrics, olog, params, losses, it1, warmup, start,
+                        guard, prefetcher, fault_count, awriter=awriter,
+                        draining=drain["requested"])
+                if drain["requested"] and at_boundary \
+                        and it1 < num_iterations:
+                    # the step in flight has finished: commit a last
+                    # checkpoint within the budget, record it, and leave
+                    drained = self._drain_checkpoint(
+                        ckpt, awriter, it1, params, state, opt_state, drain,
+                        olog, log, just_saved=at_ckpt)
+                    it = it1
+                    break
                 it = it1
             self._sync()
             elapsed = time.perf_counter() - start
-        finally:
+        except BaseException:
+            # the error exit: stop the staging thread, abandon the writer
+            # without blocking on its queue, join the watchdog's timer
             if prefetcher is not None:
                 prefetcher.close()
-        if ckpt_dir and start_iter < num_iterations:
-            self._save(ckpt, num_iterations, params, state, opt_state, log)
+            if awriter is not None:
+                awriter.close(timeout=5.0)
+            if wd is not None:
+                wd.close()
+            raise
+        if prefetcher is not None:
+            prefetcher.close()
+        if wd is not None:
+            wd.close()
+        final_save_s = 0.0
+        if ckpt_dir and start_iter < num_iterations and drained is None:
+            # the final save is the one write fit waits for: a returning
+            # run leaves a committed, verified state
+            t0 = time.perf_counter()
+            self._save(ckpt, num_iterations, params, state, opt_state, log,
+                       olog, awriter)
+            self._writer_wait(awriter)
+            final_save_s = time.perf_counter() - t0
+        if awriter is not None:
+            awriter.close()
         n_timed = it - warmup
         throughput = (n_timed * cfg.batch_size / elapsed
                       if elapsed > 0 and n_timed > 0 else 0.0)
         log(f"time = {elapsed:.4f}s, tp = {throughput:.2f} images/s")
         losses = torch.stack(losses).tolist() if losses else []
+        if metrics is not None:
+            # the settled end-of-run numbers (the only write of a run
+            # whose print and checkpoint boundaries never came)
+            self._metrics_update(
+                metrics, olog, params, losses, it, warmup, start, guard,
+                prefetcher, fault_count, elapsed=elapsed,
+                throughput=throughput, awriter=awriter,
+                draining=drained is not None)
         if olog.enabled:
-            self._emit_fit_records(olog, clock, losses, start_iter, warmup,
-                                   it, elapsed, throughput, op_samples)
-        return {"params": params, "state": state, "opt_state": opt_state,
-                "loss": losses,
-                "elapsed_s": elapsed, "images_per_sec": throughput,
-                "rollbacks": guard.rollbacks, "completed_steps": it,
-                "checkpoint_s": checkpoint_s, "restore_s": restore_s,
+            budget_totals = {
+                "host_sync_s": host_sync_s, "checkpoint_s": checkpoint_s,
                 "input_stall_s": prefetcher.stall_s if prefetcher else 0.0,
-                "run_id": olog.run_id, "obs_path": olog.path}
+                "input_batches": prefetcher.batches if prefetcher else 0,
+                "steps": it - start_iter}
+            self._emit_fit_records(olog, clock, losses, start_iter, warmup,
+                                   it, elapsed, throughput, op_samples,
+                                   budget_totals)
+            if prefetcher is not None:
+                olog.event("prefetch", **prefetcher.summary())
+        out = {"params": params, "state": state, "opt_state": opt_state,
+               "loss": losses,
+               "elapsed_s": elapsed, "images_per_sec": throughput,
+               "rollbacks": guard.rollbacks, "completed_steps": it,
+               "checkpoint_s": checkpoint_s, "final_save_s": final_save_s,
+               "restore_s": restore_s,
+               "input_stall_s": prefetcher.stall_s if prefetcher else 0.0,
+               "ckpt_async_saves": awriter.saves if awriter else 0,
+               "ckpt_async": ({"commits": awriter.commits,
+                               "busy_steps": busy_steps,
+                               "step_s": clock.deltas}
+                              if awriter is not None else None),
+               "run_id": olog.run_id, "obs_path": olog.path,
+               "metrics_path": metrics.path if metrics is not None else ""}
+        if drained is not None:
+            out["drained"] = True
+            out["drain"] = drained
+        return out
+
+    # ------------------------------------------------------------------
+    # the runtime's faults, its drain and its live metrics
+    # (model.py:2300-2345, :2598-2765)
+
+    def _raise_device_loss(self, dead, step):
+        """An injected device loss at a boundary: without elastic
+        training it is fatal (``model.py:2300``)."""
+        from flexflow_tpu_torch.utils import elastic
+
+        raise elastic.DeviceLostError(
+            f"permanent device loss at iteration {step} (ordinals "
+            f"{sorted(set(dead))}); run with --elastic to recover on "
+            f"the surviving mesh")
+
+    def _handle_step_hang(self, info, step):
+        """A boundary that returned past the watchdog's deadline: without
+        elastic training there is nothing to probe and recover, so it is
+        fatal (``model.py:2315``)."""
+        from flexflow_tpu_torch.utils import elastic
+
+        raise elastic.DeviceLostError(
+            f"boundary at iteration {step} exceeded the step "
+            f"watchdog deadline ({info['deadline_s']:.1f}s); run "
+            f"with --elastic to probe and recover instead of "
+            f"failing")
+
+    def _world_handle(self):
+        """The world's process group handle, or None in a world of one
+        (no collective to take)."""
+        if self.machine.num_devices <= 1:
+            return None
+        return self.machine.world_group().handle
+
+    def _drain_agreed(self, drain) -> bool:
+        """Whether any rank was asked to drain: the world's MAX of the
+        flag, taken at every boundary of a world of several ranks, so that
+        every rank stops at the same one (a signal may reach the ranks
+        during different steps); ``drain["signum"]`` becomes the largest
+        signal number asked.  This rank's flag in a world of one."""
+        group = self._world_handle()
+        if group is None:
+            return bool(drain["requested"])
+        import torch.distributed as dist
+
+        t = torch.tensor([float(bool(drain["requested"])),
+                          float(drain["signum"] or 0)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        flag, signum = t.tolist()
+        if flag and not drain["requested"]:
+            drain["signum"] = int(signum) or None
+        return bool(flag)
+
+    def _writer_wait(self, awriter, timeout: Optional[float] = None) -> bool:
+        """Wait for the async writer (when there is one: every rank has
+        one or none) and, over several ranks, agree: True when every
+        rank's writer drained in time.  The ranks then pass one barrier,
+        so that a restore reads the commit."""
+        if awriter is None:
+            return True
+        done = awriter.wait(timeout=timeout)
+        group = self._world_handle()
+        if group is None:
+            return done
+        import torch.distributed as dist
+
+        t = torch.tensor([float(done)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+        dist.barrier(group=group)
+        return bool(t.item())
+
+    def _drain_checkpoint(self, ckpt, awriter, step, params, state,
+                          opt_state, drain, olog, log, just_saved=False):
+        """The graceful drain's checkpoint (``model.py:2345``), committed
+        within ``drain_budget_s``: the async writer's wait (mode
+        ``async``), a synchronous save when it missed the budget
+        (``sync_fallback``), this boundary's synchronous save
+        (``boundary_save``), a synchronous save (``sync``), no checkpoint
+        directory (``none``) or a save that failed (``failed``).  Writes
+        the one ``preempt_drain`` record, leaves the process group, and
+        returns the record."""
+        from flexflow_tpu_torch import distributed
+
+        t0 = time.perf_counter()
+        ckpt_dir = self.config.ckpt_dir
+        budget = float(self.config.drain_budget_s or 60.0)
+        mode, ckpt_step = "none", None
+        if ckpt_dir:
+            if awriter is not None:
+                if not just_saved:
+                    self._save(ckpt, step, params, state, opt_state, log,
+                               olog, awriter)
+                left = max(budget - (time.perf_counter() - t0), 0.05)
+                if self._writer_wait(awriter, timeout=left):
+                    mode, ckpt_step = "async", step
+                else:
+                    log(f"drain: async writer missed the {budget:.0f}s "
+                        f"budget; falling back to a best-effort sync save")
+                    mode, ckpt_step = self._drain_save(
+                        ckpt, step, params, state, opt_state, log, olog,
+                        "sync_fallback")
+            elif just_saved:
+                # this boundary's synchronous save has committed
+                mode, ckpt_step = "boundary_save", step
+            else:
+                mode, ckpt_step = self._drain_save(
+                    ckpt, step, params, state, opt_state, log, olog, "sync")
+        group = self._world_handle()
+        if group is not None:
+            # rank 0 wrote: its outcome is every rank's
+            import torch.distributed as dist
+
+            agreed = [(mode, ckpt_step)]
+            dist.broadcast_object_list(agreed, src=0, group=group)
+            mode, ckpt_step = agreed[0]
+        seconds = time.perf_counter() - t0
+        info = {"step": step, "steps_completed": step,
+                "ckpt_step": ckpt_step, "signal": drain.get("signum"),
+                "seconds": seconds, "budget_s": budget, "mode": mode}
+        olog.event("preempt_drain", **info)
+        at = (f"checkpoint at step {ckpt_step}" if ckpt_step is not None
+              else "no checkpoint")
+        log(f"drain: stopped cleanly at iteration {step} ({at}, "
+            f"{seconds:.2f}s of the {budget:.0f}s budget, mode {mode})")
+        distributed.release()
+        return info
+
+    def _drain_save(self, ckpt, step, params, state, opt_state, log, olog,
+                    mode):
+        """A synchronous save of the drain: ``(mode, step)`` when it
+        committed, ``("failed", None)`` when it did not."""
+        try:
+            if self._save(ckpt, step, params, state, opt_state, log, olog):
+                return mode, step
+        except Exception as e:
+            log(f"warning: drain checkpoint failed: {e}")
+        return "failed", None
+
+    def step_flops(self) -> float:
+        """The modeled FLOPs of one training step over every device: each
+        op's forward FLOPs at 3x for the forward and the backward
+        (``sim/cost_model.py:shard_flops``), over all its shards.  The
+        port has no compiled program to ask, as the JAX package asks XLA's
+        cost analysis (``model.py:2566``)."""
+        from flexflow_tpu_torch.sim.cost_model import shard_flops
+
+        return float(sum(shard_flops(op, op.pc) * op.pc.num_parts
+                         for op in self.layers))
+
+    def _metrics_update(self, metrics, olog, params, losses, it1, warmup,
+                        start_t, guard, prefetcher, fault_count,
+                        elapsed=None, throughput=None, awriter=None,
+                        draining=False):
+        """Refresh and publish the live gauges (``model.py:2598``) at a
+        boundary that has synced: the throughput and the step time since
+        the timed window opened, ``mfu`` from :meth:`step_flops` over the
+        card's peak for the compute dtype (``HopperChipPerf.flops_rate``,
+        times the devices), the device memory's live and peak bytes
+        (``torch.cuda``; none on the CPU), the counters.  Writes the files
+        and mirrors them as a ``metrics`` record."""
+        from flexflow_tpu_torch.sim.cost_model import HopperChipPerf
+
+        if "flops" not in metrics.cache:
+            metrics.cache["flops"] = self.step_flops()
+        flops = metrics.cache["flops"]
+        n_timed = it1 - warmup
+        if elapsed is None:
+            elapsed = time.perf_counter() - start_t
+        if throughput is None:
+            throughput = (n_timed * self.config.batch_size / elapsed
+                          if n_timed > 0 and elapsed > 0 else None)
+        step_s = (elapsed / n_timed if n_timed > 0 and elapsed > 0
+                  else None)
+        peak = HopperChipPerf().flops_rate(self.config.compute_dtype) \
+            * max(self.machine.num_devices, 1)
+        # no byte count without a compiled program, so no roofline floor:
+        # the exporter drops the None mfu_ceiling gauge
+        mfu = flops / step_s / peak if flops and step_s else None
+        hbm_live = hbm_peak = None
+        if self.device.type == "cuda":
+            hbm_live = torch.cuda.memory_allocated(self.device)
+            hbm_peak = torch.cuda.max_memory_allocated(self.device)
+        last_loss = None
+        if losses:
+            try:   # the boundary has synced; this is a small copy
+                last_loss = float(losses[-1])
+            except (TypeError, ValueError):
+                pass
+        param_bytes = float(sum(v.numel() * v.element_size()
+                                for sub in params.values()
+                                for v in sub.values()))
+        metrics.update(
+            param_bytes_total=param_bytes,
+            throughput_items_per_sec=throughput,
+            images_per_sec=throughput,
+            mfu=mfu, mfu_ceiling=None,
+            step_wall_seconds=step_s, loss=last_loss,
+            steps_total=it1,
+            hbm_peak_bytes=hbm_peak, hbm_live_bytes=hbm_live,
+            prefetch_stall_seconds_total=(prefetcher.stall_s
+                                          if prefetcher else 0.0),
+            rollbacks_total=guard.rollbacks,
+            faults_total=fault_count + (awriter.faults
+                                        if awriter is not None else 0),
+            elastic_events=0,
+            drain_pending=1.0 if draining else 0.0,
+            ckpt_async_inflight=(awriter.inflight
+                                 if awriter is not None else 0))
+        for direction in ("shrink", "grow"):
+            metrics.update_labeled("elastic_events",
+                                   {"direction": direction}, 0)
+        try:
+            metrics.write()
+        except OSError as e:
+            import warnings
+
+            warnings.warn(f"metrics export failed: {e}", RuntimeWarning)
+            return
+        olog.event("metrics", path=metrics.path, **metrics.finite_values())
+
+    def _sim_comm_s(self):
+        """The simulator's collective seconds for the loaded strategy
+        (``model.py:2687``), the ``comm`` bucket's first source; None
+        without a strategy or when the simulation fails."""
+        if not self.config.strategies:
+            return None
+        try:
+            from flexflow_tpu_torch.sim.search import StrategySearch
+
+            ss = StrategySearch(self, machine=self.machine)
+            rows = ss.cost_breakdown(
+                ss.assignment_for(self.config.strategies))
+            return sum(r["collective_s"] for r in rows)
+        except Exception:
+            return None
+
+    def _emit_step_budget(self, olog, totals, op_samples, op_rows,
+                          elapsed, n_timed):
+        """The run's ``step_budget`` record (``model.py:2705``): one
+        sampled (or loop-mean) step's wall time split into compute, comm,
+        input stall, host sync, checkpoint and residual, every input an
+        existing measurement or an amortized total.  None without timed
+        steps."""
+        from flexflow_tpu_torch.obs.budget import build_step_budget
+
+        sources = {}
+        walls = sorted(s["step_s"] for s in op_samples if s.get("step_s"))
+        if walls:
+            wall = walls[len(walls) // 2]
+            sources["wall"] = "sampled_step"
+        elif n_timed > 0 and elapsed > 0:
+            wall = elapsed / n_timed
+            sources["wall"] = "loop_mean"
+        else:
+            return
+        compute = None
+        if op_rows:
+            # the ops' shards timed alone estimate the forward and backward
+            # without collectives; the optimizer section adds the update
+            iso = sum(r["seconds"] for r in op_rows)
+            opts = sorted(max(s["step_s"] - s["forward_backward"], 0.0)
+                          for s in op_samples
+                          if s.get("step_s") is not None
+                          and s.get("forward_backward") is not None)
+            compute = iso + (opts[len(opts) // 2] if opts else 0.0)
+            sources["compute"] = (
+                "isolated_ops+optimizer_section"
+                if all(r["measured"] for r in op_rows)
+                else "isolated_ops(analytic_standins)+optimizer_section")
+        comm = self._sim_comm_s()
+        if comm is not None:
+            sources["comm"] = "sim"
+        elif op_rows:
+            # the fused forward-backward section less the ops alone: the
+            # step's communication the isolated timing cannot see
+            fbs = sorted(s["forward_backward"] for s in op_samples
+                         if s.get("forward_backward") is not None)
+            if fbs:
+                comm = max(fbs[len(fbs) // 2]
+                           - sum(r["seconds"] for r in op_rows), 0.0)
+                sources["comm"] = "section_residual"
+        steps = max(int(totals.get("steps", 0)), 1)
+        batches = int(totals.get("input_batches", 0)) or steps
+        olog.event("step_budget", **build_step_budget(
+            wall, compute_s=compute, comm_s=comm,
+            input_stall_s=totals.get("input_stall_s", 0.0) / batches,
+            host_sync_s=totals.get("host_sync_s", 0.0) / steps,
+            checkpoint_s=totals.get("checkpoint_s", 0.0) / steps,
+            sources=sources, n_samples=len(op_samples)))
 
     # ------------------------------------------------------------------
     # run telemetry (model.py:2467-2860)
@@ -1192,13 +1655,14 @@ class FFModel:
         op_samples.append(rec)
         return out
 
-    def _emit_op_times(self, olog, op_samples) -> None:
+    def _emit_op_times(self, olog, op_samples) -> list:
         """The ``op_time`` records of a sampled run (``model.py:2531``):
         each sample's sections (backward and optimizer by subtraction,
         clamped at 0), then one shard of every op under its config timed
         alone (:func:`~flexflow_tpu_torch.utils.profiling.time_op_shard`),
         the analytic cost standing in where the op has no clone
-        (``measured`` false)."""
+        (``measured`` false).  Returns the op rows (``op``, ``seconds``,
+        ``measured``) for the step budget."""
         from flexflow_tpu_torch.sim.cost_model import AnalyticCostModel
         from flexflow_tpu_torch.utils.profiling import time_op_shard
 
@@ -1213,6 +1677,7 @@ class FFModel:
                 olog.event("op_time", scope="section", section=name,
                            step=s["step"], seconds=secs)
         analytic = AnalyticCostModel()
+        rows = []
         for op in self.layers:
             t = time_op_shard(op, op.pc, dtype=self.config.compute_dtype,
                               device=self.device)
@@ -1222,18 +1687,23 @@ class FFModel:
             olog.event("op_time", scope="op", op=op.name,
                        op_kind=type(op).__name__, grid=list(op.pc.dims),
                        seconds=t, measured=measured)
+            rows.append({"op": op.name, "seconds": float(t),
+                         "measured": measured})
+        return rows
 
     def _emit_fit_records(self, olog, clock, losses, start_iter, warmup,
                           num_iterations, elapsed, throughput,
-                          op_samples) -> None:
+                          op_samples, budget_totals) -> None:
         """The fit surface's records after the loop (``model.py:2767``):
-        ``compile`` (the first step's wall seconds: there is no compiled
-        program to analyse), ``step`` per step, ``summary``, the
-        ``op_time`` records of a sampled run, then ``sim_drift`` or
+        ``compile`` (the first step's wall seconds and :meth:`step_flops`:
+        there is no compiled program to analyse), ``step`` per step,
+        ``summary``, the ``op_time`` records of a sampled run,
+        ``step_budget``, then ``sim_drift`` or
         ``sim_drift_unavailable``."""
         bsz = self.config.batch_size
         olog.event("compile",
-                   seconds=clock.deltas[0] if clock.deltas else 0.0)
+                   seconds=clock.deltas[0] if clock.deltas else 0.0,
+                   flops=self.step_flops())
         for i, dt in enumerate(clock.deltas):
             it = start_iter + i
             olog.event("step", step=it + 1, wall_ms=dt * 1e3,
@@ -1244,9 +1714,11 @@ class FFModel:
                    warmup=warmup - start_iter, elapsed_s=elapsed,
                    images_per_sec=throughput,
                    final_loss=losses[-1] if losses else None)
-        if op_samples:
-            self._emit_op_times(olog, op_samples)
+        op_rows = self._emit_op_times(olog, op_samples) if op_samples \
+            else []
         n_timed = num_iterations - warmup
+        self._emit_step_budget(olog, budget_totals, op_samples, op_rows,
+                               elapsed, n_timed)
         if not self.config.strategies:
             olog.event("sim_drift_unavailable",
                        reason="no strategy loaded (pure-DP default run; "
@@ -1290,28 +1762,46 @@ class FFModel:
                        reason="artifact carries a non-positive "
                               "prediction")
 
-    def _save(self, ckpt, step, params, state, opt_state, log) -> None:
-        """One checkpoint save; non-finite state is refused and logged,
-        never committed over good checkpoints (the guard decides the
-        run's fate).  Over several ranks every rank's blocks are gathered
-        into whole leaves (:meth:`gather_trees`), rank 0 writes them, and
-        every rank then waits at one barrier."""
+    def _save(self, ckpt, step, params, state, opt_state, log, olog=None,
+              awriter=None) -> bool:
+        """One checkpoint save: synchronous (with a ``checkpoint_save``
+        record), or the host snapshot handed to ``awriter``.  Non-finite
+        state is refused, logged and recorded as a ``fault``, never
+        committed over good checkpoints (the guard decides the run's
+        fate); False then.  Over several ranks every rank's blocks are
+        gathered into whole leaves (:meth:`gather_trees`, on the boundary
+        on every rank), rank 0 writes or submits them, and every rank
+        then waits at one barrier."""
+        from flexflow_tpu_torch import obs
+
+        olog = olog if olog is not None else obs.NULL
         multi = self.machine.num_devices > 1
+        t0 = time.perf_counter()
         trees = self.gather_trees(params, state, opt_state) if multi \
             else (params, state, opt_state)
         try:
-            if trees is not None:
+            if trees is not None and awriter is not None:
+                awriter.submit(self.config.ckpt_dir, step, *trees,
+                               self.config.strategies)
+            elif trees is not None:
                 ckpt.save_checkpoint(self.config.ckpt_dir, step, *trees,
                                      self.config.strategies)
+                olog.event("checkpoint_save", step=step,
+                           seconds=time.perf_counter() - t0,
+                           dir=self.config.ckpt_dir)
+            return True
         except ckpt.NonFiniteCheckpointError as e:
+            olog.event("fault", source="checkpoint",
+                       fault="nonfinite_state", step=step, error=str(e))
             log(f"warning: skipped checkpoint at iteration {step}: {e}")
+            return False
         finally:
             if multi:
                 import torch.distributed as dist
 
                 dist.barrier(group=self.machine.world_group().handle)
 
-    def _restore(self, ckpt_dir):
+    def _restore(self, ckpt_dir, olog=None):
         """``(step, params, state, opt_state)`` of the newest verified
         checkpoint under ``ckpt_dir`` (falling back past corrupt steps);
         over several ranks every rank reads the whole leaves and keeps
@@ -1320,7 +1810,7 @@ class FFModel:
         from flexflow_tpu_torch.utils import checkpoint as ckpt
 
         step, params, state, opt_state = \
-            ckpt.restore_checkpoint(ckpt_dir, self)
+            ckpt.restore_checkpoint(ckpt_dir, self, olog=olog)
         if self.machine.num_devices > 1:
             params = self.shard_params(params)
             state = self.shard_state(state)
@@ -1398,17 +1888,18 @@ class FFModel:
             out[tree].setdefault(key, {})[leaf] = whole
         return out["params"], out["state"], out["opt"]
 
-    def _rollback_restore(self, ckpt_dir, log, from_step):
+    def _rollback_restore(self, ckpt_dir, olog, log, from_step):
         """The guard's rollback: ``(step, params, state, opt_state)`` of
         the newest verified checkpoint (falling back past corrupt steps),
         or of a fresh ``init()`` at step 0 when there is none
-        (``model.py:2439``)."""
+        (``model.py:2439``), with a ``rollback`` record."""
         from flexflow_tpu_torch.utils import checkpoint as ckpt
 
         rstep, params, state, opt_state = 0, None, None, None
         if ckpt_dir:
             try:
-                rstep, params, state, opt_state = self._restore(ckpt_dir)
+                rstep, params, state, opt_state = self._restore(ckpt_dir,
+                                                                olog)
             except (FileNotFoundError, ckpt.CheckpointError) as e:
                 log(f"rollback: no usable checkpoint under {ckpt_dir!r} "
                     f"({e}); reinitializing from step 0")
@@ -1417,6 +1908,8 @@ class FFModel:
             params, state = self.init()
             opt_state = None
         opt_state = opt_state or self.init_opt_state(params)
+        olog.event("rollback", from_step=from_step, to_step=rstep,
+                   dir=ckpt_dir or None)
         log(f"health guard: rolled back from iteration {from_step} to "
             f"checkpoint step {rstep}")
         return rstep, params, state, opt_state

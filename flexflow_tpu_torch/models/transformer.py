@@ -75,6 +75,11 @@ class TransformerConfig:
     on_divergence: str = "halt"
     max_rollbacks: int = 3
     fault_spec: str = ""
+    ckpt_async: bool = False
+    hang_factor: float = 0.0
+    hang_min_s: float = 60.0
+    drain_budget_s: float = 60.0
+    metrics_path: str = ""
     # run telemetry and sampled op timing (forwarded to FFConfig)
     obs_dir: str = ""
     run_id: str = ""
@@ -111,6 +116,11 @@ class TransformerLM(FFModel):
             on_divergence=self.t.on_divergence,
             max_rollbacks=self.t.max_rollbacks,
             fault_spec=self.t.fault_spec,
+            ckpt_async=self.t.ckpt_async,
+            hang_factor=self.t.hang_factor,
+            hang_min_s=self.t.hang_min_s,
+            drain_budget_s=self.t.drain_budget_s,
+            metrics_path=self.t.metrics_path,
             obs_dir=self.t.obs_dir,
             run_id=self.t.run_id,
             obs_max_bytes=self.t.obs_max_bytes,

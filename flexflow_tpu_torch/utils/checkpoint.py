@@ -27,8 +27,13 @@ Neither direction needs ``ml_dtypes`` here.
 Over several ranks ``FFModel`` gathers the leaves whole to rank 0,
 which writes them here, and shards what it restores (``gather_trees``,
 ``_restore``), where the JAX module places each restored leaf on its
-op's sharding.  The JAX module's asynchronous writer is not ported
-(ROADMAP Queue A item 5).
+op's sharding.
+
+:class:`AsyncCheckpointWriter` moves the serialization, the digests and
+the fsync'd commit to one worker thread: only the host snapshot
+(:func:`snapshot_tree`) stays on the training loop's boundary, and the
+worker calls :func:`save_checkpoint` on it, so the committed bytes are
+those of a synchronous save of the same state.
 """
 
 from __future__ import annotations
@@ -36,7 +41,10 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import queue
 import shutil
+import threading
+import time
 import warnings
 from typing import Any, Dict, Optional, Tuple
 
@@ -306,16 +314,20 @@ def _load_step(ckpt_dir: str, step: int, model=None, device="cuda"
 
 def restore_checkpoint(ckpt_dir: str, model=None,
                        step: Optional[int] = None,
-                       device="cuda") -> Tuple[int, Dict, Dict, Dict]:
+                       device="cuda", olog=None) -> Tuple[int, Dict, Dict,
+                                                          Dict]:
     """``(step, params, state, opt_state)`` as tensors on ``model.device``
     (else ``device``).
 
     Without ``step`` the restore falls back: the newest step is verified
     and loaded; on any failure the next older one is tried, with a
-    ``RuntimeWarning`` naming what was skipped, and only when every
-    committed step fails does this raise
-    :class:`CheckpointCorruptError`.  An explicit ``step`` is verified but
-    never falls back."""
+    ``RuntimeWarning`` naming what was skipped and a ``ckpt_fallback``
+    record on ``olog``, and only when every committed step fails does
+    this raise :class:`CheckpointCorruptError`.  An explicit ``step`` is
+    verified but never falls back."""
+    from flexflow_tpu_torch import obs
+
+    olog = olog if olog is not None else obs.NULL
     _sweep_stale(ckpt_dir)
     if step is not None:
         ok, why = verify_checkpoint(ckpt_dir, step)
@@ -340,6 +352,10 @@ def restore_checkpoint(ckpt_dir: str, model=None,
             failures.append((s, f"load failed: {e}"))
             continue
         if s != newest:
+            olog.event("ckpt_fallback", dir=ckpt_dir, from_step=newest,
+                       to_step=s,
+                       skipped=[{"step": fs, "reason": fw}
+                                for fs, fw in failures])
             warnings.warn(
                 f"checkpoint fallback: step {newest} -> {s} under "
                 f"{ckpt_dir!r} ("
@@ -349,6 +365,166 @@ def restore_checkpoint(ckpt_dir: str, model=None,
     raise CheckpointCorruptError(
         f"every checkpoint under {ckpt_dir!r} failed verification/load: "
         + "; ".join(f"step {fs}: {fw}" for fs, fw in failures))
+
+
+def snapshot_tree(tree: Optional[Dict], pinned: Optional[Dict] = None,
+                  prefix: str = "") -> Dict:
+    """A host copy of a checkpoint tree, every leaf a CPU tensor that
+    nothing else references: the async writer's consistency point.  The
+    next step returns new trees and the caching allocator hands the old
+    leaves' memory to them, so the copy is complete when this returns.
+
+    A CUDA leaf is copied into a page-locked buffer of ``pinned`` (keyed
+    by its path, made at first use and reused while its shape and dtype
+    hold) with ``non_blocking=True``; one event recorded after the
+    copies is synchronized before the function returns.  A host tensor
+    is cloned and an array copied (``np.array(copy=True)``); a copy per
+    device is synchronized by the event recorded after its last copy."""
+    if pinned is None:
+        pinned = {}
+    out: Dict = {}
+    events = {}
+    for path, leaf in _flatten(tree or {}, prefix).items():
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            buf = pinned.get(path)
+            if buf is None or buf.shape != leaf.shape \
+                    or buf.dtype != leaf.dtype:
+                buf = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                  pin_memory=True)
+                pinned[path] = buf
+            buf.copy_(leaf.detach(), non_blocking=True)
+            out[path] = buf
+            events[leaf.device] = torch.cuda.Event()
+            events[leaf.device].record(
+                torch.cuda.current_stream(leaf.device))
+        elif isinstance(leaf, torch.Tensor):
+            out[path] = leaf.detach().clone()
+        else:
+            out[path] = torch.from_numpy(np.array(leaf, copy=True))
+    for event in events.values():
+        event.synchronize()
+    return _unflatten({k[len(prefix):]: v for k, v in out.items()})
+
+
+class AsyncCheckpointWriter:
+    """Background checkpoint committer (``checkpoint.py:437-568`` of the
+    JAX package): the serialization, the digests and the fsync'd atomic
+    commit run on ONE worker thread, off the training step's path.
+
+      * ``submit()`` takes the host snapshot at the call site (the only
+        part that must happen on the boundary) and queues the write; at
+        most ONE save is in flight, so a submit that arrives while the
+        previous write still runs waits for it first;
+      * the committed bytes equal those of a synchronous
+        :func:`save_checkpoint` of the same state: the worker calls that
+        function on the snapshot;
+      * a failed save (:class:`NonFiniteCheckpointError` or any other)
+        never ends the run: it is counted in ``faults``, logged, and
+        recorded as a ``fault`` record;
+      * ``wait()`` blocks until no write is in flight (``fit`` calls it
+        before a rollback restore and at the final save); ``close()``
+        waits, stops and joins the worker.
+
+    ``inflight`` (0 or 1) is the ``ff_ckpt_async_inflight`` gauge; every
+    committed write emits a ``checkpoint_save`` (mode ``async``) and a
+    ``ckpt_async`` record with its submit-to-commit seconds.  The
+    snapshot's page-locked buffers are reused from one save to the next:
+    a submit waits for the previous write before it overwrites them."""
+
+    def __init__(self, olog=None, log=None):
+        from flexflow_tpu_torch import obs
+
+        self.olog = olog if olog is not None else obs.NULL
+        self.log = log or (lambda *a: None)
+        self.inflight = 0
+        self.saves = 0
+        self.faults = 0
+        self.last_step: Optional[int] = None
+        #: (step, submit-to-commit seconds) of each committed write
+        self.commits = []
+        self._pinned: Dict = {}
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._idle = threading.Event()
+        self._idle.set()
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._worker, name="ff-ckpt-async", daemon=True)
+        self._thread.start()
+
+    # -- producer side (the training loop) -------------------------------
+
+    def submit(self, ckpt_dir: str, step: int, params, state, opt_state,
+               strategy=None) -> None:
+        """Snapshot and queue one checkpoint write.  Blocks only while
+        the PREVIOUS write has not finished (one in flight, ever)."""
+        self.wait()
+        job = {"dir": ckpt_dir, "step": int(step),
+               "params": snapshot_tree(params, self._pinned, "params/"),
+               "state": snapshot_tree(state, self._pinned, "state/"),
+               "opt": snapshot_tree(opt_state, self._pinned, "opt/"),
+               "strategy": strategy, "t_submit": time.perf_counter()}
+        with self._lock:
+            self.inflight += 1
+        self._idle.clear()
+        self._q.put(job)
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until no write is in flight.  True when drained."""
+        return self._idle.wait(timeout=timeout)
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Drain, then stop and join the worker.  Idempotent."""
+        self.wait(timeout=timeout)
+        if self._thread.is_alive():
+            self._q.put(None)
+            self._thread.join(timeout=timeout or 10.0)
+
+    # -- worker side -------------------------------------------------------
+
+    def _worker(self):
+        while True:
+            job = self._q.get()
+            if job is None:
+                self._idle.set()
+                return
+            try:
+                try:
+                    save_checkpoint(job["dir"], job["step"], job["params"],
+                                    job["state"], job["opt"],
+                                    job["strategy"])
+                    dt = time.perf_counter() - job["t_submit"]
+                    with self._lock:
+                        self.saves += 1
+                        self.last_step = job["step"]
+                        self.commits.append((job["step"], dt))
+                    self.olog.event("checkpoint_save", step=job["step"],
+                                    seconds=dt, dir=job["dir"],
+                                    mode="async")
+                    self.olog.event("ckpt_async", step=job["step"],
+                                    commit_s=dt, saves=self.saves,
+                                    faults=self.faults)
+                except NonFiniteCheckpointError as e:
+                    with self._lock:
+                        self.faults += 1
+                    self.olog.event("fault", source="checkpoint",
+                                    fault="nonfinite_state",
+                                    step=job["step"], error=str(e))
+                    self.log(f"warning: skipped async checkpoint at "
+                             f"iteration {job['step']}: {e}")
+                except Exception as e:  # never end the run from here
+                    with self._lock:
+                        self.faults += 1
+                    self.olog.event("fault", source="checkpoint",
+                                    fault="async_save_failed",
+                                    step=job["step"], error=str(e))
+                    self.log(f"warning: async checkpoint at iteration "
+                             f"{job['step']} failed: {e}")
+            finally:
+                job = None   # the snapshot's buffers go with the job
+                with self._lock:
+                    self.inflight -= 1
+                    if self.inflight == 0:
+                        self._idle.set()
 
 
 def load_strategy(ckpt_dir: str, step: Optional[int] = None):

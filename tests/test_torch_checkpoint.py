@@ -22,7 +22,7 @@ import torch
 from flexflow_tpu.utils import checkpoint as j_ckpt
 from flexflow_tpu_torch.apps import cnn as t_cnn
 from flexflow_tpu_torch.apps import lm as t_lm
-from flexflow_tpu_torch.config import RUNTIME_FLAGS, FFConfig
+from flexflow_tpu_torch.config import RUNTIME_FLAGS, SWITCH_FLAGS, FFConfig
 from flexflow_tpu_torch.data.prefetch import DevicePrefetcher
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
@@ -378,7 +378,9 @@ def test_fit_with_prefetch_equals_the_synchronous_pull():
 
 VALUES = {"ckpt_dir": "d", "ckpt_freq": "5", "prefetch_depth": "2",
           "on_divergence": "rollback", "max_rollbacks": "7",
-          "fault_spec": "loss_nan@7,ckpt_corrupt@2"}
+          "fault_spec": "loss_nan@7,ckpt_corrupt@2", "ckpt_async": "1",
+          "hang_factor": "20", "hang_min_s": "45", "drain_budget_s": "30",
+          "metrics_path": "m/metrics.prom"}
 
 
 @pytest.mark.parametrize("flag", sorted(RUNTIME_FLAGS))
@@ -386,10 +388,12 @@ def test_runtime_flags_parse(flag):
     field, _ = RUNTIME_FLAGS[flag]
     value = VALUES[field]
     want = type(getattr(FFConfig(), field))(value)
-    assert getattr(FFConfig.from_args([flag, value]), field) == want
-    cfg, _, _ = t_lm.parse_args([flag, value])
+    # a switch takes no value
+    argv = [flag] if flag in SWITCH_FLAGS else [flag, value]
+    assert getattr(FFConfig.from_args(argv), field) == want
+    cfg, _, _ = t_lm.parse_args(argv)
     assert getattr(cfg, field) == want
-    _, ccfg, _, _ = t_cnn.parse(["alexnet", flag, value])
+    _, ccfg, _, _ = t_cnn.parse(["alexnet"] + argv)
     assert getattr(ccfg, field) == want
     # the LM model forwards the field into its FFConfig
     assert getattr(TransformerLM(cfg, device="cpu").config, field) == want

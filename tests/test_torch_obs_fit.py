@@ -6,8 +6,8 @@
   ``tests/test_obs.py:445``);
 * ``tests/test_trace.py``'s op-timing CNN in both packages from one
   parameter tree (``params_from_jax``), 4 steps with ``op_time_every``
-  2: the same record kinds in the same order (the records JAX writes of
-  modules not ported yet, ``step_budget`` and ``regrid_plan``, aside),
+  2: the same record kinds in the same order (``step_budget`` included;
+  ``regrid_plan``, the summary of JAX's regrid planner, aside),
   the same op names, kinds, grids and ``measured`` flags in the op
   records, steps 2 and 4 sampled, the losses bit-equal to the port's run
   without sampling and within 1e-4 of JAX's (the CNN bar of
@@ -43,7 +43,7 @@ CFG = dict(batch_size=8, input_height=16, input_width=16,
            num_iterations=STEPS, print_freq=0, num_classes=8,
            learning_rate=1e-3, momentum=0.9, seed=3)
 #: records the JAX fit writes of modules the port has not yet
-NOT_PORTED = {"step_budget", "regrid_plan", "prefetch", "metrics"}
+NOT_PORTED = {"regrid_plan"}
 
 
 def _batches(steps=STEPS):
@@ -107,9 +107,13 @@ def test_obs_flags_parse_as_jax():
     for field in ("op_time_every", "obs_max_bytes", "obs_dir", "run_id",
                   "allow_degraded"):
         assert getattr(TConfig(), field) == getattr(JConfig(), field)
-    for flag in ("--trace-dir", "--profiling", "-metrics-path"):
+    for flag in ("--trace-dir", "--profiling"):
         with pytest.raises(NotImplementedError, match="item 5"):
             TConfig.from_args([flag, "x"])
+    # the live metrics' path is ported, as JAX parses it
+    for flag in ("-metrics-path", "--metrics-path"):
+        assert TConfig.from_args([flag, "x"]).metrics_path == \
+            JConfig.from_args([flag, "x"]).metrics_path == "x"
 
 
 def test_fit_records_match_jax(tmp_path, machine1):

@@ -225,13 +225,14 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("--ckpt-async", "-regrid-planner", "--elastic", "-d",
-                 "--pallas"):
+    for flag in ("--transient-reset-steps", "-regrid-planner", "--elastic",
+                 "-d", "--pallas"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cnn.parse(["alexnet", flag, "x"])
-    # fit's runtime flags are ported: parsed, not refused
-    _, cfg, _, _ = t_cnn.parse(["alexnet", "--ckpt-dir", "x"])
-    assert cfg.ckpt_dir == "x"
+    # fit's runtime and supervision flags are ported: parsed, not refused
+    _, cfg, _, _ = t_cnn.parse(["alexnet", "--ckpt-dir", "x",
+                                "--ckpt-async"])
+    assert cfg.ckpt_dir == "x" and cfg.ckpt_async
 
 
 #: a value for the flags checked when parsed (any other takes "2")

@@ -253,6 +253,23 @@ def fit_ckpt(machine, layers, cfg_kwargs, strategy_json, batches,
             _blocks(opt_boxes, out["opt_state"]), out["rollbacks"])
 
 
+def fit_supervised(machine, layers, cfg_kwargs, strategy_json, batches,
+                   iters, rank0=None):
+    """:func:`fit_ckpt`'s run with ``rank0``'s config entries on rank 0
+    alone (a fault only one rank sees): ``(losses, drain record or None,
+    completed steps, async saves)``."""
+    import torch
+
+    kw = dict(cfg_kwargs, **(rank0 or {})) if machine.rank == 0 \
+        else cfg_kwargs
+    ff = build(machine, layers, kw, strategy_json)
+    data = (ff.local_batch(torch.from_numpy(image), torch.from_numpy(lbl))
+            for image, lbl in batches)
+    out = ff.fit(data, num_iterations=iters, log=lambda *a: None)
+    return (out["loss"], out.get("drain"), out["completed_steps"],
+            out["ckpt_async_saves"])
+
+
 def restored_blocks(machine, layers, cfg_kwargs, strategy_json, ckpt_dir):
     """The blocks this rank keeps of the newest checkpoint under
     ``ckpt_dir``: ``(step, params, state)`` as :func:`train` returns
