@@ -349,6 +349,34 @@ Phases (any failure exits non-zero):
     logged (gloo's host copies are not the simulated machine, so no bar
     is held on them), and ``apps.calibrate --from-obs``'s refit joining
     ops and giving anchors for Conv2D, Pool2D and Linear;
+18f. elastic slice (ROADMAP Queue A item 5, its elastic half), in 18b's
+    two-gloo-rank world before its drained run: ``apps.lm`` at the LM
+    phase's widths under 18b's strategy with ``--elastic --min-devices 1
+    --print-freq 1 --ckpt-dir D --ckpt-freq 2 --regrow-probes 2
+    --max-regrows 1 --research-budget-s 10 --fault-spec
+    device_loss@2,device_return@2 -obs-dir O``, 1 warm-up and 8 steps:
+    rank 1 is lost at the step-2 boundary, the run shrinks 2 -> 1 (live
+    state gathered and migrated in memory, 0 steps lost, the strategy
+    re-searched on rank 0), rank 1 stands by, answers the second and
+    third regrow probes and is called back at step 5 (1 -> 2, the grown
+    strategy searched from 18b's); held: the first 2 losses bit-equal to
+    18b's run, steps 3-5 within 1e-6 of a run on a world of rank 0
+    alone, re-formed from this one for it, resumed from the resize's
+    checkpoint of step 2 under the shrunk strategy, steps 6-8 within
+    1e-6 of a two-rank run resumed from the step-5 checkpoint under the
+    grown strategy, the state the run saved after each migration held
+    to a save no migration wrote (the shrink's to 18b's uninterrupted
+    step-2 checkpoint, the grow's to the one-rank reference's step-5
+    save; bit for bit or within 1e-6), rank 0's records in the order
+    injected fault ->
+    device_loss -> resize (shrink) -> device_return -> resize (grow),
+    each resize's research_s, total_s and regrid_bytes logged, rank 1
+    standing by from step 2 until its call at step 5, rank 0's launches
+    of kernels 1-6 in each segment (steps 1-2 as 18b's, steps 3-5 those
+    of the one-rank reference, on N = 8192 rows of the vocab head,
+    steps 6-8 those of the two-rank reference, every kernel launched),
+    and a run with ``--elastic`` and no fault bit-equal to 18b's first 2
+    losses; the runs' seconds logged;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
@@ -358,7 +386,13 @@ Phases (any failure exits non-zero):
     split over w, by NCCL point-to-point, their bytes logged); then the
     LM under phase 18b's strategy over four ranks (ring x data parallel
     attention, the heads split four ways, the head (4, 1)), its tokens/s
-    beside the one-card run, and its checkpoint resume as 18b's; the MoE
+    beside the one-card run, and its checkpoint resume as 18b's, then
+    18f's elastic run over the four NCCL ranks with
+    ``device_loss@1x2,device_return@1`` and ``--print-freq 2``: 4 -> 2
+    at step 2, 2 -> 4 at step 6, steps 3-6 within 1e-6 of a run on ranks
+    0-1 re-formed for it and steps 7-8 of a four-rank run, each resumed
+    from its resize's checkpoint, and the migrated states held as 18f's;
+    the MoE
     LM with its blocks cycling (4, 1, 1), (2, 1, 2), (1, 2, 2) and the op
     probe under those grids, against phase 18c's one-rank run; the
     pipelined LM at 2 stages x 2 tp, at 4 stages and at phase 18d's
@@ -3319,23 +3353,19 @@ def strategy_phase(torch, kernels, card: str) -> dict:
              f"{ref['images_per_sec']:.2f} images/s, {ref_step_ms:.3f} ms "
              f"a step, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} "
              f"GB; launches {ref_launches}; {card}")
-        one = root / "alexnet_1rank.json"
-        _strategy_file(one, {}, 1)
-        t = time.perf_counter()
-        _torchrun(1, ["-m", "flexflow_tpu_torch.apps.cnn"] + _alexnet_argv(
-            ["-s", str(one), "-ll:gpu", "1", "--result-json",
-             str(root / "one.json")]))
-        res = json.loads((root / "one.json").read_text())
+        world = _one_rank_world(root)
+        res = world["alexnet"]
         step_ms = res["elapsed_s"] / STRATEGY_TIMED * 1e3
         _log(f"strategy torchrun 1 rank (NCCL): {res['images_per_sec']:.2f} "
              f"images/s, {step_ms:.3f} ms a step, peak "
-             f"{res['peak_memory_bytes'] / 1e9:.3f} GB, "
-             f"{time.perf_counter() - t:.1f} s with torchrun's start; "
-             f"launches {res['launches']}; {card}")
+             f"{res['peak_memory_bytes'] / 1e9:.3f} GB; "
+             f"{world['seconds']:.1f} s with torchrun's start for the "
+             f"one-rank world of 4 runs (this, the placement NMT's, the "
+             f"LM's and the MoE LM's); launches {res['launches']}; {card}")
         _check_run("1 rank", res, ref["loss"])
         out = {"launches": res["launches"], "images_per_sec":
                res["images_per_sec"], "step_ms": step_ms,
-               "ref": ref, "ref_step_ms": ref_step_ms}
+               "ref": ref, "ref_step_ms": ref_step_ms, "one_rank": world}
 
         probe = _torchrun(2, [str(Path(__file__).resolve()),
                               "--gloo-cuda-probe"], timeout=300)
@@ -3386,6 +3416,33 @@ def strategy_phase(torch, kernels, card: str) -> dict:
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _one_rank_world(root: Path) -> dict:
+    """The one-rank NCCL runs of the strategy, placement, lm strategy and
+    moe strategy phases, each under its one-device strategy file, in one
+    torchrun world (a start costs 16-35 s, most of it importing torch in
+    the agent and the worker): AlexNet, the NMT, the LM and the MoE LM.
+    Their results by name, and the world's seconds with its start."""
+    files = {name: root / f"{name}_1rank.json"
+             for name in ("alexnet", "nmt", "lm", "moe")}
+    _strategy_file(files["alexnet"], {}, 1)
+    _nmt_strategy(files["nmt"], 1)
+    _lm_strategy_file(files["lm"], 1)
+    _moe_strategy_file(files["moe"], 1)
+    steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
+    runs = [_alexnet_argv(["-s", str(files["alexnet"]), "-ll:gpu", "1"]),
+            _nmt_argv(LM_WARMUP + LM_TIMED, LM_WARMUP)
+            + ["--strategy", str(files["nmt"])],
+            _lm_argv(LM_WARMUP + LM_TIMED, LM_WARMUP)
+            + ["--strategy", str(files["lm"])],
+            _moe_argv(steps, LM_RANKS_WARMUP)
+            + ["--strategy", str(files["moe"])]]
+    results, _, seconds = _lm_ranks(1, root, "one_rank", runs,
+                                    apps={0: "cnn", 1: "nmt"})
+    out = {name: res[0] for name, res in zip(files, results)}
+    out["seconds"] = seconds
+    return out
 
 
 def strategy4_phase(torch, kernels, card: str) -> dict:
@@ -3566,19 +3623,13 @@ def placement_phase(torch, kernels, card: str, nmt_run: dict,
     root.mkdir(exist_ok=True)
     try:
         iters = LM_WARMUP + LM_TIMED
-        one = root / "nmt_1.json"
-        _nmt_strategy(one, 1)
-        t = time.perf_counter()
-        _torchrun(1, ["-m", "flexflow_tpu_torch.apps.nmt"]
-                  + _nmt_argv(iters, LM_WARMUP)
-                  + ["--strategy", str(one), "--result-json",
-                     str(root / "nmt_one.json")])
-        res = json.loads((root / "nmt_one.json").read_text())
+        # run in the strategy phase's one-rank world
+        res = strategy_run["one_rank"]["nmt"]
         step_ms = res["elapsed_s"] / LM_TIMED * 1e3
         _log(f"placement nmt torchrun 1 rank (NCCL, default_global_config): "
              f"{res['sentences_per_sec']:.2f} sentences/s, {step_ms:.3f} ms "
-             f"a step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB, "
-             f"{time.perf_counter() - t:.1f} s with torchrun's start; "
+             f"a step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB (the "
+             f"strategy phase's one-rank world); "
              f"without a strategy in this process "
              f"{nmt_run['sentences_per_sec']:.2f} sentences/s, "
              f"{nmt_run['step_ms']:.3f} ms; {card}")
@@ -3633,6 +3684,16 @@ LM_LAYERS = 12
 # repeats the rest of the uninterrupted run bit for bit, or within 1e-6
 LM_CKPT_FREQ = 2
 LM_RESUME_RTOL = 1e-6
+# phase 18f (and 19's four-card form): the elastic LM in the multi-rank
+# LM world, 1 warm-up and 7 steps, a rank (two of four) lost at step 2
+# and called back at ELASTIC_GROW; each segment's losses within 1e-6 of a
+# run resumed from the resize's checkpoint
+ELASTIC_ITERS = 8
+ELASTIC_FAULTS = {2: "device_loss@2,device_return@2",
+                  4: "device_loss@1x2,device_return@1"}
+ELASTIC_PRINT = {2: 1, 4: 2}
+ELASTIC_SHRINK, ELASTIC_GROW = 2, {2: 5, 4: 6}
+ELASTIC_RTOL = 1e-6
 
 
 def _lm_strategy_file(path: Path, ranks: int) -> None:
@@ -3735,6 +3796,7 @@ def _ranks_worker(spec_path: str) -> int:
     from flexflow_tpu_torch.ops import kernels
 
     spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ.get("RANK", "0"))
     try:
         for i, argv in enumerate(spec["runs"]):
             copy = spec.get("copies", {}).get(str(i))
@@ -3745,22 +3807,57 @@ def _ranks_worker(spec_path: str) -> int:
 
                 import torch.distributed as dist
 
-                if int(os.environ.get("RANK", "0")) == 0:
+                if rank == 0:
                     shutil.copytree(copy[0], copy[1])
                 dist.barrier()
             kernels.reset_launches()
             torch.cuda.reset_peak_memory_stats()
-            if int(os.environ.get("RANK", "0")) == 0:
+            if rank == 0:
                 argv = argv + spec.get("rank0", {}).get(str(i), [])
+            strategy = spec.get("strategy_from", {}).get(str(i))
+            if strategy and Path(strategy).exists():
+                argv = argv + ["--strategy", strategy]
+            sub = spec.get("sub", {}).get(str(i))
+            hooks = spec.get("elastic", {}).get(str(i))
             app = spec.get("apps", {}).get(str(i), "lm")
+            main = importlib.import_module(f"flexflow_tpu_torch.apps.{app}"
+                                           ).main
+            t = time.perf_counter()
+            record, unhook = _elastic_hooks(hooks, rank) if hooks \
+                else (None, None)
             try:
-                importlib.import_module(
-                    f"flexflow_tpu_torch.apps.{app}").main(argv, log=_log)
+                if sub is None:
+                    main(argv, log=_log)
+                else:
+                    # the run on a world of the ranks ``sub`` alone,
+                    # re-formed from this one (and back after it)
+                    world = distributed.reform(sub,
+                                               distributed.generation() + 1)
+                    if world is not None:
+                        saved = dict(os.environ)
+                        os.environ.update(WORLD_SIZE=str(len(sub)),
+                                          RANK=str(world.rank))
+                        try:
+                            main(argv, log=_log)
+                        finally:
+                            os.environ.clear()
+                            os.environ.update(saved)
             except SystemExit as e:
-                rank = int(os.environ.get("RANK", "0"))
                 path = _flag(argv, "--result-json") + (
                     f".rank{rank}" if rank else "")
                 Path(path).write_text(json.dumps({"exit": e.code}))
+            finally:
+                if unhook is not None:
+                    unhook()
+                if sub is not None:
+                    distributed.reform(
+                        range(int(os.environ["WORLD_SIZE"])),
+                        distributed.generation() + 1)
+            if "--result-json" in argv:
+                path = _flag(argv, "--result-json") + ".extra" + (
+                    f".rank{rank}" if rank else "")
+                Path(path).write_text(json.dumps(
+                    {"seconds": time.perf_counter() - t, "hooks": record}))
         if spec.get("moe_probe") or spec.get("pipe_probe"):
             torch.backends.cuda.matmul.allow_tf32 = False
             machine = distributed.initialize(spec["device"],
@@ -3779,9 +3876,76 @@ def _ranks_worker(spec_path: str) -> int:
     return 0
 
 
+def _elastic_hooks(cfg: dict, rank: int):
+    """Watch an elastic run from inside (a worker of ``--lm-ranks``):
+    each resize marks the launch counts and the vocab head's row counts
+    (N of kernels 4-6's inputs) of the segment it ends, and rank 0
+    copies the resize's checkpoint (``cfg``: ``ckpt``, ``shrink_copy``,
+    ``grow_copy``) before later saves prune it; a rank that stands by
+    records when and how it was called.  Returns ``(record, unhook)``;
+    ``unhook`` marks the last segment and restores the functions."""
+    import shutil
+
+    from flexflow_tpu_torch.ops import kernels
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+    from flexflow_tpu_torch.utils import elastic
+
+    record = {"marks": [], "standby": []}
+    rows = []
+    real = (elastic.recover, elastic.recover_grow, elastic.stand_by,
+            ce._check)
+
+    def mark(at, step):
+        record["marks"].append({"at": at, "step": step,
+                                "launches": dict(kernels.launches),
+                                "rows": sorted(set(rows)),
+                                "t": time.perf_counter()})
+        rows.clear()
+
+    def keep(step, dst):
+        if rank == 0 and dst:
+            shutil.copytree(Path(cfg["ckpt"]) / f"step_{step:08d}",
+                            Path(dst) / f"step_{step:08d}")
+
+    def recover(model, sig, *args, **kwargs):
+        mark("shrink", sig.step)
+        out = real[0](model, sig, *args, **kwargs)
+        if out[0] is not None:
+            keep(out[1]["start_iter"], cfg.get("shrink_copy"))
+        return out
+
+    def recover_grow(model, sig, *args, **kwargs):
+        mark("grow", sig.step)
+        out = real[1](model, sig, *args, **kwargs)
+        keep(sig.step, cfg.get("grow_copy"))
+        return out
+
+    def stand_by(*args, **kwargs):
+        t = time.perf_counter()
+        msg = real[2](*args, **kwargs)
+        record["standby"].append({"op": msg["op"], "step": msg.get("step"),
+                                  "seconds": time.perf_counter() - t})
+        return msg
+
+    def check(name, x, *args):
+        rows.append(int(x.shape[0]))
+        return real[3](name, x, *args)
+
+    elastic.recover, elastic.recover_grow = recover, recover_grow
+    elastic.stand_by, ce._check = stand_by, check
+
+    def unhook():
+        mark("end", None)
+        (elastic.recover, elastic.recover_grow, elastic.stand_by,
+         ce._check) = real
+
+    return record, unhook
+
+
 def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
               moe_probe=None, pipe_probe=None, copies=None,
-              rank0=None, apps=None) -> tuple:
+              rank0=None, apps=None, sub=None, strategy_from=None,
+              elastic=None) -> tuple:
     """``runs`` (apps.lm argv lists, ``extra`` appended to each; ``apps``:
     ``{run index: "cnn" or "nmt"}`` for another app's) as one
     torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
@@ -3790,14 +3954,24 @@ def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
     ``rank0``: ``{run index: argv}`` rank 0 alone appends), then the
     probes on the device and backend ``extra`` names: ``(every rank's
     results per run, every rank's probe results or None, seconds with
-    torchrun's start)``."""
+    torchrun's start)``.  ``sub``: ``{run index: ranks}``, runs made on a
+    world of those ranks alone, re-formed for the run (``distributed.
+    reform``); ``strategy_from``: ``{run index: file}`` taken as
+    the run's ``--strategy`` when it exists at the run's start;
+    ``elastic``: ``{run index: hooks config}`` (:func:`_elastic_hooks`);
+    every run writes ``<result>.extra`` beside its results (its seconds
+    and the hooks' record)."""
     outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
     spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
                      for a, o in zip(runs, outs)],
             "copies": {str(i): [str(a), str(b)]
                        for i, (a, b) in (copies or {}).items()},
             "rank0": {str(i): list(a) for i, a in (rank0 or {}).items()},
-            "apps": {str(i): a for i, a in (apps or {}).items()}}
+            "apps": {str(i): a for i, a in (apps or {}).items()},
+            "sub": {str(i): list(m) for i, m in (sub or {}).items()},
+            "strategy_from": {str(i): str(f)
+                              for i, f in (strategy_from or {}).items()},
+            "elastic": {str(i): c for i, c in (elastic or {}).items()}}
     probed = moe_probe is not None or pipe_probe is not None
     if probed:
         spec.update(moe_probe=moe_probe, pipe_probe=pipe_probe,
@@ -3808,9 +3982,10 @@ def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
     path.write_text(json.dumps(spec))
     t = time.perf_counter()
     _torchrun(ranks, [str(Path(__file__).resolve()), "--lm-ranks",
-                      str(path)], timeout=600)
+                      str(path)], timeout=900)
     seconds = time.perf_counter() - t
-    results = [_rank_results(o, ranks) for o in outs]
+    results = [_rank_results(o, len((sub or {}).get(i, range(ranks))))
+               for i, o in enumerate(outs)]
     probes = _rank_results(Path(spec["probe_json"]), ranks) \
         if probed else None
     return results, probes, seconds
@@ -3852,6 +4027,8 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     ckpt = ["--ckpt-freq", str(LM_CKPT_FREQ), "--ckpt-dir"]
     runs = [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(whole)],
             _lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(cut)]]
+    el = _elastic_runs(ranks, root, len(runs))
+    runs += el["runs"]
     if supervised:
         shutil.rmtree(drained, ignore_errors=True)
         runs[1] += ["--ckpt-async"]
@@ -3862,7 +4039,9 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
         list(extra) + ["--strategy", str(path)],
         copies={1: (whole / f"step_{LM_CKPT_FREQ:08d}",
                     cut / f"step_{LM_CKPT_FREQ:08d}")},
-        rank0={2: ["--fault-spec", "preempt@1"]} if supervised else None)
+        rank0={len(runs) - 1: ["--fault-spec", "preempt@1"]}
+        if supervised else None, sub=el["sub"],
+        strategy_from=el["strategy_from"], elastic=el["hooks"])
     label = (f"lm strategy {ranks} ranks "
              f"({' '.join(extra) or 'NCCL, a card a rank'})")
     step_ms = _log_ranks_run(label, results[0], seconds, card)
@@ -3870,11 +4049,202 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     _check_resume(label, results[0], results[1], whole, cut, steps, card)
     out = {"tokens_per_sec": results[0][0]["tokens_per_sec"],
            "step_ms": step_ms, "launches": results[0][0]["launches"]}
+    out["elastic"] = _check_elastic(
+        f"elastic {ranks} ranks", ranks, results[0][0]["loss"], root,
+        f"lm_{ranks}", el, results, card, whole)
     if supervised:
-        _check_ranks_supervised(label, results[0], results[1], results[2],
+        _check_ranks_supervised(label, results[0], results[1], results[-1],
                                 whole, cut, drained, steps)
         out["drained"] = {"dir": str(drained),
                           "tail": results[0][0]["loss"][LM_CKPT_FREQ:]}
+    return out
+
+
+def _elastic_runs(ranks: int, root: Path, first: int) -> dict:
+    """Phase 18f's runs (19's on four ranks) for the multi-rank LM world,
+    from run index ``first``: the elastic run (``E``), the reference of
+    its shrunk segment (``S``, on a world of the surviving ranks alone,
+    re-formed for it), the reference of its grown segment (``G``) and a
+    run with ``--elastic`` and no fault (``NF``); each reference resumes
+    from the resize's checkpoint, which the hooks copy, under the
+    strategy saved there."""
+    grow = ELASTIC_GROW[ranks]
+    ckpt, obs_dir = root / f"elastic_{ranks}", root / f"elastic_obs_{ranks}"
+    shrunk, grown = root / f"elastic_{ranks}_s", root / f"elastic_{ranks}_g"
+    runs = {"E": _lm_argv(ELASTIC_ITERS, 1) + [
+        "--elastic", "--min-devices", "1", "--print-freq",
+        str(ELASTIC_PRINT[ranks]), "--ckpt-dir", str(ckpt), "--ckpt-freq",
+        "2", "--regrow-probes", "2", "--max-regrows", "1",
+        "--research-budget-s", "10", "--fault-spec", ELASTIC_FAULTS[ranks],
+        "-obs-dir", str(obs_dir), "-run-id", f"elastic{ranks}"],
+        "S": _lm_argv(grow, 1) + ["--ckpt-dir", str(shrunk)],
+        "G": _lm_argv(ELASTIC_ITERS, 1) + ["--ckpt-dir", str(grown)],
+        "NF": _lm_argv(2, 1) + ["--elastic"]}
+    index = {k: first + i for i, k in enumerate(runs)}
+    return {"runs": list(runs.values()), "index": index,
+            "sub": {index["S"]: list(range(ranks // 2))},
+            "strategy_from": {
+                index["S"]: (shrunk / f"step_{ELASTIC_SHRINK:08d}"
+                             / "strategy.json"),
+                index["G"]: grown / f"step_{grow:08d}" / "strategy.json"},
+            "hooks": {index["E"]: {"ckpt": str(ckpt),
+                                   "shrink_copy": str(shrunk),
+                                   "grow_copy": str(grown)}},
+            "shrunk": shrunk, "grown": grown}
+
+
+def _extra(root: Path, tag: str, i: int, ranks: int) -> list:
+    return [json.loads((root / (f"{tag}_{i}.json.extra"
+                                + (f".rank{r}" if r else ""))).read_text())
+            for r in range(ranks)]
+
+
+def _launch_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def _check_elastic(label: str, ranks: int, whole_loss, root: Path,
+                   tag: str, el: dict, results, card: str,
+                   whole: Path) -> dict:
+    """Hold phase 18f's runs (19's on four ranks) to their bars (see the
+    module's docstring) and log the resizes, the segments' launches and
+    rows, the standby and the runs' seconds.  The references resume from
+    the state the elastic run saved after each migration, so that state
+    is held to checkpoints no migration wrote: the shrink's to 18b's
+    uninterrupted run's step-``ELASTIC_SHRINK`` save (``whole``), the
+    grow's to the shrunk segment's reference's final save."""
+    from flexflow_tpu_torch.obs import read_run
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    idx = el["index"]
+    grow = ELASTIC_GROW[ranks]
+    e = results[idx["E"]]
+    ex = _extra(root, tag, idx["E"], ranks)
+    loss = e[0]["loss"]
+    _log(f"{label}: losses {loss}; {ex[0]['seconds']:.1f} s for the run "
+         f"(rank 0's wall clock); {card}")
+    if len(loss) != ELASTIC_ITERS or not all(math.isfinite(v)
+                                             for v in loss):
+        raise AssertionError(f"{label}: losses {loss}")
+    if loss[:ELASTIC_SHRINK] != whole_loss[:ELASTIC_SHRINK]:
+        raise AssertionError(f"{label}: the steps before the loss "
+                             f"{loss[:ELASTIC_SHRINK]} are not 18b's "
+                             f"{whole_loss[:ELASTIC_SHRINK]} bit for bit")
+    if [r.get("out_of_service") for r in e] != [None] * ranks \
+            or [r["elastic_resizes"] for r in e] != [2] * ranks \
+            or [r["devices"] for r in e] != [ranks] * ranks \
+            or any(r["loss"] != loss for r in e):
+        raise AssertionError(f"{label}: ranks' results "
+                             f"{[(r.get('out_of_service'), r.get('devices'), r.get('elastic_resizes')) for r in e]}")
+    lost = list(range(ranks // 2, ranks)) if ranks > 2 else [1]
+    for r in range(ranks):
+        sb = ex[r]["hooks"]["standby"]
+        want = [{"op": "grow", "step": grow}] if r in lost else []
+        if [{k: v[k] for k in ("op", "step")} for v in sb] != want:
+            raise AssertionError(f"{label}: rank {r} stood by {sb}")
+        if sb:
+            _log(f"{label}: rank {r} out of service from step "
+                 f"{ELASTIC_SHRINK}, {sb[0]['seconds']:.1f} s standing by, "
+                 f"called back at step {sb[0]['step']}")
+    records = list(read_run(e[0]["obs_path"]))
+    kinds = [x["kind"] for x in records]
+    resizes = [x for x in records if x["kind"] == "elastic_resize"]
+    i_inj = next(i for i, x in enumerate(records) if x["kind"] == "fault"
+                 and x.get("fault") == "device_loss")
+    order = [i_inj, kinds.index("device_loss"), records.index(resizes[0]),
+             kinds.index("device_return"), records.index(resizes[-1])]
+    if len(resizes) != 2 or order != sorted(order):
+        raise AssertionError(f"{label}: records out of order: {kinds}")
+    shrink, grown = resizes
+    want = [("shrink", ranks, ranks // 2, "in_memory", ELASTIC_SHRINK, 0),
+            ("grow", ranks // 2, ranks, "in_memory", grow, 0)]
+    got = [(x["direction"], x["from_devices"], x["to_devices"],
+            x["migration"], x["resume_step"], x["steps_lost"])
+           for x in resizes]
+    if got != want:
+        raise AssertionError(f"{label}: resizes {got}, want {want}")
+    for x in resizes:
+        _log(f"{label}: {x['direction']} {x['from_devices']} -> "
+             f"{x['to_devices']} at step {x['step']}: migration "
+             f"{x['migration']}, {x['steps_lost']} steps lost, research_s "
+             f"{x['research_s']:.3f} ({x['research']['mode']}, "
+             f"{x['research'].get('iters')} proposals), total_s "
+             f"{x['total_s']:.2f}, regrid_bytes {x['regrid_bytes']:.0f}, "
+             f"regrid_hops {x['regrid_hops']}, regrid_predicted_s "
+             f"{x['regrid_predicted_s']:.4f}; {card}")
+    marks = ex[0]["hooks"]["marks"]
+    segs = [_launch_delta(m["launches"], marks[i - 1]["launches"] if i
+                          else {}) for i, m in enumerate(marks)]
+    names = (fa.NAME, fa.NAME_DKV, fa.NAME_DQ, ce.NAME_FWD,
+             ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM, ce.NAME_DW)
+    spans = ((1, ELASTIC_SHRINK), (ELASTIC_SHRINK + 1, grow),
+             (grow + 1, ELASTIC_ITERS))
+    for m, seg, steps in zip(marks, segs, spans):
+        _log(f"{label}: rank 0's launches in steps {steps[0]}-{steps[1]} "
+             f"(to the {m['at']}): {seg}; vocab-head rows N {m['rows']}")
+    out = {"loss": loss, "seconds": ex[0]["seconds"], "shrink": shrink,
+           "grow": grown, "segments": segs,
+           "rows": [m["rows"] for m in marks]}
+    refs = [("S", ELASTIC_SHRINK, grow, 1, ranks // 2),
+            ("G", grow, ELASTIC_ITERS, 2, ranks)]
+    wants = {}
+    for key, lo, hi, seg, n in refs:
+        ref = results[idx[key]][0]
+        sec = _extra(root, tag, idx[key], 1)[0]["seconds"]
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for a, b in zip(loss[lo:hi], ref["loss"]))
+        wants[seg] = {k: v for k, v in ref["launches"].items() if v}
+        _log(f"{label}: steps {lo + 1}-{hi} {loss[lo:hi]} vs the run "
+             f"resumed from step {lo}'s checkpoint {ref['loss']}: max "
+             f"relative difference {rel:.3e} (tolerance {ELASTIC_RTOL:g}); "
+             f"its launches {wants[seg]}; {sec:.1f} s on {n} rank(s)")
+        if len(ref["loss"]) != hi - lo or rel > ELASTIC_RTOL:
+            raise AssertionError(f"{label}: steps {lo + 1}-{hi} differ from "
+                                 f"the resumed run's")
+    grow_ref = el["shrunk"] / f"step_{grow:08d}"
+    for what, want, got in (
+            ("shrink", whole / f"step_{ELASTIC_SHRINK:08d}",
+             el["shrunk"] / f"step_{ELASTIC_SHRINK:08d}"),
+            ("grow", grow_ref, el["grown"] / f"step_{grow:08d}")):
+        equal, worst, n = _leaves_diff(f"{label} {what}", want, got)
+        _log(f"{label}: the state migrated at the {what} ({got.parent.name}"
+             f"/{got.name}) vs {want.parent.name}/{want.name}, saved by a "
+             f"run that never migrated: {n} leaves "
+             f"{'equal bit for bit' if equal else f'within {worst:.3e}'}")
+        if not (equal or worst <= ELASTIC_RTOL):
+            raise AssertionError(f"{label}: the state migrated at the "
+                                 f"{what} is {worst:.3e} from {want}'s")
+        out[f"{what}_state"] = {"equal": equal, "worst": worst, "leaves": n}
+    nf = results[idx["NF"]][0]["loss"]
+    seconds = sum(_extra(root, tag, idx[k], 1)[0]["seconds"] for k in idx)
+    _log(f"{label}: --elastic without a fault {nf} vs 18b's "
+         f"{whole_loss[:2]}: bit-equal {nf == whole_loss[:2]}; the "
+         f"phase's runs {seconds:.1f} s in all (rank 0's wall clock)")
+    if nf != whole_loss[:2]:
+        raise AssertionError(f"{label}: --elastic changed a healthy run")
+    # the kernels: every one of 1-6 in every segment, steps 1-2 as 18b's,
+    # later ones as the reference runs' (on one rank, the whole batch)
+    for seg, steps in zip(segs, spans):
+        if not all(seg.get(n, 0) + seg.get(f"{n}.partial", 0)
+                   for n in names):
+            raise AssertionError(f"{label}: a kernel of 1-6 was not "
+                                 f"launched in steps {steps}: {seg}")
+    if segs[0] != _lm_rank_launches(ELASTIC_SHRINK):
+        raise AssertionError(f"{label}: launches before the shrink "
+                             f"{segs[0]}, want "
+                             f"{_lm_rank_launches(ELASTIC_SHRINK)}")
+    for seg, want in wants.items():
+        if segs[seg] != want:
+            raise AssertionError(f"{label}: launches in steps "
+                                 f"{spans[seg]} {segs[seg]}, the resumed "
+                                 f"run's {want}")
+    if ranks == 2 and marks[1]["rows"] != [CE_SHAPE[0]]:
+        raise AssertionError(f"{label}: the one-rank segment's vocab head "
+                             f"saw rows {marks[1]['rows']}, want "
+                             f"[{CE_SHAPE[0]}]")
+    out["seconds_all"] = seconds
     return out
 
 
@@ -3912,6 +4282,26 @@ def _check_ranks_supervised(label: str, results, asyn_res, drained_res,
         raise AssertionError(f"{label} drain: {stops}, {records}")
 
 
+def _leaves_diff(label: str, want: Path, got: Path) -> tuple:
+    """Two committed steps' leaves (``arrays.npz``; rank 0 writes them
+    gathered whole, whatever the strategy): ``(bit-equal, the largest
+    relative difference against ``want``, the number of leaves)``;
+    raises when they hold different leaves."""
+    import numpy as np
+
+    with np.load(want / "arrays.npz") as a, \
+            np.load(got / "arrays.npz") as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f"{label}: leaves {b.files} vs {a.files}")
+        worst = max(float(np.max(np.abs(a[k].astype(np.float64)
+                                        - b[k].astype(np.float64))
+                                 / np.maximum(np.abs(a[k].astype(
+                                     np.float64)), 1e-30), initial=0.0))
+                    for k in a.files)
+        equal = all(np.array_equal(a[k], b[k]) for k in a.files)
+        return equal, worst, len(a.files)
+
+
 def _check_resume(label: str, results, resumed, whole: Path, cut: Path,
                   steps: int, card: str) -> None:
     """The run resumed from the step-``LM_CKPT_FREQ`` checkpoint of the
@@ -3920,27 +4310,15 @@ def _check_resume(label: str, results, resumed, whole: Path, cut: Path,
     gathered whole), bit for bit or within ``LM_RESUME_RTOL`` (relative)
     with the difference logged; rank 0's launches those of its steps;
     the save and restore seconds logged."""
-    import numpy as np
-
     res, again = results[0], resumed[0]
     tail = res["loss"][LM_CKPT_FREQ:]
     want = _lm_rank_launches(steps - LM_CKPT_FREQ)
     if {k: v for k, v in again["launches"].items() if v} != want:
         raise AssertionError(f"{label} resumed: launches on rank 0 "
                              f"{again['launches']}, want {want}")
-    last = f"step_{steps:08d}"
-    with np.load(whole / last / "arrays.npz") as a, \
-            np.load(cut / last / "arrays.npz") as b:
-        if sorted(a.files) != sorted(b.files):
-            raise AssertionError(f"{label} resumed: leaves {b.files} vs "
-                                 f"{a.files}")
-        worst = max(float(np.max(np.abs(a[k].astype(np.float64)
-                                        - b[k].astype(np.float64))
-                                 / np.maximum(np.abs(a[k].astype(
-                                     np.float64)), 1e-30), initial=0.0))
-                    for k in a.files)
-        equal = all(np.array_equal(a[k], b[k]) for k in a.files)
-        n = len(a.files)
+    equal, worst, n = _leaves_diff(f"{label} resumed",
+                                   whole / f"step_{steps:08d}",
+                                   cut / f"step_{steps:08d}")
     losses_rel = max(abs(x - y) / max(abs(y), 1e-30)
                      for x, y in zip(again["loss"], tail))
     _log(f"{label} resumed from step {LM_CKPT_FREQ}: losses "
@@ -3971,16 +4349,13 @@ def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
     root.mkdir(exist_ok=True)
     try:
         iters = LM_WARMUP + LM_TIMED
-        one = root / "lm_1.json"
-        _lm_strategy_file(one, 1)
-        (res,), _, seconds = _lm_ranks(1, root, "lm_one", [
-            _lm_argv(iters, LM_WARMUP)], ["--strategy", str(one)])
-        res = res[0]
+        # run in the strategy phase's one-rank world
+        res = strategy_run["one_rank"]["lm"]
         step_ms = res["elapsed_s"] / LM_TIMED * 1e3
         _log(f"lm strategy 1 rank (NCCL, every op one point on device 0): "
              f"{res['tokens_per_sec']:.1f} tokens/s, {step_ms:.3f} ms a "
-             f"step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB, "
-             f"{seconds:.1f} s for the torchrun world; "
+             f"step, peak {res['peak_memory_bytes'] / 1e9:.3f} GB (the "
+             f"strategy phase's one-rank world); "
              f"without a strategy in this process "
              f"{lm_run['tokens_per_sec']:.1f} tokens/s, "
              f"{lm_run['step_ms']:.3f} ms; {card}")
@@ -4293,13 +4668,11 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
     argv = _moe_argv(steps, LM_RANKS_WARMUP)
     try:
-        one = root / "moe_1.json"
-        _moe_strategy_file(one, 1)
-        (res,), _, seconds = _lm_ranks(1, root, "moe_one", [argv],
-                                       ["--strategy", str(one)])
-        res = res[0]
+        # run in the strategy phase's one-rank world
+        res = strategy_run["one_rank"]["moe"]
         step_ms = _log_ranks_run("moe strategy 1 rank (NCCL, every op one "
-                                 "point on device 0)", [res], seconds, card)
+                                 "point on device 0)", [res],
+                                 strategy_run["one_rank"]["seconds"], card)
         _log(f"moe strategy: without a strategy in this process "
              f"{moe_run['event_ms']:.3f} ms a step by CUDA events (the MoE "
              f"phase's median; its fit rate also counts two checkpoint "

@@ -18,8 +18,11 @@ fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
 --width, --classes, -s/--strategy, -ll:gpu, --allow-degraded, ``fit``'s
 runtime flags --ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
 --max-rollbacks, --fault-spec, its supervision flags --ckpt-async,
---hang-factor, --hang-min-s, --drain-budget-s, -metrics-path, and its
-telemetry flags -obs-dir, -run-id, --obs-max-bytes, -op-time-every),
+--hang-factor, --hang-min-s, --drain-budget-s, -metrics-path, its
+elastic flags --elastic, --min-devices, --research-budget-s,
+--elastic-search-iters, --max-regrows, --regrow-probes,
+--transient-reset-steps, and its telemetry flags -obs-dir, -run-id,
+--obs-max-bytes, -op-time-every),
 plus
 ``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
@@ -37,9 +40,11 @@ add) and ``densenet``/``densenet121`` at 224x224 unless --height/--width
 are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
 ``mode="random"``).  Prints the reference's metric line
-``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets,
-elastic training and profiling raise ``NotImplementedError`` when asked
-for (``config.UNPORTED_FLAGS``).  A drained run (SIGTERM, SIGINT, an
+``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets and
+profiling raise ``NotImplementedError`` when asked for
+(``config.UNPORTED_FLAGS``).  Under torchrun with ``--elastic`` a lost
+rank shrinks the run onto the others (``FFModel.fit``, the builder as
+its rebuild factory).  A drained run (SIGTERM, SIGINT, an
 injected ``preempt``) logs ``drained at iteration N`` and exits 0.
 
 A strategy file is checked before the model is built, as in the JAX
@@ -219,7 +224,9 @@ def main(argv=None, log=print) -> dict:
     data = synthetic_batches(cfg.batch_size, cfg.input_height,
                              cfg.input_width, num_classes=cfg.num_classes,
                              mode="random", seed=cfg.seed, machine=machine)
-    out = ff.fit(data, warmup=warmup, log=log)
+    # the builder doubles as the elastic rebuild factory
+    out = ff.fit(data, warmup=warmup, log=log,
+                 rebuild=lambda c, m: build(model_name, c, m))
     if out.get("drained"):
         # a graceful drain: exit 0 is the scheduler's contract
         log(f"drained at iteration {out.get('completed_steps')}; "

@@ -16,19 +16,23 @@
 Flags are the JAX app's names for the ported fields (-b, -s/--seq,
 -l/--layers, --d-model, --heads, --d-ff, --vocab, --causal, --experts,
 --moe-every, --moe-top-k, -i/--iters/--iterations, --lr, --dtype,
---param-dtype, --seed, --strategy <file>, --pipeline-stages,
+--param-dtype, --seed, -p/--print-freq (``FFConfig``'s: the loss is
+logged, and ``fit``'s boundaries fall, every N steps; default 10),
+--strategy <file>, --pipeline-stages,
 --microbatches, --pipeline-tp, --allow-degraded), ``fit``'s runtime
 (--ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
 --max-rollbacks, --fault-spec), its supervision (--ckpt-async,
---hang-factor, --hang-min-s, --drain-budget-s, -metrics-path) and its
-telemetry (-obs-dir, -run-id, --obs-max-bytes, -op-time-every:
+--hang-factor, --hang-min-s, --drain-budget-s, -metrics-path), elastic
+training (--elastic, --min-devices, --research-budget-s,
+--elastic-search-iters, --max-regrows, --regrow-probes,
+--transient-reset-steps) and its telemetry (-obs-dir, -run-id, --obs-max-bytes, -op-time-every:
 ``FFModel.fit``), plus ``--device``
 (default ``cuda``: the run raises when CUDA is absent unless ``--device
 cpu`` is given), ``--warmup`` (untimed steps before the timed window,
 default 1 as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (elastic training, profiling, ...)
+the port does not have yet (profiling, datasets, ...)
 raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A run that
 SIGTERM, SIGINT or an injected ``preempt`` drains logs ``drained at
 iteration N`` and exits 0.  A
@@ -94,6 +98,7 @@ _INT_FIELDS = {
     "--experts": "num_experts", "--moe-every": "moe_every",
     "--moe-top-k": "moe_top_k", "--pipeline-stages": "pipeline_stages",
     "--microbatches": "microbatches", "--pipeline-tp": "pipeline_tp",
+    "-p": "print_freq", "--print-freq": "print_freq",
 }
 _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
                "--param-dtype": "param_dtype"}
@@ -133,13 +138,13 @@ def synthetic_lm_batches(batch_size: int, seq_length: int, vocab_size: int,
                          seed: int = 0, device="cuda", machine=None):
     """Random token batches on ``device``; labels = tokens
     (``TransformerLM`` shifts them for causal models); with ``machine``,
-    this rank's rows on its device."""
+    this rank's rows on its device, a stream an elastic resize rebinds
+    (``data.BlockStream``)."""
     from flexflow_tpu_torch.data import synthetic_token_stream
 
-    for (toks,) in synthetic_token_stream(batch_size, seq_length, vocab_size,
-                                          seed, streams=1, device=device,
-                                          machine=machine):
-        yield toks, toks
+    return synthetic_token_stream(batch_size, seq_length, vocab_size, seed,
+                                  streams=1, device=device, machine=machine,
+                                  select=(0, 0))
 
 
 def _per_op_tp(strategies, cfg) -> int:
@@ -303,7 +308,14 @@ def _main_dag(cfg, strategies, machine, warmup: int, log) -> dict:
         data = synthetic_lm_batches(
             cfg.batch_size, cfg.seq_length, cfg.vocab_size, seed=cfg.seed,
             device="cpu" if cfg.prefetch_depth > 0 else dev)
-    out = model.fit(data, warmup=warmup, log=log)
+    # the elastic rebuild factory: the LM on a resized world under the
+    # re-searched strategy (ff_cfg carries it)
+    out = model.fit(data, warmup=warmup, log=log,
+                    rebuild=lambda ff_cfg, m: TransformerLM(
+                        cfg, m, ff_cfg.strategies))
+    if out.get("out_of_service"):
+        log(f"out of service since iteration {out['out_of_service_at']}; "
+            f"the run ended on {out['devices']} rank(s)")
     if out.get("drained"):
         # a graceful drain stopped the run with a verified checkpoint:
         # exit 0 is the scheduler's contract (a non-zero exit would be

@@ -2,8 +2,8 @@
 paths read — serving, and training through ``FFModel.fit`` with its
 checkpoints (synchronous or asynchronous), health guard, step watchdog,
 preemption drain, live metrics, prefetch, fault injection, run telemetry
-and sampled op timing, and the drivers' static plan check — with the JAX
-package's defaults (``flexflow_tpu/config.py``), but for
+and sampled op timing, elastic training, and the drivers' static plan
+check — with the JAX package's defaults (``flexflow_tpu/config.py``), but for
 ``prefetch_depth``: 0 here, where the JAX default is 2 (the port's
 synthetic sources already yield tensors on the card).
 
@@ -11,8 +11,8 @@ synthetic sources already yield tensors on the card).
 fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
 number of GPUs, which must equal the world size; checked by the app).  A
-flag of the JAX parser whose feature is not ported yet (elastic
-training, datasets, profiling, ...) raises ``NotImplementedError``
+flag of the JAX parser whose feature is not ported yet (datasets,
+profiling, ...) raises ``NotImplementedError``
 instead of being dropped silently.
 """
 
@@ -24,13 +24,6 @@ from typing import Callable, Dict, Iterator, Sequence, Tuple
 from flexflow_tpu_torch.strategy import Strategy
 from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
                                                   parse_fault_spec)
-
-#: the elastic runtime's flags (``flexflow_tpu/utils/elastic.py``), not
-#: ported yet
-ELASTIC_FLAGS = frozenset((
-    "--elastic", "--min-devices", "--research-budget-s",
-    "--elastic-search-iters", "--max-regrows", "--regrow-probes",
-    "--transient-reset-steps"))
 
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
@@ -45,14 +38,12 @@ UNPORTED_FLAGS = frozenset((
     "--serve-prefill-replicas", "--serve-decode-replicas",
     "--fleet-quantum", "--fleet-search-budget-s", "-pallas", "--pallas",
     "--params-ones", "--print-intermediates", "--dry-compile",
-)) | ELASTIC_FLAGS
+))
 
 #: where the ROADMAP takes up some of those flags
 UNPORTED_WHERE = {
-    **{flag: "ROADMAP Queue A item 5, the rest of the training runtime"
-       for flag in ("--profiling", "--trace-dir")},
-    **{flag: "ROADMAP Queue A item 5, elastic training"
-       for flag in ELASTIC_FLAGS}}
+    flag: "ROADMAP Queue A item 5, the rest of the training runtime"
+    for flag in ("--profiling", "--trace-dir")}
 
 
 def unported(flag: str, where: str) -> NotImplementedError:
@@ -94,11 +85,24 @@ OBS_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "--op-time-every": ("op_time_every", int),
 }
 
+#: elastic training's flags (``utils/elastic.py``, ``FFModel.fit``),
+#: parsed as ``flexflow_tpu/config.py:338-363`` parses them
+ELASTIC_FIELDS: Dict[str, Tuple[str, Callable]] = {
+    "--elastic": ("elastic", bool),
+    "--min-devices": ("min_devices", int),
+    "--research-budget-s": ("research_budget_s", float),
+    "--elastic-search-iters": ("elastic_search_iters", int),
+    "--max-regrows": ("max_regrows", int),
+    "--regrow-probes": ("regrow_probes", int),
+    "--transient-reset-steps": ("transient_reset_steps", int),
+}
+ELASTIC_FLAGS = frozenset(ELASTIC_FIELDS)
+
 #: the training runtime's flags (``FFModel.fit``: checkpoints, the
 #: asynchronous checkpoint writer, the health guard, the step watchdog,
 #: the preemption drain's budget, live metrics, prefetch, fault
-#: injection): flag -> (field, parse); a flag of ``SWITCH_FLAGS`` takes
-#: no value and sets its field True
+#: injection, elastic training): flag -> (field, parse); a flag of
+#: ``SWITCH_FLAGS`` takes no value and sets its field True
 RUNTIME_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "--ckpt-dir": ("ckpt_dir", str),
     "--ckpt-freq": ("ckpt_freq", int),
@@ -116,8 +120,9 @@ RUNTIME_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "--drain-budget-s": ("drain_budget_s", float),
     "-metrics-path": ("metrics_path", str),
     "--metrics-path": ("metrics_path", str),
+    **ELASTIC_FIELDS,
 }
-SWITCH_FLAGS = frozenset(("--ckpt-async",))
+SWITCH_FLAGS = frozenset(("--ckpt-async", "--elastic"))
 
 
 def flag_stream(argv: Sequence[str]) -> Iterator[Tuple[str, Callable]]:
@@ -208,6 +213,23 @@ class FFConfig:
     # the drivers' static plan check (verify/plan.py) demotes the
     # degradation findings to warnings instead of refusing the run
     allow_degraded: bool = False
+    # elastic training (utils/elastic.py): a rank lost at a boundary
+    # shrinks the run onto the surviving ranks (re-searched strategy,
+    # live state migrated in memory, checkpoint fallback) instead of a
+    # fatal error; below min_devices ranks the shrink is refused.  The
+    # re-search stops at research_budget_s seconds or
+    # elastic_search_iters proposals.  After a shrink the lost ranks are
+    # probed at the boundaries; regrow_probes consecutive answering
+    # probes grow the run back, at most max_regrows times.  A transient
+    # device error retries its step, at most 3 times until
+    # transient_reset_steps healthy steps refill the budget (0: never)
+    elastic: bool = False
+    min_devices: int = 1
+    research_budget_s: float = 30.0
+    elastic_search_iters: int = 2000
+    max_regrows: int = 1
+    regrow_probes: int = 2
+    transient_reset_steps: int = 16
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":

@@ -2,7 +2,8 @@
 ``flexflow_tpu/data/``): synthetic image batches and token streams, and
 the device prefetcher (``data/prefetch.py``) so far."""
 
-from flexflow_tpu_torch.data.synthetic import (synthetic_batches,
+from flexflow_tpu_torch.data.synthetic import (BlockStream,
+                                               synthetic_batches,
                                                synthetic_token_stream)
 
-__all__ = ["synthetic_batches", "synthetic_token_stream"]
+__all__ = ["BlockStream", "synthetic_batches", "synthetic_token_stream"]

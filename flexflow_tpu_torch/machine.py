@@ -188,13 +188,22 @@ class MachineModel:
     none for CUDA tensors); without it a regrid's move is an all-gather
     and a slice.  ``send_recv`` says whether it has point-to-point sends
     for them; without it a ring's rotation is an all-gather
-    (``collectives.rotate``)."""
+    (``collectives.rotate``).
+
+    ``members`` names the process behind each rank: its rank in the world
+    ``torchrun`` made (``range(world_size)`` there).  Elastic training
+    re-forms the world over the ranks that survive a loss
+    (``distributed.reform``), renumbered in their old order, and
+    ``generation`` counts those re-forms; :meth:`shrink` and :meth:`grow`
+    plan such a resize."""
 
     def __init__(self, device="cuda", world_size: int = 1, rank: int = 0,
                  topology: Optional[Topology] = None,
                  distributed: bool = False,
                  view: Optional[Sequence[int]] = None,
-                 all_to_all: bool = True, send_recv: bool = True):
+                 all_to_all: bool = True, send_recv: bool = True,
+                 members: Optional[Sequence[int]] = None,
+                 generation: int = 0):
         if world_size < 1 or not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} of world size {world_size}")
         self.device = resolve_device(device)
@@ -211,6 +220,12 @@ class MachineModel:
             raise ValueError(f"view {self.view} is not a permutation of "
                              f"the {self.world_size} ranks")
         self.position = self.view.index(self.rank)
+        self.members = tuple(int(m) for m in members) \
+            if members is not None else tuple(range(self.world_size))
+        if len(self.members) != self.world_size:
+            raise ValueError(f"{len(self.members)} members for a world of "
+                             f"{self.world_size}")
+        self.generation = int(generation)
         self._gfactors = None
         # process groups by rank set; partitions by axis set
         self._handles: Dict[Tuple[int, ...], object] = {}
@@ -218,8 +233,8 @@ class MachineModel:
         self._warned: set = set()
 
     @classmethod
-    def virtual(cls, num_devices: int,
-                topology: Optional[Topology] = None) -> "MachineModel":
+    def virtual(cls, num_devices: int, topology: Optional[Topology] = None,
+                members: Optional[Sequence[int]] = None) -> "MachineModel":
         """A machine of ``num_devices`` for an offline strategy search
         (``flexflow_tpu/machine.py:127``): graphs build on it for any
         size, but it opens no process group and touches no device (its
@@ -233,6 +248,9 @@ class MachineModel:
         m.topology = topology or Topology(
             devices_per_ici_group=max(m.world_size, 1))
         m.view = tuple(range(m.world_size))
+        m.members = tuple(int(x) for x in members) if members is not None \
+            else tuple(range(m.world_size))
+        m.generation = 0
         m._gfactors = None
         m._handles, m._groups, m._warned = {}, {}, set()
         return m
@@ -240,6 +258,70 @@ class MachineModel:
     @property
     def num_devices(self) -> int:
         return self.world_size
+
+    # ------------------------------------------------------------------
+    # elastic resizes (flexflow_tpu/machine.py:148-222): planning views;
+    # the running machine of a resized world is distributed.reform's
+
+    def _resized(self, members: List[int]) -> "MachineModel":
+        """A virtual machine over ``members`` with the topology re-derived:
+        a machine that was one fast-tier group stays one, a larger one
+        keeps its group size."""
+        topo = self.topology
+        if topo.devices_per_ici_group >= self.num_devices:
+            topo = dataclasses.replace(topo,
+                                       devices_per_ici_group=len(members))
+        return MachineModel.virtual(len(members), topo, members)
+
+    def shrink(self, live: Sequence[int]) -> "MachineModel":
+        """The machine over the SURVIVING rank ordinals ``live`` (into
+        this machine's ranks), in their old order, as a virtual machine
+        (the strategy search's view of the resized world); this one is
+        never mutated."""
+        idx = sorted(set(int(i) for i in live))
+        if not idx:
+            raise ValueError("cannot shrink to an empty device set")
+        bad = [i for i in idx if i < 0 or i >= self.num_devices]
+        if bad:
+            raise ValueError(
+                f"live ordinals {bad} out of range for this "
+                f"{self.num_devices}-device machine")
+        return self._resized([self.members[i] for i in idx])
+
+    def slice_of(self, ordinals: Sequence[int]) -> "MachineModel":
+        """:meth:`shrink`, named for carving a pool into disjoint slices:
+        nothing died."""
+        return self.shrink(ordinals)
+
+    def devices_at(self, ordinals: Sequence[int]) -> list:
+        """The members (processes) at rank ``ordinals``, in the given
+        order: what :meth:`grow` takes back."""
+        n = self.num_devices
+        out = []
+        for i in ordinals:
+            i = int(i)
+            if not 0 <= i < n:
+                raise ValueError(
+                    f"ordinal {i} out of range for this {n}-device "
+                    f"machine")
+            out.append(self.members[i])
+        return out
+
+    def grow(self, returned: Sequence) -> "MachineModel":
+        """The inverse of :meth:`shrink`: the machine over this one's
+        members plus ``returned`` (members a shrink took out), sorted
+        back into their first world's order, as a virtual machine."""
+        extra = [int(m) for m in returned]
+        if not extra:
+            raise ValueError("grow needs at least one returned device")
+        dup = [m for m in extra if m in self.members]
+        if dup:
+            raise ValueError(
+                f"returned devices {dup} are already part of this "
+                f"{self.num_devices}-device machine")
+        if len(set(extra)) != len(extra):
+            raise ValueError("returned devices contain duplicates")
+        return self._resized(sorted(list(self.members) + extra))
 
     def is_canonical(self, pc: ParallelConfig) -> bool:
         """Whether ``pc`` names the whole machine in natural order."""
@@ -263,7 +345,7 @@ class MachineModel:
         return MachineModel(self.device, self.world_size, self.rank,
                             self.topology, self.distributed,
                             [self.view[d] for d in perm], self.all_to_all,
-                            self.send_recv)
+                            self.send_recv, self.members, self.generation)
 
     # ------------------------------------------------------------------
     # the per-op grid map (mesh_for, flexflow_tpu/machine.py:240-265)

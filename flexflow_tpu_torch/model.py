@@ -43,7 +43,9 @@ leaf, and the backward collectives run in one order on every rank
 (``collectives.token_chain``).  The step
 functions take this rank's batch block (:meth:`local_batch`).  ``fit``
 writes the JAX package's run telemetry (``obs/``) from rank 0, with its
-sampled op timing; elastic training arrives with a later slice.
+sampled op timing.  Under ``elastic`` a lost rank shrinks the run onto
+the survivors' re-formed world and the run grows back when the rank
+answers again (``utils/elastic.py``).
 """
 
 from __future__ import annotations
@@ -916,7 +918,7 @@ class FFModel:
         return eval_step
 
     def fit(self, data_iter, num_iterations: Optional[int] = None,
-            warmup: int = 1, log=print) -> Dict[str, Any]:
+            warmup: int = 1, log=print, rebuild=None) -> Dict[str, Any]:
         """The training loop of ``model.py:1624`` (cnn.cc:110-128): ``warmup``
         untimed steps, then the timed ones, the device synced once when
         the timed window opens and once when it closes; the loss every
@@ -942,7 +944,21 @@ class FFModel:
             re-runs from it on fresh batches;
           * ``hang_factor`` > 0 arms the step watchdog around each
             boundary's blocking syncs; a boundary past its deadline
-            raises ``DeviceLostError`` (there is no elastic training);
+            raises ``DeviceLostError``, or under ``elastic`` probes the
+            devices: a dead one shrinks the run, else it goes on;
+          * ``elastic`` (``utils/elastic.py``, ``model.py:1662-1740``):
+            a rank lost at a boundary (an injected ``device_loss``, a
+            dead probe) shrinks the run onto the survivors through the
+            driver's ``rebuild(config, machine)`` factory and
+            continues the same logical run (one loss history); the lost
+            rank stands by; after ``regrow_probes`` answering boundary
+            probes the run grows back (at most ``max_regrows`` times; a
+            grow that fails before the call leaves the run shrunk).  A
+            step error that ``elastic.classify`` calls a device's and
+            whose probe recovers retries the step (a budget of 3,
+            refilled after ``transient_reset_steps`` healthy steps).
+            ``data_iter`` must then be a ``data.BlockStream``, which a
+            resize rebinds to the new machine's blocks;
           * SIGTERM and SIGINT (or an injected ``preempt``) drain the
             run: at the next boundary it commits a checkpoint within
             ``drain_budget_s``, writes one ``preempt_drain`` record,
@@ -988,7 +1004,10 @@ class FFModel:
         without the writer), "run_id", "obs_path", "metrics_path"}``
         (the last three None or "" without a sink), and after a drain
         ``"drained": True`` and ``"drain"`` (the ``preempt_drain``
-        record)."""
+        record); ``"elastic_resizes"`` and ``"devices"`` (the world's
+        size at the end).  A rank that stood by until the end returns
+        ``"out_of_service": True``, the losses of its steps and the
+        run's counts, and no trees."""
         from flexflow_tpu_torch import distributed, obs
         from flexflow_tpu_torch.utils import elastic, faultinject
 
@@ -1009,12 +1028,47 @@ class FFModel:
         # every way out
         drain = {"requested": False, "signum": None}
         restore_sig = elastic.install_drain_handler(drain, log)
+        run = {"model": self, "carry": None, "resizes": 0,
+               "dirs": {"shrink": 0, "grow": 0}, "regrow": None,
+               "regrows": 0, "prior": [], "out": set()}
+        max_regrows = max(int(self.config.max_regrows or 0), 0)
         try:
-            return self._fit(data_iter, num_iterations, warmup, log, inj,
-                             olog, drain)
+            while True:
+                model = run["model"]
+                try:
+                    out = model._fit(
+                        data_iter, num_iterations, warmup, log, inj, olog,
+                        drain, elastic_resume=run["carry"],
+                        elastic_resizes=run["resizes"],
+                        elastic_regrow=(run["regrow"]
+                                        if run["regrows"] < max_regrows
+                                        else None),
+                        resize_dirs=run["dirs"])
+                    out["loss"] = run["prior"] + out["loss"]
+                    out["elastic_resizes"] = run["resizes"]
+                    out["devices"] = model.machine.num_devices
+                    if run["out"] and model.machine.rank == 0:
+                        elastic.release_standbys(
+                            sorted(run["out"]),
+                            {"loss": out["loss"], "devices": out["devices"],
+                             "resizes": run["resizes"],
+                             "completed_steps": out["completed_steps"]})
+                    return out
+                except elastic.DeviceLossDetected as sig:
+                    lost = self._elastic_shrink(run, sig, rebuild, olog, log,
+                                                inj, data_iter, max_regrows)
+                    if lost is not None:
+                        return lost
+                except elastic.DeviceReturnDetected as sig:
+                    self._elastic_grow(run, sig, rebuild, olog, log, inj,
+                                       data_iter)
         except BaseException:
             # an error exit leaves the world at once: the other ranks'
-            # collectives fail instead of waiting for their timeout
+            # collectives fail instead of waiting for their timeout; the
+            # ranks standing by are told the run ended
+            if run["out"] and run["model"].machine.rank == 0:
+                elastic.release_standbys(sorted(run["out"]),
+                                         {"error": True})
             distributed.release()
             raise
         finally:
@@ -1022,6 +1076,103 @@ class FFModel:
             if restore_inj is not None:
                 restore_inj()
             olog.close()
+
+    def _elastic_shrink(self, run, sig, rebuild, olog, log, inj, data,
+                        max_regrows):
+        """``fit``'s answer to a :class:`DeviceLossDetected`: the regrow
+        context (captured before the shrink drops the lost ranks), the
+        shrink (``elastic.recover``), and on a lost rank the standby
+        until the run calls it back (then it lands in the grown world and
+        adopts the run's counts) or ends (then it returns the record
+        ``fit`` returns, ``out_of_service``)."""
+        from flexflow_tpu_torch.utils import elastic
+
+        model = run["model"]
+        new_ctx = None
+        if rebuild is not None and run["regrows"] < max_regrows:
+            new_ctx = elastic.make_regrow_context(
+                model, sig, self.config.regrow_probes, prior=run["regrow"])
+        lost = [model.machine.members[o] for o in sig.dead]
+        new_model, carry, kept = elastic.recover(model, sig, rebuild,
+                                                 olog=olog, log=log,
+                                                 data=data)
+        run["prior"] = run["prior"] + kept
+        if new_model is None:
+            # this rank is out of service: drop its state and wait
+            sig.params = sig.state = sig.opt_state = None
+            msg = elastic.stand_by(model.device)
+            if msg["op"] == "done":
+                if msg.get("error"):
+                    raise elastic.DeviceLostError(
+                        "the run ended with an error while this rank "
+                        "stood by")
+                return {"params": {}, "state": {}, "opt_state": None,
+                        "loss": msg["loss"], "elapsed_s": 0.0,
+                        "images_per_sec": 0.0, "rollbacks": 0,
+                        "completed_steps": msg["completed_steps"],
+                        "checkpoint_s": 0.0, "final_save_s": 0.0,
+                        "restore_s": 0.0, "input_stall_s": 0.0,
+                        "ckpt_async_saves": 0, "ckpt_async": None,
+                        "run_id": olog.run_id, "obs_path": olog.path,
+                        "metrics_path": "", "out_of_service": True,
+                        "out_of_service_at": sig.step,
+                        "elastic_resizes": msg["resizes"],
+                        "devices": msg["devices"]}
+            inj.adopt(msg["injector"])
+            new_model, carry = elastic.rejoin(model.config, msg, rebuild,
+                                              model.device, olog=olog,
+                                              log=log, data=data)
+            run.update(prior=msg["loss"], resizes=msg["resizes"],
+                       dirs=msg["dirs"], regrows=msg["regrows"],
+                       regrow=None, out=set(msg["out"]))
+        else:
+            run["regrow"] = new_ctx
+            run["resizes"] += 1
+            run["dirs"]["shrink"] += 1
+            run["out"] |= set(lost)
+        run.update(model=new_model, carry=carry)
+        return None
+
+    def _elastic_grow(self, run, sig, rebuild, olog, log, inj, data):
+        """``fit``'s answer to a :class:`DeviceReturnDetected`: the grow
+        (``elastic.recover_grow``), whose call tells the returning ranks
+        the run's counts; a grow that fails before the call keeps the
+        run on the shrunk world (``model.py:1715-1733``)."""
+        from flexflow_tpu_torch import distributed
+        from flexflow_tpu_torch.utils import elastic
+
+        model = run["model"]
+        kept = elastic._losses(sig)
+        back = set(sig.returned)
+        call = {"loss": run["prior"] + kept, "resizes": run["resizes"] + 1,
+                "dirs": dict(run["dirs"],
+                             grow=run["dirs"]["grow"] + 1),
+                "regrows": run["regrows"] + 1,
+                "out": sorted(run["out"] - back),
+                "injector": inj.state()}
+        before = distributed.generation()
+        try:
+            new_model, carry, _ = elastic.recover_grow(
+                model, sig, run["regrow"], rebuild, olog=olog, log=log,
+                data=data, call=call)
+        except Exception as e:
+            if distributed.generation() != before:
+                raise   # the world changed under it: nothing to go back to
+            olog.event("elastic_fallback", step=sig.step,
+                       reason=f"regrow failed: {e}")
+            log(f"elastic: regrow failed ({e}); continuing on "
+                f"{model.machine.num_devices} devices")
+            carry = {"start_iter": sig.step, "params": sig.params,
+                     "state": sig.state, "opt_state": sig.opt_state}
+            new_model = model
+        else:
+            run["resizes"] += 1
+            run["dirs"]["grow"] += 1
+            run["out"] -= back
+        run["regrow"] = None
+        run["regrows"] += 1
+        run["prior"] = run["prior"] + kept
+        run.update(model=new_model, carry=carry)
 
     def _resume(self, data_iter, num_iterations, log, olog):
         """``(start_iter, params, state, opt_state)`` from the newest
@@ -1058,7 +1209,8 @@ class FFModel:
                 opt_state or self.init_opt_state(params))
 
     def _fit(self, data_iter, num_iterations, warmup, log, inj, olog,
-             drain):
+             drain, elastic_resume=None, elastic_resizes=0,
+             elastic_regrow=None, resize_dirs=None):
         from flexflow_tpu_torch.obs import metrics as obs_metrics
         from flexflow_tpu_torch.utils import checkpoint as ckpt
         from flexflow_tpu_torch.utils import elastic
@@ -1068,8 +1220,17 @@ class FFModel:
 
         cfg = self.config
         t0 = time.perf_counter()
-        resumed = self._resume(data_iter, num_iterations, log, olog)
-        restore_s = time.perf_counter() - t0 if resumed is not None else 0.0
+        if elastic_resume is not None:
+            # the continuation after an elastic resize: the state lies on
+            # this model's machine already, and the stream stands where
+            # the resize left it
+            resumed = (elastic_resume["start_iter"],
+                       elastic_resume["params"], elastic_resume["state"],
+                       elastic_resume["opt_state"])
+        else:
+            resumed = self._resume(data_iter, num_iterations, log, olog)
+        restore_s = time.perf_counter() - t0 \
+            if resumed is not None and elastic_resume is None else 0.0
         if resumed is not None:
             start_iter, params, state, opt_state = resumed
         else:
@@ -1085,6 +1246,11 @@ class FFModel:
         # injected device losses are marked here and acted on at the next
         # boundary
         dead: List[int] = []
+        # the transient-retry budget (3), refilled only after
+        # transient_reset_steps healthy steps in a row (0: never), so that
+        # spread-out hiccups are absorbed and flapping is not
+        transient_retries = healthy_streak = 0
+        transient_reset = max(int(cfg.transient_reset_steps or 0), 0)
         wd = StepWatchdog(cfg.hang_factor, min_deadline_s=cfg.hang_min_s,
                           olog=olog, log=log) if cfg.hang_factor > 0 else None
         hang_pending = False
@@ -1137,13 +1303,33 @@ class FFModel:
                 if it == warmup:
                     self._sync()
                     start = time.perf_counter()
-                if sample_every and (it + 1) % sample_every == 0:
-                    params, state, opt_state, loss = self._sampled_step(
-                        step, sections, op_samples, it, params, state,
-                        opt_state, batch)
-                else:
-                    params, state, opt_state, loss = step(
-                        params, state, opt_state, *batch)
+                try:
+                    if sample_every and (it + 1) % sample_every == 0:
+                        params, state, opt_state, loss = self._sampled_step(
+                            step, sections, op_samples, it, params, state,
+                            opt_state, batch)
+                    else:
+                        params, state, opt_state, loss = step(
+                            params, state, opt_state, *batch)
+                    if transient_retries:
+                        healthy_streak += 1
+                        if transient_reset \
+                                and healthy_streak >= transient_reset:
+                            transient_retries = healthy_streak = 0
+                            olog.event("recovery", source="elastic",
+                                       after="transient_window",
+                                       step=it + 1)
+                except Exception as e:
+                    # a transient device error retries the iteration on a
+                    # fresh batch; a permanent one raises
+                    # DeviceLossDetected; anything else propagates
+                    if self._classify_step_error(
+                            e, it + 1, olog, losses, loss_base,
+                            transient_retries) != "transient":
+                        raise
+                    transient_retries += 1
+                    healthy_streak = 0
+                    continue
                 if inj.enabled:
                     if inj.fire("loss_nan", site="fit"):
                         # poison the recorded loss on the device; the
@@ -1186,7 +1372,8 @@ class FFModel:
                             hang_pending = False
                             wd.stall()
                     if dead:
-                        self._raise_device_loss(dead, it1)
+                        self._raise_device_loss(dead, it1, params, state,
+                                                opt_state, losses, loss_base)
                     tb0 = time.perf_counter()
                     action = guard.check(losses[window_start - loss_base:],
                                          first_step=window_start + 1)
@@ -1219,15 +1406,31 @@ class FFModel:
                         fault_count += 1
                     checkpoint_s += time.perf_counter() - t0
                 if wd is not None and at_boundary:
-                    hang = wd.disarm()
+                    hang = self._hang_agreed(wd.disarm())
                     if hang is not None:
-                        self._handle_step_hang(hang, it1)
+                        self._handle_step_hang(hang, it1, params, state,
+                                               opt_state, losses, loss_base,
+                                               olog, log)
+                if elastic_regrow and at_boundary \
+                        and it1 < num_iterations \
+                        and elastic.probe_regrow(elastic_regrow, inj=inj,
+                                                 olog=olog, log=log,
+                                                 machine=self.machine):
+                    # the lost ranks answered k probes in a row: hand the
+                    # live state to fit for the grow
+                    raise elastic.DeviceReturnDetected(
+                        [d for d, _ in elastic_regrow["dead"]],
+                        it1, params=params, state=state,
+                        opt_state=opt_state, losses=losses,
+                        loss_base=loss_base)
                 if at_boundary and it1 < num_iterations:
                     drain["requested"] = self._drain_agreed(drain)
                 if metrics is not None and (at_print or at_ckpt):
                     self._metrics_update(
                         metrics, olog, params, losses, it1, warmup, start,
                         guard, prefetcher, fault_count, awriter=awriter,
+                        elastic_resizes=elastic_resizes,
+                        resize_dirs=resize_dirs,
                         draining=drain["requested"])
                 if drain["requested"] and at_boundary \
                         and it1 < num_iterations:
@@ -1278,6 +1481,7 @@ class FFModel:
                 metrics, olog, params, losses, it, warmup, start, guard,
                 prefetcher, fault_count, elapsed=elapsed,
                 throughput=throughput, awriter=awriter,
+                elastic_resizes=elastic_resizes, resize_dirs=resize_dirs,
                 draining=drained is not None)
         if olog.enabled:
             budget_totals = {
@@ -1313,27 +1517,97 @@ class FFModel:
     # the runtime's faults, its drain and its live metrics
     # (model.py:2300-2345, :2598-2765)
 
-    def _raise_device_loss(self, dead, step):
-        """An injected device loss at a boundary: without elastic
-        training it is fatal (``model.py:2300``)."""
+    def _raise_device_loss(self, dead, step, params, state, opt_state,
+                           losses, loss_base):
+        """Injected device losses at a boundary: under ``elastic`` the
+        loop's state goes to ``fit`` for the shrink, else the loss is
+        fatal (``model.py:2300``)."""
         from flexflow_tpu_torch.utils import elastic
 
+        if self.config.elastic:
+            raise elastic.DeviceLossDetected(
+                dead=dead, step=step, params=params, state=state,
+                opt_state=opt_state, losses=losses, loss_base=loss_base,
+                injected=True)
         raise elastic.DeviceLostError(
             f"permanent device loss at iteration {step} (ordinals "
             f"{sorted(set(dead))}); run with --elastic to recover on "
             f"the surviving mesh")
 
-    def _handle_step_hang(self, info, step):
-        """A boundary that returned past the watchdog's deadline: without
-        elastic training there is nothing to probe and recover, so it is
-        fatal (``model.py:2315``)."""
+    def _hang_agreed(self, hang):
+        """Under ``elastic`` over several ranks, whether any rank's
+        watchdog expired at this boundary (the world's MAX, so that every
+        rank probes; the largest deadline as the record's): ``hang`` of
+        this rank elsewhere."""
+        group = self._world_handle()
+        if not self.config.elastic or group is None:
+            return hang
+        import torch.distributed as dist
+
+        t = torch.tensor([float(hang is not None),
+                          float((hang or {}).get("deadline_s", 0.0))],
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        flag, deadline = t.tolist()
+        if not flag:
+            return None
+        return hang or {"deadline_s": deadline}
+
+    def _handle_step_hang(self, info, step, params, state, opt_state,
+                          losses, loss_base, olog, log):
+        """A boundary that returned past the watchdog's deadline
+        (``model.py:2317``): without ``elastic`` it is fatal; with it the
+        devices are probed, a dead one raises ``DeviceLossDetected`` (the
+        live state migrates), and when all answer the hang was transient
+        and the run goes on."""
         from flexflow_tpu_torch.utils import elastic
 
-        raise elastic.DeviceLostError(
-            f"boundary at iteration {step} exceeded the step "
-            f"watchdog deadline ({info['deadline_s']:.1f}s); run "
-            f"with --elastic to probe and recover instead of "
-            f"failing")
+        if not self.config.elastic:
+            raise elastic.DeviceLostError(
+                f"boundary at iteration {step} exceeded the step "
+                f"watchdog deadline ({info['deadline_s']:.1f}s); run "
+                f"with --elastic to probe and recover instead of "
+                f"failing")
+        live, dead, transient = elastic.probe_devices(self.machine,
+                                                      olog=olog)
+        if dead:
+            raise elastic.DeviceLossDetected(
+                dead=dead, step=step, params=params, state=state,
+                opt_state=opt_state, losses=losses, loss_base=loss_base)
+        olog.event("device_loss", step=step, classification="transient",
+                   transient=transient, source="watchdog",
+                   deadline_s=info["deadline_s"])
+        log(f"watchdog: iteration {step} boundary returned past its "
+            f"{info['deadline_s']:.1f}s deadline but every device "
+            f"probes healthy — continuing")
+
+    def _classify_step_error(self, e, step, olog, losses, loss_base,
+                             transient_retries):
+        """A step that raised, under ``elastic`` (``model.py:2411``):
+        ``"transient"`` when ``elastic.classify`` calls it a device's and
+        the probe recovers (the caller retries the iteration, at most 3
+        times in a budget), ``DeviceLossDetected`` with no live state
+        (the failed step's inputs are gone: the checkpoint fallback) when
+        a device probes dead, None for anything else (the caller
+        re-raises)."""
+        if not self.config.elastic:
+            return None
+        from flexflow_tpu_torch.utils import elastic
+
+        if not elastic.classify(e):
+            return None
+        live, dead, transient = elastic.probe_devices(self.machine,
+                                                      olog=olog)
+        if dead:
+            raise elastic.DeviceLossDetected(
+                dead=dead, step=step, params=None, state=None,
+                opt_state=None, losses=losses,
+                loss_base=loss_base) from e
+        if transient_retries >= 3:
+            return None   # a persistent failure with healthy probes: a bug
+        olog.event("device_loss", step=step, classification="transient",
+                   transient=transient, error=str(e))
+        return "transient"
 
     def _world_handle(self):
         """The world's process group handle, or None in a world of one
@@ -1460,6 +1734,7 @@ class FFModel:
     def _metrics_update(self, metrics, olog, params, losses, it1, warmup,
                         start_t, guard, prefetcher, fault_count,
                         elapsed=None, throughput=None, awriter=None,
+                        elastic_resizes=0, resize_dirs=None,
                         draining=False):
         """Refresh and publish the live gauges (``model.py:2598``) at a
         boundary that has synced: the throughput and the step time since
@@ -1512,13 +1787,14 @@ class FFModel:
             rollbacks_total=guard.rollbacks,
             faults_total=fault_count + (awriter.faults
                                         if awriter is not None else 0),
-            elastic_events=0,
+            elastic_events=elastic_resizes,
             drain_pending=1.0 if draining else 0.0,
             ckpt_async_inflight=(awriter.inflight
                                  if awriter is not None else 0))
         for direction in ("shrink", "grow"):
             metrics.update_labeled("elastic_events",
-                                   {"direction": direction}, 0)
+                                   {"direction": direction},
+                                   (resize_dirs or {}).get(direction, 0))
         try:
             metrics.write()
         except OSError as e:
@@ -1841,12 +2117,12 @@ class FFModel:
                         for leaf, v in sub.items()}
         return out
 
-    def gather_trees(self, params, state, opt_state):
+    def gather_trees(self, params, state, opt_state, dst: int = 0):
         """Whole ``(params, state, opt_state)`` trees (host tensors) from
-        every rank's blocks, on rank 0; None on the others.  Every rank
-        calls it: each sends the blocks of which it is the first holder
-        (the position whose box it is first), so that each element
-        arrives once, and rank 0 lays them into their leaves."""
+        every rank's blocks, on rank ``dst``; None on the others.  Every
+        rank calls it: each sends the blocks of which it is the first
+        holder (the position whose box it is first), so that each element
+        arrives once, and rank ``dst`` lays them into their leaves."""
         import torch.distributed as dist
 
         self._setup_sharded()
@@ -1872,7 +2148,7 @@ class FFModel:
         every = [None] * self.machine.num_devices
         dist.all_gather_object(every, mine,
                                group=self.machine.world_group().handle)
-        if self.machine.rank != 0:
+        if self.machine.rank != dst:
             return None
         pieces: Dict = {}
         for blocks in every:
@@ -1887,6 +2163,33 @@ class FFModel:
                 whole[tuple(slice(lo, hi) for lo, hi in box)] = v
             out[tree].setdefault(key, {})[leaf] = whole
         return out["params"], out["state"], out["opt"]
+
+    def _blocks_at(self, params, state, opt_state, position: int):
+        """The blocks of whole (host) trees that the rank at ``position``
+        holds: ``(params, state, opt_state)``."""
+        return (self.shard_params(params, position),
+                self.shard_state(state or {}, position),
+                self._shard_opt(opt_state or {}, position))
+
+    def place_state(self, params, state, opt_state=None,
+                    blocks: bool = False):
+        """Land whole host ``(params, state, opt_state)`` trees on this
+        model as :meth:`init` lands fresh ones (``model.py:936`` in the
+        JAX package): this rank's blocks under the strategy
+        (:meth:`shard_params`, :meth:`shard_state`, :meth:`_shard_opt`),
+        on the model's device.  ``blocks`` says the trees are this rank's
+        blocks already (handed over by rank 0).  The landing half of an
+        elastic migration (``utils/elastic.py``)."""
+        if self.sharded and not blocks:
+            pos = self.machine.position
+            params, state, opt_state = self._blocks_at(params, state,
+                                                       opt_state, pos)
+
+        def to(tree):
+            return {k: {leaf: v.to(self.device) for leaf, v in sub.items()}
+                    for k, sub in (tree or {}).items()}
+
+        return to(params), to(state), to(opt_state) or None
 
     def _rollback_restore(self, ckpt_dir, olog, log, from_step):
         """The guard's rollback: ``(step, params, state, opt_state)`` of

@@ -53,6 +53,8 @@ class TransformerConfig:
     moe_aux_weight: float = 1e-2
     learning_rate: float = 1e-3
     num_iterations: int = 10
+    # fit logs the loss, and its boundaries fall, every print_freq steps
+    print_freq: int = 10
     compute_dtype: str = "float32"
     # parameter storage dtype ("bfloat16" = mixed precision with float32
     # masters in the optimizer state)
@@ -87,6 +89,14 @@ class TransformerConfig:
     op_time_every: int = 0
     # the driver's static plan check demotes degradations to warnings
     allow_degraded: bool = False
+    # elastic training (forwarded to FFConfig)
+    elastic: bool = False
+    min_devices: int = 1
+    research_budget_s: float = 30.0
+    elastic_search_iters: int = 2000
+    max_regrows: int = 1
+    regrow_probes: int = 2
+    transient_reset_steps: int = 16
 
 
 class TransformerLM(FFModel):
@@ -106,6 +116,7 @@ class TransformerLM(FFModel):
             learning_rate=self.t.learning_rate,
             weight_decay=0.0,
             num_iterations=self.t.num_iterations,
+            print_freq=self.t.print_freq,
             compute_dtype=self.t.compute_dtype,
             param_dtype=self.t.param_dtype,
             seed=self.t.seed,
@@ -126,6 +137,13 @@ class TransformerLM(FFModel):
             obs_max_bytes=self.t.obs_max_bytes,
             op_time_every=self.t.op_time_every,
             allow_degraded=self.t.allow_degraded,
+            elastic=self.t.elastic,
+            min_devices=self.t.min_devices,
+            research_budget_s=self.t.research_budget_s,
+            elastic_search_iters=self.t.elastic_search_iters,
+            max_regrows=self.t.max_regrows,
+            regrow_probes=self.t.regrow_probes,
+            transient_reset_steps=self.t.transient_reset_steps,
         )
         super().__init__(ff_cfg, machine, device)
         self._build()

@@ -233,12 +233,12 @@ class RnnModel(FFModel):
         return self.master_opt_state(params)
 
     def fit(self, data_iter, num_iterations: Optional[int] = None,
-            warmup: int = 1, log=print):
+            warmup: int = 1, log=print, rebuild=None):
         """``FFModel.fit`` over (src, dst) batches, plus
         ``sentences_per_sec``."""
         out = super().fit(data_iter,
                           num_iterations or self.rnn.num_iterations,
-                          warmup, log)
+                          warmup, log, rebuild=rebuild)
         out["sentences_per_sec"] = out["images_per_sec"]
         return out
 

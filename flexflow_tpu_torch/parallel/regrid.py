@@ -35,7 +35,8 @@ of the destinations that need another rank's data and the sources they
 read.  The move is an all-gather of the sources' blocks within that
 group (gloo carries it on CUDA tensors, as the backward's
 reduce-scatter), and its backward is the reverse move.
-``plan_state_migration`` (elastic resize) waits for Queue A item 5.
+:func:`plan_state_migration` prices an elastic resize's live-state
+move between two machines.
 """
 
 from __future__ import annotations
@@ -759,9 +760,69 @@ def _dtype_of(model, t):
                        else model.config.compute_dtype)
 
 
-def plan_state_migration(*args, **kwargs):
-    """Moving live train state between machines (elastic resize) waits
-    for ROADMAP Queue A item 5 (elastic training)."""
-    raise NotImplementedError(
-        "plan_state_migration: elastic resize is not ported yet (ROADMAP "
-        "Queue A item 5)")
+def plan_state_migration(old_model, new_model, params: Dict,
+                         state: Optional[Dict] = None,
+                         opt_state: Optional[Dict] = None) -> Dict:
+    """Accounting plan for moving live train state between two machines
+    (an elastic resize, ``utils/elastic.py``), JAX's
+    ``plan_state_migration`` (``flexflow_tpu/parallel/regrid.py:528``)
+    term for term: each leaf is gathered off its source layout (one hop,
+    half an all-reduce of the whole value over the OLD machine's links;
+    none when the source is one part) and re-placed on the new layout
+    (one hop: each new device's slice on the NEW machine's fast tier, or
+    the full broadcast for a replicated landing).
+
+    Returns per-key rows and the totals the ``elastic_resize`` record
+    carries (``bytes``, ``hops``, ``predicted_s``).  Pure accounting over
+    the leaves' sizes and dtypes (torch tensors or numpy arrays); the
+    movement is ``FFModel.gather_trees`` and ``FFModel.place_state``."""
+    from flexflow_tpu_torch.sim.cost_model import dtype_bytes
+
+    old_n = old_model.machine.num_devices
+    new_n = new_model.machine.num_devices
+    new_topo = new_model.machine.topology
+    old_topo = old_model.machine.topology
+
+    def shard_count(model, key):
+        for op in model.layers:
+            if op.param_key == key or op.name == key:
+                return max(op.pc.num_parts, 1)
+        return 1
+
+    def leaf_bytes(leaf) -> float:
+        n = leaf.numel() if hasattr(leaf, "numel") else leaf.size
+        return float(n * dtype_bytes(str(leaf.dtype).replace("torch.", "")))
+
+    rows = []
+    total_bytes = 0.0
+    total_hops = 0
+    total_s = 0.0
+    trees = [("params", params)]
+    if state:
+        trees.append(("state", state))
+    if opt_state:
+        trees.append(("opt", opt_state))
+    for tree_name, tree in trees:
+        for key, sub in (tree or {}).items():
+            kb = sum(leaf_bytes(leaf) for leaf in (sub or {}).values())
+            src_parts = shard_count(old_model, key)
+            dst_parts = shard_count(new_model, key)
+            hops = 1
+            secs = 0.0
+            if src_parts > 1:
+                hops += 1
+                secs += 0.5 * _allreduce(kb, tuple(range(old_n)), old_topo)
+            if dst_parts > 1:
+                secs += kb / dst_parts / new_topo.ici_bandwidth \
+                    + new_topo.ici_latency
+            else:
+                secs += 0.5 * _allreduce(kb, tuple(range(new_n)), new_topo)
+            rows.append({"tree": tree_name, "key": key, "bytes": kb,
+                         "src_parts": src_parts, "dst_parts": dst_parts,
+                         "hops": hops, "predicted_s": secs})
+            total_bytes += kb
+            total_hops += hops
+            total_s += secs
+    return {"keys": len(rows), "bytes": total_bytes, "hops": total_hops,
+            "predicted_s": total_s,
+            "from_devices": old_n, "to_devices": new_n, "rows": rows}

@@ -2,12 +2,14 @@
 ``flexflow_tpu/utils/faultinject.py`` (that module imports no JAX, but the
 port imports nothing of the JAX package).  The same spec string drives
 both packages.  The sites named below are the JAX package's.  This
-package fires four: ``loss_nan`` in ``FFModel.fit``, ``data_io`` before
+package fires ``loss_nan``, ``host_crash``, ``device_loss``, ``preempt``
+and ``step_hang`` in ``FFModel.fit``, ``device_return`` in the elastic
+regrow probe (``utils/elastic.py:probe_regrow``), ``data_io`` before
 each attempt of ``fit``'s batch pull (``utils/retry.py:retrying_iter``;
 the port has no HDF5 or ImageNet reader yet), ``ckpt_truncate`` and
 ``ckpt_corrupt`` in ``utils/checkpoint.py:save_checkpoint``.  The
-others belong to slices not ported yet (elastic training, the serving
-router, disaggregated serving).
+others belong to slices not ported yet (the serving router,
+disaggregated serving).
 
 ``FFConfig.fault_spec`` names faults to fire at EXACT occurrence indices,
 so every recovery path in the runtime — step health guard rollback
@@ -169,6 +171,12 @@ class NullInjector:
     def fired(self, kind: Optional[str] = None) -> int:
         return 0
 
+    def state(self) -> Dict[str, int]:
+        return {}
+
+    def adopt(self, counts: Dict[str, int]) -> None:
+        pass
+
 
 NULL = NullInjector()
 
@@ -209,6 +217,19 @@ class FaultInjector:
             if kind is None:
                 return len(self._fired)
             return sum(1 for k, _, _ in self._fired if k == kind)
+
+    def state(self) -> Dict[str, int]:
+        """The occurrences counted so far, per kind."""
+        with self._lock:
+            return dict(self._counts)
+
+    def adopt(self, counts: Dict[str, int]) -> None:
+        """Continue from another injector's counts (:meth:`state`): a
+        rank that stood by through an elastic shrink takes the running
+        ranks' when it is called back, so that every rank fires the
+        same occurrences."""
+        with self._lock:
+            self._counts = dict(counts)
 
 
 _current = NULL

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import zlib
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple, Type
 
 from flexflow_tpu_torch.utils import faultinject
 
@@ -53,18 +53,20 @@ class RetryPolicy:
 
 def call_with_retry(fn: Callable, policy: Optional[RetryPolicy] = None,
                     on_retry: Optional[Callable] = None,
-                    sleep: Callable[[float], None] = time.sleep):
-    """Call ``fn()`` under ``policy``, retrying ``OSError`` (the
-    transient-I/O family, the injector's ``InjectedIOError`` included);
-    anything else propagates at once.  ``on_retry(exc, failures,
-    delay)`` fires before each backoff sleep.  The final failure
-    re-raises the original exception."""
+                    sleep: Callable[[float], None] = time.sleep,
+                    retry_on: Tuple[Type[BaseException], ...] = (OSError,)):
+    """Call ``fn()`` under ``policy``, retrying ``retry_on`` (by default
+    ``OSError``, the transient-I/O family, the injector's
+    ``InjectedIOError`` included; the elastic device probe retries any
+    ``Exception``); anything else propagates at once.  ``on_retry(exc,
+    failures, delay)`` fires before each backoff sleep.  The final
+    failure re-raises the original exception."""
     policy = policy or RetryPolicy()
     failures = 0
     while True:
         try:
             return fn()
-        except OSError as e:
+        except retry_on as e:
             failures += 1
             if failures >= policy.attempts:
                 raise

@@ -380,7 +380,10 @@ VALUES = {"ckpt_dir": "d", "ckpt_freq": "5", "prefetch_depth": "2",
           "on_divergence": "rollback", "max_rollbacks": "7",
           "fault_spec": "loss_nan@7,ckpt_corrupt@2", "ckpt_async": "1",
           "hang_factor": "20", "hang_min_s": "45", "drain_budget_s": "30",
-          "metrics_path": "m/metrics.prom"}
+          "metrics_path": "m/metrics.prom", "elastic": "1",
+          "min_devices": "3", "research_budget_s": "5",
+          "elastic_search_iters": "300", "max_regrows": "2",
+          "regrow_probes": "3", "transient_reset_steps": "4"}
 
 
 @pytest.mark.parametrize("flag", sorted(RUNTIME_FLAGS))

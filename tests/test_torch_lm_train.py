@@ -233,7 +233,7 @@ def test_every_jax_lm_flag_is_parsed_or_refused():
     # a value for the flags checked when parsed, and one off the default
     values = {"-on-divergence": "rollback", "--on-divergence": "rollback",
               "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2",
-              "--moe-top-k": "1"}
+              "--moe-top-k": "1", "--regrow-probes": "3"}
     for flag in sorted(flags):
         if flag in refused and flag != "-s":
             with pytest.raises(NotImplementedError, match="not ported"):

@@ -316,12 +316,17 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(ValueError, match="-ll:gpu 2 but the world has 4"):
         build_alexnet(cfg, _port_machine(4))
     # release() tears down only a group initialize() brought up (none
-    # here); elastic training waits for item 5
+    # here); an elastic resize is planned between machines (item 5: the
+    # runs are tests/test_torch_elastic_ranks.py)
     assert distributed.release() is False
-    with pytest.raises(NotImplementedError, match="item 5"):
-        distributed.elastic_rejoin("x")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        regrid.plan_state_migration(None, None, {})
+    m4 = _port_machine(4)
+    old, new = _tiny_cnn(m4), _tiny_cnn(m4.shrink([0, 1]))
+    full, _ = old._init_full(0)
+    plan = regrid.plan_state_migration(old, new, full)
+    assert (plan["from_devices"], plan["to_devices"], plan["keys"]) == \
+        (4, 2, len(full))
+    assert plan["bytes"] == sum(4.0 * v.numel() for sub in full.values()
+                                for v in sub.values())
 
 
 def test_strategy_and_gpu_flags_parse(tmp_path):

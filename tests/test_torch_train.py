@@ -225,20 +225,23 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("--transient-reset-steps", "-regrid-planner", "--elastic",
-                 "-d", "--pallas"):
+    for flag in ("-regrid-planner", "-d", "--pallas"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cnn.parse(["alexnet", flag, "x"])
-    # fit's runtime and supervision flags are ported: parsed, not refused
+    # fit's runtime, supervision and elastic flags are ported: parsed,
+    # not refused
     _, cfg, _, _ = t_cnn.parse(["alexnet", "--ckpt-dir", "x",
-                                "--ckpt-async"])
-    assert cfg.ckpt_dir == "x" and cfg.ckpt_async
+                                "--ckpt-async", "--elastic",
+                                "--transient-reset-steps", "4"])
+    assert cfg.ckpt_dir == "x" and cfg.ckpt_async and cfg.elastic
+    assert cfg.transient_reset_steps == 4
 
 
 #: a value for the flags checked when parsed (any other takes "2")
 FLAG_VALUES = {"-on-divergence": "rollback", "--on-divergence": "rollback",
                "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2",
-               "-s": str(STRATEGY_FILE), "--strategy": str(STRATEGY_FILE)}
+               "-s": str(STRATEGY_FILE), "--strategy": str(STRATEGY_FILE),
+               "--regrow-probes": "3"}
 
 
 def test_every_jax_cnn_flag_is_parsed_or_refused():

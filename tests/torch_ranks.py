@@ -844,6 +844,233 @@ def ring_case(machine, shape, s_axes, causal, transport, seed=1):
 
 
 # ---------------------------------------------------------------------------
+# elastic training (tests/test_torch_elastic_ranks.py)
+
+#: the JAX elastic tests' batch (tests/test_elastic.py): divisible by the
+#: worlds of 8, 6, 4 and 2
+ELASTIC_BATCH = 24
+#: the kinds of the elastic lifecycle's records
+ELASTIC_KINDS = ("device_loss", "elastic_resize", "device_probe",
+                 "device_return", "elastic_fallback", "elastic_refused")
+#: the fields of an elastic record both packages set alike
+ELASTIC_FIELDS = ("kind", "step", "direction", "from_devices",
+                  "to_devices", "migration", "resume_step", "steps_lost",
+                  "dead", "returned", "classification", "outcome",
+                  "healthy_streak", "needed", "probe", "fault",
+                  "occurrence", "source")
+
+
+def elastic_host_batches(seed=3, n=4):
+    """The JAX elastic tests' ring of global host batches."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(ELASTIC_BATCH, 16, 16, 3).astype("float32"),
+             rng.randint(0, 8, (ELASTIC_BATCH,)).astype("int32"))
+            for _ in range(n)]
+
+
+def elastic_build(cfg, machine):
+    """tests/test_elastic.py's ``_build`` on a port config."""
+    from flexflow_tpu_torch.model import FFModel
+
+    ff = FFModel(cfg, machine)
+    img = ff.create_input((cfg.batch_size, 16, 16, 3), name="image")
+    t = ff.conv2d("conv1", img, 8, 3, 3, 1, 1, 1, 1, relu=True)
+    t = ff.flat("flat", t)
+    t = ff.linear("fc", t, 8, relu=False)
+    ff.softmax("softmax", t)
+    return ff
+
+
+def elastic_records(path):
+    """The elastic records of a run, each cut to the fields both packages
+    set alike (``fault`` records of the elastic kinds only)."""
+    from flexflow_tpu_torch import obs
+
+    return [{k: r[k] for k in ELASTIC_FIELDS if k in r}
+            for r in obs.read_run(path)
+            if r["kind"] in ELASTIC_KINDS or (
+                r["kind"] == "fault"
+                and r.get("fault") in ("device_loss", "device_return"))]
+
+
+def elastic_fit(machine, cfg_kwargs, trees_path, refuse_gather=False,
+                dead_probe=()):
+    """``FFModel.fit`` of :func:`elastic_build` from the full trees in
+    ``trees_path`` (JAX's initial ones) on a ``data.BlockStream`` of
+    :func:`elastic_host_batches`, with the rebuild factory; with
+    ``refuse_gather`` every rank's in-memory gather fails (the checkpoint
+    fallback), and the ranks in ``dead_probe`` find their card dead when
+    probed.  Returns ``(losses, resizes, devices, out_of_service,
+    records)``, the records rank 0's (None elsewhere)."""
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.data import BlockStream
+    from flexflow_tpu_torch.interop import params_from_jax
+    from flexflow_tpu_torch.utils import elastic
+
+    saved = elastic.gather_state, elastic._default_probe
+    if refuse_gather:
+        def refuse(*args, **kwargs):
+            raise RuntimeError("in-memory migration refused (test)")
+
+        elastic.gather_state = refuse
+    if machine.rank in dead_probe:
+        def dead(device):
+            raise RuntimeError("dead forever (test)")
+
+        elastic._default_probe = dead
+    ff = elastic_build(FFConfig(**cfg_kwargs), machine)
+    params, _ = load_trees(trees_path)
+    p = ff.shard_params(params_from_jax(params, "cpu", model=ff))
+    ff.init = lambda seed=None: (p, {})
+    data = BlockStream(elastic_host_batches(), "cpu", machine)
+    try:
+        out = ff.fit(data, log=lambda *a: None, rebuild=elastic_build)
+    finally:
+        elastic.gather_state, elastic._default_probe = saved
+    records = elastic_records(out["obs_path"]) if out["obs_path"] \
+        else None
+    return ([float(v) for v in out["loss"]], out["elastic_resizes"],
+            out["devices"], out.get("out_of_service", False), records)
+
+
+def jax_elastic(cfg_kwargs, devices, probe_dead=None, refuse_gather=False):
+    """The reference: the JAX elastic tests' model fit on the first
+    ``devices`` of the virtual CPU mesh with the same config (its
+    ``obs_dir`` a sibling's), the JAX tests' injected probe and refusal
+    when asked.  Returns ``(initial params, losses, resizes, devices,
+    records)``."""
+    import jax
+
+    from flexflow_tpu import obs
+    from flexflow_tpu.config import FFConfig
+    from flexflow_tpu.machine import MachineModel
+    from flexflow_tpu.model import FFModel
+    from flexflow_tpu.utils import elastic
+
+    def build(cfg, machine):
+        ff = FFModel(cfg, machine)
+        img = ff.create_input((cfg.batch_size, 16, 16, 3), name="image")
+        t = ff.conv2d("conv1", img, 8, 3, 3, 1, 1, 1, 1, relu=True)
+        t = ff.flat("flat", t)
+        t = ff.linear("fc", t, 8, relu=False)
+        ff.softmax("softmax", t)
+        return ff
+
+    def batches():
+        ring = elastic_host_batches()
+        i = 0
+        while True:
+            yield ring[i % len(ring)]
+            i += 1
+
+    saved = elastic.probe_devices, elastic.gather_state
+    if probe_dead is not None:
+        def probe(machine, olog=None, **kw):
+            if machine.num_devices == devices:
+                live = [i for i in range(devices) if i not in probe_dead]
+                return live, list(probe_dead), []
+            return saved[0](machine, olog=olog, **kw)
+
+        elastic.probe_devices = probe
+    if refuse_gather:
+        def refuse(*args, **kwargs):
+            raise RuntimeError("in-memory migration refused (test)")
+
+        elastic.gather_state = refuse
+    try:
+        ff = build(FFConfig(**cfg_kwargs), MachineModel(
+            jax.devices()[:devices]))
+        params, _ = ff.init()
+        full, _ = jax_logical(ff, params, {})
+        out = ff.fit(batches(), log=lambda *a: None, rebuild=build)
+    finally:
+        elastic.probe_devices, elastic.gather_state = saved
+    records = [{k: r[k] for k in ELASTIC_FIELDS if k in r}
+               for r in obs.read_run(out["obs_path"])
+               if r["kind"] in ELASTIC_KINDS or (
+                   r["kind"] == "fault"
+                   and r.get("fault") in ("device_loss", "device_return"))]
+    return (full, [float(v) for v in out["loss"]], out["elastic_resizes"],
+            out["devices"], records)
+
+
+def rejoin_step(rank, world, port, ckpt_dir, out):
+    """A FRESH process whose first act is ``distributed.elastic_rejoin``
+    of a world of ``world`` (the tiny elastic CNN with ``fc`` split over
+    the ranks, its factory): restore the newest checkpoint, take one step
+    on the first global batch, put ``(rank, step, ranks, loss)`` on
+    ``out``."""
+    import torch
+
+    from flexflow_tpu_torch import distributed
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.strategy import ParallelConfig, Strategy
+
+    torch.set_num_threads(1)
+
+    def factory(machine):
+        cfg = FFConfig(batch_size=ELASTIC_BATCH, input_height=16,
+                       input_width=16, num_classes=8, seed=3)
+        cfg.strategies = Strategy()
+        cfg.strategies["fc"] = ParallelConfig((1, world),
+                                              tuple(range(world)))
+        return elastic_build(cfg, machine)
+
+    try:
+        machine, step, params, state, opt = distributed.elastic_rejoin(
+            ckpt_dir, device="cpu", backend="gloo", rank=rank,
+            world_size=world, init_method=f"tcp://127.0.0.1:{port}",
+            model=factory, log=lambda *a: None)
+        ff = factory(machine)
+        image, labels = elastic_host_batches()[0]
+        batch = ff.local_batch(torch.from_numpy(image),
+                               torch.from_numpy(labels))
+        loss = ff.make_train_step()(params, state, opt, *batch)[3]
+        out.put((rank, "ok", (step, machine.num_devices, float(loss))))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        distributed.shutdown()
+
+
+def run_fresh(target, world: int, *args, timeout: float = 120.0):
+    """``target(rank, world, port, *args, queue)`` in ``world`` fresh
+    spawned processes that make their world themselves; the results in
+    rank order."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port) + args
+                         + (out,), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in range(world):
+            try:
+                rank, status, value = out.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(f"{world} processes did not finish "
+                                   f"within {timeout} s") from None
+            if status == "ok":
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=5 if not errors else 0.1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
 # the models, built alike in both packages
 
 
