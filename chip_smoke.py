@@ -24,7 +24,8 @@ its kernels.
                                        # step of each trained model
     python3 chip_smoke.py --only search4,lm-obs
                                        # the kernel build and the named
-                                       # phases (lm-obs, moe, runtime,
+                                       # phases (lm, lm-obs, resnet101,
+                                       # nmt, moe, runtime,
                                        # strategy, lm-strategy,
                                        # moe-strategy, pipeline, search and
                                        # strategy4, lm-strategy4,
@@ -143,6 +144,15 @@ Phases (any failure exits non-zero):
    timed, the losses equal phase 9's unsampled ones within 1e-6
    (relative), and ``sim_drift_unavailable`` says no strategy was
    loaded;
+9c. the same ``apps.lm`` with ``--profiling --trace-dir T`` (path C of
+   ROADMAP Queue A item 5), 1 warm-up and 2 steps: the step roofline
+   line, a row of the per-op table (``utils/profiling.OpProfiler``) for
+   every op of the model, each attention and linear shard timed on the
+   card (its CUDA graph between CUDA events) and not estimated, the
+   ``torch.profiler`` trace naming the launches of kernels 1-6
+   (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
+   ce_fwd_kernel, ce_bwd_dx_kernel, ce_bwd_dw_kernel), and the losses
+   bit-equal to phase 9's first 3;
 10. LM training slice at the widths of the JAX package's ``gpt-1.3b``
     preset (``flexflow_tpu/models/gpt.py``: 24 layers, d_model 2048, 16
     heads of 128, d_ff 8192, vocab 32768, batch 16, seq 512; 1.34 B
@@ -173,6 +183,17 @@ Phases (any failure exits non-zero):
     and the ``linear1`` kernel and bias after 3 steps, within 2e-2 of the
     run with kernels 7-10 swapped for their plain versions; images/s,
     step ms and peak memory;
+13b. ResNet-101 from a JPEG tree (path A of ROADMAP Queue A item 5):
+    the smoke writes an ImageNet-style tree with PIL (8 class
+    directories, 3 batches of 64 JPEGs from a seed at mixed sizes of
+    256-500 px) and trains ``apps.cnn resnet101 -d <tree>`` at the
+    same protocol with ``--prefetch-depth 2``, 1 warm-up and 5 timed
+    steps: the decoder the stream names is the native loader where its
+    library builds and PIL where it does not, the launches of kernels 7,
+    7f and 8 per step as in phase 13, finite losses, and the first
+    step's input batch equal to the plain PIL decode of the same files
+    (bit-equal on the PIL path, the largest difference logged on the
+    native one); images/s and ``input_stall_s`` beside phase 13's;
 14. VGG-16 training slice: ``apps.cnn vgg16``, the same protocol: per
     step 5 max-pool forward and 5 backward launches and no other kernel;
     the first 3 losses and the ``linear3`` leaves as for ResNet-101;
@@ -184,6 +205,15 @@ Phases (any failure exits non-zero):
     5's sum and 6, and the first 3 losses within 1e-4 (relative) of the
     same run with every kernel swapped for its plain version;
     sentences/s, step ms and peak memory;
+15b. the NMT under the training runtime's flags (path B of ROADMAP
+    Queue A item 5): the same ``apps.nmt`` for 10 steps (1 warm-up)
+    with ``--ckpt-dir D --ckpt-freq 5 --ckpt-async --on-divergence
+    rollback --fault-spec loss_nan@7 -obs-dir O -metrics-path M``: one
+    rollback (10 -> 5), the records fault -> rollback -> recovery in the
+    JAX package's order, the first 5 losses bit-equal to phase 15's, a
+    verified final checkpoint at step 10, the metrics file written, and
+    kernels 4-6 launched 2 a step for the 15 steps run; the checkpoint,
+    final-save and restore seconds;
 16. MoE training slice and the training runtime: ``apps.lm --experts 8``
     at the LM run's widths (8 experts in every block, top-2, capacity
     factor 2.0, aux weight 1e-2, float32, plain SGD at lr 1e-3) with
@@ -261,14 +291,16 @@ Phases (any failure exits non-zero):
     ``--strategy`` a one-device file this phase writes (NCCL): phase 9's
     launches, the first 3 losses within 1e-4 (relative) of phase 9's
     run; tokens/s, step ms and peak memory; then two gloo ranks on
-    cuda:0, 1 warm-up and 3 steps, under a strategy that puts every new
+    cuda:0, 1 warm-up and 3 steps at 4 of phase 9's 12 blocks (a depth
+    cut: a 12-block step costs about 10 s of gloo's host copies), under
+    a strategy that puts every new
     mechanism on the path: ring attention (s = 2) in the even blocks,
     the heads split in the odd ones, ``ff1`` (2, 1), ``ff2`` (1, 2), the
     norms and residuals alternately (2, 1) and (1, 2), ``embed`` on rank
     1 alone and ``lm_head`` (2, 1), the fused vocab-parallel head (gloo
     carries no point-to-point for CUDA tensors, phase 17's probe, so the
-    ring's rotations all-gather); the first 3 losses within 1e-4 of the
-    one-rank run, rank 0's launches of kernels 1-6 and their partial
+    ring's rotations all-gather); the first 3 losses within 1e-4 of one
+    process's run at that depth, rank 0's launches of kernels 1-6 and their partial
     forms counted, each rank's param keys logged; that run checkpoints
     every 2 steps (rank 0 writes the leaves gathered whole), and in the
     same world a run resumed from its step-2 checkpoint repeats steps 3-4:
@@ -285,8 +317,9 @@ Phases (any failure exits non-zero):
     equal phase 16's first 4 bit for bit, and phase 9's per-step
     launches of kernels 1-6; then two gloo ranks on cuda:0 under phase
     18b's placements with the even MoE blocks (2, 1, 1) (experts split)
-    and the odd (1, 2, 1) (expert hidden channels split): the first 3
-    losses within 1e-4 of the one-rank run, rank 0's launches as 18b's,
+    and the odd (1, 2, 1) (expert hidden channels split), 4 blocks as
+    18b's: the first 3 losses within 1e-4 of one process's run at that
+    depth, rank 0's launches as 18b's,
     each rank's param keys logged; in the same torchrun world, the MoE
     op alone at full width (B 16, S 512, D 768, 8 experts, d_ff 3072)
     under (2, 1, 1), (1, 2, 1) and (1, 1, 2) at capacity 2.0 and 1.0
@@ -350,8 +383,8 @@ Phases (any failure exits non-zero):
     is held on them), and ``apps.calibrate --from-obs``'s refit joining
     ops and giving anchors for Conv2D, Pool2D and Linear;
 18f. elastic slice (ROADMAP Queue A item 5, its elastic half), in 18b's
-    two-gloo-rank world before its drained run: ``apps.lm`` at the LM
-    phase's widths under 18b's strategy with ``--elastic --min-devices 1
+    two-gloo-rank world before its drained run: ``apps.lm`` at 18b's
+    widths and depth under 18b's strategy with ``--elastic --min-devices 1
     --print-freq 1 --ckpt-dir D --ckpt-freq 2 --regrow-probes 2
     --max-regrows 1 --research-budget-s 10 --fault-spec
     device_loss@2,device_return@2 -obs-dir O``, 1 warm-up and 8 steps:
@@ -523,6 +556,22 @@ VGG_MAX_POOLS = [(224, 224, 64), (112, 112, 128), (56, 56, 256),
                  (28, 28, 512), (14, 14, 512)]
 # the classifier whose leaves the kernel and plain-pool runs compare
 CNN_HEAD = {"resnet101": "linear1", "vgg16": "linear3"}
+# path A: ResNet-101 trained from a JPEG tree this smoke writes (8 class
+# directories, 3 batches of 64 at mixed sizes of 256-500 px), 1 warm-up +
+# 5 timed steps, the stream two batches ahead on the DevicePrefetcher;
+# the tree lies inside the checkout and is removed when the run ends
+JPEG_CLASSES, JPEG_BATCHES, JPEG_SIDES = 8, 3, (256, 500)
+JPEG_WARMUP, JPEG_TIMED = 1, 5
+DATA_ROOT = Path(__file__).resolve().parent / ".chip_data"
+# path B: the NMT under the runtime flags for 10 steps: async checkpoints
+# every 5, a NaN loss at step 7 rolled back at the step-10 boundary to
+# step 5, steps 6-10 run again
+NMT_RUNTIME_ITERS, NMT_RUNTIME_CKPT = 10, 5
+NMT_RUNTIME_FAULT = "loss_nan@7"
+# path C: the kernels the LM's --trace-dir trace must name
+TRACE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_kernel", "ce_fwd_kernel", "ce_bwd_dx_kernel",
+                 "ce_bwd_dw_kernel")
 # the NMT run: the JAX app's defaults (batch 64, 2 layers, seq 20 in
 # chunks of 10, hidden and embed 2048, vocab 20480, float32, SGD lr 0.1)
 NMT_WIDTHS = (64, 2, 20, 2048, 2048)   # batch, layers, seq, hidden, embed
@@ -1946,8 +1995,86 @@ def lm_phase(torch, kernels, card: str, widths=(12, 768, 12, 3072),
     if not rel <= LM_LOSS_RTOL:
         raise AssertionError(f"{tag} losses differ from the plain-kernel run "
                              f"by {rel}")
+    if tag == "lm":
+        _lm_profiled_run(torch, kernels, card, losses[:checked], widths)
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
             "tokens_per_sec": tokens_per_sec, "loss": losses}
+
+
+def _lm_profiled_run(torch, kernels, card: str, want_losses: list,
+                     widths) -> None:
+    """Path C: ``apps.lm --profiling --trace-dir`` at the LM phase's
+    widths, 1 warm-up and 2 steps: the roofline line, a table row for
+    every op with the attention and linear shards timed, the trace
+    naming kernels 1-6, the losses bit-equal to the run without the
+    flags."""
+    import gc
+
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.models.transformer import TransformerLM
+
+    trace_dir = OBS_ROOT / "lm_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    argv = _lm_argv(len(want_losses), 1, widths)
+    lines = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = lm.main(argv + ["--profiling", "--trace-dir", str(trace_dir)],
+                  log=lines.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    _log(f"lm profile: {len(want_losses)} steps with --profiling "
+         f"--trace-dir in {seconds:.1f} s (the loop "
+         f"{out['elapsed_s']:.3f} s timed); launches with the profiler's "
+         f"shard runs {launches}")
+    if out["loss"] != want_losses:
+        raise AssertionError(f"lm profile losses {out['loss']} are not "
+                             f"bit-equal to the run without the flags "
+                             f"{want_losses}")
+    _log(f"lm profile: losses {out['loss']} bit-equal to phase 9's first "
+         f"{len(want_losses)}")
+    roof = [line for line in lines if line.startswith("step roofline")]
+    if len(roof) != 1:
+        raise AssertionError(f"lm profile: no step roofline line in {lines}")
+    _log(f"lm profile: {roof[0]} — {card}")
+    table = lines[lines.index(roof[0]) + 1].splitlines()
+    cfg = lm.parse_args(argv)[0]
+    model = TransformerLM(cfg, MachineModel.virtual(1))
+    kinds = {op.name: type(op).__name__ for op in model.layers}
+    rows = table[1:-1]
+    if [row.split()[0] for row in rows] != list(kinds):
+        raise AssertionError(f"lm profile: the table's rows {rows} are not "
+                             f"the model's ops {list(kinds)}")
+    timed = [row for row in rows
+             if kinds[row.split()[0]] in ("MultiHeadAttention", "RnnLinear")]
+    estimated = [row for row in timed if "~" in row]
+    if not timed or estimated:
+        raise AssertionError(f"lm profile: attention and linear shards "
+                             f"estimated, not timed: {estimated}")
+    top = sorted(rows, key=lambda r: -float(r.split()[-4].lstrip("~")))
+    for row in [table[0]] + top[:12] + [table[-1]]:
+        _log(f"lm profile table: {row}")
+    (path,) = trace_dir.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    found = {}
+    for e in events:
+        for k in TRACE_KERNELS:
+            if k in str(e.get("name", "")):
+                n, us = found.get(k, (0, 0.0))
+                found[k] = (n + 1, us + float(e.get("dur", 0.0)))
+    _log(f"lm trace: {path.name}, {path.stat().st_size / 1e6:.1f} MB, "
+         f"{len(events)} events; kernel events (count, summed us) {found}")
+    missing = [k for k in TRACE_KERNELS if k not in found]
+    if missing:
+        raise AssertionError(f"lm trace names no launch of {missing}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the drift loop's LM run (ROADMAP Queue A item 4 (i)): apps.lm at the LM
@@ -2438,8 +2565,153 @@ def resnet_vgg_phase(torch, kernels, card: str, model: str) -> dict:
     del got_p, want_p
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
-            "images_per_sec": images_per_sec}
+    res = {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
+           "images_per_sec": images_per_sec}
+    if model == "resnet101":
+        res["jpeg"] = _jpeg_run(torch, kernels, card, res)
+    return res
+
+
+class _FirstBatch:
+    """An input stream that keeps a host copy of its first batch."""
+
+    def __init__(self, it):
+        self.it, self.first = it, None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.it)
+        if self.first is None:
+            self.first = tuple(t.detach().cpu() for t in batch)
+        return batch
+
+    def close(self):
+        self.it.close()
+
+
+def _write_jpeg_tree(root: Path, classes: int, per_class: int) -> int:
+    """An ImageNet-style ``train/`` tree of seeded JPEGs (smooth content,
+    upsampled from a coarse random grid) at mixed sizes; the file count."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    lo, hi = JPEG_SIDES
+    for c in range(classes):
+        d = root / "train" / f"class{c:02d}"
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            h, w = (int(v) for v in rng.randint(lo, hi + 1, size=2))
+            coarse = rng.randint(0, 256, size=(h // 16 + 1, w // 16 + 1, 3),
+                                 dtype=np.uint8)
+            Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(
+                d / f"{i:03d}.jpg", quality=90)
+    return classes * per_class
+
+
+def _jpeg_run(torch, kernels, card: str, synthetic: dict) -> dict:
+    """Path A: ``apps.cnn resnet101 -d <tree>`` through kernels 7, 7f and
+    8, its input batch held against the plain PIL decode."""
+    import gc
+
+    from flexflow_tpu_torch.apps import cnn
+    from flexflow_tpu_torch.data import native
+    from flexflow_tpu_torch.data.imagenet import (ImageDataset,
+                                                  decode_batch_pil)
+    from flexflow_tpu_torch.ops.kernels import avgpool as ap
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    n = _write_jpeg_tree(DATA_ROOT, JPEG_CLASSES,
+                         JPEG_BATCHES * RESNET_VGG_BATCH // JPEG_CLASSES)
+    size = sum(f.stat().st_size for f in DATA_ROOT.rglob("*.jpg"))
+    _log(f"resnet101 jpeg: wrote {n} JPEGs ({size / 1e6:.1f} MB, "
+         f"{JPEG_SIDES[0]}-{JPEG_SIDES[1]} px) in "
+         f"{time.perf_counter() - t0:.2f} s")
+    lib = native.load_lib()
+    want_decoder = "native" if lib is not None else "pil"
+    _log(f"resnet101 jpeg: native loader "
+         + ("built" if lib is not None else
+            f"unavailable ({native.last_error()})")
+         + f"; expecting the {want_decoder} decoder")
+    recorded = {}
+    make_data = cnn.make_data
+
+    def recording(*args, **kwargs):
+        recorded["stream"] = _FirstBatch(make_data(*args, **kwargs))
+        return recorded["stream"]
+
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        _log(msg)
+
+    iters = JPEG_WARMUP + JPEG_TIMED
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    cnn.make_data = recording
+    try:
+        out = cnn.main(_train_argv(RESNET_VGG_BATCH, iters, JPEG_WARMUP,
+                                   "resnet101")
+                       + ["-d", str(DATA_ROOT), "--prefetch-depth", "2"],
+                       log=log)
+    finally:
+        cnn.make_data = make_data
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    stream = recorded["stream"].it
+    named = [line for line in lines if line.startswith(
+        "data: imagenet decoder ")]
+    if stream.decoder != want_decoder or not named \
+            or not named[0].startswith(f"data: imagenet decoder "
+                                       f"{want_decoder} ({n} samples, "
+                                       f"{JPEG_CLASSES} classes"):
+        raise AssertionError(f"resnet101 jpeg: decoder {stream.decoder}, "
+                             f"logged {named}; expected {want_decoder}")
+    want = {k: iters for k in (mp.NAME_FWD, mp.NAME_BWD, ap.NAME)}
+    if launches != want:
+        raise AssertionError(f"resnet101 jpeg kernels launched {launches}, "
+                             f"expected {want} (as the synthetic run, per "
+                             f"step)")
+    losses = out["loss"]
+    if len(losses) != iters or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"resnet101 jpeg losses {losses}")
+    ds = ImageDataset(str(DATA_ROOT))
+    ds.shuffle_samples(0)
+    labels, files = ds.get_samples(RESNET_VGG_BATCH)
+    t0 = time.perf_counter()
+    plain = torch.from_numpy(decode_batch_pil(files, 224, 224))
+    plain_s = time.perf_counter() - t0
+    img, lbl = recorded["stream"].first
+    err = float((img - plain).abs().max())
+    if lbl.tolist() != labels or (want_decoder == "pil" and err != 0.0):
+        raise AssertionError(f"resnet101 jpeg: the first batch differs "
+                             f"from the plain decode of its files (labels "
+                             f"{lbl.tolist() == labels}, max |diff| {err})")
+    _log(f"resnet101 jpeg: first batch ({tuple(img.shape)}) against the "
+         f"plain PIL decode of its {len(files)} files: labels equal, max "
+         f"|diff| {err:.3e} ({want_decoder} decoder; the plain decode "
+         f"took {plain_s:.3f} s)")
+    _log(f"resnet101 jpeg: losses {losses}")
+    _log(f"resnet101 jpeg: {out['images_per_sec']:.2f} images/s, "
+         f"input_stall_s {out['input_stall_s']:.3f} over {JPEG_TIMED} timed "
+         f"steps, {out['elapsed_s'] / JPEG_TIMED * 1e3:.2f} ms per step, "
+         f"decoder {stream.decoder}; the synthetic run "
+         f"{synthetic['images_per_sec']:.2f} images/s, "
+         f"{synthetic['step_ms']:.2f} ms per step (input_stall_s 0.0, "
+         f"batches on the card) — {card}")
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    res = {"images_per_sec": out["images_per_sec"], "launches": launches,
+           "input_stall_s": out["input_stall_s"], "decoder": stream.decoder}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def _nmt_argv(iters: int, warmup: int, device: str = "cuda") -> list:
@@ -2507,8 +2779,96 @@ def nmt_phase(torch, kernels, card: str) -> dict:
     if not rel <= LM_LOSS_RTOL:
         raise AssertionError(f"nmt losses differ from the plain-kernel run "
                              f"by {rel}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    _nmt_runtime_run(torch, kernels, card, losses)
     return {"launches": launches, "step_ms": step_ms, "peak_gb": peak_gb,
             "sentences_per_sec": sentences_per_sec, "loss": losses}
+
+
+def _nmt_runtime_run(torch, kernels, card: str, healthy: list) -> None:
+    """Path B: ``apps.nmt`` under the runtime flags, one injected NaN loss
+    rolled back; the records' order, the losses before the bad window,
+    the final checkpoint, kernels 4-6 per step run."""
+    import gc
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.apps import nmt
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+    from flexflow_tpu_torch.utils import checkpoint as ckpt
+
+    root = MOE_CKPT_ROOT / "nmt"
+    shutil.rmtree(root, ignore_errors=True)
+    d, obs_dir, prom = root / "ckpt", root / "obs", root / "metrics.prom"
+    argv = _nmt_argv(NMT_RUNTIME_ITERS, 1) + [
+        "--ckpt-dir", str(d), "--ckpt-freq", str(NMT_RUNTIME_CKPT),
+        "--ckpt-async", "--on-divergence", "rollback", "--fault-spec",
+        NMT_RUNTIME_FAULT, "-obs-dir", str(obs_dir), "-metrics-path",
+        str(prom)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = nmt.main(argv, log=_log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    steps = NMT_RUNTIME_ITERS + (NMT_RUNTIME_ITERS - NMT_RUNTIME_CKPT)
+    want = {name: NMT_CHUNKS * steps
+            for name in (ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX,
+                         ce.NAME_DX_SUM, ce.NAME_DW)}
+    if launches != want:
+        raise AssertionError(f"nmt runtime kernels launched {launches}, "
+                             f"expected {want} ({NMT_CHUNKS} a step for the "
+                             f"{steps} steps run)")
+    losses = out["loss"]
+    if out["rollbacks"] != 1 or len(losses) != NMT_RUNTIME_ITERS \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"nmt runtime: {out['rollbacks']} rollbacks, "
+                             f"losses {losses}")
+    if losses[:NMT_RUNTIME_CKPT] != healthy[:NMT_RUNTIME_CKPT]:
+        raise AssertionError(f"nmt runtime: losses {losses} before the bad "
+                             f"window differ from the healthy run's "
+                             f"{healthy[:NMT_RUNTIME_CKPT]}")
+    records = list(obs.read_run(out["obs_path"]))
+
+    def first(kind, **match):
+        for i, e in enumerate(records):
+            if e["kind"] == kind and all(e.get(k) == v
+                                         for k, v in match.items()):
+                return i
+        raise AssertionError(f"nmt runtime: no {kind} {match} record")
+
+    order = [first("fault", source="injected", fault="loss_nan"),
+             first("fault", source="guard", fault="loss_divergence"),
+             first("rollback"),
+             first("recovery", source="guard", after="rollback")]
+    if order != sorted(order):
+        raise AssertionError(f"nmt runtime: records out of order {order}")
+    last = ckpt.latest_step(str(d))
+    ok, why = ckpt.verify_checkpoint(str(d), last)
+    if last != NMT_RUNTIME_ITERS or not ok or not prom.exists():
+        raise AssertionError(f"nmt runtime: final checkpoint step {last} "
+                             f"({why}); metrics written {prom.exists()}")
+    rollback = records[order[2]]
+    commits = (out.get("ckpt_async") or {}).get("commits")
+    rerun = steps - NMT_RUNTIME_ITERS
+    _log(f"nmt runtime: {NMT_RUNTIME_ITERS} steps + {rerun} re-run after "
+         f"the rollback "
+         f"{rollback.get('from_step')} -> {rollback.get('to_step')}, "
+         f"{seconds:.1f} s in all; losses {losses}; first "
+         f"{NMT_RUNTIME_CKPT} bit-equal to phase 15's; records "
+         f"fault -> rollback -> recovery; final checkpoint {last} verified; "
+         f"launches {launches}")
+    _log(f"nmt runtime: boundary seconds: checkpoint_s "
+         f"{out['checkpoint_s']:.3f} (the async snapshot on the boundary), "
+         f"final_save_s {out['final_save_s']:.3f}, restore_s "
+         f"{out['restore_s']:.3f} (the rollback's wait and restore); async "
+         f"commits (step, s) {commits}; {out['sentences_per_sec']:.2f} "
+         f"sentences/s in the timed window — {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _moe_argv(iters: int, warmup: int, ckpt_dir=None, *extra) -> list:
@@ -3680,6 +4040,12 @@ def placement4_phase(torch, kernels, card: str, nmt_run: dict,
 # run's
 LM_RANKS_WARMUP, LM_RANKS_STEPS = 1, 3
 LM_LAYERS = 12
+# the LM world over several ranks (18b-18f, 19) runs the LM phase's
+# widths at 4 of its 12 blocks: two gloo ranks on one card take about 10 s
+# a 12-block step in host copies; its reference is a one-process run at
+# the same depth
+LM_RANKS_LAYERS = 4
+LM_RANKS_WIDTHS = (LM_RANKS_LAYERS, 768, 12, 3072)
 # the multi-rank LM runs save every 2 steps; a run resumed from step 2
 # repeats the rest of the uninterrupted run bit for bit, or within 1e-6
 LM_CKPT_FREQ = 2
@@ -3696,8 +4062,10 @@ ELASTIC_SHRINK, ELASTIC_GROW = 2, {2: 5, 4: 6}
 ELASTIC_RTOL = 1e-6
 
 
-def _lm_strategy_file(path: Path, ranks: int) -> None:
-    """The LM phase's strategy over ``ranks`` devices: ring attention
+def _lm_strategy_file(path: Path, ranks: int,
+                      layers: int = LM_LAYERS) -> None:
+    """The LM phase's strategy (``layers`` blocks) over ``ranks``
+    devices: ring attention
     (s = 2, the rest of the ranks over the batch) in the even blocks and
     the heads split over every rank in the odd ones, ``ff1`` split over
     its output channels and ``ff2`` over the batch, the norms and
@@ -3715,7 +4083,7 @@ def _lm_strategy_file(path: Path, ranks: int) -> None:
     put("final_ln", [ranks, 1])
     put("lm_head", [ranks, 1])
     put("softmax", [ranks])
-    for i in range(LM_LAYERS):
+    for i in range(layers):
         put(f"blk{i}_attn", (1, ranks, 1) if i % 2 or ranks == 1
             else (2, 1, ranks // 2))
         put(f"blk{i}_ff1", (ranks, 1))
@@ -3726,16 +4094,17 @@ def _lm_strategy_file(path: Path, ranks: int) -> None:
     path.write_text(json.dumps(obj, indent=1))
 
 
-def _lm_rank_launches(steps: int) -> dict:
+def _lm_rank_launches(steps: int, layers: int = LM_LAYERS) -> dict:
     """Rank 0's launches of kernels 1-6 under ``_lm_strategy_file`` over 2
-    or 4 ranks: in each even block its ring chunk is the first, so it
+    or 4 ranks (``layers`` blocks): in each even block its ring chunk is
+    the first, so it
     attends only its own (the diagonal: one partial form of kernels
     1-3); each odd block runs kernels 1-3 on its heads; the head runs the
     partial form of kernels 4-6."""
     from flexflow_tpu_torch.ops.kernels import flash_attention as fa
     from flexflow_tpu_torch.ops.kernels import fused_ce as ce
 
-    half = LM_LAYERS // 2
+    half = layers // 2
     out = {}
     for name in (fa.NAME, fa.NAME_DKV, fa.NAME_DQ):
         out[name] = half * steps
@@ -4021,18 +4390,18 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     (:func:`_check_ranks_supervised`)."""
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
     path = root / f"lm_{ranks}.json"
-    _lm_strategy_file(path, ranks)
+    _lm_strategy_file(path, ranks, LM_RANKS_LAYERS)
     whole, cut = root / f"ckpt_{ranks}", root / f"ckpt_{ranks}_resumed"
     drained = DRAIN_ROOT / f"lm_{ranks}"
     ckpt = ["--ckpt-freq", str(LM_CKPT_FREQ), "--ckpt-dir"]
-    runs = [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(whole)],
-            _lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(cut)]]
+    argv = _lm_argv(steps, LM_RANKS_WARMUP, LM_RANKS_WIDTHS)
+    runs = [argv + ckpt + [str(whole)], argv + ckpt + [str(cut)]]
     el = _elastic_runs(ranks, root, len(runs))
     runs += el["runs"]
     if supervised:
         shutil.rmtree(drained, ignore_errors=True)
         runs[1] += ["--ckpt-async"]
-        runs += [_lm_argv(steps, LM_RANKS_WARMUP) + ckpt + [str(drained)]
+        runs += [argv + ckpt + [str(drained)]
                  + ["--ckpt-async", "--drain-budget-s", str(DRAIN_BUDGET_S)]]
     results, _, seconds = _lm_ranks(
         ranks, root, f"lm_{ranks}", runs,
@@ -4045,7 +4414,8 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     label = (f"lm strategy {ranks} ranks "
              f"({' '.join(extra) or 'NCCL, a card a rank'})")
     step_ms = _log_ranks_run(label, results[0], seconds, card)
-    _check_lm_run(label, results[0][0], want_loss, _lm_rank_launches(steps))
+    _check_lm_run(label, results[0][0], want_loss,
+                  _lm_rank_launches(steps, LM_RANKS_LAYERS))
     _check_resume(label, results[0], results[1], whole, cut, steps, card)
     out = {"tokens_per_sec": results[0][0]["tokens_per_sec"],
            "step_ms": step_ms, "launches": results[0][0]["launches"]}
@@ -4071,15 +4441,17 @@ def _elastic_runs(ranks: int, root: Path, first: int) -> dict:
     grow = ELASTIC_GROW[ranks]
     ckpt, obs_dir = root / f"elastic_{ranks}", root / f"elastic_obs_{ranks}"
     shrunk, grown = root / f"elastic_{ranks}_s", root / f"elastic_{ranks}_g"
-    runs = {"E": _lm_argv(ELASTIC_ITERS, 1) + [
+    runs = {"E": _lm_argv(ELASTIC_ITERS, 1, LM_RANKS_WIDTHS) + [
         "--elastic", "--min-devices", "1", "--print-freq",
         str(ELASTIC_PRINT[ranks]), "--ckpt-dir", str(ckpt), "--ckpt-freq",
         "2", "--regrow-probes", "2", "--max-regrows", "1",
         "--research-budget-s", "10", "--fault-spec", ELASTIC_FAULTS[ranks],
         "-obs-dir", str(obs_dir), "-run-id", f"elastic{ranks}"],
-        "S": _lm_argv(grow, 1) + ["--ckpt-dir", str(shrunk)],
-        "G": _lm_argv(ELASTIC_ITERS, 1) + ["--ckpt-dir", str(grown)],
-        "NF": _lm_argv(2, 1) + ["--elastic"]}
+        "S": _lm_argv(grow, 1, LM_RANKS_WIDTHS) + ["--ckpt-dir",
+                                                   str(shrunk)],
+        "G": _lm_argv(ELASTIC_ITERS, 1, LM_RANKS_WIDTHS) + ["--ckpt-dir",
+                                                            str(grown)],
+        "NF": _lm_argv(2, 1, LM_RANKS_WIDTHS) + ["--elastic"]}
     index = {k: first + i for i, k in enumerate(runs)}
     return {"runs": list(runs.values()), "index": index,
             "sub": {index["S"]: list(range(ranks // 2))},
@@ -4231,10 +4603,10 @@ def _check_elastic(label: str, ranks: int, whole_loss, root: Path,
                    for n in names):
             raise AssertionError(f"{label}: a kernel of 1-6 was not "
                                  f"launched in steps {steps}: {seg}")
-    if segs[0] != _lm_rank_launches(ELASTIC_SHRINK):
+    before = _lm_rank_launches(ELASTIC_SHRINK, LM_RANKS_LAYERS)
+    if segs[0] != before:
         raise AssertionError(f"{label}: launches before the shrink "
-                             f"{segs[0]}, want "
-                             f"{_lm_rank_launches(ELASTIC_SHRINK)}")
+                             f"{segs[0]}, want {before}")
     for seg, want in wants.items():
         if segs[seg] != want:
             raise AssertionError(f"{label}: launches in steps "
@@ -4312,7 +4684,7 @@ def _check_resume(label: str, results, resumed, whole: Path, cut: Path,
     the save and restore seconds logged."""
     res, again = results[0], resumed[0]
     tail = res["loss"][LM_CKPT_FREQ:]
-    want = _lm_rank_launches(steps - LM_CKPT_FREQ)
+    want = _lm_rank_launches(steps - LM_CKPT_FREQ, LM_RANKS_LAYERS)
     if {k: v for k, v in again["launches"].items() if v} != want:
         raise AssertionError(f"{label} resumed: launches on rank 0 "
                              f"{again['launches']}, want {want}")
@@ -4375,8 +4747,21 @@ def lm_strategy_phase(torch, kernels, card: str, lm_run: dict,
         _log(f"lm strategy: ring rotations over gloo on CUDA tensors move "
              f"by all-gather (gloo's send_recv on CUDA tensors: "
              f"{carried['send_recv']})")
+        # the reference of the runs over ranks: one process at their
+        # depth, without a strategy
+        import gc
+
+        from flexflow_tpu_torch.apps import lm
+
+        out["ref"] = lm.main(_lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS,
+                                      LM_RANKS_WARMUP, LM_RANKS_WIDTHS),
+                             log=lambda *a: None)["loss"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        _log(f"lm strategy: the {LM_RANKS_LAYERS}-block reference in this "
+             f"process {out['ref']}")
         out["two"] = _lm_ranks_run(
-            2, root, card, res["loss"],
+            2, root, card, out["ref"],
             ["--device", "cuda:0", "--dist-backend", "gloo"],
             supervised=True)
         return out
@@ -4395,7 +4780,7 @@ def lm_strategy4_phase(torch, kernels, card: str, lm_strategy: dict) -> dict:
     root.mkdir(exist_ok=True)
     try:
         one = lm_strategy["one"]
-        out = _lm_ranks_run(4, root, card, one["loss"], [])
+        out = _lm_ranks_run(4, root, card, lm_strategy["ref"], [])
         _log(f"lm strategy 4: one card {one['tokens_per_sec']:.1f} tokens/s "
              f"({one['step_ms']:.3f} ms a step), four cards "
              f"{out['tokens_per_sec']:.1f} tokens/s ({out['step_ms']:.3f} "
@@ -4433,15 +4818,16 @@ PIPE_FILE_RTOL = 1e-6
 PROPOSAL_DEVICES = 4
 
 
-def _moe_strategy_file(path: Path, ranks: int) -> None:
+def _moe_strategy_file(path: Path, ranks: int,
+                       layers: int = LM_LAYERS) -> None:
     """``_lm_strategy_file``'s placements of the attention, norms,
-    residuals, embedding and head over ``ranks``, with ``blk{i}_moe``
-    cycling through ``MOE_GRIDS[ranks]`` (one rank: every grid a point on
-    device 0)."""
-    _lm_strategy_file(path, ranks)
+    residuals, embedding and head over ``ranks`` (``layers`` blocks),
+    with ``blk{i}_moe`` cycling through ``MOE_GRIDS[ranks]`` (one rank:
+    every grid a point on device 0)."""
+    _lm_strategy_file(path, ranks, layers)
     obj = json.loads(path.read_text())
     grids = MOE_GRIDS.get(ranks, [(1, 1, 1)])
-    for i in range(LM_LAYERS):
+    for i in range(layers):
         for op in ("ff1", "ff2", "gelu"):
             del obj[f"blk{i}_{op}"]
         obj[f"blk{i}_moe"] = {"dims": list(grids[i % len(grids)]),
@@ -4666,7 +5052,6 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
     root = STRATEGY_ROOT
     root.mkdir(exist_ok=True)
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
-    argv = _moe_argv(steps, LM_RANKS_WARMUP)
     try:
         # run in the strategy phase's one-rank world
         res = strategy_run["one_rank"]["moe"]
@@ -4698,13 +5083,32 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
                                  f"tensors for {GLOO_CUDA_NEEDED}: "
                                  f"{carried}")
         ride = (lm_strategy or {}).get("two", {}).get("drained")
-        out["two"] = _moe_ranks_run(2, root, card, res["loss"], argv,
+        # the runs over ranks at LM_RANKS_LAYERS blocks, and their
+        # reference: one process at that depth, without a strategy
+        import gc
+
+        from flexflow_tpu_torch.apps import lm
+
+        argv = _moe_ranks_argv()
+        out["ref"] = lm.main(argv, log=lambda *a: None)["loss"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        _log(f"moe strategy: the {LM_RANKS_LAYERS}-block reference in this "
+             f"process {out['ref']}")
+        out["two"] = _moe_ranks_run(2, root, card, out["ref"], argv,
                                     ["--device", "cuda:0", "--dist-backend",
                                      "gloo"], ride=ride)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(DRAIN_ROOT, ignore_errors=True)
+
+
+def _moe_ranks_argv() -> list:
+    """The MoE LM's flags over several ranks: ``LM_RANKS_LAYERS`` blocks,
+    1 + 3 steps."""
+    return _lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS, LM_RANKS_WARMUP,
+                    LM_RANKS_WIDTHS) + ["--experts", str(MOE_EXPERTS)]
 
 
 def _moe_ranks_run(ranks: int, root: Path, card: str, want_loss, argv,
@@ -4715,13 +5119,13 @@ def _moe_ranks_run(ranks: int, root: Path, card: str, want_loss, argv,
     losses after it), the LM resumed from it in the same world
     repeats those losses within ``LM_RESUME_RTOL``."""
     path = root / f"moe_{ranks}.json"
-    _moe_strategy_file(path, ranks)
+    _moe_strategy_file(path, ranks, LM_RANKS_LAYERS)
     runs = [argv + ["--strategy", str(path)]]
     if ride:
         lm_path = root / f"lm_{ranks}.json"
-        _lm_strategy_file(lm_path, ranks)
+        _lm_strategy_file(lm_path, ranks, LM_RANKS_LAYERS)
         runs.append(_lm_argv(LM_RANKS_WARMUP + LM_RANKS_STEPS,
-                             LM_RANKS_WARMUP)
+                             LM_RANKS_WARMUP, LM_RANKS_WIDTHS)
                     + ["--ckpt-freq", str(LM_CKPT_FREQ), "--ckpt-dir",
                        ride["dir"], "--strategy", str(lm_path)])
     results, probes, seconds = _lm_ranks(
@@ -4743,7 +5147,8 @@ def _moe_ranks_run(ranks: int, root: Path, card: str, want_loss, argv,
     label = f"moe strategy {ranks} ranks ({' '.join(extra) or 'NCCL'})"
     step_ms = _log_ranks_run(label, results, seconds, card)
     _check_lm_run(label, results[0], want_loss,
-                  _lm_rank_launches(LM_RANKS_WARMUP + LM_RANKS_STEPS))
+                  _lm_rank_launches(LM_RANKS_WARMUP + LM_RANKS_STEPS,
+                                    LM_RANKS_LAYERS))
     _check_probe(f"{label} probe", probes)
     return {"tokens_per_sec": results[0]["tokens_per_sec"],
             "step_ms": step_ms, "launches": results[0]["launches"]}
@@ -4759,8 +5164,8 @@ def moe_strategy4_phase(torch, kernels, card: str, moe_ranks: dict) -> dict:
     root.mkdir(exist_ok=True)
     try:
         one = moe_ranks["one"]
-        out = _moe_ranks_run(4, root, card, one["loss"], _moe_argv(
-            LM_RANKS_WARMUP + LM_RANKS_STEPS, LM_RANKS_WARMUP), [])
+        out = _moe_ranks_run(4, root, card, moe_ranks["ref"],
+                             _moe_ranks_argv(), [])
         _log(f"moe strategy 4: one card {one['tokens_per_sec']:.1f} tokens/s "
              f"({one['step_ms']:.3f} ms a step), four cards "
              f"{out['tokens_per_sec']:.1f} tokens/s ({out['step_ms']:.3f} "
@@ -5313,7 +5718,8 @@ def search4_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
 
 
 #: ``--only`` names -> phases, and the phases whose results each reads
-ONLY_PHASES = {"lm-obs": "lm obs", "pipeline": "pipeline", "moe": "moe",
+ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
+               "lm-obs": "lm obs", "pipeline": "pipeline", "moe": "moe",
                "runtime": "runtime", "moe-strategy": "moe strategy",
                "search": "search", "search4": "search 4",
                "strategy": "strategy", "lm-strategy": "lm strategy",

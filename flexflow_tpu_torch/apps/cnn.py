@@ -15,9 +15,12 @@
 
 Flags are ``FFConfig.from_args`` (the JAX app's names for the ported
 fields: -b, --lr, --wd, -p, -i, --dtype, --param-dtype, --seed, --height,
---width, --classes, -s/--strategy, -ll:gpu, --allow-degraded, ``fit``'s
-runtime flags --ckpt-dir, --ckpt-freq, --prefetch-depth, --on-divergence,
---max-rollbacks, --fault-spec, its supervision flags --ckpt-async,
+--width, --classes, -s/--strategy, -ll:gpu, --allow-degraded, the data
+flags -d/--dataset, -e/--epochs (parsed, unused), -ll:cpu,
+--data-retry-attempts, --data-skip-budget, --profiling, --trace-dir,
+``fit``'s runtime flags --ckpt-dir, --ckpt-freq, --prefetch-depth,
+--on-divergence, --max-rollbacks, --fault-spec, its supervision flags
+--ckpt-async,
 --hang-factor, --hang-min-s, --drain-budget-s, -metrics-path, its
 elastic flags --elastic, --min-devices, --research-budget-s,
 --elastic-search-iters, --max-regrows, --regrow-probes,
@@ -39,9 +42,18 @@ NCCL on CUDA and gloo on the CPU unless named).  Models
 add) and ``densenet``/``densenet121`` at 224x224 unless --height/--width
 are given, ``inception``/``inception_v3`` at 299x299.
 The input is seeded random synthetic data (``data/synthetic.py``,
-``mode="random"``).  Prints the reference's metric line
-``time = %.4fs, tp = %.2f images/s``.  The JAX app's datasets and
-profiling raise ``NotImplementedError`` when asked for
+``mode="random"``) unless ``-d`` names a dataset (:func:`make_data`):
+an ImageNet-style directory (``<root>/train/<class>/<file>``, decoded on
+``-ll:cpu`` native loader threads or with PIL; ``num_classes`` is the
+tree's class count unless ``--classes`` is given, which may not be
+smaller) or a comma-separated list of ``.h5``/``.hdf5`` files, each
+read under ``--data-retry-attempts`` tries per item and
+``--data-skip-budget`` skips per run, their records on the ``data``
+surface's obs sink.  ``--profiling`` logs the step roofline and the
+per-op table after the loop, ``--trace-dir T`` writes a
+``torch.profiler`` trace of the loop into T.  Prints the reference's
+metric line ``time = %.4fs, tp = %.2f images/s``.  The JAX app's flags
+of features not ported yet raise ``NotImplementedError``
 (``config.UNPORTED_FLAGS``).  Under torchrun with ``--elastic`` a lost
 rank shrinks the run onto the others (``FFModel.fit``, the builder as
 its rebuild factory).  A drained run (SIGTERM, SIGINT, an
@@ -187,10 +199,58 @@ def check_strategy(build_shadow, strategies, machine, allow_degraded: bool,
                       allow_degraded=allow_degraded, label=label)
 
 
+def scan_dataset(cfg: FFConfig, argv):
+    """The ImageNet-style tree ``-d`` names, scanned before the model is
+    built so that the classifier's width matches the data
+    (``flexflow_tpu/apps/cnn.py:82-97``): ``num_classes`` becomes the
+    tree's class count, or with ``--classes`` must be at least that.
+    None for synthetic data and for HDF5 files."""
+    from flexflow_tpu_torch.data import ImageDataset
+
+    if not cfg.dataset_path or cfg.dataset_path.endswith((".h5", ".hdf5")):
+        return None
+    dataset = ImageDataset(cfg.dataset_path, "train")
+    if "--classes" in argv:
+        if dataset.num_classes > cfg.num_classes:
+            raise SystemExit(
+                f"--classes {cfg.num_classes} but dataset has "
+                f"{dataset.num_classes} class directories")
+    else:
+        cfg.num_classes = dataset.num_classes
+    return dataset
+
+
+def make_data(cfg: FFConfig, machine, dataset=None, olog=None, log=None):
+    """The input the reference picks (``flexflow_tpu/apps/cnn.py:43-65``):
+    synthetic unless ``-d`` was given; ``.h5``/``.hdf5`` files go to
+    ``hdf5_batches``, a directory to ``image_batches`` with ``-ll:cpu``
+    decode threads, shuffled from the seed.  The file sources retry and
+    skip under the config's budgets and write their records on ``olog``
+    (the caller's); every source yields this rank's rows on its device."""
+    from flexflow_tpu_torch.data import (hdf5_batches, image_batches,
+                                         synthetic_batches)
+
+    if not cfg.dataset_path:
+        return synthetic_batches(cfg.batch_size, cfg.input_height,
+                                 cfg.input_width, num_classes=cfg.num_classes,
+                                 mode="random", seed=cfg.seed,
+                                 machine=machine)
+    if cfg.dataset_path.endswith((".h5", ".hdf5")):
+        return hdf5_batches(machine, cfg.dataset_path.split(","),
+                            cfg.batch_size, olog=olog,
+                            retry_attempts=cfg.data_retry_attempts,
+                            skip_budget=cfg.data_skip_budget)
+    return image_batches(machine, dataset, cfg.batch_size, cfg.input_height,
+                         cfg.input_width, num_threads=cfg.loaders_per_node,
+                         shuffle_seed=cfg.seed, olog=olog,
+                         retry_attempts=cfg.data_retry_attempts,
+                         skip_budget=cfg.data_skip_budget, log=log)
+
+
 def main(argv=None, log=print) -> dict:
     """One training run; returns ``fit``'s result without the trees (on
     rank 0; None on the other ranks)."""
-    from flexflow_tpu_torch.data import synthetic_batches
+    from flexflow_tpu_torch import obs
 
     argv = list(sys.argv[1:] if argv is None else argv)
     result_json, argv = _flag_value(argv, "--result-json", "")
@@ -205,6 +265,7 @@ def main(argv=None, log=print) -> dict:
         # float32 references run their products in float32, not TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    dataset = scan_dataset(cfg, argv)
     if cfg.strategies:
         import dataclasses
 
@@ -221,12 +282,21 @@ def main(argv=None, log=print) -> dict:
         f"{cfg.param_dtype} params, on {dev}"
         + (f", {machine.num_devices} ranks, strategy {cfg.strategy_file}"
            if machine.distributed else ""))
-    data = synthetic_batches(cfg.batch_size, cfg.input_height,
-                             cfg.input_width, num_classes=cfg.num_classes,
-                             mode="random", seed=cfg.seed, machine=machine)
-    # the builder doubles as the elastic rebuild factory
-    out = ff.fit(data, warmup=warmup, log=log,
-                 rebuild=lambda c, m: build(model_name, c, m))
+    # the data surface's sink: the file sources' data_fault, recovery,
+    # thread_leak and data_decoder records (one stream with fit's under a
+    # shared -run-id); rank 0's alone, as fit's
+    data_olog = obs.NULL if machine.rank else obs.from_config(
+        cfg, surface="data")
+    data = None
+    try:
+        data = make_data(cfg, machine, dataset, olog=data_olog, log=log)
+        # build() doubles as the elastic rebuild factory
+        out = ff.fit(data, warmup=warmup, log=log,
+                     rebuild=lambda c, m: build(model_name, c, m))
+    finally:
+        if hasattr(data, "close"):
+            data.close()
+        data_olog.close()
     if out.get("drained"):
         # a graceful drain: exit 0 is the scheduler's contract
         log(f"drained at iteration {out.get('completed_steps')}; "

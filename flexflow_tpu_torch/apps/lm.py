@@ -25,14 +25,18 @@ logged, and ``fit``'s boundaries fall, every N steps; default 10),
 --hang-factor, --hang-min-s, --drain-budget-s, -metrics-path), elastic
 training (--elastic, --min-devices, --research-budget-s,
 --elastic-search-iters, --max-regrows, --regrow-probes,
---transient-reset-steps) and its telemetry (-obs-dir, -run-id, --obs-max-bytes, -op-time-every:
-``FFModel.fit``), plus ``--device``
+--transient-reset-steps; --decompose, --block-budget-s,
+--boundary-refine-iters for its re-search), its telemetry (-obs-dir,
+-run-id, --obs-max-bytes, -op-time-every) and, beyond the JAX LM
+driver, its profiling (--profiling: the step roofline and the per-op
+table after the loop; --trace-dir T: a ``torch.profiler`` trace of the
+loop in T): ``FFModel.fit``, plus ``--device``
 (default ``cuda``: the run raises when CUDA is absent unless ``--device
 cpu`` is given), ``--warmup`` (untimed steps before the timed window,
 default 1 as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (profiling, datasets, ...)
+the port does not have yet (``--dry-compile``, the kernel policy, ...)
 raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A run that
 SIGTERM, SIGINT or an injected ``preempt`` drains logs ``drained at
 iteration N`` and exits 0.  A
@@ -83,9 +87,9 @@ import torch
 
 from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
     check_strategy, machine_for
-from flexflow_tpu_torch.config import (OBS_FLAGS, RUNTIME_FLAGS,
-                                       SWITCH_FLAGS, UNPORTED_FLAGS,
-                                       flag_stream, unported)
+from flexflow_tpu_torch.config import (DATA_FLAGS, OBS_FLAGS,
+                                       RUNTIME_FLAGS, SWITCH_FLAGS,
+                                       UNPORTED_FLAGS, flag_stream, unported)
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 
@@ -102,6 +106,9 @@ _INT_FIELDS = {
 }
 _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
                "--param-dtype": "param_dtype"}
+#: fit's profiling flags, which the JAX LM driver ignores and this one
+#: parses (``FFConfig.profiling``, ``trace_dir``)
+PROFILE_FLAGS = {a: DATA_FLAGS[a] for a in ("--profiling", "--trace-dir")}
 
 
 def parse_args(argv):
@@ -125,8 +132,8 @@ def parse_args(argv):
             cfg.strategy_file = val()
         elif a == "--allow-degraded":
             cfg.allow_degraded = True
-        elif a in RUNTIME_FLAGS or a in OBS_FLAGS:
-            field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS}[a]
+        elif a in RUNTIME_FLAGS or a in OBS_FLAGS or a in PROFILE_FLAGS:
+            field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS, **PROFILE_FLAGS}[a]
             setattr(cfg, field, True if a in SWITCH_FLAGS else parse(val()))
         elif a in UNPORTED_FLAGS:
             raise unported(a, "flexflow_tpu/apps/lm.py")

@@ -18,9 +18,18 @@ op, --lr, --dtype, --param-dtype, --seed, --strategy <file>,
 given), ``--warmup`` (untimed steps before the timed window, default 1
 as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
+``fit``'s runtime flags as the JAX app parses them (``NMT_RUNTIME_FLAGS``:
+--ckpt-dir, --ckpt-freq, --ckpt-async, -prefetch-depth, -on-divergence,
+-max-rollbacks, -fault-spec, --hang-factor, --hang-min-s,
+--drain-budget-s, -metrics-path, --elastic, --min-devices,
+--research-budget-s, --max-regrows, --regrow-probes,
+--transient-reset-steps, --decompose, --block-budget-s,
+--boundary-refine-iters, -obs-dir, -run-id, -op-time-every) go through
+``RnnConfig`` to ``FFModel.fit``; the model's constructor is the elastic
+rebuild factory, and a drained run logs ``drained at iteration N``.
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet here (telemetry, checkpoints, elastic
-training, the kernel policy, ...) raise ``NotImplementedError``.  A
+the port does not have yet (the kernel policy, ``--dry-compile``, ...)
+raise ``NotImplementedError``.  A
 ``--strategy`` file is checked first, as in the JAX app
 (``flexflow_tpu/apps/nmt.py:146-148``, ``apps.cnn.check_strategy``): the
 run exits with status 2 on an error finding, ``--allow-degraded``
@@ -49,7 +58,8 @@ import torch
 from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
     check_strategy, machine_for
 from flexflow_tpu_torch.config import (OBS_FLAGS, RUNTIME_FLAGS,
-                                       UNPORTED_FLAGS, flag_stream, unported)
+                                       SWITCH_FLAGS, UNPORTED_FLAGS,
+                                       flag_stream, unported)
 from flexflow_tpu_torch.nmt.rnn_model import (RnnConfig, RnnModel,
                                               pipeline_stage_strategy,
                                               synthetic_token_batches)
@@ -63,11 +73,16 @@ _INT_FIELDS = {
 }
 _STR_FIELDS = {"--dtype": "compute_dtype", "-param-dtype": "param_dtype",
                "--param-dtype": "param_dtype"}
-#: flags of ``flexflow_tpu/apps/nmt.py:parse_args`` whose features the
-#: port does not have yet (``-s`` and ``-e`` are the sequence length and
-#: the embed size here, so they are parsed first); ``fit``'s runtime and
-#: telemetry flags are not carried through ``RnnConfig`` yet
-NMT_UNPORTED_FLAGS = UNPORTED_FLAGS | set(RUNTIME_FLAGS) | set(OBS_FLAGS)
+#: ``fit``'s runtime, supervision, elastic and telemetry flags that
+#: ``flexflow_tpu/apps/nmt.py:parse_args`` parses into ``RnnConfig``
+#: (not --elastic-search-iters or --obs-max-bytes, which it ignores)
+NMT_RUNTIME_FLAGS = {
+    a: field for a, field in {**RUNTIME_FLAGS, **OBS_FLAGS}.items()
+    if a not in ("--elastic-search-iters", "--obs-max-bytes")}
+#: flags of the JAX app whose features the port does not have yet (``-s``
+#: and ``-e`` are the sequence length and the embed size here, so they
+#: are parsed first)
+NMT_UNPORTED_FLAGS = UNPORTED_FLAGS
 
 
 def parse_args(argv):
@@ -93,6 +108,9 @@ def parse_args(argv):
             placement["stages"] = int(val())
         elif a == "--allow-degraded":
             cfg.allow_degraded = True
+        elif a in NMT_RUNTIME_FLAGS:
+            field, parse = NMT_RUNTIME_FLAGS[a]
+            setattr(cfg, field, True if a in SWITCH_FLAGS else parse(val()))
         elif a in NMT_UNPORTED_FLAGS:
             raise unported(a, "flexflow_tpu/apps/nmt.py")
         # unknown flags are ignored, like the reference parser
@@ -138,7 +156,14 @@ def main(argv=None, log=print) -> dict:
     data = synthetic_token_batches(cfg.batch_size, cfg.seq_length,
                                    cfg.vocab_size, seed=cfg.seed,
                                    machine=machine)
-    out = model.fit(data, warmup=warmup, log=log)
+    # the elastic rebuild factory: the RNN on a resized machine under the
+    # re-searched strategy (the FFConfig it is handed carries it)
+    out = model.fit(data, warmup=warmup, log=log,
+                    rebuild=lambda ff_cfg, m: RnnModel(cfg, m,
+                                                       ff_cfg.strategies))
+    if out.get("drained"):
+        log(f"drained at iteration {out.get('completed_steps')}; "
+            f"exiting 0 (resume from --ckpt-dir to continue)")
     if out["sentences_per_sec"]:
         log(f"sentences/s = {out['sentences_per_sec']:.2f}")
     if result_json:

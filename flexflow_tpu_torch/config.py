@@ -2,17 +2,20 @@
 paths read — serving, and training through ``FFModel.fit`` with its
 checkpoints (synchronous or asynchronous), health guard, step watchdog,
 preemption drain, live metrics, prefetch, fault injection, run telemetry
-and sampled op timing, elastic training, and the drivers' static plan
-check — with the JAX package's defaults (``flexflow_tpu/config.py``), but for
-``prefetch_depth``: 0 here, where the JAX default is 2 (the port's
-synthetic sources already yield tensors on the card).
+and sampled op timing, profiling and its trace, elastic training with
+its decomposed re-search, the file datasets, and the drivers' static
+plan check — with the JAX package's defaults
+(``flexflow_tpu/config.py``), but for ``prefetch_depth``: 0 here, where
+the JAX default is 2 (the port's synthetic sources already yield tensors
+on the card).
 
 :meth:`FFConfig.from_args` parses the JAX parser's flag names for these
 fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
 number of GPUs, which must equal the world size; checked by the app).  A
-flag of the JAX parser whose feature is not ported yet (datasets,
-profiling, ...) raises ``NotImplementedError``
+flag of the JAX parser whose feature is not ported yet (``UNPORTED_FLAGS``:
+the search's chains and delta modes, the serving and fleet knobs, the
+kernel policy, ``--dry-compile``, ...) raises ``NotImplementedError``
 instead of being dropped silently.
 """
 
@@ -28,31 +31,21 @@ from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
 UNPORTED_FLAGS = frozenset((
-    "-e", "--epochs", "-d", "--dataset", "-ll:cpu", "--profiling",
-    "--trace-dir", "-chains",
-    "--chains", "-delta", "--delta", "-regrid-planner", "--regrid-planner",
-    "-placed-overlap", "--placed-overlap", "--data-retry-attempts",
-    "--data-skip-budget", "--decompose", "--block-budget-s",
-    "--boundary-refine-iters", "--max-batch",
+    "-chains", "--chains", "-delta", "--delta", "-regrid-planner",
+    "--regrid-planner", "-placed-overlap", "--placed-overlap", "--max-batch",
     "--serve-queue-hi", "--serve-idle-boundaries", "--serve-prefill-devices",
     "--serve-prefill-replicas", "--serve-decode-replicas",
     "--fleet-quantum", "--fleet-search-budget-s", "-pallas", "--pallas",
     "--params-ones", "--print-intermediates", "--dry-compile",
 ))
 
-#: where the ROADMAP takes up some of those flags
-UNPORTED_WHERE = {
-    flag: "ROADMAP Queue A item 5, the rest of the training runtime"
-    for flag in ("--profiling", "--trace-dir")}
-
 
 def unported(flag: str, where: str) -> NotImplementedError:
     """The refusal of a flag in ``UNPORTED_FLAGS``; ``where`` names the
     JAX module that has it."""
-    extra = f"; {UNPORTED_WHERE[flag]}" if flag in UNPORTED_WHERE else ""
     return NotImplementedError(
         f"{flag}: not ported to flexflow_tpu_torch yet (the JAX package's "
-        f"{where} has it{extra})")
+        f"{where} has it)")
 
 
 def _checked_policy(v: str) -> str:
@@ -98,6 +91,30 @@ ELASTIC_FIELDS: Dict[str, Tuple[str, Callable]] = {
 }
 ELASTIC_FLAGS = frozenset(ELASTIC_FIELDS)
 
+#: the decomposed re-search's flags (``utils/elastic.py:research_strategy``
+#: under ``decompose``), parsed as ``flexflow_tpu/config.py:347-352``
+DECOMPOSE_FIELDS: Dict[str, Tuple[str, Callable]] = {
+    "--decompose": ("decompose", bool),
+    "--block-budget-s": ("block_budget_s", float),
+    "--boundary-refine-iters": ("boundary_refine_iters", int),
+}
+
+#: the file datasets' and the profiler's flags (``apps.cnn``'s
+#: ``make_data``, ``FFModel.fit``), parsed as
+#: ``flexflow_tpu/config.py:276-345``; ``--epochs`` is parsed and unused,
+#: as there
+DATA_FLAGS: Dict[str, Tuple[str, Callable]] = {
+    "-d": ("dataset_path", str),
+    "--dataset": ("dataset_path", str),
+    "-e": ("epochs", int),
+    "--epochs": ("epochs", int),
+    "-ll:cpu": ("loaders_per_node", int),
+    "--data-retry-attempts": ("data_retry_attempts", int),
+    "--data-skip-budget": ("data_skip_budget", int),
+    "--profiling": ("profiling", bool),
+    "--trace-dir": ("trace_dir", str),
+}
+
 #: the training runtime's flags (``FFModel.fit``: checkpoints, the
 #: asynchronous checkpoint writer, the health guard, the step watchdog,
 #: the preemption drain's budget, live metrics, prefetch, fault
@@ -121,8 +138,10 @@ RUNTIME_FLAGS: Dict[str, Tuple[str, Callable]] = {
     "-metrics-path": ("metrics_path", str),
     "--metrics-path": ("metrics_path", str),
     **ELASTIC_FIELDS,
+    **DECOMPOSE_FIELDS,
 }
-SWITCH_FLAGS = frozenset(("--ckpt-async", "--elastic"))
+SWITCH_FLAGS = frozenset(("--ckpt-async", "--elastic", "--decompose",
+                          "--profiling"))
 
 
 def flag_stream(argv: Sequence[str]) -> Iterator[Tuple[str, Callable]]:
@@ -230,6 +249,29 @@ class FFConfig:
     max_regrows: int = 1
     regrow_probes: int = 2
     transient_reset_steps: int = 16
+    # the decomposed re-search (sim/search.py:search_decomposed): every
+    # elastic re-search runs per block, research_budget_s then capping
+    # the whole of it, block_budget_s each block's (0 = proposals
+    # only), boundary_refine_iters the proposals of the refinement pass
+    # (0 = 20 % of the budget)
+    decompose: bool = False
+    block_budget_s: float = 0.0
+    boundary_refine_iters: int = 0
+    # the file datasets (apps.cnn's make_data): an ImageNet-style
+    # directory or a comma-separated list of .h5/.hdf5 files ("" =
+    # synthetic data), the native loader's decode threads, and the
+    # readers' attempts per item and skips per run
+    dataset_path: str = ""
+    loaders_per_node: int = 4
+    data_retry_attempts: int = 4
+    data_skip_budget: int = 16
+    # the reference's epoch count: parsed, unused (as in the JAX package)
+    epochs: int = 10
+    # fit's profiling: after the loop the step roofline from step_flops
+    # and the per-op table (utils/profiling.OpProfiler); trace_dir: a
+    # torch.profiler Chrome trace of the loop written there ("" = none)
+    profiling: bool = False
+    trace_dir: str = ""
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":
@@ -237,7 +279,8 @@ class FFConfig:
         --lr/--learning-rate, --wd/--weight-decay, -p/--print-freq,
         -i/--iters/--iterations, --dtype, -param-dtype/--param-dtype,
         --seed, --height, --width, --classes, -s/--strategy, -ll:gpu,
-        --allow-degraded, ``RUNTIME_FLAGS`` and ``OBS_FLAGS``."""
+        --allow-degraded, ``RUNTIME_FLAGS``, ``OBS_FLAGS`` and
+        ``DATA_FLAGS``."""
         cfg = cls()
         for a, val in flag_stream(argv):
             if a in UNPORTED_FLAGS:
@@ -271,8 +314,8 @@ class FFConfig:
                 cfg.num_classes = int(val())
             elif a == "--allow-degraded":
                 cfg.allow_degraded = True
-            elif a in RUNTIME_FLAGS or a in OBS_FLAGS:
-                field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS}[a]
+            elif a in RUNTIME_FLAGS or a in OBS_FLAGS or a in DATA_FLAGS:
+                field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS, **DATA_FLAGS}[a]
                 setattr(cfg, field,
                         True if a in SWITCH_FLAGS else parse(val()))
             # unknown flags are ignored, like the reference parser

@@ -971,9 +971,17 @@ class FFModel:
             ``DevicePrefetcher`` (0, the default, pulls them in the loop);
           * ``fault_spec`` installs the fault injector for the run: its
             ``loss_nan``, ``host_crash``, ``device_loss``, ``preempt``
-            and ``step_hang`` sites are here, ``data_io`` in the batch
-            pull (``utils/retry.py:retrying_iter``), ``ckpt_truncate``
-            and ``ckpt_corrupt`` in ``save_checkpoint``.
+            and ``step_hang`` sites are here, ``data_io`` in the file
+            readers (``data/hdf5.py``, ``data/imagenet.py``),
+            ``ckpt_truncate`` and ``ckpt_corrupt`` in
+            ``save_checkpoint``;
+          * ``trace_dir``: rank 0 traces the loop with ``torch.profiler``
+            into that directory (``utils/profiling.trace``,
+            ``model.py:1902-1905``);
+          * ``profiling``: after the loop rank 0 logs the step roofline
+            (:meth:`step_flops` over the timed step, against the card's
+            peak) and the per-op table (``utils/profiling.OpProfiler``),
+            as ``model.py:2258-2282``.
 
         Any error leaves through one exit: the prefetcher closed, the
         async writer abandoned (``close(timeout=5)``), the watchdog
@@ -1216,7 +1224,6 @@ class FFModel:
         from flexflow_tpu_torch.utils import elastic
         from flexflow_tpu_torch.utils.health import (StepHealthGuard,
                                                      StepWatchdog)
-        from flexflow_tpu_torch.utils.retry import retrying_iter
 
         cfg = self.config
         t0 = time.perf_counter()
@@ -1254,7 +1261,6 @@ class FFModel:
         wd = StepWatchdog(cfg.hang_factor, min_deadline_s=cfg.hang_min_s,
                           olog=olog, log=log) if cfg.hang_factor > 0 else None
         hang_pending = False
-        data_iter = retrying_iter(data_iter, log=log)
         prefetcher = None
         if cfg.prefetch_depth > 0:
             from flexflow_tpu_torch.data.prefetch import DevicePrefetcher
@@ -1297,153 +1303,164 @@ class FFModel:
         start = time.perf_counter()
         last_boundary_t, last_boundary_it = start, start_iter
         drained = None
+        # the loop's trace, rank 0's alone; written when the loop ends
+        loop_ctx = contextlib.ExitStack()
+        if cfg.trace_dir and self.machine.rank == 0:
+            from flexflow_tpu_torch.utils.profiling import trace
+
+            loop_ctx.enter_context(trace(cfg.trace_dir))
         try:
-            while it < num_iterations:
-                batch = next(data_iter)
-                if it == warmup:
-                    self._sync()
-                    start = time.perf_counter()
-                try:
-                    if sample_every and (it + 1) % sample_every == 0:
-                        params, state, opt_state, loss = self._sampled_step(
-                            step, sections, op_samples, it, params, state,
-                            opt_state, batch)
-                    else:
-                        params, state, opt_state, loss = step(
-                            params, state, opt_state, *batch)
-                    if transient_retries:
-                        healthy_streak += 1
-                        if transient_reset \
-                                and healthy_streak >= transient_reset:
-                            transient_retries = healthy_streak = 0
-                            olog.event("recovery", source="elastic",
-                                       after="transient_window",
-                                       step=it + 1)
-                except Exception as e:
-                    # a transient device error retries the iteration on a
-                    # fresh batch; a permanent one raises
-                    # DeviceLossDetected; anything else propagates
-                    if self._classify_step_error(
-                            e, it + 1, olog, losses, loss_base,
-                            transient_retries) != "transient":
-                        raise
-                    transient_retries += 1
-                    healthy_streak = 0
-                    continue
-                if inj.enabled:
-                    if inj.fire("loss_nan", site="fit"):
-                        # poison the recorded loss on the device; the
-                        # guard sees it at the next boundary
-                        loss = loss * float("nan")
-                    if inj.fire("host_crash", site="fit"):
-                        raise elastic.HostCrashError(
-                            f"injected host crash at iteration {it + 1}")
-                    if inj.fire("device_loss", site="fit"):
-                        # the highest live ordinal is lost for good
-                        alive = [i for i in range(self.machine.num_devices)
-                                 if i not in dead]
-                        if alive:
-                            dead.append(alive[-1])
-                    if inj.fire("preempt", site="fit"):
-                        elastic.request_drain(drain)
-                    if inj.fire("step_hang", site="fit"):
-                        # wedge the next boundary past the deadline
-                        hang_pending = True
-                losses.append(loss)
-                if clock is not None:
-                    clock.tick()
-                    if awriter is not None and awriter.inflight:
-                        busy_steps.append(it + 1)
-                it1 = it + 1
-                at_print = bool(print_freq) and it1 % print_freq == 0
-                at_ckpt = bool(ckpt_dir) and bool(ckpt_freq) \
-                    and it1 % ckpt_freq == 0 and it1 < num_iterations
-                at_boundary = at_print or at_ckpt or it1 == num_iterations
-                if at_boundary:
-                    if wd is not None:
-                        # armed around the boundary's blocking syncs, the
-                        # estimate fed by the wall time between boundaries
-                        now = time.perf_counter()
-                        wd.observe(now - last_boundary_t,
-                                   it1 - last_boundary_it)
-                        last_boundary_t, last_boundary_it = now, it1
-                        wd.arm(it1)
-                        if hang_pending:
-                            hang_pending = False
-                            wd.stall()
-                    if dead:
-                        self._raise_device_loss(dead, it1, params, state,
-                                                opt_state, losses, loss_base)
-                    tb0 = time.perf_counter()
-                    action = guard.check(losses[window_start - loss_base:],
-                                         first_step=window_start + 1)
-                    if action == "rollback":
-                        host_sync_s += time.perf_counter() - tb0
-                        if wd is not None:
-                            wd.disarm()
-                        t0 = time.perf_counter()
-                        # the restore must see the newest commit
-                        self._writer_wait(awriter)
-                        it, params, state, opt_state = \
-                            self._rollback_restore(ckpt_dir, olog, log, it1)
-                        restore_s += time.perf_counter() - t0
-                        del losses[max(it - loss_base, 0):]
-                        loss_base = min(loss_base, it)
-                        window_start = it
-                        # the stream is not rewound: the re-run steps take
-                        # fresh batches, past the bad window
+            with loop_ctx:
+                while it < num_iterations:
+                    batch = next(data_iter)
+                    if it == warmup:
+                        self._sync()
+                        start = time.perf_counter()
+                    try:
+                        if sample_every and (it + 1) % sample_every == 0:
+                            params, state, opt_state, loss = \
+                                self._sampled_step(step, sections,
+                                                   op_samples, it, params,
+                                                   state, opt_state, batch)
+                        else:
+                            params, state, opt_state, loss = step(
+                                params, state, opt_state, *batch)
+                        if transient_retries:
+                            healthy_streak += 1
+                            if transient_reset \
+                                    and healthy_streak >= transient_reset:
+                                transient_retries = healthy_streak = 0
+                                olog.event("recovery", source="elastic",
+                                           after="transient_window",
+                                           step=it + 1)
+                    except Exception as e:
+                        # a transient device error retries the iteration on a
+                        # fresh batch; a permanent one raises
+                        # DeviceLossDetected; anything else propagates
+                        if self._classify_step_error(
+                                e, it + 1, olog, losses, loss_base,
+                                transient_retries) != "transient":
+                            raise
+                        transient_retries += 1
+                        healthy_streak = 0
                         continue
-                    window_start = it1
-                    host_sync_s += time.perf_counter() - tb0
-                if at_print:
-                    tb0 = time.perf_counter()
-                    log(f"iter {it1}: loss = {float(loss):.4f}")
-                    host_sync_s += time.perf_counter() - tb0
-                if at_ckpt:
-                    t0 = time.perf_counter()
-                    if not self._save(ckpt, it1, params, state, opt_state,
-                                      log, olog, awriter):
-                        fault_count += 1
-                    checkpoint_s += time.perf_counter() - t0
-                if wd is not None and at_boundary:
-                    hang = self._hang_agreed(wd.disarm())
-                    if hang is not None:
-                        self._handle_step_hang(hang, it1, params, state,
-                                               opt_state, losses, loss_base,
-                                               olog, log)
-                if elastic_regrow and at_boundary \
-                        and it1 < num_iterations \
-                        and elastic.probe_regrow(elastic_regrow, inj=inj,
-                                                 olog=olog, log=log,
-                                                 machine=self.machine):
-                    # the lost ranks answered k probes in a row: hand the
-                    # live state to fit for the grow
-                    raise elastic.DeviceReturnDetected(
-                        [d for d, _ in elastic_regrow["dead"]],
-                        it1, params=params, state=state,
-                        opt_state=opt_state, losses=losses,
-                        loss_base=loss_base)
-                if at_boundary and it1 < num_iterations:
-                    drain["requested"] = self._drain_agreed(drain)
-                if metrics is not None and (at_print or at_ckpt):
-                    self._metrics_update(
-                        metrics, olog, params, losses, it1, warmup, start,
-                        guard, prefetcher, fault_count, awriter=awriter,
-                        elastic_resizes=elastic_resizes,
-                        resize_dirs=resize_dirs,
-                        draining=drain["requested"])
-                if drain["requested"] and at_boundary \
-                        and it1 < num_iterations:
-                    # the step in flight has finished: commit a last
-                    # checkpoint within the budget, record it, and leave
-                    drained = self._drain_checkpoint(
-                        ckpt, awriter, it1, params, state, opt_state, drain,
-                        olog, log, just_saved=at_ckpt)
+                    if inj.enabled:
+                        if inj.fire("loss_nan", site="fit"):
+                            # poison the recorded loss on the device; the
+                            # guard sees it at the next boundary
+                            loss = loss * float("nan")
+                        if inj.fire("host_crash", site="fit"):
+                            raise elastic.HostCrashError(
+                                f"injected host crash at iteration {it + 1}")
+                        if inj.fire("device_loss", site="fit"):
+                            # the highest live ordinal is lost for good
+                            alive = [i for i in range(self.machine.num_devices)
+                                     if i not in dead]
+                            if alive:
+                                dead.append(alive[-1])
+                        if inj.fire("preempt", site="fit"):
+                            elastic.request_drain(drain)
+                        if inj.fire("step_hang", site="fit"):
+                            # wedge the next boundary past the deadline
+                            hang_pending = True
+                    losses.append(loss)
+                    if clock is not None:
+                        clock.tick()
+                        if awriter is not None and awriter.inflight:
+                            busy_steps.append(it + 1)
+                    it1 = it + 1
+                    at_print = bool(print_freq) and it1 % print_freq == 0
+                    at_ckpt = bool(ckpt_dir) and bool(ckpt_freq) \
+                        and it1 % ckpt_freq == 0 and it1 < num_iterations
+                    at_boundary = at_print or at_ckpt or it1 == num_iterations
+                    if at_boundary:
+                        if wd is not None:
+                            # armed around the boundary's blocking syncs, the
+                            # estimate fed by the wall time between boundaries
+                            now = time.perf_counter()
+                            wd.observe(now - last_boundary_t,
+                                       it1 - last_boundary_it)
+                            last_boundary_t, last_boundary_it = now, it1
+                            wd.arm(it1)
+                            if hang_pending:
+                                hang_pending = False
+                                wd.stall()
+                        if dead:
+                            self._raise_device_loss(dead, it1, params, state,
+                                                    opt_state, losses,
+                                                    loss_base)
+                        tb0 = time.perf_counter()
+                        action = guard.check(losses[window_start - loss_base:],
+                                             first_step=window_start + 1)
+                        if action == "rollback":
+                            host_sync_s += time.perf_counter() - tb0
+                            if wd is not None:
+                                wd.disarm()
+                            t0 = time.perf_counter()
+                            # the restore must see the newest commit
+                            self._writer_wait(awriter)
+                            it, params, state, opt_state = \
+                                self._rollback_restore(ckpt_dir, olog, log,
+                                                       it1)
+                            restore_s += time.perf_counter() - t0
+                            del losses[max(it - loss_base, 0):]
+                            loss_base = min(loss_base, it)
+                            window_start = it
+                            # the stream is not rewound: the re-run steps take
+                            # fresh batches, past the bad window
+                            continue
+                        window_start = it1
+                        host_sync_s += time.perf_counter() - tb0
+                    if at_print:
+                        tb0 = time.perf_counter()
+                        log(f"iter {it1}: loss = {float(loss):.4f}")
+                        host_sync_s += time.perf_counter() - tb0
+                    if at_ckpt:
+                        t0 = time.perf_counter()
+                        if not self._save(ckpt, it1, params, state, opt_state,
+                                          log, olog, awriter):
+                            fault_count += 1
+                        checkpoint_s += time.perf_counter() - t0
+                    if wd is not None and at_boundary:
+                        hang = self._hang_agreed(wd.disarm())
+                        if hang is not None:
+                            self._handle_step_hang(hang, it1, params, state,
+                                                   opt_state, losses,
+                                                   loss_base, olog, log)
+                    if elastic_regrow and at_boundary \
+                            and it1 < num_iterations \
+                            and elastic.probe_regrow(elastic_regrow, inj=inj,
+                                                     olog=olog, log=log,
+                                                     machine=self.machine):
+                        # the lost ranks answered k probes in a row: hand the
+                        # live state to fit for the grow
+                        raise elastic.DeviceReturnDetected(
+                            [d for d, _ in elastic_regrow["dead"]],
+                            it1, params=params, state=state,
+                            opt_state=opt_state, losses=losses,
+                            loss_base=loss_base)
+                    if at_boundary and it1 < num_iterations:
+                        drain["requested"] = self._drain_agreed(drain)
+                    if metrics is not None and (at_print or at_ckpt):
+                        self._metrics_update(
+                            metrics, olog, params, losses, it1, warmup, start,
+                            guard, prefetcher, fault_count, awriter=awriter,
+                            elastic_resizes=elastic_resizes,
+                            resize_dirs=resize_dirs,
+                            draining=drain["requested"])
+                    if drain["requested"] and at_boundary \
+                            and it1 < num_iterations:
+                        # the step in flight has finished: commit a last
+                        # checkpoint within the budget, record it, and leave
+                        drained = self._drain_checkpoint(
+                            ckpt, awriter, it1, params, state, opt_state,
+                            drain,
+                            olog, log, just_saved=at_ckpt)
+                        it = it1
+                        break
                     it = it1
-                    break
-                it = it1
-            self._sync()
-            elapsed = time.perf_counter() - start
+                self._sync()
+                elapsed = time.perf_counter() - start
         except BaseException:
             # the error exit: stop the staging thread, abandon the writer
             # without blocking on its queue, join the watchdog's timer
@@ -1494,6 +1511,8 @@ class FFModel:
                                    budget_totals)
             if prefetcher is not None:
                 olog.event("prefetch", **prefetcher.summary())
+        if cfg.profiling and self.machine.rank == 0:
+            self._profiling_report(log, elapsed, n_timed)
         out = {"params": params, "state": state, "opt_state": opt_state,
                "loss": losses,
                "elapsed_s": elapsed, "images_per_sec": throughput,
@@ -1512,6 +1531,25 @@ class FFModel:
             out["drained"] = True
             out["drain"] = drained
         return out
+
+    def _profiling_report(self, log, elapsed: float, n_timed: int) -> None:
+        """The ``profiling`` flag's report (``model.py:2258-2282``): the
+        step roofline, then the per-op table."""
+        from flexflow_tpu_torch.utils.profiling import (OpProfiler,
+                                                        step_roofline)
+
+        if n_timed > 0 and elapsed > 0:
+            rl = step_roofline(self.step_flops(), elapsed / n_timed,
+                               self.config.compute_dtype, self.device,
+                               n_devices=self.machine.num_devices)
+            mfu = (f"MFU {100.0 * rl['mfu']:.1f}% of "
+                   f"{rl['peak_tflops']:.0f} TFLOP/s "
+                   f"({self.config.compute_dtype} peak)"
+                   if "mfu" in rl else f"MFU not measured ({self.device})")
+            log(f"step roofline (FFModel.step_flops): {rl['flops']:.3e} "
+                f"FLOPs/step, {rl.get('achieved_tflops', 0.0):.2f} "
+                f"TFLOP/s, {mfu}")
+        log(OpProfiler(self).report())
 
     # ------------------------------------------------------------------
     # the runtime's faults, its drain and its live metrics

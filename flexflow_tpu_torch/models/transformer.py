@@ -97,6 +97,14 @@ class TransformerConfig:
     max_regrows: int = 1
     regrow_probes: int = 2
     transient_reset_steps: int = 16
+    # the decomposed re-search (forwarded to FFConfig)
+    decompose: bool = False
+    block_budget_s: float = 0.0
+    boundary_refine_iters: int = 0
+    # fit's profiling report and its torch.profiler trace (forwarded to
+    # FFConfig; the JAX LM driver does not parse these flags)
+    profiling: bool = False
+    trace_dir: str = ""
 
 
 class TransformerLM(FFModel):
@@ -144,6 +152,11 @@ class TransformerLM(FFModel):
             max_regrows=self.t.max_regrows,
             regrow_probes=self.t.regrow_probes,
             transient_reset_steps=self.t.transient_reset_steps,
+            decompose=self.t.decompose,
+            block_budget_s=self.t.block_budget_s,
+            boundary_refine_iters=self.t.boundary_refine_iters,
+            profiling=self.t.profiling,
+            trace_dir=self.t.trace_dir,
         )
         super().__init__(ff_cfg, machine, device)
         self._build()

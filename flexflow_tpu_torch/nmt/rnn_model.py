@@ -69,6 +69,38 @@ class RnnConfig:
     # masters in the optimizer state)
     param_dtype: str = "float32"
     seed: int = 0
+    # run telemetry, sampled op timing and live metrics (forwarded to
+    # FFConfig)
+    obs_dir: str = ""
+    run_id: str = ""
+    op_time_every: int = 0
+    metrics_path: str = ""
+    # batches staged ahead by fit's DevicePrefetcher (forwarded to
+    # FFConfig; JAX's default 2, where the port's FFConfig has 0)
+    prefetch_depth: int = 2
+    # checkpoints, the health guard and fault injection (forwarded to
+    # FFConfig)
+    ckpt_dir: str = ""
+    ckpt_freq: int = 0
+    on_divergence: str = "halt"
+    max_rollbacks: int = 3
+    fault_spec: str = ""
+    # elastic training, its decomposed re-search and the asynchronous
+    # checkpoint writer (forwarded to FFConfig)
+    elastic: bool = False
+    min_devices: int = 1
+    research_budget_s: float = 30.0
+    decompose: bool = False
+    block_budget_s: float = 0.0
+    boundary_refine_iters: int = 0
+    ckpt_async: bool = False
+    # regrowth, the drain and the step watchdog (forwarded to FFConfig)
+    max_regrows: int = 1
+    regrow_probes: int = 2
+    drain_budget_s: float = 60.0
+    hang_factor: float = 0.0
+    hang_min_s: float = 60.0
+    transient_reset_steps: int = 16
     # the driver's static plan check demotes degradations to warnings
     allow_degraded: bool = False
 
@@ -129,6 +161,17 @@ def pipeline_stage_strategy(cfg: RnnConfig, machine: MachineModel,
     return s
 
 
+#: the ``RnnConfig`` fields forwarded to ``FFConfig`` as they stand
+#: (``flexflow_tpu/nmt/rnn_model.py:170-201``)
+RUNTIME_FIELDS = (
+    "obs_dir", "run_id", "op_time_every", "metrics_path", "prefetch_depth",
+    "ckpt_dir", "ckpt_freq", "on_divergence", "max_rollbacks", "fault_spec",
+    "elastic", "min_devices", "research_budget_s", "decompose",
+    "block_budget_s", "boundary_refine_iters", "ckpt_async", "max_regrows",
+    "regrow_probes", "drain_budget_s", "hang_factor", "hang_min_s",
+    "transient_reset_steps")
+
+
 class RnnModel(FFModel):
     def __init__(self, rnn_config: RnnConfig = None,
                  machine: Optional[MachineModel] = None,
@@ -146,6 +189,8 @@ class RnnModel(FFModel):
             param_dtype=self.rnn.param_dtype,
             seed=self.rnn.seed,
             strategies=strategies,
+            allow_degraded=self.rnn.allow_degraded,
+            **{f: getattr(self.rnn, f) for f in RUNTIME_FIELDS},
         )
         super().__init__(ff_cfg, machine, device)
         self._build()

@@ -346,10 +346,14 @@ def research_strategy(config, rebuild, new_machine, old_strategy,
     ``old_strategy`` (its missing entries from ``fallback_strategy``);
     the shell model is ``rebuild(config without strategies,
     new_machine)``.  Returns ``(Strategy, info)``, ``info["mode"]``
-    ``"mcmc"`` or, when the search is unavailable, ``"dp_fallback"`` with
-    data parallel (``flexflow_tpu/utils/elastic.py:316``: one chain with
-    delta simulation, JAX's defaults; the port has no ``--decompose``,
-    so no decomposed re-search)."""
+    ``"mcmc"`` (``flexflow_tpu/utils/elastic.py:316``: one chain with
+    delta simulation, JAX's defaults), ``"mcmc_decomposed"`` under
+    ``decompose`` (the block-decomposed search,
+    ``StrategySearch.search_decomposed``: ``research_budget_s`` caps the
+    whole of it, ``block_budget_s`` each block, and
+    ``boundary_refine_iters`` are the refinement pass's proposals) or,
+    when the search is unavailable, ``"dp_fallback"`` with data
+    parallel."""
     from flexflow_tpu_torch.strategy import Strategy
 
     budget = float(getattr(config, "research_budget_s", 30.0) or 30.0)
@@ -368,6 +372,25 @@ def research_strategy(config, rebuild, new_machine, old_strategy,
             and len(fallback_strategy) else None
         start = warm_assignment(ss, warm, fallback=warm_fb) \
             if warm is not None or warm_fb is not None else None
+        if getattr(config, "decompose", False):
+            # one deadline for every block's sub-search and the refinement
+            # pass: research_budget_s caps the whole re-search, as on the
+            # flat path (flexflow_tpu/utils/elastic.py:355-370)
+            strategy, info = ss.search_decomposed(
+                iters=iters, seed=int(getattr(config, "seed", 0)),
+                delta=True, start=start, budget_s=budget,
+                block_budget_s=getattr(config, "block_budget_s", 0.0)
+                or None,
+                boundary_refine_iters=int(getattr(
+                    config, "boundary_refine_iters", 0)))
+            return strategy, {"mode": "mcmc_decomposed",
+                              "best_time_s": info.get("best_time"),
+                              "iters": info.get("iters_done"),
+                              "budget_hit": info.get("budget_hit", False),
+                              "budget_s": budget,
+                              "blocks": info.get("blocks"),
+                              "memo_hits": info.get("memo_hits"),
+                              "objective": "makespan"}
         strategy, info = ss.search(
             iters=iters, seed=int(getattr(config, "seed", 0)), chunks=8,
             chains=1, delta=True, start=start, budget_s=budget)

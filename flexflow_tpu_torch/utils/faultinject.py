@@ -5,8 +5,8 @@ both packages.  The sites named below are the JAX package's.  This
 package fires ``loss_nan``, ``host_crash``, ``device_loss``, ``preempt``
 and ``step_hang`` in ``FFModel.fit``, ``device_return`` in the elastic
 regrow probe (``utils/elastic.py:probe_regrow``), ``data_io`` before
-each attempt of ``fit``'s batch pull (``utils/retry.py:retrying_iter``;
-the port has no HDF5 or ImageNet reader yet), ``ckpt_truncate`` and
+each read or decode attempt of the file readers (``data/hdf5.py``,
+``data/imagenet.py``, as in the JAX package), ``ckpt_truncate`` and
 ``ckpt_corrupt`` in ``utils/checkpoint.py:save_checkpoint``.  The
 others belong to slices not ported yet (the serving router,
 disaggregated serving).

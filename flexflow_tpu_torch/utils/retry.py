@@ -2,12 +2,10 @@
 port's own copy of ``flexflow_tpu/utils/retry.py``; that module imports
 no JAX, but the port imports nothing of the JAX package).
 
-``fit`` pulls every batch through :func:`retrying_iter`, the port's one
-``data_io`` site: the injected fault (``utils/faultinject.py``) fires
-before each attempt of a pull and the :class:`RetryPolicy` absorbs it,
-as the JAX package's HDF5 and ImageNet readers absorb theirs
-(``data/hdf5.py``, ``data/imagenet.py``; the port has no file reader
-yet).  Two properties the tests pin:
+The file readers (``data/hdf5.py``, ``data/imagenet.py``) run each read
+or decode under :func:`call_with_retry`; the injected ``data_io`` fault
+(``utils/faultinject.py``) fires before each attempt there, as in the
+JAX package's readers.  Two properties the tests pin:
 
   * **bounded**: a :class:`RetryPolicy` caps total attempts; the last
     failure re-raises unchanged;
@@ -15,8 +13,9 @@ yet).  Two properties the tests pin:
     ``crc32(seed, attempt)``, not ``random``, so two runs of the same
     failing schedule back off identically.
 
-Only ``OSError`` is retried (the transient-I/O family, including the
-injector's ``InjectedIOError``); anything else propagates at once.
+Only ``OSError`` is retried by default (the transient-I/O family,
+including the injector's ``InjectedIOError``); anything else propagates
+at once.
 """
 
 from __future__ import annotations
@@ -24,9 +23,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import zlib
-from typing import Callable, Iterator, Optional, Tuple, Type
-
-from flexflow_tpu_torch.utils import faultinject
+from typing import Callable, Optional, Tuple, Type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,18 +51,21 @@ class RetryPolicy:
 def call_with_retry(fn: Callable, policy: Optional[RetryPolicy] = None,
                     on_retry: Optional[Callable] = None,
                     sleep: Callable[[float], None] = time.sleep,
-                    retry_on: Tuple[Type[BaseException], ...] = (OSError,)):
+                    retry_on: Tuple[Type[BaseException], ...] = (OSError,),
+                    on_recover: Optional[Callable] = None):
     """Call ``fn()`` under ``policy``, retrying ``retry_on`` (by default
     ``OSError``, the transient-I/O family, the injector's
     ``InjectedIOError`` included; the elastic device probe retries any
     ``Exception``); anything else propagates at once.  ``on_retry(exc,
-    failures, delay)`` fires before each backoff sleep.  The final
-    failure re-raises the original exception."""
+    failures, delay)`` fires before each backoff sleep;
+    ``on_recover(failures)`` when a call succeeds after at least one
+    failure (the readers' ``recovery`` record).  The final failure
+    re-raises the original exception."""
     policy = policy or RetryPolicy()
     failures = 0
     while True:
         try:
-            return fn()
+            out = fn()
         except retry_on as e:
             failures += 1
             if failures >= policy.attempts:
@@ -74,25 +74,8 @@ def call_with_retry(fn: Callable, policy: Optional[RetryPolicy] = None,
             if on_retry is not None:
                 on_retry(e, failures, d)
             sleep(d)
+            continue
+        if failures and on_recover is not None:
+            on_recover(failures)
+        return out
 
-
-def retrying_iter(upstream: Iterator, log=None) -> Iterator:
-    """``upstream``'s items, each pull under :func:`call_with_retry`; the
-    ``data_io`` fault fires before every attempt.  Ends when ``upstream``
-    does.  An attempt that raised before pulling leaves ``upstream``
-    where it was, so a retried pull yields the batch the failed one
-    would have."""
-    def once():
-        faultinject.raise_if("data_io", site="fit:batch")
-        return next(upstream)
-
-    def on_retry(e, failures, delay):
-        if log is not None:
-            log(f"data: pull failed ({e}); retry {failures} in "
-                f"{delay:.3f} s")
-
-    while True:
-        try:
-            yield call_with_retry(once, on_retry=on_retry)
-        except StopIteration:
-            return

@@ -331,12 +331,15 @@ def test_every_jax_nmt_flag_is_parsed_or_refused():
     ported = {"-b", "-l", "-s", "-h", "-e", "--vocab", "-i", "--iters",
               "--iterations", "--chunk", "--lr", "--dtype", "-param-dtype",
               "--param-dtype", "--seed", "--strategy", "--pipeline-stages",
-              "--allow-degraded"}
+              "--allow-degraded"} | set(t_nmt.NMT_RUNTIME_FLAGS)
     assert ported <= flags
     default = t_nmt.parse_args([])
+    values = {"-on-divergence": "rollback", "--on-divergence": "rollback",
+              "-fault-spec": "loss_nan@3", "--fault-spec": "loss_nan@3"}
     for flag in sorted(flags):
         if flag in ported:
-            value = "bfloat16" if "dtype" in flag else "3"
+            value = "bfloat16" if "dtype" in flag \
+                else values.get(flag, "5")
             assert t_nmt.parse_args([flag, value]) != default, flag
         else:
             assert flag in t_nmt.NMT_UNPORTED_FLAGS, flag

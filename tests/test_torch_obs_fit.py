@@ -107,9 +107,13 @@ def test_obs_flags_parse_as_jax():
     for field in ("op_time_every", "obs_max_bytes", "obs_dir", "run_id",
                   "allow_degraded"):
         assert getattr(TConfig(), field) == getattr(JConfig(), field)
-    for flag in ("--trace-dir", "--profiling"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            TConfig.from_args([flag, "x"])
+    # the profiling flags are ported: parsed as JAX parses them
+    for args in (["--trace-dir", "x"], ["--profiling"]):
+        j, t = JConfig.from_args(args), TConfig.from_args(args)
+        assert (t.trace_dir, t.profiling) == (j.trace_dir, j.profiling) \
+            != ("", False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TConfig.from_args(["--dry-compile"])
     # the live metrics' path is ported, as JAX parses it
     for flag in ("-metrics-path", "--metrics-path"):
         assert TConfig.from_args([flag, "x"]).metrics_path == \

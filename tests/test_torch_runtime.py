@@ -539,21 +539,28 @@ def _elastic_argv(flag):
     return [flag] if flag == "--elastic" else [flag, "3"]
 
 
+@pytest.mark.parametrize("driver", ["cnn_lm", "nmt"])
 @pytest.mark.parametrize("flag", sorted(ELASTIC_FLAGS))
-def test_elastic_flags_still_raise(flag):
-    # apps.nmt (no elastic training in the NMT driver) still refuses each
-    from flexflow_tpu_torch.apps import nmt as t_nmt
-
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_nmt.parse_args(_elastic_argv(flag))
-
-
-@pytest.mark.parametrize("flag", sorted(ELASTIC_FLAGS))
-def test_elastic_flags_parse_as_jax(flag):
+def test_elastic_flags_parse_as_jax(flag, driver):
     # FFConfig, apps.lm, apps.cnn and the LM's config take each as the
-    # JAX parser does
+    # JAX parser does; apps.nmt and RnnModel as the JAX NMT driver does
+    # (which ignores --elastic-search-iters: RnnConfig has no such field)
+    from flexflow_tpu.apps import nmt as j_nmt
+
+    from flexflow_tpu_torch.apps import nmt as t_nmt
+    from flexflow_tpu_torch.nmt.rnn_model import RnnModel
+
     argv = _elastic_argv(flag)
     field = RUNTIME_FLAGS[flag][0]
+    if driver == "nmt":
+        want = getattr(j_nmt.parse_args(argv), field, None)
+        cfg = t_nmt.parse_args(argv)[0]
+        assert getattr(cfg, field, None) == want
+        assert (want is None) == (flag not in t_nmt.NMT_RUNTIME_FLAGS)
+        if want is not None:
+            assert getattr(RnnModel(cfg, device="cpu").config,
+                           field) == want
+        return
     want = getattr(JConfig.from_args(argv), field)
     assert want != getattr(JConfig(), field)
     for parse in (FFConfig.from_args, lambda a: t_lm.parse_args(a)[0],

@@ -251,6 +251,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT_DIR.rglob("*.py"))
     files.append(PORT_DIR.parent / "chip_smoke.py")
     assert len(files) > 20
+    # the file readers, the fault smoke and the profiler among them
+    assert {"data/imagenet.py", "data/hdf5.py", "data/native.py",
+            "apps/fault_smoke.py", "utils/profiling.py"} <= \
+        {p.relative_to(PORT_DIR).as_posix() for p in files[:-1]}
     bad = [(str(p), m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu")]
     assert not bad, bad

@@ -225,16 +225,18 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("-regrid-planner", "-d", "--pallas"):
+    for flag in ("-regrid-planner", "--dry-compile", "--pallas"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cnn.parse(["alexnet", flag, "x"])
-    # fit's runtime, supervision and elastic flags are ported: parsed,
-    # not refused
+    # fit's runtime, supervision, elastic and data flags are ported:
+    # parsed, not refused
     _, cfg, _, _ = t_cnn.parse(["alexnet", "--ckpt-dir", "x",
                                 "--ckpt-async", "--elastic",
-                                "--transient-reset-steps", "4"])
+                                "--transient-reset-steps", "4", "-d", "x",
+                                "--profiling"])
     assert cfg.ckpt_dir == "x" and cfg.ckpt_async and cfg.elastic
     assert cfg.transient_reset_steps == 4
+    assert cfg.dataset_path == "x" and cfg.profiling
 
 
 #: a value for the flags checked when parsed (any other takes "2")

@@ -13,21 +13,31 @@ calls it.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
+import os
 import queue
-import socket
+import shutil
+import tempfile
 import traceback
 
 import numpy as np
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def _rendezvous():
+    """A ``file://`` init method in a fresh temporary directory, removed
+    afterwards: the ranks meet in a file store no other world can take,
+    where a TCP port picked free and released before the ranks bind it
+    can be taken by another test's world in between."""
+    d = tempfile.mkdtemp(prefix="ff-ranks-")
+    try:
+        yield "file://" + os.path.join(d, "store")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
-def _entry(rank, world, port, body, args, out):
+def _entry(rank, world, init_method, body, args, out):
     import torch
 
     from flexflow_tpu_torch import distributed
@@ -35,8 +45,7 @@ def _entry(rank, world, port, body, args, out):
     torch.set_num_threads(1)
     try:
         machine = distributed.initialize(
-            "cpu", rank=rank, world_size=world,
-            init_method=f"tcp://127.0.0.1:{port}")
+            "cpu", rank=rank, world_size=world, init_method=init_method)
         out.put((rank, "ok", body(machine, *args)))
     except BaseException:
         out.put((rank, "error", traceback.format_exc()))
@@ -45,11 +54,19 @@ def _entry(rank, world, port, body, args, out):
 
 
 def run_ranks(body, world: int, *args, timeout: float = 120.0):
+    with _rendezvous() as init_method:
+        return _run(_entry, world, (body, args), init_method, timeout,
+                    f"{world} ranks did not finish within {timeout} s")
+
+
+def _run(target, world, args, init_method, timeout, late):
+    """``target(rank, world, init_method, *args, queue)`` in ``world``
+    spawned processes; their results in rank order."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_entry,
-                         args=(r, world, port, body, args, out), daemon=True)
+    procs = [ctx.Process(target=target,
+                         args=(r, world, init_method) + tuple(args) + (out,),
+                         daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -59,9 +76,7 @@ def run_ranks(body, world: int, *args, timeout: float = 120.0):
             try:
                 rank, status, value = out.get(timeout=timeout)
             except queue.Empty:
-                raise TimeoutError(
-                    f"{world} ranks did not finish within {timeout} s") \
-                    from None
+                raise TimeoutError(late) from None
             if status == "ok":
                 results[rank] = value
             else:
@@ -996,7 +1011,7 @@ def jax_elastic(cfg_kwargs, devices, probe_dead=None, refuse_gather=False):
             out["devices"], records)
 
 
-def rejoin_step(rank, world, port, ckpt_dir, out):
+def rejoin_step(rank, world, init_method, ckpt_dir, out):
     """A FRESH process whose first act is ``distributed.elastic_rejoin``
     of a world of ``world`` (the tiny elastic CNN with ``fc`` split over
     the ranks, its factory): restore the newest checkpoint, take one step
@@ -1021,7 +1036,7 @@ def rejoin_step(rank, world, port, ckpt_dir, out):
     try:
         machine, step, params, state, opt = distributed.elastic_rejoin(
             ckpt_dir, device="cpu", backend="gloo", rank=rank,
-            world_size=world, init_method=f"tcp://127.0.0.1:{port}",
+            world_size=world, init_method=init_method,
             model=factory, log=lambda *a: None)
         ff = factory(machine)
         image, labels = elastic_host_batches()[0]
@@ -1036,38 +1051,12 @@ def rejoin_step(rank, world, port, ckpt_dir, out):
 
 
 def run_fresh(target, world: int, *args, timeout: float = 120.0):
-    """``target(rank, world, port, *args, queue)`` in ``world`` fresh
-    spawned processes that make their world themselves; the results in
-    rank order."""
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=target, args=(r, world, port) + args
-                         + (out,), daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    results, errors = {}, []
-    try:
-        for _ in range(world):
-            try:
-                rank, status, value = out.get(timeout=timeout)
-            except queue.Empty:
-                raise TimeoutError(f"{world} processes did not finish "
-                                   f"within {timeout} s") from None
-            if status == "ok":
-                results[rank] = value
-            else:
-                errors.append(f"rank {rank}:\n{value}")
-                break
-    finally:
-        for p in procs:
-            p.join(timeout=5 if not errors else 0.1)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return [results[r] for r in range(world)]
+    """``target(rank, world, init_method, *args, queue)`` in ``world``
+    fresh spawned processes that make their world themselves (through
+    ``init_method``, a file store); the results in rank order."""
+    with _rendezvous() as init_method:
+        return _run(target, world, args, init_method, timeout,
+                    f"{world} processes did not finish within {timeout} s")
 
 
 # ---------------------------------------------------------------------------
