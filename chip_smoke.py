@@ -24,7 +24,8 @@ its kernels.
                                        # step of each trained model
     python3 chip_smoke.py --only search4,lm-obs
                                        # the kernel build and the named
-                                       # phases (lm, lm-obs, resnet101,
+                                       # phases (lm, lm-obs, debug,
+                                       # serve-forward, resnet101,
                                        # nmt, moe, runtime,
                                        # strategy, lm-strategy,
                                        # moe-strategy, pipeline, search and
@@ -153,6 +154,18 @@ Phases (any failure exits non-zero):
    (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
    ce_fwd_kernel, ce_bwd_dx_kernel, ce_bwd_dw_kernel), and the losses
    bit-equal to phase 9's first 3;
+9d. the verification switches of SURVEY §4 (ROADMAP Queue A item 5's
+    rest) on ``apps.lm`` at phase 9's widths: ``--dry-compile`` (the
+    model, its plan and one step traced on the meta device) returns no
+    losses, launches no kernel, logs ``dry-compile ok: ...`` and grows
+    the card's memory by no more than the synthetic source's batches;
+    ``--params-ones`` for 3 steps launches kernels 1-6 as phase 9 does,
+    its first loss ln 32768 within 1e-5 (relative; every vocab column's
+    logit is the same) and its losses equal a second run's bit for bit;
+    ``--print-intermediates`` for 1 step prints one statistics line per
+    op output (the fused head off: kernels 1-3 once per block, 4-6
+    never), each within the LM phase's 1e-4 (relative, plus one unit of
+    the sixth printed decimal) of the same run with the plain kernels;
 10. LM training slice at the widths of the JAX package's ``gpt-1.3b``
     preset (``flexflow_tpu/models/gpt.py``: 24 layers, d_model 2048, 16
     heads of 128, d_ff 8192, vocab 32768, batch 16, seq 512; 1.34 B
@@ -175,6 +188,23 @@ Phases (any failure exits non-zero):
     first loss equal to the run with kernels 7-10 swapped for their plain
     versions and the next two within 1e-3 (relative) of it; images/s,
     step ms and peak memory;
+12b. the forward-only service (ROADMAP Queue A item 6's first piece):
+    ``apps.serve densenet121 --requests 32 --max-batch 8`` (224x224,
+    float32), every BN at per-channel scale, bias, running mean and
+    variance drawn from a seed: every request served in 4 batches,
+    kernels 7f and 9 launched as many times as the graph's kernel-routed
+    max pools and gated BNs a batch, x 4, the replies (log-probs) within
+    1e-3 of their largest magnitude of the same service with kernels
+    7-10 swapped for their plain versions, and moved past that tolerance
+    when the statistics are set back to their identity initial values;
+    finite qps, p50 and p99 in its JSON line, the wall time on the card;
+    ``apps.serve nmt`` at the JAX driver's defaults (its forward runs no
+    kernel: the fused head trains); then the DenseNet service in a
+    subprocess of 256 requests, sent SIGTERM
+    once its first batch is served: exit 0, one JSON line with requests
+    unserved and none dropped, and its ``-metrics-path`` file holding
+    the ff_qps, ff_queue_depth, ff_latency_p50_s, ff_latency_p99_s and
+    ff_requests_total gauges;
 13. ResNet-101 training slice: ``apps.cnn resnet101`` (the reference's
     topology: no BN, no residual add) at DenseNet's protocol (batch 64,
     224x224, bfloat16 compute, float32 params) for 3 warm-up and 10 timed
@@ -1409,7 +1439,7 @@ def slice_phase(torch, fa, kernels) -> dict:
 
     opts = serve.parse_args(["gpt", "--requests", "16",
                              "--max-new-tokens", "4", "--device", "cuda"])
-    engine, requests, _ = serve.build_engine(opts, log=_log)
+    engine, requests, _, _ = serve.build_engine(opts, log=_log)
     model, t = engine.model, engine.model.t
     if (t.num_layers, t.d_model, t.num_heads, t.d_ff, t.vocab_size,
             t.seq_length, engine.max_batch) != (12, 768, 12, 3072, 32768,
@@ -5717,6 +5747,370 @@ def search4_phase(torch, kernels, card: str, strategy_run: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the verification switches and the forward-only service
+
+#: a dumped line: tag, shape, dtype, mean, std, absmax (utils/debug.py)
+DUMP_LINE = re.compile(r"^(\S+): shape=(\([^)]*\)) dtype=(\w+) mean=(\S+) "
+                       r"std=(\S+) absmax=(\S+)$")
+#: the dumped statistics carry six decimals: a kernel run's line is held
+#: to the plain-kernel run's within the LM phase's tolerance, or one unit
+#: of the last printed decimal where the value is small
+DUMP_ATOL = 1.5e-6
+SERVE_FORWARD_REQUESTS, SERVE_FORWARD_BATCH = 32, 8
+#: requests of the drained subprocess: enough batches (32) that SIGTERM,
+#: sent once the first batch is served, lands mid-run
+SERVE_DRAIN_REQUESTS = 256
+#: the seed of the BN statistics the DenseNet services serve with
+SERVE_BN_SEED = 7
+SERVE_DRAIN_ROOT = Path(__file__).resolve().parent / ".chip_serve"
+SERVE_GAUGES = ("qps", "queue_depth", "latency_p50_s", "latency_p99_s",
+                "requests_total")
+
+
+def _dump_stats(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        m = DUMP_LINE.match(line.strip())
+        if m:
+            out[m.group(1)] = (m.group(2), m.group(3)) + tuple(
+                float(v) for v in m.groups()[3:])
+    return out
+
+
+def _dumped_run(torch, kernels, argv) -> tuple:
+    """``apps.lm`` under ``--print-intermediates``: ``(stats by tag,
+    launches, losses)``, its stdout captured."""
+    import io
+
+    from flexflow_tpu_torch.apps import lm
+
+    buf = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        out = lm.main(argv + ["--print-intermediates"], log=lambda *a: None)
+    torch.cuda.synchronize()
+    return _dump_stats(buf.getvalue()), dict(kernels.launches), out["loss"]
+
+
+def debug_phase(torch, kernels, card: str) -> dict:
+    """The three verification switches of SURVEY §4 on the GPT at phase
+    9's full widths: ``--dry-compile`` runs nothing, ``--params-ones``
+    starts at ln V and repeats itself, ``--print-intermediates`` prints
+    every op output and agrees with the plain-kernel run."""
+    import gc
+
+    from flexflow_tpu_torch.apps import lm
+    from flexflow_tpu_torch.apps.lm import synthetic_lm_batches
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops.kernels import fused_ce as ce
+
+    # (a) the dry run: the bytes the synthetic source puts on the card are
+    # all the run may add
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    held = [synthetic_lm_batches(16, 512, 32768, seed=0, device="cuda")]
+    src_bytes = torch.cuda.memory_allocated() - base
+    held.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    lines = []
+    t = time.perf_counter()
+    out = lm.main(_lm_argv(LM_CHECKED, 0) + ["--dry-compile"],
+                  log=lines.append)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t
+    grew = torch.cuda.max_memory_allocated() - base
+    ok = [m for m in lines if m.startswith("dry-compile ok: ")]
+    _log(f"debug dry-compile: {ok[0] if ok else lines}; {dry_s:.2f} s; "
+         f"card memory grew by {grew} bytes (the synthetic source's "
+         f"batches: {src_bytes}); compiled {out['compiled']}; launches "
+         f"{dict(kernels.launches)}")
+    if out["loss"] != [] or not ok:
+        raise AssertionError(f"the dry run ran steps: {out['loss']}")
+    if sum(kernels.launches.values()):
+        raise AssertionError(f"the dry run launched kernels: "
+                             f"{dict(kernels.launches)}")
+    if grew > src_bytes:
+        raise AssertionError(f"the dry run put {grew} bytes on the card, "
+                             f"more than its data source's {src_bytes}")
+    del out
+
+    # (b) all-ones parameters: every vocab column's logit is the same
+    argv = _lm_argv(LM_CHECKED, 0) + ["--params-ones"]
+    runs = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        runs.append((lm.main(argv, log=lambda *a: None)["loss"],
+                     dict(kernels.launches)))
+    (ones, launches), (again, _) = runs
+    want = {fa.NAME: LM_LAYERS * LM_CHECKED,
+            fa.NAME_DKV: LM_LAYERS * LM_CHECKED,
+            fa.NAME_DQ: LM_LAYERS * LM_CHECKED}
+    want.update({n: LM_CHECKED for n in (
+        ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM,
+        ce.NAME_DW)})
+    rel = abs(ones[0] - math.log(32768)) / math.log(32768)
+    _log(f"debug params-ones: losses {ones}, a second run's {again} "
+         f"(bit-equal {ones == again}); first vs ln 32768 = "
+         f"{math.log(32768):.6f}: rel {rel:.3e} (tolerance 1e-5); "
+         f"launches {launches}")
+    if launches != want:
+        raise AssertionError(f"--params-ones launched {launches}, expected "
+                             f"{want}")
+    if not rel <= 1e-5 or ones != again:
+        raise AssertionError(f"--params-ones losses {ones} / {again}")
+
+    # (c) the dump: one line per op output, kernels 1-3 once per block,
+    # the fused head off; held to the plain-kernel run's lines
+    tags = {op.name for op in TransformerLM(
+        TransformerConfig(batch_size=16, causal=True),
+        MachineModel.virtual(1)).layers}
+    argv = _lm_argv(1, 0)
+    t = time.perf_counter()
+    got, launches, loss = _dumped_run(torch, kernels, argv)
+    dump_s = time.perf_counter() - t
+    with _plain_kernels():
+        ref, plain_launches, ref_loss = _dumped_run(torch, kernels, argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst, worst_tag = 0.0, None
+    for tag, w in ref.items():
+        g = got.get(tag)
+        if g is None or g[:2] != w[:2]:
+            raise AssertionError(f"dump line {tag}: {g} vs {w}")
+        for a, b in zip(g[2:], w[2:]):
+            err = abs(a - b) - DUMP_ATOL
+            lim = LM_LOSS_RTOL * max(abs(a), abs(b))
+            if err > lim:
+                raise AssertionError(f"dump line {tag}: {g} vs the plain "
+                                     f"kernels' {w}")
+            if err / max(lim, 1e-30) > worst:
+                worst, worst_tag = err / max(lim, 1e-30), tag
+    _log(f"debug print-intermediates: {len(got)} lines in {dump_s:.2f} s, "
+         f"e.g. {next(iter(got.items()))}; launches {launches}; every "
+         f"statistic within {LM_LOSS_RTOL:g} (relative, + {DUMP_ATOL:g}) "
+         f"of the plain-kernel run's (worst {worst:.3f} of the tolerance, "
+         f"{worst_tag}); loss {loss} vs {ref_loss} — {card}")
+    if {tag.split("/")[0] for tag in got} != tags or len(got) != len(tags):
+        raise AssertionError(f"the dump printed {sorted(got)}, not one line "
+                             f"per op of {sorted(tags)}")
+    if launches != {fa.NAME: LM_LAYERS, fa.NAME_DKV: LM_LAYERS,
+                    fa.NAME_DQ: LM_LAYERS} or plain_launches:
+        raise AssertionError(f"dump launches {launches} (kernels 1-3 once "
+                             f"per block, 4-6 never: the head unfused); "
+                             f"plain run {plain_launches}")
+    return {"dry_s": dry_s, "dump_s": dump_s, "ones": ones}
+
+
+def _set_bn(torch, engine, seed=None) -> int:
+    """Give every BatchNorm of ``engine``'s model per-channel scale, bias,
+    running mean and variance from a generator seeded with ``seed``, or
+    the initial identity (1, 0, 0, 1) with ``seed=None``; returns the
+    number of BNs.  Fresh statistics make kernel 9's ``inv`` 1 and its
+    ``shift`` 0 on every channel, which a kernel that drops either would
+    reproduce."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.norm import BatchNorm
+
+    rng = np.random.RandomState(seed) if seed is not None else None
+    bns = [op for op in engine.model.layers if isinstance(op, BatchNorm)]
+    for op in bns:
+        trees = (engine.params[op.param_key], engine.state[op.name])
+        for tree, key, lo, hi, ident in (
+                (trees[0], "scale", 0.5, 1.5, 1.0),
+                (trees[0], "bias", -0.5, 0.5, 0.0),
+                (trees[1], "mean", -0.5, 0.5, 0.0),
+                (trees[1], "var", 0.5, 2.0, 1.0)):
+            v = rng.uniform(lo, hi, op.channels) if rng is not None \
+                else np.full(op.channels, ident)
+            tree[key] = torch.as_tensor(v.astype(np.float32),
+                                        device=tree[key].device)
+    return len(bns)
+
+
+def _serve_opts(serve, model: str, *extra) -> dict:
+    return serve.parse_args([model, "--requests",
+                             str(SERVE_FORWARD_REQUESTS), "--max-batch",
+                             str(SERVE_FORWARD_BATCH), "--device", "cuda",
+                             *extra])
+
+
+def serve_forward_phase(torch, kernels, card: str) -> dict:
+    """``apps.serve densenet121`` and ``apps.serve nmt``, the
+    forward-only service: kernels 7f and 9 on the serving path, the
+    replies against the plain versions', then a subprocess of the
+    DenseNet service drained by SIGTERM mid-run."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.ops.kernels import bn_act as bn
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+    from flexflow_tpu_torch.ops.norm import BatchNorm
+    from flexflow_tpu_torch.ops.pool import Pool2D
+
+    opts = _serve_opts(serve, "densenet121")
+    engine, requests, _, forward = serve.build_engine(opts, log=_log)
+    model = engine.model
+    n_bn = _set_bn(torch, engine, SERVE_BN_SEED)
+    batches = -(-SERVE_FORWARD_REQUESTS // SERVE_FORWARD_BATCH)
+    per = {bn.NAME_FWD: sum(1 for op in model.layers
+                            if isinstance(op, BatchNorm)
+                            and bn.supported(*op.inputs[0].shape)),
+           mp.NAME_FWD: sum(1 for op in model.layers
+                            if isinstance(op, Pool2D)
+                            and op.kernel_route() == "maxpool")}
+    want = {k: v * batches for k, v in per.items() if v}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    summary = engine.run_forward(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.launches)
+    line = json.loads(serve._result_line(summary, engine.olog))
+    _log(f"serve forward densenet121: {summary['completed']}/"
+         f"{summary['requests']} requests in {summary['steps']} batches of "
+         f"{SERVE_FORWARD_BATCH}, {wall:.3f} s wall "
+         f"({summary['completed'] / wall:.1f} requests/s on the card); "
+         f"launches {launches} (expected {want}: {per} a batch); line "
+         f"{json.dumps(line)} — {card}")
+    if not forward or launches != want:
+        raise AssertionError(f"serving DenseNet launched {launches}, "
+                             f"expected {want}")
+    if summary["completed"] != SERVE_FORWARD_REQUESTS or not all(
+            math.isfinite(line[k]) for k in ("qps", "p50_s", "p99_s")):
+        raise AssertionError(f"the DenseNet service's line: {line}")
+    replies = np.stack([r.reply for r in requests])
+    if replies.shape != (SERVE_FORWARD_REQUESTS, 1000) or not \
+            np.isfinite(replies).all():
+        raise AssertionError(f"replies {replies.shape} not finite")
+    # the first run pays cuDNN's first calls: a second run of fresh
+    # requests on the same engine gives the warm rate
+    from flexflow_tpu_torch.serve.loadgen import synthetic_requests
+
+    warm_reqs = serve._forward_payloads(model, synthetic_requests(
+        SERVE_FORWARD_REQUESTS, seed=1, rate_qps=opts["rate_qps"],
+        vocab_size=64, prompt_len=opts["prompt_len"], max_new_tokens=0), 1)
+    t = time.perf_counter()
+    engine.run_forward(warm_reqs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    _log(f"serve forward densenet121: a second run of {len(warm_reqs)} "
+         f"requests {warm:.3f} s wall ({len(warm_reqs) / warm:.1f} "
+         f"requests/s, {warm / batches * 1e3:.2f} ms a batch of "
+         f"{SERVE_FORWARD_BATCH}) — {card}")
+    # the same requests under the identity statistics: the seeded ones
+    # must move the replies past the tolerance, or the comparison with
+    # the plain kernels below could not fail
+    seeded = np.stack([r.reply for r in warm_reqs])
+    _set_bn(torch, engine, None)
+    ident_reqs = serve._forward_payloads(model, synthetic_requests(
+        SERVE_FORWARD_REQUESTS, seed=1, rate_qps=opts["rate_qps"],
+        vocab_size=64, prompt_len=opts["prompt_len"], max_new_tokens=0), 1)
+    engine.run_forward(ident_reqs)
+    ident_gap = float(np.abs(
+        seeded - np.stack([r.reply for r in ident_reqs])).max())
+    with _plain_cnn_kernels():
+        ref_eng, ref_reqs, _, _ = serve.build_engine(opts, log=_log)
+        _set_bn(torch, ref_eng, SERVE_BN_SEED)
+        kernels.reset_launches()
+        ref_eng.run_forward(ref_reqs)
+        if sum(kernels.launches.values()):
+            raise AssertionError("the plain-kernel service launched a "
+                                 "kernel")
+    ref = np.stack([r.reply for r in ref_reqs])
+    err = float(np.abs(replies - ref).max())
+    scale = float(np.abs(ref).max())
+    _log(f"serve forward densenet121: {n_bn} BNs at seeded statistics "
+         f"(seed {SERVE_BN_SEED}); replies vs plain kernels 7f, 9: "
+         f"bit-equal {bool((replies == ref).all())}, max_abs_err "
+         f"{err:.3e} of max |reply| {scale:.3e} (tolerance "
+         f"{DENSENET_LOSS_RTOL:g} of it); the identity statistics move "
+         f"the replies by {ident_gap:.3e}")
+    if not err <= DENSENET_LOSS_RTOL * scale:
+        raise AssertionError(f"DenseNet replies differ from the plain "
+                             f"kernels' by {err}")
+    if not ident_gap > DENSENET_LOSS_RTOL * scale:
+        raise AssertionError(f"the seeded BN statistics moved the replies "
+                             f"by only {ident_gap}: the comparison cannot "
+                             f"tell a kernel that ignores them")
+    del engine, ref_eng, requests, ref_reqs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the NMT at the JAX driver's defaults: its forward runs no kernel
+    # (the fused head is a training path)
+    t = time.perf_counter()
+    kernels.reset_launches()
+    nmt = serve.serve_run(_serve_opts(serve, "nmt"), log=_log)
+    torch.cuda.synchronize()
+    nmt_line = json.loads(serve._result_line(nmt, nmt.pop("_olog")))
+    _log(f"serve forward nmt: {time.perf_counter() - t:.2f} s, launches "
+         f"{dict(kernels.launches)}, line {json.dumps(nmt_line)}")
+    if nmt_line["completed"] != SERVE_FORWARD_REQUESTS or not all(
+            math.isfinite(nmt_line[k]) for k in ("qps", "p50_s", "p99_s")):
+        raise AssertionError(f"the NMT service's line: {nmt_line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the drain contract: SIGTERM mid-run, exit 0, nothing dropped
+    shutil.rmtree(SERVE_DRAIN_ROOT, ignore_errors=True)
+    SERVE_DRAIN_ROOT.mkdir(parents=True)
+    prom = SERVE_DRAIN_ROOT / "metrics.prom"
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.apps.serve",
+         "densenet121", "--requests", str(SERVE_DRAIN_REQUESTS),
+         "--max-batch", str(SERVE_FORWARD_BATCH), "--device", "cuda",
+         "-metrics-path", str(prom)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+    try:
+        for err_line in proc.stderr:
+            if "forward service running" in err_line:
+                proc.send_signal(signal.SIGTERM)
+                break
+        out, err_text = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    drain_s = time.perf_counter() - t
+    from flexflow_tpu_torch.obs.metrics import read_textfile
+
+    rec = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    gauges = read_textfile(str(prom)) if prom.exists() else {}
+    _log(f"serve forward drain: exit {proc.returncode} in {drain_s:.1f} s, "
+         f"line {json.dumps(rec)}, gauges "
+         f"{ {k: gauges.get(k) for k in SERVE_GAUGES} }")
+    if proc.returncode != 0 or len(out.strip().splitlines()) != 1:
+        raise AssertionError(f"the drained service exited "
+                             f"{proc.returncode}: {err_text[-2000:]}")
+    if not (rec["unserved"] > 0 and rec["dropped"] == 0 and rec["drained"]
+            and rec["completed"] + rec["unserved"] == SERVE_DRAIN_REQUESTS):
+        raise AssertionError(f"the drain's line: {rec}")
+    if not set(SERVE_GAUGES) <= set(gauges) or \
+            gauges["requests_total"] != rec["completed"]:
+        raise AssertionError(f"the drained service's gauges: {gauges}")
+    shutil.rmtree(SERVE_DRAIN_ROOT, ignore_errors=True)
+    return {"line": line, "wall_s": wall, "warm_s": warm,
+            "launches": launches, "drain_s": drain_s}
+
+
 #: ``--only`` names -> phases, and the phases whose results each reads
 ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "lm-obs": "lm obs", "pipeline": "pipeline", "moe": "moe",
@@ -5724,7 +6118,8 @@ ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "search": "search", "search4": "search 4",
                "strategy": "strategy", "lm-strategy": "lm strategy",
                "strategy4": "strategy 4", "lm-strategy4": "lm strategy 4",
-               "pipeline4": "pipeline 4"}
+               "pipeline4": "pipeline 4", "debug": "debug",
+               "serve-forward": "serve forward"}
 PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
                "search": ("strategy",), "search 4": ("strategy",),
                "lm strategy": ("lm", "strategy"),
@@ -5828,8 +6223,10 @@ def main(argv) -> int:
     phase("lm obs", lm_obs_phase, torch, kernels, card, lm_run)
     phase("lm 1.3b", lm_phase, torch, kernels, card, LM13_WIDTHS,
           (LM13_WARMUP, LM13_TIMED, LM13_CHECKED), "lm 1.3b")
+    phase("debug", debug_phase, torch, kernels, card)
     trained = phase("inception", training_phase, torch, kernels, card)
     dense = phase("densenet", densenet_phase, torch, kernels, card)
+    phase("serve forward", serve_forward_phase, torch, kernels, card)
     phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     nmt_run = phase("nmt", nmt_phase, torch, kernels, card)

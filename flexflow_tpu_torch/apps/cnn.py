@@ -24,8 +24,12 @@ flags -d/--dataset, -e/--epochs (parsed, unused), -ll:cpu,
 --hang-factor, --hang-min-s, --drain-budget-s, -metrics-path, its
 elastic flags --elastic, --min-devices, --research-budget-s,
 --elastic-search-iters, --max-regrows, --regrow-probes,
---transient-reset-steps, and its telemetry flags -obs-dir, -run-id,
---obs-max-bytes, -op-time-every),
+--transient-reset-steps, its telemetry flags -obs-dir, -run-id,
+--obs-max-bytes, -op-time-every, the verification switches
+--params-ones, --dry-compile, --print-intermediates, the search's
+-chains, -delta (parsed, unused, as in the JAX app) and the executor's
+-regrid-planner, -placed-overlap, -pallas, which take ``on`` and refuse
+the values the port does not run with the reason),
 plus
 ``--device`` (default ``cuda``: the run raises
 when CUDA is absent unless ``--device cpu`` is given), ``--warmup``
@@ -161,8 +165,8 @@ def _write_result(path: str, out: dict, machine) -> None:
            if k not in ("params", "state", "opt_state")}
     res.update(launches=dict(kernels.launches),
                halo_bytes=collectives.halo_bytes(),
-               leaves={"params": sorted(out["params"]),
-                       "state": sorted(out["state"])})
+               leaves={"params": sorted(out["params"] or ()),
+                       "state": sorted(out["state"] or ())})
     if machine.device.type == "cuda":
         res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
             machine.device)

@@ -35,9 +35,16 @@ loop in T): ``FFModel.fit``, plus ``--device``
 cpu`` is given), ``--warmup`` (untimed steps before the timed window,
 default 1 as in ``fit``),
 ``--result-json PATH`` and ``--dist-backend NAME`` (as ``apps.cnn``'s).
-Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (``--dry-compile``, the kernel policy, ...)
-raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A run that
+The verification switches (SURVEY §4) go to ``FFModel``:
+``--params-ones`` (every parameter leaf 1.0), ``--dry-compile`` (build
+the model and its plan, trace one step on the meta device, run nothing;
+``loss`` is empty) and ``--print-intermediates`` (every op output's
+statistics on stdout, the LM-head fusion off); ``-regrid-planner``,
+``-placed-overlap`` and ``-pallas`` take the one value the port runs
+(``on``) and refuse the others with the reason.  Unknown flags are
+ignored, like the reference parser; flags of features the port does not
+have yet raise ``NotImplementedError`` (``config.UNPORTED_FLAGS``).  A
+run that
 SIGTERM, SIGINT or an injected ``preempt`` drains logs ``drained at
 iteration N`` and exits 0.  A
 ``--strategy`` file is checked first, as in the JAX app
@@ -89,7 +96,8 @@ from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
     check_strategy, machine_for
 from flexflow_tpu_torch.config import (DATA_FLAGS, OBS_FLAGS,
                                        RUNTIME_FLAGS, SWITCH_FLAGS,
-                                       UNPORTED_FLAGS, flag_stream, unported)
+                                       UNPORTED_FLAGS, flag_stream,
+                                       parse_switch, unported)
 from flexflow_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 
@@ -135,6 +143,8 @@ def parse_args(argv):
         elif a in RUNTIME_FLAGS or a in OBS_FLAGS or a in PROFILE_FLAGS:
             field, parse = {**RUNTIME_FLAGS, **OBS_FLAGS, **PROFILE_FLAGS}[a]
             setattr(cfg, field, True if a in SWITCH_FLAGS else parse(val()))
+        elif parse_switch(cfg, a, val):
+            pass
         elif a in UNPORTED_FLAGS:
             raise unported(a, "flexflow_tpu/apps/lm.py")
         # unknown flags are ignored, like the reference parser
@@ -274,7 +284,10 @@ def main(argv=None, log=print) -> dict:
     if cfg.pipeline_stages > 1:
         unsupported = [flag for flag, on in (
             ("--strategy", bool(cfg.strategy_file)),
-            ("--experts", cfg.num_experts > 0)) if on]
+            ("--experts", cfg.num_experts > 0),
+            ("--dry-compile", cfg.dry_compile),
+            ("--params-ones", cfg.params_init == "ones"),
+            ("--print-intermediates", cfg.print_intermediates)) if on]
         if unsupported:
             raise SystemExit(
                 f"--pipeline-stages does not support: "

@@ -27,9 +27,12 @@ as in ``fit``),
 --boundary-refine-iters, -obs-dir, -run-id, -op-time-every) go through
 ``RnnConfig`` to ``FFModel.fit``; the model's constructor is the elastic
 rebuild factory, and a drained run logs ``drained at iteration N``.
+The verification switches ``--params-ones``, ``--dry-compile`` and
+``--print-intermediates`` and the executor's ``-regrid-planner``,
+``-placed-overlap`` and ``-pallas`` (``on`` only; the other values are
+refused with the reason) are parsed as ``apps.lm`` parses them.
 Unknown flags are ignored, like the reference parser; flags of features
-the port does not have yet (the kernel policy, ``--dry-compile``, ...)
-raise ``NotImplementedError``.  A
+the port does not have yet raise ``NotImplementedError``.  A
 ``--strategy`` file is checked first, as in the JAX app
 (``flexflow_tpu/apps/nmt.py:146-148``, ``apps.cnn.check_strategy``): the
 run exits with status 2 on an error finding, ``--allow-degraded``
@@ -59,7 +62,8 @@ from flexflow_tpu_torch.apps.cnn import _flag_value, _write_result, \
     check_strategy, machine_for
 from flexflow_tpu_torch.config import (OBS_FLAGS, RUNTIME_FLAGS,
                                        SWITCH_FLAGS, UNPORTED_FLAGS,
-                                       flag_stream, unported)
+                                       flag_stream, parse_switch,
+                                       unported)
 from flexflow_tpu_torch.nmt.rnn_model import (RnnConfig, RnnModel,
                                               pipeline_stage_strategy,
                                               synthetic_token_batches)
@@ -111,6 +115,8 @@ def parse_args(argv):
         elif a in NMT_RUNTIME_FLAGS:
             field, parse = NMT_RUNTIME_FLAGS[a]
             setattr(cfg, field, True if a in SWITCH_FLAGS else parse(val()))
+        elif parse_switch(cfg, a, val):
+            pass
         elif a in NMT_UNPORTED_FLAGS:
             raise unported(a, "flexflow_tpu/apps/nmt.py")
         # unknown flags are ignored, like the reference parser

@@ -3,20 +3,28 @@ paths read — serving, and training through ``FFModel.fit`` with its
 checkpoints (synchronous or asynchronous), health guard, step watchdog,
 preemption drain, live metrics, prefetch, fault injection, run telemetry
 and sampled op timing, profiling and its trace, elastic training with
-its decomposed re-search, the file datasets, and the drivers' static
-plan check — with the JAX package's defaults
+its decomposed re-search, the file datasets, the drivers' static plan
+check, the reference's three verification switches (SURVEY §4:
+``--params-ones``, ``--dry-compile``, ``--print-intermediates``) and the
+search's and executor's switches (``-chains``, ``-delta``,
+``-regrid-planner``, ``-placed-overlap``, ``-pallas``) — with the JAX
+package's defaults
 (``flexflow_tpu/config.py``), but for ``prefetch_depth``: 0 here, where
 the JAX default is 2 (the port's synthetic sources already yield tensors
-on the card).
+on the card).  ``-regrid-planner``, ``-placed-overlap`` and ``-pallas``
+are checked and not stored: the port runs one value of each.
 
 :meth:`FFConfig.from_args` parses the JAX parser's flag names for these
 fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
 number of GPUs, which must equal the world size; checked by the app).  A
 flag of the JAX parser whose feature is not ported yet (``UNPORTED_FLAGS``:
-the search's chains and delta modes, the serving and fleet knobs, the
-kernel policy, ``--dry-compile``, ...) raises ``NotImplementedError``
-instead of being dropped silently.
+the serving knobs, which ``apps.serve`` parses itself or does not have
+yet, and the fleet's) raises
+``NotImplementedError`` instead of being dropped silently.  A switch
+value whose behaviour the port does not have (``RESTRICTED_VALUES``:
+``-regrid-planner off``, ``-placed-overlap off``, ``-pallas auto|off``)
+is refused with the reason (``SystemExit``), as a malformed value is.
 """
 
 from __future__ import annotations
@@ -31,13 +39,95 @@ from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
 UNPORTED_FLAGS = frozenset((
-    "-chains", "--chains", "-delta", "--delta", "-regrid-planner",
-    "--regrid-planner", "-placed-overlap", "--placed-overlap", "--max-batch",
-    "--serve-queue-hi", "--serve-idle-boundaries", "--serve-prefill-devices",
-    "--serve-prefill-replicas", "--serve-decode-replicas",
-    "--fleet-quantum", "--fleet-search-budget-s", "-pallas", "--pallas",
-    "--params-ones", "--print-intermediates", "--dry-compile",
+    "--max-batch", "--serve-queue-hi", "--serve-idle-boundaries",
+    "--serve-prefill-devices", "--serve-prefill-replicas",
+    "--serve-decode-replicas",
+    "--fleet-quantum", "--fleet-search-budget-s",
 ))
+
+#: the switches whose values the port's behaviour restricts: field ->
+#: (the values the port runs, {refused value: the reason})
+RESTRICTED_VALUES: Dict[str, Tuple[Tuple[str, ...], Dict[str, str]]] = {
+    "search_delta": (("on", "off", "check"), {}),
+    "regrid_planner": (("on",), {
+        "off": "the port has only the planned regrid path (JAX's 'off' "
+               "is its legacy per-trace path, flexflow_tpu/model.py:"
+               "1035-1041)"}),
+    "placed_overlap": (("on",), {
+        "off": "the port runs a process per rank, so the ops placed on "
+               "disjoint device blocks always run at once, as JAX's "
+               "grouped dispatch ('on') runs them; JAX's 'off' serializes "
+               "them (flexflow_tpu/parallel/placement.py:405-420)"}),
+    "pallas": (("on",), {
+        "auto": "a tensor on the card always goes through its "
+                "hand-written kernel (no size-gated routing to plain "
+                "versions)",
+        "off": "a tensor on the card always goes through its "
+               "hand-written kernel (no switch to plain versions)"}),
+}
+
+#: the flags of the restricted switches and the search's chain count:
+#: flag -> the switch's name, JAX's field
+#: (``flexflow_tpu/config.py:319-325, 384-385``)
+SWITCH_VALUE_FLAGS = {
+    "-chains": "search_chains", "--chains": "search_chains",
+    "-delta": "search_delta", "--delta": "search_delta",
+    "-regrid-planner": "regrid_planner",
+    "--regrid-planner": "regrid_planner",
+    "-placed-overlap": "placed_overlap",
+    "--placed-overlap": "placed_overlap",
+    "-pallas": "pallas", "--pallas": "pallas",
+}
+
+#: the fields of ``SWITCH_VALUE_FLAGS`` that ``FFConfig`` stores
+SEARCH_FIELDS = ("search_chains", "search_delta")
+
+#: the verification switches (SURVEY §4), which take no value: flag ->
+#: (field, the value it sets)
+VERIFY_FLAGS = {
+    "--params-ones": ("params_init", "ones"),
+    "--print-intermediates": ("print_intermediates", True),
+    "--dry-compile": ("dry_compile", True),
+}
+
+
+def checked_value(flag: str, field: str, v: str) -> str:
+    """A restricted switch's value: one the port runs, or a
+    ``SystemExit`` that says why not."""
+    ok, refused = RESTRICTED_VALUES[field]
+    if v in refused:
+        raise SystemExit(f"{flag} {v}: refused by flexflow_tpu_torch: "
+                         f"{refused[v]}")
+    if v not in ok:
+        raise SystemExit(f"{flag} must be {'|'.join(ok + tuple(refused))}, "
+                         f"got {v!r}")
+    return v
+
+
+def parse_switch(cfg, flag: str, take) -> bool:
+    """Parse one of ``VERIFY_FLAGS`` or ``SWITCH_VALUE_FLAGS`` into
+    ``cfg`` (``take()`` reads the value); False for any other flag.
+
+    A verification switch sets its field.  ``-chains`` and ``-delta``
+    set the search's fields where ``cfg`` has them (``FFConfig``); the
+    JAX LM and NMT drivers ignore both, and so does a model config here.
+    ``-regrid-planner``, ``-placed-overlap`` and ``-pallas`` are checked
+    and not stored: the port runs only the value they accept."""
+    if flag in VERIFY_FLAGS:
+        field, value = VERIFY_FLAGS[flag]
+        setattr(cfg, field, value)
+        return True
+    field = SWITCH_VALUE_FLAGS.get(flag)
+    if field is None or field in SEARCH_FIELDS and not hasattr(cfg, field):
+        return False
+    v = take()
+    if field == "search_chains":
+        cfg.search_chains = int(v)
+    elif field == "search_delta":
+        cfg.search_delta = checked_value(flag, field, v)
+    else:
+        checked_value(flag, field, v)
+    return True
 
 
 def unported(flag: str, where: str) -> NotImplementedError:
@@ -272,6 +362,19 @@ class FFConfig:
     # torch.profiler Chrome trace of the loop written there ("" = none)
     profiling: bool = False
     trace_dir: str = ""
+    # the verification switches (SURVEY §4): params_init "ones" sets
+    # every parameter leaf to 1.0 whatever the seed (PARAMETER_ALL_ONES);
+    # print_intermediates prints every op output's statistics
+    # (utils/debug.py, PRINT_INTERMEDIATE_RESULT); dry_compile builds the
+    # model and its plan and traces one step on the meta device, running
+    # nothing (DISABLE_COMPUTATION)
+    params_init: str = "default"
+    print_intermediates: bool = False
+    dry_compile: bool = False
+    # the strategy search's chains and delta mode (parsed as JAX parses
+    # them; apps.search reads its own flags)
+    search_chains: int = 1
+    search_delta: str = "on"
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":
@@ -279,12 +382,14 @@ class FFConfig:
         --lr/--learning-rate, --wd/--weight-decay, -p/--print-freq,
         -i/--iters/--iterations, --dtype, -param-dtype/--param-dtype,
         --seed, --height, --width, --classes, -s/--strategy, -ll:gpu,
-        --allow-degraded, ``RUNTIME_FLAGS``, ``OBS_FLAGS`` and
-        ``DATA_FLAGS``."""
+        --allow-degraded, ``RUNTIME_FLAGS``, ``OBS_FLAGS``,
+        ``DATA_FLAGS``, ``VERIFY_FLAGS`` and ``SWITCH_VALUE_FLAGS``."""
         cfg = cls()
         for a, val in flag_stream(argv):
             if a in UNPORTED_FLAGS:
                 raise unported(a, "flexflow_tpu/config.py")
+            if parse_switch(cfg, a, val):
+                continue
             if a in ("-s", "--strategy"):
                 cfg.strategy_file = val()
                 cfg.strategies = Strategy.load(cfg.strategy_file)

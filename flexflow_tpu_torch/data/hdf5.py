@@ -11,10 +11,12 @@ skipped (the cursor moves on, a ``data_fault`` record) until the run's
 ``skip_budget`` is spent.  The records, warnings and messages are the JAX
 package's.
 
-As ``data/imagenet.py``'s stream, this one yields this rank's rows of
-each global batch (``machine.batch_block``), as tensors on the machine's
-device or, with ``place=False``, on the host.  ``h5py`` is imported only
-when a stream is made.
+As ``data/imagenet.py``'s stream, this one (:class:`HDF5Stream`) yields
+this rank's rows of each global batch (``machine.batch_block``), as
+tensors on the machine's device or, with ``place=False``, on the host,
+and an elastic resize rebinds it to the new machine's block
+(:meth:`HDF5Stream.rebind`).  ``h5py`` is imported only when a stream is
+made.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import queue
 import threading
 import warnings
-from typing import Iterator, List, Tuple
+from typing import List, Optional
 
 import numpy as np
 
@@ -72,51 +74,77 @@ def _normalize(img: np.ndarray) -> np.ndarray:
 def hdf5_batches(machine, paths: List[str], batch_size: int,
                  prefetch: int = 2, place: bool = True, olog=None,
                  retry_attempts: int = 4, skip_budget: int = 16,
-                 device="cuda") -> Iterator[Tuple]:
-    """Yield (images, labels) forever from HDF5 batch files, read ahead
-    on a background thread: this rank's rows of each global batch, as
-    tensors on ``machine``'s device (``device`` without a machine), or
-    host tensors with ``place=False``.
+                 device="cuda") -> "HDF5Stream":
+    """(images, labels) forever from HDF5 batch files, read ahead on a
+    background thread: this rank's rows of each global batch, as tensors
+    on ``machine``'s device (``device`` without a machine), or host
+    tensors with ``place=False``.
 
     A transient ``OSError`` read is retried (``retry_attempts`` tries in
     all, with backoff); a range that keeps failing is skipped (cursor
     advanced, ``data_fault`` record on ``olog``) until ``skip_budget`` is
     spent.  ``olog`` is any obs sink, not owned here.  Closing the
-    generator stops the thread, which closes the files; a thread that
-    does not stop within ``_JOIN_TIMEOUT_S`` is reported as leaked (a
+    stream stops the thread, which closes the files; a thread that does
+    not stop within ``_JOIN_TIMEOUT_S`` is reported as leaked (a
     ``thread_leak`` record and a ``RuntimeWarning``)."""
-    import h5py
-    import torch
+    return HDF5Stream(machine, paths, batch_size, prefetch=prefetch,
+                      place=place, olog=olog, retry_attempts=retry_attempts,
+                      skip_budget=skip_budget, device=device)
 
-    from flexflow_tpu_torch import obs
-    from flexflow_tpu_torch.machine import resolve_device
-    from flexflow_tpu_torch.utils import faultinject
-    from flexflow_tpu_torch.utils.retry import RetryPolicy, call_with_retry
 
-    if not paths:
-        raise ValueError("hdf5_batches needs at least one file")
-    olog = olog if olog is not None else obs.NULL
-    dev = machine.device if machine is not None \
-        else resolve_device(device) if place else None
-    lo, hi = (0, batch_size) if machine is None \
-        else machine.batch_block(batch_size)
-    files = [h5py.File(p, "r") for p in paths]
-    positions = [0] * len(files)
-    policy = RetryPolicy(attempts=max(int(retry_attempts), 1))
+class HDF5Stream:
+    """The stream :func:`hdf5_batches` makes.  ``position`` counts the
+    global batches yielded; global batch k comes from file ``k % files``
+    at that file's cursor, which each batch read from it, and each range
+    skipped in it, moves ``batch_size`` rows on (with wraparound)."""
 
-    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-    stop = threading.Event()
-    skips = [0]
+    def __init__(self, machine, paths: List[str], batch_size: int,
+                 prefetch: int = 2, place: bool = True, olog=None,
+                 retry_attempts: int = 4, skip_budget: int = 16,
+                 device="cuda"):
+        import h5py
 
-    def read_resilient(idx):
+        from flexflow_tpu_torch import obs
+        from flexflow_tpu_torch.utils.retry import RetryPolicy
+
+        if not paths:
+            raise ValueError("hdf5_batches needs at least one file")
+        self.paths = list(paths)
+        self.batch_size = int(batch_size)
+        self.prefetch = prefetch
+        self.place = place
+        self._device = device
+        self.olog = olog if olog is not None else obs.NULL
+        self.policy = RetryPolicy(attempts=max(int(retry_attempts), 1))
+        self.skip_budget = skip_budget
+        self.skips = 0
+        self.position = 0
+        self._files = [h5py.File(p, "r") for p in self.paths]
+        self._cursors = [0] * len(self._files)
+        # ranges skipped in each file: they move its cursor on
+        self._skipped = [0] * len(self._files)
+        self._next_file = 0
+        self._closing = False
+        self._thread = None
+        self._bind(machine)
+
+    # -- the reader thread ---------------------------------------------
+
+    def _read_resilient(self, idx):
         """One batch read under retry; a range failing past the retries
         is skipped (within ``skip_budget``) instead of ending the run."""
+        from flexflow_tpu_torch.utils import faultinject
+        from flexflow_tpu_torch.utils.retry import call_with_retry
+
+        olog, policy, files = self.olog, self.policy, self._files
         while True:
             fidx = idx
 
             def once():
-                faultinject.raise_if("data_io", site=f"hdf5:{paths[fidx]}")
-                return _read_batch(files, positions, fidx, batch_size)
+                faultinject.raise_if("data_io",
+                                     site=f"hdf5:{self.paths[fidx]}")
+                return _read_batch(files, self._cursors, fidx,
+                                   self.batch_size)
 
             try:
                 return call_with_retry(
@@ -128,31 +156,34 @@ def hdf5_batches(machine, paths: List[str], batch_size: int,
                         "recovery", source="hdf5", after="retry",
                         failures=n))
             except OSError as e:
-                skips[0] += 1
-                if skips[0] > skip_budget:
+                self.skips += 1
+                if self.skips > self.skip_budget:
                     raise RuntimeError(
-                        f"hdf5 read skip budget ({skip_budget}) "
+                        f"hdf5 read skip budget ({self.skip_budget}) "
                         f"exhausted") from e
                 warnings.warn(
                     f"hdf5: skipping a batch range after "
                     f"{policy.attempts} failed reads: {e}",
                     RuntimeWarning)
                 olog.event("data_fault", source="hdf5", action="skip",
-                           skips=skips[0], error=str(e))
+                           skips=self.skips, error=str(e))
                 try:
                     n = files[idx]["images"].shape[0]
-                    positions[idx] = (positions[idx] + batch_size) % n
+                    self._cursors[idx] = (self._cursors[idx]
+                                          + self.batch_size) % n
+                    self._skipped[idx] += 1
                 except Exception:
                     idx = (idx + 1) % len(files)
 
-    def producer():
-        # the producer owns the files: only it touches them, and it closes
-        # them after it sees stop, so that teardown cannot race a read
+    def _producer(self, q, stop, lo, hi):
+        # only this thread touches the files while it runs; it closes them
+        # after it sees stop at the stream's close, so that teardown
+        # cannot race a read (a rebind's stop leaves them open)
         try:
-            idx = 0
             while not stop.is_set():
                 try:
-                    img, lbl, idx = read_resilient(idx)
+                    img, lbl, self._next_file = self._read_resilient(
+                        self._next_file)
                     item = (_normalize(img[lo:hi]),
                             np.asarray(lbl[lo:hi], np.int32))
                 except Exception as e:  # to the consumer, not a hang
@@ -166,32 +197,99 @@ def hdf5_batches(machine, paths: List[str], batch_size: int,
                 if isinstance(item, _ProducerError):
                     return
         finally:
-            for f in files:
-                try:
-                    f.close()
-                except Exception:
-                    pass
+            if self._closing:
+                self._close_files()
 
-    t = threading.Thread(target=producer, name="ff-hdf5-prefetch",
-                         daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if isinstance(item, _ProducerError):
-                raise RuntimeError("hdf5 prefetch thread failed") from item.exc
-            img, lbl = (torch.from_numpy(np.ascontiguousarray(a))
-                        for a in item)
-            yield (img, lbl) if not place else (img.to(dev), lbl.to(dev))
-    finally:
-        stop.set()
-        t.join(timeout=_JOIN_TIMEOUT_S)
-        if t.is_alive():
-            # say that the daemon thread leaked instead of pretending the
-            # shutdown succeeded
-            warnings.warn(
-                f"hdf5 prefetch thread did not exit within "
-                f"{_JOIN_TIMEOUT_S:.1f}s; leaking the daemon thread",
-                RuntimeWarning)
-            olog.event("thread_leak", source="hdf5_batches",
-                       timeout_s=_JOIN_TIMEOUT_S)
+    def _close_files(self) -> None:
+        for f in self._files:
+            try:
+                f.close()
+            except Exception:
+                pass
+
+    def _bind(self, machine) -> None:
+        from flexflow_tpu_torch.machine import resolve_device
+
+        self.machine = machine
+        self.device = machine.device if machine is not None \
+            else resolve_device(self._device) if self.place else None
+        lo, hi = (0, self.batch_size) if machine is None \
+            else machine.batch_block(self.batch_size)
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._producer, args=(self._q, self._stop, lo, hi),
+            name="ff-hdf5-prefetch", daemon=True)
+        self._thread.start()
+
+    def _halt(self) -> bool:
+        """Stop the reader thread; False when it did not stop within
+        ``_JOIN_TIMEOUT_S`` (recorded as a leak)."""
+        self._stop.set()
+        self._thread.join(timeout=_JOIN_TIMEOUT_S)
+        if not self._thread.is_alive():
+            return True
+        # say that the daemon thread leaked instead of pretending the
+        # shutdown succeeded
+        warnings.warn(
+            f"hdf5 prefetch thread did not exit within "
+            f"{_JOIN_TIMEOUT_S:.1f}s; leaking the daemon thread",
+            RuntimeWarning)
+        self.olog.event("thread_leak", source="hdf5_batches",
+                        timeout_s=_JOIN_TIMEOUT_S)
+        return False
+
+    # -- the consumer ----------------------------------------------------
+
+    def rebind(self, machine, position: Optional[int] = None) -> None:
+        """Yield ``machine``'s blocks from now on (every row when it is
+        None), from global batch ``position`` when given, else from where
+        the stream stands.  The batches read ahead for the old block are
+        dropped, and every file's cursor is put where ``position``
+        batches and this rank's skips in it leave it."""
+        if self._thread is not None and not self._halt():
+            raise RuntimeError("hdf5: the prefetch thread did not stop for "
+                               "the rebind")
+        if position is not None:
+            self.position = int(position)
+        nf = len(self._files)
+        for f, h in enumerate(self._files):
+            reads = len(range(f, self.position, nf))
+            n = h["images"].shape[0]
+            self._cursors[f] = ((reads + self._skipped[f])
+                                * self.batch_size) % n
+        self._next_file = self.position % nf
+        self._bind(machine)
+
+    def __iter__(self) -> "HDF5Stream":
+        return self
+
+    def __next__(self) -> tuple:
+        import torch
+
+        item = self._q.get()
+        if isinstance(item, _ProducerError):
+            raise RuntimeError("hdf5 prefetch thread failed") from item.exc
+        self.position += 1
+        img, lbl = (torch.from_numpy(np.ascontiguousarray(a)) for a in item)
+        return (img, lbl) if not self.place \
+            else (img.to(self.device), lbl.to(self.device))
+
+    def close(self) -> None:
+        """Stop the reader thread, which closes the files."""
+        if self._closing:
+            return
+        self._closing = True
+        if not self._thread.is_alive():
+            self._close_files()
+            return
+        self._halt()
+
+    def __del__(self):
+        # an abandoned stream stops its thread (which closes the files)
+        # without waiting for it
+        try:
+            self._closing = True
+            self._stop.set()
+        except AttributeError:
+            pass

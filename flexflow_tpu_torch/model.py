@@ -271,8 +271,10 @@ class FFModel:
         one ``torch.Generator`` seeded with ``seed`` (default
         ``config.seed``).  Shared ``param_key``s initialize once; state is
         per op (``model.py:428``) and stays float32 under mixed
-        precision.  On several ranks every rank draws the full trees and
-        keeps its blocks (:meth:`shard_params`)."""
+        precision.  With ``config.params_init == "ones"`` every parameter
+        leaf is 1.0 whatever the seed; the state is not touched, as in
+        the JAX package.  On several ranks every rank draws the full
+        trees and keeps its blocks (:meth:`shard_params`)."""
         params, state = self._init_full(seed)
         if self.sharded:
             return self.shard_params(params), self.shard_state(state)
@@ -284,9 +286,15 @@ class FFModel:
         gen.manual_seed(int(seed))
         params: Dict[str, Dict] = {}
         state: Dict[str, Dict] = {}
+        all_ones = self.config.params_init == "ones"
         for op in self.layers:
             if op.param_key not in params:
                 p = op.init_params(gen, self.device)
+                if p and all_ones:
+                    # PARAMETER_ALL_ONES (conv_2d.cu:393-398,
+                    # flexflow_tpu/model.py:372-377): every parameter
+                    # leaf 1.0, the state as drawn
+                    p = {k: torch.ones_like(v) for k, v in p.items()}
                 if p:
                     params[op.param_key] = self._cast_param_tree(p)
             s = op.init_state(self.device)
@@ -373,7 +381,7 @@ class FFModel:
         block): the fused head's rows when ``train`` fuses ``op``."""
         if not self.sharded:
             return True
-        if train and op.name in self._fused_primary:
+        if self._fusion_on(train) and op.name in self._fused_primary:
             return self._fused_primary[op.name]
         return self._loss_primary[op.name]
 
@@ -555,12 +563,19 @@ class FFModel:
         (``model.py:1022``): a fused loss op's value is the per-token NLL,
         and its projection has no value.  Over several ranks ``values``
         holds what this rank holds, and a sequence loss op's labels, moved
-        to its layout, under ``("labels", op name)``."""
+        to its layout, under ``("labels", op name)``.
+
+        With ``config.print_intermediates`` (the dump mode) the fusion is
+        off and every op output is printed as ``{op}/{tensor}`` with its
+        shape and statistics (``utils/debug.py``,
+        ``flexflow_tpu/model.py:1021-1023, 1189-1190``); over several
+        ranks the whole tensor's, rank 0 printing."""
         values: Dict[Any, Any] = dict(inputs)
         new_state: Dict[str, Dict] = {}
         if self.sharded:
             self._setup_sharded()
-        fusion = self._lm_head_fusion() if train else {}
+        fusion = self._lm_head_fusion() if self._fusion_on(train) else {}
+        dump = self.config.print_intermediates
         reshards: Dict = {}
         for i, op in enumerate(self.layers):
             if i in fusion:
@@ -587,6 +602,8 @@ class FFModel:
                       for j, t in enumerate(op.inputs)]
                 grid = self._grids[op.name]
                 if not grid.runs:
+                    if dump:
+                        self._dump(op, None)
                     continue
                 y, st = op.sharded_forward(self._op_params(op, params),
                                            state.get(op.name, {}), xs,
@@ -600,9 +617,42 @@ class FFModel:
             ys = y if isinstance(y, tuple) else (y,)
             for t, v in zip(op.all_outputs(), ys, strict=True):
                 values[t.tid] = v
+            if dump:
+                self._dump(op, ys)
             if st:
                 new_state[op.name] = st
         return values, new_state
+
+    def _fusion_on(self, train: bool) -> bool:
+        """Whether ``apply`` runs the LM-head fusion: in training, but not
+        in the dump mode, which prints the projection's own output."""
+        return train and not self.config.print_intermediates
+
+    def _dump(self, op, ys) -> None:
+        """Print each output of ``op`` (``ys``: its values here, None on a
+        rank that does not run it).  Over several ranks each block counts
+        once, on its first holder: the count, sum and sum of squares are
+        summed and max |x| maxed over every rank, and rank 0 prints."""
+        from flexflow_tpu_torch.utils import debug
+
+        outs = op.all_outputs()
+        if not self.sharded:
+            for t, v in zip(outs, ys):
+                debug.print_tensor(f"{op.name}/{t.name or 'out'}", v)
+            return
+        world = self.machine.world_group()
+        specs = op.output_specs()
+        for k, t in enumerate(outs):
+            v = None
+            if ys is not None and self._first_holder(op, specs[k], t.shape):
+                v = ys[k]
+            sums = debug.block_sums(v).to(self.device)
+            collectives.all_reduce_(sums[:3], world)
+            amax = collectives.all_reduce_max(sums[3:], world)
+            if self.machine.rank == 0:
+                debug.print_sums(f"{op.name}/{t.name or 'out'}", t.shape,
+                                 t.dtype if ys is None else ys[k].dtype,
+                                 torch.cat([sums[:3], amax]))
 
     # ------------------------------------------------------------------
     # the LM-head fusion (model.py:623-728, one device)
@@ -1226,6 +1276,8 @@ class FFModel:
                                                      StepWatchdog)
 
         cfg = self.config
+        if cfg.dry_compile:
+            return self._dry_run(data_iter, log, olog)
         t0 = time.perf_counter()
         if elastic_resume is not None:
             # the continuation after an elastic resize: the state lies on
@@ -1531,6 +1583,71 @@ class FFModel:
             out["drained"] = True
             out["drain"] = drained
         return out
+
+    def abstract_train_state(self):
+        """``(params, state, opt_state)`` of this rank on the ``meta``
+        device: the trees' shapes and dtypes, nothing allocated
+        (``flexflow_tpu/model.py:abstract_train_state``)."""
+        meta = torch.device("meta")
+        params: Dict[str, Dict] = {}
+        state: Dict[str, Dict] = {}
+        for op in self.layers:
+            if op.param_key not in params:
+                p = op.init_params(None, meta)
+                if p:
+                    params[op.param_key] = self._cast_param_tree(p)
+            st = op.init_state(meta)
+            if st:
+                state[op.name] = st
+        if self.sharded:
+            params, state = self.shard_params(params), self.shard_state(state)
+        return params, state, self.init_opt_state(params)
+
+    def _dry_run(self, data_iter, log, olog) -> Dict[str, Any]:
+        """``--dry-compile`` (DISABLE_COMPUTATION, ops.h:19;
+        ``flexflow_tpu/model.py:1766-1789``): the model, its grids, its
+        placement, its regrid plans and process groups are built on every
+        rank, and one training step is traced on ``meta`` tensors
+        (parameters, optimizer state and one batch of the data source's
+        shapes): the kernels' wrappers and the collectives give their
+        outputs' shapes, so nothing runs, nothing is put on the card and
+        no collective is issued.  Writes one ``compile`` record with
+        ``dry=True``, ``seconds`` and ``flops`` (:meth:`step_flops`; the
+        port has no ``bytes_accessed``), logs ``dry-compile ok: ...`` and
+        returns no trees; ``compiled`` is the plan's summary (layers,
+        step FLOPs, the trees' and the batch's bytes, regrid hops)."""
+        t0 = time.perf_counter()
+        batch = tuple(torch.empty(b.shape, dtype=b.dtype, device="meta")
+                      for b in (torch.as_tensor(a) for a in next(data_iter)))
+        machine = self.machine
+        dev, built = machine.device, self._plan is not None
+        machine.device = torch.device("meta")
+        try:
+            params, state, opt_state = self.abstract_train_state()
+            out = self.make_train_step()(params, state, opt_state, *batch)
+            hops = 0 if self._plan is None else sum(
+                len(ep.chain) for ep in self._plan.edges.values())
+        finally:
+            machine.device = dev
+            if not built:
+                # the plans built here hold meta buffers: a later run
+                # builds its own
+                self._plan = None
+        if any(t.device.type != "meta" for t in _leaves(out)):
+            raise AssertionError("the dry run's step left the meta device")
+        arg_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+            (params, state, opt_state, batch)))
+        flops = self.step_flops()
+        olog.event("compile", seconds=time.perf_counter() - t0,
+                   flops=flops, dry=True)
+        log(f"dry-compile ok: {len(self.layers)} layers, "
+            f"flops/step = {flops:.3e}, argument bytes = {arg_bytes}")
+        return {"params": None, "state": None, "opt_state": None,
+                "loss": [], "elapsed_s": 0.0, "images_per_sec": 0.0,
+                "completed_steps": 0,
+                "compiled": {"layers": len(self.layers), "step_flops": flops,
+                             "argument_bytes": arg_bytes,
+                             "regrid_hops": hops}}
 
     def _profiling_report(self, log, elapsed: float, n_timed: int) -> None:
         """The ``profiling`` flag's report (``model.py:2258-2282``): the
@@ -2258,6 +2375,17 @@ class FFModel:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def _leaves(tree):
+    """The tensors of nested dicts, tuples and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return []
 
 
 def _cast_floats(tree, dtype):

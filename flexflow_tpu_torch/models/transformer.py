@@ -60,8 +60,12 @@ class TransformerConfig:
     # masters in the optimizer state)
     param_dtype: str = "float32"
     seed: int = 0
-    # "default" only: the JAX package's "ones" init is not ported yet
+    # the verification switches (forwarded to FFConfig; SURVEY §4):
+    # "ones" sets every parameter leaf to 1.0, the dump mode prints every
+    # op output, the dry run traces one step on the meta device
     params_init: str = "default"
+    print_intermediates: bool = False
+    dry_compile: bool = False
     # the strategy file --strategy names ("" = none; apps.lm loads it)
     strategy_file: str = ""
     # the GPipe pipelined path (apps.lm, parallel/pipeline.py): stages
@@ -115,10 +119,6 @@ class TransformerLM(FFModel):
                  machine: Optional[MachineModel] = None,
                  strategies: Optional[Strategy] = None, device="cuda"):
         self.t = t_config or TransformerConfig()
-        if self.t.params_init != "default":
-            raise NotImplementedError(
-                f"params_init={self.t.params_init!r} is not ported to "
-                f"flexflow_tpu_torch yet")
         ff_cfg = FFConfig(
             batch_size=self.t.batch_size,
             learning_rate=self.t.learning_rate,
@@ -157,6 +157,9 @@ class TransformerLM(FFModel):
             boundary_refine_iters=self.t.boundary_refine_iters,
             profiling=self.t.profiling,
             trace_dir=self.t.trace_dir,
+            params_init=self.t.params_init,
+            print_intermediates=self.t.print_intermediates,
+            dry_compile=self.t.dry_compile,
         )
         super().__init__(ff_cfg, machine, device)
         self._build()

@@ -103,6 +103,10 @@ class RnnConfig:
     transient_reset_steps: int = 16
     # the driver's static plan check demotes degradations to warnings
     allow_degraded: bool = False
+    # the verification switches (forwarded to FFConfig; SURVEY §4)
+    params_init: str = "default"
+    print_intermediates: bool = False
+    dry_compile: bool = False
 
     @property
     def chunks_per_seq(self) -> int:
@@ -169,7 +173,8 @@ RUNTIME_FIELDS = (
     "elastic", "min_devices", "research_budget_s", "decompose",
     "block_budget_s", "boundary_refine_iters", "ckpt_async", "max_regrows",
     "regrow_probes", "drain_budget_s", "hang_factor", "hang_min_s",
-    "transient_reset_steps")
+    "transient_reset_steps", "params_init", "print_intermediates",
+    "dry_compile")
 
 
 class RnnModel(FFModel):

@@ -9,6 +9,10 @@ a module is imported: the first launch builds.  A library's file name
 carries a digest of its source, of every header in ``csrc/`` and of the
 flags, so an edited source or header is rebuilt.
 
+On tensors of the ``meta`` device (the dry run, ``--dry-compile``) a
+wrapper returns empty outputs of its kernel's shapes and dtypes: no
+arithmetic, no launch, nothing counted (:func:`on_meta`).
+
 ``launches`` counts kernel launches by kernel name.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 path went through the kernels.  A launch made for a partial form
@@ -76,6 +80,17 @@ def sm_count(index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_meta(what: str, *tensors) -> bool:
+    """True when every operand lies on the ``meta`` device, where a
+    wrapper only gives its outputs' shapes; raises when only some do."""
+    metas = [t.device.type == "meta" for t in tensors if t is not None]
+    if not any(metas):
+        return False
+    if not all(metas):
+        raise ValueError(f"{what}: operands on different devices")
+    return True
 
 
 def vec_width(c: int, itemsize: int, strides: Sequence[int] = (),

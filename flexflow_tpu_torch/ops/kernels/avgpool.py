@@ -116,7 +116,10 @@ def avgpool_bwd_cuda(dy, y, kh: int, kw: int):
 
 def avgpool_bwd(dy, y, kh: int, kw: int):
     """dx: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors, an error for anything else."""
+    tensors, its shape for meta tensors, an error for anything else."""
+    if kernels.on_meta(NAME, dy, y):
+        n, oh, ow, c = dy.shape
+        return dy.new_empty((n, oh * kh, ow * kw, c))
     if dy.device.type == "cpu":
         if y is not None and y.device.type != "cpu":
             raise ValueError(f"{NAME}: dy and y on different devices")

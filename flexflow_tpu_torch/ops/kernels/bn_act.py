@@ -224,6 +224,8 @@ def bn_act_bwd_cuda(x2, inv, shift, g2, relu: bool):
 
 
 def _route(what: str, x2, *others) -> str:
+    if kernels.on_meta(what, x2, *others):
+        return "meta"
     if x2.device.type == "cpu":
         if any(t.device.type != "cpu" for t in others):
             raise ValueError(f"{what}: operands on different devices")
@@ -234,17 +236,27 @@ def _route(what: str, x2, *others) -> str:
 
 
 def bn_act_fwd(x2, inv, shift, relu: bool):
-    """y: the plain version for CPU tensors, kernel 9 for CUDA tensors, an
-    error for anything else."""
-    if _route(NAME_FWD, x2, inv, shift) == "cpu":
+    """y: the plain version for CPU tensors, kernel 9 for CUDA tensors,
+    its shape for meta tensors, an error for anything else."""
+    route = _route(NAME_FWD, x2, inv, shift)
+    if route == "meta":
+        return x2.new_empty(x2.shape)
+    if route == "cpu":
         return bn_act_fwd_plain(x2, inv, shift, relu)
     return bn_act_fwd_cuda(x2, inv, shift, relu)
 
 
 def bn_act_bwd(x2, inv, shift, g2, relu: bool):
     """(dx, d_inv, d_shift): the plain version for CPU tensors, kernel 10
-    for CUDA tensors, an error for anything else."""
-    if _route(NAME_BWD, x2, inv, shift, g2) == "cpu":
+    for CUDA tensors, their shapes for meta tensors, an error for
+    anything else."""
+    route = _route(NAME_BWD, x2, inv, shift, g2)
+    if route == "meta":
+        c = x2.shape[1:]
+        return (x2.new_empty(x2.shape),
+                x2.new_empty(c, dtype=torch.float32),
+                x2.new_empty(c, dtype=torch.float32))
+    if route == "cpu":
         return bn_act_bwd_plain(x2, inv, shift, g2, relu)
     return bn_act_bwd_cuda(x2, inv, shift, g2, relu)
 

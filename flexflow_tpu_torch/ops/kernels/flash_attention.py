@@ -163,7 +163,11 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = False, scale=None):
 def flash_attention_fwd(q, k, v, causal: bool = False):
     """``(o, lse)`` of attention at any head dim up to 128, through the
     head-dim padding: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors, an error for anything else."""
+    for CUDA tensors, their shapes for meta tensors, an error for
+    anything else."""
+    if kernels.on_meta(NAME, q, k, v):
+        return (q.new_empty(q.shape[:3] + v.shape[3:], dtype=torch.float32),
+                q.new_empty(q.shape[:3], dtype=torch.float32))
     if q.device.type == "cpu":
         if k.device.type != "cpu" or v.device.type != "cpu":
             raise ValueError(f"{NAME}: q, k, v on different devices")
@@ -323,7 +327,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
     head-dim padding: the plain version for CPU tensors, the CUDA kernels
     for CUDA tensors, an error for anything else.  ``g_lse`` (B, H, Sq),
     the cotangent of the forward's lse, is the partial form's
-    (:func:`flash_attention_partial`); None is zero."""
+    (:func:`flash_attention_partial`); None is zero.  Meta tensors get
+    the gradients' shapes."""
+    if kernels.on_meta(NAME_DKV, q, k, v, o, lse, do):
+        return tuple(t.new_empty(t.shape, dtype=torch.float32)
+                     for t in (q, k, v))
     if q.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (k, v, o, lse, do)):
             raise ValueError(f"{NAME_DKV}: inputs on different devices")

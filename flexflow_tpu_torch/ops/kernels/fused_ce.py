@@ -346,7 +346,11 @@ def _on_cpu(*ts) -> bool:
 
 def fused_linear_ce_fwd(x, w, b, labels):
     """``(nll, lse)``: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors, an error for anything else."""
+    for CUDA tensors, their shapes for meta tensors, an error for
+    anything else."""
+    if kernels.on_meta(NAME_FWD, x, w, b, labels):
+        return (x.new_empty(x.shape[:1], dtype=torch.float32),
+                x.new_empty(x.shape[:1], dtype=torch.float32))
     if _on_cpu(x, w, b, labels):
         return fused_linear_ce_fwd_plain(x, w, b, labels)
     if x.device.type == "cuda":
@@ -357,8 +361,12 @@ def fused_linear_ce_fwd(x, w, b, labels):
 def fused_linear_ce_bwd(x, w, b, labels, lse, gp, goh=None):
     """``(dx, dw, db)`` float32 for t = gp softmax - goh onehot (goh
     defaults to gp): the plain version for CPU tensors, the CUDA kernels
-    for CUDA tensors, an error for anything else."""
+    for CUDA tensors, their shapes for meta tensors, an error for
+    anything else."""
     rows = (gp,) if goh is None else (gp, goh)
+    if kernels.on_meta(NAME_DX, x, w, b, labels, lse, *rows):
+        return tuple(t.new_empty(t.shape, dtype=torch.float32)
+                     for t in (x, w, b))
     if _on_cpu(x, w, b, labels, lse, *rows):
         return fused_linear_ce_bwd_plain(x, w, b, labels, lse, gp, goh)
     if x.device.type == "cuda":

@@ -196,7 +196,12 @@ def maxpool_bwd_cuda(dy, sel, h: int, w: int, k: int, p: int):
 
 def maxpool_fwd(x, k: int, p: int, relu: bool):
     """``(y, sel)``: the plain version for a CPU tensor, the CUDA kernel
-    for a CUDA tensor, an error for anything else."""
+    for a CUDA tensor, their shapes for a meta tensor, an error for
+    anything else."""
+    if kernels.on_meta(NAME_FWD, x):
+        n, h, w, c = x.shape
+        shape = (n, out_dim(h, k, p), out_dim(w, k, p), c)
+        return x.new_empty(shape), x.new_empty(shape, dtype=torch.uint8)
     if x.device.type == "cpu":
         return maxpool_fwd_plain(x, k, p, relu)
     if x.device.type == "cuda":
@@ -206,7 +211,9 @@ def maxpool_fwd(x, k: int, p: int, relu: bool):
 
 def maxpool_bwd(dy, sel, h: int, w: int, k: int, p: int):
     """dx: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors, an error for anything else."""
+    tensors, its shape for meta tensors, an error for anything else."""
+    if kernels.on_meta(NAME_BWD, dy, sel):
+        return dy.new_empty((dy.shape[0], h, w, dy.shape[3]))
     if dy.device.type == "cpu":
         if sel.device.type != "cpu":
             raise ValueError(f"{NAME_BWD}: dy and sel on different devices")

@@ -39,7 +39,10 @@ copies of its few rows.  The transport is never switched because a call
 failed.
 
 Pieces of uneven blocks are zero-padded to one shape for the collective
-and trimmed after it.  A group of one member runs no collective.
+and trimmed after it.  A group of one member runs no collective.  On
+tensors of the ``meta`` device (the dry run, ``--dry-compile``) every
+collective returns a meta tensor of its output's shape without calling
+``torch.distributed``.
 
 **The order of the backward collectives.**  Under placement the ranks
 run different ops, so their autograd graphs differ, and autograd alone
@@ -93,6 +96,8 @@ def all_gather_list(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     if group.size == 1 and group.handle is None:
         return [x]
     out = [torch.empty_like(x) for _ in range(group.size)]
+    if x.is_meta:
+        return out
     dist.all_gather(out, x, group=_handle(group))
     by_member = [None] * group.size
     for grank, member in enumerate(_group_order(group)):
@@ -110,6 +115,8 @@ def reduce_scatter_list(pieces: Sequence[torch.Tensor],
         return pieces[0]
     order = _group_order(group)
     out = torch.empty_like(pieces[0])
+    if out.is_meta:
+        return out
     dist.reduce_scatter(out, [pieces[m].contiguous() for m in order],
                         group=_handle(group))
     return out
@@ -119,7 +126,7 @@ def all_reduce_(x: torch.Tensor, group: Group) -> torch.Tensor:
     """Sum ``x`` over the group, in place."""
     import torch.distributed as dist
 
-    if group.size == 1 and group.handle is None:
+    if (group.size == 1 and group.handle is None) or x.is_meta:
         return x
     dist.all_reduce(x, group=_handle(group))
     return x
@@ -275,7 +282,9 @@ def _all_to_all(x, group: Group, j: int, k: int) -> torch.Tensor:
     chunks = [c.contiguous() for c in torch.chunk(x, group.size, dim=k)]
     order = _group_order(group)
     out = [torch.empty_like(chunks[0]) for _ in range(group.size)]
-    dist.all_to_all(out, [chunks[m] for m in order], group=_handle(group))
+    if not x.is_meta:
+        dist.all_to_all(out, [chunks[m] for m in order],
+                        group=_handle(group))
     by_member = [None] * group.size
     for grank, member in enumerate(order):
         by_member[member] = out[grank]
@@ -383,7 +392,7 @@ def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.detach().clone()
-    if group.size == 1 and group.handle is None:
+    if (group.size == 1 and group.handle is None) or x.is_meta:
         return x
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_handle(group))
     return x
@@ -397,6 +406,8 @@ def _rotate(x: torch.Tensor, group: Group, shift: int,
 
     size = group.size
     x = x.contiguous()
+    if x.is_meta:
+        return torch.empty_like(x)
     me = group.ranks.index(dist.get_rank())
     if transport == "gather":
         return all_gather_list(x, group)[(me - shift) % size].clone()
@@ -467,6 +478,9 @@ def _send_recv(sends, recvs, group: Group, transport: str, like):
     CUDA tensors) and moves what it received back to the device."""
     import torch.distributed as dist
 
+    if like.is_meta:
+        return [torch.empty(shape, dtype=like.dtype, device=like.device)
+                for _, shape in recvs]
     host = transport == "host"
     buf_dev = torch.device("cpu") if host else like.device
     ops, outs = [], []

@@ -6,16 +6,16 @@ up to ``max_batch`` slots), and a finished sequence's slot is reclaimed
 the same decode step its EOS (or token budget) lands.  The batch the
 device sees is always the full ``(max_batch, seq)`` rectangle; inactive
 slots are pad rows.  Everything here is host-side bookkeeping on the
-VIRTUAL clock (serve/loadgen.py), deterministic by construction.  The
-forward-only batch assembly of the CNN/NMT service comes with that
-service.
+VIRTUAL clock (serve/loadgen.py), deterministic by construction.
+:func:`batch_requests` assembles the padded fixed-shape batches of the
+CNN/NMT forward-only service (``flexflow_tpu/serve/batcher.py:215-250``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Iterable, List, Optional, Tuple
+from typing import Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -157,3 +157,37 @@ class ContinuousBatcher:
             if s is not None:
                 m[i, :s.length] = s.tokens
         return m
+
+
+def batch_requests(requests: Iterator[Request], batch_size: int,
+                   pad_shape: Optional[Tuple[int, ...]] = None,
+                   dtype=None) -> Iterator[Tuple[np.ndarray, List[Request]]]:
+    """Padded fixed-shape batches for the forward-only service.
+
+    Yields ``(batch, members)``: ``batch`` is always exactly
+    ``(batch_size,) + sample_shape`` (the model's input rectangle; a
+    short final group is zero-padded up, and ``members`` names which
+    leading rows are real).  An empty upstream yields nothing."""
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    group: List[Request] = []
+    for req in requests:
+        group.append(req)
+        if len(group) == batch_size:
+            yield _assemble(group, batch_size, pad_shape, dtype), group
+            group = []
+    if group:
+        yield _assemble(group, batch_size, pad_shape, dtype), group
+
+
+def _assemble(group: List[Request], batch_size: int,
+              pad_shape: Optional[Tuple[int, ...]], dtype) -> np.ndarray:
+    sample = np.asarray(group[0].tokens)
+    shape = tuple(pad_shape) if pad_shape is not None else sample.shape
+    dt = np.dtype(dtype) if dtype is not None else sample.dtype
+    out = np.zeros((batch_size,) + shape, dt)
+    for i, req in enumerate(group):
+        arr = np.asarray(req.tokens, dt)
+        sl = tuple(slice(0, n) for n in arr.shape)
+        out[(i,) + sl] = arr
+    return out

@@ -21,13 +21,25 @@ last position (a (n_active, vocab) block) instead of the whole
 the KV projections of the new positions are computed on the model's
 device before the copy.
 
-Autoscaling, resize, disaggregated prefill/decode pools and the CNN/NMT
-forward-only service come with later slices; asking for them raises
-``NotImplementedError``.
+:meth:`ServeEngine.run_forward` is the CNN/NMT forward-only service:
+padded fixed-shape batches (``batch.batch_requests``) through the
+``DevicePrefetcher``, each request's reply its row of the loss op's
+output.  A drain requested before the run leaves every request unserved,
+as in the JAX engine; the port also reads the drain flag before each
+batch, so that a drain requested mid-run stops admission there (the JAX
+engine reads it at the start alone).
+
+Autoscaling, resize and disaggregated prefill/decode pools come with
+later slices; asking for them raises ``NotImplementedError``.
 
 Obs records: ``serve_request`` (one per completed request, with
-``ttft_s``/``tpot_s``), ``serve_batch`` (one per decode step, with KV
-occupancy) and ``serve_summary`` (one per run).
+``ttft_s``/``tpot_s``), ``serve_batch`` (one per decode step or forward
+batch, with KV occupancy) and ``serve_summary`` (one per run).  With
+``metrics`` (an ``obs.metrics.MetricsExporter``) each completed request
+feeds the latency and TTFT histograms, and the ``ff_qps``,
+``ff_queue_depth``, ``ff_latency_p50_s``, ``ff_latency_p99_s``,
+``ff_ttft_*``, ``ff_tpot_p50_s`` and ``ff_requests_total`` gauges are
+rewritten after every decode step and at the summary.
 """
 
 from __future__ import annotations
@@ -39,7 +51,8 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch import obs
-from flexflow_tpu_torch.serve.batcher import ContinuousBatcher, RequestQueue
+from flexflow_tpu_torch.serve.batcher import (ContinuousBatcher,
+                                              RequestQueue, batch_requests)
 from flexflow_tpu_torch.serve.kv_cache import KVCache, KVCacheLayout
 from flexflow_tpu_torch.serve.loadgen import Request
 
@@ -64,7 +77,7 @@ class ServeEngine:
     ``NotImplementedError``."""
 
     def __init__(self, model, rebuild=None, *, params=None, olog=None,
-                 log=print, step_time_s: Optional[float] = None,
+                 metrics=None, log=print, step_time_s: Optional[float] = None,
                  queue_hi: int = 0, idle_boundaries: int = 0,
                  shrink_to: int = 0, kv_window: Optional[int] = None,
                  pad_id: int = 0, phase: str = "full"):
@@ -78,6 +91,7 @@ class ServeEngine:
                 "shrink_to) is not ported yet")
         self.model = model
         self.olog = olog if olog is not None else obs.NULL
+        self.metrics = metrics
         self.log = log
         self.phase = phase
         self.kv_window = kv_window
@@ -217,6 +231,7 @@ class ServeEngine:
                 self.kv_cache.reclaim(slot_idx)
             self._kv_filled[slot_idx] = 0
             s["completed"].append(req)
+            self._observe_request(req)
             self.olog.event(
                 "serve_request", rid=req.rid, arrival_v=req.arrival_v,
                 admit_v=req.admit_v, first_token_v=req.first_token_v,
@@ -231,6 +246,7 @@ class ServeEngine:
                         devices=self.model.machine.num_devices,
                         pool="", step_time_s=self.step_time_s,
                         **self._kv_occupancy())
+        self._update_gauges(s["completed"], depth, vnow)
         return True
 
     def finish(self) -> Dict:
@@ -297,6 +313,94 @@ class ServeEngine:
             self._kv_filled[slot_idx] = pre_lengths[slot_idx]
 
     # ------------------------------------------------------------------
+    # forward-only service (CNN / NMT)
+
+    def run_forward(self, requests: Sequence[Request],
+                    drain: Optional[Dict] = None) -> Dict:
+        """Batched forward-only service (``flexflow_tpu/serve/engine.py:
+        560-634``): the requests in arrival order, padded into
+        ``(max_batch,) + sample`` batches staged on the device by a
+        ``DevicePrefetcher``; each reply is the request's row of the loss
+        op's output.  The request metadata stays on the host in FIFO
+        order.  The virtual clock advances ``step_time_s`` a batch, and a
+        reply is its request's first and only token (TTFT = latency).
+        ``drain["requested"]`` stops admission before the next batch:
+        every request not yet served is reported unserved."""
+        from collections import deque
+
+        from flexflow_tpu_torch.data.prefetch import DevicePrefetcher
+
+        t_wall0 = time.perf_counter()
+        model = self.model
+        in0 = model._inputs[0]
+        sample_shape = tuple(in0.shape[1:])
+        ordered = sorted(requests, key=lambda r: (r.arrival_v, r.rid))
+        draining = drain is not None and bool(drain.get("requested"))
+        queued = [] if draining else ordered
+        meta: deque = deque()
+
+        def arrays():
+            for batch, members in batch_requests(
+                    iter(queued), self.max_batch, pad_shape=sample_shape,
+                    dtype=in0.dtype):
+                meta.append(members)
+                yield (batch,)
+
+        predict = model.make_predict_step()
+        extra = self._zero_extra_inputs()
+        completed: List[Request] = []
+        vnow = 0.0
+        batches = 0
+        with DevicePrefetcher(arrays(), model.device) as pf:
+            for (batch,) in pf:
+                members = meta.popleft()
+                if drain is not None and drain.get("requested"):
+                    draining = True
+                    break
+                vstart = max(vnow, max(r.arrival_v for r in members))
+                t0 = time.perf_counter()
+                out = predict(self.params, self.state, batch,
+                              *extra)[0].float().cpu().numpy()
+                wall = time.perf_counter() - t0
+                vnow = vstart + self.step_time_s
+                batches += 1
+                for i, req in enumerate(members):
+                    req.admit_v = vstart
+                    req.first_token_v = vnow
+                    req.done_v = vnow
+                    req.wall_s = wall
+                    req.reply = out[i]
+                    completed.append(req)
+                    self._observe_request(req)
+                    tokens = np.asarray(req.tokens)
+                    self.olog.event(
+                        "serve_request", rid=req.rid,
+                        arrival_v=req.arrival_v, admit_v=req.admit_v,
+                        first_token_v=req.first_token_v,
+                        done_v=req.done_v, latency_s=req.latency_s,
+                        ttft_s=req.ttft_s, tpot_s=req.tpot_s,
+                        prompt_len=int(tokens.shape[0])
+                        if tokens.ndim else 0,
+                        new_tokens=0, wall_s=wall)
+                self.olog.event("serve_batch", step=batches, vnow=vnow,
+                                active=len(members), admitted=len(members),
+                                queue_depth=0,
+                                devices=model.machine.num_devices,
+                                kv_tokens=0, kv_frac=0.0)
+                if batches == 1:
+                    self.log(f"serve: forward service running "
+                             f"({len(ordered)} requests, batches of "
+                             f"{self.max_batch})")
+        served = {id(r) for r in completed}
+        unserved = [r for r in ordered if id(r) not in served]
+        if draining:
+            self.log(f"serve: drain requested — {len(completed)} "
+                     f"request(s) served, {len(unserved)} unserved")
+        return self._summarize(completed, unserved, vnow, batches,
+                               time.perf_counter() - t_wall0,
+                               drained=bool(unserved))
+
+    # ------------------------------------------------------------------
     # reporting
 
     def _summarize(self, completed, unserved, vnow, steps, wall_s,
@@ -325,4 +429,34 @@ class ServeEngine:
             "pool": "",
         }
         self.olog.event("serve_summary", **summary)
+        self._update_gauges(completed, 0, vnow)
         return summary
+
+    def _observe_request(self, req: Request) -> None:
+        """Feed one completed request into the latency and TTFT
+        histograms (``obs/metrics.py``'s fixed buckets)."""
+        if self.metrics is None:
+            return
+        if req.latency_s is not None:
+            self.metrics.observe("request_latency_s", req.latency_s)
+        if req.ttft_s is not None:
+            self.metrics.observe("request_ttft_s", req.ttft_s)
+
+    def _update_gauges(self, completed, depth, vnow) -> None:
+        """Rewrite the serving gauges (``flexflow_tpu/serve/engine.py:
+        722-756``, the single-pool series)."""
+        if self.metrics is None:
+            return
+        lat = [r.latency_s for r in completed if r.latency_s is not None]
+        ttft = [r.ttft_s for r in completed if r.ttft_s is not None]
+        tpot = [r.tpot_s for r in completed if r.tpot_s is not None]
+        self.metrics.update(
+            qps=(len(completed) / vnow) if vnow > 0 else 0.0,
+            queue_depth=depth,
+            latency_p50_s=_percentile(lat, 50) if lat else None,
+            latency_p99_s=_percentile(lat, 99) if lat else None,
+            ttft_p50_s=_percentile(ttft, 50) if ttft else None,
+            ttft_p99_s=_percentile(ttft, 99) if ttft else None,
+            tpot_p50_s=_percentile(tpot, 50) if tpot else None,
+            requests_total=len(completed))
+        self.metrics.write()

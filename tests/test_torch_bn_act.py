@@ -262,7 +262,14 @@ def test_cpu_tensors_never_count_and_cuda_wrappers_refuse_them():
         bn_act.bn_act_bwd_cuda(x2, torch.ones(8), torch.zeros(8), x2, True)
     with pytest.raises(ValueError, match="CUDA device"):
         bn_act.bn_act_bwd_sum_cuda(torch.zeros(3, 8), torch.zeros(3, 8))
-    with pytest.raises(ValueError, match="no implementation"):
+    # meta tensors (the dry run) get the outputs' shapes, nothing run;
+    # a mix of devices is refused
+    y = bn_act.bn_act_fwd(x2.to("meta"), torch.ones(8, device="meta"),
+                          torch.zeros(8, device="meta"), True)
+    assert (y.device.type, y.shape, y.dtype) == ("meta", x2.shape,
+                                                 x2.dtype)
+    assert sum(kernels.launches.values()) == 0
+    with pytest.raises(ValueError, match="different devices"):
         bn_act.bn_act_fwd(x2.to("meta"), torch.ones(8), torch.zeros(8), True)
     with pytest.raises(ValueError, match="different devices"):
         bn_act.bn_act_bwd(x2, torch.ones(8), torch.zeros(8).to("meta"), x2,

@@ -7,7 +7,8 @@ and the PIL path, whose first batches are bit-equal to JAX's
 warning, and the skip budget's message; HDF5 batches (two files, a batch
 larger than its file), the transient fault, the skipped range, the
 budget and the thread-leak record; the streams' blocks over two ranks
-and the image stream's rebinding from two ranks to one.
+and both streams' rebinding from two ranks to one; ``apps.cnn -d f.h5
+--elastic`` shrinking from two gloo ranks to one.
 
 Both packages read the same files, written here with PIL and h5py; each
 record list is held to JAX's but for the port's own ``data_decoder``
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks as tr
 from flexflow_tpu.data import hdf5 as j_hdf5
 from flexflow_tpu.data import imagenet as j_img
 from flexflow_tpu.data import native as j_native
@@ -360,3 +362,53 @@ def test_streams_cut_blocks_and_rebind_from_two_ranks_to_one(tmp_path,
     full = next(t_hdf5.hdf5_batches(None, [path], 8, device="cpu"))
     parts = [next(t_hdf5.hdf5_batches(m, [path], 8)) for m in ranks]
     assert torch.equal(torch.cat([p[1] for p in parts]), full[1])
+
+
+def test_hdf5_stream_rebinds_from_two_ranks_to_one(tmp_path):
+    """Two ranks read their halves of each global batch; rank 0 rebinds
+    to one rank at batch 1 and yields the whole batches, as the image
+    stream does: every file's cursor at batch 1 (two files, round
+    robin), the batches read ahead for the old half dropped."""
+    paths = [_h5(tmp_path / f"p{i}.h5", 12, base=50 * i) for i in range(2)]
+    ranks = [MachineModel("cpu", 2, r) for r in range(2)]
+    one = MachineModel("cpu")
+    whole = t_hdf5.hdf5_batches(None, paths, 4, device="cpu")
+    want = [next(whole) for _ in range(5)]
+    whole.close()
+    halves = [t_hdf5.hdf5_batches(m, paths, 4) for m in ranks]
+    first = [next(h) for h in halves]
+    for k in range(2):
+        assert torch.equal(torch.cat([f[k] for f in first]), want[0][k])
+    halves[0].rebind(one, 1)
+    for w in want[1:]:
+        got = next(halves[0])
+        assert torch.equal(got[0], w[0]) and torch.equal(got[1], w[1])
+    assert halves[0].position == 5
+    # a rebind with no position goes on from where the stream stands
+    halves[1].rebind(one)
+    for w in want[1:3]:
+        assert torch.equal(next(halves[1])[1], w[1])
+    for h in halves:
+        h.close()
+        assert not h._thread.is_alive()
+
+
+def test_cnn_app_hdf5_elastic_shrinks_over_two_ranks(tmp_path):
+    """``apps.cnn -d f.h5 --elastic`` on two gloo ranks: rank 1 is lost
+    at step 2 and the run goes on alone with the whole batches, its
+    losses the healthy two-rank run's."""
+    path = _h5(tmp_path / "f.h5", 24, shape=(67, 67, 3))
+    argv = ["alexnet", "-b", "4", "--height", "67", "--width", "67", "-i",
+            "5", "--lr", "0.001", "--device", "cpu", "-p", "1", "-d", path]
+    res = tr.run_ranks(tr.run_cases, 2, [
+        ("app_main", (argv, "cnn", True)),
+        ("app_main", (argv + ["--elastic", "--min-devices", "1",
+                              "--research-budget-s", "5", "--fault-spec",
+                              "device_loss@2"], "cnn", True))],
+        timeout=180.0)
+    (healthy, _), (shrunk, lines) = res[0]
+    assert res[1][1][0] is None
+    assert len(shrunk) == 5
+    np.testing.assert_allclose(shrunk, healthy, rtol=1e-4)
+    assert any("resized 2 -> 1 devices at iteration 2" in s
+               for s in lines), lines

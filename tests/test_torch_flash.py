@@ -97,8 +97,15 @@ def test_dispatch_cpu_runs_plain_and_never_counts():
 
 def test_dispatch_refuses_other_devices():
     q, k, v = (torch.from_numpy(a) for a in _qkv(6, 1, 1, 8, 8))
-    with pytest.raises(ValueError, match="no implementation"):
-        flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta tensors (the dry run) get the outputs' shapes, nothing run;
+    # a mix of devices is refused
+    o, lse = flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v)
+    assert (o.device.type, lse.device.type) == ("meta", "meta")
+    assert (o.shape, o.dtype, lse.shape, lse.dtype) == \
+        (o_p.shape, o_p.dtype, lse_p.shape, lse_p.dtype)
+    with pytest.raises(ValueError, match="different devices"):
+        flash_attention_fwd(q.to("meta"), k, v)
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_fwd_cuda(q, k, v)
 

@@ -138,9 +138,14 @@ def test_backward_dispatch():
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert kernels.launches[fa.NAME_DKV] == kernels.launches[fa.NAME_DQ] == 0
+    # meta tensors (the dry run) get the gradients' shapes, nothing run;
+    # a mix of devices is refused
     meta = [t.to("meta") for t in (q, k, v, o, lse, g)]
-    with pytest.raises(ValueError, match="no implementation"):
-        fa.flash_attention_bwd(*meta)
+    assert [(t.device.type, t.shape, t.dtype)
+            for t in fa.flash_attention_bwd(*meta)] == \
+        [("meta", t.shape, t.dtype) for t in want]
+    with pytest.raises(ValueError, match="different devices"):
+        fa.flash_attention_bwd(q, k, v, o, lse.to("meta"), g)
     delta = (g * o).sum(-1)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention_bwd_dkv_cuda(q, k, v, g, lse, delta)

@@ -138,8 +138,14 @@ def test_dispatch_and_refusals():
                                                         wgt)):
         torch.testing.assert_close(a, c, rtol=0, atol=0)
     assert sum(kernels.launches.values()) == 0
-    with pytest.raises(ValueError, match="no implementation"):
-        ce.fused_linear_ce_fwd(*(t.to("meta") for t in (x, w, b, lab)))
+    # meta tensors (the dry run) get the outputs' shapes, nothing run;
+    # a mix of devices is refused
+    got = ce.fused_linear_ce_fwd(*(t.to("meta") for t in (x, w, b, lab)))
+    assert [(t.device.type, t.shape, t.dtype) for t in got] == \
+        [("meta", t.shape, t.dtype) for t in (nll_p, lse_p)]
+    assert sum(kernels.launches.values()) == 0
+    with pytest.raises(ValueError, match="different devices"):
+        ce.fused_linear_ce_fwd(x.to("meta"), w, b, lab)
     with pytest.raises(ValueError, match="CUDA device"):
         ce.fused_linear_ce_fwd_cuda(x, w, b, lab)
     with pytest.raises(ValueError, match="CUDA device"):

@@ -221,7 +221,9 @@ def test_lm_app_prints_the_metric_lines():
 
 
 def test_every_jax_lm_flag_is_parsed_or_refused():
-    from flexflow_tpu_torch.config import UNPORTED_FLAGS
+    from flexflow_tpu_torch.config import (RESTRICTED_VALUES,
+                                           SWITCH_VALUE_FLAGS,
+                                           UNPORTED_FLAGS)
 
     src = inspect.getsource(j_lm.parse_args)
     flags = set(re.findall(r'"(-[-\w:]+)"', src))
@@ -238,7 +240,21 @@ def test_every_jax_lm_flag_is_parsed_or_refused():
         if flag in refused and flag != "-s":
             with pytest.raises(NotImplementedError, match="not ported"):
                 t_lm.parse_args([flag, "2"])
+        elif flag in SWITCH_VALUE_FLAGS:
+            # a restricted switch: the values the port runs parse as JAX
+            # parses them, the others are refused with the reason
+            field = SWITCH_VALUE_FLAGS[flag]
+            ok, no = RESTRICTED_VALUES[field]
+            for value in ok:
+                j = j_lm.parse_args([flag, value])
+                assert getattr(j, field) == value, flag
+                # checked, not stored: the port runs only this value
+                assert t_lm.parse_args([flag, value]) == default, flag
+            for value, why in no.items():
+                with pytest.raises(SystemExit, match=re.escape(why)):
+                    t_lm.parse_args([flag, value])
         else:
+            # the verification switches take no value
             value = values.get(flag, "2")
             assert t_lm.parse_args([flag, value]) != default, flag
     cfg, device, warmup = t_lm.parse_args(

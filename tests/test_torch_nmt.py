@@ -45,6 +45,8 @@ from flexflow_tpu.ops.lstm import LSTMChunk as JLSTMChunk
 from flexflow_tpu.ops.pallas import get_policy, set_policy
 from flexflow_tpu.strategy import ParallelConfig as JPC
 from flexflow_tpu_torch.apps import nmt as t_nmt
+from flexflow_tpu_torch.config import (RESTRICTED_VALUES, SWITCH_VALUE_FLAGS,
+                                       VERIFY_FLAGS)
 from flexflow_tpu_torch.interop import params_from_jax
 from flexflow_tpu_torch.model import FFModel as TModel
 from flexflow_tpu_torch.nmt.rnn_model import RnnConfig as TRnnConfig
@@ -341,6 +343,24 @@ def test_every_jax_nmt_flag_is_parsed_or_refused():
             value = "bfloat16" if "dtype" in flag \
                 else values.get(flag, "5")
             assert t_nmt.parse_args([flag, value]) != default, flag
+        elif flag in VERIFY_FLAGS:
+            # the verification switches take no value
+            field, value = VERIFY_FLAGS[flag]
+            assert getattr(t_nmt.parse_args([flag])[0], field) == value \
+                == getattr(j_nmt.parse_args([flag]), field), flag
+        elif flag in SWITCH_VALUE_FLAGS:
+            # a restricted switch: the values the port runs parse as JAX
+            # parses them, the others are refused with the reason
+            field = SWITCH_VALUE_FLAGS[flag]
+            ok, no = RESTRICTED_VALUES[field]
+            for value in ok:
+                j = j_nmt.parse_args([flag, value])
+                assert getattr(j, field) == value, flag
+                # checked, not stored: the port runs only this value
+                assert t_nmt.parse_args([flag, value]) == default, flag
+            for value, why in no.items():
+                with pytest.raises(SystemExit, match=re.escape(why)):
+                    t_nmt.parse_args([flag, value])
         else:
             assert flag in t_nmt.NMT_UNPORTED_FLAGS, flag
             with pytest.raises(NotImplementedError, match="not ported"):

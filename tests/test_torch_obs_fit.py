@@ -113,7 +113,7 @@ def test_obs_flags_parse_as_jax():
         assert (t.trace_dir, t.profiling) == (j.trace_dir, j.profiling) \
             != ("", False)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TConfig.from_args(["--dry-compile"])
+        TConfig.from_args(["--serve-queue-hi", "2"])
     # the live metrics' path is ported, as JAX parses it
     for flag in ("-metrics-path", "--metrics-path"):
         assert TConfig.from_args([flag, "x"]).metrics_path == \

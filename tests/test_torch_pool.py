@@ -203,8 +203,13 @@ def test_cuda_wrappers_refuse_what_they_do_not_take():
                                  9, 9, 3, 0)
     with pytest.raises(ValueError, match="CUDA device"):
         avgpool.avgpool_bwd_cuda(torch.randn(1, 1, 1, 2), None, 9, 9)
-    with pytest.raises(ValueError, match="no implementation"):
-        maxpool.maxpool_fwd(x.to("meta"), 3, 0, False)
+    # a meta tensor (the dry run) gets the outputs' shapes, nothing run
+    y, sel = maxpool.maxpool_fwd(x.to("meta"), 3, 0, False)
+    y_p, sel_p = maxpool.maxpool_fwd_plain(x, 3, 0, False)
+    assert [(t.device.type, t.shape, t.dtype) for t in (y, sel)] == \
+        [("meta", t.shape, t.dtype) for t in (y_p, sel_p)]
+    with pytest.raises(ValueError, match="different devices"):
+        maxpool.maxpool_bwd(y, sel_p, 9, 9, 3, 0)
     with pytest.raises(ValueError, match="geometry"):
         maxpool.maxpool2d(x, 3, 3, 2, 2)
     with pytest.raises(ValueError, match="tile"):

@@ -73,7 +73,14 @@ def test_op_profiler_rows_match_jax(machine1, model):
     np.testing.assert_allclose([r.gflops for r in rows],
                                [r.gflops for r in jrows], rtol=1e-9)
     assert all(r.ms > 0 for r in rows)
-    assert [r.measured for r in rows] == [r.measured for r in jrows]
+    # each column follows its own rule: the port times exactly the ops
+    # with a local shard; JAX's MeasuredCostModel._measure falls back to
+    # the analytic row where its median timing slope is not positive,
+    # which one pair of timings (repeats=1) decides under the host's
+    # load, so JAX's row is measured only where the port's rule holds
+    rule = [op.local_clone(op.pc) is not None for op in tm.layers]
+    assert [r.measured for r in rows] == rule
+    assert all(rule[i] for i, r in enumerate(jrows) if r.measured)
     assert any(r.measured for r in rows)
     report = OpProfiler(tm).report(rows)
     lines = report.splitlines()

@@ -225,9 +225,18 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("-regrid-planner", "--dry-compile", "--pallas"):
+    for flag in ("--serve-queue-hi", "--fleet-quantum",
+                 "--serve-prefill-devices"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_cnn.parse(["alexnet", flag, "x"])
+    # the verification and executor switches are ported: parsed, their
+    # values the port does not run refused with the reason
+    _, cfg, _, _ = t_cnn.parse(["alexnet", "--dry-compile",
+                                "-regrid-planner", "on", "--pallas", "on"])
+    assert cfg.dry_compile
+    assert cfg == t_cnn.parse(["alexnet", "--dry-compile"])[1]
+    with pytest.raises(SystemExit, match="refused by flexflow_tpu_torch"):
+        t_cnn.parse(["alexnet", "--pallas", "off"])
     # fit's runtime, supervision, elastic and data flags are ported:
     # parsed, not refused
     _, cfg, _, _ = t_cnn.parse(["alexnet", "--ckpt-dir", "x",
@@ -243,19 +252,32 @@ def test_cnn_app_flags():
 FLAG_VALUES = {"-on-divergence": "rollback", "--on-divergence": "rollback",
                "-fault-spec": "loss_nan@2", "--fault-spec": "loss_nan@2",
                "-s": str(STRATEGY_FILE), "--strategy": str(STRATEGY_FILE),
-               "--regrow-probes": "3"}
+               "--regrow-probes": "3", "-delta": "off", "--delta": "off"}
 
 
 def test_every_jax_cnn_flag_is_parsed_or_refused():
     import inspect
     import re
 
-    from flexflow_tpu_torch.config import UNPORTED_FLAGS
+    from flexflow_tpu_torch.config import (RESTRICTED_VALUES,
+                                           SWITCH_VALUE_FLAGS,
+                                           UNPORTED_FLAGS)
 
     src = inspect.getsource(JConfig.from_args)
     flags = set(re.findall(r'"(-[-\w:]+)"', src))
     assert len(flags) > 60 and UNPORTED_FLAGS <= flags
     for flag in sorted(flags - UNPORTED_FLAGS):
+        field = SWITCH_VALUE_FLAGS.get(flag)
+        if field in RESTRICTED_VALUES and len(RESTRICTED_VALUES[field][0]) == 1:
+            # a switch the port runs at one value, its default: parsed as
+            # JAX parses it; the other values refused with the reason
+            (value,), no = RESTRICTED_VALUES[field]
+            assert TConfig.from_args([flag, value]) == TConfig()
+            assert getattr(JConfig.from_args([flag, value]), field) == value
+            for bad, why in no.items():
+                with pytest.raises(SystemExit, match=re.escape(why)):
+                    TConfig.from_args([flag, bad])
+            continue
         value = FLAG_VALUES.get(flag, "2")
         assert TConfig.from_args([flag, value]) != TConfig(), flag
 

@@ -159,7 +159,12 @@ def test_cnn_app_densenet_flags():
                 cfg.num_classes) == (64, 13, "bfloat16", "float32", 224, 224,
                                      1000)
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_cnn.parse(["densenet", "--pallas", "on"])
+        t_cnn.parse(["densenet", "--fleet-quantum", "2"])
+    # the kernel policy parses at the one value the port runs
+    assert t_cnn.parse(["densenet", "--pallas", "on"])[1] == \
+        t_cnn.parse(["densenet"])[1]
+    with pytest.raises(SystemExit, match="refused by flexflow_tpu_torch"):
+        t_cnn.parse(["densenet", "--pallas", "auto"])
 
 
 def test_cnn_app_densenet_prints_the_metric_line():

@@ -199,7 +199,12 @@ def test_cnn_app_resnet_vgg_flags(name):
     ff = t_cnn.build(model, TConfig(batch_size=1), torch.device("cpu"))
     assert len(ff.layers) == (105 if model.startswith("resnet") else 23)
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_cnn.parse([name, "--pallas", "on"])
+        t_cnn.parse([name, "--fleet-quantum", "2"])
+    # the kernel policy parses at the one value the port runs
+    assert t_cnn.parse([name, "--pallas", "on"])[1] == \
+        t_cnn.parse([name])[1]
+    with pytest.raises(SystemExit, match="refused by flexflow_tpu_torch"):
+        t_cnn.parse([name, "--pallas", "off"])
 
 
 @pytest.mark.parametrize("argv,header", [

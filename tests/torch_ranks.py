@@ -234,6 +234,91 @@ def app_checked(machine, argv, app):
         plan.plan_findings = plan_findings
 
 
+#: the torch.distributed calls that move data, which the dry run must
+#: not make
+DIST_CALLS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+              "broadcast", "batch_isend_irecv", "send", "recv", "isend",
+              "irecv", "all_gather_object", "barrier")
+
+
+def dry_run(machine, layers, cfg_kwargs, strategy_json):
+    """``FFModel.fit`` under ``dry_compile`` with every data-moving
+    ``torch.distributed`` call counted: ``(result without trees, log
+    lines, calls)``, or ``("error", message)`` when the build refuses the
+    strategy."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.ops import kernels
+
+    calls = []
+    saved = {name: getattr(dist, name) for name in DIST_CALLS}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return saved[name](*args, **kwargs)
+        return call
+
+    try:
+        ff = build(machine, layers, dict(cfg_kwargs, dry_compile=True),
+                   strategy_json)
+        # this rank's rows, as the data sources over ranks yield them
+        data = iter([ff.local_batch(
+            np.zeros((cfg_kwargs["batch_size"], cfg_kwargs["input_height"],
+                      cfg_kwargs["input_width"], 3), "float32"),
+            np.zeros((cfg_kwargs["batch_size"],), "int32"))])
+        kernels.reset_launches()
+        for name in DIST_CALLS:
+            setattr(dist, name, counted(name))
+        lines = []
+        out = ff.fit(data, log=lines.append)
+    except ValueError as e:
+        return "error", str(e)
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    res = {k: v for k, v in out.items()
+           if k not in ("params", "state", "opt_state")}
+    res["trees"] = [out[k] for k in ("params", "state", "opt_state")]
+    res["launches"] = dict(kernels.launches)
+    return res, lines, calls
+
+
+def ones_blocks(machine, layers, cfg_kwargs, strategy_json):
+    """``params_init="ones"`` on this rank: ``(leaves held, all 1.0)``."""
+    ff = build(machine, layers, dict(cfg_kwargs, params_init="ones"),
+               strategy_json)
+    params, _ = ff.init(seed=machine.rank + 7)
+    leaves = [v for sub in params.values() for v in sub.values()]
+    return len(leaves), all(bool((v == 1).all()) for v in leaves)
+
+
+def dump_lines(machine, layers, cfg_kwargs, strategy_json, trees_path,
+               image, labels):
+    """The dump mode's lines of one training forward (``loss_fn``) of the
+    global batch from the whole trees in ``trees_path``: what this rank
+    printed (rank 0 alone prints)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from flexflow_tpu_torch.interop import (params_from_jax, shard_params,
+                                            shard_state, state_from_jax)
+
+    ff = build(machine, layers, dict(cfg_kwargs, print_intermediates=True),
+               strategy_json)
+    params, state = load_trees(trees_path)
+    p = shard_params(params_from_jax(params, "cpu", model=ff), ff)
+    s = shard_state(state_from_jax(state, "cpu"), ff)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ff.loss_fn(p, s, *ff.local_batch(torch.from_numpy(image),
+                                         torch.from_numpy(labels)),
+                   train=True)
+    return buf.getvalue().splitlines()
+
+
 def fit_obs(machine, layers, cfg_kwargs, batches):
     """``FFModel.fit`` of ``layers`` on this rank's rows of the global
     numpy ``batches``: ``(losses, obs_path)``, the path None on a rank
@@ -1165,10 +1250,21 @@ def halo_net(ff, image):
     return ff.softmax("softmax", t)
 
 
+def verify_net(ff, image):
+    """tests/test_verification.py's net: a convolution, a max pool, a
+    linear and the softmax (16x16 images, 8 classes)."""
+    t = ff.conv2d("conv1", image, 8, 3, 3, 1, 1, 1, 1, relu=True)
+    t = ff.pool2d("pool1", t, 2, 2, 2, 2, 0, 0)
+    t = ff.flat("flat", t)
+    t = ff.linear("fc1", t, 8, relu=False)
+    return ff.softmax("softmax", t)
+
+
 MODELS = {"tiny": tiny, "alexnet": alexnet, "vgg_style": vgg_style,
           "resnet_style": resnet_style, "vgg16": vgg16,
           "placed_bn": placed_bn, "set_family": set_family,
-          "trace_cnn": trace_cnn, "halo_net": halo_net}
+          "trace_cnn": trace_cnn, "halo_net": halo_net,
+          "verify_net": verify_net}
 
 #: input channels of the models that do not take RGB images
 CHANNELS = {"placed_bn": 8, "set_family": 8}
