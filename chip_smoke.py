@@ -25,12 +25,14 @@ its kernels.
     python3 chip_smoke.py --only search4,lm-obs
                                        # the kernel build and the named
                                        # phases (lm, lm-obs, debug,
-                                       # serve-forward, resnet101,
+                                       # serve-forward, serve-disagg,
+                                       # serve-scale, resnet101,
                                        # nmt, moe, runtime,
                                        # strategy, lm-strategy,
                                        # moe-strategy, pipeline, search and
                                        # strategy4, lm-strategy4,
-                                       # pipeline4, search4) with the
+                                       # serve-scale4, pipeline4,
+                                       # search4) with the
                                        # phases they
                                        # read; no kernels line, a last
                                        # line {"ok": false, "partial":
@@ -128,6 +130,19 @@ Phases (any failure exits non-zero):
    requests of 4 new tokens: every request completes, the flash kernel
    ran 12 times per decode step, and the first step's log-probs and all
    replies match the same model run with the plain attention;
+8b. the disaggregated pools (ROADMAP Queue A item 6's rest): the same
+   GPT as two prefill replicas and one decode replica behind
+   ``serve/router.py``, every engine at max_batch 8 (all on cuda:0, or
+   each on a card of its own where four are visible), serving 12
+   multi-turn ``session`` requests (prompt 6, 4 new tokens): the routed
+   replies equal the single-pool engine's token for token, 12 handoffs
+   and 12 completed, kernel 1 launched 12 times a forward step summed
+   over the replicas; again under ``replica_crash@3,handoff_drop@5,
+   kv_corrupt@7``: the same replies, nothing failed, at least one KV
+   rebuild; the decode step's ``decode_step_ratio`` and each replica's
+   wall ms a step logged; on four cards ``apps.serve
+   --serve-prefill-devices 2 --serve-prefill-replicas 2
+   --serve-decode-replicas 2`` too;
 9. LM training slice: ``apps.lm`` at the JAX app's own example (causal,
    batch 16, seq 512, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    32768, float32, plain SGD at lr 1e-3) for 3 warm-up and 10 timed steps:
@@ -440,6 +455,19 @@ Phases (any failure exits non-zero):
     steps 6-8 those of the two-rank reference, every kernel launched),
     and a run with ``--elastic`` and no fault bit-equal to 18b's first 2
     losses; the runs' seconds logged;
+18g. the autoscaling service (ROADMAP Queue A item 6's rest), in 18b's
+    two-gloo-rank world before its drained run: ``apps.serve gpt`` at
+    full width under a gap-then-burst load (3 requests at 500 qps, then
+    30 virtual seconds later 12 at 2000 qps, 2 new tokens) with
+    ``--serve-idle-boundaries 3 --serve-queue-hi 3 --shrink-to 1``: one
+    shrink 2 -> 1 and one grow 1 -> 2 (re-searched under the latency
+    objective, rank 1 standing by and handed rank 0's session at the
+    grow), 15 completed, none unserved or dropped, every rank's replies
+    equal to the one-rank engine's in this process (on a mismatch the
+    request, the position and the top-2 log-prob gap there), kernel 1
+    launched on rank 0 12 times a step (its plain and partial forms
+    together); each resize's research_s and total_s logged; on
+    four cards the same over 19's four NCCL ranks, shrinking to 2;
 19. on a machine with four cards (``torch.cuda.device_count() >= 4``):
     AlexNet over four ranks through ``torchrun --nproc-per-node 4``
     (NCCL, a card a rank), data parallel and a hybrid strategy, then the
@@ -479,7 +507,9 @@ Phases (any failure exits non-zero):
     profiler, from the step's time held behind a sleep kernel;
 21. a ``kernels`` JSON line (the partial forms of kernels 1-6 under
     ``<name>.partial``, with rank 0's launches in phase 18b's two-rank
-    run), then, last, the ``ok`` JSON line.
+    run; kernel 1 on the serving paths of phases 8b and 18g under
+    ``<name>.serve-disagg`` and ``<name>.serve-scale``, with the routed
+    run's launches and rank 0's), then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -3515,7 +3545,7 @@ def profile_phase(torch, engine) -> None:
 
     def step():
         outs = engine._predict(engine.params, engine.state, tokens, *extra)
-        engine._last_rows(outs[0], active)
+        engine._read_rows(outs, active, [])
 
     step_ms = _time_ms(torch, step, iters=10, warmup=2, hold=False)
     _log(f"profile: one decode step (8 active slots, host copy included) "
@@ -4344,7 +4374,7 @@ def _elastic_hooks(cfg: dict, rank: int):
 def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
               moe_probe=None, pipe_probe=None, copies=None,
               rank0=None, apps=None, sub=None, strategy_from=None,
-              elastic=None) -> tuple:
+              elastic=None, bare=()) -> tuple:
     """``runs`` (apps.lm argv lists, ``extra`` appended to each; ``apps``:
     ``{run index: "cnn" or "nmt"}`` for another app's) as one
     torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
@@ -4359,10 +4389,12 @@ def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
     the run's ``--strategy`` when it exists at the run's start;
     ``elastic``: ``{run index: hooks config}`` (:func:`_elastic_hooks`);
     every run writes ``<result>.extra`` beside its results (its seconds
-    and the hooks' record)."""
+    and the hooks' record); ``bare``: the run indices that take their
+    own argv without ``extra``."""
     outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
-    spec = {"runs": [list(a) + list(extra) + ["--result-json", str(o)]
-                     for a, o in zip(runs, outs)],
+    spec = {"runs": [list(a) + ([] if i in bare else list(extra))
+                     + ["--result-json", str(o)]
+                     for i, (a, o) in enumerate(zip(runs, outs))],
             "copies": {str(i): [str(a), str(b)]
                        for i, (a, b) in (copies or {}).items()},
             "rank0": {str(i): list(a) for i, a in (rank0 or {}).items()},
@@ -4428,6 +4460,10 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     runs = [argv + ckpt + [str(whole)], argv + ckpt + [str(cut)]]
     el = _elastic_runs(ranks, root, len(runs))
     runs += el["runs"]
+    # phase 18g: the autoscaling service in this world, before the drained
+    # run (a drain ends its world)
+    serve_at = len(runs)
+    runs.append(_serve_scale_argv(ranks, extra))
     if supervised:
         shutil.rmtree(drained, ignore_errors=True)
         runs[1] += ["--ckpt-async"]
@@ -4440,7 +4476,8 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
                     cut / f"step_{LM_CKPT_FREQ:08d}")},
         rank0={len(runs) - 1: ["--fault-spec", "preempt@1"]}
         if supervised else None, sub=el["sub"],
-        strategy_from=el["strategy_from"], elastic=el["hooks"])
+        strategy_from=el["strategy_from"], elastic=el["hooks"],
+        apps={serve_at: "serve"}, bare=(serve_at,))
     label = (f"lm strategy {ranks} ranks "
              f"({' '.join(extra) or 'NCCL, a card a rank'})")
     step_ms = _log_ranks_run(label, results[0], seconds, card)
@@ -4448,7 +4485,8 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
                   _lm_rank_launches(steps, LM_RANKS_LAYERS))
     _check_resume(label, results[0], results[1], whole, cut, steps, card)
     out = {"tokens_per_sec": results[0][0]["tokens_per_sec"],
-           "step_ms": step_ms, "launches": results[0][0]["launches"]}
+           "step_ms": step_ms, "launches": results[0][0]["launches"],
+           "serve": results[serve_at]}
     out["elastic"] = _check_elastic(
         f"elastic {ranks} ranks", ranks, results[0][0]["loss"], root,
         f"lm_{ranks}", el, results, card, whole)
@@ -6111,6 +6149,273 @@ def serve_forward_phase(torch, kernels, card: str) -> dict:
             "launches": launches, "drain_s": drain_s}
 
 
+# phase 8b: the disaggregated pools at the serving slice's widths, on
+# tests/test_disagg.py's multi-turn load at the GPT's vocab
+DISAGG_LOAD = dict(seed=0, rate_qps=50.0, pattern="session", prompt_len=6,
+                   max_new_tokens=4)
+DISAGG_REQUESTS = 12
+#: the serving GPT's layers, d_model, heads, d_ff, vocab and seq
+GPT_WIDTHS = (12, 768, 12, 3072, 32768, 512)
+DISAGG_BATCH = 8         # every engine's rectangle: the same GEMM shapes
+DISAGG_FAULTS = "replica_crash@3,handoff_drop@5,kv_corrupt@7"
+# phase 18g: the autoscaling service's gap-then-burst load
+# (tests/test_torch_serve_scale.py's, at the GPT's vocab)
+SERVE_SCALE_ARGV = ["gpt", "-n", "3", "--rate-qps", "500",
+                    "--max-new-tokens", "2", "--burst", "12"]
+SERVE_SCALE_WATERMARKS = ["--serve-idle-boundaries", "3",
+                          "--serve-queue-hi", "3"]
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
+def _timed_predict(torch, engine) -> dict:
+    """Wrap ``engine``'s predict step to add up its wall seconds, synced
+    on the engine's card: ``{"s": ..., "n": ...}``."""
+    inner, dev, acc = engine._predict, engine.model.device, {"s": 0.0,
+                                                             "n": 0}
+
+    def predict(*args):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize(dev)
+        acc["s"] += time.perf_counter() - t
+        acc["n"] += 1
+        return out
+
+    engine._predict = predict
+    return acc
+
+
+def serve_disagg_phase(torch, fa, kernels, card: str) -> dict:
+    """The disaggregated pools through ``serve/router.py`` at the serving
+    slice's widths: two prefill replicas and one decode replica at
+    max_batch 8 (on cuda:0, or each on a card of its own where four are
+    visible), the multi-turn load; the routed replies equal the
+    single-pool engine's on the same requests, every request handed off
+    once, kernel 1 launched 12 times a forward step summed over the
+    replicas; then the same under ``replica_crash``, ``handoff_drop`` and
+    ``kv_corrupt``: the same replies, nothing failed, a KV rebuild.
+    Where four cards are visible, ``apps.serve --serve-prefill-devices 2
+    --serve-prefill-replicas 2 --serve-decode-replicas 2`` too."""
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.serve import loadgen
+    from flexflow_tpu_torch.serve.engine import (DEFAULT_STEP_TIME_S,
+                                                 ServeEngine)
+    from flexflow_tpu_torch.serve.router import ServeRouter
+    from flexflow_tpu_torch.sim.search import decode_step_ratio
+    from flexflow_tpu_torch.utils import faultinject
+
+    cards = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(3)] if cards >= 4 \
+        else ["cuda:0"] * 3
+    models, params = [], []
+    for dev in devices:
+        model, _ = serve.build_lm(batch=DISAGG_BATCH, seed=0,
+                                  machine=MachineModel(dev))
+        models.append(model)
+        params.append(model.init(0)[0])
+    t = models[0].t
+    if (t.num_layers, t.d_model, t.num_heads, t.d_ff, t.vocab_size,
+            t.seq_length) != GPT_WIDTHS:
+        raise AssertionError(f"not the full-width GPT: {t}")
+    ratio = decode_step_ratio(models[2])
+    _log(f"serve disagg: replicas on {devices}; decode_step_ratio "
+         f"{ratio:.6f} (HopperChipPerf), decode step "
+         f"{DEFAULT_STEP_TIME_S * ratio * 1e3:.4f} virtual ms")
+
+    def load():
+        return loadgen.patterned_requests(
+            DISAGG_REQUESTS, vocab_size=t.vocab_size, **DISAGG_LOAD)
+
+    def routed(spec, label):
+        prefill = [ServeEngine(models[i], None, params=params[i],
+                               log=_quiet, step_time_s=DEFAULT_STEP_TIME_S,
+                               phase="prefill") for i in (0, 1)]
+        decode = [ServeEngine(models[2], None, params=params[2],
+                              log=_quiet,
+                              step_time_s=DEFAULT_STEP_TIME_S * ratio,
+                              phase="decode")]
+        timers = [_timed_predict(torch, e) for e in prefill + decode]
+        router = ServeRouter(prefill, decode, log=_quiet)
+        reqs = load()
+        inj = faultinject.FaultInjector(spec) if spec else None
+        restore = faultinject.install_scoped(inj) if inj else (lambda: 0)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            summary = router.run(reqs)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kernels.launches.get(fa.NAME, 0)
+        per = ", ".join(
+            f"{kind}[{i}] {tm['s'] / max(tm['n'], 1) * 1e3:.3f} ms a step "
+            f"({tm['n']} steps)" for (kind, i), tm in zip(
+                [("prefill", 0), ("prefill", 1), ("decode", 0)], timers))
+        _log(f"serve disagg {label}: {summary['completed']}/"
+             f"{summary['requests']} completed, {summary['handoffs']} "
+             f"handoffs, {summary['steps']} forward steps, {n} {fa.NAME} "
+             f"launches, {wall:.3f} s wall; wall a step: {per}; {card}")
+        _log(f"serve disagg {label} summary " + json.dumps(
+            {k: summary[k] for k in (
+                "failed", "unserved", "retries", "kv_rebuilds",
+                "replica_down", "affinity_hits", "qps", "p50_s", "p99_s",
+                "ttft_p50_s", "tpot_p50_s", "virtual_s")}))
+        if n != t.num_layers * summary["steps"] or n == 0:
+            raise AssertionError(f"serve disagg {label}: {fa.NAME} "
+                                 f"launched {n} times, expected "
+                                 f"{t.num_layers} x {summary['steps']}")
+        return reqs, summary, n
+
+    reqs, summary, launches = routed(None, "routed")
+    replies = {r.rid: list(r.reply or ()) for r in reqs}
+    single = ServeEngine(models[0], None, params=params[0], log=_quiet,
+                         step_time_s=DEFAULT_STEP_TIME_S)
+    sreqs = load()
+    single.run(sreqs)
+    want = {r.rid: list(r.reply or ()) for r in sreqs}
+    if replies != want:
+        raise AssertionError(f"serve disagg: routed replies differ from the "
+                             f"single pool's: {replies} vs {want}")
+    if not (summary["handoffs"] == summary["completed"]
+            == DISAGG_REQUESTS):
+        raise AssertionError(f"serve disagg: handoffs/completed: {summary}")
+    _log(f"serve disagg: {len(replies)} routed replies identical to the "
+         f"single-pool engine's; first {replies[min(replies)]}")
+    freqs, fsum, fn = routed(DISAGG_FAULTS, f"under {DISAGG_FAULTS}")
+    got = {r.rid: list(r.reply or ()) for r in freqs}
+    if got != want or fsum["failed"] or fsum["kv_rebuilds"] < 1 \
+            or fsum["completed"] != DISAGG_REQUESTS:
+        raise AssertionError(f"serve disagg under faults: replies "
+                             f"{'equal' if got == want else 'differ'}, "
+                             f"{fsum}")
+    out = {"launches": launches, "fault_launches": fn}
+    if cards >= 4:
+        opts = serve.parse_args(["gpt", "-n", str(DISAGG_REQUESTS),
+                                 "--serve-prefill-devices", "2",
+                                 "--serve-prefill-replicas", "2",
+                                 "--serve-decode-replicas", "2"])
+        kernels.reset_launches()
+        app = serve.serve_run(opts, log=_log)
+        app.pop("_olog")
+        n = kernels.launches.get(fa.NAME, 0)
+        _log(f"serve disagg app (2 + 2 cards): {app['completed']}/"
+             f"{app['requests']} completed, {app['handoffs']} handoffs, "
+             f"{app['steps']} steps, {n} {fa.NAME} launches; {card}")
+        if app["completed"] != DISAGG_REQUESTS or app["failed"] \
+                or app["handoffs"] != app["completed"] \
+                or n != t.num_layers * app["steps"]:
+            raise AssertionError(f"serve disagg app: {app}, {n} launches")
+    del models, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_scale_argv(ranks: int, extra) -> list:
+    """Phase 18g's run in a ``--lm-ranks`` world of ``ranks``: the
+    gap-then-burst load, shrinking to half the world; ``extra``'s device
+    and backend flags (not its strategy)."""
+    argv = SERVE_SCALE_ARGV + SERVE_SCALE_WATERMARKS + [
+        "--shrink-to", str(ranks // 2)]
+    for flag in ("--device", "--dist-backend"):
+        if flag in extra:
+            argv += [flag, _flag(list(extra), flag)]
+    return argv
+
+
+def _top2_gap(torch, engine, prompt, head) -> float:
+    """The top-2 log-prob gap of the one-rank model at the position after
+    ``prompt + head`` (slot 0 of the batch rectangle, the rest pad)."""
+    import numpy as np
+
+    toks = np.zeros((engine.max_batch, engine.max_len), np.int32)
+    row = list(prompt) + list(head)
+    toks[0, :len(row)] = row
+    lp = engine.model.make_predict_step()(
+        engine.params, {}, toks, np.zeros_like(toks))[0]
+    top = torch.topk(lp[0, len(row) - 1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def serve_scale_phase(torch, fa, kernels, card: str, ranks: int,
+                      results: list) -> dict:
+    """Phase 18g: ``apps.serve gpt`` at full width in the ``--lm-ranks``
+    world of ``ranks`` (the lm strategy phase's, or its four-card form)
+    under the gap-then-burst load with ``--serve-idle-boundaries 3
+    --serve-queue-hi 3 --shrink-to ranks/2``: one shrink and one grow,
+    15 completed, none unserved or dropped, back at the world's size,
+    every rank's replies those of the one-rank engine in this process
+    (on a mismatch: the request, the position and the one-rank model's
+    top-2 log-prob gap there), kernel 1 launched on rank 0 once a layer
+    in every step (plain and partial forms together); each
+    resize's research_s and total_s logged."""
+    from flexflow_tpu_torch.apps import serve
+
+    label = f"serve scale {ranks} ranks"
+    for r, res in enumerate(results):
+        dirs = [(z["direction"], z["from_devices"], z["to_devices"])
+                for z in res["resizes"]]
+        s = res["summary"]
+        if dirs != [("shrink", ranks, ranks // 2),
+                    ("grow", ranks // 2, ranks)] or res["out_of_service"]:
+            raise AssertionError(f"{label}: rank {r} resizes {dirs}")
+        if (s["completed"], s["unserved"], s["dropped"], s["devices"]) \
+                != (15, 0, 0, ranks):
+            raise AssertionError(f"{label}: rank {r} summary {s}")
+    for z in results[0]["resizes"]:
+        _log(f"{label}: {z['direction']} {z['from_devices']} -> "
+             f"{z['to_devices']} at step {z['step']} (virtual "
+             f"{z['vnow']:.4f} s, queue depth {z['queue_depth']}, idle "
+             f"streak {z['idle_streak']}): research_s "
+             f"{z['research_s']:.3f}, total_s {z['total_s']:.3f} "
+             f"[{(z['research'] or {}).get('mode')}, "
+             f"{(z['research'] or {}).get('iters')} proposals]; {card}")
+    launches = {k: v for k, v in results[0]["launches"].items()
+                if k.startswith(fa.NAME)}
+    s = results[0]["summary"]
+    _log(f"{label}: {s['completed']} completed in {s['steps']} steps, "
+         f"{s['wall_s']:.3f} s wall on rank 0; rank 0's kernel 1 launches "
+         f"{launches}")
+    # every step's forward runs kernel 1 once a layer on rank 0, in its
+    # plain form or (a sequence split) its partial form
+    if sum(launches.values()) != GPT_WIDTHS[0] * s["steps"]:
+        raise AssertionError(f"{label}: rank 0 launched {fa.NAME} "
+                             f"{launches}, expected {GPT_WIDTHS[0]} x "
+                             f"{s['steps']} in all")
+    # the one-rank engine in this process on the same load and weights
+    engine, requests, _, _ = serve.build_engine(
+        serve.parse_args(SERVE_SCALE_ARGV + ["--device", "cuda"]),
+        log=_quiet)
+    engine.run(requests)
+    want = {str(r.rid): [int(x) for x in r.reply] for r in requests}
+    for r, res in enumerate(results):
+        for rid, reply in sorted(res["replies"].items()):
+            if reply == want[rid]:
+                continue
+            k = next(i for i, (a, b) in enumerate(zip(reply, want[rid]))
+                     if a != b)
+            prompt = next(q.tokens for q in requests if str(q.rid) == rid)
+            gap = _top2_gap(torch, engine, prompt, want[rid][:k])
+            raise AssertionError(
+                f"{label}: rank {r} request {rid} differs at new token "
+                f"{k}: {reply} vs the one-rank engine's {want[rid]}; the "
+                f"one-rank top-2 log-prob gap there {gap:.3e}")
+        if set(res["replies"]) != set(want):
+            raise AssertionError(f"{label}: rank {r} served "
+                                 f"{sorted(res['replies'])}")
+    _log(f"{label}: every rank's 15 replies identical to the one-rank "
+         f"engine's")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": sum(launches.values()), "by_name": launches,
+            "resizes": results[0]["resizes"]}
+
+
 #: ``--only`` names -> phases, and the phases whose results each reads
 ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "lm-obs": "lm obs", "pipeline": "pipeline", "moe": "moe",
@@ -6119,14 +6424,19 @@ ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "strategy": "strategy", "lm-strategy": "lm strategy",
                "strategy4": "strategy 4", "lm-strategy4": "lm strategy 4",
                "pipeline4": "pipeline 4", "debug": "debug",
-               "serve-forward": "serve forward"}
+               "serve-forward": "serve forward",
+               "serve-disagg": "serve disagg", "serve-scale": "serve scale",
+               "serve-scale4": "serve scale 4"}
 PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
                "search": ("strategy",), "search 4": ("strategy",),
                "lm strategy": ("lm", "strategy"),
                "moe strategy": ("moe", "strategy", "lm", "lm strategy"),
                "lm strategy 4": ("lm", "strategy", "lm strategy"),
                "pipeline 4": ("strategy", "pipeline", "lm", "lm strategy",
-                              "lm strategy 4")}
+                              "lm strategy 4"),
+               "serve scale": ("lm", "strategy", "lm strategy"),
+               "serve scale 4": ("lm", "strategy", "lm strategy",
+                                 "lm strategy 4")}
 #: the exit status of an ``--only`` run whose phases passed: never 0, so
 #: that a partial run is not read as the smoke's pass
 PARTIAL_EXIT = 4
@@ -6219,6 +6529,8 @@ def main(argv) -> int:
     pools = phase("pools", pool_kernel_phase, torch, kernels)
     bns = phase("bn", bn_kernel_phase, torch)
     sliced = phase("serving", slice_phase, torch, fa, kernels)
+    disagg = phase("serve disagg", serve_disagg_phase, torch, fa, kernels,
+                   card)
     lm_run = phase("lm", lm_phase, torch, kernels, card)
     phase("lm obs", lm_obs_phase, torch, kernels, card, lm_run)
     phase("lm 1.3b", lm_phase, torch, kernels, card, LM13_WIDTHS,
@@ -6237,6 +6549,8 @@ def main(argv) -> int:
           strategy_run)
     lm_strategy = phase("lm strategy", lm_strategy_phase, torch, kernels,
                         card, lm_run, strategy_run)
+    scale = phase("serve scale", serve_scale_phase, torch, fa, kernels,
+                  card, 2, (lm_strategy or {}).get("two", {}).get("serve"))
     moe_ranks = phase("moe strategy", moe_strategy_phase, torch, kernels,
                       card, moe_run, strategy_run, lm_strategy)
     pipe = phase("pipeline", pipeline_phase, torch, kernels, card,
@@ -6248,6 +6562,8 @@ def main(argv) -> int:
               nmt_run, strategy_run)
         lm4 = phase("lm strategy 4", lm_strategy4_phase, torch, kernels,
                     card, lm_strategy)
+        phase("serve scale 4", serve_scale_phase, torch, fa, kernels, card,
+              4, (lm4 or {}).get("serve"))
         phase("moe strategy 4", moe_strategy4_phase, torch, kernels, card,
               moe_ranks)
         phase("pipeline 4", pipeline4_phase, torch, kernels, card, pipe,
@@ -6287,6 +6603,14 @@ def main(argv) -> int:
                      "flexflow_tpu/ops/pallas/flash_attention.py:62",
                      lm_n[fa.NAME], checked["max_abs_err"],
                      checked["timings"]["float32"])]
+    # kernel 1 on the serving paths of phases 8b and 18g: launches of the
+    # routed run and of rank 0 in the autoscaling world, times at the
+    # serving shape
+    for tag, run in (("serve-disagg", disagg), ("serve-scale", scale)):
+        entries.append(entry(f"{fa.NAME}.{tag}", fa.SOURCE,
+                             "flexflow_tpu/ops/pallas/flash_attention.py:62",
+                             run["launches"], checked["max_abs_err"],
+                             checked["timings"]["float32"]))
     for name, line in ((fa.NAME_DKV, 158), (fa.NAME_DQ, 190)):
         entries.append(entry(
             name, fa.SOURCE_BWD,

@@ -17,11 +17,11 @@ are checked and not stored: the port runs one value of each.
 :meth:`FFConfig.from_args` parses the JAX parser's flag names for these
 fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
-number of GPUs, which must equal the world size; checked by the app).  A
-flag of the JAX parser whose feature is not ported yet (``UNPORTED_FLAGS``:
-the serving knobs, which ``apps.serve`` parses itself or does not have
-yet, and the fleet's) raises
-``NotImplementedError`` instead of being dropped silently.  A switch
+number of GPUs, which must equal the world size; checked by the app) and
+the serving runtime's ``--max-batch`` and ``--serve-*`` flags
+(``SERVE_FIELDS``).  A flag of the JAX parser whose feature is not ported
+yet (``UNPORTED_FLAGS``: the fleet's) raises ``NotImplementedError``
+instead of being dropped silently.  A switch
 value whose behaviour the port does not have (``RESTRICTED_VALUES``:
 ``-regrid-planner off``, ``-placed-overlap off``, ``-pallas auto|off``)
 is refused with the reason (``SystemExit``), as a malformed value is.
@@ -39,11 +39,19 @@ from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
 UNPORTED_FLAGS = frozenset((
-    "--max-batch", "--serve-queue-hi", "--serve-idle-boundaries",
-    "--serve-prefill-devices", "--serve-prefill-replicas",
-    "--serve-decode-replicas",
     "--fleet-quantum", "--fleet-search-budget-s",
 ))
+
+#: the serving runtime's flags (``apps/serve.py``, ``serve/``), parsed
+#: as ``flexflow_tpu/config.py:367-377`` parses them: flag -> field
+SERVE_FIELDS: Dict[str, str] = {
+    "--max-batch": "max_batch",
+    "--serve-queue-hi": "serve_queue_hi",
+    "--serve-idle-boundaries": "serve_idle_boundaries",
+    "--serve-prefill-devices": "serve_prefill_devices",
+    "--serve-prefill-replicas": "serve_prefill_replicas",
+    "--serve-decode-replicas": "serve_decode_replicas",
+}
 
 #: the switches whose values the port's behaviour restricts: field ->
 #: (the values the port runs, {refused value: the reason})
@@ -375,6 +383,20 @@ class FFConfig:
     # them; apps.search reads its own flags)
     search_chains: int = 1
     search_delta: str = "on"
+    # the serving runtime (apps/serve.py's options come from these
+    # fields, apps.serve.parse_args): max_batch caps the continuous
+    # batcher's decode slots (0 = batch_size); serve_queue_hi is the
+    # queue depth that grows parked ranks back, serve_idle_boundaries
+    # the idle decode boundaries that shrink the world (0 = off); over
+    # serve_prefill_devices > 0 cards a prefill pool of
+    # serve_prefill_replicas engines and a decode pool of
+    # serve_decode_replicas take the load (serve/router.py)
+    max_batch: int = 0
+    serve_queue_hi: int = 0
+    serve_idle_boundaries: int = 0
+    serve_prefill_devices: int = 0
+    serve_prefill_replicas: int = 1
+    serve_decode_replicas: int = 1
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":
@@ -383,14 +405,17 @@ class FFConfig:
         -i/--iters/--iterations, --dtype, -param-dtype/--param-dtype,
         --seed, --height, --width, --classes, -s/--strategy, -ll:gpu,
         --allow-degraded, ``RUNTIME_FLAGS``, ``OBS_FLAGS``,
-        ``DATA_FLAGS``, ``VERIFY_FLAGS`` and ``SWITCH_VALUE_FLAGS``."""
+        ``DATA_FLAGS``, ``SERVE_FIELDS``, ``VERIFY_FLAGS`` and
+        ``SWITCH_VALUE_FLAGS``."""
         cfg = cls()
         for a, val in flag_stream(argv):
             if a in UNPORTED_FLAGS:
                 raise unported(a, "flexflow_tpu/config.py")
             if parse_switch(cfg, a, val):
                 continue
-            if a in ("-s", "--strategy"):
+            if a in SERVE_FIELDS:
+                setattr(cfg, SERVE_FIELDS[a], int(val()))
+            elif a in ("-s", "--strategy"):
                 cfg.strategy_file = val()
                 cfg.strategies = Strategy.load(cfg.strategy_file)
             elif a == "-ll:gpu":

@@ -81,6 +81,7 @@
 #include <type_traits>
 
 #include "mma_sm90.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -648,6 +649,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // the dynamic shared memory of a kernel above 48 KB needs an opt-in, once
+// per device (``smem_optin.cuh``)
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -661,7 +663,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int bh, int sq, int sk, int causal, float scale,
                cudaStream_t stream) {
   constexpr size_t bytes = Layout<T, D>::dkv_bytes();
-  static const int attr = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes);
+  static std::atomic<int> slots[kMaxDevices];
+  const int attr = once_per_device(
+      slots, [&] { return allow_smem(flash_bwd_dkv_kernel<T, D>, bytes); });
   if (attr != 0) return attr;
   // y counts the key tiles up: tile 0, which sees the most causal query
   // tiles, starts first
@@ -678,7 +682,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, float* dq, int bh,
               int sq, int sk, int causal, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Layout<T, D>::dq_bytes();
-  static const int attr = allow_smem(flash_bwd_dq_kernel<T, D>, bytes);
+  static std::atomic<int> slots[kMaxDevices];
+  const int attr = once_per_device(
+      slots, [&] { return allow_smem(flash_bwd_dq_kernel<T, D>, bytes); });
   if (attr != 0) return attr;
   // y counts the Q tiles down: the causal tiles with the most keys first
   const dim3 grid(bh, (sq + kBlock - 1) / kBlock);

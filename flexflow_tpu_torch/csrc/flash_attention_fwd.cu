@@ -51,6 +51,7 @@
 #include <math_constants.h>
 
 #include "mma_sm90.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -448,10 +449,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <typename T, int D>
 int smem_attr() {
-  static const int code = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Layout<T, D>::bytes())));
-  return code;
+  static std::atomic<int> slots[kMaxDevices];
+  return once_per_device(slots, [] {
+    return static_cast<int>(cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Layout<T, D>::bytes())));
+  });
 }
 
 template <int D>

@@ -50,6 +50,7 @@
 #include <math_constants.h>
 
 #include "fused_ce_mma.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -263,10 +264,12 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int fwd_attr() {
-  static const int code = static_cast<int>(cudaFuncSetAttribute(
-      ce_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(FwdSmem<T>::bytes())));
-  return code;
+  static std::atomic<int> slots[kMaxDevices];
+  return once_per_device(slots, [] {
+    return static_cast<int>(cudaFuncSetAttribute(
+        ce_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(FwdSmem<T>::bytes())));
+  });
 }
 
 template <typename T>

@@ -75,6 +75,7 @@
 // fused_ce_mma.cuh, which the forward (fused_ce.cu) shares.
 
 #include "fused_ce_mma.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -500,6 +501,7 @@ bool aligned16(const void* p) {
 }
 
 // cudaFuncSetAttribute for the dynamic shared memory, once per instance
+// and device (``smem_optin.cuh``)
 template <typename K>
 int smem_attr(K kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -508,15 +510,17 @@ int smem_attr(K kernel, size_t bytes) {
 }
 template <typename T>
 int dx_attr() {
-  static const int code =
-      smem_attr(ce_bwd_dx_kernel<T>, Smem<T, DxGeo, true>::bytes());
-  return code;
+  static std::atomic<int> slots[kMaxDevices];
+  return once_per_device(slots, [] {
+    return smem_attr(ce_bwd_dx_kernel<T>, Smem<T, DxGeo, true>::bytes());
+  });
 }
 template <typename T>
 int dw_attr() {
-  static const int code =
-      smem_attr(ce_bwd_dw_kernel<T>, Smem<T, DwGeo, false>::bytes());
-  return code;
+  static std::atomic<int> slots[kMaxDevices];
+  return once_per_device(slots, [] {
+    return smem_attr(ce_bwd_dw_kernel<T>, Smem<T, DwGeo, false>::bytes());
+  });
 }
 
 template <typename T>

@@ -744,7 +744,10 @@ class FFModel:
         Positional ``batch`` arrays (numpy or tensors) align with
         ``self._inputs``; they are moved to the model's device, float
         ones cast to the compute dtype.  Under mixed precision the float
-        params are cast to the compute dtype for the step."""
+        params are cast to the compute dtype for the step.  Over several
+        ranks the batch is this rank's block (:meth:`local_batch`) and
+        each output this rank's block of it (None where it holds none);
+        :meth:`gather_rows` assembles the rows a caller reads."""
         tids = tuple(output_tids) if output_tids is not None \
             else (self._loss_op().output.tid,)
         cdtype = torch_dtype(self.config.compute_dtype)
@@ -761,9 +764,49 @@ class FFModel:
                         b = b.to(cdtype)
                     inputs[t.tid] = b
                 values, _ = self.apply(params, state, inputs, train=False)
-                return tuple(values[tid] for tid in tids)
+                # over several ranks: this rank's blocks, None where it
+                # holds none (gather_rows assembles rows of them)
+                return tuple(values.get(tid) for tid in tids)
 
         return predict_step
+
+    def gather_rows(self, values, picks):
+        """Whole rows of values held in blocks over the ranks, on every
+        rank: ``picks`` is a list of ``(tid, rows)``, ``rows`` the
+        ``(b, s)`` positions to read of a ``(B, S, D)`` value (``values``
+        as :meth:`make_predict_step` returns them, by tid).  Returns one
+        float32 ``(len(rows), D)`` tensor per pick.  Each rank writes the
+        parts of the rows that its first-held block covers into zeros,
+        and one all-reduce sum over the world assembles them: every
+        element has exactly one first holder, so the sum adds zeros to
+        it and is exact.  Nothing else of the values leaves a rank."""
+        self._setup_sharded()
+        producers = {t.tid: (op, k) for op in self.layers
+                     for k, t in enumerate(op.all_outputs())}
+        pos = self.machine.position
+        parts = []
+        for tid, rows in picks:
+            op, k = producers[tid]
+            t = op.all_outputs()[k]
+            buf = torch.zeros(len(rows), t.shape[-1], dtype=torch.float32,
+                              device=self.device)
+            v = values.get(tid)
+            boxes = self._boxes_of(op, op.output_specs()[k], t.shape)
+            mine = boxes[pos]
+            if v is not None and mine is not None \
+                    and boxes.index(mine) == pos:
+                (b0, b1), (s0, s1), (d0, d1) = mine
+                sel = [(i, b - b0, q - s0) for i, (b, q) in enumerate(rows)
+                       if b0 <= b < b1 and s0 <= q < s1]
+                if sel:
+                    i, b, q = (torch.tensor(c, device=self.device)
+                               for c in zip(*sel))
+                    buf[i, d0:d1] = v[b, q].float()
+            parts.append(buf)
+        if not parts:
+            return []
+        return collectives.all_reduce_flat(parts,
+                                           self.machine.world_group())
 
     # ------------------------------------------------------------------
     # training (model.py:1338-1500, 1551, 1624)
@@ -2272,12 +2315,13 @@ class FFModel:
                         for leaf, v in sub.items()}
         return out
 
-    def gather_trees(self, params, state, opt_state, dst: int = 0):
+    def gather_trees(self, params, state, opt_state, dst: Optional[int] = 0):
         """Whole ``(params, state, opt_state)`` trees (host tensors) from
-        every rank's blocks, on rank ``dst``; None on the others.  Every
-        rank calls it: each sends the blocks of which it is the first
-        holder (the position whose box it is first), so that each element
-        arrives once, and rank ``dst`` lays them into their leaves."""
+        every rank's blocks, on rank ``dst`` (on every rank when ``dst``
+        is None); None on the others.  Every rank calls it: each sends
+        the blocks of which it is the first holder (the position whose
+        box it is first), so that each element arrives once, and rank
+        ``dst`` lays them into their leaves."""
         import torch.distributed as dist
 
         self._setup_sharded()
@@ -2303,7 +2347,7 @@ class FFModel:
         every = [None] * self.machine.num_devices
         dist.all_gather_object(every, mine,
                                group=self.machine.world_group().handle)
-        if self.machine.rank != dst:
+        if dst is not None and self.machine.rank != dst:
             return None
         pieces: Dict = {}
         for blocks in every:

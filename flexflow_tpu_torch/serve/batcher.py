@@ -38,6 +38,17 @@ class RequestQueue:
                        key=lambda r: (_eff_arrival(r), r.rid))
         self._q: deque = deque(items)
 
+    def push(self, req: Request) -> None:
+        """Queue one more request in ``(effective arrival, rid)`` order
+        (a router's admission and handoff path)."""
+        if self._q and (_eff_arrival(req), req.rid) < \
+                (_eff_arrival(self._q[-1]), self._q[-1].rid):
+            items = sorted(list(self._q) + [req],
+                           key=lambda r: (_eff_arrival(r), r.rid))
+            self._q = deque(items)
+        else:
+            self._q.append(req)
+
     def pop_ready(self, vnow: float, k: int) -> List[Request]:
         """Up to ``k`` requests whose arrival time has passed, in order."""
         out: List[Request] = []
@@ -136,6 +147,14 @@ class ContinuousBatcher:
                 or s.generated >= s.req.max_new_tokens
                 or s.length >= self.max_len):
             s.done = True
+
+    def release(self, slot_idx: int) -> Optional[Slot]:
+        """Free one slot WITHOUT completing its request: a prefill pool's
+        handoff, where the request leaves with its generated tokens (no
+        ``done_v``/``reply`` stamp here)."""
+        s = self.slots[slot_idx]
+        self.slots[slot_idx] = None
+        return s
 
     def reclaim(self, vnow: float) -> List[Tuple[int, Request]]:
         """Free every finished slot (ascending order) and return

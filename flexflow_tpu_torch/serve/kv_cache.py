@@ -10,14 +10,25 @@ position ``p`` of slot ``b`` lives at row ``p % max_seq``.
 The decode forward recomputes attention over the in-window tokens; the
 cache is FILLED from that same forward (K/V projected with the op's own
 weights) and carries the layout and byte accounting an incremental decode
-kernel would read.  The prefill-to-decode handoff of the disaggregated
-router comes with that router.
+kernel would read.  :func:`kv_cache_bytes` is what ``verify/plan.py``
+charges a serving strategy per device.
+
+The prefill-to-decode handoff of the disaggregated router
+(``serve/router.py``): :meth:`KVCache.export_request` packs one slot's
+surviving rows as host numpy in logical order, so a ``handoff_drop``
+loses only the transfer and the payload survives for a retransmit;
+:meth:`KVCache.import_request` re-rings them under the destination's
+layout, where they die with the replica on a ``replica_crash`` (the
+router then re-prefills the carried tokens, a ``kv_rebuild``).
+:func:`plan_kv_handoff` prices the move.  Where the topology names no
+link bandwidth, it prices the hop at a tenth of ``HopperChipPerf``'s HBM
+rate (the JAX package takes its TPU's).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -97,6 +108,25 @@ class KVCacheLayout:
         return (2 * self.num_layers * batch * heads * seq * self.head_dim
                 * dtype_bytes(self.dtype))
 
+    def describe(self) -> Dict:
+        return {
+            "num_layers": self.num_layers, "num_heads": self.num_heads,
+            "head_dim": self.head_dim, "max_batch": self.max_batch,
+            "max_seq": self.max_seq, "dtype": self.dtype,
+            "grid": [self.s_parts, self.h_parts, self.n_parts],
+            "total_bytes": self.total_bytes(),
+            "bytes_per_device": self.bytes_per_device(),
+        }
+
+
+def kv_cache_bytes(model, max_batch: int, max_seq: Optional[int] = None,
+                   strategy=None) -> int:
+    """Per-device KV-cache bytes a serving deployment of ``model`` needs
+    (0 for a model without attention): the term ``verify/memory.py``
+    adds to the forward-only peak."""
+    layout = KVCacheLayout.from_model(model, max_batch, max_seq,
+                                      strategy=strategy)
+    return 0 if layout is None else layout.bytes_per_device()
 
 
 class KVCache:
@@ -147,3 +177,84 @@ class KVCache:
         self.k[:, slot] = 0
         self.v[:, slot] = 0
         self.lengths[slot] = 0
+
+    # -- prefill -> decode handoff (serve/router.py) ---------------------
+
+    def export_request(self, slot: int) -> Optional[Dict]:
+        """One slot's surviving ring rows for a cross-pool handoff: every
+        layer's K/V in LOGICAL order (:meth:`read`'s), the slot's logical
+        length and the first kept position; None for an empty slot."""
+        n = int(self.lengths[slot])
+        if n == 0:
+            return None
+        kept = min(n, self.layout.max_seq)
+        layers = self.layout.num_layers
+        k = np.stack([self.read(li, slot)[0] for li in range(layers)])
+        v = np.stack([self.read(li, slot)[1] for li in range(layers)])
+        return {"k": k, "v": v, "length": n, "start": n - kept,
+                "grid": [self.layout.s_parts, self.layout.h_parts,
+                         self.layout.n_parts]}
+
+    def import_request(self, slot: int, payload: Dict) -> int:
+        """Unpack an :meth:`export_request` payload into ``slot``, each row
+        at its logical position under THIS layout's ring (a narrower
+        window keeps the newest rows).  Returns the logical length now
+        filled, which the engine takes as already cached."""
+        if payload is None:
+            return 0
+        k, v = payload["k"], payload["v"]
+        if (k.shape[0] != self.layout.num_layers
+                or k.shape[2] != self.layout.num_heads
+                or k.shape[3] != self.layout.head_dim):
+            raise ValueError(
+                f"kv handoff shape mismatch: payload "
+                f"{tuple(k.shape)} vs layout "
+                f"({self.layout.num_layers}, *, {self.layout.num_heads}, "
+                f"*, {self.layout.head_dim})")
+        self.reclaim(slot)
+        start = int(payload["start"])
+        for li in range(self.layout.num_layers):
+            self.write_span(li, slot, start, k[li], v[li])
+        # the exporter's logical length survives a window that kept fewer
+        self.lengths[slot] = int(payload["length"])
+        return int(payload["length"])
+
+
+def plan_kv_handoff(src_layout: KVCacheLayout, dst_layout: KVCacheLayout,
+                    length: int, *, src_topology=None,
+                    dst_topology=None) -> Dict:
+    """Bytes, hops and predicted seconds of moving one request's filled
+    KV rows from the prefill layout's (s, h, n) grid to the decode
+    layout's (``flexflow_tpu/serve/kv_cache.py:261-303``): one hop to
+    gather rows the source grid splits, one across the pools (always),
+    one to re-place them where the destination grid splits.  Pure
+    accounting, recorded per request as ``serve_handoff``; the move
+    itself is the host-side export and import.  A topology without an
+    ``ici_bandwidth`` prices at a tenth of ``HopperChipPerf``'s HBM rate.
+    Returns ``{"bytes", "hops", "predicted_s", "rows", "rows_kept"}``."""
+    from flexflow_tpu_torch.sim.cost_model import HopperChipPerf
+
+    rows = min(int(length), src_layout.max_seq)
+    kept = min(rows, dst_layout.max_seq)
+    kb = (2.0 * src_layout.num_layers * rows * src_layout.num_heads
+          * src_layout.head_dim * dtype_bytes(src_layout.dtype))
+    ici_bw = getattr(src_topology, "ici_bandwidth", None) \
+        or HopperChipPerf().hbm_bandwidth / 10.0
+    ici_lat = getattr(src_topology, "ici_latency", 0.0) or 1e-6
+    dst_bw = getattr(dst_topology, "ici_bandwidth", None) or ici_bw
+    dst_lat = getattr(dst_topology, "ici_latency", 0.0) or ici_lat
+    hops = 1            # the cross-pool transfer itself
+    secs = kb / ici_bw + ici_lat
+    src_parts = (src_layout.s_parts * src_layout.h_parts
+                 * src_layout.n_parts)
+    if src_parts > 1:
+        hops += 1
+        secs += kb / ici_bw + ici_lat
+    dst_parts = (dst_layout.s_parts * dst_layout.h_parts
+                 * dst_layout.n_parts)
+    dst_kb = kb * (kept / rows) if rows else 0.0
+    if dst_parts > 1:
+        hops += 1
+        secs += dst_kb / dst_parts / dst_bw + dst_lat
+    return {"bytes": kb, "hops": hops, "predicted_s": secs,
+            "rows": rows, "rows_kept": kept}

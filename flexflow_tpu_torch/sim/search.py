@@ -14,7 +14,9 @@ producer tiles with consumer footprints to derive the communication.
 Everything here prices what the JAX search prices, so that the same cost
 tables and seed give the same strategy in both packages, and the GPipe
 proposal (:meth:`StrategySearch.propose_pipeline`) the same candidates.
-Left out: the serving ``decode`` objective (ROADMAP Queue A item 6).
+Left out: the serving ``decode`` objective (ROADMAP Queue A item 6);
+:func:`decode_step_ratio`, the analytic decode-to-prefill step ratio, is
+ported.
 """
 
 from __future__ import annotations
@@ -1432,3 +1434,54 @@ class StrategySearch(StrategySearchDecomposedMixin):
                        opt_stream_s=self._opt_stream_s)
 
 
+
+
+def decode_step_ratio(model, strategy=None, perf=None) -> float:
+    """The analytic ratio of one single-token DECODE step to one
+    full-prompt forward step of ``model`` under ``strategy``
+    (``flexflow_tpu/sim/search.py:1627-1679``): no simulator, no search,
+    no clock, so a serving app derives a decode pool's virtual step
+    time (``base_step * ratio``) the same way every run.  Both steps are
+    priced by the analytic model's forward thirds: the decode step takes
+    each op's one-token column (cost / seq) plus every attention op's
+    KV-cache read at HBM rate for its grid.  ``perf`` defaults to
+    :class:`~flexflow_tpu_torch.sim.cost_model.HopperChipPerf` (the JAX
+    package prices its TPU's).  Clamped to (0, 1]."""
+    from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+    from flexflow_tpu_torch.sim.cost_model import HopperChipPerf, dtype_bytes
+
+    config = getattr(model, "config", None)
+    dtype = getattr(config, "compute_dtype", "float32")
+    cm = AnalyticCostModel(perf=perf or HopperChipPerf(),
+                           param_scale=param_byte_scale(config),
+                           dtype=dtype)
+    perf = cm.perf
+    strategy = strategy if strategy is not None \
+        else getattr(config, "strategies", None)
+    machine = getattr(model, "machine", None)
+    kv_elem = dtype_bytes(dtype)
+    full = dec = 0.0
+    for op in model.layers:
+        pc = strategy.get(op.name) if strategy is not None else None
+        if pc is None and machine is not None:
+            pc = machine.default_pc(max(len(op.output.shape), 1))
+        if pc is None:
+            continue
+        fwd = cm.op_cost(op, pc) / 3.0
+        shape = op.inputs[0].shape if op.inputs else ()
+        seq = int(shape[1]) if len(shape) >= 2 else 1
+        full += fwd
+        dec += fwd / max(seq, 1)
+        if isinstance(op, MultiHeadAttention):
+            dims = tuple(pc.dims) + (1,) * (3 - len(pc.dims))
+            s_p, h_p, n_p = int(dims[0]), int(dims[1]), int(dims[2])
+            batch = int(shape[0]) if len(shape) >= 1 else 1
+            kv_shard = (2.0 * -(-batch // max(n_p, 1))
+                        * -(-op.num_heads // max(h_p, 1))
+                        * -(-seq // max(s_p, 1))
+                        * op.head_dim * kv_elem)
+            dec += kv_shard / (perf.hbm_bandwidth
+                               * perf.vector_efficiency)
+    if full <= 0.0:
+        return 1.0
+    return float(min(max(dec / full, 1e-6), 1.0))

@@ -42,7 +42,9 @@ rank (the highest live ordinal) on each.  The lifecycle:
      search from the strategy before the shrink — at most
      ``--max-regrows`` times;
   5. :func:`directed_resize` is the same shrink or grow for a target
-     set imposed from outside, with no fault records.
+     set imposed from outside, with no fault records;
+     :func:`serve_resize` is the serving autoscaler's, re-searched under
+     the latency objective, with no optimizer state.
 
 When ``ckpt_dir`` is set, a resize that migrated in memory commits the
 state at its step under the new strategy (a port-only save: a restart
@@ -339,7 +341,8 @@ def warm_assignment(search, strategy, fallback=None) -> List[int]:
 
 
 def research_strategy(config, rebuild, new_machine, old_strategy,
-                      olog=None, log=print, fallback_strategy=None):
+                      olog=None, log=print, fallback_strategy=None,
+                      objective: str = "makespan"):
     """Re-run the MCMC search for the resized machine (a planning machine:
     ``MachineModel.shrink``/``grow``) under ``research_budget_s`` of wall
     clock and ``elastic_search_iters`` proposals, warm-started from
@@ -353,7 +356,9 @@ def research_strategy(config, rebuild, new_machine, old_strategy,
     whole of it, ``block_budget_s`` each block, and
     ``boundary_refine_iters`` are the refinement pass's proposals) or,
     when the search is unavailable, ``"dp_fallback"`` with data
-    parallel."""
+    parallel.  ``objective`` goes to ``StrategySearch``: training's
+    recovery keeps ``"makespan"``, the serving autoscaler
+    (``serve/engine.py``) re-searches under ``"latency"``."""
     from flexflow_tpu_torch.strategy import Strategy
 
     budget = float(getattr(config, "research_budget_s", 30.0) or 30.0)
@@ -365,7 +370,7 @@ def research_strategy(config, rebuild, new_machine, old_strategy,
         shell_cfg.strategies = Strategy()
         shell = rebuild(shell_cfg, new_machine)
         ss = StrategySearch(shell, machine=new_machine, obs=olog,
-                            objective="makespan")
+                            objective=objective)
         warm = old_strategy if old_strategy is not None \
             and len(old_strategy) else None
         warm_fb = fallback_strategy if fallback_strategy is not None \
@@ -390,7 +395,7 @@ def research_strategy(config, rebuild, new_machine, old_strategy,
                               "budget_s": budget,
                               "blocks": info.get("blocks"),
                               "memo_hits": info.get("memo_hits"),
-                              "objective": "makespan"}
+                              "objective": objective}
         strategy, info = ss.search(
             iters=iters, seed=int(getattr(config, "seed", 0)), chunks=8,
             chains=1, delta=True, start=start, budget_s=budget)
@@ -398,12 +403,12 @@ def research_strategy(config, rebuild, new_machine, old_strategy,
                           "best_time_s": info.get("best_time"),
                           "iters": info.get("iters_done"),
                           "budget_hit": info.get("budget_hit", False),
-                          "budget_s": budget, "objective": "makespan"}
+                          "budget_s": budget, "objective": objective}
     except Exception as e:
         log(f"elastic: surviving-mesh re-search unavailable ({e}); "
             f"continuing pure-DP on {new_machine.num_devices} devices")
         return Strategy(), {"mode": "dp_fallback", "error": str(e),
-                            "budget_s": budget, "objective": "makespan"}
+                            "budget_s": budget, "objective": objective}
 
 
 def _losses(sig) -> List[float]:
@@ -423,13 +428,15 @@ def _check_stream(data) -> None:
 
 
 def _relocate(model, sig, members: List[int], plan_machine, rebuild,
-              warm, warm_fallback, olog, log, data, call=None):
+              warm, warm_fallback, olog, log, data, call=None,
+              objective: str = "makespan", train: bool = True):
     """The resize every rank of the running world takes part in: the
     gather of the live state on the old world, the call of returning
     ranks (``call``: ``{member: message}``, sent by rank 0; a grow, which
     raises instead when the gather failed, before anything changed), the
-    re-formed world over ``members``, then :func:`_land`.  Returns
-    ``(new_model, carry, header)``, or None on a rank left out."""
+    re-formed world over ``members``, then :func:`_land` (its search
+    under ``objective``; ``train`` as there).  Returns ``(new_model, carry, header)``, or None
+    on a rank left out."""
     from flexflow_tpu_torch import distributed
 
     old = model.machine
@@ -458,7 +465,8 @@ def _relocate(model, sig, members: List[int], plan_machine, rebuild,
             "step": sig.step, "loss_base": sig.loss_base}
     new_model, carry, head = _land(model.config, new_machine, plan_machine,
                                    rebuild, warm, warm_fallback, olog, log,
-                                   data, trees, head)
+                                   data, trees, head, objective=objective,
+                                   train=train)
     if trees is not None and head["migrated"]:
         from flexflow_tpu_torch.parallel.regrid import plan_state_migration
 
@@ -467,13 +475,16 @@ def _relocate(model, sig, members: List[int], plan_machine, rebuild,
 
 
 def _land(cfg, new_machine, plan_machine, rebuild, warm, warm_fallback,
-          olog, log, data, trees=None, head=None):
+          olog, log, data, trees=None, head=None,
+          objective: str = "makespan", train: bool = True):
     """Every rank of a re-formed world: rank 0 searches the strategy and
     posts it to the store, every rank rebuilds the model, rank 0 hands
     each rank its blocks of the gathered state (or every rank restores
     the newest verified checkpoint when there is none) and the data
-    stream is rebound.  Returns ``(new_model, carry, header)``, the
-    header rank 0's (``migrated``, ``reason``, ``position``, ``step``,
+    stream is rebound.  The search runs under ``objective``.  Without
+    ``train`` (a serving resize) there is no optimizer state and nothing
+    is checkpointed.  Returns ``(new_model, carry, header)``, the header
+    rank 0's (``migrated``, ``reason``, ``position``, ``step``,
     ``research``, ``research_s``, ``resume_step``, ``plan``)."""
     import torch.distributed as dist
 
@@ -488,7 +499,7 @@ def _land(cfg, new_machine, plan_machine, rebuild, warm, warm_fallback,
         t0 = time.perf_counter()
         strategy, research = research_strategy(
             cfg, rebuild, plan_machine, warm, olog=olog, log=log,
-            fallback_strategy=warm_fallback)
+            fallback_strategy=warm_fallback, objective=objective)
         research_s = time.perf_counter() - t0
         store.set(key, strategy.to_json())
     else:
@@ -533,8 +544,9 @@ def _land(cfg, new_machine, plan_machine, rebuild, warm, warm_fallback,
                 f"configured to restore from")
         resume_step, params, state, opt_state = new_model._restore(
             ckpt_dir, olog)
-    opt_state = opt_state or new_model.init_opt_state(params)
-    if head["migrated"] and getattr(cfg, "ckpt_dir", ""):
+    if train:
+        opt_state = opt_state or new_model.init_opt_state(params)
+    if train and head["migrated"] and getattr(cfg, "ckpt_dir", ""):
         from flexflow_tpu_torch.utils import checkpoint as ckpt
 
         # the resized run's state under its own strategy: a restart
@@ -855,6 +867,40 @@ def directed_resize(model, *, keep=None, add=None, step: int,
                         cause="directed", data=data)
 
 
+def serve_resize(model, params, state, plan_machine, *, rebuild, step: int,
+                 call: Optional[Sequence[int]] = None, olog=None,
+                 log=print):
+    """The serving autoscaler's resize (``flexflow_tpu/serve/engine.py:
+    636-699``) on every rank of the running world, onto ``plan_machine``
+    (``MachineModel.shrink``/``grow`` of the running machine): the gather
+    of the live params and state, the call of the standing-by ranks
+    ``call`` (first-world ranks, a grow), the world re-formed over the
+    plan's members, rank 0's re-search under the latency objective
+    warm-started from the running strategy and shared through the store,
+    the rebuilt model on every rank and rank 0's scatter of the state
+    (:func:`_relocate`).  Returns ``(new_model, carry, header)``, or None
+    on a rank left out, which then stands by (:func:`stand_by`) until a
+    grow calls it back (:func:`rejoin`) or the run ends
+    (:func:`release_standbys`).  No fault or ``elastic_resize`` record:
+    the engine writes its ``serve_resize``."""
+    import types
+
+    from flexflow_tpu_torch import distributed
+
+    members = list(plan_machine.members)
+    sig = types.SimpleNamespace(params=params, state=state, opt_state=None,
+                                step=step, loss_base=0)
+    msgs = None
+    if call:
+        msg = {"op": "grow", "members": members,
+               "generation": distributed.generation() + 1, "step": step}
+        msgs = {int(m): msg for m in call}
+    return _relocate(model, sig, members, plan_machine, rebuild,
+                     getattr(model.config, "strategies", None), None,
+                     olog, log, None, call=msgs, objective="latency",
+                     train=False)
+
+
 # ---------------------------------------------------------------------------
 # the lost rank's side
 
@@ -884,17 +930,18 @@ def stand_by(device) -> Dict:
 
 
 def rejoin(cfg, msg: Dict, rebuild, device, olog=None, log=print,
-           data=None):
+           data=None, objective: str = "makespan", train: bool = True):
     """A standing-by rank called to grow: join the re-formed world the
-    call names and land in it as every other rank (:func:`_land`).
-    Returns ``(new_model, carry)``."""
+    call names and land in it as every other rank (:func:`_land`, under
+    ``objective`` and ``train``).  Returns ``(new_model, carry)``."""
     from flexflow_tpu_torch import distributed
 
     machine = distributed.reform(msg["members"], msg["generation"])
     log(f"elastic: called back at iteration {msg['step']}; rank "
         f"{machine.rank} of {machine.num_devices}")
     new_model, carry, _ = _land(cfg, machine, None, rebuild, None, None,
-                                olog, log, data)
+                                olog, log, data, objective=objective,
+                                train=train)
     return new_model, carry
 
 

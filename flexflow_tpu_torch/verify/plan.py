@@ -475,11 +475,13 @@ def plan_findings(model, strategy=None, machine=None, *,
             kv_bytes = float(serve.get("kv_cache_bytes_per_device",
                                        0.0))
             if not kv_bytes:
-                raise NotImplementedError(
-                    "a serving strategy without "
-                    "serve.kv_cache_bytes_per_device: the KV cache's "
-                    "sizing for serving search is not ported (ROADMAP "
-                    "Queue A item 6)")
+                from flexflow_tpu_torch.serve.kv_cache import kv_cache_bytes
+
+                batch = serve.get("max_batch") \
+                    or getattr(getattr(model, "config", None),
+                               "batch_size", 1)
+                kv_bytes = float(kv_cache_bytes(model, batch,
+                                                strategy=strategy))
 
     mem = None
     if check_memory:

@@ -136,6 +136,24 @@ def _plain_kernels():
          ce.fused_linear_ce_fwd, ce.fused_linear_ce_bwd) = saved
 
 
+def test_flash_kernel_launches_on_every_card(gpu):
+    """One process launching kernel 1 on each card it sees (the
+    disaggregated pools' replicas): the shared-memory opt-in holds per
+    device, so each card's launch succeeds and matches the plain
+    version."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA devices, found {cards}")
+    for i in range(cards):
+        q, k, v = _qkv(i, (8, 12, 512, 64), 512, torch.float32,
+                       torch.device("cuda", i))
+        o, lse = flash_attention_fwd_cuda(q, k, v, True)
+        o_p, lse_p = flash_attention_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize(q.device)
+        assert float((o - o_p).abs().max()) <= ATOL
+        assert float((lse - lse_p).abs().max()) <= ATOL
+
+
 def test_tiny_gpt_serves_through_the_kernel(gpu):
     from flexflow_tpu_torch.apps.serve import build_lm
     from flexflow_tpu_torch.serve.engine import ServeEngine
@@ -145,7 +163,7 @@ def test_tiny_gpt_serves_through_the_kernel(gpu):
         return synthetic_requests(10, seed=2, rate_qps=400.0, vocab_size=64,
                                   prompt_len=4, max_new_tokens=3)
 
-    model = build_lm(batch=8, seed=0, tiny=True, device=gpu)
+    model, _ = build_lm(batch=8, seed=0, tiny=True, device=gpu)
     engine = ServeEngine(model, log=lambda *a: None)
     reqs = requests()
     kernels.reset_launches()

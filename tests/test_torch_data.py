@@ -319,10 +319,11 @@ def test_hdf5_skip_budget_as_in_jax(tmp_path):
 
 def test_hdf5_thread_leak_is_recorded(tmp_path, monkeypatch):
     path = _h5(tmp_path / "f.h5", 16)
-    release = threading.Event()
+    release, entered = threading.Event(), threading.Event()
     read = t_hdf5._read_batch
 
     def slow(*args):
+        entered.set()
         release.wait(10)   # a read the stop event cannot cut short
         return read(*args)
 
@@ -332,6 +333,9 @@ def test_hdf5_thread_leak_is_recorded(tmp_path, monkeypatch):
                              device="cpu")
     monkeypatch.setattr(t_hdf5, "_read_batch", slow)
     next(it)
+    # close only once the reader is inside the read: before it, the
+    # reader sees the stop event and exits in time
+    assert entered.wait(10)
     with pytest.warns(RuntimeWarning, match="did not exit within 0.1s"):
         it.close()
     assert rec.events == [("thread_leak", {"source": "hdf5_batches",

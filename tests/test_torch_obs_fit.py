@@ -113,7 +113,13 @@ def test_obs_flags_parse_as_jax():
         assert (t.trace_dir, t.profiling) == (j.trace_dir, j.profiling) \
             != ("", False)
     with pytest.raises(NotImplementedError, match="not ported"):
-        TConfig.from_args(["--serve-queue-hi", "2"])
+        TConfig.from_args(["--fleet-quantum", "2"])
+    # the serving runtime's flags are ported, as JAX parses them
+    for flag, field in (("--serve-queue-hi", "serve_queue_hi"),
+                        ("--serve-prefill-devices",
+                         "serve_prefill_devices")):
+        assert getattr(TConfig.from_args([flag, "2"]), field) == \
+            getattr(JConfig.from_args([flag, "2"]), field) == 2
     # the live metrics' path is ported, as JAX parses it
     for flag in ("-metrics-path", "--metrics-path"):
         assert TConfig.from_args([flag, "x"]).metrics_path == \

@@ -50,7 +50,7 @@ def pair(machine1):
     jm, _ = j_build_lm(machine1, batch=8, seed=0, tiny=True)
     jp, _ = jm.init(0)
     tree = jax.tree.map(np.asarray, jp)
-    tm = t_serve.build_lm(batch=8, seed=0, tiny=True, device="cpu")
+    tm, _ = t_serve.build_lm(batch=8, seed=0, tiny=True, device="cpu")
     return jm, tree, tm, params_from_jax(tree, device="cpu")
 
 
@@ -179,11 +179,17 @@ def test_kv_ring_reads_newest_rows_in_order():
 
 
 def test_unported_engine_modes_raise(pair):
-    _, _, tm, tp = pair
-    for kw in ({"phase": "decode"}, {"queue_hi": 4},
-               {"idle_boundaries": 2}):
-        with pytest.raises(NotImplementedError):
-            TEngine(tm, params=tp, log=_quiet, **kw)
+    jm, _, tm, tp = pair
+    # an unknown phase is refused as the JAX engine refuses it
+    with pytest.raises(ValueError, match="phase must be"):
+        JEngine(jm, None, log=_quiet, phase="bogus")
+    with pytest.raises(ValueError, match="phase must be"):
+        TEngine(tm, params=tp, log=_quiet, phase="bogus")
+    # an autoscaling decode engine needs the decode search objective
+    for kw in ({"queue_hi": 4}, {"idle_boundaries": 2}):
+        with pytest.raises(NotImplementedError, match="'decode' objective"):
+            TEngine(tm, lambda cfg, m: None, params=tp, log=_quiet,
+                    phase="decode", **kw)
 
 
 def test_driver_line_and_obs_records_on_cpu(capsys, tmp_path):
@@ -251,9 +257,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT_DIR.rglob("*.py"))
     files.append(PORT_DIR.parent / "chip_smoke.py")
     assert len(files) > 20
-    # the file readers, the fault smoke and the profiler among them
+    # the file readers, the fault smoke and the profiler among them, and
+    # the serving router, the SLO module and what they run on
     assert {"data/imagenet.py", "data/hdf5.py", "data/native.py",
-            "apps/fault_smoke.py", "utils/profiling.py"} <= \
+            "apps/fault_smoke.py", "utils/profiling.py", "serve/router.py",
+            "obs/slo.py", "serve/engine.py", "serve/kv_cache.py",
+            "serve/batcher.py", "apps/serve.py", "utils/elastic.py",
+            "sim/search.py", "verify/plan.py", "config.py", "model.py"} <= \
         {p.relative_to(PORT_DIR).as_posix() for p in files[:-1]}
     bad = [(str(p), m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu")]

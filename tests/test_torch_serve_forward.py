@@ -214,7 +214,7 @@ def test_run_forward_drain_mid_run_stops_admission(tmp_path):
 def test_forward_only_service_lm_shapes():
     """``tests/test_serve.py::test_forward_only_service_cnn_shapes``: 11
     requests at max batch 8 make 2 steps, the short final group padded."""
-    model = t_serve.build_lm(batch=8, tiny=True, device="cpu")
+    model, _ = t_serve.build_lm(batch=8, tiny=True, device="cpu")
     eng = ServeEngine(model, log=lambda *a: None)
     reqs = synthetic_requests(11, seed=3, rate_qps=1000.0, vocab_size=64,
                               prompt_len=16, max_new_tokens=0)

@@ -225,10 +225,14 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    for flag in ("--serve-queue-hi", "--fleet-quantum",
-                 "--serve-prefill-devices"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_cnn.parse(["alexnet", flag, "x"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_cnn.parse(["alexnet", "--fleet-quantum", "x"])
+    # the serving runtime's flags are ported: parsed as JAX parses them
+    for flag, field in (("--serve-queue-hi", "serve_queue_hi"),
+                        ("--serve-prefill-devices",
+                         "serve_prefill_devices")):
+        got = getattr(t_cnn.parse(["alexnet", flag, "3"])[1], field)
+        assert got == getattr(JConfig.from_args([flag, "3"]), field) == 3
     # the verification and executor switches are ported: parsed, their
     # values the port does not run refused with the reason
     _, cfg, _, _ = t_cnn.parse(["alexnet", "--dry-compile",

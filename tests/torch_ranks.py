@@ -1268,3 +1268,91 @@ MODELS = {"tiny": tiny, "alexnet": alexnet, "vgg_style": vgg_style,
 
 #: input channels of the models that do not take RGB images
 CHANNELS = {"placed_bn": 8, "set_family": 8}
+
+
+# ---------------------------------------------------------------------------
+# serving over ranks (tests/test_torch_serve_scale.py)
+
+
+def scale_requests():
+    """``tests/test_serve.py``'s gap-then-burst load: 3 early requests at
+    500 qps, then 30 virtual seconds later 12 at 2000 qps."""
+    from flexflow_tpu_torch.serve.loadgen import synthetic_requests
+
+    early = synthetic_requests(3, seed=0, rate_qps=500.0, vocab_size=64,
+                               prompt_len=4, max_new_tokens=2)
+    burst = synthetic_requests(12, seed=1, rate_qps=2000.0, vocab_size=64,
+                               prompt_len=4, max_new_tokens=2,
+                               start_v=early[-1].arrival_v + 30.0)
+    for i, r in enumerate(burst):
+        r.rid = 100 + i
+    return early + burst
+
+
+def serve_scale(machine, perf, trees_path, lm_kw, eng_kw, obs_path=None):
+    """The tiny GPT served over this world by an autoscaling
+    ``ServeEngine`` from the full params in ``trees_path`` under
+    :func:`scale_requests`, the search priced on ``perf`` (a dict of
+    ``HopperChipPerf`` fields; the JAX package's constants).  Returns
+    ``(summary, replies, stamps, resizes, strategies, out_of_service)``
+    from this rank's session (a rank called back at a grow holds rank 0's
+    from then on): the replies by rid, the strategies each re-search
+    chose (JSON, rank 0's), whether this rank ended parked."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.interop import params_from_jax
+    from flexflow_tpu_torch.serve.engine import ServeEngine
+    from flexflow_tpu_torch.sim import cost_model
+    from flexflow_tpu_torch.utils import elastic
+
+    hopper = cost_model.HopperChipPerf(**perf)
+    saved = cost_model.HopperChipPerf, elastic.research_strategy
+    chosen = []
+
+    def research(*args, **kwargs):
+        strategy, info = saved[1](*args, **kwargs)
+        chosen.append(strategy.to_json())
+        return strategy, info
+
+    cost_model.HopperChipPerf = lambda: hopper
+    elastic.research_strategy = research
+    try:
+        model, rebuild = serve.build_lm(batch=8, seed=0, tiny=True,
+                                        machine=machine, **lm_kw)
+        params, _ = load_trees(trees_path)
+        p = model.shard_params(params_from_jax(params, "cpu", model=model))
+        olog = obs.RunLog(obs_path, surface="serve") \
+            if obs_path and machine.rank == 0 else obs.NULL
+        eng = ServeEngine(model, rebuild, params=p, olog=olog,
+                          log=lambda *a: None, **eng_kw)
+        eng.start(scale_requests())
+        while eng.step_once():
+            pass
+        done = sorted(eng.session_completed(), key=lambda r: r.rid)
+        summary = eng.finish()
+        olog.close()
+        if eng._parked and machine.rank == 0:
+            elastic.release_standbys(eng._parked, {})
+    finally:
+        cost_model.HopperChipPerf, elastic.research_strategy = saved
+    summary.pop("wall_s")
+    stamps = [(r.rid, r.arrival_v, r.admit_v, r.first_token_v, r.done_v)
+              for r in done]
+    resizes = [{k: v for k, v in r.items()
+                if k not in ("research_s", "research", "total_s")}
+               for r in eng.resizes]
+    return (summary, {r.rid: list(r.reply) for r in done}, stamps, resizes,
+            chosen, eng.out_of_service)
+
+
+def serve_app(machine, argv):
+    """``apps.serve.main(argv)`` as one rank of a torchrun world (the
+    environment torchrun would set, the process group already made)."""
+    import os
+
+    from flexflow_tpu_torch.apps import serve
+
+    os.environ.update(RANK=str(machine.rank),
+                      WORLD_SIZE=str(machine.num_devices),
+                      LOCAL_RANK=str(machine.rank))
+    return serve.main(argv, log=lambda *a: None)
