@@ -26,12 +26,14 @@ its kernels.
                                        # the kernel build and the named
                                        # phases (lm, lm-obs, debug,
                                        # serve-forward, serve-disagg,
-                                       # serve-scale, resnet101,
+                                       # serve-scale, serve-search,
+                                       # serve-search-ranks, resnet101,
                                        # nmt, moe, runtime,
                                        # strategy, lm-strategy,
                                        # moe-strategy, pipeline, search and
                                        # strategy4, lm-strategy4,
-                                       # serve-scale4, pipeline4,
+                                       # serve-scale4,
+                                       # serve-search-ranks4, pipeline4,
                                        # search4) with the
                                        # phases they
                                        # read; no kernels line, a last
@@ -143,6 +145,27 @@ Phases (any failure exits non-zero):
    wall ms a step logged; on four cards ``apps.serve
    --serve-prefill-devices 2 --serve-prefill-replicas 2
    --serve-decode-replicas 2`` too;
+8c. the serving search (phase ``serve-search``): ``apps.search gpt
+   --serve --devices 1 -b 8 --measured`` (kernels 1-3 launched while it
+   times the shards) and ``--serve --disagg 1`` from the same cache, each
+   artifact's ``__predicted__.serve`` block present and its plans passing
+   the plan check; ``apps.serve gpt -s`` of the first at its
+   ``forward_step_s`` serving phase 8's 16 requests (phase 8's replies,
+   kernel 1 12 times a step); 8b's routed pools from the second (the
+   prefill plan, the decode pool's plan and step from ``serve.decode``):
+   8b's single-pool replies, kernel 1 12 times a forward step summed over
+   the replicas; each engine's simulated step beside its wall ms a step;
+   then ``apps.serve --disagg-smoke`` and ``--chaos-smoke``, ``apps.
+   loadtest --smoke`` and ``apps.loadtest --disagg --chaos
+   replica_crash@3,handoff_drop@5`` on cuda:0, each passing its checks;
+8d. the serving search over ranks (phase ``serve-search-ranks``), in
+   18b's world after 18g's run: ``apps.search gpt --serve --devices 2 -b
+   8 --measured`` made before the world starts, ``apps.serve gpt -s`` of
+   it in the world (every rank's replies the one-rank engine's, kernel 1
+   on rank 0 12 times a step, plain and partial forms together), then
+   ``apps.serve --smoke`` (the tiny GPT: 2 -> 1 -> 2, 46 completed, none
+   unserved or dropped); on four cards the same in 19's four NCCL ranks
+   (4 -> 3 -> 4);
 9. LM training slice: ``apps.lm`` at the JAX app's own example (causal,
    batch 16, seq 512, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    32768, float32, plain SGD at lr 1e-3) for 3 warm-up and 10 timed steps:
@@ -507,9 +530,12 @@ Phases (any failure exits non-zero):
     profiler, from the step's time held behind a sleep kernel;
 21. a ``kernels`` JSON line (the partial forms of kernels 1-6 under
     ``<name>.partial``, with rank 0's launches in phase 18b's two-rank
-    run; kernel 1 on the serving paths of phases 8b and 18g under
-    ``<name>.serve-disagg`` and ``<name>.serve-scale``, with the routed
-    run's launches and rank 0's), then, last, the ``ok`` JSON line.
+    run; kernel 1 on the serving paths of phases 8b, 18g, 8c and 8d under
+    ``<name>.serve-disagg``, ``<name>.serve-scale``, ``<name>.serve-search``
+    and ``<name>.serve-search-ranks``, with the routed run's launches,
+    rank 0's, the searched artifact's service's and rank 0's; kernels 2-3
+    under ``<name>.serve-search``, launched while 8c's search timed its
+    shards), then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -4461,9 +4487,13 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     el = _elastic_runs(ranks, root, len(runs))
     runs += el["runs"]
     # phase 18g: the autoscaling service in this world, before the drained
-    # run (a drain ends its world)
+    # run (a drain ends its world); then phase 8d's runs, whose serving
+    # search for this world's size is made here before the world starts
     serve_at = len(runs)
     runs.append(_serve_scale_argv(ranks, extra))
+    searched, search_runs = _serve_search_ranks(ranks, extra)
+    search_at = len(runs)
+    runs += search_runs
     if supervised:
         shutil.rmtree(drained, ignore_errors=True)
         runs[1] += ["--ckpt-async"]
@@ -4477,7 +4507,8 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
         rank0={len(runs) - 1: ["--fault-spec", "preempt@1"]}
         if supervised else None, sub=el["sub"],
         strategy_from=el["strategy_from"], elastic=el["hooks"],
-        apps={serve_at: "serve"}, bare=(serve_at,))
+        apps={serve_at: "serve", search_at: "serve", search_at + 1: "serve"},
+        bare=(serve_at, search_at, search_at + 1))
     label = (f"lm strategy {ranks} ranks "
              f"({' '.join(extra) or 'NCCL, a card a rank'})")
     step_ms = _log_ranks_run(label, results[0], seconds, card)
@@ -4486,7 +4517,12 @@ def _lm_ranks_run(ranks: int, root: Path, card: str, want_loss,
     _check_resume(label, results[0], results[1], whole, cut, steps, card)
     out = {"tokens_per_sec": results[0][0]["tokens_per_sec"],
            "step_ms": step_ms, "launches": results[0][0]["launches"],
-           "serve": results[serve_at]}
+           "serve": results[serve_at],
+           "serve_search": {"serve": results[search_at],
+                            "smoke": results[search_at + 1],
+                            "path": str(SERVE_SEARCH_ROOT
+                                        / f"serve_{ranks}.json"),
+                            "forward_step_s": searched["best_time_s"]}}
     out["elastic"] = _check_elastic(
         f"elastic {ranks} ranks", ranks, results[0][0]["loss"], root,
         f"lm_{ranks}", el, results, card, whole)
@@ -6294,7 +6330,7 @@ def serve_disagg_phase(torch, fa, kernels, card: str) -> dict:
         raise AssertionError(f"serve disagg under faults: replies "
                              f"{'equal' if got == want else 'differ'}, "
                              f"{fsum}")
-    out = {"launches": launches, "fault_launches": fn}
+    out = {"launches": launches, "fault_launches": fn, "replies": want}
     if cards >= 4:
         opts = serve.parse_args(["gpt", "-n", str(DISAGG_REQUESTS),
                                  "--serve-prefill-devices", "2",
@@ -6314,6 +6350,284 @@ def serve_disagg_phase(torch, fa, kernels, card: str) -> dict:
     del models, params
     torch.cuda.empty_cache()
     return out
+
+
+SERVE_SEARCH_ROOT = Path(__file__).resolve().parent / ".chip_serve_search"
+#: the serving search's MCMC proposals: enough for a two-card plan, few
+#: enough to stay a small share of the run
+SERVE_SEARCH_ITERS = 2000
+#: the serving tooling's runs on the card (phase 8c, step 4)
+SERVE_TOOLING = (["--disagg-smoke"], ["--chaos-smoke"])
+LOADTEST_RUNS = (["--smoke"],
+                 ["--disagg", "--chaos", "replica_crash@3,handoff_drop@5"])
+
+
+def _serve_search(torch, kernels, card: str, devices: int, path: Path,
+                  *extra, timed: bool = True) -> dict:
+    """``apps.search gpt --serve --devices <devices> -b 8 --measured``
+    (``extra``: ``--disagg 1``) with the shared cache into ``path``, held
+    as :func:`_measured_search` holds a search (with ``timed``, kernels
+    1-3 launched while timing: a search served from the cache times
+    nothing); the artifact's serve block present and its plan passing
+    ``verify/plan.check_plan`` on a shadow GPT."""
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.apps.cnn import check_strategy
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.ops.kernels import flash_attention as fa
+    from flexflow_tpu_torch.strategy import Strategy
+
+    argv = ["gpt", "--serve", "--devices", str(devices), "-b", "8", "-i",
+            str(SERVE_SEARCH_ITERS), "--cache",
+            str(SERVE_SEARCH_ROOT / "cache.json"), "-o", str(path),
+            *extra]
+    out = _measured_search(torch, kernels, card, argv,
+                           (fa.NAME, fa.NAME_DKV, fa.NAME_DQ) if timed
+                           else ())
+    out["timing_launches"] = {k: kernels.launches.get(k, 0) for k in (
+        fa.NAME, fa.NAME_DKV, fa.NAME_DQ)}
+    loaded = Strategy.load(str(path))
+    blk = (loaded.predicted or {}).get("serve") or {}
+    need = {"max_batch", "kv_cache_bytes_per_device", "forward_step_s"}
+    if extra:
+        need |= {"phase", "prefill", "decode"}
+    if not need <= set(blk) or blk["max_batch"] != 8 \
+            or blk["forward_step_s"] != out["best_time_s"]:
+        raise AssertionError(f"serve search {path.name}: serve block {blk}")
+    check_strategy(lambda m: serve.build_lm(batch=8, machine=m)[0], loaded,
+                   MachineModel.virtual(devices), False, path.name)
+    if extra:
+        dplan = serve._decode_pool_strategy(loaded, 8)
+        check_strategy(lambda m: serve.build_lm(batch=8, machine=m)[0],
+                       dplan, MachineModel.virtual(blk["decode"]["devices"]),
+                       False, f"{path.name}[decode]")
+    _log(f"serve search {path.name}: forward_step_s "
+         f"{blk['forward_step_s']:.6e}, kv_cache_bytes_per_device "
+         f"{blk['kv_cache_bytes_per_device']}"
+         + (f", prefill step_time_s {blk['prefill']['step_time_s']:.6e}, "
+            f"decode step_time_s {blk['decode']['step_time_s']:.6e} on "
+            f"{blk['decode']['devices']} card(s)" if extra else "")
+         + "; the plan check passes")
+    return out
+
+
+def serve_search_phase(torch, fa, kernels, card: str, sliced: dict,
+                       disagg: dict) -> dict:
+    """Phase 8c, the serving search: ``apps.search gpt --serve --devices 1
+    -b 8 --measured`` and ``--serve --disagg 1`` (kernels 1-3 launched
+    while timing; the serve blocks present, the plans checked); then
+    ``apps.serve gpt -s`` of the first serving phase 8's 16 requests at
+    the artifact's ``forward_step_s`` (every request completes, phase
+    8's replies, kernel 1 12 times a step); then phase 8b's routed pools
+    built from the ``--disagg`` artifact (the prefill plan, the decode
+    pool's plan and step from ``serve.decode``): 8b's single-pool
+    replies, kernel 1 12 times a forward step summed over the replicas;
+    each engine's simulated step beside its wall ms a step on the card;
+    then ``apps.serve --disagg-smoke`` and ``--chaos-smoke``, ``apps.
+    loadtest --smoke`` and ``apps.loadtest --disagg --chaos
+    replica_crash@3,handoff_drop@5`` on cuda:0, each passing its own
+    checks and printing its one line."""
+    import contextlib
+    import io
+
+    from flexflow_tpu_torch.apps import loadtest, serve
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.serve import loadgen
+    from flexflow_tpu_torch.serve.engine import ServeEngine
+    from flexflow_tpu_torch.serve.router import ServeRouter
+    from flexflow_tpu_torch.strategy import Strategy
+
+    shutil.rmtree(SERVE_SEARCH_ROOT, ignore_errors=True)
+    SERVE_SEARCH_ROOT.mkdir(parents=True)
+    one, dis = SERVE_SEARCH_ROOT / "serve1.json", \
+        SERVE_SEARCH_ROOT / "serve_d.json"
+    s1 = _serve_search(torch, kernels, card, 1, one)
+    # the same shards again: served from the cache
+    sd = _serve_search(torch, kernels, card, 1, dis, "--disagg", "1",
+                       timed=False)
+    blk, dblk = s1["serve"], sd["serve"]
+    # the single pool from the artifact, phase 8's load
+    opts = serve.parse_args(["gpt", "--requests", "16", "--max-new-tokens",
+                             "4", "--device", "cuda", "-s", str(one)])
+    engine, requests, _, _ = serve.build_engine(opts, log=_quiet)
+    if engine.step_time_s != blk["forward_step_s"]:
+        raise AssertionError(f"serve search: the engine steps "
+                             f"{engine.step_time_s}, the artifact says "
+                             f"{blk['forward_step_s']}")
+    timer = _timed_predict(torch, engine)
+    kernels.reset_launches()
+    summary = engine.run(requests)
+    torch.cuda.synchronize()
+    n = kernels.launches.get(fa.NAME, 0)
+    replies = [list(r.reply) for r in requests]
+    want = [list(r.reply) for r in sliced["requests"]]
+    _log(f"serve search -s {one.name}: {summary['completed']}/"
+         f"{summary['requests']} completed in {summary['steps']} steps, "
+         f"{n} {fa.NAME} launches; simulated forward_step_s "
+         f"{blk['forward_step_s'] * 1e3:.4f} ms beside the card's "
+         f"{timer['s'] / max(timer['n'], 1) * 1e3:.3f} ms a step; {card}")
+    if summary["completed"] != len(requests) or summary["unserved"]:
+        raise AssertionError(f"serve search: not every request completed: "
+                             f"{summary}")
+    if replies != want:
+        raise AssertionError(f"serve search: replies differ from phase "
+                             f"8's: {replies} vs {want}")
+    if n != GPT_WIDTHS[0] * summary["steps"] or n == 0:
+        raise AssertionError(f"serve search: {fa.NAME} launched {n} times, "
+                             f"expected {GPT_WIDTHS[0]} x {summary['steps']}")
+    served = n
+    del engine
+    torch.cuda.empty_cache()
+    # the routed pools of phase 8b, from the --disagg artifact
+    plan = Strategy.load(str(dis))
+    dplan = serve._decode_pool_strategy(plan, DISAGG_BATCH)
+    models = [serve.build_lm(batch=DISAGG_BATCH, seed=0, strategies=st,
+                             machine=MachineModel("cuda:0"))[0]
+              for st in (plan, plan, dplan)]
+    params = models[0].init(0)[0]
+    prefill = [ServeEngine(m, None, params=params, log=_quiet,
+                           phase="prefill") for m in models[:2]]
+    decode = [ServeEngine(models[2], None, params=params, log=_quiet,
+                          phase="decode")]
+    if (prefill[0].step_time_s, decode[0].step_time_s) != (
+            dblk["prefill"]["step_time_s"], dblk["decode"]["step_time_s"]):
+        raise AssertionError(f"serve search: pool steps "
+                             f"{prefill[0].step_time_s}, "
+                             f"{decode[0].step_time_s} against {dblk}")
+    timers = [_timed_predict(torch, e) for e in prefill + decode]
+    reqs = loadgen.patterned_requests(DISAGG_REQUESTS,
+                                      vocab_size=GPT_WIDTHS[4],
+                                      **DISAGG_LOAD)
+    kernels.reset_launches()
+    rsum = ServeRouter(prefill, decode, log=_quiet).run(reqs)
+    torch.cuda.synchronize()
+    rn = kernels.launches.get(fa.NAME, 0)
+    got = {r.rid: list(r.reply or ()) for r in reqs}
+    walls = ", ".join(
+        f"{e.phase}[{i}] simulated {e.step_time_s * 1e3:.4f} ms, card "
+        f"{tm['s'] / max(tm['n'], 1) * 1e3:.3f} ms a step ({tm['n']} steps)"
+        for (i, e), tm in zip([(0, prefill[0]), (1, prefill[1]),
+                               (0, decode[0])], timers))
+    _log(f"serve search routed from {dis.name}: {rsum['completed']}/"
+         f"{rsum['requests']} completed, {rsum['handoffs']} handoffs, "
+         f"{rsum['steps']} forward steps, {rn} {fa.NAME} launches; {walls}; "
+         f"{card}")
+    if got != disagg["replies"]:
+        raise AssertionError(f"serve search routed: replies differ from "
+                             f"8b's single pool's: {got} vs "
+                             f"{disagg['replies']}")
+    if rn != GPT_WIDTHS[0] * rsum["steps"] or rn == 0:
+        raise AssertionError(f"serve search routed: {fa.NAME} launched {rn} "
+                             f"times, expected {GPT_WIDTHS[0]} x "
+                             f"{rsum['steps']}")
+    del models, prefill, decode, params
+    torch.cuda.empty_cache()
+    # the serving tooling on the card
+    for app, runs in ((serve, SERVE_TOOLING), (loadtest, LOADTEST_RUNS)):
+        for argv in runs:
+            t = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = app.main(list(argv) + ["--device", "cuda:0"],
+                              log=_quiet)
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            _log(f"serve search tooling {app.__name__.split('.')[-1]} "
+                 f"{' '.join(argv)}: rc {rc}, {time.perf_counter() - t:.1f}"
+                 f" s; {json.dumps(line)}")
+            if rc != 0:
+                raise AssertionError(f"{app.__name__} {argv}: rc {rc}")
+    return {"launches": served, "routed_launches": rn,
+            "timing_launches": s1["timing_launches"],
+            "measurement": s1["measurement"]}
+
+
+def _serve_search_ranks(ranks: int, extra) -> tuple:
+    """The serving search of phase 8d, before its world starts: the
+    measured ``apps.search gpt --serve --devices <ranks>`` (the shared
+    cache) in this process; returns (the search's result, the runs
+    the world makes: ``apps.serve gpt -s`` of the artifact on phase
+    18g's load, then ``apps.serve --smoke``), each with ``extra``'s
+    device and backend flags."""
+    import torch
+
+    from flexflow_tpu_torch.ops import kernels
+
+    SERVE_SEARCH_ROOT.mkdir(parents=True, exist_ok=True)
+    path = SERVE_SEARCH_ROOT / f"serve_{ranks}.json"
+    out = _serve_search(torch, kernels, _card_line(), ranks, path)
+    flags = []
+    for flag in ("--device", "--dist-backend"):
+        if flag in extra:
+            flags += [flag, _flag(list(extra), flag)]
+    return out, [["gpt", "-n", "16", "--max-new-tokens", "4", "-s",
+                  str(path)] + flags, ["--smoke"] + flags]
+
+
+def serve_search_ranks_phase(torch, fa, kernels, card: str, ranks: int,
+                             runs: dict) -> dict:
+    """Phase 8d: in the ``--lm-ranks`` world of ``ranks``, ``apps.serve
+    gpt -s`` of the artifact searched for ``ranks`` cards (every
+    request completes, every rank's replies the one-rank engine's: on a
+    mismatch the request, the position and the top-2 gap; kernel 1 on
+    rank 0, plain and partial forms together, 12 times a step), then
+    ``apps.serve --smoke``: one shrink to ``3 * ranks // 4`` and one grow
+    back, 46 completed, none unserved or dropped."""
+    from flexflow_tpu_torch.apps import serve
+
+    label = f"serve search {ranks} ranks"
+    served, smoked = runs["serve"], runs["smoke"]
+    s = served[0]["summary"]
+    launches = {k: v for k, v in served[0]["launches"].items()
+                if k.startswith(fa.NAME)}
+    _log(f"{label}: -s {Path(runs['path']).name}: {s['completed']} "
+         f"completed in {s['steps']} steps, {s['wall_s']:.3f} s wall on "
+         f"rank 0, simulated forward_step_s "
+         f"{runs['forward_step_s'] * 1e3:.4f} ms beside the card's "
+         f"{s['wall_s'] / max(s['steps'], 1) * 1e3:.3f} ms a step; rank "
+         f"0's kernel 1 launches {launches}; {card}")
+    for r, res in enumerate(served):
+        if (res["summary"]["completed"], res["summary"]["unserved"]) \
+                != (16, 0):
+            raise AssertionError(f"{label}: rank {r} {res['summary']}")
+    if sum(launches.values()) != GPT_WIDTHS[0] * s["steps"] or not s["steps"]:
+        raise AssertionError(f"{label}: rank 0 launched {fa.NAME} "
+                             f"{launches}, expected {GPT_WIDTHS[0]} x "
+                             f"{s['steps']}")
+    engine, requests, _, _ = serve.build_engine(
+        serve.parse_args(["gpt", "-n", "16", "--max-new-tokens", "4",
+                          "--device", "cuda"]), log=_quiet)
+    engine.run(requests)
+    want = {str(r.rid): [int(x) for x in r.reply] for r in requests}
+    for r, res in enumerate(served):
+        for rid, reply in sorted(res["replies"].items()):
+            if reply == want[rid]:
+                continue
+            k = next(i for i, (a, b) in enumerate(zip(reply, want[rid]))
+                     if a != b)
+            prompt = next(q.tokens for q in requests if str(q.rid) == rid)
+            gap = _top2_gap(torch, engine, prompt, want[rid][:k])
+            raise AssertionError(
+                f"{label}: rank {r} request {rid} differs at new token "
+                f"{k}: {reply} vs the one-rank engine's {want[rid]}; the "
+                f"one-rank top-2 log-prob gap there {gap:.3e}")
+        if set(res["replies"]) != set(want):
+            raise AssertionError(f"{label}: rank {r} served "
+                                 f"{sorted(res['replies'])}")
+    del engine
+    torch.cuda.empty_cache()
+    target = 3 * ranks // 4
+    for r, res in enumerate(smoked):
+        dirs = [(z["direction"], z["from_devices"], z["to_devices"])
+                for z in res["resizes"]]
+        sm = res["summary"]
+        if dirs != [("shrink", ranks, target), ("grow", target, ranks)] \
+                or (sm["completed"], sm["unserved"], sm["dropped"]) \
+                != (46, 0, 0):
+            raise AssertionError(f"{label} --smoke: rank {r} resizes "
+                                 f"{dirs}, summary {sm}")
+    _log(f"{label}: every rank's 16 replies identical to the one-rank "
+         f"engine's; --smoke {ranks} -> {target} -> {ranks}, 46 completed, "
+         f"0 unserved, 0 dropped")
+    return {"launches": sum(launches.values()), "by_name": launches}
 
 
 def _serve_scale_argv(ranks: int, extra) -> list:
@@ -6426,7 +6740,10 @@ ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "pipeline4": "pipeline 4", "debug": "debug",
                "serve-forward": "serve forward",
                "serve-disagg": "serve disagg", "serve-scale": "serve scale",
-               "serve-scale4": "serve scale 4"}
+               "serve-scale4": "serve scale 4",
+               "serve-search": "serve search",
+               "serve-search-ranks": "serve search ranks",
+               "serve-search-ranks4": "serve search ranks 4"}
 PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
                "search": ("strategy",), "search 4": ("strategy",),
                "lm strategy": ("lm", "strategy"),
@@ -6435,6 +6752,10 @@ PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
                "pipeline 4": ("strategy", "pipeline", "lm", "lm strategy",
                               "lm strategy 4"),
                "serve scale": ("lm", "strategy", "lm strategy"),
+               "serve search": ("serving", "serve disagg"),
+               "serve search ranks": ("lm", "strategy", "lm strategy"),
+               "serve search ranks 4": ("lm", "strategy", "lm strategy",
+                                        "lm strategy 4"),
                "serve scale 4": ("lm", "strategy", "lm strategy",
                                  "lm strategy 4")}
 #: the exit status of an ``--only`` run whose phases passed: never 0, so
@@ -6531,6 +6852,8 @@ def main(argv) -> int:
     sliced = phase("serving", slice_phase, torch, fa, kernels)
     disagg = phase("serve disagg", serve_disagg_phase, torch, fa, kernels,
                    card)
+    served = phase("serve search", serve_search_phase, torch, fa, kernels,
+                   card, sliced, disagg)
     lm_run = phase("lm", lm_phase, torch, kernels, card)
     phase("lm obs", lm_obs_phase, torch, kernels, card, lm_run)
     phase("lm 1.3b", lm_phase, torch, kernels, card, LM13_WIDTHS,
@@ -6551,6 +6874,10 @@ def main(argv) -> int:
                         card, lm_run, strategy_run)
     scale = phase("serve scale", serve_scale_phase, torch, fa, kernels,
                   card, 2, (lm_strategy or {}).get("two", {}).get("serve"))
+    served_ranks = phase("serve search ranks", serve_search_ranks_phase,
+                         torch, fa, kernels, card, 2,
+                         (lm_strategy or {}).get("two", {})
+                         .get("serve_search"))
     moe_ranks = phase("moe strategy", moe_strategy_phase, torch, kernels,
                       card, moe_run, strategy_run, lm_strategy)
     pipe = phase("pipeline", pipeline_phase, torch, kernels, card,
@@ -6564,6 +6891,8 @@ def main(argv) -> int:
                     card, lm_strategy)
         phase("serve scale 4", serve_scale_phase, torch, fa, kernels, card,
               4, (lm4 or {}).get("serve"))
+        phase("serve search ranks 4", serve_search_ranks_phase, torch, fa,
+              kernels, card, 4, (lm4 or {}).get("serve_search"))
         phase("moe strategy 4", moe_strategy4_phase, torch, kernels, card,
               moe_ranks)
         phase("pipeline 4", pipeline4_phase, torch, kernels, card, pipe,
@@ -6611,11 +6940,25 @@ def main(argv) -> int:
                              "flexflow_tpu/ops/pallas/flash_attention.py:62",
                              run["launches"], checked["max_abs_err"],
                              checked["timings"]["float32"]))
+    # phases 8c and 8d: kernel 1 in the service from the searched
+    # artifact (one card) and on rank 0 of the world's, kernels 2-3 in
+    # the measured serving search's shard timing
+    for tag, n in (("serve-search", served["launches"]),
+                   ("serve-search-ranks", served_ranks["launches"])):
+        entries.append(entry(f"{fa.NAME}.{tag}", fa.SOURCE,
+                             "flexflow_tpu/ops/pallas/flash_attention.py:62",
+                             n, checked["max_abs_err"],
+                             checked["timings"]["float32"]))
     for name, line in ((fa.NAME_DKV, 158), (fa.NAME_DQ, 190)):
         entries.append(entry(
             name, fa.SOURCE_BWD,
             f"flexflow_tpu/ops/pallas/flash_attention.py:{line}",
             lm_n[name], flash_bwd["worst"][name],
+            flash_bwd["timings"][name]))
+        entries.append(entry(
+            f"{name}.serve-search", fa.SOURCE_BWD,
+            f"flexflow_tpu/ops/pallas/flash_attention.py:{line}",
+            served["timing_launches"][name], flash_bwd["worst"][name],
             flash_bwd["timings"][name]))
     for name, source, line in ((ce.NAME_FWD, ce.SOURCE, 39),
                                (ce.NAME_FWD_COMBINE, ce.SOURCE, 39),
@@ -6665,6 +7008,7 @@ def main(argv) -> int:
                              f"flexflow_tpu/ops/pallas/bn_act.py:{line}",
                              dense["launches"][name], bns["worst"][name],
                              dict(bns["step"][name], bound_by="bytes")))
+    shutil.rmtree(SERVE_SEARCH_ROOT, ignore_errors=True)
     _log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,8 @@ metrics (``metrics_path``), then the checks:
   1. the obs stream carries one ``step_budget`` record that holds the
      bucket invariant (every bucket non-negative, the buckets summing to
      at most the step's wall time: ``obs.budget.check_budget``);
-  2. the MFU waterfall renders from the fresh stream.  The JAX smoke
-     runs ``report budget <obs_dir>`` here; the port has no ``report``
-     app yet (ROADMAP Queue A item 7), so this smoke calls the two
-     functions that command calls, ``obs.budget.mfu_waterfall`` and
-     ``render_waterfall`` (``flexflow_tpu/apps/report.py:246-267``);
+  2. ``report budget <obs_dir>`` renders the MFU waterfall from the
+     fresh stream, as in the JAX smoke;
   3. the Prometheus textfile parses and carries finite ``mfu`` and
      throughput gauges, and the JSON snapshot exists;
   4. the fit trace's counter lanes (imgs/s, MFU, HBM bytes) pass
@@ -51,8 +48,8 @@ def main(argv=None, log=print) -> int:
     from flexflow_tpu_torch.data import synthetic_batches
     from flexflow_tpu_torch.machine import MachineModel
     from flexflow_tpu_torch.obs import read_run
-    from flexflow_tpu_torch.obs.budget import (check_budget, mfu_waterfall,
-                                               render_waterfall)
+    from flexflow_tpu_torch.apps import report
+    from flexflow_tpu_torch.obs.budget import check_budget
     from flexflow_tpu_torch.obs.metrics import read_textfile
     from flexflow_tpu_torch.obs.trace import (chrome_trace, fit_trace_events,
                                               validate_trace)
@@ -83,12 +80,11 @@ def main(argv=None, log=print) -> int:
         assert sum(buckets.values()) \
             <= budgets[0]["step_wall_s"] * (1 + 1e-6)
 
-        # the waterfall from the fresh stream, as `report budget` makes it
-        wf = mfu_waterfall(sorted(evs, key=lambda e: e.get("ts", 0.0)))
-        assert wf is not None and wf["mfu"] is not None, wf
-        assert not check_budget({"step_wall_s": wf["step_wall_s"],
-                                 "buckets": wf["buckets"]})
-        text = "\n".join(render_waterfall(wf))
+        # the waterfall renders from the fresh obs dir through the CLI
+        lines = []
+        rc = report.main(["budget", obs_dir], log=lines.append)
+        text = "\n".join(str(ln) for ln in lines)
+        assert rc == 0, f"report budget rc={rc}:\n{text}"
         assert "MFU waterfall" in text and "remove bucket" in text, text
         print(text, file=sys.stderr)
 

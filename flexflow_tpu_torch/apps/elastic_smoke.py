@@ -17,10 +17,9 @@ Two phases, in one world of ``--ranks`` processes (8 by default):
      losses of every step, two ``elastic_resize`` records (shrink, then
      grow), the records in the order injected fault -> device_loss ->
      resize (shrink) -> device_return -> resize (grow), boundary probe
-     records, ``ckpt_async`` records and a verified final checkpoint.
-
-The JAX smoke's ``summarize`` check belongs to ``obs/report.py``, which
-is not ported (ROADMAP Queue A item 7).  Failed checks exit non-zero::
+     records, ``ckpt_async`` records and a verified final checkpoint;
+``obs/report.py``'s ``summarize`` counts the two resizes, shrink then
+grow, as in the JAX smoke.  Failed checks exit non-zero::
 
     python -m flexflow_tpu_torch.apps.elastic_smoke [--ranks 4] \\
         [--device cpu | --device cuda:0]
@@ -94,6 +93,7 @@ def _worker(td: str, device: str) -> int:
     import torch
 
     from flexflow_tpu_torch import distributed, obs
+    from flexflow_tpu_torch.obs.report import summarize
     from flexflow_tpu_torch.utils import checkpoint as ckpt
 
     torch.set_num_threads(1)
@@ -167,6 +167,12 @@ def _worker(td: str, device: str) -> int:
     assert probes, f"boundary regrow probes must be recorded: {kinds}"
     assert "ckpt_async" in kinds, \
         f"async writer must emit ckpt_async records: {sorted(set(kinds))}"
+    summary = summarize(events)
+    assert "elastic" in summary \
+        and summary["elastic"]["counts"].get("elastic_resize") == 2, \
+        summary.get("elastic")
+    dirs = [r["direction"] for r in summary["elastic"]["resizes"]]
+    assert dirs == ["shrink", "grow"], dirs
     log(f"elastic-smoke ok: {ITERS} iters survived {FAULT_SPEC!r} with a "
         f"{ranks}->{ranks - 2} shrink at step {shrink['step']} "
         f"({shrink['total_s']:.2f} s) and a {ranks - 2}->{ranks} grow at "

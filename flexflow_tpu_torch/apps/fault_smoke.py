@@ -17,9 +17,8 @@ Two phases:
      ``fault`` -> ``rollback`` -> ``recovery``, with the reader's
      ``data_fault`` retry and ``recovery`` from ``hdf5``.
 
-The JAX smoke also checks ``obs/report.py``'s ``summarize`` (its fault
-counts); the port has no ``report`` yet (ROADMAP Queue A item 7), so this
-smoke counts the ``rollback`` records itself.  It returns 2 without
+The fault counts come from ``obs/report.py``'s ``summarize``, as in the
+JAX smoke.  It returns 2 without
 ``h5py``, as the JAX smoke does; a failed check exits non-zero::
 
     python -m flexflow_tpu_torch.apps.fault_smoke [--device cpu]
@@ -123,6 +122,7 @@ def main(argv=None, log=print) -> int:
             "HDF5 source)")
         return 2
     from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.obs.report import summarize
     from flexflow_tpu_torch.utils import checkpoint as ckpt
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -168,11 +168,10 @@ def main(argv=None, log=print) -> int:
         first("data_fault", source="hdf5", action="retry")
         first("recovery", source="hdf5", after="retry")
 
-        counts = {}
-        for e in events:
-            if e["kind"] in ("fault", "rollback", "recovery", "data_fault"):
-                counts[e["kind"]] = counts.get(e["kind"], 0) + 1
-        assert counts.get("rollback") == 1, counts
+        summary = summarize(events)
+        assert "faults" in summary and \
+            summary["faults"]["counts"].get("rollback") == 1, summary
+        counts = summary["faults"]["counts"]
 
         log(f"fault-smoke ok: {ITERS} iters survived {FAULT_SPEC!r} with 1 "
             f"rollback, final loss {final:.4f}, records: "

@@ -24,16 +24,27 @@ any other extension the reference's proto2 wire format.
 
 The JAX driver's flags: ``-i/--iters``, ``-b``, ``--seed``, ``--dtype``,
 ``--experts``, ``-obs-dir``, ``-run-id``, ``-chains``, ``-delta
-on|off|check``, ``--objective makespan|latency``, ``--decompose``,
-``--block-budget-s``, ``--boundary-refine-iters``, ``--no-audit``,
-``-trace``.  The flags of modules not ported raise
-``NotImplementedError``: ``--serve``, ``--disagg`` and ``--objective
-decode`` (serving search, ROADMAP Queue A item 6) and ``--audit`` (the
-compiled program's audit, item 7).  So does the JAX driver's
+on|off|check``, ``--objective makespan|latency|decode``, ``--serve``,
+``--disagg N``, ``--decompose``, ``--block-budget-s``,
+``--boundary-refine-iters``, ``--no-audit``, ``-trace``.  ``--audit``
+(the compiled program's audit, ROADMAP Queue A item 7) raises
+``NotImplementedError``.  So does the JAX driver's
 default audit, which runs where a saved strategy (``-o``) on a machine
 of several tiers claims a win over 1.05x, or carries an accepted
 ``__pipeline__`` block: there the port stops unless ``--no-audit`` is
 given.
+
+``--serve`` writes a serving artifact: the objective defaults to
+``latency`` and ``__predicted__`` gains a ``serve`` block (``max_batch``,
+``kv_cache_bytes_per_device``, ``forward_step_s``; ``phase`` ``decode``
+under ``--objective decode``) that ``apps.serve -s`` reads as its step
+and ``verify/plan.py`` charges the KV cache from.  ``--disagg N``
+(implies ``--serve``) makes the main search the prefill phase's plan
+and adds a companion search of the decode phase on its own N-card
+virtual slice under the ``decode`` objective, on the same
+``Topology.hopper`` family and the same cost model (a measured run
+times each shard once): the block's ``prefill`` and ``decode`` entries
+carry each phase's step, and ``decode`` its plan inline.
 
 The transformer (``transformer``, ``gpt``, ``bert``) under ``--objective
 makespan`` also gets the GPipe proposal
@@ -71,8 +82,6 @@ from flexflow_tpu_torch.machine import MachineModel, Topology
 
 #: flags of the JAX driver whose modules are not ported, and where
 UNPORTED_FLAGS = {
-    "--serve": "serving search (ROADMAP Queue A item 6)",
-    "--disagg": "serving search (ROADMAP Queue A item 6)",
     "--audit": "the compiled program's collective audit (ROADMAP Queue A "
                "item 7)",
 }
@@ -88,7 +97,8 @@ def parse_args(argv):
         "ici_group": None, "cache": "", "audit": None,
         "dtype": "float32", "dcn_calibration": "", "experts": 0,
         "obs_dir": "", "run_id": "", "chains": 1, "delta": "on",
-        "objective": "makespan", "decompose": False,
+        "objective": None, "decompose": False, "serve": False,
+        "disagg": 0,
         "block_budget_s": 0.0, "boundary_refine_iters": 0,
         "device": "cuda", "trace": False,
     }
@@ -134,6 +144,10 @@ def parse_args(argv):
             opts["delta"] = val()
         elif a == "--objective":
             opts["objective"] = val()
+        elif a == "--serve":
+            opts["serve"] = True
+        elif a == "--disagg":
+            opts["disagg"] = int(val())
         elif a == "--decompose":
             opts["decompose"] = True
         elif a == "--block-budget-s":
@@ -147,13 +161,13 @@ def parse_args(argv):
     if opts["delta"] not in ("on", "off", "check"):
         raise SystemExit(f"-delta must be on|off|check, got "
                          f"{opts['delta']!r}")
-    if opts["objective"] == "decode":
-        raise NotImplementedError(
-            "--objective decode is not ported to flexflow_tpu_torch: "
-            "serving search (ROADMAP Queue A item 6)")
-    if opts["objective"] not in ("makespan", "latency"):
-        raise SystemExit(f"--objective must be makespan|latency, got "
-                         f"{opts['objective']!r}")
+    if opts["disagg"]:
+        opts["serve"] = True
+    if opts["objective"] is None:
+        opts["objective"] = "latency" if opts["serve"] else "makespan"
+    if opts["objective"] not in ("makespan", "latency", "decode"):
+        raise SystemExit(f"--objective must be makespan|latency|decode, "
+                         f"got {opts['objective']!r}")
     return opts
 
 
@@ -198,10 +212,10 @@ def _search_kw(opts):
             "delta_check": opts["delta"] == "check"}
 
 
-def _machine(opts) -> MachineModel:
-    """The virtual machine searched for: ``--devices`` cards (default
-    the visible CUDA cards) on ``Topology.hopper``."""
-    n = opts["devices"]
+def _machine(opts, n=None) -> MachineModel:
+    """The virtual machine searched for: ``n`` cards (default
+    ``--devices``, else the visible CUDA cards) on ``Topology.hopper``."""
+    n = n or opts["devices"]
     if not n:
         import torch
 
@@ -209,7 +223,7 @@ def _machine(opts) -> MachineModel:
             raise RuntimeError("no CUDA card to search for: pass "
                                "--devices N")
         n = torch.cuda.device_count()
-    topo = Topology.hopper(opts["ici_group"] or min(n, NODE_CARDS))
+    topo = Topology.hopper(opts.get("ici_group") or min(n, NODE_CARDS))
     if opts["dcn_calibration"]:
         topo = topo.with_calibration(opts["dcn_calibration"])
     return MachineModel.virtual(n, topo)
@@ -274,6 +288,66 @@ def _write_sim_trace(opts, search, info, olog, log) -> str:
     log(f"sim trace written to {path} (sim:best + sim:dp lanes; open in "
         f"ui.perfetto.dev)")
     return path
+
+
+def _decode_companion_search(opts, cost_model, olog, log) -> dict:
+    """The ``--disagg N`` companion (``flexflow_tpu/apps/search.py:
+    440-470``): the decode phase's plan on its own N-card virtual slice
+    under the ``decode`` objective, with ``cost_model`` (a measured run
+    times each shard once).  The slice is the main search's topology
+    family, ``Topology.hopper`` (JAX's is its default ``Topology``; ROADMAP
+    Known differences).  Returns the ``serve.decode`` block: the step
+    time and the plan inline, so one artifact carries both phases."""
+    from flexflow_tpu_torch.sim.search import StrategySearch
+
+    n = opts["disagg"]
+    machine = _machine({"dcn_calibration": opts["dcn_calibration"]}, n)
+    model = build_model(opts["model"], machine, opts["batch_size"],
+                        opts["dtype"], opts["experts"])
+    search = StrategySearch(model, machine, cost_model=cost_model,
+                            obs=olog, objective="decode")
+    strategy, info = search.search(iters=opts["iters"],
+                                   seed=opts["seed"],
+                                   **_search_kw(opts))
+    log(f"disagg decode search: {n} device(s), step "
+        f"{info['best_time']:.3e}s ({info['speedup_vs_dp']:.2f}x vs dp)")
+    return {
+        "devices": n,
+        "objective": "decode",
+        "step_time_s": info["best_time"],
+        "speedup_vs_dp": info["speedup_vs_dp"],
+        "strategies": {name: {"dims": list(pc.dims),
+                              "devices": list(pc.devices)}
+                       for name, pc in strategy.items()},
+    }
+
+
+def _serve_block(opts, machine, model, strategy, info, cost_model, olog,
+                 log) -> dict:
+    """``__predicted__.serve`` (``flexflow_tpu/apps/search.py:204-240``):
+    the engine reads ``forward_step_s`` (or its phase's ``step_time_s``)
+    as its virtual step, the plan check charges
+    ``kv_cache_bytes_per_device`` to the phase that holds the cache."""
+    from flexflow_tpu_torch.serve.kv_cache import kv_cache_bytes
+
+    serve = {
+        "max_batch": opts["batch_size"],
+        "kv_cache_bytes_per_device": kv_cache_bytes(
+            model, opts["batch_size"], strategy=strategy),
+        "forward_step_s": info["best_time"],
+    }
+    if opts["objective"] == "decode":
+        serve["phase"] = "decode"
+    if opts["disagg"]:
+        # the main search is the prefill plan; the decode phase has its
+        # own searched step on its own slice
+        serve["phase"] = "prefill"
+        serve["prefill"] = {"devices": machine.num_devices,
+                            "objective": opts["objective"],
+                            "step_time_s": info["best_time"]}
+        serve["decode"] = _decode_companion_search(opts, cost_model, olog,
+                                                   log)
+    return serve
 
 
 def _propose_pipeline(opts, machine, model, search, strategy, info,
@@ -414,6 +488,10 @@ def main(argv=None, log=print) -> dict:
         "batch_size": opts["batch_size"],
         "objective": opts["objective"],
     }
+    if opts["serve"]:
+        strategy.predicted["serve"] = _serve_block(
+            opts, machine, model, strategy, info, cost_model, olog, log)
+        result["serve"] = strategy.predicted["serve"]
     if opts["trace"]:
         result["trace_path"] = _write_sim_trace(opts, search, info, olog,
                                                 log)

@@ -1,8 +1,8 @@
 """Model-size sweep of the strategy search: flat against decomposed at an
 equal proposal budget (PyTorch port of ``flexflow_tpu/apps/searchscale.py``).
 
-    python -m flexflow_tpu_torch.apps.searchscale --no-serving
-    python -m flexflow_tpu_torch.apps.searchscale --smoke --no-serving
+    python -m flexflow_tpu_torch.apps.searchscale
+    python -m flexflow_tpu_torch.apps.searchscale --smoke
     python -m flexflow_tpu_torch.apps.searchscale --sizes 0.1b,0.4b \\
         --devices 16 -o sweep.json
 
@@ -15,20 +15,19 @@ chunked single-chain search (``StrategySearch.search``) and the
 block-level sub-searches with shared-block memoization and boundary
 refinement (``StrategySearch.search_decomposed``).  Every decomposed
 plan passes through the plan checker (``verify/plan.py``): an
-error-severity finding fails the run.
+error-severity finding fails the run.  The headline row (``--headline``,
+default ``1.3b``) also gets a ``serving`` block: one decomposed search
+per serving objective (``latency``, one forward step; ``decode``, one
+single-token step), each plan stamped as ``apps.search --serve`` stamps
+it and passed through the plan checker forward-only with the KV cache
+charged.  ``--no-serving`` leaves it out, and so does ``--smoke``.
 
 stdout carries one JSON line (metric, value, unit, vs_baseline and the
 headline row's account); ``-o`` also writes the ``searchscale_bench_v1``
 artifact.  Every field is bit-deterministic under ``--seed`` except each
-row's ``timing`` block.  ``--smoke`` proves that on a 4-layer graph: it
+row's ``timing`` block and the serving searches' ``wall_s``.  ``--smoke`` proves that on a 4-layer graph: it
 runs the row twice, and fails unless the payloads are bit-identical,
 the shared-block memo hit and the stitched plan passed the plan gate.
-
-The JAX sweep also searches its headline row under the ``latency`` and
-``decode`` objectives; ``decode`` is serving search (ROADMAP Queue A item
-6), so a sweep whose headline size is among its sizes raises
-``NotImplementedError`` unless ``--no-serving`` is given (``--smoke``
-searches no serving block).
 """
 
 from __future__ import annotations
@@ -89,12 +88,6 @@ def parse_args(argv):
         opts["devices"] = min(opts["devices"], 8)
         opts["iters"] = min(opts["iters"], 4000)
         opts["serving"] = False
-    if opts["serving"] and opts["headline"] in _sizes(opts):
-        raise NotImplementedError(
-            f"searchscale: the headline row ({opts['headline']}) searches "
-            f"the latency and decode objectives; decode is serving search, "
-            f"not ported to flexflow_tpu_torch (ROADMAP Queue A item 6): "
-            f"pass --no-serving")
     return opts
 
 
@@ -209,6 +202,8 @@ def _row(size, opts, machine, stream_path, log):
                 dec.get("proposals_per_sec"), 1),
         },
     }
+    if opts["serving"] and size == opts["headline"]:
+        row["serving"] = _serving(model, machine, opts, olog, size, log)
     olog.close()
     log(f"searchscale: {size} ({params / 1e9:.2f}B params, "
         f"{row['ops']} ops) dp {row['dp_time_s']:.4f}s | flat "
@@ -222,9 +217,43 @@ def _row(size, opts, machine, stream_path, log):
     return row
 
 
+def _serving(model, machine, opts, olog, size, log) -> dict:
+    """The headline row's serving plans (``flexflow_tpu/apps/
+    searchscale.py:205-235``): one decomposed search per objective, each
+    plan stamped as ``apps.search --serve`` stamps it and gated
+    forward-only with the KV cache charged."""
+    from flexflow_tpu_torch.sim.search import StrategySearch
+
+    out = {}
+    for objective in ("latency", "decode"):
+        search = StrategySearch(model, machine, obs=olog,
+                                objective=objective)
+        t0 = time.perf_counter()
+        strategy, info = search.search_decomposed(iters=opts["iters"],
+                                                  seed=opts["seed"])
+        strategy.predicted = {"objective": objective,
+                              "serve": {"max_batch": model.t.batch_size}}
+        _gate(model, strategy, machine, f"{size}/{objective}", log)
+        out[objective] = {
+            "dp_time_s": _round(info["dp_time"], 9),
+            "best_time_s": _round(info["best_time"], 9),
+            "speedup_vs_dp": _round(info["speedup_vs_dp"]),
+            "memo_hits": info["memo_hits"],
+            "plan_gate_clean": True,
+            "wall_s": _round(time.perf_counter() - t0, 3),
+        }
+    return out
+
+
 def deterministic(row):
-    """The repro-contract view of a row: everything but ``timing``."""
-    return {k: v for k, v in row.items() if k != "timing"}
+    """The repro-contract view of a row: everything but ``timing`` and
+    the serving searches' ``wall_s``."""
+    out = {k: v for k, v in row.items() if k != "timing"}
+    if "serving" in out:
+        out["serving"] = {
+            obj: {k: v for k, v in blk.items() if k != "wall_s"}
+            for obj, blk in out["serving"].items()}
+    return out
 
 
 def run(opts, log=_err) -> dict:

@@ -57,14 +57,34 @@ completed, unserved, dropped, devices, drained); narration goes to
 stderr.  ``-obs-dir`` streams the serve_request, serve_batch,
 serve_resize and serve_summary records (and the router's); ``-metrics-path``
 exports the ff_qps, ff_queue_depth, ff_latency_p50_s, ff_latency_p99_s
-and ff_requests_total gauges (``obs/metrics.py``).  The JAX app's smokes
-(``--smoke``, ``--disagg-smoke``, ``--chaos-smoke``) are not ported.
+and ff_requests_total gauges (``obs/metrics.py``); ``python -m
+flexflow_tpu_torch.apps.report serve <obs_dir>`` renders them.
+
+The JAX app's three smokes, at its tiny 2-layer geometry, slots, loads
+and step times, each passing its own checks and ending in ``report
+serve`` and a validated ``serve_trace_events`` trace:
+
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.apps.serve --smoke
+    python -m flexflow_tpu_torch.apps.serve --disagg-smoke [--device cpu]
+    python -m flexflow_tpu_torch.apps.serve --chaos-smoke [--device cpu]
+
+``--smoke``: five requests through 8 slots and through 1 reply alike
+(on rank 0), then a gap-then-burst load autoscales the world
+``torchrun`` started (at least 2 ranks) down to ``3 * world // 4`` and
+back, 46 completed.  ``--disagg-smoke``: two prefill replicas and one
+decode replica serve a multi-turn load with the single pool's replies,
+then drain mid-run.  ``--chaos-smoke``: the resilience stack armed but
+idle is inert, then ``CHAOS_SMOKE_SPEC`` kills a decode replica and
+drops a KV transfer and every request still completes alike.  A
+replica is one card, priced at the JAX smoke's width
+(:func:`_tiny_engine`, :func:`pool_step_ratio`).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 
@@ -133,6 +153,11 @@ def parse_args(argv) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dist-backend", default=None)
     ap.add_argument("--result-json", default="")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--disagg-smoke", dest="disagg_smoke",
+                    action="store_true")
+    ap.add_argument("--chaos-smoke", dest="chaos_smoke",
+                    action="store_true")
     opts = vars(ap.parse_args(rest))
     opts.update({k: getattr(cfg, f) for k, f in CONFIG_OPTS.items()})
     return opts
@@ -535,12 +560,465 @@ def _result_line(summary, olog) -> str:
     return json.dumps(rec)
 
 
+# ---------------------------------------------------------------------------
+# the JAX app's three smokes (flexflow_tpu/apps/serve.py:414-828), at its
+# tiny 2-layer geometry, its slots, loads and step times
+
+
+def _smoke_devices(opts, n: int) -> list:
+    """The devices of a smoke's ``n`` one-card replicas: a card each where
+    enough are visible, else all on ``--device`` (``cuda:0`` shared on one
+    card), or the CPU."""
+    if torch.device(opts["device"]).type == "cpu":
+        return ["cpu"] * n
+    from flexflow_tpu_torch.machine import resolve_device
+
+    dev = resolve_device(opts["device"])   # raises without CUDA
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return [str(dev)] * n
+
+
+def _tiny_engine(device, batch, olog=None, metrics=None, *, step=None,
+                 phase="full", width=1):
+    """A one-card engine of the tiny GPT (seed 0) with ``batch`` slots,
+    priced as a replica ``width`` devices wide: its KV layout, which the
+    router prices each handoff from, takes the grid of a shadow graph on
+    ``MachineModel.virtual(width)`` (the JAX app's replica over ``width``
+    devices); the cache itself and the forward stay on the card."""
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.serve.engine import ServeEngine
+    from flexflow_tpu_torch.serve.kv_cache import KVCacheLayout
+
+    model, _ = build_lm(batch=batch, seed=0, tiny=True,
+                        machine=MachineModel(device))
+    eng = ServeEngine(model, None, olog=olog, metrics=metrics, log=_quiet,
+                      step_time_s=step, phase=phase)
+    if width > 1:
+        eng.kv_layout = KVCacheLayout.from_model(
+            _shadow(batch, width), eng.max_batch, eng.kv_window)
+    return eng
+
+
+def _shadow(batch: int, width: int):
+    """The tiny GPT at ``batch`` slots on a ``width``-device virtual
+    machine: a graph to price, never run."""
+    from flexflow_tpu_torch.machine import MachineModel
+
+    return build_lm(batch=batch, seed=0, tiny=True,
+                    machine=MachineModel.virtual(width))[0]
+
+
+def pool_step_ratio(batch: int, width: int) -> float:
+    """``decode_step_ratio`` of the tiny GPT at ``batch`` slots on a
+    shadow graph ``width`` devices wide: the decode pool's virtual step as
+    the JAX app prices its ``width``-device pool, for a replica that runs
+    on one card."""
+    from flexflow_tpu_torch.sim.search import decode_step_ratio
+
+    return decode_step_ratio(_shadow(batch, width))
+
+
+def _session_load():
+    from flexflow_tpu_torch.serve.loadgen import patterned_requests
+
+    return patterned_requests(12, seed=0, rate_qps=50.0, pattern="session",
+                              vocab_size=64, prompt_len=6, max_new_tokens=4)
+
+
+def _replies(reqs) -> dict:
+    return {r.rid: (list(r.reply) if r.reply is not None else None)
+            for r in reqs}
+
+
+def _assert_same_replies(got, want, reqs, engine, what) -> None:
+    """``got == want`` (rid -> reply); else fail naming the first request
+    and position that differ and ``engine``'s top-2 log-prob gap there
+    (a near tie: a rounding-level difference between two GEMM shapes)."""
+    if got == want:
+        return
+    rid = next(r for r in sorted(want) if got.get(r) != want[r])
+    a, b = got.get(rid) or [], want[rid]
+    pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+               min(len(a), len(b)))
+    prompt = next(r.tokens for r in reqs if r.rid == rid)
+    toks = np.zeros((engine.max_batch, engine.max_len), np.int32)
+    row = [int(t) for t in prompt] + list(b[:pos])
+    toks[0, :len(row)] = row
+    lp = engine.model.make_predict_step()(engine.params, {}, toks,
+                                          np.zeros_like(toks))[0]
+    top = torch.topk(lp[0, len(row) - 1].float(), 2).values
+    raise AssertionError(
+        f"{what}: request {rid} differs at position {pos} ({a} vs {b}); "
+        f"top-2 log-prob gap there {float(top[0] - top[1]):.3e}")
+
+
+def _render_serve(olog, log, need=None) -> None:
+    """``report serve`` of the smoke's stream (and its validated
+    ``serve_trace_events`` trace): both must render."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.apps.report import serve_main
+    from flexflow_tpu_torch.obs.trace import (chrome_trace,
+                                              serve_trace_events,
+                                              validate_trace)
+
+    events = list(obs.read_run(olog.path))
+    errors = validate_trace(chrome_trace(serve_trace_events(events)))
+    assert not errors, errors
+    rendered = []
+    rc = serve_main([olog.path], log=rendered.append)
+    assert rc == 0 and rendered, "report serve must render"
+    if need is not None:
+        assert any(need in ln for ln in rendered), \
+            f"report serve must render {need!r}"
+    for line in rendered:
+        log(line)
+    return events
+
+
+def _smoke_equivalence(opts, log) -> None:
+    """Batching must not change a reply: five requests through an 8-slot
+    engine and through a 1-slot engine, on one card, reply bit for bit
+    alike (``flexflow_tpu/apps/serve.py:417-445``; JAX's 8-slot engine
+    spans its 8 devices)."""
+    from flexflow_tpu_torch.serve.loadgen import synthetic_requests
+
+    dev = _smoke_devices(opts, 1)[0]
+    runs = []
+    for batch in (8, 1):
+        eng = _tiny_engine(dev, batch)
+        reqs = synthetic_requests(5, seed=0, rate_qps=1000.0, vocab_size=64,
+                                  prompt_len=4, max_new_tokens=3)
+        eng.run(reqs)
+        runs.append((_replies(reqs), reqs, eng))
+    (a, _, _), (b, reqs, one) = runs
+    _assert_same_replies(a, b, reqs, one,
+                         "batched replies must be bit-identical to "
+                         "single-request replies")
+    log(f"serve-smoke equivalence ok: {len(a)} replies bit-identical with "
+        f"batching on (8 slots) vs off (1 slot) on {dev}")
+
+
+def _smoke_lifecycle(opts, log, machine) -> dict:
+    """Gap-then-burst load against the autoscaling engine over the world
+    ``torchrun`` started (``flexflow_tpu/apps/serve.py:448-518``): 6
+    early requests, a 30-virtual-second gap (shrink to ``3 * world //
+    4`` ranks), a 40-request burst (queue-depth grow back).  Exactly one
+    resize each way, 46 completed, none unserved or dropped, finite
+    latencies, back at the world's size; the stream renders through
+    ``report serve``."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.obs.report import summarize
+    from flexflow_tpu_torch.serve.engine import ServeEngine
+    from flexflow_tpu_torch.serve.loadgen import synthetic_requests
+    from flexflow_tpu_torch.utils import elastic
+
+    world = machine.num_devices
+    target = 3 * world // 4
+    model, rebuild = build_lm(batch=24, seed=0, tiny=True, machine=machine,
+                              research_budget_s=2.0)
+    olog, metrics = _olog_metrics(opts, machine.device, machine.rank)
+    engine = ServeEngine(model, rebuild, olog=olog, metrics=metrics, log=log,
+                         queue_hi=4, idle_boundaries=3, shrink_to=target)
+    early = synthetic_requests(6, seed=0, rate_qps=500.0, vocab_size=64,
+                               prompt_len=4, max_new_tokens=3)
+    burst = synthetic_requests(40, seed=1, rate_qps=2000.0, vocab_size=64,
+                               prompt_len=4, max_new_tokens=3,
+                               start_v=early[-1].arrival_v + 30.0)
+    for i, r in enumerate(burst):
+        r.rid = 100 + i
+    try:
+        summary = engine.run(early + burst)
+        if engine._parked and engine.model.machine.rank == 0:
+            elastic.release_standbys(engine._parked,
+                                     {"devices": summary["devices"]})
+    finally:
+        olog.close()
+    dirs = [(r["direction"], r["from_devices"], r["to_devices"])
+            for r in engine.resizes]
+    want = [("shrink", world, target), ("grow", target, world)]
+    assert dirs == want, f"expected exactly {want}, got {dirs}"
+    assert summary["completed"] == 46 and summary["unserved"] == 0 \
+        and summary["dropped"] == 0, summary
+    assert math.isfinite(summary["p50_s"]) \
+        and math.isfinite(summary["p99_s"]), summary
+    assert summary["devices"] == world, \
+        f"the run must end on the whole world after the grow: {summary}"
+    if olog.enabled:
+        events = list(obs.read_run(olog.path))
+        srs = [e for e in events if e["kind"] == "serve_resize"]
+        assert [(r["direction"], r["from_devices"], r["to_devices"])
+                for r in srs] == dirs, srs
+        s = summarize(events)
+        assert s.get("serve", {}).get("summary", {}).get("dropped") == 0, \
+            s.get("serve")
+        _render_serve(olog, log, need="latency histogram")
+    log(f"serve-smoke lifecycle ok: {summary['completed']} served, resizes "
+        f"{dirs}, p50 {summary['p50_s'] * 1e3:.1f} ms, p99 "
+        f"{summary['p99_s'] * 1e3:.1f} ms")
+    summary["_olog"] = olog
+    summary["_rank"] = machine.rank
+    summary["_resizes"] = engine.resizes
+    return summary
+
+
+class _DrainAfter(dict):
+    """A deterministic drain flag: not requested for the first ``after``
+    checks, then requested (the router checks once per event-loop
+    boundary, so the drain lands at a fixed virtual instant)."""
+
+    def __init__(self, after: int):
+        super().__init__()
+        self.after = int(after)
+        self.checks = 0
+
+    def get(self, key, default=None):
+        if key == "requested":
+            self.checks += 1
+            return self.checks > self.after
+        return super().get(key, default)
+
+
+def _single_pool_replies(opts):
+    """The single-pool engine's replies to the session load (the routed
+    runs' ground truth): (replies, requests, engine)."""
+    eng = _tiny_engine(_smoke_devices(opts, 1)[0], 8)
+    reqs = _session_load()
+    eng.run(reqs)
+    return _replies(reqs), reqs, eng
+
+
+def _smoke_disagg(opts, log) -> dict:
+    """The disaggregation scenario (``flexflow_tpu/apps/serve.py:
+    539-635``): two prefill replicas of 2 slots and one decode replica
+    of 4, each one card priced at the JAX app's width (2, 2 and 4
+    devices: :func:`_tiny_engine`, :func:`pool_step_ratio`), serving the
+    seeded multi-turn ``session`` load. Every routed reply equals the
+    single pool's, the router hands off at least once and hits session
+    affinity at least once, and a mid-run drain finishes the in-flight
+    work, leaves the rest unserved and returns; the stream renders and
+    traces clean."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.serve.engine import DEFAULT_STEP_TIME_S
+    from flexflow_tpu_torch.serve.router import ServeRouter
+
+    devs = _smoke_devices(opts, 3)
+    dstep = DEFAULT_STEP_TIME_S * pool_step_ratio(4, 4)
+
+    def build_pools(olog, metrics):
+        prefill = [_tiny_engine(devs[j], 2, olog, metrics,
+                                step=DEFAULT_STEP_TIME_S, phase="prefill",
+                                width=2) for j in range(2)]
+        return prefill, [_tiny_engine(devs[2], 4, olog, metrics,
+                                      step=dstep, phase="decode", width=4)]
+
+    olog, metrics = _olog_metrics(opts, devs[0])
+    router = ServeRouter(*build_pools(olog, metrics), olog=olog,
+                         metrics=metrics, log=log)
+    reqs = _session_load()
+    summary = router.run(reqs)
+    expected, sreqs, single = _single_pool_replies(opts)
+    _assert_same_replies(_replies(reqs), expected, sreqs, single,
+                         "routed replies must be bit-identical to the "
+                         "single-pool engine's")
+    assert summary["handoffs"] >= 1 and summary["affinity_hits"] >= 1, \
+        f"the smoke must exercise the router: {summary['handoffs']} " \
+        f"handoff(s), {summary['affinity_hits']} affinity hit(s)"
+    assert summary["completed"] == 12 and summary["unserved"] == 0, summary
+    assert summary["kv_refetches"] == 0, summary
+    # a mid-run drain on fresh pools after three event-loop boundaries
+    router2 = ServeRouter(*build_pools(olog, metrics), olog=olog,
+                          metrics=metrics, log=log)
+    dsum = router2.run(_session_load(), drain=_DrainAfter(3))
+    assert dsum["drained"], dsum
+    assert dsum["completed"] + dsum["unserved"] == 12 \
+        and dsum["unserved"] >= 1, dsum
+    olog.close()
+    if olog.enabled:
+        kinds = {e["kind"] for e in obs.read_run(olog.path)}
+        assert {"serve_handoff", "router_summary"} <= kinds, kinds
+        _render_serve(olog, log)
+    log(f"disagg-smoke ok: {summary['completed']} routed replies "
+        f"bit-identical to single-pool, {summary['handoffs']} handoff(s), "
+        f"{summary['affinity_hits']} affinity hit(s); drain left "
+        f"{dsum['unserved']} unserved and exited clean")
+    summary["_olog"] = olog
+    summary["_drained"] = dsum
+    return summary
+
+
+#: the seeded chaos of the recovery phase: the decode pool's third health
+#: probe kills a replica mid-decode, the fifth KV transfer is dropped on
+#: the wire; both recover under the default retry budget
+CHAOS_SMOKE_SPEC = "replica_crash@3,handoff_drop@5"
+
+
+def _smoke_chaos(opts, log) -> dict:
+    """The resilience scenario (``flexflow_tpu/apps/serve.py:646-812``)
+    on two prefill and two decode replicas of 2 slots, each one card
+    priced at the JAX app's 2 devices:
+
+    1. the resilience machinery armed (an injector with an empty spec, a
+       ``RetryPolicy``, an ``AdmissionGate``) but never firing is inert:
+       replies and summary counters equal a plain router's and the
+       single pool's;
+    2. ``CHAOS_SMOKE_SPEC``: every request still completes with the same
+       replies, one replica down, at least one KV rebuild and two
+       retries, none unserved, failed or shed, the crashed replica back
+       by the end; the stream renders (with its resilience line) and
+       traces clean."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.serve.engine import DEFAULT_STEP_TIME_S
+    from flexflow_tpu_torch.serve.router import AdmissionGate, ServeRouter
+    from flexflow_tpu_torch.utils.faultinject import (FaultInjector,
+                                                      install_scoped)
+    from flexflow_tpu_torch.utils.retry import RetryPolicy
+
+    devs = _smoke_devices(opts, 4)
+    dstep = DEFAULT_STEP_TIME_S * pool_step_ratio(2, 2)
+
+    def build_pools(olog, metrics):
+        prefill = [_tiny_engine(devs[j], 2, olog, metrics,
+                                step=DEFAULT_STEP_TIME_S, phase="prefill",
+                                width=2) for j in range(2)]
+        decode = [_tiny_engine(devs[2 + j], 2, olog, metrics, step=dstep,
+                               phase="decode", width=2) for j in range(2)]
+        return prefill, decode
+
+    def resilient_router(olog, metrics):
+        return ServeRouter(*build_pools(olog, metrics), olog=olog,
+                           metrics=metrics, log=log,
+                           retry_policy=RetryPolicy(),
+                           admission=AdmissionGate())
+
+    expected, sreqs, single = _single_pool_replies(opts)
+    # phase 1: armed but idle against a plain router
+    plain = ServeRouter(*build_pools(obs.NULL, None), log=_quiet)
+    breqs = _session_load()
+    bsum = plain.run(breqs)
+    olog, metrics = _olog_metrics(opts, devs[0])
+    router = resilient_router(olog, metrics)
+    idle = FaultInjector("")
+    restore = install_scoped(idle)
+    try:
+        areqs = _session_load()
+        asum = router.run(areqs)
+    finally:
+        restore()
+    _assert_same_replies(_replies(breqs), expected, sreqs, single,
+                         "the plain router's replies")
+    _assert_same_replies(_replies(areqs), expected, sreqs, single,
+                         "armed-but-idle resilience machinery must be "
+                         "byte-inert")
+    assert idle.fired() == 0, f"an empty spec must never fire: {idle.fired()}"
+    assert asum["retries"] == asum["shed"] == asum["failed"] == 0 \
+        and asum["replica_down"] == 0 and asum["kv_rebuilds"] == 0, asum
+    inert_keys = ("completed", "unserved", "shed", "failed", "handoffs",
+                  "affinity_hits", "kv_refetches", "steps", "p50_s",
+                  "p99_s", "ttft_p50_s", "virtual_s")
+    diverged = {k: (bsum[k], asum[k]) for k in inert_keys
+                if bsum[k] != asum[k]}
+    assert not diverged, \
+        f"armed summary diverged from the plain router's: {diverged}"
+    log(f"chaos-smoke equivalence ok: armed-but-idle machinery byte-inert "
+        f"({asum['completed']} replies bit-identical to plain router and "
+        f"single pool)")
+    # phase 2: the seeded chaos; recovery must be total
+    router2 = resilient_router(olog, metrics)
+    inj = FaultInjector(CHAOS_SMOKE_SPEC, olog=olog)
+    restore2 = install_scoped(inj)
+    try:
+        creqs = _session_load()
+        csum = router2.run(creqs)
+    finally:
+        restore2()
+    _assert_same_replies(
+        {r.rid: list(r.reply) for r in creqs if r.reply is not None},
+        expected, sreqs, single,
+        "recovered replies must be bit-identical to the fault-free run")
+    assert csum["completed"] == 12 and csum["unserved"] == 0 \
+        and csum["failed"] == 0 and csum["shed"] == 0, csum
+    assert csum["completed"] + csum["unserved"] + csum["shed"] \
+        + csum["failed"] == csum["requests"] == 12, csum
+    assert csum["replica_down"] == 1, csum
+    assert csum["kv_rebuilds"] >= 1, \
+        f"the crash must force >= 1 KV re-materialization: {csum}"
+    assert csum["retries"] >= 2, csum
+    assert csum["replicas_live"] == 2, \
+        f"the crashed replica must be back by run end: {csum}"
+    assert inj.fired("replica_crash") == 1 \
+        and inj.fired("handoff_drop") == 1, \
+        f"spec {CHAOS_SMOKE_SPEC!r} must fire both faults: " \
+        f"{inj.fired('replica_crash')} crash(es), " \
+        f"{inj.fired('handoff_drop')} drop(s)"
+    olog.close()
+    if olog.enabled:
+        events = _render_serve(olog, log, need="resilience:")
+        downs = [e for e in events if e["kind"] == "replica_down"]
+        retries = [e for e in events if e["kind"] == "serve_retry"]
+        rebuilds = [e for e in events if e["kind"] == "kv_rebuild"]
+        assert len(downs) == 1 and downs[0]["replica"] == 0, downs
+        assert len(retries) == csum["retries"] and len(retries) >= 2, \
+            retries
+        assert len(rebuilds) == csum["kv_rebuilds"] >= 1, rebuilds
+        assert not any(e["kind"] == "serve_fault" for e in events)
+    log(f"chaos-smoke recovery ok: {CHAOS_SMOKE_SPEC!r} -> "
+        f"{csum['completed']}/12 complete with bit-identical replies, "
+        f"{csum['replica_down']} replica down, {csum['kv_rebuilds']} KV "
+        f"rebuild(s), {csum['retries']} retry(ies), 0 lost")
+    csum["_olog"] = olog
+    csum["_armed"] = asum
+    return csum
+
+
+def smoke(opts, log=_err, machine=None) -> dict:
+    """``--smoke``: the equivalence on one rank (rank 0), then the
+    lifecycle over the world ``torchrun`` started, which must hold at
+    least two ranks (JAX's smoke refuses anything but its 8 devices)."""
+    machine = machine if machine is not None else machine_for(opts)
+    if machine.num_devices < 2:
+        raise SystemExit(
+            f"serve --smoke autoscales over the ranks torchrun starts and "
+            f"needs at least 2, got {machine.num_devices} (torchrun "
+            f"--nproc-per-node 2 -m flexflow_tpu_torch.apps.serve --smoke)")
+    if machine.rank != 0:
+        log = _quiet
+    else:
+        _smoke_equivalence(opts, log)
+    return _smoke_lifecycle(opts, log, machine)
+
+
 def main(argv=None, log=_err) -> int:
     opts = parse_args(sys.argv[1:] if argv is None else argv)
-    summary = serve_run(opts, log)
+    smoker = _smoke_chaos if opts["chaos_smoke"] else (
+        _smoke_disagg if opts["disagg_smoke"] else (
+            smoke if opts["smoke"] else None))
+    if smoker is None:
+        summary = serve_run(opts, log)
+    elif opts["obs_dir"]:
+        summary = smoker(opts, log)
+    else:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="ff-serve-smoke-") as td:
+            opts["obs_dir"] = os.path.join(td, "obs")
+            summary = smoker(opts, log)
+    if smoker is not None and opts["result_json"]:
+        _write_smoke_result(opts["result_json"], summary)
     if summary.pop("_rank", 0) == 0:
         print(_result_line(summary, summary.pop("_olog")))
     return 0
+
+
+def _write_smoke_result(path, summary) -> None:
+    """A smoke's summary and resizes, to ``path`` on rank 0 and
+    ``path.rank<r>`` on rank r."""
+    rank = summary.get("_rank", 0)
+    res = {"summary": {k: v for k, v in summary.items()
+                       if not k.startswith("_")},
+           "resizes": summary.get("_resizes", [])}
+    with open(f"{path}.rank{rank}" if rank else path, "w") as f:
+        json.dump(res, f)
 
 
 if __name__ == "__main__":

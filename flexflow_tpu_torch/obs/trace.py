@@ -14,11 +14,15 @@ the two that ``apps/calibrate.py --from-obs`` refits from.
   * :func:`real_op_seconds` / :func:`sim_op_seconds` /
     :func:`drift_attribution` — measured against simulated seconds per
     op, ranked by each op's share of the absolute drift;
+  * :func:`serve_trace_events` — a serving run's lanes: each request's
+    queue, prefill, KV handoff and decode spans, the admission groups'
+    arrows, the ``serve_batch`` counters (per pool when routed) and the
+    resilience marks (``serve_retry``, ``serve_fault``, ``kv_rebuild``,
+    ``serve_shed``, ``replica_down``);
   * :func:`trace_events_from_file` — the events of a written trace.
 
-The serving and fleet lanes (``serve_trace_events``,
-``fleet_trace_events``) come with the ports of serving's autoscaler and
-of the fleet (ROADMAP Queue A items 6 and 7).
+The fleet's lanes (``fleet_trace_events``) come with the port of the
+fleet (ROADMAP Queue A item 7).
 
 ``python -m flexflow_tpu_torch.obs.trace --smoke`` simulates a toy
 two-device graph on the port's native simulator, exports its trace and
@@ -38,6 +42,7 @@ _US = 1e6  # trace_event timestamps/durations are microseconds
 PID_SIM_BEST = 0
 PID_SIM_DP = 1
 PID_REAL = 2
+PID_SERVE = 3
 
 
 def meta_event(pid: int, name: str, tid: Optional[int] = None) -> Dict:
@@ -272,6 +277,215 @@ def validate_trace(trace: Any) -> List[str]:
                     f"pid={pid} tid={tid} (start {ts} < prev end {end})")
             end = max(end, ts + dur)
     return errors
+
+
+# ---------------------------------------------------------------------------
+# serving lanes: per-request lifecycle + engine counters
+
+
+def serve_trace_events(records: Iterable[Dict], pid: int = PID_SERVE,
+                       label: str = "serve") -> List[Dict]:
+    """Chrome events for one serve-engine or router run
+    (``flexflow_tpu/obs/trace.py:290-494``), from its
+    ``serve_request`` / ``serve_batch`` obs records (virtual-clock
+    timestamps, so the trace is bit-identical under a fixed seed).
+
+    Lanes:
+
+      * one thread per request (``req <rid>``): a ``queue`` span from
+        arrival to admission, then a ``decode`` span from admission to
+        completion carrying TTFT/TPOT/latency in ``args``.  Request
+        cats are NOT ``compute`` — concurrent requests legitimately
+        overlap across lanes and within a continuous batch;
+      * ROUTED requests (a ``serve_handoff`` record exists for the
+        rid, serve/router.py) split the lane into the full lifecycle:
+        ``queue`` (arrival -> admit), a ``prefill`` span (admit ->
+        first token, the prompt pass), a ``handoff`` flow arrow
+        (``ph: "s"``/``"f"``) spanning the priced KV transfer, then
+        the ``decode`` span from the handoff landing to completion;
+      * admission flow arrows (``ph: "s"``/``"f"``): requests admitted
+        at the same virtual instant are one continuous-batching
+        admission group — the arrow runs from the group's first
+        request lane to each other member;
+      * counter lanes from ``serve_batch``: queue depth, active/
+        admitted slots, and KV-cache occupancy (tokens + fraction of
+        the ``max_batch x max_seq`` rectangle) over virtual time —
+        per pool (``... [prefill]``/``... [decode]``) when the batch
+        records carry pool labels;
+      * resilience instants (``ph: "i"``, cat ``fault`` — never
+        ``compute``, so the overlap check ignores them): per-request
+        marks on the rid's lane for ``serve_retry`` / ``serve_fault``
+        / ``kv_rebuild`` / ``serve_shed`` records (shed rids get a
+        lane even though they never produce a ``serve_request``), and
+        process-scoped ``replica_down`` marks on a dedicated
+        ``replica faults`` lane.
+
+    Timestamps are shifted so the earliest arrival lands at 0 (trace
+    viewers and :func:`validate_trace` want non-negative ts)."""
+    records = list(records)
+    reqs = [r for r in records if r.get("kind") == "serve_request"]
+    batches = [r for r in records if r.get("kind") == "serve_batch"]
+    handoffs = {r.get("rid"): r for r in records
+                if r.get("kind") == "serve_handoff"}
+    marks = [r for r in records
+             if r.get("kind") in ("serve_retry", "serve_fault",
+                                  "kv_rebuild", "serve_shed")]
+    downs = [r for r in records if r.get("kind") == "replica_down"]
+    events = [meta_event(pid, label)]
+    if not reqs and not batches and not marks and not downs:
+        return events
+    t0 = min([float(r["arrival_v"]) for r in reqs
+              if r.get("arrival_v") is not None]
+             + [float(b["vnow"]) for b in batches
+                if b.get("vnow") is not None]
+             + [float(m["vnow"]) for m in marks + downs
+                if m.get("vnow") is not None] + [0.0])
+
+    def ts(v: float) -> float:
+        return (float(v) - t0) * _US
+
+    tids: Dict[Any, int] = {}
+    for r in reqs:
+        rid = r.get("rid")
+        if rid not in tids:
+            tids[rid] = 10 + len(tids)
+            events.append(meta_event(pid, f"req {rid}", tids[rid]))
+        tid = tids[rid]
+        arrival = r.get("arrival_v")
+        admit = r.get("admit_v")
+        done = r.get("done_v")
+        if arrival is not None and admit is not None:
+            events.append({
+                "name": f"queue {rid}", "cat": "queue", "ph": "X",
+                "ts": ts(arrival),
+                "dur": max(0.0, (float(admit) - float(arrival)) * _US),
+                "pid": pid, "tid": tid,
+                "args": {"rid": rid,
+                         "queue_wait_s": float(admit) - float(arrival)}})
+        decode_args = {"rid": rid, "latency_s": r.get("latency_s"),
+                       "ttft_s": r.get("ttft_s"),
+                       "tpot_s": r.get("tpot_s"),
+                       "prompt_len": r.get("prompt_len"),
+                       "new_tokens": r.get("new_tokens")}
+        ho = handoffs.get(rid)
+        first = r.get("first_token_v")
+        land = ho.get("handoff_v") if ho else None
+        if ho is not None and admit is not None and done is not None \
+                and first is not None and land is not None:
+            # routed lifecycle: prefill span -> handoff flow arrow
+            # (spanning the priced KV transfer) -> decode span.  Flow
+            # ids live above 1_000_000 so they never collide with the
+            # admission-group ids (which enumerate from 0).
+            events.append({
+                "name": f"prefill {rid}", "cat": "prefill", "ph": "X",
+                "ts": ts(admit),
+                "dur": max(0.0, (float(first) - float(admit)) * _US),
+                "pid": pid, "tid": tid,
+                "args": {"rid": rid, "prompt_len": r.get("prompt_len"),
+                         "from_replica": ho.get("from_replica")}})
+            flow_id = 1_000_000 + tid
+            ho_args = {"rid": rid, "bytes": ho.get("bytes"),
+                       "hops": ho.get("hops"),
+                       "predicted_s": ho.get("predicted_s"),
+                       "from_replica": ho.get("from_replica"),
+                       "to_replica": ho.get("to_replica")}
+            events.append({"name": "handoff", "cat": "handoff",
+                           "ph": "s", "id": flow_id, "ts": ts(first),
+                           "pid": pid, "tid": tid, "args": ho_args})
+            events.append({"name": "handoff", "cat": "handoff",
+                           "ph": "f", "bp": "e", "id": flow_id,
+                           "ts": ts(land), "pid": pid, "tid": tid,
+                           "args": ho_args})
+            decode_args["to_replica"] = ho.get("to_replica")
+            events.append({
+                "name": f"decode {rid}", "cat": "decode", "ph": "X",
+                "ts": ts(land),
+                "dur": max(0.0, (float(done) - float(land)) * _US),
+                "pid": pid, "tid": tid, "args": decode_args})
+        elif admit is not None and done is not None:
+            events.append({
+                "name": f"decode {rid}", "cat": "decode", "ph": "X",
+                "ts": ts(admit),
+                "dur": max(0.0, (float(done) - float(admit)) * _US),
+                "pid": pid, "tid": tid, "args": decode_args})
+    # resilience marks: per-request fault/retry/rebuild/shed instants
+    # on the rid's lane (allocated on demand — a shed request has no
+    # serve_request record, but its refusal still deserves a mark)
+    for m in marks:
+        rid, vnow = m.get("rid"), m.get("vnow")
+        if vnow is None:
+            continue
+        if rid not in tids:
+            tids[rid] = 10 + len(tids)
+            events.append(meta_event(pid, f"req {rid}", tids[rid]))
+        args = {k: m.get(k) for k in
+                ("rid", "reason", "attempt", "attempts", "delay_s",
+                 "tokens", "to_replica", "burn_rate", "priority")
+                if m.get(k) is not None}
+        events.append({"name": m["kind"], "cat": "fault", "ph": "i",
+                       "s": "t", "ts": ts(vnow), "pid": pid,
+                       "tid": tids[rid], "args": args})
+    # pool-level replica_down instants on a dedicated faults lane
+    if downs:
+        events.append(meta_event(pid, "replica faults", 9))
+    for d in downs:
+        vnow = d.get("vnow")
+        if vnow is None:
+            continue
+        events.append({
+            "name": f"replica_down {d.get('pool')}[{d.get('replica')}]",
+            "cat": "fault", "ph": "i", "s": "p", "ts": ts(vnow),
+            "pid": pid, "tid": 9,
+            "args": {k: d.get(k) for k in
+                     ("pool", "replica", "in_flight", "queued",
+                      "restart_s") if d.get(k) is not None}})
+    # admission groups -> flow arrows between member lanes
+    groups: Dict[float, List[Dict]] = {}
+    for r in reqs:
+        if r.get("admit_v") is not None:
+            groups.setdefault(float(r["admit_v"]), []).append(r)
+    for flow_id, admit in enumerate(sorted(groups)):
+        members = groups[admit]
+        if len(members) < 2:
+            continue  # a single admission needs no arrow
+        head, rest = members[0], members[1:]
+        events.append({"name": "admit", "cat": "admission", "ph": "s",
+                       "id": flow_id, "ts": ts(admit), "pid": pid,
+                       "tid": tids[head.get("rid")],
+                       "args": {"batch": len(members)}})
+        for m in rest:
+            events.append({"name": "admit", "cat": "admission",
+                           "ph": "f", "bp": "e", "id": flow_id,
+                           "ts": ts(admit), "pid": pid,
+                           "tid": tids[m.get("rid")],
+                           "args": {"batch": len(members)}})
+    for b in batches:
+        vnow = b.get("vnow")
+        if vnow is None:
+            continue
+        bts = ts(vnow)
+        # disaggregated pools get their own counter tracks ("queue
+        # depth [prefill]" / "[decode]"); single-pool runs keep the
+        # plain names.
+        pool = b.get("pool") or ""
+        suffix = f" [{pool}]" if pool else ""
+        if isinstance(b.get("queue_depth"), (int, float)):
+            events.append({"name": f"queue depth{suffix}", "ph": "C",
+                           "pid": pid, "tid": 0, "ts": bts,
+                           "args": {"queued": float(b["queue_depth"])}})
+        slots = {k: float(b[k]) for k in ("active", "admitted")
+                 if isinstance(b.get(k), (int, float))}
+        if slots:
+            events.append({"name": f"slots{suffix}", "ph": "C",
+                           "pid": pid, "tid": 0, "ts": bts,
+                           "args": slots})
+        kv = {k: float(b[k]) for k in ("kv_tokens", "kv_frac")
+              if isinstance(b.get(k), (int, float))}
+        if kv:
+            events.append({"name": f"KV cache{suffix}", "ph": "C",
+                           "pid": pid, "tid": 0, "ts": bts,
+                           "args": kv})
+    return events
 
 
 # ---------------------------------------------------------------------------

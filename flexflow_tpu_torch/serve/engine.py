@@ -30,7 +30,8 @@ same tokens and every rank's scheduler makes the same decisions.
 grows it back (:meth:`_resize`, ``utils/elastic.serve_resize``: the live
 params and state gathered, the world re-formed, a re-search under the
 latency objective on rank 0 shared through the store, ``rebuild(config,
-machine)`` on every rank, the state scattered).  A parked rank stands by
+machine)`` on every rank, the state scattered; a decode pool's engine
+re-searches under the ``decode`` objective).  A parked rank stands by
 out of every world; a grow calls it back and rank 0 hands it the
 scheduler session (queue, slots and their tokens, virtual clock, counts,
 completed requests, resizes) over the new world; its KV cache restarts
@@ -111,8 +112,9 @@ class ServeEngine:
     ``idle_boundaries`` / ``shrink_to`` are the watermarks (0 disables a
     trigger).  ``phase`` is ``"full"`` (one pool), ``"prefill"`` or
     ``"decode"`` (the router's pools); ``pool`` labels the records and
-    gauges.  A decode engine that autoscales would re-search under the
-    ``decode`` objective, which is not ported: it is refused."""
+    gauges.  A decode engine that autoscales re-searches under the
+    ``decode`` objective; its phase, pool label and step time stay across
+    every resize."""
 
     def __init__(self, model, rebuild=None, *, params=None, olog=None,
                  metrics=None, log=print, step_time_s: Optional[float] = None,
@@ -123,13 +125,6 @@ class ServeEngine:
             raise ValueError(
                 f"phase must be 'full', 'prefill' or 'decode', "
                 f"got {phase!r}")
-        if phase == "decode" and rebuild is not None \
-                and (queue_hi > 0 or idle_boundaries > 0):
-            raise NotImplementedError(
-                "an autoscaling decode engine re-searches under the "
-                "'decode' objective, which is not ported to "
-                "flexflow_tpu_torch (the next slice: the serving search, "
-                "ROADMAP Queue A item 6)")
         self.model = model
         self.rebuild = rebuild
         self.olog = olog if olog is not None else obs.NULL
@@ -691,6 +686,13 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # autoscaling
 
+    @property
+    def objective(self) -> str:
+        """The objective a resize re-searches under: ``decode`` for a
+        decode pool's engine, else ``latency`` (``flexflow_tpu/serve/
+        engine.py:676``)."""
+        return "decode" if self.phase == "decode" else "latency"
+
     def _resize(self, direction: str, step: int, vnow: float,
                 depth: int, idle_streak: int,
                 admitted: Sequence[int] = ()) -> None:
@@ -698,7 +700,7 @@ class ServeEngine:
         (``flexflow_tpu/serve/engine.py:636-699``): the world shrinks to
         ``shrink_to`` ranks or grows back over the parked ones through
         ``utils/elastic.serve_resize`` (gather, re-formed world, a
-        re-search under the latency objective on rank 0, rebuild,
+        re-search under :attr:`objective` on rank 0, rebuild,
         scatter), the predict step is rebuilt and the KV cache restarts
         empty.  A rank the shrink leaves out stands by
         (:meth:`_stand_by`); at a grow rank 0 hands the returning ranks
@@ -731,7 +733,8 @@ class ServeEngine:
             call, parked = list(self._parked), []
         moved = elastic.serve_resize(
             model, self.params, self.state, plan, rebuild=self.rebuild,
-            step=step, call=call, olog=self.olog, log=self.log)
+            step=step, call=call, olog=self.olog, log=self.log,
+            objective=self.objective)
         if moved is None:
             self._stand_by()
             return
@@ -790,7 +793,8 @@ class ServeEngine:
             return
         new_model, carry = elastic.rejoin(model.config, msg, self.rebuild,
                                           model.device, log=self.log,
-                                          objective="latency", train=False)
+                                          objective=self.objective,
+                                          train=False)
         self.model = new_model
         self.params, self.state = carry["params"], carry["state"]
         self._parked = []

@@ -14,9 +14,9 @@ producer tiles with consumer footprints to derive the communication.
 Everything here prices what the JAX search prices, so that the same cost
 tables and seed give the same strategy in both packages, and the GPipe
 proposal (:meth:`StrategySearch.propose_pipeline`) the same candidates.
-Left out: the serving ``decode`` objective (ROADMAP Queue A item 6);
-:func:`decode_step_ratio`, the analytic decode-to-prefill step ratio, is
-ported.
+:func:`price_on_slice` prices a whole job on a virtual slice, and
+:func:`decode_step_ratio` gives the analytic decode-to-prefill step
+ratio.
 """
 
 from __future__ import annotations
@@ -736,19 +736,19 @@ class StrategySearch(StrategySearchDecomposedMixin):
             every candidate's compute and collective cost drops to its
             forward third (both cost models price fwd+bwd as 3x the
             forward), the gradient sync and the optimizer stream vanish;
-            the input cast keeps its cost.
-
-        The JAX search's ``"decode"`` objective (a single-token step with
-        the KV cache's traffic) belongs to serving search and is not
-        ported (ROADMAP Queue A item 6)."""
-        if objective == "decode":
-            raise NotImplementedError(
-                "the decode objective is not ported to flexflow_tpu_torch "
-                "(ROADMAP Queue A item 6: serving search)")
-        if objective not in ("makespan", "latency"):
+            the input cast keeps its cost;
+          * ``"decode"`` — one single-token step of a disaggregated
+            serving deployment: the latency transform, then every
+            candidate's compute shrinks to its one-token column (cost /
+            seq) and each attention candidate pays the KV-cache traffic
+            its (s, h, n) grid implies: its cache shard streamed from HBM
+            every step, plus one ring hop per extra sequence part.  This
+            is what makes the decode pool's search prefer wider head and
+            batch splits and shallower sequence splits than prefill's."""
+        if objective not in ("makespan", "latency", "decode"):
             raise ValueError(
-                f"objective must be 'makespan' or 'latency', got "
-                f"{objective!r}")
+                f"objective must be 'makespan', 'latency' or 'decode', "
+                f"got {objective!r}")
         self.model = model
         self.machine = machine or model.machine
         config = getattr(model, "config", None)
@@ -931,7 +931,7 @@ class StrategySearch(StrategySearchDecomposedMixin):
             costs[i] = self.cost_model.op_cost(op, pc)
         if hasattr(self.cost_model, "flush"):
             self.cost_model.flush()
-        if self.objective == "latency":
+        if self.objective in ("latency", "decode"):
             # forward-only pricing: a third of every candidate's compute
             # and collective cost, no gradient sync (input-source rows are
             # not in cost_pairs and keep their once-per-step cast)
@@ -939,6 +939,8 @@ class StrategySearch(StrategySearchDecomposedMixin):
                 costs[i] /= 3.0
                 colls[i] /= 3.0
             pbytes = [0.0] * len(pbytes)
+        if self.objective == "decode":
+            self._decode_terms(cost_pairs, costs, colls, perf, topo)
         logger.info(
             "search space: %d ops, %d candidates (%d axis options pruned "
             "by divisibility, %d candidates rejected by the %.0f GB HBM "
@@ -974,7 +976,7 @@ class StrategySearch(StrategySearchDecomposedMixin):
         # update reads p and g and writes p (3x the params) and reads and
         # writes every optimizer-state buffer once.  Charged whole (DP
         # replicates everything; an upper bound for split params).
-        if self.objective == "latency":
+        if self.objective in ("latency", "decode"):
             # serving runs no optimizer
             self._opt_stream_s = 0.0
         else:
@@ -983,6 +985,37 @@ class StrategySearch(StrategySearchDecomposedMixin):
             self._opt_stream_s = \
                 (3.0 * total_param_bytes + 2.0 * opt_bytes) \
                 / (perf.hbm_bandwidth * perf.vector_efficiency)
+
+    def _decode_terms(self, cost_pairs, costs, colls, perf, topo) -> None:
+        """The single-token step (``flexflow_tpu/sim/search.py:981-1013``):
+        every candidate's forward third shrinks to its one-token column,
+        and each attention candidate adds its K+V shard streamed from HBM
+        and, with ``s_p > 1`` sequence parts, one ring rotation of that
+        shard per extra part (the one-token query visits every sequence
+        shard)."""
+        from flexflow_tpu_torch.ops.attention import MultiHeadAttention
+        from flexflow_tpu_torch.sim.cost_model import dtype_bytes
+
+        kv_elem = dtype_bytes(getattr(getattr(self.model, "config", None),
+                                      "compute_dtype", "float32"))
+        for i, op, pc in cost_pairs:
+            shape = op.inputs[0].shape if op.inputs else ()
+            seq = int(shape[1]) if len(shape) >= 2 else 1
+            costs[i] /= max(seq, 1)
+            if not isinstance(op, MultiHeadAttention):
+                continue
+            dims = tuple(pc.dims) + (1,) * (3 - len(pc.dims))
+            s_p, h_p, n_p = int(dims[0]), int(dims[1]), int(dims[2])
+            batch = int(shape[0]) if len(shape) >= 1 else 1
+            kv_shard = (2.0 * -(-batch // max(n_p, 1))
+                        * -(-op.num_heads // max(h_p, 1))
+                        * -(-seq // max(s_p, 1))
+                        * op.head_dim * kv_elem)
+            costs[i] += kv_shard / (perf.hbm_bandwidth
+                                    * perf.vector_efficiency)
+            if s_p > 1:
+                colls[i] += (s_p - 1) * (kv_shard / topo.ici_bandwidth
+                                         + topo.ici_latency)
 
     def _opt_state_bytes(self, total_param_bytes: float) -> float:
         """Bytes of the model's optimizer state, without materializing
@@ -1434,6 +1467,46 @@ class StrategySearch(StrategySearchDecomposedMixin):
                        opt_stream_s=self._opt_stream_s)
 
 
+def price_on_slice(rebuild, config, num_devices, *,
+                   objective: str = "makespan", iters: int = 300,
+                   seed: int = 0, warm_strategy=None,
+                   budget_s: Optional[float] = None, topology=None,
+                   obs=None):
+    """Price one job on one candidate slice size
+    (``flexflow_tpu/sim/search.py:1583-1624``): the job's best-found
+    strategy on a virtual ``num_devices``-device machine.
+
+    ``rebuild(config, machine)`` is the job's model factory (the one the
+    elastic path uses); the graph is built on
+    :meth:`MachineModel.virtual`, so nothing touches a device.  The
+    search starts from ``warm_strategy`` (the entries that survive on the
+    slice keep their config) and stops at ``iters`` or ``budget_s``:
+    under a fixed seed with a generous budget the iteration bound binds,
+    so the result is reproducible.  The analytic roofline at the
+    model's dtype prices it.
+
+    Returns ``(predicted_s, strategy, info)``: the objective's value
+    (the step for ``"makespan"``, the forward step for ``"latency"``,
+    the single-token step for ``"decode"``), the strategy and the
+    search's info."""
+    import copy
+
+    from flexflow_tpu_torch.utils.elastic import warm_assignment
+
+    shell_cfg = copy.copy(config)
+    shell_cfg.strategies = Strategy()
+    machine = MachineModel.virtual(int(num_devices), topology)
+    shell = rebuild(shell_cfg, machine)
+    ss = StrategySearch(shell, machine=machine,
+                        obs=obs if obs is not None else _obs.NULL,
+                        objective=objective)
+    start = None
+    if warm_strategy is not None and len(warm_strategy):
+        start = warm_assignment(ss, warm_strategy)
+    strategy, info = ss.search(iters=int(iters), seed=int(seed),
+                               chunks=4, chains=1, delta=True,
+                               start=start, budget_s=budget_s)
+    return float(info["best_time"]), strategy, info
 
 
 def decode_step_ratio(model, strategy=None, perf=None) -> float:

@@ -869,13 +869,14 @@ def directed_resize(model, *, keep=None, add=None, step: int,
 
 def serve_resize(model, params, state, plan_machine, *, rebuild, step: int,
                  call: Optional[Sequence[int]] = None, olog=None,
-                 log=print):
+                 log=print, objective: str = "latency"):
     """The serving autoscaler's resize (``flexflow_tpu/serve/engine.py:
     636-699``) on every rank of the running world, onto ``plan_machine``
     (``MachineModel.shrink``/``grow`` of the running machine): the gather
     of the live params and state, the call of the standing-by ranks
     ``call`` (first-world ranks, a grow), the world re-formed over the
-    plan's members, rank 0's re-search under the latency objective
+    plan's members, rank 0's re-search under ``objective`` (``latency``;
+    ``decode`` for a decode pool's engine, as JAX's ``_resize`` searches)
     warm-started from the running strategy and shared through the store,
     the rebuilt model on every rank and rank 0's scatter of the state
     (:func:`_relocate`).  Returns ``(new_model, carry, header)``, or None
@@ -897,7 +898,7 @@ def serve_resize(model, params, state, plan_machine, *, rebuild, step: int,
         msgs = {int(m): msg for m in call}
     return _relocate(model, sig, members, plan_machine, rebuild,
                      getattr(model.config, "strategies", None), None,
-                     olog, log, None, call=msgs, objective="latency",
+                     olog, log, None, call=msgs, objective=objective,
                      train=False)
 
 

@@ -7,9 +7,8 @@ and ``step_hang`` in ``FFModel.fit``, ``device_return`` in the elastic
 regrow probe (``utils/elastic.py:probe_regrow``), ``data_io`` before
 each read or decode attempt of the file readers (``data/hdf5.py``,
 ``data/imagenet.py``, as in the JAX package), ``ckpt_truncate`` and
-``ckpt_corrupt`` in ``utils/checkpoint.py:save_checkpoint``.  The
-others belong to slices not ported yet (the serving router,
-disaggregated serving).
+``ckpt_corrupt`` in ``utils/checkpoint.py:save_checkpoint``, and the
+serving faults in ``serve/router.py`` and ``serve/engine.py``.
 
 ``FFConfig.fault_spec`` names faults to fire at EXACT occurrence indices,
 so every recovery path in the runtime — step health guard rollback

@@ -149,6 +149,10 @@ def test_fault_smoke_passes_with_jax_records(tmp_path):
     assert t_smoke.main(["--device", "cpu"], log=lines.append) == 0
     assert lines[-1].startswith("fault-smoke ok: 12 iters survived "
                                 "'data_io@3x2,loss_nan@7' with 1 rollback")
+    # the counts come from obs.report.summarize, as in the JAX smoke, and
+    # read as the smoke's own count of the four kinds did
+    assert lines[-1].endswith("records: data_fault=2, fault=4, "
+                              "recovery=2, rollback=1")
     (tmp_path / "t").mkdir()
     (tmp_path / "j").mkdir()
     got = t_smoke.run_recovery(MachineModel("cpu"), str(tmp_path / "t"),

@@ -6,10 +6,12 @@
   and ``-o x.pb`` write the JAX driver's files byte for byte, and
   ``gpt-1.3b --devices 8 --decompose`` its decomposed strategy, with the
   same keys and values in the stdout line;
-* each flag of a module not ported raises ``NotImplementedError``
-  (``--serve``, ``--disagg``, ``--objective decode``, ``--audit``, and
-  the JAX driver's default audit of a saved plan's win on two tiers
-  unless ``--no-audit``);
+* ``--serve``, ``--disagg 2`` and ``--objective decode`` write the JAX
+  driver's file and line (the serving search's tiny-GPT artifacts:
+  ``tests/test_torch_serve_search.py``);
+* the flag of a module not ported raises ``NotImplementedError``
+  (``--audit``, and the JAX driver's default audit of a saved plan's win
+  on two tiers unless ``--no-audit``);
 * the transformer's search logs its GPipe candidates and decision and
   carries the block exactly when it is accepted;
 * ``--measured`` raises without CUDA, and with ``--device cpu`` times
@@ -74,8 +76,26 @@ def test_app_writes_the_jax_drivers_file(tmp_path, jax_constants, argv,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--serve"], ["--disagg", "2"], ["--objective", "decode"],
-    ["--audit"]], ids=lambda f: f[0])
+    ["--serve"], ["--disagg", "2"], ["--objective", "decode"]],
+    ids=lambda f: f[0])
+def test_serving_flags_write_the_jax_drivers_file(tmp_path, jax_constants,
+                                                  flags):
+    from flexflow_tpu.apps import search as jax_app
+
+    from flexflow_tpu_torch.apps import search
+
+    argv = ["alexnet", "--devices", "8", "-i", "200"] + flags
+    jpath, tpath = tmp_path / "jax.json", tmp_path / "port.json"
+    _, jline = _run(jax_app.main, argv + ["-o", str(jpath)])
+    _, tline = _run(search.main, argv + ["-o", str(tpath)])
+    assert tpath.read_bytes() == jpath.read_bytes()
+    for key in ("run_id", "obs_path"):
+        jline.pop(key, None), tline.pop(key, None)
+    assert tline == jline
+    assert ("serve" in tline) == (flags[0] != "--objective")
+
+
+@pytest.mark.parametrize("flags", [["--audit"]], ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
     from flexflow_tpu_torch.apps import search
 

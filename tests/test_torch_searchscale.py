@@ -5,8 +5,9 @@
 the parameter count, which counts the port's own leaves (one attention
 bias of d a block where the JAX formula counts 4d,
 ``models/gpt.py`` ``gpt_param_count``); the smoke's repro check passes
-and ``-o`` writes the ``searchscale_bench_v1`` artifact; a sweep that
-would search its headline's serving block raises, naming item 6.
+and ``-o`` writes the ``searchscale_bench_v1`` artifact; serving is on
+by default, and the headline row's ``serving`` block (a decomposed
+search per serving objective, each plan gated) equals JAX's.
 """
 
 import json
@@ -59,13 +60,24 @@ def test_smoke_row_equals_jax(tmp_path, jax_constants, capsys):
     assert line == jline
 
 
-def test_serving_at_the_headline_raises():
+def test_serving_at_the_headline_raises(jax_constants):
+    """Serving is on by default (off under ``--no-serving`` and
+    ``--smoke``), and the headline row's serving rows are built; they
+    equal JAX's after ``_deterministic``."""
+    from flexflow_tpu.apps import searchscale as jax_app
+
     from flexflow_tpu_torch.apps import searchscale
 
-    with pytest.raises(NotImplementedError, match="item 6.*--no-serving"):
-        searchscale.parse_args([])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        searchscale.parse_args(["--sizes", "0.1b,1.3b"])
-    # no headline among the sizes, or serving off: no serving block
-    assert searchscale.parse_args(["--sizes", "0.1b"])["serving"]
+    assert searchscale.parse_args([])["serving"]
+    assert searchscale.parse_args(["--sizes", "0.1b,1.3b"])["serving"]
     assert not searchscale.parse_args(["--no-serving"])["serving"]
+    assert not searchscale.parse_args(["--smoke"])["serving"]
+    argv = ["--sizes", "tiny", "--headline", "tiny", "-d", "8", "-i", "400"]
+    want = jax_app.run(jax_app.parse_args(argv), log=lambda *a: None)
+    got = searchscale.run(searchscale.parse_args(argv), log=lambda *a: None)
+    (row,), (jrow,) = got["artifact"]["rows"], want["artifact"]["rows"]
+    assert set(row["serving"]) == {"latency", "decode"}
+    assert searchscale.deterministic(row)["serving"] == \
+        jax_app._deterministic(jrow)["serving"]
+    assert all(b["plan_gate_clean"] and b["wall_s"] >= 0
+               for b in row["serving"].values())

@@ -185,11 +185,15 @@ def test_unported_engine_modes_raise(pair):
         JEngine(jm, None, log=_quiet, phase="bogus")
     with pytest.raises(ValueError, match="phase must be"):
         TEngine(tm, params=tp, log=_quiet, phase="bogus")
-    # an autoscaling decode engine needs the decode search objective
+    # an autoscaling decode engine builds and re-searches under the
+    # decode objective, as JAX's (its two-rank resizes:
+    # tests/test_torch_serve_search.py)
     for kw in ({"queue_hi": 4}, {"idle_boundaries": 2}):
-        with pytest.raises(NotImplementedError, match="'decode' objective"):
-            TEngine(tm, lambda cfg, m: None, params=tp, log=_quiet,
-                    phase="decode", **kw)
+        eng = TEngine(tm, lambda cfg, m: None, params=tp, log=_quiet,
+                      phase="decode", **kw)
+        assert (eng.phase, eng.pool, eng.objective) == \
+            ("decode", "decode", "decode")
+    assert TEngine(tm, params=tp, log=_quiet).objective == "latency"
 
 
 def test_driver_line_and_obs_records_on_cpu(capsys, tmp_path):
@@ -263,7 +267,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "apps/fault_smoke.py", "utils/profiling.py", "serve/router.py",
             "obs/slo.py", "serve/engine.py", "serve/kv_cache.py",
             "serve/batcher.py", "apps/serve.py", "utils/elastic.py",
-            "sim/search.py", "verify/plan.py", "config.py", "model.py"} <= \
+            "sim/search.py", "verify/plan.py", "config.py", "model.py",
+            "obs/report.py", "obs/trace.py", "apps/report.py",
+            "apps/loadtest.py", "apps/search.py", "apps/searchscale.py",
+            "apps/budget_smoke.py", "serve/__init__.py"} <= \
         {p.relative_to(PORT_DIR).as_posix() for p in files[:-1]}
     bad = [(str(p), m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu")]

@@ -44,9 +44,9 @@ def _quiet(*a, **k):
     pass
 
 
-def _jax_run(machine8, tmp_path):
-    """JAX's engine on ``machine8.shrink([0, 1])``: (initial params,
-    summary, replies, stamps, resizes, records, strategies)."""
+def _jax_run(machine8, tmp_path, phase="full"):
+    """JAX's engine of ``phase`` on ``machine8.shrink([0, 1])``: (initial
+    params, summary, replies, stamps, resizes, records, strategies)."""
     from flexflow_tpu import obs
     from flexflow_tpu.apps.serve import _build_lm
     from flexflow_tpu.serve.engine import ServeEngine
@@ -73,7 +73,7 @@ def _jax_run(machine8, tmp_path):
     try:
         olog = obs.RunLog(str(tmp_path / "jax.jsonl"), surface="serve")
         eng = ServeEngine(model, rebuild_iters, olog=olog, log=_quiet,
-                          **WATERMARKS)
+                          phase=phase, **WATERMARKS)
         params = jax.tree.map(np.asarray, eng.params)
         reqs = _requests_jax()
         summary = eng.run(reqs)

@@ -12,6 +12,10 @@ the JAX package's ``obs/trace.py`` and ``apps/search.py``, on the CPU:
 * ``apps.search alexnet --devices 8 -trace`` on the JAX package's
   constants writes a trace whose parsed JSON equals the JAX driver's,
   and a ``sim_trace`` record equal to its;
+* ``serve_trace_events`` on JAX's engine and routed record streams, the
+  empty and the partial stream, and on one routed run under chaos as the
+  JAX router and the port's router wrote it: the lanes equal JAX's and
+  validate clean;
 * ``python -m flexflow_tpu_torch.obs.trace --smoke`` exits 0.
 """
 
@@ -279,3 +283,88 @@ def test_trace_smoke_exits_0():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "ffsim trace smoke OK" in res.stdout
+
+
+# ---------------------------------------------------------------------------
+# serving lanes (tests/test_trace.py:337-394, tests/test_disagg.py:490)
+
+
+def _jax_test(name):
+    import importlib
+
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("records", ["engine", "handoff", "empty",
+                                     "partial"])
+def test_serve_trace_events_match_jax(records):
+    """The engine's stream of ``tests/test_trace.py``, the routed one of
+    ``tests/test_disagg.py`` (queue, prefill, handoff arrow, decode, per
+    pool counters), the empty stream and an in-flight request: the
+    port's lanes equal JAX's and validate clean."""
+    recs = {
+        "engine": lambda: _jax_test("test_trace")._serve_records(),
+        "handoff": lambda: _jax_test("test_disagg")._handoff_records(),
+        "empty": lambda: [],
+        "partial": lambda: [{"kind": "serve_request", "rid": 7,
+                             "arrival_v": 1.0, "admit_v": 1.5,
+                             "done_v": None}],
+    }[records]
+    got, want = ttrace.serve_trace_events(recs()), \
+        jtrace.serve_trace_events(recs())
+    assert got == want
+    assert ttrace.validate_trace(ttrace.chrome_trace(got)) == []
+    assert ttrace.PID_SERVE == jtrace.PID_SERVE
+    cats = {e.get("cat") for e in got}
+    if records == "engine":
+        assert {"queue", "decode", "admission"} <= cats
+    if records == "handoff":
+        assert {"queue", "prefill", "handoff", "decode"} <= cats
+        counters = {e["name"] for e in got if e.get("ph") == "C"}
+        assert {"queue depth [prefill]", "KV cache [decode]"} <= counters
+    if records == "empty":
+        assert len(got) == 1 and got[0]["ph"] == "M"
+    if records == "partial":
+        assert [e["cat"] for e in got if e.get("ph") == "X"] == ["queue"]
+
+
+@pytest.fixture(scope="module")
+def routed_streams(machine8, tmp_path_factory):
+    """The records of one routed run under chaos (two prefill replicas,
+    one decode replica; ``replica_crash@2,handoff_drop@3``) written by
+    the JAX router and by the port's: (jax, port)."""
+    import torch_serve_pools as pools
+
+    tmp = tmp_path_factory.mktemp("routed")
+    models = pools.Models(machine8, 2, 2)
+    from flexflow_tpu.serve.router import RetryPolicy as JRetry
+
+    from flexflow_tpu_torch.utils.retry import RetryPolicy
+
+    def engines_log(router):
+        # the engines write their serve_request and serve_batch records
+        # into the router's stream
+        for eng in list(router.prefill) + list(router.decode):
+            eng.olog = router.olog
+
+    spec = "replica_crash@2,handoff_drop@3"
+    jrun = pools.routed(models, False, spec, path=tmp / "jax.jsonl",
+                        retry_policy=JRetry(), setup=engines_log)
+    trun = pools.routed(models, True, spec, path=tmp / "port.jsonl",
+                        retry_policy=RetryPolicy(), setup=engines_log)
+    return jrun[4], trun[4]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_serve_trace_of_router_streams_matches_jax(routed_streams, writer):
+    stream = routed_streams[0 if writer == "jax" else 1]
+    got = ttrace.serve_trace_events(stream)
+    assert got == jtrace.serve_trace_events(stream)
+    assert ttrace.validate_trace(ttrace.chrome_trace(got)) == []
+    cats = {e.get("cat") for e in got}
+    assert {"prefill", "handoff", "decode", "fault"} <= cats
+    names = {e["name"] for e in got if e.get("cat") == "fault"}
+    assert "serve_retry" in names
+    assert any(n.startswith("replica_down") for n in names)
+    # both routers' streams give one trace
+    assert got == ttrace.serve_trace_events(routed_streams[0])

@@ -1356,3 +1356,27 @@ def serve_app(machine, argv):
                       WORLD_SIZE=str(machine.num_devices),
                       LOCAL_RANK=str(machine.rank))
     return serve.main(argv, log=lambda *a: None)
+
+
+def serve_smoke(machine, obs_dir):
+    """``apps.serve --smoke`` over this world (the tiny GPT, its
+    equivalence on rank 0, its autoscaling lifecycle): ``(summary
+    without wall_s, resizes without timing, record counts by kind)`` of
+    this rank's session."""
+    import collections
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.apps import serve
+
+    opts = serve.parse_args(["--smoke", "--device", "cpu", "-obs-dir",
+                             obs_dir])
+    summary = serve.smoke(opts, log=lambda *a: None, machine=machine)
+    olog = summary.pop("_olog")
+    resizes = summary.pop("_resizes")
+    summary.pop("_rank")
+    summary.pop("wall_s")
+    kinds = collections.Counter(r["kind"] for r in obs.read_run(olog.path)) \
+        if olog.enabled else {}
+    return (summary, [{k: v for k, v in r.items()
+                       if k not in ("research_s", "research", "total_s")}
+                      for r in resizes], dict(kinds))
