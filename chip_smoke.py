@@ -25,7 +25,8 @@ its kernels.
     python3 chip_smoke.py --only search4,lm-obs
                                        # the kernel build and the named
                                        # phases (lm, lm-obs, debug,
-                                       # serve-forward, serve-disagg,
+                                       # serve-forward, serve-ranks,
+                                       # serve-disagg,
                                        # serve-scale, serve-search,
                                        # serve-search-ranks, resnet101,
                                        # nmt, moe, runtime,
@@ -243,6 +244,25 @@ Phases (any failure exits non-zero):
     unserved and none dropped, and its ``-metrics-path`` file holding
     the ff_qps, ff_queue_depth, ff_latency_p50_s, ff_latency_p99_s and
     ff_requests_total gauges;
+12c. serving over ranks (ROADMAP Queue A item 6's rest): one torchrun
+    world of four ranks (gloo on cuda:0 on one card, an NCCL rank per
+    card on four) rides ``apps.serve`` through ``--lm-ranks``:
+    DenseNet-121's forward service (32 requests at max batch 8) data
+    parallel and with its classifier's channels split over the ranks by
+    a strategy file, then the NMT's: every request served in 4 batches
+    on every rank, the replies within 1e-3 of their largest magnitude of
+    phase 12b's one-card service (BN statistics as initialized), kernel
+    9 on each rank once a batch for every BN whose block of the rank's 2
+    rows passes the JAX gate (a power-of-two row divisor of at least 8:
+    the 7x7 BNs' 98 rows take the plain form) and 7f once a batch, none
+    for the NMT; then the routed pools at the GPT's widths on 8b's load
+    (``--pattern session``), a prefill replica of 2 ranks and a decode
+    replica of 2, without and with 8b's faults (``-fault-spec``), and two
+    one-rank prefill replicas with a two-rank decode replica: on every
+    rank 8b's single-pool replies token for token (a mismatch names the
+    request, the position and the one-card top-2 gap), kernel 1 12 times
+    the forward steps of the rank's replica, each replica's wall ms a
+    step logged beside its virtual step;
 13. ResNet-101 training slice: ``apps.cnn resnet101`` (the reference's
     topology: no BN, no residual add) at DenseNet's protocol (batch 64,
     224x224, bfloat16 compute, float32 params) for 3 warm-up and 10 timed
@@ -283,10 +303,11 @@ Phases (any failure exits non-zero):
     kernels 4-6 launched 2 a step for the 15 steps run; the checkpoint,
     final-save and restore seconds;
 16. MoE training slice and the training runtime: ``apps.lm --experts 8``
-    at the LM run's widths (8 experts in every block, top-2, capacity
+    at the LM run's widths and 6 of its 12 blocks (a depth cut: the
+    checkpoints dominate the phase; 8 experts in every block, top-2, capacity
     factor 2.0, aux weight 1e-2, float32, plain SGD at lr 1e-3) with
     ``--ckpt-dir --ckpt-freq 5 --on-divergence rollback``, 3 warm-up and
-    10 timed steps: finite losses, the first near ln 32768 + 0.12, the
+    10 timed steps: finite losses, the first near ln 32768 + 0.06, the
     launches of the LM run (the experts' products are cuBLAS's), the
     first 3 losses within 1e-4 (relative) of the plain-kernel run;
     tokens/s, the checkpoint seconds, peak memory; 10 steps timed one by
@@ -359,8 +380,9 @@ Phases (any failure exits non-zero):
     ``--strategy`` a one-device file this phase writes (NCCL): phase 9's
     launches, the first 3 losses within 1e-4 (relative) of phase 9's
     run; tokens/s, step ms and peak memory; then two gloo ranks on
-    cuda:0, 1 warm-up and 3 steps at 4 of phase 9's 12 blocks (a depth
-    cut: a 12-block step costs about 10 s of gloo's host copies), under
+    cuda:0, 1 warm-up and 3 steps at 2 of phase 9's 12 blocks (a depth
+    cut: every block pays gloo's host copies, and the whole smoke must
+    end within 1200 s), under
     a strategy that puts every new
     mechanism on the path: ring attention (s = 2) in the even blocks,
     the heads split in the odd ones, ``ff1`` (2, 1), ``ff2`` (1, 2), the
@@ -385,7 +407,7 @@ Phases (any failure exits non-zero):
     equal phase 16's first 4 bit for bit, and phase 9's per-step
     launches of kernels 1-6; then two gloo ranks on cuda:0 under phase
     18b's placements with the even MoE blocks (2, 1, 1) (experts split)
-    and the odd (1, 2, 1) (expert hidden channels split), 4 blocks as
+    and the odd (1, 2, 1) (expert hidden channels split), 2 blocks as
     18b's: the first 3 losses within 1e-4 of one process's run at that
     depth, rank 0's launches as 18b's,
     each rank's param keys logged; in the same torchrun world, the MoE
@@ -530,12 +552,15 @@ Phases (any failure exits non-zero):
     profiler, from the step's time held behind a sleep kernel;
 21. a ``kernels`` JSON line (the partial forms of kernels 1-6 under
     ``<name>.partial``, with rank 0's launches in phase 18b's two-rank
-    run; kernel 1 on the serving paths of phases 8b, 18g, 8c and 8d under
-    ``<name>.serve-disagg``, ``<name>.serve-scale``, ``<name>.serve-search``
-    and ``<name>.serve-search-ranks``, with the routed run's launches,
-    rank 0's, the searched artifact's service's and rank 0's; kernels 2-3
-    under ``<name>.serve-search``, launched while 8c's search timed its
-    shards), then, last, the ``ok`` JSON line.
+    run; kernel 1 on the serving paths of phases 8b, 18g, 12c, 8c and 8d
+    under ``<name>.serve-disagg``, ``<name>.serve-scale``,
+    ``<name>.serve-ranks``, ``<name>.serve-search`` and
+    ``<name>.serve-search-ranks``, with the routed run's launches, rank
+    0's, rank 0's in 12c's 2 + 2 pools, the searched artifact's
+    service's and rank 0's; kernels 7f and 9 under
+    ``<name>.serve-ranks``, rank 0's in 12c's DenseNet service; kernels
+    2-3 under ``<name>.serve-search``, launched while 8c's search timed
+    its shards), then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -674,6 +699,10 @@ NMT_RANK_ROWS = (320, 160)
 # capacity factor 2.0 (256 slots per expert and sequence), aux weight
 # 1e-2, checkpoints every 5 steps, rollback on divergence
 MOE_EXPERTS = 8
+# the MoE trainer runs 6 of the LM's 12 blocks (a depth cut): its
+# checkpoint saves and restores dominate phase 16, and the whole smoke
+# must end within 1200 s
+MOE_WIDTHS = (6, 768, 12, 3072)
 MOE_CKPT_FREQ = 5
 # the resumed run's losses against the uninterrupted run's: the same
 # kernels on the same restored leaves and batches
@@ -2958,7 +2987,8 @@ def _nmt_runtime_run(torch, kernels, card: str, healthy: list) -> None:
 
 
 def _moe_argv(iters: int, warmup: int, ckpt_dir=None, *extra) -> list:
-    argv = _lm_argv(iters, warmup) + ["--experts", str(MOE_EXPERTS)]
+    argv = _lm_argv(iters, warmup, MOE_WIDTHS) + ["--experts",
+                                                  str(MOE_EXPERTS)]
     if ckpt_dir is not None:
         argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-freq",
                  str(MOE_CKPT_FREQ), "--on-divergence", "rollback"]
@@ -2967,7 +2997,7 @@ def _moe_argv(iters: int, warmup: int, ckpt_dir=None, *extra) -> list:
 
 def _moe_steps(torch, timed: int) -> dict:
     """``timed`` steps of the MoE model, each timed by CUDA events, with
-    each step's aux loss and dropped share (mean over the 12 blocks) from
+    each step's aux loss and dropped share (mean over its blocks) from
     a forward pass after it."""
     from flexflow_tpu_torch.apps import lm
 
@@ -3310,12 +3340,13 @@ def moe_phase(torch, kernels, card: str) -> dict:
                                  f"expected {want}")
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite moe loss: {losses}")
-        # the first loss: ln V plus 12 blocks' aux (about 1 for a router
-        # near uniform) at weight 1e-2
+        # the first loss: ln V plus each block's aux (about 1 for a
+        # router near uniform) at weight 1e-2
         first = math.log(32768) + layers * 1e-2
         if abs(losses[0] - first) > 0.25:
             raise AssertionError(f"first MoE loss {losses[0]} is not near "
-                                 f"ln 32768 + 0.12 = {first:.4f}")
+                                 f"ln 32768 + {layers} x 0.01 = "
+                                 f"{first:.4f}")
         ckpt_s = out["checkpoint_s"]
         _log(f"moe: {out['tokens_per_sec']:.1f} tokens/s, {step_ms:.2f} ms "
              f"per step, of which {ckpt_s * 1e3 / LM_TIMED:.2f} ms the 2 "
@@ -3875,7 +3906,7 @@ def _one_rank_world(root: Path) -> dict:
     _strategy_file(files["alexnet"], {}, 1)
     _nmt_strategy(files["nmt"], 1)
     _lm_strategy_file(files["lm"], 1)
-    _moe_strategy_file(files["moe"], 1)
+    _moe_strategy_file(files["moe"], 1, MOE_WIDTHS[0])
     steps = LM_RANKS_WARMUP + LM_RANKS_STEPS
     runs = [_alexnet_argv(["-s", str(files["alexnet"]), "-ll:gpu", "1"]),
             _nmt_argv(LM_WARMUP + LM_TIMED, LM_WARMUP)
@@ -4127,10 +4158,11 @@ def placement4_phase(torch, kernels, card: str, nmt_run: dict,
 LM_RANKS_WARMUP, LM_RANKS_STEPS = 1, 3
 LM_LAYERS = 12
 # the LM world over several ranks (18b-18f, 19) runs the LM phase's
-# widths at 4 of its 12 blocks: two gloo ranks on one card take about 10 s
-# a 12-block step in host copies; its reference is a one-process run at
-# the same depth
-LM_RANKS_LAYERS = 4
+# widths at 2 of its 12 blocks (a ring-attention block and a head-split
+# one): on two gloo ranks of one card every block pays host copies, and
+# the whole smoke must end within 1200 s; its reference is a one-process
+# run at the same depth
+LM_RANKS_LAYERS = 2
 LM_RANKS_WIDTHS = (LM_RANKS_LAYERS, 768, 12, 3072)
 # the multi-rank LM runs save every 2 steps; a run resumed from step 2
 # repeats the rest of the uninterrupted run bit for bit, or within 1e-6
@@ -4894,7 +4926,7 @@ def lm_strategy4_phase(torch, kernels, card: str, lm_strategy: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# the MoE blocks' grids over 2 and 4 ranks, cycled over the 12 blocks:
+# the MoE blocks' grids over 2 and 4 ranks, cycled over the blocks:
 # expert parallel and TP inside the experts; over four, EP x DP and TP x
 # DP too
 MOE_GRIDS = {2: [(2, 1, 1), (1, 2, 1)], 4: [(4, 1, 1), (2, 1, 2), (1, 2, 2)]}
@@ -5166,7 +5198,7 @@ def moe_strategy_phase(torch, kernels, card: str, moe_run: dict,
              f"{moe_run['event_ms']:.3f} ms a step by CUDA events (the MoE "
              f"phase's median; its fit rate also counts two checkpoint "
              f"saves)")
-        want = {name: LM_LAYERS * steps
+        want = {name: MOE_WIDTHS[0] * steps
                 for name in (fa.NAME, fa.NAME_DKV, fa.NAME_DQ)}
         want.update({name: steps for name in (
             ce.NAME_FWD, ce.NAME_FWD_COMBINE, ce.NAME_DX, ce.NAME_DX_SUM,
@@ -6730,6 +6762,241 @@ def serve_scale_phase(torch, fa, kernels, card: str, ranks: int,
             "resizes": results[0]["resizes"]}
 
 
+# phase 12c: the forward-only service and the routed pools over the
+# ranks of one torchrun world
+SERVE_RANKS = 4
+SERVE_RANKS_ROOT = Path(__file__).resolve().parent / ".chip_serve_ranks"
+#: the routed forms: (prefill ranks, prefill replicas, decode replicas)
+SERVE_RANKS_FORMS = ((2, 1, 1), (2, 2, 1))
+
+
+def _serve_ranks_runs(flags, strategy: Path) -> list:
+    """The ``apps.serve`` runs of phase 12c's world: DenseNet-121's
+    forward service data parallel and under ``strategy``, the NMT's,
+    then the routed pools at the GPT's widths on 8b's load in the first
+    form, again under 8b's faults, then in the second form."""
+    fwd = ["--requests", str(SERVE_FORWARD_REQUESTS), "--max-batch",
+           str(SERVE_FORWARD_BATCH)]
+    gpt = ["gpt", "-n", str(DISAGG_REQUESTS), "-b", str(DISAGG_BATCH),
+           "--seed", str(DISAGG_LOAD["seed"]), "--rate-qps",
+           str(DISAGG_LOAD["rate_qps"]), "--pattern",
+           DISAGG_LOAD["pattern"], "--prompt-len",
+           str(DISAGG_LOAD["prompt_len"]), "--max-new-tokens",
+           str(DISAGG_LOAD["max_new_tokens"])]
+    forms = [gpt + ["--serve-prefill-devices", str(p),
+                    "--serve-prefill-replicas", str(pr),
+                    "--serve-decode-replicas", str(dr)]
+             for p, pr, dr in SERVE_RANKS_FORMS]
+    runs = [["densenet121"] + fwd, ["densenet121"] + fwd
+            + ["-s", str(strategy)], ["nmt"] + fwd, forms[0],
+            forms[0] + ["-fault-spec", DISAGG_FAULTS], forms[1]]
+    return [r + list(flags) for r in runs]
+
+
+def _forward_refs(torch, serve, bn, mp, block: int) -> dict:
+    """Phase 12b's one-card services on this card (DenseNet-121 with the
+    plain versions of kernels 7-10, and the NMT; the same seed and
+    requests, BN statistics as initialized): the replies in rid order,
+    and DenseNet's kernel-routed BNs and max pools on a rank's block of
+    ``block`` rows (the JAX gate takes the block's row count)."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.norm import BatchNorm
+    from flexflow_tpu_torch.ops.pool import Pool2D
+
+    out = {}
+    for name in ("densenet121", "nmt"):
+        # DenseNet's with kernels 7-10 swapped for their plain versions,
+        # so that the replies over ranks hold 7f and 9 against them
+        with _plain_cnn_kernels() if name == "densenet121" \
+                else contextlib.nullcontext():
+            engine, requests, _, _ = serve.build_engine(
+                _serve_opts(serve, name), log=_quiet)
+            engine.run_forward(requests)
+        out[name] = np.stack([r.reply for r in sorted(requests,
+                                                      key=lambda r: r.rid)])
+        if name == "densenet121":
+            layers = engine.model.layers
+            out["per_batch"] = {
+                bn.NAME_FWD: sum(1 for op in layers
+                                 if isinstance(op, BatchNorm)
+                                 and bn.supported(block,
+                                                  *op.inputs[0].shape[1:])),
+                mp.NAME_FWD: sum(1 for op in layers
+                                 if isinstance(op, Pool2D)
+                                 and op.kernel_route() == "maxpool")}
+            out["bns"] = sum(1 for op in layers if isinstance(op, BatchNorm))
+        del engine, requests
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _single_pool(torch, serve):
+    """8b's single pool on this card: the one-card engine at max batch
+    8 on 8b's load, seed-0 weights; ``(replies by rid, requests,
+    engine)``."""
+    from flexflow_tpu_torch.machine import MachineModel
+    from flexflow_tpu_torch.serve import loadgen
+    from flexflow_tpu_torch.serve.engine import (DEFAULT_STEP_TIME_S,
+                                                 ServeEngine)
+
+    model, _ = serve.build_lm(batch=DISAGG_BATCH, seed=0,
+                              machine=MachineModel("cuda:0"))
+    engine = ServeEngine(model, None, log=_quiet,
+                         step_time_s=DEFAULT_STEP_TIME_S)
+    reqs = loadgen.patterned_requests(
+        DISAGG_REQUESTS, vocab_size=GPT_WIDTHS[4], **DISAGG_LOAD)
+    engine.run(reqs)
+    return {r.rid: list(r.reply or ()) for r in reqs}, reqs, engine
+
+
+def serve_ranks_phase(torch, fa, kernels, card: str, disagg) -> dict:
+    """Phase 12c: one torchrun world of four ranks (gloo on cuda:0 on one
+    card, an NCCL rank per card on four) rides ``apps.serve`` through
+    the ``--lm-ranks`` worker: DenseNet-121's forward service data
+    parallel and with its classifier's channels split over the ranks
+    (32 requests in 4 batches of 8, the replies within 1e-3 of their
+    largest magnitude of phase 12b's one-card service with the plain
+    versions of kernels 7-10, kernel 9 on each
+    rank once a batch for every BN whose block of the rank's rows passes
+    the JAX gate and 7f once a batch), the NMT's (the one-card replies
+    within 1e-3), then the routed pools at the GPT's widths on 8b's load,
+    a prefill replica of 2 ranks and a decode replica of 2, without and
+    with 8b's faults, and two prefill replicas of 1 rank with a decode
+    replica of 2: the single pool's replies token for token on every
+    rank (on a mismatch the request, the position and the one-card top-2
+    gap), kernel 1 on each rank 12 times its replica's forward steps,
+    each replica's wall ms a step beside its virtual step."""
+    import numpy as np
+
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.ops.kernels import bn_act as bn
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    label = f"serve ranks ({SERVE_RANKS} ranks)"
+    four = torch.cuda.device_count() >= SERVE_RANKS
+    flags = ["--device", "cuda"] if four else \
+        ["--device", "cuda:0", "--dist-backend", "gloo"]
+    where = f"{SERVE_RANKS} NCCL cards" if four \
+        else f"{SERVE_RANKS} gloo ranks on cuda:0"
+    block = SERVE_FORWARD_BATCH // SERVE_RANKS
+    batches = -(-SERVE_FORWARD_REQUESTS // SERVE_FORWARD_BATCH)
+    t = time.perf_counter()
+    refs = _forward_refs(torch, serve, bn, mp, block)
+    want, sreqs, single = _single_pool(torch, serve)
+    if disagg is not None and {int(k): v for k, v in
+                               disagg["replies"].items()} != want:
+        raise AssertionError(f"{label}: the single pool's replies differ "
+                             f"from 8b's")
+    del single
+    torch.cuda.empty_cache()
+    _log(f"{label}: one-card references {time.perf_counter() - t:.1f} s; "
+         f"DenseNet kernel-routed a batch on a rank's {block} rows "
+         f"{refs['per_batch']} of {refs['bns']} BNs (the JAX gate: "
+         f"rows with a power-of-two divisor of at least 8)")
+    shutil.rmtree(SERVE_RANKS_ROOT, ignore_errors=True)
+    SERVE_RANKS_ROOT.mkdir(parents=True)
+    strategy = SERVE_RANKS_ROOT / "densenet_head.json"
+    strategy.write_text(json.dumps({"linear1": {
+        "dims": [SERVE_RANKS, 1], "devices": list(range(SERVE_RANKS))}}))
+    runs = _serve_ranks_runs(flags, strategy)
+    results, _, seconds = _lm_ranks(SERVE_RANKS, SERVE_RANKS_ROOT,
+                                    "serve_ranks", runs,
+                                    apps={i: "serve"
+                                          for i in range(len(runs))})
+    _log(f"{label}: {seconds:.1f} s for the torchrun world on {where}, "
+         f"its start included; {card}")
+    out = {}
+    # the forward service: DenseNet data parallel, then its classifier
+    # split over c, then the NMT
+    per = {k: v * batches for k, v in refs["per_batch"].items() if v}
+    for i, (tag, ref) in enumerate((("densenet121", refs["densenet121"]),
+                                    ("densenet121 -s", refs["densenet121"]),
+                                    ("nmt", refs["nmt"]))):
+        res = results[i]
+        for r, rr in enumerate(res):
+            s = rr["summary"]
+            if (s["completed"], s["steps"], s["unserved"]) != \
+                    (SERVE_FORWARD_REQUESTS, batches, 0):
+                raise AssertionError(f"{label} {tag}: rank {r} {s}")
+            got = {k: v for k, v in rr["launches"].items() if v}
+            # the NMT's forward runs no kernel (its fused head trains)
+            if got != (per if tag != "nmt" else {}):
+                raise AssertionError(f"{label} {tag}: rank {r} launched "
+                                     f"{got}, expected {per}")
+        replies = np.load(SERVE_RANKS_ROOT
+                          / f"serve_ranks_{i}.json.replies.npy")
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(replies - ref).max()) \
+            if replies.shape == ref.shape else float("inf")
+        s = res[0]["summary"]
+        _log(f"{label} {tag}: {s['completed']} requests in {s['steps']} "
+             f"batches on every rank, rank 0 {s['wall_s']:.3f} s wall "
+             f"({s['wall_s'] / s['steps'] * 1e3:.2f} ms a batch of "
+             f"{SERVE_FORWARD_BATCH}), launches on rank 0 "
+             f"{ {k: v for k, v in res[0]['launches'].items() if v} }; "
+             f"replies {replies.shape} vs the one-card service's: max_abs "
+             f"{err:.3e} of max |reply| {scale:.3e} (tolerance "
+             f"{DENSENET_LOSS_RTOL:g} of it); {card}")
+        if not np.isfinite(replies).all() or \
+                not err <= DENSENET_LOSS_RTOL * scale:
+            raise AssertionError(f"{label} {tag}: replies differ from the "
+                                 f"one-card service's by {err}")
+        out[tag] = {"launches": dict(res[0]["launches"]), "err": err,
+                    "scale": scale}
+    # the routed pools
+    for i, tag in ((3, "2+2"), (4, f"2+2 under {DISAGG_FAULTS}"),
+                   (5, "1+1+2")):
+        res = results[i]
+        for r, rr in enumerate(res):
+            s = rr["summary"]
+            if s["completed"] != DISAGG_REQUESTS or s["failed"] \
+                    or s["unserved"] or (i == 4 and s["kv_rebuilds"] < 1):
+                raise AssertionError(f"{label} {tag}: rank {r} {s}")
+            got = {int(k): v for k, v in rr["replies"].items()}
+            for rid, reply in sorted(want.items()):
+                if got.get(rid) == reply:
+                    continue
+                k = next((j for j, (a, b) in enumerate(
+                    zip(got.get(rid) or [], reply)) if a != b),
+                    len(got.get(rid) or []))
+                prompt = next(q.tokens for q in sreqs if q.rid == rid)
+                _, _, engine = _single_pool(torch, serve)
+                gap = _top2_gap(torch, engine, prompt, reply[:k])
+                raise AssertionError(
+                    f"{label} {tag}: rank {r} request {rid} differs at "
+                    f"new token {k}: {got.get(rid)} vs the single pool's "
+                    f"{reply}; the one-card top-2 log-prob gap there "
+                    f"{gap:.3e}")
+            mine = next(x for x in rr["replicas"] if x["runs"])
+            n = sum(v for k, v in rr["launches"].items()
+                    if k.startswith(fa.NAME))
+            if n != GPT_WIDTHS[0] * mine["steps"] or not n:
+                raise AssertionError(
+                    f"{label} {tag}: rank {r} launched {fa.NAME} {n} "
+                    f"times, expected {GPT_WIDTHS[0]} x {mine['steps']} "
+                    f"({mine['phase']}[{mine['index']}])")
+        s = res[0]["summary"]
+        steps = ", ".join(
+            f"{x['phase']}[{x['index']}] on ranks {x['ranks']}: "
+            f"{x['busy_s'] / max(x['steps'], 1) * 1e3:.2f} ms a step wall "
+            f"against {x['step_time_s'] * 1e3:.4f} ms virtual "
+            f"({x['steps']} steps)" for x in res[0]["replicas"])
+        n0 = sum(v for k, v in res[0]["launches"].items()
+                 if k.startswith(fa.NAME))
+        _log(f"{label} {tag}: {s['completed']}/{s['requests']} completed, "
+             f"{s['handoffs']} handoffs, {s['kv_rebuilds']} KV rebuilds, "
+             f"{s['steps']} forward steps, the single pool's replies on "
+             f"every rank; kernel 1 on each rank 12 x its replica's steps "
+             f"(rank 0: {n0}); {steps}; {card}")
+        out[tag] = {"launches": n0, "replicas": res[0]["replicas"]}
+    shutil.rmtree(SERVE_RANKS_ROOT, ignore_errors=True)
+    return out
+
+
 #: ``--only`` names -> phases, and the phases whose results each reads
 ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "lm-obs": "lm obs", "pipeline": "pipeline", "moe": "moe",
@@ -6739,6 +7006,7 @@ ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "strategy4": "strategy 4", "lm-strategy4": "lm strategy 4",
                "pipeline4": "pipeline 4", "debug": "debug",
                "serve-forward": "serve forward",
+               "serve-ranks": "serve ranks",
                "serve-disagg": "serve disagg", "serve-scale": "serve scale",
                "serve-scale4": "serve scale 4",
                "serve-search": "serve search",
@@ -6862,6 +7130,8 @@ def main(argv) -> int:
     trained = phase("inception", training_phase, torch, kernels, card)
     dense = phase("densenet", densenet_phase, torch, kernels, card)
     phase("serve forward", serve_forward_phase, torch, kernels, card)
+    ranked = phase("serve ranks", serve_ranks_phase, torch, fa, kernels,
+                   card, disagg)
     phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     nmt_run = phase("nmt", nmt_phase, torch, kernels, card)
@@ -6940,6 +7210,13 @@ def main(argv) -> int:
                              "flexflow_tpu/ops/pallas/flash_attention.py:62",
                              run["launches"], checked["max_abs_err"],
                              checked["timings"]["float32"]))
+    # phase 12c: kernel 1 on rank 0 of the routed pools over ranks (the
+    # 2 + 2 form), kernels 7f and 9 on rank 0 of DenseNet's service over
+    # ranks (data parallel)
+    entries.append(entry(f"{fa.NAME}.serve-ranks", fa.SOURCE,
+                         "flexflow_tpu/ops/pallas/flash_attention.py:62",
+                         ranked["2+2"]["launches"], checked["max_abs_err"],
+                         checked["timings"]["float32"]))
     # phases 8c and 8d: kernel 1 in the service from the searched
     # artifact (one card) and on rank 0 of the world's, kernels 2-3 in
     # the measured serving search's shard timing
@@ -7000,6 +7277,17 @@ def main(argv) -> int:
                              trained["launches"].get(name, 0),
                              pools["worst"][name],
                              dict(timing, bound_by="bytes")))
+    served_ranks_cnn = ranked["densenet121"]["launches"]
+    entries.append(entry(f"{mp.NAME_FWD}.serve-ranks", mp.SOURCE,
+                         "flexflow_tpu/ops/pallas/maxpool.py:249",
+                         served_ranks_cnn[mp.NAME_FWD],
+                         pools["worst"][mp.NAME_FWD],
+                         dict(pools["max_step"]["fwd"], bound_by="bytes")))
+    entries.append(entry(f"{bn.NAME_FWD}.serve-ranks", bn.SOURCE,
+                         "flexflow_tpu/ops/pallas/bn_act.py:60",
+                         served_ranks_cnn[bn.NAME_FWD],
+                         bns["worst"][bn.NAME_FWD],
+                         dict(bns["step"][bn.NAME_FWD], bound_by="bytes")))
     # kernels 9-10: launches from the DenseNet run, times summed over one
     # DenseNet step's 117 BNs, bfloat16 at batch 64
     for name in (bn.NAME_FWD, bn.NAME_BWD, bn.NAME_SUM):

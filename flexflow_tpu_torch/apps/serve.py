@@ -1,8 +1,9 @@
 """Serving entry point (PyTorch port of ``flexflow_tpu/apps/serve.py``):
 continuous-batching decode of the transformer LM on one card or over the
 ranks ``torchrun`` starts, with the queue-driven autoscaler; the
-disaggregated prefill/decode pools behind the router; and the batched
-forward-only service of the CNNs and the NMT model.
+disaggregated prefill/decode pools behind the router, a replica one card
+or a slice of ``torchrun``'s ranks; and the batched forward-only service
+of the CNNs and the NMT model, on one card or over the ranks.
 
     python -m flexflow_tpu_torch.apps.serve gpt --requests 16 \\
         --max-new-tokens 4 [--tiny] [--device cuda|cpu] [-obs-dir obs/]
@@ -10,9 +11,15 @@ forward-only service of the CNNs and the NMT model.
         --serve-idle-boundaries 3 --serve-queue-hi 3 --shrink-to 1
     python -m flexflow_tpu_torch.apps.serve gpt --serve-prefill-devices 2 \\
         --serve-prefill-replicas 2 --serve-decode-replicas 2
+    torchrun --nproc-per-node 4 -m flexflow_tpu_torch.apps.serve gpt \\
+        --serve-prefill-devices 2 --serve-prefill-replicas 1 \\
+        --serve-decode-replicas 1 [--pattern session] [-fault-spec SPEC]
     python -m flexflow_tpu_torch.apps.serve densenet121 --requests 32 \\
         --max-batch 8 [-metrics-path m.prom] [--device cuda|cpu]
-    python -m flexflow_tpu_torch.apps.serve nmt --requests 16
+    torchrun --nproc-per-node 4 -m flexflow_tpu_torch.apps.serve \\
+        densenet121 [-s strategy.json]
+    torchrun --nproc-per-node 2 -m flexflow_tpu_torch.apps.serve nmt \\
+        [--pipeline-stages 2]
 
 ``gpt`` (also ``transformer`` / ``bert``, the same causal LM as in the JAX
 app) is the GPT-2-small-width model: 12 layers, d_model 768, 12 heads,
@@ -30,11 +37,20 @@ re-searched under the latency objective within 10 s and 2000 proposals
 parked rank stands by; when the run ends rank 0 releases it, and rank 0
 alone prints the result.
 
-``--serve-prefill-devices P`` (> 0) carves the cards this process sees
-into a prefill pool of ``--serve-prefill-replicas`` replicas and a
-decode pool of ``--serve-decode-replicas`` (:func:`_disagg_run`,
-``serve/router.py``).  A replica is one card (with ``--device cpu``, the
-CPU): a pool that gives a replica several cards is refused.
+``--serve-prefill-devices P`` (> 0) carves the devices into a prefill
+pool of the first P and a decode pool of the rest, each split evenly
+into ``--serve-prefill-replicas`` and ``--serve-decode-replicas``
+replicas (:func:`_disagg_run`, ``serve/router.py``).  Under ``torchrun``
+the devices are the world's ranks and a replica is a slice of them of
+any width, its model sharded over them (data parallel, or the plan of
+``-s``), the router running on every rank (``serve/replicas.py``).  In
+one process a replica is one card this process sees (with ``--device
+cpu``, the CPU), and a split that gives a replica several is refused:
+one process drives one card.  ``--pattern`` draws the load from
+``loadgen.patterned_requests`` (``session``: multi-turn sessions) in
+place of the Poisson ``synthetic_requests``, and ``-fault-spec`` installs
+a seeded fault injector (``replica_crash``, ``handoff_drop``,
+``kv_corrupt``, ...) on every rank for the run.
 
 The CNNs (``apps.cnn``'s names: alexnet, vgg16, resnet101, densenet121,
 inception_v3, ...) take 224x224 images (299x299 for Inception) and
@@ -42,10 +58,15 @@ inception_v3, ...) take 224x224 images (299x299 for Inception) and
 seeded random sample of the model's first input
 (:func:`_forward_payloads`), the service pads them into ``--max-batch``
 (default ``-b``, 8) rows and replies with each request's row of the loss
-op's output (``ServeEngine.run_forward``), on one card.  The device
-defaults to ``cuda`` and the run raises when CUDA is absent unless
-``--device cpu`` is given.  float32 matrix products and convolutions run
-in full float32 on the GPU: TF32 is switched off.
+op's output (``ServeEngine.run_forward``).  Under ``torchrun`` the model
+runs over the world's ranks, each staging its rows of each batch and
+the output assembled on every rank; ``-s`` names a strategy file, vetted
+by the plan checker first (exit 2 on an error finding), and for the NMT
+``--pipeline-stages S`` takes ``pipeline_stage_strategy`` (the default
+is the reference's ``default_global_config``).  The device defaults to
+``cuda`` and the run raises when CUDA is absent unless ``--device cpu``
+is given.  float32 matrix products and convolutions run in full float32
+on the GPU: TF32 is switched off.
 
 Drain contract: SIGTERM or SIGINT stops admission, the in-flight work
 finishes, the requests not yet admitted are reported ``unserved`` (never
@@ -109,6 +130,25 @@ def _quiet(*a, **kw):
     pass
 
 
+#: ``--help``'s description: the forms the app serves
+USAGE = """\
+forms:
+  gpt [--tiny] [-s plan.json]                 the LM, one card or torchrun's
+                                              ranks, with the autoscaler
+                                              (--serve-idle-boundaries N
+                                              --serve-queue-hi D --shrink-to R)
+  gpt --serve-prefill-devices P --serve-prefill-replicas A
+      --serve-decode-replicas B               routed prefill/decode pools: a
+                                              replica one card in one process,
+                                              or under torchrun a slice of the
+                                              world's ranks of any width
+  densenet121|resnet101|vgg16|alexnet|inception_v3|nmt [-s plan.json]
+      [--max-batch 8]                         the forward-only service, one
+                                              card or torchrun's ranks (the
+                                              NMT: --pipeline-stages S)
+  --smoke | --disagg-smoke | --chaos-smoke    the JAX app's smokes
+"""
+
 #: the options that ``FFConfig`` parses (``config.SERVE_FIELDS``):
 #: option -> its field
 CONFIG_OPTS = {"max_batch": "max_batch", "queue_hi": "serve_queue_hi",
@@ -131,7 +171,10 @@ def parse_args(argv) -> dict:
         else:
             rest.append(a)
     cfg = FFConfig.from_args(serving)
-    ap = argparse.ArgumentParser(prog="flexflow_tpu_torch.apps.serve")
+    ap = argparse.ArgumentParser(
+        prog="flexflow_tpu_torch.apps.serve",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        description=USAGE)
     ap.add_argument("model", nargs="?", default="gpt")
     ap.add_argument("-b", "--batch-size", type=int, default=8)
     ap.add_argument("-n", "--requests", type=int, default=16)
@@ -140,6 +183,15 @@ def parse_args(argv) -> dict:
     ap.add_argument("--prompt-len", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("-s", "--strategy", default="")
+    ap.add_argument("--pipeline-stages", dest="pipeline_stages", type=int,
+                    default=0, help="the NMT's LSTM layers on S device "
+                    "blocks (pipeline_stage_strategy)")
+    ap.add_argument("--pattern", default="",
+                    help="loadgen.patterned_requests' arrival pattern "
+                    "(e.g. session) in place of the Poisson load")
+    ap.add_argument("-fault-spec", "--fault-spec", dest="fault_spec",
+                    default="", help="a seeded fault injector for the "
+                    "routed pools (replica_crash@3,handoff_drop@5, ...)")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--shrink-to", type=int, default=0)
@@ -190,25 +242,53 @@ def build_lm(*, batch, seed=0, dtype="float32", strategies=None,
     return model, rebuild
 
 
-def _build_forward(name, batch, dtype="float32", device="cuda"):
-    """A CNN or the NMT model for the forward-only service
-    (``flexflow_tpu/apps/serve.py:151-172``): the CNNs at 224x224 (299 for
-    Inception), the NMT at the JAX driver's defaults."""
-    from flexflow_tpu_torch.machine import MachineModel
-
-    machine = MachineModel(device)
+def _build_forward(name, batch, dtype, machine, strategies=None):
+    """A CNN or the NMT model for the forward-only service on ``machine``
+    with the strategy passed at construction
+    (``flexflow_tpu/apps/serve.py:150-172``): the CNNs at 224x224 (299
+    for Inception), the NMT at the JAX driver's defaults (its default
+    strategy ``default_global_config``)."""
     if name == "nmt":
         from flexflow_tpu_torch.nmt.rnn_model import RnnConfig, RnnModel
 
         return RnnModel(RnnConfig(batch_size=batch, compute_dtype=dtype),
-                        machine)
+                        machine, strategies)
     from flexflow_tpu_torch.apps.cnn import build
     from flexflow_tpu_torch.config import FFConfig
 
     size = 299 if name.startswith("inception") else 224
     cfg = FFConfig(batch_size=batch, input_height=size, input_width=size,
                    compute_dtype=dtype)
+    if strategies is not None:
+        cfg.strategies = strategies
     return build(name, cfg, machine)
+
+
+def _forward_strategies(opts, machine, batch):
+    """The forward service's strategy: ``-s``'s file, vetted first (exit
+    2 on an error finding), or for the NMT ``--pipeline-stages``'s
+    ``pipeline_stage_strategy`` (``apps.nmt``'s); None for the default."""
+    name = opts["model"]
+    if opts["pipeline_stages"]:
+        if name != "nmt" or opts["strategy"]:
+            raise SystemExit("--pipeline-stages places the NMT's LSTM "
+                             "layers (apps.nmt's pipeline_stage_strategy); "
+                             "give it for nmt, without -s")
+        from flexflow_tpu_torch.nmt.rnn_model import (
+            RnnConfig, pipeline_stage_strategy)
+
+        return pipeline_stage_strategy(
+            RnnConfig(batch_size=batch, compute_dtype=opts["dtype"]),
+            machine, opts["pipeline_stages"])
+    strategies = _strategies(opts)
+    if strategies is not None:
+        # the shadow is built without the file (the NMT's under its
+        # default strategy, whose pinned embeds are placements)
+        _check(opts, strategies, machine, batch,
+               os.path.basename(opts["strategy"]),
+               shadow=lambda m: _build_forward(name, batch, opts["dtype"],
+                                               m))
+    return strategies
 
 
 def _forward_payloads(model, requests, seed):
@@ -237,15 +317,17 @@ def _lm_kwargs(opts) -> dict:
     return dict(seed=opts["seed"], dtype=opts["dtype"], tiny=opts["tiny"])
 
 
-def _check(opts, strategies, machine, batch, label) -> None:
+def _check(opts, strategies, machine, batch, label, shadow=None) -> None:
     """The plan check of a serving strategy (``flexflow_tpu/apps/
-    serve.py:385-389``), on a shadow LM built without it on a virtual
-    machine of ``machine``'s size: exit 2 on an error finding."""
+    serve.py:385-389``), on a shadow model built without it on a virtual
+    machine of ``machine``'s size (``shadow(machine)``; default the LM):
+    exit 2 on an error finding."""
     from flexflow_tpu_torch.apps.cnn import check_strategy
 
-    check_strategy(
-        lambda m: build_lm(batch=batch, machine=m, **_lm_kwargs(opts))[0],
-        strategies, machine, False, label)
+    if shadow is None:
+        def shadow(m):
+            return build_lm(batch=batch, machine=m, **_lm_kwargs(opts))[0]
+    check_strategy(shadow, strategies, machine, False, label)
 
 
 def _olog_metrics(opts, device, rank=0):
@@ -272,16 +354,23 @@ def _olog_metrics(opts, device, rank=0):
 
 
 def _requests(opts, vocab):
-    """The seeded load: ``--requests`` at ``--rate-qps``, then with
-    ``--burst N`` the JAX serve smoke's gap-then-burst tail: N more,
+    """The seeded load: ``--requests`` at ``--rate-qps`` (with
+    ``--pattern``, ``loadgen.patterned_requests`` of that pattern), then
+    with ``--burst N`` the JAX serve smoke's gap-then-burst tail: N more,
     ``BURST_GAP_S`` virtual seconds after the last, at ``BURST_RATE_QPS``
     from seed + 1, their rids from 100."""
-    from flexflow_tpu_torch.serve.loadgen import synthetic_requests
+    from flexflow_tpu_torch.serve.loadgen import (patterned_requests,
+                                                  synthetic_requests)
 
     kw = dict(vocab_size=vocab, prompt_len=opts["prompt_len"],
               max_new_tokens=opts["max_new_tokens"])
-    reqs = synthetic_requests(opts["requests"], seed=opts["seed"],
-                              rate_qps=opts["rate_qps"], **kw)
+    if opts["pattern"]:
+        reqs = patterned_requests(opts["requests"], seed=opts["seed"],
+                                  rate_qps=opts["rate_qps"],
+                                  pattern=opts["pattern"], **kw)
+    else:
+        reqs = synthetic_requests(opts["requests"], seed=opts["seed"],
+                                  rate_qps=opts["rate_qps"], **kw)
     if opts["burst"] > 0:
         if len(reqs) > 100:
             raise SystemExit("--burst: the burst's rids start at 100; "
@@ -326,11 +415,12 @@ def build_engine(opts, log=_err, machine=None):
     batch = opts["max_batch"] or opts["batch_size"]
     rebuild = None
     if forward:
-        if opts["strategy"] or machine.num_devices > 1:
-            raise SystemExit("-s/--strategy and torchrun: the forward-only "
-                             "service runs on one device in the port")
-        model = _build_forward(name, batch, opts["dtype"], device)
+        model = _build_forward(name, batch, opts["dtype"], machine,
+                               _forward_strategies(opts, machine, batch))
     else:
+        if opts["pipeline_stages"]:
+            raise SystemExit("--pipeline-stages places the NMT's LSTM "
+                             "layers; the LM serves under -s")
         strategies = _strategies(opts)
         if strategies is not None:
             _check(opts, strategies, machine, batch,
@@ -387,24 +477,26 @@ def pool_devices(opts) -> list:
     return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 
 
-def _disagg_run(opts, devices, olog, metrics, log,
-                drain=None) -> dict:
-    """Disaggregated serving (``flexflow_tpu/apps/serve.py:258-346``): the
-    first ``--serve-prefill-devices`` of ``devices`` become the prefill
-    pool, the rest the decode pool, each pool split evenly into its
-    replicas; each phase's plan is vetted; the router serves the seeded
-    load under the drain contract.  A replica is one device, a one-rank
-    ``MachineModel`` in this process: a split that gives a replica
-    several is refused (a replica over ranks would need the router to
-    drive other processes' worlds)."""
+def _replica_pools(opts, devices, olog, metrics, log, world=None):
+    """``(prefill, decode, seats, ranks)``: the engines of the
+    disaggregated pools (``flexflow_tpu/apps/serve.py:258-336``).  The
+    first ``--serve-prefill-devices`` devices become the prefill pool,
+    the rest the decode pool, each pool split evenly into its replicas
+    (``ranks``: each replica's device ordinals); each phase's plan is
+    vetted on its replica 0.  ``world`` (the world ``torchrun`` started)
+    carves its ranks by ordinal, as JAX carves its mesh: a replica is a
+    running slice of them of any width (``MachineModel.running_slice``),
+    every replica's model set up on every rank in replica order, and
+    ``seats`` (a ``serve.replicas.ReplicaWorld``) places them.  Without
+    it a replica is one of ``devices`` in this process (``seats`` None),
+    and a split that gives a replica several is refused."""
     from flexflow_tpu_torch.machine import MachineModel
     from flexflow_tpu_torch.serve.engine import (DEFAULT_STEP_TIME_S,
                                                  ServeEngine)
-    from flexflow_tpu_torch.serve.router import ServeRouter
+    from flexflow_tpu_torch.serve.replicas import ReplicaWorld
     from flexflow_tpu_torch.sim.search import decode_step_ratio
-    from flexflow_tpu_torch.utils.elastic import drain_scope
 
-    n = len(devices)
+    n = world.num_devices if world is not None else len(devices)
     p = opts["prefill_devices"]
     pr, dr = max(1, opts["prefill_replicas"]), \
         max(1, opts["decode_replicas"])
@@ -419,11 +511,13 @@ def _disagg_run(opts, devices, olog, metrics, log,
         raise SystemExit("disaggregated serving needs an autoregressive "
                          "LM (transformer/gpt/bert)")
     per, dper = p // pr, (n - p) // dr
-    if per > 1 or dper > 1:
+    if world is None and (per > 1 or dper > 1):
         raise SystemExit(
             f"a replica of several devices ({per} per prefill replica, "
-            f"{dper} per decode replica) is not ported: a replica is one "
-            f"card in flexflow_tpu_torch; give each replica one")
+            f"{dper} per decode replica) runs over ranks: one process "
+            f"drives one card, so start the pools under torchrun "
+            f"(torchrun --nproc-per-node {n} -m "
+            f"flexflow_tpu_torch.apps.serve ...)")
     strategies = _strategies(opts)
     if strategies is not None:
         span = max((max(pc.devices) for pc in strategies.values()
@@ -432,20 +526,9 @@ def _disagg_run(opts, devices, olog, metrics, log,
             raise SystemExit(
                 f"prefill plan spans {span} device(s) but each of the "
                 f"{pr} prefill replica(s) has {per}: search the prefill "
-                f"phase at the per-replica slice")
+                f"phase at the per-replica slice (apps/search --devices "
+                f"{per} --serve --disagg {n - p})")
     batch = max(1, opts["batch_size"])
-    base_step = opts["step_time_s"] or DEFAULT_STEP_TIME_S
-    label = os.path.basename(opts["strategy"])
-    prefill = []
-    for j in range(pr):
-        m = MachineModel(devices[j])
-        model, _ = build_lm(batch=batch, strategies=strategies, machine=m,
-                            **_lm_kwargs(opts))
-        if strategies is not None and j == 0:
-            _check(opts, strategies, m, batch, label)
-        prefill.append(ServeEngine(
-            model, None, olog=olog, metrics=metrics, log=log,
-            step_time_s=opts["step_time_s"] or None, phase="prefill"))
     dstrat = _decode_pool_strategy(strategies, batch)
     if dstrat is not None:
         span = max((max(pc.devices) for pc in dstrat.values()
@@ -453,26 +536,83 @@ def _disagg_run(opts, devices, olog, metrics, log,
         if span > dper:
             raise SystemExit(
                 f"decode plan spans {span} device(s) but each of the "
-                f"{dr} decode replica(s) has {dper}")
-    decode = []
-    for j in range(dr):
-        m = MachineModel(devices[p + j])
-        model, _ = build_lm(batch=batch, strategies=dstrat, machine=m,
+                f"{dr} decode replica(s) has {dper}: search the decode "
+                f"companion at the per-replica slice (apps/search "
+                f"--serve --disagg {dper})")
+    ranks = [tuple(range(j * per, (j + 1) * per)) for j in range(pr)] \
+        + [tuple(range(p + j * dper, p + (j + 1) * dper))
+           for j in range(dr)]
+    label = os.path.basename(opts["strategy"])
+    models = []
+    for k, rr in enumerate(ranks):
+        plan = dstrat if k >= pr else strategies
+        m = world.running_slice(rr) if world is not None \
+            else MachineModel(devices[rr[0]])
+        model, _ = build_lm(batch=batch, strategies=plan, machine=m,
                             **_lm_kwargs(opts))
-        if dstrat is not None and j == 0:
-            _check(opts, dstrat, m, batch, f"{label}[decode]")
+        if m.num_devices > 1:
+            # this replica's groups, on every rank, before any replica runs
+            model._setup_sharded()
+        models.append(model)
+        if plan is not None and k in (0, pr):
+            _check(opts, plan, m, batch,
+                   f"{label}[decode]" if k >= pr else label)
+    seats = ReplicaWorld(world, ranks[:pr], ranks[pr:]) \
+        if world is not None else None
+    base_step = opts["step_time_s"] or DEFAULT_STEP_TIME_S
+    prefill = [ServeEngine(
+        model, None, olog=olog, metrics=metrics, log=log,
+        step_time_s=opts["step_time_s"] or None, phase="prefill",
+        seat=seats.prefill[k] if seats else None)
+        for k, model in enumerate(models[:pr])]
+    decode = []
+    for k, model in enumerate(models[pr:]):
+        # the decode replica's own model at its width prices its step
         step = None if dstrat is not None and opts["step_time_s"] == 0 \
             else base_step * decode_step_ratio(model)
         decode.append(ServeEngine(
             model, None, olog=olog, metrics=metrics, log=log,
-            step_time_s=step, phase="decode"))
+            step_time_s=step, phase="decode",
+            seat=seats.decode[k] if seats else None))
+    return prefill, decode, seats, ranks
+
+
+def _disagg_run(opts, devices, olog, metrics, log, drain=None,
+                world=None) -> dict:
+    """Disaggregated serving (``flexflow_tpu/apps/serve.py:258-346``):
+    the pools of :func:`_replica_pools` behind the router, serving the
+    seeded load under the drain contract (and ``-fault-spec``'s
+    injector).  Returns the router's summary, with the requests under
+    ``"_requests"`` and each replica's forward steps and their wall
+    seconds under ``"_replicas"``."""
+    from flexflow_tpu_torch.serve.router import ServeRouter
+    from flexflow_tpu_torch.utils import faultinject
+    from flexflow_tpu_torch.utils.elastic import drain_scope
+
+    prefill, decode, seats, ranks = _replica_pools(opts, devices, olog,
+                                                   metrics, log, world)
     router = ServeRouter(prefill, decode, olog=olog, metrics=metrics,
-                         log=log)
+                         log=log, world=seats)
     requests = _requests(opts, prefill[0].model.t.vocab_size)
-    if drain is not None:
-        return router.run(requests, drain=drain)
-    with drain_scope(log=log) as d:
-        return router.run(requests, drain=d)
+    restore = faultinject.install_scoped(faultinject.FaultInjector(
+        opts["fault_spec"], olog=olog)) if opts["fault_spec"] \
+        else (lambda: None)
+    try:
+        if drain is not None:
+            summary = router.run(requests, drain=drain)
+        else:
+            with drain_scope(log=log) as d:
+                summary = router.run(requests, drain=d)
+    finally:
+        restore()
+    summary["_requests"] = requests
+    summary["_replicas"] = [
+        {"phase": eng.phase, "index": k if k < len(prefill)
+         else k - len(prefill), "ranks": list(rr), "runs": eng.runs,
+         "steps": eng.forward_steps, "busy_s": eng.busy_s,
+         "step_time_s": eng.step_time_s}
+        for k, (eng, rr) in enumerate(zip(prefill + decode, ranks))]
+    return summary
 
 
 def serve_run(opts, log=_err) -> dict:
@@ -482,16 +622,25 @@ def serve_run(opts, log=_err) -> dict:
     from flexflow_tpu_torch.utils import elastic
 
     if opts["prefill_devices"] > 0:
-        if "WORLD_SIZE" in os.environ:
-            raise SystemExit("the disaggregated pools run in one process "
-                             "(a replica per card), not under torchrun")
-        olog, metrics = _olog_metrics(opts, opts["device"])
+        world = machine_for(opts) if "WORLD_SIZE" in os.environ else None
+        rank = world.rank if world is not None else 0
+        if rank != 0:
+            log = _quiet
+        olog, metrics = _olog_metrics(
+            opts, world.device if world is not None else opts["device"],
+            rank)
         try:
-            summary = _disagg_run(opts, pool_devices(opts), olog, metrics,
-                                  log)
+            summary = _disagg_run(
+                opts, pool_devices(opts) if world is None else None, olog,
+                metrics, log, world=world)
         finally:
             olog.close()
+        done = [r for r in summary.pop("_requests") if r.reply is not None]
+        if opts["result_json"]:
+            _write_result(opts["result_json"], summary, None, done, rank,
+                          summary.get("_replicas"))
         summary["_olog"] = olog
+        summary["_rank"] = rank
         return summary
     machine = machine_for(opts)
     if machine.rank != 0:
@@ -501,7 +650,7 @@ def serve_run(opts, log=_err) -> dict:
         with elastic.drain_scope(log=log) as drain:
             if forward:
                 summary = engine.run_forward(requests, drain=drain)
-                done = []
+                done = [r for r in requests if r.reply is not None]
             else:
                 engine.start(requests, drain=drain)
                 while engine.step_once():
@@ -524,20 +673,33 @@ def serve_run(opts, log=_err) -> dict:
     return summary
 
 
-def _write_result(path, summary, engine, done, rank) -> None:
+def _write_result(path, summary, engine, done, rank, replicas=None) -> None:
     """One rank's run: its summary, each completed request's reply (by
-    rid; the decode service's alone), the resizes, whether it ended
-    parked and the kernel launches, to ``path`` on rank 0 and
-    ``path.rank<r>`` on rank r (first-world ranks)."""
+    rid), the resizes, whether it ended parked and the kernel launches,
+    to ``path`` on rank 0 and ``path.rank<r>`` on rank r (first-world
+    ranks); a routed run's replicas (``engine`` None).  The forward
+    service's float replies go to ``<path>.replies.npy`` (rank 0's, in
+    the order of ``reply_rids``)."""
     from flexflow_tpu_torch.ops import kernels
 
-    res = {"summary": summary, "resizes": engine.resizes,
-           "out_of_service": engine.out_of_service,
-           "launches": dict(kernels.launches),
-           "replies": {str(r.rid): [int(t) for t in r.reply]
-                       for r in done}}
+    res = {"summary": {k: v for k, v in summary.items()
+                       if not k.startswith("_")},
+           "resizes": engine.resizes if engine is not None else [],
+           "out_of_service": engine.out_of_service
+           if engine is not None else False,
+           "launches": dict(kernels.launches), "replicas": replicas}
     if rank:
         path = f"{path}.rank{rank}"
+    done = sorted(done, key=lambda r: r.rid)
+    if done and np.asarray(done[0].reply).dtype.kind == "f":
+        res["replies"] = {}
+        res["reply_rids"] = [r.rid for r in done]
+        if not rank:
+            np.save(f"{path}.replies.npy",
+                    np.stack([np.asarray(r.reply) for r in done]))
+    else:
+        res["replies"] = {str(r.rid): [int(t) for t in r.reply]
+                          for r in done}
     with open(path, "w") as f:
         json.dump(res, f)
 

@@ -46,6 +46,7 @@ unless the caller passed ``device="cpu"``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import logging
@@ -195,7 +196,16 @@ class MachineModel:
     re-forms the world over the ranks that survive a loss
     (``distributed.reform``), renumbered in their old order, and
     ``generation`` counts those re-forms; :meth:`shrink` and :meth:`grow`
-    plan such a resize."""
+    plan such a resize.
+
+    A machine may run on a slice of the process group's ranks while the
+    rest of the world does something else (:meth:`running_slice`, a
+    serving replica of several ranks): ``process_ranks`` then names each
+    of its ranks' rank in the process group (None: the machine is the
+    whole process group), every group it opens is a ``new_group`` of
+    those ranks, and a rank outside the slice holds a *bystander* view of
+    it (``bystander``: position 0, device ``meta``) that makes the same
+    groups in the same order and runs nothing."""
 
     def __init__(self, device="cuda", world_size: int = 1, rank: int = 0,
                  topology: Optional[Topology] = None,
@@ -203,7 +213,8 @@ class MachineModel:
                  view: Optional[Sequence[int]] = None,
                  all_to_all: bool = True, send_recv: bool = True,
                  members: Optional[Sequence[int]] = None,
-                 generation: int = 0):
+                 generation: int = 0,
+                 process_ranks: Optional[Sequence[int]] = None):
         if world_size < 1 or not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} of world size {world_size}")
         self.device = resolve_device(device)
@@ -226,6 +237,13 @@ class MachineModel:
             raise ValueError(f"{len(self.members)} members for a world of "
                              f"{self.world_size}")
         self.generation = int(generation)
+        self.process_ranks = tuple(int(r) for r in process_ranks) \
+            if process_ranks is not None else None
+        if self.process_ranks is not None \
+                and len(self.process_ranks) != self.world_size:
+            raise ValueError(f"{len(self.process_ranks)} process ranks for "
+                             f"a world of {self.world_size}")
+        self.bystander = False
         self._gfactors = None
         # process groups by rank set; partitions by axis set
         self._handles: Dict[Tuple[int, ...], object] = {}
@@ -251,6 +269,7 @@ class MachineModel:
         m.members = tuple(int(x) for x in members) if members is not None \
             else tuple(range(m.world_size))
         m.generation = 0
+        m.process_ranks, m.bystander = None, False
         m._gfactors = None
         m._handles, m._groups, m._warned = {}, {}, set()
         return m
@@ -264,14 +283,20 @@ class MachineModel:
     # the running machine of a resized world is distributed.reform's
 
     def _resized(self, members: List[int]) -> "MachineModel":
-        """A virtual machine over ``members`` with the topology re-derived:
-        a machine that was one fast-tier group stays one, a larger one
-        keeps its group size."""
+        """A virtual machine over ``members`` with the topology re-derived
+        (:meth:`_sliced_topology`)."""
+        return MachineModel.virtual(len(members),
+                                    self._sliced_topology(len(members)),
+                                    members)
+
+    def _sliced_topology(self, n: int) -> Topology:
+        """The topology of ``n`` of this machine's ranks: a machine that
+        was one fast-tier group stays one, a larger one keeps its group
+        size."""
         topo = self.topology
         if topo.devices_per_ici_group >= self.num_devices:
-            topo = dataclasses.replace(topo,
-                                       devices_per_ici_group=len(members))
-        return MachineModel.virtual(len(members), topo, members)
+            topo = dataclasses.replace(topo, devices_per_ici_group=n)
+        return topo
 
     def shrink(self, live: Sequence[int]) -> "MachineModel":
         """The machine over the SURVIVING rank ordinals ``live`` (into
@@ -290,8 +315,47 @@ class MachineModel:
 
     def slice_of(self, ordinals: Sequence[int]) -> "MachineModel":
         """:meth:`shrink`, named for carving a pool into disjoint slices:
-        nothing died."""
+        nothing died.  A planning view; :meth:`running_slice` is the
+        machine a slice runs on."""
         return self.shrink(ordinals)
+
+    def running_slice(self, ordinals: Sequence[int]) -> "MachineModel":
+        """The machine that runs on the ranks at ``ordinals`` while the
+        rest of this world does something else (a serving replica),
+        ranks renumbered in their order, with the topology of
+        :meth:`shrink`'s view.  On a rank of the slice: one process on
+        this device when the slice is one rank, else a distributed
+        machine whose collectives go to a ``new_group`` of those ranks
+        (``process_ranks``).  On any other rank: the slice's bystander
+        view (device ``meta``, position 0), which builds the same graph
+        and, for a slice of several ranks, makes the same groups in the
+        same order (``torch.distributed.new_group`` needs every rank of
+        the process group) but runs nothing.  Every rank calls this for
+        every slice, in one order, and sets up the slice's model
+        (``FFModel._setup_sharded``) before any slice runs."""
+        idx = sorted(set(int(i) for i in ordinals))
+        self.shrink(idx)            # the same checks
+        members = [self.members[i] for i in idx]
+        topo = self._sliced_topology(len(idx))
+        process = [self.process_ranks[i] if self.process_ranks is not None
+                   else i for i in idx]
+        if self.rank in idx and self.device.type != "meta":
+            if len(idx) == 1:
+                return MachineModel(self.device, topology=topo,
+                                    members=members,
+                                    generation=self.generation)
+            return MachineModel(self.device, len(idx), idx.index(self.rank),
+                                topo, self.distributed,
+                                all_to_all=self.all_to_all,
+                                send_recv=self.send_recv, members=members,
+                                generation=self.generation,
+                                process_ranks=process)
+        m = MachineModel.virtual(len(idx), topo, members)
+        m.all_to_all, m.send_recv = self.all_to_all, self.send_recv
+        if len(idx) > 1:
+            m.distributed, m.process_ranks = self.distributed, tuple(process)
+        m.bystander = True
+        return m
 
     def devices_at(self, ordinals: Sequence[int]) -> list:
         """The members (processes) at rank ``ordinals``, in the given
@@ -341,11 +405,14 @@ class MachineModel:
 
     def permuted(self, perm: Sequence[int]) -> "MachineModel":
         """The same world with position ``i`` played by the rank at this
-        view's position ``perm[i]`` (``flexflow_tpu/model.py:152-221``)."""
-        return MachineModel(self.device, self.world_size, self.rank,
-                            self.topology, self.distributed,
-                            [self.view[d] for d in perm], self.all_to_all,
-                            self.send_recv, self.members, self.generation)
+        view's position ``perm[i]`` (``flexflow_tpu/model.py:152-221``);
+        a bystander's view stays one."""
+        m = copy.copy(self)
+        m.view = tuple(self.view[d] for d in perm)
+        m.position = m.view.index(m.rank)
+        m._gfactors = None
+        m._handles, m._groups, m._warned = {}, {}, set()
+        return m
 
     # ------------------------------------------------------------------
     # the per-op grid map (mesh_for, flexflow_tpu/machine.py:240-265)
@@ -545,7 +612,7 @@ class MachineModel:
                 members = self._members(key, pos, sizes)
                 if members[0] != pos:
                     continue   # each group once, from its first position
-                ranks = tuple(self.view[p] for p in members)
+                ranks = self._process(members)
                 handle = self._handle(ranks)
                 if self.position in members:
                     self._groups[key] = Group(members, ranks, handle)
@@ -566,15 +633,22 @@ class MachineModel:
                        for i in range(sizes[a])]
         return tuple(members)
 
+    def _process(self, positions) -> Tuple[int, ...]:
+        """The process-group ranks of the ranks at ``positions``."""
+        ranks = [self.view[p] for p in positions]
+        if self.process_ranks is not None:
+            ranks = [self.process_ranks[r] for r in ranks]
+        return tuple(ranks)
+
     def _handle(self, ranks: Tuple[int, ...]):
-        """The process group of ``ranks`` (one per rank set; called on
-        every rank for every set)."""
+        """The process group of process ranks ``ranks`` (one per rank set;
+        called on every rank for every set)."""
         key = tuple(sorted(ranks))
         if key in self._handles or not self.distributed:
             return self._handles.get(key)
         import torch.distributed as dist
 
-        if len(key) == self.num_devices:
+        if len(key) == self.num_devices and self.process_ranks is None:
             handle = dist.group.WORLD   # also a world of one rank
         elif len(key) == 1:
             return None
@@ -590,7 +664,7 @@ class MachineModel:
         set, members or not, in one order (``new_group`` needs them
         all)."""
         positions = tuple(positions)
-        ranks = tuple(self.view[p] for p in positions)
+        ranks = self._process(positions)
         return Group(positions, ranks, self._handle(ranks))
 
     def pipeline_mesh(self, stages: int, dp: int, tp: int) -> PipelineMesh:

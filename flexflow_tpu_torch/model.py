@@ -747,7 +747,8 @@ class FFModel:
         params are cast to the compute dtype for the step.  Over several
         ranks the batch is this rank's block (:meth:`local_batch`) and
         each output this rank's block of it (None where it holds none);
-        :meth:`gather_rows` assembles the rows a caller reads."""
+        :meth:`gather_rows` assembles the rows a caller reads and
+        :meth:`gather_output` a whole value."""
         tids = tuple(output_tids) if output_tids is not None \
             else (self._loss_op().output.tid,)
         cdtype = torch_dtype(self.config.compute_dtype)
@@ -770,43 +771,81 @@ class FFModel:
 
         return predict_step
 
+    def _producer(self, tid):
+        """``(op, k)``: the op whose ``k``-th output is tensor ``tid``."""
+        for op in self.layers:
+            for k, t in enumerate(op.all_outputs()):
+                if t.tid == tid:
+                    return op, k
+        raise KeyError(f"no op produces tensor {tid}")
+
+    def _first_box(self, op, k):
+        """``(shape, boxes, mine)``: the shape of output ``k`` of ``op``,
+        every position's box of it, and the box this rank first holds
+        (None where another position holds the same block first, or none
+        is held here)."""
+        t = op.all_outputs()[k]
+        boxes = self._boxes_of(op, op.output_specs()[k], t.shape)
+        mine = boxes[self.machine.position]
+        first = mine is not None and boxes.index(mine) == \
+            self.machine.position
+        return t.shape, boxes, (mine if first else None)
+
     def gather_rows(self, values, picks):
         """Whole rows of values held in blocks over the ranks, on every
         rank: ``picks`` is a list of ``(tid, rows)``, ``rows`` the
-        ``(b, s)`` positions to read of a ``(B, S, D)`` value (``values``
-        as :meth:`make_predict_step` returns them, by tid).  Returns one
+        positions to read of a value of any rank, each an index tuple
+        over every dim but the last (``(b, s)`` of a ``(B, S, D)`` value,
+        ``(b,)`` of a ``(B, C)`` one; ``values`` as
+        :meth:`make_predict_step` returns them, by tid).  Returns one
         float32 ``(len(rows), D)`` tensor per pick.  Each rank writes the
         parts of the rows that its first-held block covers into zeros,
         and one all-reduce sum over the world assembles them: every
         element has exactly one first holder, so the sum adds zeros to
         it and is exact.  Nothing else of the values leaves a rank."""
         self._setup_sharded()
-        producers = {t.tid: (op, k) for op in self.layers
-                     for k, t in enumerate(op.all_outputs())}
-        pos = self.machine.position
         parts = []
         for tid, rows in picks:
-            op, k = producers[tid]
-            t = op.all_outputs()[k]
-            buf = torch.zeros(len(rows), t.shape[-1], dtype=torch.float32,
+            op, k = self._producer(tid)
+            shape, _, mine = self._first_box(op, k)
+            buf = torch.zeros(len(rows), shape[-1], dtype=torch.float32,
                               device=self.device)
             v = values.get(tid)
-            boxes = self._boxes_of(op, op.output_specs()[k], t.shape)
-            mine = boxes[pos]
-            if v is not None and mine is not None \
-                    and boxes.index(mine) == pos:
-                (b0, b1), (s0, s1), (d0, d1) = mine
-                sel = [(i, b - b0, q - s0) for i, (b, q) in enumerate(rows)
-                       if b0 <= b < b1 and s0 <= q < s1]
+            if v is not None and mine is not None:
+                lead, (d0, d1) = mine[:-1], mine[-1]
+                sel = [(i,) + tuple(x - lo for x, (lo, _) in zip(row, lead))
+                       for i, row in enumerate(rows)
+                       if all(lo <= x < hi for x, (lo, hi)
+                              in zip(row, lead))]
                 if sel:
-                    i, b, q = (torch.tensor(c, device=self.device)
-                               for c in zip(*sel))
-                    buf[i, d0:d1] = v[b, q].float()
+                    idx = [torch.tensor(c, device=self.device)
+                           for c in zip(*sel)]
+                    buf[idx[0], d0:d1] = v[tuple(idx[1:])].float()
             parts.append(buf)
         if not parts:
             return []
         return collectives.all_reduce_flat(parts,
                                            self.machine.world_group())
+
+    def gather_output(self, values, tid):
+        """The whole value ``tid`` (a tensor of any rank, held in blocks
+        as :meth:`make_predict_step` returns it) as float32 on every
+        rank, the forward-only service's reply rows: each rank writes
+        its first-held block into zeros of the whole shape and one
+        all-reduce sum over the world assembles it, exact as in
+        :meth:`gather_rows`.  A value every rank holds whole is returned
+        as it stands, with no collective."""
+        self._setup_sharded()
+        op, k = self._producer(tid)
+        shape, boxes, mine = self._first_box(op, k)
+        v = values.get(tid)
+        whole = tuple((0, n) for n in shape)
+        if all(b == whole for b in boxes):
+            return v.float()
+        buf = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        if v is not None and mine is not None:
+            buf[tuple(slice(lo, hi) for lo, hi in mine)] = v.float()
+        return collectives.all_reduce_(buf, self.machine.world_group())
 
     # ------------------------------------------------------------------
     # training (model.py:1338-1500, 1551, 1624)

@@ -31,13 +31,14 @@ from flexflow_tpu_torch.ops.base import Op, Tensor, glorot_uniform
 from flexflow_tpu_torch.strategy import ParallelConfig
 
 
-def lstm_recurrence(xg, w_hh, b, hx, cx):
+def lstm_recurrence(xg, w_hh, b, hx, cx, saved: bool = True):
     """The chunk recurrence as plain PyTorch ops, in xg's dtype with
     float32 products, each rounded where the JAX scan rounds it
     (``lstm.py:41-56``): ``(ys (B, L, H), hy, cy, cs (L, B, H), ifgo (L,
     B, 4H))``, the last two the cell states and activated gates the
-    backward reads.  Differentiable by autograd, which makes it the
-    reference that :class:`LSTMCore`'s backward is held against."""
+    backward reads (None without ``saved``: the inference forward keeps
+    neither).  Differentiable by autograd, which makes it the reference
+    that :class:`LSTMCore`'s backward is held against."""
     dt = xg.dtype
     h_size = hx.shape[1]
     w = w_hh.float()
@@ -51,8 +52,11 @@ def lstm_recurrence(xg, w_hh, b, hx, cx):
         c = f * c + i * g
         h = o * torch.tanh(c)
         ys.append(h)
-        cs.append(c)
-        acts.append(torch.cat([i, f, g, o], dim=-1))
+        if saved:
+            cs.append(c)
+            acts.append(torch.cat([i, f, g, o], dim=-1))
+    if not saved:
+        return torch.stack(ys, 1), h, c, None, None
     return (torch.stack(ys, 1), h, c, torch.stack(cs, 0),
             torch.stack(acts, 0))
 
@@ -162,6 +166,13 @@ class LSTMChunk(Op):
         w_ih = params["w_ih"].to(dt)
         # the input projection for the whole chunk: one product
         xg = torch.matmul(x.float(), w_ih.float()).to(dt)
+        if not (train or torch.is_grad_enabled()):
+            # inference (the serving forward): the recurrence alone,
+            # keeping nothing for a backward
+            y, hy, cy, _, _ = lstm_recurrence(xg, params["w_hh"].to(dt),
+                                              params["b"].to(dt), hx, cx,
+                                              saved=False)
+            return (y, hy, cy), state
         y, hy, cy = LSTMCore.apply(xg, params["w_hh"].to(dt),
                                    params["b"].to(dt), hx, cx)
         return (y, hy, cy), state

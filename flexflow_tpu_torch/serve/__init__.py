@@ -8,11 +8,13 @@ of ``flexflow_tpu/serve/``):
     padded batches;
   * :mod:`~flexflow_tpu_torch.serve.kv_cache` — the KV-cache layout, ring
     slots, byte accounting and the prefill-to-decode handoff;
-  * :mod:`~flexflow_tpu_torch.serve.engine` — the executor: decode over
-    one or several ranks, the queue-driven autoscaler, the drain, and
-    the prefill and decode phases;
+  * :mod:`~flexflow_tpu_torch.serve.engine` — the executor: decode and
+    the forward-only service over one or several ranks, the queue-driven
+    autoscaler, the drain, and the prefill and decode phases;
   * :mod:`~flexflow_tpu_torch.serve.router` — the disaggregated pools'
-    router.
+    router;
+  * :mod:`~flexflow_tpu_torch.serve.replicas` — the router over a world
+    of ranks whose replicas are slices of it of any width.
 
 ``apps/serve.py`` is the command-line entry point.
 """

@@ -46,16 +46,25 @@ each request off after its first generated token with its exported KV
 rows; a ``phase="decode"`` engine imports them and decodes the tail.  The
 router drives the engines' open-ended sessions through :meth:`push`,
 :meth:`advance_to`, :meth:`next_ready_v`, :meth:`take_handoffs`,
-:meth:`crash` and the rest.  An injected ``slow_replica`` stretches a
-decode step's virtual time.  A pooled engine writes only its labeled
-``ff_serve_pool_*`` gauges.
+:meth:`crash`, :meth:`restart` and the rest.  An injected
+``slow_replica`` stretches a decode step's virtual time.  A pooled engine
+writes only its labeled ``ff_serve_pool_*`` gauges.  When the router runs
+on every rank of a world (``serve/replicas.py``), each rank holds an
+engine for every replica: the replica's ``seat`` says whether this rank
+runs its model; where it does not, the engine keeps the scheduler's state
+alone (no params, a KV ledger of lengths in place of the cache), and
+after each step the replica's first rank broadcasts the step's tokens
+(``ReplicaSeat.share``), so every rank's scheduler takes the same ones.
 
 :meth:`ServeEngine.run_forward` is the CNN/NMT forward-only service:
 padded fixed-shape batches (``batch.batch_requests``) through the
 ``DevicePrefetcher``, each request's reply its row of the loss op's
-output.  A drain requested before the run leaves every request unserved,
-as in the JAX engine; the port also reads the drain flag before each
-batch, so that a drain requested mid-run stops admission there.
+output.  Over several ranks each rank stages only its rows of each batch
+(``FFModel.local_batch``) and the loss op's output is assembled on every
+rank (``FFModel.gather_output``).  A drain requested before the run
+leaves every request unserved, as in the JAX engine; the port also reads
+the drain flag before each batch (agreed over the ranks), so that a drain
+requested mid-run stops admission there on every rank.
 
 Obs records: ``serve_request``, ``serve_batch`` (with KV occupancy),
 ``serve_resize`` and ``serve_summary``.  With ``metrics`` (an
@@ -77,7 +86,8 @@ import torch
 from flexflow_tpu_torch import obs
 from flexflow_tpu_torch.serve.batcher import (ContinuousBatcher,
                                               RequestQueue, batch_requests)
-from flexflow_tpu_torch.serve.kv_cache import KVCache, KVCacheLayout
+from flexflow_tpu_torch.serve.kv_cache import (KVCache, KVCacheLayout,
+                                               KVLedger)
 from flexflow_tpu_torch.serve.loadgen import Request
 from flexflow_tpu_torch.utils import faultinject
 
@@ -114,13 +124,16 @@ class ServeEngine:
     ``"decode"`` (the router's pools); ``pool`` labels the records and
     gauges.  A decode engine that autoscales re-searches under the
     ``decode`` objective; its phase, pool label and step time stay across
-    every resize."""
+    every resize.  ``seat`` (``serve/replicas.py``) places a routed
+    replica in a world of ranks: where ``seat.runs`` is false this rank
+    keeps the replica's schedule alone (no params, no forward)."""
 
     def __init__(self, model, rebuild=None, *, params=None, olog=None,
                  metrics=None, log=print, step_time_s: Optional[float] = None,
                  queue_hi: int = 0, idle_boundaries: int = 0,
                  shrink_to: int = 0, kv_window: Optional[int] = None,
-                 pad_id: int = 0, phase: str = "full", pool: str = ""):
+                 pad_id: int = 0, phase: str = "full", pool: str = "",
+                 seat=None):
         if phase not in ("full", "prefill", "decode"):
             raise ValueError(
                 f"phase must be 'full', 'prefill' or 'decode', "
@@ -142,6 +155,13 @@ class ServeEngine:
             if model._inputs[0].ndim >= 2 else 1
         self.step_time_s = float(step_time_s) if step_time_s else \
             self._predicted_step_time()
+        self.seat = seat
+        self.runs = seat is None or seat.runs
+        # forward steps taken and their wall seconds (the replica first
+        # rank's, on the other ranks of a routed world), over the
+        # engine's life
+        self.forward_steps = 0
+        self.busy_s = 0.0
         self.resizes: List[Dict] = []
         self._sess: Optional[Dict] = None   # open start()/finish() session
         # first-world ranks out of service after a shrink (JAX: device
@@ -151,7 +171,9 @@ class ServeEngine:
         self._rejoined: Optional[List[int]] = None
         # parked when the run ended (its session then ended at the shrink)
         self.out_of_service = False
-        if params is None:
+        if not self.runs:
+            params, state = {}, {}
+        elif params is None:
             params, state = model.init(model.config.seed)
         else:
             state = {}
@@ -184,8 +206,17 @@ class ServeEngine:
         projection weights used to fill the cache, for the CURRENT model
         (at init and after every resize; the cache restarts empty).  Over
         several ranks every rank takes part in one gather of those
-        weights (``FFModel.gather_trees``)."""
+        weights (``FFModel.gather_trees``).  A rank that does not run the
+        replica keeps a :class:`KVLedger` of the layout."""
         model = self.model
+        layout = KVCacheLayout.from_model(
+            model, self.max_batch, self.kv_window,
+            strategy=getattr(model.config, "strategies", None))
+        self.kv_layout = layout
+        self._kv_filled = [0] * self.max_batch
+        if not self.runs:
+            self.kv_cache = KVLedger(layout) if layout is not None else None
+            return
         self._attn_ops = self._attention_ops()
         self._loss_tid = model._loss_op().output.tid
         self._tids = (self._loss_tid,) + tuple(op.inputs[0].tid
@@ -201,12 +232,7 @@ class ServeEngine:
         self._kv_w = [(kv[op.param_key]["wk"].to(model.device).float(),
                        kv[op.param_key]["wv"].to(model.device).float())
                       for op in self._attn_ops]
-        layout = KVCacheLayout.from_model(
-            model, self.max_batch, self.kv_window,
-            strategy=getattr(model.config, "strategies", None))
-        self.kv_layout = layout
         self.kv_cache = KVCache(layout) if layout is not None else None
-        self._kv_filled = [0] * self.max_batch
 
     def _zero_extra_inputs(self) -> List[np.ndarray]:
         """Zero arrays for every model input past the first (the
@@ -292,6 +318,18 @@ class ServeEngine:
         self._kv_filled = [0] * self.max_batch
         self._sess = None
         return out
+
+    def restart(self) -> None:
+        """A crashed replica's restart (the router's revival, before a
+        fresh :meth:`start`): the predict step rebuilt on the replica's
+        ranks from the params it holds, and an empty KV cache (or
+        ledger) of its layout."""
+        if self.runs:
+            self._predict = self.model.make_predict_step(
+                output_tids=self._tids)
+        if self.kv_cache is not None:
+            self.kv_cache = type(self.kv_cache)(self.kv_layout)
+        self._kv_filled = [0] * self.max_batch
 
     def next_ready_v(self) -> Optional[float]:
         """The earliest virtual instant this session can work: its now
@@ -445,13 +483,21 @@ class ServeEngine:
         pre_lengths = {i: sl.length for i, sl in active}
         spans = [(i, self._kv_filled[i], pre_lengths[i]) for i, _ in active
                  if pre_lengths[i] > self._kv_filled[i]]
-        batch = (batcher.token_matrix(self.pad_id), *s["extra"])
-        if self.model.sharded:
-            batch = self.model.local_batch(*batch)
-        t0 = time.perf_counter()
-        outs = self._predict(self.params, self.state, *batch)
-        rows, xs = self._read_rows(outs, active, spans)
-        step_wall = time.perf_counter() - t0
+        toks, xs, step_wall = None, None, 0.0
+        if self.runs:
+            batch = (batcher.token_matrix(self.pad_id), *s["extra"])
+            if self.model.sharded:
+                batch = self.model.local_batch(*batch)
+            t0 = time.perf_counter()
+            outs = self._predict(self.params, self.state, *batch)
+            rows, xs = self._read_rows(outs, active, spans)
+            step_wall = time.perf_counter() - t0
+            toks = [int(np.argmax(r)) for r in rows]
+        if self.seat is not None:
+            # the replica's first rank's tokens and wall, on every rank
+            toks, step_wall = self.seat.share(toks, step_wall, len(active))
+        self.forward_steps += 1
+        self.busy_s += step_wall
         self._fill_kv(xs, spans)
         for slot_idx, _ in active:
             self._kv_filled[slot_idx] = pre_lengths[slot_idx]
@@ -464,7 +510,7 @@ class ServeEngine:
                 step_s *= SLOW_REPLICA_FACTOR
         done_v = vnow + step_s  # this step's tokens land here
         for j, (slot_idx, slot) in enumerate(active):
-            nxt_tok = int(np.argmax(rows[j]))
+            nxt_tok = toks[j]
             slot.req.wall_s += step_wall
             batcher.record_token(slot_idx, nxt_tok)
             if slot.generated == 1:
@@ -579,8 +625,15 @@ class ServeEngine:
         """Project this step's NEW positions into the KV cache: ``xs``
         holds each layer's attention-input rows of ``spans`` in order;
         they are projected on the device and only K/V cross to the
-        host."""
-        if self.kv_cache is None or not xs:
+        host.  A rank that does not run the replica (``xs`` None) marks
+        the spans in its ledger."""
+        if self.kv_cache is None:
+            return
+        if xs is None:
+            for slot_idx, _, hi in spans:
+                self.kv_cache.fill(slot_idx, hi)
+            return
+        if not xs:
             return
         h, hd = self.kv_layout.num_heads, self.kv_layout.head_dim
         with torch.inference_mode():
@@ -608,7 +661,11 @@ class ServeEngine:
         order.  The virtual clock advances ``step_time_s`` a batch, and a
         reply is its request's first and only token (TTFT = latency).
         ``drain["requested"]`` stops admission before the next batch:
-        every request not yet served is reported unserved."""
+        every request not yet served is reported unserved.  Over several
+        ranks each rank stages its rows of each batch, the output is
+        assembled on every rank (``FFModel.gather_output``) and the drain
+        flag is agreed before each batch, so that every rank stops at the
+        same one."""
         from collections import deque
 
         from flexflow_tpu_torch.data.prefetch import DevicePrefetcher
@@ -618,32 +675,44 @@ class ServeEngine:
         in0 = model._inputs[0]
         sample_shape = tuple(in0.shape[1:])
         ordered = sorted(requests, key=lambda r: (r.arrival_v, r.rid))
-        draining = drain is not None and bool(drain.get("requested"))
+
+        def requested() -> bool:
+            return drain is not None and self._agreed(drain.get("requested"))
+
+        draining = requested()
         queued = [] if draining else ordered
         meta: deque = deque()
+        extra = self._zero_extra_inputs()
+        if model.sharded:
+            extra = list(model.local_batch(*extra))
 
         def arrays():
             for batch, members in batch_requests(
                     iter(queued), self.max_batch, pad_shape=sample_shape,
                     dtype=in0.dtype):
                 meta.append(members)
-                yield (batch,)
+                # this rank's rows of the batch, the layout the model's
+                # inputs arrive in
+                yield model.local_batch(batch) if model.sharded \
+                    else (batch,)
 
+        tid = model._loss_op().output.tid
         predict = model.make_predict_step()
-        extra = self._zero_extra_inputs()
         completed: List[Request] = []
         vnow = 0.0
         batches = 0
         with DevicePrefetcher(arrays(), model.device) as pf:
             for (batch,) in pf:
                 members = meta.popleft()
-                if drain is not None and drain.get("requested"):
+                if requested():
                     draining = True
                     break
                 vstart = max(vnow, max(r.arrival_v for r in members))
                 t0 = time.perf_counter()
-                out = predict(self.params, self.state, batch,
-                              *extra)[0].float().cpu().numpy()
+                out = predict(self.params, self.state, batch, *extra)[0]
+                if model.sharded:
+                    out = model.gather_output({tid: out}, tid)
+                out = out.float().cpu().numpy()
                 wall = time.perf_counter() - t0
                 vnow = vstart + self.step_time_s
                 batches += 1

@@ -22,7 +22,10 @@ layout, where they die with the replica on a ``replica_crash`` (the
 router then re-prefills the carried tokens, a ``kv_rebuild``).
 :func:`plan_kv_handoff` prices the move.  Where the topology names no
 link bandwidth, it prices the hop at a tenth of ``HopperChipPerf``'s HBM
-rate (the JAX package takes its TPU's).
+rate (the JAX package takes its TPU's).  A rank of a routed world that
+does not run a replica keeps a :class:`KVLedger` for it: the lengths
+alone, whose exports carry no rows (``serve/replicas.py`` moves the rows
+to the ranks that import them).
 """
 
 from __future__ import annotations
@@ -129,6 +132,13 @@ def kv_cache_bytes(model, max_batch: int, max_seq: Optional[int] = None,
     return 0 if layout is None else layout.bytes_per_device()
 
 
+def host_dtype(layout: KVCacheLayout) -> np.dtype:
+    """The host mirror's dtype: numpy has no bfloat16, so a bf16 cache is
+    stored as float32."""
+    return np.dtype("float32") if layout.dtype == "bfloat16" \
+        else np.dtype(layout.dtype)
+
+
 class KVCache:
     """Host-resident cache over :class:`KVCacheLayout`, shaped
     ``(num_layers, max_batch, num_heads, max_seq, head_dim)``.
@@ -138,9 +148,7 @@ class KVCache:
         self.layout = layout
         shape = (layout.num_layers, layout.max_batch, layout.num_heads,
                  layout.max_seq, layout.head_dim)
-        # numpy has no bfloat16: the host mirror stores bf16 caches as f32
-        dt = np.dtype("float32") if layout.dtype == "bfloat16" \
-            else np.dtype(layout.dtype)
+        dt = host_dtype(layout)
         self.k = np.zeros(shape, dt)
         self.v = np.zeros(shape, dt)
         self.lengths = np.zeros((layout.max_batch,), np.int64)
@@ -216,6 +224,39 @@ class KVCache:
         for li in range(self.layout.num_layers):
             self.write_span(li, slot, start, k[li], v[li])
         # the exporter's logical length survives a window that kept fewer
+        self.lengths[slot] = int(payload["length"])
+        return int(payload["length"])
+
+
+class KVLedger:
+    """:class:`KVCache`'s lengths without its rows: what a rank that does
+    not run a replica keeps of its cache.  Its export is the payload's
+    bookkeeping (``length``, ``start``, ``grid``) with ``k`` and ``v``
+    None; its import takes the logical length."""
+
+    def __init__(self, layout: KVCacheLayout):
+        self.layout = layout
+        self.lengths = np.zeros((layout.max_batch,), np.int64)
+
+    def fill(self, slot: int, end: int) -> None:
+        """Positions up to ``end`` written to ``slot``."""
+        self.lengths[slot] = max(int(self.lengths[slot]), int(end))
+
+    def reclaim(self, slot: int) -> None:
+        self.lengths[slot] = 0
+
+    def export_request(self, slot: int) -> Optional[Dict]:
+        n = int(self.lengths[slot])
+        if n == 0:
+            return None
+        kept = min(n, self.layout.max_seq)
+        return {"k": None, "v": None, "length": n, "start": n - kept,
+                "grid": [self.layout.s_parts, self.layout.h_parts,
+                         self.layout.n_parts]}
+
+    def import_request(self, slot: int, payload: Dict) -> int:
+        if payload is None:
+            return 0
         self.lengths[slot] = int(payload["length"])
         return int(payload["length"])
 

@@ -10,9 +10,13 @@ each request off with its generated token(s) and exported KV rows to a
 DECODE replica (``phase="decode"``), which imports the rows and decodes
 the tail.  Each handoff is priced by ``plan_kv_handoff`` and recorded as
 one ``serve_handoff``; the priced transfer time is when the request
-becomes admissible on the decode side (``Request.handoff_v``).  In the
-port each replica is one card: a one-rank ``MachineModel`` on its own
-device in the router's process (``apps.serve``'s ``_disagg_run``).
+becomes admissible on the decode side (``Request.handoff_v``).  A
+replica is one card in the router's process (a one-rank
+``MachineModel``), or under ``torchrun`` a slice of the world's ranks of
+any width: then every rank runs this loop over every replica's schedule
+and ``world`` (``serve/replicas.py``) carries the steps' tokens, the KV
+rows and the drain flag between the ranks (``apps.serve``'s
+``_disagg_run``).
 
 **Session affinity**: a session's follow-ups go to the decode replica
 holding its KV rows, kept in an LRU residency set per replica; a session
@@ -21,7 +25,8 @@ the least-loaded replica.
 
 **Failure recovery**: at each event-loop boundary the router fires the
 injector's ``replica_crash`` counter per live decode replica.  A crashed
-replica revives ``restart_s`` virtual seconds later; its in-flight
+replica revives ``restart_s`` virtual seconds later, its predict step
+rebuilt and its KV cache empty (``ServeEngine.restart``); its in-flight
 requests re-prefill their prompt and every generated token on a prefill
 replica (``kv_rebuild``: greedy argmax makes the continuation the same),
 its queued handoffs retransmit.  Every fault costs an attempt of a
@@ -40,7 +45,9 @@ injector and the burn under threshold all of this is inert.
 
 **Drain**: arrivals stop and are unserved, queued prefill work is
 unserved, in-flight work finishes; a request between pools (a pending
-retry or retransmit) is explicitly unserved.
+retry or retransmit) is explicitly unserved.  Over a world of ranks the
+flag is agreed at each iteration, so every rank stops admission at the
+same one.
 
 Time is the engines' VIRTUAL clock: the loop steps over the engines'
 ``next_ready_v()`` instants and the pending-retry and revival instants,
@@ -106,6 +113,8 @@ class ServeRouter:
     The engines must be constructed with the matching ``phase`` (and
     are labeled by their phase's pool); the router drives their
     open-ended sessions directly — :meth:`run` is the whole lifecycle.
+    ``world`` (a ``serve.replicas.ReplicaWorld``) runs the router on
+    every rank of a world whose ranks hold the replicas.
     """
 
     def __init__(self, prefill: Sequence[ServeEngine],
@@ -115,7 +124,8 @@ class ServeRouter:
                  retry_policy: Optional[RetryPolicy] = None,
                  restart_s: float = DEFAULT_RESTART_S,
                  hedge: bool = False,
-                 admission: Optional[AdmissionGate] = None):
+                 admission: Optional[AdmissionGate] = None,
+                 world=None):
         if not prefill or not decode:
             raise ValueError("router needs >= 1 prefill and >= 1 "
                              "decode replica")
@@ -136,6 +146,7 @@ class ServeRouter:
         self.restart_s = float(restart_s)
         self.hedge = bool(hedge)
         self.admission = admission
+        self.world = world
         # session affinity state: where each session's KV rows live,
         # plus each decode replica's LRU residency set
         self._session_home: Dict[int, int] = {}
@@ -235,6 +246,9 @@ class ServeRouter:
         """Price and route every request ``eng`` handed off this step."""
         vnow = eng.session_vnow()
         for req in eng.take_handoffs():
+            if req.kv_payload is not None:
+                # the replica whose ranks hold the exported rows
+                req.kv_payload.setdefault("holder", src_idx)
             base = req.first_token_v if req.first_token_v is not None \
                 else req.arrival_v
             # a rebuilt request's first_token_v is its ORIGINAL prefill
@@ -293,6 +307,7 @@ class ServeRouter:
             handoff_v=req.handoff_v,
             carried=len(req.carried_tokens or ()))
         dst.push(req)
+        self._move(req, dst_idx)
         if self.hedge and len(live) >= 2 \
                 and req.rid < HEDGE_RID_BASE:
             # race a clone on the next-best replica; first completion
@@ -303,6 +318,15 @@ class ServeRouter:
             clone.rid = req.rid + HEDGE_RID_BASE
             self.hedges += 1
             self.decode[alt].push(clone)
+            self._move(clone, alt)
+
+    def _move(self, req: Request, dst_idx: int) -> None:
+        """Over a world of ranks, move ``req``'s KV rows from the prefill
+        replica holding them to decode replica ``dst_idx``'s ranks."""
+        p = req.kv_payload
+        if self.world is not None and p is not None:
+            self.world.move(req, self.prefill[p["holder"]].kv_layout,
+                            dst_idx)
 
     # ------------------------------------------------------------------
     # failure handling
@@ -400,6 +424,7 @@ class ServeRouter:
         for i in sorted(self._dead):
             if self._revive_at.get(i, float("inf")) <= t:
                 eng = self.decode[i]
+                eng.restart()
                 eng.start([], open_ended=True)
                 eng.advance_to(t)
                 self._dead.discard(i)
@@ -499,8 +524,10 @@ class ServeRouter:
                    for i, eng in enumerate(self.prefill)] \
             + [(eng, "decode", i) for i, eng in enumerate(self.decode)]
         while True:
-            if drain is not None and drain.get("requested") \
-                    and not draining:
+            requested = drain is not None and drain.get("requested")
+            if self.world is not None:
+                requested = self.world.agreed(requested)
+            if requested and not draining:
                 draining = True
                 unserved.extend(arrivals[ptr:])
                 ptr = len(arrivals)

@@ -10,8 +10,9 @@ machines), from one set of JAX parameters:
   machines sharing one topology, and the routed replies equal the single
   pool's;
 * the drain contract;
-* ``apps.serve``'s ``_disagg_run`` over CPU devices, and its refusal of a
-  replica wider than one device.
+* ``apps.serve``'s ``_disagg_run`` over CPU devices, and its refusal in
+  one process of a replica wider than one device, naming ``torchrun``
+  (``tests/test_torch_disagg_ranks.py`` runs such replicas over ranks).
 """
 
 import numpy as np
@@ -312,7 +313,7 @@ def test_disagg_run_over_cpu_devices():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(prefill_devices=2, prefill_replicas=1, decode_replicas=1),
-     "a replica of several devices"),
+     "a replica of several devices .* under torchrun"),
     (dict(prefill_devices=3, prefill_replicas=3, decode_replicas=1),
      "must split"),
     (dict(prefill_devices=2, prefill_replicas=3, decode_replicas=1),

@@ -1380,3 +1380,233 @@ def serve_smoke(machine, obs_dir):
     return (summary, [{k: v for k, v in r.items()
                        if k not in ("research_s", "research", "total_s")}
                       for r in resizes], dict(kinds))
+
+
+# ---------------------------------------------------------------------------
+# the forward-only service over ranks (tests/test_torch_serve_forward_ranks.py)
+
+
+def forward_model(machine, kind, cfg_kwargs, strategy_json=None):
+    """The small CNN (:func:`verify_net`, ``kind`` "cnn") or the tiny NMT
+    ("nmt", its default strategy unless one is given) on ``machine``."""
+    if kind == "nmt":
+        return nmt_model(machine, cfg_kwargs, strategy_json)
+    return build(machine, "verify_net", cfg_kwargs, strategy_json)
+
+
+def forward_serve(machine, kind, cfg_kwargs, strategy_json, trees_path,
+                  n, seed, step, drain_at=None, drain_rank=None,
+                  obs_path=None):
+    """``ServeEngine.run_forward`` of ``n`` seeded requests on this world
+    from the full trees in ``trees_path`` (each rank its blocks); with
+    ``drain_at``, rank ``drain_rank`` alone requests a drain from that
+    check on (``run_forward`` checks once before the run and once before
+    each batch).  Returns ``(summary without wall_s, replies (n, ...) in rid
+    order with None rows unserved, [(rid, admit_v, done_v)], records)``,
+    the records rank 0's (read back from ``obs_path``)."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.interop import (params_from_jax, shard_params,
+                                            shard_state, state_from_jax)
+    from flexflow_tpu_torch.serve.engine import ServeEngine
+    from flexflow_tpu_torch.serve.loadgen import synthetic_requests
+
+    model = forward_model(machine, kind, cfg_kwargs, strategy_json)
+    params, state = load_trees(trees_path)
+    p = params_from_jax(params, "cpu", model=model)
+    s = state_from_jax(state, "cpu")
+    if model.sharded:
+        p, s = shard_params(p, model), shard_state(s, model)
+    olog = obs.RunLog(obs_path, surface="serve") \
+        if obs_path and machine.rank == 0 else obs.NULL
+    eng = ServeEngine(model, params=p, olog=olog, log=lambda *a: None,
+                      step_time_s=step)
+    eng.state = s
+    reqs = synthetic_requests(n, seed=seed, rate_qps=200.0, vocab_size=64,
+                              prompt_len=4, max_new_tokens=0)
+    serve._forward_payloads(model, reqs, seed)
+    drain = None
+    if drain_at is not None:
+        drain = serve._DrainAfter(drain_at - 1) \
+            if machine.rank == drain_rank else {}
+    summary = eng.run_forward(reqs, drain=drain)
+    olog.close()
+    summary.pop("wall_s")
+    reqs = sorted(reqs, key=lambda r: r.rid)
+    records = [{k: v for k, v in r.items() if k not in ("ts", "run",
+                                                        "wall_s")}
+               for r in obs.read_run(obs_path)
+               if r["kind"] not in ("run_start", "run_end")] \
+        if olog.enabled else None
+    return (summary, [None if r.reply is None else np.asarray(r.reply)
+                      for r in reqs],
+            [(r.rid, r.admit_v, r.done_v) for r in reqs], records)
+
+
+def assembled(machine, kind, cfg_kwargs, strategy_json, seed=3):
+    """``FFModel.gather_output`` and ``gather_rows`` of a seeded whole
+    value of the model's loss output, each rank handing in the block its
+    layout gives it: ``(whole, gathered, rows, gathered rows)``."""
+    import torch
+
+    from flexflow_tpu_torch.apps.serve import build_lm
+
+    if kind == "lm":
+        model, _ = build_lm(batch=4, tiny=True, machine=machine,
+                            device="cpu")
+    else:
+        model = forward_model(machine, kind, cfg_kwargs, strategy_json)
+    model._setup_sharded()
+    op = model._loss_op()
+    tid = op.output.tid
+    whole = torch.from_numpy(np.random.RandomState(seed).randn(
+        *op.output.shape).astype(np.float32))
+    boxes = model._boxes_of(op, op.output_spec(), op.output.shape)
+    box = boxes[machine.position]
+    block = None if box is None else \
+        whole[tuple(slice(lo, hi) for lo, hi in box)].clone()
+    got = model.gather_output({tid: block}, tid)
+    rng = np.random.RandomState(seed + 1)
+    rows = [tuple(int(rng.randint(d)) for d in op.output.shape[:-1])
+            for _ in range(5)]
+    (got_rows,) = model.gather_rows({tid: block}, [(tid, rows)])
+    want_rows = torch.stack([whole[r] for r in rows])
+    return (whole.numpy(), got.numpy(), want_rows.numpy(),
+            got_rows.numpy())
+
+
+def serve_exit(machine, argv):
+    """``apps.serve.main(argv)`` as one rank of a torchrun world: its exit
+    code (0 when it returns)."""
+    try:
+        return serve_app(machine, argv)
+    except SystemExit as e:
+        return e.code
+
+
+# ---------------------------------------------------------------------------
+# routed replicas over ranks (tests/test_torch_disagg_ranks.py)
+
+
+def slice_collectives(machine):
+    """Two running slices of a 4-rank world, ranks [0, 1] and [2, 3], each
+    with a small CNN under a strategy whose linear splits over c (a
+    regrid before it), every group made on every rank in slice order;
+    then each slice's ranks run their own work, slice [0, 1] three
+    all-reduces and a forward, slice [2, 3] one of each, neither waiting
+    for the other.  Returns ``(slice ranks, all-reduce sums, the forward's
+    assembled output)`` of this rank's slice."""
+    import torch
+
+    from flexflow_tpu_torch.parallel import collectives
+
+    cfg = dict(batch_size=4, input_height=16, input_width=16,
+               num_classes=8)
+    strat = strategy_json({"fc1": [2, 1]}, 2)
+    slices, models = [], []
+    for ranks in ((0, 1), (2, 3)):
+        m = machine.running_slice(ranks)
+        model = forward_model(m, "cnn", cfg, strat)
+        model._setup_sharded()
+        slices.append((ranks, m))
+        models.append(model)
+    mine = 0 if machine.rank < 2 else 1
+    ranks, m = slices[mine]
+    model = models[mine]
+    assert not m.bystander and slices[1 - mine][1].bystander
+    sums = []
+    for i in range(3 if mine == 0 else 1):
+        t = torch.tensor([float(machine.rank + 10 * i)])
+        sums.append(float(collectives.all_reduce_(t, m.world_group())[0]))
+    params, state = model.init(0)
+    x = np.random.RandomState(5).uniform(-1, 1, (4, 16, 16, 3)).astype(
+        np.float32)
+    tid = model._loss_op().output.tid
+    out = model.make_predict_step()(params, state, *model.local_batch(x))
+    whole = model.gather_output({tid: out[0]}, tid)
+    return ranks, sums, whole.numpy()
+
+
+def routed_case(machine, trees_path, prefill, decode, decode_step,
+                perf, spec=None, obs_path=None, drain_at=None,
+                drain_rank=None, hedge=False):
+    """The tiny GPT's routed pools on this world through
+    ``apps.serve._replica_pools``: ``prefill`` / ``decode`` name the
+    prefill ranks and the replicas of each pool (``(ranks, replicas)``),
+    each replica from the full params in ``trees_path``, the decode step
+    ``decode_step`` (JAX's), the session load under fault spec ``spec``;
+    with ``drain_at``, rank ``drain_rank`` alone requests a drain at that
+    router iteration; ``hedge`` races hedged decodes.  Returns ``(replies, stamps, summary without
+    wall_s, records (rank 0's, from ``obs_path``), fired faults, the
+    decode replica's decode_step_ratio on ``perf``, ``[(rid, decode
+    replica, digest of the moved rows)]`` on the ranks of each move)``."""
+    import hashlib
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.apps import serve
+    from flexflow_tpu_torch.interop import params_from_jax
+    from flexflow_tpu_torch.serve.router import ServeRouter
+    from flexflow_tpu_torch.sim.cost_model import HopperChipPerf
+    from flexflow_tpu_torch.sim.search import decode_step_ratio
+    from flexflow_tpu_torch.utils import faultinject
+
+    opts = serve.parse_args([
+        "gpt", "--tiny", "--device", "cpu", "-b", "2",
+        "--serve-prefill-devices", str(prefill[0]),
+        "--serve-prefill-replicas", str(prefill[1]),
+        "--serve-decode-replicas", str(decode)])
+    olog = obs.RunLog(obs_path, surface="serve") \
+        if obs_path and machine.rank == 0 else obs.NULL
+    pre, dec, seats, _ = serve._replica_pools(opts, None, olog, None,
+                                              lambda *a: None, machine)
+    params, _ = load_trees(trees_path)
+    for eng in pre + dec:
+        if eng.runs:
+            p = params_from_jax(params, "cpu", model=eng.model)
+            eng.params = eng.model.shard_params(p) if eng.model.sharded \
+                else p
+        eng._compile()
+    for eng in dec:
+        eng.step_time_s = decode_step
+    ratio = decode_step_ratio(dec[0].model, perf=HopperChipPerf(**perf))
+    # each KV move's rows as the ranks that send and receive them hold
+    # them afterwards
+    moved, move = [], seats.move
+
+    def record(req, layout, dst):
+        move(req, layout, dst)
+        p = req.kv_payload
+        if p is not None and machine.rank in \
+                seats._pairs[(p["holder"], dst)][0]:
+            moved.append((req.rid, dst, hashlib.sha1(
+                np.ascontiguousarray(p["k"]).tobytes()
+                + np.ascontiguousarray(p["v"]).tobytes()).hexdigest()))
+
+    seats.move = record
+    router = ServeRouter(pre, dec, log=lambda *a: None, olog=olog,
+                         world=seats, hedge=hedge)
+    inj, restore = None, (lambda: None)
+    if spec is not None:
+        inj = faultinject.FaultInjector(spec, olog=olog)
+        restore = faultinject.install_scoped(inj)
+    drain = None
+    if drain_at is not None:
+        drain = serve._DrainAfter(drain_at) if machine.rank == drain_rank \
+            else {}
+    try:
+        reqs = serve._session_load()
+        summary = router.run(reqs, drain=drain)
+    finally:
+        restore()
+    olog.close()
+    summary.pop("wall_s")
+    records = [{k: v for k, v in r.items()
+                if k not in ("ts", "run", "wall_s", "t_wall", "pid")}
+               for r in obs.read_run(obs_path)
+               if r["kind"] not in ("run_start", "run_end")] \
+        if olog.enabled else None
+    return ({r.rid: (list(r.reply) if r.reply is not None else None)
+             for r in reqs},
+            {r.rid: (r.arrival_v, r.admit_v, r.first_token_v, r.done_v)
+             for r in reqs}, summary, records,
+            inj.fired() if inj is not None else None, ratio, moved)
