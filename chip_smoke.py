@@ -35,7 +35,8 @@ its kernels.
                                        # strategy4, lm-strategy4,
                                        # serve-scale4,
                                        # serve-search-ranks4, pipeline4,
-                                       # search4) with the
+                                       # search4, audit, profile,
+                                       # fleet) with the
                                        # phases they
                                        # read; no kernels line, a last
                                        # line {"ok": false, "partial":
@@ -262,7 +263,26 @@ Phases (any failure exits non-zero):
     rank 8b's single-pool replies token for token (a mismatch names the
     request, the position and the one-card top-2 gap), kernel 1 12 times
     the forward steps of the rank's replica, each replica's wall ms a
-    step logged beside its virtual step;
+    step logged beside its virtual step; then, in the same world,
+    ``apps.fleet --smoke`` (25c) and 25a's live count;
+25b. the profile and the fusion account (ROADMAP Queue A item 7), run
+    before 12c: ``apps.profile inception -b 256`` (bfloat16): its step ms,
+    MFU, modeled floor, class split and top rows, kernels 7, 7f and 8 by
+    name in the trace at 4, 4 and 1 a step, and ``report fusions`` over
+    the written JSON with the account's invariants holding;
+25a. the collective audit: ``apps.search alexnet --devices 4 --ici-group
+    2 --measured --audit -o F`` (the audit in a spawned world of four
+    gloo CPU processes): the verdicts, the plan written, the cross- and
+    intra-tier MB, no ``error``; in 12c's world one training step of F's
+    plan and of a split 4-rank plan (``alexnet_2x4.json``'s shape) is
+    traced on ``meta`` tensors and run for real, both recorded: equal
+    op for op and group for group (and, over four NCCL cards, F's live
+    records equal the app's);
+25c. the fleet: ``apps.fleet --smoke`` in 12c's world, a training job
+    and the tiny GPT's serving job trading ranks (A 3 -> 2 -> 3, B 1 ->
+    2 -> 1): rank 0's checks of the record sequence, the losses, every
+    request served, no fault record and ``check_fleet_util``; kernel 1
+    on the ranks that served B and no other;
 13. ResNet-101 training slice: ``apps.cnn resnet101`` (the reference's
     topology: no BN, no residual add) at DenseNet's protocol (batch 64,
     224x224, bfloat16 compute, float32 params) for 3 warm-up and 10 timed
@@ -560,7 +580,9 @@ Phases (any failure exits non-zero):
     service's and rank 0's; kernels 7f and 9 under
     ``<name>.serve-ranks``, rank 0's in 12c's DenseNet service; kernels
     2-3 under ``<name>.serve-search``, launched while 8c's search timed
-    its shards), then, last, the ``ok`` JSON line.
+    its shards; kernel 1 under ``<name>.fleet``, 25c's serving job
+    summed over the world's ranks; kernels 7, 7f and 8 under
+    ``<name>.profile``, 25b's run), then, last, the ``ok`` JSON line.
 
 Each phase logs its seconds, and the script its total.
 
@@ -4264,6 +4286,46 @@ def _flag(argv, name: str, default=None):
     return argv[argv.index(name) + 1] if name in argv else default
 
 
+def _audit_probe(torch, machine, cases) -> list:
+    """Each case's AlexNet (``strategy`` file, ``batch``, ``size`` x
+    ``size``) on this world, one training step's collectives recorded
+    twice with ``parallel/collectives.py``'s recorder: traced on
+    ``meta`` tensors (the audit's dry run, ``utils/hlo_audit.py``) and
+    run for real; each list joined over the world (every rank the
+    same), with the wall seconds of the live step."""
+    from flexflow_tpu_torch.utils import hlo_audit
+
+    out = []
+    for case in cases:
+        over = {"input_height": case["size"], "input_width": case["size"]}
+        model, batch = hlo_audit._build_model(
+            "alexnet", machine, case["batch"], case["strategy"],
+            overrides=over)
+        dry = hlo_audit.step_collectives(model, batch)
+        params, state = model.init()
+        opt = model.init_opt_state(params)
+        step = model.make_train_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        live = hlo_audit.step_collectives(model, batch, live=True,
+                                          step=step,
+                                          trees=(params, state, opt))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        ici = case["ici"]
+        out.append({
+            "dry": hlo_audit.collective_summary(
+                hlo_audit.join_records(dry, machine), ici),
+            "live": hlo_audit.collective_summary(
+                hlo_audit.join_records(live, machine), ici),
+            "seconds": seconds,
+            "transport": {"all_to_all": machine.all_to_all,
+                          "send_recv": machine.send_recv}})
+        del model, params, state, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ranks_worker(spec_path: str) -> int:
     """Run under torchrun (``--lm-ranks SPEC``): each argv of the spec's
     ``runs`` in turn on this world, through ``apps.lm`` or the app the
@@ -4274,7 +4336,8 @@ def _ranks_worker(spec_path: str) -> int:
     0 alone); then the probes the spec names on this world:
     ``moe_probe`` (a list of grids, :func:`_moe_probe`) and
     ``pipe_probe`` (:func:`_pipe_probe`'s keywords), whose results rank
-    r writes to ``probe_json`` (``.rank<r>`` on rank r > 0)."""
+    r writes to ``probe_json`` (``.rank<r>`` on rank r > 0), and
+    ``audit_probe`` (:func:`_audit_probe`)."""
     import importlib
 
     import torch
@@ -4345,7 +4408,8 @@ def _ranks_worker(spec_path: str) -> int:
                     f".rank{rank}" if rank else "")
                 Path(path).write_text(json.dumps(
                     {"seconds": time.perf_counter() - t, "hooks": record}))
-        if spec.get("moe_probe") or spec.get("pipe_probe"):
+        if spec.get("moe_probe") or spec.get("pipe_probe") \
+                or spec.get("audit_probe"):
             torch.backends.cuda.matmul.allow_tf32 = False
             machine = distributed.initialize(spec["device"],
                                              backend=spec["backend"])
@@ -4355,6 +4419,9 @@ def _ranks_worker(spec_path: str) -> int:
             if spec.get("pipe_probe"):
                 res["pipe"] = _pipe_probe(torch, machine,
                                           **spec["pipe_probe"])
+            if spec.get("audit_probe"):
+                res["audit"] = _audit_probe(torch, machine,
+                                            spec["audit_probe"])
             path = spec["probe_json"] + (f".rank{machine.rank}"
                                          if machine.rank else "")
             Path(path).write_text(json.dumps(res))
@@ -4432,7 +4499,8 @@ def _elastic_hooks(cfg: dict, rank: int):
 def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
               moe_probe=None, pipe_probe=None, copies=None,
               rank0=None, apps=None, sub=None, strategy_from=None,
-              elastic=None, bare=()) -> tuple:
+              elastic=None, bare=(), audit_probe=None,
+              probe_flags=None) -> tuple:
     """``runs`` (apps.lm argv lists, ``extra`` appended to each; ``apps``:
     ``{run index: "cnn" or "nmt"}`` for another app's) as one
     torchrun world of ``ranks`` through :func:`_ranks_worker`, each with
@@ -4448,7 +4516,9 @@ def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
     ``elastic``: ``{run index: hooks config}`` (:func:`_elastic_hooks`);
     every run writes ``<result>.extra`` beside its results (its seconds
     and the hooks' record); ``bare``: the run indices that take their
-    own argv without ``extra``."""
+    own argv without ``extra``; ``audit_probe``: :func:`_audit_probe`'s
+    cases; ``probe_flags``: the probes' ``--device`` and
+    ``--dist-backend`` when ``extra`` does not name them."""
     outs = [root / f"{tag}_{i}.json" for i in range(len(runs))]
     spec = {"runs": [list(a) + ([] if i in bare else list(extra))
                      + ["--result-json", str(o)]
@@ -4461,11 +4531,14 @@ def _lm_ranks(ranks: int, root: Path, tag: str, runs, extra=(),
             "strategy_from": {str(i): str(f)
                               for i, f in (strategy_from or {}).items()},
             "elastic": {str(i): c for i, c in (elastic or {}).items()}}
-    probed = moe_probe is not None or pipe_probe is not None
+    probed = moe_probe is not None or pipe_probe is not None \
+        or audit_probe is not None
     if probed:
+        flags = list(probe_flags or extra)
         spec.update(moe_probe=moe_probe, pipe_probe=pipe_probe,
-                    device=_flag(extra, "--device", "cuda"),
-                    backend=_flag(extra, "--dist-backend"),
+                    audit_probe=audit_probe,
+                    device=_flag(flags, "--device", "cuda"),
+                    backend=_flag(flags, "--dist-backend"),
                     probe_json=str(root / f"{tag}_probe.json"))
     path = root / f"{tag}_spec.json"
     path.write_text(json.dumps(spec))
@@ -6853,7 +6926,8 @@ def _single_pool(torch, serve):
     return {r.rid: list(r.reply or ()) for r in reqs}, reqs, engine
 
 
-def serve_ranks_phase(torch, fa, kernels, card: str, disagg) -> dict:
+def serve_ranks_phase(torch, fa, kernels, card: str, disagg,
+                      audited) -> dict:
     """Phase 12c: one torchrun world of four ranks (gloo on cuda:0 on one
     card, an NCCL rank per card on four) rides ``apps.serve`` through
     the ``--lm-ranks`` worker: DenseNet-121's forward service data
@@ -6869,7 +6943,10 @@ def serve_ranks_phase(torch, fa, kernels, card: str, disagg) -> dict:
     replica of 2: the single pool's replies token for token on every
     rank (on a mismatch the request, the position and the one-card top-2
     gap), kernel 1 on each rank 12 times its replica's forward steps,
-    each replica's wall ms a step beside its virtual step."""
+    each replica's wall ms a step beside its virtual step.  Then, in the
+    same world, ``apps.fleet --smoke`` (phase 25c, :func:`_check_fleet`)
+    and the live count of phase 25a's audited AlexNet plan and of a
+    split 4-rank plan (:func:`_audit_probe`, :func:`_check_audit`)."""
     import numpy as np
 
     from flexflow_tpu_torch.apps import serve
@@ -6903,10 +6980,16 @@ def serve_ranks_phase(torch, fa, kernels, card: str, disagg) -> dict:
     strategy.write_text(json.dumps({"linear1": {
         "dims": [SERVE_RANKS, 1], "devices": list(range(SERVE_RANKS))}}))
     runs = _serve_ranks_runs(flags, strategy)
-    results, _, seconds = _lm_ranks(SERVE_RANKS, SERVE_RANKS_ROOT,
-                                    "serve_ranks", runs,
-                                    apps={i: "serve"
-                                          for i in range(len(runs))})
+    apps = {i: "serve" for i in range(len(runs))}
+    # phase 25c: the fleet's two-job mix on this world
+    apps[len(runs)] = "fleet"
+    runs.append(["--smoke"] + flags)
+    cases = [{"strategy": str(audited[k]), "batch": AUDIT_BATCH,
+              "size": AUDIT_SIZE, "ici": AUDIT_ICI}
+             for k in ("path", "split")]
+    results, probes, seconds = _lm_ranks(
+        SERVE_RANKS, SERVE_RANKS_ROOT, "serve_ranks", runs, apps=apps,
+        audit_probe=cases, probe_flags=flags)
     _log(f"{label}: {seconds:.1f} s for the torchrun world on {where}, "
          f"its start included; {card}")
     out = {}
@@ -6993,8 +7076,225 @@ def serve_ranks_phase(torch, fa, kernels, card: str, disagg) -> dict:
              f"every rank; kernel 1 on each rank 12 x its replica's steps "
              f"(rank 0: {n0}); {steps}; {card}")
         out[tag] = {"launches": n0, "replicas": res[0]["replicas"]}
+    out["fleet"] = _check_fleet(label, results[len(runs) - 1], fa, card)
+    out["audit"] = _check_audit(label, probes, audited, four, card)
     shutil.rmtree(SERVE_RANKS_ROOT, ignore_errors=True)
     return out
+
+
+# phase 25a: the collective audit (apps.search --audit, utils/hlo_audit.py)
+AUDIT_ROOT = Path(__file__).resolve().parent / ".chip_audit"
+#: the audited search: AlexNet for four cards in fast-tier groups of two
+AUDIT_DEVICES, AUDIT_ICI = 4, 2
+#: the live count's AlexNet: the search's batch at its 224 x 224
+AUDIT_BATCH, AUDIT_SIZE = 64, 224
+
+
+def _audit_split_strategy(path: Path, ranks: int) -> None:
+    """``examples/strategies/alexnet_2x4.json``'s shape on ``ranks``
+    ranks: channel-split convolutions and pools, a batch x channel conv,
+    batch-split linears, ``linear3`` placed on the last rank (so that a
+    step moves by all-gathers, all-to-alls and box moves as well as
+    all-reduces)."""
+    src = json.loads((Path(__file__).resolve().parent / "examples"
+                      / "strategies" / "alexnet_2x4.json").read_text())
+    out = {}
+    for name, pc in src.items():
+        if name.startswith("__"):
+            continue
+        dims = [ranks if d == 8 else d for d in pc["dims"]]
+        if dims == [4, 1, 1, 2]:
+            dims = [2, 1, 1, ranks // 2]
+        elif dims == [2, 1, 1, 4]:
+            dims = [1, 1, 1, ranks]
+        devices = [ranks - 1] if len(pc["devices"]) == 1 \
+            else list(range(ranks))
+        out[name] = {"dims": dims, "devices": devices}
+    path.write_text(json.dumps(out))
+
+
+def audit_phase(torch, kernels, card: str) -> dict:
+    """Phase 25a: ``apps.search alexnet --devices 4 --ici-group 2
+    --measured --audit -o F`` on the card (the shard times measured
+    here, the audit in a spawned world of four gloo CPU processes): the
+    verdict, the plan written, the plan's and data parallelism's cross-
+    and intra-tier MB and predicted seconds, no ``error``.  The live
+    count of one real step in phase 12c's world holds the audit's
+    records (:func:`serve_ranks_phase`)."""
+    from flexflow_tpu_torch.ops.kernels import maxpool as mp
+
+    shutil.rmtree(AUDIT_ROOT, ignore_errors=True)
+    AUDIT_ROOT.mkdir(parents=True)
+    path = AUDIT_ROOT / f"alexnet_audited_{AUDIT_DEVICES}.json"
+    lines = []
+    t = time.perf_counter()
+    out = _measured_search(
+        torch, kernels, card,
+        ["alexnet", "--devices", str(AUDIT_DEVICES), "--ici-group",
+         str(AUDIT_ICI), "-i", str(SEARCH_ITERS), "--cache",
+         str(AUDIT_ROOT / "cache.json"), "--audit", "-o", str(path)],
+        (mp.NAME_FWD, mp.NAME_BWD), log=lines.append)
+    for line in lines:
+        if "audit" in line or "re-search" in line or "DP" in line:
+            _log(f"audit: {line}")
+    a = out["hlo_audit"]
+    if "error" in a:
+        raise AssertionError(f"audit: the collective audit failed: "
+                             f"{a['error']}")
+    for tag in ("", "rejected_searched", "rejected_canonical"):
+        v = a.get(tag) if tag else a
+        if not v or "searched_cross_mb" not in v:
+            continue
+        _log(f"audit {tag or 'accepted'}: plan cross {v['searched_cross_mb']}"
+             f" MB, intra {v['searched_intra_mb']} MB, predicted "
+             f"{v.get('searched_pred_s')} s; data parallel cross "
+             f"{v['dp_cross_mb']} MB, intra {v['dp_intra_mb']} MB, "
+             f"predicted {v.get('dp_pred_s')} s; consistent "
+             f"{v['consistent']} ({v['mode']} mode)")
+    _log(f"audit: plan written {a['plan']} (speedup_vs_dp "
+         f"{out['speedup_vs_dp']:.4f}), {time.perf_counter() - t:.1f} s "
+         f"with the measured search and the audit's spawned world; {card}")
+    split = AUDIT_ROOT / f"alexnet_split_{AUDIT_DEVICES}.json"
+    _audit_split_strategy(split, AUDIT_DEVICES)
+    return {"path": path, "split": split, "audit": a,
+            "speedup": out["speedup_vs_dp"]}
+
+
+def _check_audit(label: str, probes: list, audited: dict, four: bool,
+                 card: str) -> dict:
+    """Phase 25a's gate over phase 12c's world: each case's dry records
+    equal its live ones, op for op and group for group, on every rank;
+    on four NCCL cards the audited plan's live records also equal the
+    records of ``apps.search``'s audit (its spawned CPU world has NCCL's
+    transport)."""
+    from flexflow_tpu_torch.utils import hlo_audit
+
+    out = {}
+    for i, tag in enumerate(("audited", "split")):
+        cases = [p["audit"][i] for p in probes]
+        dry, live = cases[0]["dry"], cases[0]["live"]
+        mine = [(r["op"], r["bytes"], r["groups"]) for r in live]
+        cross, intra = hlo_audit.collective_bytes(
+            [{"op": r["op"], "bytes": r["bytes"], "groups": r["groups"]}
+             for r in live], AUDIT_ICI)
+        ops = {}
+        for r in live:
+            ops[r["op"]] = ops.get(r["op"], 0) + 1
+        _log(f"{label} audit {tag}: one live step moved {len(live)} "
+             f"collectives {ops}, cross {cross / 1e6:.3f} MB, intra "
+             f"{intra / 1e6:.3f} MB ({cases[0]['seconds']:.3f} s wall on "
+             f"rank 0, transport {cases[0]['transport']}); the dry trace "
+             f"{'equals' if dry == live else 'DIFFERS FROM'} it op for op "
+             f"and group for group; {card}")
+        if dry != live or any(c["dry"] != dry or c["live"] != live
+                              for c in cases):
+            raise AssertionError(f"{label} audit {tag}: dry {dry} vs live "
+                                 f"{live}")
+        if not live:
+            raise AssertionError(f"{label} audit {tag}: no collective")
+        out[tag] = {"records": len(live), "cross_bytes": cross,
+                    "intra_bytes": intra, "ops": ops}
+        if four and tag == "audited":
+            want = hlo_audit.audit_subprocess(
+                "alexnet", AUDIT_DEVICES, AUDIT_ICI, str(audited["path"]),
+                AUDIT_BATCH, dp_known=(0.0, 0.0))["searched_collectives"]
+            theirs = [(r["op"], r["bytes"], r["groups"]) for r in want]
+            _log(f"{label} audit {tag}: apps.search's audit (CPU world) "
+                 f"{'equals' if theirs == mine else 'DIFFERS FROM'} the "
+                 f"live NCCL step's records")
+            if theirs != mine:
+                raise AssertionError(f"{label} audit: the app's records "
+                                     f"{theirs} vs live {mine}")
+    return out
+
+
+def _check_fleet(label: str, results: list, fa, card: str) -> dict:
+    """Phase 25c's gate over phase 12c's world: ``apps.fleet --smoke`` ran
+    to its end (rank 0 checked the record sequence, the losses, every
+    request served, no fault record, ``check_fleet_util``), and kernel 1
+    ran in the serving job: on every rank that served it, on no other."""
+    facts = results[0]["facts"]
+    if not facts:
+        raise AssertionError(f"{label} fleet: rank 0 wrote no facts")
+    summary = results[0]["summary"]
+    served = [r for r, rr in enumerate(results) if rr["replies"]]
+    n = [sum(v for k, v in rr["launches"].items() if k.startswith(fa.NAME))
+         for rr in results]
+    jobs = {j["job"]: j for j in summary["jobs"]}
+    _log(f"{label} fleet: {summary['rebalances']} rebalances, A "
+         f"{facts['resizes_a']} ({len(facts['losses'])} losses, first "
+         f"{facts['losses'][0]:.6f}, last {facts['losses'][-1]:.6f}), B "
+         f"{facts['resizes_b']} ({jobs['serve-b'].get('completed')} "
+         f"served), {facts['util_records']} fleet_util records checked, "
+         f"{summary['native_prices']} native prices; {fa.NAME} launches by "
+         f"rank {n} (the serving job's ranks {served} at the end); "
+         f"{summary['wall_s']} s wall; {card}")
+    if summary["rebalances"] < 1 or not all(
+            r[3] == "directed" for r in facts["resizes_a"]
+            + facts["resizes_b"]):
+        raise AssertionError(f"{label} fleet: {facts}")
+    ran_b = {r for r, k in enumerate(n) if k}
+    if not ran_b or not set(served) <= ran_b or ran_b & {0}:
+        raise AssertionError(f"{label} fleet: {fa.NAME} launched {n}, "
+                             f"the serving job's last ranks {served}")
+    return {"launches": sum(n), "by_rank": n, "facts": facts}
+
+
+# phase 25b: the profile and the fusion account (apps.profile, report
+# fusions) of Inception-v3 at batch 256, bfloat16
+PROFILE_ROOT = Path(__file__).resolve().parent / ".chip_profile"
+#: kernels 7, 7f and 8's launches a step in the trace
+PROFILE_LAUNCHES = {"maxpool_bwd": 4.0, "maxpool_fwd": 4.0,
+                    "avgpool_bwd": 1.0}
+
+
+def fusion_profile_phase(torch, kernels, card: str) -> dict:
+    """Phase 25b: ``apps.profile inception -b 256`` (bfloat16) on the
+    card: the step ms beside the Inception ``--profile`` step of PERF.md
+    section 5 (103.8-105.0 ms), the class split, the roofline and the
+    top rows, then ``report fusions`` over the written JSON; the account
+    holds (``check_account``) and kernels 7, 7f and 8 appear by name in
+    the trace at 4, 4 and 1 launches a step.  Returns the launch counts
+    of the whole profile run (warm-up, timed and traced steps)."""
+    from flexflow_tpu_torch.apps import profile, report
+    from flexflow_tpu_torch.obs import fusions
+
+    shutil.rmtree(PROFILE_ROOT, ignore_errors=True)
+    PROFILE_ROOT.mkdir(parents=True)
+    path = PROFILE_ROOT / "inception_v3_roofline.json"
+    kernels.reset_launches()
+    t = time.perf_counter()
+    rep = profile.main(["inception", "-b", "256", "-o", str(path)],
+                       log=lambda *a: None)
+    launches = dict(kernels.launches)
+    _log(f"profile inception: {rep['seconds_per_step'] * 1e3:.3f} ms a "
+         f"step ({rep['images_per_sec']:.1f} images/s; PERF.md section 5's "
+         f"--profile step 103.8-105.0 ms), MFU {rep['mfu']:.4f} of "
+         f"{rep['peak_flops'] / 1e12:.0f} TFLOP/s, step floor "
+         f"{rep['step_floor_seconds'] * 1e3:.3f} ms ({rep['bound']}-bound, "
+         f"bytes {rep['bytes_source']}), of_ceiling {rep['of_ceiling']:.4f},"
+         f" class ms {rep.get('class_ms')}; {time.perf_counter() - t:.1f} s "
+         f"in all; {card}")
+    for row in rep["top_ops"][:10]:
+        _log(f"profile inception: {row['ms']:8.3f} ms {row['class']:4s} "
+             f"{row['name'][:90]}")
+    _log(f"profile inception: csrc kernels a traced step "
+         f"{rep['kernel_launches']}")
+    got = {k: rep["kernel_launches"].get(k, 0.0) for k in PROFILE_LAUNCHES}
+    if got != PROFILE_LAUNCHES:
+        raise AssertionError(f"profile inception: kernels 7, 7f, 8 a step "
+                             f"{got}, want {PROFILE_LAUNCHES}")
+    acct = fusions.fusion_account(rep)
+    problems = fusions.check_account(acct)
+    said = []
+    rc = report.fusions_main([str(path)], log=said.append)
+    for line in "\n".join(said).splitlines():
+        _log(f"profile fusions: {line}")
+    if problems or rc != 0:
+        raise AssertionError(f"profile inception: the fusion account "
+                             f"breaks its invariants: {problems} (rc {rc})")
+    shutil.rmtree(PROFILE_ROOT, ignore_errors=True)
+    return {"launches": launches, "step_ms": rep["seconds_per_step"] * 1e3}
 
 
 #: ``--only`` names -> phases, and the phases whose results each reads
@@ -7011,8 +7311,11 @@ ONLY_PHASES = {"lm": "lm", "resnet101": "resnet101", "nmt": "nmt",
                "serve-scale4": "serve scale 4",
                "serve-search": "serve search",
                "serve-search-ranks": "serve search ranks",
-               "serve-search-ranks4": "serve search ranks 4"}
+               "serve-search-ranks4": "serve search ranks 4",
+               "audit": "audit", "profile": "fusion profile",
+               "fleet": "serve ranks"}
 PHASE_NEEDS = {"lm obs": ("lm",), "pipeline": ("strategy",),
+               "serve ranks": ("audit",), "audit": ("serve ranks",),
                "search": ("strategy",), "search 4": ("strategy",),
                "lm strategy": ("lm", "strategy"),
                "moe strategy": ("moe", "strategy", "lm", "lm strategy"),
@@ -7130,8 +7433,11 @@ def main(argv) -> int:
     trained = phase("inception", training_phase, torch, kernels, card)
     dense = phase("densenet", densenet_phase, torch, kernels, card)
     phase("serve forward", serve_forward_phase, torch, kernels, card)
+    profiled = phase("fusion profile", fusion_profile_phase, torch, kernels,
+                     card)
+    audited = phase("audit", audit_phase, torch, kernels, card)
     ranked = phase("serve ranks", serve_ranks_phase, torch, fa, kernels,
-                   card, disagg)
+                   card, disagg, audited)
     phase("resnet101", resnet_vgg_phase, torch, kernels, card, "resnet101")
     phase("vgg16", resnet_vgg_phase, torch, kernels, card, "vgg16")
     nmt_run = phase("nmt", nmt_phase, torch, kernels, card)
@@ -7217,6 +7523,12 @@ def main(argv) -> int:
                          "flexflow_tpu/ops/pallas/flash_attention.py:62",
                          ranked["2+2"]["launches"], checked["max_abs_err"],
                          checked["timings"]["float32"]))
+    # phase 25c: kernel 1 in the fleet's serving job, summed over the
+    # world's ranks
+    entries.append(entry(f"{fa.NAME}.fleet", fa.SOURCE,
+                         "flexflow_tpu/ops/pallas/flash_attention.py:62",
+                         ranked["fleet"]["launches"], checked["max_abs_err"],
+                         checked["timings"]["float32"]))
     # phases 8c and 8d: kernel 1 in the service from the searched
     # artifact (one card) and on rank 0 of the world's, kernels 2-3 in
     # the measured serving search's shard timing
@@ -7275,6 +7587,11 @@ def main(argv) -> int:
              pools["max_step"]["fwd"])):
         entries.append(entry(name, source, replaces,
                              trained["launches"].get(name, 0),
+                             pools["worst"][name],
+                             dict(timing, bound_by="bytes")))
+        # phase 25b: the same kernels in apps.profile's run
+        entries.append(entry(f"{name}.profile", source, replaces,
+                             profiled["launches"].get(name, 0),
                              pools["worst"][name],
                              dict(timing, bound_by="bytes")))
     served_ranks_cnn = ranked["densenet121"]["launches"]

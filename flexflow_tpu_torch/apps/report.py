@@ -15,6 +15,10 @@ package's records, so both packages' streams render here).
         [--time-field T] [--json]
     python -m flexflow_tpu_torch.apps.report search <run.jsonl|obs_dir ...> \\
         [--json]
+    python -m flexflow_tpu_torch.apps.report fusions <profile.json ...> \\
+        [--top N] [--json]
+    python -m flexflow_tpu_torch.apps.report fleet <run.jsonl|obs_dir ...> \\
+        [--json] [--trace OUT.trace.json]
 
 The default mode renders a run's JSONL stream (an ``-obs-dir`` run, the
 ``.trace.jsonl`` beside a saved strategy) into the summary tables
@@ -41,9 +45,14 @@ one object instead.
 * ``search``: a strategy search's space, plan gate, trajectory, the
   decomposed path's blocks and stitch, and the plan's per-op costs.
 
-``fusions`` (a compiled program's per-fusion profile) and ``fleet`` (the
-fleet coordinator's records) raise ``NotImplementedError``: their
-modules are not ported (ROADMAP Queue A item 7).
+* ``fusions``: the ranked residual account of an ``apps.profile``
+  report (``obs/fusions.py``); exit 1 when an account breaks its
+  invariants.
+* ``fleet``: a fleet run's ``fleet_*`` records (``apps.fleet``,
+  ``apps.fleetsim``): lifecycle trails, wait decompositions, packings,
+  rebalances, the utilization account re-checked against its invariant
+  (exit 1 when a ``fleet_util`` record breaks it), fleetsim points;
+  ``--trace`` exports the fleet's lanes.
 """
 
 from __future__ import annotations
@@ -238,13 +247,51 @@ def budget_main(argv, log=print) -> int:
 
 
 def fusions_main(argv, log=print) -> int:
-    """The per-fusion residual pass (``report fusions``) prices the
-    fusions of a compiled program's profile (``flexflow_tpu/obs/
-    fusions.py``), which the port does not have: refused."""
-    raise NotImplementedError(
-        "report fusions is not ported to flexflow_tpu_torch: it reads a "
-        "compiled program's per-fusion profile (obs/fusions.py, ROADMAP "
-        "Queue A item 7)")
+    """The per-fusion residual pass (``report fusions``): price each
+    profiled row of a roofline profile JSON (``apps.profile``'s report,
+    the ``utils/hlo_profile.roofline_report`` schema) against the card's
+    roofline and print the ranked, verdicted residual account
+    (obs/fusions.py).  Exit 1 when an account violates its sum-to-
+    residual / verdict-coverage invariants."""
+    from flexflow_tpu_torch.obs.fusions import (check_account, fusion_account,
+                                          render_account)
+
+    json_out = "--json" in argv
+    top_n = 10
+    paths = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--top":
+            i += 1
+            if i >= len(argv):
+                raise SystemExit("flag '--top' expects a value")
+            top_n = int(argv[i])
+        elif not a.startswith("-"):
+            paths.append(a)
+        i += 1
+    if not paths:
+        log(fusions_main.__doc__.strip())
+        return 2
+    accounts, problems = [], []
+    for p in paths:
+        with open(p) as f:
+            profile = json.load(f)
+        if not isinstance(profile, dict) or "top_ops" not in profile:
+            log(f"{p}: not a roofline profile (no top_ops) — run "
+                "apps.profile first")
+            return 2
+        acct = fusion_account(profile, top_n=top_n)
+        accounts.append(acct)
+        problems += [f"{p}: {m}" for m in check_account(acct)]
+    if json_out:
+        log(json.dumps({"accounts": accounts, "violations": problems}))
+    else:
+        for acct in accounts:
+            log(render_account(acct))
+        if problems:
+            log("ACCOUNT INVARIANT VIOLATED: " + "; ".join(problems))
+    return 1 if problems else 0
 
 
 def serve_main(argv, log=print) -> int:
@@ -281,12 +328,11 @@ def serve_main(argv, log=print) -> int:
     if trace_out:
         from flexflow_tpu_torch.obs import trace as obstrace
 
+        lanes = [obstrace.serve_trace_events(events)]
         if any(e.get("kind") in ("fleet_job", "fleet_rebalance")
                for e in events):
-            raise NotImplementedError(
-                "the fleet's trace lanes are not ported to "
-                "flexflow_tpu_torch (ROADMAP Queue A item 7)")
-        trace = obstrace.chrome_trace(obstrace.serve_trace_events(events))
+            lanes.append(obstrace.fleet_trace_events(events))
+        trace = obstrace.chrome_trace(*lanes)
         errors = obstrace.validate_trace(trace)
         if errors:
             for e in errors:
@@ -310,12 +356,72 @@ def serve_main(argv, log=print) -> int:
 
 
 def fleet_main(argv, log=print) -> int:
-    """The fleet pass (``report fleet``) checks a coordinator run's
-    utilization account (``flexflow_tpu/fleet/``), which the port does
-    not have: refused."""
-    raise NotImplementedError(
-        "report fleet is not ported to flexflow_tpu_torch: it needs the "
-        "fleet coordinator (fleet/, ROADMAP Queue A item 7)")
+    """The fleet pass (``report fleet``): render a coordinator run's
+    ``fleet_*`` records — per-job lifecycle trails, wait
+    decompositions (``fleet_wait``), packings, rebalances, the
+    device-second utilization account (``fleet_util``, validated
+    against its exact busy+idle+resizing == capacity invariant), and
+    fleetsim sweep points.  ``--trace OUT.trace.json`` exports the
+    per-job lifecycle lanes + rebalance flow arrows + pool-util
+    counters, validated before writing.  Exit 1 when the stream
+    carries no fleet records or a ``fleet_util`` record violates the
+    invariant."""
+    from flexflow_tpu_torch.fleet.coordinator import check_fleet_util
+    from flexflow_tpu_torch.obs.report import _fleet_section, summarize
+
+    json_out = "--json" in argv
+    trace_out = None
+    paths = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--trace":
+            i += 1
+            if i >= len(argv):
+                raise SystemExit("flag '--trace' expects a value")
+            trace_out = argv[i]
+        elif not a.startswith("-"):
+            paths.append(a)
+        i += 1
+    if not paths:
+        log(fleet_main.__doc__.strip())
+        return 2
+    events, _ = _read_paths(paths, log)
+    events.sort(key=lambda e: e.get("ts", 0.0))
+    violations = []
+    for e in events:
+        if e.get("kind") == "fleet_util":
+            violations += check_fleet_util(e)
+    if trace_out:
+        from flexflow_tpu_torch.obs import trace as obstrace
+
+        trace = obstrace.chrome_trace(obstrace.fleet_trace_events(events))
+        errors = obstrace.validate_trace(trace)
+        if errors:
+            for e in errors:
+                log(f"trace invalid: {e}")
+            return 1
+        obstrace.write_trace(trace_out, trace)
+        log(f"written: {trace_out} "
+            f"({len(trace['traceEvents'])} events; open in "
+            f"ui.perfetto.dev)")
+    if json_out:
+        s = summarize(events)
+        out = {k: s[k] for k in ("fleet", "fleetsim") if k in s}
+        if violations:
+            out["util_violations"] = violations
+        log(json.dumps(out))
+        return 0 if out and not violations else 1
+    lines = _fleet_section(events)
+    if not lines:
+        log("no fleet_* records in the stream(s): run apps.fleet "
+            "or apps.fleetsim with -obs-dir set")
+        return 1
+    log("\n".join(lines))
+    if violations:
+        log("FLEET_UTIL INVARIANT VIOLATED: " + "; ".join(violations))
+        return 1
+    return 0
 
 
 def search_main(argv, log=print) -> int:

@@ -26,13 +26,21 @@ The JAX driver's flags: ``-i/--iters``, ``-b``, ``--seed``, ``--dtype``,
 ``--experts``, ``-obs-dir``, ``-run-id``, ``-chains``, ``-delta
 on|off|check``, ``--objective makespan|latency|decode``, ``--serve``,
 ``--disagg N``, ``--decompose``, ``--block-budget-s``,
-``--boundary-refine-iters``, ``--no-audit``, ``-trace``.  ``--audit``
-(the compiled program's audit, ROADMAP Queue A item 7) raises
-``NotImplementedError``.  So does the JAX driver's
-default audit, which runs where a saved strategy (``-o``) on a machine
-of several tiers claims a win over 1.05x, or carries an accepted
-``__pipeline__`` block: there the port stops unless ``--no-audit`` is
-given.
+``--boundary-refine-iters``, ``--audit``, ``--no-audit``, ``-trace``.
+
+The executor-grounded accept (``flexflow_tpu/apps/search.py:575-596``):
+a saved strategy (``-o``) on a machine of several tiers that claims more
+than 1.05x over data parallelism is audited before it is written
+(``--audit`` forces the audit, ``--no-audit`` vetoes it).  The audit
+(``utils/hlo_audit.py``) traces one training step of the plan and of
+data parallelism on ``meta`` tensors in a world of ``--devices`` gloo
+CPU processes and counts the collectives the port's executor issues,
+priced on the searched topology; where they contradict the simulated
+claim, the search is re-run over canonical placements only, and where
+that is contradicted too, data parallelism is written.  The result and
+an ``hlo_audit`` record carry the verdict.  An accepted ``__pipeline__``
+block is audited likewise (the ``PipelinedLM`` ``apps.lm`` trains from
+it, against the modeled comm plus half the claimed win).
 
 ``--serve`` writes a serving artifact: the objective defaults to
 ``latency`` and ``__predicted__`` gains a ``serve`` block (``max_batch``,
@@ -80,12 +88,6 @@ import sys
 from flexflow_tpu_torch.config import flag_stream
 from flexflow_tpu_torch.machine import MachineModel, Topology
 
-#: flags of the JAX driver whose modules are not ported, and where
-UNPORTED_FLAGS = {
-    "--audit": "the compiled program's collective audit (ROADMAP Queue A "
-               "item 7)",
-}
-
 #: cards in one NVLink domain (a node)
 NODE_CARDS = 8
 
@@ -106,10 +108,6 @@ def parse_args(argv):
     if args and not args[0].startswith("-"):
         opts["model"] = args.pop(0)
     for a, val in flag_stream(args):
-        if a in UNPORTED_FLAGS:
-            raise NotImplementedError(
-                f"{a} is not ported to flexflow_tpu_torch: "
-                f"{UNPORTED_FLAGS[a]}")
         if a == "--devices":
             opts["devices"] = int(val())
         elif a in ("-i", "--iters"):
@@ -126,6 +124,8 @@ def parse_args(argv):
             opts["seed"] = int(val())
         elif a == "--ici-group":
             opts["ici_group"] = int(val())
+        elif a == "--audit":
+            opts["audit"] = True
         elif a == "--no-audit":
             opts["audit"] = False
         elif a == "--dtype":
@@ -350,16 +350,184 @@ def _serve_block(opts, machine, model, strategy, info, cost_model, olog,
     return serve
 
 
+def _audit_strategy(strategy, opts, machine, dp_known=None) -> dict:
+    """The collective audit of ``strategy`` against data parallelism
+    (``flexflow_tpu/apps/search.py:236``): saved to a temporary file and
+    audited in a spawned world of the machine's size
+    (``hlo_audit.audit_subprocess``); ``dp_known`` from an earlier audit
+    skips the data-parallel trace."""
+    import tempfile
+
+    from flexflow_tpu_torch.utils.hlo_audit import audit_subprocess
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        strategy.save(path)
+        return audit_subprocess(
+            opts["model"], machine.num_devices,
+            machine.topology.devices_per_ici_group, path,
+            opts["batch_size"], timeout=1800.0, dtype=opts["dtype"],
+            dp_known=dp_known, experts=opts["experts"],
+            dcn_calibration=opts["dcn_calibration"])
+    finally:
+        os.unlink(path)
+
+
+def _audit_summary(audit, verdict) -> dict:
+    out = {
+        "searched_cross_mb": round(audit["searched_cross_bytes"] / 1e6, 2),
+        "dp_cross_mb": round(audit["dp_cross_bytes"] / 1e6, 2),
+        "searched_intra_mb": round(audit["searched_intra_bytes"] / 1e6, 2),
+        "dp_intra_mb": round(audit["dp_intra_bytes"] / 1e6, 2),
+        "ratio": round(audit["cross_ratio_dp_over_searched"], 2),
+        "consistent": verdict["consistent"],
+        "mode": verdict["mode"],
+    }
+    if verdict.get("searched_pred_s") is not None:
+        out["searched_pred_s"] = round(verdict["searched_pred_s"], 6)
+    if verdict.get("dp_pred_s") is not None:
+        out["dp_pred_s"] = round(verdict["dp_pred_s"], 6)
+    return out
+
+
+def _grounded_accept(opts, machine, model, cost_model, search, strategy,
+                     info, log):
+    """The executor-grounded accept (``flexflow_tpu/apps/search.py:
+    290-386``): the searched plan's collectives priced in predicted
+    seconds against data parallelism's; on a contradiction a re-search
+    over canonical placements only, then honest data parallelism.
+    Returns ``(strategy, info, result_extras)``."""
+    from flexflow_tpu_torch.sim.search import StrategySearch
+    from flexflow_tpu_torch.utils.hlo_audit import audit_consistent_time
+
+    def run_audit(s, speedup, dp_known=None, times=None):
+        audit = _audit_strategy(s, opts, machine, dp_known=dp_known)
+        verdict = audit_consistent_time(
+            audit, speedup, topo=machine.topology,
+            dp_time_s=times[0] if times else None,
+            best_time_s=times[1] if times else None)
+        said = ("CONSISTENT with" if verdict["consistent"]
+                else "CONTRADICTS")
+        if verdict["mode"] == "time":
+            log(f"collective audit: the plan's collectives predict "
+                f"{verdict['searched_pred_s'] * 1e3:.2f} ms vs DP's "
+                f"{verdict['dp_pred_s'] * 1e3:.2f} ms -> {said} the "
+                f"simulated {speedup:.2f}x")
+        else:
+            log(f"collective audit (byte fallback): the plan moves "
+                f"{audit['searched_cross_bytes'] / 1e6:.1f} MB cross-tier"
+                f" vs DP's {audit['dp_cross_bytes'] / 1e6:.1f} MB -> "
+                f"{said} the simulated {speedup:.2f}x")
+        return audit, verdict
+
+    try:
+        audit, v = run_audit(strategy, info["speedup_vs_dp"],
+                             times=(info["dp_time"], info["best_time"]))
+    except Exception as e:  # audit rig unavailable: claim stays sim-only
+        log(f"collective audit unavailable ({e}); claim is "
+            f"simulation-only")
+        return strategy, info, {"hlo_audit": {"error": str(e)}}
+    if v["consistent"]:
+        return strategy, info, {
+            "hlo_audit": {**_audit_summary(audit, v), "plan": "searched"}}
+    rejected = _audit_summary(audit, v)
+    log("re-searching with canonical placements only (dims-only)")
+    s2 = StrategySearch(model, machine, cost_model=cost_model,
+                        placement=False, obs=search.obs,
+                        objective=opts["objective"])
+    strategy2, info2 = s2.search(iters=opts["iters"], seed=opts["seed"],
+                                 **_search_kw(opts))
+    if info2["speedup_vs_dp"] > 1.05:
+        try:
+            audit2, v2 = run_audit(
+                strategy2, info2["speedup_vs_dp"], dp_known=audit,
+                times=(info2["dp_time"], info2["best_time"]))
+        except Exception as e:
+            log(f"collective audit unavailable on re-search ({e})")
+            audit2, v2 = None, {"consistent": False}
+        if v2["consistent"]:
+            return strategy2, info2, {"hlo_audit": {
+                **_audit_summary(audit2, v2), "plan": "canonical",
+                "rejected_searched": rejected}}
+        if audit2 is not None:
+            rejected = {"rejected_searched": rejected,
+                        "rejected_canonical": _audit_summary(audit2, v2)}
+        else:
+            rejected = {"rejected_searched": rejected}
+    else:
+        log(f"canonical-only re-search finds no win "
+            f"({info2['speedup_vs_dp']:.3f}x)")
+        rejected = {"rejected_searched": rejected}
+    log("the executor audit rejects every >1x candidate; emitting honest "
+        "DP")
+    dp_strategy = search.assignment_to_strategy(search.dp_assignment())
+    dp_info = {"dp_time": info["dp_time"], "best_time": info["dp_time"],
+               "speedup_vs_dp": 1.0, "assignment": search.dp_assignment()}
+    return dp_strategy, dp_info, {
+        "hlo_audit": {**rejected, "plan": "dp", "consistent": True,
+                      "note": "every simulated >1x plan contradicted by "
+                              "the executor's collectives; DP emitted"}}
+
+
+def _pipeline_grounded_accept(opts, machine, strategy, pp, log):
+    """The grounded accept of an accepted ``__pipeline__`` block
+    (``flexflow_tpu/apps/search.py:389-437``): the ``PipelinedLM`` the
+    block trains is audited, its collectives priced on the machine's
+    topology, and the block stands when they stay within the modeled
+    comm plus half the claimed win.  Returns ``(ok, detail)``."""
+    import tempfile
+
+    from flexflow_tpu_torch.sim.collectives import priced_collectives
+    from flexflow_tpu_torch.strategy import Strategy
+    from flexflow_tpu_torch.utils.hlo_audit import audit_subprocess
+
+    best = pp["best"]
+    cand = next(c for c in pp["candidates"]
+                if (c["stages"], c["microbatches"], c["tp"])
+                == (best["stages"], best["microbatches"], best["tp"]))
+    s = Strategy(strategy)
+    s.pipeline = dict(best)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        s.save(path)
+        # dp_known=(0, 0): the comparison is the pipelined program's
+        # collectives against its modeled comm
+        audit = audit_subprocess(
+            opts["model"], machine.num_devices,
+            machine.topology.devices_per_ici_group, path,
+            opts["batch_size"], timeout=1800.0, dtype=opts["dtype"],
+            dp_known=(0.0, 0.0), dcn_calibration=opts["dcn_calibration"])
+    finally:
+        os.unlink(path)
+    pred = priced_collectives(audit["searched_collectives"],
+                              machine.topology)["seconds"]
+    modeled = cand["comm_s"] + cand["tp_comm_s"] + cand["param_sync_s"]
+    win = pp["reference_time_s"] - cand["time_s"]
+    ok = pred <= modeled + 0.5 * win
+    detail = {"plan": "pipeline", "consistent": ok,
+              "compiled_pred_s": round(pred, 6),
+              "modeled_comm_s": round(modeled, 6),
+              "claimed_win_s": round(win, 6), **best}
+    log(f"pipeline collective audit: the executor's collectives predict "
+        f"{pred * 1e3:.2f} ms vs the {modeled * 1e3:.2f} ms modeled comm "
+        f"(+ half the {win * 1e3:.2f} ms win) -> "
+        f"{'CONSISTENT' if ok else 'CONTRADICTS the block'}")
+    return ok, detail
+
+
 def _propose_pipeline(opts, machine, model, search, strategy, info,
-                      result, multi_tier, log) -> dict:
+                      result, multi_tier, olog, log) -> dict:
     """The GPipe block (``flexflow_tpu/apps/search.py:595-640``):
     propose or reject it against the searched plan, with every
     candidate logged; ``result["pipeline"]``, and ``strategy.pipeline``
     when accepted.  NMT is left out (no NMT driver consumes the block)
     and so is the latency objective (GPipe schedules a training step).
-    JAX audits an accepted block's compiled program before it writes
-    it to a machine of several tiers; that audit is not ported.
-    Returns the proposal with every candidate."""
+    An accepted block written to a machine of several tiers is audited
+    first (:func:`_pipeline_grounded_accept`) and dropped where the
+    executor's collectives contradict it.  Returns the proposal with
+    every candidate."""
     pp = search.propose_pipeline(
         log=log, reference_s=info["best_time"],
         stage_divisor=model.t.num_layers, batch=model.t.batch_size,
@@ -373,12 +541,21 @@ def _propose_pipeline(opts, machine, model, search, strategy, info,
     audit = opts["audit"] if opts["audit"] is not None \
         else (bool(opts["out"]) and multi_tier)
     if audit:
-        raise NotImplementedError(
-            "an accepted __pipeline__ block on a machine of several "
-            "tiers, where the JAX driver audits the pipelined program's "
-            "collectives before writing it; the audit is not ported "
-            "(ROADMAP Queue A item 7): pass --no-audit to write the "
-            "simulated block as it is")
+        try:
+            ok, detail = _pipeline_grounded_accept(opts, machine, strategy,
+                                                   pp, log)
+        except Exception as e:
+            log(f"pipeline collective audit unavailable ({e}); block "
+                f"accepted simulation-only")
+            ok, detail = True, None
+        if detail is not None:
+            olog.event("hlo_audit", **detail)
+            result["pipeline"]["audit"] = detail
+        if not ok:
+            log("the executor's collectives contradict the pipeline win; "
+                "block dropped from the artifact")
+            strategy.pipeline = None
+            result["pipeline"]["accepted"] = False
     return pp
 
 
@@ -463,14 +640,19 @@ def main(argv=None, log=print) -> dict:
             "anchors": cost_model.anchors()}
     multi_tier = machine.topology.devices_per_ici_group \
         < machine.num_devices
-    if opts["audit"] is None and opts["out"] and multi_tier \
-            and info["speedup_vs_dp"] > 1.05:
-        raise NotImplementedError(
-            f"the searched plan claims {info['speedup_vs_dp']:.2f}x on a "
-            f"machine of several tiers, where the JAX driver audits the "
-            f"compiled program before writing it; the audit is not "
-            f"ported (ROADMAP Queue A item 7): pass --no-audit to write "
-            f"the simulated plan as it is")
+    # the runs that commit a claim are audited: a saved artifact on a
+    # machine of several tiers claiming a win (--audit forces, --no-audit
+    # vetoes)
+    do_audit = opts["audit"] if opts["audit"] is not None else (
+        bool(opts["out"]) and multi_tier
+        and info["speedup_vs_dp"] > 1.05)
+    if do_audit:
+        strategy, info, audit_info = _grounded_accept(
+            opts, machine, model, cost_model, search, strategy, info, log)
+        result.update(audit_info)
+        result["best_time_s"] = info["best_time"]
+        result["speedup_vs_dp"] = info["speedup_vs_dp"]
+        olog.event("hlo_audit", **audit_info.get("hlo_audit", {}))
     if opts["measured"]:
         log(MEASURED_UNCHECKED)
     proposal = None   # the GPipe candidates, where they are priced
@@ -478,7 +660,7 @@ def main(argv=None, log=print) -> dict:
             and opts["objective"] == "makespan":
         proposal = _propose_pipeline(opts, machine, model, search,
                                      strategy, info, result, multi_tier,
-                                     log)
+                                     olog, log)
     # the artifact carries its simulated prediction
     strategy.predicted = {
         "model": opts["model"], "devices": machine.num_devices,

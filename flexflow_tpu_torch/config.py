@@ -19,9 +19,10 @@ fields and ignores unknown flags like the reference parser, including
 ``-s/--strategy`` (a strategy file, JSON or proto2) and ``-ll:gpu`` (the
 number of GPUs, which must equal the world size; checked by the app) and
 the serving runtime's ``--max-batch`` and ``--serve-*`` flags
-(``SERVE_FIELDS``).  A flag of the JAX parser whose feature is not ported
-yet (``UNPORTED_FLAGS``: the fleet's) raises ``NotImplementedError``
-instead of being dropped silently.  A switch
+(``SERVE_FIELDS``) and the fleet's ``--fleet-quantum`` and
+``--fleet-search-budget-s``.  A flag of the JAX parser whose feature is
+not ported yet (``UNPORTED_FLAGS``, empty now) raises
+``NotImplementedError`` instead of being dropped silently.  A switch
 value whose behaviour the port does not have (``RESTRICTED_VALUES``:
 ``-regrid-planner off``, ``-placed-overlap off``, ``-pallas auto|off``)
 is refused with the reason (``SystemExit``), as a malformed value is.
@@ -38,9 +39,7 @@ from flexflow_tpu_torch.utils.faultinject import (FaultSpecError,
 
 #: flags of ``flexflow_tpu/config.py:FFConfig.from_args`` whose features
 #: the port does not have yet
-UNPORTED_FLAGS = frozenset((
-    "--fleet-quantum", "--fleet-search-budget-s",
-))
+UNPORTED_FLAGS = frozenset()
 
 #: the serving runtime's flags (``apps/serve.py``, ``serve/``), parsed
 #: as ``flexflow_tpu/config.py:367-377`` parses them: flag -> field
@@ -397,6 +396,12 @@ class FFConfig:
     serve_prefill_devices: int = 0
     serve_prefill_replicas: int = 1
     serve_decode_replicas: int = 1
+    # the fleet coordinator (fleet/, apps.fleet): the steps each running
+    # job gets per round-robin turn, and the wall cap of each arbiter
+    # pricing re-search (generous, so that the iteration bound binds and
+    # the packing stays reproducible)
+    fleet_quantum: int = 4
+    fleet_search_budget_s: float = 30.0
 
     @classmethod
     def from_args(cls, argv: Sequence[str]) -> "FFConfig":
@@ -415,6 +420,10 @@ class FFConfig:
                 continue
             if a in SERVE_FIELDS:
                 setattr(cfg, SERVE_FIELDS[a], int(val()))
+            elif a == "--fleet-quantum":
+                cfg.fleet_quantum = int(val())
+            elif a == "--fleet-search-budget-s":
+                cfg.fleet_search_budget_s = float(val())
             elif a in ("-s", "--strategy"):
                 cfg.strategy_file = val()
                 cfg.strategies = Strategy.load(cfg.strategy_file)

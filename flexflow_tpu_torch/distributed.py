@@ -187,6 +187,63 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def control_device(device) -> torch.device:
+    """Where a small control tensor of the world lives: ``device`` (a
+    rank's card) under NCCL, else the CPU."""
+    import torch.distributed as dist
+
+    nccl = is_initialized() and str(dist.get_backend()) == "nccl"
+    return torch.device(device) if nccl else torch.device("cpu")
+
+
+def agreed(flag, device="cpu", group=None) -> bool:
+    """``flag`` agreed over the ranks of ``group`` (a process group, by
+    default the world): any rank's true makes it true on every rank, one
+    all-reduce MAX of a tensor on ``device``.  Every rank of the group
+    calls it at the same point; the flag itself outside a world of
+    several ranks."""
+    import torch.distributed as dist
+
+    if not is_initialized() or dist.get_world_size(group) <= 1:
+        return bool(flag)
+    t = torch.tensor([float(bool(flag))], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
+def share(obj, src: int):
+    """``obj`` as world rank ``src`` has it, on every rank of the world
+    (every rank calls it at the same point); ``obj`` itself outside a
+    world of several ranks."""
+    import torch.distributed as dist
+
+    if not is_initialized() or dist.get_world_size() <= 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=int(src))
+    return box[0]
+
+
+def send_to(obj, src: int, dsts: Sequence[int]):
+    """``obj`` as world rank ``src`` has it, on the world ranks ``dsts``
+    alone, point to point (every rank of ``dsts`` and ``src`` calls it;
+    the others may not); None on a rank of neither."""
+    import torch.distributed as dist
+
+    me = dist.get_rank() if is_initialized() else 0
+    dsts = [int(d) for d in dsts]
+    if me == src:
+        for d in dsts:
+            if d != src:
+                dist.send_object_list([obj], dst=d)
+        return obj
+    if me not in dsts:
+        return None
+    box = [None]
+    dist.recv_object_list(box, src=int(src))
+    return box[0]
+
+
 def release() -> bool:
     """Leave the world on the way out of ``fit`` (its error exit and the
     end of a graceful drain, ``flexflow_tpu/distributed.py:166``): tear

@@ -61,7 +61,8 @@ logger = logging.getLogger(__name__)
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when it names CUDA and
-    CUDA is not available."""
+    CUDA is not available.  The CPU's vector math is readied on the way
+    (:func:`_ready_cpu_math`)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -69,7 +70,26 @@ def resolve_device(device="cuda") -> torch.device:
             f"pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    if dev.type == "cpu":
+        _ready_cpu_math()
     return dev
+
+
+_cpu_math_ready = False
+
+
+def _ready_cpu_math() -> None:
+    """Make the process's first call of MKL's vector math (``torch.exp``
+    and its kin on CPU tensors) on this one thread, once.  When the two
+    halves of a parallel ``torch.exp`` made that first call together on
+    a loaded CPU, one half now and then came out about 1e-4 off (that
+    call only): a CPU run's first attention then differed from every
+    later one.  After one call on a single thread every later call
+    agrees."""
+    global _cpu_math_ready
+    if not _cpu_math_ready:
+        torch.exp(torch.zeros(256))   # one thread: below the split size
+        _cpu_math_ready = True
 
 
 #: NVLink 4 between the eight H100 SXM cards of one node: 900 GB/s per

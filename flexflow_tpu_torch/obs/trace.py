@@ -21,8 +21,9 @@ the two that ``apps/calibrate.py --from-obs`` refits from.
     ``serve_shed``, ``replica_down``);
   * :func:`trace_events_from_file` — the events of a written trace.
 
-The fleet's lanes (``fleet_trace_events``) come with the port of the
-fleet (ROADMAP Queue A item 7).
+  * :func:`fleet_trace_events` — a fleet coordinator run's lanes: each
+    job's devices and lifecycle, the rebalances with their flow arrows
+    to the resizes they caused, the pool's utilization counters;
 
 ``python -m flexflow_tpu_torch.obs.trace --smoke`` simulates a toy
 two-device graph on the port's native simulator, exports its trace and
@@ -43,6 +44,7 @@ PID_SIM_BEST = 0
 PID_SIM_DP = 1
 PID_REAL = 2
 PID_SERVE = 3
+PID_FLEET = 4
 
 
 def meta_event(pid: int, name: str, tid: Optional[int] = None) -> Dict:
@@ -591,6 +593,164 @@ def drift_attribution(sim_ops: Dict[str, Dict],
     if step:
         out["step"] = step
     return out
+
+
+# the fleet lifecycle states a trace lane renders (mirrors
+# fleet.job.STATES + the historical "evicted" terminal; kept local so
+# the obs layer stays importable without the fleet package)
+STATES_ORDER = ("pending", "placing", "running", "draining", "resized",
+                "done", "failed", "evicted")
+
+
+def fleet_trace_events(records: Iterable[Dict],
+                       pid: int = PID_FLEET,
+                       label: str = "fleet") -> List[Dict]:
+    """Perfetto lanes for one fleet coordinator run, from its
+    ``fleet_job`` / ``fleet_rebalance`` / ``fleet_util`` obs records.
+
+    Lanes:
+
+      * one counter track per job (``job <name> devices``) sampled
+        wherever its assignment is visible: ``fleet_job`` records
+        carrying a ``devices`` field (admission, resize, completion —
+        completion and eviction drop the track to 0) and
+        ``fleet_rebalance`` moves (the post-move ``to`` length);
+      * one LIFECYCLE thread per job (``job <name>``): an ``X`` span
+        per state the job passes through (pending / placing / running
+        / draining / resized), named by the state and spanning until
+        the next transition; terminal ``done``/``failed`` is a
+        zero-duration marker.  Lifecycle cats are not ``compute`` —
+        the spans of different jobs legitimately overlap;
+      * a ``coordinator`` thread with one zero-duration ``rebalance``
+        marker per ``fleet_rebalance`` record, plus flow arrows
+        (``ph: "s"``/``"f"``, ids from 2_000_000 — above the serving
+        handoff range) from each rebalance to the first subsequent
+        ``draining`` transition of every job it moves: the causal
+        edge from the packing decision to the resizes it bought;
+      * a ``pool util`` counter lane from the per-round ``fleet_util``
+        records: average busy / resizing / idle device counts over
+        each round span.
+
+    The time axis prefers the records' virtual-clock ``vts`` stamps
+    (bit-deterministic under a seed) and falls back to wall ``ts`` for
+    pre-clock streams; everything is shifted so the earliest event
+    lands at 0."""
+    records = list(records)
+
+    def tv(r) -> Optional[float]:
+        v = r.get("vts", r.get("ts"))
+        return float(v) if isinstance(v, (int, float)) else None
+
+    samples: List[tuple] = []   # (t, job, devices) counter samples
+    trail: Dict[str, List[tuple]] = {}   # job -> [(t, state)]
+    rebalances: List[tuple] = []         # (t, rebalance_no, [jobs])
+    utils: List[tuple] = []              # (t, busy, resizing, idle)
+    job_order: List[str] = []
+    for r in records:
+        kind = r.get("kind")
+        t = tv(r)
+        if t is None:
+            continue
+        if kind == "fleet_job":
+            job = r.get("job")
+            devices = r.get("devices")
+            state = r.get("state")
+            if job is None:
+                continue
+            job = str(job)
+            if job not in trail:
+                trail[job] = []
+                job_order.append(job)
+            if state in STATES_ORDER:
+                trail[job].append((t, state))
+            if state in ("done", "failed", "evicted"):
+                samples.append((t, job, 0.0))
+            elif isinstance(devices, (int, float)):
+                samples.append((t, job, float(devices)))
+        elif kind == "fleet_rebalance":
+            moved = []
+            for mv in r.get("moves", []) or []:
+                job = mv.get("job")
+                to = mv.get("to")
+                if job is not None and isinstance(to, list):
+                    samples.append((t, str(job), float(len(to))))
+                    moved.append(str(job))
+            rebalances.append((t, r.get("rebalance"), moved))
+        elif kind == "fleet_util":
+            span = r.get("span_steps")
+            if isinstance(span, (int, float)) and span > 0:
+                utils.append((t,
+                              float(r.get("busy_steps", 0)) / span,
+                              float(r.get("resizing_steps", 0)) / span,
+                              float(r.get("idle_steps", 0)) / span))
+    events = [meta_event(pid, label)]
+    times = ([s[0] for s in samples]
+             + [t for ts_ in trail.values() for t, _ in ts_]
+             + [t for t, _, _ in rebalances] + [t for t, *_ in utils])
+    if not times:
+        return events
+    t0, t_end = min(times), max(times)
+
+    def ts(t: float) -> float:
+        return (t - t0) * _US
+
+    # per-job device-occupancy counters (the original lanes)
+    for t, job, devices in sorted(samples):
+        events.append({"name": f"job {job} devices", "ph": "C",
+                       "pid": pid, "tid": 0, "ts": ts(t),
+                       "args": {"devices": devices}})
+    # pool-utilization counter lane
+    for t, busy, resizing, idle in sorted(utils):
+        events.append({"name": "pool util", "ph": "C", "pid": pid,
+                       "tid": 0, "ts": ts(t),
+                       "args": {"busy": busy, "resizing": resizing,
+                                "idle": idle}})
+    # per-job lifecycle span lanes
+    tids: Dict[str, int] = {}
+    for job in job_order:
+        tids[job] = 10 + len(tids)
+        events.append(meta_event(pid, f"job {job}", tids[job]))
+        walk = sorted(trail[job], key=lambda s: s[0])
+        for i, (t, state) in enumerate(walk):
+            if state in ("done", "failed", "evicted"):
+                events.append({"name": state, "cat": "lifecycle",
+                               "ph": "X", "ts": ts(t), "dur": 0.0,
+                               "pid": pid, "tid": tids[job],
+                               "args": {"job": job}})
+                continue
+            until = walk[i + 1][0] if i + 1 < len(walk) else t_end
+            events.append({"name": state, "cat": "lifecycle",
+                           "ph": "X", "ts": ts(t),
+                           "dur": max(0.0, (until - t) * _US),
+                           "pid": pid, "tid": tids[job],
+                           "args": {"job": job}})
+    # coordinator lane: rebalance markers + causal arrows to the
+    # draining transitions each rebalance bought.  Flow ids from
+    # 2_000_000 — above the serving handoff range, so merged
+    # serve+fleet traces never collide.
+    if rebalances:
+        events.append(meta_event(pid, "coordinator", 1))
+    flow_id = 2_000_000
+    for t, number, moved in sorted(rebalances,
+                                   key=lambda r: (r[0], str(r[1]))):
+        events.append({"name": f"rebalance {number}", "cat": "sched",
+                       "ph": "X", "ts": ts(t), "dur": 0.0, "pid": pid,
+                       "tid": 1, "args": {"moves": len(moved)}})
+        for job in moved:
+            drains = [tj for tj, state in trail.get(job, [])
+                      if state == "draining" and tj >= t]
+            if not drains or job not in tids:
+                continue
+            args = {"job": job, "rebalance": number}
+            events.append({"name": "move", "cat": "sched", "ph": "s",
+                           "id": flow_id, "ts": ts(t), "pid": pid,
+                           "tid": 1, "args": args})
+            events.append({"name": "move", "cat": "sched", "ph": "f",
+                           "bp": "e", "id": flow_id,
+                           "ts": ts(min(drains)), "pid": pid,
+                           "tid": tids[job], "args": args})
+            flow_id += 1
+    return events
 
 
 def trace_events_from_file(path: str) -> List[Dict]:

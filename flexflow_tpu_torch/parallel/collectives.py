@@ -44,6 +44,21 @@ tensors of the ``meta`` device (the dry run, ``--dry-compile``) every
 collective returns a meta tensor of its output's shape without calling
 ``torch.distributed``.
 
+**The recorder.**  Inside :func:`recording` every collective adds one
+record to a list, live or on ``meta`` tensors alike, in the fields of
+the JAX package's ``hlo_audit.parse_collectives``: ``op`` (XLA's
+mnemonic), ``bytes`` (the buffer it moves: an all-gather's or
+all-reduce's result, a reduce-scatter's piece, an all-to-all's or a
+rotation's block; a halo exchange's largest member's rows, one record
+per direction), ``groups`` (the ranks of the process group, or the
+``[source, target]`` pairs of a point-to-point move), ``size`` (the
+group's) and ``owner``, the one rank that keeps the record when the
+ranks' lists are joined (the group's first rank), so that a collective
+counts once per group, not once per member; the join then makes the
+records of parallel groups one record listing every group, as XLA's
+instruction does (``utils/hlo_audit.join_records``).  A group of one
+member records nothing.
+
 **The order of the backward collectives.**  Under placement the ranks
 run different ops, so their autograd graphs differ, and autograd alone
 would issue the backward collectives of two groups that share ranks in
@@ -88,6 +103,48 @@ def _group_order(group: Group) -> List[int]:
     return [group.ranks.index(r) for r in srt]
 
 
+# ---------------------------------------------------------------------------
+# the recorder (utils/hlo_audit.py)
+
+#: the records of the open :func:`recording`, None when none is open (a
+#: module global, not a context variable: autograd runs the backward's
+#: collectives on threads of its own)
+_records = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective issued inside the block (and on ``meta``
+    tensors every one that would be): yields the list the records go
+    to.  Recordings do not nest."""
+    global _records
+    if _records is not None:
+        raise RuntimeError("a collective recording is open already")
+    _records = []
+    try:
+        yield _records
+    finally:
+        _records = None
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _record(op: str, nbytes: int, group: Group, pairs=None) -> None:
+    """One record of ``op`` over ``group`` moving ``nbytes``; ``pairs``
+    the ``(source, target)`` ranks of a point-to-point move."""
+    if _records is None or group.size <= 1:
+        return
+    ranks = sorted(int(r) for r in group.ranks)
+    groups = [[int(a), int(b)] for a, b in pairs] if pairs is not None \
+        else [ranks]
+    if groups:
+        _records.append({"op": op, "bytes": float(nbytes),
+                         "groups": groups, "owner": ranks[0],
+                         "size": len(ranks)})
+
+
 def all_gather_list(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     """Every member's ``x`` (one shape), in ``group.positions`` order."""
     import torch.distributed as dist
@@ -95,6 +152,7 @@ def all_gather_list(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     x = x.contiguous()
     if group.size == 1 and group.handle is None:
         return [x]
+    _record("all-gather", _nbytes(x) * group.size, group)
     out = [torch.empty_like(x) for _ in range(group.size)]
     if x.is_meta:
         return out
@@ -115,6 +173,7 @@ def reduce_scatter_list(pieces: Sequence[torch.Tensor],
         return pieces[0]
     order = _group_order(group)
     out = torch.empty_like(pieces[0])
+    _record("reduce-scatter", _nbytes(out), group)
     if out.is_meta:
         return out
     dist.reduce_scatter(out, [pieces[m].contiguous() for m in order],
@@ -126,7 +185,10 @@ def all_reduce_(x: torch.Tensor, group: Group) -> torch.Tensor:
     """Sum ``x`` over the group, in place."""
     import torch.distributed as dist
 
-    if (group.size == 1 and group.handle is None) or x.is_meta:
+    if group.size == 1 and group.handle is None:
+        return x
+    _record("all-reduce", _nbytes(x), group)
+    if x.is_meta:
         return x
     dist.all_reduce(x, group=_handle(group))
     return x
@@ -282,6 +344,7 @@ def _all_to_all(x, group: Group, j: int, k: int) -> torch.Tensor:
     chunks = [c.contiguous() for c in torch.chunk(x, group.size, dim=k)]
     order = _group_order(group)
     out = [torch.empty_like(chunks[0]) for _ in range(group.size)]
+    _record("all-to-all", _nbytes(x), group)
     if not x.is_meta:
         dist.all_to_all(out, [chunks[m] for m in order],
                         group=_handle(group))
@@ -392,7 +455,10 @@ def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.detach().clone()
-    if (group.size == 1 and group.handle is None) or x.is_meta:
+    if group.size == 1 and group.handle is None:
+        return x
+    _record("all-reduce", _nbytes(x), group)
+    if x.is_meta:
         return x
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_handle(group))
     return x
@@ -406,11 +472,18 @@ def _rotate(x: torch.Tensor, group: Group, shift: int,
 
     size = group.size
     x = x.contiguous()
+    if transport == "gather":
+        pieces = all_gather_list(x, group)
+        if x.is_meta:
+            return torch.empty_like(x)
+        me = group.ranks.index(dist.get_rank())
+        return pieces[(me - shift) % size].clone()
+    _record("collective-permute", _nbytes(x), group,
+            pairs=[(group.ranks[m], group.ranks[(m + shift) % size])
+                   for m in range(size)])
     if x.is_meta:
         return torch.empty_like(x)
     me = group.ranks.index(dist.get_rank())
-    if transport == "gather":
-        return all_gather_list(x, group)[(me - shift) % size].clone()
     dst = group.ranks[(me + shift) % size]
     src = group.ranks[(me - shift) % size]
     out = torch.empty_like(x)
@@ -531,7 +604,32 @@ class HaloExchange(torch.autograd.Function):
                 [(m, r) for m, r in recvs if r is not None])
 
     @staticmethod
+    def _record(group, dim, blocks, spans, shape, esize, reverse):
+        """The exchange's records, one per direction as XLA's permutes of
+        a halo: every member's sends to later members, then to earlier
+        ones (``reverse``: the backward's, each forward piece sent back),
+        each record's bytes the largest member's."""
+        row = esize
+        for d, n in enumerate(shape):
+            if d != dim:
+                row *= n
+        for later in (True, False):
+            pairs, sent = [], [0] * len(blocks)
+            for m in range(len(blocks)):
+                for t, (lo, hi) in HaloExchange._plan(blocks, spans, m)[0]:
+                    if (t > m) != later:
+                        continue
+                    src, dst = (t, m) if reverse else (m, t)
+                    pairs.append((group.ranks[src], group.ranks[dst]))
+                    sent[src] += (hi - lo) * row
+            if pairs:
+                _record("collective-permute", max(sent), group,
+                        pairs=pairs)
+
+    @staticmethod
     def run(x, group, dim, blocks, spans, me, transport):
+        HaloExchange._record(group, dim, blocks, spans, x.shape,
+                             x.element_size(), False)
         sends, recvs = HaloExchange._plan(blocks, spans, me)
         base = blocks[me][0]
 
@@ -558,6 +656,8 @@ class HaloExchange(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g_token):
         group, dim, blocks, spans, me, transport, shape = ctx.meta
+        HaloExchange._record(group, dim, blocks, spans, shape,
+                             g.element_size(), True)
         sends, recvs = HaloExchange._plan(blocks, spans, me)
         base, lo0 = blocks[me][0], spans[me][0]
         # the reverse exchange: the gradient of each received piece goes

@@ -574,15 +574,13 @@ class ServeEngine:
     def _agreed(self, flag) -> bool:
         """``flag`` agreed over the world's ranks (any rank's true makes
         it true on all: an all-reduce MAX); the flag itself on one."""
-        flag = bool(flag)
         machine = self.model.machine
-        if not (self.model.sharded and machine.distributed):
-            return flag
-        from flexflow_tpu_torch.parallel import collectives
+        group = machine.world_group() if machine.distributed else None
+        if group is None or group.handle is None:
+            return bool(flag)
+        from flexflow_tpu_torch import distributed
 
-        t = torch.tensor([float(flag)], device=self.model.device)
-        return bool(collectives.all_reduce_max(
-            t, machine.world_group()).item())
+        return distributed.agreed(flag, self.model.device, group.handle)
 
     def _read_rows(self, outs, active, spans):
         """``(rows, xs)``: each active slot's log-prob row at its last

@@ -79,11 +79,10 @@ class ReplicaWorld:
 
     def __init__(self, machine, prefill_ranks: Sequence[Sequence[int]],
                  decode_ranks: Sequence[Sequence[int]]):
-        import torch.distributed as dist
+        from flexflow_tpu_torch import distributed
 
         self.machine = machine
-        self.transport = machine.device \
-            if str(dist.get_backend()) == "nccl" else torch.device("cpu")
+        self.transport = distributed.control_device(machine.device)
         self.group = machine.world_group()
         self.prefill = [ReplicaSeat(self, r) for r in prefill_ranks]
         self.decode = [ReplicaSeat(self, r) for r in decode_ranks]
@@ -102,10 +101,9 @@ class ReplicaWorld:
     def agreed(self, flag) -> bool:
         """``flag`` agreed over the world: any rank's true makes it true
         on every rank (an all-reduce MAX)."""
-        from flexflow_tpu_torch.parallel import collectives
+        from flexflow_tpu_torch import distributed
 
-        t = torch.tensor([float(bool(flag))], device=self.transport)
-        return bool(collectives.all_reduce_max(t, self.group).item())
+        return distributed.agreed(flag, self.transport, self.group.handle)
 
     def move(self, req, layout, dst_idx: int) -> None:
         """Move ``req``'s exported KV rows (``layout``: the exporting

@@ -867,6 +867,112 @@ def directed_resize(model, *, keep=None, add=None, step: int,
                         cause="directed", data=data)
 
 
+def slice_move(model, pool, cur: Sequence[int], target: Sequence[int], *,
+               step: int, params, state, opt_state=None, rebuild, build,
+               pre_strategy=None, olog=None, log=print,
+               objective: str = "makespan", train: bool = True):
+    """A directed move of a job that runs on a slice of ``pool``'s world
+    (the fleet, ``fleet/job.py``) from the pool ordinals ``cur`` to
+    ``target``, one shrink (``target`` inside ``cur``) or one grow, with
+    no re-form of the world.  Every rank of the world calls it, the
+    slice's ranks with the live ``params``/``state``/``opt_state``, the
+    others with None.  The live state is gathered from the old slice
+    (``FFModel.gather_trees``) onto its first rank; rank 0 re-searches
+    the strategy for the new slice (:func:`research_strategy` under
+    ``objective``, warm-started from the running strategy, on a shrink,
+    or from ``pre_strategy``, on a grow) and shares it; every rank builds
+    the new slice's model (``build(strategy)``: every slice's groups are
+    made on every rank, in one order); the old slice's first rank sends
+    the state to the new slice's ranks alone, point to point, and they
+    place it (a rank outside both moves nothing).  The migration plan is
+    priced on that first rank and shared with rank 0, which writes one
+    ``elastic_resize`` record with the fields of JAX's
+    ``directed_resize`` (``cause: "directed"``), no fault record; a
+    shrink below ``--min-devices`` is refused as :func:`recover`
+    refuses it.  Returns ``(new_model, carry, record)``, ``carry``'s
+    trees None on a rank outside the new slice."""
+    from flexflow_tpu_torch import distributed, obs
+    from flexflow_tpu_torch.strategy import Strategy
+
+    olog = olog if olog is not None else obs.NULL
+    t0 = time.perf_counter()
+    cur, target = sorted(int(o) for o in cur), sorted(int(o) for o in target)
+    cfg = model.config
+    shrink = set(target) < set(cur)
+    if shrink:
+        dead = [i for i, o in enumerate(cur) if o not in target]
+        min_devices = max(int(getattr(cfg, "min_devices", 1) or 1), 1)
+        log(f"elastic: directed shrink at iteration {step} — releasing "
+            f"ordinals {dead}, keeping {len(target)}/{len(cur)}")
+        if len(target) < min_devices:
+            olog.event("elastic_refused", step=step, live=len(target),
+                       min_devices=min_devices, dead=dead)
+            raise ElasticShrinkRefused(len(target), min_devices, dead)
+    runs = not getattr(model.machine, "bystander", False) \
+        and model.device.type != "meta"
+    trees = None
+    if runs:
+        if model.sharded:
+            trees = model.gather_trees(params, state, opt_state, dst=0)
+        else:
+            trees = tuple({k: {leaf: v.detach().cpu() for leaf, v in
+                               sub.items()} for k, sub in (t or {}).items()}
+                          for t in (params, state, opt_state))
+    holder = int(pool.view[cur[0]])   # the old slice's first rank
+    strategy = getattr(cfg, "strategies", None)
+    warm, fallback = (strategy, None) if shrink else (pre_strategy,
+                                                     strategy)
+    head = None
+    if pool.rank == 0:
+        r0 = time.perf_counter()
+        found, research = research_strategy(
+            cfg, rebuild, pool.slice_of(target), warm, olog=olog, log=log,
+            fallback_strategy=fallback, objective=objective)
+        head = (found.to_json(), research, time.perf_counter() - r0)
+    found_json, research, research_s = distributed.share(head, 0)
+    new_model = build(Strategy.from_json(found_json))
+    carry = {"start_iter": step, "params": None, "state": None,
+             "opt_state": None}
+    now = not getattr(new_model.machine, "bystander", False) \
+        and new_model.device.type != "meta"
+    trees = distributed.send_to(
+        trees, holder, [int(pool.view[o]) for o in target]) \
+        if pool.distributed else trees
+    if now:
+        p, st, opt = new_model.place_state(*trees)
+        if train:
+            opt = opt or new_model.init_opt_state(p)
+        carry.update(params=p, state=st, opt_state=opt if train else None)
+    rec = {"step": step, "direction": "shrink" if shrink else "grow",
+           "from_devices": len(cur), "to_devices": len(target)}
+    if shrink:
+        rec["dead"] = dead
+    else:
+        rec["returned"] = [o for o in target if o not in cur]
+    rec.update(cause="directed", research_s=research_s, research=research,
+               migration="in_memory", resume_step=step, steps_lost=0,
+               total_s=time.perf_counter() - t0)
+    plan = None
+    if pool.rank == holder:
+        try:
+            from flexflow_tpu_torch.parallel.regrid import \
+                plan_state_migration
+
+            plan = plan_state_migration(model, new_model, *trees)
+        except Exception as e:  # a planning view it cannot price
+            plan = str(e)
+    plan = distributed.share(plan, holder)
+    if isinstance(plan, dict):
+        _plan_fields(rec, {"plan": plan})
+    else:
+        log(f"elastic: no migration plan for the record ({plan})")
+    olog.event("elastic_resize", **rec)
+    log(f"elastic: moved {len(cur)} -> {len(target)} devices at iteration "
+        f"{step} (slice {cur} -> {target}, re-search {research_s:.2f}s "
+        f"[{(research or {}).get('mode')}], migration in_memory)")
+    return new_model, carry, rec
+
+
 def serve_resize(model, params, state, plan_machine, *, rebuild, step: int,
                  call: Optional[Sequence[int]] = None, olog=None,
                  log=print, objective: str = "latency"):

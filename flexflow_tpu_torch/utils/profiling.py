@@ -110,11 +110,13 @@ def time_op_shard(op, pc, dtype: str = "float32", repeats: int = 3,
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, record_shapes: bool = False):
     """A ``torch.profiler`` trace of everything run inside the block (the
     CPU's operators and, where CUDA is available, the card's kernels and
     copies), written at the end as ``<logdir>/trace_<pid>.json`` (Chrome
-    trace format; open it in Perfetto or ``chrome://tracing``)."""
+    trace format; open it in Perfetto or ``chrome://tracing``);
+    ``record_shapes`` adds each operator's input shapes (what
+    ``utils/hlo_profile.py`` attributes kernels with)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,7 +124,7 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir,
                                           f"trace_{os.getpid()}.json"))

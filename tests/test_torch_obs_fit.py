@@ -112,8 +112,12 @@ def test_obs_flags_parse_as_jax():
         j, t = JConfig.from_args(args), TConfig.from_args(args)
         assert (t.trace_dir, t.profiling) == (j.trace_dir, j.profiling) \
             != ("", False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TConfig.from_args(["--fleet-quantum", "2"])
+    # the fleet's flags are ported, as JAX parses them
+    for flag, field in (("--fleet-quantum", "fleet_quantum"),
+                        ("--fleet-search-budget-s",
+                         "fleet_search_budget_s")):
+        assert getattr(TConfig.from_args([flag, "2"]), field) == \
+            getattr(JConfig.from_args([flag, "2"]), field) == 2
     # the serving runtime's flags are ported, as JAX parses them
     for flag, field in (("--serve-queue-hi", "serve_queue_hi"),
                         ("--serve-prefill-devices",

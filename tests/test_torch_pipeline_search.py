@@ -10,8 +10,9 @@ term within 1e-9 relative, take the same decision and emit the same
 8 devices, with a ``tp_divisor`` and a ``reference_s``, and on two
 tiers of 4 (``--ici-group 4``), where a cut crosses the slow tier.  The
 app writes JAX's ``__pipeline__`` block and ``result["pipeline"]``, a
-proto ``-o`` the JSON sidecar, and an accepted block on two tiers stops
-for the audit unless ``--no-audit``.
+proto ``-o`` the JSON sidecar, and an accepted block on two tiers is
+audited (its collectives against its modeled comm) unless
+``--no-audit``.
 """
 
 import json
@@ -158,14 +159,24 @@ def test_accepted_block_on_two_tiers_needs_no_audit(tmp_path,
     from flexflow_tpu_torch.apps import search
 
     out = tmp_path / "s.json"
-    # ten proposals find no per-op win, so the block's own audit is
-    # the one that stops the run
+    # ten proposals find no per-op win, so the block's own audit is the
+    # one that runs: the pipelined program's collectives against its
+    # modeled comm, the block kept exactly where they hold
     argv = ["transformer", "--devices", "8", "-b", "32", "-i", "10",
             "--ici-group", "4", "-o", str(out)]
-    with pytest.raises(NotImplementedError,
-                       match=r"(?s)__pipeline__.*item 7.*--no-audit"):
-        search.main(argv, log=lambda *a: None)
-    assert not out.exists()
+    audited = search.main(argv, log=lambda *a: None)
+    detail = audited["pipeline"]["audit"]
+    assert detail["plan"] == "pipeline"
+    # the pipelined program's collectives price within its modeled comm
+    # plus half the claimed win (JAX's decision on these argv:
+    # tests/test_torch_audit_search.py)
+    assert detail["compiled_pred_s"] == pytest.approx(0.010673, abs=1e-6)
+    assert detail["consistent"] is True
+    assert detail["compiled_pred_s"] <= detail["modeled_comm_s"] + \
+        0.5 * detail["claimed_win_s"]
+    assert audited["pipeline"]["accepted"] == detail["consistent"]
+    assert ("__pipeline__" in json.loads(out.read_text())) \
+        == detail["consistent"]
     res = search.main(argv + ["--no-audit"], log=lambda *a: None)
     assert res["speedup_vs_dp"] <= 1.05 and res["pipeline"]["accepted"]
     assert json.loads(out.read_text())["__pipeline__"] \

@@ -12,8 +12,8 @@ against the JAX package's, on the same record streams:
   trace; the serve assertions of ``tests/test_serve.py:366`` and
   ``tests/test_disagg.py:517``, and the trace ones of
   ``tests/test_trace.py:154-208`` hold on the port;
-* ``report fusions`` and ``report fleet`` raise ``NotImplementedError``
-  naming ROADMAP item 7.
+* ``report fusions`` and ``report fleet`` answer a stream that is not
+  theirs as JAX's do.
 """
 
 import json
@@ -243,10 +243,21 @@ def test_report_json_flag(streams):
 
 @pytest.mark.parametrize("sub", ["fusions", "fleet"])
 def test_unported_subcommands_raise(streams, sub):
+    """``fusions`` and ``fleet`` are ported: a training stream is neither
+    a profile (``fusions`` fails to read it as one JSON object, as JAX's
+    does) nor a fleet run (``fleet`` exits 1, as JAX's does)."""
+    from flexflow_tpu.apps import report as j_report
+
     from flexflow_tpu_torch.apps import report
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        report.main([sub, streams["fit"]], log=lambda *a: None)
+    argv = [sub, streams["fit"]]
+    if sub == "fusions":
+        for mod in (report, j_report):
+            with pytest.raises(json.JSONDecodeError):
+                mod.main(argv, log=lambda *a: None)
+        return
+    assert report.main(argv, log=lambda *a: None) == \
+        j_report.main(argv, log=lambda *a: None) == 1
 
 
 def test_usage_without_paths():

@@ -9,9 +9,9 @@
 * ``--serve``, ``--disagg 2`` and ``--objective decode`` write the JAX
   driver's file and line (the serving search's tiny-GPT artifacts:
   ``tests/test_torch_serve_search.py``);
-* the flag of a module not ported raises ``NotImplementedError``
-  (``--audit``, and the JAX driver's default audit of a saved plan's win
-  on two tiers unless ``--no-audit``);
+* ``--audit`` parses as the JAX driver parses it, and the JAX driver's
+  default audit of a saved plan's win on two tiers runs unless
+  ``--no-audit`` (the audit's parity: ``tests/test_torch_audit*.py``);
 * the transformer's search logs its GPipe candidates and decision and
   carries the block exactly when it is accepted;
 * ``--measured`` raises without CUDA, and with ``--device cpu`` times
@@ -97,25 +97,43 @@ def test_serving_flags_write_the_jax_drivers_file(tmp_path, jax_constants,
 
 @pytest.mark.parametrize("flags", [["--audit"]], ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
+    """No flag of the JAX driver is refused now: ``--audit`` parses as
+    JAX parses it."""
+    from flexflow_tpu.apps import search as j_search
+
     from flexflow_tpu_torch.apps import search
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search.main(["alexnet", "--devices", "8", "-i", "10"] + flags,
-                    log=lambda *a: None)
+    argv = ["alexnet", "--devices", "8", "-i", "10"] + flags
+    got, want = search.parse_args(argv), j_search.parse_args(argv)
+    assert got["audit"] is want["audit"] is True
+    assert not hasattr(search, "UNPORTED_FLAGS")
 
 
 def test_default_audit_raises_and_no_audit_writes(tmp_path):
+    """The default audit of a saved win on two tiers runs (the executor's
+    collectives judge the claim, no ``error``); ``--no-audit`` writes
+    the simulated plan as it is."""
     from flexflow_tpu_torch.apps import search
 
-    argv = ["alexnet", "--devices", "8", "--ici-group", "4", "-i", "3000",
+    argv = ["alexnet", "--devices", "4", "--ici-group", "2", "-i", "3000",
             "-o", str(tmp_path / "s.json")]
-    with pytest.raises(NotImplementedError, match="--no-audit"):
-        search.main(argv, log=lambda *a: None)
-    assert not (tmp_path / "s.json").exists()
+    audited = search.main(argv, log=lambda *a: None)
+    audit = audited["hlo_audit"]
+    assert "error" not in audit
+    # on the card's constants the executor's collectives save less than
+    # half the claimed win, for the searched plan and the canonical
+    # re-search's alike: data parallelism is written
+    assert audit["plan"] == "dp" and audited["speedup_vs_dp"] == 1.0
+    for key in ("rejected_searched", "rejected_canonical"):
+        assert audit[key]["mode"] == "time"
+        assert audit[key]["consistent"] is False
+        assert audit[key]["searched_pred_s"] < audit[key]["dp_pred_s"]
+    saved = json.loads((tmp_path / "s.json").read_text())
+    assert saved["__predicted__"]["speedup_vs_dp"] == 1.0
     out = search.main(argv + ["--no-audit"], log=lambda *a: None)
     assert out["speedup_vs_dp"] > 1.05
     saved = json.loads((tmp_path / "s.json").read_text())
-    assert saved["__predicted__"]["devices"] == 8
+    assert saved["__predicted__"]["devices"] == 4
 
 
 def test_transformer_search_proposes_a_pipeline_block():

@@ -225,8 +225,10 @@ def test_cnn_app_flags():
     assert (cfg.batch_size, cfg.learning_rate, cfg.compute_dtype,
             cfg.input_height, cfg.weight_decay, cfg.momentum) == \
         (8, 0.1, "bfloat16", 299, 1e-4, 0.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_cnn.parse(["alexnet", "--fleet-quantum", "x"])
+    # the fleet's flags are ported: parsed as JAX parses them
+    assert t_cnn.parse(["alexnet", "--fleet-quantum", "3"])[1] \
+        .fleet_quantum == JConfig.from_args(["--fleet-quantum", "3"]) \
+        .fleet_quantum == 3
     # the serving runtime's flags are ported: parsed as JAX parses them
     for flag, field in (("--serve-queue-hi", "serve_queue_hi"),
                         ("--serve-prefill-devices",

@@ -158,8 +158,9 @@ def test_cnn_app_densenet_flags():
                 cfg.param_dtype, cfg.input_height, cfg.input_width,
                 cfg.num_classes) == (64, 13, "bfloat16", "float32", 224, 224,
                                      1000)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_cnn.parse(["densenet", "--fleet-quantum", "2"])
+    # the fleet's flags are ported
+    assert t_cnn.parse(["densenet", "--fleet-quantum", "2"])[1] \
+        .fleet_quantum == 2
     # the kernel policy parses at the one value the port runs
     assert t_cnn.parse(["densenet", "--pallas", "on"])[1] == \
         t_cnn.parse(["densenet"])[1]

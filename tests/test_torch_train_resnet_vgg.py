@@ -198,8 +198,9 @@ def test_cnn_app_resnet_vgg_flags(name):
         (64, 13, "bfloat16", "float32", 224, 224, 1000, 0.01, 1e-4)
     ff = t_cnn.build(model, TConfig(batch_size=1), torch.device("cpu"))
     assert len(ff.layers) == (105 if model.startswith("resnet") else 23)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_cnn.parse([name, "--fleet-quantum", "2"])
+    # the fleet's flags are ported
+    assert t_cnn.parse([name, "--fleet-quantum", "2"])[1] \
+        .fleet_quantum == 2
     # the kernel policy parses at the one value the port runs
     assert t_cnn.parse([name, "--pallas", "on"])[1] == \
         t_cnn.parse([name])[1]
